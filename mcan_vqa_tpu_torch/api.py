@@ -28,6 +28,7 @@ import torch
 from mcan_vqa_tpu_torch.configs import Config
 from mcan_vqa_tpu_torch.data import (load_answer_dict, pad_to_bucket,
                                      prep_request_inputs, topk_answers)
+from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.models.net import MCANet
 from mcan_vqa_tpu_torch.ops.serving import build_production_engine
 from mcan_vqa_tpu_torch.train.checkpoint import load_reference_checkpoint
@@ -42,7 +43,7 @@ class Predictor:
                  ix_to_ans: Optional[Dict[str, str]] = None,
                  max_batch: int = 64, engine: str = "auto",
                  latency_buckets: Optional[Sequence[int]] = None,
-                 device=None, mesh=None, act_calibration=None,
+                 device="cuda", mesh=None, act_calibration=None,
                  act_scales=None, auto_calibrate: int = 0,
                  q8aux: bool = False):
         """state_dict: reference-shaped MCANet weights
@@ -52,8 +53,8 @@ class Predictor:
         n rows pads to the smallest bucket >= n.
 
         engine: "fused" | "plain" | "auto" (= "fused" on every device).
-        device: where the engine runs; default the CUDA device when one
-        is present, else the CPU.
+        device: where the engine runs, "cuda" by default; with no CUDA
+        device it raises unless the caller passes device="cpu".
 
         mesh, act_calibration, act_scales, auto_calibrate, q8aux: the JAX
         Predictor's int8 / calibration / multi-chip arguments; not ported,
@@ -77,11 +78,9 @@ class Predictor:
         if not all(0 < b <= max_batch for b in buckets):
             raise ValueError(
                 f"latency_buckets must be in (0, max_batch]: {buckets}")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
         self.cfg = cfg
         self.engine = engine
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.token_to_ix = token_to_ix
         if ix_to_ans is None:
             _, ix_to_ans = load_answer_dict()

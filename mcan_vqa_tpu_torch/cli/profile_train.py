@@ -1,0 +1,166 @@
+"""Where the time of a train step goes, on the card.
+
+    python -m mcan_vqa_tpu_torch.cli.profile_train [--steps 5] [--batch 64]
+
+Builds the ``Trainer`` at MCAN-small width (random weights from a seed) on
+``SyntheticVQADataset(answer_size=3129)`` and times its step two ways:
+
+  * ``loader``: the Trainer's own loop, batches assembled on the host by
+    ``BatchLoader`` while the card trains (host clock, synchronised);
+  * ``preloaded``: the same step on batches already on the card, first
+    by the host clock alone, then under ``torch.profiler``: ms per step
+    (the profiler's own host cost included), the device's busy time (the
+    union of its kernel and copy intervals) and idle share against the
+    unprofiled step, device events per step, and device time by kernel
+    group (the port's kernels by name, PyTorch's GEMMs, PyTorch's
+    elementwise and reduction kernels, copies) with the largest PyTorch
+    kernels by name.
+
+Prints one JSON line with every number last. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+PORT_KERNELS = ("gemm_kernel", "masked_attention_bwd_kernel",
+                "masked_attention_kernel", "residual_layernorm_bwd_kernel",
+                "residual_layernorm_kernel", "col_sum_kernel")
+
+
+def kernel_group(name: str) -> str:
+    for k in PORT_KERNELS:
+        if k in name:
+            return k
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    if any(s in low for s in ("gemm", "cutlass", "sm90_", "sm80_", "cublas")):
+        return "torch gemm"
+    if "reduce" in low:
+        return "torch reduction"
+    return "torch elementwise/other"
+
+
+def union_us(intervals: List[tuple]) -> float:
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--batch", type=int, default=64)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train measures the card: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+
+    n = args.warmup + args.steps
+    cfg = Config(batch_size=args.batch, max_epoch=1, verbose=False,
+                 ckpts_dir="ckpts/profile_train",
+                 log_path="results/profile_train")
+    ds = SyntheticVQADataset(cfg, size=n * args.batch, answer_size=3129)
+    trainer = Trainer(cfg, ds)
+    state = trainer.state
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+
+    # the Trainer's loop: host-assembled batches through the loader
+    times = []
+    for i, batch in enumerate(trainer.loader()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainer.step_fn(state, batch)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    loader_ms = sum(times[args.warmup:]) / args.steps
+    print(f"[loader] ms/step {loader_ms:.3f} (steps {args.warmup + 1}.."
+          f"{n}: {', '.join(f'{t:.1f}' for t in times[args.warmup:])})",
+          flush=True)
+
+    # the same step on batches already on the card: host clock, then
+    # profiled
+    batches = list(trainer.loader())
+    for b in batches[:args.warmup]:
+        trainer.step_fn(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[args.warmup:]:
+        trainer.step_fn(state, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    print(f"[preloaded] ms/step {step_ms:.3f}", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches[args.warmup:]:
+            trainer.step_fn(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    # device kernels and copies; the profiler also lays user annotations
+    # (the optimizer's "Optimizer.step#AdamW.step" range) on the device
+    # timeline, which span other kernels and are left out
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and "#" not in e.name]
+    busy_ms = union_us([(e.time_range.start, e.time_range.end)
+                        for e in dev]) / 1e3 / args.steps
+    groups = defaultdict(float)
+    counts = defaultdict(int)
+    torch_names = defaultdict(float)
+    for e in dev:
+        g = kernel_group(e.name)
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        groups[g] += ms
+        counts[g] += 1
+        if g.startswith("torch"):
+            torch_names[e.name[:90]] += ms / args.steps
+    top = dict(sorted(torch_names.items(), key=lambda kv: -kv[1])[:10])
+    by_group = {g: {"ms_per_step": groups[g] / args.steps,
+                    "events_per_step": counts[g] / args.steps}
+                for g in sorted(groups, key=groups.get, reverse=True)}
+    print(f"[preloaded, profiled] ms/step {wall_ms:.3f}, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f} of the "
+          f"unprofiled step, {len(dev) / args.steps:.0f} device events per "
+          f"step", flush=True)
+    for g, v in by_group.items():
+        print(f"  {g:32s} {v['ms_per_step']:8.3f} ms  "
+              f"{v['events_per_step']:6.0f} events", flush=True)
+    print("  largest PyTorch kernels (ms per step):", flush=True)
+    for name, ms in top.items():
+        print(f"    {ms:8.3f}  {name}", flush=True)
+    result = {"card": smi, "batch": args.batch,
+              "steps": args.steps, "loader_ms_per_step": loader_ms,
+              "preloaded_ms_per_step": step_ms,
+              "profiled_ms_per_step": wall_ms, "device_busy_ms": busy_ms,
+              "idle_share": 1 - busy_ms / step_ms,
+              "device_events_per_step": len(dev) / args.steps,
+              "by_group": by_group, "largest_torch_kernels": top}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

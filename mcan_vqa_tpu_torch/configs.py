@@ -1,20 +1,23 @@
-"""Model dimensions for the port.
+"""Model and training settings for the port.
 
 The JAX ``Config`` reads YAML, which the port does not depend on, so the
-dimensions the port serves live here as a dataclass. Defaults are
-MCAN-small: ``mcan_vqa_tpu/configs/small.yml`` over the dataclass defaults
-of ``mcan_vqa_tpu/configs/config.py:39-50``, with ``ff_size = 4 * hidden``
-as ``config.py:194`` derives it. Field names follow the JAX ``Config`` so a
-reader can map one onto the other.
+settings the port uses live here as a dataclass. Defaults are MCAN-small:
+``mcan_vqa_tpu/configs/small.yml`` over the dataclass defaults of
+``mcan_vqa_tpu/configs/config.py``, with ``ff_size = 4 * hidden`` as
+``config.py:194`` derives it (``with_overrides`` keeps that rule). Field
+names follow the JAX ``Config`` so a reader can map one onto the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
 class Config:
+    # ---- the network (config.py:39-50, 116-141; small.yml)
     word_embed_size: int = 300
     hidden_size: int = 512
     layer: int = 6
@@ -26,9 +29,43 @@ class Config:
     flat_mlp_size: int = 512
     flat_glimpses: int = 1
     flat_out_size: int = 512
+    dropout_rate: float = 0.1
+
+    # ---- training (config.py:24-31, 50-86, 158-162)
+    seed: int = 444
+    version: str = ""              # "" means str(seed)
+    batch_size: int = 64
+    grad_accu_steps: int = 1
+    lr_base: float = 1e-4
+    lr_decay_rate: float = 0.2
+    lr_decay_list: Tuple[int, ...] = (8, 12)
+    max_epoch: int = 13
+    grad_norm_clip: float = -1.0
+    reg_factor: float = 0.0
+    verbose: bool = True
+    ckpts_dir: str = "./ckpts/"
+    log_path: str = "./results/log/"
 
     def __post_init__(self):
         if self.hidden_size % self.multi_head:
             raise ValueError(
                 f"hidden_size {self.hidden_size} is not a multiple of "
                 f"multi_head {self.multi_head}")
+        if self.batch_size % self.grad_accu_steps:
+            raise ValueError(
+                f"batch_size {self.batch_size} is not a multiple of "
+                f"grad_accu_steps {self.grad_accu_steps}")
+
+    @property
+    def run_version(self) -> str:
+        return self.version or str(self.seed)
+
+    def with_overrides(self, **kw: Any) -> "Config":
+        """A copy with ``kw`` set; a new hidden_size brings ff_size = 4 x
+        hidden_size unless ff_size is given too."""
+        if "hidden_size" in kw and "ff_size" not in kw:
+            kw["ff_size"] = 4 * kw["hidden_size"]
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)

@@ -1,20 +1,36 @@
-// residual_layernorm: out = LN(res + y (+ bias)) with the reference
+// residual_layernorm: out = LN(res + drop(y (+ bias))) with the reference
 // LayerNorm: gamma * (r - mean) / (std + 1e-6) + beta, std Bessel-corrected
-// (divided by D - 1), eps added to the std. All arithmetic in f32.
+// (divided by D - 1), eps added to the std. All arithmetic in f32, rounded
+// as the JAX kernel it stands for: the serving kernels and model.apply
+// divide by (std + eps); the train kernels multiply by its reciprocal
+// (sga_train.py::_ln_fwd :100), flag `reciprocal`.
+// residual_layernorm_bwd: the gradient of that LayerNorm, and of the
+// dropout on its sublayer input.
 //
 // Replaces: the residual + LayerNorm epilogues of the TPU block kernels
 //   mcan_vqa_tpu/ops/sga_block.py::_ln (:145) as called by
 //   _sga_kernel_fusedproj (LN1 :297, LN2 :310, LN3 :318) and _sa_kernel
-//   (LN1 :1010, LN2 :1017). The block's input stream arrives bf16 and
-//   becomes f32 (:258); v1 and v2 stay f32 between the sub-steps (:297,
-//   :310); only the block's output is cast to the stream dtype (:320). So
-//   the residual may be bf16 or f32, and the kernel writes an f32 copy (the
-//   next residual), a bf16 copy (the next matmul's operand), or both.
+//   (LN1 :1010, LN2 :1017); the train kernels' residual + dropout + LN of
+//   mcan_vqa_tpu/ops/sga_train.py::_fwd_kernel (:453, :468, :475; r =
+//   x + _drop(y1) and so on, r3 saved), and their backward _ln_bwd_u
+//   (:122-142) in _bwd_ffn_kernel_sav (:596) and _bwd_att_kernel (:687,
+//   :736), which recomputes r1 / r2 from the residual and the sublayer
+//   output. The block's input stream arrives bf16 and becomes f32 (:258);
+//   v1 and v2 stay f32 between the sub-steps (:297, :310); only the block's
+//   output is cast to the stream dtype (:320). So the residual may be bf16
+//   or f32, and the kernel writes an f32 copy (the next residual), a bf16
+//   copy (the next matmul's operand), or both.
 //
-// Bounds on an H100: memory -- ~14 bytes moved per element for 8 FLOPs.
+// Bounds on an H100: memory -- forward ~14 bytes moved per element for
+// ~10 FLOPs, backward ~20 bytes for ~20 FLOPs.
 // Design: one warp per row of D = 32 * VPT, the row held in registers
 // (VPT values per lane, lane-strided so each load is coalesced), mean and
 // centred sum of squares by warp shuffles; 8 rows per 256-thread block.
+// The backward recomputes r, the normalised u = (r - mean) / (std + eps)
+// and the std from the residual inputs -- never from the LN output -- and
+// writes per element dr, dy = drop(dr) and g * u; the column sums that
+// give dgamma / dbeta / the bias gradients are a separate pass
+// (col_sum.cu), so every sum runs in a fixed order.
 #include <math.h>
 
 #include "common.cuh"
@@ -23,12 +39,25 @@ namespace {
 
 constexpr int THREADS = 256, ROWS_PER_BLOCK = THREADS / 32;
 
+// y + bias through the dropout keep-mask (x inv_keep), or 0 when y is null
+__device__ __forceinline__ float sublayer(const float* y, const float* bias,
+                                          const unsigned char* mask, float inv_keep, size_t e,
+                                          int c) {
+  if (y == nullptr) return 0.0f;
+  float t = y[e];
+  if (bias != nullptr) t += bias[c];
+  if (mask != nullptr) t = mask[e] ? t * inv_keep : 0.0f;
+  return t;
+}
+
 template <int VPT, typename ResT>
 __global__ void __launch_bounds__(THREADS)
 residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict__ y,
-                          const float* __restrict__ bias, const float* __restrict__ gamma,
+                          const float* __restrict__ bias, const unsigned char* __restrict__ mask,
+                          float inv_keep, const float* __restrict__ gamma,
                           const float* __restrict__ beta, float* __restrict__ out_f32,
-                          bf16* __restrict__ out_bf16, int rows, float eps) {
+                          bf16* __restrict__ out_bf16, float* __restrict__ out_r, int rows,
+                          float eps, int reciprocal) {
   constexpr int D = 32 * VPT;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
@@ -40,8 +69,8 @@ residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict_
 #pragma unroll
   for (int t = 0; t < VPT; ++t) {
     const int c = lane + 32 * t;
-    float v = to_f32(res[base + c]) + y[base + c];
-    if (bias != nullptr) v += bias[c];
+    const float v = to_f32(res[base + c]) + sublayer(y, bias, mask, inv_keep, base + c, c);
+    if (out_r != nullptr) out_r[base + c] = v;
     r[t] = v;
     sum += v;
   }
@@ -53,49 +82,153 @@ residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict_
     ss += r[t] * r[t];
   }
   const float denom = sqrtf(warp_sum(ss) / (D - 1)) + eps;
+  const float inv = 1.0f / denom;
 #pragma unroll
   for (int t = 0; t < VPT; ++t) {
     const int c = lane + 32 * t;
-    const float o = gamma[c] * r[t] / denom + beta[c];
+    const float o = (reciprocal ? gamma[c] * (r[t] * inv) : gamma[c] * r[t] / denom) + beta[c];
     if (out_f32 != nullptr) out_f32[base + c] = o;
     if (out_bf16 != nullptr) out_bf16[base + c] = to_bf16(o);
   }
 }
 
+// _ln_bwd_u (sga_train.py:122-142), per row:
+//   c = r - mean, std = sqrt(sum(c^2) / (D - 1)), inv = 1 / (std + eps)
+//   sg = gamma * g, dstd = -sum(sg * c) * inv^2, k = dstd / ((D - 1) std)
+//   dc = sg * inv + c * k, dr = dc - mean(dc), u = c * inv
 template <int VPT>
-void launch(const void* res, int res_bf16, const void* y, const void* bias, const void* gamma,
-            const void* beta, void* out_f32, void* out_bf16, int rows, float eps,
-            cudaStream_t s) {
+__global__ void __launch_bounds__(THREADS)
+residual_layernorm_bwd_kernel(const float* __restrict__ g, const float* __restrict__ res,
+                              const float* __restrict__ y, const float* __restrict__ bias,
+                              const unsigned char* __restrict__ mask, float inv_keep,
+                              const float* __restrict__ gamma, float* __restrict__ dr,
+                              float* __restrict__ dy32, bf16* __restrict__ dy16,
+                              float* __restrict__ gu, int rows, float eps) {
+  constexpr int D = 32 * VPT;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const size_t base = (size_t)row * D;
+
+  float c[VPT], sg[VPT];
+  float sum = 0.0f;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    const int col = lane + 32 * t;
+    c[t] = res[base + col] + sublayer(y, bias, mask, inv_keep, base + col, col);
+    sum += c[t];
+  }
+  const float mean = warp_sum(sum) / D;
+  float ss = 0.0f;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    c[t] -= mean;
+    ss += c[t] * c[t];
+  }
+  const float stdv = sqrtf(warp_sum(ss) / (D - 1));
+  const float inv = 1.0f / (stdv + eps);
+  float dot = 0.0f;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    const int col = lane + 32 * t;
+    sg[t] = gamma[col] * g[base + col];
+    dot += sg[t] * c[t];
+  }
+  const float dstd = -warp_sum(dot) * (inv * inv);
+  const float kk = dstd / ((D - 1) * stdv);
+  float dsum = 0.0f;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    sg[t] = sg[t] * inv + c[t] * kk;  // dc
+    dsum += sg[t];
+  }
+  const float dmean = warp_sum(dsum) / D;
+#pragma unroll
+  for (int t = 0; t < VPT; ++t) {
+    const int col = lane + 32 * t;
+    const size_t e = base + col;
+    const float d = sg[t] - dmean;
+    dr[e] = d;
+    gu[e] = g[e] * (c[t] * inv);
+    const float dyv = mask == nullptr ? d : (mask[e] ? d * inv_keep : 0.0f);
+    if (dy32 != nullptr) dy32[e] = dyv;
+    if (dy16 != nullptr) dy16[e] = to_bf16(dyv);
+  }
+}
+
+template <int VPT>
+void launch(const void* res, int res_bf16, const void* y, const void* bias, const void* mask,
+            float inv_keep, const void* gamma, const void* beta, void* out_f32, void* out_bf16,
+            void* out_r, int rows, float eps, int reciprocal, cudaStream_t s) {
   const int grid = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
   const float* yf = static_cast<const float*>(y);
   const float* bf = static_cast<const float*>(bias);
+  const unsigned char* mk = static_cast<const unsigned char*>(mask);
   const float* gf = static_cast<const float*>(gamma);
   const float* btf = static_cast<const float*>(beta);
   float* of = static_cast<float*>(out_f32);
   bf16* ob = static_cast<bf16*>(out_bf16);
+  float* orr = static_cast<float*>(out_r);
   if (res_bf16)
     residual_layernorm_kernel<VPT, bf16><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(res), yf, bf, gf, btf, of, ob, rows, eps);
+        static_cast<const bf16*>(res), yf, bf, mk, inv_keep, gf, btf, of, ob, orr, rows, eps,
+        reciprocal);
   else
     residual_layernorm_kernel<VPT, float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(res), yf, bf, gf, btf, of, ob, rows, eps);
+        static_cast<const float*>(res), yf, bf, mk, inv_keep, gf, btf, of, ob, orr, rows, eps,
+        reciprocal);
+}
+
+template <int VPT>
+void launch_bwd(const void* g, const void* res, const void* y, const void* bias,
+                const void* mask, float inv_keep, const void* gamma, void* dr, void* dy32,
+                void* dy16, void* gu, int rows, float eps, cudaStream_t s) {
+  const int grid = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  residual_layernorm_bwd_kernel<VPT><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(res), static_cast<const float*>(y),
+      static_cast<const float*>(bias), static_cast<const unsigned char*>(mask), inv_keep,
+      static_cast<const float*>(gamma), static_cast<float*>(dr), static_cast<float*>(dy32),
+      static_cast<bf16*>(dy16), static_cast<float*>(gu), rows, eps);
 }
 
 }  // namespace
 
-// res [rows, D] bf16 (res_bf16 != 0) or f32; y [rows, D] f32; bias, gamma,
-// beta [D] f32 (bias may be null); out_f32 / out_bf16 [rows, D], either may
-// be null. D must be 512 (MCAN-small) or 1024 (MCAN-large). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another D.
+// res [rows, D] bf16 (res_bf16 != 0) or f32; y [rows, D] f32 or null; bias,
+// gamma, beta [D] f32 (bias may be null); mask: null or uint8 keep-mask
+// [rows, D] on y + bias (x inv_keep); out_f32 / out_bf16 / out_r [rows, D],
+// each may be null (out_r: the pre-LN sum r, f32). reciprocal != 0: scale
+// by 1 / (std + eps) instead of dividing. D must be 512 (MCAN-small) or
+// 1024 (MCAN-large). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for another D.
 MCAN_API int mcan_residual_layernorm(const void* res, int res_bf16, const void* y,
-                                     const void* bias, const void* gamma, const void* beta,
-                                     void* out_f32, void* out_bf16, int rows, int D, float eps,
-                                     void* stream) {
+                                     const void* bias, const void* mask, float inv_keep,
+                                     const void* gamma, const void* beta, void* out_f32,
+                                     void* out_bf16, void* out_r, int rows, int D, float eps,
+                                     int reciprocal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows > 0) {
     switch (D) {
-      case 512: launch<16>(res, res_bf16, y, bias, gamma, beta, out_f32, out_bf16, rows, eps, s); break;
-      case 1024: launch<32>(res, res_bf16, y, bias, gamma, beta, out_f32, out_bf16, rows, eps, s); break;
+      case 512: launch<16>(res, res_bf16, y, bias, mask, inv_keep, gamma, beta, out_f32, out_bf16, out_r, rows, eps, reciprocal, s); break;
+      case 1024: launch<32>(res, res_bf16, y, bias, mask, inv_keep, gamma, beta, out_f32, out_bf16, out_r, rows, eps, reciprocal, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (the gradient of the LN output), res, y [rows, D] f32 (y may be null:
+// then r = res), bias [D] or null, mask null or uint8 [rows, D], gamma [D].
+// r = res + drop(y + bias). Writes dr = dLN/dr . g, dy = drop(dr) as f32
+// and/or bf16 (either may be null) and gu = g * u, all [rows, D].
+MCAN_API int mcan_residual_layernorm_bwd(const void* g, const void* res, const void* y,
+                                         const void* bias, const void* mask, float inv_keep,
+                                         const void* gamma, void* dr, void* dy32, void* dy16,
+                                         void* gu, int rows, int D, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows > 0) {
+    switch (D) {
+      case 512: launch_bwd<16>(g, res, y, bias, mask, inv_keep, gamma, dr, dy32, dy16, gu, rows, eps, s); break;
+      case 1024: launch_bwd<32>(g, res, y, bias, mask, inv_keep, gamma, dr, dy32, dy16, gu, rows, eps, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1,0 +1,17 @@
+"""Host-side data of the port: vocabulary, answer dictionary, request
+padding, the synthetic training set and the batch loader.
+
+Every module here is the port's own copy of its JAX-package counterpart
+(``mcan_vqa_tpu/data/{text,answers,features,vqa_dataset,pipeline}.py``,
+``mcan_vqa_tpu/request_prep.py``); the port imports nothing of
+``mcan_vqa_tpu``. The names below are the ones the rest of the port and
+its callers use.
+"""
+
+from mcan_vqa_tpu_torch.data.answers import load_answer_dict, topk_answers
+from mcan_vqa_tpu_torch.data.request_prep import (pad_to_bucket,
+                                                  prep_request_inputs)
+from mcan_vqa_tpu_torch.data.text import build_vocab
+
+__all__ = ["build_vocab", "load_answer_dict", "topk_answers",
+           "pad_to_bucket", "prep_request_inputs"]

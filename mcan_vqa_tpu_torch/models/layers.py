@@ -53,14 +53,21 @@ class Dense(nn.Module):
 
 
 def std_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, reciprocal: bool = False
+                   ) -> torch.Tensor:
     """The reference LayerNorm in f32 (one implementation shared by the
-    module, the serving path and the kernels' plain versions)."""
+    module, the serving path and the kernels' plain versions).
+    reciprocal: scale * (c * (1 / (std + eps))) + bias, the rounding of the
+    JAX train kernels' ``_ln_fwd`` (mcan_vqa_tpu/ops/sga_train.py:100);
+    otherwise scale * c / (std + eps) + bias, that of ``model.apply`` and
+    the serving kernels."""
     x32 = x.float()
     dim = x32.shape[-1]
     mean = x32.mean(dim=-1, keepdim=True)
     centered = x32 - mean
     var = (centered * centered).sum(dim=-1, keepdim=True) / (dim - 1)
+    if reciprocal:
+        return scale * (centered * (1.0 / (var.sqrt() + eps))) + bias
     return scale * centered / (var.sqrt() + eps) + bias
 
 
@@ -77,7 +84,8 @@ class StdLayerNorm(nn.Module):
 
 class FC(nn.Module):
     """Linear -> ReLU (reference core/model/net_utils.py:11-34; dropout is
-    a no-op at inference and is not part of the port yet)."""
+    a no-op at inference: training applies it in
+    train/fused_engine.py)."""
 
     def __init__(self, in_size: int, out_size: int,
                  generator: Optional[torch.Generator] = None):

@@ -3,7 +3,7 @@
 
 Blocks are post-norm, ``norm(x + sublayer(x))``, and the decoder (SGA over
 image regions) attends to the FINAL encoder output. Dropout is an identity
-at inference and is not part of the port yet.
+at inference; training applies it in train/fused_engine.py.
 """
 
 from __future__ import annotations

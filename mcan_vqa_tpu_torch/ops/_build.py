@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so the build takes
+One nvcc per source, all started together, compiles each .cu file to an
+object; one more nvcc links the objects into a shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). The library lands in ``_kernels_build/<hash>/`` inside the
-package, keyed by a hash of the sources and the nvcc command, so an edit
-to any source rebuilds and an unchanged tree reuses the last build. The
+package, keyed by a hash of the sources and the nvcc flags, so an edit to
+any source rebuilds and an unchanged tree reuses the last build. The
 directory is listed in .gitignore.
 
 Nothing here runs at import: ``load_library()`` compiles on the first call
@@ -27,20 +28,30 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 LIB_NAME = "libmcan_kernels.so"
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # argtypes of every exported C function (csrc/*.cu, MCAN_API)
 SIGNATURES = {
-    "mcan_gemm_bias_act": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P],
+    "mcan_gemm": [_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _P, _LL,
+                  _F, _P, _LL, _P, _LL, _P, _LL, _P],
     "mcan_masked_attention": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL, _I,
-                              _P, _P, _LL, _LL, _I, _I, _I, _I, _F, _P],
-    "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                                _P],
+                              _P, _P, _F, _P, _LL, _LL, _I, _I, _I, _I, _F,
+                              _P],
+    "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
+                                  _I, _P, _P, _F, _P, _LL, _LL,
+                                  _P, _P, _LL, _LL, _LL,
+                                  _P, _P, _LL, _LL, _LL,
+                                  _P, _P, _LL, _LL, _LL,
+                                  _I, _I, _I, _I, _F, _P],
+    "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P,
+                                _I, _I, _F, _I, _P],
+    "mcan_residual_layernorm_bwd": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
+                                    _P, _I, _I, _F, _P],
+    "mcan_col_sum": [_I, _P, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -75,25 +86,34 @@ def build_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the nvcc commands in parallel -> their combined output; raises
+    with the output of every command that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"{' '.join(c)}\n{o}" for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
 def _compile(out: Path) -> str:
-    """nvcc all .cu sources into ``out`` (atomically: a temp file in the
-    same directory, then rename), returning nvcc's output."""
+    """Build ``out`` (atomically: objects and the library in a temporary
+    directory beside it, then a rename) -> nvcc's output."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cus = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in cus]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s), "-o",
+                     o] for s, o in zip(cus, objs)])
+        lib = os.path.join(tmp, LIB_NAME)
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+    return log
 
 
 def load_library() -> ctypes.CDLL:

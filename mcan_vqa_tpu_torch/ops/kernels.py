@@ -1,6 +1,15 @@
 """Wrappers of the hand-written CUDA kernels (csrc/*.cu) that the serving
-blocks (ops/sga_block.py) are built from, each beside its plain PyTorch
-version.
+blocks (ops/sga_block.py) and the train block (ops/sga_train.py) are built
+from, each beside its plain PyTorch version.
+
+  gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu, NN
+  gemm_dx                C = dY . W^T (gradient gate, + res)   gemm.cu, NT
+  gemm_dw                C = X^T . dY                          gemm.cu, TN
+  masked_attention       softmax(q k^T / 8, PAD) (dropout) . v
+  masked_attention_bwd   dq, dk, dv of the above
+  residual_layernorm     LN(res + drop(y + bias)), optionally r
+  residual_layernorm_bwd dr, drop(dr), g * u of that LN
+  col_sum                column sums (bias and LN gradients)
 
 Dispatch is on the device of the tensors: on a CPU tensor a wrapper runs
 its plain version; on a CUDA tensor it launches its kernel, or raises if
@@ -10,15 +19,21 @@ the other.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``, and nothing else
 does, so a run can show that its main path went through the kernels
 (``reset_launches`` / ``launch_counts``).
+
+Dropout keep-masks are uint8 (or bool) tensors of 0 / 1 laid out like the
+values they gate; kept values are scaled by ``inv_keep`` in f32, as the
+TPU kernels' ``_drop`` does (mcan_vqa_tpu/ops/sga_train.py:145).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Optional, Sequence, Tuple
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from mcan_vqa_tpu_torch.models.attention import NEG_INF
 from mcan_vqa_tpu_torch.models.attention import masked_attention as \
     _attention_f32
 from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
@@ -26,12 +41,17 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
 
 F32 = torch.float32
 LN_EPS = 1e-6
-HEAD_DIM = 64          # the attention kernel's Dh
-MAX_SEQ = 64           # the attention kernel's largest Lq / Lk
-GEMM_N_TILE, GEMM_K_TILE = 64, 32
+HEAD_DIM = 64          # the attention kernels' Dh
+MAX_SEQ = 64           # the attention kernels' largest Lq / Lk
+GEMM_TILE = 64         # the GEMM's output tile (M and N)
+GEMM_K_TILE = 32
 LN_WIDTHS = (512, 1024)    # MCAN-small, MCAN-large
+MAX_COL_SUMS = 4
+MASK_DTYPES = (torch.uint8, torch.bool)
 
 LAUNCHES: Dict[str, int] = collections.Counter()
+
+_NN, _NT, _TN = 0, 1, 2   # mcan_gemm layouts
 
 
 def reset_launches() -> None:
@@ -64,6 +84,7 @@ def _stream(t: torch.Tensor) -> int:
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -77,79 +98,202 @@ def _same_device(name: str, *ts: Optional[torch.Tensor]) -> None:
              f"{name}: all tensors must be on {dev}")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _drop(x: torch.Tensor, mask: Optional[torch.Tensor],
+          inv_keep: float) -> torch.Tensor:
+    """Inverted dropout with an external keep-mask (plain versions)."""
+    if mask is None:
+        return x
+    return torch.where(mask.bool(), x * inv_keep, torch.zeros_like(x))
+
+
+def _check_mask(name: str, mask: Optional[torch.Tensor], shape) -> None:
+    if mask is not None:
+        _require(mask.dtype in MASK_DTYPES and tuple(mask.shape)
+                 == tuple(shape) and mask.is_contiguous(),
+                 f"{name}: dropout mask must be a contiguous uint8 / bool "
+                 f"tensor shaped {tuple(shape)}")
+
+
+def _check_vec(name: str, t: Optional[torch.Tensor], n: int) -> None:
+    _require(t is None or (t.dtype == F32 and t.is_contiguous()
+                           and t.numel() == n),
+             f"{name}: bias / LN parameters must be f32 [{n}]")
+
+
+def _check_rows(name: str, t: Optional[torch.Tensor], shape, dtypes) -> None:
+    """A 2-D operand read or written row by row: the given shape and dtype,
+    unit column stride."""
+    if t is not None:
+        _require(tuple(t.shape) == tuple(shape) and t.dtype in dtypes
+                 and t.stride(1) == 1,
+                 f"{name}: expected {tuple(shape)} {dtypes} with unit "
+                 f"column stride, got {tuple(t.shape)} {t.dtype}")
+
+
 # ---------------------------------------------------------------------------
-# gemm_bias_act
+# the GEMM: gemm_bias_act (NN), gemm_dx (NT), gemm_dw (TN)
 # ---------------------------------------------------------------------------
+
+def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
+          M: int, N: int, K: int, *, bias=None, relu=False, mask=None,
+          gate=None, inv_keep=1.0, res=None,
+          out_dtypes: Sequence[torch.dtype] = (F32,)
+          ) -> Tuple[torch.Tensor, ...]:
+    """Launch csrc/gemm.cu. Every operand is checked here: the kernel loads
+    16-byte chunks, so both operands are 16-byte aligned with row strides
+    that are multiples of 8."""
+    _same_device(name, a, b, bias, mask, gate, res)
+    _require(a.dtype == BF16 and b.dtype == BF16,
+             f"{name}: operands must be bf16, got {a.dtype}, {b.dtype}")
+    # dW (TN) reads both operands row by row along the reduction: any
+    # number of rows R = K is exact (zero-filled); its M is read in chunks
+    _require(N % GEMM_TILE == 0 and (K % GEMM_K_TILE == 0 if layout != _TN
+                                     else M % 8 == 0),
+             f"{name}: N={N} must be a multiple of {GEMM_TILE}, and K={K} "
+             f"of {GEMM_K_TILE} (for dW: M={M} of 8)")
+    _require(a.dim() == 2 and b.dim() == 2 and a.stride(1) == 1
+             and b.stride(1) == 1 and a.stride(0) % 8 == 0
+             and b.stride(0) % 8 == 0 and a.data_ptr() % 16 == 0
+             and b.data_ptr() % 16 == 0,
+             f"{name}: operands need unit column stride, row strides that "
+             f"are multiples of 8 and 16-byte alignment")
+    _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
+             and len(set(out_dtypes)) == len(out_dtypes),
+             f"{name}: out_dtypes {out_dtypes}")
+    _check_vec(name, bias, N)
+    _check_mask(name, mask, (M, N))
+    _check_rows(name, gate, (M, N), (BF16,))
+    _check_rows(name, res, (M, N), (F32,))
+    outs = {dt: torch.empty((M, N), dtype=dt, device=a.device)
+            for dt in out_dtypes}
+    o32, o16 = outs.get(F32), outs.get(BF16)
+    rc = _lib().mcan_gemm(
+        layout, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        M, N, K, _ptr(bias), int(relu), _ptr(mask), N, _ptr(gate),
+        0 if gate is None else gate.stride(0), float(inv_keep), _ptr(res),
+        0 if res is None else res.stride(0), _ptr(o32), N, _ptr(o16), N,
+        _stream(a))
+    _check(rc, name)
+    return tuple(outs[dt] for dt in out_dtypes)
+
 
 def gemm_bias_act_plain(a: torch.Tensor, w: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, *,
-                        relu: bool = False,
-                        out_dtype: torch.dtype = F32) -> torch.Tensor:
+                        relu: bool = False, out_dtype: torch.dtype = F32,
+                        mask: Optional[torch.Tensor] = None,
+                        inv_keep: float = 1.0) -> torch.Tensor:
     y = bf16_matmul(a, w)
     if bias is not None:
         y = y + bias
     if relu:
         y = torch.relu(y)
-    return y.to(out_dtype)
+    return _drop(y, mask, inv_keep).to(out_dtype)
 
 
 def gemm_bias_act(a: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *, relu: bool = False,
-                  out_dtype: torch.dtype = F32) -> torch.Tensor:
-    """a [M, K] bf16 . w [K, N] bf16 + bias [N] f32 (optional ReLU) ->
-    [M, N] in out_dtype (f32 or bf16), accumulated in f32."""
+                  out_dtype: torch.dtype = F32,
+                  mask: Optional[torch.Tensor] = None,
+                  inv_keep: float = 1.0) -> torch.Tensor:
+    """a [M, K] bf16 . w [K, N] bf16 + bias [N] f32, then ReLU, then the
+    dropout keep-mask [M, N] (x inv_keep) -> [M, N] in out_dtype (f32 or
+    bf16), accumulated in f32 and rounded once."""
     if not on_cuda(a):
-        return gemm_bias_act_plain(a, w, bias, relu=relu, out_dtype=out_dtype)
-    name = "gemm_bias_act"
-    _same_device(name, a, w, bias)
+        return gemm_bias_act_plain(a, w, bias, relu=relu,
+                                   out_dtype=out_dtype, mask=mask,
+                                   inv_keep=inv_keep)
     M, K = a.shape
-    N = w.shape[1]
-    _require(a.dtype == BF16 and w.dtype == BF16,
-             f"{name}: a and w must be bf16, got {a.dtype}, {w.dtype}")
-    _require(w.shape[0] == K, f"{name}: a {tuple(a.shape)} . w "
+    _require(w.shape[0] == K, f"gemm_bias_act: a {tuple(a.shape)} . w "
              f"{tuple(w.shape)} do not chain")
-    _require(N % GEMM_N_TILE == 0 and K % GEMM_K_TILE == 0,
-             f"{name}: N={N} must be a multiple of {GEMM_N_TILE} and K={K} "
-             f"of {GEMM_K_TILE}")
-    _require(a.stride(1) == 1 and w.is_contiguous() and a.stride(0) % 8 == 0
-             and a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-             f"{name}: a needs unit column stride, a row stride that is a "
-             f"multiple of 8 and 16-byte alignment; w must be contiguous")
-    _require(out_dtype in (F32, BF16), f"{name}: out_dtype {out_dtype}")
-    if bias is not None:
-        _require(bias.dtype == F32 and bias.is_contiguous()
-                 and bias.numel() == N, f"{name}: bias must be f32 [{N}]")
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    rc = _lib().mcan_gemm_bias_act(
-        a.data_ptr(), a.stride(0), w.data_ptr(), N,
-        None if bias is None else bias.data_ptr(), out.data_ptr(), N,
-        M, N, K, int(relu), int(out_dtype == BF16), _stream(a))
-    _check(rc, name)
-    LAUNCHES[name] += 1
-    return out
+    return _gemm("gemm_bias_act", _NN, a, w, M, w.shape[1], K, bias=bias,
+                 relu=relu, mask=mask, inv_keep=inv_keep,
+                 out_dtypes=(out_dtype,))[0]
+
+
+def gemm_dx_plain(dy: torch.Tensor, w: torch.Tensor, *,
+                  gate: Optional[torch.Tensor] = None, inv_keep: float = 1.0,
+                  res: Optional[torch.Tensor] = None,
+                  out_dtypes: Sequence[torch.dtype] = (F32,)
+                  ) -> Tuple[torch.Tensor, ...]:
+    y = bf16_matmul(dy, w.t())
+    if gate is not None:
+        y = torch.where(gate.float() > 0, y * inv_keep, torch.zeros_like(y))
+    if res is not None:
+        y = res + y
+    return tuple(y.to(dt) for dt in out_dtypes)
+
+
+def gemm_dx(dy: torch.Tensor, w: torch.Tensor, *,
+            gate: Optional[torch.Tensor] = None, inv_keep: float = 1.0,
+            res: Optional[torch.Tensor] = None,
+            out_dtypes: Sequence[torch.dtype] = (F32,)
+            ) -> Tuple[torch.Tensor, ...]:
+    """The input gradient of ``x . w``: dy [M, K] bf16 . w[N, K]^T (w the
+    forward weight [in=N, out=K], bf16). Then, where ``gate`` (bf16
+    [M, N]) is > 0 the value times inv_keep, else 0 -- the gradient through
+    a ReLU with dropout after it, read off its bf16 output (sga_train.py:599)
+    -- then + res (f32 [M, N]). Returns one tensor per out_dtypes."""
+    if not on_cuda(dy):
+        return gemm_dx_plain(dy, w, gate=gate, inv_keep=inv_keep, res=res,
+                             out_dtypes=out_dtypes)
+    M, K = dy.shape
+    _require(w.shape[1] == K, f"gemm_dx: dy {tuple(dy.shape)} . w^T "
+             f"{tuple(w.shape)} do not chain")
+    return _gemm("gemm_dx", _NT, dy, w, M, w.shape[0], K, gate=gate,
+                 inv_keep=inv_keep, res=res, out_dtypes=out_dtypes)
+
+
+def gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return bf16_matmul(x.t(), dy)
+
+
+def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``x . w``: x [R, M]^T . dy [R, N], both bf16,
+    -> f32 [M, N], summed over all R rows by one block per output tile in
+    a fixed order (the same bits on every run)."""
+    if not on_cuda(x):
+        return gemm_dw_plain(x, dy)
+    R, M = x.shape
+    _require(dy.shape[0] == R, f"gemm_dw: x {tuple(x.shape)} and dy "
+             f"{tuple(dy.shape)} have different rows")
+    return _gemm("gemm_dw", _TN, x, dy, M, dy.shape[1], R)[0]
 
 
 # ---------------------------------------------------------------------------
-# masked_attention
+# masked_attention and its backward
 # ---------------------------------------------------------------------------
+
+def _probs(q: torch.Tensor, k: torch.Tensor,
+           key_pad: torch.Tensor) -> torch.Tensor:
+    """f32 softmax of the bf16 scores, PAD keys at -1e9 (per sample)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = (q.to(BF16).float() @ k.to(BF16).float().transpose(-1, -2)) * scale
+    return torch.softmax(s.masked_fill(key_pad, NEG_INF), dim=-1)
+
+
+def _heads_out(o: torch.Tensor) -> torch.Tensor:
+    """[B, H, L, Dh] -> [B, L, H*Dh]."""
+    B, H, L, Dh = o.shape
+    return o.transpose(1, 2).reshape(B, L, H * Dh)
+
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           key_pad: torch.Tensor) -> torch.Tensor:
-    B, H, Lq, Dh = q.shape
-    out = _attention_f32(q, k, v, key_pad)
-    return out.transpose(1, 2).reshape(B, Lq, H * Dh).to(BF16)
+                           key_pad: torch.Tensor,
+                           drop: Optional[torch.Tensor] = None,
+                           inv_keep: float = 1.0) -> torch.Tensor:
+    if drop is None:
+        out = _attention_f32(q, k, v, key_pad)
+    else:
+        p = _drop(_probs(q, k, key_pad), drop, inv_keep)
+        out = p.to(BF16).float() @ v.to(BF16).float()
+    return _heads_out(out).to(BF16)
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     key_pad: torch.Tensor) -> torch.Tensor:
-    """q [B, H, Lq, 64] bf16, k/v [B, H, Lk, 64] bf16 or f32 (strided
-    views are read in place; the last dim must be contiguous), key_pad
-    bool [B, 1, 1, Lk] (True = PAD) -> [B, Lq, H*64] bf16, the layout the
-    merge projection takes."""
-    if not on_cuda(q):
-        return masked_attention_plain(q, k, v, key_pad)
-    name = "masked_attention"
-    _same_device(name, q, k, v, key_pad)
+def _check_attention(name, q, k, v, key_pad, drop):
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     _require(k.shape == v.shape == (B, H, Lk, Dh),
@@ -166,50 +310,149 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              f"{name}: last dims must be contiguous and k, v share strides")
     _require(key_pad.shape == (B, 1, 1, Lk) and key_pad.dtype == torch.bool,
              f"{name}: key_pad must be bool [{B}, 1, 1, {Lk}]")
+    _check_mask(name, drop, (B, H, Lq, Lk))
     # a bool tensor is one byte of 0 / 1 per element: the kernel reads it
     # in place as uint8
     pad = key_pad.reshape(B, Lk)
     _require(pad.is_contiguous(), f"{name}: key_pad must be contiguous")
+    return B, H, Lq, Lk, Dh, pad
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_pad: torch.Tensor,
+                     drop: Optional[torch.Tensor] = None,
+                     inv_keep: float = 1.0) -> torch.Tensor:
+    """q [B, H, Lq, 64] bf16, k/v [B, H, Lk, 64] bf16 or f32 (strided
+    views are read in place; the last dim must be contiguous), key_pad
+    bool [B, 1, 1, Lk] (True = PAD), drop an optional keep-mask
+    [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*64] bf16, the layout
+    the merge projection takes."""
+    if not on_cuda(q):
+        return masked_attention_plain(q, k, v, key_pad, drop, inv_keep)
+    name = "masked_attention"
+    _same_device(name, q, k, v, key_pad, drop)
+    B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
     out = torch.empty((B, Lq, H * Dh), dtype=BF16, device=q.device)
     rc = _lib().mcan_masked_attention(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
-        int(k.dtype == F32), pad.data_ptr(), out.data_ptr(),
-        Lq * H * Dh, H * Dh, B, H, Lq, Lk, 1.0 / Dh ** 0.5, _stream(q))
+        int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
+        out.data_ptr(), Lq * H * Dh, H * Dh, B, H, Lq, Lk, 1.0 / Dh ** 0.5,
+        _stream(q))
     _check(rc, name)
-    LAUNCHES[name] += 1
     return out
 
 
+def masked_attention_bwd_plain(q, k, v, key_pad, dout, dq, dk, dv,
+                               dq16=None, dk16=None, dv16=None, drop=None,
+                               inv_keep: float = 1.0) -> None:
+    B, H, Lq, Dh = q.shape
+    scale = 1.0 / Dh ** 0.5
+    qb, kb, vb = (t.to(BF16).float() for t in (q, k, v))
+    do = dout.reshape(B, Lq, H, Dh).transpose(1, 2).to(BF16).float()
+    p = _probs(q, k, key_pad)
+    pd = _drop(p, drop, inv_keep).to(BF16).float()
+    g = _drop(do @ vb.transpose(-1, -2), drop, inv_keep)
+    ds = (p * (g - (p * g).sum(-1, keepdim=True))).to(BF16).float()
+    for out, out16, val in ((dq, dq16, ds @ kb * scale),
+                            (dk, dk16, ds.transpose(-1, -2) @ qb * scale),
+                            (dv, dv16, pd.transpose(-1, -2) @ do)):
+        out.copy_(val)
+        if out16 is not None:
+            out16.copy_(val)
+
+
+def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_pad: torch.Tensor, dout: torch.Tensor,
+                         dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                         dq16: Optional[torch.Tensor] = None,
+                         dk16: Optional[torch.Tensor] = None,
+                         dv16: Optional[torch.Tensor] = None,
+                         drop: Optional[torch.Tensor] = None,
+                         inv_keep: float = 1.0) -> None:
+    """Gradients of ``masked_attention(q, k, v, key_pad, drop, inv_keep)``
+    for the upstream gradient dout [B, Lq, H*64] bf16, written in place:
+    dq [B, H, Lq, 64], dk / dv [B, H, Lk, 64], f32, strided views whose
+    last dim is contiguous; dq16 / dk16 / dv16 optional bf16 copies with
+    their f32 twin's strides. The probabilities are recomputed from q, k
+    and the pad mask; dS = P * (drop(dP) - rowsum(P * drop(dP)))."""
+    if not on_cuda(q):
+        return masked_attention_bwd_plain(q, k, v, key_pad, dout, dq, dk, dv,
+                                          dq16, dk16, dv16, drop, inv_keep)
+    name = "masked_attention_bwd"
+    _same_device(name, q, k, v, key_pad, dout, dq, dk, dv, dq16, dk16, dv16,
+                 drop)
+    B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
+    _require(dout.shape == (B, Lq, H * Dh) and dout.dtype == BF16
+             and dout.stride(2) == 1,
+             f"{name}: dout must be bf16 [{B}, {Lq}, {H * Dh}] with a "
+             f"contiguous last dim")
+    for t, t16, L in ((dq, dq16, Lq), (dk, dk16, Lk), (dv, dv16, Lk)):
+        _require(t.shape == (B, H, L, Dh) and t.dtype == F32
+                 and t.stride(3) == 1,
+                 f"{name}: gradient outputs must be f32 [{B}, {H}, L, {Dh}] "
+                 f"with a contiguous last dim")
+        _require(t16 is None or (t16.dtype == BF16
+                                 and t16.shape == t.shape
+                                 and t16.stride() == t.stride()),
+                 f"{name}: a bf16 copy must share its f32 twin's strides")
+    rc = _lib().mcan_masked_attention_bwd(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
+        dout.data_ptr(), dout.stride(0), dout.stride(1),
+        dq.data_ptr(), _ptr(dq16), dq.stride(0), dq.stride(1), dq.stride(2),
+        dk.data_ptr(), _ptr(dk16), dk.stride(0), dk.stride(1), dk.stride(2),
+        dv.data_ptr(), _ptr(dv16), dv.stride(0), dv.stride(1), dv.stride(2),
+        B, H, Lq, Lk, 1.0 / Dh ** 0.5, _stream(q))
+    _check(rc, name)
+
+
 # ---------------------------------------------------------------------------
-# residual_layernorm
+# residual_layernorm and its backward
 # ---------------------------------------------------------------------------
+
+def _residual(res, y, bias, mask, inv_keep):
+    r = res.float()
+    if y is None:
+        return r
+    t = y if bias is None else y + bias
+    return r + _drop(t, mask, inv_keep)
+
 
 def residual_layernorm_plain(res: torch.Tensor, y: torch.Tensor,
                              bias: Optional[torch.Tensor],
                              gamma: torch.Tensor, beta: torch.Tensor,
-                             out_dtypes: Sequence[torch.dtype] = (F32,)
+                             out_dtypes: Sequence[torch.dtype] = (F32,), *,
+                             mask: Optional[torch.Tensor] = None,
+                             inv_keep: float = 1.0, save_r: bool = False,
+                             reciprocal: bool = False
                              ) -> Tuple[torch.Tensor, ...]:
-    r = res.float() + y
-    if bias is not None:
-        r = r + bias
-    out = std_layer_norm(r, gamma, beta, LN_EPS)
-    return tuple(out.to(dt) for dt in out_dtypes)
+    r = _residual(res, y, bias, mask, inv_keep)
+    out = std_layer_norm(r, gamma, beta, LN_EPS, reciprocal)
+    return tuple(out.to(dt) for dt in out_dtypes) + ((r,) if save_r else ())
 
 
 def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
                        bias: Optional[torch.Tensor], gamma: torch.Tensor,
                        beta: torch.Tensor,
-                       out_dtypes: Sequence[torch.dtype] = (F32,)
+                       out_dtypes: Sequence[torch.dtype] = (F32,), *,
+                       mask: Optional[torch.Tensor] = None,
+                       inv_keep: float = 1.0, save_r: bool = False,
+                       reciprocal: bool = False
                        ) -> Tuple[torch.Tensor, ...]:
-    """LN(res + y + bias) over the last dim, all in f32. res [..., D] bf16
-    or f32, y [..., D] f32, bias/gamma/beta [D] f32 (bias may be None).
-    Returns one tensor per entry of out_dtypes (each f32 or bf16), shaped
-    like res."""
+    """LN(r) over the last dim, r = res + drop(y + bias), all in f32.
+    res [..., D] bf16 or f32, y [..., D] f32, bias/gamma/beta [D] f32 (bias
+    may be None), mask an optional keep-mask shaped like y. Returns one
+    tensor per entry of out_dtypes (each f32 or bf16), shaped like res,
+    then r (f32) when save_r. reciprocal: the train kernels' rounding
+    (``std_layer_norm``)."""
     if not on_cuda(res):
-        return residual_layernorm_plain(res, y, bias, gamma, beta, out_dtypes)
+        return residual_layernorm_plain(res, y, bias, gamma, beta, out_dtypes,
+                                        mask=mask, inv_keep=inv_keep,
+                                        save_r=save_r, reciprocal=reciprocal)
     name = "residual_layernorm"
-    _same_device(name, res, y, bias, gamma, beta)
+    _same_device(name, res, y, bias, gamma, beta, mask)
     D = res.shape[-1]
     rows = res.numel() // D
     _require(D in LN_WIDTHS, f"{name}: D={D} not in {LN_WIDTHS}")
@@ -219,21 +462,119 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
     _require(res.is_contiguous() and y.is_contiguous(),
              f"{name}: res and y must be contiguous")
     for t in (bias, gamma, beta):
-        _require(t is None or (t.dtype == F32 and t.is_contiguous()
-                               and t.numel() == D),
-                 f"{name}: bias/gamma/beta must be f32 [{D}]")
+        _check_vec(name, t, D)
+    _check_mask(name, mask, res.shape)
     _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
              and len(set(out_dtypes)) == len(out_dtypes),
              f"{name}: out_dtypes {out_dtypes}")
     outs = {dt: torch.empty(res.shape, dtype=dt, device=res.device)
             for dt in out_dtypes}
+    r = torch.empty(res.shape, dtype=F32, device=res.device) \
+        if save_r else None
     rc = _lib().mcan_residual_layernorm(
-        res.data_ptr(), int(res.dtype == BF16), y.data_ptr(),
-        None if bias is None else bias.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(),
-        outs[F32].data_ptr() if F32 in outs else None,
-        outs[BF16].data_ptr() if BF16 in outs else None,
-        rows, D, LN_EPS, _stream(res))
+        res.data_ptr(), int(res.dtype == BF16), y.data_ptr(), _ptr(bias),
+        _ptr(mask), float(inv_keep), gamma.data_ptr(), beta.data_ptr(),
+        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _ptr(r), rows, D, LN_EPS,
+        int(reciprocal), _stream(res))
     _check(rc, name)
-    LAUNCHES[name] += 1
-    return tuple(outs[dt] for dt in out_dtypes)
+    return tuple(outs[dt] for dt in out_dtypes) + ((r,) if save_r else ())
+
+
+def residual_layernorm_bwd_plain(g, res, y, bias, gamma, *, mask=None,
+                                 inv_keep: float = 1.0,
+                                 dy_dtypes: Sequence[torch.dtype] = (F32,)
+                                 ) -> Tuple[torch.Tensor, ...]:
+    r = _residual(res, y, bias, mask, inv_keep)
+    D = r.shape[-1]
+    c = r - r.mean(-1, keepdim=True)
+    std = ((c * c).sum(-1, keepdim=True) / (D - 1)).sqrt()
+    inv = 1.0 / (std + LN_EPS)
+    sg = gamma * g
+    dstd = -(sg * c).sum(-1, keepdim=True) * (inv * inv)
+    dc = sg * inv + c * (dstd / ((D - 1) * std))
+    dr = dc - dc.mean(-1, keepdim=True)
+    dy = _drop(dr, mask, inv_keep)
+    return (dr, g * (c * inv)) + tuple(dy.to(dt) for dt in dy_dtypes)
+
+
+def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
+                           y: Optional[torch.Tensor],
+                           bias: Optional[torch.Tensor], gamma: torch.Tensor,
+                           *, mask: Optional[torch.Tensor] = None,
+                           inv_keep: float = 1.0,
+                           dy_dtypes: Sequence[torch.dtype] = (F32,)
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The backward of ``residual_layernorm`` for the output gradient g
+    (the Bessel-std LN backward of sga_train.py::_ln_bwd_u :122-142).
+    g, res [rows, D] f32, y f32 or None (then r = res), bias / gamma [D].
+    r and the normalised u are recomputed from res, y and bias, never from
+    the LN output. Returns (dr, g * u, then drop(dr) once per dy_dtypes),
+    all f32 but the dy entries."""
+    if not on_cuda(g):
+        return residual_layernorm_bwd_plain(g, res, y, bias, gamma,
+                                            mask=mask, inv_keep=inv_keep,
+                                            dy_dtypes=dy_dtypes)
+    name = "residual_layernorm_bwd"
+    _same_device(name, g, res, y, bias, gamma, mask)
+    D = res.shape[-1]
+    rows = res.numel() // D
+    _require(D in LN_WIDTHS, f"{name}: D={D} not in {LN_WIDTHS}")
+    for t in (g, res, y):
+        _require(t is None or (t.shape == res.shape and t.dtype == F32
+                               and t.is_contiguous()),
+                 f"{name}: g, res and y must be contiguous f32 shaped "
+                 f"{tuple(res.shape)}")
+    _check_vec(name, bias, D)
+    _check_vec(name, gamma, D)
+    _check_mask(name, mask, res.shape)
+    _require(set(dy_dtypes) <= {F32, BF16}
+             and len(set(dy_dtypes)) == len(dy_dtypes),
+             f"{name}: dy_dtypes {dy_dtypes}")
+    dr = torch.empty_like(g)
+    gu = torch.empty_like(g)
+    dys = {dt: torch.empty(res.shape, dtype=dt, device=res.device)
+           for dt in dy_dtypes}
+    rc = _lib().mcan_residual_layernorm_bwd(
+        g.data_ptr(), res.data_ptr(), _ptr(y), _ptr(bias), _ptr(mask),
+        float(inv_keep), gamma.data_ptr(), dr.data_ptr(),
+        _ptr(dys.get(F32)), _ptr(dys.get(BF16)), gu.data_ptr(), rows, D,
+        LN_EPS, _stream(g))
+    _check(rc, name)
+    return (dr, gu) + tuple(dys[dt] for dt in dy_dtypes)
+
+
+# ---------------------------------------------------------------------------
+# col_sum
+# ---------------------------------------------------------------------------
+
+def col_sum_plain(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    return [m.sum(dim=0) for m in mats]
+
+
+def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Column sums of one to four f32 [rows, cols_i] matrices with the same
+    number of rows -> f32 [cols_i] each, in one launch, summed in a fixed
+    order (the same bits on every run)."""
+    if not on_cuda(mats[0]):
+        return col_sum_plain(mats)
+    name = "col_sum"
+    _same_device(name, *mats)
+    n, rows = len(mats), mats[0].shape[0]
+    _require(1 <= n <= MAX_COL_SUMS and rows > 0,
+             f"{name}: 1 to {MAX_COL_SUMS} matrices with rows, got {n}")
+    for m in mats:
+        _require(m.dim() == 2 and m.shape[0] == rows and m.dtype == F32
+                 and m.stride(1) == 1,
+                 f"{name}: f32 [rows, cols] matrices with {rows} rows and "
+                 f"unit column stride")
+    outs = [torch.empty(m.shape[1], dtype=F32, device=m.device)
+            for m in mats]
+    arrays = ((ctypes.c_void_p * n)(*[m.data_ptr() for m in mats]),
+              (ctypes.c_longlong * n)(*[m.stride(0) for m in mats]),
+              (ctypes.c_int * n)(*[m.shape[1] for m in mats]),
+              (ctypes.c_void_p * n)(*[t.data_ptr() for t in outs]))
+    rc = _lib().mcan_col_sum(
+        n, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), rows,
+        _stream(mats[0]))
+    _check(rc, name)
+    return outs

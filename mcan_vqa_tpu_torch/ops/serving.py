@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
+from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.models.attention import split_heads
 from mcan_vqa_tpu_torch.models.layers import (BF16, bf16_matmul, make_mask,
                                               std_layer_norm)
@@ -60,13 +61,13 @@ def _mlp_params(sd, name: str, device) -> Params:
 
 
 def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
-                   device=None) -> Params:
-    """Reference state_dict -> the serving tree on ``device``, named as the
-    JAX package's pruned mode-2 tree (``prune_prepared_params``): per block
-    only the ``_mk`` layout, plus the decoder's fused cross ``linear_kv``."""
+                   device="cuda") -> Params:
+    """Reference state_dict -> the serving tree on ``device`` ("cuda" by
+    default; "cpu" for the plain versions), named as the JAX package's
+    pruned mode-2 tree (``prune_prepared_params``): per block only the
+    ``_mk`` layout, plus the decoder's fused cross ``linear_kv``."""
     sd = state_dict
-    dev = torch.device(device) if device is not None else \
-        sd["proj.weight"].device
+    dev = resolve_device(device)
 
     def to_dev(tree):
         return {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
@@ -175,7 +176,7 @@ def make_serving_fn(num_layers: int, num_heads: int) -> Callable:
 def build_production_engine(state_dict: Mapping[str, torch.Tensor],
                             num_layers: int, num_heads: int, *, qffn=0,
                             act_scale_inputs=None, act_scales=None,
-                            q8aux: bool = False, device=None
+                            q8aux: bool = False, device="cuda"
                             ) -> Tuple[Callable, Params]:
     """The all-bf16 block-kernel serving engine -> (forward, prepared).
 

@@ -1,0 +1,389 @@
+"""The SGA decoder block for training: forward with its six dropout sites,
+and its backward (mcan_vqa_tpu/ops/sga_train.py).
+
+On the TPU one train step runs three Pallas kernels per decoder block
+(sga_train.py): ``_fwd_kernel`` (:415, called at :977), the FFN backward
+from saved activations ``_bwd_ffn_kernel_sav`` (:576, :1081) and the
+attention backward ``_bwd_att_kernel`` (:631, :1139). On the card each is
+a short sequence of the hand-written kernels of ops/kernels.py:
+
+  forward       gemm_bias_act (qkv, merges, cross q, FFN with the h1 mask on
+                the ReLU output), masked_attention (with the att1 / att2
+                masks), residual_layernorm (with the y1 / y2 / y3 masks; LN3
+                also writes r3)
+  FFN backward  residual_layernorm_bwd (LN3 from the saved r3), gemm_dx
+                (dy3 . W2^T with the ReLU / h1 gradient gate; da1 . W1^T +
+                the residual), gemm_dw (dW1, dW2), col_sum (b1, b2, LN3)
+  att backward  the forward's cross and self attention recomputed from the
+                saved v1 and x, residual_layernorm_bwd (LN2, LN1), gemm_dx,
+                masked_attention_bwd (cross, self), gemm_dw, col_sum
+
+The products are those of the TPU kernels, at their precision: bf16
+operands, f32 sums, f32 LayerNorm and softmax. Every weight gradient is
+summed over all B * Lv rows by one block per output tile in a fixed order,
+so a step's gradients are the same bits on every run.
+
+Attention is per sample. The TPU kernel packs G samples into one score
+matrix with one collapsed additive mask (sga_train.py:256-263), so at G > 1
+a sample whose question is all PAD spreads its cross-attention over its
+neighbours' question keys. Here a fully padded sample is uniform over its
+own keys (model.apply's forward); its score gradient is the softmax's,
+dS = P * (dP - rowsum(P * dP)), which is what the TPU kernel's additive
+mask gives at G = 1.
+
+Dropout masks are external, per sample, drawn once per step and read by
+both the forward and the backward (``make_dropout_masks``). The
+``_prng`` kernel variants that draw them inside the TPU kernel are not
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
+from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
+    std_layer_norm
+from mcan_vqa_tpu_torch.ops import kernels as K
+from mcan_vqa_tpu_torch.ops.dropout import random_keep_mask
+
+F32 = torch.float32
+
+MASK_NAMES = ("att1", "att2", "y1", "y2", "h1", "y3")
+WEIGHT_NAMES = ("wqkv", "bqkv", "wm1", "bm1", "ln1_s", "ln1_b",
+                "wq2", "bq2", "wm2", "bm2", "ln2_s", "ln2_b",
+                "w1", "b1", "w2", "b2", "ln3_s", "ln3_b")
+MATMUL_WEIGHTS = ("wqkv", "wm1", "wq2", "wm2", "w1", "w2")
+
+Masks = Dict[str, Optional[torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# parameters and masks
+# ---------------------------------------------------------------------------
+
+def prepare_sga_train_params(p: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """One decoder block's parameters, keyed as in the reference SGA block
+    (``dict(block.named_parameters())``), -> the train layout of
+    sga_train.py:65: wqkv [D, 3D], the merges, the cross q, the FFN
+    ([in, out]) and the LN vectors, f32. Built with differentiable ops, so
+    gradients of the layout flow back to the block's parameters. The cross
+    k / v projection is not here: it runs outside the block."""
+    def t(name):
+        return p[f"{name}.weight"].t()
+
+    def b(name):
+        return p[f"{name}.bias"]
+
+    qkv = ("mhatt1.linear_q", "mhatt1.linear_k", "mhatt1.linear_v")
+    return {
+        "wqkv": torch.cat([t(n) for n in qkv], dim=1),
+        "bqkv": torch.cat([b(n) for n in qkv]),
+        "wm1": t("mhatt1.linear_merge"), "bm1": b("mhatt1.linear_merge"),
+        "ln1_s": p["norm1.a_2"], "ln1_b": p["norm1.b_2"],
+        "wq2": t("mhatt2.linear_q"), "bq2": b("mhatt2.linear_q"),
+        "wm2": t("mhatt2.linear_merge"), "bm2": b("mhatt2.linear_merge"),
+        "ln2_s": p["norm2.a_2"], "ln2_b": p["norm2.b_2"],
+        "w1": t("ffn.mlp.fc.linear"), "b1": b("ffn.mlp.fc.linear"),
+        "w2": t("ffn.mlp.linear"), "b2": b("ffn.mlp.linear"),
+        "ln3_s": p["norm3.a_2"], "ln3_b": p["norm3.b_2"],
+    }
+
+
+def mask_shapes(B: int, Lv: int, Lq: int, D: int, F: int, H: int
+                ) -> Dict[str, Tuple[int, ...]]:
+    """The per-sample layout of the six masks: attention maps [B, H, Lq',
+    Lk], sublayer outputs [B, Lv, D], the FFN hidden [B, Lv, F]."""
+    return {"att1": (B, H, Lv, Lv), "att2": (B, H, Lv, Lq),
+            "y1": (B, Lv, D), "y2": (B, Lv, D), "h1": (B, Lv, F),
+            "y3": (B, Lv, D)}
+
+
+def make_dropout_masks(generator: Optional[torch.Generator], rate: float,
+                       B: int, Lv: int, Lq: int, D: int, F: int, H: int
+                       ) -> Tuple[Masks, float]:
+    """The six keep-masks of one block for one step (bool, per sample, in
+    MASK_NAMES order from ``generator``, on its device) and the inverse
+    keep probability. At rate 0 every mask is None and nothing is drawn
+    (sga_train.py:875)."""
+    shapes = mask_shapes(B, Lv, Lq, D, F, H)
+    if rate <= 0.0:
+        return {n: None for n in MASK_NAMES}, 1.0
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
+    masks, inv_keep = {}, 1.0
+    for name in MASK_NAMES:
+        masks[name], inv_keep = random_keep_mask(generator, rate,
+                                                 shapes[name])
+    return masks, inv_keep
+
+
+# ---------------------------------------------------------------------------
+# the kernel sequence
+# ---------------------------------------------------------------------------
+
+def _qkv_heads(qkv: torch.Tensor, B: int, L: int, H: int):
+    """Fused [B*L, 3D] -> three [B, H, L, Dh] strided views (no copy)."""
+    D = qkv.shape[1] // 3
+    return tuple(split_heads(t, H)
+                 for t in qkv.view(B, L, 3 * D).split(D, dim=-1))
+
+
+def _rows(m: Optional[torch.Tensor], cols: int) -> Optional[torch.Tensor]:
+    return None if m is None else m.reshape(-1, cols)
+
+
+def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
+             H: int):
+    """The block forward of _fwd_kernel -> (v3 f32, the saves)."""
+    B, Lv, D = x.shape
+    M = B * Lv
+    F = w["w1"].shape[1]
+    xs = x.reshape(M, D)
+    xb = xs.to(BF16)
+    # self-attention over the regions + merge + dropout + LN1
+    qkv = K.gemm_bias_act(xb, w["wqkv"], w["bqkv"], out_dtype=BF16)
+    att1 = K.masked_attention(*_qkv_heads(qkv, B, Lv, H), v_mask,
+                              m["att1"], inv_keep).view(M, D)
+    y1 = K.gemm_bias_act(att1, w["wm1"])
+    v1, v1b = K.residual_layernorm(xs, y1, w["bm1"], w["ln1_s"], w["ln1_b"],
+                                   (F32, BF16), mask=_rows(m["y1"], D),
+                                   inv_keep=inv_keep, reciprocal=True)
+    # cross-attention against the pre-projected question k / v + LN2
+    qx = K.gemm_bias_act(v1b, w["wq2"], w["bq2"], out_dtype=BF16)
+    att2 = K.masked_attention(split_heads(qx.view(B, Lv, D), H), kq, vq,
+                              q_mask, m["att2"], inv_keep).view(M, D)
+    y2 = K.gemm_bias_act(att2, w["wm2"])
+    v2, v2b = K.residual_layernorm(v1, y2, w["bm2"], w["ln2_s"], w["ln2_b"],
+                                   (F32, BF16), mask=_rows(m["y2"], D),
+                                   inv_keep=inv_keep, reciprocal=True)
+    # FFN: ReLU, then the h1 mask, written bf16 (h1d is saved); LN3 saves r3
+    h1d = K.gemm_bias_act(v2b, w["w1"], w["b1"], relu=True, out_dtype=BF16,
+                          mask=_rows(m["h1"], F), inv_keep=inv_keep)
+    y3 = K.gemm_bias_act(h1d, w["w2"])
+    v3, r3 = K.residual_layernorm(v2, y3, w["b2"], w["ln3_s"], w["ln3_b"],
+                                  (F32,), mask=_rows(m["y3"], D),
+                                  inv_keep=inv_keep, save_r=True,
+                                  reciprocal=True)
+    return v3.view(B, Lv, D), (xb, v1, v1b, v2b, r3, h1d)
+
+
+def _bwd_ffn(g, saves, m: Masks, w, inv_keep: float):
+    """_bwd_ffn_kernel_sav: LN3 + FFN + the y3 dropout, from the saved r3,
+    h1d and v2 -> (gv2, dw1, db1, dw2, db2, dln3_s, dln3_b)."""
+    _, _, _, v2b, r3, h1d = saves
+    D = r3.shape[1]
+    gr3, gu3, dy3, dy3b = K.residual_layernorm_bwd(
+        g, r3, None, None, w["ln3_s"], mask=_rows(m["y3"], D),
+        inv_keep=inv_keep, dy_dtypes=(F32, BF16))
+    # dh1d = dy3 . W2^T through ReLU and the h1 mask, read off h1d
+    # (sga_train.py:599: where(h1d > 0, inv_keep * dh1d, 0))
+    da1, da1b = K.gemm_dx(dy3b, w["w2"], gate=h1d, inv_keep=inv_keep,
+                          out_dtypes=(F32, BF16))
+    gv2, = K.gemm_dx(da1b, w["w1"], res=gr3)
+    dw1 = K.gemm_dw(v2b, da1b)
+    dw2 = K.gemm_dw(h1d, dy3b)
+    db1, db2, dln3_s, dln3_b = K.col_sum([da1, dy3, gu3, g])
+    return gv2, dw1, db1, dw2, db2, dln3_s, dln3_b
+
+
+def _bwd_att(gv2, x, kq, vq, v_mask, q_mask, saves, m: Masks, w,
+             inv_keep: float, H: int):
+    """_bwd_att_kernel: LN2 + cross-attention + LN1 + self-attention and
+    their dropouts, recomputing both attentions from the saved x and v1
+    -> (dx, dkq, dvq, and the 12 weight-gradient pieces)."""
+    xb, v1, v1b, _, _, _ = saves
+    B, Lv, D = x.shape
+    M = B * Lv
+    xs = x.reshape(M, D)
+    # ---- cross-attention: recompute from v1, then back through it
+    qx = K.gemm_bias_act(v1b, w["wq2"], w["bq2"], out_dtype=BF16)
+    qxh = split_heads(qx.view(B, Lv, D), H)
+    att2 = K.masked_attention(qxh, kq, vq, q_mask, m["att2"],
+                              inv_keep).view(M, D)
+    y2 = K.gemm_bias_act(att2, w["wm2"])
+    gr2, gu2, dy2, dy2b = K.residual_layernorm_bwd(
+        gv2, v1, y2, w["bm2"], w["ln2_s"], mask=_rows(m["y2"], D),
+        inv_keep=inv_keep, dy_dtypes=(F32, BF16))
+    datt2, = K.gemm_dx(dy2b, w["wm2"], out_dtypes=(BF16,))
+    dqx = torch.empty((B, Lv, D), dtype=F32, device=x.device)
+    dqx16 = torch.empty((B, Lv, D), dtype=BF16, device=x.device)
+    dkq = torch.empty(kq.shape, dtype=F32, device=x.device)
+    dvq = torch.empty(vq.shape, dtype=F32, device=x.device)
+    K.masked_attention_bwd(qxh, kq, vq, q_mask, datt2.view(B, Lv, D),
+                           split_heads(dqx, H), dkq, dvq,
+                           dq16=split_heads(dqx16, H), drop=m["att2"],
+                           inv_keep=inv_keep)
+    dqx, dqx16 = dqx.view(M, D), dqx16.view(M, D)
+    gv1, = K.gemm_dx(dqx16, w["wq2"], res=gr2)
+    # ---- self-attention: recompute from x, then back through it
+    qkv = K.gemm_bias_act(xb, w["wqkv"], w["bqkv"], out_dtype=BF16)
+    heads = _qkv_heads(qkv, B, Lv, H)
+    att1 = K.masked_attention(*heads, v_mask, m["att1"], inv_keep).view(M, D)
+    y1 = K.gemm_bias_act(att1, w["wm1"])
+    gr1, gu1, dy1, dy1b = K.residual_layernorm_bwd(
+        gv1, xs, y1, w["bm1"], w["ln1_s"], mask=_rows(m["y1"], D),
+        inv_keep=inv_keep, dy_dtypes=(F32, BF16))
+    datt1, = K.gemm_dx(dy1b, w["wm1"], out_dtypes=(BF16,))
+    dqkv = torch.empty((M, 3 * D), dtype=F32, device=x.device)
+    dqkv16 = torch.empty((M, 3 * D), dtype=BF16, device=x.device)
+    dq, dk, dv = _qkv_heads(dqkv, B, Lv, H)
+    dq16, dk16, dv16 = _qkv_heads(dqkv16, B, Lv, H)
+    K.masked_attention_bwd(*heads, v_mask, datt1.view(B, Lv, D), dq, dk, dv,
+                           dq16=dq16, dk16=dk16, dv16=dv16, drop=m["att1"],
+                           inv_keep=inv_keep)
+    dx, = K.gemm_dx(dqkv16, w["wqkv"], res=gr1)
+    # ---- weight gradients, each summed over all M rows
+    dwqkv = K.gemm_dw(xb, dqkv16)
+    dwm1 = K.gemm_dw(att1, dy1b)
+    dwq2 = K.gemm_dw(v1b, dqx16)
+    dwm2 = K.gemm_dw(att2, dy2b)
+    dbqkv, dbm1, dln1_s, dln1_b = K.col_sum([dqkv, dy1, gu1, gv1])
+    dbq2, dbm2, dln2_s, dln2_b = K.col_sum([dqx, dy2, gu2, gv2])
+    return (dx.view(B, Lv, D), dkq, dvq, dwqkv, dbqkv, dwm1, dbm1, dln1_s,
+            dln1_b, dwq2, dbq2, dwm2, dbm2, dln2_s, dln2_b)
+
+
+def _count(x: torch.Tensor, name: str) -> None:
+    """One more run of a TPU kernel's counterpart, counted where its kernel
+    sequence was launched on the card."""
+    if K.on_cuda(x):
+        K.LAUNCHES[name] += 1
+
+
+def _kernel_weights(ws: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """f32 parameters -> what the kernels read: matmul weights bf16
+    [in, out] contiguous, vectors f32 contiguous."""
+    out = {}
+    for name, t in zip(WEIGHT_NAMES, ws):
+        t = t.detach()
+        out[name] = (t.to(BF16) if name in MATMUL_WEIGHTS
+                     else t.float()).contiguous()
+    return out
+
+
+class SGABlockTrain(torch.autograd.Function):
+    """The differentiable block: forward saves x, v1, v2, r3 and h1d (the
+    JAX ``save_acts=True``); backward is the FFN backward, then the
+    attention backward (sga_train.py:1365-1396). Gradients flow to x,
+    kq, vq and all 18 weight pieces."""
+
+    @staticmethod
+    def forward(ctx, x, kq, vq, v_mask, q_mask, inv_keep, num_heads,
+                mask_tuple, *ws):
+        w = _kernel_weights(ws)
+        m = dict(zip(MASK_NAMES, mask_tuple))
+        x = x.detach().float().contiguous()
+        kq, vq = kq.detach(), vq.detach()
+        v3, saves = _forward(x, kq, vq, v_mask, q_mask, m, w, inv_keep,
+                             num_heads)
+        _count(x, "sga_train_fwd")
+        ctx.inputs = (x, kq, vq, v_mask, q_mask)
+        ctx.saves, ctx.masks, ctx.w = saves, m, w
+        ctx.inv_keep, ctx.num_heads = inv_keep, num_heads
+        return v3
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kq, vq, v_mask, q_mask = ctx.inputs
+        B, Lv, D = x.shape
+        g = g.reshape(B * Lv, D).float().contiguous()
+        gv2, *ffn_dw = _bwd_ffn(g, ctx.saves, ctx.masks, ctx.w, ctx.inv_keep)
+        _count(x, "sga_train_bwd_ffn")
+        dx, dkq, dvq, *att_dw = _bwd_att(gv2, x, kq, vq, v_mask, q_mask,
+                                         ctx.saves, ctx.masks, ctx.w,
+                                         ctx.inv_keep, ctx.num_heads)
+        _count(x, "sga_train_bwd_att")
+        dw = att_dw + ffn_dw    # WEIGHT_NAMES order
+        ctx.inputs = ctx.saves = ctx.masks = ctx.w = None
+        return (dx, dkq, dvq, None, None, None, None, None, *dw)
+
+
+def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
+                          vq: torch.Tensor, v_mask: torch.Tensor,
+                          q_mask: torch.Tensor, masks: Masks,
+                          w: Mapping[str, torch.Tensor], *, num_heads: int,
+                          inv_keep: float = 1.0) -> torch.Tensor:
+    """One decoder block of a train step. x [B, Lv, D] f32 image stream;
+    kq / vq [B, H, Lq, 64] the pre-projected cross keys / values (f32;
+    strided views whose last dim is contiguous); v_mask / q_mask bool
+    [B, 1, 1, L] (True = PAD); masks from ``make_dropout_masks`` (None
+    entries: no dropout at that site); w from ``prepare_sga_train_params``.
+    -> v3 [B, Lv, D] f32. On CUDA tensors every step is a kernel launch;
+    on CPU tensors the same sequence runs the kernels' plain versions."""
+    if K.on_cuda(x):
+        _check_train_inputs(x, masks, w)
+    return SGABlockTrain.apply(x, kq, vq, v_mask, q_mask, float(inv_keep),
+                               num_heads,
+                               tuple(masks[n] for n in MASK_NAMES),
+                               *(w[n] for n in WEIGHT_NAMES))
+
+
+def _check_train_inputs(x, masks, w) -> None:
+    if x.dtype != F32 or x.dim() != 3:
+        raise ValueError(f"fused_sga_block_train: the stream must be f32 "
+                         f"[B, Lv, D], got {x.dtype} {tuple(x.shape)}")
+    for name in MATMUL_WEIGHTS:
+        if w[name].dim() != 2:
+            raise ValueError(f"fused_sga_block_train: {name} must be a "
+                             f"[in, out] matrix")
+    unknown = set(masks) - set(MASK_NAMES)
+    if unknown:
+        raise ValueError(f"fused_sga_block_train: unknown masks {unknown}")
+
+
+# ---------------------------------------------------------------------------
+# the plain version: the same function step by step, torch autograd
+# ---------------------------------------------------------------------------
+
+def _drop(x: torch.Tensor, mask: Optional[torch.Tensor],
+          inv_keep: float) -> torch.Tensor:
+    return x if mask is None else torch.where(mask.bool(), x * inv_keep,
+                                              torch.zeros_like(x))
+
+
+def _attention_plain(q, k, v, key_pad, drop, inv_keep):
+    """Per-sample attention of the train kernels: bf16 operands, f32
+    softmax over scores with PAD keys at -1e9 (added, as the TPU kernel
+    adds its mask, so the score gradient is the softmax's on every key),
+    the dropped probabilities rounded to bf16 for P.V."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = (q.to(BF16).float() @ k.to(BF16).float().transpose(-1, -2)) * scale
+    p = torch.softmax(s + key_pad.float() * NEG_INF, dim=-1)
+    o = _drop(p, drop, inv_keep).to(BF16).float() @ v.to(BF16).float()
+    B, H, L, Dh = o.shape
+    return o.transpose(1, 2).reshape(B, L, H * Dh)
+
+
+def fused_sga_block_train_plain(x: torch.Tensor, kq: torch.Tensor,
+                                vq: torch.Tensor, v_mask: torch.Tensor,
+                                q_mask: torch.Tensor, masks: Masks,
+                                w: Mapping[str, torch.Tensor], *,
+                                num_heads: int,
+                                inv_keep: float = 1.0) -> torch.Tensor:
+    """``fused_sga_block_train`` in plain PyTorch ops, differentiated by
+    autograd: the reference block (core/model/mca.py:134-164) with the six
+    dropout sites and the TPU kernel's precision at every step."""
+    B, Lv, D = x.shape
+    H = num_heads
+    x = x.float()
+    qkv = bf16_matmul(x, w["wqkv"]) + w["bqkv"]
+    q, k, v = (split_heads(t, H) for t in qkv.split(D, dim=-1))
+    att1 = _attention_plain(q, k, v, v_mask, masks["att1"], inv_keep)
+    y1 = bf16_matmul(att1, w["wm1"]) + w["bm1"]
+    v1 = std_layer_norm(x + _drop(y1, masks["y1"], inv_keep), w["ln1_s"],
+                        w["ln1_b"], reciprocal=True)
+    qx = bf16_matmul(v1, w["wq2"]) + w["bq2"]
+    att2 = _attention_plain(split_heads(qx, H), kq, vq, q_mask,
+                            masks["att2"], inv_keep)
+    y2 = bf16_matmul(att2, w["wm2"]) + w["bm2"]
+    v2 = std_layer_norm(v1 + _drop(y2, masks["y2"], inv_keep), w["ln2_s"],
+                        w["ln2_b"], reciprocal=True)
+    h1d = _drop(torch.relu(bf16_matmul(v2, w["w1"]) + w["b1"]), masks["h1"],
+                inv_keep)
+    y3 = bf16_matmul(h1d, w["w2"]) + w["b2"]
+    return std_layer_norm(v2 + _drop(y3, masks["y3"], inv_keep), w["ln3_s"],
+                          w["ln3_b"], reciprocal=True)

@@ -1,5 +1,5 @@
-"""Weight carry-over into the port (weights only; optimizer state and the
-orbax format come with the training slice).
+"""Checkpoints of the port: weight carry-over in, and the per-epoch
+training checkpoint out (the orbax format is not ported).
 
   * ``state_dict_from_params``: JAX params (a nested dict of arrays, as
     ``model.init(...)["params"]`` or an orbax restore gives them) -> the
@@ -9,10 +9,16 @@ orbax format come with the training slice).
   * ``load_reference_checkpoint``: a reference ``{state_dict, ...}``
     pickle (core/exec.py:241-245) -> state_dict, "module." prefixes of
     DataParallel stripped.
+  * ``save_checkpoint``: a train state -> that pickle,
+    ``{state_dict, optimizer, lr_base}`` with the AdamW state indexed in
+    Net2's parameter order, at ``<ckpts_dir>/ckpt_<version>/epoch<N>.pkl``
+    (core/exec.py:241-253). The JAX ``import_torch_checkpoint`` and
+    ``Predictor.from_checkpoint`` both read it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -117,3 +123,32 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     blob = torch.load(path, map_location="cpu", weights_only=True)
     state_dict = blob["state_dict"] if "state_dict" in blob else blob
     return {k.removeprefix("module."): v for k, v in state_dict.items()}
+
+
+def checkpoint_path(ckpts_dir: str, version: str, epoch: int) -> str:
+    return os.path.join(ckpts_dir, f"ckpt_{version}", f"epoch{epoch}.pkl")
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(state, ckpts_dir: str, version: str, epoch: int,
+                    lr_base: float) -> str:
+    """Write the reference pickle of ``state`` (a TrainState over an
+    MCANet, whose parameters register in Net2's order, so the optimizer's
+    indices are the reference's) -> its path. Tensors are saved on the
+    CPU."""
+    path = checkpoint_path(ckpts_dir, version, epoch)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    blob = {"state_dict": _to_cpu(state.model.state_dict()),
+            "optimizer": _to_cpu(state.optimizer.state_dict()),
+            "lr_base": float(lr_base)}
+    torch.save(blob, path)
+    return path

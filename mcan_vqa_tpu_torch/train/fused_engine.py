@@ -1,0 +1,162 @@
+"""The training forward of MCAN, built for autograd
+(mcan_vqa_tpu/train/fused_engine.py).
+
+``make_fused_train_forward`` returns forward(net, img_feat, ques_ix,
+generator) -> logits over the parameters of an ``MCANet``:
+
+  * every decoder (SGA) block -- most of the model's FLOPs -- runs through
+    ``ops/sga_train.fused_sga_block_train``, the autograd.Function whose
+    forward and backward are the hand-written CUDA kernels on the card;
+  * everything else (embedding, LSTM, the encoder SA stack over the 14
+    question tokens, the cross k / v projections, AttFlat and the
+    classifier) is plain PyTorch with dropout, as it is plain XLA in the
+    JAX engine.
+
+``fused_encoder=True``, which the JAX Trainer ships at hidden <= 512, runs
+the encoder through the fused SA train kernels (``sa_train._fwd_call`` /
+``_bwd_call``); they are not ported yet, so it raises.
+
+Dropout: one generator per step, and every keep-mask of the step drawn from
+it up front in the fixed site order of the JAX engine (fused_engine.py:
+125-129): the encoder layers (attention map, attention output, FFN hidden,
+FFN output), then the decoder blocks (the six masks of
+``sga_train.MASK_NAMES``), then AttFlat over the question and over the
+image. A fused engine and a plain engine (``sga_block="plain"``) handed
+the same generator state therefore see the same masks.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
+from mcan_vqa_tpu_torch.models.layers import BF16, make_mask
+from mcan_vqa_tpu_torch.models.net import attflat_pool
+from mcan_vqa_tpu_torch.ops import sga_train
+from mcan_vqa_tpu_torch.ops.dropout import inv_keep_prob, random_keep_mask
+
+Mask = Optional[torch.Tensor]
+SGA_BLOCKS = {"fused": sga_train.fused_sga_block_train,
+              "plain": sga_train.fused_sga_block_train_plain}
+
+
+def _drop(x: torch.Tensor, mask: Mask, inv_keep: float) -> torch.Tensor:
+    return x if mask is None else torch.where(mask, x * inv_keep,
+                                              torch.zeros_like(x))
+
+
+def _masked_attention_train(p, v, k, q, mask, num_heads: int, drop: Mask,
+                            inv_keep: float) -> torch.Tensor:
+    """Multi-head attention with dropout on the attention map (the encoder
+    path): bf16 operands, PAD keys replaced by -1e9, f32 softmax. p is an
+    ``MHAtt``."""
+    H = num_heads
+    qh, kh, vh = (split_heads(lin(x), H) for lin, x in
+                  ((p.linear_q, q), (p.linear_k, k), (p.linear_v, v)))
+    scale = 1.0 / qh.shape[-1] ** 0.5
+    scores = (qh.to(BF16).float() @ kh.to(BF16).float().transpose(-1, -2)) \
+        * scale
+    att = _drop(torch.softmax(scores.masked_fill(mask, NEG_INF), dim=-1),
+                drop, inv_keep)
+    out = att.to(BF16).float() @ vh.to(BF16).float()
+    B, _, Lq, _ = out.shape
+    return p.linear_merge(out.transpose(1, 2).reshape(B, Lq, -1))
+
+
+def _mlp_train(p, x: torch.Tensor, drop: Mask,
+               inv_keep: float) -> torch.Tensor:
+    """MLP (FC with ReLU, dropout on its output, Linear); p is an ``MLP``."""
+    return p.linear(_drop(p.fc(x), drop, inv_keep))
+
+
+def _attflat_train(p, x: torch.Tensor, mask: torch.Tensor, drop: Mask,
+                   inv_keep: float) -> torch.Tensor:
+    """AttFlat with dropout inside its MLP; p is an ``AttFlat``."""
+    return p.linear_merge(attflat_pool(_mlp_train(p.mlp, x, drop, inv_keep),
+                                       x, mask))
+
+
+def draw_step_masks(generator: Optional[torch.Generator], rate: float, *,
+                    B: int, Lq: int, Lv: int, D: int, F: int, H: int,
+                    num_layers: int, flat_mlp: int) -> Dict[str, List]:
+    """Every keep-mask of one step, in site order (see the module
+    docstring), on the generator's device. At rate 0 all are None and
+    nothing is drawn."""
+    def draw(*shape):
+        if rate <= 0.0:
+            return None
+        return random_keep_mask(generator, rate, shape)[0]
+
+    enc = [{"att": draw(B, H, Lq, Lq), "sub": draw(B, Lq, D),
+            "ffn_h": draw(B, Lq, F), "ffn": draw(B, Lq, D)}
+           for _ in range(num_layers)]
+    shapes = sga_train.mask_shapes(B, Lv, Lq, D, F, H)
+    dec = [{n: draw(*shapes[n]) for n in sga_train.MASK_NAMES}
+           for _ in range(num_layers)]
+    return {"enc": enc, "dec": dec,
+            "flat": [draw(B, Lq, flat_mlp), draw(B, Lv, flat_mlp)]}
+
+
+def make_fused_train_forward(num_layers: int, num_heads: int,
+                             dropout_rate: float = 0.1,
+                             fused_encoder: bool = False,
+                             sga_block: str = "fused") -> Callable:
+    """-> forward(net, img_feat [B, R, F] f32, ques_ix [B, T] int,
+    generator) -> logits [B, A], differentiable w.r.t. net's parameters.
+    sga_block: "fused" (the kernels) or "plain" (the same block in plain
+    ops, autograd)."""
+    if fused_encoder:
+        raise NotImplementedError(
+            "fused_encoder=True runs the encoder through the fused SA train "
+            "kernels (mcan_vqa_tpu/ops/sa_train.py _fwd_call :389 / "
+            "_bwd_call :487), which are not ported yet")
+    if sga_block not in SGA_BLOCKS:
+        raise ValueError(f"sga_block must be one of {tuple(SGA_BLOCKS)}")
+    block = SGA_BLOCKS[sga_block]
+    rate = dropout_rate
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
+    inv_keep = inv_keep_prob(rate) if rate > 0.0 else 1.0
+
+    def forward(net, img_feat: torch.Tensor, ques_ix: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        q_mask = make_mask(ques_ix.unsqueeze(-1))
+        v_mask = make_mask(img_feat)
+        H = num_heads
+        q = net.lstm(net.embedding(ques_ix))
+        v = net.img_feat_linear(img_feat)
+        B, Lq, D = q.shape
+        Lv = v.shape[1]
+        bb = net.backbone
+        masks = draw_step_masks(
+            generator, rate, B=B, Lq=Lq, Lv=Lv, D=D,
+            F=bb.dec_list[0].ffn.mlp.fc.linear.weight.shape[0], H=H,
+            num_layers=num_layers,
+            flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0])
+
+        # ---- encoder SA stack over the question (plain ops)
+        for enc, m in zip(bb.enc_list, masks["enc"]):
+            att = _masked_attention_train(enc.mhatt, q, q, q, q_mask, H,
+                                          m["att"], inv_keep)
+            q = enc.norm1(q + _drop(att, m["sub"], inv_keep))
+            ff = _mlp_train(enc.ffn.mlp, q, m["ffn_h"], inv_keep)
+            q = enc.norm2(q + _drop(ff, m["ffn"], inv_keep))
+
+        # ---- decoder SGA stack over the regions (the train block)
+        for dec, m in zip(bb.dec_list, masks["dec"]):
+            kq = split_heads(dec.mhatt2.linear_k(q), H)
+            vq = split_heads(dec.mhatt2.linear_v(q), H)
+            w = sga_train.prepare_sga_train_params(
+                dict(dec.named_parameters()))
+            v = block(v, kq, vq, v_mask, q_mask, m, w, num_heads=H,
+                      inv_keep=inv_keep)
+
+        lang = _attflat_train(net.attflat_lang, q, q_mask, masks["flat"][0],
+                              inv_keep)
+        img = _attflat_train(net.attflat_img, v, v_mask, masks["flat"][1],
+                             inv_keep)
+        return net.proj(net.proj_norm(lang + img))
+
+    return forward

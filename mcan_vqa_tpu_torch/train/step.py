@@ -1,0 +1,108 @@
+"""The train step: loss, gradient accumulation, global-norm clip, AdamW
+update (mcan_vqa_tpu/train/step.py).
+
+Loss: BCE with logits, summed (reference core/model/net.py:373,
+core/exec.py:67). Gradient accumulation: the batch is cut into
+``grad_accu_steps`` micro-batches whose losses and gradients are summed
+before one optimizer step (core/exec.py:163-208). An optional L1 + L2 or
+smooth-L1 penalty is added to every micro-batch loss (core/exec.py:598-607,
+922-926).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+from mcan_vqa_tpu_torch.train.train_state import TrainState
+
+
+def bce_with_logits_sum(logits: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """Sum-reduced binary cross-entropy on logits, in the stable form
+    max(x, 0) - x z + log1p(exp(-|x|))."""
+    x, z = logits.float(), targets.float()
+    return (x.clamp_min(0.0) - x * z + torch.log1p(torch.exp(-x.abs()))).sum()
+
+
+def l1_l2_penalty(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sum |p| + sum p^2 over all parameters (core/exec.py:1298-1303)."""
+    params = list(params)
+    return (sum(p.abs().sum() for p in params)
+            + sum(p.square().sum() for p in params))
+
+
+def smooth_l1_penalty(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sum over parameters of mean Huber(p, 0) (core/exec.py:922-926)."""
+    def huber_mean(p):
+        a = p.abs()
+        return torch.where(a < 1.0, 0.5 * p * p, a - 0.5).mean()
+    return sum(huber_mean(p) for p in params)
+
+
+PENALTIES = {"l1l2": l1_l2_penalty, "smooth_l1": smooth_l1_penalty}
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt(sum of squares) over all gradients (optax.global_norm)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
+                    reg_factor: float = 0.0,
+                    lr_schedule: Optional[Callable[[int], float]] = None,
+                    reg_mode: str = "l1l2", grad_norm_clip: float = 0.0
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                  Dict[str, torch.Tensor]]:
+    """-> step(state, batch) -> metrics, updating ``state`` in place.
+
+    batch: {"img": [B, R, F] f32, "ques": [B, T] int, "target": [B, A] f32}
+    on the model's device, B = grad_accu_steps x micro-batch.
+    forward_fn(net, img, ques, generator) -> logits draws its dropout
+    masks from ``state.generator``. grad_norm_clip > 0 scales the gradients
+    to that global norm where it is exceeded (optax.clip_by_global_norm);
+    the reported grad_norm is the one before the clip. lr_schedule maps the
+    step count before the update to the learning rate."""
+    penalty = PENALTIES[reg_mode]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        n = batch["img"].shape[0]
+        if n % grad_accu_steps:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"{grad_accu_steps} micro-batches")
+        mb = n // grad_accu_steps
+        loss_sum = torch.zeros((), device=batch["img"].device)
+        for i in range(grad_accu_steps):
+            sl = slice(i * mb, (i + 1) * mb)
+            logits = forward_fn(state.model, batch["img"][sl],
+                                batch["ques"][sl], state.generator)
+            loss = bce_with_logits_sum(logits, batch["target"][sl])
+            if reg_factor > 0.0:
+                loss = loss + reg_factor * penalty(params)
+            loss.backward()
+            loss_sum += loss.detach()
+        grads = [p.grad for p in params]
+        gnorm = global_norm(grads)
+        if grad_norm_clip > 0:
+            scale = torch.where(gnorm < grad_norm_clip, 1.0,
+                                grad_norm_clip / gnorm)
+            for g in grads:
+                g.mul_(scale)
+        lr = lr_schedule(state.step) if lr_schedule is not None else None
+        if lr is not None:
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        metrics = {"loss": loss_sum, "grad_norm": gnorm}
+        if lr is not None:
+            metrics["lr"] = torch.tensor(lr)
+        return metrics
+
+    return step

@@ -1,0 +1,109 @@
+"""Training orchestration for VQA (mcan_vqa_tpu/train/trainer.py; the
+reference's Execution, core/exec.py:27-426).
+
+``Trainer(cfg, train_dataset).train()`` runs the epochs: a shuffled,
+drop-last loader onto the device, one train step per batch (the fused
+forward, the BCE loss, AdamW under the warmup / decay schedule), a
+reference pickle after every epoch and one log line per epoch.
+
+The train engine is ``make_fused_train_forward(fused_encoder=False)``:
+every decoder block through the SGA train kernels, the encoder plain. The
+JAX Trainer runs the encoder through the fused SA train kernels at hidden
+<= 512; those are not ported yet. Evaluation, resume, the classifier and
+MIMIC tasks and preemption handling are not ported either: asking for
+them raises.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import time
+from typing import Dict, Optional
+
+import torch
+
+from mcan_vqa_tpu_torch.data.pipeline import BatchLoader
+from mcan_vqa_tpu_torch.device import resolve_device
+from mcan_vqa_tpu_torch.models.net import MCANet
+from mcan_vqa_tpu_torch.train.checkpoint import save_checkpoint
+from mcan_vqa_tpu_torch.train.fused_engine import make_fused_train_forward
+from mcan_vqa_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+from mcan_vqa_tpu_torch.train.step import make_train_step
+from mcan_vqa_tpu_torch.train.train_state import TrainState
+from mcan_vqa_tpu_torch.utils.logging import RunLogger
+
+ENGINE_LINE = ("train engine: fused SGA train blocks, encoder plain: "
+               "sa_train kernels not ported")
+
+
+class Trainer:
+    def __init__(self, cfg, train_dataset, eval_datasets: Optional[Dict] = None,
+                 task: str = "vqa", device="cuda"):
+        """cfg: a ``Config``; train_dataset: a dataset with ``example(i)``,
+        ``token_size``, ``ans_size`` and ``pretrained_emb`` (for example
+        ``SyntheticVQADataset``). device: "cuda" by default; with no CUDA
+        device it raises unless the caller passes device="cpu"."""
+        if task != "vqa":
+            raise NotImplementedError(
+                f"task={task!r}: only VQA training is ported so far")
+        if eval_datasets:
+            raise NotImplementedError("evaluation is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.train_dataset = train_dataset
+        self.model = MCANet(
+            cfg, train_dataset.token_size, train_dataset.ans_size,
+            pretrained_emb=getattr(train_dataset, "pretrained_emb", None),
+            generator=torch.Generator().manual_seed(cfg.seed)
+        ).to(self.device)
+        self.lr_schedule = make_lr_schedule(
+            cfg.lr_base, len(train_dataset), cfg.batch_size,
+            decay_epochs=tuple(cfg.lr_decay_list),
+            decay_rate=cfg.lr_decay_rate)
+        self.state = TrainState.create(
+            self.model, make_optimizer(self.model.parameters(), cfg),
+            seed=cfg.seed)
+        self.forward_fn = make_fused_train_forward(
+            cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate)
+        self.step_fn = make_train_step(
+            self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
+            reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
+            grad_norm_clip=cfg.grad_norm_clip)
+        self.logger = RunLogger(cfg.log_path, cfg.run_version, cfg.to_dict(),
+                                echo=cfg.verbose)
+
+    def loader(self) -> BatchLoader:
+        return BatchLoader(self.train_dataset, self.cfg.batch_size,
+                           self.device, shuffle=True, drop_last=True,
+                           seed=self.cfg.seed)
+
+    def train(self) -> TrainState:
+        """Epochs 0 .. max_epoch - 1 from a fresh state: this version's
+        earlier checkpoints and logs are cleared first (the reference's
+        fresh run, core/exec.py:96-102)."""
+        cfg = self.cfg
+        ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
+        if os.path.isdir(ckpt_dir):
+            shutil.rmtree(ckpt_dir)
+        self.logger.clear()
+        self.logger.write(f"NOW TIME: {time.strftime('%Y-%m-%d %H:%M:%S')}")
+        self.logger.write(f"{ENGINE_LINE} (device {self.device})")
+        loader = self.loader()
+        state = self.state
+        for epoch in range(cfg.max_epoch):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            loss_sum, n_steps, lr = 0.0, 0, 0.0
+            for batch in loader:
+                metrics = self.step_fn(state, batch)
+                loss_sum += float(metrics["loss"])
+                lr = float(metrics["lr"])
+                n_steps += 1
+            path = save_checkpoint(state, cfg.ckpts_dir, cfg.run_version,
+                                   epoch + 1, cfg.lr_base)
+            self.logger.epoch(epoch, {
+                "loss": loss_sum / max(n_steps, 1), "lr": lr,
+                "steps": n_steps, "wall_s": time.perf_counter() - t0,
+                "checkpoint": path})
+        return state

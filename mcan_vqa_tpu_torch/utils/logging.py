@@ -1,0 +1,56 @@
+"""Run logging: a plain-text log file and its JSONL mirror
+(mcan_vqa_tpu/utils/logging.py::RunLogger; reference core/exec.py:132-140,
+216-235).
+
+``log_run_<version>.txt`` starts with the time and the full config dump,
+then takes one line per epoch; ``log_run_<version>.jsonl`` holds the same
+epoch records as JSON objects.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+
+class RunLogger:
+    def __init__(self, log_dir: str, version: str,
+                 cfg_dict: Optional[Dict] = None, echo: bool = True):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, f"log_run_{version}.txt")
+        self.echo = echo
+        with open(self.path, "a") as f:
+            f.write(f"NOW TIME: {time.strftime('%Y-%m-%d %H:%M:%S')}\n")
+            if cfg_dict is not None:
+                f.write(json.dumps(cfg_dict, default=str) + "\n")
+
+    @property
+    def jsonl_path(self) -> str:
+        return self.path.replace(".txt", ".jsonl")
+
+    def clear(self) -> None:
+        """Remove this version's log and its JSONL mirror (the reference's
+        empty_log on a fresh training run)."""
+        for p in (self.path, self.jsonl_path):
+            if os.path.exists(p):
+                os.remove(p)
+
+    def write(self, line: str) -> None:
+        with open(self.path, "a") as f:
+            f.write(line.rstrip("\n") + "\n")
+        if self.echo:
+            print(line, flush=True)
+
+    def jsonl(self, obj: Dict[str, Any]) -> None:
+        with open(self.jsonl_path, "a") as f:
+            f.write(json.dumps(obj, default=str) + "\n")
+
+    def epoch(self, epoch: int, metrics: Dict[str, Any]) -> None:
+        parts = ", ".join(f"{k}={v:.6g}" if isinstance(v, float)
+                          else f"{k}={v}" for k, v in metrics.items())
+        self.write(f"epoch {epoch}: {parts}")
+        self.jsonl({"epoch": epoch, **{
+            k: (float(v) if isinstance(v, (int, float)) else v)
+            for k, v in metrics.items()}})

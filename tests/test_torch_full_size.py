@@ -51,7 +51,7 @@ def _probs(logits):
 def test_serving_forward_matches_model_apply(full_size):
     cfg, net, img, ques, ref = full_size
     fwd, prep = build_production_engine(net.state_dict(), cfg.layer,
-                                        cfg.multi_head)
+                                        cfg.multi_head, device="cpu")
     with torch.no_grad():
         probs = _probs(fwd(prep, torch.from_numpy(img),
                            torch.from_numpy(ques)))

@@ -1,9 +1,9 @@
-"""Import hygiene of the PyTorch port: it never imports JAX (or the JAX
-stack's flax / optax / orbax / yaml). From the JAX package it takes only the
-framework-neutral host modules, and only in ``mcan_vqa_tpu_torch/data.py``;
-every other port module and chip_smoke.py import nothing of
-``mcan_vqa_tpu``. chip_smoke.py refuses to run without a CUDA device: it
-exits non-zero and prints no result."""
+"""Import hygiene of the PyTorch port: no module of the port and not
+chip_smoke.py imports JAX, the JAX stack (flax / optax / orbax / yaml) or
+anything of the JAX package ``mcan_vqa_tpu`` -- not even its
+framework-neutral host modules: the port keeps its own copies
+(mcan_vqa_tpu_torch/data/). chip_smoke.py refuses to run without a CUDA
+device: it exits non-zero and prints no result."""
 
 import ast
 import os
@@ -15,14 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mcan_vqa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml")
-# the JAX package's framework-neutral host modules, which the port reuses
-# through its one gateway module
-HOST_MODULES = frozenset({
-    "mcan_vqa_tpu", "mcan_vqa_tpu.data.text", "mcan_vqa_tpu.data.answers",
-    "mcan_vqa_tpu.data.features", "mcan_vqa_tpu.request_prep"})
-HOST_GATEWAY = PORT / "data.py"
-_PACKAGES = ("mcan_vqa_tpu", "mcan_vqa_tpu.data")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+             "mcan_vqa_tpu")
 
 
 def _imported_modules(path: Path):
@@ -34,27 +28,14 @@ def _imported_modules(path: Path):
             for alias in node.names:
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            if node.module in _PACKAGES:
-                for alias in node.names:
-                    yield f"{node.module}.{alias.name}"
-            else:
-                yield node.module
+            for alias in node.names:
+                yield f"{node.module}.{alias.name}"
 
 
-def _violations(path: Path, allowed=frozenset()):
-    """The file's imports of the JAX stack, and of JAX-package modules
-    outside ``allowed``."""
-    bad = []
-    for mod in _imported_modules(path):
-        root = mod.split(".")[0]
-        if root in FORBIDDEN or (root == "mcan_vqa_tpu"
-                                 and mod not in allowed):
-            bad.append(mod)
-    return bad
-
-
-def _allowed_for(path: Path):
-    return HOST_MODULES if path == HOST_GATEWAY else frozenset()
+def _violations(path: Path):
+    """The file's imports of the JAX stack and of the JAX package."""
+    return [mod for mod in _imported_modules(path)
+            if mod.split(".")[0] in FORBIDDEN]
 
 
 def _sources():
@@ -64,16 +45,20 @@ def _sources():
 def test_port_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for expected in ("mcan_vqa_tpu_torch/api.py",
-                     "mcan_vqa_tpu_torch/data.py",
+                     "mcan_vqa_tpu_torch/data/__init__.py",
+                     "mcan_vqa_tpu_torch/data/text.py",
                      "mcan_vqa_tpu_torch/ops/sga_block.py",
-                     "mcan_vqa_tpu_torch/ops/serving.py", "chip_smoke.py"):
+                     "mcan_vqa_tpu_torch/ops/sga_train.py",
+                     "mcan_vqa_tpu_torch/train/trainer.py",
+                     "mcan_vqa_tpu_torch/cli/run_vqa.py", "chip_smoke.py"):
         assert expected in names
+    assert not (PORT / "data.py").exists()
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
-    bad = _violations(path, _allowed_for(path))
+    bad = _violations(path)
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -81,50 +66,37 @@ def test_no_jax_imports(path):
     "import jax.numpy as jnp", "from flax import linen", "import yaml",
     "from mcan_vqa_tpu.ops import serving",
     "from mcan_vqa_tpu import api", "import mcan_vqa_tpu.models.net",
-    "from mcan_vqa_tpu.configs.config import Config"])
+    "from mcan_vqa_tpu.configs.config import Config",
+    # the framework-neutral host modules count as well
+    "from mcan_vqa_tpu.data import answers, text",
+    "from mcan_vqa_tpu import request_prep",
+    "from mcan_vqa_tpu.request_prep import pad_to_bucket",
+    "import mcan_vqa_tpu.data.features"])
 def test_checker_catches_forbidden_imports(tmp_path, line):
     src = tmp_path / "bad.py"
     src.write_text(line + "\n")
-    assert _violations(src, HOST_MODULES)
+    assert _violations(src)
 
 
-HOST_IMPORTS = ("from mcan_vqa_tpu.data import answers, text\n"
-                "from mcan_vqa_tpu import request_prep\n"
-                "from mcan_vqa_tpu.request_prep import pad_to_bucket\n"
-                "import mcan_vqa_tpu.data.features\n")
-
-
-def test_checker_allows_the_host_modules(tmp_path):
+def test_checker_passes_the_port_package_itself(tmp_path):
     src = tmp_path / "ok.py"
-    src.write_text(HOST_IMPORTS)
-    assert _violations(src, HOST_MODULES) == []
-
-
-@pytest.mark.parametrize("path", [PORT / "api.py", ROOT / "chip_smoke.py"],
-                         ids=["port-module", "chip_smoke"])
-def test_host_modules_only_through_the_gateway(tmp_path, path):
-    """Outside mcan_vqa_tpu_torch/data.py even the host modules count as
-    violations: chip_smoke.py and the rest of the port import nothing of
-    mcan_vqa_tpu."""
-    src = tmp_path / "probe.py"
-    src.write_text(HOST_IMPORTS)
-    assert _violations(src, _allowed_for(path)) == [
-        "mcan_vqa_tpu.data.answers", "mcan_vqa_tpu.data.text",
-        "mcan_vqa_tpu.request_prep", "mcan_vqa_tpu.request_prep",
-        "mcan_vqa_tpu.data.features"]
-    assert _allowed_for(HOST_GATEWAY) == HOST_MODULES
+    src.write_text("import torch\nimport mcan_vqa_tpu_torch.data.text\n"
+                   "from mcan_vqa_tpu_torch.data import build_vocab\n")
+    assert _violations(src) == []
 
 
 def test_port_loads_no_jax_module():
-    """Importing the port adds no JAX-stack module to sys.modules (in a
-    fresh interpreter; anything its startup pre-imported is ignored)."""
+    """Importing the port adds no module of the JAX stack or of the JAX
+    package to sys.modules (in a fresh interpreter; anything its startup
+    pre-imported is ignored)."""
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import mcan_vqa_tpu_torch.api, mcan_vqa_tpu_torch.ops.serving\n"
             "import mcan_vqa_tpu_torch.train.checkpoint\n"
+            "import mcan_vqa_tpu_torch.train.trainer\n"
+            "import mcan_vqa_tpu_torch.cli.run_vqa\n"
             "new = set(sys.modules) - before\n"
-            f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}"
-            " or m.startswith(('mcan_vqa_tpu.ops', 'mcan_vqa_tpu.models')))\n"
+            f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ)

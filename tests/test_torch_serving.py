@@ -55,7 +55,8 @@ def test_serving_forward_matches_jax_production_engine(setup):
                                         qffn=0, interpret=True)
     ref = np.asarray(jfwd(jprep, img, ques))
     fwd, prep = build_production_engine(state_dict_from_params(params),
-                                        cfg.layer, cfg.multi_head)
+                                        cfg.layer, cfg.multi_head,
+                                        device="cpu")
     with torch.no_grad():
         out = fwd(prep, *_torch(img, ques)).numpy()
     assert out.shape == (B, ANSWERS) and out.dtype == np.float32
@@ -100,7 +101,8 @@ def test_serving_forward_runs_the_block_wrappers(setup, monkeypatch):
     monkeypatch.setattr(tserving, "fused_sga_block", sga)
     before = kernels.launch_counts()
     fwd, prep = build_production_engine(state_dict_from_params(params),
-                                        cfg.layer, cfg.multi_head)
+                                        cfg.layer, cfg.multi_head,
+                                        device="cpu")
     with torch.no_grad():
         fwd(prep, *_torch(img, ques))
     assert calls == {"sa": cfg.layer, "sga": cfg.layer}
@@ -110,7 +112,7 @@ def test_serving_forward_runs_the_block_wrappers(setup, monkeypatch):
 def test_prepared_tree_is_the_pruned_mode2_layout(setup):
     cfg, _, params, _, _ = setup
     _, prep = build_production_engine(state_dict_from_params(params),
-                                      cfg.layer, cfg.multi_head)
+                                      cfg.layer, cfg.multi_head, device="cpu")
     D = cfg.hidden_size
     enc, dec = prep["backbone"]["enc_0"], prep["backbone"]["dec_0"]
     assert set(enc) == {"_mk"} and set(dec) == {"_mk", "mhatt2"}
@@ -133,4 +135,4 @@ def test_unported_engine_arguments_raise(setup, kwargs):
     cfg, _, params, _, _ = setup
     with pytest.raises(NotImplementedError):
         build_production_engine(state_dict_from_params(params), cfg.layer,
-                                cfg.multi_head, **kwargs)
+                                cfg.multi_head, device="cpu", **kwargs)

@@ -41,7 +41,8 @@ def weights():
     params = jax.device_get(model.init({"params": jax.random.PRNGKey(3)},
                                        img, ques)["params"])
     jprep = jserving.prepare_params(params, 1, num_heads=H, alllayer=False)
-    tprep = tserving.prepare_params(state_dict_from_params(params), 1)
+    tprep = tserving.prepare_params(state_dict_from_params(params), 1,
+                                    device="cpu")
     return params, jprep["backbone"], tprep["backbone"]
 
 

@@ -1,0 +1,123 @@
+"""The port's training entry points on the CPU at a tiny size: the CLI
+train mode (``python -m mcan_vqa_tpu_torch.cli.run_vqa --run train
+--synthetic --device cpu``), the Trainer's loss on a repeated batch, and
+the per-epoch reference pickle, read back by the JAX package's
+``import_torch_checkpoint`` and by the port's ``Predictor``."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from mcan_vqa_tpu.train.checkpoint import import_torch_checkpoint
+from mcan_vqa_tpu_torch.api import Predictor
+from mcan_vqa_tpu_torch.cli import run_vqa
+from mcan_vqa_tpu_torch.configs import Config
+from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+from mcan_vqa_tpu_torch.ops import kernels as K
+from mcan_vqa_tpu_torch.train.checkpoint import (load_reference_checkpoint,
+                                                 state_dict_from_params)
+from mcan_vqa_tpu_torch.train.trainer import ENGINE_LINE, Trainer
+
+TINY = ["--hidden_size", "32", "--layer", "1", "--multi_head", "4",
+        "--img_feat_size", "16", "--img_feat_pad_size", "8",
+        "--max_token", "6", "--flat_out_size", "32", "--flat_mlp_size", "16",
+        "--batch_size", "4", "--synthetic_size", "16"]
+TINY_CFG = dict(hidden_size=32, ff_size=128, layer=1, multi_head=4,
+                img_feat_size=16, img_feat_pad_size=8, max_token=6,
+                flat_out_size=32, flat_mlp_size=16, batch_size=4)
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("run")
+    argv = ["--run", "train", "--synthetic", "--device", "cpu",
+            "--max_epoch", "2", "--version", "tiny",
+            "--ckpts_dir", str(out / "ckpts"), "--log_path", str(out / "log"),
+            *TINY]
+    before = K.launch_counts()
+    assert run_vqa.main(argv) == 0
+    assert K.launch_counts() == before          # the CPU runs no kernel
+    return out, run_vqa.build_config(run_vqa.parse_args(argv))
+
+
+def test_cli_trains_and_logs_every_epoch(cli_run):
+    out, cfg = cli_run
+    log = (out / "log" / "log_run_tiny.txt").read_text()
+    assert ENGINE_LINE in log
+    records = [json.loads(line) for line in
+               (out / "log" / "log_run_tiny.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["loss"]) and r["steps"] == 4 for r in records)
+    assert records[1]["loss"] < records[0]["loss"]
+    for epoch in (1, 2):
+        assert (out / "ckpts" / "ckpt_tiny" / f"epoch{epoch}.pkl").exists()
+
+
+def test_epoch_pickle_loads_into_jax_and_the_port(cli_run):
+    out, cfg = cli_run
+    path = str(out / "ckpts" / "ckpt_tiny" / "epoch2.pkl")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(blob) == {"state_dict", "optimizer", "lr_base"}
+    saved = blob["state_dict"]
+    params, meta = import_torch_checkpoint(path)
+    assert meta["lr_base"] == cfg.lr_base
+    assert meta["param_keys"] == list(saved)
+    assert len(meta["optimizer"]["state"]) == len(saved)
+    back = state_dict_from_params(params)
+    assert list(back) == list(saved)
+    for k, v in saved.items():
+        assert torch.equal(back[k], v), k
+    assert set(load_reference_checkpoint(path)) == set(saved)
+    # the synthetic set's 200 token ids and 3129 answer names
+    vocab = {"PAD": 0, "UNK": 1, **{f"t{i}": i for i in range(2, 200)}}
+    ix_to_ans = {str(i): str(i) for i in range(3129)}
+    pred = Predictor.from_checkpoint(path, cfg, vocab, ix_to_ans,
+                                     max_batch=4, device="cpu")
+    rng = np.random.default_rng(0)
+    feats = [rng.normal(size=(r, 16)).astype(np.float32) for r in (8, 3)]
+    answers = pred.answer(["t3 t4", ""], feats)
+    assert [a in ix_to_ans.values() for a, _ in answers] == [True, True]
+    assert all(0.0 <= p <= 1.0 for _, p in answers)
+
+
+def test_loss_falls_on_a_fixed_batch(tmp_path):
+    cfg = Config(**TINY_CFG, lr_base=1e-3, ckpts_dir=str(tmp_path),
+                 log_path=str(tmp_path), verbose=False)
+    ds = SyntheticVQADataset(cfg, size=8, answer_size=3129)
+    trainer = Trainer(cfg, ds, device="cpu")
+    batch = next(iter(trainer.loader()))
+    losses = [float(trainer.step_fn(trainer.state, batch)["loss"])
+              for _ in range(8)]
+    assert np.isfinite(losses).all() and losses[-1] < 0.95 * losses[0]
+    assert all(b < a for a, b in zip(losses, losses[1:]))
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(**TINY_CFG, ckpts_dir=str(tmp_path), log_path=str(tmp_path))
+    ds = SyntheticVQADataset(cfg, size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, ds)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_vqa.main(["--run", "train", "--synthetic", *TINY])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(cfg, {}, {"PAD": 0})
+
+
+@pytest.mark.parametrize("argv", [
+    ["--run", "val", "--synthetic"], ["--run", "train"],
+    ["--run", "train", "--synthetic", "--resume", "true"]])
+def test_unported_cli_modes_raise(argv):
+    with pytest.raises(NotImplementedError):
+        run_vqa.main(argv + ["--device", "cpu"])
+
+
+def test_unported_trainer_options_raise(tmp_path):
+    cfg = Config(**TINY_CFG, ckpts_dir=str(tmp_path), log_path=str(tmp_path))
+    ds = SyntheticVQADataset(cfg, size=8)
+    with pytest.raises(NotImplementedError):
+        Trainer(cfg, ds, task="classify", device="cpu")
+    with pytest.raises(NotImplementedError):
+        Trainer(cfg, ds, eval_datasets={"val": ds}, device="cpu")
