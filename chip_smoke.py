@@ -6,27 +6,39 @@
 Builds the port's CUDA kernels from the checkout's sources, then:
 
   [kernels]  each CUDA kernel against its plain PyTorch version at the
-             shapes of both main paths (MCAN-small, B=64): the serving
-             forward's products, attention and LayerNorms, and the train
-             step's dropout epilogues, backward products, attention and
-             LayerNorm backwards and column sums; with each one's device
-             time, its plain version's, one PyTorch library call's where
-             there is one, and its bound at the card's published peaks;
+             shapes of every main path: the serving forward's products,
+             attention and LayerNorms (MCAN-small, B=64); the train step's
+             dropout epilogues, backward products, attention and LayerNorm
+             backwards and column sums at the decoder's and the fused SA
+             encoder's shapes (MCAN-small, B=64); and at MCAN-large's
+             (micro-batch 32, D=1024, 128-wide heads, bf16 saves); with
+             each one's device time, its plain version's, one PyTorch
+             library call's where there is one, and its bound at the
+             card's published peaks;
   [blocks]   both serving blocks against their plain versions;
   [train block]  the SGA train block (forward, FFN backward, attention
-             backward) against the same block in plain ops differentiated
-             by autograd, at full width with fully padded samples;
+             backward), the SA train block (forward, backward; save_acts
+             both ways) and MCAN-large's SGA train block with att_saves and
+             bf16_saves, each against the same block in plain ops
+             differentiated by autograd, at full width with fully padded
+             samples;
   [serve]    main path 1: MCAN-small (hidden 512, 6+6 layers, 8 heads, 3129
              answers, random weights from a seed) served by
              ``Predictor(engine="fused")``, checked against the "plain"
              engine;
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
-             same width, batch 64, one epoch of 10 steps: the fused
-             engine's loss against the plain engine's at every step, the
-             launch counts of every step, ms per step, bitwise repeatable
-             gradients, a falling loss on one repeated batch;
+             same width, batch 64, one epoch of 10 steps, the encoder
+             through the SA train blocks and the decoder through the SGA
+             train blocks: the fused engine's loss against the plain
+             engine's at every step, the launch counts of every step, ms
+             per step, bitwise repeatable gradients, a falling loss on one
+             repeated batch;
   [checkpoint]  the epoch checkpoint served by
-             ``Predictor.from_checkpoint(engine="fused")``.
+             ``Predictor.from_checkpoint(engine="fused")``;
+  [train large]  main path 3: ``Trainer`` at MCAN-large (hidden 1024, FF
+             4096, batch 64 in two micro-batches of 32), 4 steps, the
+             decoder through the SGA train blocks with att_saves and
+             bf16_saves, the encoder plain: the same checks as [train].
 
 Launch counts are set to 0 just before each main path and read just after
 it. Kernel and block times are device times (CUDA-graph replay); step and
@@ -40,6 +52,7 @@ package is not beside this file.
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -54,15 +67,18 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 64                      # the max_batch bucket and the train batch
 LATENCY_BUCKETS = (1, 8)
 TRAIN_STEPS = 10
+LARGE_STEPS = 4
 SRC = "mcan_vqa_tpu_torch/csrc/"
 TPU = "mcan_vqa_tpu/ops/sga_block.py"
 TPU_TRAIN = "mcan_vqa_tpu/ops/sga_train.py"
+TPU_SA_TRAIN = "mcan_vqa_tpu/ops/sa_train.py"
 # published peaks of one H100 SXM (the bound_ms of every kernel row)
 PEAK_BF16 = 989e12              # FLOP/s, dense, tensor cores
 PEAK_F32 = 67e12                # FLOP/s, outside the tensor cores
 HBM = 3.35e12                   # bytes/s
 SERVE = "one B=64 serving forward"
 STEP = "one B=64 train step"
+LARGE_STEP = "one B=64 MCAN-large train step (2 micro-batches of 32)"
 BOTH = SERVE + " + " + STEP
 
 
@@ -115,6 +131,7 @@ def main() -> None:
     rows = Rows()
     check_serving_kernels(torch, dev, rows)
     check_train_kernels(torch, dev, rows)
+    check_large_kernels(torch, dev, rows)
     model_state, cfg, vocab, ix_to_ans = build_model(torch)
     check_blocks(torch, dev, model_state, cfg, rows)
     check_train_block(torch, dev, rows)
@@ -124,6 +141,9 @@ def main() -> None:
         trainer, ckpt = train_main_path(torch, dev, rows, work)
         check_checkpoint(torch, dev, trainer, ckpt)
         check_repeated_batch(torch, trainer)
+        del trainer
+        train_main_path(torch, dev, rows, work / "large", model="large",
+                        steps=LARGE_STEPS)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say(f"[card] {card}")
@@ -247,10 +267,14 @@ class Rows:
         self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"],
                                              float(e))
 
-    def launches(self, path, counts, names):
+    def launches(self, path, counts, names, key=None):
+        """Each row's launches on one main path: counts[name], or
+        counts[key[name]] where the row stands for one instantiation of a
+        wrapper (the Dh = 128 attention on the MCAN-large path)."""
         for name in names:
             r = self.rows[name]
-            r["launches_by_path"][path] = counts.get(name, 0)
+            r["launches_by_path"][path] = counts.get(
+                name if key is None else key[name], 0)
             r["launches"] = sum(r["launches_by_path"].values())
 
     def record(self):
@@ -419,19 +443,19 @@ def check_serving_kernels(torch, dev, rows) -> None:
                      tensor=False)
 
 
-def attention_bytes(B, H, Lq, Lk, kv_size, drop=False):
-    return (2 * B * H * Lq * 64 + 2 * kv_size * B * H * Lk * 64 + B * Lk
-            + B * H * Lq * Lk * drop + 2 * B * Lq * H * 64)
+def attention_bytes(B, H, Lq, Lk, kv_size, drop=False, Dh=64):
+    return (2 * B * H * Lq * Dh + 2 * kv_size * B * H * Lk * Dh + B * Lk
+            + B * H * Lq * Lk * drop + 2 * B * Lq * H * Dh)
 
 
-def attention_bwd_bytes(B, H, Lq, Lk, kv_size, copies, drop=True):
+def attention_bwd_bytes(B, H, Lq, Lk, kv_size, copies, drop=True, Dh=64):
     """q, k, v, dout read; dq, dk, dv written f32 (and the bf16 copies in
     `copies`: 'q', 'k', 'v')."""
-    return (2 * B * H * Lq * 64 + 2 * kv_size * B * H * Lk * 64 + B * Lk
-            + B * H * Lq * Lk * drop + 2 * B * Lq * H * 64
-            + (4 + 2 * ("q" in copies)) * B * H * Lq * 64
+    return (2 * B * H * Lq * Dh + 2 * kv_size * B * H * Lk * Dh + B * Lk
+            + B * H * Lq * Lk * drop + 2 * B * Lq * H * Dh
+            + (4 + 2 * ("q" in copies)) * B * H * Lq * Dh
             + (8 + 2 * ("k" in copies) + 2 * ("v" in copies)) * B * H * Lk
-            * 64)
+            * Dh)
 
 
 def ln_bytes(n_rows, D, res_size, outs=(4,), y=True, mask=False,
@@ -450,9 +474,54 @@ def ln_bwd_bytes(n_rows, D, y=True, mask=True, dys=(4, 2)):
 # attention backward)
 # ---------------------------------------------------------------------------
 
+class KernelCheck:
+    """Random inputs from one generator on the card, and one kernel against
+    its plain version: ``case`` gates every output, then times both (and a
+    library call) unless ``timed=False``, and adds the times and bound to
+    the kernel's row."""
+
+    def __init__(self, torch, dev, rows, seed):
+        self.torch, self.dev, self.rows = torch, dev, rows
+        self.g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(self, *shape, dtype=None, s=1.0):
+        t = self.torch.randn(*shape, generator=self.g, device=self.dev) * s
+        return t if dtype is None else t.to(dtype)
+
+    def keep(self, *shape):
+        return self.torch.rand(*shape, generator=self.g,
+                               device=self.dev) >= 0.1
+
+    @staticmethod
+    def scaled(ref, rel):
+        return rel * (float(ref.float().abs().max()) + 1e-6)
+
+    def case(self, row, label, kern, plain, tols, n, flops, nbytes,
+             lib=None, tensor=True, timed=True):
+        """kern() / plain() -> tuples of outputs; tols: per output, the
+        tolerance as a fraction of that output's max|ref|."""
+        torch, rows = self.torch, self.rows
+        outs, refs = kern(), plain()
+        torch.cuda.synchronize()
+        for i, (o, r, rel) in enumerate(zip(outs, refs, tols)):
+            err = max_err(o, r)
+            gate(f"{row} {label} out{i}", err, max(self.scaled(r, rel), 1e-6))
+            rows.err(row, err)
+        if not timed:
+            return
+        t_k = device_ms(torch, kern)
+        t_p = device_ms(torch, plain)
+        t_l = device_ms(torch, lib) if lib is not None else None
+        say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms"
+            + (f", library {t_l:.4f} ms" if t_l is not None else "")
+            + f"; bound {max(bound_parts(flops, nbytes, tensor)):.4f} ms")
+        rows.add(row, n, t_k, t_p, flops, nbytes, t_l, tensor)
+
+
 def check_train_kernels(torch, dev, rows) -> None:
     from mcan_vqa_tpu_torch.ops import kernels as K
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    kc = KernelCheck(torch, dev, rows, SEED + 3)
+    randn, keep, case = kc.randn, kc.keep, kc.case
     bf16, f32 = torch.bfloat16, torch.float32
     D, F, H, Lq, Lv = 512, 2048, 8, 14, 60
     M = BATCH * Lv
@@ -460,14 +529,8 @@ def check_train_kernels(torch, dev, rows) -> None:
     inv = 1 / 0.9                      # rate 0.1
     F_ = torch.nn.functional
 
-    def randn(*shape, dtype=f32, s=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
-
-    def keep(*shape):
-        return torch.rand(*shape, generator=g, device=dev) >= 0.1
-
     def scaled(ref, rel):
-        return rel * (float(ref.float().abs().max()) + 1e-6)
+        return kc.scaled(ref, rel)
 
     say("[kernels] the train kernels vs their plain PyTorch versions at the "
         "B=64 train-step shapes, dropout rate 0.1 (times: the launches of "
@@ -481,24 +544,6 @@ def check_train_kernels(torch, dev, rows) -> None:
              f"{TPU_TRAIN}:122"),
             ("col_sum", "col_sum.cu", f"{TPU_TRAIN}:406")):
         rows.row(name, SRC + src, tpu, STEP)
-
-    def case(row, label, kern, plain, tols, n, flops, nbytes, lib=None,
-             tensor=True):
-        """kern() / plain() -> tuples of outputs; tols: per output, the
-        tolerance as a fraction of that output's max|ref|."""
-        outs, refs = kern(), plain()
-        torch.cuda.synchronize()
-        for i, (o, r, rel) in enumerate(zip(outs, refs, tols)):
-            err = max_err(o, r)
-            gate(f"{row} {label} out{i}", err, max(scaled(r, rel), 1e-6))
-            rows.err(row, err)
-        t_k = device_ms(torch, kern)
-        t_p = device_ms(torch, plain)
-        t_l = device_ms(torch, lib) if lib is not None else None
-        say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms"
-            + (f", library {t_l:.4f} ms" if t_l is not None else "")
-            + f"; bound {max(bound_parts(flops, nbytes, tensor)):.4f} ms")
-        rows.add(row, n, t_k, t_p, flops, nbytes, t_l, tensor)
 
     # f32 GEMM outputs: exact bf16 products summed in another order; bf16
     # outputs: one rounding may land a step (2^-8) apart
@@ -697,6 +742,273 @@ def check_train_kernels(torch, dev, rows) -> None:
                    zip(K.col_sum(mats), K.col_sum(mats))):
             fail(f"col_sum {label}: two runs differ")
 
+    check_encoder_kernels(torch, K, kc, D, F, H, Lq, L, inv)
+
+
+def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
+    """The same kernels at the shapes of the step's six SA encoder blocks
+    (the fused encoder: M = 64 x 14 question rows, the h1 / att / y1 / y2
+    masks at rate 0.1): the forward products and the backward's recomputed
+    qkv / merge, dX, dW, attention, LayerNorms and column sums."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    randn, keep, case = kc.randn, kc.keep, kc.case
+    T32, T16 = 1e-4, 8e-3
+    M, n = BATCH * L, n_blocks
+    say(f"[kernels] the same at the SA encoder's shapes (M = {M} rows)")
+    for label, Kd, N, relu, odt, k in (
+            ("enc qkv", D, 3 * D, False, bf16, 2 * n),
+            ("enc merge", D, D, False, f32, 2 * n),
+            ("enc ffn1 relu + h1 dropout", D, F, True, bf16, n),
+            ("enc ffn2", F, D, False, f32, n)):
+        x, w = randn(M, Kd, dtype=bf16), randn(Kd, N, dtype=bf16, s=Kd ** -.5)
+        b = randn(N, s=0.1)
+        kw = dict(relu=relu, out_dtype=odt)
+        if relu:
+            kw.update(mask=keep(M, N), inv_keep=inv)
+        b16 = b.to(bf16)
+        case("gemm_bias_act", label,
+             lambda: (K.gemm_bias_act(x, w, b, **kw),),
+             lambda: (K.gemm_bias_act_plain(x, w, b, **kw),),
+             (T16 if odt == bf16 else T32,), k, 2 * M * Kd * N,
+             gemm_bytes(M, Kd, N, bias=True, mask=relu,
+                        out=(odt.itemsize,)), lambda: torch.addmm(b16, x, w))
+    for label, Kd, N, has_gate, has_res, odt in (
+            ("enc da1 = dy2 W2^T, ReLU/h1 gate", D, F, True, False,
+             (f32, bf16)),
+            ("enc gx1 = da1 W1^T + gr2", F, D, False, True, (f32,)),
+            ("enc datt = dy1 Wm^T", D, D, False, False, (bf16,)),
+            ("enc dx = dqkv Wqkv^T + gr1", 3 * D, D, False, True, (f32,))):
+        dy = randn(M, Kd, dtype=bf16)
+        w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
+        gt = torch.relu(randn(M, N)).to(bf16) if has_gate else None
+        res = randn(M, N) if has_res else None
+        kw = dict(gate=gt, inv_keep=inv, res=res, out_dtypes=odt)
+        case("gemm_dx", label, lambda: K.gemm_dx(dy, w, **kw),
+             lambda: K.gemm_dx_plain(dy, w, **kw),
+             tuple(T32 if o == f32 else T16 for o in odt), n,
+             2 * M * Kd * N,
+             gemm_bytes(M, Kd, N, gate=has_gate, res=has_res,
+                        out=tuple(o.itemsize for o in odt)),
+             lambda: torch.mm(dy, w.t()))
+    for label, m, n_ in (("enc dWqkv", D, 3 * D), ("enc dWm", D, D),
+                         ("enc dW1", D, F), ("enc dW2", F, D)):
+        xr = randn(M, m, dtype=bf16)
+        dy = randn(M, n_, dtype=bf16, s=M ** -0.5)
+        case("gemm_dw", f"{label} [{m}x{M}]x[{M}x{n_}]",
+             lambda: (K.gemm_dw(xr, dy),), lambda: (K.gemm_dw_plain(xr, dy),),
+             (T32,), n, 2 * M * m * n_, gemm_bytes(m, M, n_, out=(4,)),
+             lambda: torch.mm(xr.t(), dy))
+    qkv = randn(M, 3 * D, dtype=bf16)
+    q, k, v = [t.view(BATCH, L, H, D // H).transpose(1, 2)
+               for t in qkv.view(BATCH, L, 3 * D).split(D, dim=-1)]
+    mask = pad_mask(torch, BATCH, L, [(i * 5) % (L + 1) for i in range(BATCH)],
+                    kc.dev)
+    drop = keep(BATCH, H, L, L)
+    F_ = torch.nn.functional
+    case("masked_attention", "enc self 14x14 + att dropout",
+         lambda: (K.masked_attention(q, k, v, mask, drop, inv),),
+         lambda: (K.masked_attention_plain(q, k, v, mask, drop, inv),),
+         (T16,), 2 * n, 4 * BATCH * H * L * L * (D // H),
+         attention_bytes(BATCH, H, L, L, 2, drop=True, Dh=D // H),
+         lambda: F_.scaled_dot_product_attention(q, k, v, attn_mask=~mask))
+    dout = randn(BATCH, L, D, dtype=bf16)
+
+    def grads(fn):
+        dqkv = torch.empty(M, 3 * D, device=kc.dev)
+        d16 = torch.empty(M, 3 * D, dtype=bf16, device=kc.dev)
+        views = [t.view(BATCH, L, H, D // H).transpose(1, 2)
+                 for t in dqkv.view(BATCH, L, 3 * D).split(D, dim=-1)]
+        v16 = [t.view(BATCH, L, H, D // H).transpose(1, 2)
+               for t in d16.view(BATCH, L, 3 * D).split(D, dim=-1)]
+        fn(q, k, v, mask, dout, *views, *v16, drop=drop, inv_keep=inv)
+        return tuple(views)
+
+    case("masked_attention_bwd", "enc self 14x14", lambda: grads(
+        K.masked_attention_bwd), lambda: grads(K.masked_attention_bwd_plain),
+         (2 ** -7,) * 3, n, 10 * BATCH * H * L * L * (D // H),
+         attention_bwd_bytes(BATCH, H, L, L, 2, "qkv", Dh=D // H))
+    for label, save_r, odts, k in (("enc LN1 + y1 -> f32, bf16", False,
+                                    (f32, bf16), n),
+                                   ("enc LN2 + y2 -> f32, r2", True, (f32,),
+                                    n)):
+        res, y = randn(M, D), randn(M, D)
+        bias, gamma, beta = randn(D, s=0.1), 1 + randn(D, s=0.1), \
+            randn(D, s=0.1)
+        kw = dict(mask=keep(M, D), inv_keep=inv, save_r=save_r,
+                  reciprocal=True)
+        case("residual_layernorm", label,
+             lambda: K.residual_layernorm(res, y, bias, gamma, beta, odts,
+                                          **kw),
+             lambda: K.residual_layernorm_plain(res, y, bias, gamma, beta,
+                                                odts, **kw),
+             tuple(1e-5 if dt == f32 else T16 for dt in odts) + (1e-5,), k,
+             10 * M * D, ln_bytes(M, D, 4, outs=[o.itemsize for o in odts],
+                                  mask=True, save_r=save_r), tensor=False)
+    for label, with_y in (("enc LN2 from r2", False), ("enc LN1", True)):
+        gout, res = randn(M, D), randn(M, D)
+        y = randn(M, D) if with_y else None
+        bias = randn(D, s=0.1) if with_y else None
+        gamma = 1 + randn(D, s=0.1)
+        kw = dict(mask=keep(M, D), inv_keep=inv, dy_dtypes=(f32, bf16))
+        case("residual_layernorm_bwd", label,
+             lambda: K.residual_layernorm_bwd(gout, res, y, bias, gamma,
+                                              **kw),
+             lambda: K.residual_layernorm_bwd_plain(gout, res, y, bias,
+                                                    gamma, **kw),
+             (1e-4, 1e-5, 1e-4, T16), n, 20 * M * D,
+             ln_bwd_bytes(M, D, y=with_y), tensor=False)
+    for label, widths in (("enc dbqkv, dbm, dln1", (3 * D, D, D, D)),
+                          ("enc db1, db2, dln2", (F, D, D, D))):
+        mats = [randn(M, w_) for w_ in widths]
+        case("col_sum", label, lambda: K.col_sum(mats),
+             lambda: K.col_sum_plain(mats), (1e-5,) * 4, n,
+             M * sum(widths), 4 * (M + 1) * sum(widths),
+             lambda: [m_.sum(0) for m_ in mats], tensor=False)
+
+
+def check_large_kernels(torch, dev, rows) -> None:
+    """Every kernel of the MCAN-large train step at its shapes (one
+    micro-batch of 32: M = 1920 region rows, D = 1024, F = 4096, 8 heads of
+    128; the bf16 saves): each against its plain version. The attention
+    kernels at Dh = 128 are timed, for one B=64 MCAN-large step (two
+    micro-batches, 6 decoder blocks each); the other kernels' times stand
+    for the MCAN-small units."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    kc = KernelCheck(torch, dev, rows, SEED + 4)
+    randn, keep, case = kc.randn, kc.keep, kc.case
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, D, F, H, Lq, Lv = BATCH // 2, 1024, 4096, 8, 14, 60
+    Dh, M, n = D // H, BATCH // 2 * Lv, 12
+    inv = 1 / 0.9
+    T32, T16 = 1e-4, 8e-3
+    F_ = torch.nn.functional
+    say(f"[kernels] the MCAN-large train step's kernels at its shapes (B={B}"
+        f" per micro-batch, M={M}, D={D}, F={F}, Dh={Dh}, bf16 saves; "
+        f"attention times: the launches of one B={BATCH} step)")
+    rows.row("masked_attention_dh128", SRC + "masked_attention.cu",
+             f"{TPU_TRAIN}:448", LARGE_STEP)
+    rows.row("masked_attention_bwd_dh128", SRC + "masked_attention_bwd.cu",
+             f"{TPU_TRAIN}:250", LARGE_STEP)
+    for label, Kd, N, relu, odt in (("qkv", D, 3 * D, False, bf16),
+                                    ("merge", D, D, False, f32),
+                                    ("ffn1 relu + h1", D, F, True, bf16),
+                                    ("ffn2", F, D, False, f32)):
+        x, w = randn(M, Kd, dtype=bf16), randn(Kd, N, dtype=bf16, s=Kd ** -.5)
+        b = randn(N, s=0.1)
+        kw = dict(relu=relu, out_dtype=odt)
+        if relu:
+            kw.update(mask=keep(M, N), inv_keep=inv)
+        case("gemm_bias_act", f"large {label}",
+             lambda: (K.gemm_bias_act(x, w, b, **kw),),
+             lambda: (K.gemm_bias_act_plain(x, w, b, **kw),),
+             (T16 if odt == bf16 else T32,), 0, 0, 0, timed=False)
+    for label, Kd, N, has_gate, odt in (
+            ("da1, ReLU/h1 gate", D, F, True, (f32, bf16)),
+            ("gv2 -> bf16", F, D, False, (bf16,)),
+            ("dx = dqkv Wqkv^T + gr1", 3 * D, D, False, (f32,))):
+        dy = randn(M, Kd, dtype=bf16)
+        w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
+        kw = dict(gate=torch.relu(randn(M, N)).to(bf16) if has_gate else
+                  None, inv_keep=inv, res=None if has_gate else randn(M, N),
+                  out_dtypes=odt)
+        case("gemm_dx", f"large {label}", lambda: K.gemm_dx(dy, w, **kw),
+             lambda: K.gemm_dx_plain(dy, w, **kw),
+             tuple(T32 if o == f32 else T16 for o in odt), 0, 0, 0,
+             timed=False)
+    for label, m, n_ in (("dWqkv", D, 3 * D), ("dW1", D, F), ("dW2", F, D)):
+        xr = randn(M, m, dtype=bf16)
+        dy = randn(M, n_, dtype=bf16, s=M ** -0.5)
+        case("gemm_dw", f"large {label}", lambda: (K.gemm_dw(xr, dy),),
+             lambda: (K.gemm_dw_plain(xr, dy),), (T32,), 0, 0, 0,
+             timed=False)
+    # attention at 128-wide heads: the forward and the att-saves
+    # backward's recompute (2 + 2 per block), the backward (2 per block)
+    qkv = randn(M, 3 * D, dtype=bf16)
+    sq, sk, sv = [t.view(B, Lv, H, Dh).transpose(1, 2)
+                  for t in qkv.view(B, Lv, 3 * D).split(D, dim=-1)]
+    cq = randn(M, D, dtype=bf16).view(B, Lv, H, Dh).transpose(1, 2)
+    ck, cv = randn(B, H, Lq, Dh), randn(B, H, Lq, Dh)
+    vmask = pad_mask(torch, B, Lv, [(i * 17) % (Lv + 1) for i in range(B)],
+                     dev)
+    qmask = pad_mask(torch, B, Lq, [(i * 5) % (Lq + 1) for i in range(B)],
+                     dev)
+    dout = randn(B, Lv, D, dtype=bf16)
+    for label, (q, k, v), mask, copies in (
+            ("self 60x60", (sq, sk, sv), vmask, "qkv"),
+            ("cross 60x14 f32 kv", (cq, ck, cv), qmask, "q")):
+        Lk = k.shape[2]
+        drop = keep(B, H, Lv, Lk)
+        k16, v16 = k.to(bf16), v.to(bf16)
+        case("masked_attention_dh128", f"{label} + dropout",
+             lambda: (K.masked_attention(q, k, v, mask, drop, inv),),
+             lambda: (K.masked_attention_plain(q, k, v, mask, drop, inv),),
+             (T16,), 2 * n, 4 * B * H * Lv * Lk * Dh,
+             attention_bytes(B, H, Lv, Lk, k.element_size(), drop=True,
+                             Dh=Dh),
+             lambda: F_.scaled_dot_product_attention(q, k16, v16,
+                                                     attn_mask=~mask))
+
+        def grads(fn, q=q, k=k, v=v, mask=mask, drop=drop, copies=copies,
+                  Lk=Lk):
+            outs = [torch.empty(B, H, L_, Dh, device=dev)
+                    for L_ in (Lv, Lk, Lk)]
+            c16 = [torch.empty(t.shape, dtype=bf16, device=dev)
+                   if c in copies else None for t, c in zip(outs, "qkv")]
+            fn(q, k, v, mask, dout, *outs, *c16, drop=drop, inv_keep=inv)
+            return tuple(outs)
+
+        ql, kl, vl = (t.detach().clone().to(bf16).requires_grad_()
+                      for t in (q, k, v))
+        sdpa_out = F_.scaled_dot_product_attention(ql, kl, vl,
+                                                   attn_mask=~mask)
+        d4 = dout.view(B, Lv, H, Dh).transpose(1, 2)
+        outs = grads(K.masked_attention_bwd)
+        refs = grads(K.masked_attention_bwd_plain)
+        torch.cuda.synchronize()
+        for name_, o, r in zip(("dq", "dk", "dv"), outs, refs):
+            err = max_err(o, r)
+            gate(f"masked_attention_bwd_dh128 {label} {name_}", err,
+                 kc.scaled(r, 2 ** -7))
+            rows.err("masked_attention_bwd_dh128", err)
+        t_k = device_ms(torch, lambda: grads(K.masked_attention_bwd))
+        t_p = device_ms(torch, lambda: grads(K.masked_attention_bwd_plain))
+        t_l = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (ql, kl, vl), d4, retain_graph=True))
+        flops = 10 * B * H * Lv * Lk * Dh
+        nbytes = attention_bwd_bytes(B, H, Lv, Lk, k.element_size(), copies,
+                                     Dh=Dh)
+        say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa backward "
+            f"{t_l:.4f} ms (eager); bound "
+            f"{max(bound_parts(flops, nbytes)):.4f} ms")
+        rows.add("masked_attention_bwd_dh128", n, t_k, t_p, flops, nbytes,
+                 t_l)
+    # the LayerNorms with bf16 saves: LN1 / LN2 / LN3 write r bf16; their
+    # backwards read it (no y), LN2's with the bf16 gv2
+    res, y = randn(M, D), randn(M, D)
+    bias, gamma, beta = randn(D, s=0.1), 1 + randn(D, s=0.1), randn(D, s=0.1)
+    kw = dict(mask=keep(M, D), inv_keep=inv, save_r=True, reciprocal=True,
+              r_dtype=bf16)
+    case("residual_layernorm", "large LN + dropout -> f32, bf16, r bf16",
+         lambda: K.residual_layernorm(res, y, bias, gamma, beta, (f32, bf16),
+                                      **kw),
+         lambda: K.residual_layernorm_plain(res, y, bias, gamma, beta,
+                                            (f32, bf16), **kw),
+         (1e-5, T16, T16), 0, 0, 0, timed=False)
+    r16 = randn(M, D, dtype=bf16)
+    for label, gdt in (("LN1 / LN3 from bf16 r", f32),
+                       ("LN2 from bf16 r, bf16 gv2", bf16)):
+        gout = randn(M, D, dtype=gdt)
+        kw = dict(mask=keep(M, D), inv_keep=inv, dy_dtypes=(f32, bf16))
+        case("residual_layernorm_bwd", f"large {label}",
+             lambda: K.residual_layernorm_bwd(gout, r16, None, None, gamma,
+                                              **kw),
+             lambda: K.residual_layernorm_bwd_plain(gout, r16, None, None,
+                                                    gamma, **kw),
+             (1e-4, 1e-5, 1e-4, T16), 0, 0, 0, timed=False)
+    mats = [randn(M, 3 * D), randn(M, D), randn(M, D), randn(M, D, dtype=bf16)]
+    case("col_sum", "large dbq2, dbm2, dln2 (bf16 gv2)", lambda: K.col_sum(mats),
+         lambda: K.col_sum_plain(mats), (1e-5,) * 4, 0, 0, 0, timed=False)
+
 
 
 # ---------------------------------------------------------------------------
@@ -819,12 +1131,15 @@ def check_blocks(torch, dev, state_dict, cfg, rows) -> None:
 
 def train_block_inputs(torch, dev, B, Lv=60, Lq=14, D=512, F=2048,
                        H=8):
-    """Random weights of LN-scale activations, ragged pads with fully
-    padded image and question samples, the six masks at rate 0.1."""
+    """Random weights of LN-scale activations (std 0.05 at D = 512, scaled
+    by sqrt(512 / D) so that every product's outputs keep that spread at
+    another width), ragged pads with fully padded image and question
+    samples, the six masks at rate 0.1."""
     from mcan_vqa_tpu_torch.ops import sga_train as st
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    s0 = 0.05 * (512 / D) ** 0.5
 
-    def mat(*shape, s=0.05):
+    def mat(*shape, s=s0):
         return torch.randn(*shape, generator=g, device=dev) * s
 
     w = {"wqkv": mat(D, 3 * D), "bqkv": mat(3 * D), "wm1": mat(D, D),
@@ -834,8 +1149,8 @@ def train_block_inputs(torch, dev, B, Lv=60, Lq=14, D=512, F=2048,
          "b1": mat(F), "w2": mat(F, D), "b2": mat(D), "ln3_s": 1 + mat(D),
          "ln3_b": mat(D)}
     x = torch.randn(B, Lv, D, generator=g, device=dev)
-    kq = torch.randn(B, H, Lq, 64, generator=g, device=dev)
-    vq = torch.randn(B, H, Lq, 64, generator=g, device=dev)
+    kq = torch.randn(B, H, Lq, D // H, generator=g, device=dev)
+    vq = torch.randn(B, H, Lq, D // H, generator=g, device=dev)
     v_mask = pad_mask(torch, B, Lv, [(i * 17) % (Lv + 1) for i in range(B)],
                       dev)
     q_mask = pad_mask(torch, B, Lq, [(i * 5) % (Lq + 1) for i in range(B)],
@@ -845,63 +1160,117 @@ def train_block_inputs(torch, dev, B, Lv=60, Lq=14, D=512, F=2048,
     return x, kq, vq, v_mask, q_mask, masks, w, inv, probe
 
 
+def sa_block_inputs(torch, dev, B, L=14, D=512, F=2048, H=8):
+    """The SA block's weights drawn as ``train_block_inputs`` draws them,
+    the 14-token question stream with all-PAD questions among ragged
+    ones, the four masks at rate 0.1."""
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+
+    def mat(*shape, s=0.05):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    w = {"wqkv": mat(D, 3 * D), "bqkv": mat(3 * D), "wm": mat(D, D),
+         "bm": mat(D), "ln1_s": 1 + mat(D), "ln1_b": mat(D),
+         "w1": mat(D, F), "b1": mat(F), "w2": mat(F, D), "b2": mat(D),
+         "ln2_s": 1 + mat(D), "ln2_b": mat(D)}
+    x = torch.randn(B, L, D, generator=g, device=dev)
+    mask = pad_mask(torch, B, L, [(i * 5) % (L + 1) for i in range(B)], dev)
+    masks, inv = sa.make_sa_dropout_masks(g, 0.1, B, L, D, F, H)
+    probe = torch.randn(B, L, D, generator=g, device=dev)
+    return x, mask, masks, w, inv, probe
+
+
+def block_vs_plain(torch, label, fused, plain, leaves, w, names, probe,
+                   call, rows, row_of, leaf_names):
+    """The kernel block and its plain twin under autograd from the same
+    leaves: gates the output and every gradient, then checks that two runs
+    of the kernel block give the same bits.
+
+    Tolerances: every kernel matches its plain version call by call
+    ([kernels]); composed over a block, sums in another order move bf16
+    roundings and ReLU gates, which the LayerNorm and softmax backwards
+    carry on: the output within the serving block tolerance (6e-2), every
+    gradient within 3e-2 in relative norm and within 1e-1 of its max|ref|
+    elementwise (the 3e-2 max|ref| gate of tests/test_sga_train.py holds
+    on the CPU, where both sides sum in one order)."""
+    def run(block):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
+        out = call(block, ls, ws)
+        (out * probe).sum().backward()
+        return out.detach(), [t.grad for t in ls] + [ws[n].grad
+                                                     for n in names]
+
+    out, grads = run(fused)
+    ref, rgrads = run(plain)
+    torch.cuda.synchronize()
+    e_fwd = max_err(out, ref)
+    gate(f"{label} output", e_fwd, 6e-2)
+    rows.err(row_of(None), e_fwd)
+    for name, a, b in zip(leaf_names + tuple(names), grads, rgrads):
+        rel = float((a - b).norm() / b.norm())
+        scaled = max_err(a, b) / (float(b.abs().max()) + 1e-12)
+        rows.err(row_of(name), max_err(a, b))
+        ok = rel <= 3e-2 and scaled <= 1e-1
+        say(f"  d{name}: |err|/|ref| {rel:.3e} <= 3e-2, max|err|/max|ref| "
+            f"{scaled:.3e} <= 1e-1 {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label}: gradient {name} disagrees")
+    out2, grads2 = run(fused)
+    if not (torch.equal(out, out2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
+        fail(f"{label}: two runs of the kernels differ")
+    say(f"  two runs of the kernel block: the output and all {len(grads)} "
+        f"gradients equal bit for bit")
+
+
+def plain_path(K, fn):
+    """fn with every wrapper forced onto its plain version (the wrappers'
+    CPU path on the card's tensors)."""
+    def run_plain():
+        on_cuda = K.on_cuda
+        K.on_cuda = lambda t: False
+        try:
+            return fn()
+        finally:
+            K.on_cuda = on_cuda
+    return run_plain
+
+
 def check_train_block(torch, dev, rows) -> None:
     from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
     from mcan_vqa_tpu_torch.ops import sga_train as st
     B, Lv, Lq, D, F, H = BATCH, 60, 14, 512, 2048, 8
     M = B * Lv
-    x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(torch, dev,
-                                                                 B=B)
-    say("[train block] fused_sga_block_train (the kernels) vs "
-        "fused_sga_block_train_plain (plain ops, autograd): MCAN-small, "
-        f"B={B}, rate 0.1, samples with no regions and with an all-PAD "
-        "question")
-
-    def run(block):
-        leaves = [t.clone().requires_grad_() for t in (x, kq, vq)]
-        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
-        out = block(*leaves, vm, qm, masks, ws, num_heads=H, inv_keep=inv)
-        (out * probe).sum().backward()
-        return out.detach(), [t.grad for t in leaves] + [
-            ws[n].grad for n in st.WEIGHT_NAMES]
-
-    out, grads = run(st.fused_sga_block_train)
-    ref, rgrads = run(st.fused_sga_block_train_plain)
-    torch.cuda.synchronize()
-    # Tolerances: every kernel matches its plain version call by call
-    # ([kernels]); composed over the block, sums in another order move
-    # bf16 roundings and ReLU gates, which the LayerNorm and softmax
-    # backwards carry on: v3 within the serving block tolerance, every
-    # gradient within 3e-2 in relative norm and within 1e-1 of its max|ref|
-    # elementwise (the 3e-2 max|ref| gate of tests/test_sga_train.py holds
-    # on the CPU, where both sides sum in one order).
-    e_fwd = max_err(out, ref)
-    gate("v3", e_fwd, 6e-2)
     rows.row("sga_train_fwd", "mcan_vqa_tpu_torch/ops/sga_train.py",
              TPU_TRAIN + ":977", STEP)
     rows.row("sga_train_bwd_ffn", "mcan_vqa_tpu_torch/ops/sga_train.py",
              TPU_TRAIN + ":1081", STEP)
     rows.row("sga_train_bwd_att", "mcan_vqa_tpu_torch/ops/sga_train.py",
              TPU_TRAIN + ":1139", STEP)
-    rows.err("sga_train_fwd", e_fwd)
+    rows.row("sa_train_fwd", "mcan_vqa_tpu_torch/ops/sa_train.py",
+             TPU_SA_TRAIN + ":389", STEP)
+    rows.row("sa_train_bwd", "mcan_vqa_tpu_torch/ops/sa_train.py",
+             TPU_SA_TRAIN + ":487", STEP)
+    rows.row("sga_train_bwd_att_sav", "mcan_vqa_tpu_torch/ops/sga_train.py",
+             TPU_TRAIN + ":1272", LARGE_STEP)
     ffn_grads = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
-    for name, a, b in zip(("dx", "dkq", "dvq") + st.WEIGHT_NAMES, grads,
-                          rgrads):
-        rel = float((a - b).norm() / b.norm())
-        scaled = max_err(a, b) / (float(b.abs().max()) + 1e-12)
-        rows.err("sga_train_bwd_ffn" if name in ffn_grads
-                 else "sga_train_bwd_att", max_err(a, b))
-        ok = rel <= 3e-2 and scaled <= 1e-1
-        say(f"  d{name}: |err|/|ref| {rel:.3e} <= 3e-2, max|err|/max|ref| "
-            f"{scaled:.3e} <= 1e-1 {'ok' if ok else 'FAILED'}")
-        if not ok:
-            fail(f"train block gradient {name} disagrees")
-    out2, grads2 = run(st.fused_sga_block_train)
-    if not (torch.equal(out, out2)
-            and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
-        fail("train block: two runs of the kernels differ")
-    say("  two runs of the kernel block: v3 and all 21 gradients equal bit "
-        "for bit")
+
+    say("[train block] fused_sga_block_train (the kernels) vs "
+        "fused_sga_block_train_plain (plain ops, autograd): MCAN-small, "
+        f"B={B}, rate 0.1, samples with no regions and with an all-PAD "
+        "question")
+    x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(torch, dev,
+                                                                 B=B)
+    block_vs_plain(
+        torch, "SGA train block", st.fused_sga_block_train,
+        st.fused_sga_block_train_plain, (x, kq, vq), w, st.WEIGHT_NAMES,
+        probe, lambda blk, ls, ws: blk(*ls, vm, qm, masks, ws, num_heads=H,
+                                       inv_keep=inv), rows,
+        lambda n: "sga_train_fwd" if n is None else "sga_train_bwd_ffn"
+        if n in ffn_grads else "sga_train_bwd_att", ("x", "kq", "vq"))
 
     # times of the three pieces, each the sequence of kernels against the
     # same sequence of plain versions (the wrappers' CPU path, forced)
@@ -917,17 +1286,6 @@ def check_train_block(torch, dev, rows) -> None:
                                                  inv),
         "sga_train_bwd_att": lambda: st._bwd_att(gv2, xs, kq, vq, vm, qm,
                                                  saves, masks, wk, inv, H)}
-    on_cuda = K.on_cuda
-
-    def plain(fn):
-        def run_plain():
-            K.on_cuda = lambda t: False
-            try:
-                return fn()
-            finally:
-                K.on_cuda = on_cuda
-        return run_plain
-
     # bytes: inputs read once, outputs written once; operations: every
     # product the TPU kernel runs (recomputes included)
     Wmats = 2 * (3 * D * D + 3 * D * D + 2 * D * F)
@@ -946,13 +1304,103 @@ def check_train_block(torch, dev, rows) -> None:
             + 10 * B * H * Lv * (Lv + Lq) * 64 + 2 * M * D * 6 * D,
             4 * M * D * 4 + 8 * B * H * Lq * 64 * 2 + 2 * 6 * D * D
             + mask_b - M * F - M * D + 4 * 6 * D * D + 4 * 12 * D)}
+    time_pieces(torch, K, rows, pieces, work, 6)
+
+    say("[train block] fused_sa_block_train (the kernels) vs "
+        "fused_sa_block_train_plain (plain ops, autograd): the MCAN-small "
+        f"encoder block, B={B}, 14 tokens, rate 0.1, all-PAD questions "
+        "among ragged ones")
+    xq, qmask, sam, sw, inv, sprobe = sa_block_inputs(torch, dev, B)
+    for save_acts in (True, False):
+        say(f"  save_acts={save_acts}")
+        block_vs_plain(
+            torch, f"SA train block (save_acts={save_acts})",
+            sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (xq,),
+            sw, sa.SA_WEIGHT_NAMES, sprobe,
+            lambda blk, ls, ws: blk(*ls, qmask, sam, ws, num_heads=H,
+                                    inv_keep=inv, save_acts=save_acts),
+            rows, lambda n: "sa_train_fwd" if n is None else "sa_train_bwd",
+            ("x",))
+    swk = st._kernel_weights([sw[n] for n in sa.SA_WEIGHT_NAMES],
+                             sa.SA_WEIGHT_NAMES, sa.SA_MATMUL_WEIGHTS)
+    xqs = xq.contiguous()
+    Mq = B * Lq
+    _, ssaves = sa._forward(xqs, qmask, sam, swk, inv, H)
+    gq = sprobe.reshape(Mq, D).contiguous()
+    pieces = {
+        "sa_train_fwd": lambda: sa._forward(xqs, qmask, sam, swk, inv, H),
+        "sa_train_bwd": lambda: sa._backward(gq, xqs, qmask, ssaves, sam,
+                                             swk, inv, H)}
+    sa_att_f = 4 * B * H * Lq * Lq * 64
+    sa_mats = 2 * (4 * D * D + 2 * D * F)
+    sa_masks = B * H * Lq * Lq + 2 * Mq * D + Mq * F
+    work = {
+        # in: x, the pads, masks, weights; out: x2, x1, r2 (f32), h1d
+        "sa_train_fwd": (
+            2 * Mq * D * (4 * D + 2 * F) + sa_att_f,
+            4 * Mq * D + B * Lq + sa_masks + sa_mats + 4 * 10 * D
+            + 3 * 4 * Mq * D + 2 * Mq * F),
+        # recompute of qkv, merge and attention; 4 dX and 4 dW products;
+        # the attention backward. in: x, x1, g, r2 (f32), h1d, masks but
+        # h1, weights; out: dx and the 12 weight gradients (f32)
+        "sa_train_bwd": (
+            2 * Mq * D * 4 * D + sa_att_f + 2 * 2 * Mq * D * (4 * D + 2 * F)
+            + 10 * B * H * Lq * Lq * 64,
+            4 * 4 * Mq * D + 2 * Mq * F + B * Lq + sa_masks - Mq * F
+            + sa_mats + 4 * 8 * D + 4 * Mq * D + 4 * (4 * D * D + 2 * D * F)
+            + 4 * (10 * D + F))}
+    time_pieces(torch, K, rows, pieces, work, 6)
+
+    Bl, Dl, Fl = BATCH // 2, 1024, 4096
+    Ml = Bl * Lv
+    say("[train block] fused_sga_block_train(att_saves=True, bf16_saves="
+        "True) (the kernels) vs fused_sga_block_train_plain (plain ops, "
+        f"autograd, f32 saves): MCAN-large, one micro-batch B={Bl}, D={Dl}, "
+        f"F={Fl}, 8 heads of 128, rate 0.1 (bf16_saves moves the gradients "
+        "by its roundings of r1 / r2 / r3 / gv2, 2^-8 relative each)")
+    x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(
+        torch, dev, B=Bl, D=Dl, F=Fl)
+    sav = functools.partial(st.fused_sga_block_train, att_saves=True,
+                            bf16_saves=True)
+    block_vs_plain(
+        torch, "SGA train block, att_saves + bf16_saves", sav,
+        st.fused_sga_block_train_plain, (x, kq, vq), w, st.WEIGHT_NAMES,
+        probe, lambda blk, ls, ws: blk(*ls, vm, qm, masks, ws, num_heads=H,
+                                       inv_keep=inv), rows,
+        lambda n: "sga_train_bwd_att_sav", ("x", "kq", "vq"))
+    wk = st._kernel_weights([w[n] for n in st.WEIGHT_NAMES])
+    xs = x.contiguous()
+    _, lsaves = st._forward(xs, kq, vq, vm, qm, masks, wk, inv, H,
+                            att_saves=True, save_dtype=torch.bfloat16)
+    gflat = probe.reshape(Ml, Dl).contiguous()
+    gv2 = st._bwd_ffn(gflat, lsaves, masks, wk, inv, torch.bfloat16)[0]
+    pieces = {"sga_train_bwd_att_sav": lambda: st._bwd_att_sav(
+        gv2, xs, kq, vq, vm, qm, lsaves, masks, wk, inv, H)}
+    att_l = Bl * H * Lv * (Lv + Lq) * 128
+    # the attention recompute (P.V) and backward; 4 dX and 4 dW products
+    # over the 6 D^2 weights; in: x (f32), v1, qkv, qx, r1, r2, gv2 (bf16),
+    # kq / vq (f32), pads, masks att1 / att2 / y1 / y2, wqkv / wm1 / wq2 /
+    # wm2 (bf16), ln1_s / ln2_s; out: dx, dkq, dvq and the 12 weight
+    # gradients (f32)
+    work = {"sga_train_bwd_att_sav": (
+        4 * att_l + 10 * att_l + 2 * 2 * Ml * Dl * 6 * Dl,
+        4 * Ml * Dl + 2 * Ml * Dl * 8 + 2 * 4 * Bl * H * Lq * 128
+        + Bl * (Lv + Lq) + Bl * H * Lv * (Lv + Lq) + 2 * Ml * Dl
+        + 2 * 6 * Dl * Dl + 4 * 2 * Dl + 4 * Ml * Dl
+        + 2 * 4 * Bl * H * Lq * 128 + 4 * 6 * Dl * Dl + 4 * 10 * Dl)}
+    time_pieces(torch, K, rows, pieces, work, 12)
+
+
+def time_pieces(torch, K, rows, pieces, work, n) -> None:
+    """Each piece's kernel sequence against the same sequence of plain
+    versions: device times, and n of them per unit into its row."""
     for name, fn in pieces.items():
         flops, nbytes = work[name]
         t_k = device_ms(torch, fn, iters=10)
-        t_p = device_ms(torch, plain(fn), iters=5)
+        t_p = device_ms(torch, plain_path(K, fn), iters=5)
         say(f"  {name}: {t_k:.4f} ms vs plain {t_p:.4f} ms per block; bound "
             f"{max(bound_parts(flops, nbytes)):.4f} ms")
-        rows.add(name, 6, t_k, t_p, flops, nbytes)
+        rows.add(name, n, t_k, t_p, flops, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -1070,10 +1518,6 @@ def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
 # main path 2 -- Trainer.train() on the synthetic set at full width
 # ---------------------------------------------------------------------------
 
-TRAIN_KERNELS = ("sga_train_fwd", "sga_train_bwd_ffn", "sga_train_bwd_att",
-                 "gemm_bias_act", "gemm_dx", "gemm_dw", "masked_attention",
-                 "masked_attention_bwd", "residual_layernorm",
-                 "residual_layernorm_bwd", "col_sum")
 # launches per decoder block in one step: forward (6 products, 2
 # attentions, 3 LayerNorms), FFN backward (LN3 backward, 2 dX, 2 dW, one
 # column-sum launch), attention backward (4 recomputed products, 2
@@ -1084,39 +1528,73 @@ PER_BLOCK = {"sga_train_fwd": 1, "sga_train_bwd_ffn": 1,
              "gemm_dw": 6, "masked_attention": 4, "masked_attention_bwd": 2,
              "residual_layernorm": 3, "residual_layernorm_bwd": 3,
              "col_sum": 3}
+# per encoder block (save_acts): forward (4 products, 1 attention, 2
+# LayerNorms), backward (2 LN backwards, 4 dX, the recomputed qkv and
+# merge and attention, 1 attention backward, 4 dW, 2 column-sum launches)
+SA_PER_BLOCK = {"sa_train_fwd": 1, "sa_train_bwd": 1, "gemm_bias_act": 6,
+                "gemm_dx": 4, "gemm_dw": 4, "masked_attention": 2,
+                "masked_attention_bwd": 1, "residual_layernorm": 2,
+                "residual_layernorm_bwd": 2, "col_sum": 2}
+# per decoder block and micro-batch with att_saves: PER_BLOCK without the
+# attention backward's 4 recomputed products
+SAV_PER_BLOCK = dict(PER_BLOCK, sga_train_bwd_att=0, sga_train_bwd_att_sav=1,
+                     gemm_bias_act=6)
+TRAIN_KERNELS = tuple(sorted(set(PER_BLOCK) | set(SA_PER_BLOCK)
+                             | set(SAV_PER_BLOCK)))
 
 
-def train_main_path(torch, dev, rows, work: Path):
+def expected_step_launches(cfg, route):
+    """Every kernel's launches in one step of this configuration."""
+    n = cfg.layer * cfg.grad_accu_steps
+    per = [(SAV_PER_BLOCK if route["att_saves"] else PER_BLOCK, n)]
+    if route["fused_encoder"]:
+        per.append((SA_PER_BLOCK, n))
+    return {k: sum(d.get(k, 0) * m for d, m in per) for k in TRAIN_KERNELS}
+
+
+def train_main_path(torch, dev, rows, work: Path, model: str = "small",
+                    steps: int = TRAIN_STEPS):
+    """Trainer.train() for one epoch of `steps` steps at the model's full
+    width: the fused engine's loss against the plain engine's at every
+    step (the plain engine replays the step's micro-batches from the same
+    generator state, and must leave it where the step leaves it), the
+    exact launches of every step, bitwise repeatable gradients."""
     from mcan_vqa_tpu_torch.configs import Config
     from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.train.fused_engine import \
         make_fused_train_forward
     from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
-    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_route
 
-    cfg = Config(max_epoch=1, batch_size=BATCH, seed=SEED + 7,
-                 ckpts_dir=str(work / "ckpts"), log_path=str(work / "log"),
-                 verbose=False)
-    ds = SyntheticVQADataset(cfg, size=TRAIN_STEPS * BATCH, answer_size=3129,
+    cfg = Config.for_model(model, max_epoch=1, batch_size=BATCH,
+                           seed=SEED + 7, ckpts_dir=str(work / "ckpts"),
+                           log_path=str(work / "log"), verbose=False)
+    route = engine_route(cfg.hidden_size)
+    ds = SyntheticVQADataset(cfg, size=steps * BATCH, answer_size=3129,
                              seed=SEED)
     trainer = Trainer(cfg, ds, device=dev)
-    plain_fwd = make_fused_train_forward(cfg.layer, cfg.multi_head,
-                                         dropout_rate=cfg.dropout_rate,
-                                         sga_block="plain")
+    plain_fwd = make_fused_train_forward(
+        cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+        sga_block="plain", fused_encoder=route["fused_encoder"])
     real_step = trainer.step_fn
+    mb = BATCH // cfg.grad_accu_steps
     log = []
 
     def step(state, batch):
         """The Trainer's step, with the plain engine's loss on the same
-        weights and generator state first (no launch counts, not timed),
-        the step's launch counts and its time by CUDA events."""
+        weights and generator state first, micro-batch by micro-batch (no
+        launch counts, not timed), the step's launch counts and its time
+        by CUDA events."""
         g = torch.Generator(device=dev)
         g.set_state(state.generator.get_state())
+        plain_loss = 0.0
         with torch.no_grad():
-            plain_loss = float(bce_with_logits_sum(
-                plain_fwd(state.model, batch["img"], batch["ques"], g),
-                batch["target"]))
+            for i in range(cfg.grad_accu_steps):
+                sl = slice(i * mb, (i + 1) * mb)
+                plain_loss += float(bce_with_logits_sum(
+                    plain_fwd(state.model, batch["img"][sl],
+                              batch["ques"][sl], g), batch["target"][sl]))
         before = K.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1127,42 +1605,66 @@ def train_main_path(torch, dev, rows, work: Path):
         after = K.launch_counts()
         log.append(dict(loss=float(metrics["loss"]), plain=plain_loss,
                         ms=start.elapsed_time(end),
+                        same_draws=torch.equal(g.get_state(),
+                                               state.generator.get_state()),
                         counts={k: after.get(k, 0) - before.get(k, 0)
-                                for k in PER_BLOCK}))
+                                for k in TRAIN_KERNELS}))
         return metrics
 
     trainer.step_fn = step
-    say(f"[train] Trainer(cfg MCAN-small, batch {BATCH}, 1 epoch of "
-        f"{TRAIN_STEPS} steps) on SyntheticVQADataset(answer_size=3129)")
+    tag = "train" if model == "small" else f"train {model}"
+    say(f"[{tag}] Trainer(MCAN-{model}: hidden {cfg.hidden_size}, ff "
+        f"{cfg.ff_size}, flat_out {cfg.flat_out_size}, lr_base "
+        f"{cfg.lr_base}, batch {BATCH} in {cfg.grad_accu_steps} "
+        f"micro-batch(es), 1 epoch of {steps} steps) on "
+        f"SyntheticVQADataset(answer_size=3129); engine: "
+        f"{route}")
     K.reset_launches()
     trainer.train()
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    say(f"[launches] training, {len(log)} steps: {counts}")
-    if len(log) != TRAIN_STEPS:
-        fail(f"{len(log)} train steps, expected {TRAIN_STEPS}")
-    rows.launches("train", counts, TRAIN_KERNELS)
+    say(f"[launches] {tag}, {len(log)} steps: {counts}")
+    if len(log) != steps:
+        fail(f"{len(log)} train steps, expected {steps}")
+    want = expected_step_launches(cfg, route)
+    if route["att_saves"]:
+        dh128 = {"masked_attention_dh128": "masked_attention",
+                 "masked_attention_bwd_dh128": "masked_attention_bwd"}
+        rows.launches(tag, counts, [k for k in TRAIN_KERNELS
+                                    if k not in dh128.values()
+                                    and want[k]])
+        rows.launches(tag, counts, dh128, key=dh128)
+    else:
+        rows.launches(tag, counts, [k for k in TRAIN_KERNELS if want[k]])
     # Loss tolerance: the fused and plain blocks differ by bf16 roundings
-    # (the block check above); summed over 64 x 3129 BCE terms the loss
+    # (the block checks above); summed over 64 x 3129 BCE terms the loss
     # moves by far less than 1e-3 of itself.
     for i, r in enumerate(log):
-        want = {k: n * cfg.layer for k, n in PER_BLOCK.items()}
         if r["counts"] != want:
             fail(f"step {i}: launches {r['counts']}, expected {want}")
+        if not r["same_draws"]:
+            fail(f"step {i}: the step drew other dropout masks than its "
+                 f"{cfg.grad_accu_steps} micro-batch forwards")
         rel = abs(r["loss"] - r["plain"]) / abs(r["plain"])
         say(f"  step {i}: loss {r['loss']:.6f} (plain engine "
             f"{r['plain']:.6f}, rel {rel:.2e} <= 1e-3), {r['ms']:.3f} ms")
         if not rel <= 1e-3:
             fail(f"step {i}: fused loss {r['loss']} vs plain {r['plain']}")
-    say(f"  every step ran {cfg.layer} decoder blocks x (forward + FFN "
-        f"backward + attention backward) through the kernels")
+    blocks = (f"{cfg.layer} encoder blocks x (forward + backward) + " if
+              route["fused_encoder"] else "")
+    say(f"  every step ran {blocks}{cfg.layer} decoder blocks x "
+        f"{cfg.grad_accu_steps} micro-batch(es) x (forward + FFN backward + "
+        f"attention backward{' from saves' if route['att_saves'] else ''})"
+        f" through the kernels, with the generator where the micro-batch "
+        f"forwards leave it")
     ms = [r["ms"] for r in log[1:]]
     mean = sum(ms) / len(ms)
-    say(f"[train] step time (steps 2..{TRAIN_STEPS}, CUDA events): mean "
+    say(f"[{tag}] step time (steps 2..{steps}, CUDA events): mean "
         f"{mean:.3f} ms, min {min(ms):.3f} ms -> {BATCH / mean * 1e3:.1f} "
         f"samples/s")
 
-    # the same step twice from the same state and generator: equal bits
+    # the same micro-batch twice from the same state and generator: equal
+    # bits
     state = trainer.state
     batch = next(iter(trainer.loader()))
     gen_state = state.generator.get_state()
@@ -1173,7 +1675,8 @@ def train_main_path(torch, dev, rows, work: Path):
         g = torch.Generator(device=dev)
         g.set_state(gen_state)
         loss = bce_with_logits_sum(trainer.forward_fn(
-            state.model, batch["img"], batch["ques"], g), batch["target"])
+            state.model, batch["img"][:mb], batch["ques"][:mb], g),
+            batch["target"][:mb])
         loss.backward()
         return loss.detach(), [p.grad.clone() for p in
                                state.model.parameters()]
@@ -1185,7 +1688,7 @@ def train_main_path(torch, dev, rows, work: Path):
         n_diff = sum(not torch.equal(a, b) for a, b in zip(g1, g2))
         fail(f"two runs of one step differ: loss {float(l1)} vs "
              f"{float(l2)}, {n_diff} of {len(g1)} gradients")
-    say(f"[train] two runs of one step: the loss and all {len(g1)} "
+    say(f"[{tag}] two runs of one micro-batch: the loss and all {len(g1)} "
         f"parameter gradients equal bit for bit")
     ckpt = Path(cfg.ckpts_dir) / f"ckpt_{cfg.run_version}" / "epoch1.pkl"
     if not ckpt.exists():

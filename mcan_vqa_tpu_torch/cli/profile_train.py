@@ -1,8 +1,10 @@
 """Where the time of a train step goes, on the card.
 
-    python -m mcan_vqa_tpu_torch.cli.profile_train [--steps 5] [--batch 64]
+    python -m mcan_vqa_tpu_torch.cli.profile_train [--model large]
+        [--steps 5] [--batch 64]
 
-Builds the ``Trainer`` at MCAN-small width (random weights from a seed) on
+Builds the ``Trainer`` at MCAN-small width (or MCAN-large, whose batch of
+64 is two micro-batches of 32; random weights from a seed) on
 ``SyntheticVQADataset(answer_size=3129)`` and times its step two ways:
 
   * ``loader``: the Trainer's own loop, batches assembled on the host by
@@ -63,6 +65,7 @@ def union_us(intervals: List[tuple]) -> float:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="small", choices=["small", "large"])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--batch", type=int, default=64)
@@ -75,9 +78,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from mcan_vqa_tpu_torch.train.trainer import Trainer
 
     n = args.warmup + args.steps
-    cfg = Config(batch_size=args.batch, max_epoch=1, verbose=False,
-                 ckpts_dir="ckpts/profile_train",
-                 log_path="results/profile_train")
+    cfg = Config.for_model(args.model, batch_size=args.batch, max_epoch=1,
+                           verbose=False, ckpts_dir="ckpts/profile_train",
+                           log_path="results/profile_train")
     ds = SyntheticVQADataset(cfg, size=n * args.batch, answer_size=3129)
     trainer = Trainer(cfg, ds)
     state = trainer.state
@@ -85,6 +88,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
+    print(f"[model] {args.model}: hidden {cfg.hidden_size}, batch "
+          f"{cfg.batch_size} in {cfg.grad_accu_steps} micro-batch(es)",
+          flush=True)
 
     # the Trainer's loop: host-assembled batches through the loader
     times = []
@@ -151,7 +157,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print("  largest PyTorch kernels (ms per step):", flush=True)
     for name, ms in top.items():
         print(f"    {ms:8.3f}  {name}", flush=True)
-    result = {"card": smi, "batch": args.batch,
+    result = {"card": smi, "model": args.model, "batch": args.batch,
               "steps": args.steps, "loader_ms_per_step": loader_ms,
               "preloaded_ms_per_step": step_ms,
               "profiled_ms_per_step": wall_ms, "device_busy_ms": busy_ms,

@@ -1,12 +1,12 @@
 """VQA command line of the port (mcan_vqa_tpu/cli/run_vqa.py).
 
-    python -m mcan_vqa_tpu_torch.cli.run_vqa --run train --synthetic
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run train --synthetic \
+        [--model large]
 
-trains MCAN-small on generated data on the CUDA device; ``--device cpu``
-runs the kernels' plain versions on the CPU instead, for tiny architecture
-flags. MCAN-large (64-wide heads become 128-wide, and the Trainer's
-att-saves backward) is not ported, nor are training on the VQA-v2 files
-and the val / test / visualize / parity modes: those raise.
+trains MCAN-small (or MCAN-large) on generated data on the CUDA device;
+``--device cpu`` runs the kernels' plain versions on the CPU instead, for
+tiny architecture flags. Training on the VQA-v2 files and the val / test /
+visualize / parity modes are not ported: those raise.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="MCAN-VQA, PyTorch/CUDA port")
     p.add_argument("--run", dest="run_mode", required=True,
                    choices=["train", "val", "test", "visualize", "parity"])
+    p.add_argument("--model", default="small", choices=["small", "large"])
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain "
                         "versions)")
@@ -65,7 +66,7 @@ def build_config(args: argparse.Namespace) -> Config:
         value = getattr(args, knob)
         if value is not None:
             overrides[knob] = value
-    return Config().with_overrides(**overrides)
+    return Config.for_model(args.model, **overrides)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

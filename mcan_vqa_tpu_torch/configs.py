@@ -4,8 +4,11 @@ The JAX ``Config`` reads YAML, which the port does not depend on, so the
 settings the port uses live here as a dataclass. Defaults are MCAN-small:
 ``mcan_vqa_tpu/configs/small.yml`` over the dataclass defaults of
 ``mcan_vqa_tpu/configs/config.py``, with ``ff_size = 4 * hidden`` as
-``config.py:194`` derives it (``with_overrides`` keeps that rule). Field
-names follow the JAX ``Config`` so a reader can map one onto the other.
+``config.py:194`` derives it (``with_overrides`` keeps that rule).
+``Config.for_model("large")`` is MCAN-large, ``configs/large.yml`` over the
+same defaults (its ``ckpt_version`` / ``ckpt_epoch`` name a checkpoint to
+resume, which the port does not do yet). Field names follow the JAX
+``Config`` so a reader can map one onto the other.
 """
 
 from __future__ import annotations
@@ -13,6 +16,14 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
+
+# the settings each model's YAML sets over the defaults (small.yml sets
+# only values the defaults already have)
+MODELS: Dict[str, Dict[str, Any]] = {
+    "small": {},
+    "large": dict(hidden_size=1024, ff_size=4096, flat_out_size=2048,
+                  lr_base=5e-5, grad_accu_steps=2),
+}
 
 
 @dataclass(frozen=True)
@@ -55,6 +66,15 @@ class Config:
             raise ValueError(
                 f"batch_size {self.batch_size} is not a multiple of "
                 f"grad_accu_steps {self.grad_accu_steps}")
+
+    @classmethod
+    def for_model(cls, model: str = "small", **overrides: Any) -> "Config":
+        """MCAN-small or MCAN-large (``MODELS``), then ``overrides`` as
+        ``with_overrides`` applies them."""
+        if model not in MODELS:
+            raise ValueError(f"model must be one of {tuple(MODELS)}, got "
+                             f"{model!r}")
+        return cls(**MODELS[model]).with_overrides(**overrides)
 
     @property
     def run_version(self) -> str:

@@ -15,11 +15,15 @@
 //   dropout gradient epilogue, da1 . W1^T + the residual gr3, the dW
 //   partials v2^T da1 and h1d^T dy3) and _bwd_att_kernel (:631; the five
 //   dX products, the dW partials of _mm_tn :382 accumulated in-kernel by
-//   _acc :390).
+//   _acc :390); _bwd_att_kernel_sav (:1183), the same minus the four
+//   projection recomputes; and mcan_vqa_tpu/ops/sa_train.py::_fwd_body
+//   (:130) and _bwd_body (:188), the SA block's forward and backward
+//   products.
 //
 // Bounds on an H100: at B=64 the image-stream products (M = 3840, K = 512,
-// N = 512..2048) carry 2-8 GFLOP each and are bound by the bf16
-// tensor-core rate; the dW products reduce over all M = 3840 rows.
+// N = 512..2048; MCAN-large per micro-batch of 32: M = 1920, K = 1024,
+// N = 1024..4096) carry 2-16 GFLOP each and are bound by the bf16
+// tensor-core rate; the dW products reduce over all M rows.
 //
 // Design (simple first): bf16 WMMA 16x16x16 fragments with f32
 // accumulation, 64x64 output tiles per 4-warp block (each warp 32x32), K

@@ -1,42 +1,49 @@
 // masked_attention_bwd: the gradients of one head's masked attention with
-// dropout on the probabilities, per (sample, head):
-//   P = softmax(q k^T / 8, PAD keys -> -1e9)   (recomputed from q, k, pad)
-//   Pd = drop(P)                               (keep-mask x inv_keep, bf16)
+// dropout on the probabilities, per (sample, head), for head widths Dh = 64
+// (MCAN-small) and Dh = 128 (MCAN-large):
+//   P = softmax(q k^T / sqrt(Dh), PAD keys -> -1e9)  (recomputed from q, k)
+//   Pd = drop(P)                                      (keep-mask x inv_keep)
 //   dPd = dO v^T,  dV = Pd^T dO
 //   dS = P * (drop(dPd) - rowsum(P * drop(dPd)))
-//   dQ = dS k / 8,  dK = dS^T q / 8
+//   dQ = dS k / sqrt(Dh),  dK = dS^T q / sqrt(Dh)
 //
-// Replaces: the per-head backward of the TPU train kernel
+// Replaces: the per-head backward of the TPU train kernels
 //   mcan_vqa_tpu/ops/sga_train.py::_bwd_att_kernel (:631; the loops at
 //   :690-705 for the cross-attention and :739-772 for the self-attention,
-//   with _softmax_bwd :250). The TPU kernel packs G samples into one score
-//   matrix under one collapsed additive mask (_block_masks :256-263); here
-//   each block holds one sample and PAD keys score -1e9, so a fully padded
-//   sample attends uniformly to its own keys only. Its score gradient is
-//   the softmax's, dS = P * (dP - rowsum), as the TPU kernel's additive
-//   mask gives it at group 1.
+//   with _softmax_bwd :250), the same loops of _bwd_att_kernel_sav (:1183,
+//   from the saved qkv / qx) and those of
+//   mcan_vqa_tpu/ops/sa_train.py::_bwd_body (:250-266). The TPU kernels
+//   pack G samples into one score matrix under one collapsed additive mask
+//   (_block_masks, sga_train.py:256-263); here each block holds one sample
+//   and PAD keys score -1e9, so a fully padded sample attends uniformly to
+//   its own keys only. Its score gradient is the softmax's, dS = P * (dP -
+//   rowsum), as the TPU kernel's additive mask gives it at group 1.
 //
 // Numerics, as in the TPU kernel: q, k, v, dO are bf16 operands (f32 cross
 // k/v rounded on load); scores, softmax and dS in f32; Pd and dS rounded to
 // bf16 as the operands of the next products; every product sums in f32.
 //
-// Bounds on an H100: Lq, Lk <= 64 and Dh = 64 give at most 1 MFLOP per
+// Bounds on an H100: Lq, Lk <= 64 and Dh <= 128 give at most 5 MFLOP per
 // block -- bound by the latency of the loads and of the launch, not FLOPs.
 // Design (simple first): one block of 8 warps per (sample, head); q, dO, k,
-// v staged in bf16 shared memory (k and v rows padded to 66 so that lane j
-// reading row j is free of bank conflicts). Phase 1, one warp per query
-// row: scores, softmax, dPd and dS in registers (lanes j and j + 32), dQ by
-// shuffle broadcast of dS; Pd and dS kept in shared memory. Phase 2, one
-// warp per key row: dK and dV over the query rows. No atomics.
+// v staged in bf16 dynamic shared memory (k and v rows padded to Dh + 2 so
+// that lane j reading row j is free of bank conflicts; 49,664 bytes at Dh
+// 64, 82,432 at Dh 128, opted in once per instantiation). Phase 1, one warp
+// per query row: scores, softmax, dPd and dS in registers (lanes j and
+// j + 32), dQ by shuffle broadcast of dS (lane l owns columns l, l + 32,
+// ...); Pd and dS kept in shared memory. Phase 2, one warp per key row: dK
+// and dV over the query rows. No atomics.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64, MAXL = 64, THREADS = 256, KPAD = DH + 2;
+constexpr int MAXL = 64, THREADS = 256;
 
+template <int DH>
 struct Smem {
+  static constexpr int KPAD = DH + 2;
   bf16 q[MAXL][DH];
   bf16 dout[MAXL][DH];
   bf16 k[MAXL][KPAD];
@@ -45,7 +52,7 @@ struct Smem {
   bf16 ds[MAXL][MAXL];  // score gradients
 };
 
-template <typename KVT>
+template <typename KVT, int DH>
 __global__ void __launch_bounds__(THREADS)
 masked_attention_bwd_kernel(const bf16* __restrict__ q, long long q_bs, long long q_hs,
                             long long q_rs, const KVT* __restrict__ k,
@@ -58,8 +65,9 @@ masked_attention_bwd_kernel(const bf16* __restrict__ q, long long q_bs, long lon
                             long long dk_hs, long long dk_rs, float* dv, bf16* dv16,
                             long long dv_bs, long long dv_hs, long long dv_rs, int H, int Lq,
                             int Lk, float scale) {
+  constexpr int C = DH / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -120,54 +128,52 @@ masked_attention_bwd_kernel(const bf16* __restrict__ q, long long q_bs, long lon
     s.ds[i][j1] = db1;
 
     const float dsb0 = to_f32(db0), dsb1 = to_f32(db1);
-    float a0 = 0.0f, a1 = 0.0f;  // dQ[i, d] for d = lane, lane + 32
+    float a[C];  // dQ[i, d] for d = lane + 32 c
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] = 0.0f;
     for (int j = 0; j < Lk; ++j) {
       const float dj = __shfl_sync(0xffffffffu, j < 32 ? dsb0 : dsb1, j & 31);
-      a0 += dj * to_f32(s.k[j][lane]);
-      a1 += dj * to_f32(s.k[j][lane + 32]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) a[c] += dj * to_f32(s.k[j][lane + 32 * c]);
     }
-    a0 *= scale;
-    a1 *= scale;
     const size_t o = (size_t)b * dq_bs + (size_t)h * dq_hs + (size_t)i * dq_rs;
-    dq[o + lane] = a0;
-    dq[o + lane + 32] = a1;
-    if (dq16 != nullptr) {
-      dq16[o + lane] = to_bf16(a0);
-      dq16[o + lane + 32] = to_bf16(a1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float val = a[c] * scale;
+      dq[o + lane + 32 * c] = val;
+      if (dq16 != nullptr) dq16[o + lane + 32 * c] = to_bf16(val);
     }
   }
   __syncthreads();
 
   // ---- phase 2: one warp per key row
   for (int j = warp; j < Lk; j += THREADS / 32) {
-    float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
+    float kk[C], vv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) kk[c] = vv[c] = 0.0f;
     for (int i = 0; i < Lq; ++i) {
       const float dsij = to_f32(s.ds[i][j]), pdij = to_f32(s.pd[i][j]);
-      k0 += dsij * to_f32(s.q[i][lane]);
-      k1 += dsij * to_f32(s.q[i][lane + 32]);
-      v0 += pdij * to_f32(s.dout[i][lane]);
-      v1 += pdij * to_f32(s.dout[i][lane + 32]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        kk[c] += dsij * to_f32(s.q[i][lane + 32 * c]);
+        vv[c] += pdij * to_f32(s.dout[i][lane + 32 * c]);
+      }
     }
-    k0 *= scale;
-    k1 *= scale;
     const size_t ok = (size_t)b * dk_bs + (size_t)h * dk_hs + (size_t)j * dk_rs;
     const size_t ov = (size_t)b * dv_bs + (size_t)h * dv_hs + (size_t)j * dv_rs;
-    dk[ok + lane] = k0;
-    dk[ok + lane + 32] = k1;
-    dv[ov + lane] = v0;
-    dv[ov + lane + 32] = v1;
-    if (dk16 != nullptr) {
-      dk16[ok + lane] = to_bf16(k0);
-      dk16[ok + lane + 32] = to_bf16(k1);
-    }
-    if (dv16 != nullptr) {
-      dv16[ov + lane] = to_bf16(v0);
-      dv16[ov + lane + 32] = to_bf16(v1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = lane + 32 * c;
+      const float kv = kk[c] * scale;
+      dk[ok + d] = kv;
+      dv[ov + d] = vv[c];
+      if (dk16 != nullptr) dk16[ok + d] = to_bf16(kv);
+      if (dv16 != nullptr) dv16[ov + d] = to_bf16(vv[c]);
     }
   }
 }
 
-template <typename KVT>
+template <typename KVT, int DH>
 int launch(const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k,
            const void* v, long long kv_bs, long long kv_hs, long long kv_rs, const void* kpad,
            const void* drop, float inv_keep, const void* dout, long long do_bs, long long do_rs,
@@ -177,15 +183,15 @@ int launch(const void* q, long long q_bs, long long q_hs, long long q_rs, const 
            float scale, cudaStream_t s) {
   // > 48 KB: opt in, once per instantiation (a CUDA graph capture may
   // later record the launch, and the attribute call is no stream work)
-  const int smem = static_cast<int>(sizeof(Smem));
+  const int smem = static_cast<int>(sizeof(Smem<DH>));
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_kernel<KVT>,
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_kernel<KVT, DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  masked_attention_bwd_kernel<KVT><<<B * H, THREADS, smem, s>>>(
+  masked_attention_bwd_kernel<KVT, DH><<<B * H, THREADS, smem, s>>>(
       static_cast<const bf16*>(q), q_bs, q_hs, q_rs, static_cast<const KVT*>(k),
       static_cast<const KVT*>(v), kv_bs, kv_hs, kv_rs, static_cast<const unsigned char*>(kpad),
       static_cast<const unsigned char*>(drop), inv_keep, static_cast<const bf16*>(dout), do_bs,
@@ -200,25 +206,27 @@ int launch(const void* q, long long q_bs, long long q_hs, long long q_rs, const 
 // q: bf16, [b, h, i, d] at q + b*q_bs + h*q_hs + i*q_rs + d; k, v: bf16
 // (kv_f32 == 0) or f32 with shared strides; kpad uint8 [B, Lk] (1 = PAD);
 // drop: null or uint8 keep-mask [B, H, Lq, Lk] contiguous; dout: bf16,
-// [b, i, h*64 + d] at dout + b*do_bs + i*do_rs + h*64 + d. dq/dk/dv: f32,
+// [b, i, h*Dh + d] at dout + b*do_bs + i*do_rs + h*Dh + d. dq/dk/dv: f32,
 // [b, h, row, d] at base + b*bs + h*hs + row*rs + d; the bf16 copies
 // dq16/dk16/dv16 (each may be null) share their f32 twin's strides.
-// Requires Dh = 64, 1 <= Lq, Lk <= 64. Returns cudaGetLastError().
+// Requires Dh = 64 or 128 and 1 <= Lq, Lk <= 64. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another Dh.
 MCAN_API int mcan_masked_attention_bwd(
     const void* q, long long q_bs, long long q_hs, long long q_rs, const void* k, const void* v,
     long long kv_bs, long long kv_hs, long long kv_rs, int kv_f32, const void* kpad,
     const void* drop, float inv_keep, const void* dout, long long do_bs, long long do_rs,
     void* dq, void* dq16, long long dq_bs, long long dq_hs, long long dq_rs, void* dk,
     void* dk16, long long dk_bs, long long dk_hs, long long dk_rs, void* dv, void* dv16,
-    long long dv_bs, long long dv_hs, long long dv_rs, int B, int H, int Lq, int Lk, float scale,
-    void* stream) {
+    long long dv_bs, long long dv_hs, long long dv_rs, int B, int H, int Lq, int Lk, int Dh,
+    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
+#define MCAN_BWD_ARGS q, q_bs, q_hs, q_rs, k, v, kv_bs, kv_hs, kv_rs, kpad, drop, inv_keep, dout, \
+                      do_bs, do_rs, dq, dq16, dq_bs, dq_hs, dq_rs, dk, dk16, dk_bs, dk_hs, dk_rs, \
+                      dv, dv16, dv_bs, dv_hs, dv_rs, B, H, Lq, Lk, scale, s
   if (kv_f32)
-    return launch<float>(q, q_bs, q_hs, q_rs, k, v, kv_bs, kv_hs, kv_rs, kpad, drop, inv_keep,
-                         dout, do_bs, do_rs, dq, dq16, dq_bs, dq_hs, dq_rs, dk, dk16, dk_bs,
-                         dk_hs, dk_rs, dv, dv16, dv_bs, dv_hs, dv_rs, B, H, Lq, Lk, scale, s);
-  return launch<bf16>(q, q_bs, q_hs, q_rs, k, v, kv_bs, kv_hs, kv_rs, kpad, drop, inv_keep, dout,
-                      do_bs, do_rs, dq, dq16, dq_bs, dq_hs, dq_rs, dk, dk16, dk_bs, dk_hs, dk_rs,
-                      dv, dv16, dv_bs, dv_hs, dv_rs, B, H, Lq, Lk, scale, s);
+    return Dh == 64 ? launch<float, 64>(MCAN_BWD_ARGS) : launch<float, 128>(MCAN_BWD_ARGS);
+  return Dh == 64 ? launch<bf16, 64>(MCAN_BWD_ARGS) : launch<bf16, 128>(MCAN_BWD_ARGS);
+#undef MCAN_BWD_ARGS
 }

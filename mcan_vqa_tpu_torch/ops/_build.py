@@ -39,19 +39,19 @@ SIGNATURES = {
     "mcan_gemm": [_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _P, _LL,
                   _F, _P, _LL, _P, _LL, _P, _LL, _P],
     "mcan_masked_attention": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL, _I,
-                              _P, _P, _F, _P, _LL, _LL, _I, _I, _I, _I, _F,
-                              _P],
+                              _P, _P, _F, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                              _F, _P],
     "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                                   _I, _P, _P, _F, _P, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
-                                  _I, _I, _I, _I, _F, _P],
+                                  _I, _I, _I, _I, _I, _F, _P],
     "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P,
-                                _I, _I, _F, _I, _P],
-    "mcan_residual_layernorm_bwd": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
-                                    _P, _I, _I, _F, _P],
-    "mcan_col_sum": [_I, _P, _P, _P, _P, _I, _P],
+                                _P, _I, _I, _F, _I, _P],
+    "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P,
+                                    _P, _P, _P, _I, _I, _F, _P],
+    "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

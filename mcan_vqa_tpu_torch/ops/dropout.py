@@ -16,7 +16,7 @@ compare the quantisation, the edges and the keep rate.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +54,22 @@ def random_keep_mask(generator: torch.Generator, rate: float,
     r = torch.randint(0, 1 << bit_width, tuple(shape), generator=generator,
                       device=dev, dtype=torch.int32)
     return r < t, inv_keep
+
+
+def keep_masks(generator: Optional[torch.Generator], rate: float,
+               shapes: Mapping[str, Sequence[int]]
+               ) -> Tuple[Dict[str, Optional[torch.Tensor]], float]:
+    """One bool keep-mask per entry of ``shapes``, drawn from ``generator``
+    in the order of its keys, and the inverse keep probability. At rate 0
+    every mask is None and nothing is drawn; rate >= 1 keeps nothing and
+    is refused."""
+    if rate <= 0.0:
+        return {name: None for name in shapes}, 1.0
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
+    masks = {name: random_keep_mask(generator, rate, shape)[0]
+             for name, shape in shapes.items()}
+    return masks, inv_keep_prob(rate)
 
 
 def dropout(x: torch.Tensor, rate: float,

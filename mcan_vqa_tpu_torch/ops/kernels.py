@@ -41,7 +41,7 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
 
 F32 = torch.float32
 LN_EPS = 1e-6
-HEAD_DIM = 64          # the attention kernels' Dh
+HEAD_DIMS = (64, 128)  # the attention kernels' Dh: MCAN-small, MCAN-large
 MAX_SEQ = 64           # the attention kernels' largest Lq / Lk
 GEMM_TILE = 64         # the GEMM's output tile (M and N)
 GEMM_K_TILE = 32
@@ -299,9 +299,9 @@ def _check_attention(name, q, k, v, key_pad, drop):
     _require(k.shape == v.shape == (B, H, Lk, Dh),
              f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
              f"q {tuple(q.shape)}")
-    _require(Dh == HEAD_DIM and 1 <= Lq <= MAX_SEQ and 1 <= Lk <= MAX_SEQ,
-             f"{name}: needs Dh={HEAD_DIM} and 1 <= Lq, Lk <= {MAX_SEQ}; got "
-             f"Dh={Dh}, Lq={Lq}, Lk={Lk}")
+    _require(Dh in HEAD_DIMS and 1 <= Lq <= MAX_SEQ and 1 <= Lk <= MAX_SEQ,
+             f"{name}: needs Dh in {HEAD_DIMS} and 1 <= Lq, Lk <= {MAX_SEQ}; "
+             f"got Dh={Dh}, Lq={Lq}, Lk={Lk}")
     _require(q.dtype == BF16 and k.dtype == v.dtype
              and k.dtype in (BF16, F32),
              f"{name}: q must be bf16 and k, v both bf16 or both f32")
@@ -322,11 +322,11 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_pad: torch.Tensor,
                      drop: Optional[torch.Tensor] = None,
                      inv_keep: float = 1.0) -> torch.Tensor:
-    """q [B, H, Lq, 64] bf16, k/v [B, H, Lk, 64] bf16 or f32 (strided
-    views are read in place; the last dim must be contiguous), key_pad
-    bool [B, 1, 1, Lk] (True = PAD), drop an optional keep-mask
-    [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*64] bf16, the layout
-    the merge projection takes."""
+    """q [B, H, Lq, Dh] bf16, k/v [B, H, Lk, Dh] bf16 or f32, Dh 64 or
+    128 (strided views are read in place; the last dim must be
+    contiguous), key_pad bool [B, 1, 1, Lk] (True = PAD), drop an optional
+    keep-mask [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*Dh] bf16,
+    the layout the merge projection takes."""
     if not on_cuda(q):
         return masked_attention_plain(q, k, v, key_pad, drop, inv_keep)
     name = "masked_attention"
@@ -337,8 +337,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
-        out.data_ptr(), Lq * H * Dh, H * Dh, B, H, Lq, Lk, 1.0 / Dh ** 0.5,
-        _stream(q))
+        out.data_ptr(), Lq * H * Dh, H * Dh, B, H, Lq, Lk, Dh,
+        1.0 / Dh ** 0.5, _stream(q))
     _check(rc, name)
     return out
 
@@ -371,8 +371,8 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          drop: Optional[torch.Tensor] = None,
                          inv_keep: float = 1.0) -> None:
     """Gradients of ``masked_attention(q, k, v, key_pad, drop, inv_keep)``
-    for the upstream gradient dout [B, Lq, H*64] bf16, written in place:
-    dq [B, H, Lq, 64], dk / dv [B, H, Lk, 64], f32, strided views whose
+    for the upstream gradient dout [B, Lq, H*Dh] bf16, written in place:
+    dq [B, H, Lq, Dh], dk / dv [B, H, Lk, Dh], f32, strided views whose
     last dim is contiguous; dq16 / dk16 / dv16 optional bf16 copies with
     their f32 twin's strides. The probabilities are recomputed from q, k
     and the pad mask; dS = P * (drop(dP) - rowsum(P * drop(dP)))."""
@@ -404,7 +404,7 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq.data_ptr(), _ptr(dq16), dq.stride(0), dq.stride(1), dq.stride(2),
         dk.data_ptr(), _ptr(dk16), dk.stride(0), dk.stride(1), dk.stride(2),
         dv.data_ptr(), _ptr(dv16), dv.stride(0), dv.stride(1), dv.stride(2),
-        B, H, Lq, Lk, 1.0 / Dh ** 0.5, _stream(q))
+        B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
     _check(rc, name)
 
 
@@ -426,11 +426,12 @@ def residual_layernorm_plain(res: torch.Tensor, y: torch.Tensor,
                              out_dtypes: Sequence[torch.dtype] = (F32,), *,
                              mask: Optional[torch.Tensor] = None,
                              inv_keep: float = 1.0, save_r: bool = False,
-                             reciprocal: bool = False
+                             reciprocal: bool = False, r_dtype=F32
                              ) -> Tuple[torch.Tensor, ...]:
     r = _residual(res, y, bias, mask, inv_keep)
     out = std_layer_norm(r, gamma, beta, LN_EPS, reciprocal)
-    return tuple(out.to(dt) for dt in out_dtypes) + ((r,) if save_r else ())
+    return tuple(out.to(dt) for dt in out_dtypes) + \
+        ((r.to(r_dtype),) if save_r else ())
 
 
 def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
@@ -439,18 +440,19 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
                        out_dtypes: Sequence[torch.dtype] = (F32,), *,
                        mask: Optional[torch.Tensor] = None,
                        inv_keep: float = 1.0, save_r: bool = False,
-                       reciprocal: bool = False
+                       reciprocal: bool = False, r_dtype=F32
                        ) -> Tuple[torch.Tensor, ...]:
     """LN(r) over the last dim, r = res + drop(y + bias), all in f32.
     res [..., D] bf16 or f32, y [..., D] f32, bias/gamma/beta [D] f32 (bias
     may be None), mask an optional keep-mask shaped like y. Returns one
     tensor per entry of out_dtypes (each f32 or bf16), shaped like res,
-    then r (f32) when save_r. reciprocal: the train kernels' rounding
-    (``std_layer_norm``)."""
+    then r (in r_dtype, f32 or bf16) when save_r. reciprocal: the train
+    kernels' rounding (``std_layer_norm``)."""
     if not on_cuda(res):
         return residual_layernorm_plain(res, y, bias, gamma, beta, out_dtypes,
                                         mask=mask, inv_keep=inv_keep,
-                                        save_r=save_r, reciprocal=reciprocal)
+                                        save_r=save_r, reciprocal=reciprocal,
+                                        r_dtype=r_dtype)
     name = "residual_layernorm"
     _same_device(name, res, y, bias, gamma, beta, mask)
     D = res.shape[-1]
@@ -467,15 +469,17 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
     _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
              and len(set(out_dtypes)) == len(out_dtypes),
              f"{name}: out_dtypes {out_dtypes}")
+    _require(r_dtype in (F32, BF16), f"{name}: r_dtype {r_dtype}")
     outs = {dt: torch.empty(res.shape, dtype=dt, device=res.device)
             for dt in out_dtypes}
-    r = torch.empty(res.shape, dtype=F32, device=res.device) \
+    r = torch.empty(res.shape, dtype=r_dtype, device=res.device) \
         if save_r else None
+    r32, r16 = (r, None) if r_dtype == F32 else (None, r)
     rc = _lib().mcan_residual_layernorm(
         res.data_ptr(), int(res.dtype == BF16), y.data_ptr(), _ptr(bias),
         _ptr(mask), float(inv_keep), gamma.data_ptr(), beta.data_ptr(),
-        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _ptr(r), rows, D, LN_EPS,
-        int(reciprocal), _stream(res))
+        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _ptr(r32), _ptr(r16),
+        rows, D, LN_EPS, int(reciprocal), _stream(res))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes) + ((r,) if save_r else ())
 
@@ -485,6 +489,7 @@ def residual_layernorm_bwd_plain(g, res, y, bias, gamma, *, mask=None,
                                  dy_dtypes: Sequence[torch.dtype] = (F32,)
                                  ) -> Tuple[torch.Tensor, ...]:
     r = _residual(res, y, bias, mask, inv_keep)
+    g = g.float()
     D = r.shape[-1]
     c = r - r.mean(-1, keepdim=True)
     std = ((c * c).sum(-1, keepdim=True) / (D - 1)).sqrt()
@@ -506,10 +511,11 @@ def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
                            ) -> Tuple[torch.Tensor, ...]:
     """The backward of ``residual_layernorm`` for the output gradient g
     (the Bessel-std LN backward of sga_train.py::_ln_bwd_u :122-142).
-    g, res [rows, D] f32, y f32 or None (then r = res), bias / gamma [D].
-    r and the normalised u are recomputed from res, y and bias, never from
-    the LN output. Returns (dr, g * u, then drop(dr) once per dy_dtypes),
-    all f32 but the dy entries."""
+    g, res [rows, D] f32 or bf16 (a bf16 save is read as saved), y f32 or
+    None (then r = res), bias / gamma [D]. r and the normalised u are
+    recomputed from res, y and bias, never from the LN output. Returns
+    (dr, g * u, then drop(dr) once per dy_dtypes), all f32 but the dy
+    entries."""
     if not on_cuda(g):
         return residual_layernorm_bwd_plain(g, res, y, bias, gamma,
                                             mask=mask, inv_keep=inv_keep,
@@ -519,23 +525,24 @@ def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
     D = res.shape[-1]
     rows = res.numel() // D
     _require(D in LN_WIDTHS, f"{name}: D={D} not in {LN_WIDTHS}")
-    for t in (g, res, y):
-        _require(t is None or (t.shape == res.shape and t.dtype == F32
+    for t, dtypes in ((g, (F32, BF16)), (res, (F32, BF16)), (y, (F32,))):
+        _require(t is None or (t.shape == res.shape and t.dtype in dtypes
                                and t.is_contiguous()),
-                 f"{name}: g, res and y must be contiguous f32 shaped "
-                 f"{tuple(res.shape)}")
+                 f"{name}: g, res (f32 or bf16) and y (f32) must be "
+                 f"contiguous, shaped {tuple(res.shape)}")
     _check_vec(name, bias, D)
     _check_vec(name, gamma, D)
     _check_mask(name, mask, res.shape)
     _require(set(dy_dtypes) <= {F32, BF16}
              and len(set(dy_dtypes)) == len(dy_dtypes),
              f"{name}: dy_dtypes {dy_dtypes}")
-    dr = torch.empty_like(g)
-    gu = torch.empty_like(g)
+    dr = torch.empty(res.shape, dtype=F32, device=res.device)
+    gu = torch.empty(res.shape, dtype=F32, device=res.device)
     dys = {dt: torch.empty(res.shape, dtype=dt, device=res.device)
            for dt in dy_dtypes}
     rc = _lib().mcan_residual_layernorm_bwd(
-        g.data_ptr(), res.data_ptr(), _ptr(y), _ptr(bias), _ptr(mask),
+        g.data_ptr(), int(g.dtype == BF16), res.data_ptr(),
+        int(res.dtype == BF16), _ptr(y), _ptr(bias), _ptr(mask),
         float(inv_keep), gamma.data_ptr(), dr.data_ptr(),
         _ptr(dys.get(F32)), _ptr(dys.get(BF16)), gu.data_ptr(), rows, D,
         LN_EPS, _stream(g))
@@ -548,13 +555,13 @@ def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def col_sum_plain(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    return [m.sum(dim=0) for m in mats]
+    return [m.float().sum(dim=0) for m in mats]
 
 
 def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Column sums of one to four f32 [rows, cols_i] matrices with the same
-    number of rows -> f32 [cols_i] each, in one launch, summed in a fixed
-    order (the same bits on every run)."""
+    """Column sums of one to four f32 or bf16 [rows, cols_i] matrices with
+    the same number of rows -> f32 [cols_i] each, in one launch, summed in
+    f32 in a fixed order (the same bits on every run)."""
     if not on_cuda(mats[0]):
         return col_sum_plain(mats)
     name = "col_sum"
@@ -563,13 +570,14 @@ def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     _require(1 <= n <= MAX_COL_SUMS and rows > 0,
              f"{name}: 1 to {MAX_COL_SUMS} matrices with rows, got {n}")
     for m in mats:
-        _require(m.dim() == 2 and m.shape[0] == rows and m.dtype == F32
-                 and m.stride(1) == 1,
-                 f"{name}: f32 [rows, cols] matrices with {rows} rows and "
-                 f"unit column stride")
+        _require(m.dim() == 2 and m.shape[0] == rows
+                 and m.dtype in (F32, BF16) and m.stride(1) == 1,
+                 f"{name}: f32 or bf16 [rows, cols] matrices with {rows} "
+                 f"rows and unit column stride")
     outs = [torch.empty(m.shape[1], dtype=F32, device=m.device)
             for m in mats]
     arrays = ((ctypes.c_void_p * n)(*[m.data_ptr() for m in mats]),
+              (ctypes.c_int * n)(*[int(m.dtype == BF16) for m in mats]),
               (ctypes.c_longlong * n)(*[m.stride(0) for m in mats]),
               (ctypes.c_int * n)(*[m.shape[1] for m in mats]),
               (ctypes.c_void_p * n)(*[t.data_ptr() for t in outs]))

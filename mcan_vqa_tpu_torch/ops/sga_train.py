@@ -4,8 +4,10 @@ and its backward (mcan_vqa_tpu/ops/sga_train.py).
 On the TPU one train step runs three Pallas kernels per decoder block
 (sga_train.py): ``_fwd_kernel`` (:415, called at :977), the FFN backward
 from saved activations ``_bwd_ffn_kernel_sav`` (:576, :1081) and the
-attention backward ``_bwd_att_kernel`` (:631, :1139). On the card each is
-a short sequence of the hand-written kernels of ops/kernels.py:
+attention backward, ``_bwd_att_kernel`` (:631, :1139) or, under
+``att_saves`` (the JAX Trainer at hidden > 512), ``_bwd_att_kernel_sav``
+(:1183, :1272). On the card each is a short sequence of the hand-written
+kernels of ops/kernels.py:
 
   forward       gemm_bias_act (qkv, merges, cross q, FFN with the h1 mask on
                 the ReLU output), masked_attention (with the att1 / att2
@@ -17,6 +19,10 @@ a short sequence of the hand-written kernels of ops/kernels.py:
   att backward  the forward's cross and self attention recomputed from the
                 saved v1 and x, residual_layernorm_bwd (LN2, LN1), gemm_dx,
                 masked_attention_bwd (cross, self), gemm_dw, col_sum
+  att backward  under att_saves: the same without the four projection
+    (saves)     recomputes (qkv, both merges, the cross q): the saved qkv /
+                qx feed the attention recompute (P.V, for the merges' dW)
+                and its backward, the saved r1 / r2 the LN backwards
 
 The products are those of the TPU kernels, at their precision: bf16
 operands, f32 sums, f32 LayerNorm and softmax. Every weight gradient is
@@ -47,7 +53,7 @@ from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
     std_layer_norm
 from mcan_vqa_tpu_torch.ops import kernels as K
-from mcan_vqa_tpu_torch.ops.dropout import random_keep_mask
+from mcan_vqa_tpu_torch.ops.dropout import keep_masks
 
 F32 = torch.float32
 
@@ -109,16 +115,7 @@ def make_dropout_masks(generator: Optional[torch.Generator], rate: float,
     MASK_NAMES order from ``generator``, on its device) and the inverse
     keep probability. At rate 0 every mask is None and nothing is drawn
     (sga_train.py:875)."""
-    shapes = mask_shapes(B, Lv, Lq, D, F, H)
-    if rate <= 0.0:
-        return {n: None for n in MASK_NAMES}, 1.0
-    if rate >= 1.0:
-        raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
-    masks, inv_keep = {}, 1.0
-    for name in MASK_NAMES:
-        masks[name], inv_keep = random_keep_mask(generator, rate,
-                                                 shapes[name])
-    return masks, inv_keep
+    return keep_masks(generator, rate, mask_shapes(B, Lv, Lq, D, F, H))
 
 
 # ---------------------------------------------------------------------------
@@ -137,44 +134,54 @@ def _rows(m: Optional[torch.Tensor], cols: int) -> Optional[torch.Tensor]:
 
 
 def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
-             H: int):
-    """The block forward of _fwd_kernel -> (v3 f32, the saves)."""
+             H: int, att_saves: bool = False, save_dtype=F32):
+    """The block forward of _fwd_kernel -> (v3 f32, the saves). Saved for
+    the backward: x and v1 / v2 as bf16 matmul operands, r3 and h1d (the
+    JAX ``save_acts=True``), v1 as the LN2 residual of the recompute, or,
+    with att_saves, qkv, qx, r1 and r2 instead (sga_train.py:971-976). The
+    saved r's (and v1) are save_dtype: bf16 under the JAX bf16_saves."""
     B, Lv, D = x.shape
     M = B * Lv
     F = w["w1"].shape[1]
     xs = x.reshape(M, D)
     xb = xs.to(BF16)
+    r_kw = dict(inv_keep=inv_keep, reciprocal=True, r_dtype=save_dtype)
     # self-attention over the regions + merge + dropout + LN1
     qkv = K.gemm_bias_act(xb, w["wqkv"], w["bqkv"], out_dtype=BF16)
     att1 = K.masked_attention(*_qkv_heads(qkv, B, Lv, H), v_mask,
                               m["att1"], inv_keep).view(M, D)
     y1 = K.gemm_bias_act(att1, w["wm1"])
-    v1, v1b = K.residual_layernorm(xs, y1, w["bm1"], w["ln1_s"], w["ln1_b"],
-                                   (F32, BF16), mask=_rows(m["y1"], D),
-                                   inv_keep=inv_keep, reciprocal=True)
+    v1, v1b, *r1 = K.residual_layernorm(
+        xs, y1, w["bm1"], w["ln1_s"], w["ln1_b"], (F32, BF16),
+        mask=_rows(m["y1"], D), save_r=att_saves, **r_kw)
     # cross-attention against the pre-projected question k / v + LN2
     qx = K.gemm_bias_act(v1b, w["wq2"], w["bq2"], out_dtype=BF16)
     att2 = K.masked_attention(split_heads(qx.view(B, Lv, D), H), kq, vq,
                               q_mask, m["att2"], inv_keep).view(M, D)
     y2 = K.gemm_bias_act(att2, w["wm2"])
-    v2, v2b = K.residual_layernorm(v1, y2, w["bm2"], w["ln2_s"], w["ln2_b"],
-                                   (F32, BF16), mask=_rows(m["y2"], D),
-                                   inv_keep=inv_keep, reciprocal=True)
+    v2, v2b, *r2 = K.residual_layernorm(
+        v1, y2, w["bm2"], w["ln2_s"], w["ln2_b"], (F32, BF16),
+        mask=_rows(m["y2"], D), save_r=att_saves, **r_kw)
     # FFN: ReLU, then the h1 mask, written bf16 (h1d is saved); LN3 saves r3
     h1d = K.gemm_bias_act(v2b, w["w1"], w["b1"], relu=True, out_dtype=BF16,
                           mask=_rows(m["h1"], F), inv_keep=inv_keep)
     y3 = K.gemm_bias_act(h1d, w["w2"])
     v3, r3 = K.residual_layernorm(v2, y3, w["b2"], w["ln3_s"], w["ln3_b"],
                                   (F32,), mask=_rows(m["y3"], D),
-                                  inv_keep=inv_keep, save_r=True,
-                                  reciprocal=True)
-    return v3.view(B, Lv, D), (xb, v1, v1b, v2b, r3, h1d)
+                                  save_r=True, **r_kw)
+    saves = {"xb": xb, "v1b": v1b, "v2b": v2b, "r3": r3, "h1d": h1d}
+    if att_saves:
+        saves.update(qkv=qkv, qx=qx, r1=r1[0], r2=r2[0])
+    else:
+        saves["v1"] = v1 if save_dtype == F32 else v1b
+    return v3.view(B, Lv, D), saves
 
 
-def _bwd_ffn(g, saves, m: Masks, w, inv_keep: float):
+def _bwd_ffn(g, saves, m: Masks, w, inv_keep: float, save_dtype=F32):
     """_bwd_ffn_kernel_sav: LN3 + FFN + the y3 dropout, from the saved r3,
-    h1d and v2 -> (gv2, dw1, db1, dw2, db2, dln3_s, dln3_b)."""
-    _, _, _, v2b, r3, h1d = saves
+    h1d and v2 -> (gv2 in save_dtype, dw1, db1, dw2, db2, dln3_s,
+    dln3_b)."""
+    r3, h1d = saves["r3"], saves["h1d"]
     D = r3.shape[1]
     gr3, gu3, dy3, dy3b = K.residual_layernorm_bwd(
         g, r3, None, None, w["ln3_s"], mask=_rows(m["y3"], D),
@@ -183,66 +190,123 @@ def _bwd_ffn(g, saves, m: Masks, w, inv_keep: float):
     # (sga_train.py:599: where(h1d > 0, inv_keep * dh1d, 0))
     da1, da1b = K.gemm_dx(dy3b, w["w2"], gate=h1d, inv_keep=inv_keep,
                           out_dtypes=(F32, BF16))
-    gv2, = K.gemm_dx(da1b, w["w1"], res=gr3)
-    dw1 = K.gemm_dw(v2b, da1b)
+    gv2, = K.gemm_dx(da1b, w["w1"], res=gr3, out_dtypes=(save_dtype,))
+    dw1 = K.gemm_dw(saves["v2b"], da1b)
     dw2 = K.gemm_dw(h1d, dy3b)
     db1, db2, dln3_s, dln3_b = K.col_sum([da1, dy3, gu3, g])
     return gv2, dw1, db1, dw2, db2, dln3_s, dln3_b
 
 
-def _bwd_att(gv2, x, kq, vq, v_mask, q_mask, saves, m: Masks, w,
-             inv_keep: float, H: int):
-    """_bwd_att_kernel: LN2 + cross-attention + LN1 + self-attention and
-    their dropouts, recomputing both attentions from the saved x and v1
-    -> (dx, dkq, dvq, and the 12 weight-gradient pieces)."""
-    xb, v1, v1b, _, _, _ = saves
-    B, Lv, D = x.shape
+def _cross_att_bwd(gv2, r2, y2, kq, vq, q_mask, qxh, att2_, m: Masks, w,
+                   inv_keep: float, B: int, Lv: int, H: int):
+    """LN2 (r2 = r2 + drop(y2 + bm2), or r2 as saved when y2 is None) and
+    the cross-attention backward -> (gv1, dkq, dvq, dwq2, dwm2, and the
+    four column sums of the cross half)."""
+    D = r2.shape[1]
     M = B * Lv
-    xs = x.reshape(M, D)
-    # ---- cross-attention: recompute from v1, then back through it
-    qx = K.gemm_bias_act(v1b, w["wq2"], w["bq2"], out_dtype=BF16)
-    qxh = split_heads(qx.view(B, Lv, D), H)
-    att2 = K.masked_attention(qxh, kq, vq, q_mask, m["att2"],
-                              inv_keep).view(M, D)
-    y2 = K.gemm_bias_act(att2, w["wm2"])
     gr2, gu2, dy2, dy2b = K.residual_layernorm_bwd(
-        gv2, v1, y2, w["bm2"], w["ln2_s"], mask=_rows(m["y2"], D),
-        inv_keep=inv_keep, dy_dtypes=(F32, BF16))
+        gv2, r2, y2, None if y2 is None else w["bm2"], w["ln2_s"],
+        mask=_rows(m["y2"], D), inv_keep=inv_keep, dy_dtypes=(F32, BF16))
     datt2, = K.gemm_dx(dy2b, w["wm2"], out_dtypes=(BF16,))
-    dqx = torch.empty((B, Lv, D), dtype=F32, device=x.device)
-    dqx16 = torch.empty((B, Lv, D), dtype=BF16, device=x.device)
-    dkq = torch.empty(kq.shape, dtype=F32, device=x.device)
-    dvq = torch.empty(vq.shape, dtype=F32, device=x.device)
+    dqx = torch.empty((B, Lv, D), dtype=F32, device=gv2.device)
+    dqx16 = torch.empty((B, Lv, D), dtype=BF16, device=gv2.device)
+    dkq = torch.empty(kq.shape, dtype=F32, device=gv2.device)
+    dvq = torch.empty(vq.shape, dtype=F32, device=gv2.device)
     K.masked_attention_bwd(qxh, kq, vq, q_mask, datt2.view(B, Lv, D),
                            split_heads(dqx, H), dkq, dvq,
                            dq16=split_heads(dqx16, H), drop=m["att2"],
                            inv_keep=inv_keep)
     dqx, dqx16 = dqx.view(M, D), dqx16.view(M, D)
     gv1, = K.gemm_dx(dqx16, w["wq2"], res=gr2)
-    # ---- self-attention: recompute from x, then back through it
-    qkv = K.gemm_bias_act(xb, w["wqkv"], w["bqkv"], out_dtype=BF16)
-    heads = _qkv_heads(qkv, B, Lv, H)
-    att1 = K.masked_attention(*heads, v_mask, m["att1"], inv_keep).view(M, D)
-    y1 = K.gemm_bias_act(att1, w["wm1"])
+    dwm2 = K.gemm_dw(att2_, dy2b)
+    dbq2, dbm2, dln2_s, dln2_b = K.col_sum([dqx, dy2, gu2, gv2])
+    return gv1, dkq, dvq, dqx16, dwm2, dbq2, dbm2, dln2_s, dln2_b
+
+
+def _self_att_bwd(gv1, r1, y1, heads, att1, v_mask, m: Masks, w,
+                  inv_keep: float, B: int, Lv: int, H: int):
+    """LN1 (r1 = x + drop(y1 + bm1), or r1 as saved when y1 is None) and
+    the self-attention backward -> (dx, dqkv16, dwm1, and the four column
+    sums of the self half)."""
+    D = r1.shape[1]
+    M = B * Lv
     gr1, gu1, dy1, dy1b = K.residual_layernorm_bwd(
-        gv1, xs, y1, w["bm1"], w["ln1_s"], mask=_rows(m["y1"], D),
-        inv_keep=inv_keep, dy_dtypes=(F32, BF16))
+        gv1, r1, y1, None if y1 is None else w["bm1"], w["ln1_s"],
+        mask=_rows(m["y1"], D), inv_keep=inv_keep, dy_dtypes=(F32, BF16))
     datt1, = K.gemm_dx(dy1b, w["wm1"], out_dtypes=(BF16,))
-    dqkv = torch.empty((M, 3 * D), dtype=F32, device=x.device)
-    dqkv16 = torch.empty((M, 3 * D), dtype=BF16, device=x.device)
+    dqkv = torch.empty((M, 3 * D), dtype=F32, device=gv1.device)
+    dqkv16 = torch.empty((M, 3 * D), dtype=BF16, device=gv1.device)
     dq, dk, dv = _qkv_heads(dqkv, B, Lv, H)
     dq16, dk16, dv16 = _qkv_heads(dqkv16, B, Lv, H)
     K.masked_attention_bwd(*heads, v_mask, datt1.view(B, Lv, D), dq, dk, dv,
                            dq16=dq16, dk16=dk16, dv16=dv16, drop=m["att1"],
                            inv_keep=inv_keep)
     dx, = K.gemm_dx(dqkv16, w["wqkv"], res=gr1)
-    # ---- weight gradients, each summed over all M rows
-    dwqkv = K.gemm_dw(xb, dqkv16)
     dwm1 = K.gemm_dw(att1, dy1b)
-    dwq2 = K.gemm_dw(v1b, dqx16)
-    dwm2 = K.gemm_dw(att2, dy2b)
     dbqkv, dbm1, dln1_s, dln1_b = K.col_sum([dqkv, dy1, gu1, gv1])
-    dbq2, dbm2, dln2_s, dln2_b = K.col_sum([dqx, dy2, gu2, gv2])
+    return dx, dqkv16, dwm1, dbqkv, dbm1, dln1_s, dln1_b
+
+
+def _bwd_att(gv2, x, kq, vq, v_mask, q_mask, saves, m: Masks, w,
+             inv_keep: float, H: int):
+    """_bwd_att_kernel: LN2 + cross-attention + LN1 + self-attention and
+    their dropouts, recomputing both attentions and the four projections
+    (qkv, both merges, the cross q) from the saved x and v1 -> (dx, dkq,
+    dvq, and the 12 weight-gradient pieces)."""
+    B, Lv, D = x.shape
+    M = B * Lv
+    xb, v1b, v1 = saves["xb"], saves["v1b"], saves["v1"]
+    # ---- cross-attention: recompute from v1, then back through it
+    qx = K.gemm_bias_act(v1b, w["wq2"], w["bq2"], out_dtype=BF16)
+    qxh = split_heads(qx.view(B, Lv, D), H)
+    att2 = K.masked_attention(qxh, kq, vq, q_mask, m["att2"],
+                              inv_keep).view(M, D)
+    y2 = K.gemm_bias_act(att2, w["wm2"])
+    gv1, dkq, dvq, dqx16, dwm2, *sums2 = _cross_att_bwd(
+        gv2, v1, y2, kq, vq, q_mask, qxh, att2, m, w, inv_keep, B, Lv, H)
+    # ---- self-attention: recompute from x, then back through it
+    qkv = K.gemm_bias_act(xb, w["wqkv"], w["bqkv"], out_dtype=BF16)
+    heads = _qkv_heads(qkv, B, Lv, H)
+    att1 = K.masked_attention(*heads, v_mask, m["att1"], inv_keep).view(M, D)
+    y1 = K.gemm_bias_act(att1, w["wm1"])
+    dx, dqkv16, dwm1, *sums1 = _self_att_bwd(
+        gv1, x.reshape(M, D), y1, heads, att1, v_mask, m, w, inv_keep, B,
+        Lv, H)
+    return _att_grads(dx, dkq, dvq, xb, dqkv16, dwm1, sums1, v1b, dqx16,
+                      dwm2, sums2, B, Lv, D)
+
+
+def _bwd_att_sav(gv2, x, kq, vq, v_mask, q_mask, saves, m: Masks, w,
+                 inv_keep: float, H: int):
+    """_bwd_att_kernel_sav (sga_train.py:1183): the attention backward from
+    the saved qkv, qx, r1 and r2 -- no projection recompute and no bias
+    read; the two attentions' P.V are still recomputed (the dW of both
+    merges needs them) -> what ``_bwd_att`` returns."""
+    B, Lv, D = x.shape
+    M = B * Lv
+    qxh = split_heads(saves["qx"].view(B, Lv, D), H)
+    att2 = K.masked_attention(qxh, kq, vq, q_mask, m["att2"],
+                              inv_keep).view(M, D)
+    gv1, dkq, dvq, dqx16, dwm2, *sums2 = _cross_att_bwd(
+        gv2, saves["r2"], None, kq, vq, q_mask, qxh, att2, m, w, inv_keep,
+        B, Lv, H)
+    heads = _qkv_heads(saves["qkv"], B, Lv, H)
+    att1 = K.masked_attention(*heads, v_mask, m["att1"], inv_keep).view(M, D)
+    dx, dqkv16, dwm1, *sums1 = _self_att_bwd(
+        gv1, saves["r1"], None, heads, att1, v_mask, m, w, inv_keep, B, Lv,
+        H)
+    return _att_grads(dx, dkq, dvq, saves["xb"], dqkv16, dwm1, sums1,
+                      saves["v1b"], dqx16, dwm2, sums2, B, Lv, D)
+
+
+def _att_grads(dx, dkq, dvq, xb, dqkv16, dwm1, sums1, v1b, dqx16, dwm2,
+               sums2, B, Lv, D):
+    """The two projection weight gradients summed over all rows, and the
+    attention backward's outputs in WEIGHT_NAMES order."""
+    dwqkv = K.gemm_dw(xb, dqkv16)
+    dwq2 = K.gemm_dw(v1b, dqx16)
+    dbqkv, dbm1, dln1_s, dln1_b = sums1
+    dbq2, dbm2, dln2_s, dln2_b = sums2
     return (dx.view(B, Lv, D), dkq, dvq, dwqkv, dbqkv, dwm1, dbm1, dln1_s,
             dln1_b, dwq2, dbq2, dwm2, dbm2, dln2_s, dln2_b)
 
@@ -254,36 +318,41 @@ def _count(x: torch.Tensor, name: str) -> None:
         K.LAUNCHES[name] += 1
 
 
-def _kernel_weights(ws: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """f32 parameters -> what the kernels read: matmul weights bf16
-    [in, out] contiguous, vectors f32 contiguous."""
+def _kernel_weights(ws: Sequence[torch.Tensor],
+                    names: Sequence[str] = WEIGHT_NAMES,
+                    matmuls: Sequence[str] = MATMUL_WEIGHTS
+                    ) -> Dict[str, torch.Tensor]:
+    """f32 parameters in ``names`` order -> what the kernels read: the
+    matmul weights bf16 [in, out] contiguous, vectors f32 contiguous."""
     out = {}
-    for name, t in zip(WEIGHT_NAMES, ws):
+    for name, t in zip(names, ws):
         t = t.detach()
-        out[name] = (t.to(BF16) if name in MATMUL_WEIGHTS
+        out[name] = (t.to(BF16) if name in matmuls
                      else t.float()).contiguous()
     return out
 
 
 class SGABlockTrain(torch.autograd.Function):
-    """The differentiable block: forward saves x, v1, v2, r3 and h1d (the
-    JAX ``save_acts=True``); backward is the FFN backward, then the
-    attention backward (sga_train.py:1365-1396). Gradients flow to x,
-    kq, vq and all 18 weight pieces."""
+    """The differentiable block: forward saves what ``_forward`` lists (the
+    JAX ``save_acts=True``, and ``att_saves`` when asked); backward is the
+    FFN backward, then the attention backward, from the saved projections
+    under att_saves (sga_train.py:1365-1396). Gradients flow to x, kq, vq
+    and all 18 weight pieces."""
 
     @staticmethod
     def forward(ctx, x, kq, vq, v_mask, q_mask, inv_keep, num_heads,
-                mask_tuple, *ws):
+                att_saves, save_dtype, mask_tuple, *ws):
         w = _kernel_weights(ws)
         m = dict(zip(MASK_NAMES, mask_tuple))
         x = x.detach().float().contiguous()
         kq, vq = kq.detach(), vq.detach()
         v3, saves = _forward(x, kq, vq, v_mask, q_mask, m, w, inv_keep,
-                             num_heads)
+                             num_heads, att_saves, save_dtype)
         _count(x, "sga_train_fwd")
         ctx.inputs = (x, kq, vq, v_mask, q_mask)
         ctx.saves, ctx.masks, ctx.w = saves, m, w
         ctx.inv_keep, ctx.num_heads = inv_keep, num_heads
+        ctx.att_saves, ctx.save_dtype = att_saves, save_dtype
         return v3
 
     @staticmethod
@@ -291,48 +360,60 @@ class SGABlockTrain(torch.autograd.Function):
         x, kq, vq, v_mask, q_mask = ctx.inputs
         B, Lv, D = x.shape
         g = g.reshape(B * Lv, D).float().contiguous()
-        gv2, *ffn_dw = _bwd_ffn(g, ctx.saves, ctx.masks, ctx.w, ctx.inv_keep)
+        gv2, *ffn_dw = _bwd_ffn(g, ctx.saves, ctx.masks, ctx.w, ctx.inv_keep,
+                                ctx.save_dtype)
         _count(x, "sga_train_bwd_ffn")
-        dx, dkq, dvq, *att_dw = _bwd_att(gv2, x, kq, vq, v_mask, q_mask,
-                                         ctx.saves, ctx.masks, ctx.w,
-                                         ctx.inv_keep, ctx.num_heads)
-        _count(x, "sga_train_bwd_att")
+        bwd_att = _bwd_att_sav if ctx.att_saves else _bwd_att
+        dx, dkq, dvq, *att_dw = bwd_att(gv2, x, kq, vq, v_mask, q_mask,
+                                        ctx.saves, ctx.masks, ctx.w,
+                                        ctx.inv_keep, ctx.num_heads)
+        _count(x, "sga_train_bwd_att_sav" if ctx.att_saves
+               else "sga_train_bwd_att")
         dw = att_dw + ffn_dw    # WEIGHT_NAMES order
         ctx.inputs = ctx.saves = ctx.masks = ctx.w = None
-        return (dx, dkq, dvq, None, None, None, None, None, *dw)
+        return (dx, dkq, dvq, None, None, None, None, None, None, None, *dw)
 
 
 def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
                           vq: torch.Tensor, v_mask: torch.Tensor,
                           q_mask: torch.Tensor, masks: Masks,
                           w: Mapping[str, torch.Tensor], *, num_heads: int,
-                          inv_keep: float = 1.0) -> torch.Tensor:
+                          inv_keep: float = 1.0, att_saves: bool = False,
+                          bf16_saves: bool = False) -> torch.Tensor:
     """One decoder block of a train step. x [B, Lv, D] f32 image stream;
-    kq / vq [B, H, Lq, 64] the pre-projected cross keys / values (f32;
-    strided views whose last dim is contiguous); v_mask / q_mask bool
-    [B, 1, 1, L] (True = PAD); masks from ``make_dropout_masks`` (None
-    entries: no dropout at that site); w from ``prepare_sga_train_params``.
-    -> v3 [B, Lv, D] f32. On CUDA tensors every step is a kernel launch;
-    on CPU tensors the same sequence runs the kernels' plain versions."""
+    kq / vq [B, H, Lq, Dh] the pre-projected cross keys / values (f32;
+    strided views whose last dim is contiguous; Dh = D / H, 64 or 128 on
+    the card); v_mask / q_mask bool [B, 1, 1, L] (True = PAD); masks from
+    ``make_dropout_masks`` (None entries: no dropout at that site); w from
+    ``prepare_sga_train_params``. att_saves: the forward also saves qkv,
+    qx, r1 and r2 and the attention backward skips its four projection
+    recomputes (the JAX Trainer's choice at hidden > 512). bf16_saves: the
+    saved r1 / r2 / r3 (and v1) and the gradient gv2 between the two
+    backward halves are bf16, rounded where the JAX kernels round them
+    (sga_train.py:959-976, :1032). -> v3 [B, Lv, D] f32. On CUDA tensors
+    every step is a kernel launch; on CPU tensors the same sequence runs
+    the kernels' plain versions."""
     if K.on_cuda(x):
         _check_train_inputs(x, masks, w)
     return SGABlockTrain.apply(x, kq, vq, v_mask, q_mask, float(inv_keep),
-                               num_heads,
+                               num_heads, bool(att_saves),
+                               BF16 if bf16_saves else F32,
                                tuple(masks[n] for n in MASK_NAMES),
                                *(w[n] for n in WEIGHT_NAMES))
 
 
-def _check_train_inputs(x, masks, w) -> None:
+def _check_train_inputs(x, masks, w, fn: str = "fused_sga_block_train",
+                        mask_names: Sequence[str] = MASK_NAMES,
+                        matmuls: Sequence[str] = MATMUL_WEIGHTS) -> None:
     if x.dtype != F32 or x.dim() != 3:
-        raise ValueError(f"fused_sga_block_train: the stream must be f32 "
-                         f"[B, Lv, D], got {x.dtype} {tuple(x.shape)}")
-    for name in MATMUL_WEIGHTS:
+        raise ValueError(f"{fn}: the stream must be f32 [B, L, D], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    for name in matmuls:
         if w[name].dim() != 2:
-            raise ValueError(f"fused_sga_block_train: {name} must be a "
-                             f"[in, out] matrix")
-    unknown = set(masks) - set(MASK_NAMES)
+            raise ValueError(f"{fn}: {name} must be a [in, out] matrix")
+    unknown = set(masks) - set(mask_names)
     if unknown:
-        raise ValueError(f"fused_sga_block_train: unknown masks {unknown}")
+        raise ValueError(f"{fn}: unknown masks {unknown}")
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +447,10 @@ def fused_sga_block_train_plain(x: torch.Tensor, kq: torch.Tensor,
                                 inv_keep: float = 1.0) -> torch.Tensor:
     """``fused_sga_block_train`` in plain PyTorch ops, differentiated by
     autograd: the reference block (core/model/mca.py:134-164) with the six
-    dropout sites and the TPU kernel's precision at every step."""
+    dropout sites and the TPU kernel's precision at every step. What the
+    backward saves is autograd's choice, in f32: att_saves gives the
+    kernels the same gradients; bf16_saves moves theirs by its roundings of
+    r1 / r2 / r3 / gv2 (2^-8 relative each)."""
     B, Lv, D = x.shape
     H = num_heads
     x = x.float()

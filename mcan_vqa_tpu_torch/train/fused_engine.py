@@ -7,26 +7,33 @@ generator) -> logits over the parameters of an ``MCANet``:
   * every decoder (SGA) block -- most of the model's FLOPs -- runs through
     ``ops/sga_train.fused_sga_block_train``, the autograd.Function whose
     forward and backward are the hand-written CUDA kernels on the card;
-  * everything else (embedding, LSTM, the encoder SA stack over the 14
-    question tokens, the cross k / v projections, AttFlat and the
-    classifier) is plain PyTorch with dropout, as it is plain XLA in the
-    JAX engine.
+    ``att_saves`` / ``bf16_saves`` pass through to it (JAX :241, :250);
+  * with ``fused_encoder=True`` (the JAX Trainer's choice at hidden <=
+    512) every encoder (SA) block runs through
+    ``ops/sa_train.fused_sa_block_train`` likewise (JAX :147-176);
+    otherwise the encoder stack is plain PyTorch with dropout;
+  * everything else (embedding, LSTM, the cross k / v projections, AttFlat
+    and the classifier) is plain PyTorch with dropout, as it is plain XLA
+    in the JAX engine.
 
-``fused_encoder=True``, which the JAX Trainer ships at hidden <= 512, runs
-the encoder through the fused SA train kernels (``sa_train._fwd_call`` /
-``_bwd_call``); they are not ported yet, so it raises.
+``sga_block="plain"`` runs the same blocks in plain ops under autograd
+(``fused_sga_block_train_plain``, and ``fused_sa_block_train_plain`` for a
+fused encoder). JAX's ``group`` / ``encoder_group`` pack samples into one
+matrix for the TPU's matrix unit; the port computes attention per sample,
+so they have no counterpart here.
 
 Dropout: one generator per step, and every keep-mask of the step drawn from
 it up front in the fixed site order of the JAX engine (fused_engine.py:
-125-129): the encoder layers (attention map, attention output, FFN hidden,
-FFN output), then the decoder blocks (the six masks of
-``sga_train.MASK_NAMES``), then AttFlat over the question and over the
-image. A fused engine and a plain engine (``sga_block="plain"``) handed
-the same generator state therefore see the same masks.
+125-129): the encoder layers (``sa_train.SA_MASK_NAMES``: attention map,
+attention output, FFN hidden, FFN output), then the decoder blocks (the six
+masks of ``sga_train.MASK_NAMES``), then AttFlat over the question and over
+the image. The fused and plain encoders read the same four masks, so any
+two engines handed the same generator state see the same masks.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -34,12 +41,14 @@ import torch
 from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, make_mask
 from mcan_vqa_tpu_torch.models.net import attflat_pool
-from mcan_vqa_tpu_torch.ops import sga_train
-from mcan_vqa_tpu_torch.ops.dropout import inv_keep_prob, random_keep_mask
+from mcan_vqa_tpu_torch.ops import sa_train, sga_train
+from mcan_vqa_tpu_torch.ops.dropout import inv_keep_prob, keep_masks
 
 Mask = Optional[torch.Tensor]
 SGA_BLOCKS = {"fused": sga_train.fused_sga_block_train,
               "plain": sga_train.fused_sga_block_train_plain}
+SA_BLOCKS = {"fused": sa_train.fused_sa_block_train,
+             "plain": sa_train.fused_sa_block_train_plain}
 
 
 def _drop(x: torch.Tensor, mask: Mask, inv_keep: float) -> torch.Tensor:
@@ -84,37 +93,37 @@ def draw_step_masks(generator: Optional[torch.Generator], rate: float, *,
     """Every keep-mask of one step, in site order (see the module
     docstring), on the generator's device. At rate 0 all are None and
     nothing is drawn."""
-    def draw(*shape):
-        if rate <= 0.0:
-            return None
-        return random_keep_mask(generator, rate, shape)[0]
+    def draw(shapes):
+        return keep_masks(generator, rate, shapes)[0]
 
-    enc = [{"att": draw(B, H, Lq, Lq), "sub": draw(B, Lq, D),
-            "ffn_h": draw(B, Lq, F), "ffn": draw(B, Lq, D)}
+    enc = [draw(sa_train.mask_shapes(B, Lq, D, F, H))
            for _ in range(num_layers)]
-    shapes = sga_train.mask_shapes(B, Lv, Lq, D, F, H)
-    dec = [{n: draw(*shapes[n]) for n in sga_train.MASK_NAMES}
+    dec = [draw(sga_train.mask_shapes(B, Lv, Lq, D, F, H))
            for _ in range(num_layers)]
-    return {"enc": enc, "dec": dec,
-            "flat": [draw(B, Lq, flat_mlp), draw(B, Lv, flat_mlp)]}
+    flat = draw({"lang": (B, Lq, flat_mlp), "img": (B, Lv, flat_mlp)})
+    return {"enc": enc, "dec": dec, "flat": [flat["lang"], flat["img"]]}
 
 
 def make_fused_train_forward(num_layers: int, num_heads: int,
                              dropout_rate: float = 0.1,
                              fused_encoder: bool = False,
-                             sga_block: str = "fused") -> Callable:
+                             sga_block: str = "fused",
+                             att_saves: bool = False,
+                             bf16_saves: bool = False) -> Callable:
     """-> forward(net, img_feat [B, R, F] f32, ques_ix [B, T] int,
     generator) -> logits [B, A], differentiable w.r.t. net's parameters.
-    sga_block: "fused" (the kernels) or "plain" (the same block in plain
-    ops, autograd)."""
-    if fused_encoder:
-        raise NotImplementedError(
-            "fused_encoder=True runs the encoder through the fused SA train "
-            "kernels (mcan_vqa_tpu/ops/sa_train.py _fwd_call :389 / "
-            "_bwd_call :487), which are not ported yet")
+    sga_block: "fused" (the kernels) or "plain" (the same blocks in plain
+    ops, autograd). fused_encoder: the encoder through the SA train
+    blocks. att_saves / bf16_saves: what the decoder blocks save for their
+    backward (``fused_sga_block_train``; the plain blocks leave that to
+    autograd)."""
     if sga_block not in SGA_BLOCKS:
         raise ValueError(f"sga_block must be one of {tuple(SGA_BLOCKS)}")
     block = SGA_BLOCKS[sga_block]
+    if sga_block == "fused":
+        block = functools.partial(block, att_saves=att_saves,
+                                  bf16_saves=bf16_saves)
+    sa_block = SA_BLOCKS[sga_block] if fused_encoder else None
     rate = dropout_rate
     if rate >= 1.0:
         raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
@@ -136,13 +145,20 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
             num_layers=num_layers,
             flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0])
 
-        # ---- encoder SA stack over the question (plain ops)
+        # ---- encoder SA stack over the question: the train block, or
+        # plain ops
         for enc, m in zip(bb.enc_list, masks["enc"]):
+            if sa_block is not None:
+                w = sa_train.prepare_sa_train_params(
+                    dict(enc.named_parameters()))
+                q = sa_block(q.float(), q_mask, m, w, num_heads=H,
+                             inv_keep=inv_keep)
+                continue
             att = _masked_attention_train(enc.mhatt, q, q, q, q_mask, H,
                                           m["att"], inv_keep)
-            q = enc.norm1(q + _drop(att, m["sub"], inv_keep))
-            ff = _mlp_train(enc.ffn.mlp, q, m["ffn_h"], inv_keep)
-            q = enc.norm2(q + _drop(ff, m["ffn"], inv_keep))
+            q = enc.norm1(q + _drop(att, m["y1"], inv_keep))
+            ff = _mlp_train(enc.ffn.mlp, q, m["h1"], inv_keep)
+            q = enc.norm2(q + _drop(ff, m["y2"], inv_keep))
 
         # ---- decoder SGA stack over the regions (the train block)
         for dec, m in zip(bb.dec_list, masks["dec"]):

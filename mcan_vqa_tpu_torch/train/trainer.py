@@ -6,12 +6,14 @@ drop-last loader onto the device, one train step per batch (the fused
 forward, the BCE loss, AdamW under the warmup / decay schedule), a
 reference pickle after every epoch and one log line per epoch.
 
-The train engine is ``make_fused_train_forward(fused_encoder=False)``:
-every decoder block through the SGA train kernels, the encoder plain. The
-JAX Trainer runs the encoder through the fused SA train kernels at hidden
-<= 512; those are not ported yet. Evaluation, resume, the classifier and
-MIMIC tasks and preemption handling are not ported either: asking for
-them raises.
+The train engine is ``make_fused_train_forward``, routed by width as the
+JAX Trainer routes it (mcan_vqa_tpu/train/trainer.py:264-281): every
+decoder block through the SGA train kernels; at hidden <= 512 (MCAN-small)
+every encoder block through the SA train kernels too; at hidden > 512
+(MCAN-large) the encoder plain and the decoder blocks saving their
+projections (``att_saves``) and their saves in bf16 (``bf16_saves``).
+Evaluation, resume, the classifier and MIMIC tasks and preemption handling
+are not ported: asking for them raises.
 """
 
 from __future__ import annotations
@@ -33,8 +35,21 @@ from mcan_vqa_tpu_torch.train.step import make_train_step
 from mcan_vqa_tpu_torch.train.train_state import TrainState
 from mcan_vqa_tpu_torch.utils.logging import RunLogger
 
-ENGINE_LINE = ("train engine: fused SGA train blocks, encoder plain: "
-               "sa_train kernels not ported")
+
+def engine_route(hidden_size: int) -> dict:
+    """The JAX Trainer's choice of train engine by width
+    (trainer.py:264-281): the fused SA encoder at hidden <= 512, the
+    decoder's att_saves and bf16_saves above."""
+    wide = hidden_size > 512
+    return dict(fused_encoder=not wide, att_saves=wide, bf16_saves=wide)
+
+
+def engine_line(hidden_size: int) -> str:
+    """The log line that says which engine runs."""
+    if engine_route(hidden_size)["fused_encoder"]:
+        return "train engine: fused SGA train blocks + fused SA encoder"
+    return ("train engine: fused SGA train blocks (att_saves, bf16_saves), "
+            "encoder plain")
 
 
 class Trainer:
@@ -65,7 +80,8 @@ class Trainer:
             self.model, make_optimizer(self.model.parameters(), cfg),
             seed=cfg.seed)
         self.forward_fn = make_fused_train_forward(
-            cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate)
+            cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+            **engine_route(cfg.hidden_size))
         self.step_fn = make_train_step(
             self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
             reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
@@ -88,7 +104,8 @@ class Trainer:
             shutil.rmtree(ckpt_dir)
         self.logger.clear()
         self.logger.write(f"NOW TIME: {time.strftime('%Y-%m-%d %H:%M:%S')}")
-        self.logger.write(f"{ENGINE_LINE} (device {self.device})")
+        self.logger.write(f"{engine_line(self.cfg.hidden_size)} "
+                          f"(device {self.device})")
         loader = self.loader()
         state = self.state
         for epoch in range(cfg.max_epoch):

@@ -56,11 +56,11 @@ def test_gemm_raises_on_unsupported_shapes(cuda):
         K.gemm_bias_act(a.float(), torch.zeros(512, 64, device=cuda))
 
 
-def _attention_inputs(B, H, Lq, Lk, lengths, cuda):
+def _attention_inputs(B, H, Lq, Lk, lengths, cuda, Dh=64):
     g = torch.Generator(device=cuda).manual_seed(Lq * Lk)
-    q = torch.randn(B, H, Lq, 64, generator=g, device=cuda).to(BF16)
-    k = torch.randn(B, H, Lk, 64, generator=g, device=cuda)
-    v = torch.randn(B, H, Lk, 64, generator=g, device=cuda)
+    q = torch.randn(B, H, Lq, Dh, generator=g, device=cuda).to(BF16)
+    k = torch.randn(B, H, Lk, Dh, generator=g, device=cuda)
+    v = torch.randn(B, H, Lk, Dh, generator=g, device=cuda)
     idx = torch.arange(Lk, device=cuda)
     mask = (idx[None] >= torch.tensor(lengths, device=cuda)[:, None])
     return q, k, v, mask[:, None, None, :]
@@ -95,6 +95,9 @@ def test_attention_reads_strided_qkv(cuda):
 def test_attention_raises_past_its_limits(cuda):
     q, k, v, mask = _attention_inputs(2, 8, 14, 65, [65, 3], cuda)
     with pytest.raises(ValueError, match="Lk"):
+        K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
+    q, k, v, mask = _attention_inputs(2, 8, 14, 14, [14, 3], cuda, Dh=96)
+    with pytest.raises(ValueError, match="Dh"):
         K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
 
 
@@ -243,24 +246,29 @@ def test_gemm_dw_matches_plain_and_repeats_bitwise(cuda, R, M, N):
     assert torch.equal(out, K.gemm_dw(x, dy))
 
 
-@pytest.mark.parametrize("Lq,Lk,lengths,kv_dtype", [
-    (60, 60, [0, 60, 17], BF16), (60, 14, [3, 14, 0], torch.float32)])
+@pytest.mark.parametrize("Lq,Lk,lengths,kv_dtype,Dh", [
+    (60, 60, [0, 60, 17], BF16, 64), (60, 14, [3, 14, 0], torch.float32, 64),
+    (60, 60, [0, 60, 17], BF16, 128), (60, 14, [3, 14, 0], torch.float32, 128),
+    (14, 14, [14, 0, 5], BF16, 128)])
 def test_attention_dropout_and_backward_match_plain(cuda, Lq, Lk, lengths,
-                                                    kv_dtype):
+                                                    kv_dtype, Dh):
+    """Head widths 64 (MCAN-small) and 128 (MCAN-large): the forward and
+    the backward against their plain versions, with fully padded
+    samples."""
     B, H = 3, 8
-    q, k, v, mask = _attention_inputs(B, H, Lq, Lk, lengths, cuda)
+    q, k, v, mask = _attention_inputs(B, H, Lq, Lk, lengths, cuda, Dh)
     k, v = k.to(kv_dtype), v.to(kv_dtype)
     drop = _keep((B, H, Lq, Lk), cuda, Lq + Lk, 0.25).to(torch.uint8)
     inv = 1 / 0.75
     _close(K.masked_attention(q, k, v, mask, drop, inv),
            K.masked_attention_plain(q, k, v, mask, drop, inv), 2 ** -7)
     g = torch.Generator(device=cuda).manual_seed(3)
-    dout = torch.randn(B, Lq, H * 64, generator=g, device=cuda).to(BF16)
+    dout = torch.randn(B, Lq, H * Dh, generator=g, device=cuda).to(BF16)
     f32 = torch.float32
 
     def grads(fn):
-        dq = torch.empty(B, H, Lq, 64, device=cuda)
-        dk, dv = (torch.empty(B, H, Lk, 64, device=cuda) for _ in range(2))
+        dq = torch.empty(B, H, Lq, Dh, device=cuda)
+        dk, dv = (torch.empty(B, H, Lk, Dh, device=cuda) for _ in range(2))
         d16 = [torch.empty(t.shape, dtype=BF16, device=cuda)
                for t in (dq, dk, dv)]
         fn(q, k, v, mask, dout, dq, dk, dv, *d16, drop=drop, inv_keep=inv)
@@ -303,10 +311,40 @@ def test_layernorm_dropout_save_r_and_backward_match_plain(cuda, D, with_y):
         _close(a, b, tol)
 
 
+def test_layernorm_bf16_saves_match_plain(cuda):
+    """bf16_saves: r written bf16 by the forward; the backward reads a bf16
+    r (no y) and a bf16 upstream gradient as saved."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rows, D = 1920, 1024
+    res, y = (torch.randn(rows, D, generator=g, device=cuda)
+              for _ in range(2))
+    bias, beta = (0.1 * torch.randn(D, generator=g, device=cuda)
+                  for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    mask = _keep((rows, D), cuda, 14)
+    kw = dict(mask=mask, inv_keep=1 / 0.9, save_r=True, reciprocal=True,
+              r_dtype=BF16)
+    out, r = K.residual_layernorm(res, y, bias, gamma, beta, (torch.float32,),
+                                  **kw)
+    ref, rref = K.residual_layernorm_plain(res, y, bias, gamma, beta,
+                                           (torch.float32,), **kw)
+    assert r.dtype == BF16
+    _close(out, ref, 1e-5)
+    _close(r, rref, 2 ** -7)            # the same f32 sum, rounded once
+    gout = torch.randn(rows, D, generator=g, device=cuda).to(BF16)
+    kw = dict(mask=mask, inv_keep=1 / 0.9, dy_dtypes=(torch.float32, BF16))
+    outs = K.residual_layernorm_bwd(gout, rref, None, None, gamma, **kw)
+    refs = K.residual_layernorm_bwd_plain(gout, rref, None, None, gamma,
+                                          **kw)
+    for a, b, tol in zip(outs, refs, (1e-4, 1e-5, 1e-4, 2 ** -7)):
+        _close(a, b, tol)
+
+
 def test_col_sum_matches_plain_and_repeats_bitwise(cuda):
     g = torch.Generator(device=cuda).manual_seed(11)
     mats = [torch.randn(3840, n, generator=g, device=cuda)
             for n in (1536, 2048, 512, 7)]
+    mats[2] = mats[2].to(BF16)          # a bf16 gradient (bf16_saves)
     outs = K.col_sum(mats)
     for a, b in zip(outs, K.col_sum_plain(mats)):
         _close(a, b, 1e-3)              # 3840-term f32 sums, other order
@@ -316,12 +354,15 @@ def test_col_sum_matches_plain_and_repeats_bitwise(cuda):
 
 
 def _train_block_inputs(cuda, B=64, Lv=60, Lq=14, D=512, F=2048, H=8):
-    """The main path's shapes (MCAN-small, B=64), rate 0.1, with fully
-    padded image and question samples among ragged ones."""
+    """The main path's shapes (MCAN-small, B=64; MCAN-large per
+    micro-batch of 32: D=1024, F=4096), rate 0.1, with fully padded image
+    and question samples among ragged ones. Weights of std 0.05 at
+    D = 512, scaled by sqrt(512 / D) so that every product's outputs keep
+    that spread at another width (as chip_smoke.py draws them)."""
     from mcan_vqa_tpu_torch.ops import sga_train as st
     g = torch.Generator(device=cuda).manual_seed(21)
 
-    def mat(*shape, s=0.05):
+    def mat(*shape, s=0.05 * (512 / D) ** 0.5):
         return (torch.randn(*shape, generator=g, device=cuda) * s)
 
     w = {"wqkv": mat(D, 3 * D), "bqkv": mat(3 * D), "wm1": mat(D, D),
@@ -331,8 +372,8 @@ def _train_block_inputs(cuda, B=64, Lv=60, Lq=14, D=512, F=2048, H=8):
          "b1": mat(F), "w2": mat(F, D), "b2": mat(D), "ln3_s": 1 + mat(D),
          "ln3_b": mat(D)}
     x = torch.randn(B, Lv, D, generator=g, device=cuda)
-    kq = torch.randn(B, H, Lq, 64, generator=g, device=cuda)
-    vq = torch.randn(B, H, Lq, 64, generator=g, device=cuda)
+    kq = torch.randn(B, H, Lq, D // H, generator=g, device=cuda)
+    vq = torch.randn(B, H, Lq, D // H, generator=g, device=cuda)
     v_len = torch.tensor([(i * 17) % (Lv + 1) for i in range(B)],
                          device=cuda)
     q_len = torch.tensor([(i * 5) % (Lq + 1) for i in range(B)], device=cuda)
@@ -344,35 +385,99 @@ def _train_block_inputs(cuda, B=64, Lv=60, Lq=14, D=512, F=2048, H=8):
             w, inv, probe)
 
 
-def test_sga_train_block_matches_plain_and_repeats_bitwise(cuda):
+def _block_vs_plain(fused, plain, leaves, ws, names, probe, call):
+    """Run the kernel block and its plain twin under autograd -> (out,
+    grads) of each, and the kernel block's launch counts."""
+    def run(block):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        wd = {k: t.clone().requires_grad_() for k, t in ws.items()}
+        out = call(block, ls, wd)
+        (out * probe).sum().backward()
+        return out.detach(), [t.grad for t in ls] + [wd[n].grad
+                                                     for n in names]
+
+    K.reset_launches()
+    got = run(fused)
+    counts = K.launch_counts()
+    return got, run(plain), run(fused), counts
+
+
+def _check_block(got, ref, again):
     """Tolerances: the kernels match their plain versions call by call
     (tests above); composed over the block, sums in another order move
     bf16 roundings and ReLU gates, which the LayerNorm and softmax
-    backwards carry on. Measured on an H100 at these shapes: v3 within
-    2e-2, every gradient within 2e-2 in relative norm and 6.4e-2 of its
-    max|ref| elementwise."""
-    from mcan_vqa_tpu_torch.ops import sga_train as st
-    x, kq, vq, vm, qm, masks, w, inv, probe = _train_block_inputs(cuda)
-
-    def run(block):
-        leaves = [t.clone().requires_grad_() for t in (x, kq, vq)]
-        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
-        out = block(*leaves, vm, qm, masks, ws, num_heads=8, inv_keep=inv)
-        (out * probe).sum().backward()
-        return out.detach(), [t.grad for t in leaves] + [
-            ws[n].grad for n in st.WEIGHT_NAMES]
-
-    K.reset_launches()
-    out, grads = run(st.fused_sga_block_train)
-    counts = K.launch_counts()
-    assert counts["sga_train_fwd"] == counts["sga_train_bwd_ffn"] == \
-        counts["sga_train_bwd_att"] == 1
-    ref, rgrads = run(st.fused_sga_block_train_plain)
-    _close(out, ref, 6e-2)
+    backwards carry on. Measured on an H100 at the MCAN-small SGA block:
+    v3 within 2e-2, every gradient within 2e-2 in relative norm and 6.4e-2
+    of its max|ref| elementwise."""
+    (out, grads), (rout, rgrads), (out2, grads2) = got, ref, again
+    _close(out, rout, 6e-2)
     for a, b in zip(grads, rgrads):
         assert float((a - b).norm() / b.norm()) <= 3e-2
         scale = float(b.abs().max()) + 1e-6
         _close(a / scale, b / scale, 1e-1)
-    out2, grads2 = run(st.fused_sga_block_train)
     assert torch.equal(out, out2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_sga_train_block_matches_plain_and_repeats_bitwise(cuda):
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    x, kq, vq, vm, qm, masks, w, inv, probe = _train_block_inputs(cuda)
+    got, ref, again, counts = _block_vs_plain(
+        st.fused_sga_block_train, st.fused_sga_block_train_plain,
+        (x, kq, vq), w, st.WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, vm, qm, masks, wd, num_heads=8,
+                                inv_keep=inv))
+    assert counts["sga_train_fwd"] == counts["sga_train_bwd_ffn"] == \
+        counts["sga_train_bwd_att"] == 1
+    _check_block(got, ref, again)
+
+
+def test_sga_train_block_att_saves_bf16_at_large_width(cuda):
+    """MCAN-large's decoder block (D=1024, 8 heads of 128, F=4096) per
+    micro-batch of 32, with att_saves and bf16_saves, against the plain
+    block, which saves f32 (bf16_saves rounds r1 / r2 / r3 / gv2: 2^-8
+    relative each, inside the block tolerance)."""
+    import functools
+
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    x, kq, vq, vm, qm, masks, w, inv, probe = _train_block_inputs(
+        cuda, B=32, D=1024, F=4096)
+    fused = functools.partial(st.fused_sga_block_train, att_saves=True,
+                              bf16_saves=True)
+    got, ref, again, counts = _block_vs_plain(
+        fused, st.fused_sga_block_train_plain, (x, kq, vq), w,
+        st.WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, vm, qm, masks, wd, num_heads=8,
+                                inv_keep=inv))
+    assert counts["sga_train_bwd_att_sav"] == 1
+    assert "sga_train_bwd_att" not in counts
+    _check_block(got, ref, again)
+
+
+def test_sa_train_block_matches_plain_and_repeats_bitwise(cuda):
+    """MCAN-small's encoder block at B=64, 14 tokens, rate 0.1, with
+    all-PAD questions among ragged ones, save_acts both ways."""
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    B, L, D, F, H = 64, 14, 512, 2048, 8
+    g = torch.Generator(device=cuda).manual_seed(31)
+    w = {n: 0.05 * torch.randn(*shape, generator=g, device=cuda)
+         for n, shape in (("wqkv", (D, 3 * D)), ("bqkv", (3 * D,)),
+                          ("wm", (D, D)), ("bm", (D,)), ("ln1_b", (D,)),
+                          ("w1", (D, F)), ("b1", (F,)), ("w2", (F, D)),
+                          ("b2", (D,)), ("ln2_b", (D,)))}
+    for n in ("ln1_s", "ln2_s"):
+        w[n] = 1 + 0.05 * torch.randn(D, generator=g, device=cuda)
+    x = torch.randn(B, L, D, generator=g, device=cuda)
+    lens = torch.tensor([(i * 5) % (L + 1) for i in range(B)], device=cuda)
+    mask = (torch.arange(L, device=cuda)[None] >= lens[:, None])[:, None,
+                                                                 None]
+    masks, inv = sa.make_sa_dropout_masks(g, 0.1, B, L, D, F, H)
+    probe = torch.randn(B, L, D, generator=g, device=cuda)
+    for save_acts in (True, False):
+        got, ref, again, counts = _block_vs_plain(
+            sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (x,), w,
+            sa.SA_WEIGHT_NAMES, probe,
+            lambda blk, ls, wd: blk(*ls, mask, masks, wd, num_heads=H,
+                                    inv_keep=inv, save_acts=save_acts))
+        assert counts["sa_train_fwd"] == counts["sa_train_bwd"] == 1
+        _check_block(got, ref, again)

@@ -13,6 +13,8 @@ order). Gradients: 3e-2 of max|ref| per tensor, the gate
 tests/test_sga_train.py uses for the bf16-operand kernels.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +30,9 @@ Dh = D // H
 FWD_TOL, GRAD_TOL = 1e-3, 3e-2
 
 
-def _inputs(seed, rate, group, v_len, q_len):
+def _inputs(seed, rate, group, v_len, q_len, D=D, H=H, F=F):
     rng = np.random.default_rng(seed)
+    Dh = D // H
 
     def mat(shape, s=0.2):
         return (rng.normal(size=shape) * s).astype(np.float32)
@@ -87,12 +90,12 @@ def _jax_block(inp, group):
     return np.asarray(out), jax.tree.map(np.asarray, grads)
 
 
-def _port_block(inp, masks, block=st.fused_sga_block_train):
+def _port_block(inp, masks, block=st.fused_sga_block_train, heads=H):
     x, kq, vq, vm, qm, w, probe, _, inv = inp
     xt, kqt, vqt = (torch.from_numpy(a).requires_grad_() for a in (x, kq, vq))
     wt = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
     out = block(xt, kqt, vqt, torch.from_numpy(vm), torch.from_numpy(qm),
-                masks, wt, num_heads=H, inv_keep=inv)
+                masks, wt, num_heads=heads, inv_keep=inv)
     (out * torch.from_numpy(probe)).sum().backward()
     grads = (xt.grad.numpy(), kqt.grad.numpy(), vqt.grad.numpy(),
              {k: t.grad.numpy() for k, t in wt.items()})
@@ -195,3 +198,59 @@ def test_masks_per_sample_layout_and_rate():
     assert one == 1.0 and all(m is None for m in none.values())
     with pytest.raises(ValueError):
         st.make_dropout_masks(g, 1.0, 2, 3, 4, 8, 16, 2)
+
+
+# ---------------------------------------------------------------------------
+# att_saves / bf16_saves, the decoder block of the JAX Trainer at hidden >
+# 512, at 128-wide heads (MCAN-large's Dh = 1024 / 8) on a narrow block
+# ---------------------------------------------------------------------------
+
+WIDE = dict(D=256, H=2, F=512)          # Dh = 128
+
+
+SAVES = {"att+bf16": (True, True), "att": (True, False),
+         "bf16": (False, True)}
+
+
+@pytest.fixture(scope="module")
+def wide_results():
+    inp = _inputs(3, 0.25, 1, *EMPTY, **WIDE)
+    masks = _unpack(inp[7], 1)
+    x, kq, vq, vm, qm, w, probe, jmasks, inv = inp
+    out = {}
+    for name, (att, b16) in SAVES.items():
+        def f(x, kq, vq, w):
+            return jst.fused_sga_block_train(
+                x, kq, vq, jnp.asarray(vm), jnp.asarray(qm), jmasks, w,
+                num_heads=WIDE["H"], group=1, inv_keep=inv, interpret=True,
+                att_saves=att, bf16_saves=b16)
+
+        jout, vjp = jax.vjp(f, x, kq, vq, w)
+        jgrads = jax.tree.map(np.asarray, vjp(jnp.asarray(probe)))
+        port = functools.partial(st.fused_sga_block_train, att_saves=att,
+                                 bf16_saves=b16)
+        out[name] = (np.asarray(jout), jgrads,
+                     _port_block(inp, masks, port, heads=WIDE["H"]))
+    out["plain"] = _port_block(inp, masks, st.fused_sga_block_train_plain,
+                               heads=WIDE["H"])
+    return out
+
+
+@pytest.mark.parametrize("case", list(SAVES))
+def test_saves_match_jax_at_head_width_128(wide_results, case):
+    """v3 and all 21 gradients against JAX with the same saves: the port
+    rounds the saved r1 / r2 / r3 / v1 and gv2 to bf16 where the JAX
+    kernels do, so the CPU gates hold as at f32 saves."""
+    jout, jgrads, (tout, tgrads) = wide_results[case]
+    assert tout.shape == (B, Lv, WIDE["D"]) and np.isfinite(tout).all()
+    _close_fwd(tout, jout)
+    _close_grads(tgrads, jgrads)
+
+
+def test_att_saves_match_plain_autograd(wide_results):
+    """att_saves only moves where the backward reads qkv / qx / r1 / r2
+    from: against the block in plain ops under autograd the gates hold."""
+    _, _, (tout, tgrads) = wide_results["att"]
+    pout, pgrads = wide_results["plain"]
+    _close_fwd(tout, pout)
+    _close_grads(tgrads, pgrads)

@@ -1,8 +1,9 @@
 """The port's training entry points on the CPU at a tiny size: the CLI
 train mode (``python -m mcan_vqa_tpu_torch.cli.run_vqa --run train
---synthetic --device cpu``), the Trainer's loss on a repeated batch, and
-the per-epoch reference pickle, read back by the JAX package's
-``import_torch_checkpoint`` and by the port's ``Predictor``."""
+--synthetic --device cpu [--model large]``), the Trainer's loss on a
+repeated batch, its choice of train engine by width, and the per-epoch
+reference pickle, read back by the JAX package's ``import_torch_checkpoint``
+and by the port's ``Predictor``."""
 
 import json
 
@@ -18,7 +19,8 @@ from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
 from mcan_vqa_tpu_torch.ops import kernels as K
 from mcan_vqa_tpu_torch.train.checkpoint import (load_reference_checkpoint,
                                                  state_dict_from_params)
-from mcan_vqa_tpu_torch.train.trainer import ENGINE_LINE, Trainer
+from mcan_vqa_tpu_torch.train import trainer as trainer_mod
+from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_line
 
 TINY = ["--hidden_size", "32", "--layer", "1", "--multi_head", "4",
         "--img_feat_size", "16", "--img_feat_pad_size", "8",
@@ -45,7 +47,8 @@ def cli_run(tmp_path_factory):
 def test_cli_trains_and_logs_every_epoch(cli_run):
     out, cfg = cli_run
     log = (out / "log" / "log_run_tiny.txt").read_text()
-    assert ENGINE_LINE in log
+    assert engine_line(cfg.hidden_size) in log
+    assert "fused SA encoder" in log
     records = [json.loads(line) for line in
                (out / "log" / "log_run_tiny.jsonl").read_text().splitlines()]
     assert [r["epoch"] for r in records] == [0, 1]
@@ -121,3 +124,80 @@ def test_unported_trainer_options_raise(tmp_path):
         Trainer(cfg, ds, task="classify", device="cpu")
     with pytest.raises(NotImplementedError):
         Trainer(cfg, ds, eval_datasets={"val": ds}, device="cpu")
+
+
+@pytest.mark.parametrize("hidden,heads,route", [
+    (512, 8, dict(fused_encoder=True, att_saves=False, bf16_saves=False)),
+    (640, 5, dict(fused_encoder=False, att_saves=True, bf16_saves=True))])
+def test_trainer_routes_by_width(tmp_path, monkeypatch, hidden, heads,
+                                 route):
+    """As the JAX Trainer (trainer.py:264-281): the fused SA encoder at
+    hidden <= 512, att_saves and bf16_saves above."""
+    seen = {}
+    real = trainer_mod.make_fused_train_forward
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(trainer_mod, "make_fused_train_forward", spy)
+    cfg = Config(**{**TINY_CFG, "hidden_size": hidden, "ff_size": 64,
+                    "multi_head": heads}, ckpts_dir=str(tmp_path),
+                 log_path=str(tmp_path), verbose=False)
+    Trainer(cfg, SyntheticVQADataset(cfg, size=8), device="cpu")
+    assert {k: seen[k] for k in route} == route
+    assert ("fused SA encoder" in engine_line(hidden)) == \
+        route["fused_encoder"]
+
+
+def test_model_large_parses_to_the_large_preset():
+    args = run_vqa.parse_args(["--run", "train", "--synthetic", "--model",
+                               "large"])
+    cfg = run_vqa.build_config(args)
+    assert cfg == Config.for_model("large")
+    assert (cfg.hidden_size, cfg.ff_size, cfg.flat_out_size, cfg.lr_base,
+            cfg.grad_accu_steps) == (1024, 4096, 2048, 5e-5, 2)
+    small = run_vqa.build_config(run_vqa.parse_args(
+        ["--run", "train", "--synthetic"]))
+    assert small == Config()
+    narrow = run_vqa.build_config(run_vqa.parse_args(
+        ["--run", "train", "--synthetic", "--model", "large",
+         "--hidden_size", "640"]))
+    assert (narrow.hidden_size, narrow.ff_size, narrow.flat_out_size) == \
+        (640, 2560, 2048)
+    with pytest.raises(SystemExit):
+        run_vqa.parse_args(["--run", "train", "--model", "huge"])
+    with pytest.raises(ValueError, match="model"):
+        Config.for_model("huge")
+
+
+def test_large_shaped_tiny_model_trains_and_carries_weights(tmp_path):
+    """``--model large`` at a tiny large-shaped width (hidden 640 > 512,
+    5 heads of 128, the large preset's two micro-batches): the att_saves
+    decoder route trains, and its epoch pickle keeps the reference Net2
+    keys, so the JAX ``import_torch_checkpoint`` reads it with no new
+    mapping."""
+    argv = ["--run", "train", "--synthetic", "--device", "cpu",
+            "--model", "large", "--max_epoch", "1", "--version", "wide",
+            "--ckpts_dir", str(tmp_path / "ckpts"),
+            "--log_path", str(tmp_path / "log"),
+            *TINY, "--hidden_size", "640", "--multi_head", "5"]
+    cfg = run_vqa.build_config(run_vqa.parse_args(argv))
+    assert cfg.hidden_size // cfg.multi_head == 128
+    assert cfg.grad_accu_steps == 2
+    assert run_vqa.main(argv) == 0
+    log = (tmp_path / "log" / "log_run_wide.txt").read_text()
+    assert engine_line(640) in log and "att_saves" in log
+    path = str(tmp_path / "ckpts" / "ckpt_wide" / "epoch1.pkl")
+    saved = torch.load(path, map_location="cpu",
+                       weights_only=True)["state_dict"]
+    assert saved["backbone.dec_list.0.ffn.mlp.fc.linear.weight"].shape == \
+        (2560, 640)
+    params, meta = import_torch_checkpoint(path)
+    back = state_dict_from_params(params)
+    assert list(back) == list(saved) == meta["param_keys"]
+    assert all(torch.equal(back[k], v) for k, v in saved.items())
+    records = [json.loads(line) for line in
+               (tmp_path / "log" / "log_run_wide.jsonl").read_text()
+               .splitlines()]
+    assert np.isfinite(records[0]["loss"]) and records[0]["steps"] == 4
