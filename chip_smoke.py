@@ -15,7 +15,13 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              each one's device time, its plain version's, one PyTorch
              library call's where there is one, and its bound at the
              card's published peaks;
-  [blocks]   both serving blocks against their plain versions;
+  [kernels]  (int8) quantize_rows and gemm_s8 at every int8 site of one
+             B=64 forward (MCAN-small at levels 1 and 3, MCAN-large at level
+             1), bit for bit against their plain versions, with the int8
+             library call (torch._int_mm) and the int8 bound; the f32-output
+             attention of the level-3 merges;
+  [blocks]   both bf16 serving blocks and both int8 serving blocks (levels 1
+             and 3; MCAN-large level 1) against their plain versions;
   [train block]  the SGA train block (forward, FFN backward, attention
              backward), the SA train block (forward, backward; save_acts
              both ways) and MCAN-large's SGA train block with att_saves and
@@ -23,9 +29,12 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              differentiated by autograd, at full width with fully padded
              samples;
   [serve]    main path 1: MCAN-small (hidden 512, 6+6 layers, 8 heads, 3129
-             answers, random weights from a seed) served by
-             ``Predictor(engine="fused")``, checked against the "plain"
-             engine;
+             answers, random weights from a seed) served by ``Predictor()``
+             with its defaults: int8 level 1, online calibration after 256
+             real rows, level 3 after the swap, every block through the
+             int8 block kernels on both sides; checked against the "plain"
+             engine; the explicit act_calibration / act_scales paths; the
+             all-bf16 engine (qffn=0); forward times of every engine;
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
              same width, batch 64, one epoch of 10 steps, the encoder
              through the SA train blocks and the decoder through the SGA
@@ -34,7 +43,7 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              per step, bitwise repeatable gradients, a falling loss on one
              repeated batch;
   [checkpoint]  the epoch checkpoint served by
-             ``Predictor.from_checkpoint(engine="fused")``;
+             ``Predictor.from_checkpoint(engine="fused")`` (int8 level 1);
   [train large]  main path 3: ``Trainer`` at MCAN-large (hidden 1024, FF
              4096, batch 64 in two micro-batches of 32), 4 steps, the
              decoder through the SGA train blocks with att_saves and
@@ -68,18 +77,30 @@ BATCH = 64                      # the max_batch bucket and the train batch
 LATENCY_BUCKETS = (1, 8)
 TRAIN_STEPS = 10
 LARGE_STEPS = 4
+ROUNDS = 5                      # turns of every engine in [forward]
 SRC = "mcan_vqa_tpu_torch/csrc/"
 TPU = "mcan_vqa_tpu/ops/sga_block.py"
 TPU_TRAIN = "mcan_vqa_tpu/ops/sga_train.py"
 TPU_SA_TRAIN = "mcan_vqa_tpu/ops/sa_train.py"
+TPU_QUANT = "mcan_vqa_tpu/ops/quant.py"
 # published peaks of one H100 SXM (the bound_ms of every kernel row)
 PEAK_BF16 = 989e12              # FLOP/s, dense, tensor cores
 PEAK_F32 = 67e12                # FLOP/s, outside the tensor cores
+PEAK_INT8 = 1979e12             # OP/s, dense, tensor cores
 HBM = 3.35e12                   # bytes/s
 SERVE = "one B=64 serving forward"
 STEP = "one B=64 train step"
 LARGE_STEP = "one B=64 MCAN-large train step (2 micro-batches of 32)"
 BOTH = SERVE + " + " + STEP
+SERVE_INT8 = "one B=64 level-1 + one B=64 level-3 serving forward"
+# max |dprob| of the int8 engines against the plain engine (f32 stream):
+# at full width on the CPU they are 2.8e-3 (level 1) and 4.5e-3 (level 3)
+# from model.apply (tests/test_torch_full_size.py::
+# test_int8_engines_match_model_apply); 2e-2 is the bound that test and
+# the JAX package (tests/test_quant.py:564) hold the int8 engine to, and
+# leaves room for the card's summation order and scales calibrated on
+# other rows than the ones compared
+INT8_BOUND = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -132,8 +153,10 @@ def main() -> None:
     check_serving_kernels(torch, dev, rows)
     check_train_kernels(torch, dev, rows)
     check_large_kernels(torch, dev, rows)
+    check_int8_kernels(torch, dev, rows)
     model_state, cfg, vocab, ix_to_ans = build_model(torch)
     check_blocks(torch, dev, model_state, cfg, rows)
+    check_int8_blocks(torch, dev, model_state, cfg, rows)
     check_train_block(torch, dev, rows)
     serve_main_path(torch, dev, model_state, cfg, vocab, ix_to_ans, rows)
     work = ROOT / "ckpts" / "chip_smoke"
@@ -219,13 +242,14 @@ def pad_mask(torch, B: int, L: int, lengths, dev):
     return (idx[None, :] >= lens[:, None])[:, None, None, :]
 
 
-def bound_parts(flops: float, nbytes: float, tensor: bool = True):
-    """(ms at the peak operation rate, ms at the memory rate): the least
+def bound_parts(flops: float, nbytes: float, tensor: bool = True,
+                int8_ops: float = 0.0):
+    """(ms at the peak operation rates, ms at the memory rate): the least
     time for `flops` operations of their type (bf16 on the tensor cores,
-    else f32) and `nbytes` moved, each input read once and each output
-    written once."""
-    return (flops / (PEAK_BF16 if tensor else PEAK_F32) * 1e3,
-            nbytes / HBM * 1e3)
+    else f32) plus `int8_ops` int8 tensor-core operations, and `nbytes`
+    moved, each input read once and each output written once."""
+    return ((flops / (PEAK_BF16 if tensor else PEAK_F32)
+             + int8_ops / PEAK_INT8) * 1e3, nbytes / HBM * 1e3)
 
 
 class Rows:
@@ -249,14 +273,14 @@ class Rows:
         return self.rows[name]
 
     def add(self, name, n, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
-            library_ms=None, tensor=True):
+            library_ms=None, tensor=True, int8_ops=0.0):
         """n calls of one shape per unit: their times and bounds."""
         r = self.rows[name]
-        op, by = bound_parts(flops, nbytes, tensor)
+        op, by = bound_parts(flops, nbytes, tensor, int8_ops)
         r["ms"] += n * ms
         r["plain_ms"] += n * plain_ms
         r["bound_ms"] += n * max(op, by)
-        r["flops"] += n * int(flops)
+        r["flops"] += n * int(flops + int8_ops)
         r["bytes"] += n * int(nbytes)
         r["_op"] += n * op
         r["_bytes"] += n * by
@@ -1015,6 +1039,174 @@ def check_large_kernels(torch, dev, rows) -> None:
 # the model: full MCAN-small width, seeded random weights
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase: the int8 serving kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def int_mm_call(torch, aq, wq):
+    """One torch._int_mm call on these operands (the library yardstick,
+    used nowhere in the port): W row-major, or in the column-major layout
+    cuBLASLt's int8 products take, whichever this build accepts."""
+    for w in (wq, wq.t().contiguous().t()):
+        try:
+            torch._int_mm(aq, w)
+        except RuntimeError:
+            continue
+        return lambda: torch._int_mm(aq, w)
+    return None
+
+
+def check_int8_kernels(torch, dev, rows) -> None:
+    """quantize_rows and gemm_s8 at every int8 site of one B=64 forward of
+    MCAN-small at level 1 (the FFN, dynamic scales) and level 3 (every
+    projection, static scales), and of MCAN-large at level 1 (the FFN and
+    the qkv, D = 1024); the f32-output attention at the level-3 merge
+    inputs. Both int8 kernels must equal their plain versions bit for bit:
+    the int32 sums are exact and every other step is one correctly rounded
+    operation in the same order."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows.row("quantize_rows", SRC + "quantize.cu", f"{TPU_QUANT}:245",
+             SERVE_INT8)
+    rows.row("gemm_s8", SRC + "gemm_s8.cu", f"{TPU_QUANT}:253", SERVE_INT8)
+    rows.row("masked_attention_f32", SRC + "masked_attention.cu",
+             f"{TPU_QUANT}:1139", SERVE_INT8)
+    say("[kernels] the int8 kernels vs their plain versions at every int8 "
+        "site of one B=64 forward (times: the launches of one level-1 and "
+        "one level-3 MCAN-small forward; bound at 1,979 TOP/s int8)")
+    Mq, Mv = BATCH * 14, BATCH * 60
+    # (label, M, K, N, input dtype, static, relu, out dtype, launches per
+    # unit); the qkv site reads the bf16 stream, the others f32
+    sites = []
+    for M, blk in ((Mq, "enc"), (Mv, "dec")):
+        sites += [(f"small L1 {blk} w1", M, 512, 2048, f32, False, True,
+                   f32, 6),
+                  (f"small L1 {blk} w2", M, 2048, 512, f32, False, False,
+                   f32, 6),
+                  (f"small L3 {blk} qkv", M, 512, 1536, bf16, True, False,
+                   bf16, 6),
+                  (f"small L3 {blk} merge", M, 512, 512, f32, True, False,
+                   f32, 6 if blk == "enc" else 12),
+                  (f"small L3 {blk} w1", M, 512, 2048, f32, True, True, f32,
+                   6),
+                  (f"small L3 {blk} w2", M, 2048, 512, f32, True, False,
+                   f32, 6)]
+    sites.append(("small L3 dec cross q", Mv, 512, 512, f32, True, False,
+                  bf16, 6))
+    for M, blk in ((Mq, "enc"), (Mv, "dec")):
+        sites += [(f"large L1 {blk} qkv", M, 1024, 3072, bf16, False, False,
+                   bf16, 0),
+                  (f"large L1 {blk} w1", M, 1024, 4096, f32, False, True,
+                   f32, 0),
+                  (f"large L1 {blk} w2", M, 4096, 1024, f32, False, False,
+                   f32, 0)]
+    sites += [("ragged M=61", 61, 512, 2048, f32, False, True, f32, 0),
+              ("M=1 static", 1, 2048, 512, bf16, True, False, f32, 0)]
+    for label, M, Kd, N, xdt, static, relu, odt, per in sites:
+        x = torch.randn(M, Kd, generator=g, device=dev)
+        if Kd in (2048, 4096):        # a w2 site reads the ReLU output h1
+            x = x.abs()
+        x = x.to(xdt)
+        if M > 1:
+            x[0] = 0.0                # a zero row: scale 1, codes 0
+        w = torch.randn(Kd, N, generator=g, device=dev) / Kd ** 0.5
+        qw = _quant_w(w.to(bf16))
+        wq, sw = qw["w_q"], qw["w_scale"]
+        bias = torch.randn(N, generator=g, device=dev) * 0.1
+        a = float(x.float().abs().max()) / 127.0 * 1.1 if static else None
+        inv = None if a is None else 1.0 / a
+        q, s = K.quantize_rows(x, inv)
+        rq, rs = K.quantize_rows_plain(x, inv)
+        scale_kw = dict(a=a) if static else dict(sx=s)
+        out = K.gemm_s8(q, wq, sw, bias, relu=relu, out_dtypes=(odt,),
+                        **scale_kw)[0]
+        ref = K.gemm_s8_plain(q, wq, sw, bias, relu=relu, out_dtypes=(odt,),
+                              **scale_kw)[0]
+        torch.cuda.synchronize()
+        e_q = max_err(q, rq) + (0.0 if s is None else max_err(s, rs))
+        gate(f"quantize_rows {label} [{M}x{Kd}] {str(xdt)[6:]} "
+             f"{'static' if static else 'dynamic'} (bit for bit)", e_q, 0.0)
+        rows.err("quantize_rows", e_q)
+        e_g = max_err(out, ref)
+        gate(f"gemm_s8 {label} [{M}x{Kd}]x[{Kd}x{N}] -> {str(odt)[6:]} "
+             f"(bit for bit)", e_g, 0.0)
+        rows.err("gemm_s8", e_g)
+        if not per and not label.startswith("large"):
+            continue
+        t_q = device_ms(torch, lambda: K.quantize_rows(x, inv))
+        t_qp = device_ms(torch, lambda: K.quantize_rows_plain(x, inv))
+        t_g = device_ms(torch, lambda: K.gemm_s8(
+            q, wq, sw, bias, relu=relu, out_dtypes=(odt,), **scale_kw))
+        t_gp = device_ms(torch, lambda: K.gemm_s8_plain(
+            q, wq, sw, bias, relu=relu, out_dtypes=(odt,), **scale_kw))
+        lib = int_mm_call(torch, q, wq)
+        t_l = device_ms(torch, lib) if lib is not None else None
+        q_bytes = M * Kd * (x.element_size() + 1) + (0 if static else 4 * M)
+        g_bytes = (M * Kd + Kd * N + 8 * N + (0 if static else 4 * M)
+                   + M * N * (4 if odt == f32 else 2))
+        op_q, by_q = bound_parts(3 * M * Kd, q_bytes, tensor=False)
+        op_g, by_g = bound_parts(0.0, g_bytes, int8_ops=2 * M * Kd * N)
+        say(f"    quantize_rows {t_q:.4f} ms vs plain {t_qp:.4f} ms, bound "
+            f"{max(op_q, by_q):.4f} ms; gemm_s8 {t_g:.4f} ms vs plain "
+            f"{t_gp:.4f} ms, _int_mm "
+            + (f"{t_l:.4f} ms" if t_l is not None else "refused")
+            + f", bound {max(op_g, by_g):.4f} ms "
+            f"({2 * M * Kd * N / t_g / 1e9:.1f} TOP/s)")
+        if per:
+            rows.add("quantize_rows", per, t_q, t_qp, 3 * M * Kd, q_bytes,
+                     tensor=False)
+            rows.add("gemm_s8", per, t_g, t_gp, 0.0, g_bytes, t_l,
+                     int8_ops=2 * M * Kd * N)
+
+    # --- the f32-output attention at the level-3 merge inputs
+    F_ = torch.nn.functional
+    D, H = 512, 8
+    lens_q = [(i * 5) % 15 for i in range(BATCH)]        # includes all PAD
+    lens_v = [(i * 17) % 61 for i in range(BATCH)]
+
+    def heads(B, L):
+        return torch.randn(B, H, L, D // H, generator=g, device=dev)
+
+    cases = [("enc self 14x14", heads(BATCH, 14).to(bf16),
+              heads(BATCH, 14).to(bf16), heads(BATCH, 14).to(bf16),
+              pad_mask(torch, BATCH, 14, lens_q, dev)),
+             ("dec self 60x60", heads(BATCH, 60).to(bf16),
+              heads(BATCH, 60).to(bf16), heads(BATCH, 60).to(bf16),
+              pad_mask(torch, BATCH, 60, lens_v, dev)),
+             ("dec cross 60x14 f32 kv", heads(BATCH, 60).to(bf16),
+              heads(BATCH, 14), heads(BATCH, 14),
+              pad_mask(torch, BATCH, 14, lens_q, dev))]
+    for name, q, k, v, mask in cases:
+        out = K.masked_attention(q, k, v, mask, out_dtype=f32)
+        ref = K.masked_attention_plain(q, k, v, mask, out_dtype=f32)
+        same = K.masked_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        # the bf16 probabilities: one may land a rounding step apart
+        gate(f"masked_attention f32 out {name}", err,
+             8e-3 * (float(ref.abs().max()) + 1e-6))
+        if not torch.equal(out.to(bf16), same):
+            fail(f"masked_attention {name}: the f32 output rounded to bf16 "
+                 f"is not the bf16 output")
+        rows.err("masked_attention_f32", err)
+        B, _, L1, _ = q.shape
+        L2 = k.shape[2]
+        k16, v16 = k.to(bf16), v.to(bf16)
+        t_k = device_ms(torch, lambda: K.masked_attention(
+            q, k, v, mask, out_dtype=f32))
+        t_p = device_ms(torch, lambda: K.masked_attention_plain(
+            q, k, v, mask, out_dtype=f32))
+        t_l = device_ms(torch, lambda: F_.scaled_dot_product_attention(
+            q, k16, v16, attn_mask=~mask))
+        nbytes = attention_bytes(B, H, L1, L2, k.element_size()) \
+            + 2 * B * L1 * H * 64
+        say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa {t_l:.4f} ms")
+        rows.add("masked_attention_f32", 6, t_k, t_p,
+                 4 * B * H * L1 * L2 * 64, nbytes, t_l)
+
+
 QUESTIONS = ["what color is the cat", "how many people are in the picture",
              "is this a kitchen", "what is on the table",
              "what sport is being played", "is the man wearing a hat"]
@@ -1122,6 +1314,158 @@ def check_blocks(torch, dev, state_dict, cfg, rows) -> None:
                  block_flops(Mv, D, F, B, H, Lv, Lq, True),
                  4 * Mv * D + B * (Lv + Lq) + 8 * B * H * Lq * 64
                  + weight_bytes(D, F, True))
+
+
+# ---------------------------------------------------------------------------
+# phase: both int8 serving blocks against their plain versions
+# ---------------------------------------------------------------------------
+
+def qffn_block_work(B, L, Lq, D, F, H, cross, level):
+    """(bf16 operations, int8 operations, bytes) of one int8 serving block:
+    the stream in and out (bf16), the pads, the cross k/v (f32), the int8
+    and bf16 weight matrices and the f32 vectors (biases, LN, scales)."""
+    M, Dh = B * L, D // H
+    n_proj = 3 if cross else 1             # the merges and the cross q
+    qkv8, proj8 = level >= 2 or D >= 1024, level >= 3
+    att = 4 * B * H * L * L * Dh + (4 * B * H * L * Lq * Dh if cross else 0)
+    qkv, proj = 2 * M * D * 3 * D, 2 * M * D * D * n_proj
+    int8 = 4 * M * D * F + (qkv if qkv8 else 0) + (proj if proj8 else 0)
+    bf16 = att + (0 if qkv8 else qkv) + (0 if proj8 else proj)
+    w8 = 2 * D * F + (3 * D * D if qkv8 else 0) + (D * D * n_proj
+                                                    if proj8 else 0)
+    w16 = 2 * ((0 if qkv8 else 3 * D * D) + (0 if proj8 else D * D * n_proj))
+    vecs = 4 * (3 * D + F + D + D * n_proj + 2 * D * (3 if cross else 2)
+                + F + D + (3 * D if qkv8 else 0) + (D * n_proj if proj8
+                                                     else 0))
+    nbytes = (4 * M * D + B * (L + (Lq if cross else 0))
+              + (8 * B * H * Lq * Dh if cross else 0) + w8 + w16 + vecs)
+    return bf16, int8, nbytes
+
+
+def random_block(torch, g, dev, D, F, sga):
+    """A block's bf16 layout (ops/sga_block.py names) with random weights
+    of std 1/sqrt(fan-in), for a width no model of this script has."""
+    def mat(k, n):
+        return (torch.randn(k, n, generator=g, device=dev)
+                / k ** 0.5).to(torch.bfloat16)
+
+    def vec(n, base=0.0):
+        return base + 0.1 * torch.randn(n, generator=g, device=dev)
+
+    one = "1" if sga else ""
+    wp = {f"wqkv{one}": mat(D, 3 * D), f"bqkv{one}": vec(3 * D),
+          "w1": mat(D, F), "b1": vec(F), "w2": mat(F, D), "b2": vec(D)}
+    if sga:
+        wp.update(wm1_full=mat(D, D), bm1=vec(D), wq2_full=mat(D, D),
+                  bq2_full=vec(D), wm2_full=mat(D, D), bm2=vec(D))
+    else:
+        wp.update(wm=mat(D, D), bm=vec(D))
+    for i in range(1, 4 if sga else 3):
+        wp[f"ln{i}_s"], wp[f"ln{i}_b"] = vec(D, 1.0), vec(D)
+    return wp
+
+
+def check_int8_blocks(torch, dev, state_dict, cfg, rows) -> None:
+    """fused_qffn_sa_block / fused_qffn_sga_block against their plain
+    versions at B=64 with fully padded samples: MCAN-small at level 1
+    (dynamic) and level 3 (static scales from the port's calibration
+    replay of these inputs), MCAN-large at level 1 (D = 1024, heads of
+    128, int8 FFN and qkv)."""
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import (_cross_kv, decode_qffn_level,
+                                                prepare_params)
+    bf16 = torch.bfloat16
+    H, D, F = cfg.multi_head, cfg.hidden_size, cfg.ff_size
+    Lq, Lv, B = cfg.max_token, cfg.img_feat_pad_size, BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rows.row("fused_qffn_sa_block", "mcan_vqa_tpu_torch/ops/quant.py",
+             f"{TPU_QUANT}:1184", SERVE_INT8)
+    rows.row("fused_qffn_sga_block", "mcan_vqa_tpu_torch/ops/quant.py",
+             f"{TPU_QUANT}:1057", SERVE_INT8)
+    # Block tolerance: that of the bf16 blocks (sums in another order move
+    # a bf16 rounding one step, carried through the block), plus int8
+    # codes whose f32 input sits on a rounding boundary, each moving one
+    # product term by s_x * |w|: 6e-2
+    tol = 6e-2
+    say("[blocks] fused_qffn_sa_block / fused_qffn_sga_block vs their plain "
+        f"versions, B={B}, fully padded samples (tol {tol})")
+    q_mask = pad_mask(torch, B, Lq, [(i * 5) % (Lq + 1) for i in range(B)],
+                      dev)
+    v_mask = pad_mask(torch, B, Lv, [(i * 17) % (Lv + 1) for i in range(B)],
+                      dev)
+
+    def stream(L, width):
+        return torch.randn(B, L, width, generator=g, device=dev).to(bf16)
+
+    def run(label, sa, sga, n_rows, work_sa, work_sga):
+        for name, (kern, plain) in (("fused_qffn_sa_block", sa),
+                                    ("fused_qffn_sga_block", sga)):
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            gate(f"{name} {label} B={B}", err, tol)
+            rows.err(name, err)
+        t = [device_ms(torch, f, iters=10) for f in (*sa, *sga)]
+        say(f"    {label} per block: SA {t[0]:.4f} ms vs plain {t[1]:.4f} "
+            f"ms, bound {max(bound_parts(work_sa[0], work_sa[2], True, work_sa[1])):.4f}"
+            f" ms; SGA {t[2]:.4f} ms vs plain {t[3]:.4f} ms, bound "
+            f"{max(bound_parts(work_sga[0], work_sga[2], True, work_sga[1])):.4f} ms")
+        if n_rows:
+            rows.add("fused_qffn_sa_block", n_rows, t[0], t[1], work_sa[0],
+                     work_sa[2], int8_ops=work_sa[1])
+            rows.add("fused_qffn_sga_block", n_rows, t[2], t[3], work_sga[0],
+                     work_sga[2], int8_ops=work_sga[1])
+
+    x, v = stream(Lq, D), stream(Lv, D)
+    for level in (1, 3):
+        bb = prepare_params(state_dict, cfg.layer, device=dev,
+                            qffn=level)["backbone"]
+        enc, dec = bb["enc_0"], bb["dec_0"]
+        kq, vq = _cross_kv(dec["mhatt2"], x, H)
+        sc_sa = sc_sga = None
+        if level == 3:
+            sc_sa = tuple(float(a) for a in quant._cal_sa_block(
+                enc, x, q_mask, H, 1.1)[1])
+            sc_sga = tuple(float(a) for a in quant._cal_sga_block(
+                dec, v, x, v_mask, q_mask, H, 1.1)[1])
+        sa = (lambda: quant.fused_qffn_sa_block(
+                  x, q_mask, enc["_mk"], enc["_qffn"], num_heads=H,
+                  act_scales=sc_sa),
+              lambda: quant.fused_qffn_sa_block_plain(
+                  x, q_mask, enc["_mk"], enc["_qffn"], num_heads=H,
+                  act_scales=sc_sa))
+        sga = (lambda: quant.fused_qffn_sga_block(
+                   v, kq, vq, v_mask, q_mask, dec["_mk"], dec["_qffn"],
+                   num_heads=H, act_scales=sc_sga),
+               lambda: quant.fused_qffn_sga_block_plain(
+                   v, kq, vq, v_mask, q_mask, dec["_mk"], dec["_qffn"],
+                   num_heads=H, act_scales=sc_sga))
+        run(f"MCAN-small level {level}", sa, sga, cfg.layer,
+            qffn_block_work(B, Lq, Lq, D, F, H, False, level),
+            qffn_block_work(B, Lv, Lq, D, F, H, True, level))
+
+    # MCAN-large level 1: random weights at its widths
+    D2, F2 = 1024, 4096
+    qkv8, proj8, _ = decode_qffn_level(1, D2)
+    wp_sa, wp_sga = (random_block(torch, g, dev, D2, F2, sga)
+                     for sga in (False, True))
+    qf_sa = quant.prepare_qffn_params(wp_sa, qkv8, proj8)
+    qf_sga = quant.prepare_qffn_params(wp_sga, qkv8, proj8)
+    x2, v2 = stream(Lq, D2), stream(Lv, D2)
+    kq2 = torch.randn(B, H, Lq, D2 // H, generator=g, device=dev)
+    vq2 = torch.randn(B, H, Lq, D2 // H, generator=g, device=dev)
+    run("MCAN-large level 1",
+        (lambda: quant.fused_qffn_sa_block(x2, q_mask, wp_sa, qf_sa,
+                                           num_heads=H),
+         lambda: quant.fused_qffn_sa_block_plain(x2, q_mask, wp_sa, qf_sa,
+                                                 num_heads=H)),
+        (lambda: quant.fused_qffn_sga_block(v2, kq2, vq2, v_mask, q_mask,
+                                            wp_sga, qf_sga, num_heads=H),
+         lambda: quant.fused_qffn_sga_block_plain(v2, kq2, vq2, v_mask,
+                                                  q_mask, wp_sga, qf_sga,
+                                                  num_heads=H)),
+        0, qffn_block_work(B, Lq, Lq, D2, F2, H, False, 1),
+        qffn_block_work(B, Lv, Lq, D2, F2, H, True, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -1350,6 +1694,20 @@ def check_train_block(torch, dev, rows) -> None:
             + sa_mats + 4 * 8 * D + 4 * Mq * D + 4 * (4 * D * D + 2 * D * F)
             + 4 * (10 * D + F))}
     time_pieces(torch, K, rows, pieces, work, 6)
+    # _bwd_kernel (save_acts=False: the FFN recomputed from x1), on no
+    # Trainer path: timed beside _bwd_kernel_sav, not in the row
+    _, rsaves = sa._forward(xqs, qmask, sam, swk, inv, H, save_acts=False)
+    recompute = lambda: sa._backward(gq, xqs, qmask, rsaves, sam, swk,  # noqa: E731
+                                     inv, H)
+    # the work of _bwd_kernel_sav plus the recomputed x1 . W1 product,
+    # without reading the saved h1d
+    flops, nbytes = work["sa_train_bwd"]
+    say(f"  sa_train_bwd from save_acts=False (_bwd_kernel): "
+        f"{device_ms(torch, recompute, iters=10):.4f} ms vs plain "
+        f"{device_ms(torch, plain_path(K, recompute), iters=5):.4f} ms per "
+        f"block; bound "
+        f"{max(bound_parts(flops + 2 * Mq * D * F, nbytes - 2 * Mq * F)):.4f}"
+        f" ms")
 
     Bl, Dl, Fl = BATCH // 2, 1024, 4096
     Ml = Bl * Lv
@@ -1424,59 +1782,51 @@ def make_requests(rng, cfg):
     return reqs + [([""], feats)]
 
 
-SERVE_KERNELS = ("fused_sa_block", "fused_sga_block", "gemm_bias_act",
-                 "masked_attention", "residual_layernorm")
+BF16_SERVE_KERNELS = ("fused_sa_block", "fused_sga_block", "gemm_bias_act",
+                      "masked_attention", "residual_layernorm")
+INT8_SERVE_KERNELS = ("fused_qffn_sa_block", "fused_qffn_sga_block",
+                      "gemm_s8", "quantize_rows", "gemm_bias_act",
+                      "masked_attention", "masked_attention_f32",
+                      "residual_layernorm")
 
 
-def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
-                    rows) -> None:
-    from mcan_vqa_tpu_torch.api import Predictor
-    from mcan_vqa_tpu_torch.ops import kernels as K
+def serve_launches(L: int, level: int):
+    """Every kernel's launches in one forward of the engine at this level
+    (0: all bf16) at hidden 512: per SA block the qkv, the merge and the
+    FFN's two products, one attention, two LayerNorms; per SGA block also
+    the cross q, its merge, the cross attention and a third LayerNorm.
+    Level 1 runs the FFN products int8 (dynamic), level 3 every product
+    (static) with the attention output f32."""
+    blocks = ({"fused_sa_block": L, "fused_sga_block": L} if level == 0 else
+              {"fused_qffn_sa_block": L, "fused_qffn_sga_block": L})
+    int8 = {0: 0, 1: 2 * L + 2 * L, 3: 4 * L + 6 * L}[level]
+    counts = dict(blocks, gemm_bias_act=10 * L - int8,
+                  residual_layernorm=5 * L)
+    counts["masked_attention_f32" if level == 3 else "masked_attention"] = \
+        3 * L
+    if int8:
+        counts.update(gemm_s8=int8, quantize_rows=int8)
+    return {k: n for k, n in counts.items() if n}
 
-    kw = dict(ix_to_ans=ix_to_ans, max_batch=BATCH,
-              latency_buckets=LATENCY_BUCKETS, device=dev)
-    fused = Predictor(cfg, state_dict, vocab, engine="fused", **kw)
-    plain = Predictor(cfg, state_dict, vocab, engine="plain", **kw)
-    requests = make_requests(np.random.default_rng(SEED), cfg)
-    for qs, fs in requests[:1]:          # first call: warm up allocators
-        fused.predict_probs(qs, fs)
-    torch.cuda.synchronize()
 
-    K.reset_launches()
-    probs = [fused.predict_probs(qs, fs) for qs, fs in requests]
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    n_fwd = len(requests)
-    say(f"[serve] Predictor(engine='fused', max_batch={BATCH}, "
-        f"latency_buckets={LATENCY_BUCKETS}): {n_fwd} requests, sizes "
-        f"{[len(q) for q, _ in requests]} -> buckets "
-        f"{[fused.bucket_for(len(q)) for q, _ in requests]}")
-    for (qs, fs), p in zip(requests[:3] + requests[-1:],
-                           probs[:3] + probs[-1:]):
-        top = fused.topk(qs, fs, k=3)[0]
-        say(f"  {qs[0]!r:40} regions {fs[0].shape[0]:2d} -> "
-            + ", ".join(f"{a} {s:.3f}" for a, s in top))
-    L = cfg.layer
-    per_fwd = {"fused_sa_block": L, "fused_sga_block": L,
-               "gemm_bias_act": 4 * L + 6 * L,
-               "masked_attention": L + 2 * L,
-               "residual_layernorm": 2 * L + 3 * L}
-    say(f"[launches] serving, {n_fwd} forwards: {counts}")
-    for name, n in per_fwd.items():
-        if counts.get(name, 0) != n * n_fwd:
-            fail(f"{name} launched {counts.get(name, 0)} times in the main "
-                 f"path, expected {n * n_fwd}")
-    say(f"  every backbone block of every forward ran through the kernels "
-        f"({cfg.layer} SA + {cfg.layer} SGA per forward)")
-    rows.launches("serve", counts, SERVE_KERNELS)
+def check_launches(label, counts, want, n_fwd) -> None:
+    """The run's launch counts are exactly n_fwd forwards' worth."""
+    want = {k: n * n_fwd for k, n in want.items()}
+    say(f"[launches] {label}, {n_fwd} forwards: {counts}")
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
 
-    # correctness: shape, range, and agreement with the plain engine
+
+def agreement(label, requests, probs, plain, n_answers,
+              bound=INT8_BOUND) -> None:
+    """Top-1 and max |dprob| of a fused engine against the plain engine:
+    a top-1 flip only inside a near-tie (the plain engine's top two within
+    2 x bound)."""
     worst, strict, near_ties, far_flips = 0.0, 0, 0, 0
-    bound = 1e-2
     for (qs, fs), pf in zip(requests, probs):
-        if pf.shape != (len(qs), len(ix_to_ans)) or not np.isfinite(pf).all() \
+        if pf.shape != (len(qs), n_answers) or not np.isfinite(pf).all() \
                 or pf.min() < 0 or pf.max() > 1:
-            fail(f"bad probabilities: shape {pf.shape}, finite "
+            fail(f"{label}: bad probabilities: shape {pf.shape}, finite "
                  f"{np.isfinite(pf).all()}")
         pp = plain.predict_probs(qs, fs)
         worst = max(worst, float(np.abs(pf - pp).max()))
@@ -1489,29 +1839,151 @@ def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
             else:
                 far_flips += 1
     total = sum(len(q) for q, _ in requests)
-    # Bound: the fused engine carries a bf16 residual stream (the JAX
-    # bf16_stream engine), the plain one an f32 stream (model.apply); at
-    # MCAN-small with random weights the serving forward and model.apply
-    # differ by a few 1e-3 in probability on the CPU
-    # (tests/test_torch_full_size.py), so 1e-2 leaves room for the card's
-    # other summation order. A top-1 flip is accepted only inside a
-    # near-tie: where the plain engine's top two lie within 2 * bound.
-    say(f"[agree] fused vs plain on the card: top-1 {strict}/{total} "
+    say(f"[agree] {label} vs plain on the card: top-1 {strict}/{total} "
         f"(+{near_ties} near-ties, {far_flips} flips), max|dprob| "
         f"{worst:.3e} <= bound {bound:.0e}")
     if worst > bound or far_flips:
-        fail("fused and plain engines disagree")
+        fail(f"{label} and the plain engine disagree")
 
-    # forward time per bucket, both engines (CUDA events around the
-    # forward on a padded batch; inputs copied from the host inside)
+
+def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
+                    rows) -> None:
+    """Predictor() with its defaults: level 1 from the first request, the
+    online calibration after 256 real rows, level 3 after the swap; every
+    backbone block of every forward through the int8 block kernels on both
+    sides of the swap. Then the explicit calibration paths, the all-bf16
+    engine's launches and the forward times of every engine."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+
+    L = cfg.layer
+    kw = dict(ix_to_ans=ix_to_ans, max_batch=BATCH,
+              latency_buckets=LATENCY_BUCKETS, device=dev)
+    fused = Predictor(cfg, state_dict, vocab, **kw)
+    plain = Predictor(cfg, state_dict, vocab, engine="plain", **kw)
+    rng = np.random.default_rng(SEED)
+    requests = make_requests(rng, cfg)
+    with fused.calibration_paused():     # warm-up: not collected
+        fused.predict_probs(*requests[0])
+    torch.cuda.synchronize()
+    n_fwd, n_rows = len(requests), sum(len(q) for q, _ in requests)
+    say(f"[serve] Predictor(max_batch={BATCH}, latency_buckets="
+        f"{LATENCY_BUCKETS}), engine {fused.engine!r}, calibration "
+        f"{fused.calibration}: {n_fwd} requests, sizes "
+        f"{[len(q) for q, _ in requests]} -> buckets "
+        f"{[fused.bucket_for(len(q)) for q, _ in requests]}")
+
+    # level 1, before the calibration
+    K.reset_launches()
+    probs1 = [fused.predict_probs(qs, fs) for qs, fs in requests]
+    torch.cuda.synchronize()
+    counts1 = K.launch_counts()
+    check_launches("serve level 1", counts1, serve_launches(L, 1), n_fwd)
+    cal = fused.calibration
+    if cal != {"state": "collecting", "samples": n_rows, "target": 256}:
+        fail(f"calibration after {n_rows} real rows: {cal}")
+    agreement("level 1", requests, probs1, plain, len(ix_to_ans))
+
+    # cross 256 real rows: the background rebuild, then the swap
+    fill = [ragged_batch(rng, cfg, BATCH) for _ in range(3)]
+    t0 = time.perf_counter()
+    for qs, fs in fill:
+        fused.predict_probs(qs, fs)
+    if not fused.wait_calibrated(timeout=600):
+        fail("the online calibration did not finish in 600 s")
+    cal = fused.calibration
+    say(f"[calibrate] online: {cal} after {n_rows + 3 * BATCH} real rows, "
+        f"{time.perf_counter() - t0:.2f} s from the crossing request to the "
+        f"swap; scales enc_0 {fused.act_scales['enc_0']}")
+    if cal["state"] != "calibrated" or "error" in cal:
+        fail(f"the online calibration failed: {cal}")
+    if fused.routes != {b: "base" for b in fused.buckets}:
+        fail(f"routes {fused.routes}")
+
+    # level 3, after the swap (the counts start after the background
+    # pre-run, which launches too)
+    K.reset_launches()
+    probs3 = [fused.predict_probs(qs, fs) for qs, fs in requests]
+    torch.cuda.synchronize()
+    counts3 = K.launch_counts()
+    check_launches("serve level 3", counts3, serve_launches(L, 3), n_fwd)
+    say(f"  every backbone block of every forward ran through the int8 "
+        f"block kernels ({L} SA + {L} SGA per forward), no bf16 block, on "
+        f"both sides of the swap")
+    agreement("level 3", requests, probs3, plain, len(ix_to_ans))
+    rows.launches("serve", {k: counts1.get(k, 0) + counts3.get(k, 0)
+                            for k in INT8_SERVE_KERNELS}, INT8_SERVE_KERNELS)
+
+    # the explicit calibration paths give the online engine's scales and
+    # its probabilities, bit for bit (the same replay, deterministic
+    # kernels)
+    seen = [r for q, f in requests + fill for r in zip(q, f)][:256]
+    explicit = Predictor(cfg, state_dict, vocab, act_calibration=(
+        [q for q, _ in seen], [f for _, f in seen]), **kw)
+    stored = Predictor(cfg, state_dict, vocab,
+                       act_scales=fused.act_scales, **kw)
+    for name, other in (("act_calibration", explicit),
+                        ("act_scales", stored)):
+        same_scales = other.act_scales == fused.act_scales
+        same_probs = all(np.array_equal(other.predict_probs(qs, fs), p)
+                         for (qs, fs), p in zip(requests, probs3))
+        say(f"[calibrate] Predictor({name}=...): scales equal "
+            f"{same_scales}, probabilities equal bit for bit {same_probs}")
+        if not (same_scales and same_probs):
+            fail(f"Predictor({name}=...) differs from the online engine")
+
+    # the all-bf16 engine (qffn=0): still built, and past QFFN_MAX_BATCH
+    # the path of a dynamic-scale block
+    bf16_fwd, bf16_prep = build_production_engine(
+        state_dict, L, cfg.multi_head, qffn=0, device=dev)
+    level1_fwd, level1_prep = build_production_engine(
+        state_dict, L, cfg.multi_head, device=dev)
+
+    def engine(fwd, prep):
+        def call(img, ques):
+            with torch.inference_mode():
+                return torch.sigmoid(fwd(prep, torch.from_numpy(img).to(dev),
+                                         torch.from_numpy(ques).to(dev)))
+        return call
+
+    padded = [fused.pad_batch(qs, fs) for qs, fs in requests]
+    bf16 = engine(bf16_fwd, bf16_prep)
+    K.reset_launches()
+    probs0 = [bf16(img, ques)[:len(qs)].cpu().numpy()
+              for (img, ques), (qs, _) in zip(padded, requests)]
+    torch.cuda.synchronize()
+    counts0 = K.launch_counts()
+    check_launches("serve bf16 (qffn=0)", counts0, serve_launches(L, 0),
+                   n_fwd)
+    rows.launches("serve bf16", counts0, BF16_SERVE_KERNELS)
+    # the bf16 stream against f32: a few 1e-3 on the CPU
+    # (tests/test_torch_full_size.py), 1e-2 as since the first slice
+    agreement("bf16 (qffn=0)", requests, probs0, plain, len(ix_to_ans),
+              bound=1e-2)
+
+    # forward time per bucket (CUDA events around the forward on a padded
+    # batch; inputs copied from the host inside). The forward is
+    # host-bound, so the engines take turns over ROUNDS rounds and each
+    # reports its median round.
+    level3_fwd, level3_prep = build_production_engine(
+        state_dict, L, cfg.multi_head, act_scales=fused.act_scales,
+        device=dev)
+    engines = (("bf16", bf16), ("int8 L1", engine(level1_fwd, level1_prep)),
+               ("int8 L3", engine(level3_fwd, level3_prep)),
+               ("plain", plain.forward_padded))
     rng = np.random.default_rng(SEED + 2)
     for b in LATENCY_BUCKETS + (BATCH,):
         img, ques = fused.pad_batch(*ragged_batch(rng, cfg, b))
-        t = {name: cuda_ms(torch, lambda: pred.forward_padded(img, ques),
-                           iters=10)
-             for name, pred in (("fused", fused), ("plain", plain))}
-        say(f"[forward] B={b}: fused {t['fused']:.3f} ms, plain "
-            f"{t['plain']:.3f} ms")
+        t = {name: [] for name, _ in engines}
+        for _ in range(ROUNDS):
+            for name, fn in engines:
+                t[name].append(cuda_ms(torch, lambda: fn(img, ques),
+                                       iters=10))
+        say(f"[forward] B={b}, median of {ROUNDS} rounds of 10: "
+            + ", ".join(f"{n} {float(np.median(ms)):.3f} ms "
+                        f"({min(ms):.3f}-{max(ms):.3f})"
+                        for n, ms in t.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1713,6 +2185,7 @@ def check_repeated_batch(torch, trainer) -> None:
 
 def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
     from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.train.checkpoint import load_reference_checkpoint
     cfg, ds = trainer.cfg, trainer.train_dataset
     saved = load_reference_checkpoint(str(ckpt))
@@ -1732,18 +2205,23 @@ def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
     questions = ["t5 t17 t3", "t9 t9 t120 t44", ""]
     feats = [rng.normal(size=(r, cfg.img_feat_size)).astype(np.float32)
              for r in (60, 31, 12)]
+    K.reset_launches()
     answers = fused.answer(questions, feats)
     pf = fused.predict_probs(questions, feats)
+    counts = K.launch_counts()
     pp = plain.predict_probs(questions, feats)
     worst = float(np.abs(pf - pp).max())
     say(f"[checkpoint] {ckpt.name} ({ckpt.stat().st_size / 1e6:.1f} MB) -> "
-        f"Predictor.from_checkpoint(engine='fused'): "
+        f"Predictor.from_checkpoint(engine='fused'), int8 level 1, "
+        f"calibration {fused.calibration}: "
         + "; ".join(f"{q!r} -> {a} {p:.3f}" for q, (a, p) in
                     zip(questions, answers))
-        + f"; fused vs plain max|dprob| {worst:.3e} <= 1e-2")
+        + f"; fused vs plain max|dprob| {worst:.3e} <= {INT8_BOUND:.0e}")
+    check_launches("checkpoint", counts, serve_launches(cfg.layer, 1), 2)
     if not (np.isfinite(pf).all() and pf.shape == (3, ds.ans_size)
             and all(a in ds.ix_to_ans.values() for a, _ in answers)
-            and worst <= 1e-2):
+            and worst <= INT8_BOUND
+            and fused.calibration["samples"] == 6):
         fail("the checkpoint's Predictor gave bad answers")
 
 

@@ -5,21 +5,25 @@
     answers = p.answer(["what color is the cat?"], image_features)
 
 Engines:
-  * "fused" (and "auto"): ``ops/serving.build_production_engine(qffn=0)``,
-    every backbone block through the hand-written block kernels on the
-    card (their plain versions on the CPU);
+  * "fused" (and "auto"): ``ops/serving.build_production_engine(qffn=None)``,
+    the JAX package's shipped engine: int8 level 1 (dynamic activation
+    scales) until calibrated, then level 3 (every projection int8, static
+    scales); every backbone block through the hand-written int8 block
+    kernels on the card (their plain versions on the CPU);
   * "plain": ``models/net.MCANet`` op by op, the numerics of the JAX
     ``model.apply``.
 
-A request batch pads to the smallest compiled bucket that fits
-(``latency_buckets`` plus ``max_batch``), as in the JAX Predictor, so the
-kernels always see the shapes they were measured at. The int8 / int4
-engines, activation calibration and multi-device meshes are not ported
-yet: asking for them raises.
+A request batch pads to the smallest bucket that fits (``latency_buckets``
+plus ``max_batch``), as in the JAX Predictor, so the kernels always see the
+shapes they were measured at. The int8 / int4 engines, the q8aux sites and
+multi-device meshes are not ported yet: asking for them raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import warnings
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +48,7 @@ class Predictor:
                  max_batch: int = 64, engine: str = "auto",
                  latency_buckets: Optional[Sequence[int]] = None,
                  device="cuda", mesh=None, act_calibration=None,
-                 act_scales=None, auto_calibrate: int = 0,
+                 act_scales=None, auto_calibrate: int = 256,
                  q8aux: bool = False):
         """state_dict: reference-shaped MCANet weights
         (``MCANet.state_dict()``, ``train/checkpoint.py``).
@@ -56,15 +60,33 @@ class Predictor:
         device: where the engine runs, "cuda" by default; with no CUDA
         device it raises unless the caller passes device="cpu".
 
-        mesh, act_calibration, act_scales, auto_calibrate, q8aux: the JAX
-        Predictor's int8 / calibration / multi-chip arguments; not ported,
-        so anything but their defaults raises."""
-        if (mesh is not None or act_calibration is not None
-                or act_scales is not None or auto_calibrate or q8aux):
+        act_calibration: optional (questions, image_features) batch for the
+        fused engine: static activation scales are calibrated on it and
+        the level-3 engine is built at once. act_scales: precomputed
+        scales ({"enc_i" / "dec_i": tuple of floats}, e.g. a calibrated
+        Predictor's ``act_scales``); False means None. The two are
+        mutually exclusive.
+
+        auto_calibrate: online calibration of the fused engine (the
+        default, 256). It serves level 1 from the first request, buffers
+        the first ``auto_calibrate`` finite real rows (bucket padding is
+        never collected), then a background thread calibrates on them,
+        builds the level-3 engine, runs every bucket once and swaps the
+        new engine in atomically. A failed attempt returns to collecting
+        with a doubled target and reports the error in ``calibration``.
+        0 disables it; it is off when a calibration source is given.
+
+        ``routes`` maps every bucket to "base": the JAX router's int4 and
+        q8aux buckets (api.py:36-52) rest on TPU measurements, and until
+        the port measures its own table it serves calibrated level 3 in
+        every bucket.
+
+        mesh, q8aux, engine "int8" / "int4": not ported; they raise."""
+        if mesh is not None or q8aux:
             raise NotImplementedError(
-                "mesh, act_calibration, act_scales, auto_calibrate and "
-                "q8aux: calibration, the int8 sites and meshes are not "
-                "ported yet")
+                "mesh and q8aux: multi-device meshes and the static-int8 "
+                "aux sites are not ported yet")
+        requested = engine
         if engine == "auto":
             engine = "fused"
         if engine in NOT_PORTED:
@@ -74,6 +96,20 @@ class Predictor:
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}: expected one of "
                              f"{ENGINES + ('auto',)}")
+        if act_scales is False:
+            act_scales = None
+        if auto_calibrate < 0:
+            raise ValueError(
+                f"auto_calibrate must be >= 0, got {auto_calibrate}")
+        if act_calibration is not None and act_scales is not None:
+            raise ValueError(
+                "pass a calibration batch OR precomputed scales, not both")
+        pre_calibrated = act_calibration is not None or act_scales is not None
+        if pre_calibrated and engine != "fused":
+            what = ("act_calibration" if act_calibration is not None
+                    else "act_scales")
+            raise ValueError(f"{what} requires engine='fused' (or 'auto'), "
+                             f"got engine={engine!r}")
         buckets = sorted(set(latency_buckets or ()))
         if not all(0 < b <= max_batch for b in buckets):
             raise ValueError(
@@ -90,15 +126,70 @@ class Predictor:
             + (max_batch,)
 
         if engine == "fused":
-            self._forward, self.params = build_production_engine(
-                state_dict, cfg.layer, cfg.multi_head, qffn=0,
-                device=self.device)
+            act_inputs = None
+            if act_calibration is not None:
+                ques, img = self._prep_inputs(*act_calibration)
+                act_inputs = (img, ques)
+            if requested == "auto" and not pre_calibrated \
+                    and not auto_calibrate:
+                warnings.warn(
+                    "engine='auto' has no calibration source "
+                    "(act_calibration/act_scales absent, auto_calibrate "
+                    "off): serving stays on the dynamic int8 engine, not "
+                    "the calibrated level-3 engine")
+            self._install(self._build_fused(state_dict, act_inputs,
+                                            act_scales))
         else:
             model = MCANet(cfg, token_size=len(token_to_ix),
                            answer_size=len(self.ix_to_ans))
             model.load_state_dict(state_dict, strict=True)
-            self.params = model.to(self.device).eval()
-            self._forward = lambda m, img, ques: m(img, ques)
+            self._install((lambda m, img, ques: m(img, ques),
+                           model.to(self.device).eval()))
+
+        # --- online calibration state (api.py:564-722) ------------------
+        self._cal_error: Optional[BaseException] = None
+        self._cal_thread: Optional[threading.Thread] = None
+        self._cal_lock = threading.Lock()
+        self._cal_imgs: Optional[list] = []
+        self._cal_ques: Optional[list] = []
+        self._cal_n = 0
+        if engine == "fused" and not pre_calibrated and auto_calibrate:
+            self._auto_cal = int(auto_calibrate)
+            self._raw_state = state_dict     # for the calibrated rebuild
+            self._cal_state = "collecting"
+        else:
+            self._auto_cal = 0
+            self._raw_state = None
+            self._cal_state = "calibrated" if pre_calibrated else "off"
+
+    # ------------------------------------------------------------------
+    # engines
+
+    def _build_fused(self, state_dict, act_inputs, act_scales=None):
+        """-> (forward, prepared) of the shipped engine: level 1 without
+        calibration, level 3 with a calibration batch or scales."""
+        return build_production_engine(
+            state_dict, self.cfg.layer, self.cfg.multi_head,
+            act_scale_inputs=act_inputs, act_scales=act_scales,
+            device=self.device)
+
+    def _install(self, built) -> None:
+        """Swap an engine in: one atomic handle holds the engines and the
+        routes together, so a concurrent request never pairs a new
+        route with an old engine."""
+        self.params = built[1]
+        self._live = ({"base": built}, {b: "base" for b in self.buckets})
+
+    @property
+    def routes(self) -> Dict[int, str]:
+        """The live bucket -> engine table (every bucket "base")."""
+        return dict(self._live[1])
+
+    @property
+    def act_scales(self) -> Optional[Dict[str, tuple]]:
+        """The static activation scales the live engine bakes in, or None
+        (dynamic scales, or the plain engine)."""
+        return getattr(self._live[0]["base"][0], "act_scales", None)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Config,
@@ -114,33 +205,166 @@ class Predictor:
         return cls(cfg, load_reference_checkpoint(path), token_to_ix,
                    ix_to_ans, **kwargs)
 
+    # ------------------------------------------------------------------
+    # online calibration
+
+    @property
+    def calibration(self) -> Dict[str, object]:
+        """state in {"off", "collecting", "paused", "calibrating",
+        "calibrated"}, the rows buffered and the target; after a failed
+        attempt (state "collecting" again) also "error"."""
+        out = {"state": self._cal_state, "samples": self._cal_n,
+               "target": self._auto_cal}
+        if self._cal_error is not None:
+            out["error"] = str(self._cal_error)
+        return out
+
+    def calibration_paused(self):
+        """Context manager that stops collecting calibration rows, for
+        traffic that is not representative (warm-up batches)."""
+        @contextlib.contextmanager
+        def _pause():
+            with self._cal_lock:
+                resume = self._cal_state == "collecting"
+                if resume:
+                    self._cal_state = "paused"
+            try:
+                yield
+            finally:
+                if resume:
+                    with self._cal_lock:
+                        if self._cal_state == "paused":
+                            self._cal_state = "collecting"
+        return _pause()
+
+    def wait_calibrated(self, timeout: Optional[float] = None) -> bool:
+        """Block until a started background calibration attempt ends
+        (True) or ``timeout`` seconds pass (False). True means the attempt
+        ended, not that it succeeded: see ``calibration``."""
+        t = self._cal_thread
+        if t is not None:
+            t.join(timeout)
+            return not t.is_alive()
+        return self._cal_state == "calibrated"
+
+    def calibrate_now(self) -> None:
+        """Calibrate on the rows buffered so far (at least one),
+        synchronously; raises if that fails."""
+        with self._cal_lock:
+            if self._cal_state != "collecting":
+                raise RuntimeError(
+                    f"calibration is {self._cal_state!r}, not collecting")
+            if not self._cal_n:
+                raise RuntimeError("no calibration samples buffered yet")
+            img, ques = self._drain_buffer_locked()
+        self._recalibrate(img, ques, reraise=True)
+
+    def _drain_buffer_locked(self):
+        img = np.concatenate(self._cal_imgs)[:self._auto_cal]
+        ques = np.concatenate(self._cal_ques)[:self._auto_cal]
+        self._cal_imgs = self._cal_ques = None
+        self._cal_state = "calibrating"
+        return img, ques
+
+    def _collect_calibration(self, ques: np.ndarray, img: np.ndarray):
+        """Buffer a request's real, finite rows; start the background
+        rebuild once the target is reached."""
+        finite = np.isfinite(img).all(axis=tuple(range(1, img.ndim)))
+        if not finite.all():
+            ques, img = ques[finite], img[finite]
+        if not len(img):
+            return
+        with self._cal_lock:
+            if self._cal_state != "collecting":
+                return
+            self._cal_imgs.append(img)
+            self._cal_ques.append(ques)
+            self._cal_n += len(img)
+            if self._cal_n < self._auto_cal:
+                return
+            img_cal, ques_cal = self._drain_buffer_locked()
+            self._cal_thread = threading.Thread(
+                target=self._recalibrate, args=(img_cal, ques_cal),
+                name="predictor-calibration", daemon=True)
+        self._cal_thread.start()
+
+    def _recalibrate(self, img_cal: np.ndarray, ques_cal: np.ndarray,
+                     reraise: bool = False) -> None:
+        """Build the level-3 engine, run every bucket once, then swap it
+        in. Runs off the serving thread; requests keep the level-1 engine
+        until the swap. inference_mode is per thread, so it is entered
+        here as well."""
+        try:
+            with torch.inference_mode():
+                built = self._build_fused(self._raw_state,
+                                          (img_cal, ques_cal))
+                fwd, prepared = built
+                cfg = self.cfg
+                for b in self.buckets:
+                    fwd(prepared,
+                        torch.zeros((b, cfg.img_feat_pad_size,
+                                     cfg.img_feat_size), device=self.device),
+                        torch.zeros((b, cfg.max_token), dtype=torch.int32,
+                                    device=self.device))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            self._install(built)
+            self._cal_state = "calibrated"
+            self._cal_error = None
+            self._raw_state = None
+        except Exception as e:  # noqa: BLE001 -- serving goes on
+            with self._cal_lock:
+                self._cal_error = e
+                self._cal_imgs = [img_cal]
+                self._cal_ques = [ques_cal]
+                self._cal_n = len(img_cal)
+                self._auto_cal = max(self._auto_cal * 2, self._cal_n + 1)
+                self._cal_state = "collecting"
+            if reraise:
+                raise
+            warnings.warn(f"online calibration failed; serving stays on "
+                          f"the dynamic int8 engine (will retry at "
+                          f"{self._auto_cal} samples): {e!r}")
+
+    # ------------------------------------------------------------------
+    # requests
+
     def bucket_for(self, n: int) -> int:
         return next(b for b in self.buckets if b >= n)
+
+    def _prep_inputs(self, questions: Sequence[str], image_features
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Tokenise and pad the regions -> (ques [N, T] int32, img
+        [N, pad, F] f32), the rows that calibration collects."""
+        n = len(questions)
+        if len(image_features) != n:
+            raise ValueError(f"{n} questions but {len(image_features)} "
+                             f"feature blocks")
+        return prep_request_inputs(questions, image_features,
+                                   self.token_to_ix, self.cfg.max_token,
+                                   self.cfg.img_feat_pad_size)
 
     def pad_batch(self, questions: Sequence[str], image_features
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Tokenise and pad a request batch to its bucket -> (img
         [bucket, pad, F] f32, ques [bucket, T] int32), the inputs of
-        ``forward_padded``."""
+        ``forward_padded``. Collects nothing for calibration."""
         n = len(questions)
-        if len(image_features) != n:
-            raise ValueError(f"{n} questions but {len(image_features)} "
-                             f"feature blocks")
         if not 0 < n <= self.max_batch:
             raise ValueError(f"batch of {n} outside (0, {self.max_batch}]")
-        ques, img = prep_request_inputs(questions, image_features,
-                                        self.token_to_ix, self.cfg.max_token,
-                                        self.cfg.img_feat_pad_size)
+        ques, img = self._prep_inputs(questions, image_features)
         return pad_to_bucket(img, ques, self.bucket_for(n))
 
     def forward_padded(self, img: np.ndarray, ques: np.ndarray
                        ) -> torch.Tensor:
         """One forward on an already padded batch -> probabilities
         [bucket, A] on the engine's device (not synchronised)."""
+        live, routes = self._live
+        forward, params = live[routes[self.bucket_for(img.shape[0])]]
         with torch.inference_mode():
             img_t = torch.from_numpy(img).to(self.device)
             ques_t = torch.from_numpy(ques).to(self.device)
-            logits = self._forward(self.params, img_t, ques_t)
+            logits = forward(params, img_t, ques_t)
             return torch.sigmoid(logits.float())
 
     def predict_probs(self, questions: Sequence[str],
@@ -148,8 +372,14 @@ class Predictor:
         """questions: N strings; image_features: [N, R<=pad, F] or N
         per-image [R_i, F] arrays (zero rows are padding).
         Returns probabilities [N, answer_size]."""
-        img, ques = self.pad_batch(questions, image_features)
-        return self.forward_padded(img, ques)[:len(questions)].cpu().numpy()
+        n = len(questions)
+        if not 0 < n <= self.max_batch:
+            raise ValueError(f"batch of {n} outside (0, {self.max_batch}]")
+        ques, img = self._prep_inputs(questions, image_features)
+        if self._cal_state == "collecting":
+            self._collect_calibration(ques, img)
+        img, ques = pad_to_bucket(img, ques, self.bucket_for(n))
+        return self.forward_padded(img, ques)[:n].cpu().numpy()
 
     def answer(self, questions: Sequence[str],
                image_features) -> List[Tuple[str, float]]:

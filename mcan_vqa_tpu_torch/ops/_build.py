@@ -39,8 +39,8 @@ SIGNATURES = {
     "mcan_gemm": [_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _P, _LL,
                   _F, _P, _LL, _P, _LL, _P, _LL, _P],
     "mcan_masked_attention": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL, _I,
-                              _P, _P, _F, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                              _F, _P],
+                              _P, _P, _F, _P, _I, _LL, _LL, _I, _I, _I, _I,
+                              _I, _F, _P],
     "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                                   _I, _P, _P, _F, _P, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
@@ -52,6 +52,9 @@ SIGNATURES = {
     "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P,
                                     _P, _P, _P, _I, _I, _F, _P],
     "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _P],
+    "mcan_quantize_rows": [_P, _I, _LL, _I, _I, _I, _F, _P, _P, _P],
+    "mcan_gemm_s8": [_P, _LL, _P, _LL, _I, _I, _I, _P, _F, _P, _P, _I, _P, _P,
+                     _LL, _P],
 }
 
 _lock = threading.Lock()

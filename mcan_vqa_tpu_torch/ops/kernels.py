@@ -1,11 +1,14 @@
 """Wrappers of the hand-written CUDA kernels (csrc/*.cu) that the serving
-blocks (ops/sga_block.py) and the train block (ops/sga_train.py) are built
-from, each beside its plain PyTorch version.
+blocks (ops/sga_block.py, ops/quant.py) and the train blocks
+(ops/sga_train.py, ops/sa_train.py) are built from, each beside its plain
+PyTorch version.
 
   gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu, NN
   gemm_dx                C = dY . W^T (gradient gate, + res)   gemm.cu, NT
   gemm_dw                C = X^T . dY                          gemm.cu, TN
-  masked_attention       softmax(q k^T / 8, PAD) (dropout) . v
+  gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_s8.cu
+  quantize_rows          int8 codes of rows, dynamic or static  quantize.cu
+  masked_attention       softmax(q k^T / 8, PAD) (dropout) . v, bf16 or f32
   masked_attention_bwd   dq, dk, dv of the above
   residual_layernorm     LN(res + drop(y + bias)), optionally r
   residual_layernorm_bwd dr, drop(dr), g * u of that LN
@@ -16,8 +19,9 @@ its plain version; on a CUDA tensor it launches its kernel, or raises if
 the kernel does not take the arguments. There is no fallback from one to
 the other.
 
-Each launch adds one to ``LAUNCHES[<wrapper name>]``, and nothing else
-does, so a run can show that its main path went through the kernels
+Each launch adds one to ``LAUNCHES[<wrapper name>]`` (the f32-output
+attention to ``LAUNCHES["masked_attention_f32"]``), and nothing else does,
+so a run can show that its main path went through the kernels
 (``reset_launches`` / ``launch_counts``).
 
 Dropout keep-masks are uint8 (or bool) tensors of 0 / 1 laid out like the
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +45,7 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
     std_layer_norm
 
 F32 = torch.float32
+I8 = torch.int8
 LN_EPS = 1e-6
 HEAD_DIMS = (64, 128)  # the attention kernels' Dh: MCAN-small, MCAN-large
 MAX_SEQ = 64           # the attention kernels' largest Lq / Lk
@@ -100,6 +106,20 @@ def _same_device(name: str, *ts: Optional[torch.Tensor]) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to the nearest f32 value: how a JAX kernel
+    holds a Python constant (a weakly typed scalar) against f32 arrays.
+    Host-only (struct), so it adds no tensor to a launch."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, one correctly rounded division per element on either device
+    (on CUDA, PyTorch divides by a Python scalar as a multiplication by its
+    reciprocal, which can land an ulp away)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _drop(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -264,6 +284,123 @@ def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the int8 GEMM and the activation quantization (the int8 serving blocks)
+# ---------------------------------------------------------------------------
+
+def quantize_rows_plain(x: torch.Tensor, inv_a: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    x32 = x.float()
+    if inv_a is None:
+        s = true_div(x32.abs().amax(dim=-1), 127.0)
+        s = torch.where(s == 0.0, torch.ones_like(s), s)
+        q = torch.round(x32 / s[:, None])
+    else:
+        s = None
+        q = torch.round(x32 * _f32(inv_a))
+    return q.clamp_(-127.0, 127.0).to(I8), s
+
+
+def quantize_rows(x: torch.Tensor, inv_a: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Symmetric int8 codes of the rows of x [M, K] (f32 or bf16, unit
+    column stride) -> (int8 [M, K], f32 scales [M] or None).
+
+    inv_a None: dynamic per-row scales s = max|x| / 127 (0 -> 1) and codes
+    clip(round(x / s), -127, 127), a true division (``_qrow``,
+    mcan_vqa_tpu/ops/quant.py:245). inv_a given: the static codes
+    clip(round(x * inv_a), -127, 127) with inv_a = 1 / a rounded to f32
+    (``_qdot_static``, quant.py:275); no scales. Rounding is half to even.
+    The kernel gives the plain version's codes and scales bit for bit."""
+    if not on_cuda(x):
+        return quantize_rows_plain(x, inv_a)
+    name = "quantize_rows"
+    _require(x.dim() == 2 and x.dtype in (F32, BF16) and x.stride(1) == 1,
+             f"{name}: x must be f32 or bf16 [M, K] with unit column stride,"
+             f" got {tuple(x.shape)} {x.dtype}")
+    M, Kd = x.shape
+    q = torch.empty((M, Kd), dtype=I8, device=x.device)
+    s = torch.empty(M, dtype=F32, device=x.device) if inv_a is None else None
+    rc = _lib().mcan_quantize_rows(
+        x.data_ptr(), int(x.dtype == BF16), x.stride(0), M, Kd,
+        int(inv_a is None), 0.0 if inv_a is None else _f32(inv_a),
+        q.data_ptr(), _ptr(s), _stream(x))
+    _check(rc, name)
+    return q, s
+
+
+def int8_dot_exact(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] . int8 [K, N] -> the f32 value of the exact int32 sums:
+    f64 sums of int8 products are exact integers (|acc| <= 127^2 K <
+    2^53) on either device, and their one rounding to f32 is the kernels'
+    int32 -> f32 conversion."""
+    return (aq.double() @ wq.double()).float()
+
+
+def gemm_s8_plain(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  sx: Optional[torch.Tensor] = None, a: Optional[float] = None,
+                  relu: bool = False,
+                  out_dtypes: Sequence[torch.dtype] = (F32,)
+                  ) -> Tuple[torch.Tensor, ...]:
+    scale = sx[:, None] * sw if sx is not None else _f32(a) * sw
+    y = int8_dot_exact(aq, wq) * scale
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return tuple(y.to(dt) for dt in out_dtypes)
+
+
+def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, *,
+            sx: Optional[torch.Tensor] = None, a: Optional[float] = None,
+            relu: bool = False, out_dtypes: Sequence[torch.dtype] = (F32,)
+            ) -> Tuple[torch.Tensor, ...]:
+    """aq [M, K] int8 . wq [K, N] int8 (the JAX [in, out] layout), summed
+    exactly in int32, then f32(acc) * (sx[m] * sw[n]) with the per-row
+    activation scales sx (dynamic, ``_qdot``, quant.py:253) or f32(acc) *
+    (a * sw[n]) with one static scale a (``_qdot_static``, :263), + bias
+    [N], then ReLU -> one [M, N] tensor per out_dtypes (f32 and/or bf16).
+    Pass exactly one of sx and a. K and N must be multiples of 16."""
+    if not on_cuda(aq):
+        return gemm_s8_plain(aq, wq, sw, bias, sx=sx, a=a, relu=relu,
+                             out_dtypes=out_dtypes)
+    name = "gemm_s8"
+    _same_device(name, aq, wq, sw, bias, sx)
+    _require((sx is None) != (a is None),
+             f"{name}: pass per-row scales sx or a static scale a")
+    _require(aq.dtype == I8 and wq.dtype == I8 and aq.dim() == 2
+             and wq.dim() == 2 and aq.shape[1] == wq.shape[0],
+             f"{name}: int8 [M, K] . int8 [K, N] expected, got "
+             f"{tuple(aq.shape)} {aq.dtype} . {tuple(wq.shape)} {wq.dtype}")
+    M, Kd = aq.shape
+    N = wq.shape[1]
+    _require(Kd % 16 == 0 and N % 16 == 0,
+             f"{name}: K={Kd} and N={N} must be multiples of 16")
+    _require(aq.stride(1) == 1 and wq.stride(1) == 1
+             and aq.stride(0) % 16 == 0 and wq.stride(0) % 16 == 0
+             and aq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
+             f"{name}: operands need unit column stride, row strides that "
+             f"are multiples of 16 and 16-byte alignment")
+    _check_vec(name, sw, N)
+    _check_vec(name, bias, N)
+    _require(sx is None or (sx.dtype == F32 and sx.is_contiguous()
+                            and sx.numel() == M),
+             f"{name}: sx must be f32 [{M}]")
+    _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
+             and len(set(out_dtypes)) == len(out_dtypes),
+             f"{name}: out_dtypes {out_dtypes}")
+    outs = {dt: torch.empty((M, N), dtype=dt, device=aq.device)
+            for dt in out_dtypes}
+    rc = _lib().mcan_gemm_s8(
+        aq.data_ptr(), aq.stride(0), wq.data_ptr(), wq.stride(0), M, N, Kd,
+        _ptr(sx), 0.0 if a is None else _f32(a), sw.data_ptr(), _ptr(bias),
+        int(relu), _ptr(outs.get(F32)), _ptr(outs.get(BF16)), N, _stream(aq))
+    _check(rc, name)
+    return tuple(outs[dt] for dt in out_dtypes)
+
+
+# ---------------------------------------------------------------------------
 # masked_attention and its backward
 # ---------------------------------------------------------------------------
 
@@ -284,13 +421,14 @@ def _heads_out(o: torch.Tensor) -> torch.Tensor:
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_pad: torch.Tensor,
                            drop: Optional[torch.Tensor] = None,
-                           inv_keep: float = 1.0) -> torch.Tensor:
+                           inv_keep: float = 1.0,
+                           out_dtype: torch.dtype = BF16) -> torch.Tensor:
     if drop is None:
         out = _attention_f32(q, k, v, key_pad)
     else:
         p = _drop(_probs(q, k, key_pad), drop, inv_keep)
         out = p.to(BF16).float() @ v.to(BF16).float()
-    return _heads_out(out).to(BF16)
+    return _heads_out(out).to(out_dtype)
 
 
 def _check_attention(name, q, k, v, key_pad, drop):
@@ -321,25 +459,29 @@ def _check_attention(name, q, k, v, key_pad, drop):
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_pad: torch.Tensor,
                      drop: Optional[torch.Tensor] = None,
-                     inv_keep: float = 1.0) -> torch.Tensor:
+                     inv_keep: float = 1.0,
+                     out_dtype: torch.dtype = BF16) -> torch.Tensor:
     """q [B, H, Lq, Dh] bf16, k/v [B, H, Lk, Dh] bf16 or f32, Dh 64 or
     128 (strided views are read in place; the last dim must be
     contiguous), key_pad bool [B, 1, 1, Lk] (True = PAD), drop an optional
-    keep-mask [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*Dh] bf16,
-    the layout the merge projection takes."""
+    keep-mask [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*Dh] in
+    out_dtype (bf16, or f32 for a merge that quantizes it to int8), the
+    layout the merge projection takes."""
     if not on_cuda(q):
-        return masked_attention_plain(q, k, v, key_pad, drop, inv_keep)
+        return masked_attention_plain(q, k, v, key_pad, drop, inv_keep,
+                                      out_dtype)
     name = "masked_attention"
     _same_device(name, q, k, v, key_pad, drop)
     B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
-    out = torch.empty((B, Lq, H * Dh), dtype=BF16, device=q.device)
+    _require(out_dtype in (BF16, F32), f"{name}: out_dtype {out_dtype}")
+    out = torch.empty((B, Lq, H * Dh), dtype=out_dtype, device=q.device)
     rc = _lib().mcan_masked_attention(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
-        out.data_ptr(), Lq * H * Dh, H * Dh, B, H, Lq, Lk, Dh,
-        1.0 / Dh ** 0.5, _stream(q))
-    _check(rc, name)
+        out.data_ptr(), int(out_dtype == F32), Lq * H * Dh, H * Dh, B, H,
+        Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
+    _check(rc, name if out_dtype == BF16 else name + "_f32")
     return out
 
 

@@ -86,7 +86,12 @@ def test_fused_and_plain_engines_agree(weights):
     feats = _features(4, seed=4)
     pf = fused.predict_probs(QUESTIONS, feats)
     pp = plain.predict_probs(QUESTIONS, feats)
-    # bf16 residual stream (fused) against f32 (plain): ~1e-3 apart
+    # the default fused engine is int8 level 1 (dynamic per-row scales:
+    # each code within half a step, max|x| / 254, of its input) with a
+    # bf16 residual stream, the plain one f32 throughout: 1.8e-3 apart on
+    # these inputs (2.2e-3 at level 3); the JAX package bounds the same
+    # engine against model.apply by 2e-2 (tests/test_quant.py:564). 1e-2
+    # keeps 5x the measured gap
     np.testing.assert_allclose(pf, pp, atol=1e-2)
     np.testing.assert_array_equal(pf.argmax(-1), pp.argmax(-1))
 
@@ -110,9 +115,6 @@ def test_from_checkpoint_reference_pickle(weights, tmp_path):
     (dict(engine="int4"), NotImplementedError),
     (dict(engine="bogus"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(act_calibration=(["q"], [np.zeros((1, 32))])), NotImplementedError),
-    (dict(act_scales={"enc_0": (1.0, 1.0, 1.0)}), NotImplementedError),
-    (dict(auto_calibrate=256), NotImplementedError),
     (dict(q8aux=True), NotImplementedError),
     (dict(latency_buckets=(16,)), ValueError)])
 def test_refused_arguments(weights, kwargs, err):

@@ -1,7 +1,8 @@
 """MCAN-small at full width on the CPU (hidden 512, 6+6 layers, 8 heads,
 ff 2048, 60 regions, 14 tokens, 3129 answers, B=2): the port's serving
-forward (plain versions of the block kernels, bf16 stream) and its plain
-engine against the JAX ``model.apply`` on the same weights.
+forward (plain versions of the block kernels, bf16 stream; the all-bf16
+engine and the int8 levels 1 and 3) and its plain engine against the JAX
+``model.apply`` on the same weights.
 
 Weights are made by the port from a seed and carried into JAX through the
 JAX package's own importer (``import_torch_state_dict``), which exercises
@@ -51,7 +52,7 @@ def _probs(logits):
 def test_serving_forward_matches_model_apply(full_size):
     cfg, net, img, ques, ref = full_size
     fwd, prep = build_production_engine(net.state_dict(), cfg.layer,
-                                        cfg.multi_head, device="cpu")
+                                        cfg.multi_head, qffn=0, device="cpu")
     with torch.no_grad():
         probs = _probs(fwd(prep, torch.from_numpy(img),
                            torch.from_numpy(ques)))
@@ -70,4 +71,26 @@ def test_plain_engine_matches_model_apply(full_size):
     # same numerics (f32 stream, bf16 matmul operands) summed in another
     # order; a bf16 rounding one step apart carries through 12 blocks
     assert np.abs(probs - ref).max() < 5e-3
+    np.testing.assert_array_equal(probs.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("calibrated", [False, True],
+                         ids=["level1-dynamic", "level3-calibrated"])
+def test_int8_engines_match_model_apply(full_size, calibrated):
+    """The default engine before and after calibration (on this batch).
+    The bound of chip_smoke.py's [serve] agreement check rests on this."""
+    cfg, net, img, ques, ref = full_size
+    kw = dict(act_scale_inputs=(img, ques)) if calibrated else {}
+    fwd, prep = build_production_engine(net.state_dict(), cfg.layer,
+                                        cfg.multi_head, device="cpu", **kw)
+    assert (fwd.act_scales is not None) == calibrated
+    with torch.no_grad():
+        probs = _probs(fwd(prep, torch.from_numpy(img),
+                           torch.from_numpy(ques)))
+    # int8 codes within half a step of their inputs at 12 blocks' FFN
+    # sites (level 3: at every projection) on top of the bf16 stream:
+    # 2.8e-3 (level 1) and 4.5e-3 (level 3) apart in probability on these
+    # inputs (CPU), against 2.0e-3 for the bf16 engine; bound 2e-2, the
+    # JAX package's own bound for the int8 engine (tests/test_quant.py:564)
+    assert np.abs(probs - ref).max() < 2e-2
     np.testing.assert_array_equal(probs.argmax(-1), ref.argmax(-1))

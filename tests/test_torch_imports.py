@@ -48,6 +48,7 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/data/__init__.py",
                      "mcan_vqa_tpu_torch/data/text.py",
                      "mcan_vqa_tpu_torch/ops/sga_block.py",
+                     "mcan_vqa_tpu_torch/ops/quant.py",
                      "mcan_vqa_tpu_torch/ops/sga_train.py",
                      "mcan_vqa_tpu_torch/train/trainer.py",
                      "mcan_vqa_tpu_torch/cli/run_vqa.py", "chip_smoke.py"):
@@ -92,6 +93,7 @@ def test_port_loads_no_jax_module():
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import mcan_vqa_tpu_torch.api, mcan_vqa_tpu_torch.ops.serving\n"
+            "import mcan_vqa_tpu_torch.ops.quant\n"
             "import mcan_vqa_tpu_torch.train.checkpoint\n"
             "import mcan_vqa_tpu_torch.train.trainer\n"
             "import mcan_vqa_tpu_torch.cli.run_vqa\n"

@@ -189,11 +189,140 @@ def test_predictor_fused_matches_plain_on_the_card(cuda):
              .astype(np.float32) for r in (60, 7, 33)]
     K.reset_launches()
     pf = fused.predict_probs(questions, feats)
-    assert K.launch_counts()["fused_sga_block"] == cfg.layer
+    # the default engine: int8 level 1 in every block, no bf16 block
+    counts = K.launch_counts()
+    assert counts["fused_qffn_sga_block"] == cfg.layer
+    assert counts["fused_qffn_sa_block"] == cfg.layer
+    assert "fused_sga_block" not in counts
     pp = plain.predict_probs(questions, feats)
-    # bf16 residual stream (fused) against f32 (plain)
+    # int8 FFN and bf16 residual stream (fused) against f32 (plain): the
+    # bound of tests/test_torch_api.py::test_fused_and_plain_engines_agree
     np.testing.assert_allclose(pf, pp, atol=1e-2)
     assert np.isfinite(pf).all() and pf.shape == (3, 50)
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels and blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,Kd,dtype,static", [
+    (77, 512, torch.float32, False), (77, 2048, torch.float32, True),
+    (61, 1024, BF16, False), (5, 512, BF16, True)])
+def test_quantize_rows_matches_plain_bitwise(cuda, M, Kd, dtype, static):
+    g = torch.Generator(device=cuda).manual_seed(M + Kd)
+    x = (torch.randn(M, Kd, generator=g, device=cuda) * 3).to(dtype)
+    x[1] = 0.0                                       # scale 1, codes 0
+    x[2, :4] = torch.tensor([127.0, 0.5, 2.5, -3.5])  # ties at scale 1
+    x[2, 4:] = 0.0
+    inv_a = 1.0 / 0.021 if static else None          # saturates some rows
+    q, s = K.quantize_rows(x, inv_a)
+    before = K.launch_counts().get("quantize_rows", 0)
+    rq, rs = K.quantize_rows_plain(x, inv_a)
+    assert K.launch_counts().get("quantize_rows", 0) == before
+    torch.cuda.synchronize()
+    # every step is one correctly rounded operation: the same bits
+    assert torch.equal(q, rq)
+    assert (s is None and rs is None) or torch.equal(s, rs)
+    if not static:
+        assert q[2, :4].tolist() == [127, 0, 2, -4]
+
+
+@pytest.mark.parametrize("M,Kd,N,static,relu", [
+    (3840, 512, 2048, False, True), (896, 2048, 512, True, False),
+    (61, 1024, 3072, False, False), (1, 4096, 1024, True, False)])
+def test_gemm_s8_matches_plain_bitwise(cuda, M, Kd, N, static, relu):
+    g = torch.Generator(device=cuda).manual_seed(N + M)
+    aq = torch.randint(-127, 128, (M, Kd), generator=g, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (Kd, N), generator=g, device=cuda,
+                       dtype=torch.int8)
+    aq[0] = 127                   # 127 x 127 x K > 2^24 in column 0
+    wq[:, 0] = 127
+    sw = torch.rand(N, generator=g, device=cuda) * 1e-3
+    bias = torch.randn(N, generator=g, device=cuda)
+    kw = dict(a=0.0173) if static else dict(
+        sx=torch.rand(M, generator=g, device=cuda) * 0.05)
+    outs = K.gemm_s8(aq, wq, sw, bias, relu=relu,
+                     out_dtypes=(torch.float32, BF16), **kw)
+    refs = K.gemm_s8_plain(aq, wq, sw, bias, relu=relu,
+                           out_dtypes=(torch.float32, BF16), **kw)
+    torch.cuda.synchronize()
+    # exact int32 sums, then the same correctly rounded epilogue
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+
+
+def test_gemm_s8_raises_on_unsupported_operands(cuda):
+    aq = torch.zeros(8, 512, dtype=torch.int8, device=cuda)
+    sw = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        K.gemm_s8(aq[:, :500], torch.zeros(500, 64, dtype=torch.int8,
+                                           device=cuda), sw, a=1.0)
+    with pytest.raises(ValueError, match="int8"):
+        K.gemm_s8(aq.float(), torch.zeros(512, 64, dtype=torch.int8,
+                                          device=cuda), sw, a=1.0)
+    with pytest.raises(ValueError, match="sx or a static scale"):
+        K.gemm_s8(aq, torch.zeros(512, 64, dtype=torch.int8, device=cuda),
+                  sw)
+
+
+@pytest.mark.parametrize("Lq,Lk,lengths,Dh", [
+    (14, 14, [14, 0, 5], 64), (60, 14, [3, 14, 0], 64),
+    (60, 60, [0, 60, 17], 128)])
+def test_attention_f32_output_matches_plain(cuda, Lq, Lk, lengths, Dh):
+    q, k, v, mask = _attention_inputs(3, 8, Lq, Lk, lengths, cuda, Dh=Dh)
+    before = K.launch_counts().get("masked_attention_f32", 0)
+    out = K.masked_attention(q, k, v, mask, out_dtype=torch.float32)
+    assert K.launch_counts()["masked_attention_f32"] == before + 1
+    assert out.dtype == torch.float32
+    # bf16 probabilities: one may land a rounding step apart
+    _close(out, K.masked_attention_plain(q, k, v, mask,
+                                         out_dtype=torch.float32), 2 ** -7)
+    # the same sums as the bf16 output, kept before its rounding
+    assert torch.equal(out.to(BF16), K.masked_attention(q, k, v, mask))
+
+
+@pytest.mark.parametrize("level", [1, 3])
+def test_qffn_blocks_match_plain_with_fully_padded_samples(cuda, level):
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import _cross_kv, prepare_params
+    cfg, sd, *_ = _small_model()
+    bb = prepare_params(sd, cfg.layer, device=cuda, qffn=level)["backbone"]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, D, H = 5, cfg.hidden_size, cfg.multi_head
+    x = torch.randn(B, 14, D, generator=g, device=cuda).to(BF16)
+    v = torch.randn(B, 60, D, generator=g, device=cuda).to(BF16)
+    q_mask = torch.zeros(B, 1, 1, 14, dtype=torch.bool, device=cuda)
+    v_mask = torch.zeros(B, 1, 1, 60, dtype=torch.bool, device=cuda)
+    q_mask[1] = True                    # an all-PAD question
+    q_mask[3, ..., 4:] = True
+    v_mask[2] = True                    # all-zero regions
+    v_mask[4, ..., 33:] = True
+    enc, dec = bb["enc_0"], bb["dec_0"]
+    kq, vq = _cross_kv(dec["mhatt2"], x, H)
+    sa_sc = sga_sc = None
+    if level == 3:                      # the blocks' own static scales
+        sa_sc = quant._cal_sa_block(enc, x, q_mask, H, 1.1)[1]
+        sga_sc = quant._cal_sga_block(dec, v, x, v_mask, q_mask, H, 1.1)[1]
+    before = K.launch_counts()
+    out = quant.fused_qffn_sa_block(x, q_mask, enc["_mk"], enc["_qffn"],
+                                    num_heads=H, act_scales=sa_sc)
+    ref = quant.fused_qffn_sa_block_plain(x, q_mask, enc["_mk"],
+                                          enc["_qffn"], num_heads=H,
+                                          act_scales=sa_sc)
+    # as the bf16 blocks (2^-5), plus int8 codes whose f32 input sits on a
+    # rounding boundary, each moving one product term by s_x * |w|
+    _close(out, ref, 2 ** -5)
+    out = quant.fused_qffn_sga_block(v, kq, vq, v_mask, q_mask, dec["_mk"],
+                                     dec["_qffn"], num_heads=H,
+                                     act_scales=sga_sc)
+    ref = quant.fused_qffn_sga_block_plain(v, kq, vq, v_mask, q_mask,
+                                           dec["_mk"], dec["_qffn"],
+                                           num_heads=H, act_scales=sga_sc)
+    _close(out, ref, 2 ** -5)
+    after = K.launch_counts()
+    for name in ("fused_qffn_sa_block", "fused_qffn_sga_block"):
+        assert after[name] - before.get(name, 0) == 1
 
 
 # ---------------------------------------------------------------------------

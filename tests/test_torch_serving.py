@@ -5,6 +5,8 @@ small size (2 layers, hidden 64, 4 heads):
     versions of the block kernels) against the JAX
     ``build_production_engine(params, 2, 4, qffn=0, interpret=True)``;
   * ``MCANet`` (the "plain" engine) against ``model.apply``.
+
+The int8 levels of the same builder: tests/test_torch_serving_int8.py.
 """
 
 import jax
@@ -55,7 +57,7 @@ def test_serving_forward_matches_jax_production_engine(setup):
                                         qffn=0, interpret=True)
     ref = np.asarray(jfwd(jprep, img, ques))
     fwd, prep = build_production_engine(state_dict_from_params(params),
-                                        cfg.layer, cfg.multi_head,
+                                        cfg.layer, cfg.multi_head, qffn=0,
                                         device="cpu")
     with torch.no_grad():
         out = fwd(prep, *_torch(img, ques)).numpy()
@@ -81,9 +83,10 @@ def test_plain_engine_matches_model_apply(setup):
 
 
 def test_serving_forward_runs_the_block_wrappers(setup, monkeypatch):
-    """Every encoder block goes through fused_sa_block and every decoder
-    block through fused_sga_block (on the CPU they run their plain
-    versions, so the kernels' launch counts stay put)."""
+    """In the all-bf16 engine (qffn=0) every encoder block goes through
+    fused_sa_block and every decoder block through fused_sga_block (on the
+    CPU they run their plain versions, so the kernels' launch counts stay
+    put)."""
     cfg, _, params, img, ques = setup
     from mcan_vqa_tpu_torch.ops import serving as tserving
     calls = {"sa": 0, "sga": 0}
@@ -101,7 +104,7 @@ def test_serving_forward_runs_the_block_wrappers(setup, monkeypatch):
     monkeypatch.setattr(tserving, "fused_sga_block", sga)
     before = kernels.launch_counts()
     fwd, prep = build_production_engine(state_dict_from_params(params),
-                                        cfg.layer, cfg.multi_head,
+                                        cfg.layer, cfg.multi_head, qffn=0,
                                         device="cpu")
     with torch.no_grad():
         fwd(prep, *_torch(img, ques))
@@ -115,7 +118,11 @@ def test_prepared_tree_is_the_pruned_mode2_layout(setup):
                                       cfg.layer, cfg.multi_head, device="cpu")
     D = cfg.hidden_size
     enc, dec = prep["backbone"]["enc_0"], prep["backbone"]["dec_0"]
-    assert set(enc) == {"_mk"} and set(dec) == {"_mk", "mhatt2"}
+    # the default engine (level 1) keeps the bf16 layout beside the int8
+    # weights: a dynamic-scale block past QFFN_MAX_BATCH runs bf16
+    assert set(enc) == {"_mk", "_qffn"}
+    assert set(dec) == {"_mk", "_qffn", "mhatt2"}
+    assert set(dec["_qffn"]) == {"w1_q", "s1", "b1", "w2_q", "s2", "b2"}
     assert enc["_mk"]["wqkv"].shape == (D, 3 * D)
     assert enc["_mk"]["wqkv"].dtype == torch.bfloat16
     assert dec["_mk"]["wqkv1"].shape == (D, 3 * D)
@@ -128,9 +135,8 @@ def test_prepared_tree_is_the_pruned_mode2_layout(setup):
                        .to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(qffn=1), dict(qffn=None), dict(qffn=3), dict(act_scales={}),
-    dict(act_scale_inputs=(np.zeros(1), np.zeros(1))), dict(q8aux=True)])
+@pytest.mark.parametrize("kwargs", [dict(q8aux=True), dict(qffn=4),
+                                    dict(qffn=7)])
 def test_unported_engine_arguments_raise(setup, kwargs):
     cfg, _, params, _, _ = setup
     with pytest.raises(NotImplementedError):
