@@ -20,8 +20,14 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              1), bit for bit against their plain versions, with the int8
              library call (torch._int_mm) and the int8 bound; the f32-output
              attention of the level-3 merges;
+  [int4 kernels]  gemm_s4 bit for bit and gemm_w4bf16 against their plain
+             versions at every level-5 site of MCAN-small and MCAN-large
+             (M = 14, 60, 896, 3840), times at B = 1 and 64 beside gemm_s8;
   [blocks]   both bf16 serving blocks and both int8 serving blocks (levels 1
              and 3; MCAN-large level 1) against their plain versions;
+  [int4 blocks] / [int8 blocks]  the qffn blocks at levels 4-7 and the
+             full-int8 blocks against their plain versions (B=64, fully
+             padded samples; MCAN-large level 5 and full int8 once);
   [train block]  the SGA train block (forward, FFN backward, attention
              backward), the SA train block (forward, backward; save_acts
              both ways) and MCAN-large's SGA train block with att_saves and
@@ -34,7 +40,14 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              real rows, level 3 after the swap, every block through the
              int8 block kernels on both sides; checked against the "plain"
              engine; the explicit act_calibration / act_scales paths; the
-             all-bf16 engine (qffn=0); forward times of every engine;
+             all-bf16 engine (qffn=0);
+  [serve int4] / [serve q8aux] / [serve int8]  main paths 1b-1d on the same
+             requests: Predictor(engine="int4") at level 1, calibrate_now(),
+             level 5; levels 4, 6, 7 through build_production_engine;
+             Predictor(q8aux=True) before and after its swap (level 3 + the
+             static-int8 aux sites); Predictor(engine="int8"); launch counts
+             and agreement with the plain engine for each;
+  [forward]  forward times of every engine per bucket, in turns;
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
              same width, batch 64, one epoch of 10 steps, the encoder
              through the SA train blocks and the decoder through the SGA
@@ -101,6 +114,16 @@ SERVE_INT8 = "one B=64 level-1 + one B=64 level-3 serving forward"
 # leaves room for the card's summation order and scales calibrated on
 # other rows than the ones compared
 INT8_BOUND = 2e-2
+# the int4 engines (levels 4-7): their weights alone (level 7, no
+# activation quantized) move the sigmoid probabilities of MCAN-small with
+# random weights by 4.2e-2 from model.apply on the CPU
+# (tests/test_torch_full_size.py::test_quantized_engines_match_model_apply),
+# past any bound <= 0.04 on them; so the bound is the JAX package's own int4
+# gate, 0.04 on the softmax over the answers (tests/test_quant.py:339-370),
+# with the sigmoid figure printed beside it
+INT4_BOUND = 4e-2
+SERVE_W4 = "one B=1 + one B=64 level-5 serving forward"
+SERVE_W7 = "one B=1 + one B=64 level-7 serving forward"
 
 
 def fail(msg: str) -> None:
@@ -154,11 +177,19 @@ def main() -> None:
     check_train_kernels(torch, dev, rows)
     check_large_kernels(torch, dev, rows)
     check_int8_kernels(torch, dev, rows)
+    check_int4_kernels(torch, dev, rows)
     model_state, cfg, vocab, ix_to_ans = build_model(torch)
     check_blocks(torch, dev, model_state, cfg, rows)
     check_int8_blocks(torch, dev, model_state, cfg, rows)
+    check_int4_blocks(torch, dev, model_state, cfg, rows)
     check_train_block(torch, dev, rows)
-    serve_main_path(torch, dev, model_state, cfg, vocab, ix_to_ans, rows)
+    plain, requests, fused, timed = serve_main_path(
+        torch, dev, model_state, cfg, vocab, ix_to_ans, rows)
+    timed += serve_quantized_paths(torch, dev, model_state, cfg, vocab,
+                                   ix_to_ans, rows, plain, requests)
+    time_forwards(torch, cfg, fused, timed + [("plain",
+                                               plain.forward_padded)])
+    del plain, fused, timed
     work = ROOT / "ckpts" / "chip_smoke"
     try:
         trainer, ckpt = train_main_path(torch, dev, rows, work)
@@ -1321,25 +1352,37 @@ def check_blocks(torch, dev, state_dict, cfg, rows) -> None:
 # ---------------------------------------------------------------------------
 
 def qffn_block_work(B, L, Lq, D, F, H, cross, level):
-    """(bf16 operations, int8 operations, bytes) of one int8 serving block:
-    the stream in and out (bf16), the pads, the cross k/v (f32), the int8
-    and bf16 weight matrices and the f32 vectors (biases, LN, scales)."""
+    """(bf16 operations, int8 operations, bytes) of one quantized serving
+    block at qffn level 1-7, or the full-int8 block (level 8 here): the
+    stream in and out (bf16; f32 for the full-int8 block), the pads, the
+    cross k/v (f32), the weights (int8, int4 packed with f32 group scales,
+    or bf16) and the f32 vectors (biases, LN, scales)."""
     M, Dh = B * L, D // H
     n_proj = 3 if cross else 1             # the merges and the cross q
+    w4 = {4: 1, 5: 2, 6: 1, 7: 2}.get(level, 0)
+    dq = level in (6, 7)
     qkv8, proj8 = level >= 2 or D >= 1024, level >= 3
     att = 4 * B * H * L * L * Dh + (4 * B * H * L * Lq * Dh if cross else 0)
-    qkv, proj = 2 * M * D * 3 * D, 2 * M * D * D * n_proj
-    int8 = 4 * M * D * F + (qkv if qkv8 else 0) + (proj if proj8 else 0)
-    bf16 = att + (0 if qkv8 else qkv) + (0 if proj8 else proj)
-    w8 = 2 * D * F + (3 * D * D if qkv8 else 0) + (D * D * n_proj
-                                                    if proj8 else 0)
-    w16 = 2 * ((0 if qkv8 else 3 * D * D) + (0 if proj8 else D * D * n_proj))
-    vecs = 4 * (3 * D + F + D + D * n_proj + 2 * D * (3 if cross else 2)
-                + F + D + (3 * D if qkv8 else 0) + (D * n_proj if proj8
-                                                     else 0))
-    nbytes = (4 * M * D + B * (L + (Lq if cross else 0))
-              + (8 * B * H * Lq * Dh if cross else 0) + w8 + w16 + vecs)
-    return bf16, int8, nbytes
+    qkv, proj, ffn = 2 * M * D * 3 * D, 2 * M * D * D * n_proj, 4 * M * D * F
+    int8 = bf16 = wbytes = 0
+    for ops, mats, how in (
+            (ffn, ((D, F), (F, D)), "int4" if w4 else "int8"),
+            (qkv, ((D, 3 * D),), "int4" if w4 == 2 else
+             "int8" if qkv8 else "bf16"),
+            (proj, ((D, D),) * n_proj, "int8" if proj8 else "bf16")):
+        for k, n in mats:
+            wbytes += {"int4": k * n // 2 + 4 * (k // 128) * n,
+                       "int8": k * n + 4 * n, "bf16": 2 * k * n}[how]
+        if how == "bf16" or (how == "int4" and dq):
+            bf16 += ops
+        else:
+            int8 += ops
+    # biases and LayerNorm
+    vecs = 4 * (3 * D + F + D + D * n_proj + 2 * D * (3 if cross else 2))
+    stream = 8 if level == 8 else 4
+    nbytes = (stream * M * D + B * (L + (Lq if cross else 0))
+              + (8 * B * H * Lq * Dh if cross else 0) + wbytes + vecs)
+    return bf16 + att, int8, nbytes
 
 
 def random_block(torch, g, dev, D, F, sga):
@@ -1466,6 +1509,269 @@ def check_int8_blocks(torch, dev, state_dict, cfg, rows) -> None:
                                                   num_heads=H)),
         0, qffn_block_work(B, Lq, Lq, D2, F2, H, False, 1),
         qffn_block_work(B, Lv, Lq, D2, F2, H, True, 1))
+
+
+# ---------------------------------------------------------------------------
+# phase: the int4 GEMMs against their plain versions
+# ---------------------------------------------------------------------------
+
+def w4_bytes(M, Kd, N, a_size, out_size, bias=True):
+    """Bytes of one int4 product: the activations (int8 codes or bf16), the
+    packed weight, its group scales, the bias and the output."""
+    return (a_size * M * Kd + Kd * N // 2 + 4 * (Kd // 128) * N
+            + 4 * N * bias + out_size * M * N)
+
+
+def check_int4_kernels(torch, dev, rows) -> None:
+    """gemm_s4 bit for bit against its plain version at every level-5 site
+    (the qkv, w1 and w2 of MCAN-small and MCAN-large) at M = 14, 60, 896
+    and 3840 (the SA and SGA blocks at B = 1 and 64), with and without
+    ReLU / bias; gemm_w4bf16 at the same sites within gemm_bias_act's
+    tolerance. Times of the MCAN-small sites at B = 1 and B = 64 beside
+    gemm_s8 on the int8 weight of the same site; no single PyTorch call
+    computes a grouped int4 product (library none)."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w, _quant_w4
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows.row("gemm_s4", SRC + "gemm_s4.cu", f"{TPU_QUANT}:282", SERVE_W4)
+    rows.row("gemm_w4bf16", SRC + "gemm_w4bf16.cu", f"{TPU_QUANT}:307",
+             SERVE_W7)
+    say("[int4 kernels] gemm_s4 (bit for bit) and gemm_w4bf16 vs their "
+        "plain versions at every level-5 site, M = 14 / 60 (B=1) and 896 / "
+        "3840 (B=64); times: the launches of one B=1 and one B=64 forward "
+        "(level 5 / level 7), library none")
+    for model, D, F in (("small", 512, 2048), ("large", 1024, 4096)):
+        for site, Kd, N, relu, odt in (("qkv", D, 3 * D, False, bf16),
+                                       ("w1", D, F, True, f32),
+                                       ("w2", F, D, False, f32)):
+            w = torch.randn(Kd, N, generator=g, device=dev) / Kd ** 0.5
+            q4 = _quant_w4(w.to(bf16))
+            wp, s4 = q4["w_p"], q4["w_gscale"]
+            bias = torch.randn(N, generator=g, device=dev) * 0.1
+            for M in (14, 60, 896, 3840):
+                x = torch.randn(M, Kd, generator=g, device=dev)
+                if site == "w2":
+                    x = x.abs()               # w2 reads the ReLU output
+                b = None if (M == 60 and site != "w2") else bias
+                a = float(x.abs().max()) / 127.0 * 1.1
+                xq, _ = K.quantize_rows(x, 1.0 / a)
+                out = K.gemm_s4(xq, wp, s4, b, a=a, relu=relu,
+                                out_dtypes=(odt,))[0]
+                ref = K.gemm_s4_plain(xq, wp, s4, b, a=a, relu=relu,
+                                      out_dtypes=(odt,))[0]
+                xb = x.to(bf16)
+                out7 = K.gemm_w4bf16(xb, wp, s4, b, relu=relu, out_dtype=odt)
+                ref7 = K.gemm_w4bf16_plain(xb, wp, s4, b, relu=relu,
+                                           out_dtype=odt)
+                torch.cuda.synchronize()
+                shape = (f"{model} {site} [{M}x{Kd}]x[{Kd}x{N}]"
+                         f"{' relu' if relu else ''}"
+                         f"{'' if b is not None else ' no bias'}")
+                e4 = max_err(out, ref)
+                gate(f"gemm_s4 {shape} (bit for bit)", e4, 0.0)
+                rows.err("gemm_s4", e4)
+                # gemm_bias_act's tolerance: the same bf16 weight, exact
+                # products, f32 sums in another order
+                e7 = max_err(out7, ref7)
+                scale = float(ref7.float().abs().max()) + 1e-6
+                gate(f"gemm_w4bf16 {shape}", e7,
+                     (1e-4 if odt == f32 else 8e-3) * scale)
+                rows.err("gemm_w4bf16", e7)
+                if model != "small":
+                    continue
+                osz = 4 if odt == f32 else 2
+                t4 = device_ms(torch, lambda: K.gemm_s4(
+                    xq, wp, s4, b, a=a, relu=relu, out_dtypes=(odt,)))
+                t4p = device_ms(torch, lambda: K.gemm_s4_plain(
+                    xq, wp, s4, b, a=a, relu=relu, out_dtypes=(odt,)),
+                    iters=5)
+                t7 = device_ms(torch, lambda: K.gemm_w4bf16(
+                    xb, wp, s4, b, relu=relu, out_dtype=odt))
+                t7p = device_ms(torch, lambda: K.gemm_w4bf16_plain(
+                    xb, wp, s4, b, relu=relu, out_dtype=odt), iters=5)
+                q8 = _quant_w(w.to(bf16))
+                t8 = device_ms(torch, lambda: K.gemm_s8(
+                    xq, q8["w_q"], q8["w_scale"], b, a=a, relu=relu,
+                    out_dtypes=(odt,)))
+                by4 = w4_bytes(M, Kd, N, 1, osz, b is not None)
+                by7 = w4_bytes(M, Kd, N, 2, osz, b is not None)
+                w_only = (Kd * N // 2 + 4 * (Kd // 128) * N) / HBM * 1e3
+                ops = 2 * M * Kd * N
+                b4 = max(bound_parts(0.0, by4, int8_ops=ops))
+                b7 = max(bound_parts(ops, by7))
+                say(f"    gemm_s4 {t4:.4f} ms vs plain {t4p:.4f} ms, bound "
+                    f"{b4:.4f} ms (the packed weight alone {w_only:.4f}); "
+                    f"gemm_w4bf16 {t7:.4f} ms vs plain {t7p:.4f} ms, bound "
+                    f"{b7:.4f} ms; gemm_s8 on the int8 weight {t8:.4f} ms")
+                rows.add("gemm_s4", 6, t4, t4p, 0.0, by4, int8_ops=ops)
+                rows.add("gemm_w4bf16", 6, t7, t7p, ops, by7)
+
+
+# ---------------------------------------------------------------------------
+# phase: the int4 qffn blocks and the full-int8 blocks
+# ---------------------------------------------------------------------------
+
+def quant_layout(wp, sga):
+    """A block's bf16 layout (``random_block``) -> the full-int8 engine's
+    ``_mk`` (``prepare_quant_sa_params`` / ``_sga_``): every projection
+    int8 per output channel, f32 biases and LN."""
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w
+    names = ((("qkv1", "wqkv1", "bqkv1"), ("m1", "wm1_full", "bm1"),
+              ("q2", "wq2_full", "bq2_full"), ("m2", "wm2_full", "bm2"))
+             if sga else (("qkv", "wqkv", "bqkv"), ("m", "wm", "bm")))
+    mk = {k: v for k, v in wp.items() if k.startswith("ln")}
+    for name, w, b in names + (("w1", "w1", "b1"), ("w2", "w2", "b2")):
+        q = _quant_w(wp[w].float())
+        mk[f"w_{name}"], mk[f"s_{name}"] = q["w_q"], q["w_scale"]
+        mk[f"b_{name}"] = wp[b].float()
+    return mk
+
+
+def check_int4_blocks(torch, dev, state_dict, cfg, rows) -> None:
+    """The qffn blocks at the int4 levels 4-7 (static scales from the
+    port's calibration replay of these inputs) and the full-int8 blocks
+    (f32 stream, every site dynamic) against their plain versions at B=64
+    with fully padded samples, at MCAN-small; MCAN-large (D = 1024, heads
+    of 128, random weights) once each: level 5 and the full-int8 blocks."""
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import (_cross_kv, _qdense, _split_kv,
+                                                prepare_params,
+                                                quantize_params)
+    bf16 = torch.bfloat16
+    H, D, F = cfg.multi_head, cfg.hidden_size, cfg.ff_size
+    Lq, Lv, B = cfg.max_token, cfg.img_feat_pad_size, BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    tol = 6e-2          # that of the int8 blocks (check_int8_blocks)
+    say("[int4 blocks] / [int8 blocks] fused_qffn_* at levels 4-7 and "
+        f"fused_quant_* vs their plain versions, B={B}, fully padded "
+        f"samples (tol {tol})")
+    q_mask = pad_mask(torch, B, Lq, [(i * 5) % (Lq + 1) for i in range(B)],
+                      dev)
+    v_mask = pad_mask(torch, B, Lv, [(i * 17) % (Lv + 1) for i in range(B)],
+                      dev)
+
+    def stream(L, width, dtype=bf16):
+        return torch.randn(B, L, width, generator=g, device=dev).to(dtype)
+
+    def floats(scales):
+        # Python floats, as a calibrated engine holds them: a 0-d tensor
+        # would be read back on every call, which a graph capture refuses
+        return tuple(float(a) for a in scales)
+
+    def run(label, pairs, names, work):
+        ts = []
+        for name, (kern, plain) in zip(names, pairs):
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            gate(f"{name} {label} B={B}", err, tol)
+            rows.err(name, err)
+            if work is not None:
+                ts.append((device_ms(torch, kern, iters=10),
+                           device_ms(torch, plain, iters=3)))
+        if work is None:
+            return
+        msg = []
+        for name, (t_k, t_p), (fl, i8, nb) in zip(names, ts, work):
+            rows.add(name, cfg.layer, t_k, t_p, fl, nb, int8_ops=i8)
+            msg.append(f"{name} {t_k:.4f} ms vs plain {t_p:.4f} ms, bound "
+                       f"{max(bound_parts(fl, nb, True, i8)):.4f} ms")
+        say(f"    {label} per block: " + "; ".join(msg))
+
+    x, v = stream(Lq, D), stream(Lv, D)
+    for level in (4, 5, 6, 7):
+        names = (f"fused_qffn_sa_block_level{level}",
+                 f"fused_qffn_sga_block_level{level}")
+        for name in names:
+            rows.row(name, "mcan_vqa_tpu_torch/ops/quant.py",
+                     f"{TPU_QUANT}:{1412 if '_sa_' in name else 1326}",
+                     f"one B=64 level-{level} serving forward")
+        bb = prepare_params(state_dict, cfg.layer, device=dev,
+                            qffn=level)["backbone"]
+        enc, dec = bb["enc_0"], bb["dec_0"]
+        kq, vq = _cross_kv(dec["mhatt2"], x, H)
+        dq = level >= 6
+        sc_sa = floats(quant._cal_sa_block(enc, x, q_mask, H, 1.1, dq)[1])
+        sc_sga = floats(quant._cal_sga_block(dec, v, x, v_mask, q_mask, H,
+                                             1.1, dq)[1])
+        run(f"MCAN-small level {level}", (
+            (lambda: quant.fused_qffn_sa_block(
+                x, q_mask, enc["_mk"], enc["_qffn"], num_heads=H,
+                act_scales=sc_sa, w4dq=dq),
+             lambda: quant.fused_qffn_sa_block_plain(
+                 x, q_mask, enc["_mk"], enc["_qffn"], num_heads=H,
+                 act_scales=sc_sa, w4dq=dq)),
+            (lambda: quant.fused_qffn_sga_block(
+                v, kq, vq, v_mask, q_mask, dec["_mk"], dec["_qffn"],
+                num_heads=H, act_scales=sc_sga, w4dq=dq),
+             lambda: quant.fused_qffn_sga_block_plain(
+                 v, kq, vq, v_mask, q_mask, dec["_mk"], dec["_qffn"],
+                 num_heads=H, act_scales=sc_sga, w4dq=dq))), names,
+            (qffn_block_work(B, Lq, Lq, D, F, H, False, level),
+             qffn_block_work(B, Lv, Lq, D, F, H, True, level)))
+
+    names = ("fused_quant_sa_block", "fused_quant_sga_block")
+    for name in names:
+        rows.row(name, "mcan_vqa_tpu_torch/ops/quant.py",
+                 f"{TPU_QUANT}:{599 if '_sa_' in name else 539}",
+                 "one B=64 full-int8 serving forward")
+    bb = quantize_params(state_dict, cfg.layer, device=dev)["backbone"]
+    x32, v32 = stream(Lq, D, torch.float32), stream(Lv, D, torch.float32)
+    mk_sa, dec = bb["enc_0"]["_mk"], bb["dec_0"]
+    kq, vq = _split_kv(_qdense(dec["mhatt2"]["linear_kv"], x32), H)
+    run("MCAN-small full int8", (
+        (lambda: quant.fused_quant_sa_block(x32, q_mask, mk_sa, num_heads=H),
+         lambda: quant.fused_quant_sa_block_plain(x32, q_mask, mk_sa,
+                                                  num_heads=H)),
+        (lambda: quant.fused_quant_sga_block(v32, kq, vq, v_mask, q_mask,
+                                             dec["_mk"], num_heads=H),
+         lambda: quant.fused_quant_sga_block_plain(
+             v32, kq, vq, v_mask, q_mask, dec["_mk"], num_heads=H))), names,
+        (qffn_block_work(B, Lq, Lq, D, F, H, False, 8),
+         qffn_block_work(B, Lv, Lq, D, F, H, True, 8)))
+
+    # MCAN-large: random weights at its widths, level 5 and full int8
+    D2, F2 = 1024, 4096
+    wp_sa, wp_sga = (random_block(torch, g, dev, D2, F2, sga)
+                     for sga in (False, True))
+    enc = {"_mk": wp_sa, "_qffn": quant.prepare_qffn_params(wp_sa, True,
+                                                            True, 2)}
+    kv = {"kernel": (torch.randn(D2, 2 * D2, generator=g, device=dev)
+                     / D2 ** 0.5).to(bf16),
+          "bias": 0.1 * torch.randn(2 * D2, generator=g, device=dev)}
+    dec = {"_mk": wp_sga, "_qffn": quant.prepare_qffn_params(wp_sga, True,
+                                                             True, 2),
+           "mhatt2": {"linear_kv": kv}}
+    x2, v2 = stream(Lq, D2), stream(Lv, D2)
+    kq2, vq2 = _cross_kv(dec["mhatt2"], x2, H)
+    sc_sa = floats(quant._cal_sa_block(enc, x2, q_mask, H, 1.1)[1])
+    sc_sga = floats(quant._cal_sga_block(dec, v2, x2, v_mask, q_mask, H,
+                                         1.1)[1])
+    run("MCAN-large level 5", (
+        (lambda: quant.fused_qffn_sa_block(x2, q_mask, wp_sa, enc["_qffn"],
+                                           num_heads=H, act_scales=sc_sa),
+         lambda: quant.fused_qffn_sa_block_plain(
+             x2, q_mask, wp_sa, enc["_qffn"], num_heads=H,
+             act_scales=sc_sa)),
+        (lambda: quant.fused_qffn_sga_block(
+            v2, kq2, vq2, v_mask, q_mask, wp_sga, dec["_qffn"], num_heads=H,
+            act_scales=sc_sga),
+         lambda: quant.fused_qffn_sga_block_plain(
+             v2, kq2, vq2, v_mask, q_mask, wp_sga, dec["_qffn"],
+             num_heads=H, act_scales=sc_sga))),
+        ("fused_qffn_sa_block_level5", "fused_qffn_sga_block_level5"), None)
+    mk_sa, mk_sga = quant_layout(wp_sa, False), quant_layout(wp_sga, True)
+    x2, v2 = x2.float(), v2.float()
+    run("MCAN-large full int8", (
+        (lambda: quant.fused_quant_sa_block(x2, q_mask, mk_sa, num_heads=H),
+         lambda: quant.fused_quant_sa_block_plain(x2, q_mask, mk_sa,
+                                                  num_heads=H)),
+        (lambda: quant.fused_quant_sga_block(v2, kq2, vq2, v_mask, q_mask,
+                                             mk_sga, num_heads=H),
+         lambda: quant.fused_quant_sga_block_plain(
+             v2, kq2, vq2, v_mask, q_mask, mk_sga, num_heads=H))), names,
+        None)
 
 
 # ---------------------------------------------------------------------------
@@ -1790,22 +2096,33 @@ INT8_SERVE_KERNELS = ("fused_qffn_sa_block", "fused_qffn_sga_block",
                       "residual_layernorm")
 
 
-def serve_launches(L: int, level: int):
+def serve_launches(L: int, level: int, aux: bool = False):
     """Every kernel's launches in one forward of the engine at this level
     (0: all bf16) at hidden 512: per SA block the qkv, the merge and the
     FFN's two products, one attention, two LayerNorms; per SGA block also
     the cross q, its merge, the cross attention and a third LayerNorm.
     Level 1 runs the FFN products int8 (dynamic), level 3 every product
-    (static) with the attention output f32."""
+    (static) with the attention output f32; levels 4 / 6 the FFN int4
+    (gemm_s4 / gemm_w4bf16) and the other products int8, levels 5 / 7 the
+    qkv int4 too (the bf16-dequant sites quantize nothing). aux: the
+    static-int8 cross k/v of each decoder block, both AttFlat merges and
+    the head."""
     blocks = ({"fused_sa_block": L, "fused_sga_block": L} if level == 0 else
               {"fused_qffn_sa_block": L, "fused_qffn_sga_block": L})
-    int8 = {0: 0, 1: 2 * L + 2 * L, 3: 4 * L + 6 * L}[level]
-    counts = dict(blocks, gemm_bias_act=10 * L - int8,
-                  residual_layernorm=5 * L)
-    counts["masked_attention_f32" if level == 3 else "masked_attention"] = \
+    if level >= 4:
+        blocks.update({f"fused_qffn_sa_block_level{level}": L,
+                       f"fused_qffn_sga_block_level{level}": L})
+    int4 = {4: 4 * L, 5: 6 * L, 6: 4 * L, 7: 6 * L}.get(level, 0)
+    int8 = {0: 0, 1: 4 * L, 3: 10 * L}.get(level, 10 * L - int4)
+    counts = dict(blocks, gemm_bias_act=10 * L - int8 - int4,
+                  residual_layernorm=5 * L,
+                  gemm_s8=int8, quantize_rows=int8 + int4 * (level < 6))
+    counts["gemm_s4" if level < 6 else "gemm_w4bf16"] = int4
+    counts["masked_attention_f32" if level >= 3 else "masked_attention"] = \
         3 * L
-    if int8:
-        counts.update(gemm_s8=int8, quantize_rows=int8)
+    if aux:
+        counts["gemm_s8"] += L + 3
+        counts["quantize_rows"] += L + 3
     return {k: n for k, n in counts.items() if n}
 
 
@@ -1818,18 +2135,28 @@ def check_launches(label, counts, want, n_fwd) -> None:
 
 
 def agreement(label, requests, probs, plain, n_answers,
-              bound=INT8_BOUND) -> None:
+              bound=INT8_BOUND, on="sigmoid") -> None:
     """Top-1 and max |dprob| of a fused engine against the plain engine:
     a top-1 flip only inside a near-tie (the plain engine's top two within
-    2 x bound)."""
-    worst, strict, near_ties, far_flips = 0.0, 0, 0, 0
+    2 x bound). on="softmax": the bound holds the softmax over the answers
+    of the logits (JAX's int4 gate, tests/test_quant.py:339-370); the
+    sigmoid figure is printed beside it."""
+    worst, worst_sig, strict, near_ties, far_flips = 0.0, 0.0, 0, 0, 0
+
+    def softmax(p):
+        z = np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
+        e = np.exp(z - z.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
     for (qs, fs), pf in zip(requests, probs):
         if pf.shape != (len(qs), n_answers) or not np.isfinite(pf).all() \
                 or pf.min() < 0 or pf.max() > 1:
             fail(f"{label}: bad probabilities: shape {pf.shape}, finite "
                  f"{np.isfinite(pf).all()}")
         pp = plain.predict_probs(qs, fs)
-        worst = max(worst, float(np.abs(pf - pp).max()))
+        worst_sig = max(worst_sig, float(np.abs(pf - pp).max()))
+        worst = worst_sig if on == "sigmoid" else max(
+            worst, float(np.abs(softmax(pf) - softmax(pp)).max()))
         for rf, rp in zip(pf, pp):
             a, b = int(rf.argmax()), int(rp.argmax())
             if a == b:
@@ -1839,9 +2166,10 @@ def agreement(label, requests, probs, plain, n_answers,
             else:
                 far_flips += 1
     total = sum(len(q) for q, _ in requests)
+    extra = "" if on == "sigmoid" else f" (sigmoid {worst_sig:.3e})"
     say(f"[agree] {label} vs plain on the card: top-1 {strict}/{total} "
         f"(+{near_ties} near-ties, {far_flips} flips), max|dprob| "
-        f"{worst:.3e} <= bound {bound:.0e}")
+        f"{worst:.3e} on the {on}{extra} <= bound {bound:.0e}")
     if worst > bound or far_flips:
         fail(f"{label} and the plain engine disagree")
 
@@ -1940,13 +2268,7 @@ def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
     level1_fwd, level1_prep = build_production_engine(
         state_dict, L, cfg.multi_head, device=dev)
 
-    def engine(fwd, prep):
-        def call(img, ques):
-            with torch.inference_mode():
-                return torch.sigmoid(fwd(prep, torch.from_numpy(img).to(dev),
-                                         torch.from_numpy(ques).to(dev)))
-        return call
-
+    engine = functools.partial(padded_engine, torch, dev)
     padded = [fused.pad_batch(qs, fs) for qs, fs in requests]
     bf16 = engine(bf16_fwd, bf16_prep)
     K.reset_launches()
@@ -1962,16 +2284,28 @@ def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
     agreement("bf16 (qffn=0)", requests, probs0, plain, len(ix_to_ans),
               bound=1e-2)
 
-    # forward time per bucket (CUDA events around the forward on a padded
-    # batch; inputs copied from the host inside). The forward is
-    # host-bound, so the engines take turns over ROUNDS rounds and each
-    # reports its median round.
     level3_fwd, level3_prep = build_production_engine(
         state_dict, L, cfg.multi_head, act_scales=fused.act_scales,
         device=dev)
-    engines = (("bf16", bf16), ("int8 L1", engine(level1_fwd, level1_prep)),
-               ("int8 L3", engine(level3_fwd, level3_prep)),
-               ("plain", plain.forward_padded))
+    return plain, requests, fused, [
+        ("bf16", bf16), ("int8 L1", engine(level1_fwd, level1_prep)),
+        ("int8 L3", engine(level3_fwd, level3_prep))]
+
+
+def padded_engine(torch, dev, fwd, prep):
+    """An engine's forward on a padded numpy batch -> probabilities."""
+    def call(img, ques):
+        with torch.inference_mode():
+            return torch.sigmoid(fwd(prep, torch.from_numpy(img).to(dev),
+                                     torch.from_numpy(ques).to(dev)))
+    return call
+
+
+def time_forwards(torch, cfg, fused, engines) -> None:
+    """Forward time per bucket (CUDA events around the forward on a padded
+    batch; inputs copied from the host inside). The forward is host-bound,
+    so the engines take turns over ROUNDS rounds and each reports its
+    median round."""
     rng = np.random.default_rng(SEED + 2)
     for b in LATENCY_BUCKETS + (BATCH,):
         img, ques = fused.pad_batch(*ragged_batch(rng, cfg, b))
@@ -1984,6 +2318,115 @@ def serve_main_path(torch, dev, state_dict, cfg, vocab, ix_to_ans,
             + ", ".join(f"{n} {float(np.median(ms)):.3f} ms "
                         f"({min(ms):.3f}-{max(ms):.3f})"
                         for n, ms in t.items()))
+
+
+# ---------------------------------------------------------------------------
+# main paths 1b-1d -- Predictor(engine="int4"), Predictor(q8aux=True),
+# Predictor(engine="int8")
+# ---------------------------------------------------------------------------
+
+INT4_SERVE_KERNELS = INT8_SERVE_KERNELS + ("gemm_s4", "gemm_w4bf16") + tuple(
+    f"fused_qffn_{b}_block_level{lv}" for lv in (4, 5, 6, 7)
+    for b in ("sa", "sga"))
+QUANT_SERVE_KERNELS = ("fused_quant_sa_block", "fused_quant_sga_block",
+                       "gemm_s8", "quantize_rows", "masked_attention_f32",
+                       "residual_layernorm")
+
+
+def int8_engine_launches(L: int):
+    """Every kernel's launches in one forward of the full-int8 engine: per
+    layer pair 10 int8 sites in the blocks, 3 attentions (f32 out) and 5
+    LayerNorms; outside them the image projection, each decoder block's
+    cross k/v, both AttFlat MLPs (2 sites each) and merges, the head."""
+    n = 10 * L + 1 + L + 4 + 2 + 1
+    return {"fused_quant_sa_block": L, "fused_quant_sga_block": L,
+            "gemm_s8": n, "quantize_rows": n, "masked_attention_f32": 3 * L,
+            "residual_layernorm": 5 * L}
+
+
+def serve_quantized_paths(torch, dev, state_dict, cfg, vocab, ix_to_ans,
+                          rows, plain, requests):
+    """Main paths 1b-1d on the requests of [serve] (B = 1, 8 and 64, ragged,
+    one empty question): Predictor(engine="int4") before its calibration
+    swap (level 1) and after (level 5), then levels 4, 6 and 7 through
+    build_production_engine; Predictor(q8aux=True) before and after its
+    swap (level 3 + the aux sites); Predictor(engine="int8"). Each checks
+    its launches and its agreement with the plain engine. -> the engines
+    to time."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+
+    L, H, n_ans = cfg.layer, cfg.multi_head, len(ix_to_ans)
+    kw = dict(ix_to_ans=ix_to_ans, max_batch=BATCH,
+              latency_buckets=LATENCY_BUCKETS, device=dev)
+    n_fwd = len(requests)
+    engine = functools.partial(padded_engine, torch, dev)
+
+    def serve(label, p, want, bound=INT8_BOUND, on="sigmoid"):
+        K.reset_launches()
+        probs = [p.predict_probs(qs, fs) for qs, fs in requests]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_launches(label, counts, want, n_fwd)
+        agreement(label, requests, probs, plain, n_ans, bound, on)
+        return counts
+
+    # [serve int4]: level 1 until calibrate_now(), then level 5
+    p4 = Predictor(cfg, state_dict, vocab, engine="int4", **kw)
+    say(f"[serve int4] Predictor(engine='int4'), calibration "
+        f"{p4.calibration}")
+    before = serve("serve int4 before calibration (level 1)", p4,
+                   serve_launches(L, 1))
+    t0 = time.perf_counter()
+    p4.calibrate_now()
+    say(f"[calibrate] int4: {p4.calibration}, {time.perf_counter() - t0:.2f}"
+        f" s for the replay, the level-5 build and the bucket pre-runs")
+    after = serve("serve int4 level 5", p4, serve_launches(L, 5),
+                  INT4_BOUND, "softmax")
+    rows.launches("serve int4", {k: before.get(k, 0) + after.get(k, 0)
+                                 for k in INT4_SERVE_KERNELS},
+                  INT4_SERVE_KERNELS)
+    # levels 4, 6 and 7 through the builder, calibrated on the full batch
+    cal = p4.pad_batch(*requests[4])
+    timed = [("int4 L5", p4.forward_padded)]
+    for level in (4, 6, 7):
+        fwd, prep = build_production_engine(
+            state_dict, L, H, qffn=level, act_scale_inputs=cal, device=dev)
+        call = engine(fwd, prep)
+        K.reset_launches()
+        probs = [call(*p4.pad_batch(qs, fs))[:len(qs)].cpu().numpy()
+                 for qs, fs in requests]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        label = f"serve level {level} (build_production_engine)"
+        check_launches(label, counts, serve_launches(L, level), n_fwd)
+        agreement(label, requests, probs, plain, n_ans, INT4_BOUND,
+                  "softmax")
+        rows.launches(f"serve level {level}", counts, INT4_SERVE_KERNELS)
+        if level == 7:
+            timed.append(("int4 L7", call))
+
+    # [serve q8aux]: engine "auto" (two-pass scales) with the aux sites
+    pq = Predictor(cfg, state_dict, vocab, q8aux=True, **kw)
+    before = serve("serve q8aux before calibration (level 1)", pq,
+                   serve_launches(L, 1))
+    pq.calibrate_now()
+    say(f"[calibrate] q8aux: {pq.calibration}, aux scales "
+        f"{pq.act_scales['aux']}")
+    after = serve("serve q8aux (level 3 + aux)", pq,
+                  serve_launches(L, 3, aux=True))
+    rows.launches("serve q8aux", {k: before.get(k, 0) + after.get(k, 0)
+                                  for k in INT8_SERVE_KERNELS},
+                  INT8_SERVE_KERNELS)
+    timed.append(("q8aux", pq.forward_padded))
+
+    # [serve int8]: the full-int8 engine, no calibration
+    p8 = Predictor(cfg, state_dict, vocab, engine="int8", **kw)
+    counts = serve("serve int8 (full)", p8, int8_engine_launches(L))
+    rows.launches("serve int8", counts, QUANT_SERVE_KERNELS)
+    timed.append(("int8 full", p8.forward_padded))
+    return timed
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,22 @@ Engines:
   * "fused" (and "auto"): ``ops/serving.build_production_engine(qffn=None)``,
     the JAX package's shipped engine: int8 level 1 (dynamic activation
     scales) until calibrated, then level 3 (every projection int8, static
-    scales); every backbone block through the hand-written int8 block
+    scales); every backbone block through the hand-written quantized block
     kernels on the card (their plain versions on the CPU);
+  * "int4": the same, but qffn level 5 once calibrated (the FFN and qkv
+    weights nibble-packed int4 with 128-row group scales);
+  * "int8": the full-int8 engine (``ops/serving.quantize_params`` +
+    ``make_quant_serving_fn``): every product int8 with dynamic per-row
+    scales, an f32 stream, no calibration;
   * "plain": ``models/net.MCANet`` op by op, the numerics of the JAX
     ``model.apply``.
 
-A request batch pads to the smallest bucket that fits (``latency_buckets``
-plus ``max_batch``), as in the JAX Predictor, so the kernels always see the
-shapes they were measured at. The int8 / int4 engines, the q8aux sites and
-multi-device meshes are not ported yet: asking for them raises.
+``q8aux=True`` adds the static-int8 aux sites (cross k/v, AttFlat merges,
+answer head) to the calibrated "fused" / "int4" engines. A request batch
+pads to the smallest bucket that fits (``latency_buckets`` plus
+``max_batch``), as in the JAX Predictor, so the kernels always see the
+shapes they were measured at. Multi-device meshes are not ported yet:
+asking for one raises.
 """
 
 from __future__ import annotations
@@ -34,11 +41,15 @@ from mcan_vqa_tpu_torch.data import (load_answer_dict, pad_to_bucket,
                                      prep_request_inputs, topk_answers)
 from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.models.net import MCANet
-from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+from mcan_vqa_tpu_torch.ops.quant import (calibrate_qffn_act_scales,
+                                          prepare_q8aux_params)
+from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
+                                            make_quant_serving_fn,
+                                            prepare_production_params,
+                                            quantize_params)
 from mcan_vqa_tpu_torch.train.checkpoint import load_reference_checkpoint
 
-ENGINES = ("fused", "plain")
-NOT_PORTED = ("int8", "int4")
+ENGINES = ("fused", "plain", "int8", "int4")
 
 
 class Predictor:
@@ -56,43 +67,46 @@ class Predictor:
         max_batch / latency_buckets: the batch shapes served; a request of
         n rows pads to the smallest bucket >= n.
 
-        engine: "fused" | "plain" | "auto" (= "fused" on every device).
-        device: where the engine runs, "cuda" by default; with no CUDA
-        device it raises unless the caller passes device="cpu".
+        engine: "fused" | "int4" | "int8" | "plain" | "auto" (= "fused" on
+        every device). device: where the engine runs, "cuda" by default;
+        with no CUDA device it raises unless the caller passes
+        device="cpu".
 
         act_calibration: optional (questions, image_features) batch for the
-        fused engine: static activation scales are calibrated on it and
-        the level-3 engine is built at once. act_scales: precomputed
-        scales ({"enc_i" / "dec_i": tuple of floats}, e.g. a calibrated
-        Predictor's ``act_scales``); False means None. The two are
-        mutually exclusive.
+        fused / int4 engine: static activation scales are calibrated on it
+        and the level-3 (int4: level-5) engine is built at once.
+        act_scales: precomputed scales ({"enc_i" / "dec_i": tuple of
+        floats}, e.g. a calibrated Predictor's ``act_scales``); False means
+        None. The two are mutually exclusive.
 
-        auto_calibrate: online calibration of the fused engine (the
+        auto_calibrate: online calibration of the fused / int4 engine (the
         default, 256). It serves level 1 from the first request, buffers
         the first ``auto_calibrate`` finite real rows (bucket padding is
         never collected), then a background thread calibrates on them,
-        builds the level-3 engine, runs every bucket once and swaps the
-        new engine in atomically. A failed attempt returns to collecting
-        with a doubled target and reports the error in ``calibration``.
-        0 disables it; it is off when a calibration source is given.
+        builds the calibrated engine, runs every bucket once and swaps it
+        in atomically. A failed attempt returns to collecting with a
+        doubled target and reports the error in ``calibration``. 0
+        disables it; it is off when a calibration source is given.
+        engine="int4" and q8aux=True need a calibration source.
+
+        q8aux: the static-int8 aux sites in the calibrated engine (they
+        activate with calibration, as int4 does). Under engine="auto" a
+        calibration batch is replayed twice, as the JAX router does
+        (api.py:474): the block scales on the bf16 cross k/v, the "aux"
+        tuple with the aux sites attached.
 
         ``routes`` maps every bucket to "base": the JAX router's int4 and
         q8aux buckets (api.py:36-52) rest on TPU measurements, and until
-        the port measures its own table it serves calibrated level 3 in
-        every bucket.
+        the port measures its own table ``engine="auto"`` serves its one
+        engine in every bucket.
 
-        mesh, q8aux, engine "int8" / "int4": not ported; they raise."""
-        if mesh is not None or q8aux:
+        mesh: not ported; it raises."""
+        if mesh is not None:
             raise NotImplementedError(
-                "mesh and q8aux: multi-device meshes and the static-int8 "
-                "aux sites are not ported yet")
+                "mesh: multi-device meshes are not ported yet")
         requested = engine
         if engine == "auto":
             engine = "fused"
-        if engine in NOT_PORTED:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet; use 'fused' or "
-                f"'plain'")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}: expected one of "
                              f"{ENGINES + ('auto',)}")
@@ -105,7 +119,20 @@ class Predictor:
             raise ValueError(
                 "pass a calibration batch OR precomputed scales, not both")
         pre_calibrated = act_calibration is not None or act_scales is not None
-        if pre_calibrated and engine != "fused":
+        fused = engine in ("fused", "int4")
+        if q8aux and not fused:
+            raise ValueError(
+                f"q8aux applies to the fused/int4 engines (their calibrated "
+                f"int8 sites), got engine={engine!r}")
+        if engine == "int4" and not pre_calibrated and not auto_calibrate:
+            raise ValueError(
+                'engine="int4" needs calibration: pass '
+                "act_calibration/act_scales or leave auto_calibrate on")
+        if q8aux and not pre_calibrated and not auto_calibrate:
+            raise ValueError(
+                "q8aux needs calibration: pass act_calibration/act_scales "
+                '(with an "aux" tuple) or leave auto_calibrate on')
+        if pre_calibrated and not fused:
             what = ("act_calibration" if act_calibration is not None
                     else "act_scales")
             raise ValueError(f"{what} requires engine='fused' (or 'auto'), "
@@ -125,7 +152,10 @@ class Predictor:
         self.buckets = tuple(b for b in buckets if b < max_batch) \
             + (max_batch,)
 
-        if engine == "fused":
+        self._auto_routing = requested == "auto"
+        self._qffn_level = 5 if engine == "int4" else None
+        self._q8aux = bool(q8aux)
+        if fused:
             act_inputs = None
             if act_calibration is not None:
                 ques, img = self._prep_inputs(*act_calibration)
@@ -137,8 +167,12 @@ class Predictor:
                     "(act_calibration/act_scales absent, auto_calibrate "
                     "off): serving stays on the dynamic int8 engine, not "
                     "the calibrated level-3 engine")
-            self._install(self._build_fused(state_dict, act_inputs,
-                                            act_scales))
+            self._install(self._build_engines(state_dict, act_inputs,
+                                              act_scales))
+        elif engine == "int8":
+            self._install((make_quant_serving_fn(cfg.layer, cfg.multi_head),
+                           quantize_params(state_dict, cfg.layer,
+                                           self.device)))
         else:
             model = MCANet(cfg, token_size=len(token_to_ix),
                            answer_size=len(self.ix_to_ans))
@@ -153,7 +187,7 @@ class Predictor:
         self._cal_imgs: Optional[list] = []
         self._cal_ques: Optional[list] = []
         self._cal_n = 0
-        if engine == "fused" and not pre_calibrated and auto_calibrate:
+        if fused and not pre_calibrated and auto_calibrate:
             self._auto_cal = int(auto_calibrate)
             self._raw_state = state_dict     # for the calibrated rebuild
             self._cal_state = "collecting"
@@ -167,11 +201,39 @@ class Predictor:
 
     def _build_fused(self, state_dict, act_inputs, act_scales=None):
         """-> (forward, prepared) of the shipped engine: level 1 without
-        calibration, level 3 with a calibration batch or scales."""
+        calibration; with a calibration batch or scales level 3, or the
+        int4 engine's level 5, and the aux sites when asked for."""
+        calibrated = act_inputs is not None or act_scales is not None
         return build_production_engine(
             state_dict, self.cfg.layer, self.cfg.multi_head,
-            act_scale_inputs=act_inputs, act_scales=act_scales,
-            device=self.device)
+            qffn=self._qffn_level if calibrated else None,
+            q8aux=self._q8aux and calibrated, act_scale_inputs=act_inputs,
+            act_scales=act_scales, device=self.device)
+
+    def _build_engines(self, state_dict, act_inputs, act_scales):
+        """The fused path's engine (api.py:420): explicit engines take one
+        calibration replay inside ``build_production_engine``; "auto" with
+        q8aux derives its scales first from the batch in two passes
+        (``_calibrate_scales``), as the JAX router does. Every bucket routes
+        to it."""
+        if self._auto_routing and self._q8aux and act_inputs is not None:
+            act_scales = self._calibrate_scales(state_dict, act_inputs)
+            act_inputs = None
+        return self._build_fused(state_dict, act_inputs, act_scales)
+
+    def _calibrate_scales(self, state_dict, act_inputs):
+        """``_calibrate_scales(need_aux=True)`` (api.py:474): the block
+        scales on the bf16 cross k/v path of a level-3 tree, then the "aux"
+        tuple from a second replay with the aux sites attached."""
+        img, ques = act_inputs
+        L, H = self.cfg.layer, self.cfg.multi_head
+        prepared = prepare_production_params(state_dict, L, qffn=3,
+                                             device=self.device)
+        scales = calibrate_qffn_act_scales(prepared, img, ques, L, H)
+        prepared["_q8aux"] = prepare_q8aux_params(prepared, L)
+        scales["aux"] = calibrate_qffn_act_scales(prepared, img, ques, L,
+                                                  H)["aux"]
+        return scales
 
     def _install(self, built) -> None:
         """Swap an engine in: one atomic handle holds the engines and the
@@ -290,14 +352,14 @@ class Predictor:
 
     def _recalibrate(self, img_cal: np.ndarray, ques_cal: np.ndarray,
                      reraise: bool = False) -> None:
-        """Build the level-3 engine, run every bucket once, then swap it
+        """Build the calibrated engine, run every bucket once, then swap it
         in. Runs off the serving thread; requests keep the level-1 engine
         until the swap. inference_mode is per thread, so it is entered
         here as well."""
         try:
             with torch.inference_mode():
-                built = self._build_fused(self._raw_state,
-                                          (img_cal, ques_cal))
+                built = self._build_engines(self._raw_state,
+                                            (img_cal, ques_cal), None)
                 fwd, prepared = built
                 cfg = self.cfg
                 for b in self.buckets:

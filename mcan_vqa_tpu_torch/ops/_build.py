@@ -55,6 +55,10 @@ SIGNATURES = {
     "mcan_quantize_rows": [_P, _I, _LL, _I, _I, _I, _F, _P, _P, _P],
     "mcan_gemm_s8": [_P, _LL, _P, _LL, _I, _I, _I, _P, _F, _P, _P, _I, _P, _P,
                      _LL, _P],
+    "mcan_gemm_s4": [_P, _LL, _P, _LL, _P, _I, _I, _I, _F, _P, _I, _P, _P,
+                     _LL, _P],
+    "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _P, _P,
+                         _LL, _P],
 }
 
 _lock = threading.Lock()

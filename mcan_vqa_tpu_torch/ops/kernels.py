@@ -7,6 +7,8 @@ PyTorch version.
   gemm_dx                C = dY . W^T (gradient gate, + res)   gemm.cu, NT
   gemm_dw                C = X^T . dY                          gemm.cu, TN
   gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_s8.cu
+  gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_s4.cu
+  gemm_w4bf16            A . bf16(int4 W x group scale) + bias  gemm_w4bf16.cu
   quantize_rows          int8 codes of rows, dynamic or static  quantize.cu
   masked_attention       softmax(q k^T / 8, PAD) (dropout) . v, bf16 or f32
   masked_attention_bwd   dq, dk, dv of the above
@@ -361,7 +363,8 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     activation scales sx (dynamic, ``_qdot``, quant.py:253) or f32(acc) *
     (a * sw[n]) with one static scale a (``_qdot_static``, :263), + bias
     [N], then ReLU -> one [M, N] tensor per out_dtypes (f32 and/or bf16).
-    Pass exactly one of sx and a. K and N must be multiples of 16."""
+    Pass exactly one of sx and a. K must be a multiple of 16, and so must
+    W's row stride, at least N rounded up to 16 (``pad_cols``)."""
     if not on_cuda(aq):
         return gemm_s8_plain(aq, wq, sw, bias, sx=sx, a=a, relu=relu,
                              out_dtypes=out_dtypes)
@@ -375,8 +378,11 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
              f"{tuple(aq.shape)} {aq.dtype} . {tuple(wq.shape)} {wq.dtype}")
     M, Kd = aq.shape
     N = wq.shape[1]
-    _require(Kd % 16 == 0 and N % 16 == 0,
-             f"{name}: K={Kd} and N={N} must be multiples of 16")
+    # W is read in 16-byte chunks along N: a width that is not a multiple
+    # of 16 (the answer head, an AttFlat logit) needs rows padded to one
+    _require(Kd % 16 == 0 and wq.stride(0) >= -(-N // 16) * 16,
+             f"{name}: K={Kd} and W's row stride ({wq.stride(0)}) must be "
+             f"multiples of 16, the stride at least N={N} rounded up")
     _require(aq.stride(1) == 1 and wq.stride(1) == 1
              and aq.stride(0) % 16 == 0 and wq.stride(0) % 16 == 0
              and aq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
@@ -398,6 +404,167 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
         int(relu), _ptr(outs.get(F32)), _ptr(outs.get(BF16)), N, _stream(aq))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes)
+
+
+def pad_cols(w: torch.Tensor) -> torch.Tensor:
+    """w [K, N] int8 -> the same values as a [K, N] view of a zero-padded
+    [K, N rounded up to 16] buffer: the row stride ``gemm_s8`` reads whole
+    16-byte chunks along (w itself, contiguous, where N is a multiple of
+    16)."""
+    K, N = w.shape
+    if N % 16 == 0:
+        return w.contiguous()
+    buf = torch.zeros((K, -(-N // 16) * 16), dtype=w.dtype, device=w.device)
+    buf[:, :N] = w
+    return buf[:, :N]
+
+
+# ---------------------------------------------------------------------------
+# the int4 GEMMs (the int4 serving levels 4-7)
+# ---------------------------------------------------------------------------
+
+W4_GROUP = 128     # K-rows per int4 scale group, the int4 kernels' K-tile
+
+
+def unpack_w4(packed: torch.Tensor) -> torch.Tensor:
+    """[K/2, N] nibble-packed int8 -> [K, N] int8 in [-7, 7]
+    (``_unpack_w4``, mcan_vqa_tpu/ops/quant.py:81): row j is the low nibble
+    of packed row j, row j + K/2 its high nibble, each minus 8."""
+    p = packed.to(torch.int32) & 0xFF
+    return torch.cat([(p & 0xF) - 8, (p >> 4) - 8], dim=0).to(I8)
+
+
+def dequant_w4(packed: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """The bf16 weight of ``_qdot_w4bf16`` (quant.py:307): bf16(f32(q) *
+    s4[group]) for packed int4 q and f32 group scales s4 [K/g, N]."""
+    w = unpack_w4(packed).float()
+    K, N = w.shape
+    nG = s4.shape[0]
+    return (w.reshape(nG, K // nG, N) * s4[:, None, :]).reshape(K, N) \
+        .to(BF16)
+
+
+def _check_w4(name, wp, s4, Kd, N):
+    _require(wp.dtype == I8 and wp.dim() == 2 and wp.shape[0] * 2 == Kd,
+             f"{name}: packed weight must be int8 [{Kd // 2}, N], got "
+             f"{tuple(wp.shape)} {wp.dtype}")
+    _require(Kd % (2 * W4_GROUP) == 0 and N % 16 == 0,
+             f"{name}: K={Kd} must be a multiple of {2 * W4_GROUP} (one "
+             f"{W4_GROUP}-row scale group per K-tile, in either nibble "
+             f"half) and N={N} of 16")
+    _require(s4.dtype == F32 and s4.is_contiguous()
+             and tuple(s4.shape) == (Kd // W4_GROUP, N),
+             f"{name}: group scales must be f32 [{Kd // W4_GROUP}, {N}], "
+             f"got {tuple(s4.shape)} {s4.dtype}")
+    _require(wp.stride(1) == 1 and wp.stride(0) % 16 == 0
+             and wp.data_ptr() % 16 == 0,
+             f"{name}: the packed weight needs unit column stride, a row "
+             f"stride that is a multiple of 16 and 16-byte alignment")
+
+
+def gemm_s4_plain(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *, a: float,
+                  relu: bool = False,
+                  out_dtypes: Sequence[torch.dtype] = (F32,)
+                  ) -> Tuple[torch.Tensor, ...]:
+    w = unpack_w4(wp)
+    nG = s4.shape[0]
+    g = w.shape[0] // nG
+    scale = _f32(a) * s4
+    y = None
+    for gi in range(nG):
+        t = int8_dot_exact(aq[:, gi * g:(gi + 1) * g],
+                           w[gi * g:(gi + 1) * g]) * scale[gi]
+        y = t if y is None else y + t
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return tuple(y.to(dt) for dt in out_dtypes)
+
+
+def gemm_s4(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, *, a: float,
+            relu: bool = False, out_dtypes: Sequence[torch.dtype] = (F32,)
+            ) -> Tuple[torch.Tensor, ...]:
+    """aq [M, K] int8 (static codes, ``quantize_rows(x, 1 / a)``) against
+    the nibble-packed int4 weight wp [K/2, N] with group scales s4
+    [K/128, N] (``_quant_w4``): per K-group gi, in order,
+    t = f32(exact int32 sum) * (a * s4[gi]); y = t0 + t1 + ..., + bias [N],
+    then ReLU -> one [M, N] tensor per out_dtypes (``_qdot_static4``,
+    mcan_vqa_tpu/ops/quant.py:282). The kernel reads the weight packed and
+    gives the plain version's bits."""
+    if not on_cuda(aq):
+        return gemm_s4_plain(aq, wp, s4, bias, a=a, relu=relu,
+                             out_dtypes=out_dtypes)
+    name = "gemm_s4"
+    _same_device(name, aq, wp, s4, bias)
+    _require(aq.dtype == I8 and aq.dim() == 2,
+             f"{name}: codes must be int8 [M, K], got {tuple(aq.shape)} "
+             f"{aq.dtype}")
+    M, Kd = aq.shape
+    N = wp.shape[1]
+    _check_w4(name, wp, s4, Kd, N)
+    _require(aq.stride(1) == 1 and aq.stride(0) % 16 == 0
+             and aq.data_ptr() % 16 == 0,
+             f"{name}: codes need unit column stride, a row stride that is "
+             f"a multiple of 16 and 16-byte alignment")
+    _check_vec(name, bias, N)
+    _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
+             and len(set(out_dtypes)) == len(out_dtypes),
+             f"{name}: out_dtypes {out_dtypes}")
+    outs = {dt: torch.empty((M, N), dtype=dt, device=aq.device)
+            for dt in out_dtypes}
+    rc = _lib().mcan_gemm_s4(
+        aq.data_ptr(), aq.stride(0), wp.data_ptr(), wp.stride(0),
+        s4.data_ptr(), M, N, Kd, _f32(a), _ptr(bias), int(relu),
+        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), N, _stream(aq))
+    _check(rc, name)
+    return tuple(outs[dt] for dt in out_dtypes)
+
+
+def gemm_w4bf16_plain(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, *,
+                      relu: bool = False, out_dtype: torch.dtype = F32
+                      ) -> torch.Tensor:
+    return gemm_bias_act_plain(x, dequant_w4(wp, s4), bias, relu=relu,
+                               out_dtype=out_dtype)
+
+
+def gemm_w4bf16(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, relu: bool = False,
+                out_dtype: torch.dtype = F32) -> torch.Tensor:
+    """x [M, K] bf16 . the int4 weight wp [K/2, N] dequantized to bf16 with
+    its group scales s4 [K/128, N] (``dequant_w4``) + bias [N], then ReLU
+    -> [M, N] in out_dtype (f32 or bf16), accumulated in f32
+    (``_qdot_w4bf16``, mcan_vqa_tpu/ops/quant.py:307). The kernel
+    dequantizes each weight tile in shared memory, to the plain version's
+    bits; the sums run in another order, so the two agree within
+    ``gemm_bias_act``'s tolerance."""
+    if not on_cuda(x):
+        return gemm_w4bf16_plain(x, wp, s4, bias, relu=relu,
+                                 out_dtype=out_dtype)
+    name = "gemm_w4bf16"
+    _same_device(name, x, wp, s4, bias)
+    _require(x.dtype == BF16 and x.dim() == 2,
+             f"{name}: x must be bf16 [M, K], got {tuple(x.shape)} {x.dtype}")
+    M, Kd = x.shape
+    N = wp.shape[1]
+    _check_w4(name, wp, s4, Kd, N)
+    _require(x.stride(1) == 1 and x.stride(0) % 8 == 0
+             and x.data_ptr() % 16 == 0,
+             f"{name}: x needs unit column stride, a row stride that is a "
+             f"multiple of 8 and 16-byte alignment")
+    _check_vec(name, bias, N)
+    _require(out_dtype in (F32, BF16), f"{name}: out_dtype {out_dtype}")
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    rc = _lib().mcan_gemm_w4bf16(
+        x.data_ptr(), x.stride(0), wp.data_ptr(), wp.stride(0),
+        s4.data_ptr(), M, N, Kd, _ptr(bias), int(relu),
+        _ptr(out if out_dtype == F32 else None),
+        _ptr(out if out_dtype == BF16 else None), N, _stream(x))
+    _check(rc, name)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -111,13 +111,19 @@ def test_from_checkpoint_reference_pickle(weights, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(engine="int8"), NotImplementedError),
-    (dict(engine="int4"), NotImplementedError),
+    (dict(engine="int8", q8aux=True), ValueError),
+    (dict(engine="int4", auto_calibrate=0), ValueError),
     (dict(engine="bogus"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(q8aux=True), NotImplementedError),
-    (dict(latency_buckets=(16,)), ValueError)])
+    (dict(q8aux=True, auto_calibrate=0), ValueError),
+    (dict(latency_buckets=(16,)), ValueError),
+    (dict(engine="plain", q8aux=True), ValueError),
+    (dict(engine="int8", act_scales={"enc_0": (1.0, 1.0, 1.0)}), ValueError)])
 def test_refused_arguments(weights, kwargs, err):
+    """The JAX Predictor's construction errors (api.py:244-279): q8aux on
+    an engine without calibrated sites, int4 or q8aux with every
+    calibration source off, scales for an engine that has none; meshes are
+    not ported."""
     with pytest.raises(err):
         _predictor(weights, **kwargs)
 

@@ -266,6 +266,88 @@ def test_gemm_s8_raises_on_unsupported_operands(cuda):
                   sw)
 
 
+def test_gemm_s8_reads_rows_padded_to_16(cuda):
+    """The answer head (N = 3129) and an AttFlat logit (N = 1): W a view of
+    a buffer whose rows are padded to a multiple of 16."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for N in (3129, 1):
+        aq = torch.randint(-127, 128, (37, 1024), generator=g, device=cuda,
+                           dtype=torch.int8)
+        wq = K.pad_cols(torch.randint(-127, 128, (1024, N), generator=g,
+                                      device=cuda, dtype=torch.int8))
+        sw = torch.rand(N, generator=g, device=cuda) * 1e-3
+        bias = torch.randn(N, generator=g, device=cuda)
+        out = K.gemm_s8(aq, wq, sw, bias, a=0.02)[0]
+        assert torch.equal(out, K.gemm_s8_plain(aq, wq, sw, bias, a=0.02)[0])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        K.gemm_s8(aq, torch.zeros(1024, 3129, dtype=torch.int8, device=cuda),
+                  torch.ones(3129, device=cuda), a=1.0)
+
+
+def _packed_w4(g, Kd, N, cuda):
+    """A random nibble-packed int4 weight (every code -7..7, the JAX packing)
+    and positive group scales."""
+    lo = torch.randint(1, 16, (Kd // 2, N), generator=g, device=cuda)
+    hi = torch.randint(1, 16, (Kd // 2, N), generator=g, device=cuda)
+    wp = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    s4 = torch.rand(Kd // 128, N, generator=g, device=cuda) * 0.02 + 1e-3
+    return wp, s4
+
+
+@pytest.mark.parametrize("M,Kd,N,relu,with_bias", [
+    (14, 512, 1536, False, True), (60, 512, 2048, True, True),
+    (896, 2048, 512, False, False), (61, 1024, 3072, True, False),
+    (3840, 4096, 1024, False, True), (1, 256, 64, False, True)])
+def test_gemm_s4_matches_plain_bitwise(cuda, M, Kd, N, relu, with_bias):
+    g = torch.Generator(device=cuda).manual_seed(M + Kd)
+    aq = torch.randint(-127, 128, (M, Kd), generator=g, device=cuda,
+                       dtype=torch.int8)
+    aq[0] = 127                        # the largest codes of every group
+    wp, s4 = _packed_w4(g, Kd, N, cuda)
+    bias = torch.randn(N, generator=g, device=cuda) if with_bias else None
+    before = K.launch_counts().get("gemm_s4", 0)
+    outs = K.gemm_s4(aq, wp, s4, bias, a=0.0173, relu=relu,
+                     out_dtypes=(torch.float32, BF16))
+    assert K.launch_counts()["gemm_s4"] == before + 1
+    refs = K.gemm_s4_plain(aq, wp, s4, bias, a=0.0173, relu=relu,
+                           out_dtypes=(torch.float32, BF16))
+    torch.cuda.synchronize()
+    # exact int32 sums per group, then the same correctly rounded steps in
+    # the same order
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M,Kd,N,relu,out_dtype", [
+    (14, 512, 1536, False, BF16), (60, 512, 2048, True, torch.float32),
+    (896, 2048, 512, False, torch.float32), (61, 1024, 3072, True, BF16)])
+def test_gemm_w4bf16_matches_plain(cuda, M, Kd, N, relu, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    x = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
+    wp, s4 = _packed_w4(g, Kd, N, cuda)
+    bias = torch.randn(N, generator=g, device=cuda)
+    out = K.gemm_w4bf16(x, wp, s4, bias, relu=relu, out_dtype=out_dtype)
+    ref = K.gemm_w4bf16_plain(x, wp, s4, bias, relu=relu,
+                              out_dtype=out_dtype)
+    # gemm_bias_act's tolerance: the same bf16 weight (formed to the plain
+    # version's bits) and exact products, summed in another order
+    _close(out, ref, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
+
+
+def test_int4_gemms_raise_on_unsupported_operands(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wp, s4 = _packed_w4(g, 384, 64, cuda)
+    aq = torch.zeros(8, 384, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        K.gemm_s4(aq, wp, s4, a=1.0)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        K.gemm_w4bf16(aq.to(BF16), wp, s4)
+    wp, s4 = _packed_w4(g, 512, 64, cuda)
+    with pytest.raises(ValueError, match="group scales"):
+        K.gemm_s4(torch.zeros(8, 512, dtype=torch.int8, device=cuda), wp,
+                  s4[:2], a=1.0)
+
+
 @pytest.mark.parametrize("Lq,Lk,lengths,Dh", [
     (14, 14, [14, 0, 5], 64), (60, 14, [3, 14, 0], 64),
     (60, 60, [0, 60, 17], 128)])
@@ -282,7 +364,7 @@ def test_attention_f32_output_matches_plain(cuda, Lq, Lk, lengths, Dh):
     assert torch.equal(out.to(BF16), K.masked_attention(q, k, v, mask))
 
 
-@pytest.mark.parametrize("level", [1, 3])
+@pytest.mark.parametrize("level", [1, 3, 5, 6])
 def test_qffn_blocks_match_plain_with_fully_padded_samples(cuda, level):
     from mcan_vqa_tpu_torch.ops import quant
     from mcan_vqa_tpu_torch.ops.serving import _cross_kv, prepare_params
@@ -301,28 +383,104 @@ def test_qffn_blocks_match_plain_with_fully_padded_samples(cuda, level):
     enc, dec = bb["enc_0"], bb["dec_0"]
     kq, vq = _cross_kv(dec["mhatt2"], x, H)
     sa_sc = sga_sc = None
-    if level == 3:                      # the blocks' own static scales
-        sa_sc = quant._cal_sa_block(enc, x, q_mask, H, 1.1)[1]
-        sga_sc = quant._cal_sga_block(dec, v, x, v_mask, q_mask, H, 1.1)[1]
+    dq = level >= 6                     # levels 6/7: bf16-dequant int4
+    if level >= 3:                      # the blocks' own static scales
+        sa_sc = quant._cal_sa_block(enc, x, q_mask, H, 1.1, dq)[1]
+        sga_sc = quant._cal_sga_block(dec, v, x, v_mask, q_mask, H, 1.1,
+                                      dq)[1]
     before = K.launch_counts()
     out = quant.fused_qffn_sa_block(x, q_mask, enc["_mk"], enc["_qffn"],
-                                    num_heads=H, act_scales=sa_sc)
+                                    num_heads=H, act_scales=sa_sc, w4dq=dq)
     ref = quant.fused_qffn_sa_block_plain(x, q_mask, enc["_mk"],
                                           enc["_qffn"], num_heads=H,
-                                          act_scales=sa_sc)
+                                          act_scales=sa_sc, w4dq=dq)
     # as the bf16 blocks (2^-5), plus int8 codes whose f32 input sits on a
     # rounding boundary, each moving one product term by s_x * |w|
     _close(out, ref, 2 ** -5)
     out = quant.fused_qffn_sga_block(v, kq, vq, v_mask, q_mask, dec["_mk"],
                                      dec["_qffn"], num_heads=H,
-                                     act_scales=sga_sc)
+                                     act_scales=sga_sc, w4dq=dq)
     ref = quant.fused_qffn_sga_block_plain(v, kq, vq, v_mask, q_mask,
                                            dec["_mk"], dec["_qffn"],
-                                           num_heads=H, act_scales=sga_sc)
+                                           num_heads=H, act_scales=sga_sc,
+                                           w4dq=dq)
     _close(out, ref, 2 ** -5)
     after = K.launch_counts()
     for name in ("fused_qffn_sa_block", "fused_qffn_sga_block"):
         assert after[name] - before.get(name, 0) == 1
+        if level >= 4:
+            key = f"{name}_level{level}"
+            assert after[key] - before.get(key, 0) == 1
+    int4 = {5: "gemm_s4", 6: "gemm_w4bf16"}.get(level)
+    if int4:                            # qkv + FFN (5) / FFN (6), per block
+        assert after[int4] - before.get(int4, 0) == (6 if level == 5 else 4)
+
+
+def test_quant_blocks_match_plain_with_fully_padded_samples(cuda):
+    """The full-int8 blocks: f32 stream, every site dynamic."""
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import (_qdense, _split_kv,
+                                                quantize_params)
+    cfg, sd, *_ = _small_model()
+    bb = quantize_params(sd, cfg.layer, device=cuda)["backbone"]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, D, H = 5, cfg.hidden_size, cfg.multi_head
+    x = torch.randn(B, 14, D, generator=g, device=cuda)
+    v = torch.randn(B, 60, D, generator=g, device=cuda)
+    q_mask = torch.zeros(B, 1, 1, 14, dtype=torch.bool, device=cuda)
+    v_mask = torch.zeros(B, 1, 1, 60, dtype=torch.bool, device=cuda)
+    q_mask[1] = True
+    v_mask[2] = True
+    v_mask[4, ..., 33:] = True
+    kq, vq = _split_kv(_qdense(bb["dec_0"]["mhatt2"]["linear_kv"], x), H)
+    before = K.launch_counts()
+    out = quant.fused_quant_sa_block(x, q_mask, bb["enc_0"]["_mk"],
+                                     num_heads=H)
+    ref = quant.fused_quant_sa_block_plain(x, q_mask, bb["enc_0"]["_mk"],
+                                           num_heads=H)
+    assert out.dtype == torch.float32
+    _close(out, ref, 2 ** -5)           # as the qffn blocks
+    out = quant.fused_quant_sga_block(v, kq, vq, v_mask, q_mask,
+                                      bb["dec_0"]["_mk"], num_heads=H)
+    ref = quant.fused_quant_sga_block_plain(v, kq, vq, v_mask, q_mask,
+                                            bb["dec_0"]["_mk"], num_heads=H)
+    _close(out, ref, 2 ** -5)
+    after = K.launch_counts()
+    for name in ("fused_quant_sa_block", "fused_quant_sga_block"):
+        assert after[name] - before.get(name, 0) == 1
+    # SA: qkv, merge, w1, w2; SGA: + the cross q and its merge
+    assert after["gemm_s8"] - before.get("gemm_s8", 0) == 10
+
+
+@pytest.mark.parametrize("kw", [dict(engine="int4"), dict(q8aux=True),
+                                dict(engine="int8")])
+def test_quantized_predictors_match_plain_on_the_card(cuda, kw):
+    from mcan_vqa_tpu_torch.api import Predictor
+    cfg, sd, vocab, ix_to_ans, questions = _small_model()
+    rng = np.random.default_rng(1)
+    feats = [np.abs(rng.normal(size=(r, cfg.img_feat_size)))
+             .astype(np.float32) for r in (60, 7, 33)]
+    cal = {} if kw.get("engine") == "int8" else dict(
+        act_calibration=(questions, feats))
+    p = Predictor(cfg, sd, vocab, ix_to_ans=ix_to_ans, max_batch=8,
+                  device=cuda, **kw, **cal)
+    plain = Predictor(cfg, sd, vocab, ix_to_ans=ix_to_ans, max_batch=8,
+                      device=cuda, engine="plain")
+    K.reset_launches()
+    pf = p.predict_probs(questions, feats)
+    counts = K.launch_counts()
+    block = "fused_quant" if kw.get("engine") == "int8" else "fused_qffn"
+    assert counts[f"{block}_sa_block"] == counts[f"{block}_sga_block"] \
+        == cfg.layer
+    if kw.get("engine") == "int4":
+        assert counts["fused_qffn_sa_block_level5"] == cfg.layer
+    pp = plain.predict_probs(questions, feats)
+    assert np.isfinite(pf).all() and pf.shape == (3, 50)
+    # the int8 engines' bound, 2e-2; int4's weights alone move these
+    # probabilities by up to 4.2e-2 at full width (tests/test_torch_full_
+    # size.py), 0.04 at this depth of 2 layers
+    np.testing.assert_allclose(
+        pf, pp, atol=4e-2 if kw.get("engine") == "int4" else 2e-2)
 
 
 # ---------------------------------------------------------------------------

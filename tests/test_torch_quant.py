@@ -220,10 +220,22 @@ def test_decode_qffn_level_matches_jax(level):
 
 
 def test_int4_levels_raise(model):
-    _, _, sd, _, _ = model
+    """The int4 levels have no dynamic-scale path: without a calibration
+    source both builders refuse them (serving.py:653-658), and a block
+    given no scales refuses too (quant.py:1297)."""
+    _, params, sd, _, _ = model
     for level in (4, 5, 6, 7):
-        with pytest.raises(NotImplementedError, match="int4"):
-            tserving.prepare_params(sd, LAYERS, device="cpu", qffn=level)
+        with pytest.raises(ValueError, match="int4"):
+            jserving.build_production_engine(params, LAYERS, H, qffn=level)
+        with pytest.raises(ValueError, match="int4"):
+            tserving.build_production_engine(sd, LAYERS, H, qffn=level,
+                                             device="cpu")
+    blk = tserving.prepare_params(sd, LAYERS, device="cpu",
+                                  qffn=5)["backbone"]["enc_0"]
+    with pytest.raises(ValueError, match="int4"):
+        tquant.fused_qffn_sa_block(torch.zeros(1, LQ, D), torch.zeros(
+            1, 1, 1, LQ, dtype=torch.bool), blk["_mk"], blk["_qffn"],
+            num_heads=H)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ small size (2 layers, hidden 64, 4 heads):
     ``build_production_engine(params, 2, 4, qffn=0, interpret=True)``;
   * ``MCANet`` (the "plain" engine) against ``model.apply``.
 
-The int8 levels of the same builder: tests/test_torch_serving_int8.py.
+The int8 levels of the same builder: tests/test_torch_serving_int8.py; the
+int4 levels, q8aux and the full-int8 engine: tests/test_torch_serving_int4.py.
 """
 
 import jax
@@ -135,10 +136,19 @@ def test_prepared_tree_is_the_pruned_mode2_layout(setup):
                        .to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("kwargs", [dict(q8aux=True), dict(qffn=4),
-                                    dict(qffn=7)])
+@pytest.mark.parametrize("kwargs", [
+    dict(q8aux=True), dict(qffn=4), dict(qffn=7),
+    dict(q8aux=True, qffn=0, act_scales={"aux": (1.0,) * 4}),
+    dict(q8aux=True, act_scales={"enc_0": (1.0,) * 3}),
+    dict(q8aux=True, sga_mode=3, act_scales={"aux": (1.0,) * 4})])
 def test_unported_engine_arguments_raise(setup, kwargs):
+    """The JAX builder's refusals (serving.py:653-677), each a ValueError on
+    both sides: an int4 level or q8aux with no calibration source, stored
+    scales without the "aux" tuple, q8aux with qffn=0 or another decoder
+    mode than the per-block megakernels."""
     cfg, _, params, _, _ = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        jax_production_engine(params, cfg.layer, cfg.multi_head, **kwargs)
+    with pytest.raises(ValueError):
         build_production_engine(state_dict_from_params(params), cfg.layer,
                                 cfg.multi_head, device="cpu", **kwargs)
