@@ -33,7 +33,16 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              both ways) and MCAN-large's SGA train block with att_saves and
              bf16_saves, each against the same block in plain ops
              differentiated by autograd, at full width with fully padded
-             samples;
+             samples; the times of each piece with external masks and
+             seeded (in-kernel dropout);
+  [prng]     in-kernel dropout: the CUDA Philox4x32-10 against its plain
+             version on 2 M words and the mask dump against its plain
+             version, bit for bit (the SGA block at MCAN-small and
+             MCAN-large shapes, the SA block), the keep rate within 5
+             sigma, the dump's time beside torch.rand + the compare; the
+             seeded SGA and SA blocks against the external-mask blocks fed
+             the dump, bit for bit in the output and every gradient, and
+             against their plain twins;
   [serve]    main path 1: MCAN-small (hidden 512, 6+6 layers, 8 heads, 3129
              answers, random weights from a seed) served by ``Predictor()``
              with its defaults: int8 level 1, online calibration after 256
@@ -48,13 +57,25 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              static-int8 aux sites); Predictor(engine="int8"); launch counts
              and agreement with the plain engine for each;
   [forward]  forward times of every engine per bucket, in turns;
+  [envelope] hidden 256 (8 heads of 32) and 86 image rows: the bf16, int8
+             level 1 / 3 / 5 and full-int8 engines against the plain one;
+             the seeded SGA block (and at hidden 256 the SA block) at B=64
+             against the external-mask block fed the dump, bit for bit,
+             and against its plain twin in every gradient; 3 Trainer steps,
+             each loss against the plain engine's, with exact launch counts;
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
              same width, batch 64, one epoch of 10 steps, the encoder
              through the SA train blocks and the decoder through the SGA
-             train blocks: the fused engine's loss against the plain
-             engine's at every step, the launch counts of every step, ms
-             per step, bitwise repeatable gradients, a falling loss on one
-             repeated batch;
+             train blocks, with in-kernel dropout as the Trainer chooses on
+             the card (one seed per block and step; the generator draws
+             only AttFlat's masks): the fused engine's loss against the
+             plain engine's (the same seeds through the plain Philox) at
+             every step, the launch counts of every step, ms per step,
+             bitwise repeatable gradients; then one step's forward and
+             backward through the in-kernel and the external-mask routes
+             (launches, masks drawn, ms, each route's loss against the
+             plain engine's on that route); a falling loss on one repeated
+             batch;
   [checkpoint]  the epoch checkpoint served by
              ``Predictor.from_checkpoint(engine="fused")`` (int8 level 1);
   [train large]  main path 3: ``Trainer`` at MCAN-large (hidden 1024, FF
@@ -124,6 +145,15 @@ INT8_BOUND = 2e-2
 INT4_BOUND = 4e-2
 SERVE_W4 = "one B=1 + one B=64 level-5 serving forward"
 SERVE_W7 = "one B=1 + one B=64 level-7 serving forward"
+PRNG_SEED = 1234567             # the in-kernel dropout's seed in the checks
+# the seeded (in-kernel dropout) pieces: row, the TPU kernel body, unit
+PRNG_ROWS = (
+    ("sga_train_fwd_prng", TPU_TRAIN + ":507", STEP),
+    ("sga_train_bwd_ffn_prng", TPU_TRAIN + ":617", STEP),
+    ("sga_train_bwd_att_prng", TPU_TRAIN + ":812", STEP),
+    ("sa_train_fwd_prng", TPU_SA_TRAIN + ":179", STEP),
+    ("sa_train_bwd_prng", TPU_SA_TRAIN + ":314", STEP),
+    ("sga_train_bwd_att_sav_prng", TPU_TRAIN + ":1202", LARGE_STEP))
 
 
 def fail(msg: str) -> None:
@@ -168,21 +198,36 @@ def main() -> None:
     say(f"[build] {time.perf_counter() - t0:.2f} s (nvcc, one per source in "
         f"parallel, {_build.build_seconds or 0.0:.2f} s, key "
         f"{_build.build_key()})")
+    if _build.step_seconds:
+        say("[build] wall seconds per nvcc: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(_build.step_seconds.items(),
+                                              key=lambda kv: -kv[1])))
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             say(f"[ptxas] {line.strip()}")
 
     rows = Rows()
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        say(f"[time] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     check_serving_kernels(torch, dev, rows)
     check_train_kernels(torch, dev, rows)
     check_large_kernels(torch, dev, rows)
     check_int8_kernels(torch, dev, rows)
     check_int4_kernels(torch, dev, rows)
+    phase_done("kernels")
     model_state, cfg, vocab, ix_to_ans = build_model(torch)
     check_blocks(torch, dev, model_state, cfg, rows)
     check_int8_blocks(torch, dev, model_state, cfg, rows)
     check_int4_blocks(torch, dev, model_state, cfg, rows)
     check_train_block(torch, dev, rows)
+    phase_done("blocks")
+    check_prng(torch, dev, rows)
+    phase_done("prng")
     plain, requests, fused, timed = serve_main_path(
         torch, dev, model_state, cfg, vocab, ix_to_ans, rows)
     timed += serve_quantized_paths(torch, dev, model_state, cfg, vocab,
@@ -190,14 +235,19 @@ def main() -> None:
     time_forwards(torch, cfg, fused, timed + [("plain",
                                                plain.forward_padded)])
     del plain, fused, timed
+    phase_done("serve")
+    check_envelope(torch, dev, vocab, ix_to_ans, rows)
+    phase_done("envelope")
     work = ROOT / "ckpts" / "chip_smoke"
     try:
         trainer, ckpt = train_main_path(torch, dev, rows, work)
         check_checkpoint(torch, dev, trainer, ckpt)
         check_repeated_batch(torch, trainer)
         del trainer
+        phase_done("train")
         train_main_path(torch, dev, rows, work / "large", model="large",
                         steps=LARGE_STEPS)
+        phase_done("train large")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say(f"[card] {card}")
@@ -595,7 +645,7 @@ def check_train_kernels(torch, dev, rows) -> None:
             ("gemm_dw", "gemm.cu", f"{TPU_TRAIN}:382"),
             ("masked_attention_bwd", "masked_attention_bwd.cu",
              f"{TPU_TRAIN}:250"),
-            ("residual_layernorm_bwd", "residual_layernorm.cu",
+            ("residual_layernorm_bwd", "residual_layernorm_bwd.cu",
              f"{TPU_TRAIN}:122"),
             ("col_sum", "col_sum.cu", f"{TPU_TRAIN}:406")):
         rows.row(name, SRC + src, tpu, STEP)
@@ -1906,6 +1956,7 @@ def check_train_block(torch, dev, rows) -> None:
              TPU_SA_TRAIN + ":487", STEP)
     rows.row("sga_train_bwd_att_sav", "mcan_vqa_tpu_torch/ops/sga_train.py",
              TPU_TRAIN + ":1272", LARGE_STEP)
+    prng_rows(rows)
     ffn_grads = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
 
     say("[train block] fused_sga_block_train (the kernels) vs "
@@ -1955,6 +2006,21 @@ def check_train_block(torch, dev, rows) -> None:
             4 * M * D * 4 + 8 * B * H * Lq * 64 * 2 + 2 * 6 * D * D
             + mask_b - M * F - M * D + 4 * 6 * D * D + 4 * 12 * D)}
     time_pieces(torch, K, rows, pieces, work, 6)
+    # the seeded pieces (in-kernel dropout): the same kernels drawing each
+    # site's bits from Philox, so the same work without the mask bytes
+    ps, pinv = st.prng_sites(PRNG_SEED, 0.1, Lv)
+    _, psaves = st._forward(xs, kq, vq, vm, qm, ps, wk, pinv, H)
+    pgv2 = st._bwd_ffn(gflat, psaves, ps, wk, pinv)[0]
+    no_mask = {"sga_train_fwd": mask_b, "sga_train_bwd_ffn": M * D,
+               "sga_train_bwd_att": mask_b - M * F - M * D}
+    time_pieces(torch, K, rows, {
+        "sga_train_fwd_prng": lambda: st._forward(xs, kq, vq, vm, qm, ps,
+                                                  wk, pinv, H),
+        "sga_train_bwd_ffn_prng": lambda: st._bwd_ffn(gflat, psaves, ps, wk,
+                                                      pinv),
+        "sga_train_bwd_att_prng": lambda: st._bwd_att(
+            pgv2, xs, kq, vq, vm, qm, psaves, ps, wk, pinv, H)},
+        {k + "_prng": (f, b - no_mask[k]) for k, (f, b) in work.items()}, 6)
 
     say("[train block] fused_sa_block_train (the kernels) vs "
         "fused_sa_block_train_plain (plain ops, autograd): the MCAN-small "
@@ -2000,6 +2066,15 @@ def check_train_block(torch, dev, rows) -> None:
             + sa_mats + 4 * 8 * D + 4 * Mq * D + 4 * (4 * D * D + 2 * D * F)
             + 4 * (10 * D + F))}
     time_pieces(torch, K, rows, pieces, work, 6)
+    sps, spinv = st.prng_sites(PRNG_SEED, 0.1, Lq, sa.SA_SITES)
+    _, pssaves = sa._forward(xqs, qmask, sps, swk, spinv, H)
+    no_mask = {"sa_train_fwd": sa_masks, "sa_train_bwd": sa_masks - Mq * F}
+    time_pieces(torch, K, rows, {
+        "sa_train_fwd_prng": lambda: sa._forward(xqs, qmask, sps, swk, spinv,
+                                                 H),
+        "sa_train_bwd_prng": lambda: sa._backward(gq, xqs, qmask, pssaves,
+                                                  sps, swk, spinv, H)},
+        {k + "_prng": (f, b - no_mask[k]) for k, (f, b) in work.items()}, 6)
     # _bwd_kernel (save_acts=False: the FFN recomputed from x1), on no
     # Trainer path: timed beside _bwd_kernel_sav, not in the row
     _, rsaves = sa._forward(xqs, qmask, sam, swk, inv, H, save_acts=False)
@@ -2053,6 +2128,181 @@ def check_train_block(torch, dev, rows) -> None:
         + 2 * 6 * Dl * Dl + 4 * 2 * Dl + 4 * Ml * Dl
         + 2 * 4 * Bl * H * Lq * 128 + 4 * 6 * Dl * Dl + 4 * 10 * Dl)}
     time_pieces(torch, K, rows, pieces, work, 12)
+    ps, pinv = st.prng_sites(PRNG_SEED, 0.1, Lv)
+    _, lpsaves = st._forward(xs, kq, vq, vm, qm, ps, wk, pinv, H,
+                             att_saves=True, save_dtype=torch.bfloat16)
+    pgv2 = st._bwd_ffn(gflat, lpsaves, ps, wk, pinv, torch.bfloat16)[0]
+    flops, nbytes = work["sga_train_bwd_att_sav"]
+    time_pieces(torch, K, rows, {
+        "sga_train_bwd_att_sav_prng": lambda: st._bwd_att_sav(
+            pgv2, xs, kq, vq, vm, qm, lpsaves, ps, wk, pinv, H)},
+        {"sga_train_bwd_att_sav_prng": (
+            flops, nbytes - Bl * H * Lv * (Lv + Lq) - 2 * Ml * Dl)}, 12)
+
+
+# ---------------------------------------------------------------------------
+# phase: in-kernel dropout -- Philox, the mask dump, the seeded blocks
+# ---------------------------------------------------------------------------
+
+def keep_rate_gate(label, masks, t) -> None:
+    """The keep fraction over every mask within 5 sigma of t / 2^32."""
+    n = sum(m.numel() for m in masks)
+    kept = sum(int(m.sum()) for m in masks)
+    p = t / 2 ** 32
+    sigma = (p * (1 - p) / n) ** 0.5
+    z = (kept / n - p) / sigma
+    ok = abs(z) <= 5
+    say(f"  {label}: keep fraction {kept / n:.6f} over {n} decisions, "
+        f"expected {p:.6f}: {z:+.2f} sigma (|z| <= 5) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{label}: keep rate {kept / n} is {z:.1f} sigma from {p}")
+
+
+def seeded_vs_dump(torch, label, seeded, fed, plain, leaves, leaf_names, w,
+                   names, probe, rows, row_of) -> None:
+    """The seeded block, the external-mask block fed the seed's dump, and
+    the seeded block's plain twin, under autograd from the same leaves:
+    the first two equal bit for bit in the output and every gradient; the
+    plain twin within block_vs_plain's tolerances."""
+    def run(block):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
+        out = block(ls, ws)
+        (out * probe).sum().backward()
+        return [out.detach()] + [t.grad for t in ls] + [ws[n].grad
+                                                        for n in names]
+
+    got, want, ref = run(seeded), run(fed), run(plain)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    say(f"  {label}: seeded block vs the external-mask block fed the dump: "
+        f"output and {len(got) - 1} gradients equal bit for bit: "
+        f"{all(same)} ({sum(same)}/{len(same)})")
+    if not all(same):
+        fail(f"{label}: the seeded block differs from the block fed its dump")
+    e_out = max_err(got[0], ref[0])
+    gate(f"{label} output vs plain", e_out, 6e-2)
+    rows.err(row_of(None), e_out)
+    worst = 0.0
+    for name, a, b in zip(leaf_names + names, got[1:], ref[1:]):
+        rel = float((a - b).norm() / b.norm())
+        worst = max(worst, rel)
+        if not rel <= 3e-2:
+            fail(f"{label}: gradient {name} vs plain, |err|/|ref| {rel}")
+        rows.err(row_of(name), max_err(a, b))
+    say(f"  {label}: every gradient within {worst:.3e} <= 3e-2 of the plain "
+        f"twin in relative norm")
+
+
+def prng_rows(rows) -> None:
+    for name, replaces, per in PRNG_ROWS:
+        rows.row(name, "mcan_vqa_tpu_torch/ops/" + replaces.split("/")[-1]
+                 .split(":")[0], replaces, per)
+
+
+def check_prng(torch, dev, rows) -> None:
+    """Philox and the dump against their plain versions bit for bit, the
+    keep rate, and the seeded SGA and SA blocks against the external-mask
+    blocks fed the dump (MCAN-small B=64; MCAN-large micro-batch 32 with
+    att_saves and bf16_saves), bit for bit in the output and every
+    gradient."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    prng_rows(rows)
+    rate, seed = 0.1, PRNG_SEED
+    t, inv = st.prng_keep_params(rate)
+    say(f"[prng] Philox4x32-10, key (seed, site), counter (e >> 2, b); keep "
+        f"iff word < t = {t}, kept x 2^32 / t = {inv!r} (1 / (1 - rate) = "
+        f"{1 / (1 - rate)!r})")
+    Bw, n = 16, 1 << 17
+    words = K.philox_words(seed, 0x303, Bw, n, dev)
+    ref = K.philox_words_plain(seed, 0x303, Bw, n, dev)
+    torch.cuda.synchronize()
+    say(f"  philox_words vs philox4x32_plain on {Bw * n} words: equal bit "
+        f"for bit {torch.equal(words, ref)}")
+    if not torch.equal(words, ref):
+        fail("the CUDA Philox differs from philox4x32_plain")
+
+    B, Lv, Lq, D, F, H = BATCH, 60, 14, 512, 2048, 8
+    Bl, Dl, Fl = BATCH // 2, 1024, 4096
+    dumps = (("SGA block, MCAN-small", st.dump_prng_masks,
+              st.dump_prng_masks_plain, (B, Lv, Lq, D, F, H)),
+             ("SA block, MCAN-small", sa.dump_sa_prng_masks,
+              sa.dump_sa_prng_masks_plain, (B, Lq, D, F, H)),
+             ("SGA block, MCAN-large", st.dump_prng_masks,
+              st.dump_prng_masks_plain, (Bl, Lv, Lq, Dl, Fl, H)))
+    for label, dump, plain, shape in dumps:
+        got, g_inv = dump(seed, rate, *shape, device=dev)
+        want, w_inv = plain(seed, rate, *shape, device=dev)
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[k], want[k]) for k in want)
+        sizes = {k: tuple(v.shape) for k, v in got.items()}
+        say(f"  dump_prng_masks, {label} {tuple(shape)}: {sizes} equal to "
+            f"the plain dump bit for bit {same}, inv_keep "
+            f"{g_inv == w_inv == inv}")
+        if not (same and g_inv == w_inv == inv):
+            fail(f"dump_prng_masks ({label}) differs from its plain version")
+        keep_rate_gate(label, list(got.values()), t)
+
+    # the dump's time (on no main path: it is what makes the seeded path
+    # testable), beside torch.rand + the compare over the same shapes
+    shapes = st.mask_shapes(B, Lv, Lq, D, F, H)
+    n_el = sum(int(np.prod(s)) for s in shapes.values())
+    small = dumps[0][3]
+    t_k = device_ms(torch, lambda: st.dump_prng_masks(seed, rate, *small,
+                                                      device=dev))
+    t_p = device_ms(torch, lambda: st.dump_prng_masks_plain(
+        seed, rate, *small, device=dev), iters=3)
+    # (the default generator: a graph capture takes no other)
+    t_l = device_ms(torch, lambda: [torch.rand(s, device=dev) >= rate
+                                    for s in shapes.values()])
+    say(f"  dump_prng_masks (one SGA block, B={B}: {n_el} keep bytes): "
+        f"{t_k:.4f} ms vs plain {t_p:.4f} ms, library (torch.rand + the "
+        f"compare, 6 masks) {t_l:.4f} ms; bound "
+        f"{max(bound_parts(0, n_el)):.4f} ms (bytes written; the Philox "
+        f"integer work not counted)")
+
+    say("[prng] the seeded blocks against the external-mask blocks fed the "
+        "dump, and against their plain twins (autograd)")
+    ffn = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
+    for label, Bx, Dx, Fx, saves in (("MCAN-small", B, D, F, False),
+                                     ("MCAN-large", Bl, Dl, Fl, True)):
+        x, kq, vq, vm, qm, _, w, _, probe = train_block_inputs(
+            torch, dev, B=Bx, D=Dx, F=Fx)
+        masks, inv_d = st.dump_prng_masks(seed, rate, Bx, Lv, Lq, Dx, Fx, H,
+                                          device=dev)
+        kw = dict(num_heads=H, att_saves=saves, bf16_saves=saves)
+        if saves:
+            row_of = (lambda n: "sga_train_bwd_att_sav_prng")  # noqa: E731
+        else:
+            row_of = (lambda n: "sga_train_fwd_prng" if n is None  # noqa: E731
+                      else "sga_train_bwd_ffn_prng" if n in ffn
+                      else "sga_train_bwd_att_prng")
+        seeded_vs_dump(
+            torch, f"SGA train block, {label}",
+            lambda ls, ws: st.fused_sga_block_train_prng(
+                *ls, vm, qm, seed, ws, rate=rate, **kw),
+            lambda ls, ws: st.fused_sga_block_train(
+                *ls, vm, qm, masks, ws, inv_keep=inv_d, **kw),
+            lambda ls, ws: st.fused_sga_block_train_prng_plain(
+                *ls, vm, qm, seed, ws, num_heads=H, rate=rate),
+            (x, kq, vq), ("x", "kq", "vq"), w, st.WEIGHT_NAMES, probe, rows,
+            row_of)
+    xq, qmask, _, sw, _, sprobe = sa_block_inputs(torch, dev, B)
+    masks, inv_d = sa.dump_sa_prng_masks(seed, rate, B, Lq, D, F, H,
+                                         device=dev)
+    seeded_vs_dump(
+        torch, "SA train block, MCAN-small",
+        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, seed, ws,
+                                               num_heads=H, rate=rate),
+        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, masks, ws,
+                                               num_heads=H, inv_keep=inv_d),
+        lambda ls, ws: sa.fused_sa_block_train_plain(
+            *ls, qmask, seed, ws, num_heads=H, rate=rate),
+        (xq,), ("x",), sw, sa.SA_WEIGHT_NAMES, sprobe, rows,
+        lambda n: "sa_train_fwd_prng" if n is None else "sa_train_bwd_prng")
 
 
 def time_pieces(torch, K, rows, pieces, work, n) -> None:
@@ -2454,17 +2704,183 @@ SA_PER_BLOCK = {"sa_train_fwd": 1, "sa_train_bwd": 1, "gemm_bias_act": 6,
 # attention backward's 4 recomputed products
 SAV_PER_BLOCK = dict(PER_BLOCK, sga_train_bwd_att=0, sga_train_bwd_att_sav=1,
                      gemm_bias_act=6)
+# the blocks' own counters: the seeded route counts under name + "_prng"
+BLOCK_COUNTERS = ("sga_train_fwd", "sga_train_bwd_ffn", "sga_train_bwd_att",
+                  "sga_train_bwd_att_sav", "sa_train_fwd", "sa_train_bwd")
 TRAIN_KERNELS = tuple(sorted(set(PER_BLOCK) | set(SA_PER_BLOCK)
-                             | set(SAV_PER_BLOCK)))
+                             | set(SAV_PER_BLOCK)
+                             | {k + "_prng" for k in BLOCK_COUNTERS}))
 
 
-def expected_step_launches(cfg, route):
-    """Every kernel's launches in one step of this configuration."""
+def expected_step_launches(cfg, route, seeded):
+    """Every kernel's launches in one step of this configuration, its
+    blocks seeded (in-kernel dropout) or fed masks: the same kernels
+    either way."""
     n = cfg.layer * cfg.grad_accu_steps
     per = [(SAV_PER_BLOCK if route["att_saves"] else PER_BLOCK, n)]
     if route["fused_encoder"]:
         per.append((SA_PER_BLOCK, n))
-    return {k: sum(d.get(k, 0) * m for d, m in per) for k in TRAIN_KERNELS}
+    want = {k: 0 for k in TRAIN_KERNELS}
+    for d, m in per:
+        for k, c in d.items():
+            want[k + "_prng" if seeded and k in BLOCK_COUNTERS else k] += \
+                c * m
+    return want
+
+
+class MaskDraws:
+    """Records every keep-mask the train forward draws from its generator
+    (``fused_engine.keep_masks``) while active: site names and keep
+    decisions."""
+
+    def __init__(self):
+        from mcan_vqa_tpu_torch.train import fused_engine
+        self.mod, self.real = fused_engine, fused_engine.keep_masks
+        self.names, self.decisions, self.active = [], 0, False
+
+        def spy(generator, rate, shapes, bit_width=32):
+            if self.active and rate > 0:
+                self.names.extend(shapes)
+                self.decisions += sum(int(np.prod(s))
+                                      for s in shapes.values())
+            return self.real(generator, rate, shapes, bit_width)
+
+        fused_engine.keep_masks = spy
+
+    def take(self):
+        out = (list(self.names), self.decisions)
+        self.names, self.decisions = [], 0
+        return out
+
+    def close(self):
+        self.mod.keep_masks = self.real
+
+
+def plain_site_masks(cfg, route):
+    """The generator masks one micro-batch of the seeded route still draws:
+    AttFlat's two, and the encoder's four per layer when it is plain."""
+    enc = [] if route["fused_encoder"] else ["att", "y1", "h1", "y2"] * \
+        cfg.layer
+    return enc + ["lang", "img"]
+
+
+def engine_loss(torch, dev, cfg, fwd, model, batch, gen_state):
+    """The step's loss through the train forward ``fwd`` on the given
+    weights, micro-batch by micro-batch from the generator state
+    ``gen_state``, no autograd -> (the summed loss, the generator where
+    the forwards leave it)."""
+    from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    mb = BATCH // cfg.grad_accu_steps
+    loss = 0.0
+    with torch.no_grad():
+        for i in range(cfg.grad_accu_steps):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss += float(bce_with_logits_sum(
+                fwd(model, batch["img"][sl], batch["ques"][sl], g),
+                batch["target"][sl]))
+    return loss, g
+
+
+def loss_gate(label, loss, plain) -> float:
+    """The kernel engine's loss within 1e-3 relative of the plain engine's
+    (BCE summed over 64 x 3129 terms; bf16 roundings move it ~1e-6)."""
+    rel = abs(loss - plain) / abs(plain)
+    if not rel <= 1e-3:
+        fail(f"{label}: loss {loss} vs plain engine {plain}, rel {rel}")
+    return rel
+
+
+def compare_dropout_routes(torch, dev, trainer, route, tag, rows,
+                           n: int = 3) -> None:
+    """One step's forward and backward, every micro-batch (no optimizer
+    update: the trained state stays as it is), n times through the
+    in-kernel route the Trainer takes and through the external-mask route
+    (``make_fused_train_forward(in_kernel_dropout=False)``): the same
+    kernel launches but for the blocks' counters, the keep-masks each
+    draws from the generator, ms per step (CUDA events, eager), and each
+    route's loss against the plain engine's on the same route from the
+    same generator state (``loss_gate``)."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.fused_engine import \
+        make_fused_train_forward
+    from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
+    cfg, state = trainer.cfg, trainer.state
+    batch = next(iter(trainer.loader()))
+    mb = BATCH // cfg.grad_accu_steps
+    draws = MaskDraws()
+    got = {}
+    try:
+        for seeded in (True, False):
+            fwd = make_fused_train_forward(
+                cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+                dropout_bits=cfg.dropout_bits, in_kernel_dropout=seeded,
+                **route)
+
+            def once():
+                for p in state.model.parameters():
+                    p.grad = None
+                g = torch.Generator(device=dev).manual_seed(SEED + 9)
+                total = 0.0
+                for i in range(cfg.grad_accu_steps):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    loss = bce_with_logits_sum(fwd(
+                        state.model, batch["img"][sl], batch["ques"][sl], g),
+                        batch["target"][sl])
+                    loss.backward()
+                    total = total + loss.detach()
+                return total
+
+            loss = float(once())
+            plain_fwd = make_fused_train_forward(
+                cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+                dropout_bits=cfg.dropout_bits, in_kernel_dropout=seeded,
+                sga_block="plain", fused_encoder=route["fused_encoder"])
+            plain, _ = engine_loss(
+                torch, dev, cfg, plain_fwd, state.model, batch,
+                torch.Generator(device=dev).manual_seed(SEED + 9)
+                .get_state())
+            label = "in-kernel dropout" if seeded else "external masks"
+            rel = loss_gate(f"{tag} {label}", loss, plain)
+            say(f"[{tag}] {label}: loss {loss:.6f}, the plain engine on the "
+                f"same route {plain:.6f} (rel {rel:.2e} <= 1e-3)")
+            torch.cuda.synchronize()
+            draws.take()
+            draws.active = True
+            K.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                once()
+            end.record()
+            torch.cuda.synchronize()
+            draws.active = False
+            got[seeded] = (K.launch_counts(), *draws.take(),
+                           start.elapsed_time(end) / n)
+    finally:
+        draws.close()
+    for seeded, (counts, names, decisions, ms) in got.items():
+        want = {k: c * n for k, c in
+                expected_step_launches(cfg, route, seeded).items() if c}
+        mine = {k: v for k, v in counts.items() if k in TRAIN_KERNELS}
+        label = "in-kernel dropout" if seeded else "external masks"
+        say(f"[{tag}] {label}: {sum(mine.values()) // n} kernel launches "
+            f"per step, {len(names) // n} keep-masks drawn from the "
+            f"generator per step ({decisions // n} keep decisions, 2 "
+            f"PyTorch launches each at 32 bits), {ms:.3f} ms per forward + "
+            f"backward (CUDA events, eager)")
+        if mine != want:
+            fail(f"{tag} {label}: launches {mine}, expected {want}")
+    (_, seeded_names, _, _), (ext_counts, ext_names, _, _) = got[True], \
+        got[False]
+    if seeded_names != plain_site_masks(cfg, route) * cfg.grad_accu_steps \
+            * n:
+        fail(f"{tag}: the in-kernel route drew generator masks for "
+             f"{sorted(set(seeded_names))}")
+    rows.launches(f"{tag} external masks", ext_counts,
+                  [k for k in BLOCK_COUNTERS if ext_counts.get(k)])
 
 
 def train_main_path(torch, dev, rows, work: Path, model: str = "small",
@@ -2489,39 +2905,41 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
     ds = SyntheticVQADataset(cfg, size=steps * BATCH, answer_size=3129,
                              seed=SEED)
     trainer = Trainer(cfg, ds, device=dev)
+    if not (trainer.fused and trainer.in_kernel_dropout):
+        fail(f"the Trainer on the card chose fused={trainer.fused}, "
+             f"in_kernel_dropout={trainer.in_kernel_dropout}")
     plain_fwd = make_fused_train_forward(
         cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
-        sga_block="plain", fused_encoder=route["fused_encoder"])
+        sga_block="plain", fused_encoder=route["fused_encoder"],
+        dropout_bits=cfg.dropout_bits, in_kernel_dropout=True)
     real_step = trainer.step_fn
     mb = BATCH // cfg.grad_accu_steps
     log = []
+    draws = MaskDraws()
 
     def step(state, batch):
         """The Trainer's step, with the plain engine's loss on the same
         weights and generator state first, micro-batch by micro-batch (no
         launch counts, not timed), the step's launch counts and its time
         by CUDA events."""
-        g = torch.Generator(device=dev)
-        g.set_state(state.generator.get_state())
-        plain_loss = 0.0
-        with torch.no_grad():
-            for i in range(cfg.grad_accu_steps):
-                sl = slice(i * mb, (i + 1) * mb)
-                plain_loss += float(bce_with_logits_sum(
-                    plain_fwd(state.model, batch["img"][sl],
-                              batch["ques"][sl], g), batch["target"][sl]))
+        plain_loss, g = engine_loss(torch, dev, cfg, plain_fwd, state.model,
+                                    batch, state.generator.get_state())
         before = K.launch_counts()
+        draws.take()
+        draws.active = True
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = real_step(state, batch)
         end.record()
         torch.cuda.synchronize()
+        draws.active = False
         after = K.launch_counts()
         log.append(dict(loss=float(metrics["loss"]), plain=plain_loss,
                         ms=start.elapsed_time(end),
                         same_draws=torch.equal(g.get_state(),
                                                state.generator.get_state()),
+                        masks=draws.take()[0],
                         counts={k: after.get(k, 0) - before.get(k, 0)
                                 for k in TRAIN_KERNELS}))
         return metrics
@@ -2535,13 +2953,23 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
         f"SyntheticVQADataset(answer_size=3129); engine: "
         f"{route}")
     K.reset_launches()
-    trainer.train()
+    try:
+        trainer.train()
+    finally:
+        draws.close()
     torch.cuda.synchronize()
     counts = K.launch_counts()
     say(f"[launches] {tag}, {len(log)} steps: {counts}")
     if len(log) != steps:
         fail(f"{len(log)} train steps, expected {steps}")
-    want = expected_step_launches(cfg, route)
+    logged = (Path(cfg.log_path) / f"log_run_{cfg.run_version}.txt") \
+        .read_text()
+    line = [ln for ln in logged.splitlines() if "train engine" in ln]
+    say(f"[{tag}] the Trainer logged: {line}")
+    if not line or "in_kernel_dropout=True" not in line[0]:
+        fail(f"{tag}: the Trainer did not log in_kernel_dropout=True")
+    want = expected_step_launches(cfg, route, seeded=True)
+    plain_masks = plain_site_masks(cfg, route) * cfg.grad_accu_steps
     if route["att_saves"]:
         dh128 = {"masked_attention_dh128": "masked_attention",
                  "masked_attention_bwd_dh128": "masked_attention_bwd"}
@@ -2551,27 +2979,27 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
         rows.launches(tag, counts, dh128, key=dh128)
     else:
         rows.launches(tag, counts, [k for k in TRAIN_KERNELS if want[k]])
-    # Loss tolerance: the fused and plain blocks differ by bf16 roundings
-    # (the block checks above); summed over 64 x 3129 BCE terms the loss
-    # moves by far less than 1e-3 of itself.
     for i, r in enumerate(log):
         if r["counts"] != want:
             fail(f"step {i}: launches {r['counts']}, expected {want}")
         if not r["same_draws"]:
             fail(f"step {i}: the step drew other dropout masks than its "
                  f"{cfg.grad_accu_steps} micro-batch forwards")
-        rel = abs(r["loss"] - r["plain"]) / abs(r["plain"])
+        if r["masks"] != plain_masks:
+            fail(f"step {i}: generator masks {r['masks']}, expected only "
+                 f"the plain sites' {plain_masks}")
+        rel = loss_gate(f"{tag} step {i}", r["loss"], r["plain"])
         say(f"  step {i}: loss {r['loss']:.6f} (plain engine "
             f"{r['plain']:.6f}, rel {rel:.2e} <= 1e-3), {r['ms']:.3f} ms")
-        if not rel <= 1e-3:
-            fail(f"step {i}: fused loss {r['loss']} vs plain {r['plain']}")
     blocks = (f"{cfg.layer} encoder blocks x (forward + backward) + " if
               route["fused_encoder"] else "")
     say(f"  every step ran {blocks}{cfg.layer} decoder blocks x "
         f"{cfg.grad_accu_steps} micro-batch(es) x (forward + FFN backward + "
         f"attention backward{' from saves' if route['att_saves'] else ''})"
-        f" through the kernels, with the generator where the micro-batch "
-        f"forwards leave it")
+        f" through the kernels with in-kernel dropout (one seed per block, "
+        f"no keep-mask drawn for a kernel site: the generator drew only "
+        f"{sorted(set(plain_masks))}), with the generator where the "
+        f"micro-batch forwards leave it")
     ms = [r["ms"] for r in log[1:]]
     mean = sum(ms) / len(ms)
     say(f"[{tag}] step time (steps 2..{steps}, CUDA events): mean "
@@ -2605,10 +3033,194 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
              f"{float(l2)}, {n_diff} of {len(g1)} gradients")
     say(f"[{tag}] two runs of one micro-batch: the loss and all {len(g1)} "
         f"parameter gradients equal bit for bit")
+    compare_dropout_routes(torch, dev, trainer, route, tag, rows)
     ckpt = Path(cfg.ckpts_dir) / f"ckpt_{cfg.run_version}" / "epoch1.pkl"
     if not ckpt.exists():
         fail(f"no epoch checkpoint at {ckpt}")
     return trainer, ckpt
+
+
+# ---------------------------------------------------------------------------
+# phase: the widths the kernels now take -- hidden 256 (8 heads of 32) and
+# 86 image rows (MIMIC "both") -- served and trained on the card
+# ---------------------------------------------------------------------------
+
+ENVELOPE_STEPS = 3
+ENVELOPE_LAYERS = 2     # depth cut: the kernels' shapes do not depend on it
+
+
+def envelope_blocks(torch, dev, cfg, rows) -> None:
+    """The seeded train blocks at this configuration's shapes (B = 64):
+    the SGA block, and the SA block when the width is not MCAN-small's,
+    against the external-mask blocks fed the dump (bit for bit) and their
+    plain twins (``seeded_vs_dump``): the attention kernels' 128-row and
+    Dh-32 instances and the LayerNorm at D 256, forward and backward, with
+    their Philox sites."""
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    rate, seed = 0.1, PRNG_SEED + 1
+    B, Lv, Lq, D, F, H = (BATCH, cfg.img_feat_pad_size, 14, cfg.hidden_size,
+                          cfg.ff_size, cfg.multi_head)
+    x, kq, vq, vm, qm, _, w, _, probe = train_block_inputs(
+        torch, dev, B=B, Lv=Lv, Lq=Lq, D=D, F=F, H=H)
+    masks, inv = st.dump_prng_masks(seed, rate, B, Lv, Lq, D, F, H,
+                                    device=dev)
+    ffn = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
+    seeded_vs_dump(
+        torch, f"SGA train block, B={B} Lv={Lv} D={D} H={H}",
+        lambda ls, ws: st.fused_sga_block_train_prng(
+            *ls, vm, qm, seed, ws, num_heads=H, rate=rate),
+        lambda ls, ws: st.fused_sga_block_train(
+            *ls, vm, qm, masks, ws, num_heads=H, inv_keep=inv),
+        lambda ls, ws: st.fused_sga_block_train_prng_plain(
+            *ls, vm, qm, seed, ws, num_heads=H, rate=rate),
+        (x, kq, vq), ("x", "kq", "vq"), w, st.WEIGHT_NAMES, probe, rows,
+        lambda n: "sga_train_fwd_prng" if n is None
+        else "sga_train_bwd_ffn_prng" if n in ffn
+        else "sga_train_bwd_att_prng")
+    if D == 512:
+        return
+    xq, qmask, _, sw, _, sprobe = sa_block_inputs(torch, dev, B, L=Lq, D=D,
+                                                  F=F, H=H)
+    masks, inv = sa.dump_sa_prng_masks(seed, rate, B, Lq, D, F, H,
+                                       device=dev)
+    seeded_vs_dump(
+        torch, f"SA train block, B={B} L={Lq} D={D} H={H}",
+        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, seed, ws,
+                                               num_heads=H, rate=rate),
+        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, masks, ws,
+                                               num_heads=H, inv_keep=inv),
+        lambda ls, ws: sa.fused_sa_block_train_plain(
+            *ls, qmask, seed, ws, num_heads=H, rate=rate),
+        (xq,), ("x",), sw, sa.SA_WEIGHT_NAMES, sprobe, rows,
+        lambda n: "sa_train_fwd_prng" if n is None else "sa_train_bwd_prng")
+
+
+def check_envelope(torch, dev, vocab, ix_to_ans, rows) -> None:
+    """For each width: the bf16 engine, int8 levels 1 / 3 / 5 and the
+    full-int8 engine through ``Predictor`` (bf16 through
+    ``build_production_engine(qffn=0)``, which the Predictor does not
+    expose; levels 1 and 3 from the default Predictor before and after its
+    online calibration, as in [serve]; level 5 from
+    ``Predictor(engine="int4")`` after ``calibrate_now()``), each within its
+    PERF.md section 2 bound of the plain engine with exact launch counts;
+    the seeded train blocks at its shapes (``envelope_blocks``); then
+    ``Trainer`` (engine "auto": the fused engine with in-kernel dropout on
+    the card) for ENVELOPE_STEPS steps at batch 64 with exact launch
+    counts, each step's loss within 1e-3 of the plain engine's on the same
+    weights, seeds and generator state."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    from mcan_vqa_tpu_torch.train.fused_engine import \
+        make_fused_train_forward
+    from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_route
+
+    for label, over in (("hidden 256, 8 heads of 32", dict(hidden_size=256)),
+                        ("86 image rows", dict(img_feat_pad_size=86))):
+        cfg = Config.for_model("small", layer=ENVELOPE_LAYERS, **over)
+        L, n_ans = cfg.layer, len(ix_to_ans)
+        net = MCANet(cfg, len(vocab), n_ans,
+                     generator=torch.Generator().manual_seed(SEED + 31))
+        sd = net.state_dict()
+        say(f"[envelope] {label}: {L} layers, hidden {cfg.hidden_size}, ff "
+            f"{cfg.ff_size}, {cfg.multi_head} heads of "
+            f"{cfg.hidden_size // cfg.multi_head}, up to "
+            f"{cfg.img_feat_pad_size} regions")
+        kw = dict(ix_to_ans=ix_to_ans, max_batch=BATCH,
+                  latency_buckets=LATENCY_BUCKETS, device=dev)
+        rng = np.random.default_rng(SEED + 32)
+        requests = make_requests(rng, cfg)
+        plain = Predictor(cfg, sd, vocab, engine="plain", **kw)
+        n_fwd = len(requests)
+
+        def serve(name, call, want, bound=INT8_BOUND, on="sigmoid"):
+            K.reset_launches()
+            probs = [call(qs, fs) for qs, fs in requests]
+            torch.cuda.synchronize()
+            check_launches(f"envelope {label}, {name}", K.launch_counts(),
+                           want, n_fwd)
+            agreement(f"{label}, {name}", requests, probs, plain, n_ans,
+                      bound, on)
+
+        fwd, prep = build_production_engine(sd, L, cfg.multi_head, qffn=0,
+                                            device=dev)
+        bf16 = padded_engine(torch, dev, fwd, prep)
+        serve("bf16 (qffn=0)", lambda qs, fs: bf16(*plain.pad_batch(qs, fs))
+              [:len(qs)].cpu().numpy(), serve_launches(L, 0), bound=1e-2)
+        p = Predictor(cfg, sd, vocab, **kw)
+        serve("level 1", p.predict_probs, serve_launches(L, 1))
+        for _ in range(-(-256 // BATCH)):       # past 256 real rows
+            p.predict_probs(*ragged_batch(rng, cfg, BATCH))
+        if not p.wait_calibrated(timeout=600) or \
+                p.calibration["state"] != "calibrated":
+            fail(f"envelope {label}: calibration {p.calibration}")
+        serve("level 3 (online calibration)", p.predict_probs,
+              serve_launches(L, 3))
+        p5 = Predictor(cfg, sd, vocab, engine="int4", **kw)
+        for qs, fs in requests:
+            p5.predict_probs(qs, fs)
+        p5.calibrate_now()
+        serve("int4 level 5", p5.predict_probs, serve_launches(L, 5),
+              INT4_BOUND, "softmax")
+        p8 = Predictor(cfg, sd, vocab, engine="int8", **kw)
+        serve("full int8", p8.predict_probs, int8_engine_launches(L))
+        del plain, p, p5, p8, bf16, prep
+        envelope_blocks(torch, dev, cfg, rows)
+
+        work = ROOT / "ckpts" / "chip_smoke_envelope"
+        tcfg = cfg.with_overrides(max_epoch=1, batch_size=BATCH,
+                                  seed=SEED + 33,
+                                  ckpts_dir=str(work / "ckpts"),
+                                  log_path=str(work / "log"), verbose=False)
+        ds = SyntheticVQADataset(tcfg, size=ENVELOPE_STEPS * BATCH,
+                                 answer_size=3129, seed=SEED)
+        try:
+            trainer = Trainer(tcfg, ds, device=dev)
+            if not (trainer.fused and trainer.in_kernel_dropout):
+                fail(f"envelope {label}: the Trainer chose fused="
+                     f"{trainer.fused}, in_kernel_dropout="
+                     f"{trainer.in_kernel_dropout}")
+            route = engine_route(tcfg.hidden_size)
+            plain_fwd = make_fused_train_forward(
+                tcfg.layer, tcfg.multi_head, dropout_rate=tcfg.dropout_rate,
+                sga_block="plain", fused_encoder=route["fused_encoder"],
+                dropout_bits=tcfg.dropout_bits, in_kernel_dropout=True)
+            losses, plains = [], []
+            real = trainer.step_fn
+
+            def step(state, batch):
+                plains.append(engine_loss(
+                    torch, dev, tcfg, plain_fwd, state.model, batch,
+                    state.generator.get_state())[0])
+                metrics = real(state, batch)
+                losses.append(float(metrics["loss"]))
+                return metrics
+
+            trainer.step_fn = step
+            K.reset_launches()
+            trainer.train()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in K.launch_counts().items()
+                      if k in TRAIN_KERNELS}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        want = {k: c * ENVELOPE_STEPS for k, c in expected_step_launches(
+            tcfg, route, True).items() if c}
+        if len(losses) != ENVELOPE_STEPS or not np.isfinite(losses).all():
+            fail(f"envelope {label}: train losses {losses}")
+        rels = [loss_gate(f"envelope {label} step {i}", a, b)
+                for i, (a, b) in enumerate(zip(losses, plains))]
+        say(f"[envelope] {label}: Trainer, {len(losses)} steps at batch "
+            f"{BATCH} through the kernels with in-kernel dropout: losses "
+            f"{[round(x, 3) for x in losses]}, the plain engine's "
+            f"{[round(x, 3) for x in plains]} (rel <= {max(rels):.2e}, "
+            f"gate 1e-3); launches {counts}")
+        if counts != want:
+            fail(f"envelope {label}: launches {counts}, expected {want}")
 
 
 def check_repeated_batch(torch, trainer) -> None:

@@ -1,11 +1,14 @@
 """Where the time of a train step goes, on the card.
 
     python -m mcan_vqa_tpu_torch.cli.profile_train [--model large]
-        [--steps 5] [--batch 64]
+        [--steps 5] [--batch 64] [--in_kernel_dropout {0,1}]
 
 Builds the ``Trainer`` at MCAN-small width (or MCAN-large, whose batch of
 64 is two micro-batches of 32; random weights from a seed) on
-``SyntheticVQADataset(answer_size=3129)`` and times its step two ways:
+``SyntheticVQADataset(answer_size=3129)``, its fused blocks drawing their
+dropout inside the kernels as the Trainer does on the card
+(``--in_kernel_dropout 1``, the default) or reading generator masks
+(``0``), and times its step two ways:
 
   * ``loader``: the Trainer's own loop, batches assembled on the host by
     ``BatchLoader`` while the card trains (host clock, synchronised);
@@ -13,10 +16,11 @@ Builds the ``Trainer`` at MCAN-small width (or MCAN-large, whose batch of
     by the host clock alone, then under ``torch.profiler``: ms per step
     (the profiler's own host cost included), the device's busy time (the
     union of its kernel and copy intervals) and idle share against the
-    unprofiled step, device events per step, and device time by kernel
-    group (the port's kernels by name, PyTorch's GEMMs, PyTorch's
-    elementwise and reduction kernels, copies) with the largest PyTorch
-    kernels by name.
+    unprofiled step, device events per step, the generator's mask draws
+    per step (host calls of ``uniform_`` / ``random_``), and device time by
+    kernel group (the port's kernels by name, PyTorch's random-number
+    kernels, GEMMs, elementwise and reduction kernels, copies) with the
+    largest PyTorch kernels by name.
 
 Prints one JSON line with every number last. Needs a CUDA device.
 """
@@ -44,11 +48,21 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "copy"
+    if "distribution" in low or "philox" in low:
+        return "torch rng"
     if any(s in low for s in ("gemm", "cutlass", "sm90_", "sm80_", "cublas")):
         return "torch gemm"
     if "reduce" in low:
         return "torch reduction"
     return "torch elementwise/other"
+
+
+def is_annotation(name: str) -> bool:
+    """A range name such as "Optimizer.step#AdamW.step": a '#' and no C++
+    signature. Kernels whose names hold a lambda ("...{lambda(float)#1}...",
+    PyTorch's random-number and comparison kernels among them) are kernels
+    and stay."""
+    return "#" in name and "(" not in name and "<" not in name
 
 
 def union_us(intervals: List[tuple]) -> float:
@@ -69,6 +83,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--in_kernel_dropout", type=int, choices=[0, 1],
+                   default=1)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train measures the card: no CUDA device")
@@ -83,14 +99,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                            log_path="results/profile_train")
     ds = SyntheticVQADataset(cfg, size=n * args.batch, answer_size=3129)
     trainer = Trainer(cfg, ds)
+    trainer.build_step(bool(args.in_kernel_dropout))
     state = trainer.state
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
     print(f"[model] {args.model}: hidden {cfg.hidden_size}, batch "
-          f"{cfg.batch_size} in {cfg.grad_accu_steps} micro-batch(es)",
-          flush=True)
+          f"{cfg.batch_size} in {cfg.grad_accu_steps} micro-batch(es), "
+          f"in_kernel_dropout={trainer.in_kernel_dropout}", flush=True)
 
     # the Trainer's loop: host-assembled batches through the loader
     times = []
@@ -130,7 +147,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
-           and "#" not in e.name]
+           and not is_annotation(e.name)]
+    draws = sum(e.count for e in prof.key_averages()
+                if e.key in ("aten::uniform_", "aten::random_")) / args.steps
     busy_ms = union_us([(e.time_range.start, e.time_range.end)
                         for e in dev]) / 1e3 / args.steps
     groups = defaultdict(float)
@@ -150,7 +169,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(f"[preloaded, profiled] ms/step {wall_ms:.3f}, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f} of the "
           f"unprofiled step, {len(dev) / args.steps:.0f} device events per "
-          f"step", flush=True)
+          f"step, {draws:.0f} generator mask draws per step", flush=True)
     for g, v in by_group.items():
         print(f"  {g:32s} {v['ms_per_step']:8.3f} ms  "
               f"{v['events_per_step']:6.0f} events", flush=True)
@@ -158,11 +177,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for name, ms in top.items():
         print(f"    {ms:8.3f}  {name}", flush=True)
     result = {"card": smi, "model": args.model, "batch": args.batch,
+              "in_kernel_dropout": trainer.in_kernel_dropout,
               "steps": args.steps, "loader_ms_per_step": loader_ms,
               "preloaded_ms_per_step": step_ms,
               "profiled_ms_per_step": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": 1 - busy_ms / step_ms,
               "device_events_per_step": len(dev) / args.steps,
+              "mask_draws_per_step": draws,
               "by_group": by_group, "largest_torch_kernels": top}
     print(json.dumps(result), flush=True)
     return result

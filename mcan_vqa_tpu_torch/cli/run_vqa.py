@@ -49,6 +49,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr_decay_list", type=lambda s: tuple(
         int(x) for x in s.split(",") if x.strip()))
     p.add_argument("--verbose", type=_bool)
+    p.add_argument("--train_engine", choices=["auto", "fused", "plain"],
+                   help="auto (default): the fused kernels on the card at "
+                        "hidden % 128 == 0 and <= 1024, else plain ops")
+    p.add_argument("--dropout_bits", type=int, choices=[8, 16, 32])
     for knob in ARCH_KNOBS:
         p.add_argument(f"--{knob}", type=int)
     for knob, typ in TRAIN_KNOBS.items():
@@ -62,7 +66,9 @@ def build_config(args: argparse.Namespace) -> Config:
     overrides = {}
     for knob in ARCH_KNOBS + tuple(TRAIN_KNOBS) + ("grad_accu_steps",
                                                     "lr_decay_list",
-                                                    "verbose"):
+                                                    "verbose",
+                                                    "train_engine",
+                                                    "dropout_bits"):
         value = getattr(args, knob)
         if value is not None:
             overrides[knob] = value

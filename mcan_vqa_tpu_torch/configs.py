@@ -19,6 +19,8 @@ from typing import Any, Dict, Tuple
 
 # the settings each model's YAML sets over the defaults (small.yml sets
 # only values the defaults already have)
+TRAIN_ENGINES = ("auto", "fused", "plain")
+DROPOUT_BITS = (8, 16, 32)
 MODELS: Dict[str, Dict[str, Any]] = {
     "small": {},
     "large": dict(hidden_size=1024, ff_size=4096, flat_out_size=2048,
@@ -41,6 +43,9 @@ class Config:
     flat_glimpses: int = 1
     flat_out_size: int = 512
     dropout_rate: float = 0.1
+    # random bits drawn per dropout keep decision of an external mask or a
+    # plain site: 32 (exact rate), 16 or 8 (config.py:118)
+    dropout_bits: int = 32
 
     # ---- training (config.py:24-31, 50-86, 158-162)
     seed: int = 444
@@ -56,6 +61,11 @@ class Config:
     verbose: bool = True
     ckpts_dir: str = "./ckpts/"
     log_path: str = "./results/log/"
+    # "auto": the fused train engine on a CUDA device at hidden % 128 == 0
+    # and hidden <= 1024, else the plain one; "fused" forces the fused
+    # engine (on the CPU its kernels' plain versions, test-only); "plain"
+    # always the plain engine (config.py:136, trainer.py:540-567)
+    train_engine: str = "auto"
 
     def __post_init__(self):
         if self.hidden_size % self.multi_head:
@@ -66,6 +76,12 @@ class Config:
             raise ValueError(
                 f"batch_size {self.batch_size} is not a multiple of "
                 f"grad_accu_steps {self.grad_accu_steps}")
+        if self.train_engine not in TRAIN_ENGINES:
+            raise ValueError(f"train_engine must be one of {TRAIN_ENGINES}, "
+                             f"got {self.train_engine!r}")
+        if self.dropout_bits not in DROPOUT_BITS:
+            raise ValueError(f"dropout_bits must be one of {DROPOUT_BITS}, "
+                             f"got {self.dropout_bits!r}")
 
     @classmethod
     def for_model(cls, model: str = "small", **overrides: Any) -> "Config":

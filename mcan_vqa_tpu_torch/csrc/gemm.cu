@@ -34,9 +34,13 @@
 // so a ragged M (and, for dW, a ragged number of rows) is exact. A dW tile
 // is summed by one block over all of K in a fixed order: no atomics, the
 // result is the same bit for bit on every run. The epilogue, in order: +
-// bias, ReLU, dropout keep-mask (x inv_keep), gradient gate (x inv_keep
-// where a bf16 tensor is > 0, else 0), + an f32 residual; then one rounding
-// to each requested output type (f32 and/or bf16).
+// bias, ReLU, dropout keep-mask (x inv_keep) read from a uint8 tensor or
+// drawn in place by Philox (common.cuh; the h1 site of the train forward's
+// FFN, _fwd_kernel_prng :507, sa_train.py::_fwd_kernel_prng :179; its
+// backward needs no draw: the gate below reads the kept ReLU output),
+// gradient gate (x inv_keep where a bf16 tensor is > 0, else 0), + an f32
+// residual; then one rounding to each requested output type (f32 and/or
+// bf16).
 // Not yet: wgmma, TMA, persistent tiles, split-K for the dW products.
 #include <mma.h>
 
@@ -59,6 +63,7 @@ struct Epilogue {
   const bf16* gate;             // [M, N]: keep (x inv_keep) where > 0
   long long ldg;
   float inv_keep;
+  Philox keep;                  // or the seeded keep source of the mask
   const float* res;             // [M, N] f32 added last, or null
   long long ldr;
   float* out_f32;               // either output may be null
@@ -177,6 +182,7 @@ gemm_kernel(const bf16* __restrict__ A, long long lda, const bf16* __restrict__ 
           if (ep.bias != nullptr) v += ep.bias[gc];
           if (ep.relu) v = fmaxf(v, 0.0f);
           if (ep.mask != nullptr) v = ep.mask[(size_t)gr * ep.ldm + gc] ? v * ep.inv_keep : 0.0f;
+          if (ep.keep.on) v = philox_keep_rows(ep.keep, gr, N, gc) ? v * ep.inv_keep : 0.0f;
           if (ep.gate != nullptr)
             v = to_f32(ep.gate[(size_t)gr * ep.ldg + gc]) > 0.0f ? v * ep.inv_keep : 0.0f;
           if (ep.res != nullptr) v = ep.res[(size_t)gr * ep.ldr + gc] + v;
@@ -201,7 +207,10 @@ void launch(const void* A, long long lda, const void* B, long long ldb, int M, i
 
 // layout: 0 = NN (A [M,K], B [K,N]), 1 = NT (A [M,K], B stored [N,K]),
 // 2 = TN (A stored [K,M], B [K,N]). Leading dimensions are in elements.
-// Every pointer may be null except A, B and at least one output. Chunks of
+// Every pointer may be null except A, B and at least one output.
+// keep_on != 0 draws the dropout keep-mask in place of `mask` (null then):
+// Philox key (seed, site), rows per sample keep_rows, keep iff word < thresh.
+// Chunks of
 // 8 bf16 are loaded whole: the dimension each operand's rows run along
 // must be a multiple of 8 and both operands 16-byte aligned (the wrapper
 // checks). Returns cudaGetLastError(), or cudaErrorInvalidValue for an
@@ -209,11 +218,13 @@ void launch(const void* A, long long lda, const void* B, long long ldb, int M, i
 MCAN_API int mcan_gemm(int layout, const void* A, long long lda, const void* B, long long ldb,
                        int M, int N, int K, const void* bias, int relu, const void* mask,
                        long long ldm, const void* gate, long long ldg, float inv_keep,
-                       const void* res, long long ldr, void* out_f32, long long ldo32,
+                       int keep_on, unsigned seed, unsigned site, unsigned thresh,
+                       int keep_rows, const void* res, long long ldr, void* out_f32, long long ldo32,
                        void* out_bf16, long long ldo16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Epilogue ep{static_cast<const float*>(bias), relu, static_cast<const unsigned char*>(mask), ldm,
-              static_cast<const bf16*>(gate), ldg, inv_keep, static_cast<const float*>(res), ldr,
+              static_cast<const bf16*>(gate), ldg, inv_keep,
+              Philox{keep_on, seed, site, thresh, keep_rows}, static_cast<const float*>(res), ldr,
               static_cast<float*>(out_f32), ldo32, static_cast<bf16*>(out_bf16), ldo16};
   if (M > 0 && N > 0) {
     switch (layout) {

@@ -31,38 +31,44 @@
 //
 // Bounds on an H100: memory -- forward ~14 bytes moved per element for
 // ~10 FLOPs, backward ~20 bytes for ~20 FLOPs.
-// Design: one warp per row of D = 32 * VPT, the row held in registers
-// (VPT values per lane, lane-strided so each load is coalesced), mean and
-// centred sum of squares by warp shuffles; 8 rows per 256-thread block.
-// The backward recomputes r, the normalised u = (r - mean) / (std + eps)
-// and the std from the residual inputs -- never from the LN output -- and
-// writes per element dr, dy = drop(dr) and g * u; the column sums that
-// give dgamma / dbeta / the bias gradients are a separate pass
-// (col_sum.cu), so every sum runs in a fixed order.
+// Design: one warp per row. At D = 256, 512 and 1024 (hidden 256,
+// MCAN-small, MCAN-large) the row is held in registers, D / 32 values per
+// lane, lane-strided so each load is coalesced, the width a template
+// constant: every load an immediate offset from one address, all in
+// flight together; 8 rows per 256-thread block. Any other multiple of 32
+// up to 2048 (every width the JAX package serves and trains) takes the
+// rolled kernel: 4 rows per 128-thread block, each row staged in shared
+// memory (8 KB at 2048), the loops rolled. The input dtypes and the keep
+// source (a keep-mask or none, or the drawn bits) are template parameters
+// of both. Mean and centred sum of squares by warp shuffles; each lane sums
+// its columns lane, lane + 32, ... in order in either kernel.
+// The backward (residual_layernorm_bwd.cu) recomputes r, the normalised
+// u = (r - mean) / (std + eps) and the std from the residual inputs --
+// never from the LN output -- and writes per element dr, dy = drop(dr) and
+// g * u; the column sums that give dgamma / dbeta / the bias gradients are
+// a separate pass (col_sum.cu), so every sum runs in a fixed order.
+// Dropout on y + bias: a uint8 keep-mask, or the seeded Philox keep source
+// (common.cuh) of the train kernels' in-kernel dropout (sga_train.py::
+// _fwd_kernel_prng :507 sites Y1 / Y2 / Y3, sa_train.py::_fwd_kernel_prng
+// :179 sites Y1 / Y2, and their backward kernels :617, :812, :1202, :295,
+// :314, which regenerate the same bits): row = b * rows + r, e = r * D + c.
 #include <math.h>
 
-#include "common.cuh"
+#include "residual_layernorm.cuh"
 
 namespace {
 
-constexpr int THREADS = 256, ROWS_PER_BLOCK = THREADS / 32;
+using ln::ROLLED_ROWS;
+using ln::ROLLED_THREADS;
+using ln::ROWS_PER_BLOCK;
+using ln::THREADS;
 
-// y + bias through the dropout keep-mask (x inv_keep), or 0 when y is null
-__device__ __forceinline__ float sublayer(const float* y, const float* bias,
-                                          const unsigned char* mask, float inv_keep, size_t e,
-                                          int c) {
-  if (y == nullptr) return 0.0f;
-  float t = y[e];
-  if (bias != nullptr) t += bias[c];
-  if (mask != nullptr) t = mask[e] ? t * inv_keep : 0.0f;
-  return t;
-}
-
-template <int VPT, typename ResT>
+// the row in registers, D = 32 * VPT
+template <int VPT, typename ResT, bool DRAWN>
 __global__ void __launch_bounds__(THREADS)
 residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict__ y,
                           const float* __restrict__ bias, const unsigned char* __restrict__ mask,
-                          float inv_keep, const float* __restrict__ gamma,
+                          Philox keep, float inv_keep, const float* __restrict__ gamma,
                           const float* __restrict__ beta, float* __restrict__ out_f32,
                           bf16* __restrict__ out_bf16, float* __restrict__ out_r,
                           bf16* __restrict__ out_r16, int rows, float eps, int reciprocal) {
@@ -71,13 +77,19 @@ residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict_
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= rows) return;
   const size_t base = (size_t)row * D;
+  const unsigned long long kb = DRAWN ? ln::drawn_bits(keep, row, D, lane, VPT) : 0ull;
 
   float r[VPT];
   float sum = 0.0f;
 #pragma unroll
   for (int t = 0; t < VPT; ++t) {
     const int c = lane + 32 * t;
-    const float v = to_f32(res[base + c]) + sublayer(y, bias, mask, inv_keep, base + c, c);
+    float v = to_f32(res[base + c]);
+    if (y != nullptr) {  // + drop(y + bias)
+      float u = y[base + c];
+      if (bias != nullptr) u += bias[c];
+      v += ln::drop_in<DRAWN>(u, mask, (kb >> t) & 1ull, base + c, inv_keep);
+    }
     if (out_r != nullptr) out_r[base + c] = v;
     if (out_r16 != nullptr) out_r16[base + c] = to_bf16(v);
     r[t] = v;
@@ -101,160 +113,124 @@ residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict_
   }
 }
 
-// _ln_bwd_u (sga_train.py:122-142), per row:
-//   c = r - mean, std = sqrt(sum(c^2) / (D - 1)), inv = 1 / (std + eps)
-//   sg = gamma * g, dstd = -sum(sg * c) * inv^2, k = dstd / ((D - 1) std)
-//   dc = sg * inv + c * k, dr = dc - mean(dc), u = c * inv
-template <int VPT, typename GT, typename RT>
-__global__ void __launch_bounds__(THREADS)
-residual_layernorm_bwd_kernel(const GT* __restrict__ g, const RT* __restrict__ res,
-                              const float* __restrict__ y, const float* __restrict__ bias,
-                              const unsigned char* __restrict__ mask, float inv_keep,
-                              const float* __restrict__ gamma, float* __restrict__ dr,
-                              float* __restrict__ dy32, bf16* __restrict__ dy16,
-                              float* __restrict__ gu, int rows, float eps) {
-  constexpr int D = 32 * VPT;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+// any other width: the row staged in shared memory, the loops rolled
+template <typename ResT, bool DRAWN>
+__global__ void __launch_bounds__(ROLLED_THREADS)
+residual_layernorm_rolled_kernel(const ResT* __restrict__ res, const float* __restrict__ y,
+                                 const float* __restrict__ bias,
+                                 const unsigned char* __restrict__ mask, Philox keep,
+                                 float inv_keep, const float* __restrict__ gamma,
+                                 const float* __restrict__ beta, float* __restrict__ out_f32,
+                                 bf16* __restrict__ out_bf16, float* __restrict__ out_r,
+                                 bf16* __restrict__ out_r16, int rows, int D, float eps,
+                                 int reciprocal) {
+  __shared__ float rs[ROLLED_ROWS][ln::MAX_D];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int row = blockIdx.x * ROLLED_ROWS + w;
   if (row >= rows) return;
   const size_t base = (size_t)row * D;
+  float* r = rs[w];  // each lane reads back only the columns it wrote
 
-  float c[VPT], sg[VPT];
   float sum = 0.0f;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    const int col = lane + 32 * t;
-    c[t] = to_f32(res[base + col]) + sublayer(y, bias, mask, inv_keep, base + col, col);
-    sum += c[t];
+  for (int c = lane; c < D; c += 32) {
+    float v = to_f32(res[base + c]);
+    if (y != nullptr) {
+      float u = y[base + c];
+      if (bias != nullptr) u += bias[c];
+      const bool k = DRAWN && philox_keep_rows(keep, row, D, c);
+      v += ln::drop_in<DRAWN>(u, mask, k, base + c, inv_keep);
+    }
+    if (out_r != nullptr) out_r[base + c] = v;
+    if (out_r16 != nullptr) out_r16[base + c] = to_bf16(v);
+    r[c] = v;
+    sum += v;
   }
   const float mean = warp_sum(sum) / D;
   float ss = 0.0f;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    c[t] -= mean;
-    ss += c[t] * c[t];
+  for (int c = lane; c < D; c += 32) {
+    const float d = r[c] - mean;
+    r[c] = d;
+    ss += d * d;
   }
-  const float stdv = sqrtf(warp_sum(ss) / (D - 1));
-  const float inv = 1.0f / (stdv + eps);
-  float dot = 0.0f;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    const int col = lane + 32 * t;
-    sg[t] = gamma[col] * to_f32(g[base + col]);
-    dot += sg[t] * c[t];
+  const float denom = sqrtf(warp_sum(ss) / (D - 1)) + eps;
+  const float inv = 1.0f / denom;
+  for (int c = lane; c < D; c += 32) {
+    const float o = (reciprocal ? gamma[c] * (r[c] * inv) : gamma[c] * r[c] / denom) + beta[c];
+    if (out_f32 != nullptr) out_f32[base + c] = o;
+    if (out_bf16 != nullptr) out_bf16[base + c] = to_bf16(o);
   }
-  const float dstd = -warp_sum(dot) * (inv * inv);
-  const float kk = dstd / ((D - 1) * stdv);
-  float dsum = 0.0f;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    sg[t] = sg[t] * inv + c[t] * kk;  // dc
-    dsum += sg[t];
+}
+
+struct Args {
+  const void *res, *y, *bias, *mask;
+  Philox keep;
+  float inv_keep;
+  const void *gamma, *beta;
+  void *out_f32, *out_bf16, *out_r, *out_r16;
+  int rows, D;
+  float eps;
+  int reciprocal;
+};
+
+// VPT > 0: the row-in-registers kernel; 0: the rolled one
+template <int VPT, typename ResT, bool DRAWN>
+void launch_t(const Args& a, cudaStream_t s) {
+#define MCAN_LN_PTRS static_cast<const ResT*>(a.res), static_cast<const float*>(a.y),          \
+                     static_cast<const float*>(a.bias),                                        \
+                     static_cast<const unsigned char*>(a.mask), a.keep, a.inv_keep,           \
+                     static_cast<const float*>(a.gamma), static_cast<const float*>(a.beta),   \
+                     static_cast<float*>(a.out_f32), static_cast<bf16*>(a.out_bf16),          \
+                     static_cast<float*>(a.out_r), static_cast<bf16*>(a.out_r16), a.rows
+  if constexpr (VPT > 0) {
+    const int grid = (a.rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+    residual_layernorm_kernel<VPT, ResT, DRAWN><<<grid, THREADS, 0, s>>>(
+        MCAN_LN_PTRS, a.eps, a.reciprocal);
+  } else {
+    const int grid = (a.rows + ROLLED_ROWS - 1) / ROLLED_ROWS;
+    residual_layernorm_rolled_kernel<ResT, DRAWN><<<grid, ROLLED_THREADS, 0, s>>>(
+        MCAN_LN_PTRS, a.D, a.eps, a.reciprocal);
   }
-  const float dmean = warp_sum(dsum) / D;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    const int col = lane + 32 * t;
-    const size_t e = base + col;
-    const float d = sg[t] - dmean;
-    dr[e] = d;
-    gu[e] = to_f32(g[e]) * (c[t] * inv);
-    const float dyv = mask == nullptr ? d : (mask[e] ? d * inv_keep : 0.0f);
-    if (dy32 != nullptr) dy32[e] = dyv;
-    if (dy16 != nullptr) dy16[e] = to_bf16(dyv);
-  }
+#undef MCAN_LN_PTRS
 }
 
 template <int VPT>
-void launch(const void* res, int res_bf16, const void* y, const void* bias, const void* mask,
-            float inv_keep, const void* gamma, const void* beta, void* out_f32, void* out_bf16,
-            void* out_r, void* out_r16, int rows, float eps, int reciprocal, cudaStream_t s) {
-  const int grid = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  const float* yf = static_cast<const float*>(y);
-  const float* bf = static_cast<const float*>(bias);
-  const unsigned char* mk = static_cast<const unsigned char*>(mask);
-  const float* gf = static_cast<const float*>(gamma);
-  const float* btf = static_cast<const float*>(beta);
-  float* of = static_cast<float*>(out_f32);
-  bf16* ob = static_cast<bf16*>(out_bf16);
-  float* orr = static_cast<float*>(out_r);
-  bf16* orr16 = static_cast<bf16*>(out_r16);
-  if (res_bf16)
-    residual_layernorm_kernel<VPT, bf16><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(res), yf, bf, mk, inv_keep, gf, btf, of, ob, orr, orr16, rows,
-        eps, reciprocal);
-  else
-    residual_layernorm_kernel<VPT, float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(res), yf, bf, mk, inv_keep, gf, btf, of, ob, orr, orr16, rows,
-        eps, reciprocal);
-}
-
-template <int VPT, typename GT, typename RT>
-void launch_bwd_t(const void* g, const void* res, const void* y, const void* bias,
-                  const void* mask, float inv_keep, const void* gamma, void* dr, void* dy32,
-                  void* dy16, void* gu, int rows, float eps, cudaStream_t s) {
-  const int grid = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  residual_layernorm_bwd_kernel<VPT, GT, RT><<<grid, THREADS, 0, s>>>(
-      static_cast<const GT*>(g), static_cast<const RT*>(res), static_cast<const float*>(y),
-      static_cast<const float*>(bias), static_cast<const unsigned char*>(mask), inv_keep,
-      static_cast<const float*>(gamma), static_cast<float*>(dr), static_cast<float*>(dy32),
-      static_cast<bf16*>(dy16), static_cast<float*>(gu), rows, eps);
-}
-
-template <int VPT>
-void launch_bwd(const void* g, int g_bf16, const void* res, int res_bf16, const void* y,
-                const void* bias, const void* mask, float inv_keep, const void* gamma, void* dr,
-                void* dy32, void* dy16, void* gu, int rows, float eps, cudaStream_t s) {
-#define MCAN_LN_BWD_ARGS g, res, y, bias, mask, inv_keep, gamma, dr, dy32, dy16, gu, rows, eps, s
-  if (g_bf16 && res_bf16) launch_bwd_t<VPT, bf16, bf16>(MCAN_LN_BWD_ARGS);
-  else if (g_bf16) launch_bwd_t<VPT, bf16, float>(MCAN_LN_BWD_ARGS);
-  else if (res_bf16) launch_bwd_t<VPT, float, bf16>(MCAN_LN_BWD_ARGS);
-  else launch_bwd_t<VPT, float, float>(MCAN_LN_BWD_ARGS);
-#undef MCAN_LN_BWD_ARGS
+void launch(int res_bf16, const Args& a, cudaStream_t s) {
+  if (a.keep.on) {
+    if (res_bf16) launch_t<VPT, bf16, true>(a, s);
+    else launch_t<VPT, float, true>(a, s);
+  } else {
+    if (res_bf16) launch_t<VPT, bf16, false>(a, s);
+    else launch_t<VPT, float, false>(a, s);
+  }
 }
 
 }  // namespace
 
 // res [rows, D] bf16 (res_bf16 != 0) or f32; y [rows, D] f32 or null; bias,
 // gamma, beta [D] f32 (bias may be null); mask: null or uint8 keep-mask
-// [rows, D] on y + bias (x inv_keep); out_f32 / out_bf16 / out_r / out_r16
-// [rows, D], each may be null (out_r / out_r16: the pre-LN sum r, f32 /
-// bf16). reciprocal != 0: scale
-// by 1 / (std + eps) instead of dividing. D must be 512 (MCAN-small) or
-// 1024 (MCAN-large). Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for another D.
+// [rows, D] on y + bias (x inv_keep); keep_on != 0 draws that mask in place
+// (mask null then): Philox key (seed, site), keep_rows rows per sample,
+// keep iff word < thresh. out_f32 / out_bf16 / out_r / out_r16 [rows, D],
+// each may be null (out_r / out_r16: the pre-LN sum r, f32 / bf16).
+// reciprocal != 0: scale by 1 / (std + eps) instead of dividing. D must be
+// a multiple of 32, at most 2048. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another D.
 MCAN_API int mcan_residual_layernorm(const void* res, int res_bf16, const void* y,
                                      const void* bias, const void* mask, float inv_keep,
-                                     const void* gamma, const void* beta, void* out_f32,
-                                     void* out_bf16, void* out_r, void* out_r16, int rows, int D,
-                                     float eps, int reciprocal, void* stream) {
+                                     int keep_on, unsigned seed, unsigned site, unsigned thresh,
+                                     int keep_rows, const void* gamma, const void* beta,
+                                     void* out_f32, void* out_bf16, void* out_r, void* out_r16,
+                                     int rows, int D, float eps, int reciprocal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!ln::width_ok(D)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{res, y, bias, mask, Philox{keep_on, seed, site, thresh, keep_rows}, inv_keep,
+               gamma, beta, out_f32, out_bf16, out_r, out_r16, rows, D, eps, reciprocal};
   if (rows > 0) {
-    switch (D) {
-      case 512: launch<16>(res, res_bf16, y, bias, mask, inv_keep, gamma, beta, out_f32, out_bf16, out_r, out_r16, rows, eps, reciprocal, s); break;
-      case 1024: launch<32>(res, res_bf16, y, bias, mask, inv_keep, gamma, beta, out_f32, out_bf16, out_r, out_r16, rows, eps, reciprocal, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// g (the gradient of the LN output) and res [rows, D], each f32 or bf16
-// (g_bf16, res_bf16), y [rows, D] f32 or null (then r = res), bias [D] or
-// null, mask null or uint8 [rows, D], gamma [D].
-// r = res + drop(y + bias). Writes dr = dLN/dr . g, dy = drop(dr) as f32
-// and/or bf16 (either may be null) and gu = g * u, all [rows, D].
-MCAN_API int mcan_residual_layernorm_bwd(const void* g, int g_bf16, const void* res,
-                                         int res_bf16, const void* y, const void* bias,
-                                         const void* mask, float inv_keep,
-                                         const void* gamma, void* dr, void* dy32, void* dy16,
-                                         void* gu, int rows, int D, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows > 0) {
-    switch (D) {
-      case 512: launch_bwd<16>(g, g_bf16, res, res_bf16, y, bias, mask, inv_keep, gamma, dr, dy32, dy16, gu, rows, eps, s); break;
-      case 1024: launch_bwd<32>(g, g_bf16, res, res_bf16, y, bias, mask, inv_keep, gamma, dr, dy32, dy16, gu, rows, eps, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+    switch (ln::vpt_of(D)) {
+      case 8: launch<8>(res_bf16, a, s); break;
+      case 16: launch<16>(res_bf16, a, s); break;
+      case 32: launch<32>(res_bf16, a, s); break;
+      default: launch<0>(res_bf16, a, s); break;
     }
   }
   return static_cast<int>(cudaGetLastError());

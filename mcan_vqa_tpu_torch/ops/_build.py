@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -32,25 +33,26 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 LIB_NAME = "libmcan_kernels.so"
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_uint
+_KEEP = [_I, _U, _U, _U]      # a seeded keep source: on, seed, site, thresh
 # argtypes of every exported C function (csrc/*.cu, MCAN_API)
 SIGNATURES = {
     "mcan_gemm": [_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _P, _LL,
-                  _F, _P, _LL, _P, _LL, _P, _LL, _P],
+                  _F, *_KEEP, _I, _P, _LL, _P, _LL, _P, _LL, _P],
     "mcan_masked_attention": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL, _I,
-                              _P, _P, _F, _P, _I, _LL, _LL, _I, _I, _I, _I,
-                              _I, _F, _P],
+                              _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I, _I,
+                              _I, _I, _I, _F, _P],
     "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
-                                  _I, _P, _P, _F, _P, _LL, _LL,
+                                  _I, _P, _P, _F, *_KEEP, _P, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _I, _I, _I, _I, _I, _F, _P],
-    "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P,
-                                _P, _I, _I, _F, _I, _P],
-    "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P,
-                                    _P, _P, _P, _I, _I, _F, _P],
+    "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, *_KEEP, _I, _P, _P,
+                                _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, *_KEEP,
+                                    _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _P],
     "mcan_quantize_rows": [_P, _I, _LL, _I, _I, _I, _F, _P, _P, _P],
     "mcan_gemm_s8": [_P, _LL, _P, _LL, _I, _I, _I, _P, _F, _P, _P, _I, _P, _P,
@@ -59,12 +61,15 @@ SIGNATURES = {
                      _LL, _P],
     "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _P, _P,
                          _LL, _P],
+    "mcan_prng_masks": [_I, _P, _P, _P, _P, _I, _U, _U, _P],
+    "mcan_philox_words": [_U, _U, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
 build_log: str = ""                     # nvcc's output (-Xptxas -v)
+step_seconds: dict = {}                 # wall seconds per source, and link
 
 
 def nvcc_path() -> str:
@@ -94,33 +99,49 @@ def build_key() -> str:
 
 
 def _run(cmds):
-    """Run the nvcc commands in parallel -> their combined output; raises
-    with the output of every command that failed."""
+    """Run the nvcc commands in parallel -> (their combined output, each
+    command's wall seconds); raises with the output of every command that
+    failed."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs, secs = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        secs[i] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = [f"{' '.join(c)}\n{o}" for c, p, o in zip(cmds, procs, outs)
               if p.returncode != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return "".join(outs)
+    return "".join(outs), secs
 
 
 def _compile(out: Path) -> str:
     """Build ``out`` (atomically: objects and the library in a temporary
-    directory beside it, then a rename) -> nvcc's output."""
+    directory beside it, then a rename) -> nvcc's output; each step's wall
+    seconds into ``step_seconds``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         cus = [s for s in sources() if s.suffix == ".cu"]
         objs = [os.path.join(tmp, f"{s.stem}.o") for s in cus]
-        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s), "-o",
-                     o] for s, o in zip(cus, objs)])
+        log, secs = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s),
+                           "-o", o] for s, o in zip(cus, objs)])
+        step_seconds.update(zip((s.name for s in cus), secs))
         lib = os.path.join(tmp, LIB_NAME)
-        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        link, secs = _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        step_seconds["link"] = secs[0]
         os.replace(lib, out)
-    return log
+    return log + link
 
 
 def load_library() -> ctypes.CDLL:
@@ -129,7 +150,6 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        import time
         out = BUILD_ROOT / build_key() / LIB_NAME
         if not out.exists():
             t0 = time.perf_counter()

@@ -12,11 +12,15 @@
 
 The JAX and torch generators give different bits from one seed; the tests
 compare the quantisation, the edges and the keep rate.
+
+``draw_seeds`` takes the in-kernel dropout's per-block seeds from the same
+generator, on the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import hashlib
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,19 +61,39 @@ def random_keep_mask(generator: torch.Generator, rate: float,
 
 
 def keep_masks(generator: Optional[torch.Generator], rate: float,
-               shapes: Mapping[str, Sequence[int]]
+               shapes: Mapping[str, Sequence[int]], bit_width: int = 32
                ) -> Tuple[Dict[str, Optional[torch.Tensor]], float]:
     """One bool keep-mask per entry of ``shapes``, drawn from ``generator``
-    in the order of its keys, and the inverse keep probability. At rate 0
-    every mask is None and nothing is drawn; rate >= 1 keeps nothing and
-    is refused."""
+    in the order of its keys with ``bit_width`` bits per element, and the
+    inverse keep probability. At rate 0 every mask is None and nothing is
+    drawn; rate >= 1 keeps nothing and is refused."""
     if rate <= 0.0:
         return {name: None for name in shapes}, 1.0
     if rate >= 1.0:
         raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
-    masks = {name: random_keep_mask(generator, rate, shape)[0]
+    masks = {name: random_keep_mask(generator, rate, shape, bit_width)[0]
              for name, shape in shapes.items()}
-    return masks, inv_keep_prob(rate)
+    return masks, inv_keep_prob(rate, bit_width)
+
+
+SEED_MAX = (1 << 31) - 1      # seeds lie in [0, SEED_MAX), as JAX's randint
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> List[int]:
+    """n seeds in [0, 2^31 - 1) for the in-kernel dropout of n blocks, as
+    host ints: a hash of the generator's state, which then moves on to a
+    state seeded from the same hash. Reading the state of a CUDA
+    generator is host work (its seed and offset), so the draw launches
+    nothing and never waits for the card; the same generator state gives
+    the same seeds and the same state after."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes()).digest()
+    words = []
+    while len(words) < n + 2:
+        words += [int.from_bytes(digest[i:i + 4], "little")
+                  for i in range(0, len(digest), 4)]
+        digest = hashlib.sha256(digest).digest()
+    generator.manual_seed(words[0] | (words[1] << 32))
+    return [w % SEED_MAX for w in words[2:n + 2]]
 
 
 def dropout(x: torch.Tensor, rate: float,

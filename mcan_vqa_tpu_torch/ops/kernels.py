@@ -15,6 +15,8 @@ PyTorch version.
   residual_layernorm     LN(res + drop(y + bias)), optionally r
   residual_layernorm_bwd dr, drop(dr), g * u of that LN
   col_sum                column sums (bias and LN gradients)
+  dump_prng_masks        the keep-masks of seeded sites        prng_masks.cu
+  philox_words           the Philox4x32-10 words behind them   prng_masks.cu
 
 Dispatch is on the device of the tensors: on a CPU tensor a wrapper runs
 its plain version; on a CUDA tensor it launches its kernel, or raises if
@@ -28,7 +30,12 @@ so a run can show that its main path went through the kernels
 
 Dropout keep-masks are uint8 (or bool) tensors of 0 / 1 laid out like the
 values they gate; kept values are scaled by ``inv_keep`` in f32, as the
-TPU kernels' ``_drop`` does (mcan_vqa_tpu/ops/sga_train.py:145).
+TPU kernels' ``_drop`` does (mcan_vqa_tpu/ops/sga_train.py:145). Where a
+wrapper takes ``mask`` (``drop`` for the attention), it also takes a
+``Philox`` in its place: the seeded keep source of the train kernels'
+in-kernel dropout (the ``_prng`` kernels of sga_train.py / sa_train.py),
+which the kernel draws element by element and never reads from memory. The
+plain versions draw the same bits with ``philox4x32_plain``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ from __future__ import annotations
 import collections
 import ctypes
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -49,11 +57,11 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
 F32 = torch.float32
 I8 = torch.int8
 LN_EPS = 1e-6
-HEAD_DIMS = (64, 128)  # the attention kernels' Dh: MCAN-small, MCAN-large
-MAX_SEQ = 64           # the attention kernels' largest Lq / Lk
+MAX_HEAD_DIM = 128     # the attention kernels' Dh: any width up to this
+MAX_SEQ = 128          # the attention kernels' largest Lq / Lk
 GEMM_TILE = 64         # the GEMM's output tile (M and N)
 GEMM_K_TILE = 32
-LN_WIDTHS = (512, 1024)    # MCAN-small, MCAN-large
+LN_MAX_WIDTH = 2048    # the LayerNorm kernels' D: a multiple of 32 up to this
 MAX_COL_SUMS = 4
 MASK_DTYPES = (torch.uint8, torch.bool)
 
@@ -124,6 +132,148 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+# ---------------------------------------------------------------------------
+# in-kernel dropout: the Philox4x32-10 keep source
+# ---------------------------------------------------------------------------
+
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)    # Random123's round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)    # and key increments
+_U32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class Philox:
+    """The seeded keep-mask of one dropout site (csrc/common.cuh): keep iff
+    word e & 3 of Philox4x32-10 with key (seed, site) at counter (e >> 2,
+    b, 0, 0) is below thresh, for element e of sample b's slab. rows: the
+    rows per sample of a [B * rows, N] operand (e = r * N + c); the
+    attention kernels key head h by site + h (e = i * Lk + j) and ignore
+    rows."""
+    seed: int
+    site: int
+    thresh: int
+    rows: int = 0
+
+
+Keep = Union[torch.Tensor, Philox, None]
+
+
+def _mulhilo32(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of a * m for int64 a in [0, 2^32) and a
+    32-bit constant m. Torch has no uint64 product and a * m may pass
+    2^63, so a is cut into 16-bit limbs: each limb times m stays below
+    2^48, exact in int64."""
+    p_lo = (a & 0xFFFF) * m
+    p_hi = (a >> 16) * m
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32_plain(ctr: torch.Tensor, key: Sequence[int]) -> torch.Tensor:
+    """Philox4x32-10 of int64 counters [..., 4] (each word in [0, 2^32))
+    under the key (k0, k1) -> int64 words [..., 4] (Random123's
+    philox4x32_R(10, ...))."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = int(key[0]), int(key[1])
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo32(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + PHILOX_W[0]) & _U32, (k1 + PHILOX_W[1]) & _U32
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_words_plain(seed: int, site: int, B: int, n: int,
+                       device="cpu") -> torch.Tensor:
+    """int64 [B, n]: element e of sample b takes word e & 3 of the counter
+    (e >> 2, b, 0, 0) under the key (seed, site)."""
+    n4 = -(-n // 4)
+    c = torch.arange(n4, dtype=torch.int64, device=device)
+    b = torch.arange(B, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    ctr = torch.stack(torch.broadcast_tensors(c[None, :], b[:, None], zero,
+                                              zero), dim=-1)
+    return philox4x32_plain(ctr, (seed, site)).reshape(B, 4 * n4)[:, :n]
+
+
+def philox_words(seed: int, site: int, B: int, n: int,
+                 device="cuda") -> torch.Tensor:
+    """``philox_words_plain`` on the card: int64 [B, n] of the uint32
+    words the kernels draw (csrc/prng_masks.cu)."""
+    if torch.device(device).type != "cuda":
+        return philox_words_plain(seed, site, B, n, device)
+    name = "philox_words"
+    out = torch.empty((B, n), dtype=torch.int32, device=device)
+    rc = _lib().mcan_philox_words(seed, site, B, n, out.data_ptr(),
+                                  torch.cuda.current_stream(
+                                      out.device).cuda_stream)
+    _check(rc, name)
+    return out.to(torch.int64) & _U32
+
+
+def dump_prng_masks_plain(seed: int, thresh: int, B: int,
+                          sites: Sequence[Tuple[int, int, int]],
+                          device="cpu") -> List[torch.Tensor]:
+    """One uint8 keep-mask [B, heads, n] per (site, heads, n): head h of
+    sample b keyed (seed, site + h), kept where its word < thresh."""
+    return [torch.stack([philox_words_plain(seed, site + h, B, n, device)
+                         < thresh for h in range(heads)], dim=1)
+            .to(torch.uint8) for site, heads, n in sites]
+
+
+def dump_prng_masks(seed: int, thresh: int, B: int,
+                    sites: Sequence[Tuple[int, int, int]],
+                    device="cuda") -> List[torch.Tensor]:
+    """The keep-masks the seeded kernels draw for up to six sites of one
+    block, in one launch: uint8 [B, heads, n] per (site, heads, n), as
+    ``dump_prng_masks_plain`` computes them (mcan_vqa_tpu/ops/
+    sga_train.py::dump_prng_masks, :1581)."""
+    if torch.device(device).type != "cuda":
+        return dump_prng_masks_plain(seed, thresh, B, sites, device)
+    name = "dump_prng_masks"
+    _require(1 <= len(sites) <= 6, f"{name}: 1 to 6 sites, got {len(sites)}")
+    outs = [torch.empty((B, heads, n), dtype=torch.uint8, device=device)
+            for _, heads, n in sites]
+    k = len(sites)
+    arrays = ((ctypes.c_void_p * k)(*[t.data_ptr() for t in outs]),
+              (ctypes.c_uint * k)(*[s for s, _, _ in sites]),
+              (ctypes.c_int * k)(*[h for _, h, _ in sites]),
+              (ctypes.c_int * k)(*[n for _, _, n in sites]))
+    rc = _lib().mcan_prng_masks(
+        k, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), B, seed,
+        thresh, torch.cuda.current_stream(outs[0].device).cuda_stream)
+    _check(rc, name)
+    return outs
+
+
+def _rows_keep(p: Philox, M: int, N: int, device) -> torch.Tensor:
+    """The bool keep-mask [M, N] of a [B * p.rows, N] operand."""
+    return (philox_words_plain(p.seed, p.site, M // p.rows, p.rows * N,
+                               device) < p.thresh).reshape(M, N)
+
+
+def _heads_keep(p: Philox, B: int, H: int, Lq: int, Lk: int,
+                device) -> torch.Tensor:
+    """The bool keep-mask [B, H, Lq, Lk] of an attention map."""
+    return dump_prng_masks_plain(p.seed, p.thresh, B, [(p.site, H, Lq * Lk)],
+                                 device)[0].bool().reshape(B, H, Lq, Lk)
+
+
+def _keep_args(name: str, mask: Keep, M: Optional[int] = None):
+    """-> (the mask tensor or None, the C arguments of the keep source: on,
+    seed, site, thresh and, for a rows operand of M rows, rows)."""
+    if not isinstance(mask, Philox):
+        return mask, (0, 0, 0, 0) + ((0,) if M is not None else ())
+    _require(0 <= mask.seed <= _U32 and 0 <= mask.site <= _U32
+             and 1 <= mask.thresh <= _U32,
+             f"{name}: Philox seed, site and thresh must be 32-bit words")
+    if M is None:
+        return None, (1, mask.seed, mask.site, mask.thresh)
+    _require(mask.rows > 0 and M % mask.rows == 0,
+             f"{name}: {M} rows do not split into samples of {mask.rows}")
+    return None, (1, mask.seed, mask.site, mask.thresh, mask.rows)
+
+
 def _drop(x: torch.Tensor, mask: Optional[torch.Tensor],
           inv_keep: float) -> torch.Tensor:
     """Inverted dropout with an external keep-mask (plain versions)."""
@@ -168,6 +318,7 @@ def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
     """Launch csrc/gemm.cu. Every operand is checked here: the kernel loads
     16-byte chunks, so both operands are 16-byte aligned with row strides
     that are multiples of 8."""
+    mask, keep = _keep_args(name, mask, M)
     _same_device(name, a, b, bias, mask, gate, res)
     _require(a.dtype == BF16 and b.dtype == BF16,
              f"{name}: operands must be bf16, got {a.dtype}, {b.dtype}")
@@ -196,7 +347,8 @@ def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
     rc = _lib().mcan_gemm(
         layout, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         M, N, K, _ptr(bias), int(relu), _ptr(mask), N, _ptr(gate),
-        0 if gate is None else gate.stride(0), float(inv_keep), _ptr(res),
+        0 if gate is None else gate.stride(0), float(inv_keep), *keep,
+        _ptr(res),
         0 if res is None else res.stride(0), _ptr(o32), N, _ptr(o16), N,
         _stream(a))
     _check(rc, name)
@@ -206,8 +358,10 @@ def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
 def gemm_bias_act_plain(a: torch.Tensor, w: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, *,
                         relu: bool = False, out_dtype: torch.dtype = F32,
-                        mask: Optional[torch.Tensor] = None,
+                        mask: Keep = None,
                         inv_keep: float = 1.0) -> torch.Tensor:
+    if isinstance(mask, Philox):
+        mask = _rows_keep(mask, a.shape[0], w.shape[1], a.device)
     y = bf16_matmul(a, w)
     if bias is not None:
         y = y + bias
@@ -219,11 +373,11 @@ def gemm_bias_act_plain(a: torch.Tensor, w: torch.Tensor,
 def gemm_bias_act(a: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *, relu: bool = False,
                   out_dtype: torch.dtype = F32,
-                  mask: Optional[torch.Tensor] = None,
+                  mask: Keep = None,
                   inv_keep: float = 1.0) -> torch.Tensor:
     """a [M, K] bf16 . w [K, N] bf16 + bias [N] f32, then ReLU, then the
-    dropout keep-mask [M, N] (x inv_keep) -> [M, N] in out_dtype (f32 or
-    bf16), accumulated in f32 and rounded once."""
+    dropout keep-mask [M, N] or its Philox source (x inv_keep) -> [M, N]
+    in out_dtype (f32 or bf16), accumulated in f32 and rounded once."""
     if not on_cuda(a):
         return gemm_bias_act_plain(a, w, bias, relu=relu,
                                    out_dtype=out_dtype, mask=mask,
@@ -585,11 +739,19 @@ def _heads_out(o: torch.Tensor) -> torch.Tensor:
     return o.transpose(1, 2).reshape(B, L, H * Dh)
 
 
+def _attention_keep(drop: Keep, q: torch.Tensor,
+                    k: torch.Tensor) -> Optional[torch.Tensor]:
+    if not isinstance(drop, Philox):
+        return drop
+    B, H, Lq, _ = q.shape
+    return _heads_keep(drop, B, H, Lq, k.shape[2], q.device)
+
+
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           key_pad: torch.Tensor,
-                           drop: Optional[torch.Tensor] = None,
+                           key_pad: torch.Tensor, drop: Keep = None,
                            inv_keep: float = 1.0,
                            out_dtype: torch.dtype = BF16) -> torch.Tensor:
+    drop = _attention_keep(drop, q, k)
     if drop is None:
         out = _attention_f32(q, k, v, key_pad)
     else:
@@ -604,9 +766,10 @@ def _check_attention(name, q, k, v, key_pad, drop):
     _require(k.shape == v.shape == (B, H, Lk, Dh),
              f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
              f"q {tuple(q.shape)}")
-    _require(Dh in HEAD_DIMS and 1 <= Lq <= MAX_SEQ and 1 <= Lk <= MAX_SEQ,
-             f"{name}: needs Dh in {HEAD_DIMS} and 1 <= Lq, Lk <= {MAX_SEQ}; "
-             f"got Dh={Dh}, Lq={Lq}, Lk={Lk}")
+    _require(1 <= Dh <= MAX_HEAD_DIM and 1 <= Lq <= MAX_SEQ
+             and 1 <= Lk <= MAX_SEQ,
+             f"{name}: needs 1 <= Dh <= {MAX_HEAD_DIM} and 1 <= Lq, Lk <= "
+             f"{MAX_SEQ}; got Dh={Dh}, Lq={Lq}, Lk={Lk}")
     _require(q.dtype == BF16 and k.dtype == v.dtype
              and k.dtype in (BF16, F32),
              f"{name}: q must be bf16 and k, v both bf16 or both f32")
@@ -624,20 +787,20 @@ def _check_attention(name, q, k, v, key_pad, drop):
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     key_pad: torch.Tensor,
-                     drop: Optional[torch.Tensor] = None,
+                     key_pad: torch.Tensor, drop: Keep = None,
                      inv_keep: float = 1.0,
                      out_dtype: torch.dtype = BF16) -> torch.Tensor:
-    """q [B, H, Lq, Dh] bf16, k/v [B, H, Lk, Dh] bf16 or f32, Dh 64 or
-    128 (strided views are read in place; the last dim must be
+    """q [B, H, Lq, Dh] bf16, k/v [B, H, Lk, Dh] bf16 or f32, Dh <= 128,
+    Lq, Lk <= 128 (strided views are read in place; the last dim must be
     contiguous), key_pad bool [B, 1, 1, Lk] (True = PAD), drop an optional
-    keep-mask [B, H, Lq, Lk] on the probabilities -> [B, Lq, H*Dh] in
-    out_dtype (bf16, or f32 for a merge that quantizes it to int8), the
-    layout the merge projection takes."""
+    keep-mask [B, H, Lq, Lk] on the probabilities or its Philox source ->
+    [B, Lq, H*Dh] in out_dtype (bf16, or f32 for a merge that quantizes it
+    to int8), the layout the merge projection takes."""
     if not on_cuda(q):
         return masked_attention_plain(q, k, v, key_pad, drop, inv_keep,
                                       out_dtype)
     name = "masked_attention"
+    drop, keep = _keep_args(name, drop)
     _same_device(name, q, k, v, key_pad, drop)
     B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
     _require(out_dtype in (BF16, F32), f"{name}: out_dtype {out_dtype}")
@@ -646,7 +809,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
-        out.data_ptr(), int(out_dtype == F32), Lq * H * Dh, H * Dh, B, H,
+        *keep, out.data_ptr(), int(out_dtype == F32), Lq * H * Dh, H * Dh, B,
+        H,
         Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
     _check(rc, name if out_dtype == BF16 else name + "_f32")
     return out
@@ -655,6 +819,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def masked_attention_bwd_plain(q, k, v, key_pad, dout, dq, dk, dv,
                                dq16=None, dk16=None, dv16=None, drop=None,
                                inv_keep: float = 1.0) -> None:
+    drop = _attention_keep(drop, q, k)
     B, H, Lq, Dh = q.shape
     scale = 1.0 / Dh ** 0.5
     qb, kb, vb = (t.to(BF16).float() for t in (q, k, v))
@@ -677,18 +842,20 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dq16: Optional[torch.Tensor] = None,
                          dk16: Optional[torch.Tensor] = None,
                          dv16: Optional[torch.Tensor] = None,
-                         drop: Optional[torch.Tensor] = None,
+                         drop: Keep = None,
                          inv_keep: float = 1.0) -> None:
     """Gradients of ``masked_attention(q, k, v, key_pad, drop, inv_keep)``
     for the upstream gradient dout [B, Lq, H*Dh] bf16, written in place:
     dq [B, H, Lq, Dh], dk / dv [B, H, Lk, Dh], f32, strided views whose
     last dim is contiguous; dq16 / dk16 / dv16 optional bf16 copies with
     their f32 twin's strides. The probabilities are recomputed from q, k
-    and the pad mask; dS = P * (drop(dP) - rowsum(P * drop(dP)))."""
+    and the pad mask; dS = P * (drop(dP) - rowsum(P * drop(dP))). A
+    Philox drop regenerates the forward's mask."""
     if not on_cuda(q):
         return masked_attention_bwd_plain(q, k, v, key_pad, dout, dq, dk, dv,
                                           dq16, dk16, dv16, drop, inv_keep)
     name = "masked_attention_bwd"
+    drop, keep = _keep_args(name, drop)
     _same_device(name, q, k, v, key_pad, dout, dq, dk, dv, dq16, dk16, dv16,
                  drop)
     B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
@@ -709,7 +876,7 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
-        dout.data_ptr(), dout.stride(0), dout.stride(1),
+        *keep, dout.data_ptr(), dout.stride(0), dout.stride(1),
         dq.data_ptr(), _ptr(dq16), dq.stride(0), dq.stride(1), dq.stride(2),
         dk.data_ptr(), _ptr(dk16), dk.stride(0), dk.stride(1), dk.stride(2),
         dv.data_ptr(), _ptr(dv16), dv.stride(0), dv.stride(1), dv.stride(2),
@@ -721,7 +888,17 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # residual_layernorm and its backward
 # ---------------------------------------------------------------------------
 
+def _rows_mask(mask: Keep, res: torch.Tensor) -> Optional[torch.Tensor]:
+    """A Philox keep source of a LayerNorm's rows as its keep-mask."""
+    if not isinstance(mask, Philox):
+        return mask
+    D = res.shape[-1]
+    return _rows_keep(mask, res.numel() // D, D, res.device).reshape(
+        res.shape)
+
+
 def _residual(res, y, bias, mask, inv_keep):
+    mask = _rows_mask(mask, res)
     r = res.float()
     if y is None:
         return r
@@ -729,11 +906,16 @@ def _residual(res, y, bias, mask, inv_keep):
     return r + _drop(t, mask, inv_keep)
 
 
+def _check_ln_width(name: str, D: int) -> None:
+    _require(D % 32 == 0 and 32 <= D <= LN_MAX_WIDTH,
+             f"{name}: D={D} must be a multiple of 32 up to {LN_MAX_WIDTH}")
+
+
 def residual_layernorm_plain(res: torch.Tensor, y: torch.Tensor,
                              bias: Optional[torch.Tensor],
                              gamma: torch.Tensor, beta: torch.Tensor,
                              out_dtypes: Sequence[torch.dtype] = (F32,), *,
-                             mask: Optional[torch.Tensor] = None,
+                             mask: Keep = None,
                              inv_keep: float = 1.0, save_r: bool = False,
                              reciprocal: bool = False, r_dtype=F32
                              ) -> Tuple[torch.Tensor, ...]:
@@ -747,13 +929,15 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
                        bias: Optional[torch.Tensor], gamma: torch.Tensor,
                        beta: torch.Tensor,
                        out_dtypes: Sequence[torch.dtype] = (F32,), *,
-                       mask: Optional[torch.Tensor] = None,
+                       mask: Keep = None,
                        inv_keep: float = 1.0, save_r: bool = False,
                        reciprocal: bool = False, r_dtype=F32
                        ) -> Tuple[torch.Tensor, ...]:
     """LN(r) over the last dim, r = res + drop(y + bias), all in f32.
     res [..., D] bf16 or f32, y [..., D] f32, bias/gamma/beta [D] f32 (bias
-    may be None), mask an optional keep-mask shaped like y. Returns one
+    may be None), mask an optional keep-mask shaped like y or its Philox
+    source (rows per sample in its ``rows``), D a multiple of 32 up to
+    2048. Returns one
     tensor per entry of out_dtypes (each f32 or bf16), shaped like res,
     then r (in r_dtype, f32 or bf16) when save_r. reciprocal: the train
     kernels' rounding (``std_layer_norm``)."""
@@ -763,10 +947,11 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
                                         save_r=save_r, reciprocal=reciprocal,
                                         r_dtype=r_dtype)
     name = "residual_layernorm"
-    _same_device(name, res, y, bias, gamma, beta, mask)
     D = res.shape[-1]
     rows = res.numel() // D
-    _require(D in LN_WIDTHS, f"{name}: D={D} not in {LN_WIDTHS}")
+    mask, keep = _keep_args(name, mask, rows)
+    _same_device(name, res, y, bias, gamma, beta, mask)
+    _check_ln_width(name, D)
     _require(y.shape == res.shape and y.dtype == F32,
              f"{name}: y must be f32 shaped like res {tuple(res.shape)}")
     _require(res.dtype in (BF16, F32), f"{name}: res dtype {res.dtype}")
@@ -786,7 +971,7 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
     r32, r16 = (r, None) if r_dtype == F32 else (None, r)
     rc = _lib().mcan_residual_layernorm(
         res.data_ptr(), int(res.dtype == BF16), y.data_ptr(), _ptr(bias),
-        _ptr(mask), float(inv_keep), gamma.data_ptr(), beta.data_ptr(),
+        _ptr(mask), float(inv_keep), *keep, gamma.data_ptr(), beta.data_ptr(),
         _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _ptr(r32), _ptr(r16),
         rows, D, LN_EPS, int(reciprocal), _stream(res))
     _check(rc, name)
@@ -797,6 +982,7 @@ def residual_layernorm_bwd_plain(g, res, y, bias, gamma, *, mask=None,
                                  inv_keep: float = 1.0,
                                  dy_dtypes: Sequence[torch.dtype] = (F32,)
                                  ) -> Tuple[torch.Tensor, ...]:
+    mask = _rows_mask(mask, res)
     r = _residual(res, y, bias, mask, inv_keep)
     g = g.float()
     D = r.shape[-1]
@@ -814,7 +1000,7 @@ def residual_layernorm_bwd_plain(g, res, y, bias, gamma, *, mask=None,
 def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
                            y: Optional[torch.Tensor],
                            bias: Optional[torch.Tensor], gamma: torch.Tensor,
-                           *, mask: Optional[torch.Tensor] = None,
+                           *, mask: Keep = None,
                            inv_keep: float = 1.0,
                            dy_dtypes: Sequence[torch.dtype] = (F32,)
                            ) -> Tuple[torch.Tensor, ...]:
@@ -830,10 +1016,11 @@ def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
                                             mask=mask, inv_keep=inv_keep,
                                             dy_dtypes=dy_dtypes)
     name = "residual_layernorm_bwd"
-    _same_device(name, g, res, y, bias, gamma, mask)
     D = res.shape[-1]
     rows = res.numel() // D
-    _require(D in LN_WIDTHS, f"{name}: D={D} not in {LN_WIDTHS}")
+    mask, keep = _keep_args(name, mask, rows)
+    _same_device(name, g, res, y, bias, gamma, mask)
+    _check_ln_width(name, D)
     for t, dtypes in ((g, (F32, BF16)), (res, (F32, BF16)), (y, (F32,))):
         _require(t is None or (t.shape == res.shape and t.dtype in dtypes
                                and t.is_contiguous()),
@@ -852,7 +1039,7 @@ def residual_layernorm_bwd(g: torch.Tensor, res: torch.Tensor,
     rc = _lib().mcan_residual_layernorm_bwd(
         g.data_ptr(), int(g.dtype == BF16), res.data_ptr(),
         int(res.dtype == BF16), _ptr(y), _ptr(bias), _ptr(mask),
-        float(inv_keep), gamma.data_ptr(), dr.data_ptr(),
+        float(inv_keep), *keep, gamma.data_ptr(), dr.data_ptr(),
         _ptr(dys.get(F32)), _ptr(dys.get(BF16)), gu.data_ptr(), rows, D,
         LN_EPS, _stream(g))
     _check(rc, name)

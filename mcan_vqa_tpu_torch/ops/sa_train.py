@@ -37,8 +37,12 @@ tokens and mixes them in. Here a fully padded question is uniform over its
 own keys (model.apply's forward); JAX's group has no counterpart.
 
 Dropout masks are external, per sample, drawn once per step and read by
-both the forward and the backward (``make_sa_dropout_masks``). The
-``_prng`` kernel variants are not ported.
+both the forward and the backward (``make_sa_dropout_masks``), or drawn
+inside the kernels from a seed (``fused_sa_block_train(..., seed,
+rate=...)``: the TPU's ``_fwd_kernel_prng`` :179, ``_bwd_kernel_sav_prng``
+:314 and ``_bwd_kernel_prng`` :295, with the SA site codes :49-53), as
+ops/sga_train.py describes; ``dump_sa_prng_masks`` writes those masks in
+the external layout.
 """
 
 from __future__ import annotations
@@ -53,16 +57,19 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
 from mcan_vqa_tpu_torch.ops import kernels as K
 from mcan_vqa_tpu_torch.ops.dropout import keep_masks
 from mcan_vqa_tpu_torch.ops.sga_train import _attention_plain, \
-    _check_train_inputs, _count, _drop, _kernel_weights, _qkv_heads, _rows
+    _check_train_inputs, _count, _drop, _dump, _kernel_weights, _qkv_heads, \
+    _rows, prng_sites
 
 F32 = torch.float32
 
 SA_MASK_NAMES = ("att", "y1", "h1", "y2")
+# the Philox site codes (sa_train.py:49-53), disjoint from the SGA block's
+SA_SITES = {"att": 0x400, "y1": 0x501, "h1": 0x502, "y2": 0x503}
 SA_WEIGHT_NAMES = ("wqkv", "bqkv", "wm", "bm", "ln1_s", "ln1_b",
                    "w1", "b1", "w2", "b2", "ln2_s", "ln2_b")
 SA_MATMUL_WEIGHTS = ("wqkv", "wm", "w1", "w2")
 
-Masks = Dict[str, Optional[torch.Tensor]]
+Masks = Dict[str, K.Keep]
 
 
 # ---------------------------------------------------------------------------
@@ -104,13 +111,33 @@ def mask_shapes(B: int, Lq: int, D: int, F: int, H: int
 
 
 def make_sa_dropout_masks(generator: Optional[torch.Generator], rate: float,
-                          B: int, Lq: int, D: int, F: int, H: int
-                          ) -> Tuple[Masks, float]:
+                          B: int, Lq: int, D: int, F: int, H: int,
+                          bit_width: int = 32) -> Tuple[Masks, float]:
     """The four keep-masks of one block for one step (bool, per sample, in
-    SA_MASK_NAMES order from ``generator``, on its device) and the inverse
-    keep probability. At rate 0 every mask is None and nothing is
-    drawn."""
-    return keep_masks(generator, rate, mask_shapes(B, Lq, D, F, H))
+    SA_MASK_NAMES order from ``generator``, on its device, ``bit_width``
+    bits per element) and the inverse keep probability. At rate 0 every
+    mask is None and nothing is drawn."""
+    return keep_masks(generator, rate, mask_shapes(B, Lq, D, F, H),
+                      bit_width)
+
+
+def dump_sa_prng_masks(seed: int, rate: float, B: int, Lq: int, D: int,
+                       F: int, H: int, device="cuda"
+                       ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """The four uint8 keep-masks the seeded SA block draws from ``seed``,
+    in ``mask_shapes`` layout, and its inv_keep = 2^32 / t: fed to the
+    external-mask block they give the seeded block's bits. One kernel
+    launch on the card; the plain version on the CPU."""
+    return _dump(K.dump_prng_masks, seed, rate, mask_shapes(B, Lq, D, F, H),
+                 SA_SITES, device)
+
+
+def dump_sa_prng_masks_plain(seed: int, rate: float, B: int, Lq: int,
+                             D: int, F: int, H: int, device="cpu"
+                             ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """``dump_sa_prng_masks`` through ``kernels.philox4x32_plain``."""
+    return _dump(K.dump_prng_masks_plain, seed, rate,
+                 mask_shapes(B, Lq, D, F, H), SA_SITES, device)
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +249,7 @@ class SABlockTrain(torch.autograd.Function):
         m = dict(zip(SA_MASK_NAMES, mask_tuple))
         x = x.detach().float().contiguous()
         x2, saves = _forward(x, x_mask, m, w, inv_keep, num_heads, save_acts)
-        _count(x, "sa_train_fwd")
+        _count(x, "sa_train_fwd", m)
         ctx.inputs = (x, x_mask)
         ctx.saves, ctx.masks, ctx.w = saves, m, w
         ctx.inv_keep, ctx.num_heads = inv_keep, num_heads
@@ -235,23 +262,38 @@ class SABlockTrain(torch.autograd.Function):
         g = g.reshape(B * L, D).float().contiguous()
         dx, *dw = _backward(g, x, x_mask, ctx.saves, ctx.masks, ctx.w,
                             ctx.inv_keep, ctx.num_heads)
-        _count(x, "sa_train_bwd")
+        _count(x, "sa_train_bwd", ctx.masks)
         ctx.inputs = ctx.saves = ctx.masks = ctx.w = None
         return (dx, None, None, None, None, None, *dw)
 
 
+def _seeded(masks_or_seed, rate: Optional[float], rows: int,
+            inv_keep: float) -> Tuple[Masks, float]:
+    """The masks as given, or with rate set the seed's Philox sources and
+    their inverse keep probability (JAX's masks_or_seed, sa_train.py:
+    570-590)."""
+    if rate is None:
+        return masks_or_seed, inv_keep
+    return prng_sites(masks_or_seed, rate, rows, SA_SITES)
+
+
 def fused_sa_block_train(x: torch.Tensor, x_mask: torch.Tensor,
-                         masks: Masks, w: Mapping[str, torch.Tensor], *,
+                         masks_or_seed, w: Mapping[str, torch.Tensor], *,
                          num_heads: int, inv_keep: float = 1.0,
-                         save_acts: bool = True) -> torch.Tensor:
+                         save_acts: bool = True,
+                         rate: Optional[float] = None) -> torch.Tensor:
     """One encoder block of a train step. x [B, Lq, D] f32 question
-    stream; x_mask bool [B, 1, 1, Lq] (True = PAD); masks from
-    ``make_sa_dropout_masks`` (None entries: no dropout at that site); w
-    from ``prepare_sa_train_params``. save_acts: the forward saves r2 and
-    h1d so the backward skips the FFN recompute (the JAX default, which
-    the Trainer runs). -> x2 [B, Lq, D] f32. On CUDA tensors every step is
-    a kernel launch; on CPU tensors the same sequence runs the kernels'
+    stream; x_mask bool [B, 1, 1, Lq] (True = PAD); masks_or_seed: the
+    masks from ``make_sa_dropout_masks`` (None entries: no dropout at that
+    site) with their inv_keep, or, with ``rate`` set, a host int seed: the
+    in-kernel dropout, every site drawn inside the kernels and regenerated
+    by the backward (kept values x 2^32 / t); w from
+    ``prepare_sa_train_params``. save_acts: the forward saves r2 and h1d
+    so the backward skips the FFN recompute (the JAX default, which the
+    Trainer runs). -> x2 [B, Lq, D] f32. On CUDA tensors every step is a
+    kernel launch; on CPU tensors the same sequence runs the kernels'
     plain versions."""
+    masks, inv_keep = _seeded(masks_or_seed, rate, x.shape[1], inv_keep)
     if K.on_cuda(x):
         _check_train_inputs(x, masks, w, "fused_sa_block_train",
                             SA_MASK_NAMES, SA_MATMUL_WEIGHTS)
@@ -266,16 +308,23 @@ def fused_sa_block_train(x: torch.Tensor, x_mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def fused_sa_block_train_plain(x: torch.Tensor, x_mask: torch.Tensor,
-                               masks: Masks, w: Mapping[str, torch.Tensor],
+                               masks_or_seed, w: Mapping[str, torch.Tensor],
                                *, num_heads: int, inv_keep: float = 1.0,
-                               save_acts: bool = True) -> torch.Tensor:
+                               save_acts: bool = True,
+                               rate: Optional[float] = None) -> torch.Tensor:
     """``fused_sa_block_train`` in plain PyTorch ops, differentiated by
     autograd: the reference block (core/model/mca.py:105-127) with the
-    four dropout sites and the TPU kernel's precision at every step.
+    four dropout sites and the TPU kernel's precision at every step; a
+    seed (rate set) becomes its masks through ``kernels.philox4x32_plain``.
     save_acts changes only what the kernels' backward recomputes, so it
     does not change this function."""
     del save_acts
     B, L, D = x.shape
+    masks = masks_or_seed
+    if rate is not None:
+        masks, inv_keep = dump_sa_prng_masks_plain(
+            masks_or_seed, rate, B, L, D, w["w1"].shape[1], num_heads,
+            x.device)
     H = num_heads
     x = x.float()
     qkv = bf16_matmul(x, w["wqkv"]) + w["bqkv"]

@@ -37,10 +37,23 @@ own keys (model.apply's forward); its score gradient is the softmax's,
 dS = P * (dP - rowsum(P * dP)), which is what the TPU kernel's additive
 mask gives at G = 1.
 
-Dropout masks are external, per sample, drawn once per step and read by
-both the forward and the backward (``make_dropout_masks``). The
-``_prng`` kernel variants that draw them inside the TPU kernel are not
-ported.
+Dropout, two routes through the same kernels:
+
+  * external masks, per sample, drawn once per step and read by both the
+    forward and the backward (``make_dropout_masks``; the TPU's
+    ``_fwd_kernel`` and its backward kernels), kept values x 1 / (1 -
+    rate);
+  * in-kernel (``fused_sga_block_train_prng``; the TPU's
+    ``_fwd_kernel_prng`` :507, ``_bwd_ffn_kernel_sav_prng`` :617,
+    ``_bwd_att_kernel_prng`` :812 and ``_bwd_att_kernel_sav_prng``
+    :1202): one seed per block and step, a ``kernels.Philox`` keep source
+    per site (JAX's site codes, :154-159) that every kernel reading the
+    site draws from in place -- the backward regenerates the forward's
+    bits and no mask byte exists. Kept values x 2^32 / t
+    (``prng_keep_params``). ``dump_prng_masks`` writes those masks in the
+    external layout (``_mask_dump_kernel`` :1530), so the external route
+    fed them gives the same bits, which is how the in-kernel route is
+    tested.
 """
 
 from __future__ import annotations
@@ -58,12 +71,16 @@ from mcan_vqa_tpu_torch.ops.dropout import keep_masks
 F32 = torch.float32
 
 MASK_NAMES = ("att1", "att2", "y1", "y2", "h1", "y3")
+# the Philox site codes of the six sites (sga_train.py:154-159): the
+# attention maps add the head index
+SITES = {"att1": 0x100, "att2": 0x200, "y1": 0x301, "y2": 0x302,
+         "h1": 0x303, "y3": 0x304}
 WEIGHT_NAMES = ("wqkv", "bqkv", "wm1", "bm1", "ln1_s", "ln1_b",
                 "wq2", "bq2", "wm2", "bm2", "ln2_s", "ln2_b",
                 "w1", "b1", "w2", "b2", "ln3_s", "ln3_b")
 MATMUL_WEIGHTS = ("wqkv", "wm1", "wq2", "wm2", "w1", "w2")
 
-Masks = Dict[str, Optional[torch.Tensor]]
+Masks = Dict[str, K.Keep]
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +126,69 @@ def mask_shapes(B: int, Lv: int, Lq: int, D: int, F: int, H: int
 
 
 def make_dropout_masks(generator: Optional[torch.Generator], rate: float,
-                       B: int, Lv: int, Lq: int, D: int, F: int, H: int
-                       ) -> Tuple[Masks, float]:
+                       B: int, Lv: int, Lq: int, D: int, F: int, H: int,
+                       bit_width: int = 32) -> Tuple[Masks, float]:
     """The six keep-masks of one block for one step (bool, per sample, in
-    MASK_NAMES order from ``generator``, on its device) and the inverse
-    keep probability. At rate 0 every mask is None and nothing is drawn
-    (sga_train.py:875)."""
-    return keep_masks(generator, rate, mask_shapes(B, Lv, Lq, D, F, H))
+    MASK_NAMES order from ``generator``, on its device, ``bit_width`` bits
+    drawn per element) and the inverse keep probability. At rate 0 every
+    mask is None and nothing is drawn (sga_train.py:875)."""
+    return keep_masks(generator, rate, mask_shapes(B, Lv, Lq, D, F, H),
+                      bit_width)
+
+
+def prng_keep_params(rate: float) -> Tuple[int, float]:
+    """(t, inv_keep) of the in-kernel keep decision (sga_train.py:1451):
+    keep iff a uint32 word < t = round((1 - rate) 2^32) clamped to
+    [1, 2^32 - 1]; kept values scale by the exact 2^32 / t."""
+    q = 1 << 32
+    t = max(1, min(q - 1, int(round((1.0 - rate) * q))))
+    return t, float(q) / t
+
+
+def prng_sites(seed: int, rate: float, rows: int,
+               codes: Mapping[str, int] = SITES) -> Tuple[Masks, float]:
+    """The seeded keep source of every site of one block (``rows``: the
+    sequence length of its rows operands) and the inverse keep
+    probability."""
+    t, inv_keep = prng_keep_params(rate)
+    return {name: K.Philox(int(seed), code, t,
+                           0 if name.startswith("att") else rows)
+            for name, code in codes.items()}, inv_keep
+
+
+def _dump(dump, seed, rate, shapes, codes, device):
+    """Every site's mask as ``dump`` draws it, in the ``shapes`` layout."""
+    t, inv_keep = prng_keep_params(rate)
+    specs = []
+    for name, shape in shapes.items():
+        heads = shape[1] if name.startswith("att") else 1
+        specs.append((codes[name], heads,
+                      int(torch.Size(shape[1:]).numel()) // heads))
+    B = next(iter(shapes.values()))[0]
+    outs = dump(int(seed), t, B, specs, device)
+    return {name: o.reshape(shape) for (name, shape), o in
+            zip(shapes.items(), outs)}, inv_keep
+
+
+def dump_prng_masks(seed: int, rate: float, B: int, Lv: int, Lq: int,
+                    D: int, F: int, H: int, device="cuda"
+                    ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """The six uint8 keep-masks that ``fused_sga_block_train_prng`` draws
+    from ``seed``, in ``mask_shapes`` layout, and its inv_keep = 2^32 / t:
+    fed to ``fused_sga_block_train`` they give the seeded block's bits
+    (sga_train.py:1581). One kernel launch on the card; the plain version
+    on the CPU."""
+    return _dump(K.dump_prng_masks, seed, rate,
+                 mask_shapes(B, Lv, Lq, D, F, H), SITES, device)
+
+
+def dump_prng_masks_plain(seed: int, rate: float, B: int, Lv: int, Lq: int,
+                          D: int, F: int, H: int, device="cpu"
+                          ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """``dump_prng_masks`` through ``kernels.philox4x32_plain`` on any
+    device."""
+    return _dump(K.dump_prng_masks_plain, seed, rate,
+                 mask_shapes(B, Lv, Lq, D, F, H), SITES, device)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +202,11 @@ def _qkv_heads(qkv: torch.Tensor, B: int, L: int, H: int):
                  for t in qkv.view(B, L, 3 * D).split(D, dim=-1))
 
 
-def _rows(m: Optional[torch.Tensor], cols: int) -> Optional[torch.Tensor]:
-    return None if m is None else m.reshape(-1, cols)
+def _rows(m: K.Keep, cols: int) -> K.Keep:
+    """A sublayer's keep-mask as [rows, cols] (a Philox source as it
+    is)."""
+    return m if m is None or isinstance(m, K.Philox) else \
+        m.reshape(-1, cols)
 
 
 def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
@@ -311,11 +387,13 @@ def _att_grads(dx, dkq, dvq, xb, dqkv16, dwm1, sums1, v1b, dqx16, dwm2,
             dln1_b, dwq2, dbq2, dwm2, dbm2, dln2_s, dln2_b)
 
 
-def _count(x: torch.Tensor, name: str) -> None:
+def _count(x: torch.Tensor, name: str, m: Masks) -> None:
     """One more run of a TPU kernel's counterpart, counted where its kernel
-    sequence was launched on the card."""
+    sequence was launched on the card; the seeded route (the TPU's _prng
+    kernel) under name + "_prng"."""
     if K.on_cuda(x):
-        K.LAUNCHES[name] += 1
+        seeded = any(isinstance(t, K.Philox) for t in m.values())
+        K.LAUNCHES[name + ("_prng" if seeded else "")] += 1
 
 
 def _kernel_weights(ws: Sequence[torch.Tensor],
@@ -348,7 +426,7 @@ class SGABlockTrain(torch.autograd.Function):
         kq, vq = kq.detach(), vq.detach()
         v3, saves = _forward(x, kq, vq, v_mask, q_mask, m, w, inv_keep,
                              num_heads, att_saves, save_dtype)
-        _count(x, "sga_train_fwd")
+        _count(x, "sga_train_fwd", m)
         ctx.inputs = (x, kq, vq, v_mask, q_mask)
         ctx.saves, ctx.masks, ctx.w = saves, m, w
         ctx.inv_keep, ctx.num_heads = inv_keep, num_heads
@@ -362,13 +440,13 @@ class SGABlockTrain(torch.autograd.Function):
         g = g.reshape(B * Lv, D).float().contiguous()
         gv2, *ffn_dw = _bwd_ffn(g, ctx.saves, ctx.masks, ctx.w, ctx.inv_keep,
                                 ctx.save_dtype)
-        _count(x, "sga_train_bwd_ffn")
+        _count(x, "sga_train_bwd_ffn", ctx.masks)
         bwd_att = _bwd_att_sav if ctx.att_saves else _bwd_att
         dx, dkq, dvq, *att_dw = bwd_att(gv2, x, kq, vq, v_mask, q_mask,
                                         ctx.saves, ctx.masks, ctx.w,
                                         ctx.inv_keep, ctx.num_heads)
         _count(x, "sga_train_bwd_att_sav" if ctx.att_saves
-               else "sga_train_bwd_att")
+               else "sga_train_bwd_att", ctx.masks)
         dw = att_dw + ffn_dw    # WEIGHT_NAMES order
         ctx.inputs = ctx.saves = ctx.masks = ctx.w = None
         return (dx, dkq, dvq, None, None, None, None, None, None, None, *dw)
@@ -382,9 +460,10 @@ def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
                           bf16_saves: bool = False) -> torch.Tensor:
     """One decoder block of a train step. x [B, Lv, D] f32 image stream;
     kq / vq [B, H, Lq, Dh] the pre-projected cross keys / values (f32;
-    strided views whose last dim is contiguous; Dh = D / H, 64 or 128 on
+    strided views whose last dim is contiguous; Dh = D / H, at most 128 on
     the card); v_mask / q_mask bool [B, 1, 1, L] (True = PAD); masks from
-    ``make_dropout_masks`` (None entries: no dropout at that site); w from
+    ``make_dropout_masks`` (None entries: no dropout at that site), or the
+    seeded sources of ``prng_sites`` (``fused_sga_block_train_prng``); w from
     ``prepare_sga_train_params``. att_saves: the forward also saves qkv,
     qx, r1 and r2 and the attention backward skips its four projection
     recomputes (the JAX Trainer's choice at hidden > 512). bf16_saves: the
@@ -400,6 +479,25 @@ def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
                                BF16 if bf16_saves else F32,
                                tuple(masks[n] for n in MASK_NAMES),
                                *(w[n] for n in WEIGHT_NAMES))
+
+
+def fused_sga_block_train_prng(x: torch.Tensor, kq: torch.Tensor,
+                               vq: torch.Tensor, v_mask: torch.Tensor,
+                               q_mask: torch.Tensor, seed: int,
+                               w: Mapping[str, torch.Tensor], *,
+                               num_heads: int, rate: float = 0.1,
+                               att_saves: bool = False,
+                               bf16_saves: bool = False) -> torch.Tensor:
+    """``fused_sga_block_train`` with in-kernel dropout
+    (sga_train.py:1603-1623): every site draws its keep-mask inside the
+    kernels from ``seed`` (a host int, distinct per block and step), the
+    backward regenerates the same bits, and only the seed is saved for it.
+    Equal, bit for bit, to ``fused_sga_block_train`` fed
+    ``dump_prng_masks(seed, rate, ...)`` with its inv_keep."""
+    sites, inv_keep = prng_sites(seed, rate, x.shape[1])
+    return fused_sga_block_train(x, kq, vq, v_mask, q_mask, sites, w,
+                                 num_heads=num_heads, inv_keep=inv_keep,
+                                 att_saves=att_saves, bf16_saves=bf16_saves)
 
 
 def _check_train_inputs(x, masks, w, fn: str = "fused_sga_block_train",
@@ -471,3 +569,21 @@ def fused_sga_block_train_plain(x: torch.Tensor, kq: torch.Tensor,
     y3 = bf16_matmul(h1d, w["w2"]) + w["b2"]
     return std_layer_norm(v2 + _drop(y3, masks["y3"], inv_keep), w["ln3_s"],
                           w["ln3_b"], reciprocal=True)
+
+
+def fused_sga_block_train_prng_plain(x: torch.Tensor, kq: torch.Tensor,
+                                     vq: torch.Tensor, v_mask: torch.Tensor,
+                                     q_mask: torch.Tensor, seed: int,
+                                     w: Mapping[str, torch.Tensor], *,
+                                     num_heads: int,
+                                     rate: float = 0.1) -> torch.Tensor:
+    """``fused_sga_block_train_prng`` in plain ops: the masks drawn by
+    ``kernels.philox4x32_plain`` (``dump_prng_masks_plain``), then the plain
+    block."""
+    B, Lv, D = x.shape
+    masks, inv_keep = dump_prng_masks_plain(
+        seed, rate, B, Lv, kq.shape[2], D, w["w1"].shape[1], num_heads,
+        x.device)
+    return fused_sga_block_train_plain(x, kq, vq, v_mask, q_mask, masks, w,
+                                       num_heads=num_heads,
+                                       inv_keep=inv_keep)

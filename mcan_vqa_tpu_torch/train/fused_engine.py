@@ -27,8 +27,18 @@ it up front in the fixed site order of the JAX engine (fused_engine.py:
 125-129): the encoder layers (``sa_train.SA_MASK_NAMES``: attention map,
 attention output, FFN hidden, FFN output), then the decoder blocks (the six
 masks of ``sga_train.MASK_NAMES``), then AttFlat over the question and over
-the image. The fused and plain encoders read the same four masks, so any
-two engines handed the same generator state see the same masks.
+the image, each with ``dropout_bits`` random bits per element. The fused
+and plain encoders read the same four masks, so any two engines handed the
+same generator state see the same masks.
+
+``in_kernel_dropout`` (the JAX Trainer's route on its accelerator,
+fused_engine.py:164-173, :234-245): each train block takes one seed per
+step instead of its masks (``dropout.draw_seeds``, host ints, drawn where
+the block's masks would be) and draws its keep bits inside the kernels
+(``fused_sga_block_train_prng``, ``fused_sa_block_train(..., rate=)``);
+the plain sites (AttFlat, an encoder in plain ops) keep generator masks.
+With ``sga_block="plain"`` the same seeds feed the plain blocks, which draw
+the same bits through ``kernels.philox4x32_plain``.
 """
 
 from __future__ import annotations
@@ -42,11 +52,15 @@ from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, make_mask
 from mcan_vqa_tpu_torch.models.net import attflat_pool
 from mcan_vqa_tpu_torch.ops import sa_train, sga_train
-from mcan_vqa_tpu_torch.ops.dropout import inv_keep_prob, keep_masks
+from mcan_vqa_tpu_torch.ops.dropout import draw_seeds, inv_keep_prob, \
+    keep_masks
 
 Mask = Optional[torch.Tensor]
-SGA_BLOCKS = {"fused": sga_train.fused_sga_block_train,
-              "plain": sga_train.fused_sga_block_train_plain}
+# sga_block -> (the block fed masks, the block fed a seed)
+SGA_BLOCKS = {"fused": (sga_train.fused_sga_block_train,
+                        sga_train.fused_sga_block_train_prng),
+              "plain": (sga_train.fused_sga_block_train_plain,
+                        sga_train.fused_sga_block_train_prng_plain)}
 SA_BLOCKS = {"fused": sa_train.fused_sa_block_train,
              "plain": sa_train.fused_sa_block_train_plain}
 
@@ -89,17 +103,22 @@ def _attflat_train(p, x: torch.Tensor, mask: torch.Tensor, drop: Mask,
 
 def draw_step_masks(generator: Optional[torch.Generator], rate: float, *,
                     B: int, Lq: int, Lv: int, D: int, F: int, H: int,
-                    num_layers: int, flat_mlp: int) -> Dict[str, List]:
+                    num_layers: int, flat_mlp: int, bit_width: int = 32,
+                    seeded_enc: bool = False,
+                    seeded_dec: bool = False) -> Dict[str, List]:
     """Every keep-mask of one step, in site order (see the module
-    docstring), on the generator's device. At rate 0 all are None and
-    nothing is drawn."""
+    docstring), on the generator's device; a seeded stack gets one host
+    int seed per block in place of its masks. At rate 0 all masks are None
+    and nothing is drawn."""
     def draw(shapes):
-        return keep_masks(generator, rate, shapes)[0]
+        return keep_masks(generator, rate, shapes, bit_width)[0]
 
-    enc = [draw(sa_train.mask_shapes(B, Lq, D, F, H))
-           for _ in range(num_layers)]
-    dec = [draw(sga_train.mask_shapes(B, Lv, Lq, D, F, H))
-           for _ in range(num_layers)]
+    enc = (draw_seeds(generator, num_layers) if seeded_enc
+           else [draw(sa_train.mask_shapes(B, Lq, D, F, H))
+                 for _ in range(num_layers)])
+    dec = (draw_seeds(generator, num_layers) if seeded_dec
+           else [draw(sga_train.mask_shapes(B, Lv, Lq, D, F, H))
+                 for _ in range(num_layers)])
     flat = draw({"lang": (B, Lq, flat_mlp), "img": (B, Lv, flat_mlp)})
     return {"enc": enc, "dec": dec, "flat": [flat["lang"], flat["img"]]}
 
@@ -109,25 +128,31 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
                              fused_encoder: bool = False,
                              sga_block: str = "fused",
                              att_saves: bool = False,
-                             bf16_saves: bool = False) -> Callable:
+                             bf16_saves: bool = False,
+                             dropout_bits: int = 32,
+                             in_kernel_dropout: bool = False) -> Callable:
     """-> forward(net, img_feat [B, R, F] f32, ques_ix [B, T] int,
     generator) -> logits [B, A], differentiable w.r.t. net's parameters.
     sga_block: "fused" (the kernels) or "plain" (the same blocks in plain
     ops, autograd). fused_encoder: the encoder through the SA train
     blocks. att_saves / bf16_saves: what the decoder blocks save for their
     backward (``fused_sga_block_train``; the plain blocks leave that to
-    autograd)."""
+    autograd). dropout_bits: random bits per keep decision of every
+    generator mask (8, 16 or 32). in_kernel_dropout: the train blocks draw
+    their dropout inside the kernels from one seed each per step."""
     if sga_block not in SGA_BLOCKS:
         raise ValueError(f"sga_block must be one of {tuple(SGA_BLOCKS)}")
-    block = SGA_BLOCKS[sga_block]
+    block, seeded_block = SGA_BLOCKS[sga_block]
     if sga_block == "fused":
-        block = functools.partial(block, att_saves=att_saves,
-                                  bf16_saves=bf16_saves)
+        block, seeded_block = (functools.partial(
+            b, att_saves=att_saves, bf16_saves=bf16_saves)
+            for b in (block, seeded_block))
     sa_block = SA_BLOCKS[sga_block] if fused_encoder else None
     rate = dropout_rate
     if rate >= 1.0:
         raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
-    inv_keep = inv_keep_prob(rate) if rate > 0.0 else 1.0
+    inv_keep = inv_keep_prob(rate, dropout_bits) if rate > 0.0 else 1.0
+    seeded = in_kernel_dropout and rate > 0.0
 
     def forward(net, img_feat: torch.Tensor, ques_ix: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -143,7 +168,9 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
             generator, rate, B=B, Lq=Lq, Lv=Lv, D=D,
             F=bb.dec_list[0].ffn.mlp.fc.linear.weight.shape[0], H=H,
             num_layers=num_layers,
-            flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0])
+            flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0],
+            bit_width=dropout_bits, seeded_enc=seeded and fused_encoder,
+            seeded_dec=seeded)
 
         # ---- encoder SA stack over the question: the train block, or
         # plain ops
@@ -152,7 +179,8 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
                 w = sa_train.prepare_sa_train_params(
                     dict(enc.named_parameters()))
                 q = sa_block(q.float(), q_mask, m, w, num_heads=H,
-                             inv_keep=inv_keep)
+                             inv_keep=inv_keep,
+                             rate=rate if seeded else None)
                 continue
             att = _masked_attention_train(enc.mhatt, q, q, q, q_mask, H,
                                           m["att"], inv_keep)
@@ -166,8 +194,12 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
             vq = split_heads(dec.mhatt2.linear_v(q), H)
             w = sga_train.prepare_sga_train_params(
                 dict(dec.named_parameters()))
-            v = block(v, kq, vq, v_mask, q_mask, m, w, num_heads=H,
-                      inv_keep=inv_keep)
+            if seeded:
+                v = seeded_block(v, kq, vq, v_mask, q_mask, m, w,
+                                 num_heads=H, rate=rate)
+            else:
+                v = block(v, kq, vq, v_mask, q_mask, m, w, num_heads=H,
+                          inv_keep=inv_keep)
 
         lang = _attflat_train(net.attflat_lang, q, q_mask, masks["flat"][0],
                               inv_keep)

@@ -93,17 +93,18 @@ def test_attention_reads_strided_qkv(cuda):
 
 
 def test_attention_raises_past_its_limits(cuda):
-    q, k, v, mask = _attention_inputs(2, 8, 14, 65, [65, 3], cuda)
+    q, k, v, mask = _attention_inputs(2, 8, 14, 129, [129, 3], cuda)
     with pytest.raises(ValueError, match="Lk"):
         K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
-    q, k, v, mask = _attention_inputs(2, 8, 14, 14, [14, 3], cuda, Dh=96)
+    q, k, v, mask = _attention_inputs(2, 8, 14, 14, [14, 3], cuda, Dh=160)
     with pytest.raises(ValueError, match="Dh"):
         K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
 
 
 @pytest.mark.parametrize("D,res_dtype,with_bias", [
     (512, BF16, True), (512, torch.float32, False), (1024, BF16, False),
-    (1024, torch.float32, True)])
+    (1024, torch.float32, True), (256, BF16, True),
+    (768, torch.float32, True), (2048, BF16, False)])
 def test_layernorm_matches_plain(cuda, D, res_dtype, with_bias):
     g = torch.Generator(device=cuda).manual_seed(D)
     rows = 77
@@ -120,9 +121,10 @@ def test_layernorm_matches_plain(cuda, D, res_dtype, with_bias):
 
 
 def test_layernorm_raises_on_unsupported_width(cuda):
-    x = torch.zeros(4, 384, device=cuda)
-    with pytest.raises(ValueError, match="D=384"):
-        K.residual_layernorm(x, x, None, x[0], x[0])
+    for D in (400, 4096):
+        x = torch.zeros(4, D, device=cuda)
+        with pytest.raises(ValueError, match=f"D={D}"):
+            K.residual_layernorm(x, x, None, x[0], x[0])
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +538,11 @@ def test_gemm_dw_matches_plain_and_repeats_bitwise(cuda, R, M, N):
 @pytest.mark.parametrize("Lq,Lk,lengths,kv_dtype,Dh", [
     (60, 60, [0, 60, 17], BF16, 64), (60, 14, [3, 14, 0], torch.float32, 64),
     (60, 60, [0, 60, 17], BF16, 128), (60, 14, [3, 14, 0], torch.float32, 128),
-    (14, 14, [14, 0, 5], BF16, 128)])
+    (14, 14, [14, 0, 5], BF16, 128),
+    # the widened envelope: hidden 128 / 256 at 8 heads, MIMIC's 86 rows
+    (60, 14, [3, 14, 0], torch.float32, 16), (14, 14, [14, 0, 5], BF16, 32),
+    (86, 86, [0, 86, 40], BF16, 64), (86, 14, [3, 14, 0], torch.float32, 32),
+    (128, 128, [128, 0, 77], BF16, 128), (14, 14, [14, 0, 5], BF16, 96)])
 def test_attention_dropout_and_backward_match_plain(cuda, Lq, Lk, lengths,
                                                     kv_dtype, Dh):
     """Head widths 64 (MCAN-small) and 128 (MCAN-large): the forward and
@@ -571,7 +577,8 @@ def test_attention_dropout_and_backward_match_plain(cuda, Lq, Lk, lengths,
         _close(a, b.to(BF16).to(f32), 0)
 
 
-@pytest.mark.parametrize("D,with_y", [(512, True), (1024, False)])
+@pytest.mark.parametrize("D,with_y", [(512, True), (1024, False),
+                                      (256, True), (768, True)])
 def test_layernorm_dropout_save_r_and_backward_match_plain(cuda, D, with_y):
     g = torch.Generator(device=cuda).manual_seed(D + 1)
     rows = 123
@@ -768,3 +775,182 @@ def test_sa_train_block_matches_plain_and_repeats_bitwise(cuda):
                                     inv_keep=inv, save_acts=save_acts))
         assert counts["sa_train_fwd"] == counts["sa_train_bwd"] == 1
         _check_block(got, ref, again)
+
+
+# ---------------------------------------------------------------------------
+# in-kernel dropout: Philox, the mask dump, the seeded kernels
+# ---------------------------------------------------------------------------
+
+SEED, RATE = 987654321, 0.1
+
+
+def test_philox_words_match_plain_on_a_million_words(cuda):
+    words = K.philox_words(SEED, 0x303, 8, 1 << 17, cuda)       # 1,048,576
+    torch.cuda.synchronize()
+    assert torch.equal(words, K.philox_words_plain(SEED, 0x303, 8, 1 << 17,
+                                                   cuda))
+
+
+def test_dump_matches_plain_bitwise_and_keeps_its_rate(cuda):
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    shape = (64, 60, 14, 512, 2048, 8)
+    masks, inv = st.dump_prng_masks(SEED, RATE, *shape, device=cuda)
+    ref, inv_ref = st.dump_prng_masks_plain(SEED, RATE, *shape, device=cuda)
+    t, inv_keep = st.prng_keep_params(RATE)
+    assert inv == inv_ref == inv_keep
+    n = kept = 0
+    for name in st.MASK_NAMES:
+        assert masks[name].dtype == torch.uint8
+        assert torch.equal(masks[name], ref[name]), name
+        n += masks[name].numel()
+        kept += int(masks[name].sum())
+    p = t / 2 ** 32
+    assert abs(kept / n - p) <= 5 * (p * (1 - p) / n) ** 0.5
+
+
+def _seeded(site, rows=0):
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    t, inv = st.prng_keep_params(RATE)
+    return K.Philox(SEED, site, t, rows), inv
+
+
+def _dumped(p, B, heads, n):
+    return K.dump_prng_masks(p.seed, p.thresh, B, [(p.site, heads, n)],
+                             "cuda")[0]
+
+
+def test_seeded_gemm_equals_the_mask_fed_the_dump(cuda):
+    g = torch.Generator(device=cuda).manual_seed(41)
+    B, L, Kd, N = 7, 60, 512, 2048
+    a = torch.randn(B * L, Kd, generator=g, device=cuda).to(BF16)
+    w = (torch.randn(Kd, N, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
+    b = torch.randn(N, generator=g, device=cuda)
+    p, inv = _seeded(0x303, L)
+    mask = _dumped(p, B, 1, L * N).reshape(B * L, N)
+    kw = dict(relu=True, out_dtype=BF16, inv_keep=inv)
+    out = K.gemm_bias_act(a, w, b, mask=p, **kw)
+    assert torch.equal(out, K.gemm_bias_act(a, w, b, mask=mask, **kw))
+    _close(out, K.gemm_bias_act_plain(a, w, b, mask=p, **kw), 2 ** -7)
+
+
+@pytest.mark.parametrize("D", [512, 256, 768])
+def test_seeded_layernorm_equals_the_mask_fed_the_dump(cuda, D):
+    g = torch.Generator(device=cuda).manual_seed(D + 3)
+    B, L = 9, 14
+    res, y, gout = (torch.randn(B * L, D, generator=g, device=cuda)
+                    for _ in range(3))
+    bias, beta = (0.1 * torch.randn(D, generator=g, device=cuda)
+                  for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    p, inv = _seeded(0x501, L)
+    mask = _dumped(p, B, 1, L * D).reshape(B * L, D)
+    kw = dict(inv_keep=inv, save_r=True, reciprocal=True)
+    outs = K.residual_layernorm(res, y, bias, gamma, beta, (torch.float32,),
+                                mask=p, **kw)
+    refs = K.residual_layernorm(res, y, bias, gamma, beta, (torch.float32,),
+                                mask=mask, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(outs, refs))
+    kw = dict(inv_keep=inv, dy_dtypes=(torch.float32, BF16))
+    outs = K.residual_layernorm_bwd(gout, res, y, bias, gamma, mask=p, **kw)
+    refs = K.residual_layernorm_bwd(gout, res, y, bias, gamma, mask=mask,
+                                    **kw)
+    assert all(torch.equal(a, b) for a, b in zip(outs, refs))
+    plain = K.residual_layernorm_bwd_plain(gout, res, y, bias, gamma,
+                                           mask=p, **kw)
+    for a, b, tol in zip(outs, plain, (1e-4, 1e-5, 1e-4, 2 ** -7)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh", [(60, 60, 64), (60, 14, 128),
+                                      (86, 86, 32)])
+def test_seeded_attention_equals_the_mask_fed_the_dump(cuda, Lq, Lk, Dh):
+    B, H = 3, 8
+    q, k, v, mask = _attention_inputs(B, H, Lq, Lk, [0, Lk, 5], cuda, Dh)
+    k, v = k.to(BF16), v.to(BF16)
+    p, inv = _seeded(0x200)
+    drop = _dumped(p, B, H, Lq * Lk).reshape(B, H, Lq, Lk)
+    out = K.masked_attention(q, k, v, mask, p, inv)
+    assert torch.equal(out, K.masked_attention(q, k, v, mask, drop, inv))
+    _close(out, K.masked_attention_plain(q, k, v, mask, p, inv), 2 ** -7)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn(B, Lq, H * Dh, generator=g, device=cuda).to(BF16)
+
+    def grads(d):
+        dq = torch.empty(B, H, Lq, Dh, device=cuda)
+        dk, dv = (torch.empty(B, H, Lk, Dh, device=cuda) for _ in range(2))
+        K.masked_attention_bwd(q, k, v, mask, dout, dq, dk, dv, drop=d,
+                               inv_keep=inv)
+        return dq, dk, dv
+
+    assert all(torch.equal(a, b) for a, b in zip(grads(p), grads(drop)))
+
+
+def _prng_block_vs_dump(fused, ext, leaves, ws, names, probe, call, dump):
+    """The seeded block and the external-mask block fed its dump: equal
+    output and gradients, bit for bit."""
+    def run(block, masks):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        wd = {k: t.clone().requires_grad_() for k, t in ws.items()}
+        out = call(block, ls, wd, masks)
+        (out * probe).sum().backward()
+        return [out.detach()] + [t.grad for t in ls] + [wd[n].grad
+                                                        for n in names]
+
+    K.reset_launches()
+    got = run(fused, None)
+    counts = K.launch_counts()
+    want = run(ext, dump)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return counts
+
+
+@pytest.mark.parametrize("B,D,F,saves", [(64, 512, 2048, False),
+                                         (8, 1024, 4096, True)])
+def test_seeded_sga_block_equals_the_block_fed_the_dump(cuda, B, D, F, saves):
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    x, kq, vq, vm, qm, _, w, _, probe = _train_block_inputs(cuda, B=B, D=D,
+                                                             F=F)
+    masks, inv = st.dump_prng_masks(SEED, RATE, B, 60, 14, D, F, 8, cuda)
+    kw = dict(num_heads=8, att_saves=saves, bf16_saves=saves)
+
+    def call(block, ls, wd, dump):
+        if dump is None:
+            return block(*ls, vm, qm, SEED, wd, rate=RATE, **kw)
+        return block(*ls, vm, qm, dump, wd, inv_keep=inv, **kw)
+
+    counts = _prng_block_vs_dump(
+        st.fused_sga_block_train_prng, st.fused_sga_block_train,
+        (x, kq, vq), w, st.WEIGHT_NAMES, probe, call, masks)
+    bwd = "sga_train_bwd_att_sav_prng" if saves else "sga_train_bwd_att_prng"
+    assert counts["sga_train_fwd_prng"] == counts[bwd] == 1
+    assert "sga_train_fwd" not in counts
+
+
+def test_seeded_sa_block_equals_the_block_fed_the_dump(cuda):
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    B, L, D, F, H = 64, 14, 512, 2048, 8
+    g = torch.Generator(device=cuda).manual_seed(33)
+    w = {n: 0.05 * torch.randn(*shape, generator=g, device=cuda)
+         for n, shape in (("wqkv", (D, 3 * D)), ("bqkv", (3 * D,)),
+                          ("wm", (D, D)), ("bm", (D,)), ("ln1_b", (D,)),
+                          ("w1", (D, F)), ("b1", (F,)), ("w2", (F, D)),
+                          ("b2", (D,)), ("ln2_b", (D,)))}
+    for n in ("ln1_s", "ln2_s"):
+        w[n] = 1 + 0.05 * torch.randn(D, generator=g, device=cuda)
+    x = torch.randn(B, L, D, generator=g, device=cuda)
+    lens = torch.tensor([(i * 5) % (L + 1) for i in range(B)], device=cuda)
+    mask = (torch.arange(L, device=cuda)[None] >= lens[:, None])[:, None,
+                                                                 None]
+    probe = torch.randn(B, L, D, generator=g, device=cuda)
+    masks, inv = sa.dump_sa_prng_masks(SEED, RATE, B, L, D, F, H, cuda)
+
+    def call(block, ls, wd, dump):
+        if dump is None:
+            return block(*ls, mask, SEED, wd, num_heads=H, rate=RATE)
+        return block(*ls, mask, dump, wd, num_heads=H, inv_keep=inv)
+
+    counts = _prng_block_vs_dump(sa.fused_sa_block_train,
+                                 sa.fused_sa_block_train, (x,), w,
+                                 sa.SA_WEIGHT_NAMES, probe, call, masks)
+    assert counts["sa_train_fwd_prng"] == counts["sa_train_bwd_prng"] == 1

@@ -22,13 +22,17 @@ from mcan_vqa_tpu_torch.train.checkpoint import (load_reference_checkpoint,
 from mcan_vqa_tpu_torch.train import trainer as trainer_mod
 from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_line
 
+# train_engine "fused": the fused engine on the CPU (its kernels' plain
+# versions), which "auto" takes only on a CUDA device
 TINY = ["--hidden_size", "32", "--layer", "1", "--multi_head", "4",
         "--img_feat_size", "16", "--img_feat_pad_size", "8",
         "--max_token", "6", "--flat_out_size", "32", "--flat_mlp_size", "16",
-        "--batch_size", "4", "--synthetic_size", "16"]
+        "--batch_size", "4", "--synthetic_size", "16",
+        "--train_engine", "fused"]
 TINY_CFG = dict(hidden_size=32, ff_size=128, layer=1, multi_head=4,
                 img_feat_size=16, img_feat_pad_size=8, max_token=6,
-                flat_out_size=32, flat_mlp_size=16, batch_size=4)
+                flat_out_size=32, flat_mlp_size=16, batch_size=4,
+                train_engine="fused")
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +171,8 @@ def test_model_large_parses_to_the_large_preset():
         (640, 2560, 2048)
     with pytest.raises(SystemExit):
         run_vqa.parse_args(["--run", "train", "--model", "huge"])
+    with pytest.raises(SystemExit):
+        run_vqa.parse_args(["--run", "train", "--train_engine", "xla"])
     with pytest.raises(ValueError, match="model"):
         Config.for_model("huge")
 
