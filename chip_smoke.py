@@ -57,12 +57,28 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              static-int8 aux sites); Predictor(engine="int8"); launch counts
              and agreement with the plain engine for each;
   [forward]  forward times of every engine per bucket, in turns;
+  [per-sub-op]  main path 1e, the per-sub-op path (sga_mode=0): gemm_ln
+             and attflat_pool against their plain versions at the
+             MCAN-small B=64 shapes (both stream dtypes, D up to 2048,
+             B=1), and the repaired shapes of the older kernels
+             (gemm_bias_act at N 480, the long attention forward and
+             backward at Dh 192 / 256 and 160 / 608 rows, gemm_s4 /
+             gemm_w4bf16 at K 384); build_production_engine(qffn=0,
+             sga_mode=0) at MCAN-small full depth for each use_pallas x
+             use_pallas_attflat, exact launches and agreement with the
+             plain engine; mode 0 against mode 2 timed at B = 1, 8, 64; at
+             2 layers a default Predictor at hidden 1536 and 2048 (mode 0)
+             and the mode-0 kernel attention at Dh 192, hidden 480 (bf16),
+             hidden 384 at int4 levels 5 and 7, 160 image rows;
   [envelope] hidden 256 (8 heads of 32) and 86 image rows: the bf16, int8
              level 1 / 3 / 5 and full-int8 engines against the plain one;
              the seeded SGA block (and at hidden 256 the SA block) at B=64
              against the external-mask block fed the dump, bit for bit,
              and against its plain twin in every gradient; 3 Trainer steps,
              each loss against the plain engine's, with exact launch counts;
+             the same seeded blocks at hidden 768 (4 heads of 192) and at
+             160 image rows (the long attention kernels, forward and
+             backward);
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
              same width, batch 64, one epoch of 10 steps, the encoder
              through the SA train blocks and the decoder through the SGA
@@ -234,8 +250,13 @@ def main() -> None:
                                    ix_to_ans, rows, plain, requests)
     time_forwards(torch, cfg, fused, timed + [("plain",
                                                plain.forward_padded)])
-    del plain, fused, timed
     phase_done("serve")
+    check_sub_op_kernels(torch, dev, rows)
+    serve_per_sub_op(torch, dev, model_state, cfg, plain, requests,
+                     len(ix_to_ans), rows)
+    del plain, fused, timed
+    check_wide_widths(torch, dev, vocab, ix_to_ans, rows)
+    phase_done("per-sub-op")
     check_envelope(torch, dev, vocab, ix_to_ans, rows)
     phase_done("envelope")
     work = ROOT / "ckpts" / "chip_smoke"
@@ -3041,6 +3062,449 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
 
 
 # ---------------------------------------------------------------------------
+# phase [per-sub-op]: the per-sub-op serving path (sga_mode=0) and the
+# widened kernels
+# ---------------------------------------------------------------------------
+
+TPU_FFN = "mcan_vqa_tpu/ops/fused_ffn.py"
+TPU_ATT = "mcan_vqa_tpu/ops/masked_attention.py"
+SERVE_MODE0 = "one B=64 mode-0 serving forward (bf16 stream)"
+EACH_SHAPE = "one call at each shape of the row"
+SUB_OP_KERNELS = ("gemm_ln", "gemm_bias_act", "masked_attention_f32",
+                  "attflat_pool")
+
+
+def mode0_launches(L: int, use_pallas, flat: bool):
+    """Every kernel's launches in one forward of the per-sub-op engine
+    (bf16 stream, use_pallas_ffn): per layer pair 3 merges + 2 FFNs on
+    gemm_ln and 2 first FFN products on gemm_bias_act; 3 attentions on
+    the kernel under use_pallas; each AttFlat's MLP product, attflat_pool
+    and merge under the AttFlat switch, which use_pallas also turns on
+    (serving.py:545)."""
+    flat = bool(use_pallas or flat)
+    counts = {"gemm_ln": 5 * L, "gemm_bias_act": 2 * L + 4 * flat,
+              "masked_attention_f32": 3 * L if use_pallas else 0,
+              "attflat_pool": 2 * flat}
+    return {k: n for k, n in counts.items() if n}
+
+
+def gemm_ln_work(M, Kd, D, a_size, res_size):
+    """(operations, bytes) of one gemm_ln: the product, the residual and
+    the LN; a, W, bias / gamma / beta, res read once, out written once."""
+    return (2 * M * Kd * D + 10 * M * D,
+            a_size * M * Kd + 2 * Kd * D + 12 * D + 2 * res_size * M * D)
+
+
+def check_sub_op_kernels(torch, dev, rows) -> None:
+    """gemm_ln and attflat_pool against their plain versions at the
+    MCAN-small B=64 shapes of the per-sub-op path (both stream dtypes; D
+    1024 / 1536 / 2048; B = 1) and the repaired shapes of the older
+    kernels: gemm_bias_act at N 480, the attention forward and backward
+    at Dh 192 / 256 and 160 / 608 rows (the long kernels), gemm_s4 /
+    gemm_w4bf16 at K 384; each with its time, its plain version's, a
+    library call's where one computes the function, and its bound."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w4
+    kc = KernelCheck(torch, dev, rows, SEED + 70)
+    bf16, f32 = torch.bfloat16, torch.float32
+    F_ = torch.nn.functional
+    rows.row("gemm_ln", SRC + "gemm_ln.cu", f"{TPU_FFN}:100", SERVE_MODE0)
+    rows.row("attflat_pool", SRC + "attflat_pool.cu",
+             "mcan_vqa_tpu/ops/attflat.py:72", SERVE_MODE0)
+    rows.row("masked_attention, f32 q", SRC + "masked_attention.cu",
+             f"{TPU_ATT}:118", SERVE_MODE0)
+    rows.row("gemm_bias_act, AttFlat", SRC + "gemm.cu",
+             "mcan_vqa_tpu/ops/attflat.py:72", SERVE_MODE0)
+    rows.row("gemm_bias_act, N 480", SRC + "gemm.cu", f"{TPU}:285",
+             EACH_SHAPE)
+    rows.row("masked_attention, long", SRC + "masked_attention.cu",
+             f"{TPU_ATT}:118", EACH_SHAPE)
+    rows.row("masked_attention_bwd, long", SRC + "masked_attention_bwd.cu",
+             f"{TPU_TRAIN}:1139", EACH_SHAPE)
+    rows.row("gemm_s4, K 384", SRC + "gemm_s4.cu", f"{TPU_QUANT}:282",
+             EACH_SHAPE)
+    rows.row("gemm_w4bf16, K 384", SRC + "gemm_w4bf16.cu",
+             f"{TPU_QUANT}:307", EACH_SHAPE)
+    say("[per-sub-op] gemm_ln and attflat_pool vs their plain versions "
+        "(times: the launches of one B=64 mode-0 forward), and the repaired "
+        "shapes of the older kernels (times: one call each)")
+
+    def weight(k, n):
+        return (kc.randn(k, n) / k ** 0.5).to(bf16)
+
+    # --- gemm_ln: (label, M, K, D, a dtype, stream, launches per forward)
+    cases = [("dec merge", BATCH * 60, 512, 512, f32, bf16, 12),
+             ("enc merge", BATCH * 14, 512, 512, f32, bf16, 6),
+             ("dec ffn", BATCH * 60, 2048, 512, bf16, bf16, 6),
+             ("enc ffn", BATCH * 14, 2048, 512, bf16, bf16, 6),
+             ("dec merge, f32 stream", BATCH * 60, 512, 512, f32, f32, 0),
+             ("dec ffn, f32 stream", BATCH * 60, 2048, 512, bf16, f32, 0),
+             ("B=1 dec merge", 60, 512, 512, f32, bf16, 0),
+             ("B=1 enc ffn", 14, 2048, 512, bf16, bf16, 0),
+             ("D 1024 merge", 32 * 60, 1024, 1024, f32, bf16, 0),
+             ("D 1024 ffn", 32 * 60, 4096, 1024, bf16, f32, 0),
+             ("D 1536 merge", 8 * 60, 1536, 1536, f32, bf16, 0),
+             ("D 1536 ffn", 8 * 60, 6144, 1536, bf16, bf16, 0),
+             ("D 2048 merge", 8 * 60, 2048, 2048, f32, f32, 0),
+             ("D 2048 ffn", 8 * 60, 8192, 2048, bf16, bf16, 0),
+             ("D 480 ragged M=61", 61, 480, 480, f32, bf16, 0)]
+    for label, M, Kd, D, adt, sdt, n in cases:
+        a = kc.randn(M, Kd, dtype=adt)
+        if adt == bf16:
+            a = a.relu()                    # the FFN reads the ReLU hidden
+        w, b = weight(Kd, D), kc.randn(D, s=0.1)
+        res = kc.randn(M, D, dtype=sdt)
+        gamma, beta = 1 + kc.randn(D, s=0.1), kc.randn(D, s=0.1)
+        ops, nbytes = gemm_ln_work(M, Kd, D, a.element_size(),
+                                   res.element_size())
+        # f32 out: the same exact bf16 products summed in another order,
+        # then an LN of O(1) values; bf16: one rounding a step apart
+        kc.case("gemm_ln", f"{label} [{M}x{Kd}]x[{Kd}x{D}]",
+                lambda: (K.gemm_ln(a, w, b, res, gamma, beta),),
+                lambda: (K.gemm_ln_plain(a, w, b, res, gamma, beta),),
+                (1e-4 if sdt == f32 else 8e-3,), n, ops, nbytes,
+                timed=n > 0 or label.startswith("B=1"))
+
+    # --- attflat_pool: (label, L, x dtype, launches per forward)
+    for label, L, xdt, n in (("img", 60, bf16, 1), ("lang", 14, bf16, 1),
+                             ("img, f32 stream", 60, f32, 0)):
+        B, D, Fm = BATCH, 512, 512
+        x = kc.randn(B, L, D, dtype=xdt)
+        h = kc.randn(B * L, Fm).relu().to(bf16)
+        w2, b2 = weight(Fm, 1), kc.randn(1, s=0.1)
+        mask = pad_mask(torch, B, L, [(i * 7) % (L + 1) for i in range(B)],
+                        dev).contiguous()           # sample 0 fully padded
+        ops = 2 * B * L * Fm + 2 * B * L * D + 10 * B * L
+        nbytes = (2 * B * L * Fm + 2 * Fm + 4 + B * L
+                  + x.element_size() * B * L * D + 2 * B * D + 4 * B * L)
+        # att: f32 logits of exact bf16 products, one softmax: 1e-5 of its
+        # scale (<= 1); pooled: plus one bf16 rounding a step apart
+        kc.case("attflat_pool", f"{label} B={B} L={L}",
+                lambda: K.attflat_pool(h, w2, b2, mask, x),
+                lambda: K.attflat_pool_plain(h, w2, b2, mask, x),
+                (8e-3, 1e-5), n, ops, nbytes, tensor=False, timed=n > 0)
+        out = K.attflat_pool(h, w2, b2, mask, x)[1][0]
+        gate(f"attflat_pool {label}: the fully padded sample's softmax is "
+             f"uniform", max_err(out, torch.full_like(out, 1.0 / L)), 1e-6)
+
+    # --- the mode-0 attention (masked_attention_pallas and its variants):
+    # q, k, v f32 views of the plain projections, f32 out
+    H, D = 8, 512
+    for label, Lq, Lk, cross in (("enc self 14x14", 14, 14, False),
+                                 ("dec self 60x60", 60, 60, False),
+                                 ("dec cross 60x14", 60, 14, True)):
+        B = BATCH
+        if cross:
+            q = kc.randn(B * Lq, D).view(B, Lq, H, D // H).transpose(1, 2)
+            kv = kc.randn(B * Lk, 2 * D).view(B, Lk, 2 * D)
+            k, v = (t.view(B, Lk, H, D // H).transpose(1, 2)
+                    for t in kv.split(D, dim=-1))
+        else:
+            qkv = kc.randn(B * Lq, 3 * D).view(B, Lq, 3 * D)
+            q, k, v = (t.view(B, Lq, H, D // H).transpose(1, 2)
+                       for t in qkv.split(D, dim=-1))
+        mask = pad_mask(torch, B, Lk, [(i * 5) % (Lk + 1) for i in range(B)],
+                        dev)
+        q16, k16, v16 = q.to(bf16), k.to(bf16), v.to(bf16)
+        kc.case("masked_attention, f32 q", f"{label} B={B}",
+                lambda: (K.masked_attention(q, k, v, mask, out_dtype=f32),),
+                lambda: (K.masked_attention_plain(q, k, v, mask,
+                                                  out_dtype=f32),),
+                (8e-3,), 6, 4 * B * H * Lq * Lk * (D // H),
+                4 * B * H * (Lq + 2 * Lk) * (D // H) + B * Lk
+                + 4 * B * Lq * D,
+                lib=lambda: F_.scaled_dot_product_attention(
+                    q16, k16, v16, attn_mask=~mask))
+
+    # --- AttFlat's two products on gemm_bias_act (the MLP's first, ReLU,
+    # bf16 out; the merge, f32 out), per AttFlat of one forward
+    for label, M, Kd, N, relu, odt in (
+            ("img mlp", BATCH * 60, 512, 512, True, bf16),
+            ("lang mlp", BATCH * 14, 512, 512, True, bf16),
+            ("img merge", BATCH, 512, 1024, False, f32),
+            ("lang merge", BATCH, 512, 1024, False, f32)):
+        a, w, b = kc.randn(M, Kd, dtype=bf16), weight(Kd, N), kc.randn(N)
+        b16 = b.to(bf16)
+        kc.case("gemm_bias_act, AttFlat", f"{label} [{M}x{Kd}]x[{Kd}x{N}]",
+                lambda: (K.gemm_bias_act(a, w, b, relu=relu, out_dtype=odt),),
+                lambda: (K.gemm_bias_act_plain(a, w, b, relu=relu,
+                                               out_dtype=odt),),
+                (1e-4 if odt == f32 else 8e-3,), 1, 2 * M * Kd * N,
+                gemm_bytes(M, Kd, N, bias=True,
+                           out=(4 if odt == f32 else 2,)),
+                lib=lambda: torch.addmm(b16, a, w))
+
+    # --- gemm_bias_act at hidden 480 (8 heads of 60): N % 64 != 0
+    for label, M, Kd, N, relu, odt in (
+            ("qkv", BATCH * 60, 480, 1440, False, bf16),
+            ("merge", BATCH * 60, 480, 480, False, f32),
+            ("ffn1", BATCH * 60, 480, 1920, True, bf16),
+            ("ffn2", BATCH * 60, 1920, 480, False, f32)):
+        a, w, b = kc.randn(M, Kd, dtype=bf16), weight(Kd, N), kc.randn(N)
+        b16 = b.to(bf16)
+        kc.case("gemm_bias_act, N 480", f"{label} [{M}x{Kd}]x[{Kd}x{N}]",
+                lambda: (K.gemm_bias_act(a, w, b, relu=relu, out_dtype=odt),),
+                lambda: (K.gemm_bias_act_plain(a, w, b, relu=relu,
+                                               out_dtype=odt),),
+                (1e-4 if odt == f32 else 8e-3,), 1, 2 * M * Kd * N,
+                gemm_bytes(M, Kd, N, bias=True,
+                           out=(4 if odt == f32 else 2,)),
+                lib=lambda: torch.addmm(b16, a, w))
+
+    # --- the long attention kernels: (label, B, H, Lq, Lk, Dh, q dtype,
+    # kv dtype, out dtype)
+    for label, B, H, Lq, Lk, Dh, qdt, kvdt, odt in (
+            ("Dh 192 self 160x160 (hidden 1536)", 8, 8, 160, 160, 192, f32,
+             f32, f32),
+            ("Dh 256 cross 60x14 (hidden 2048)", 8, 8, 60, 14, 256, bf16,
+             f32, bf16),
+            ("Dh 64 self 608x608 (grid features)", 8, 8, 608, 608, 64, bf16,
+             bf16, bf16),
+            ("Dh 256 cross 608x14", 8, 8, 608, 14, 256, bf16, f32, f32)):
+        q = kc.randn(B, H, Lq, Dh, dtype=qdt)
+        k, v = kc.randn(B, H, Lk, Dh, dtype=kvdt), kc.randn(B, H, Lk, Dh,
+                                                             dtype=kvdt)
+        mask = pad_mask(torch, B, Lk, [(i * 37) % (Lk + 1) for i in range(B)],
+                        dev)                        # sample 0 fully padded
+        q16, k16, v16 = q.to(bf16), k.to(bf16), v.to(bf16)
+        qs, kvs, osz = q.element_size(), k.element_size(), (
+            4 if odt == f32 else 2)
+        nbytes = (qs * B * H * Lq * Dh + 2 * kvs * B * H * Lk * Dh + B * Lk
+                  + osz * B * Lq * H * Dh)
+        kc.case("masked_attention, long", label,
+                lambda: (K.masked_attention(q, k, v, mask, out_dtype=odt),),
+                lambda: (K.masked_attention_plain(q, k, v, mask,
+                                                  out_dtype=odt),),
+                (8e-3,), 1, 4 * B * H * Lq * Lk * Dh, nbytes,
+                lib=lambda: F_.scaled_dot_product_attention(
+                    q16, k16, v16, attn_mask=~mask))
+        # the backward at the same shape, with a dropout mask
+        dout = kc.randn(B, Lq, H * Dh, dtype=bf16)
+        drop = kc.keep(B, H, Lq, Lk).to(torch.uint8)
+
+        def grads(fn, q=q16, k=k, v=v, mask=mask, dout=dout, drop=drop):
+            dq = torch.empty(q.shape, device=dev)
+            dk, dv = torch.empty(k.shape, device=dev), torch.empty(
+                k.shape, device=dev)
+            fn(q, k, v, mask, dout, dq, dk, dv, drop=drop, inv_keep=1 / 0.9)
+            return dq, dk, dv
+
+        ql, kl, vl = (t.detach().clone().requires_grad_()
+                      for t in (q16, k16, v16))
+        sdpa_out = F_.scaled_dot_product_attention(ql, kl, vl,
+                                                   attn_mask=~mask)
+        d4 = dout.view(B, Lq, H, Dh).transpose(1, 2)
+        nb = (2 * B * H * Lq * Dh + 2 * kvs * B * H * Lk * Dh + B * Lk
+              + B * H * Lq * Lk + 2 * B * Lq * H * Dh + 4 * B * H * Lq * Dh
+              + 8 * B * H * Lk * Dh)
+        # dS rounded to bf16 may land a step apart: 2^-7 of each output's
+        # scale
+        kc.case("masked_attention_bwd, long", label,
+                lambda: grads(K.masked_attention_bwd),
+                lambda: grads(K.masked_attention_bwd_plain),
+                (2 ** -7,) * 3, 1, 10 * B * H * Lq * Lk * Dh, nb, timed=False)
+        t_k = device_ms(torch, lambda: grads(K.masked_attention_bwd))
+        t_p = device_ms(torch, lambda: grads(K.masked_attention_bwd_plain),
+                        iters=5)
+        t_l = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (ql, kl, vl), d4, retain_graph=True))
+        flops = 10 * B * H * Lq * Lk * Dh
+        say(f"    backward {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa backward "
+            f"{t_l:.4f} ms (eager); bound "
+            f"{max(bound_parts(flops, nb)):.4f} ms")
+        rows.add("masked_attention_bwd, long", 1, t_k, t_p, flops, nb, t_l)
+
+    # --- int4 at K 384 (hidden 384, level 5 / 7): a scale group straddles
+    # the nibble halves
+    for site, M, Kd, N, relu in (("qkv B=1", 60, 384, 1152, False),
+                                 ("w1 B=64", BATCH * 60, 384, 1536, True),
+                                 ("w2 B=64", BATCH * 60, 1536, 384, False)):
+        w = kc.randn(Kd, N) / Kd ** 0.5
+        q4 = _quant_w4(w.to(bf16))
+        wp, s4 = q4["w_p"], q4["w_gscale"]
+        bias = kc.randn(N, s=0.1)
+        x = kc.randn(M, Kd)
+        a = float(x.abs().max()) / 127.0 * 1.1
+        xq, _ = K.quantize_rows(x, 1.0 / a)
+        xb = x.to(bf16)
+        ops = 2 * M * Kd * N
+        out = K.gemm_s4(xq, wp, s4, bias, a=a, relu=relu)[0]
+        ref = K.gemm_s4_plain(xq, wp, s4, bias, a=a, relu=relu)[0]
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        gate(f"gemm_s4, K 384 {site} [{M}x{Kd}]x[{Kd}x{N}] (bit for bit)",
+             err, 0.0)
+        rows.err("gemm_s4, K 384", err)
+        t4 = device_ms(torch, lambda: K.gemm_s4(xq, wp, s4, bias, a=a,
+                                                relu=relu))
+        t4p = device_ms(torch, lambda: K.gemm_s4_plain(
+            xq, wp, s4, bias, a=a, relu=relu), iters=5)
+        say(f"    time {t4:.4f} ms vs plain {t4p:.4f} ms; bound "
+            f"{max(bound_parts(0.0, w4_bytes(M, Kd, N, 1, 4), int8_ops=ops)):.4f}"
+            f" ms (library none)")
+        rows.add("gemm_s4, K 384", 1, t4, t4p, 0.0, w4_bytes(M, Kd, N, 1, 4),
+                 int8_ops=ops)
+        kc.case("gemm_w4bf16, K 384", f"{site} [{M}x{Kd}]x[{Kd}x{N}]",
+                lambda: (K.gemm_w4bf16(xb, wp, s4, bias, relu=relu),),
+                lambda: (K.gemm_w4bf16_plain(xb, wp, s4, bias, relu=relu),),
+                (1e-4,), 1, ops, w4_bytes(M, Kd, N, 2, 4))
+
+
+def serve_per_sub_op(torch, dev, state_dict, cfg, plain, requests,
+                     n_answers, rows) -> None:
+    """``build_production_engine(qffn=0, sga_mode=0)`` at MCAN-small full
+    depth and width on the requests of [serve], for each use_pallas
+    (False, True, "batched", "packed") x use_pallas_attflat: exact launch
+    counts per forward and agreement with the plain engine within the
+    bf16 bound (1e-2); then the mode-0 and mode-2 bf16 forwards timed at
+    B = 1, 8 and 64 in turns."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    L, H = cfg.layer, cfg.multi_head
+    n_fwd = len(requests)
+    engine = functools.partial(padded_engine, torch, dev)
+    say(f"[per-sub-op] build_production_engine(qffn=0, sga_mode=0): "
+        f"{L}+{L} layers, hidden {cfg.hidden_size}, bf16 stream, every "
+        f"merge and FFN on gemm_ln")
+    timed = {}
+    for use_pallas in (False, True, "batched", "packed"):
+        for flat in (False, True):
+            fwd, prep = build_production_engine(
+                state_dict, L, H, qffn=0, sga_mode=0, device=dev,
+                use_pallas=use_pallas, use_pallas_attflat=flat)
+            call = engine(fwd, prep)
+            label = f"mode 0, use_pallas={use_pallas!r}, attflat={flat}"
+            K.reset_launches()
+            probs = [call(*plain.pad_batch(qs, fs))[:len(qs)].cpu().numpy()
+                     for qs, fs in requests]
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            check_launches(label, counts, mode0_launches(
+                L, use_pallas, flat), n_fwd)
+            agreement(label, requests, probs, plain, n_answers, bound=1e-2)
+            if use_pallas is True and flat:
+                rows.launches("serve mode 0", counts, SUB_OP_KERNELS)
+                rows.launches("serve mode 0", dict(
+                    counts, **{"gemm_bias_act, AttFlat": 2 * counts.get(
+                        "attflat_pool", 0)}),
+                    ("masked_attention, f32 q", "gemm_bias_act, AttFlat"),
+                    {"masked_attention, f32 q": "masked_attention_f32",
+                     "gemm_bias_act, AttFlat": "gemm_bias_act, AttFlat"})
+                timed["mode 0 (kernel attention and AttFlat)"] = call
+            elif use_pallas is False and not flat:
+                timed["mode 0 (plain attention)"] = call
+    fwd, prep = build_production_engine(state_dict, L, H, qffn=0, device=dev)
+    timed["mode 2 (bf16)"] = engine(fwd, prep)
+    say("[per-sub-op] bf16 forwards, mode 0 against mode 2:")
+    time_forwards(torch, cfg, plain, list(timed.items())[::-1])
+
+
+WIDE_LAYERS = 2         # depth cut: the kernels' shapes do not depend on it
+
+
+def check_wide_widths(torch, dev, vocab, ix_to_ans, rows) -> None:
+    """Widths past the old envelope, 2 layers each, every path with exact
+    launch counts and against the plain engine: a default Predictor at
+    hidden 1536 and 2048 (8 heads) routes to mode 0 (no ``_mk``, every
+    merge and FFN on gemm_ln); at 1536 the mode-0 engine with the kernel
+    attention (Dh 192: the long kernel); hidden 480 (gemm_bias_act at N
+    480) on the bf16 engine; hidden 384 at int4 levels 5 and 7 (K 384),
+    held to the int4 bound; 160 image rows on the default Predictor
+    (level 1: the long kernel in the decoder's attention)."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    n_ans = len(ix_to_ans)
+    kw = dict(ix_to_ans=ix_to_ans, max_batch=BATCH,
+              latency_buckets=LATENCY_BUCKETS, device=dev)
+    for label, over in (("hidden 1536", dict(hidden_size=1536)),
+                        ("hidden 2048", dict(hidden_size=2048)),
+                        ("hidden 480", dict(hidden_size=480)),
+                        ("hidden 384", dict(hidden_size=384)),
+                        ("160 image rows", dict(img_feat_pad_size=160))):
+        cfg = Config.for_model("small", layer=WIDE_LAYERS, **over)
+        L, H = cfg.layer, cfg.multi_head
+        sd = MCANet(cfg, len(vocab), n_ans, generator=torch.Generator()
+                    .manual_seed(SEED + 51)).state_dict()
+        rng = np.random.default_rng(SEED + 52)
+        requests = make_requests(rng, cfg)
+        n_fwd = len(requests)
+        plain = Predictor(cfg, sd, vocab, engine="plain", **kw)
+        say(f"[wide] {label}: {L} layers, hidden {cfg.hidden_size}, ff "
+            f"{cfg.ff_size}, {H} heads of {cfg.hidden_size // H}, up to "
+            f"{cfg.img_feat_pad_size} regions")
+
+        def serve(name, call, want, bound=1e-2, on="sigmoid", path=None,
+                  names=(), key=None):
+            K.reset_launches()
+            probs = [call(qs, fs) for qs, fs in requests]
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            check_launches(f"{label}, {name}", counts, want, n_fwd)
+            agreement(f"{label}, {name}", requests, probs, plain, n_ans,
+                      bound, on)
+            if path:
+                rows.launches(path, counts, names, key)
+
+        def padded(fwd, prep):
+            call = padded_engine(torch, dev, fwd, prep)
+            return lambda qs, fs: call(*plain.pad_batch(qs, fs))[
+                :len(qs)].cpu().numpy()
+
+        if cfg.hidden_size >= 1536:
+            p = Predictor(cfg, sd, vocab, **kw)
+            if "_mk" in p.params["backbone"]["enc_0"]:
+                fail(f"{label}: the default Predictor built mode-2 layouts")
+            serve("default Predictor (mode 0)", p.predict_probs,
+                  mode0_launches(L, False, False),
+                  path=f"wide {label}", names=("gemm_ln",))
+            del p
+            if cfg.hidden_size == 1536:
+                fwd, prep = build_production_engine(
+                    sd, L, H, qffn=0, sga_mode=0, use_pallas=True,
+                    device=dev)
+                serve("mode 0, use_pallas=True (Dh 192)", padded(fwd, prep),
+                      mode0_launches(L, True, True), path=f"wide {label}",
+                      names=("masked_attention, long", "attflat_pool"),
+                      key={"masked_attention, long": "masked_attention_f32",
+                           "attflat_pool": "attflat_pool"})
+        elif cfg.hidden_size == 480:
+            fwd, prep = build_production_engine(sd, L, H, qffn=0,
+                                                device=dev)
+            serve("bf16 (qffn=0)", padded(fwd, prep), serve_launches(L, 0),
+                  path=f"wide {label}", names=("gemm_bias_act, N 480",),
+                  key={"gemm_bias_act, N 480": "gemm_bias_act"})
+        elif cfg.hidden_size == 384:
+            p5 = Predictor(cfg, sd, vocab, engine="int4", **kw)
+            for qs, fs in requests:
+                p5.predict_probs(qs, fs)
+            p5.calibrate_now()
+            serve("int4 level 5", p5.predict_probs, serve_launches(L, 5),
+                  INT4_BOUND, "softmax", path=f"wide {label}",
+                  names=("gemm_s4, K 384",),
+                  key={"gemm_s4, K 384": "gemm_s4"})
+            fwd, prep = build_production_engine(
+                sd, L, H, qffn=7, act_scales=p5.act_scales, device=dev)
+            serve("int4 level 7", padded(fwd, prep), serve_launches(L, 7),
+                  INT4_BOUND, "softmax", path=f"wide {label} level 7",
+                  names=("gemm_w4bf16, K 384",),
+                  key={"gemm_w4bf16, K 384": "gemm_w4bf16"})
+            del p5
+        else:
+            p = Predictor(cfg, sd, vocab, **kw)
+            serve("level 1 (default Predictor)", p.predict_probs,
+                  serve_launches(L, 1))
+            fwd, prep = build_production_engine(
+                sd, L, H, qffn=0, sga_mode=0, use_pallas=True, device=dev)
+            serve("mode 0, use_pallas=True", padded(fwd, prep),
+                  mode0_launches(L, True, True))
+            del p
+        del plain, sd
+
+
+# ---------------------------------------------------------------------------
 # phase: the widths the kernels now take -- hidden 256 (8 heads of 32) and
 # 86 image rows (MIMIC "both") -- served and trained on the card
 # ---------------------------------------------------------------------------
@@ -3221,6 +3685,24 @@ def check_envelope(torch, dev, vocab, ix_to_ans, rows) -> None:
             f"gate 1e-3); launches {counts}")
         if counts != want:
             fail(f"envelope {label}: launches {counts}, expected {want}")
+
+    # the long attention kernels under the seeded train blocks (Dh 192,
+    # 160 rows): the blocks' launches make the path of their rows. Dh 192
+    # at hidden 768 (4 heads), not 1536: the blocks' gradients move from
+    # their plain twins' through ReLU gates that flip where the two
+    # forwards round a near-zero pre-activation apart, a gap that grows
+    # with the width whatever the attention kernel and passes the 3e-2
+    # gate at hidden 1536 (PERF.md section 6; mcan_vqa_tpu_torch/cli/
+    # block_gap.py)
+    K.reset_launches()
+    for over in (dict(hidden_size=768, multi_head=4),
+                 dict(img_feat_pad_size=160)):
+        envelope_blocks(torch, dev, Config.for_model(
+            "small", layer=ENVELOPE_LAYERS, **over), rows)
+    torch.cuda.synchronize()
+    rows.launches("envelope blocks, Dh 192 / 160 rows", K.launch_counts(),
+                  ("masked_attention_bwd, long",),
+                  {"masked_attention_bwd, long": "masked_attention_bwd"})
 
 
 def check_repeated_batch(torch, trainer) -> None:

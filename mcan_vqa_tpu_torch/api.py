@@ -18,6 +18,11 @@ Engines:
   * "plain": ``models/net.MCANet`` op by op, the numerics of the JAX
     ``model.apply``.
 
+At a width outside ``megakernel_vmem_ok`` (hidden ~1340 and past at
+F = 4 D) "fused" and "int4" serve the per-sub-op path in bf16 as the JAX
+Predictor does (``sga_mode`` 2 falls back to 0): the merges and FFNs on
+``gemm_ln``, the attention and AttFlat plain; a calibration source, and
+the online calibration's rebuild, are then ignored with JAX's warning.
 ``q8aux=True`` adds the static-int8 aux sites (cross k/v, AttFlat merges,
 answer head) to the calibrated "fused" / "int4" engines. A request batch
 pads to the smallest bucket that fits (``latency_buckets`` plus
@@ -217,18 +222,23 @@ class Predictor:
         (``_calibrate_scales``), as the JAX router does. Every bucket routes
         to it."""
         if self._auto_routing and self._q8aux and act_inputs is not None:
-            act_scales = self._calibrate_scales(state_dict, act_inputs)
-            act_inputs = None
+            shared = self._calibrate_scales(state_dict, act_inputs)
+            if shared is not None:
+                act_scales, act_inputs = shared, None
         return self._build_fused(state_dict, act_inputs, act_scales)
 
     def _calibrate_scales(self, state_dict, act_inputs):
         """``_calibrate_scales(need_aux=True)`` (api.py:474): the block
         scales on the bf16 cross k/v path of a level-3 tree, then the "aux"
-        tuple from a second replay with the aux sites attached."""
+        tuple from a second replay with the aux sites attached. None at a
+        width outside the megakernel envelope: the build then warns and
+        serves the per-sub-op path uncalibrated, as in JAX."""
         img, ques = act_inputs
         L, H = self.cfg.layer, self.cfg.multi_head
         prepared = prepare_production_params(state_dict, L, qffn=3,
                                              device=self.device)
+        if "_mk" not in prepared["backbone"]["enc_0"]:
+            return None
         scales = calibrate_qffn_act_scales(prepared, img, ques, L, H)
         prepared["_q8aux"] = prepare_q8aux_params(prepared, L)
         scales["aux"] = calibrate_qffn_act_scales(prepared, img, ques, L,

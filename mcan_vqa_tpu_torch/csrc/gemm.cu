@@ -29,9 +29,11 @@
 // accumulation, 64x64 output tiles per 4-warp block (each warp 32x32), K
 // in steps of 32 through a two-stage cp.async pipeline in shared memory.
 // A transposed operand is staged in its stored layout and read by WMMA as
-// column-major, so no operand is ever transposed in memory. Rows and
-// reduction steps past M / K are zero-filled on load and masked on store,
-// so a ragged M (and, for dW, a ragged number of rows) is exact. A dW tile
+// column-major, so no operand is ever transposed in memory. Rows, columns
+// and reduction steps past M / N / K are zero-filled on load and masked on
+// store, so a ragged M, a last column tile past N (any N that is a
+// multiple of 8, hidden 480 say) and, for dW, a ragged number of rows are
+// exact; every output element is written. A dW tile
 // is summed by one block over all of K in a fixed order: no atomics, the
 // result is the same bit for bit on every run. The epilogue, in order: +
 // bias, ReLU, dropout keep-mask (x inv_keep) read from a uint8 tensor or

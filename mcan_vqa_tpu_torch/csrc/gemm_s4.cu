@@ -31,11 +31,13 @@
 // Design (simple first): gemm_s8.cu's skeleton -- WMMA signed-char
 // m16n16k16 fragments, 64x64 output tiles per 4-warp block, a two-stage
 // cp.async pipeline, 16-byte-wide slabs in shared memory -- with the K-tile
-// equal to one scale group (128 rows). The packed bytes of a tile come from
-// packed rows [k0, k0 + 128) for k0 < K/2 (low nibbles) or [k0 - K/2, ...)
-// otherwise (high nibbles): the int4 weight is read from HBM as it is
-// stored, and each thread unpacks the 16-byte chunks it copied, in place,
-// into int8 values (no unpacked copy of the weight is ever stored). The
+// equal to one scale group (128 rows). Row k of a tile comes from packed
+// row k (low nibbles) for k < K/2, else from packed row k - K/2 (high
+// nibbles), row by row: at K a multiple of 128 but not of 256 (hidden 384,
+// 640, 896) one group straddles the two halves. The int4 weight is read
+// from HBM as it is stored, and each thread unpacks the 16-byte chunks it
+// copied, in place, into int8 values (no unpacked copy of the weight is
+// ever stored). The
 // int32 fragments are cleared per group; each group's epilogue goes
 // through shared memory into 32 f32 running sums per lane.
 // Not yet: wgmma, TMA, split-K for the B=1 sites (a w1 site fills 32 of the
@@ -96,22 +98,23 @@ gemm_s4_kernel(const signed char* __restrict__ A, long long lda,
       const bool ok = gm < M;
       cp_async16(&As[st][s][r][0], ok ? A + (size_t)gm * lda + k0 + s * SLAB : A, ok);
     }
-    // W: BK packed rows of BN bytes, chunk s along n -> slab s
-    const int p0 = k0 < half ? k0 : k0 - half;
+    // W: BK packed rows of BN bytes, chunk s along n -> slab s; row k of W
+    // is packed row k, or k - K/2 past the low half
     for (int c = tid; c < W_CHUNKS; c += THREADS) {
       const int r = c / (BN / SLAB), s = c % (BN / SLAB);
+      const int k = k0 + r, pr = k < half ? k : k - half;
       const int gn = n0 + s * SLAB;
       const bool ok = gn < N;
-      cp_async16(&Ws[st][s][r][0], ok ? P + (size_t)(p0 + r) * ldp + gn : P, ok);
+      cp_async16(&Ws[st][s][r][0], ok ? P + (size_t)pr * ldp + gn : P, ok);
     }
     cp_async_commit();
   };
 
   // this thread's own W chunks of stage st, once its copies have landed
   auto unpack_tile = [&](int st, int k0) {
-    const bool hi = k0 >= half;
     for (int c = tid; c < W_CHUNKS; c += THREADS) {
       const int r = c / (BN / SLAB), s = c % (BN / SLAB);
+      const bool hi = k0 + r >= half;
       uint4* p = reinterpret_cast<uint4*>(&Ws[st][s][r][0]);
       uint4 v = *p;
       v.x = unpack4(v.x, hi);
@@ -196,8 +199,8 @@ gemm_s4_kernel(const signed char* __restrict__ A, long long lda,
 }  // namespace
 
 // A: int8 [M, K] codes (row stride lda); P: packed int8 [K/2, N] (row stride
-// ldp); s4: f32 [K/128, N] contiguous. K a multiple of 256 (one group per
-// K-tile, both halves whole tiles), N, lda and ldp multiples of 16, A and P
+// ldp); s4: f32 [K/128, N] contiguous. K a multiple of 128 (one group per
+// K-tile), N, lda and ldp multiples of 16, A and P
 // 16-byte aligned (the wrapper checks). a: the static activation scale.
 // bias: f32 [N] or null. Outputs: [M, N] with row stride ldo, either may be
 // null. Returns cudaGetLastError().

@@ -29,8 +29,9 @@
 // in steps of 32 through a two-stage cp.async pipeline -- with the B tile
 // copied as packed bytes (32 rows x 64 bytes, one 16-byte chunk a thread)
 // and dequantized by the thread that copied it into the bf16 tile that
-// WMMA reads. K-tiles never straddle the two nibble halves or a scale group
-// (K a multiple of 256). No dequantized copy of the weight is stored.
+// WMMA reads. K-tiles of 32 rows never straddle the two nibble halves or a
+// scale group (K a multiple of 128, so K/2 of 64). No dequantized copy of
+// the weight is stored.
 // Not yet: wgmma, TMA, split-K at B=1.
 #include <mma.h>
 
@@ -162,7 +163,7 @@ gemm_w4bf16_kernel(const bf16* __restrict__ A, long long lda,
 
 // A: bf16 [M, K] (row stride lda, a multiple of 8); P: packed int8 [K/2, N]
 // (row stride ldp, a multiple of 16); s4: f32 [K/128, N] contiguous. K a
-// multiple of 256, N of 16, A and P 16-byte aligned (the wrapper checks).
+// multiple of 128, N of 16, A and P 16-byte aligned (the wrapper checks).
 // bias: f32 [N] or null. Outputs: [M, N] with row stride ldo, either may be
 // null. Returns cudaGetLastError().
 MCAN_API int mcan_gemm_w4bf16(const void* A, long long lda, const void* P, long long ldp,

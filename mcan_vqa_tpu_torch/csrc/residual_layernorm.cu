@@ -145,14 +145,7 @@ residual_layernorm_rolled_kernel(const ResT* __restrict__ res, const float* __re
     r[c] = v;
     sum += v;
   }
-  const float mean = warp_sum(sum) / D;
-  float ss = 0.0f;
-  for (int c = lane; c < D; c += 32) {
-    const float d = r[c] - mean;
-    r[c] = d;
-    ss += d * d;
-  }
-  const float denom = sqrtf(warp_sum(ss) / (D - 1)) + eps;
+  const float denom = ln::centre_row(r, D, lane, sum, eps);
   const float inv = 1.0f / denom;
   for (int c = lane; c < D; c += 32) {
     const float o = (reciprocal ? gamma[c] * (r[c] * inv) : gamma[c] * r[c] / denom) + beta[c];

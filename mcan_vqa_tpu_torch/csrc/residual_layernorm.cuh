@@ -1,7 +1,10 @@
-// What residual_layernorm.cu (forward) and residual_layernorm_bwd.cu
-// (backward) share: the block shapes, the choice of kernel by width, and
-// the dropout keep source.
+// What residual_layernorm.cu (forward), residual_layernorm_bwd.cu
+// (backward) and gemm_ln.cu share: the block shapes, the choice of kernel
+// by width, the row statistics of a row staged in shared memory, and the
+// dropout keep source.
 #pragma once
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -20,6 +23,22 @@ constexpr int MAX_D = 2048;
 inline int vpt_of(int D) { return D == 256 || D == 512 || D == 1024 ? D / 32 : 0; }
 
 inline bool width_ok(int D) { return D >= 32 && D <= MAX_D && D % 32 == 0; }
+
+// The row r[0, D) that one warp holds in shared memory, each lane its
+// columns lane, lane + 32, ... (the only ones it reads back), and `sum`
+// this lane's part of the row's sum: centres r in place and returns the
+// Bessel-corrected std + eps, the denominator of the reference LayerNorm
+// (sqrt(sum (r - mean)^2 / (D - 1)) + eps).
+__device__ __forceinline__ float centre_row(float* r, int D, int lane, float sum, float eps) {
+  const float mean = warp_sum(sum) / D;
+  float ss = 0.0f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = r[c] - mean;
+    r[c] = d;
+    ss += d * d;
+  }
+  return sqrtf(warp_sum(ss) / (D - 1)) + eps;
+}
 
 // bit t: keep element lane + 32 t of the row (t < nv), drawn by Philox in a
 // rolled loop before the row is loaded, so that no call lies among the

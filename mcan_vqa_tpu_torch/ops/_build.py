@@ -40,15 +40,15 @@ _KEEP = [_I, _U, _U, _U]      # a seeded keep source: on, seed, site, thresh
 SIGNATURES = {
     "mcan_gemm": [_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _P, _LL,
                   _F, *_KEEP, _I, _P, _LL, _P, _LL, _P, _LL, _P],
-    "mcan_masked_attention": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL, _I,
-                              _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I, _I,
-                              _I, _I, _I, _F, _P],
+    "mcan_masked_attention": [_P, _I, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
+                              _I, _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I,
+                              _I, _I, _I, _I, _F, _P],
     "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                                   _I, _P, _P, _F, *_KEEP, _P, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
-                                  _I, _I, _I, _I, _I, _F, _P],
+                                  _P, _I, _I, _I, _I, _I, _F, _P],
     "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, *_KEEP, _I, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, *_KEEP,
@@ -61,6 +61,10 @@ SIGNATURES = {
                      _LL, _P],
     "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _P, _P,
                          _LL, _P],
+    "mcan_gemm_ln": [_P, _I, _LL, _P, _LL, _P, _P, _I, _LL, _P, _P, _P, _LL,
+                     _I, _I, _I, _F, _P],
+    "mcan_attflat_pool": [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
     "mcan_prng_masks": [_I, _P, _P, _P, _P, _I, _U, _U, _P],
     "mcan_philox_words": [_U, _U, _I, _I, _P, _P],
 }

@@ -6,6 +6,7 @@ PyTorch version.
   gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu, NN
   gemm_dx                C = dY . W^T (gradient gate, + res)   gemm.cu, NT
   gemm_dw                C = X^T . dY                          gemm.cu, TN
+  gemm_ln                LN(res + A . W + bias)                gemm_ln.cu
   gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_s8.cu
   gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_s4.cu
   gemm_w4bf16            A . bf16(int4 W x group scale) + bias  gemm_w4bf16.cu
@@ -15,6 +16,8 @@ PyTorch version.
   residual_layernorm     LN(res + drop(y + bias)), optionally r
   residual_layernorm_bwd dr, drop(dr), g * u of that LN
   col_sum                column sums (bias and LN gradients)
+  attflat_pool           AttFlat's logits, softmax over L, pooling
+                                                               attflat_pool.cu
   dump_prng_masks        the keep-masks of seeded sites        prng_masks.cu
   philox_words           the Philox4x32-10 words behind them   prng_masks.cu
 
@@ -57,11 +60,12 @@ from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
 F32 = torch.float32
 I8 = torch.int8
 LN_EPS = 1e-6
-MAX_HEAD_DIM = 128     # the attention kernels' Dh: any width up to this
-MAX_SEQ = 128          # the attention kernels' largest Lq / Lk
-GEMM_TILE = 64         # the GEMM's output tile (M and N)
-GEMM_K_TILE = 32
+MAX_HEAD_DIM = 256     # the attention kernels' Dh: any width up to this
+ONE_BLOCK_ATTENTION = 128  # Dh and Lq, Lk up to this: one block per head;
+#                            past it the long kernels (any Lq, Lk)
+GEMM_ALIGN = 8         # the GEMMs' N and K: whole 16-byte chunks of bf16
 LN_MAX_WIDTH = 2048    # the LayerNorm kernels' D: a multiple of 32 up to this
+ATTFLAT_MAX_LOGITS = 12288  # attflat_pool's L x G: the logits in 48 KB
 MAX_COL_SUMS = 4
 MASK_DTYPES = (torch.uint8, torch.bool)
 
@@ -322,12 +326,14 @@ def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
     _same_device(name, a, b, bias, mask, gate, res)
     _require(a.dtype == BF16 and b.dtype == BF16,
              f"{name}: operands must be bf16, got {a.dtype}, {b.dtype}")
-    # dW (TN) reads both operands row by row along the reduction: any
-    # number of rows R = K is exact (zero-filled); its M is read in chunks
-    _require(N % GEMM_TILE == 0 and (K % GEMM_K_TILE == 0 if layout != _TN
-                                     else M % 8 == 0),
-             f"{name}: N={N} must be a multiple of {GEMM_TILE}, and K={K} "
-             f"of {GEMM_K_TILE} (for dW: M={M} of 8)")
+    # every operand is read in whole 16-byte chunks along its rows, and
+    # the tiles past M / N / K are masked: N and K (for dW, M: it reads
+    # both operands row by row along the reduction, any number of rows R =
+    # K) must be multiples of 8
+    _require(N % GEMM_ALIGN == 0 and (K if layout != _TN else M)
+             % GEMM_ALIGN == 0,
+             f"{name}: N={N} must be a multiple of {GEMM_ALIGN}, and K={K} "
+             f"too (for dW: M={M})")
     _require(a.dim() == 2 and b.dim() == 2 and a.stride(1) == 1
              and b.stride(1) == 1 and a.stride(0) % 8 == 0
              and b.stride(0) % 8 == 0 and a.data_ptr() % 16 == 0
@@ -437,6 +443,56 @@ def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _require(dy.shape[0] == R, f"gemm_dw: x {tuple(x.shape)} and dy "
              f"{tuple(dy.shape)} have different rows")
     return _gemm("gemm_dw", _TN, x, dy, M, dy.shape[1], R)[0]
+
+
+def gemm_ln_plain(a: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor], res: torch.Tensor,
+                  gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    return residual_layernorm_plain(res, bf16_matmul(a, w), bias, gamma,
+                                    beta, (res.dtype,))[0]
+
+
+def gemm_ln(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+            res: torch.Tensor, gamma: torch.Tensor,
+            beta: torch.Tensor) -> torch.Tensor:
+    """StdLayerNorm(res + a . w + bias) over the last dim -> [M, D] in res's
+    dtype: a [M, K] bf16 or f32 (rounded to bf16 in the kernel), w [K, D]
+    bf16, the products summed in f32, bias / gamma / beta [D] f32 (bias may
+    be None), res [M, D] f32 or bf16, the reference LayerNorm (Bessel std,
+    eps on the std, divided) in f32. K and D multiples of 8, D up to 2048,
+    any M (``_proj_ln_kernel`` / the second half of ``_ffn_ln_kernel``,
+    mcan_vqa_tpu/ops/fused_ffn.py:59 / :46)."""
+    if not on_cuda(a):
+        return gemm_ln_plain(a, w, bias, res, gamma, beta)
+    name = "gemm_ln"
+    _same_device(name, a, w, bias, res, gamma, beta)
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
+             f"{name}: a {tuple(a.shape)} . w {tuple(w.shape)} do not chain")
+    M, Kd = a.shape
+    D = w.shape[1]
+    _require(a.dtype in (BF16, F32) and w.dtype == BF16,
+             f"{name}: a must be bf16 or f32 and w bf16, got {a.dtype}, "
+             f"{w.dtype}")
+    _require(Kd % GEMM_ALIGN == 0 and D % GEMM_ALIGN == 0
+             and 8 <= D <= LN_MAX_WIDTH,
+             f"{name}: K={Kd} and D={D} must be multiples of {GEMM_ALIGN}, "
+             f"D up to {LN_MAX_WIDTH}")
+    _require(a.stride(1) == 1 and w.stride(1) == 1 and a.stride(0) % 8 == 0
+             and w.stride(0) % 8 == 0 and a.data_ptr() % 16 == 0
+             and w.data_ptr() % 16 == 0,
+             f"{name}: a and w need unit column stride, row strides that are "
+             f"multiples of 8 and 16-byte alignment")
+    _check_rows(name, res, (M, D), (F32, BF16))
+    for t in (bias, gamma, beta):
+        _check_vec(name, t, D)
+    out = torch.empty((M, D), dtype=res.dtype, device=a.device)
+    rc = _lib().mcan_gemm_ln(
+        a.data_ptr(), int(a.dtype == F32), a.stride(0), w.data_ptr(),
+        w.stride(0), _ptr(bias), res.data_ptr(), int(res.dtype == BF16),
+        res.stride(0), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), D,
+        M, D, Kd, LN_EPS, _stream(a))
+    _check(rc, name)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -602,10 +658,9 @@ def _check_w4(name, wp, s4, Kd, N):
     _require(wp.dtype == I8 and wp.dim() == 2 and wp.shape[0] * 2 == Kd,
              f"{name}: packed weight must be int8 [{Kd // 2}, N], got "
              f"{tuple(wp.shape)} {wp.dtype}")
-    _require(Kd % (2 * W4_GROUP) == 0 and N % 16 == 0,
-             f"{name}: K={Kd} must be a multiple of {2 * W4_GROUP} (one "
-             f"{W4_GROUP}-row scale group per K-tile, in either nibble "
-             f"half) and N={N} of 16")
+    _require(Kd % W4_GROUP == 0 and N % 16 == 0,
+             f"{name}: K={Kd} must be a multiple of {W4_GROUP} (one "
+             f"{W4_GROUP}-row scale group per K-tile) and N={N} of 16")
     _require(s4.dtype == F32 and s4.is_contiguous()
              and tuple(s4.shape) == (Kd // W4_GROUP, N),
              f"{name}: group scales must be f32 [{Kd // W4_GROUP}, {N}], "
@@ -760,19 +815,19 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _heads_out(out).to(out_dtype)
 
 
-def _check_attention(name, q, k, v, key_pad, drop):
+def _check_attention(name, q, k, v, key_pad, drop, q_dtypes=(BF16,)):
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     _require(k.shape == v.shape == (B, H, Lk, Dh),
              f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
              f"q {tuple(q.shape)}")
-    _require(1 <= Dh <= MAX_HEAD_DIM and 1 <= Lq <= MAX_SEQ
-             and 1 <= Lk <= MAX_SEQ,
-             f"{name}: needs 1 <= Dh <= {MAX_HEAD_DIM} and 1 <= Lq, Lk <= "
-             f"{MAX_SEQ}; got Dh={Dh}, Lq={Lq}, Lk={Lk}")
-    _require(q.dtype == BF16 and k.dtype == v.dtype
+    _require(1 <= Dh <= MAX_HEAD_DIM and Lq >= 1 and Lk >= 1,
+             f"{name}: needs 1 <= Dh <= {MAX_HEAD_DIM} and Lq, Lk >= 1; got "
+             f"Dh={Dh}, Lq={Lq}, Lk={Lk}")
+    _require(q.dtype in q_dtypes and k.dtype == v.dtype
              and k.dtype in (BF16, F32),
-             f"{name}: q must be bf16 and k, v both bf16 or both f32")
+             f"{name}: q must be {' or '.join(str(d)[6:] for d in q_dtypes)} "
+             f"and k, v both bf16 or both f32")
     _require(q.stride(3) == 1 and k.stride(3) == 1
              and k.stride() == v.stride(),
              f"{name}: last dims must be contiguous and k, v share strides")
@@ -786,32 +841,39 @@ def _check_attention(name, q, k, v, key_pad, drop):
     return B, H, Lq, Lk, Dh, pad
 
 
+def one_block_attention(Dh: int, Lq: int, Lk: int) -> bool:
+    """True where the attention kernels hold one head in one block (Dh,
+    Lq and Lk up to 128); every other shape runs the long kernels."""
+    return max(Dh, Lq, Lk) <= ONE_BLOCK_ATTENTION
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_pad: torch.Tensor, drop: Keep = None,
                      inv_keep: float = 1.0,
                      out_dtype: torch.dtype = BF16) -> torch.Tensor:
-    """q [B, H, Lq, Dh] bf16, k/v [B, H, Lk, Dh] bf16 or f32, Dh <= 128,
-    Lq, Lk <= 128 (strided views are read in place; the last dim must be
-    contiguous), key_pad bool [B, 1, 1, Lk] (True = PAD), drop an optional
-    keep-mask [B, H, Lq, Lk] on the probabilities or its Philox source ->
-    [B, Lq, H*Dh] in out_dtype (bf16, or f32 for a merge that quantizes it
-    to int8), the layout the merge projection takes."""
+    """q [B, H, Lq, Dh] bf16 or f32 (rounded to bf16 on load), k/v
+    [B, H, Lk, Dh] bf16 or f32, Dh <= 256, any Lq, Lk (strided views are
+    read in place; the last dim must be contiguous), key_pad bool
+    [B, 1, 1, Lk] (True = PAD), drop an optional keep-mask [B, H, Lq, Lk]
+    on the probabilities or its Philox source -> [B, Lq, H*Dh] in
+    out_dtype (bf16, or f32 for a merge that quantizes it to int8 and for
+    the stand-alone attention), the layout the merge projection takes."""
     if not on_cuda(q):
         return masked_attention_plain(q, k, v, key_pad, drop, inv_keep,
                                       out_dtype)
     name = "masked_attention"
     drop, keep = _keep_args(name, drop)
     _same_device(name, q, k, v, key_pad, drop)
-    B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop)
+    B, H, Lq, Lk, Dh, pad = _check_attention(name, q, k, v, key_pad, drop,
+                                             (BF16, F32))
     _require(out_dtype in (BF16, F32), f"{name}: out_dtype {out_dtype}")
     out = torch.empty((B, Lq, H * Dh), dtype=out_dtype, device=q.device)
     rc = _lib().mcan_masked_attention(
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
-        int(k.dtype == F32), pad.data_ptr(), _ptr(drop), float(inv_keep),
-        *keep, out.data_ptr(), int(out_dtype == F32), Lq * H * Dh, H * Dh, B,
-        H,
-        Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
+        q.data_ptr(), int(q.dtype == F32), q.stride(0), q.stride(1),
+        q.stride(2), k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
+        k.stride(2), int(k.dtype == F32), pad.data_ptr(), _ptr(drop),
+        float(inv_keep), *keep, out.data_ptr(), int(out_dtype == F32),
+        Lq * H * Dh, H * Dh, B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
     _check(rc, name if out_dtype == BF16 else name + "_f32")
     return out
 
@@ -872,6 +934,9 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  and t16.shape == t.shape
                                  and t16.stride() == t.stride()),
                  f"{name}: a bf16 copy must share its f32 twin's strides")
+    # the long kernels' per-row max, sum and rowsum(P * drop(dPd))
+    stats = None if one_block_attention(Dh, Lq, Lk) else torch.empty(
+        (B, H, Lq, 3), dtype=F32, device=q.device)
     rc = _lib().mcan_masked_attention_bwd(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
@@ -880,7 +945,7 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq.data_ptr(), _ptr(dq16), dq.stride(0), dq.stride(1), dq.stride(2),
         dk.data_ptr(), _ptr(dk16), dk.stride(0), dk.stride(1), dk.stride(2),
         dv.data_ptr(), _ptr(dv16), dv.stride(0), dv.stride(1), dv.stride(2),
-        B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
+        _ptr(stats), B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
     _check(rc, name)
 
 
@@ -1082,3 +1147,56 @@ def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         _stream(mats[0]))
     _check(rc, name)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# attflat_pool
+# ---------------------------------------------------------------------------
+
+def attflat_pool_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                       mask: torch.Tensor, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, L, D = x.shape
+    logits = bf16_matmul(h, w2).view(B, L, -1) + b2
+    logits = logits + mask[:, 0, 0, :, None].float() * NEG_INF
+    att = torch.softmax(logits, dim=1)
+    pooled = att.to(BF16).float().transpose(1, 2) @ x.to(BF16).float()
+    return pooled.reshape(B, -1).to(BF16), att
+
+
+def attflat_pool(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 mask: torch.Tensor, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The middle of AttFlat (``_attflat_kernel``, mcan_vqa_tpu/ops/
+    attflat.py:27): h [B*L, Fm] bf16 (the MLP's ReLU hidden), w2 [Fm, G]
+    bf16, b2 [G] f32, mask bool [B, 1, 1, L] (True = PAD), x [B, L, D] f32
+    or bf16 -> (pooled [B, G*D] bf16, att [B, L, G] f32): logits = h . w2 +
+    b2 + PAD * -1e9 (summed in f32), att the softmax over L in f32, pooled
+    = bf16(att)^T . bf16(x) summed in f32 and rounded to bf16."""
+    if not on_cuda(x):
+        return attflat_pool_plain(h, w2, b2, mask, x)
+    name = "attflat_pool"
+    _same_device(name, h, w2, b2, mask, x)
+    _require(x.dim() == 3 and x.dtype in (F32, BF16) and x.is_contiguous(),
+             f"{name}: x must be a contiguous f32 or bf16 [B, L, D]")
+    B, L, D = x.shape
+    Fm, G = w2.shape
+    _require(h.dtype == BF16 and tuple(h.shape) == (B * L, Fm)
+             and h.stride(1) == 1 and w2.dtype == BF16
+             and w2.is_contiguous(),
+             f"{name}: h must be bf16 [{B * L}, {Fm}] with unit column "
+             f"stride and w2 contiguous bf16 [{Fm}, {G}]")
+    _check_vec(name, b2, G)
+    _require(mask.shape == (B, 1, 1, L) and mask.dtype == torch.bool
+             and mask.is_contiguous(),
+             f"{name}: mask must be contiguous bool [{B}, 1, 1, {L}]")
+    _require(1 <= L * G <= ATTFLAT_MAX_LOGITS,
+             f"{name}: L x G = {L * G} must be at most {ATTFLAT_MAX_LOGITS}")
+    pooled = torch.empty((B, G * D), dtype=BF16, device=x.device)
+    att = torch.empty((B, L, G), dtype=F32, device=x.device)
+    rc = _lib().mcan_attflat_pool(
+        h.data_ptr(), h.stride(0), w2.data_ptr(), b2.data_ptr(),
+        mask.data_ptr(), x.data_ptr(), int(x.dtype == F32),
+        pooled.data_ptr(), att.data_ptr(), B, L, Fm, G, D, _stream(x))
+    _check(rc, name)
+    return pooled, att

@@ -1,7 +1,7 @@
 """The serving forwards (mcan_vqa_tpu/ops/serving.py, ``make_serving_fn``
-mode 2 with a bf16 residual stream, and ops/quant.py
-``make_quant_serving_fn``, the full-int8 engine) and their construction
-paths, ``build_production_engine`` and ``quantize_params``.
+modes 0 and 2, and ops/quant.py ``make_quant_serving_fn``, the full-int8
+engine) and their construction paths, ``build_production_engine`` and
+``quantize_params``.
 
 By default (``qffn=None``) the engine is the JAX package's shipped one:
 int8 level 1 -- an int8 FFN with dynamic per-row activation scales, and
@@ -22,6 +22,17 @@ both AttFlat heads and the answer head -- is plain PyTorch here, with the
 same bf16 operand / f32 accumulation rule, but for the aux sites, which
 are ``quantize_rows`` + ``gemm_s8``.
 
+Mode 0, the per-sub-op path (``sga_mode=0``, and every mode-2 forward
+whose width fails ``megakernel_vmem_ok``, as in JAX): each attention
+sub-block is its projections in plain PyTorch, the attention
+(``use_pallas``: True / "batched" / "packed" -> ops/masked_attention.py on
+the attention kernel; False -> plain) and, with ``use_pallas_ffn``, the
+merge + residual + LN on ``gemm_ln`` (ops/fused_ffn.py ``fused_proj_ln``)
+and the FFN + residual + LN on ``gemm_bias_act`` + ``gemm_ln``
+(``fused_ffn_ln``); without it plain ``ln(x + ...)``. AttFlat runs
+ops/attflat.py (``gemm_bias_act``, ``attflat_pool``, ``gemm_bias_act``)
+under ``use_pallas`` or ``use_pallas_attflat``, in either mode.
+
 The full-int8 engine (``Predictor(engine="int8")``) carries an f32 stream
 and runs every product int8 with dynamic per-row scales: the image
 projection, the cross k/v, the AttFlat MLPs and merges and the head as
@@ -33,22 +44,31 @@ Weights arrive as a reference-shaped state_dict (models/net.py
 ``MCANet.state_dict()``, train/checkpoint.py); ``prepare_params`` lays
 them out once: fused [D, 3D] self-attention qkv, fused [D, 2D] cross k/v,
 bf16 matmul weights in the JAX [in, out] layout, f32 biases and LN, and
-with ``qffn`` each block's quantized weights (``_qffn``).
+within ``megakernel_vmem_ok`` each block's mode-2 layout (``_mk``) and with
+``qffn`` its quantized weights (``_qffn``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Dict, Mapping, Tuple
 
 import torch
 
 from mcan_vqa_tpu_torch.device import resolve_device
+from mcan_vqa_tpu_torch.models.attention import masked_attention as \
+    masked_attention_xla
 from mcan_vqa_tpu_torch.models.attention import split_heads
 from mcan_vqa_tpu_torch.models.layers import (BF16, bf16_matmul, make_mask,
                                               std_layer_norm)
 from mcan_vqa_tpu_torch.models.lstm import lstm_forward
 from mcan_vqa_tpu_torch.models.net import attflat_pool
 from mcan_vqa_tpu_torch.ops import kernels
+from mcan_vqa_tpu_torch.ops.attflat import attflat_pallas
+from mcan_vqa_tpu_torch.ops.fused_ffn import fused_ffn_ln, fused_proj_ln
+from mcan_vqa_tpu_torch.ops.masked_attention import (
+    masked_attention_pallas, masked_attention_pallas_batched,
+    masked_attention_pallas_packed)
 from mcan_vqa_tpu_torch.ops.quant import (_check_scales, _quant_w,
                                           calibrate_qffn_act_scales,
                                           fused_qffn_sa_block,
@@ -65,6 +85,7 @@ from mcan_vqa_tpu_torch.ops.sga_block import (fused_sa_block,
                                               prepare_sga_block_params)
 
 Params = Dict[str, Any]
+F32 = torch.float32
 
 # Largest batch at which a block with DYNAMIC activation scales runs the
 # int8 kernels; past it the block runs the all-bf16 ones. Static scales
@@ -82,6 +103,15 @@ def decode_qffn_level(qffn, D: int):
     proj8 = int(qffn) >= 3
     w4 = {4: 1, 5: 2, 6: 1, 7: 2}.get(int(qffn), 0)
     return qkv8, proj8, w4
+
+
+def megakernel_vmem_ok(D: int, F: int) -> bool:
+    """JAX's gate of the whole-block engines (serving.py:133): one decoder
+    block's bf16 weights within the megakernels' 48 MB VMEM budget. The
+    H100 has no VMEM, but the port routes a width as the JAX engine does:
+    past the gate a mode-2 forward runs the per-sub-op path (mode 0), and
+    the engines differ in their answers."""
+    return (6 * D * D + 2 * D * F) * 2 <= 48 * 1024 * 1024
 
 
 def _sub(sd: Mapping[str, torch.Tensor], prefix: str
@@ -123,14 +153,31 @@ def _question_params(sd, device) -> Params:
                      "b_hh": vec("lstm.bias_hh_l0")}}
 
 
+def _dense_of(w: torch.Tensor, b: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"kernel": w, "bias": b}
+
+
+def _ln_of(mk, i: int) -> Dict[str, torch.Tensor]:
+    return {"scale": mk[f"ln{i}_s"], "bias": mk[f"ln{i}_b"]}
+
+
+def _ffn_of(mk) -> Params:
+    return {"mlp": {"FCLayer_0": {"Dense_0": _dense_of(mk["w1"], mk["b1"])},
+                    "Dense_0": _dense_of(mk["w2"], mk["b2"])}}
+
+
 def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
-                   device="cuda", qffn=False) -> Params:
+                   device="cuda", qffn=False, prune: bool = True) -> Params:
     """Reference state_dict -> the serving tree on ``device`` ("cuda" by
     default; "cpu" for the plain versions), named as the JAX package's
-    pruned mode-2 tree (``prune_prepared_params``): per block the ``_mk``
-    layout, the decoder's fused cross ``linear_kv``, and with a truthy
-    ``qffn`` level the block's quantized weights ``_qffn``
-    (``decode_qffn_level``)."""
+    ``prepare_params`` tree. Per block the raw entries the per-sub-op path
+    reads (the fused ``linear_qkv``, the cross ``linear_q`` and
+    ``linear_kv``, each ``linear_merge``, the norms, the FFN) and, where
+    ``megakernel_vmem_ok``, the mode-2 layout ``_mk`` and, with a truthy
+    ``qffn`` level, the block's quantized weights ``_qffn``
+    (``decode_qffn_level``). The raw entries and ``_mk`` share their
+    tensors. prune: drop what the mode-2 forward does not read
+    (``prune_prepared_params``), where the ``_mk`` layouts exist."""
     sd = state_dict
     dev = resolve_device(device)
 
@@ -140,23 +187,38 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
 
     bb: Params = {}
     for i in range(num_layers):
-        enc = _sub(sd, f"backbone.enc_list.{i}")
-        dec = _sub(sd, f"backbone.dec_list.{i}")
-        kv = [_dense_params(dec, f"mhatt2.{n}", dev)
+        enc = to_dev(prepare_sa_block_params(
+            _sub(sd, f"backbone.enc_list.{i}")))
+        dec_sd = _sub(sd, f"backbone.dec_list.{i}")
+        dec = to_dev(prepare_sga_block_params(dec_sd))
+        kv = [_dense_params(dec_sd, f"mhatt2.{n}", dev)
               for n in ("linear_k", "linear_v")]
-        bb[f"enc_{i}"] = {"_mk": to_dev(prepare_sa_block_params(enc))}
+        bb[f"enc_{i}"] = {
+            "mhatt": {"linear_qkv": _dense_of(enc["wqkv"], enc["bqkv"]),
+                      "linear_merge": _dense_of(enc["wm"], enc["bm"])},
+            "norm1": _ln_of(enc, 1), "norm2": _ln_of(enc, 2),
+            "ffn": _ffn_of(enc), "_mk": enc}
         bb[f"dec_{i}"] = {
-            "_mk": to_dev(prepare_sga_block_params(dec)),
-            "mhatt2": {"linear_kv": {
-                "kernel": torch.cat([p["kernel"] for p in kv], 1)
-                .contiguous(),
-                "bias": torch.cat([p["bias"] for p in kv])}}}
-    if qffn:
-        qkv8, proj8, w4 = decode_qffn_level(
-            qffn, bb["enc_0"]["_mk"]["wqkv"].shape[0])
+            "mhatt1": {"linear_qkv": _dense_of(dec["wqkv1"], dec["bqkv1"]),
+                       "linear_merge": _dense_of(dec["wm1_full"], dec["bm1"])},
+            "mhatt2": {
+                "linear_q": _dense_of(dec["wq2_full"], dec["bq2_full"]),
+                "linear_kv": _dense_of(
+                    torch.cat([p["kernel"] for p in kv], 1).contiguous(),
+                    torch.cat([p["bias"] for p in kv])),
+                "linear_merge": _dense_of(dec["wm2_full"], dec["bm2"])},
+            "norm1": _ln_of(dec, 1), "norm2": _ln_of(dec, 2),
+            "norm3": _ln_of(dec, 3), "ffn": _ffn_of(dec), "_mk": dec}
+    D = bb["enc_0"]["_mk"]["wqkv"].shape[0]
+    F = bb["enc_0"]["_mk"]["w1"].shape[1]
+    if not megakernel_vmem_ok(D, F):
+        for blk in bb.values():
+            del blk["_mk"]
+    elif qffn:
+        qkv8, proj8, w4 = decode_qffn_level(qffn, D)
         for blk in bb.values():
             blk["_qffn"] = prepare_qffn_params(blk["_mk"], qkv8, proj8, w4)
-    return {
+    prepared = {
         **_question_params(sd, dev),
         "img_feat_linear": _dense_params(sd, "img_feat_linear", dev),
         "backbone": bb,
@@ -169,6 +231,31 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
         "proj_norm": _ln_params(sd, "proj_norm", dev),
         "proj": _dense_params(sd, "proj", dev),
     }
+    if prune and "_mk" in bb["enc_0"]:
+        prepared = prune_prepared_params(prepared, num_layers)
+    return prepared
+
+
+def prune_prepared_params(params: Params, num_layers: int) -> Params:
+    """The tree the mode-2 forward reads (serving.py:229): per block only
+    ``_mk`` / ``_qffn``, and the decoder's fused cross ``linear_kv``.
+    Raises where a block lacks its ``_mk`` layout (a width outside
+    ``megakernel_vmem_ok``)."""
+    bb = params["backbone"]
+    if any("_mk" not in blk for blk in bb.values()):
+        raise ValueError(
+            "prune_prepared_params needs the _mk megakernel layouts on every "
+            "block (a width within megakernel_vmem_ok)")
+    out = {k: v for k, v in params.items() if k != "backbone"}
+    nbb: Params = {}
+    for i in range(num_layers):
+        enc, dec = bb[f"enc_{i}"], bb[f"dec_{i}"]
+        nbb[f"enc_{i}"] = {k: enc[k] for k in ("_mk", "_qffn") if k in enc}
+        nbb[f"dec_{i}"] = {k: dec[k] for k in ("_mk", "_qffn") if k in dec}
+        nbb[f"dec_{i}"]["mhatt2"] = {
+            "linear_kv": dec["mhatt2"]["linear_kv"]}
+    out["backbone"] = nbb
+    return out
 
 
 def _dense(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -199,9 +286,17 @@ def _qdense_static(site: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def _attflat(p: Params, x: torch.Tensor, mask: torch.Tensor,
-             q8=None) -> torch.Tensor:
-    """Plain AttFlat (serving.py:545-575 without the Pallas branch); q8:
-    (aux site, a), the merge as a static-int8 site."""
+             use_pallas=False, q8=None) -> torch.Tensor:
+    """AttFlat (serving.py:545) -> [B, O] f32. use_pallas: through the
+    kernels (ops/attflat.py ``attflat_pallas``); else plain, and q8: (aux
+    site, a), the merge as a static-int8 site."""
+    if use_pallas:
+        mlp = p["mlp"]
+        return attflat_pallas(
+            x, mask, mlp["FCLayer_0"]["Dense_0"]["kernel"],
+            mlp["FCLayer_0"]["Dense_0"]["bias"], mlp["Dense_0"]["kernel"],
+            mlp["Dense_0"]["bias"], p["linear_merge"]["kernel"],
+            p["linear_merge"]["bias"])[0]
     pooled = attflat_pool(_mlp(p["mlp"], x), x, mask)
     if q8 is not None:
         return _qdense_static(q8[0], pooled, q8[1])
@@ -214,6 +309,34 @@ def _split_kv(kv: torch.Tensor, num_heads: int
     kernel reads them in place)."""
     kx, vx = kv.chunk(2, dim=-1)
     return split_heads(kx, num_heads), split_heads(vx, num_heads)
+
+
+def _mhatt(p: Params, v: torch.Tensor, k: torch.Tensor, q: torch.Tensor,
+           mask: torch.Tensor, num_heads: int, use_pallas,
+           merge: bool = True) -> torch.Tensor:
+    """One attention sub-block of the per-sub-op path (serving.py:480): the
+    projections in plain PyTorch (the fused qkv where q, k, v are one
+    tensor, else the cross q and the fused k/v), the attention per
+    ``use_pallas`` (True / "batched" / "packed": ops/masked_attention.py on
+    the attention kernel; False: plain), -> the pre-merge output
+    [B, Lq, D] f32, or with ``merge`` the merge projection's."""
+    B, Lq, D = q.shape
+    if "linear_qkv" in p and q is k and k is v:
+        qx, kx, vx = _dense(p["linear_qkv"], q).split(D, dim=-1)
+    else:
+        kx, vx = _dense(p["linear_kv"], k).split(D, dim=-1)
+        qx = _dense(p["linear_q"], q)
+    heads = [split_heads(t, num_heads) for t in (qx, kx, vx)]
+    if use_pallas == "batched":
+        atted = masked_attention_pallas_batched(*heads, mask)
+    elif use_pallas == "packed":
+        atted = masked_attention_pallas_packed(*heads, mask)
+    elif use_pallas:
+        atted = masked_attention_pallas(*heads, mask)
+    else:
+        atted = masked_attention_xla(*heads, mask)
+    atted = atted.transpose(1, 2).reshape(B, Lq, D)
+    return _dense(p["linear_merge"], atted) if merge else atted
 
 
 def _cross_kv(p: Params, q: torch.Tensor, num_heads: int
@@ -232,39 +355,74 @@ def _cross_kv_q8(site: Mapping[str, torch.Tensor], q: torch.Tensor,
     return _split_kv(kv.view(B, Lq, 2 * D), num_heads)
 
 
-def make_serving_fn(num_layers: int, num_heads: int, qffn: bool = False,
+def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
+                    bf16_stream: bool = False, use_pallas_ffn: bool = False,
+                    use_sga_megakernel=False, use_pallas_attflat: bool = False,
+                    qffn: bool = False,
                     qffn_act_scales=None, qffn_w4dq: bool = False
                     ) -> Callable:
     """forward(params, img_feat [B, R, F] f32, ques_ix [B, T] int)
-    -> logits [B, A] f32; params from ``prepare_params``. Mode 2 of the
-    JAX engine with a bf16 residual stream (bf16_stream=True).
+    -> logits [B, A] f32; params from ``prepare_params``. The JAX
+    ``make_serving_fn`` (serving.py:717), with its defaults.
 
-    qffn: run each block that carries ``_qffn`` through the quantized block
-    kernels. qffn_act_scales: {"enc_i" / "dec_i": scale tuple} from
+    use_sga_megakernel: 2, the whole-block engine (each encoder block
+    through ``fused_sa_block`` / ``fused_qffn_sa_block``, each decoder
+    block through ``fused_sga_block`` / ``fused_qffn_sga_block``, the cross
+    k/v outside); 0 / False, the per-sub-op path (serving.py:957-980). A
+    mode-2 forward whose width fails ``megakernel_vmem_ok`` runs mode 0
+    (:841). Modes 1 and 3-5 are not ported. use_pallas: the attention of
+    mode 0 on the kernel (True, "batched", "packed") or plain (False).
+    use_pallas_ffn: mode 0's merges and FFNs with their residual and LN on
+    ``fused_proj_ln`` / ``fused_ffn_ln``. use_pallas or use_pallas_attflat:
+    both AttFlats on ``attflat_pallas``. bf16_stream: a bf16 residual
+    stream between the blocks (LN statistics in f32), else f32.
+
+    qffn: run each mode-2 block that carries ``_qffn`` through the quantized
+    block kernels. qffn_act_scales: {"enc_i" / "dec_i": scale tuple} from
     ``calibrate_qffn_act_scales`` (static scales), or None (dynamic). Per
     block, as serving.py:859-871 / :926-941: a block with dynamic scales
     runs int8 only while B <= QFFN_MAX_BATCH, else the bf16 kernels; static
     scales lift the gate. qffn_w4dq: the int4 sites run the bf16-dequant
     compute (levels 6/7). The aux sites run static int8 when params carry
-    ``_q8aux`` and the scales an "aux" tuple (serving.py:688-694).
-    ``forward.act_scales`` holds the scales baked in (None: dynamic)."""
-    stream = BF16
+    ``_q8aux`` and the scales an "aux" tuple (serving.py:688-694), in mode
+    2 only. ``forward.act_scales`` holds the scales baked in (None:
+    dynamic)."""
+    if use_sga_megakernel not in (0, 2):
+        raise NotImplementedError(
+            f"use_sga_megakernel={use_sga_megakernel}: the port runs the "
+            f"per-sub-op path (0) and the per-block engine (2) only")
+    stream = BF16 if bf16_stream else F32
     scales = qffn_act_scales or {}
+    pallas_attflat = bool(use_pallas or use_pallas_attflat)
 
     def int8_block(p: Params, name: str, batch: int) -> bool:
         return qffn and "_qffn" in p and (batch <= QFFN_MAX_BATCH
                                           or name in scales)
 
-    def forward(params: Params, img_feat: torch.Tensor,
-                ques_ix: torch.Tensor) -> torch.Tensor:
-        aux_w, aux_s = params.get("_q8aux"), scales.get("aux")
-        use_aux = aux_w is not None and aux_s is not None
-        q_mask = make_mask(ques_ix.unsqueeze(-1))
-        v_mask = make_mask(img_feat)
-        q = params["embedding"]["embedding"][ques_ix.long()]
-        q = _lstm(params["lstm"], q).to(stream)
-        v = _dense(params["img_feat_linear"], img_feat).to(stream)
-        bb = params["backbone"]
+    def ln(p, x):
+        return _std_layer_norm(p, x, out_dtype=stream)
+
+    def att_block(mh_p, norm_p, v_, k_, q_, mask_):
+        """A residual attention sub-block of mode 0: q_ is the residual."""
+        if use_pallas_ffn:
+            pre = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas,
+                         merge=False)
+            return fused_proj_ln(q_, pre, mh_p["linear_merge"]["kernel"],
+                                 mh_p["linear_merge"]["bias"],
+                                 norm_p["scale"], norm_p["bias"])
+        att = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas)
+        return ln(norm_p, q_ + att.to(stream))
+
+    def ffn_block(norm_p, mlp_p, x):
+        if use_pallas_ffn:
+            return fused_ffn_ln(
+                x, mlp_p["FCLayer_0"]["Dense_0"]["kernel"],
+                mlp_p["FCLayer_0"]["Dense_0"]["bias"],
+                mlp_p["Dense_0"]["kernel"], mlp_p["Dense_0"]["bias"],
+                norm_p["scale"], norm_p["bias"])
+        return ln(norm_p, x + _mlp(mlp_p, x).to(stream))
+
+    def mode2(bb, q, v, q_mask, v_mask, aux_w, aux_s):
         for i in range(num_layers):
             p = bb[f"enc_{i}"]
             if int8_block(p, f"enc_{i}", q.shape[0]):
@@ -276,7 +434,7 @@ def make_serving_fn(num_layers: int, num_heads: int, qffn: bool = False,
                 q = fused_sa_block(q, q_mask, p["_mk"], num_heads=num_heads)
         for i in range(num_layers):
             p = bb[f"dec_{i}"]
-            if use_aux:
+            if aux_w is not None:
                 kq, vq = _cross_kv_q8(aux_w[f"dec_{i}_kv"], q, num_heads,
                                       aux_s[0])
             else:
@@ -289,10 +447,52 @@ def make_serving_fn(num_layers: int, num_heads: int, qffn: bool = False,
             else:
                 v = fused_sga_block(v, kq, vq, v_mask, q_mask, p["_mk"],
                                     num_heads=num_heads)
+        return q, v
+
+    def mode0(bb, q, v, q_mask, v_mask):
+        for i in range(num_layers):
+            p = bb[f"enc_{i}"]
+            q = att_block(p["mhatt"], p["norm1"], q, q, q, q_mask)
+            q = ffn_block(p["norm2"], p["ffn"]["mlp"], q)
+        for i in range(num_layers):
+            p = bb[f"dec_{i}"]
+            v = att_block(p["mhatt1"], p["norm1"], v, v, v, v_mask)
+            v = att_block(p["mhatt2"], p["norm2"], q, q, v, q_mask)
+            v = ffn_block(p["norm3"], p["ffn"]["mlp"], v)
+        return q, v
+
+    def forward(params: Params, img_feat: torch.Tensor,
+                ques_ix: torch.Tensor) -> torch.Tensor:
+        aux_w, aux_s = params.get("_q8aux"), scales.get("aux")
+        use_aux = aux_w is not None and aux_s is not None
+        if use_aux and pallas_attflat:
+            # JAX's assert (serving.py:802), raised under -O too
+            raise AssertionError(
+                "q8aux does not compose with the pallas AttFlat experiment")
+        q_mask = make_mask(ques_ix.unsqueeze(-1))
+        v_mask = make_mask(img_feat)
+        q = params["embedding"]["embedding"][ques_ix.long()]
+        q = _lstm(params["lstm"], q).to(stream)
+        v = _dense(params["img_feat_linear"], img_feat).to(stream)
+        bb = params["backbone"]
+        mode = use_sga_megakernel
+        if mode:
+            dec0 = bb["dec_0"]
+            F_ff = (dec0["_mk"]["w1"] if "_mk" in dec0 else dec0["ffn"][
+                "mlp"]["FCLayer_0"]["Dense_0"]["kernel"]).shape[1]
+            if not megakernel_vmem_ok(v.shape[-1], F_ff):
+                mode = 0
+        if mode:
+            q, v = mode2(bb, q, v, q_mask, v_mask,
+                         aux_w if use_aux else None, aux_s)
+        else:
+            q, v = mode0(bb, q, v, q_mask, v_mask)
+            use_aux = False
         lang_flat = _attflat(params["attflat_lang"], q, q_mask,
+                             pallas_attflat,
                              (aux_w["lang_merge"], aux_s[1]) if use_aux
                              else None)
-        img_flat = _attflat(params["attflat_img"], v, v_mask,
+        img_flat = _attflat(params["attflat_img"], v, v_mask, pallas_attflat,
                             (aux_w["img_merge"], aux_s[2]) if use_aux
                             else None)
         fused = _std_layer_norm(params["proj_norm"], lang_flat + img_flat)
@@ -306,17 +506,23 @@ def make_serving_fn(num_layers: int, num_heads: int, qffn: bool = False,
 
 def prepare_production_params(state_dict: Mapping[str, torch.Tensor],
                               num_layers: int, *, qffn=True,
+                              sga_mode: int = 2, prune: bool = True,
                               device="cuda") -> Params:
-    """The shipped engine's tree (serving.py:582): the pruned mode-2
-    layout with the ``_qffn`` weights of level ``qffn``."""
-    return prepare_params(state_dict, num_layers, device, qffn=qffn)
+    """The shipped engine's tree (serving.py:582): the layouts of level
+    ``qffn``, pruned to what the mode-2 forward reads when ``prune`` and
+    ``sga_mode == 2`` (and the width has the ``_mk`` layouts); the per-sub-op
+    path reads the raw entries."""
+    return prepare_params(state_dict, num_layers, device, qffn=qffn,
+                          prune=prune and sga_mode == 2)
 
 
 def build_production_engine(state_dict: Mapping[str, torch.Tensor],
                             num_layers: int, num_heads: int, *, qffn=None,
                             act_scale_inputs=None, act_scales=None,
-                            q8aux: bool = False, sga_mode: int = 2,
-                            device="cuda") -> Tuple[Callable, Params]:
+                            q8aux: bool = False, prune: bool = True,
+                            sga_mode: int = 2, bf16_stream: bool = True,
+                            use_pallas_ffn: bool = True, device="cuda",
+                            **serving_kwargs) -> Tuple[Callable, Params]:
     """ONE construction path for the shipped serving engine
     (serving.py:602) -> (forward, prepared).
 
@@ -329,11 +535,16 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
     act_scale_inputs: an (img_feat, ques_ix) batch to calibrate static
     scales on (``calibrate_qffn_act_scales``). act_scales: precomputed
     scales ({"enc_i" / "dec_i": tuple of floats}); mutually exclusive with
-    act_scale_inputs. With qffn=0 both are ignored, as in JAX.
+    act_scale_inputs. With qffn=0 both are ignored, as in JAX; at a width
+    outside ``megakernel_vmem_ok`` too, with JAX's warning (the per-sub-op
+    path has no int8 site).
     q8aux: the static-int8 aux sites (``prepare_q8aux_params``); they need
     a calibration batch or stored scales with an "aux" tuple, and a
-    quantized level. sga_mode: the JAX engine's decoder mode; the port
-    runs the per-block mode 2."""
+    quantized level. sga_mode: 2, the per-block engine; 0, the per-sub-op
+    path (``make_serving_fn``); 1 and 3-5 are not ported. prune: prune the
+    mode-2 tree (``prepare_production_params``). bf16_stream,
+    use_pallas_ffn and serving_kwargs (use_pallas, which defaults to False
+    here, and use_pallas_attflat) go to ``make_serving_fn``."""
     if act_scale_inputs is not None and act_scales is not None:
         raise ValueError(
             "pass a calibration batch OR precomputed scales, not both")
@@ -359,14 +570,23 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
         raise ValueError(
             f"q8aux applies to the per-block megakernel engines (sga_mode "
             f"1/2), got sga_mode={sga_mode}")
-    if sga_mode != 2:
+    if sga_mode not in (0, 2):
         raise NotImplementedError(
-            f"sga_mode={sga_mode}: the port runs the per-block mode-2 engine "
-            f"only")
+            f"sga_mode={sga_mode}: the port runs the per-sub-op path (0) and "
+            f"the per-block engine (2) only")
     prepared = prepare_production_params(state_dict, num_layers, qffn=qffn,
+                                         sga_mode=sga_mode, prune=prune,
                                          device=device)
     if q8aux:
         prepared["_q8aux"] = prepare_q8aux_params(prepared, num_layers)
+    if (act_scale_inputs is not None or act_scales is not None) and qffn \
+            and "_mk" not in prepared["backbone"]["enc_0"]:
+        warnings.warn(
+            "activation-scale calibration ignored: model dims are outside "
+            "the megakernel VMEM envelope, the engine falls back to the "
+            "per-sub-op path (no int8 quant sites)")
+        act_scale_inputs = act_scales = None
+        prepared.pop("_q8aux", None)
     if act_scales is not None and qffn:
         act_scales = _check_scales({k: tuple(float(x) for x in v)
                                     for k, v in act_scales.items()})
@@ -377,9 +597,13 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
                                                w4dq=w4dq)
     else:
         act_scales = None
-    return make_serving_fn(num_layers, num_heads, qffn=bool(qffn),
-                           qffn_act_scales=act_scales,
-                           qffn_w4dq=w4dq), prepared
+    serving_kwargs.setdefault("use_pallas", False)
+    return make_serving_fn(num_layers, num_heads,
+                           use_pallas_ffn=use_pallas_ffn,
+                           use_sga_megakernel=sga_mode,
+                           bf16_stream=bf16_stream, qffn=bool(qffn),
+                           qffn_act_scales=act_scales, qffn_w4dq=w4dq,
+                           **serving_kwargs), prepared
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,10 @@ def _close(out, ref, tol):
 
 @pytest.mark.parametrize("M,Kd,N,relu,out_dtype", [
     (1, 512, 1536, False, BF16), (61, 512, 512, False, torch.float32),
-    (130, 2048, 512, False, torch.float32), (77, 512, 2048, True, BF16)])
+    (130, 2048, 512, False, torch.float32), (77, 512, 2048, True, BF16),
+    # the masked last column tile: hidden 480 (N % 64 != 0), K % 32 != 0
+    (3840, 512, 480, True, BF16), (61, 480, 1440, False, torch.float32),
+    (14, 1000, 8, False, torch.float32)])
 def test_gemm_matches_plain(cuda, M, Kd, N, relu, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(M)
     a = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
@@ -93,10 +96,10 @@ def test_attention_reads_strided_qkv(cuda):
 
 
 def test_attention_raises_past_its_limits(cuda):
-    q, k, v, mask = _attention_inputs(2, 8, 14, 129, [129, 3], cuda)
+    q, k, v, mask = _attention_inputs(2, 8, 14, 0, [0, 0], cuda)
     with pytest.raises(ValueError, match="Lk"):
         K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
-    q, k, v, mask = _attention_inputs(2, 8, 14, 14, [14, 3], cuda, Dh=160)
+    q, k, v, mask = _attention_inputs(2, 8, 14, 14, [14, 3], cuda, Dh=264)
     with pytest.raises(ValueError, match="Dh"):
         K.masked_attention(q, k.to(BF16), v.to(BF16), mask)
 
@@ -204,6 +207,114 @@ def test_predictor_fused_matches_plain_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the per-sub-op path: gemm_ln, attflat_pool, f32 q, the mode-0 engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,Kd,D,a_dtype,res_dtype", [
+    (3840, 512, 512, torch.float32, BF16), (896, 2048, 512, BF16, BF16),
+    (61, 512, 480, torch.float32, torch.float32),
+    (14, 1536, 1536, torch.float32, BF16), (130, 8192, 2048, BF16, BF16),
+    (1, 1024, 1024, BF16, torch.float32), (77, 40, 72, BF16, BF16)])
+def test_gemm_ln_matches_plain(cuda, M, Kd, D, a_dtype, res_dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + D)
+    a = torch.randn(M, Kd, generator=g, device=cuda).to(a_dtype)
+    w = (torch.randn(Kd, D, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
+    b = 0.1 * torch.randn(D, generator=g, device=cuda)
+    res = torch.randn(M, D, generator=g, device=cuda).to(res_dtype)
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(D, generator=g, device=cuda)
+    before = K.launch_counts().get("gemm_ln", 0)
+    out = K.gemm_ln(a, w, b, res, gamma, beta)
+    assert K.launch_counts()["gemm_ln"] == before + 1
+    ref = K.gemm_ln_plain(a, w, b, res, gamma, beta)
+    assert out.dtype == res_dtype
+    # f32: the same exact bf16 products summed in another order, then an
+    # LN of O(1) values; bf16: plus one rounding a step (2^-8) apart
+    _close(out, ref, 1e-4 if res_dtype == torch.float32 else 2 ** -7)
+
+
+def test_gemm_ln_raises_on_unsupported_shapes(cuda):
+    a = torch.zeros(8, 512, dtype=BF16, device=cuda)
+    vec = torch.zeros(4096, device=cuda)
+    for D in (100, 4096):
+        w = torch.zeros(512, D, dtype=BF16, device=cuda)
+        res = torch.zeros(8, D, device=cuda)
+        with pytest.raises(ValueError, match=f"D={D}"):
+            K.gemm_ln(a, w, vec[:D], res, vec[:D], vec[:D])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        K.gemm_ln(a.half(), torch.zeros(512, 64, dtype=BF16, device=cuda),
+                  None, torch.zeros(8, 64, device=cuda), vec[:64], vec[:64])
+
+
+@pytest.mark.parametrize("B,L,D,Fm,G,x_dtype", [
+    (64, 60, 512, 512, 1, BF16), (64, 14, 512, 512, 1, torch.float32),
+    (3, 160, 1536, 512, 2, BF16), (2, 608, 64, 24, 1, torch.float32)])
+def test_attflat_pool_matches_plain(cuda, B, L, D, Fm, G, x_dtype):
+    g = torch.Generator(device=cuda).manual_seed(L)
+    x = torch.randn(B, L, D, generator=g, device=cuda).to(x_dtype)
+    h = torch.relu(torch.randn(B * L, Fm, generator=g, device=cuda)).to(BF16)
+    w2 = (torch.randn(Fm, G, generator=g, device=cuda) / Fm ** 0.5).to(BF16)
+    b2 = 0.1 * torch.randn(G, generator=g, device=cuda)
+    idx = torch.arange(L, device=cuda)
+    lens = torch.tensor([(i * 7) % (L + 1) for i in range(B - 1)] + [0],
+                        device=cuda)          # the last sample fully padded
+    mask = (idx[None] >= lens[:, None])[:, None, None, :].contiguous()
+    pooled, att = K.attflat_pool(h, w2, b2, mask, x)
+    ref_p, ref_a = K.attflat_pool_plain(h, w2, b2, mask, x)
+    # att: f32 logits of exact bf16 products summed in another order, one
+    # softmax; pooled: plus one bf16 rounding a step (2^-8) apart
+    _close(att, ref_a, 1e-5)
+    _close(pooled, ref_p, 2 ** -7)
+    _close(att[-1], torch.full_like(att[-1], 1.0 / L), 1e-6)
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh", [(14, 14, 64), (60, 60, 128),
+                                      (160, 160, 192)])
+def test_attention_reads_f32_q(cuda, Lq, Lk, Dh):
+    """q, k, v f32 as the per-sub-op engine's projections give them
+    (masked_attention_pallas): the kernel rounds them to bf16 on load."""
+    q, k, v, mask = _attention_inputs(3, 8, Lq, Lk, [Lk, 0, 5], cuda, Dh)
+    q = q.float() + 1e-3 * torch.randn_like(q.float())
+    out = K.masked_attention(q, k, v, mask, out_dtype=torch.float32)
+    assert torch.equal(out, K.masked_attention(
+        q.to(BF16), k.to(BF16), v.to(BF16), mask, out_dtype=torch.float32))
+    _close(out, K.masked_attention_plain(q, k, v, mask,
+                                         out_dtype=torch.float32), 2 ** -7)
+
+
+@pytest.mark.parametrize("use_pallas,use_pallas_attflat", [
+    (False, False), (True, False), ("packed", True), (False, True)])
+def test_mode0_engine_matches_plain_on_the_card(cuda, use_pallas,
+                                                use_pallas_attflat):
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    cfg, sd, vocab, ix_to_ans, questions = _small_model()
+    plain = Predictor(cfg, sd, vocab, ix_to_ans=ix_to_ans, max_batch=8,
+                      latency_buckets=(1,), engine="plain", device=cuda)
+    fwd, prep = build_production_engine(
+        sd, cfg.layer, cfg.multi_head, qffn=0, sga_mode=0, device=cuda,
+        use_pallas=use_pallas, use_pallas_attflat=use_pallas_attflat)
+    rng = np.random.default_rng(0)
+    feats = [np.abs(rng.normal(size=(r, cfg.img_feat_size)))
+             .astype(np.float32) for r in (60, 7, 33)]
+    img, ques = plain.pad_batch(questions, feats)
+    K.reset_launches()
+    with torch.inference_mode():
+        pf = torch.sigmoid(fwd(prep, torch.from_numpy(img).to(cuda),
+                               torch.from_numpy(ques).to(cuda)))
+    counts = K.launch_counts()
+    L, flat = cfg.layer, int(bool(use_pallas or use_pallas_attflat))
+    want = {"gemm_ln": 5 * L, "gemm_bias_act": 2 * L + 4 * flat}
+    if use_pallas:
+        want["masked_attention_f32"] = 3 * L
+    if flat:
+        want["attflat_pool"] = 2
+    assert counts == want
+    pp = plain.predict_probs(questions, feats)
+    np.testing.assert_allclose(pf[:3].cpu().numpy(), pp, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
 # the int8 kernels and blocks
 # ---------------------------------------------------------------------------
 
@@ -299,7 +410,10 @@ def _packed_w4(g, Kd, N, cuda):
 @pytest.mark.parametrize("M,Kd,N,relu,with_bias", [
     (14, 512, 1536, False, True), (60, 512, 2048, True, True),
     (896, 2048, 512, False, False), (61, 1024, 3072, True, False),
-    (3840, 4096, 1024, False, True), (1, 256, 64, False, True)])
+    (3840, 4096, 1024, False, True), (1, 256, 64, False, True),
+    # K % 256 != 0: a group straddles the nibble halves (hidden 384, 640)
+    (14, 384, 1152, False, True), (3840, 384, 1536, True, True),
+    (60, 640, 2560, False, False)])
 def test_gemm_s4_matches_plain_bitwise(cuda, M, Kd, N, relu, with_bias):
     g = torch.Generator(device=cuda).manual_seed(M + Kd)
     aq = torch.randint(-127, 128, (M, Kd), generator=g, device=cuda,
@@ -322,7 +436,8 @@ def test_gemm_s4_matches_plain_bitwise(cuda, M, Kd, N, relu, with_bias):
 
 @pytest.mark.parametrize("M,Kd,N,relu,out_dtype", [
     (14, 512, 1536, False, BF16), (60, 512, 2048, True, torch.float32),
-    (896, 2048, 512, False, torch.float32), (61, 1024, 3072, True, BF16)])
+    (896, 2048, 512, False, torch.float32), (61, 1024, 3072, True, BF16),
+    (14, 384, 1152, False, BF16), (60, 1536, 384, True, torch.float32)])
 def test_gemm_w4bf16_matches_plain(cuda, M, Kd, N, relu, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(M + N)
     x = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
@@ -338,11 +453,11 @@ def test_gemm_w4bf16_matches_plain(cuda, M, Kd, N, relu, out_dtype):
 
 def test_int4_gemms_raise_on_unsupported_operands(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
-    wp, s4 = _packed_w4(g, 384, 64, cuda)
-    aq = torch.zeros(8, 384, dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 256"):
+    wp, s4 = _packed_w4(g, 192, 64, cuda)
+    aq = torch.zeros(8, 192, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
         K.gemm_s4(aq, wp, s4, a=1.0)
-    with pytest.raises(ValueError, match="multiple of 256"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         K.gemm_w4bf16(aq.to(BF16), wp, s4)
     wp, s4 = _packed_w4(g, 512, 64, cuda)
     with pytest.raises(ValueError, match="group scales"):
@@ -542,7 +657,14 @@ def test_gemm_dw_matches_plain_and_repeats_bitwise(cuda, R, M, N):
     # the widened envelope: hidden 128 / 256 at 8 heads, MIMIC's 86 rows
     (60, 14, [3, 14, 0], torch.float32, 16), (14, 14, [14, 0, 5], BF16, 32),
     (86, 86, [0, 86, 40], BF16, 64), (86, 14, [3, 14, 0], torch.float32, 32),
-    (128, 128, [128, 0, 77], BF16, 128), (14, 14, [14, 0, 5], BF16, 96)])
+    (128, 128, [128, 0, 77], BF16, 128), (14, 14, [14, 0, 5], BF16, 96),
+    # the long kernels: Dh 192 / 256 (hidden 1536 / 2048 at 8 heads), 160
+    # and 608 rows (grid features), any mix
+    (160, 160, [0, 160, 77], BF16, 192), (60, 14, [3, 14, 0],
+                                          torch.float32, 256),
+    (608, 608, [608, 0, 301], BF16, 64), (14, 608, [3, 608, 0],
+                                          torch.float32, 256),
+    (160, 14, [160, 0, 5], BF16, 192)])
 def test_attention_dropout_and_backward_match_plain(cuda, Lq, Lk, lengths,
                                                     kv_dtype, Dh):
     """Head widths 64 (MCAN-small) and 128 (MCAN-large): the forward and
@@ -862,7 +984,8 @@ def test_seeded_layernorm_equals_the_mask_fed_the_dump(cuda, D):
 
 
 @pytest.mark.parametrize("Lq,Lk,Dh", [(60, 60, 64), (60, 14, 128),
-                                      (86, 86, 32)])
+                                      (86, 86, 32), (160, 160, 192),
+                                      (608, 60, 64)])
 def test_seeded_attention_equals_the_mask_fed_the_dump(cuda, Lq, Lk, Dh):
     B, H = 3, 8
     q, k, v, mask = _attention_inputs(B, H, Lq, Lk, [0, Lk, 5], cuda, Dh)
