@@ -70,6 +70,19 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              2 layers a default Predictor at hidden 1536 and 2048 (mode 0)
              and the mode-0 kernel attention at Dh 192, hidden 480 (bf16),
              hidden 384 at int4 levels 5 and 7, 160 image rows;
+  [all-layer]  main path 1f, the decoder modes 1, 3, 4, 5: sga_decoder
+             (the cross k/v projected inside, mode 3; or outside, modes 4
+             and 5), sa_encoder (mode 5) and the head-major SGA block (mode
+             1) against their plain twins at MCAN-small, B = 1, 8, 64 with
+             ragged and fully padded samples, with times, bounds and each
+             stack's grid (blocks, blocks per SM); the stacks again at
+             hidden 256 with 2 heads of 128 and 160 image rows (attention
+             over three key chunks); build_production_engine(sga_mode=1, 3,
+             4, 5) at full depth on the requests of [serve]: exact launches
+             (one sga_decoder per forward of modes 3-5, one sa_encoder per
+             mode-5 forward) and agreement with the plain engine (bf16
+             bound; mode 1 with q8aux at level 3, the int8 bound); modes 1,
+             3, 4, 5 and 2 timed at B = 1, 8, 64 in turns;
   [envelope] hidden 256 (8 heads of 32) and 86 image rows: the bf16, int8
              level 1 / 3 / 5 and full-int8 engines against the plain one;
              the seeded SGA block (and at hidden 256 the SA block) at B=64
@@ -100,9 +113,11 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              bf16_saves, the encoder plain: the same checks as [train].
 
 Launch counts are set to 0 just before each main path and read just after
-it. Kernel and block times are device times (CUDA-graph replay); step and
-forward times are CUDA events around eager calls, the host's launch time
-included. A failed build, launch or tolerance exits non-zero. The
+it. Kernel and block times are device times (CUDA-graph replay), but for
+the all-layer stacks and the head-major block of [all-layer]: CUDA events
+around 20 eager calls queued back to back (a cooperative launch is not
+captured into a graph here); step and forward times are CUDA events
+around eager calls, the host's launch time included. A failed build, launch or tolerance exits non-zero. The
 next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or the
@@ -254,9 +269,13 @@ def main() -> None:
     check_sub_op_kernels(torch, dev, rows)
     serve_per_sub_op(torch, dev, model_state, cfg, plain, requests,
                      len(ix_to_ans), rows)
-    del plain, fused, timed
     check_wide_widths(torch, dev, vocab, ix_to_ans, rows)
     phase_done("per-sub-op")
+    check_alllayer(torch, dev, model_state, cfg, rows)
+    serve_alllayer(torch, dev, model_state, cfg, plain, requests,
+                   len(ix_to_ans), rows)
+    del plain, fused, timed
+    phase_done("all-layer")
     check_envelope(torch, dev, vocab, ix_to_ans, rows)
     phase_done("envelope")
     work = ROOT / "ckpts" / "chip_smoke"
@@ -3502,6 +3521,251 @@ def check_wide_widths(torch, dev, vocab, ix_to_ans, rows) -> None:
                   mode0_launches(L, True, True))
             del p
         del plain, sd
+
+
+# ---------------------------------------------------------------------------
+# phase [all-layer]: the decoder modes 1, 3, 4, 5 (head-major blocks, the
+# whole decoder and the whole encoder each in one cooperative launch)
+# ---------------------------------------------------------------------------
+
+ALLLAYER_BATCHES = (1, 8, BATCH)
+ALLLAYER_UNIT = "one call at B = 64 (MCAN-small, 6 layers)"
+BLOCK_UNIT = "one block call at B = 64 (MCAN-small)"
+# (row, the TPU kernel's call site, the source, the unit of its numbers)
+ALLLAYER_ROWS = (
+    ("sga_decoder", TPU + ":606", SRC + "sga_decoder.cu", ALLLAYER_UNIT),
+    ("sga_decoder, external k/v", TPU + ":772", SRC + "sga_decoder.cu",
+     ALLLAYER_UNIT),
+    ("sa_encoder", TPU + ":938", SRC + "sa_encoder.cu", ALLLAYER_UNIT),
+    ("fused_sga_block_head_major", TPU + ":392",
+     "mcan_vqa_tpu_torch/ops/sga_block.py", BLOCK_UNIT))
+# The stacks against their plain twins: every step at the same precision,
+# the sums in another order, so a bf16 rounding (q / k / v, the
+# probabilities, h) may land a step apart; one block carries that to 6e-2
+# ([blocks]), six layers with an f32 stream between them ~sqrt(6) of it.
+STACK_TOL = 1.5e-1
+BLOCK_TOL = 6e-2        # the head-major block: one block, as [blocks]
+
+
+def stack_work(B, Lv, Lq, D, F, L, kind, stream=2):
+    """(operations, bytes) of one all-layer call: per layer the block's
+    products and attention (and the in-kernel cross k/v product); the
+    stream in and out, the pads, q or the external f32 k/v, and every
+    layer's weights read once."""
+    if kind == "encoder":
+        M = B * Lq
+        flops = 2 * M * D * 3 * D + 2 * M * D * D + 4 * M * D * F \
+            + 4 * B * Lq * Lq * D
+        return (L * flops, 2 * stream * M * D + B * Lq
+                + L * weight_bytes(D, F, False))
+    M, Mq = B * Lv, B * Lq
+    flops = 2 * M * D * 3 * D + 6 * M * D * D + 4 * M * D * F \
+        + 4 * B * Lv * Lv * D + 4 * B * Lv * Lq * D
+    nbytes = 2 * stream * M * D + B * (Lv + Lq) \
+        + L * weight_bytes(D, F, True)
+    if kind == "in":
+        flops += 4 * Mq * D * D
+        nbytes += 2 * Mq * D + L * (2 * 2 * D * D + 4 * 2 * D)
+    else:
+        nbytes += 2 * 4 * L * Mq * D
+    return L * flops, nbytes
+
+
+def alllayer_inputs(torch, dev, bb, B, Lv, Lq, D, H, L, seed):
+    """bf16 streams, ragged pads (sample 0 fully padded past B = 1) and
+    every layer's cross k/v as the mode-4 forward projects them (f32,
+    layer-major)."""
+    from mcan_vqa_tpu_torch.ops.serving import _cross_kv
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(B, Lv, D, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, Lq, D, generator=g, device=dev).to(torch.bfloat16)
+    lv = [Lv if B == 1 else (i * 17) % (Lv + 1) for i in range(B)]
+    lq = [Lq if B == 1 else (i * 5) % (Lq + 1) for i in range(B)]
+    kvs = [_cross_kv(bb[f"dec_{i}"]["mhatt2"], q, H) for i in range(L)]
+    return (v, q, torch.cat([k for k, _ in kvs], 1),
+            torch.cat([x for _, x in kvs], 1), pad_mask(torch, B, Lv, lv, dev),
+            pad_mask(torch, B, Lq, lq, dev))
+
+
+def check_stacks(torch, dev, cfg, state_dict, batches, rows=None):
+    """sga_decoder (both k/v sources), sa_encoder and the head-major block
+    against their plain twins at each batch; at B = 64 (with rows) their
+    times and bounds into the kernels' record. Returns the errors."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sga_block
+    from mcan_vqa_tpu_torch.ops.serving import prepare_params
+    L, H, D, F = cfg.layer, cfg.multi_head, cfg.hidden_size, cfg.ff_size
+    Lq, Lv = cfg.max_token, cfg.img_feat_pad_size
+    bb = prepare_params(state_dict, L, device=dev, prune=False, num_heads=H,
+                        alllayer=True)["backbone"]
+    wd, we, blk = bb["_mk_dec"], bb["_mk_enc"], bb["dec_0"]["_mk"]
+    errs = {}
+    for B in batches:
+        v, q, kq, vq, vm, qm = alllayer_inputs(torch, dev, bb, B, Lv, Lq, D,
+                                               H, L, SEED + B)
+        kv0 = (kq[:, :H], vq[:, :H])
+        calls = {
+            "sga_decoder": (
+                lambda: K.sga_decoder(v, vm, qm, wd, num_heads=H, q=q),
+                lambda: K.sga_decoder_plain(v, vm, qm, wd, num_heads=H, q=q),
+                STACK_TOL),
+            "sga_decoder, external k/v": (
+                lambda: K.sga_decoder(v, vm, qm, wd, num_heads=H, kq=kq,
+                                      vq=vq),
+                lambda: K.sga_decoder_plain(v, vm, qm, wd, num_heads=H,
+                                            kq=kq, vq=vq), STACK_TOL),
+            "sa_encoder": (
+                lambda: K.sa_encoder(q, qm, we, num_heads=H),
+                lambda: K.sa_encoder_plain(q, qm, we, num_heads=H),
+                STACK_TOL),
+            "fused_sga_block_head_major": (
+                lambda: sga_block.fused_sga_block(
+                    v, *kv0, vm, qm, blk, num_heads=H, fused_proj=False),
+                lambda: sga_block.fused_sga_block_plain(
+                    v, *kv0, vm, qm, blk, num_heads=H, fused_proj=False),
+                BLOCK_TOL)}
+        for name, (kernel, plain, tol) in calls.items():
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                fail(f"{name} B={B}: shape {tuple(out.shape)} or non-finite")
+            e = max_err(out, ref)
+            mean = float((out.float() - ref.float()).abs().mean())
+            gate(f"{name} D={D} Dh={D // H} Lv={Lv} Lq={Lq} B={B} (mean "
+                 f"|err| {mean:.2e})", e, tol)
+            errs[(name, B)] = e
+            if rows is not None:
+                rows.err(name, e)
+            if name != "fused_sga_block_head_major":
+                grid = K.LAST_GRID["sa_encoder" if name == "sa_encoder"
+                                   else "sga_decoder"]
+                say(f"    {name} B={B}: grid {grid[0]} blocks, {grid[1]} "
+                    f"per SM on {grid[2]} SMs, {grid[3]} B shared memory")
+            if rows is None:
+                continue
+            ms, pms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+            if name == "fused_sga_block_head_major":
+                Mv = B * Lv
+                work = (block_flops(Mv, D, F, B, H, Lv, Lq, True),
+                        4 * Mv * D + B * (Lv + Lq) + 8 * B * H * Lq * 64
+                        + weight_bytes(D, F, True))
+            else:
+                work = stack_work(B, Lv, Lq, D, F, L, "encoder" if
+                                  name == "sa_encoder" else
+                                  "in" if name == "sga_decoder" else "ext")
+            op, by = bound_parts(*work)
+            say(f"    {name} B={B}: {ms:.4f} ms vs plain {pms:.4f} ms, "
+                f"bound {max(op, by):.4f} ms by "
+                f"{'operations' if op >= by else 'bytes'} "
+                f"({work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
+            if B == BATCH:
+                rows.add(name, 1, ms, pms, *work)
+    return errs
+
+
+def alllayer_launches(L: int, mode: int, aux: bool = False):
+    """Every kernel's launches in one forward of build_production_engine(
+    qffn=0 or, with aux, level 3 + q8aux, sga_mode=mode) at hidden 512
+    (bf16 stream, use_pallas_ffn, no Pallas attention or AttFlat): mode 1
+    runs the mode-0 encoder (per layer a gemm_ln merge, a gemm_bias_act +
+    gemm_ln FFN; plain attention) and per decoder layer one head-major
+    block (q, k, v, both merges, the cross q and the FFN's two products on
+    gemm_bias_act, two attentions, three LayerNorms); modes 3 and 4 the
+    per-block encoder (4 products, 1 attention, 2 LayerNorms a block) and
+    one sga_decoder; mode 5 one sa_encoder and one sga_decoder. aux: the
+    static-int8 cross k/v of each layer, both AttFlat merges and the
+    head."""
+    if mode == 1:
+        counts = {"fused_sga_block_head_major": L, "gemm_bias_act": 9 * L,
+                  "masked_attention": 2 * L, "residual_layernorm": 3 * L,
+                  "gemm_ln": 2 * L}
+        if aux:
+            counts.update(gemm_s8=L + 3, quantize_rows=L + 3)
+        return counts
+    if mode == 5:
+        return {"sa_encoder": 1, "sga_decoder": 1}
+    return {"fused_sa_block": L, "gemm_bias_act": 4 * L,
+            "masked_attention": L, "residual_layernorm": 2 * L,
+            "sga_decoder": 1}
+
+
+def serve_alllayer(torch, dev, state_dict, cfg, plain, requests, n_answers,
+                   rows) -> None:
+    """build_production_engine(sga_mode=1, 3, 4, 5) at MCAN-small full
+    depth on the requests of [serve]: exact launches per forward and
+    agreement with the plain engine (bf16 bound 1e-2; mode 1 with q8aux
+    at level 3, the int8 bound); then modes 1, 3, 4, 5 and 2 timed at
+    B = 1, 8, 64 in turns."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    L, H = cfg.layer, cfg.multi_head
+    n_fwd = len(requests)
+    engine = functools.partial(padded_engine, torch, dev)
+    cal = plain.pad_batch(*requests[4])       # the B=64 request
+    settings = [(m, {}) for m in (1, 3, 4, 5)] + [
+        (1, dict(qffn=None, q8aux=True, act_scale_inputs=cal))]
+    timed = {}
+    for mode, kw in settings:
+        aux = bool(kw)
+        fwd, prep = build_production_engine(
+            state_dict, L, H, **dict(dict(qffn=0), **kw), sga_mode=mode,
+            alllayer=mode > 2, device=dev)
+        call = engine(fwd, prep)
+        label = f"mode {mode}" + (" q8aux (level 3)" if aux else " (bf16)")
+        K.reset_launches()
+        probs = [call(*plain.pad_batch(qs, fs))[:len(qs)].cpu().numpy()
+                 for qs, fs in requests]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_launches(label, counts, alllayer_launches(L, mode, aux), n_fwd)
+        agreement(label, requests, probs, plain, n_answers,
+                  bound=INT8_BOUND if aux else 1e-2)
+        if aux:
+            continue
+        if mode in (3, 4, 5):
+            rows.launches(f"serve mode {mode}", counts,
+                          ("sga_decoder" if mode == 3 else
+                           "sga_decoder, external k/v",)
+                          + (("sa_encoder",) if mode == 5 else ()),
+                          {"sga_decoder": "sga_decoder",
+                           "sga_decoder, external k/v": "sga_decoder",
+                           "sa_encoder": "sa_encoder"})
+        else:
+            rows.launches("serve mode 1", counts,
+                          ("fused_sga_block_head_major",))
+        timed[label] = call
+    fwd, prep = build_production_engine(state_dict, L, H, qffn=0, device=dev)
+    timed["mode 2 (bf16)"] = engine(fwd, prep)
+    say("[all-layer] bf16 forwards, modes 1, 3, 4, 5 against mode 2:")
+    time_forwards(torch, cfg, plain, list(timed.items()))
+
+
+ALLLAYER_WIDE = dict(hidden_size=256, multi_head=2, ff_size=1024, layer=2,
+                     img_feat_pad_size=160, img_feat_size=64)
+
+
+def check_alllayer(torch, dev, state_dict, cfg, rows) -> None:
+    """The stacks and the head-major block at MCAN-small for B = 1, 8, 64
+    (ragged pads, fully padded samples), with times and bounds; then at
+    hidden 256 with 2 heads of 128 and 160 image rows (the attention over
+    three chunks of keys), 2 layers, within decoder_vmem_ok."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops.sga_block import decoder_vmem_ok
+    for name, replaces, source, unit in ALLLAYER_ROWS:
+        rows.row(name, source, replaces, unit)
+    say(f"[all-layer] the stacks (tol {STACK_TOL}) and the head-major block "
+        f"(tol {BLOCK_TOL}) vs their plain twins, MCAN-small, B = "
+        f"{ALLLAYER_BATCHES}")
+    check_stacks(torch, dev, cfg, state_dict, ALLLAYER_BATCHES, rows)
+    wide = Config(**ALLLAYER_WIDE)
+    if not decoder_vmem_ok(wide.hidden_size, wide.ff_size, wide.layer):
+        fail("the [all-layer] wide shape must pass decoder_vmem_ok")
+    net = MCANet(wide, 20, 10, generator=torch.Generator().manual_seed(SEED))
+    say(f"[all-layer] hidden {wide.hidden_size}, {wide.multi_head} heads of "
+        f"{wide.hidden_size // wide.multi_head}, {wide.img_feat_pad_size} "
+        f"image rows, {wide.layer} layers")
+    check_stacks(torch, dev, wide, net.state_dict(), (8,))
 
 
 # ---------------------------------------------------------------------------

@@ -236,7 +236,7 @@ class Predictor:
         img, ques = act_inputs
         L, H = self.cfg.layer, self.cfg.multi_head
         prepared = prepare_production_params(state_dict, L, qffn=3,
-                                             device=self.device)
+                                             device=self.device, num_heads=H)
         if "_mk" not in prepared["backbone"]["enc_0"]:
             return None
         scales = calibrate_qffn_act_scales(prepared, img, ques, L, H)

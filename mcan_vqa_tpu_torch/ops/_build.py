@@ -67,6 +67,11 @@ SIGNATURES = {
                           _I, _P],
     "mcan_prng_masks": [_I, _P, _P, _P, _P, _I, _U, _U, _P],
     "mcan_philox_words": [_U, _U, _I, _I, _P, _P],
+    "mcan_sga_decoder": [_P, _I, _P, _I, _P, _P, _I, _LL, _LL, _LL, _LL, _P,
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _F, _I, _P, _P],
+    "mcan_sa_encoder": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -18,6 +18,10 @@ PyTorch version.
   col_sum                column sums (bias and LN gradients)
   attflat_pool           AttFlat's logits, softmax over L, pooling
                                                                attflat_pool.cu
+  sga_decoder            every SGA layer in one cooperative launch
+                                                               sga_decoder.cu
+  sa_encoder             every SA layer in one cooperative launch
+                                                               sa_encoder.cu
   dump_prng_masks        the keep-masks of seeded sites        prng_masks.cu
   philox_words           the Philox4x32-10 words behind them   prng_masks.cu
 
@@ -54,6 +58,7 @@ import torch
 from mcan_vqa_tpu_torch.models.attention import NEG_INF
 from mcan_vqa_tpu_torch.models.attention import masked_attention as \
     _attention_f32
+from mcan_vqa_tpu_torch.models.attention import split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
     std_layer_norm
 
@@ -1200,3 +1205,228 @@ def attflat_pool(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         pooled.data_ptr(), att.data_ptr(), B, L, Fm, G, D, _stream(x))
     _check(rc, name)
     return pooled, att
+
+
+# ---------------------------------------------------------------------------
+# the all-layer stacks: sga_decoder, sa_encoder (one cooperative launch)
+# ---------------------------------------------------------------------------
+
+# the stacked weights in the order of the C functions' arrays
+DECODER_WEIGHTS = ("wqkv1", "bqkv1", "wm1", "bm1", "ln1_s", "ln1_b", "wkv2",
+                   "bkv2", "wq2", "bq2", "wm2", "bm2", "ln2_s", "ln2_b", "w1",
+                   "b1", "w2", "b2", "ln3_s", "ln3_b")
+ENCODER_WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "ln1_s", "ln1_b", "w1", "b1",
+                   "w2", "b2", "ln2_s", "ln2_b")
+COOPERATIVE_LAUNCH_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
+# each wrapper's last launch: (grid, blocks per SM, SMs, shared memory bytes)
+LAST_GRID: Dict[str, Tuple[int, int, int, int]] = {}
+
+
+def _layer(wp, l: int) -> Dict[str, torch.Tensor]:
+    return {k: t[l] for k, t in wp.items()}
+
+
+def sga_decoder_plain(v: torch.Tensor, v_mask: torch.Tensor,
+                      q_mask: torch.Tensor, wp, *, num_heads: int,
+                      q: Optional[torch.Tensor] = None,
+                      kq: Optional[torch.Tensor] = None,
+                      vq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Layer by layer through the per-block plain composition
+    (ops/sga_block.py), the stream f32 between the layers."""
+    from mcan_vqa_tpu_torch.ops.sga_block import fused_sga_block_plain
+    B, _, D = v.shape
+    H = num_heads
+    x = v.float()
+    for l in range(wp["w1"].shape[0]):
+        p = _layer(wp, l)
+        if q is not None:   # the cross k/v from the bf16 encoder output
+            kv = gemm_bias_act_plain(q.reshape(-1, D).to(BF16), p["wkv2"],
+                                     p["bkv2"], out_dtype=BF16)
+            k_l, v_l = (split_heads(t, H)
+                        for t in kv.view(B, -1, 2 * D).chunk(2, dim=-1))
+        else:
+            k_l, v_l = kq[:, l * H:(l + 1) * H], vq[:, l * H:(l + 1) * H]
+        p.update(wm1_full=p["wm1"], wq2_full=p["wq2"], bq2_full=p["bq2"],
+                 wm2_full=p["wm2"])
+        x = fused_sga_block_plain(x, k_l, v_l, v_mask, q_mask, p,
+                                  num_heads=H)
+    return x.to(v.dtype)
+
+
+def sa_encoder_plain(x: torch.Tensor, x_mask: torch.Tensor, wp, *,
+                     num_heads: int) -> torch.Tensor:
+    """Layer by layer through the per-block plain composition, the stream
+    f32 between the layers."""
+    from mcan_vqa_tpu_torch.ops.sga_block import fused_sa_block_plain
+    h = x.float()
+    for l in range(wp["w1"].shape[0]):
+        h = fused_sa_block_plain(h, x_mask, _layer(wp, l),
+                                 num_heads=num_heads)
+    return h.to(x.dtype)
+
+
+def _check_stack(name: str, wp, names, shapes) -> List[Optional[int]]:
+    """Each stacked weight contiguous, bf16 for a matrix and f32 for a
+    vector, of its shape -> the pointers, in the C function's order (None
+    where the name is absent from shapes)."""
+    ptrs = []
+    for n in names:
+        if n not in shapes:
+            ptrs.append(None)
+            continue
+        t = wp[n]
+        want = BF16 if len(shapes[n]) == 3 else F32
+        _require(tuple(t.shape) == shapes[n] and t.dtype == want
+                 and t.is_contiguous(),
+                 f"{name}: {n} must be contiguous {want} {shapes[n]}, got "
+                 f"{tuple(t.shape)} {t.dtype}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _check_pad(name: str, mask: torch.Tensor, B: int, L: int) -> None:
+    _require(mask.shape == (B, 1, 1, L) and mask.dtype == torch.bool
+             and mask.is_contiguous(),
+             f"{name}: mask must be contiguous bool [{B}, 1, 1, {L}]")
+
+
+def _scratch(device, sizes: Sequence[int]):
+    """One byte buffer cut into 256-byte aligned pieces of the given sizes
+    -> (the buffer, a ctypes array of the pieces' addresses, None for 0)."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, (ctypes.c_void_p * len(sizes))(
+        *[base + o if n else None for o, n in zip(offs, sizes)])
+
+
+def _launch_stack(name: str, fn, args, info) -> None:
+    rc = fn(*args)
+    if rc == COOPERATIVE_LAUNCH_TOO_LARGE:
+        raise RuntimeError(f"{name}: the grid does not fit the card "
+                           f"co-resident (cudaErrorCooperativeLaunchTooLarge)")
+    _check(rc, name)
+    LAST_GRID[name] = tuple(info)
+
+
+def _stack_dims(name: str, x: torch.Tensor, wp, num_heads: int):
+    _require(x.dim() == 3 and x.dtype in (BF16, F32) and x.is_contiguous(),
+             f"{name}: the stream must be a contiguous bf16 or f32 [B, L, D]")
+    B, Lx, D = x.shape
+    L, _, F = wp["w1"].shape
+    H = num_heads
+    _require(D % H == 0 and D // H <= MAX_HEAD_DIM and D % GEMM_ALIGN == 0
+             and F % GEMM_ALIGN == 0 and B >= 1 and Lx >= 1 and L >= 1,
+             f"{name}: needs D, F multiples of {GEMM_ALIGN}, D / H <= "
+             f"{MAX_HEAD_DIM} and a non-empty batch; got B={B}, L={Lx}, "
+             f"D={D}, F={F}, H={H}")
+    return B, Lx, D, F, H, L
+
+
+def sga_decoder(v: torch.Tensor, v_mask: torch.Tensor, q_mask: torch.Tensor,
+                wp, *, num_heads: int, q: Optional[torch.Tensor] = None,
+                kq: Optional[torch.Tensor] = None,
+                vq: Optional[torch.Tensor] = None,
+                max_blocks: int = 0) -> torch.Tensor:
+    """Every SGA decoder layer in one cooperative launch (csrc/sga_decoder.cu).
+    v [B, Lv, D] bf16 or f32; masks bool [B, 1, 1, L] (True = PAD); wp the
+    stacked layout (ops/sga_block.py ``prepare_sga_decoder_params``). The
+    cross k/v: either q [B, Lq, D] (bf16 or f32), projected in the kernel
+    by wkv2 / bkv2 per layer, or kq / vq [B, L*H, Lq, Dh] (bf16 or f32, the
+    last dim contiguous), layer-major. Returns [B, Lv, D] in v's dtype.
+    max_blocks > 0 caps the grid (the result does not depend on it)."""
+    _require((q is None) != (kq is None and vq is None)
+             and (kq is None) == (vq is None),
+             "sga_decoder: pass q (in-kernel k/v) or kq and vq")
+    if not on_cuda(v):
+        return sga_decoder_plain(v, v_mask, q_mask, wp, num_heads=num_heads,
+                                 q=q, kq=kq, vq=vq)
+    name = "sga_decoder"
+    B, Lv, D, F, H, L = _stack_dims(name, v, wp, num_heads)
+    Dh = D // H
+    if q is not None:
+        _same_device(name, v, q, v_mask, q_mask)
+        _require(q.dim() == 3 and q.shape[0] == B and q.shape[2] == D
+                 and q.dtype in (BF16, F32) and q.is_contiguous(),
+                 f"{name}: q must be a contiguous bf16 or f32 [{B}, Lq, {D}]")
+        Lq = q.shape[1]
+        kv_args = (None, None, 0, 0, 0, 0, 0)
+    else:
+        _same_device(name, v, kq, vq, v_mask, q_mask)
+        Lq = kq.shape[2]
+        _require(kq.shape == vq.shape == (B, L * H, Lq, Dh)
+                 and kq.dtype == vq.dtype and kq.dtype in (BF16, F32)
+                 and kq.stride() == vq.stride() and kq.stride(3) == 1,
+                 f"{name}: kq / vq must be bf16 or f32 [{B}, {L * H}, Lq, "
+                 f"{Dh}] with one set of strides and the last dim contiguous")
+        kv_args = (kq.data_ptr(), vq.data_ptr(), int(kq.dtype == F32),
+                   kq.stride(0), H * kq.stride(1), kq.stride(1),
+                   kq.stride(2))
+    _check_pad(name, v_mask, B, Lv)
+    _check_pad(name, q_mask, B, Lq)
+    _same_device(name, v, *(wp[n] for n in DECODER_WEIGHTS
+                            if q is not None or n not in ("wkv2", "bkv2")))
+    DD = (L, D, D)
+    shapes = {"wqkv1": (L, D, 3 * D), "bqkv1": (L, 3 * D), "wm1": DD,
+              "wq2": DD, "wm2": DD, "w1": (L, D, F), "b1": (L, F),
+              "w2": (L, F, D)}
+    shapes.update({n: (L, D) for n in ("bm1", "ln1_s", "ln1_b", "bq2", "bm2",
+                                       "ln2_s", "ln2_b", "b2", "ln3_s",
+                                       "ln3_b")})
+    if q is not None:
+        shapes.update(wkv2=(L, D, 2 * D), bkv2=(L, 2 * D))
+    w = (ctypes.c_void_p * len(DECODER_WEIGHTS))(
+        *_check_stack(name, wp, DECODER_WEIGHTS, shapes))
+    M, Mq = B * Lv, B * Lq
+    MD = M * D
+    # x32, xb, qkv, att, y, v1, v1b, qx, v2, v2b, h, qb, kv (bytes)
+    sizes = [4 * MD, 2 * MD, 6 * MD, 2 * MD, 4 * MD, 4 * MD, 2 * MD, 2 * MD,
+             4 * MD, 2 * MD, 2 * M * F]
+    sizes += [2 * Mq * D, 4 * Mq * D] if q is not None else [0, 0]
+    buf, scratch = _scratch(v.device, sizes)
+    out = torch.empty_like(v)
+    info = (ctypes.c_int * 4)()
+    _launch_stack(name, _lib().mcan_sga_decoder, (
+        v.data_ptr(), int(v.dtype == F32), _ptr(q),
+        int(q is not None and q.dtype == F32), *kv_args,
+        v_mask.data_ptr(), q_mask.data_ptr(), ctypes.addressof(w),
+        ctypes.addressof(scratch), out.data_ptr(), int(out.dtype == F32), B,
+        Lv, Lq, D, F, H, L, 1.0 / Dh ** 0.5, LN_EPS, int(max_blocks),
+        ctypes.addressof(info), _stream(v)), info)
+    del buf    # the caching allocator reuses it only after the launch's work
+    return out
+
+
+def sa_encoder(x: torch.Tensor, x_mask: torch.Tensor, wp, *, num_heads: int,
+               max_blocks: int = 0) -> torch.Tensor:
+    """Every SA encoder layer in one cooperative launch (csrc/sa_encoder.cu).
+    x [B, Lq, D] bf16 or f32; x_mask bool [B, 1, 1, Lq] (True = PAD); wp the
+    stacked layout (ops/sga_block.py ``prepare_sa_encoder_params``).
+    Returns [B, Lq, D] in x's dtype. max_blocks > 0 caps the grid."""
+    if not on_cuda(x):
+        return sa_encoder_plain(x, x_mask, wp, num_heads=num_heads)
+    name = "sa_encoder"
+    B, Lq, D, F, H, L = _stack_dims(name, x, wp, num_heads)
+    _check_pad(name, x_mask, B, Lq)
+    _same_device(name, x, x_mask, *(wp[n] for n in ENCODER_WEIGHTS))
+    shapes = {"wqkv": (L, D, 3 * D), "bqkv": (L, 3 * D), "wm": (L, D, D),
+              "w1": (L, D, F), "b1": (L, F), "w2": (L, F, D)}
+    shapes.update({n: (L, D) for n in ("bm", "ln1_s", "ln1_b", "b2", "ln2_s",
+                                       "ln2_b")})
+    w = (ctypes.c_void_p * len(ENCODER_WEIGHTS))(
+        *_check_stack(name, wp, ENCODER_WEIGHTS, shapes))
+    MD = B * Lq * D
+    # x32, xb, qkv, att, y, x1, x1b, h (bytes)
+    buf, scratch = _scratch(x.device, [4 * MD, 2 * MD, 6 * MD, 2 * MD, 4 * MD,
+                                       4 * MD, 2 * MD, 2 * B * Lq * F])
+    out = torch.empty_like(x)
+    info = (ctypes.c_int * 4)()
+    _launch_stack(name, _lib().mcan_sa_encoder, (
+        x.data_ptr(), int(x.dtype == F32), x_mask.data_ptr(),
+        ctypes.addressof(w), ctypes.addressof(scratch), out.data_ptr(),
+        int(out.dtype == F32), B, Lq, D, F, H, L, 1.0 / (D // H) ** 0.5,
+        LN_EPS, int(max_blocks), ctypes.addressof(info), _stream(x)), info)
+    return out

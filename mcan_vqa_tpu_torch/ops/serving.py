@@ -1,5 +1,5 @@
 """The serving forwards (mcan_vqa_tpu/ops/serving.py, ``make_serving_fn``
-modes 0 and 2, and ops/quant.py ``make_quant_serving_fn``, the full-int8
+modes 0-5, and ops/quant.py ``make_quant_serving_fn``, the full-int8
 engine) and their construction paths, ``build_production_engine`` and
 ``quantize_params``.
 
@@ -31,7 +31,19 @@ merge + residual + LN on ``gemm_ln`` (ops/fused_ffn.py ``fused_proj_ln``)
 and the FFN + residual + LN on ``gemm_bias_act`` + ``gemm_ln``
 (``fused_ffn_ln``); without it plain ``ln(x + ...)``. AttFlat runs
 ops/attflat.py (``gemm_bias_act``, ``attflat_pool``, ``gemm_bias_act``)
-under ``use_pallas`` or ``use_pallas_attflat``, in either mode.
+under ``use_pallas`` or ``use_pallas_attflat``, in every mode.
+
+The JAX engine's other decoder modes, as serving.py:828-941 runs them:
+mode 1 runs the encoder as mode 0 does and each decoder block through
+``fused_sga_block(fused_proj=False)`` (the head-major layout, bf16 at every
+qffn level); modes 3 and 4 run the encoder as mode 2 does and the whole
+decoder in one launch (``fused_sga_decoder``: the cross k/v projected
+inside; ``fused_sga_decoder_extkv``: projected outside, every layer's at
+once); mode 5 runs the whole encoder in one launch too
+(``fused_sa_encoder``). Modes 3-5 serve mode 2 where ``decoder_vmem_ok``
+fails, every mode serves mode 0 where ``megakernel_vmem_ok`` fails. The
+packing group ``sga_group`` is accepted and has no effect: attention is
+per sample.
 
 The full-int8 engine (``Predictor(engine="int8")``) carries an f32 stream
 and runs every product int8 with dynamic per-row scales: the image
@@ -44,8 +56,10 @@ Weights arrive as a reference-shaped state_dict (models/net.py
 ``MCANet.state_dict()``, train/checkpoint.py); ``prepare_params`` lays
 them out once: fused [D, 3D] self-attention qkv, fused [D, 2D] cross k/v,
 bf16 matmul weights in the JAX [in, out] layout, f32 biases and LN, and
-within ``megakernel_vmem_ok`` each block's mode-2 layout (``_mk``) and with
-``qffn`` its quantized weights (``_qffn``).
+within ``megakernel_vmem_ok`` each block's mode-2 layout (``_mk``, the
+decoder's with mode 1's head-major entries beside the fused ones), with
+``qffn`` its quantized weights (``_qffn``) and, within ``decoder_vmem_ok``,
+the all-layer stacks (``_mk_dec``, ``_mk_enc``).
 """
 
 from __future__ import annotations
@@ -79,10 +93,16 @@ from mcan_vqa_tpu_torch.ops.quant import (_check_scales, _quant_w,
                                           prepare_qffn_params,
                                           prepare_quant_sa_params,
                                           prepare_quant_sga_params)
-from mcan_vqa_tpu_torch.ops.sga_block import (fused_sa_block,
+from mcan_vqa_tpu_torch.ops.sga_block import (HEAD_MAJOR, decoder_vmem_ok,
+                                              fused_sa_block,
+                                              fused_sa_encoder,
                                               fused_sga_block,
+                                              fused_sga_decoder,
+                                              fused_sga_decoder_extkv,
                                               prepare_sa_block_params,
-                                              prepare_sga_block_params)
+                                              prepare_sa_encoder_params,
+                                              prepare_sga_block_params,
+                                              prepare_sga_decoder_params)
 
 Params = Dict[str, Any]
 F32 = torch.float32
@@ -167,17 +187,22 @@ def _ffn_of(mk) -> Params:
 
 
 def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
-                   device="cuda", qffn=False, prune: bool = True) -> Params:
+                   device="cuda", qffn=False, prune: bool = True,
+                   num_heads: int = 8, alllayer: bool = True) -> Params:
     """Reference state_dict -> the serving tree on ``device`` ("cuda" by
     default; "cpu" for the plain versions), named as the JAX package's
     ``prepare_params`` tree. Per block the raw entries the per-sub-op path
     reads (the fused ``linear_qkv``, the cross ``linear_q`` and
     ``linear_kv``, each ``linear_merge``, the norms, the FFN) and, where
-    ``megakernel_vmem_ok``, the mode-2 layout ``_mk`` and, with a truthy
+    ``megakernel_vmem_ok``, the mode-2 layout ``_mk`` (the decoder's with
+    the head-major entries of mode 1 at ``num_heads``) and, with a truthy
     ``qffn`` level, the block's quantized weights ``_qffn``
     (``decode_qffn_level``). The raw entries and ``_mk`` share their
-    tensors. prune: drop what the mode-2 forward does not read
-    (``prune_prepared_params``), where the ``_mk`` layouts exist."""
+    tensors. alllayer: where ``decoder_vmem_ok`` also holds, the backbone's
+    ``_mk_dec`` / ``_mk_enc``, every layer stacked for modes 3-5
+    (serving.py:213-220). prune: drop what the mode-2 forward does not read
+    (``prune_prepared_params``, the stacks included), where the ``_mk``
+    layouts exist."""
     sd = state_dict
     dev = resolve_device(device)
 
@@ -190,7 +215,10 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
         enc = to_dev(prepare_sa_block_params(
             _sub(sd, f"backbone.enc_list.{i}")))
         dec_sd = _sub(sd, f"backbone.dec_list.{i}")
-        dec = to_dev(prepare_sga_block_params(dec_sd))
+        # on the device first: the head-major entries are views of the
+        # fused ones
+        dec = prepare_sga_block_params(
+            {k: v.detach().to(dev) for k, v in dec_sd.items()}, num_heads)
         kv = [_dense_params(dec_sd, f"mhatt2.{n}", dev)
               for n in ("linear_k", "linear_v")]
         bb[f"enc_{i}"] = {
@@ -214,10 +242,16 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
     if not megakernel_vmem_ok(D, F):
         for blk in bb.values():
             del blk["_mk"]
+        prune = False
     elif qffn:
         qkv8, proj8, w4 = decode_qffn_level(qffn, D)
         for blk in bb.values():
             blk["_qffn"] = prepare_qffn_params(blk["_mk"], qkv8, proj8, w4)
+    # the stacks only where they stay (prune drops them, as JAX's does)
+    if alllayer and not prune and "_mk" in bb["enc_0"] \
+            and decoder_vmem_ok(D, F, num_layers):
+        bb["_mk_dec"] = prepare_sga_decoder_params(bb, num_layers)
+        bb["_mk_enc"] = prepare_sa_encoder_params(bb, num_layers)
     prepared = {
         **_question_params(sd, dev),
         "img_feat_linear": _dense_params(sd, "img_feat_linear", dev),
@@ -231,18 +265,20 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
         "proj_norm": _ln_params(sd, "proj_norm", dev),
         "proj": _dense_params(sd, "proj", dev),
     }
-    if prune and "_mk" in bb["enc_0"]:
+    if prune:
         prepared = prune_prepared_params(prepared, num_layers)
     return prepared
 
 
 def prune_prepared_params(params: Params, num_layers: int) -> Params:
     """The tree the mode-2 forward reads (serving.py:229): per block only
-    ``_mk`` / ``_qffn``, and the decoder's fused cross ``linear_kv``.
-    Raises where a block lacks its ``_mk`` layout (a width outside
+    ``_mk`` (the decoder's without the head-major entries of mode 1) /
+    ``_qffn``, and the decoder's fused cross ``linear_kv``; no all-layer
+    stack. Raises where a block lacks its ``_mk`` layout (a width outside
     ``megakernel_vmem_ok``)."""
     bb = params["backbone"]
-    if any("_mk" not in blk for blk in bb.values()):
+    blocks = [bb[f"{s}_{i}"] for s in ("enc", "dec") for i in range(num_layers)]
+    if any("_mk" not in blk for blk in blocks):
         raise ValueError(
             "prune_prepared_params needs the _mk megakernel layouts on every "
             "block (a width within megakernel_vmem_ok)")
@@ -251,7 +287,9 @@ def prune_prepared_params(params: Params, num_layers: int) -> Params:
     for i in range(num_layers):
         enc, dec = bb[f"enc_{i}"], bb[f"dec_{i}"]
         nbb[f"enc_{i}"] = {k: enc[k] for k in ("_mk", "_qffn") if k in enc}
-        nbb[f"dec_{i}"] = {k: dec[k] for k in ("_mk", "_qffn") if k in dec}
+        nbb[f"dec_{i}"] = {k: dec[k] for k in ("_qffn",) if k in dec}
+        nbb[f"dec_{i}"]["_mk"] = {k: t for k, t in dec["_mk"].items()
+                                  if k not in HEAD_MAJOR}
         nbb[f"dec_{i}"]["mhatt2"] = {
             "linear_kv": dec["mhatt2"]["linear_kv"]}
     out["backbone"] = nbb
@@ -357,40 +395,52 @@ def _cross_kv_q8(site: Mapping[str, torch.Tensor], q: torch.Tensor,
 
 def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
                     bf16_stream: bool = False, use_pallas_ffn: bool = False,
-                    use_sga_megakernel=False, use_pallas_attflat: bool = False,
-                    qffn: bool = False,
+                    use_sga_megakernel=False, sga_group=None,
+                    use_pallas_attflat: bool = False, qffn: bool = False,
                     qffn_act_scales=None, qffn_w4dq: bool = False
                     ) -> Callable:
     """forward(params, img_feat [B, R, F] f32, ques_ix [B, T] int)
     -> logits [B, A] f32; params from ``prepare_params``. The JAX
     ``make_serving_fn`` (serving.py:717), with its defaults.
 
-    use_sga_megakernel: 2, the whole-block engine (each encoder block
-    through ``fused_sa_block`` / ``fused_qffn_sa_block``, each decoder
-    block through ``fused_sga_block`` / ``fused_qffn_sga_block``, the cross
-    k/v outside); 0 / False, the per-sub-op path (serving.py:957-980). A
-    mode-2 forward whose width fails ``megakernel_vmem_ok`` runs mode 0
-    (:841). Modes 1 and 3-5 are not ported. use_pallas: the attention of
-    mode 0 on the kernel (True, "batched", "packed") or plain (False).
-    use_pallas_ffn: mode 0's merges and FFNs with their residual and LN on
+    use_sga_megakernel (serving.py:828-941): 0 / False, the per-sub-op path
+    (:957-980); 1 / True, the mode-0 encoder and each decoder block through
+    ``fused_sga_block(fused_proj=False)`` (head-major weights); 2, the
+    whole-block engine (each encoder block through ``fused_sa_block`` /
+    ``fused_qffn_sa_block``, each decoder block through ``fused_sga_block``
+    / ``fused_qffn_sga_block``, the cross k/v outside); 3, the mode-2
+    encoder and the whole decoder in one launch (``fused_sga_decoder``, the
+    cross k/v inside); 4, the same with the cross k/v outside
+    (``fused_sga_decoder_extkv``); 5, mode 4 with the whole encoder in one
+    launch (``fused_sa_encoder``). Modes 3-5 run mode 2 where
+    ``decoder_vmem_ok`` fails; every mode runs mode 0 where
+    ``megakernel_vmem_ok`` fails (:837-842). The all-layer modes read the
+    backbone's ``_mk_dec`` / ``_mk_enc`` stacks, or stack the blocks'
+    layouts per call. sga_group: the TPU kernels' packing group (None:
+    auto); accepted and without effect, since attention is per sample --
+    in JAX a group > 1 changes the result only for a fully padded sample
+    (ROADMAP §3). use_pallas: the attention of mode 0 on the kernel (True,
+    "batched", "packed") or plain (False). use_pallas_ffn: mode 0's (and
+    mode 1's encoder's) merges and FFNs with their residual and LN on
     ``fused_proj_ln`` / ``fused_ffn_ln``. use_pallas or use_pallas_attflat:
     both AttFlats on ``attflat_pallas``. bf16_stream: a bf16 residual
     stream between the blocks (LN statistics in f32), else f32.
 
-    qffn: run each mode-2 block that carries ``_qffn`` through the quantized
-    block kernels. qffn_act_scales: {"enc_i" / "dec_i": scale tuple} from
-    ``calibrate_qffn_act_scales`` (static scales), or None (dynamic). Per
-    block, as serving.py:859-871 / :926-941: a block with dynamic scales
-    runs int8 only while B <= QFFN_MAX_BATCH, else the bf16 kernels; static
-    scales lift the gate. qffn_w4dq: the int4 sites run the bf16-dequant
-    compute (levels 6/7). The aux sites run static int8 when params carry
-    ``_q8aux`` and the scales an "aux" tuple (serving.py:688-694), in mode
-    2 only. ``forward.act_scales`` holds the scales baked in (None:
+    qffn: run each mode-2 block (and modes 3 / 4's encoder blocks) that
+    carries ``_qffn`` through the quantized block kernels; the decoder of
+    modes 1 and 3-5 stays bf16 (:927). qffn_act_scales: {"enc_i" / "dec_i":
+    scale tuple} from ``calibrate_qffn_act_scales`` (static scales), or
+    None (dynamic). Per block, as serving.py:859-871 / :926-941: a block
+    with dynamic scales runs int8 only while B <= QFFN_MAX_BATCH, else the
+    bf16 kernels; static scales lift the gate. qffn_w4dq: the int4 sites
+    run the bf16-dequant compute (levels 6/7). The aux sites run static
+    int8 when params carry ``_q8aux`` and the scales an "aux" tuple
+    (serving.py:688-694), in modes 1-5 (``build_production_engine``
+    refuses them outside 1 and 2). ``forward.act_scales`` holds the scales baked in (None:
     dynamic)."""
-    if use_sga_megakernel not in (0, 2):
-        raise NotImplementedError(
-            f"use_sga_megakernel={use_sga_megakernel}: the port runs the "
-            f"per-sub-op path (0) and the per-block engine (2) only")
+    if int(use_sga_megakernel) not in range(6):
+        raise ValueError(f"use_sga_megakernel={use_sga_megakernel}: the "
+                         f"modes are 0-5")
     stream = BF16 if bf16_stream else F32
     scales = qffn_act_scales or {}
     pallas_attflat = bool(use_pallas or use_pallas_attflat)
@@ -422,7 +472,14 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
                 norm_p["scale"], norm_p["bias"])
         return ln(norm_p, x + _mlp(mlp_p, x).to(stream))
 
-    def mode2(bb, q, v, q_mask, v_mask, aux_w, aux_s):
+    def encoder0(bb, q, q_mask):
+        for i in range(num_layers):
+            p = bb[f"enc_{i}"]
+            q = att_block(p["mhatt"], p["norm1"], q, q, q, q_mask)
+            q = ffn_block(p["norm2"], p["ffn"]["mlp"], q)
+        return q
+
+    def encoder2(bb, q, q_mask):
         for i in range(num_layers):
             p = bb[f"enc_{i}"]
             if int8_block(p, f"enc_{i}", q.shape[0]):
@@ -432,6 +489,9 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
                                         w4dq=qffn_w4dq)
             else:
                 q = fused_sa_block(q, q_mask, p["_mk"], num_heads=num_heads)
+        return q
+
+    def decoder12(bb, q, v, q_mask, v_mask, aux_w, aux_s, mode):
         for i in range(num_layers):
             p = bb[f"dec_{i}"]
             if aux_w is not None:
@@ -439,27 +499,51 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
                                       aux_s[0])
             else:
                 kq, vq = _cross_kv(p["mhatt2"], q, num_heads)
-            if int8_block(p, f"dec_{i}", v.shape[0]):
+            if mode == 2 and int8_block(p, f"dec_{i}", v.shape[0]):
                 v = fused_qffn_sga_block(v, kq, vq, v_mask, q_mask, p["_mk"],
                                          p["_qffn"], num_heads=num_heads,
                                          act_scales=scales.get(f"dec_{i}"),
                                          w4dq=qffn_w4dq)
             else:
                 v = fused_sga_block(v, kq, vq, v_mask, q_mask, p["_mk"],
-                                    num_heads=num_heads)
-        return q, v
+                                    num_heads=num_heads,
+                                    fused_proj=mode == 2)
+        return v
 
-    def mode0(bb, q, v, q_mask, v_mask):
-        for i in range(num_layers):
-            p = bb[f"enc_{i}"]
-            q = att_block(p["mhatt"], p["norm1"], q, q, q, q_mask)
-            q = ffn_block(p["norm2"], p["ffn"]["mlp"], q)
+    def decoder_alllayer(bb, q, v, q_mask, v_mask, mode):
+        wp = (bb["_mk_dec"] if "_mk_dec" in bb
+              else prepare_sga_decoder_params(bb, num_layers))
+        if mode == 3:
+            return fused_sga_decoder(v, q, v_mask, q_mask, wp,
+                                     num_heads=num_heads)
+        # every layer's cross k/v outside, layer-major [B, L*H, Lq, Dh]
+        kvs = [_cross_kv(bb[f"dec_{i}"]["mhatt2"], q, num_heads)
+               for i in range(num_layers)]
+        kq = torch.cat([k for k, _ in kvs], dim=1)
+        vq = torch.cat([v_ for _, v_ in kvs], dim=1)
+        return fused_sga_decoder_extkv(v, kq, vq, v_mask, q_mask, wp,
+                                       num_heads=num_heads)
+
+    def decoder0(bb, q, v, q_mask, v_mask):
         for i in range(num_layers):
             p = bb[f"dec_{i}"]
             v = att_block(p["mhatt1"], p["norm1"], v, v, v, v_mask)
             v = att_block(p["mhatt2"], p["norm2"], q, q, v, q_mask)
             v = ffn_block(p["norm3"], p["ffn"]["mlp"], v)
-        return q, v
+        return v
+
+    def resolve_mode(bb, D: int) -> int:
+        """The mode this width runs (serving.py:832-842)."""
+        mode = int(use_sga_megakernel)
+        if mode:
+            dec0 = bb["dec_0"]
+            F_ff = (dec0["_mk"]["w1"] if "_mk" in dec0 else dec0["ffn"][
+                "mlp"]["FCLayer_0"]["Dense_0"]["kernel"]).shape[1]
+            if mode >= 3 and not decoder_vmem_ok(D, F_ff, num_layers):
+                mode = 2
+            if not megakernel_vmem_ok(D, F_ff):
+                mode = 0
+        return mode
 
     def forward(params: Params, img_feat: torch.Tensor,
                 ques_ix: torch.Tensor) -> torch.Tensor:
@@ -475,18 +559,22 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
         q = _lstm(params["lstm"], q).to(stream)
         v = _dense(params["img_feat_linear"], img_feat).to(stream)
         bb = params["backbone"]
-        mode = use_sga_megakernel
-        if mode:
-            dec0 = bb["dec_0"]
-            F_ff = (dec0["_mk"]["w1"] if "_mk" in dec0 else dec0["ffn"][
-                "mlp"]["FCLayer_0"]["Dense_0"]["kernel"]).shape[1]
-            if not megakernel_vmem_ok(v.shape[-1], F_ff):
-                mode = 0
-        if mode:
-            q, v = mode2(bb, q, v, q_mask, v_mask,
-                         aux_w if use_aux else None, aux_s)
+        mode = resolve_mode(bb, v.shape[-1])
+        if mode == 5:
+            wp = (bb["_mk_enc"] if "_mk_enc" in bb
+                  else prepare_sa_encoder_params(bb, num_layers))
+            q = fused_sa_encoder(q, q_mask, wp, num_heads=num_heads)
+        elif mode >= 2:
+            q = encoder2(bb, q, q_mask)
         else:
-            q, v = mode0(bb, q, v, q_mask, v_mask)
+            q = encoder0(bb, q, q_mask)
+        if mode >= 3:
+            v = decoder_alllayer(bb, q, v, q_mask, v_mask, mode)
+        elif mode:
+            v = decoder12(bb, q, v, q_mask, v_mask,
+                          aux_w if use_aux else None, aux_s, mode)
+        else:
+            v = decoder0(bb, q, v, q_mask, v_mask)
             use_aux = False
         lang_flat = _attflat(params["attflat_lang"], q, q_mask,
                              pallas_attflat,
@@ -507,20 +595,25 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
 def prepare_production_params(state_dict: Mapping[str, torch.Tensor],
                               num_layers: int, *, qffn=True,
                               sga_mode: int = 2, prune: bool = True,
-                              device="cuda") -> Params:
+                              device="cuda", num_heads: int = 8,
+                              alllayer: bool = False) -> Params:
     """The shipped engine's tree (serving.py:582): the layouts of level
-    ``qffn``, pruned to what the mode-2 forward reads when ``prune`` and
-    ``sga_mode == 2`` (and the width has the ``_mk`` layouts); the per-sub-op
-    path reads the raw entries."""
+    ``qffn``, with the all-layer stacks when ``alllayer``, pruned to what
+    the mode-2 forward reads when ``prune``, ``sga_mode == 2`` and not
+    ``alllayer`` (:593; and the width has the ``_mk`` layouts); the other
+    modes read the raw entries, and modes 3-5 without the stacks stack the
+    blocks' layouts per call."""
     return prepare_params(state_dict, num_layers, device, qffn=qffn,
-                          prune=prune and sga_mode == 2)
+                          prune=prune and sga_mode == 2 and not alllayer,
+                          num_heads=num_heads, alllayer=alllayer)
 
 
 def build_production_engine(state_dict: Mapping[str, torch.Tensor],
                             num_layers: int, num_heads: int, *, qffn=None,
                             act_scale_inputs=None, act_scales=None,
                             q8aux: bool = False, prune: bool = True,
-                            sga_mode: int = 2, bf16_stream: bool = True,
+                            sga_mode: int = 2, alllayer: bool = False,
+                            bf16_stream: bool = True,
                             use_pallas_ffn: bool = True, device="cuda",
                             **serving_kwargs) -> Tuple[Callable, Params]:
     """ONE construction path for the shipped serving engine
@@ -539,12 +632,13 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
     outside ``megakernel_vmem_ok`` too, with JAX's warning (the per-sub-op
     path has no int8 site).
     q8aux: the static-int8 aux sites (``prepare_q8aux_params``); they need
-    a calibration batch or stored scales with an "aux" tuple, and a
-    quantized level. sga_mode: 2, the per-block engine; 0, the per-sub-op
-    path (``make_serving_fn``); 1 and 3-5 are not ported. prune: prune the
+    a calibration batch or stored scales with an "aux" tuple, a quantized
+    level and sga_mode 1 or 2. sga_mode: 0-5, ``make_serving_fn``'s
+    ``use_sga_megakernel``. alllayer: attach the all-layer stacks once
+    (``prepare_params``) rather than stack them per call. prune: prune the
     mode-2 tree (``prepare_production_params``). bf16_stream,
     use_pallas_ffn and serving_kwargs (use_pallas, which defaults to False
-    here, and use_pallas_attflat) go to ``make_serving_fn``."""
+    here, use_pallas_attflat and sga_group) go to ``make_serving_fn``."""
     if act_scale_inputs is not None and act_scales is not None:
         raise ValueError(
             "pass a calibration batch OR precomputed scales, not both")
@@ -570,13 +664,10 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
         raise ValueError(
             f"q8aux applies to the per-block megakernel engines (sga_mode "
             f"1/2), got sga_mode={sga_mode}")
-    if sga_mode not in (0, 2):
-        raise NotImplementedError(
-            f"sga_mode={sga_mode}: the port runs the per-sub-op path (0) and "
-            f"the per-block engine (2) only")
     prepared = prepare_production_params(state_dict, num_layers, qffn=qffn,
                                          sga_mode=sga_mode, prune=prune,
-                                         device=device)
+                                         device=device, num_heads=num_heads,
+                                         alllayer=alllayer)
     if q8aux:
         prepared["_q8aux"] = prepare_q8aux_params(prepared, num_layers)
     if (act_scale_inputs is not None or act_scales is not None) and qffn \

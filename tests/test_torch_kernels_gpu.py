@@ -1077,3 +1077,158 @@ def test_seeded_sa_block_equals_the_block_fed_the_dump(cuda):
                                  sa.fused_sa_block_train, (x,), w,
                                  sa.SA_WEIGHT_NAMES, probe, call, masks)
     assert counts["sa_train_fwd_prng"] == counts["sa_train_bwd_prng"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the all-layer stacks: sga_decoder (in-kernel and external k/v), sa_encoder
+# ---------------------------------------------------------------------------
+
+def _stack(cuda, shapes, seed):
+    """Random stacked weights: matrices bf16 scaled by 1 / sqrt(fan-in),
+    biases f32, LayerNorm scales 1 + noise."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = {}
+    for n, shape in shapes.items():
+        t = torch.randn(*shape, generator=g, device=cuda)
+        if len(shape) == 3:
+            w[n] = (t / shape[1] ** 0.5).to(BF16)
+        else:
+            w[n] = 1 + 0.1 * t if n.endswith("_s") else 0.1 * t
+    return w
+
+
+def _decoder_weights(cuda, L, D, F, seed=0):
+    DD = (L, D, D)
+    shapes = {"wqkv1": (L, D, 3 * D), "bqkv1": (L, 3 * D), "wm1": DD,
+              "wkv2": (L, D, 2 * D), "bkv2": (L, 2 * D), "wq2": DD,
+              "wm2": DD, "w1": (L, D, F), "b1": (L, F), "w2": (L, F, D)}
+    shapes.update({n: (L, D) for n in ("bm1", "ln1_s", "ln1_b", "bq2", "bm2",
+                                       "ln2_s", "ln2_b", "b2", "ln3_s",
+                                       "ln3_b")})
+    return _stack(cuda, shapes, seed)
+
+
+def _encoder_weights(cuda, L, D, F, seed=0):
+    shapes = {"wqkv": (L, D, 3 * D), "bqkv": (L, 3 * D), "wm": (L, D, D),
+              "w1": (L, D, F), "b1": (L, F), "w2": (L, F, D)}
+    shapes.update({n: (L, D) for n in ("bm", "ln1_s", "ln1_b", "b2", "ln2_s",
+                                       "ln2_b")})
+    return _stack(cuda, shapes, seed)
+
+
+def _pads(cuda, B, L, seed):
+    """Ragged lengths, sample 0 fully padded when B > 1."""
+    lens = torch.tensor([L if B == 1 else (i * 7 + seed) % (L + 1)
+                         for i in range(B)], device=cuda)
+    if B > 1:
+        lens[0] = 0
+    return (torch.arange(L, device=cuda)[None] >= lens[:, None])[:, None,
+                                                                 None]
+
+
+# Two layers, each a bf16 rounding (qkv, the probabilities, h) a step apart
+# where the sums run in another order: 2^-4 on values of LayerNorm scale.
+STACK_TOL = 2 ** -4
+
+
+@pytest.mark.parametrize("B,Lv,Lq,D,F,H,kv,dtype", [
+    (1, 60, 14, 512, 2048, 8, "in", BF16),
+    (5, 60, 14, 512, 2048, 8, "ext", BF16),
+    (7, 160, 14, 256, 1024, 2, "in", torch.float32),   # Dh 128, 3 key chunks
+    (3, 37, 130, 256, 512, 2, "ext", torch.float32)])  # 130 cross keys
+def test_sga_decoder_matches_plain(cuda, B, Lv, Lq, D, F, H, kv, dtype):
+    L = 2
+    g = torch.Generator(device=cuda).manual_seed(B)
+    w = _decoder_weights(cuda, L, D, F, seed=B)
+    v = torch.randn(B, Lv, D, generator=g, device=cuda).to(dtype)
+    q = torch.randn(B, Lq, D, generator=g, device=cuda).to(dtype)
+    vm, qm = _pads(cuda, B, Lv, 1), _pads(cuda, B, Lq, 2)
+    if kv == "in":
+        kw = dict(q=q)
+    else:
+        kq, vq = torch.randn(2, B, L * H, Lq, D // H, generator=g,
+                             device=cuda).to(dtype).unbind(0)
+        kw = dict(kq=kq, vq=vq)
+    before = K.launch_counts().get("sga_decoder", 0)
+    out = K.sga_decoder(v, vm, qm, w, num_heads=H, **kw)
+    assert K.launch_counts()["sga_decoder"] == before + 1
+    ref = K.sga_decoder_plain(v, vm, qm, w, num_heads=H, **kw)
+    assert out.dtype == dtype and out.shape == (B, Lv, D)
+    _close(out, ref, STACK_TOL)
+    # any grid that fits gives the same bits: each work item is one block's
+    small = K.sga_decoder(v, vm, qm, w, num_heads=H, max_blocks=3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(small, out)
+    grid, per_sm, sms, smem = K.LAST_GRID["sga_decoder"]
+    assert grid == 3 and per_sm >= 1 and sms >= 1 and smem > 0
+
+
+@pytest.mark.parametrize("B,Lq,D,F,H,dtype", [
+    (1, 14, 512, 2048, 8, BF16), (9, 14, 512, 2048, 8, BF16),
+    (4, 150, 256, 1024, 2, torch.float32)])
+def test_sa_encoder_matches_plain(cuda, B, Lq, D, F, H, dtype):
+    L = 2
+    g = torch.Generator(device=cuda).manual_seed(B)
+    w = _encoder_weights(cuda, L, D, F, seed=B)
+    x = torch.randn(B, Lq, D, generator=g, device=cuda).to(dtype)
+    xm = _pads(cuda, B, Lq, 3)
+    before = K.launch_counts().get("sa_encoder", 0)
+    out = K.sa_encoder(x, xm, w, num_heads=H)
+    assert K.launch_counts()["sa_encoder"] == before + 1
+    ref = K.sa_encoder_plain(x, xm, w, num_heads=H)
+    _close(out, ref, STACK_TOL)
+    small = K.sa_encoder(x, xm, w, num_heads=H, max_blocks=2)
+    torch.cuda.synchronize()
+    assert torch.equal(small, out)
+
+
+def test_stacks_raise_on_unsupported_shapes(cuda):
+    w = _encoder_weights(cuda, 1, 520, 1040)
+    x = torch.zeros(2, 14, 520, dtype=BF16, device=cuda)
+    xm = torch.zeros(2, 1, 1, 14, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="D / H"):
+        K.sa_encoder(x, xm, w, num_heads=2)      # Dh 260
+    w = _decoder_weights(cuda, 1, 64, 128)
+    v = torch.zeros(2, 8, 64, dtype=BF16, device=cuda)
+    vm = torch.zeros(2, 1, 1, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="pass q"):
+        K.sga_decoder(v, vm, vm, w, num_heads=4)
+    w["w1"] = w["w1"].float()
+    with pytest.raises(ValueError, match="w1"):
+        K.sga_decoder(v, vm, vm, w, num_heads=4, q=v)
+
+
+def test_head_major_block_and_alllayer_engines_on_the_card(cuda):
+    """Modes 1, 3, 4, 5 of build_production_engine at 2 layers against the
+    plain engine on the same card, and their launches: mode 1 one
+    head-major block per layer; modes 3 / 4 one sga_decoder and the
+    per-block encoder; mode 5 one sga_decoder and one sa_encoder."""
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    cfg, sd, *_ = _small_model()
+    L, H = cfg.layer, cfg.multi_head
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(np.abs(rng.normal(size=(3, 60, 64))).astype(
+        np.float32)).to(cuda)
+    img[1, 20:] = 0
+    ques = torch.from_numpy(rng.integers(1, 8, size=(3, 14))).to(cuda)
+    ques[2, 5:] = 0
+    plain, pprep = build_production_engine(sd, L, H, qffn=0, sga_mode=0,
+                                           use_pallas_ffn=False,
+                                           bf16_stream=False, device="cpu")
+    with torch.no_grad():
+        ref = torch.sigmoid(plain(pprep, img.cpu(), ques.cpu()))
+    want = {1: {"fused_sga_block_head_major": L},
+            3: {"sga_decoder": 1, "fused_sa_block": L},
+            4: {"sga_decoder": 1, "fused_sa_block": L},
+            5: {"sga_decoder": 1, "sa_encoder": 1}}
+    for mode, launches in want.items():
+        fwd, prep = build_production_engine(sd, L, H, qffn=0, sga_mode=mode,
+                                            alllayer=mode > 2, device=cuda)
+        K.reset_launches()
+        with torch.no_grad():
+            out = torch.sigmoid(fwd(prep, img, ques))
+        counts = K.launch_counts()
+        for name, n in launches.items():
+            assert counts.get(name, 0) == n, (mode, counts)
+        # the bf16 stream against f32 on the plain side: the bf16 bound
+        np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-2)

@@ -9,7 +9,7 @@ the plain versions of its kernels, against the JAX package:
     mode-2 forward past the gate taking mode 0;
   * a 1-layer hidden-1536 ``Predictor`` against the JAX one: both route
     to mode 0 and both drop their calibration with JAX's warning;
-  * the refusals: the experiment modes, q8aux with the Pallas AttFlat.
+  * the refusal of q8aux with the Pallas AttFlat.
 """
 
 import warnings
@@ -142,15 +142,6 @@ def test_mode2_past_the_gate_takes_mode0(setup, monkeypatch):
     assert "_mk" not in prep2["backbone"]["enc_0"]
     assert torch.equal(_forward(mode2, prep2, img, ques),
                        _forward(mode0, prep0, img, ques))
-
-
-@pytest.mark.parametrize("mode", [1, 3, 4, 5])
-def test_experiment_modes_are_not_ported(setup, mode):
-    _, sd, _, _ = setup
-    with pytest.raises(NotImplementedError, match="sga_mode"):
-        tserving.build_production_engine(sd, DIMS["layer"],
-                                         DIMS["multi_head"], qffn=0,
-                                         sga_mode=mode, device="cpu")
 
 
 def test_q8aux_does_not_compose_with_the_pallas_attflat(setup):
