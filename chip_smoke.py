@@ -92,6 +92,20 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              the same seeded blocks at hidden 768 (4 heads of 192) and at
              160 image rows (the long attention kernels, forward and
              backward);
+  [last sites]  main path 1g, the last three Pallas sites: ffn_ln_blocked
+             and ffn_ln_wstationary (the streaming FFN + LayerNorm kernels)
+             against their plain version at MCAN-large (M 3840, 60, a
+             ragged 61 with a bf16 x) and MCAN-small (M 3840), two runs and
+             a 7-block grid equal bit for bit, with times, the addmm
+             yardstick of the first product and the bound; the SGA train
+             block with save_acts=False (the recompute FFN backward) at
+             MCAN-small B=64 and MCAN-large micro-batch 32 (bf16_saves both
+             ways) against the plain block under autograd, the seeded block
+             against the block fed the dump bit for bit; the recompute
+             piece's time beside the saved-activation piece's, the bytes
+             the variant holds from forward to backward and its peak; then
+             the public
+             entry points once each with the counts set to 0 around them;
   [train]    main path 2: ``Trainer`` on ``SyntheticVQADataset`` at the
              same width, batch 64, one epoch of 10 steps, the encoder
              through the SA train blocks and the decoder through the SGA
@@ -114,9 +128,10 @@ Builds the port's CUDA kernels from the checkout's sources, then:
 
 Launch counts are set to 0 just before each main path and read just after
 it. Kernel and block times are device times (CUDA-graph replay), but for
-the all-layer stacks and the head-major block of [all-layer]: CUDA events
-around 20 eager calls queued back to back (a cooperative launch is not
-captured into a graph here); step and forward times are CUDA events
+the all-layer stacks and the head-major block of [all-layer] and
+ffn_ln_wstationary: CUDA events around 20 eager calls queued back to back
+(a cooperative launch is not captured into a graph here); step and forward
+times are CUDA events
 around eager calls, the host's launch time included. A failed build, launch or tolerance exits non-zero. The
 next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -278,6 +293,8 @@ def main() -> None:
     phase_done("all-layer")
     check_envelope(torch, dev, vocab, ix_to_ans, rows)
     phase_done("envelope")
+    check_last_sites(torch, dev, rows)
+    phase_done("last sites")
     work = ROOT / "ckpts" / "chip_smoke"
     try:
         trainer, ckpt = train_main_path(torch, dev, rows, work)
@@ -2115,20 +2132,24 @@ def check_train_block(torch, dev, rows) -> None:
         "sa_train_bwd_prng": lambda: sa._backward(gq, xqs, qmask, pssaves,
                                                   sps, swk, spinv, H)},
         {k + "_prng": (f, b - no_mask[k]) for k, (f, b) in work.items()}, 6)
-    # _bwd_kernel (save_acts=False: the FFN recomputed from x1), on no
-    # Trainer path: timed beside _bwd_kernel_sav, not in the row
-    _, rsaves = sa._forward(xqs, qmask, sam, swk, inv, H, save_acts=False)
-    recompute = lambda: sa._backward(gq, xqs, qmask, rsaves, sam, swk,  # noqa: E731
-                                     inv, H)
-    # the work of _bwd_kernel_sav plus the recomputed x1 . W1 product,
-    # without reading the saved h1d
+    # _bwd_kernel and its seeded body _bwd_kernel_prng (save_acts=False:
+    # the FFN recomputed from x1), on no Trainer path: timed beside
+    # _bwd_kernel_sav, not in the rows. Their work: _bwd_kernel_sav's plus
+    # the recomputed x1 . W1 and h1d . W2 products, x1 (f32) read in place
+    # of r2 (f32) and h1d, and no mask bytes when seeded
     flops, nbytes = work["sa_train_bwd"]
-    say(f"  sa_train_bwd from save_acts=False (_bwd_kernel): "
-        f"{device_ms(torch, recompute, iters=10):.4f} ms vs plain "
-        f"{device_ms(torch, plain_path(K, recompute), iters=5):.4f} ms per "
-        f"block; bound "
-        f"{max(bound_parts(flops + 2 * Mq * D * F, nbytes - 2 * Mq * F)):.4f}"
-        f" ms")
+    for label, m, iv, no_mask in (("_bwd_kernel", sam, inv, 0),
+                                  ("_bwd_kernel_prng", sps, spinv,
+                                   sa_masks - Mq * F)):
+        _, rsaves = sa._forward(xqs, qmask, m, swk, iv, H, save_acts=False)
+        recompute = functools.partial(sa._backward, gq, xqs, qmask, rsaves,
+                                      m, swk, iv, H)
+        bound = max(bound_parts(flops + 4 * Mq * D * F,
+                                nbytes - 2 * Mq * F - no_mask))
+        say(f"  sa_train_bwd from save_acts=False ({label}): "
+            f"{device_ms(torch, recompute, iters=10):.4f} ms vs plain "
+            f"{device_ms(torch, plain_path(K, recompute), iters=5):.4f} ms "
+            f"per block; bound {bound:.4f} ms")
 
     Bl, Dl, Fl = BATCH // 2, 1024, 4096
     Ml = Bl * Lv
@@ -3967,6 +3988,286 @@ def check_envelope(torch, dev, vocab, ix_to_ans, rows) -> None:
     rows.launches("envelope blocks, Dh 192 / 160 rows", K.launch_counts(),
                   ("masked_attention_bwd, long",),
                   {"masked_attention_bwd, long": "masked_attention_bwd"})
+
+
+# ---------------------------------------------------------------------------
+# phase: the last Pallas sites -- the SGA train block's recompute FFN
+# backward (save_acts=False) and the two streaming FFN + LayerNorm kernels
+# ---------------------------------------------------------------------------
+
+RECOMPUTE_UNIT = ("the six decoder blocks of one B=64 MCAN-small step with "
+                  "save_acts=False")
+FFN_UNIT = "one call at MCAN-large B=64 (M 3840, D 1024, F 4096)"
+LAST_SITE_ROWS = (
+    ("ffn_ln_blocked", SRC + "ffn_ln_blocked.cu", TPU_FFN + ":174",
+     FFN_UNIT),
+    ("ffn_ln_wstationary", SRC + "ffn_ln_wstationary.cu", TPU_FFN + ":263",
+     FFN_UNIT),
+    ("sga_train_bwd_ffn_recompute", "mcan_vqa_tpu_torch/ops/sga_train.py",
+     TPU_TRAIN + ":1024", RECOMPUTE_UNIT),
+    ("sga_train_bwd_ffn_recompute_prng",
+     "mcan_vqa_tpu_torch/ops/sga_train.py", TPU_TRAIN + ":568",
+     RECOMPUTE_UNIT))
+# (label, M, D, F, x dtype); the first is the row's unit
+FFN_CASES = (("MCAN-large B=64", 3840, 1024, 4096, "float32"),
+             ("MCAN-large B=1", 60, 1024, 4096, "float32"),
+             ("MCAN-large ragged M=61", 61, 1024, 4096, "bfloat16"),
+             ("MCAN-small B=64", 3840, 512, 2048, "float32"))
+# the streaming kernels against their plain version: f32 out, the same
+# exact bf16 products summed in another order (h's bf16 rounding may land
+# a step apart where the order moves a sum across a rounding boundary),
+# then an LN of O(1) values
+FFN_TOL = 1e-3
+
+
+def ffn_work(M, D, F, x_size):
+    """(operations, bytes) of one streaming FFN + LN call: the two products
+    and the residual + LN; x, both weights, b1, b2 / gamma / beta read
+    once, the f32 out written once."""
+    return (4 * M * D * F + 10 * M * D,
+            x_size * M * D + 2 * 2 * D * F + 4 * F + 12 * D + 4 * M * D)
+
+
+def recompute_work(M, D, F, seeded):
+    """(operations, bytes) of one recompute FFN backward (_bwd_ffn_kernel):
+    6 products of 2 M D F (the two recomputed, dh1d, gv2's da1 . W1^T, dW1,
+    dW2); in: g and v2 (f32), the bf16 v2, the h1 / y3 masks (none when
+    seeded), W1 / W2 (bf16), b1, b2, ln3_s; out: gv2 (f32) and dW1, dW2,
+    db1, db2, dln3_s, dln3_b (f32)."""
+    masks = 0 if seeded else M * F + M * D
+    return (12 * M * D * F,
+            4 * M * D * 2 + 2 * M * D + masks + 2 * 2 * D * F + 4 * (F + 2 * D)
+            + 4 * M * D + 4 * 2 * D * F + 4 * (F + 3 * D))
+
+
+def check_streaming_ffn(torch, dev, rows):
+    """Both streaming kernels against their plain version at each of
+    FFN_CASES, with times; the MCAN-large B=64 call into the rows. Returns
+    that case's operands (the main path's inputs)."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    kc = KernelCheck(torch, dev, rows, SEED + 90)
+    bf16 = torch.bfloat16
+    first = None
+    for label, M, D, F, xdt in FFN_CASES:
+        x = kc.randn(M, D, dtype=getattr(torch, xdt))
+        w1 = (kc.randn(D, F) / D ** 0.5).to(bf16)
+        w2 = (kc.randn(F, D) / F ** 0.5).to(bf16)
+        b1, b2, beta = kc.randn(F, s=0.1), kc.randn(D, s=0.1), kc.randn(
+            D, s=0.1)
+        gamma = 1 + kc.randn(D, s=0.1)
+        ops = (x, w1, b1, w2, b2, gamma, beta)
+        first = first or ops
+        flops, nbytes = ffn_work(M, D, F, x.element_size())
+        ref = K.ffn_ln_plain(*ops)
+        t_p = device_ms(torch, lambda: K.ffn_ln_plain(*ops), iters=5)
+        xb = x.to(bf16)
+        t_y = device_ms(torch, lambda: torch.addmm(b1.to(bf16), xb, w1))
+        op, by = bound_parts(flops, nbytes)
+        for name in ("ffn_ln_blocked", "ffn_ln_wstationary"):
+            fn = getattr(K, name)
+            out = fn(*ops)
+            torch.cuda.synchronize()
+            if out.shape != (M, D) or out.dtype != torch.float32 or \
+                    not torch.isfinite(out).all():
+                fail(f"{name} {label}: {tuple(out.shape)} {out.dtype} or "
+                     f"non-finite")
+            err = max_err(out, ref)
+            gate(f"{name} {label} [{M}x{D}] F={F} x {xdt}", err,
+                 FFN_TOL * (float(ref.abs().max()) + 1e-6))
+            rows.err(name, err)
+            if not torch.equal(out, fn(*ops)):
+                fail(f"{name} {label}: two runs differ")
+            grid = ""
+            if name == "ffn_ln_wstationary":
+                g = K.LAST_GRID[name]
+                grid = (f", grid {g[0]} blocks ({g[1]} per SM on {g[2]} "
+                        f"SMs, {g[3]} B shared memory)")
+                if not torch.equal(out, fn(*ops, max_blocks=7)):
+                    fail(f"{name} {label}: a 7-block grid changes the bits")
+            t_k = cuda_ms(torch, lambda: fn(*ops)) if \
+                name == "ffn_ln_wstationary" else device_ms(
+                    torch, lambda: fn(*ops))
+            say(f"    {name} {label}: {t_k:.4f} ms vs plain {t_p:.4f} ms, "
+                f"yardstick addmm of the first product {t_y:.4f} ms (no "
+                f"single PyTorch call computes FFN + LN); bound "
+                f"{max(op, by):.4f} ms by "
+                f"{'operations' if op >= by else 'bytes'} "
+                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB){grid}; "
+                f"two runs equal bit for bit"
+                + ("; 7 blocks equal too" if grid else ""))
+            if label == FFN_CASES[0][0]:
+                rows.add(name, 1, t_k, t_p, flops, nbytes)
+    return first
+
+
+def recompute_memory(torch, st, x, kq, vq, vm, qm, masks, w, inv, probe,
+                     H) -> None:
+    """One block's forward + backward, save_acts True and False: the bytes
+    held from the forward to the backward and the peak allocated."""
+    def once(save_acts):
+        ls = [t.clone().requires_grad_() for t in (x, kq, vq)]
+        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = st.fused_sga_block_train(*ls, vm, qm, masks, ws, num_heads=H,
+                                       inv_keep=inv, save_acts=save_acts)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        (out * probe).sum().backward()
+        torch.cuda.synchronize()
+        return held, torch.cuda.max_memory_allocated() - base
+
+    (h1, p1), (h0, p0) = once(True), once(False)
+    B, Lv, D = x.shape
+    M, F = B * Lv, w["w1"].shape[1]
+    say(f"  memory, one SGA block at B={B} (M {M}, D {D}, F {F}): held from "
+        f"the forward to the backward {h1 / 1e6:.1f} MB with save_acts, "
+        f"{h0 / 1e6:.1f} MB without ({(h1 - h0) / 1e6:.1f} MB less; "
+        f"M 2 F = {M * 2 * F / 1e6:.1f} MB: h1d, and the f32 r3 for the f32 "
+        f"v2); peak over forward + backward "
+        f"{p1 / 1e6:.1f} / {p0 / 1e6:.1f} MB")
+    if not h0 < h1:
+        fail("save_acts=False holds no fewer bytes than save_acts=True")
+
+
+def check_recompute(torch, dev, rows):
+    """fused_sga_block_train(save_acts=False) and its seeded twin against
+    the plain block (autograd) and the block fed the dump, at MCAN-small
+    B=64 and MCAN-large's micro-batch of 32 (bf16_saves both ways); the
+    recompute FFN backward's time beside the _sav piece's; the memory the
+    variant saves."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    rate, seed, H = 0.1, PRNG_SEED + 2, 8
+    Lv, Lq = 60, 14
+    for label, B, D, F, b16 in (("MCAN-small", BATCH, 512, 2048, False),
+                                ("MCAN-large", BATCH // 2, 1024, 4096,
+                                 False),
+                                ("MCAN-large, bf16_saves", BATCH // 2, 1024,
+                                 4096, True)):
+        say(f"[last sites] fused_sga_block_train(save_acts=False, "
+            f"bf16_saves={b16}) vs the plain block (autograd): {label}, "
+            f"B={B}, rate 0.1, fully padded samples")
+        x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(
+            torch, dev, B=B, D=D, F=F)
+        block_vs_plain(
+            torch, f"SGA train block, save_acts=False, {label}",
+            functools.partial(st.fused_sga_block_train, save_acts=False,
+                              bf16_saves=b16),
+            st.fused_sga_block_train_plain, (x, kq, vq), w, st.WEIGHT_NAMES,
+            probe, lambda blk, ls, ws: blk(*ls, vm, qm, masks, ws,
+                                           num_heads=H, inv_keep=inv), rows,
+            lambda n: "sga_train_bwd_ffn_recompute", ("x", "kq", "vq"))
+        dump, inv_d = st.dump_prng_masks(seed, rate, B, Lv, Lq, D, F, H,
+                                         device=dev)
+        kw = dict(num_heads=H, bf16_saves=b16, save_acts=False)
+        seeded_vs_dump(
+            torch, f"SGA train block, save_acts=False, {label}",
+            lambda ls, ws: st.fused_sga_block_train_prng(
+                *ls, vm, qm, seed, ws, rate=rate, **kw),
+            lambda ls, ws: st.fused_sga_block_train(
+                *ls, vm, qm, dump, ws, inv_keep=inv_d, **kw),
+            lambda ls, ws: st.fused_sga_block_train_prng_plain(
+                *ls, vm, qm, seed, ws, num_heads=H, rate=rate),
+            (x, kq, vq), ("x", "kq", "vq"), w, st.WEIGHT_NAMES, probe, rows,
+            lambda n: "sga_train_bwd_ffn_recompute_prng")
+        if label != "MCAN-small":
+            continue
+        recompute_memory(torch, st, x, kq, vq, vm, qm, masks, w, inv, probe,
+                         H)
+        # the FFN backward pieces: from the saves (_bwd_ffn_kernel_sav) and
+        # recomputed (_bwd_ffn_kernel), external masks and seeded
+        M = B * Lv
+        wk = st._kernel_weights([w[n] for n in st.WEIGHT_NAMES])
+        xs, g = x.contiguous(), probe.reshape(M, D).contiguous()
+        ps, pinv = st.prng_sites(PRNG_SEED, rate, Lv)
+        pieces, work = {}, {}
+        for name, m, iv, acts in (
+                ("sga_train_bwd_ffn (save_acts)", masks, inv, True),
+                ("sga_train_bwd_ffn_recompute", masks, inv, False),
+                ("sga_train_bwd_ffn_recompute_prng", ps, pinv, False)):
+            sv = st._forward(xs, kq, vq, vm, qm, m, wk, iv, H,
+                             save_acts=acts)[1]
+            pieces[name] = functools.partial(st._bwd_ffn, g, sv, m, wk, iv)
+            work[name] = recompute_work(M, D, F, m is ps)
+        sav_f, _ = work["sga_train_bwd_ffn (save_acts)"]
+        # the _sav piece reads r3 (f32) and h1d (bf16) and recomputes no
+        # product: 4 products, r3 in place of v2, h1d in place of the h1
+        # mask
+        work["sga_train_bwd_ffn (save_acts)"] = (
+            sav_f - 4 * M * D * F, work["sga_train_bwd_ffn_recompute"][1]
+            + 2 * M * F - M * F)
+        for name, fn in pieces.items():
+            flops, nbytes = work[name]
+            t_k = device_ms(torch, fn, iters=10)
+            t_p = device_ms(torch, plain_path(K, fn), iters=5)
+            op, by = bound_parts(flops, nbytes)
+            say(f"  {name}: {t_k:.4f} ms vs plain {t_p:.4f} ms per block; "
+                f"bound {max(op, by):.4f} ms by "
+                f"{'operations' if op >= by else 'bytes'} "
+                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            if name in rows.rows:
+                rows.add(name, 6, t_k, t_p, flops, nbytes)
+
+
+def check_last_sites(torch, dev, rows) -> None:
+    """The streaming kernels and the recompute blocks against their plain
+    twins with times (``check_streaming_ffn``, ``check_recompute``); then
+    the slice's main path: fused_ffn_ln_blocked and
+    fused_ffn_ln_weight_stationary at MCAN-large B=64 and the SGA train
+    block with save_acts=False, external masks and seeded, forward and
+    backward at MCAN-small B=64, with the counts set to 0 just before and
+    read just after."""
+    from mcan_vqa_tpu_torch.ops import fused_ffn
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    for name, source, replaces, unit in LAST_SITE_ROWS:
+        rows.row(name, source, replaces, unit)
+    say("[last sites] ffn_ln_blocked and ffn_ln_wstationary vs their plain "
+        f"version (tol {FFN_TOL} of max|ref|)")
+    x, w1, b1, w2, b2, gamma, beta = check_streaming_ffn(torch, dev, rows)
+    check_recompute(torch, dev, rows)
+
+    H, seed = 8, PRNG_SEED + 3
+    bx, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(
+        torch, dev, B=BATCH)
+    x3 = x.view(BATCH, 60, x.shape[1])
+    K.reset_launches()
+    outs = [fused_ffn.fused_ffn_ln_blocked(x3, w1, b1, w2, b2, gamma, beta),
+            fused_ffn.fused_ffn_ln_weight_stationary(x3, w1, b1, w2, b2,
+                                                     gamma, beta)]
+    grads = []
+    for block, src, kw in (
+            (st.fused_sga_block_train, masks, dict(inv_keep=inv)),
+            (st.fused_sga_block_train_prng, seed, dict(rate=0.1))):
+        ls = [t.clone().requires_grad_() for t in (bx, kq, vq)]
+        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
+        out = block(*ls, vm, qm, src, ws, num_heads=H, save_acts=False, **kw)
+        (out * probe).sum().backward()
+        outs.append(out.detach())
+        grads += [t.grad for t in ls] + [ws[n].grad for n in st.WEIGHT_NAMES]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    say(f"[launches] last sites (2 streaming FFN calls, 2 SGA train blocks "
+        f"with save_acts=False): {counts}")
+    want = {"ffn_ln_blocked": 1, "ffn_ln_wstationary": 1,
+            "sga_train_fwd": 1, "sga_train_fwd_prng": 1,
+            "sga_train_bwd_ffn_recompute": 1,
+            "sga_train_bwd_ffn_recompute_prng": 1, "sga_train_bwd_att": 1,
+            "sga_train_bwd_att_prng": 1}
+    got = {k: counts.get(k, 0) for k in list(want) + ["sga_train_bwd_ffn"]}
+    if got != dict(want, sga_train_bwd_ffn=0):
+        fail(f"last sites: block launches {got}, expected {want}")
+    for name in ("gemm_bias_act", "gemm_dx", "gemm_dw",
+                 "residual_layernorm_bwd", "col_sum"):
+        if counts.get(name, 0) < 2:
+            fail(f"last sites: {name} launched {counts.get(name, 0)} times")
+    if not all(torch.isfinite(t).all() for t in outs + grads):
+        fail("last sites: non-finite outputs or gradients")
+    if max_err(outs[0], outs[1]) > FFN_TOL * float(outs[0].abs().max()):
+        fail("last sites: the two streaming kernels disagree")
+    rows.launches("last sites", counts, [r[0] for r in LAST_SITE_ROWS])
 
 
 def check_repeated_batch(torch, trainer) -> None:

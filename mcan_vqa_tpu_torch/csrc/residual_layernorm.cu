@@ -95,14 +95,7 @@ residual_layernorm_kernel(const ResT* __restrict__ res, const float* __restrict_
     r[t] = v;
     sum += v;
   }
-  const float mean = warp_sum(sum) / D;
-  float ss = 0.0f;
-#pragma unroll
-  for (int t = 0; t < VPT; ++t) {
-    r[t] -= mean;
-    ss += r[t] * r[t];
-  }
-  const float denom = sqrtf(warp_sum(ss) / (D - 1)) + eps;
+  const float denom = ln::centre_regs(r, VPT, D, sum, eps);
   const float inv = 1.0f / denom;
 #pragma unroll
   for (int t = 0; t < VPT; ++t) {

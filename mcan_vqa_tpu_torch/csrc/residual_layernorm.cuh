@@ -1,7 +1,7 @@
 // What residual_layernorm.cu (forward), residual_layernorm_bwd.cu
-// (backward) and gemm_ln.cu share: the block shapes, the choice of kernel
-// by width, the row statistics of a row staged in shared memory, and the
-// dropout keep source.
+// (backward), gemm_ln.cu and the streaming FFN kernels share: the block
+// shapes, the choice of kernel by width, the row statistics of a row staged
+// in shared memory or held in registers, and the dropout keep source.
 #pragma once
 
 #include <math.h>
@@ -36,6 +36,24 @@ __device__ __forceinline__ float centre_row(float* r, int D, int lane, float sum
     const float d = r[c] - mean;
     r[c] = d;
     ss += d * d;
+  }
+  return sqrtf(warp_sum(ss) / (D - 1)) + eps;
+}
+
+// centre_row for a row that one warp holds in registers: this lane's
+// values r[0, n) (n <= N; r[n, N) unused), the row D wide, `sum` this
+// lane's part of its sum. Centres r[0, n) in place and returns the same
+// denominator.
+template <int N>
+__device__ __forceinline__ float centre_regs(float (&r)[N], int n, int D, float sum, float eps) {
+  const float mean = warp_sum(sum) / D;
+  float ss = 0.0f;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (t < n) {
+      r[t] -= mean;
+      ss += r[t] * r[t];
+    }
   }
   return sqrtf(warp_sum(ss) / (D - 1)) + eps;
 }

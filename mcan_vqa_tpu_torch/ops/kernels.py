@@ -22,6 +22,10 @@ PyTorch version.
                                                                sga_decoder.cu
   sa_encoder             every SA layer in one cooperative launch
                                                                sa_encoder.cu
+  ffn_ln_blocked         LN(x + relu(x . W1 + b1) . W2 + b2), M outer
+                                                               ffn_ln_blocked.cu
+  ffn_ln_wstationary     the same, F outer, weights stationary
+                                                           ffn_ln_wstationary.cu
   dump_prng_masks        the keep-masks of seeded sites        prng_masks.cu
   philox_words           the Philox4x32-10 words behind them   prng_masks.cu
 
@@ -1429,4 +1433,125 @@ def sa_encoder(x: torch.Tensor, x_mask: torch.Tensor, wp, *, num_heads: int,
         ctypes.addressof(w), ctypes.addressof(scratch), out.data_ptr(),
         int(out.dtype == F32), B, Lq, D, F, H, L, 1.0 / (D // H) ** 0.5,
         LN_EPS, int(max_blocks), ctypes.addressof(info), _stream(x)), info)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the streaming FFN + LayerNorm: ffn_ln_blocked (M outer), ffn_ln_wstationary
+# (F outer, weight-stationary)
+# ---------------------------------------------------------------------------
+
+FFN_LN_MAX_WIDTH = 2048   # D: a multiple of 128 up to this
+FFN_LN_FLAG_CAP = 1 << 20  # bytes of row-tile flags ffn_ln_wstationary takes
+
+
+def ffn_tiles(D: int) -> Tuple[int, int, int]:
+    """The streaming kernels' tiles at width D, as csrc/ffn_ln.cuh picks
+    them: (row tile, ffn_ln_blocked's F tile, ffn_ln_wstationary's F
+    slice). The row tile keeps the f32 row sums, TM x D, within 128 KB of
+    shared memory. Zeros for a width the kernels do not take."""
+    if D < 128 or D > FFN_LN_MAX_WIDTH or D % 128:
+        return 0, 0, 0
+    tm = 64 if D <= 512 else 32 if D <= 1024 else 16
+    return tm, 4096 // tm, 16 if tm == 16 else 32
+
+
+def ffn_ln_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor) -> torch.Tensor:
+    """StdLayerNorm(x + relu(x . w1 + b1) . w2 + b2) at the streaming
+    kernels' precision: x read as f32 and rounded to bf16 for the first
+    product, h rounded to bf16, products summed in f32, r = (x + h . w2) +
+    b2, the reference LN divided by (std + eps); f32 [M, D]."""
+    x32 = x.float()
+    h = torch.relu(bf16_matmul(x32, w1) + b1).to(BF16)
+    r = x32 + bf16_matmul(h, w2) + b2
+    return std_layer_norm(r, gamma, beta, LN_EPS)
+
+
+def _check_ffn(name: str, x, w1, b1, w2, b2, gamma, beta, step: int):
+    """The operands the streaming kernels take (F a multiple of their F
+    step, ``ffn_tiles(D)[step]``) -> (M, D, F); raises for any other."""
+    _same_device(name, x, w1, b1, w2, b2, gamma, beta)
+    _require(x.dim() == 2 and x.dtype in (F32, BF16) and x.is_contiguous()
+             and x.data_ptr() % 16 == 0,
+             f"{name}: x must be a contiguous 16-byte aligned f32 or bf16 "
+             f"[M, D]")
+    M, D = x.shape
+    _require(w1.dim() == 2 and w1.shape[0] == D and w2.dim() == 2
+             and tuple(w2.shape) == (w1.shape[1], D),
+             f"{name}: w1 [D, F] and w2 [F, D] with D={D}, got "
+             f"{tuple(w1.shape)}, {tuple(w2.shape)}")
+    F, f_step = w1.shape[1], ffn_tiles(D)[step]
+    _require(f_step > 0 and F > 0 and F % f_step == 0,
+             f"{name}: takes D a multiple of 128 up to {FFN_LN_MAX_WIDTH} "
+             f"and F a multiple of its F step ({f_step}); got D={D}, F={F}")
+    for w in (w1, w2):
+        _require(w.dtype == BF16 and w.is_contiguous()
+                 and w.data_ptr() % 16 == 0,
+                 f"{name}: w1 and w2 must be contiguous 16-byte aligned bf16")
+    _check_vec(name, b1, F)
+    for t in (b2, gamma, beta):
+        _check_vec(name, t, D)
+        _require(t.data_ptr() % 16 == 0,
+                 f"{name}: b2, gamma and beta must be 16-byte aligned")
+    return M, D, F
+
+
+def ffn_ln_blocked(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor) -> torch.Tensor:
+    """StdLayerNorm(x + relu(x . w1 + b1) . w2 + b2) in one launch of
+    csrc/ffn_ln_blocked.cu (``_ffn_ln_blocked_kernel``,
+    mcan_vqa_tpu/ops/fused_ffn.py:121): a block per row tile walks the F
+    tiles, the hidden never leaves shared memory. x [M, D] f32 or bf16, w1
+    [D, F] and w2 [F, D] bf16, vectors f32 -> f32 [M, D]. D a multiple of
+    128 up to 2048, F a multiple of the F tile (``ffn_tiles``), any M."""
+    if not on_cuda(x):
+        return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
+    name = "ffn_ln_blocked"
+    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, 1)
+    out = torch.empty((M, D), dtype=F32, device=x.device)
+    if M == 0:
+        return out
+    rc = _lib().mcan_ffn_ln_blocked(
+        x.data_ptr(), int(x.dtype == F32), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), M, D, F, LN_EPS, _stream(x))
+    _check(rc, name)
+    return out
+
+
+def ffn_ln_wstationary(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                       w2: torch.Tensor, b2: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor, *,
+                       max_blocks: int = 0) -> torch.Tensor:
+    """The same function in one cooperative launch of
+    csrc/ffn_ln_wstationary.cu (``_ffn_ln_wstationary_kernel``,
+    fused_ffn.py:201): a block holds an F slice of W1 and W2 (32 hidden
+    units, 16 past D 1024) in shared memory and walks every row tile; the
+    output carries the running sum, passed from slice to slice in F order
+    through one int32 flag per row tile (the workspace, refused past
+    FFN_LN_FLAG_CAP bytes; 480 bytes at MCAN-large B=64). D a multiple of
+    128 up to 2048, F a multiple of the slice (``ffn_tiles``), any M. max_blocks > 0 caps the grid (the result does not
+    depend on it); ``LAST_GRID["ffn_ln_wstationary"]`` holds the last
+    launch's (grid, blocks per SM, SMs, shared memory bytes)."""
+    if not on_cuda(x):
+        return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
+    name = "ffn_ln_wstationary"
+    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, 2)
+    out = torch.empty((M, D), dtype=F32, device=x.device)
+    if M == 0:
+        return out
+    flag_bytes = 4 * -(-M // ffn_tiles(D)[0])
+    _require(flag_bytes <= FFN_LN_FLAG_CAP,
+             f"{name}: {flag_bytes} bytes of row-tile flags for M={M} pass "
+             f"the cap of {FFN_LN_FLAG_CAP}")
+    flags = torch.zeros(flag_bytes // 4, dtype=torch.int32, device=x.device)
+    info = (ctypes.c_int * 4)()
+    _launch_stack(name, _lib().mcan_ffn_ln_wstationary, (
+        x.data_ptr(), int(x.dtype == F32), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), flags.data_ptr(), M, D, F, LN_EPS, int(max_blocks),
+        ctypes.addressof(info), _stream(x)), info)
     return out

@@ -3,11 +3,12 @@ and its backward (mcan_vqa_tpu/ops/sga_train.py).
 
 On the TPU one train step runs three Pallas kernels per decoder block
 (sga_train.py): ``_fwd_kernel`` (:415, called at :977), the FFN backward
-from saved activations ``_bwd_ffn_kernel_sav`` (:576, :1081) and the
-attention backward, ``_bwd_att_kernel`` (:631, :1139) or, under
-``att_saves`` (the JAX Trainer at hidden > 512), ``_bwd_att_kernel_sav``
-(:1183, :1272). On the card each is a short sequence of the hand-written
-kernels of ops/kernels.py:
+from saved activations ``_bwd_ffn_kernel_sav`` (:576, :1081) -- or, with
+``save_acts=False``, ``_bwd_ffn_kernel`` (:561, :1024), which recomputes
+h1 and y3 from v2 -- and the attention backward, ``_bwd_att_kernel``
+(:631, :1139) or, under ``att_saves`` (the JAX Trainer at hidden > 512),
+``_bwd_att_kernel_sav`` (:1183, :1272). On the card each is a short
+sequence of the hand-written kernels of ops/kernels.py:
 
   forward       gemm_bias_act (qkv, merges, cross q, FFN with the h1 mask on
                 the ReLU output), masked_attention (with the att1 / att2
@@ -16,6 +17,11 @@ kernels of ops/kernels.py:
   FFN backward  residual_layernorm_bwd (LN3 from the saved r3), gemm_dx
                 (dy3 . W2^T with the ReLU / h1 gradient gate; da1 . W1^T +
                 the residual), gemm_dw (dW1, dW2), col_sum (b1, b2, LN3)
+  FFN backward  save_acts=False: h1d and y3 recomputed from the saved v2
+    (recompute) by the forward's two gemm_bias_act calls (the h1 mask, or
+                its Philox source drawn again), r3 = v2 + drop(y3 + b2)
+                formed inside residual_layernorm_bwd, then the same
+                gemm_dx, gemm_dw and col_sum
   att backward  the forward's cross and self attention recomputed from the
                 saved v1 and x, residual_layernorm_bwd (LN2, LN1), gemm_dx,
                 masked_attention_bwd (cross, self), gemm_dw, col_sum
@@ -45,7 +51,8 @@ Dropout, two routes through the same kernels:
     rate);
   * in-kernel (``fused_sga_block_train_prng``; the TPU's
     ``_fwd_kernel_prng`` :507, ``_bwd_ffn_kernel_sav_prng`` :617,
-    ``_bwd_att_kernel_prng`` :812 and ``_bwd_att_kernel_sav_prng``
+    ``_bwd_ffn_kernel_prng`` :568, ``_bwd_att_kernel_prng`` :812 and
+    ``_bwd_att_kernel_sav_prng``
     :1202): one seed per block and step, a ``kernels.Philox`` keep source
     per site (JAX's site codes, :154-159) that every kernel reading the
     site draws from in place -- the backward regenerates the forward's
@@ -210,15 +217,17 @@ def _rows(m: K.Keep, cols: int) -> K.Keep:
 
 
 def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
-             H: int, att_saves: bool = False, save_dtype=F32):
+             H: int, att_saves: bool = False, save_dtype=F32,
+             save_acts: bool = True):
     """The block forward of _fwd_kernel -> (v3 f32, the saves). Saved for
     the backward: x and v1 / v2 as bf16 matmul operands, r3 and h1d (the
-    JAX ``save_acts=True``), v1 as the LN2 residual of the recompute, or,
-    with att_saves, qkv, qx, r1 and r2 instead (sga_train.py:971-976). The
-    saved r's (and v1) are save_dtype: bf16 under the JAX bf16_saves."""
+    JAX ``save_acts=True``) or else v2 as the LN3 residual of the FFN
+    recompute (the bf16 v2 itself under bf16_saves), v1 as the LN2
+    residual of the attention recompute, or, with att_saves, qkv, qx, r1
+    and r2 instead (sga_train.py:959-976). The saved r's (and v1, v2) are
+    save_dtype: bf16 under the JAX bf16_saves."""
     B, Lv, D = x.shape
     M = B * Lv
-    F = w["w1"].shape[1]
     xs = x.reshape(M, D)
     xb = xs.to(BF16)
     r_kw = dict(inv_keep=inv_keep, reciprocal=True, r_dtype=save_dtype)
@@ -238,14 +247,17 @@ def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
     v2, v2b, *r2 = K.residual_layernorm(
         v1, y2, w["bm2"], w["ln2_s"], w["ln2_b"], (F32, BF16),
         mask=_rows(m["y2"], D), save_r=att_saves, **r_kw)
-    # FFN: ReLU, then the h1 mask, written bf16 (h1d is saved); LN3 saves r3
-    h1d = K.gemm_bias_act(v2b, w["w1"], w["b1"], relu=True, out_dtype=BF16,
-                          mask=_rows(m["h1"], F), inv_keep=inv_keep)
-    y3 = K.gemm_bias_act(h1d, w["w2"])
-    v3, r3 = K.residual_layernorm(v2, y3, w["b2"], w["ln3_s"], w["ln3_b"],
-                                  (F32,), mask=_rows(m["y3"], D),
-                                  save_r=True, **r_kw)
-    saves = {"xb": xb, "v1b": v1b, "v2b": v2b, "r3": r3, "h1d": h1d}
+    # FFN: ReLU, then the h1 mask, written bf16; with save_acts h1d and
+    # LN3's r3 are saved
+    h1d, y3 = _ffn(v2b, m, w, inv_keep)
+    v3, *r3 = K.residual_layernorm(v2, y3, w["b2"], w["ln3_s"], w["ln3_b"],
+                                   (F32,), mask=_rows(m["y3"], D),
+                                   save_r=save_acts, **r_kw)
+    saves = {"xb": xb, "v1b": v1b, "v2b": v2b}
+    if save_acts:
+        saves.update(r3=r3[0], h1d=h1d)
+    elif save_dtype == F32:
+        saves["v2"] = v2
     if att_saves:
         saves.update(qkv=qkv, qx=qx, r1=r1[0], r2=r2[0])
     else:
@@ -253,21 +265,38 @@ def _forward(x, kq, vq, v_mask, q_mask, m: Masks, w, inv_keep: float,
     return v3.view(B, Lv, D), saves
 
 
+def _ffn(v2b, m: Masks, w, inv_keep: float):
+    """h1d = drop_h1(relu(v2 . W1 + b1)) in bf16, y3 = h1d . W2 (f32, its
+    bias added in the LayerNorm)."""
+    F = w["w1"].shape[1]
+    h1d = K.gemm_bias_act(v2b, w["w1"], w["b1"], relu=True, out_dtype=BF16,
+                          mask=_rows(m["h1"], F), inv_keep=inv_keep)
+    return h1d, K.gemm_bias_act(h1d, w["w2"])
+
+
 def _bwd_ffn(g, saves, m: Masks, w, inv_keep: float, save_dtype=F32):
-    """_bwd_ffn_kernel_sav: LN3 + FFN + the y3 dropout, from the saved r3,
-    h1d and v2 -> (gv2 in save_dtype, dw1, db1, dw2, db2, dln3_s,
-    dln3_b)."""
-    r3, h1d = saves["r3"], saves["h1d"]
+    """LN3 + FFN + the y3 dropout -> (gv2 in save_dtype, dw1, db1, dw2,
+    db2, dln3_s, dln3_b): _bwd_ffn_kernel_sav from the saved r3, h1d and
+    v2 (``save_acts``), else _bwd_ffn_kernel, h1d and y3 recomputed from
+    the saved v2 by the forward's own calls (sga_train.py:533-558)."""
+    v2b = saves["v2b"]
+    if "r3" in saves:
+        h1d, r3, y3, b2 = saves["h1d"], saves["r3"], None, None
+    else:
+        # JAX rounds the saved v2 to bf16 for the products: the bits of v2b
+        r3, b2 = saves.get("v2", v2b), w["b2"]
+        h1d, y3 = _ffn(v2b, m, w, inv_keep)
     D = r3.shape[1]
     gr3, gu3, dy3, dy3b = K.residual_layernorm_bwd(
-        g, r3, None, None, w["ln3_s"], mask=_rows(m["y3"], D),
+        g, r3, y3, b2, w["ln3_s"], mask=_rows(m["y3"], D),
         inv_keep=inv_keep, dy_dtypes=(F32, BF16))
     # dh1d = dy3 . W2^T through ReLU and the h1 mask, read off h1d
-    # (sga_train.py:599: where(h1d > 0, inv_keep * dh1d, 0))
+    # (sga_train.py:599: where(h1d > 0, inv_keep * dh1d, 0); the
+    # recompute's where(a1 > 0, drop_h1(dh1d)) is the same gate, :551)
     da1, da1b = K.gemm_dx(dy3b, w["w2"], gate=h1d, inv_keep=inv_keep,
                           out_dtypes=(F32, BF16))
     gv2, = K.gemm_dx(da1b, w["w1"], res=gr3, out_dtypes=(save_dtype,))
-    dw1 = K.gemm_dw(saves["v2b"], da1b)
+    dw1 = K.gemm_dw(v2b, da1b)
     dw2 = K.gemm_dw(h1d, dy3b)
     db1, db2, dln3_s, dln3_b = K.col_sum([da1, dy3, gu3, g])
     return gv2, dw1, db1, dw2, db2, dln3_s, dln3_b
@@ -411,21 +440,21 @@ def _kernel_weights(ws: Sequence[torch.Tensor],
 
 
 class SGABlockTrain(torch.autograd.Function):
-    """The differentiable block: forward saves what ``_forward`` lists (the
-    JAX ``save_acts=True``, and ``att_saves`` when asked); backward is the
-    FFN backward, then the attention backward, from the saved projections
-    under att_saves (sga_train.py:1365-1396). Gradients flow to x, kq, vq
-    and all 18 weight pieces."""
+    """The differentiable block: forward saves what ``_forward`` lists
+    (save_acts, and att_saves when asked); backward is the FFN backward,
+    from the saves or recomputed from v2, then the attention backward, from
+    the saved projections under att_saves (sga_train.py:1365-1396).
+    Gradients flow to x, kq, vq and all 18 weight pieces."""
 
     @staticmethod
     def forward(ctx, x, kq, vq, v_mask, q_mask, inv_keep, num_heads,
-                att_saves, save_dtype, mask_tuple, *ws):
+                att_saves, save_dtype, save_acts, mask_tuple, *ws):
         w = _kernel_weights(ws)
         m = dict(zip(MASK_NAMES, mask_tuple))
         x = x.detach().float().contiguous()
         kq, vq = kq.detach(), vq.detach()
         v3, saves = _forward(x, kq, vq, v_mask, q_mask, m, w, inv_keep,
-                             num_heads, att_saves, save_dtype)
+                             num_heads, att_saves, save_dtype, save_acts)
         _count(x, "sga_train_fwd", m)
         ctx.inputs = (x, kq, vq, v_mask, q_mask)
         ctx.saves, ctx.masks, ctx.w = saves, m, w
@@ -440,7 +469,8 @@ class SGABlockTrain(torch.autograd.Function):
         g = g.reshape(B * Lv, D).float().contiguous()
         gv2, *ffn_dw = _bwd_ffn(g, ctx.saves, ctx.masks, ctx.w, ctx.inv_keep,
                                 ctx.save_dtype)
-        _count(x, "sga_train_bwd_ffn", ctx.masks)
+        _count(x, "sga_train_bwd_ffn" if "r3" in ctx.saves
+               else "sga_train_bwd_ffn_recompute", ctx.masks)
         bwd_att = _bwd_att_sav if ctx.att_saves else _bwd_att
         dx, dkq, dvq, *att_dw = bwd_att(gv2, x, kq, vq, v_mask, q_mask,
                                         ctx.saves, ctx.masks, ctx.w,
@@ -449,7 +479,8 @@ class SGABlockTrain(torch.autograd.Function):
                else "sga_train_bwd_att", ctx.masks)
         dw = att_dw + ffn_dw    # WEIGHT_NAMES order
         ctx.inputs = ctx.saves = ctx.masks = ctx.w = None
-        return (dx, dkq, dvq, None, None, None, None, None, None, None, *dw)
+        return (dx, dkq, dvq, None, None, None, None, None, None, None,
+                None, *dw)
 
 
 def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
@@ -457,7 +488,8 @@ def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
                           q_mask: torch.Tensor, masks: Masks,
                           w: Mapping[str, torch.Tensor], *, num_heads: int,
                           inv_keep: float = 1.0, att_saves: bool = False,
-                          bf16_saves: bool = False) -> torch.Tensor:
+                          bf16_saves: bool = False,
+                          save_acts: bool = True) -> torch.Tensor:
     """One decoder block of a train step. x [B, Lv, D] f32 image stream;
     kq / vq [B, H, Lq, Dh] the pre-projected cross keys / values (f32;
     strided views whose last dim is contiguous; Dh = D / H, at most 128 on
@@ -469,14 +501,23 @@ def fused_sga_block_train(x: torch.Tensor, kq: torch.Tensor,
     recomputes (the JAX Trainer's choice at hidden > 512). bf16_saves: the
     saved r1 / r2 / r3 (and v1) and the gradient gv2 between the two
     backward halves are bf16, rounded where the JAX kernels round them
-    (sga_train.py:959-976, :1032). -> v3 [B, Lv, D] f32. On CUDA tensors
-    every step is a kernel launch; on CPU tensors the same sequence runs
-    the kernels' plain versions."""
+    (sga_train.py:959-976, :1032). save_acts: the forward saves r3 and
+    h1d so the FFN backward skips its recompute (the JAX default, which
+    the Trainer runs); False saves the f32 v2 instead (under bf16_saves
+    the bf16 v2, which both keep for the products) and the FFN backward
+    recomputes h1d and y3 from it (``_bwd_ffn_kernel``), holding M * 2 F
+    fewer bytes per block from the forward to the backward (M * (2 D +
+    2 F) under bf16_saves: r3 goes too). att_saves requires save_acts, as in JAX
+    (sga_train.py:918). -> v3 [B, Lv, D] f32. On CUDA tensors every step
+    is a kernel launch; on CPU tensors the same sequence runs the kernels'
+    plain versions."""
+    if att_saves and not save_acts:
+        raise ValueError("att_saves requires save_acts (output ordering)")
     if K.on_cuda(x):
         _check_train_inputs(x, masks, w)
     return SGABlockTrain.apply(x, kq, vq, v_mask, q_mask, float(inv_keep),
                                num_heads, bool(att_saves),
-                               BF16 if bf16_saves else F32,
+                               BF16 if bf16_saves else F32, bool(save_acts),
                                tuple(masks[n] for n in MASK_NAMES),
                                *(w[n] for n in WEIGHT_NAMES))
 
@@ -487,17 +528,21 @@ def fused_sga_block_train_prng(x: torch.Tensor, kq: torch.Tensor,
                                w: Mapping[str, torch.Tensor], *,
                                num_heads: int, rate: float = 0.1,
                                att_saves: bool = False,
-                               bf16_saves: bool = False) -> torch.Tensor:
+                               bf16_saves: bool = False,
+                               save_acts: bool = True) -> torch.Tensor:
     """``fused_sga_block_train`` with in-kernel dropout
     (sga_train.py:1603-1623): every site draws its keep-mask inside the
     kernels from ``seed`` (a host int, distinct per block and step), the
-    backward regenerates the same bits, and only the seed is saved for it.
-    Equal, bit for bit, to ``fused_sga_block_train`` fed
-    ``dump_prng_masks(seed, rate, ...)`` with its inv_keep."""
+    backward regenerates the same bits (save_acts=False: the FFN recompute
+    draws the h1 and y3 sites again, ``_bwd_ffn_kernel_prng``), and only
+    the seed is saved for it. Equal, bit for bit, to
+    ``fused_sga_block_train`` fed ``dump_prng_masks(seed, rate, ...)`` with
+    its inv_keep."""
     sites, inv_keep = prng_sites(seed, rate, x.shape[1])
     return fused_sga_block_train(x, kq, vq, v_mask, q_mask, sites, w,
                                  num_heads=num_heads, inv_keep=inv_keep,
-                                 att_saves=att_saves, bf16_saves=bf16_saves)
+                                 att_saves=att_saves, bf16_saves=bf16_saves,
+                                 save_acts=save_acts)
 
 
 def _check_train_inputs(x, masks, w, fn: str = "fused_sga_block_train",

@@ -1232,3 +1232,145 @@ def test_head_major_block_and_alllayer_engines_on_the_card(cuda):
             assert counts.get(name, 0) == n, (mode, counts)
         # the bf16 stream against f32 on the plain side: the bf16 bound
         np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the last sites: the SGA train block's recompute FFN backward
+# (save_acts=False) and the streaming FFN + LayerNorm kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,D,F,bf16_saves", [(64, 512, 2048, False),
+                                              (32, 1024, 4096, True)])
+def test_sga_train_block_recompute_matches_plain(cuda, B, D, F, bf16_saves):
+    """save_acts=False (the TPU's _bwd_ffn_kernel): h1d and y3 recomputed
+    from v2 in the backward. MCAN-small at B=64 and MCAN-large's
+    micro-batch of 32 with bf16_saves, against the plain block under
+    autograd, with the tolerances of the saved-activation block."""
+    import functools
+
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    x, kq, vq, vm, qm, masks, w, inv, probe = _train_block_inputs(
+        cuda, B=B, D=D, F=F)
+    fused = functools.partial(st.fused_sga_block_train, save_acts=False,
+                              bf16_saves=bf16_saves)
+    got, ref, again, counts = _block_vs_plain(
+        fused, st.fused_sga_block_train_plain, (x, kq, vq), w,
+        st.WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, vm, qm, masks, wd, num_heads=8,
+                                inv_keep=inv))
+    assert counts["sga_train_bwd_ffn_recompute"] == 1
+    assert "sga_train_bwd_ffn" not in counts
+    # 6 products in the forward, the FFN's 2 again in its backward, 4
+    # projections in the attention backward's recompute
+    assert counts["gemm_bias_act"] == 6 + 2 + 4
+    _check_block(got, ref, again)
+
+
+def test_seeded_recompute_equals_the_block_fed_the_dump(cuda):
+    """The seeded block with save_acts=False (_bwd_ffn_kernel_prng): the
+    recompute draws the h1 and y3 sites from the seed again."""
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    B, D, F = 64, 512, 2048
+    x, kq, vq, vm, qm, _, w, _, probe = _train_block_inputs(cuda, B=B)
+    masks, inv = st.dump_prng_masks(SEED, RATE, B, 60, 14, D, F, 8, cuda)
+
+    def call(block, ls, wd, dump):
+        if dump is None:
+            return block(*ls, vm, qm, SEED, wd, num_heads=8, rate=RATE,
+                         save_acts=False)
+        return block(*ls, vm, qm, dump, wd, num_heads=8, inv_keep=inv,
+                     save_acts=False)
+
+    counts = _prng_block_vs_dump(
+        st.fused_sga_block_train_prng, st.fused_sga_block_train,
+        (x, kq, vq), w, st.WEIGHT_NAMES, probe, call, masks)
+    assert counts["sga_train_bwd_ffn_recompute_prng"] == 1
+
+
+def _ffn_operands(cuda, M, D, F, x_dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + M + D)
+    x = torch.randn(M, D, generator=g, device=cuda).to(x_dtype)
+    w1 = (torch.randn(D, F, generator=g, device=cuda) / D ** 0.5).to(BF16)
+    w2 = (torch.randn(F, D, generator=g, device=cuda) / F ** 0.5).to(BF16)
+    b1, b2, beta = (0.1 * torch.randn(n, generator=g, device=cuda)
+                    for n in (F, D, D))
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    return x, w1, b1, w2, b2, gamma, beta
+
+
+FFN_SHAPES = [(3840, 512, 2048, torch.float32),     # MCAN-small, B=64
+              (3840, 1024, 4096, torch.float32),    # MCAN-large, B=64
+              (61, 1024, 4096, torch.bfloat16),     # ragged, bf16 x
+              (130, 256, 1024, torch.float32),
+              (17, 2048, 8192, torch.float32)]
+
+
+@pytest.mark.parametrize("variant", ["ffn_ln_blocked", "ffn_ln_wstationary"])
+@pytest.mark.parametrize("M,D,F,x_dtype", FFN_SHAPES)
+def test_streaming_ffn_ln_matches_plain_and_repeats_bitwise(cuda, variant, M,
+                                                            D, F, x_dtype):
+    """f32 out: the same exact bf16 products summed in another order (over
+    F tiles or slices), then an LN of O(1) values. Where the order moves a
+    pre-activation across a rounding boundary, h's bf16 rounding lands a
+    step apart (2^-6 at |h| ~ 4), which moves r by that step times |W2|
+    (~0.07): 1.1e-3 measured on an H100 at D 512 for one element of 2 M.
+    So 1e-3 of max|ref| (~4.5e-3). Two runs, and the weight-stationary
+    kernel on a reduced grid, give equal bits."""
+    ops = _ffn_operands(cuda, M, D, F, x_dtype)
+    fn = getattr(K, variant)
+    K.reset_launches()
+    out = fn(*ops)
+    assert K.launch_counts() == {variant: 1}
+    ref = K.ffn_ln_plain(*ops)
+    scale = float(ref.abs().max())
+    _close(out / scale, ref / scale, 1e-3)
+    assert out.dtype == torch.float32 and out.shape == (M, D)
+    assert torch.equal(out, fn(*ops))
+    if variant == "ffn_ln_wstationary":
+        grid = K.LAST_GRID[variant][0]
+        assert grid == min(F // K.ffn_tiles(D)[2],
+                           K.LAST_GRID[variant][1] * K.LAST_GRID[variant][2])
+        assert torch.equal(out, fn(*ops, max_blocks=3))
+        assert K.LAST_GRID[variant][0] == 3
+
+
+def test_streaming_ffn_public_functions_on_the_card(cuda):
+    """fused_ffn_ln_blocked / _weight_stationary take [..., D] and f32
+    weights (rounded to bf16 for the products) and launch their kernel
+    once, whatever tile_m / tile_f say."""
+    from mcan_vqa_tpu_torch.ops import fused_ffn as ffn
+    x, w1, b1, w2, b2, gamma, beta = _ffn_operands(cuda, 120, 512, 2048)
+    x3 = x.view(2, 60, 512)
+    want = K.ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta).view(2, 60, 512)
+    for name, fn in (("ffn_ln_blocked", ffn.fused_ffn_ln_blocked),
+                     ("ffn_ln_wstationary",
+                      ffn.fused_ffn_ln_weight_stationary)):
+        K.reset_launches()
+        out = fn(x3, w1.float(), b1, w2.float(), b2, gamma, beta,
+                 tile_m=16, tile_f=128)
+        assert K.launch_counts() == {name: 1}
+        scale = float(want.abs().max())     # as in the test above
+        _close(out / scale, want / scale, 1e-3)
+
+
+def test_streaming_ffn_empty_rows_launch_nothing(cuda):
+    """M = 0: an empty f32 [0, D] and no launch counted."""
+    x, w1, b1, w2, b2, gamma, beta = _ffn_operands(cuda, 8, 512, 2048)
+    for name in ("ffn_ln_blocked", "ffn_ln_wstationary"):
+        K.reset_launches()
+        out = getattr(K, name)(x[:0], w1, b1, w2, b2, gamma, beta)
+        assert out.shape == (0, 512) and out.dtype == torch.float32
+        assert K.launch_counts() == {}
+
+
+def test_streaming_ffn_raises_on_unsupported_shapes(cuda):
+    for fn in (K.ffn_ln_blocked, K.ffn_ln_wstationary):
+        x, w1, b1, w2, b2, gamma, beta = _ffn_operands(cuda, 8, 384, 1536)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(x[:, :96].contiguous(), w1[:96].contiguous(), b1,
+               w2[:, :96].contiguous(), b2[:96], gamma[:96], beta[:96])
+        with pytest.raises(ValueError, match="F step"):
+            fn(x, w1[:, :1528].contiguous(), b1[:1528],
+               w2[:1528].contiguous(), b2, gamma, beta)
+        with pytest.raises(ValueError, match="bf16"):
+            fn(x, w1.float(), b1, w2.float(), b2, gamma, beta)
