@@ -14,7 +14,11 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              (micro-batch 32, D=1024, 128-wide heads, bf16 saves); with
              each one's device time, its plain version's, one PyTorch
              library call's where there is one, and its bound at the
-             card's published peaks;
+             card's published peaks; the Hopper backward products
+             (gemm_sm90.cu: gemm_dx, gemm_dw) timed at both models with
+             their plan per shape (tile, splits, grid) and each instance's
+             registers, spills and shared memory, dW bit for bit over two
+             runs;
   [kernels]  (int8) quantize_rows and gemm_s8 at every int8 site of one
              B=64 forward (MCAN-small at levels 1 and 3, MCAN-large at level
              1), bit for bit against their plain versions, with the int8
@@ -251,6 +255,7 @@ def main() -> None:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             say(f"[ptxas] {line.strip()}")
+    sm90_report(_build, _build.load_library())
 
     rows = Rows()
     t_phase = [time.perf_counter()]
@@ -447,6 +452,34 @@ class Rows:
                 else "bytes"
             out.append(r)
         return out
+
+
+def plan_note(K, layout, M, N, Kd) -> str:
+    """gemm_sm90.cu's plan of one product (kernels.gemm_plan)."""
+    p = K.gemm_plan(layout, M, N, Kd)
+    return (f"plan {p.bm}x{p.bn} tiles {p.tiles} x {p.splits} split(s) "
+            f"of {p.k_tiles} K-tiles, grid {p.grid}, workspace "
+            f"{p.workspace_bytes / 2 ** 20:.1f} MiB")
+
+
+def sm90_report(build, lib) -> None:
+    """Each gemm_sm90.cu instance's registers, spills (ptxas) and dynamic
+    shared memory."""
+    lines = build.build_log.splitlines()
+    if not lines:
+        say("[gemm_sm90] the library was built by an earlier process: no "
+            "ptxas log here")
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "gemm_sm90_kernel" not in line:
+            continue
+        mangled = line.split("'")[1]
+        layout = "TN (dW)" if "ILb1E" in mangled else "NT (dX)"
+        bn = 128 if "Li128E" in mangled else 64
+        info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                        if "spill" in ln or "registers" in ln)
+        say(f"[gemm_sm90] {layout} 128x{bn}: {info}; dynamic shared memory "
+            f"{lib.mcan_gemm_sm90_smem(bn)} bytes")
 
 
 def gemm_bytes(M, K, N, *, a=2, b=2, out=(4,), bias=False, mask=False,
@@ -698,8 +731,8 @@ def check_train_kernels(torch, dev, rows) -> None:
         "B=64 train-step shapes, dropout rate 0.1 (times: the launches of "
         "one train step)")
     for name, src, tpu in (
-            ("gemm_dx", "gemm.cu", f"{TPU_TRAIN}:599"),
-            ("gemm_dw", "gemm.cu", f"{TPU_TRAIN}:382"),
+            ("gemm_dx", "gemm_sm90.cu", f"{TPU_TRAIN}:599"),
+            ("gemm_dw", "gemm_sm90.cu", f"{TPU_TRAIN}:382"),
             ("masked_attention_bwd", "masked_attention_bwd.cu",
              f"{TPU_TRAIN}:250"),
             ("residual_layernorm_bwd", "residual_layernorm_bwd.cu",
@@ -749,6 +782,7 @@ def check_train_kernels(torch, dev, rows) -> None:
                 ("datt1 = dy1 Wm1^T", D, D, False, False, (bf16,)),
                 ("dx = dqkv Wqkv^T + gr1", 3 * D, D, False, True, (f32,))]
     for label, Kd, N, has_gate, has_res, odt in dx_cases:
+        say(f"  gemm_dx {label}: {plan_note(K, 1, M, N, Kd)}")
         dy = randn(M, Kd, dtype=bf16)
         w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
         gt = torch.relu(randn(M, N)).to(bf16) if has_gate else None
@@ -763,11 +797,12 @@ def check_train_kernels(torch, dev, rows) -> None:
              lambda: torch.mm(dy, w.t()))
 
     # --- gemm_dw: x [M rows, m]^T . dy [M rows, n], summed over all 3840
-    # rows by one block per output tile
+    # rows in the plan's splits, added in split order
     dw_cases = [("dW1 = v2^T da1", D, F), ("dW2 = h1d^T dy3", F, D),
                 ("dWqkv = x^T dqkv", D, 3 * D), ("dWm1", D, D),
                 ("dWq2", D, D), ("dWm2", D, D)]
     for label, m, n in dw_cases:
+        say(f"  gemm_dw {label}: {plan_note(K, 2, m, n, M)}")
         xr = randn(M, m, dtype=bf16)
         dy = randn(M, n, dtype=bf16, s=M ** -0.5)
         case("gemm_dw", f"{label} [{m}x{M}]x[{M}x{n}]",
@@ -940,6 +975,7 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
             ("enc gx1 = da1 W1^T + gr2", F, D, False, True, (f32,)),
             ("enc datt = dy1 Wm^T", D, D, False, False, (bf16,)),
             ("enc dx = dqkv Wqkv^T + gr1", 3 * D, D, False, True, (f32,))):
+        say(f"  gemm_dx {label}: {plan_note(K, 1, M, N, Kd)}")
         dy = randn(M, Kd, dtype=bf16)
         w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
         gt = torch.relu(randn(M, N)).to(bf16) if has_gate else None
@@ -954,6 +990,7 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
              lambda: torch.mm(dy, w.t()))
     for label, m, n_ in (("enc dWqkv", D, 3 * D), ("enc dWm", D, D),
                          ("enc dW1", D, F), ("enc dW2", F, D)):
+        say(f"  gemm_dw {label}: {plan_note(K, 2, m, n_, M)}")
         xr = randn(M, m, dtype=bf16)
         dy = randn(M, n_, dtype=bf16, s=M ** -0.5)
         case("gemm_dw", f"{label} [{m}x{M}]x[{M}x{n_}]",
@@ -1032,9 +1069,10 @@ def check_large_kernels(torch, dev, rows) -> None:
     """Every kernel of the MCAN-large train step at its shapes (one
     micro-batch of 32: M = 1920 region rows, D = 1024, F = 4096, 8 heads of
     128; the bf16 saves): each against its plain version. The attention
-    kernels at Dh = 128 are timed, for one B=64 MCAN-large step (two
-    micro-batches, 6 decoder blocks each); the other kernels' times stand
-    for the MCAN-small units."""
+    kernels at Dh = 128 and the backward products (gemm_dx, gemm_dw) are
+    timed, for one B=64 MCAN-large step (two micro-batches, 6 decoder
+    blocks each); the other kernels' times stand for the MCAN-small
+    units."""
     from mcan_vqa_tpu_torch.ops import kernels as K
     kc = KernelCheck(torch, dev, rows, SEED + 4)
     randn, keep, case = kc.randn, kc.keep, kc.case
@@ -1064,25 +1102,45 @@ def check_large_kernels(torch, dev, rows) -> None:
              lambda: (K.gemm_bias_act(x, w, b, **kw),),
              lambda: (K.gemm_bias_act_plain(x, w, b, **kw),),
              (T16 if odt == bf16 else T32,), 0, 0, 0, timed=False)
-    for label, Kd, N, has_gate, odt in (
-            ("da1, ReLU/h1 gate", D, F, True, (f32, bf16)),
-            ("gv2 -> bf16", F, D, False, (bf16,)),
-            ("dx = dqkv Wqkv^T + gr1", 3 * D, D, False, (f32,))):
+    # the backward products of one B=64 step (two micro-batches, six
+    # blocks each), timed under L with the torch.mm yardstick
+    for name in ("gemm_dx", "gemm_dw"):
+        rows.row(f"{name}, MCAN-large", SRC + "gemm_sm90.cu",
+                 f"{TPU_TRAIN}:" + ("599" if name == "gemm_dx" else "382"),
+                 LARGE_STEP)
+    for label, Kd, N, has_gate, has_res, odt in (
+            ("da1, ReLU/h1 gate", D, F, True, False, (f32, bf16)),
+            ("gv2 = da1 W1^T + gr3 -> bf16", F, D, False, True, (bf16,)),
+            ("datt2 = dy2 Wm2^T", D, D, False, False, (bf16,)),
+            ("gv1 = dqx Wq2^T + gr2", D, D, False, True, (f32,)),
+            ("datt1 = dy1 Wm1^T", D, D, False, False, (bf16,)),
+            ("dx = dqkv Wqkv^T + gr1", 3 * D, D, False, True, (f32,))):
+        say(f"  gemm_dx large {label}: {plan_note(K, 1, M, N, Kd)}")
         dy = randn(M, Kd, dtype=bf16)
         w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
         kw = dict(gate=torch.relu(randn(M, N)).to(bf16) if has_gate else
-                  None, inv_keep=inv, res=None if has_gate else randn(M, N),
+                  None, inv_keep=inv, res=randn(M, N) if has_res else None,
                   out_dtypes=odt)
-        case("gemm_dx", f"large {label}", lambda: K.gemm_dx(dy, w, **kw),
+        case("gemm_dx, MCAN-large", label, lambda: K.gemm_dx(dy, w, **kw),
              lambda: K.gemm_dx_plain(dy, w, **kw),
-             tuple(T32 if o == f32 else T16 for o in odt), 0, 0, 0,
-             timed=False)
-    for label, m, n_ in (("dWqkv", D, 3 * D), ("dW1", D, F), ("dW2", F, D)):
+             tuple(T32 if o == f32 else T16 for o in odt), n,
+             2 * M * Kd * N,
+             gemm_bytes(M, Kd, N, gate=has_gate, res=has_res,
+                        out=tuple(o.itemsize for o in odt)),
+             lambda: torch.mm(dy, w.t()))
+    for label, m, n_, k in (("dWqkv", D, 3 * D, n), ("dW1", D, F, n),
+                            ("dW2", F, D, n), ("dWm1, dWq2, dWm2", D, D,
+                                               3 * n)):
+        say(f"  gemm_dw large {label}: {plan_note(K, 2, m, n_, M)}")
         xr = randn(M, m, dtype=bf16)
         dy = randn(M, n_, dtype=bf16, s=M ** -0.5)
-        case("gemm_dw", f"large {label}", lambda: (K.gemm_dw(xr, dy),),
-             lambda: (K.gemm_dw_plain(xr, dy),), (T32,), 0, 0, 0,
-             timed=False)
+        case("gemm_dw, MCAN-large", f"{label} [{m}x{M}]x[{M}x{n_}]",
+             lambda: (K.gemm_dw(xr, dy),), lambda: (K.gemm_dw_plain(xr, dy),),
+             (T32,), k, 2 * M * m * n_, gemm_bytes(m, M, n_, out=(4,)),
+             lambda: torch.mm(xr.t(), dy))
+        again = K.gemm_dw(xr, dy)
+        if not torch.equal(again, K.gemm_dw(xr, dy)):
+            fail(f"gemm_dw large {label}: two runs differ")
     # attention at 128-wide heads: the forward and the att-saves
     # backward's recompute (2 + 2 per block), the backward (2 per block)
     qkv = randn(M, 3 * D, dtype=bf16)
@@ -3033,7 +3091,9 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
     plain_masks = plain_site_masks(cfg, route) * cfg.grad_accu_steps
     if route["att_saves"]:
         dh128 = {"masked_attention_dh128": "masked_attention",
-                 "masked_attention_bwd_dh128": "masked_attention_bwd"}
+                 "masked_attention_bwd_dh128": "masked_attention_bwd",
+                 "gemm_dx, MCAN-large": "gemm_dx",
+                 "gemm_dw, MCAN-large": "gemm_dw"}
         rows.launches(tag, counts, [k for k in TRAIN_KERNELS
                                     if k not in dh128.values()
                                     and want[k]])

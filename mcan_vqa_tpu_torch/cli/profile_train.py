@@ -36,7 +36,11 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-PORT_KERNELS = ("gemm_kernel", "masked_attention_bwd_kernel",
+# the port's kernels by name, checked before the library groups: the
+# Hopper GEMMs' "sm90::gemm_sm90_kernel<...>" would otherwise count as
+# cuBLAS ("sm90_")
+PORT_KERNELS = ("gemm_sm90_kernel", "gemm_kernel",
+                "masked_attention_bwd_kernel",
                 "masked_attention_kernel", "residual_layernorm_bwd_kernel",
                 "residual_layernorm_kernel", "col_sum_kernel")
 

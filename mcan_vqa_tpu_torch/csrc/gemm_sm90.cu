@@ -1,0 +1,569 @@
+// gemm_sm90: the two backward products on Hopper's asynchronous tensor
+// cores, bf16 operands, f32 accumulation:
+//   NT  C[M,N] = A[M,K] . B[N,K]^T     dX = dY . W^T   (gemm_dx)
+//   TN  C[M,N] = A[K,M]^T . B[K,N]     dW = X^T . dY   (gemm_dw)
+//
+// Replaces: the backward products inside the TPU train kernels,
+//   mcan_vqa_tpu/ops/sga_train.py::_mm_bt (dY . W^T; in the FFN backward
+//   with the ReLU / dropout gate where(h1d > 0, inv_keep * dh1d, 0) at
+//   :597-599, and the residual added to the next product's output) and
+//   ::_mm_tn (:382, the dW partial of one grid step) summed over the
+//   sequential grid by ::_acc (:390), in _bwd_ffn_kernel_sav (:576),
+//   _bwd_att_kernel (:631) and _bwd_att_kernel_sav (:1183); and the same
+//   products of mcan_vqa_tpu/ops/sa_train.py::_bwd_body (:188).
+//
+// Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at the MCAN-small B=64
+// step (M = R = 3840 rows, 512 <= K, N <= 2048) each product carries 2-8
+// GFLOP, 2-8 us at the tensor-core peak; the dX products move 6-69 MB
+// (f32 and bf16 outputs, the bf16 gate, the f32 residual), so they are
+// bound by bytes (2-21 us); a dW product moves 6-24 MB (2-7 us) and sits
+// near the ridge. The 60 dX / 60 dW launches of one step: 0.369 / 0.231 ms
+// (chip_smoke.py's rows).
+//
+// Design. One mainloop, templated on operand majorness (K-major for NT,
+// MN-major for TN) and on the tile width BN (128 or 64; the tile height is
+// 128). A block is a producer warp and one or two consumer warpgroups:
+//   * the producer's lane 0 keeps TMA loads (cp.async.bulk.tensor, 2-D
+//     tensor maps encoded on the host per call, 128-byte swizzle) in flight
+//     into a ring of STAGES tiles of K = 64 in dynamic shared memory, each
+//     guarded by a full and an empty mbarrier. Boxes that run past M, N or
+//     K are zero-filled by the TMA unit, so a ragged edge needs no mask on
+//     the load and contributes exact zeros;
+//   * the consumers issue wgmma.mma_async m64nBNk16 with both operands read
+//     from shared memory through matrix descriptors: K-major for dX (dy
+//     [M,K] and w [N,K] as stored), MN-major for dW (x [R,m] and dy [R,n]
+//     as stored, read through wgmma's transpose bits: nothing is
+//     transposed in memory); one wgmma group stays in flight while the
+//     next stage is awaited;
+//   * the epilogue runs from the accumulator registers, stores masked at
+//     the M and N edges: every output element is written. Its gate and
+//     residual loads go out in batches ahead of the stores they feed.
+// BN 128: two consumer warpgroups of one 64-row half each, one block per
+// SM, 6 stages; BN 64: one warpgroup for both halves, two blocks per SM, 4
+// stages each (Cfg). The blocks are persistent: each walks work items
+// (one split of one tile) in a fixed stride, its producer loading the next
+// item while the consumers run this one's epilogue.
+//
+// The reduction over R (dW) runs across `splits` blocks per output tile
+// (split-K): split s takes the whole K-tiles [s T / S, (s + 1) T / S).
+// Each block writes its f32 partial to a workspace the wrapper allocates,
+// in the accumulator's own register order (coalesced float4 rows), then
+// bumps the tile's counter (the only atomic). The last block to arrive
+// reads the S partials back and sums them in split order 0 .. S-1, runs
+// the epilogue and puts the counter back to 0 for the next launch. The
+// summation order is fixed, so the bits do not depend on which block runs
+// first: two runs give equal bits. The plan (tile width, splits, grid,
+// workspace) is chosen from the shape alone by ops/kernels.py::gemm_plan.
+//
+// The dX epilogue, in order: gradient gate (x inv_keep where the bf16 gate
+// is > 0, else 0), + an f32 residual, then one rounding to each requested
+// output (f32 and / or bf16).
+//
+// Not yet: the forward product NN (gemm_bias_act, gemm.cu) on this
+// mainloop, an epilogue staged through shared memory with TMA stores
+// (the dX products with two outputs and a gate run at 2.6-3x their
+// bound), thread-block clusters with multicast loads.
+#include <cuda.h>  // CUtensorMap and the encode function's types; no -lcuda
+
+#include <cstdint>
+#include <cstring>
+
+#include "common.cuh"
+
+namespace sm90 {
+
+constexpr int BM = 128, BK = 64;
+constexpr int BOX = 64 * BK * 2;          // one 64 x 64 bf16 box: 8 KB
+constexpr uint32_t SWIZZLE_ATOM = 1024;   // 8 rows of 128 bytes
+
+// BN 128: two consumer warpgroups, each one 64-row half of the tile (64
+// accumulators a thread), one block per SM and a ring of 6 stages; BN 64:
+// one warpgroup for both halves (64 accumulators), two blocks per SM of 4
+// stages each. Either way a thread holds 64 accumulators and every SM
+// works on 128 x 128 outputs at a time: ptxas caps a thread at 168
+// registers once an SM sub-partition runs three warps, and 128
+// accumulators a thread spilled there.
+template <int BN>
+struct Cfg {
+  static constexpr int WGS = BN / 64;             // consumer warpgroups
+  static constexpr int HALVES = 2 / WGS;          // 64-row halves each
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+  static constexpr int BLOCKS_PER_SM = 3 - WGS;
+  static constexpr int STAGES = BN == 128 ? 6 : 4;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the ring, 1 KB of slack to align it, the barriers and a flag
+  static constexpr int SMEM = SWIZZLE_ATOM + STAGES * STAGE_BYTES + 16 * STAGES + 16;
+};
+
+struct Epilogue {
+  const bf16* gate;   // [M, N]: keep (x inv_keep) where > 0, else 0
+  long long ldg;
+  float inv_keep;
+  const float* res;   // [M, N] f32 added after the gate, or null
+  long long ldr;
+  float* out_f32;     // either output may be null; both dense [M, N]
+  bf16* out_bf16;
+  long long ldo;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// one box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand in shared memory:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// = 128B swizzle. K-major: SBO = 1024 (8 rows of 128 B), LBO unused.
+// MN-major: SBO = 1024 (8 K-rows of 128 B), LBO = the next 64-wide MN box.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (issue, wait)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the consumer warpgroups only (the producer warp has left)
+template <int N>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+}
+
+// m64n128k16: 64 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n64k16: 32 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// One output tile (of tiles_n across) and one split of its K-tiles: a
+// work item. Split s of `splits` sums K-tiles [s T / S, (s + 1) T / S).
+struct Item {
+  int tile, split, m0, n0, kt0, nk;
+  __device__ Item(int w, int tiles, int tiles_n, int bn, int k_tiles, int splits) {
+    tile = w % tiles;
+    split = w / tiles;
+    m0 = tile / tiles_n * BM;
+    n0 = tile % tiles_n * bn;
+    kt0 = static_cast<int>(static_cast<long long>(split) * k_tiles / splits);
+    nk = static_cast<int>(static_cast<long long>(split + 1) * k_tiles / splits) - kt0;
+  }
+};
+
+// MN: both operands MN-major (TN, dW), else both K-major (NT, dX).
+// Persistent: block b takes work items b, b + grid, ... (item w = split
+// w / tiles of tile w % tiles), its producer loading the next item's
+// K-tiles while the consumers run this one's epilogue.
+template <bool MN, int BN>
+__global__ void __launch_bounds__(Cfg<BN>::THREADS, Cfg<BN>::BLOCKS_PER_SM)
+gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                 int M, int N, int k_tiles, int splits, Epilogue ep, float* __restrict__ ws,
+                 int* __restrict__ counters) {
+  using C = Cfg<BN>;
+  constexpr int STAGES = C::STAGES, HALVES = C::HALVES, CONSUMERS = C::CONSUMERS;
+  constexpr int ACC = BN / 2;      // accumulators of one 64-row half
+  constexpr int TR = MN ? 1 : 0;   // wgmma transpose bits, both operands
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + SWIZZLE_ATOM - 1) & ~(SWIZZLE_ATOM - 1);
+  const uint32_t bars = base + STAGES * C::STAGE_BYTES;   // full[s], then empty[s]
+  int* last_flag = reinterpret_cast<int*>(smem_raw + (bars - raw) + 16 * STAGES);
+
+  const int tid = threadIdx.x;
+  const int tiles_n = (N + BN - 1) / BN, tiles = (M + BM - 1) / BM * tiles_n;
+  const int items = tiles * splits;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- the producer warp: lane 0 keeps the ring full, item after item
+    if (tid == CONSUMERS) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tb)) : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const Item it(w, tiles, tiles_n, BN, k_tiles, splits);
+        for (int i = 0; i < it.nk; ++i) {
+          mbar_wait(bars + 8 * (STAGES + stage), phase ^ 1);   // the slot is free
+          const uint32_t full = bars + 8 * stage;
+          mbar_expect_tx(full, C::STAGE_BYTES);
+          const uint32_t a = base + stage * C::STAGE_BYTES, b = a + C::A_BYTES;
+          const int k0 = (it.kt0 + i) * BK;
+          if (MN) {
+            // x [R, m]: two boxes of 64 m-columns x BK rows; dy [R, n]: BN / 64
+            tma_load(a, &ta, full, it.m0, k0);
+            tma_load(a + BOX, &ta, full, it.m0 + 64, k0);
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j) tma_load(b + j * BOX, &tb, full, it.n0 + 64 * j, k0);
+          } else {
+            // dy [M, K]: 128 rows x 64 k; w [N, K]: BN rows x 64 k
+            tma_load(a, &ta, full, k0, it.m0);
+            tma_load(b, &tb, full, k0, it.n0);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup wg computes the 64-row halves
+  // wg HALVES .. (wg + 1) HALVES - 1 of each tile
+  const int wg = tid / 128, t = tid % 128;
+  const int warp = t >> 5, lane = t & 31;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item it(w, tiles, tiles_n, BN, k_tiles, splits);
+    float acc[HALVES][ACC];
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+      for (int j = 0; j < ACC; ++j) acc[h][j] = 0.0f;
+
+    int prev = 0;
+    for (int i = 0; i < it.nk; ++i) {
+      mbar_wait(bars + 8 * stage, phase);
+      const uint32_t a = base + stage * C::STAGE_BYTES + wg * HALVES * BOX;
+      const uint32_t b = base + stage * C::STAGE_BYTES + C::A_BYTES;
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // K-major: the next 16 k are 32 bytes on in each 128-byte row;
+        // MN-major: 16 k-rows of 128 bytes on
+        const uint32_t step = MN ? kk * 16 * 128 : kk * 32;
+        const uint64_t db = desc(b + step, BOX, SWIZZLE_ATOM);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)   // rows 64 h .. + 63: the next box
+          wgmma<TR, TR>(acc[h], desc(a + h * BOX + step, BOX, SWIZZLE_ATOM), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous stage's products are done with it
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+      if (i > 0) mbar_arrive(bars + 8 * (STAGES + prev));
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+    if (it.nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
+
+    if (splits > 1) {
+      // this split's partial, as float4 q of thread tid at [q][tid]
+      // (coalesced); the last block of the tile reads every split's back
+      constexpr int Q = HALVES * ACC / 4;   // float4s a thread
+      float4* slots = reinterpret_cast<float4*>(ws) + static_cast<size_t>(it.tile) * splits * Q * CONSUMERS;
+      float4* mine = slots + static_cast<size_t>(it.split) * Q * CONSUMERS;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int h = q / (ACC / 4), c = (q % (ACC / 4)) * 4;
+        mine[q * CONSUMERS + tid] = make_float4(acc[h][c], acc[h][c + 1], acc[h][c + 2], acc[h][c + 3]);
+      }
+      __threadfence();
+      consumer_sync<CONSUMERS>();
+      if (tid == 0) {
+        const int last = atomicAdd(&counters[it.tile], 1) == splits - 1;
+        if (last) counters[it.tile] = 0;   // ready for the next launch
+        *last_flag = last;
+      }
+      consumer_sync<CONSUMERS>();
+      if (!*last_flag) continue;
+      __threadfence();
+      // the last block: the partials (its own too, as written) summed in
+      // split order 0 .. S-1, eight loads of one split in flight at a time
+      constexpr int QC = 8;
+#pragma unroll
+      for (int q0 = 0; q0 < Q; q0 += QC) {
+        for (int s = 0; s < splits; ++s) {
+          const float4* p = slots + (static_cast<size_t>(s) * Q + q0) * CONSUMERS + tid;
+          float4 v[QC];
+#pragma unroll
+          for (int q = 0; q < QC; ++q) v[q] = __ldcg(p + q * CONSUMERS);
+#pragma unroll
+          for (int q = 0; q < QC; ++q) {
+            const int h = (q0 + q) / (ACC / 4), c = ((q0 + q) % (ACC / 4)) * 4;
+            acc[h][c] = s == 0 ? v[q].x : acc[h][c] + v[q].x;
+            acc[h][c + 1] = s == 0 ? v[q].y : acc[h][c + 1] + v[q].y;
+            acc[h][c + 2] = s == 0 ? v[q].z : acc[h][c + 2] + v[q].z;
+            acc[h][c + 3] = s == 0 ? v[q].w : acc[h][c + 3] + v[q].w;
+          }
+        }
+      }
+    }
+
+    // ---- the epilogue from registers: accumulator j of half h holds row
+    // 64 (wg HALVES + h) + 16 warp + lane / 4 + 8 ((j / 2) % 2), column
+    // 8 (j / 4) + 2 (lane % 4) + j % 2 of the tile. The gate and residual
+    // of CH accumulators are loaded before any of their stores: the
+    // compiler may not move a load past a store that could alias it, so
+    // a load between stores would wait out a memory round trip each.
+    constexpr int CH = 16;
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      const int row0 = it.m0 + (wg * HALVES + h) * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j0 = 0; j0 < ACC; j0 += CH) {
+        float g[CH], r[CH];
+#pragma unroll
+        for (int j = j0; j < j0 + CH; j += 2) {
+          const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
+          const bool in = row < M && col < N;   // N is even: col + 1 < N too
+          if (ep.gate != nullptr && in) {
+            const bf16* gp = ep.gate + static_cast<size_t>(row) * ep.ldg + col;
+            g[j - j0] = to_f32(gp[0]);
+            g[j - j0 + 1] = to_f32(gp[1]);
+          }
+          if (ep.res != nullptr && in) {
+            const float* rp = ep.res + static_cast<size_t>(row) * ep.ldr + col;
+            r[j - j0] = rp[0];
+            r[j - j0 + 1] = rp[1];
+          }
+        }
+#pragma unroll
+        for (int j = j0; j < j0 + CH; j += 2) {
+          const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
+          if (row < M && col < N) {
+            float v0 = acc[h][j], v1 = acc[h][j + 1];
+            if (ep.gate != nullptr) {
+              v0 = g[j - j0] > 0.0f ? v0 * ep.inv_keep : 0.0f;
+              v1 = g[j - j0 + 1] > 0.0f ? v1 * ep.inv_keep : 0.0f;
+            }
+            if (ep.res != nullptr) {
+              v0 = r[j - j0] + v0;
+              v1 = r[j - j0 + 1] + v1;
+            }
+            const size_t o = static_cast<size_t>(row) * ep.ldo + col;
+            if (ep.out_f32 != nullptr) *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
+            if (ep.out_bf16 != nullptr)
+              *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) =
+                  __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
+// point query (no -lcuda at link time); null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 matrix of `outer` rows of `inner` elements, row stride `ld`
+// elements, read in boxes of box_outer rows x box_inner (= 64: 128 bytes,
+// the swizzle span) elements; out-of-bounds elements read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, long long inner, long long outer, long long ld,
+              int box_inner, int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  // one row: its stride is never stepped over, and may be anything
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(outer > 1 ? ld * 2 : (inner * 2 + 15) / 16 * 16)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool MN, int BN>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_tiles, int splits,
+           int grid, const Epilogue& ep, float* ws, int* counters, cudaStream_t stream) {
+  auto kernel = gemm_sm90_kernel<MN, BN>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, Cfg<BN>::THREADS, Cfg<BN>::SMEM, stream>>>(ta, tb, M, N, k_tiles, splits, ep, ws,
+                                                            counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
+// layout 1 = NT (A = dy [M, K], B = w stored [N, K]), 2 = TN (A = x stored
+// [K, M], B = dy [K, N]); leading dimensions in elements, multiples of 8,
+// both operands 16-byte aligned (the wrapper checks). bn (128 or 64) and
+// splits (1 .. the K-tiles of 64) are the plan of ops/kernels.py::gemm_plan;
+// splits > 1 needs `workspace` (splits x the tiles x 128 x bn f32) and
+// `counters` (an int per output tile, 0 before the launch and left 0).
+// The outputs are dense [M, N] (row stride N). Returns cudaGetLastError(),
+// the error of the shared-memory attribute, or cudaErrorInvalidValue for an
+// argument the kernel does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
+MCAN_API int mcan_gemm_sm90(int layout, const void* A, long long lda, const void* B, long long ldb,
+                            int M, int N, int K, int bn, int splits, int grid, const void* gate,
+                            long long ldg,
+                            float inv_keep, const void* res, long long ldr, void* out_f32,
+                            void* out_bf16, void* workspace, void* counters, void* stream) {
+  using namespace sm90;
+  const int k_tiles = (K + BK - 1) / BK;
+  const bool mn = layout == 2;
+  if ((layout != 1 && layout != 2) || (bn != 128 && bn != 64) || M < 0 || N < 0 || K < 0 ||
+      splits < 1 || splits > (k_tiles > 0 ? k_tiles : 1) || grid < 1 ||
+      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
+      (out_f32 == nullptr && out_bf16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  CUtensorMap ta, tb;   // untouched when K = 0: no tile is loaded
+  if (K > 0) {
+    const bool ok = mn ? make_map(&ta, A, M, K, lda, 64, 64) && make_map(&tb, B, N, K, ldb, 64, 64)
+                       : make_map(&ta, A, K, M, lda, 64, BM) && make_map(&tb, B, K, N, ldb, 64, bn);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    memset(&ta, 0, sizeof ta);
+    memset(&tb, 0, sizeof tb);
+  }
+  const Epilogue ep{static_cast<const bf16*>(gate), ldg,  inv_keep,
+                    static_cast<const float*>(res), ldr,  static_cast<float*>(out_f32),
+                    static_cast<bf16*>(out_bf16),   N};
+  float* ws = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mn)
+    return bn == 128 ? launch<true, 128>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s)
+                     : launch<true, 64>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s);
+  return bn == 128 ? launch<false, 128>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s)
+                   : launch<false, 64>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s);
+}
+
+// the dynamic shared memory of the instance of tile width bn (128 or 64)
+MCAN_API int mcan_gemm_sm90_smem(int bn) {
+  return bn == 128 ? sm90::Cfg<128>::SMEM : bn == 64 ? sm90::Cfg<64>::SMEM : -1;
+}

@@ -3,9 +3,9 @@ blocks (ops/sga_block.py, ops/quant.py) and the train blocks
 (ops/sga_train.py, ops/sa_train.py) are built from, each beside its plain
 PyTorch version.
 
-  gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu, NN
-  gemm_dx                C = dY . W^T (gradient gate, + res)   gemm.cu, NT
-  gemm_dw                C = X^T . dY                          gemm.cu, TN
+  gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu
+  gemm_dx                C = dY . W^T (gradient gate, + res)   gemm_sm90.cu, NT
+  gemm_dw                C = X^T . dY (split-K, fixed order)   gemm_sm90.cu, TN
   gemm_ln                LN(res + A . W + bias)                gemm_ln.cu
   gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_s8.cu
   gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_s4.cu
@@ -80,7 +80,7 @@ MASK_DTYPES = (torch.uint8, torch.bool)
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 
-_NN, _NT, _TN = 0, 1, 2   # mcan_gemm layouts
+_NT, _TN = 1, 2          # mcan_gemm_sm90 layouts
 
 
 def reset_launches() -> None:
@@ -320,29 +320,109 @@ def _check_rows(name: str, t: Optional[torch.Tensor], shape, dtypes) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the GEMM: gemm_bias_act (NN), gemm_dx (NT), gemm_dw (TN)
+# the GEMMs: gemm_bias_act (gemm.cu), gemm_dx (NT) and gemm_dw (TN)
+# (gemm_sm90.cu)
 # ---------------------------------------------------------------------------
 
-def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
-          M: int, N: int, K: int, *, bias=None, relu=False, mask=None,
-          gate=None, inv_keep=1.0, res=None,
-          out_dtypes: Sequence[torch.dtype] = (F32,)
-          ) -> Tuple[torch.Tensor, ...]:
-    """Launch csrc/gemm.cu. Every operand is checked here: the kernel loads
-    16-byte chunks, so both operands are 16-byte aligned with row strides
-    that are multiples of 8."""
-    mask, keep = _keep_args(name, mask, M)
+GEMM_SMS = 132         # an H100 SXM's SMs: a constant, so that a shape
+#                        always gets the same plan (and dW the same bits)
+GEMM_BM, GEMM_BK = 128, 64   # gemm_sm90.cu's tile height and K-tile
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How gemm_sm90.cu covers one product: output tiles of ``bm`` x
+    ``bn``, the reduction in ``k_tiles`` K-tiles of ``bk`` split over
+    ``splits`` blocks per tile; split s sums K-tiles ``split_range(s)``."""
+    bm: int
+    bn: int
+    bk: int
+    tiles_m: int
+    tiles_n: int
+    k_tiles: int
+    splits: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def blocks(self) -> int:
+        """Work items: one split of one tile each."""
+        return self.tiles * self.splits
+
+    @property
+    def grid(self) -> int:
+        """Persistent blocks: as many as the SMs hold (two a SM at bn 64),
+        at most one per work item."""
+        return min(self.blocks, GEMM_SMS * (2 if self.bn == 64 else 1))
+
+    def split_range(self, s: int) -> Tuple[int, int]:
+        return (s * self.k_tiles // self.splits,
+                (s + 1) * self.k_tiles // self.splits)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The f32 partials of every split of every tile (none unsplit)."""
+        return 0 if self.splits == 1 else \
+            self.splits * self.tiles * self.bm * self.bn * 4
+
+
+def gemm_plan(layout: int, M: int, N: int, K: int) -> GemmPlan:
+    """The plan of an [M, N] output summed over K (for dW, K = R rows),
+    from the shape alone. Tiles of 128 x 128 (one block per SM) where they
+    fill the SMs, or for dX half of them; else 128 x 64 (two blocks per
+    SM), which the step's dW shapes and the encoder's narrow dX ran faster
+    at on the card. Then, for dW, as many splits of whole K-tiles as bring
+    the blocks to the SM count, at most one K-tile each (dX does not
+    split: its partials would be as large as its outputs, and the card
+    ran the encoder's dX slower split)."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    tiles_m = cdiv(M, GEMM_BM)
+    tiles128 = tiles_m * cdiv(N, 128)
+    bn = 128 if tiles128 >= GEMM_SMS or (layout == _NT
+                                         and 2 * tiles128 >= GEMM_SMS) else 64
+    tiles = tiles_m * cdiv(N, bn)
+    k_tiles = cdiv(K, GEMM_BK)
+    splits = 1
+    if layout == _TN and 0 < tiles < GEMM_SMS:
+        splits = max(1, min(cdiv(GEMM_SMS, tiles), k_tiles))
+    return GemmPlan(GEMM_BM, bn, GEMM_BK, tiles_m, cdiv(N, bn), k_tiles,
+                    splits)
+
+
+_SPLIT_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """One int32 counter per output tile of a split launch, zeroed once per
+    device and left at 0 by every launch (the last block of a tile resets
+    its counter)."""
+    c = _SPLIT_COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        _require(device.type != "cuda"
+                 or not torch.cuda.is_current_stream_capturing(),
+                 "gemm_sm90: the split-K counters are made at the first "
+                 "split launch on a device; make it outside a graph capture")
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[device] = c
+    return c
+
+
+def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, N: int,
+                reduced: int, out_dtypes, gate=None, res=None,
+                bias=None, mask=None, M: int = 0) -> None:
+    """Every operand of a GEMM launch: both bf16, read in whole 16-byte
+    chunks along their rows (unit column stride, row strides that are
+    multiples of 8, 16-byte alignment); N and the width read along each
+    row of A (``reduced``: K, or for dW the output's M -- the R rows
+    themselves may be any number) multiples of 8."""
     _same_device(name, a, b, bias, mask, gate, res)
     _require(a.dtype == BF16 and b.dtype == BF16,
              f"{name}: operands must be bf16, got {a.dtype}, {b.dtype}")
-    # every operand is read in whole 16-byte chunks along its rows, and
-    # the tiles past M / N / K are masked: N and K (for dW, M: it reads
-    # both operands row by row along the reduction, any number of rows R =
-    # K) must be multiples of 8
-    _require(N % GEMM_ALIGN == 0 and (K if layout != _TN else M)
-             % GEMM_ALIGN == 0,
-             f"{name}: N={N} must be a multiple of {GEMM_ALIGN}, and K={K} "
-             f"too (for dW: M={M})")
+    _require(N % GEMM_ALIGN == 0 and reduced % GEMM_ALIGN == 0,
+             f"{name}: N={N} must be a multiple of {GEMM_ALIGN}, and K="
+             f"{reduced} too (for dW: M={reduced})")
     _require(a.dim() == 2 and b.dim() == 2 and a.stride(1) == 1
              and b.stride(1) == 1 and a.stride(0) % 8 == 0
              and b.stride(0) % 8 == 0 and a.data_ptr() % 16 == 0
@@ -356,16 +436,47 @@ def _gemm(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
     _check_mask(name, mask, (M, N))
     _check_rows(name, gate, (M, N), (BF16,))
     _check_rows(name, res, (M, N), (F32,))
+
+
+def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, M: int, N: int,
+          K: int, *, bias=None, relu=False, mask=None, inv_keep=1.0,
+          out_dtype: torch.dtype = F32) -> torch.Tensor:
+    """Launch csrc/gemm.cu: a [M, K] . b [K, N] and its epilogue."""
+    mask, keep = _keep_args(name, mask, M)
+    _check_gemm(name, a, b, N, K, (out_dtype,), bias=bias, mask=mask, M=M)
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    o32, o16 = (out, None) if out_dtype == F32 else (None, out)
+    rc = _lib().mcan_gemm(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), M, N, K,
+        _ptr(bias), int(relu), _ptr(mask), N, float(inv_keep), *keep,
+        _ptr(o32), N, _ptr(o16), N, _stream(a))
+    _check(rc, name)
+    return out
+
+
+def _gemm_sm90(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
+               M: int, N: int, K: int, *, gate=None, inv_keep=1.0, res=None,
+               out_dtypes: Sequence[torch.dtype] = (F32,)
+               ) -> Tuple[torch.Tensor, ...]:
+    """Launch csrc/gemm_sm90.cu (layout _NT: a [M, K] . b [N, K]^T;
+    _TN: a [K, M]^T . b [K, N]) with the plan of ``gemm_plan``; a split
+    plan gets its workspace here and the device's tile counters."""
+    _check_gemm(name, a, b, N, M if layout == _TN else K, out_dtypes,
+                gate=gate, res=res, M=M)
+    plan = gemm_plan(layout, M, N, K)
     outs = {dt: torch.empty((M, N), dtype=dt, device=a.device)
             for dt in out_dtypes}
-    o32, o16 = outs.get(F32), outs.get(BF16)
-    rc = _lib().mcan_gemm(
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=F32,
+                         device=a.device)
+        counters = _split_counters(a.device, plan.tiles)
+    rc = _lib().mcan_gemm_sm90(
         layout, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-        M, N, K, _ptr(bias), int(relu), _ptr(mask), N, _ptr(gate),
-        0 if gate is None else gate.stride(0), float(inv_keep), *keep,
-        _ptr(res),
-        0 if res is None else res.stride(0), _ptr(o32), N, _ptr(o16), N,
-        _stream(a))
+        M, N, K, plan.bn, plan.splits, plan.grid, _ptr(gate),
+        0 if gate is None else gate.stride(0), float(inv_keep), _ptr(res),
+        0 if res is None else res.stride(0), _ptr(outs.get(F32)),
+        _ptr(outs.get(BF16)), _ptr(ws), _ptr(counters), _stream(a))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes)
 
@@ -400,9 +511,9 @@ def gemm_bias_act(a: torch.Tensor, w: torch.Tensor,
     M, K = a.shape
     _require(w.shape[0] == K, f"gemm_bias_act: a {tuple(a.shape)} . w "
              f"{tuple(w.shape)} do not chain")
-    return _gemm("gemm_bias_act", _NN, a, w, M, w.shape[1], K, bias=bias,
+    return _gemm("gemm_bias_act", a, w, M, w.shape[1], K, bias=bias,
                  relu=relu, mask=mask, inv_keep=inv_keep,
-                 out_dtypes=(out_dtype,))[0]
+                 out_dtype=out_dtype)
 
 
 def gemm_dx_plain(dy: torch.Tensor, w: torch.Tensor, *,
@@ -434,8 +545,8 @@ def gemm_dx(dy: torch.Tensor, w: torch.Tensor, *,
     M, K = dy.shape
     _require(w.shape[1] == K, f"gemm_dx: dy {tuple(dy.shape)} . w^T "
              f"{tuple(w.shape)} do not chain")
-    return _gemm("gemm_dx", _NT, dy, w, M, w.shape[0], K, gate=gate,
-                 inv_keep=inv_keep, res=res, out_dtypes=out_dtypes)
+    return _gemm_sm90("gemm_dx", _NT, dy, w, M, w.shape[0], K, gate=gate,
+                      inv_keep=inv_keep, res=res, out_dtypes=out_dtypes)
 
 
 def gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -444,14 +555,14 @@ def gemm_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The weight gradient of ``x . w``: x [R, M]^T . dy [R, N], both bf16,
-    -> f32 [M, N], summed over all R rows by one block per output tile in
-    a fixed order (the same bits on every run)."""
+    -> f32 [M, N], summed over the R rows in ``gemm_plan``'s splits, whose
+    partials are added in split order (the same bits on every run)."""
     if not on_cuda(x):
         return gemm_dw_plain(x, dy)
     R, M = x.shape
     _require(dy.shape[0] == R, f"gemm_dw: x {tuple(x.shape)} and dy "
              f"{tuple(dy.shape)} have different rows")
-    return _gemm("gemm_dw", _TN, x, dy, M, dy.shape[1], R)[0]
+    return _gemm_sm90("gemm_dw", _TN, x, dy, M, dy.shape[1], R)[0]
 
 
 def gemm_ln_plain(a: torch.Tensor, w: torch.Tensor,

@@ -1,0 +1,156 @@
+"""The plan of the Hopper backward GEMMs (``kernels.gemm_plan``), the
+launch arguments the wrapper derives from it, and the profiler's kernel
+groups: pure Python, milliseconds, no card and no JAX."""
+
+import pytest
+import torch
+
+from mcan_vqa_tpu_torch.cli.profile_train import kernel_group
+from mcan_vqa_tpu_torch.ops import kernels as kern
+
+BF16 = torch.bfloat16
+NT, TN = 1, 2
+
+# (layout, M, N, K): K the reduction (dW: R rows). Every dX / dW shape of
+# the MCAN-small step (decoder M 3840, encoder 896) and of the MCAN-large
+# step (micro-batch M 1920, D 1024, F 4096), then R in {1, 7, 77, 896}
+MAIN_PATH = [
+    (NT, 3840, 2048, 512), (NT, 3840, 512, 2048), (NT, 3840, 512, 512),
+    (NT, 3840, 512, 1536), (NT, 896, 2048, 512), (NT, 896, 512, 2048),
+    (NT, 896, 512, 512), (NT, 896, 512, 1536), (NT, 1920, 4096, 1024),
+    (NT, 1920, 1024, 4096), (NT, 1920, 1024, 1024), (NT, 1920, 1024, 3072),
+    (TN, 512, 2048, 3840), (TN, 2048, 512, 3840), (TN, 512, 1536, 3840),
+    (TN, 512, 512, 3840), (TN, 512, 1536, 896), (TN, 512, 512, 896),
+    (TN, 512, 2048, 896), (TN, 2048, 512, 896), (TN, 1024, 4096, 1920),
+    (TN, 4096, 1024, 1920), (TN, 1024, 3072, 1920), (TN, 1024, 1024, 1920)]
+EDGES = [(TN, M, N, R) for R in (1, 7, 77, 896)
+         for M, N in ((512, 512), (8, 8), (2048, 4096))]
+SHAPES = MAIN_PATH + EDGES
+
+
+@pytest.mark.parametrize("layout,M,N,K", SHAPES)
+def test_splits_cover_the_reduction_once_in_order(layout, M, N, K):
+    plan = kern.gemm_plan(layout, M, N, K)
+    assert plan.k_tiles * plan.bk >= K > (plan.k_tiles - 1) * plan.bk
+    assert 1 <= plan.splits <= plan.k_tiles
+    ranges = [plan.split_range(s) for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_tiles
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1                  # contiguous, in order
+    assert all(e > b for b, e in ranges)  # no empty split
+    # on K-tile boundaries: the rows of split s are [b bk, e bk) within R
+    rows = [r for b, e in ranges for r in range(b * plan.bk,
+                                                min(e * plan.bk, K))]
+    assert rows == list(range(K))
+
+
+@pytest.mark.parametrize("layout,M,N,K", SHAPES)
+def test_tiles_cover_the_output_and_fill_the_card(layout, M, N, K):
+    plan = kern.gemm_plan(layout, M, N, K)
+    assert plan.bm == 128 and plan.bn in (64, 128) and plan.bk == 64
+    assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm
+    assert (plan.tiles_n - 1) * plan.bn < N <= plan.tiles_n * plan.bn
+    if layout == TN:
+        # tiles x splits reach the SM count wherever R allows it
+        assert plan.blocks >= kern.GEMM_SMS or plan.splits == plan.k_tiles
+    else:
+        assert plan.splits == 1
+    # persistent blocks: no more than the work items, nor than the SMs hold
+    per_sm = 2 if plan.bn == 64 else 1
+    assert plan.grid == min(plan.blocks, kern.GEMM_SMS * per_sm)
+
+
+@pytest.mark.parametrize("layout,M,N,K", SHAPES)
+def test_workspace_holds_every_split_of_every_tile(layout, M, N, K):
+    plan = kern.gemm_plan(layout, M, N, K)
+    if plan.splits == 1:
+        assert plan.workspace_bytes == 0
+    else:
+        assert plan.workspace_bytes == (plan.splits * plan.tiles_m
+                                        * plan.bm * plan.tiles_n * plan.bn
+                                        * 4)
+        assert plan.workspace_bytes >= plan.splits * M * N * 4
+
+
+def test_plan_depends_on_the_shape_alone():
+    first = [kern.gemm_plan(*s) for s in SHAPES]
+    assert [kern.gemm_plan(*s) for s in reversed(SHAPES)] == first[::-1]
+    # pinned at the MCAN-small step: dX at 128 x 128 where 128 x 128
+    # tiles fill half the SMs or more, else 128 x 64; dW at 128 x 64 in 2
+    # splits (dW1, dW2, dWqkv) and 5 (the 512 x 512 weights); MCAN-large's
+    # dW1 at 128 x 128 in one
+    pins = {(NT, 3840, 2048, 512): (128, 1), (NT, 3840, 512, 2048): (128, 1),
+            (NT, 896, 512, 512): (64, 1),
+            (TN, 512, 2048, 3840): (64, 2), (TN, 2048, 512, 3840): (64, 2),
+            (TN, 512, 1536, 3840): (64, 2), (TN, 512, 512, 3840): (64, 5),
+            (TN, 1024, 4096, 1920): (128, 1), (TN, 512, 512, 77): (64, 2),
+            (TN, 512, 512, 1): (64, 1)}
+    for shape, (bn, splits) in pins.items():
+        plan = kern.gemm_plan(*shape)
+        assert (plan.bn, plan.splits) == (bn, splits), shape
+
+
+class _Lib:
+    """Stands in for the kernels' library: records one launch's arguments."""
+
+    def __init__(self):
+        self.args = None
+
+    def mcan_gemm_sm90(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("R,M,N", [(3840, 512, 512), (3840, 512, 2048),
+                                   (1920, 1024, 4096), (7, 8, 8)])
+def test_wrapper_launches_the_plan_with_its_workspace(monkeypatch, R, M, N):
+    lib, made = _Lib(), []
+    empty = torch.empty
+
+    def record_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(kern, "_lib", lambda: lib)
+    monkeypatch.setattr(kern, "_stream", lambda t: 0)
+    monkeypatch.setattr(kern, "_SPLIT_COUNTERS", {})
+    monkeypatch.setattr(kern.torch, "empty", record_empty)
+    x, dy = torch.zeros(R, M, dtype=BF16), torch.zeros(R, N, dtype=BF16)
+    before = kern.launch_counts().get("gemm_dw", 0)
+    out, = kern._gemm_sm90("gemm_dw", TN, x, dy, M, N, R)
+    plan = kern.gemm_plan(TN, M, N, R)
+    assert kern.launch_counts()["gemm_dw"] == before + 1
+    assert out.shape == (M, N) and out.dtype == torch.float32
+    (layout, a, lda, b, ldb, m, n, k, bn, splits, grid, gate, _, _, res, _,
+     o32, o16, ws, counters, _) = lib.args
+    assert (layout, m, n, k, bn, splits, grid) == (
+        TN, M, N, R, plan.bn, plan.splits, plan.grid)
+    assert (a, lda, b, ldb) == (x.data_ptr(), M, dy.data_ptr(), N)
+    assert gate is None and res is None and o16 is None
+    assert o32 == out.data_ptr()
+    if plan.splits == 1:
+        assert ws is None and counters is None
+    else:
+        wst = [t for t in made if t.data_ptr() == ws][0]
+        assert wst.numel() * wst.element_size() == plan.workspace_bytes
+        cnt = kern._SPLIT_COUNTERS[x.device]
+        assert counters == cnt.data_ptr() and cnt.numel() >= plan.tiles
+        assert not cnt.any()
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::gemm_kernel(__nv_bfloat16 const*, long "
+     "long, __nv_bfloat16 const*, long long, int, int, int, "
+     "(anonymous namespace)::Epilogue)", "gemm_kernel"),
+    ("void sm90::gemm_sm90_kernel<true, 64>(CUtensorMap_st, CUtensorMap_st, "
+     "int, int, int, sm90::Epilogue, float*, int*)", "gemm_sm90_kernel"),
+    ("void sm90::gemm_sm90_kernel<false, 128>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroup"
+     "size1x1x1_execute_segment_k_off_kernel__5x_cublas", "torch gemm"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_s16816gemm_bf16_64x64_64x4>",
+     "torch gemm")])
+def test_profiler_groups_the_port_gemms_apart_from_cublas(name, group):
+    assert kernel_group(name) == group

@@ -622,32 +622,85 @@ def test_gemm_relu_dropout_epilogue_matches_plain(cuda):
            K.gemm_bias_act_plain(a, w, b, **kw), 2 ** -7)
 
 
-@pytest.mark.parametrize("with_gate,with_res", [(True, False), (False, True)])
-def test_gemm_dx_matches_plain(cuda, with_gate, with_res):
+def _operand(rows, width, g, cuda, sliced, s=1.0):
+    """A bf16 [rows, width] operand, or a view of a wider buffer (row
+    stride width + 24 > width), as the blocks pass slices of fused
+    buffers."""
+    full = torch.randn(rows, width + 24 * sliced, generator=g, device=cuda)
+    return (full[:, :width] * s).to(BF16) if not sliced else \
+        (full * s).to(BF16)[:, 8:8 + width]
+
+
+@pytest.mark.parametrize("M,N,Kd,with_gate,with_res,sliced", [
+    (122, 2048, 512, True, False, False), (122, 2048, 512, False, True, False),
+    # the train steps' shapes: MCAN-small decoder / encoder, MCAN-large
+    (3840, 2048, 512, True, False, False), (3840, 512, 2048, False, True, True),
+    (896, 512, 1536, True, True, False), (1920, 4096, 1024, True, True, True),
+    # the edges: one row, 7 rows, widths 8 and 480
+    (1, 8, 8, True, True, False), (7, 480, 4096, True, True, True),
+    (1920, 8, 480, False, True, False)])
+def test_gemm_dx_matches_plain(cuda, M, N, Kd, with_gate, with_res, sliced):
     g = torch.Generator(device=cuda).manual_seed(7)
-    M, N, Kd = 122, 2048, 512          # dy [M, K] . w[N, K]^T
-    dy = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
-    w = (torch.randn(N, Kd, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
+    dy = _operand(M, Kd, g, cuda, sliced)     # dy [M, K] . w[N, K]^T
+    w = _operand(N, Kd, g, cuda, sliced, Kd ** -0.5)
     gate = torch.relu(torch.randn(M, N, generator=g, device=cuda)).to(BF16) \
         if with_gate else None
     res = torch.randn(M, N, generator=g, device=cuda) if with_res else None
     kw = dict(gate=gate, inv_keep=1 / 0.9, res=res,
               out_dtypes=(torch.float32, BF16))
+    before = K.launch_counts().get("gemm_dx", 0)
     outs = K.gemm_dx(dy, w, **kw)
+    assert K.launch_counts()["gemm_dx"] == before + 1
     refs = K.gemm_dx_plain(dy, w, **kw)
     _close(outs[0], refs[0], 1e-4)
     _close(outs[1], refs[1], 2 ** -7)
 
 
-@pytest.mark.parametrize("R,M,N", [(3840, 512, 2048), (77, 2048, 512)])
-def test_gemm_dw_matches_plain_and_repeats_bitwise(cuda, R, M, N):
+@pytest.mark.parametrize("R,M,N,sliced", [
+    (3840, 512, 2048, False), (77, 2048, 512, False),
+    # the train steps' shapes (split over R: 2 and 5 splits at 3840 rows)
+    (3840, 512, 512, True), (3840, 2048, 512, False), (896, 512, 1536, True),
+    (1920, 1024, 4096, False), (1920, 4096, 1024, True),
+    # the edges: one row, 7 rows, widths 8 and 480
+    (1, 8, 8, False), (7, 480, 512, True), (896, 8, 480, False),
+    (3840, 4096, 8, True)])
+def test_gemm_dw_matches_plain_and_repeats_bitwise(cuda, R, M, N, sliced):
     g = torch.Generator(device=cuda).manual_seed(R)
-    x = torch.randn(R, M, generator=g, device=cuda).to(BF16)
-    dy = (torch.randn(R, N, generator=g, device=cuda) / R ** 0.5).to(BF16)
+    x = _operand(R, M, g, cuda, sliced)
+    dy = _operand(R, N, g, cuda, sliced, R ** -0.5)
     out = K.gemm_dw(x, dy)
     # f32 sums of exact bf16 products over R rows, in another order
     _close(out, K.gemm_dw_plain(x, dy), 1e-4)
     assert torch.equal(out, K.gemm_dw(x, dy))
+
+
+def test_gemm_dw_split_k_repeats_bitwise(cuda):
+    """Five splits of 3840 rows summed in split order: ten runs, one set of
+    bits, whichever block of a tile arrives last."""
+    plan = K.gemm_plan(2, 512, 512, 3840)
+    assert plan.splits == 5
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(3840, 512, generator=g, device=cuda).to(BF16)
+    dy = (torch.randn(3840, 512, generator=g, device=cuda) / 60).to(BF16)
+    first = K.gemm_dw(x, dy)
+    for _ in range(9):
+        assert torch.equal(first, K.gemm_dw(x, dy))
+    _close(first, K.gemm_dw_plain(x, dy), 1e-4)
+
+
+def test_gemm_sm90_raises_on_unsupported_operands(cuda):
+    x = torch.zeros(64, 512, dtype=BF16, device=cuda)
+    w = torch.zeros(512, 512, dtype=BF16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of"):
+        K.gemm_dx(x[:, :500], w[:, :500])          # K = 500
+    with pytest.raises(ValueError, match="multiple of"):
+        K.gemm_dw(x[:, :100], x)                  # dW's M = 100
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        K.gemm_dw(x[:, 1:9], x[:, :8])            # misaligned start
+    with pytest.raises(ValueError, match="bf16"):
+        K.gemm_dx(x.float(), w)
+    with pytest.raises(ValueError, match="do not chain"):
+        K.gemm_dx(x, w[:, :256])
 
 
 @pytest.mark.parametrize("Lq,Lk,lengths,kv_dtype,Dh", [
