@@ -14,8 +14,8 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              (micro-batch 32, D=1024, 128-wide heads, bf16 saves); with
              each one's device time, its plain version's, one PyTorch
              library call's where there is one, and its bound at the
-             card's published peaks; the Hopper backward products
-             (gemm_sm90.cu: gemm_dx, gemm_dw) timed at both models with
+             card's published peaks; the Hopper products (gemm_sm90.cu:
+             gemm_bias_act, gemm_dx, gemm_dw) timed at both models with
              their plan per shape (tile, splits, grid) and each instance's
              registers, spills and shared memory, dW bit for bit over two
              runs;
@@ -462,9 +462,14 @@ def plan_note(K, layout, M, N, Kd) -> str:
             f"{p.workspace_bytes / 2 ** 20:.1f} MiB")
 
 
+SM90_LAYOUTS = {"ILi1E": "NT (dX)", "ILi2E": "TN (dW)",
+                "ILi3E": "NN (forward)"}
+
+
 def sm90_report(build, lib) -> None:
     """Each gemm_sm90.cu instance's registers, spills (ptxas) and dynamic
-    shared memory."""
+    shared memory: gemm_sm90_kernel<layout, bn, seeded>, layout 1 NT, 2
+    TN, 3 NN (mangled ...ILi3ELi128ELb1E...)."""
     lines = build.build_log.splitlines()
     if not lines:
         say("[gemm_sm90] the library was built by an earlier process: no "
@@ -474,7 +479,10 @@ def sm90_report(build, lib) -> None:
                 "gemm_sm90_kernel" not in line:
             continue
         mangled = line.split("'")[1]
-        layout = "TN (dW)" if "ILb1E" in mangled else "NT (dX)"
+        layout = next((v for k, v in SM90_LAYOUTS.items() if k in mangled),
+                      mangled)
+        if "Lb1E" in mangled:
+            layout += ", seeded"
         bn = 128 if "Li128E" in mangled else 64
         info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
                         if "spill" in ln or "registers" in ln)
@@ -516,7 +524,7 @@ def check_serving_kernels(torch, dev, rows) -> None:
 
     say("[kernels] the serving kernels vs their plain PyTorch versions "
         "(times: the launches of one B=64 serving forward)")
-    rows.row("gemm_bias_act", SRC + "gemm.cu", f"{TPU}:285", BOTH)
+    rows.row("gemm_bias_act", SRC + "gemm_sm90.cu", f"{TPU}:285", BOTH)
     rows.row("masked_attention", SRC + "masked_attention.cu", f"{TPU}:273",
              BOTH)
     rows.row("residual_layernorm", SRC + "residual_layernorm.cu",
@@ -553,7 +561,8 @@ def check_serving_kernels(torch, dev, rows) -> None:
                 a, w, b, relu=relu, out_dtype=odt))
             t_l = device_ms(torch, lambda: torch.addmm(b16, a, w))
             say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms, addmm "
-                f"{t_l:.4f} ms ({2 * M * Kd * N / t_k / 1e9:.1f} TFLOP/s)")
+                f"{t_l:.4f} ms ({2 * M * Kd * N / t_k / 1e9:.1f} TFLOP/s); "
+                f"{plan_note(K, 3, M, N, Kd)}")
             rows.add("gemm_bias_act", per_fwd, t_k, t_p, 2 * M * Kd * N,
                      gemm_bytes(M, Kd, N, bias=True,
                                 out=(4 if odt == f32 else 2,)), t_l)
@@ -3213,9 +3222,9 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
              "mcan_vqa_tpu/ops/attflat.py:72", SERVE_MODE0)
     rows.row("masked_attention, f32 q", SRC + "masked_attention.cu",
              f"{TPU_ATT}:118", SERVE_MODE0)
-    rows.row("gemm_bias_act, AttFlat", SRC + "gemm.cu",
+    rows.row("gemm_bias_act, AttFlat", SRC + "gemm_sm90.cu",
              "mcan_vqa_tpu/ops/attflat.py:72", SERVE_MODE0)
-    rows.row("gemm_bias_act, N 480", SRC + "gemm.cu", f"{TPU}:285",
+    rows.row("gemm_bias_act, N 480", SRC + "gemm_sm90.cu", f"{TPU}:285",
              EACH_SHAPE)
     rows.row("masked_attention, long", SRC + "masked_attention.cu",
              f"{TPU_ATT}:118", EACH_SHAPE)

@@ -1,24 +1,40 @@
-"""Device time of the backward GEMMs at the train steps' shapes.
+"""Device time of the Hopper GEMMs at the main paths' shapes.
 
     python mcan_vqa_tpu_torch/cli/bench_gemm.py [--root DIR] [--tag T]
+        [--forward]
 
-Times ``gemm_dx`` (dY . W^T with its gate / residual epilogue) and
-``gemm_dw`` (X^T . dY, f32) of the ``mcan_vqa_tpu_torch`` package under
-``--root`` (default: the checkout this file lies in; another checkout, such
-as an older commit unpacked with ``git archive``, compares two versions
-within one run on the card) beside one ``torch.mm`` of the same operands,
-at every shape of one B=64 train step:
+Times ``gemm_bias_act`` (the forward product a . w + bias with its ReLU /
+keep-mask / Philox epilogue), ``gemm_dx`` (dY . W^T with its gate /
+residual epilogue) and ``gemm_dw`` (X^T . dY, f32) of the
+``mcan_vqa_tpu_torch`` package under ``--root`` (default: the checkout this
+file lies in; another checkout, such as an older commit unpacked with
+``git archive``, compares two versions within one run on the card) beside
+one PyTorch call of the same operands (``torch.addmm`` with a bf16 bias for
+the forward, ``torch.mm`` for the backward), at every shape of
 
-  * unit T, MCAN-small: the six SGA decoder blocks (M = R = 3840 rows, D
-    512, F 2048) and the six SA encoder blocks (896 rows);
-  * unit L, MCAN-large: the six SGA decoder blocks of each of the two
-    micro-batches of 32 (1920 rows, D 1024, F 4096, bf16 saves).
+  * unit S: one B=64 bf16 serving forward of MCAN-small (the six SA
+    encoder blocks at M = 896 rows, the six SGA decoder blocks at 3840);
+  * unit B1: the same forward at B=1 (M = 14 and 60), each shape also
+    timed eagerly (CUDA events around eager calls: the host's issue time,
+    tensor-map encodes included, counts);
+  * unit T, one B=64 MCAN-small train step: the six SGA decoder blocks (M
+    = R = 3840 rows, D 512, F 2048; the forward products and the attention
+    backward's recomputed projections) and the six SA encoder blocks (896
+    rows), the FFN's first product with the h1 dropout drawn in the
+    kernel (Philox), as the Trainer runs it on the card;
+  * unit L, one B=64 MCAN-large train step: the six SGA decoder blocks of
+    each of the two micro-batches of 32 (1920 rows, D 1024, F 4096, bf16
+    saves).
 
-Each time: 50 calls captured in one CUDA graph, replayed 5 times, the
-median per call. Prints one JSON line per shape, one per kernel
-and unit with the unit's totals (calls x time; the bound at 989 TFLOP/s
-bf16 and 3.35 TB/s, each input read once and each output written once),
-then the card. Needs a CUDA device.
+A forward shape's h1 keep-mask read from memory is timed once more with
+0 calls per unit. Each device time: 50 calls captured in one CUDA graph,
+replayed 5 times, the median per call. Prints one JSON line per shape, one
+per kernel and unit with the unit's totals (calls x time; the bound at 989
+TFLOP/s bf16 and 3.35 TB/s, each input read once and each output written
+once), then the card. ``--forward`` also times one MCAN-small
+``Predictor`` forward at B = 1 and 8 (seeded random weights; the default
+int8 level-1 engine and the bf16 one, ``qffn=0``; median of 5 rounds of 10
+eager calls). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +47,42 @@ from pathlib import Path
 
 PEAK_BF16, HBM = 989e12, 3.35e12
 
+# (unit, label, M, K, N, relu, out size, keep-mask: None, "mask" or
+# "seeded", calls per unit)
+NN = [("S", "enc qkv", 896, 512, 1536, False, 2, None, 6),
+      ("S", "enc merge", 896, 512, 512, False, 4, None, 6),
+      ("S", "enc ffn1", 896, 512, 2048, True, 2, None, 6),
+      ("S", "enc ffn2", 896, 2048, 512, False, 4, None, 6),
+      ("S", "dec qkv", 3840, 512, 1536, False, 2, None, 6),
+      ("S", "dec merge", 3840, 512, 512, False, 4, None, 12),
+      ("S", "dec ffn1", 3840, 512, 2048, True, 2, None, 6),
+      ("S", "dec ffn2", 3840, 2048, 512, False, 4, None, 6),
+      ("S", "dec q2", 3840, 512, 512, False, 2, None, 6),
+      ("B1", "enc qkv", 14, 512, 1536, False, 2, None, 6),
+      ("B1", "enc merge", 14, 512, 512, False, 4, None, 6),
+      ("B1", "enc ffn1", 14, 512, 2048, True, 2, None, 6),
+      ("B1", "enc ffn2", 14, 2048, 512, False, 4, None, 6),
+      ("B1", "dec qkv", 60, 512, 1536, False, 2, None, 6),
+      ("B1", "dec merge", 60, 512, 512, False, 4, None, 12),
+      ("B1", "dec ffn1", 60, 512, 2048, True, 2, None, 6),
+      ("B1", "dec ffn2", 60, 2048, 512, False, 4, None, 6),
+      ("B1", "dec q2", 60, 512, 512, False, 2, None, 6),
+      ("T", "ffn1 + h1 seeded", 3840, 512, 2048, True, 2, "seeded", 6),
+      ("T", "ffn1 + h1 mask", 3840, 512, 2048, True, 2, "mask", 0),
+      ("T", "qkv", 3840, 512, 1536, False, 2, None, 12),
+      ("T", "merge, merge2", 3840, 512, 512, False, 4, None, 24),
+      ("T", "q2", 3840, 512, 512, False, 2, None, 12),
+      ("T", "ffn2", 3840, 2048, 512, False, 4, None, 6),
+      ("T", "enc qkv", 896, 512, 1536, False, 2, None, 12),
+      ("T", "enc merge", 896, 512, 512, False, 4, None, 12),
+      ("T", "enc ffn1 + h1 seeded", 896, 512, 2048, True, 2, "seeded", 6),
+      ("T", "enc ffn2", 896, 2048, 512, False, 4, None, 6),
+      ("L", "qkv", 1920, 1024, 3072, False, 2, None, 12),
+      ("L", "merge, merge2", 1920, 1024, 1024, False, 4, None, 24),
+      ("L", "q2", 1920, 1024, 1024, False, 2, None, 12),
+      ("L", "ffn1 + h1 seeded", 1920, 1024, 4096, True, 2, "seeded", 12),
+      ("L", "ffn1 + h1 mask", 1920, 1024, 4096, True, 2, "mask", 0),
+      ("L", "ffn2", 1920, 4096, 1024, False, 4, None, 12)]
 # (unit, label, rows, K = width of dy, N = width of dx, gate, res, out
 # sizes, calls per unit)
 DX = [("T", "da1 = dy3 W2^T, gate", 3840, 512, 2048, True, False, (4, 2), 6),
@@ -68,11 +120,73 @@ def bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_BF16, nbytes / HBM) * 1e3
 
 
+def eager_ms(torch, fn, calls: int = 50) -> float:
+    """ms per eager call by CUDA events: the host's issue time counts."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_forward(torch, tag: str) -> None:
+    """One MCAN-small Predictor forward at B = 1 and 8: the default engine
+    at int8 level 1 (no calibration) and the bf16 engine (qffn=0)."""
+    import statistics
+
+    import numpy as np
+
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data import build_vocab
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    cfg = Config()
+    questions = ["what color is the cat", "is this a kitchen"]
+    vocab, emb = build_vocab(questions)
+    net = MCANet(cfg, len(vocab), 3129, pretrained_emb=emb,
+                 generator=torch.Generator().manual_seed(0))
+    state = net.state_dict()
+    pred = Predictor(cfg, state, vocab, latency_buckets=(1, 8),
+                     auto_calibrate=0)
+    fwd, prep = build_production_engine(state, cfg.layer, cfg.multi_head,
+                                        qffn=0)
+    rng = np.random.default_rng(0)
+    for b in (1, 8):
+        feats = [np.abs(rng.normal(size=(40, cfg.img_feat_size)))
+                 .astype(np.float32) for _ in range(b)]
+        img, ques = pred.pad_batch([questions[i % 2] for i in range(b)],
+                                   feats)
+        img_t, ques_t = (torch.from_numpy(x).cuda() for x in (img, ques))
+
+        def bf16():
+            with torch.inference_mode():
+                return fwd(prep, img_t, ques_t)
+
+        engines = (("level 1", lambda: pred.forward_padded(img, ques)),
+                   ("bf16", bf16))
+        t = {name: [] for name, _ in engines}
+        for _ in range(5):
+            for name, fn in engines:
+                t[name].append(eager_ms(torch, fn, calls=10))
+        for name, ms in t.items():
+            print(json.dumps({"tag": tag, "forward": name, "B": b,
+                              "ms": statistics.median(ms), "min_ms": min(ms),
+                              "max_ms": max(ms)}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -95,7 +209,7 @@ def main(argv=None) -> None:
 
     totals = {}
 
-    def emit(kernel, unit, label, shape, calls, ms, mm_ms, b):
+    def emit(kernel, unit, label, shape, calls, ms, mm_ms, b, **extra):
         t = totals.setdefault((kernel, unit), [0, 0.0, 0.0, 0.0])
         t[0] += calls
         t[1] += calls * ms
@@ -103,9 +217,33 @@ def main(argv=None) -> None:
         t[3] += calls * b
         print(json.dumps({"tag": args.tag, "kernel": kernel, "unit": unit,
                           "case": label, "shape": shape, "calls": calls,
-                          "ms": ms, "mm_ms": mm_ms, "bound_ms": b}),
+                          "ms": ms, "mm_ms": mm_ms, "bound_ms": b, **extra}),
               flush=True)
 
+    for unit, label, M, Kd, N, relu, osz, keep, calls in NN:
+        # shape [M, K, N]; mm_ms: torch.addmm with a bf16 bias
+        a = randn(M, Kd, dtype=bf16)
+        w = randn(Kd, N, dtype=bf16, s=Kd ** -0.5)
+        b = randn(N, s=0.1)
+        b16 = b.to(bf16)
+        kw = dict(relu=relu, out_dtype=torch.float32 if osz == 4 else bf16)
+        if keep == "mask":
+            kw.update(mask=torch.rand(M, N, generator=g, device=dev) >= 0.1,
+                      inv_keep=1 / 0.9)
+        elif keep == "seeded":
+            rows = 14 if M == 896 else 60       # rows per sample
+            kw.update(mask=K.Philox(7, 0x303, 3865470566, rows),
+                      inv_keep=2 ** 32 / 3865470566)
+        nbytes = 2 * (M * Kd + Kd * N) + 4 * N + M * N * (
+            osz + (keep == "mask"))
+        extra = {}
+        if unit == "B1":
+            extra["eager_ms"] = eager_ms(torch, lambda: K.gemm_bias_act(
+                a, w, b, **kw))
+        emit("gemm_bias_act", unit, label, [M, Kd, N], calls,
+             graph_ms(torch, lambda: K.gemm_bias_act(a, w, b, **kw)),
+             graph_ms(torch, lambda: torch.addmm(b16, a, w)),
+             bound_ms(2 * M * Kd * N, nbytes), **extra)
     for unit, label, M, Kd, N, has_gate, has_res, outs, calls in DX:
         dy = randn(M, Kd, dtype=bf16)
         w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
@@ -127,9 +265,13 @@ def main(argv=None) -> None:
              graph_ms(torch, lambda: torch.mm(x.t(), dy)),
              bound_ms(2 * R * M * N, 2 * R * (M + N) + 4 * M * N))
     for (kernel, unit), (calls, ms, mm_ms, b) in totals.items():
+        if calls == 0:
+            continue
         print(json.dumps({"tag": args.tag, "kernel": kernel, "unit": unit,
                           "calls": calls, "ms": ms, "mm_ms": mm_ms,
                           "x_mm": ms / mm_ms, "bound_ms": b}), flush=True)
+    if args.forward:
+        time_forward(torch, args.tag)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

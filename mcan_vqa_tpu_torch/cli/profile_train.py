@@ -38,7 +38,10 @@ import torch
 
 # the port's kernels by name, checked before the library groups: the
 # Hopper GEMMs' "sm90::gemm_sm90_kernel<...>" would otherwise count as
-# cuBLAS ("sm90_")
+# cuBLAS ("sm90_"). Its forward instances (layout 3, NN: gemm_bias_act)
+# form a group of their own, apart from the backward ones (NT, TN);
+# "gemm_kernel" is the WMMA forward kernel of older checkouts.
+GEMM_SM90_NN = "gemm_sm90_kernel<3,"
 PORT_KERNELS = ("gemm_sm90_kernel", "gemm_kernel",
                 "masked_attention_bwd_kernel",
                 "masked_attention_kernel", "residual_layernorm_bwd_kernel",
@@ -46,6 +49,8 @@ PORT_KERNELS = ("gemm_sm90_kernel", "gemm_kernel",
 
 
 def kernel_group(name: str) -> str:
+    if GEMM_SM90_NN in name:
+        return "gemm_sm90_kernel NN"
     for k in PORT_KERNELS:
         if k in name:
             return k

@@ -1,10 +1,19 @@
-// gemm_sm90: the two backward products on Hopper's asynchronous tensor
-// cores, bf16 operands, f32 accumulation:
-//   NT  C[M,N] = A[M,K] . B[N,K]^T     dX = dY . W^T   (gemm_dx)
-//   TN  C[M,N] = A[K,M]^T . B[K,N]     dW = X^T . dY   (gemm_dw)
+// gemm_sm90: the port's bf16 products on Hopper's asynchronous tensor
+// cores, f32 accumulation, one mainloop for three layouts:
+//   NN  C[M,N] = A[M,K] . B[K,N]       the forward   (gemm_bias_act)
+//   NT  C[M,N] = A[M,K] . B[N,K]^T     dX = dY . W^T (gemm_dx)
+//   TN  C[M,N] = A[K,M]^T . B[K,N]     dW = X^T . dY (gemm_dw)
 //
-// Replaces: the backward products inside the TPU train kernels,
-//   mcan_vqa_tpu/ops/sga_train.py::_mm_bt (dY . W^T; in the FFN backward
+// Replaces: the forward dots of the TPU block kernels, each
+//   jnp.dot(bf16, bf16, preferred_element_type=f32) + bias:
+//   mcan_vqa_tpu/ops/sga_block.py::_sga_kernel_fusedproj (:285) and
+//   ::_sa_kernel (:967) -- the fused qkv [D,3D], the cross query [D,D], the
+//   merges [D,D], the FFN [D,F] / [F,D]; the train forward
+//   mcan_vqa_tpu/ops/sga_train.py::_fwd_body (:415, the h1 dropout on the
+//   ReLU output drawn by _fwd_kernel_prng :507) and the projection
+//   recomputes of _bwd_att_kernel (:631); sa_train.py::_fwd_body (:130)
+//   and _fwd_kernel_prng (:179). And the backward products inside the TPU
+//   train kernels: sga_train.py::_mm_bt (dY . W^T; in the FFN backward
 //   with the ReLU / dropout gate where(h1d > 0, inv_keep * dh1d, 0) at
 //   :597-599, and the residual added to the next product's output) and
 //   ::_mm_tn (:382, the dW partial of one grid step) summed over the
@@ -14,15 +23,16 @@
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at the MCAN-small B=64
 // step (M = R = 3840 rows, 512 <= K, N <= 2048) each product carries 2-8
-// GFLOP, 2-8 us at the tensor-core peak; the dX products move 6-69 MB
-// (f32 and bf16 outputs, the bf16 gate, the f32 residual), so they are
-// bound by bytes (2-21 us); a dW product moves 6-24 MB (2-7 us) and sits
-// near the ridge. The 60 dX / 60 dW launches of one step: 0.369 / 0.231 ms
-// (chip_smoke.py's rows).
+// GFLOP, 2-8 us at the tensor-core peak. A forward product moves its
+// operands, a bias and one output (f32 or bf16; the train forward's FFN
+// product a byte mask too): 2-21 MB, 1-6 us, near the ridge. The dX
+// products move 6-69 MB (f32 and bf16 outputs, the bf16 gate, the f32
+// residual), so they are bound by bytes (2-21 us); a dW product moves 6-24
+// MB (2-7 us) and sits near the ridge.
 //
-// Design. One mainloop, templated on operand majorness (K-major for NT,
-// MN-major for TN) and on the tile width BN (128 or 64; the tile height is
-// 128). A block is a producer warp and one or two consumer warpgroups:
+// Design. One mainloop, templated on the layout (each operand K-major or
+// MN-major) and on the tile width BN (128 or 64; the tile height is 128).
+// A block is a producer warp and one or two consumer warpgroups:
 //   * the producer's lane 0 keeps TMA loads (cp.async.bulk.tensor, 2-D
 //     tensor maps encoded on the host per call, 128-byte swizzle) in flight
 //     into a ring of STAGES tiles of K = 64 in dynamic shared memory, each
@@ -30,14 +40,15 @@
 //     K are zero-filled by the TMA unit, so a ragged edge needs no mask on
 //     the load and contributes exact zeros;
 //   * the consumers issue wgmma.mma_async m64nBNk16 with both operands read
-//     from shared memory through matrix descriptors: K-major for dX (dy
-//     [M,K] and w [N,K] as stored), MN-major for dW (x [R,m] and dy [R,n]
-//     as stored, read through wgmma's transpose bits: nothing is
-//     transposed in memory); one wgmma group stays in flight while the
-//     next stage is awaited;
+//     from shared memory through matrix descriptors: an operand stored
+//     with K contiguous is read K-major (a [M,K] of NN, dy [M,K] and w
+//     [N,K] of dX), one stored with M or N contiguous MN-major through
+//     wgmma's transpose bits (w [K,N] of NN, x [R,m] and dy [R,n] of dW):
+//     nothing is transposed in memory; one wgmma group stays in flight
+//     while the next stage is awaited;
 //   * the epilogue runs from the accumulator registers, stores masked at
-//     the M and N edges: every output element is written. Its gate and
-//     residual loads go out in batches ahead of the stores they feed.
+//     the M and N edges: every output element is written. Its loads go out
+//     in batches ahead of the stores they feed.
 // BN 128: two consumer warpgroups of one 64-row half each, one block per
 // SM, 6 stages; BN 64: one warpgroup for both halves, two blocks per SM, 4
 // stages each (Cfg). The blocks are persistent: each walks work items
@@ -53,16 +64,23 @@
 // the epilogue and puts the counter back to 0 for the next launch. The
 // summation order is fixed, so the bits do not depend on which block runs
 // first: two runs give equal bits. The plan (tile width, splits, grid,
-// workspace) is chosen from the shape alone by ops/kernels.py::gemm_plan.
+// workspace) is chosen from the shape alone by ops/kernels.py::gemm_plan;
+// NN and NT never split.
 //
-// The dX epilogue, in order: gradient gate (x inv_keep where the bf16 gate
-// is > 0, else 0), + an f32 residual, then one rounding to each requested
-// output (f32 and / or bf16).
+// The epilogues. NN, in order: + bias[col], ReLU, the dropout keep-mask
+// (uint8 [M, N]) or its Philox source (x inv_keep, else 0), then one
+// rounding to f32 or bf16. NT: the gradient gate (x inv_keep where the
+// bf16 gate is > 0, else 0), + an f32 residual, then one rounding to each
+// requested output (f32 and / or bf16). The seeded NN epilogue is an
+// instance of its own, so the products without dropout do not carry its
+// registers.
 //
-// Not yet: the forward product NN (gemm_bias_act, gemm.cu) on this
-// mainloop, an epilogue staged through shared memory with TMA stores
-// (the dX products with two outputs and a gate run at 2.6-3x their
-// bound), thread-block clusters with multicast loads.
+// Not yet: an epilogue staged through shared memory with TMA stores (the
+// dX products with two outputs and a gate run at 2.6-3x their bound; the
+// epilogue does not overlap the next item's products), thread-block
+// clusters with multicast loads, a split of the B=1 forward products (N
+// 512 is 4-8 tiles), cheaper Philox keep bits (on an H100 the seeded FFN
+// product of the MCAN-small step takes 1.7x the unseeded one's time).
 #include <cuda.h>  // CUtensorMap and the encode function's types; no -lcuda
 
 #include <cstdint>
@@ -98,15 +116,23 @@ struct Cfg {
   static constexpr int SMEM = SWIZZLE_ATOM + STAGES * STAGE_BYTES + 16 * STAGES + 16;
 };
 
+// the layouts (mcan_gemm_sm90's `layout`, the kernel's template argument)
+constexpr int NT = 1, TN = 2, NN = 3;
+
 struct Epilogue {
-  const bf16* gate;   // [M, N]: keep (x inv_keep) where > 0, else 0
+  const bf16* gate;   // NT: [M, N], keep (x inv_keep) where > 0, else 0
   long long ldg;
-  float inv_keep;
-  const float* res;   // [M, N] f32 added after the gate, or null
+  float inv_keep;     // NT's gate and NN's keep-mask
+  const float* res;   // NT: [M, N] f32 added after the gate, or null
   long long ldr;
-  float* out_f32;     // either output may be null; both dense [M, N]
+  float* out_f32;     // either output may be null (NN: one is); both dense [M, N]
   bf16* out_bf16;
   long long ldo;
+  const float* bias;  // NN: [N] f32 or null
+  int relu;
+  const unsigned char* mask;   // NN: [M, N] keep-mask (row stride ldm) or null
+  long long ldm;
+  Philox keep;        // NN: or its seeded source (the seeded instance only)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -248,19 +274,212 @@ struct Item {
   }
 };
 
-// MN: both operands MN-major (TN, dW), else both K-major (NT, dX).
+// a[i] for a run-time i < N, by selects (an indexed register array would
+// go to local memory)
+template <int N>
+__device__ __forceinline__ unsigned pick(const unsigned (&a)[N], int i) {
+  unsigned v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = i == k ? a[k] : v;
+  return v;
+}
+
+// The forward's (NN) per-item state beside the accumulators. Accumulator j
+// of half h holds row 64 (wg HALVES + h) + 16 warp + lane / 4 + 8 ((j / 2)
+// % 2), column 8 (j / 4) + 2 (lane % 4) + j % 2 of the tile: a thread's
+// columns are the same in every row it holds, so its ACC / 4 bias pairs are
+// loaded once, as the item starts (their latency hides behind the
+// mainloop). The keep bits of its HALVES x ACC accumulators go into one
+// 64-bit mask, bit h ACC + j.
+//
+// Seeded, a pair (col, col + 1) starts on an even column, so its elements
+// e, e + 1 share the Philox counter e >> 2 (words 0, 1 where e % 4 == 0,
+// else 2, 3), and the lanes 2i, 2i + 1 of a quad hold the same rows and
+// columns 4k .. 4k + 3 between them: one counter. So a lane pair draws each
+// of its counters once: in draw s the even lane takes the thread's pair
+// 2s, the odd lane pair 2s + 1, and each hands the other the keep bits of
+// the other's words by one shuffle -- philox_keep_rows's decision, element
+// by element, at a quarter of its draws. A row's sample and first element
+// are worked out as the item starts. The draws run in batches of B
+// independent draws (a lone draw waits out each round's latency), in a
+// rolled loop (Philox inlined into an unrolled row takes minutes to
+// build): a batch between the mainloop's wgmma issue and wait, while the
+// tensor cores run, the rest after the mainloop.
+template <int BN, bool SEEDED>
+struct NNState {
+  static constexpr int HALVES = Cfg<BN>::HALVES, ACC = BN / 2, PAIRS = ACC / 4;
+  static constexpr int DRAWS = HALVES * ACC / 4;   // per thread and item
+  float2 bias[PAIRS];
+  unsigned long long kept;
+  int drawn;
+  unsigned sample[2 * HALVES], first[2 * HALVES];   // of row r0 + 64 h + 8 hi at 2 h + hi
+
+  __device__ __forceinline__ void start(const Epilogue& ep, int r0, int c0, int N) {
+    if (ep.bias != nullptr) {
+#pragma unroll
+      for (int p = 0; p < PAIRS; ++p) {
+        const int col = c0 + 8 * p;
+        bias[p] = col < N ? make_float2(__ldg(ep.bias + col), __ldg(ep.bias + col + 1))
+                          : make_float2(0.0f, 0.0f);
+      }
+    }
+    kept = 0;
+    drawn = 0;
+    if (SEEDED) {
+#pragma unroll
+      for (int i = 0; i < 2 * HALVES; ++i) {
+        const int row = r0 + 64 * (i / 2) + 8 * (i % 2), b = row / ep.keep.rows;
+        sample[i] = static_cast<unsigned>(b);
+        first[i] = static_cast<unsigned>((row - static_cast<long long>(b) * ep.keep.rows) * N);
+      }
+    }
+  }
+
+  // draws drawn .. drawn + B - 1 (B divides what is left)
+  template <int B>
+  __device__ __forceinline__ void draw(const Epilogue& ep, int lane, int r0, int c0, int M, int N) {
+    const int odd = lane & 1;
+    uint4 w[B];
+    bool in[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int j = 2 * (drawn + i) + odd;   // pair q of half h
+      const int h = j / (ACC / 2), q = j % (ACC / 2), hi = q & 1;
+      const int row = r0 + 64 * h + 8 * hi, col = c0 + 8 * (q >> 1);
+      in[i] = row < M && col < N;
+      const unsigned e = pick(first, 2 * h + hi) + static_cast<unsigned>(col);
+      w[i] = philox4x32_10(make_uint4(e >> 2, pick(sample, 2 * h + hi), 0u, 0u),
+                           make_uint2(ep.keep.seed, ep.keep.site));
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const unsigned t = ep.keep.thresh;   // keep bits from words 0, 1 and 2, 3
+      const unsigned lo = in[i] ? (w[i].x < t ? 1u : 0u) | (w[i].y < t ? 2u : 0u) : 0u;
+      const unsigned hi = in[i] ? (w[i].z < t ? 1u : 0u) | (w[i].w < t ? 2u : 0u) : 0u;
+      const unsigned mine = odd ? hi : lo;
+      const unsigned got = __shfl_xor_sync(0xFFFFFFFFu, odd ? lo : hi, 1);   // the partner's pair
+      kept |= static_cast<unsigned long long>(odd ? got | mine << 2 : mine | got << 2)
+              << (4 * (drawn + i));
+    }
+    drawn += B;
+  }
+};
+
+// 4 x 4 transpose of 32-bit values across the lanes of a quad: lane t's
+// a[s] becomes lane s's a[t]. Two butterfly stages, each swapping one bit
+// of (lane, position) for the values whose bits differ.
+__device__ __forceinline__ void quad_transpose(unsigned (&a)[4], int lane) {
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    const bool up = lane & m;
+#pragma unroll
+    for (int s0 = 0; s0 < 4; ++s0) {
+      if (s0 & m) continue;
+      const unsigned got = __shfl_xor_sync(0xFFFFFFFFu, up ? a[s0] : a[s0 | m], m);
+      if (up)
+        a[s0] = got;
+      else
+        a[s0 | m] = got;
+    }
+  }
+}
+
+// The forward's epilogue from the accumulator registers, in gemm_bias_act's
+// order: + bias[col], ReLU, then the keep-mask or its Philox source (x
+// inv_keep, else 0), one rounding into the dense output. The mask of a pair
+// is two adjacent bytes; a half's pairs are all loaded before its first
+// store, then kept as bits like the seeded ones. f32 rows go out as the
+// pairs the lanes hold (a quad writes 32 bytes of a row at a time); bf16
+// pairs are 4 bytes, so a quad first transposes four of them, and each
+// lane writes 8 columns (16 bytes: a quad 64 contiguous bytes of a row).
+template <int BN, bool SEEDED>
+__device__ __forceinline__ void nn_epilogue(float (&acc)[Cfg<BN>::HALVES][BN / 2],
+                                            NNState<BN, SEEDED>& st, int lane, int r0, int c0,
+                                            int M, int N, const Epilogue& ep) {
+  constexpr int HALVES = Cfg<BN>::HALVES, ACC = BN / 2, PAIRS = ACC / 4;
+  if (SEEDED) {
+#pragma unroll 1
+    while (st.drawn < NNState<BN, SEEDED>::DRAWS) st.template draw<2>(ep, lane, r0, c0, M, N);
+  }
+  const bool drop = SEEDED || ep.mask != nullptr;
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+    const int rh = r0 + 64 * h;
+    if (!SEEDED && ep.mask != nullptr) {
+      unsigned short mk[ACC / 2];
+#pragma unroll
+      for (int q = 0; q < ACC / 2; ++q) {
+        const int row = rh + 8 * (q & 1), col = c0 + 8 * (q >> 1);
+        mk[q] = row < M && col < N ? *reinterpret_cast<const unsigned short*>(
+                                         ep.mask + static_cast<size_t>(row) * ep.ldm + col)
+                                   : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < ACC / 2; ++q)   // little-endian: col's byte is the low one
+        st.kept |= static_cast<unsigned long long>(((mk[q] & 0xFFu) != 0u ? 1u : 0u) |
+                                                   ((mk[q] >> 8) != 0u ? 2u : 0u))
+                   << (h * ACC + 2 * q);
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = rh + 8 * hi;
+#pragma unroll
+      for (int g = 0; g < PAIRS; g += 4) {   // pairs g .. g + 3: columns 8 g .. 8 g + 31
+        float v[8];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = 4 * (g + s) + 2 * hi;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float x = acc[h][j + k];
+            if (ep.bias != nullptr) x += k ? st.bias[g + s].y : st.bias[g + s].x;
+            if (ep.relu) x = fmaxf(x, 0.0f);
+            if (drop) x = (st.kept >> (h * ACC + j + k)) & 1ull ? x * ep.inv_keep : 0.0f;
+            v[2 * s + k] = x;
+          }
+        }
+        if (ep.out_f32 != nullptr) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int col = c0 + 8 * (g + s);
+            if (row < M && col < N)   // N is even: col + 1 < N too
+              *reinterpret_cast<float2*>(ep.out_f32 + static_cast<size_t>(row) * ep.ldo + col) =
+                  make_float2(v[2 * s], v[2 * s + 1]);
+          }
+        } else {
+          unsigned a[4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const __nv_bfloat162 b2 = __halves2bfloat162(to_bf16(v[2 * s]), to_bf16(v[2 * s + 1]));
+            a[s] = *reinterpret_cast<const unsigned*>(&b2);
+          }
+          quad_transpose(a, lane);   // a: columns 8 (g + lane % 4) .. + 7 of the row
+          const int col = c0 - 2 * (lane & 3) + 8 * (g + (lane & 3));
+          if (row < M && col < N)   // N % 8 == 0: all 8 columns or none
+            *reinterpret_cast<uint4*>(ep.out_bf16 + static_cast<size_t>(row) * ep.ldo + col) =
+                make_uint4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+  }
+}
+
+// LAYOUT NT: both operands K-major (dX); TN: both MN-major (dW); NN: A
+// K-major, B MN-major (the forward). SEEDED (NN only): the keep-mask drawn
+// by Philox in the epilogue.
 // Persistent: block b takes work items b, b + grid, ... (item w = split
 // w / tiles of tile w % tiles), its producer loading the next item's
 // K-tiles while the consumers run this one's epilogue.
-template <bool MN, int BN>
+template <int LAYOUT, int BN, bool SEEDED>
 __global__ void __launch_bounds__(Cfg<BN>::THREADS, Cfg<BN>::BLOCKS_PER_SM)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                  int M, int N, int k_tiles, int splits, Epilogue ep, float* __restrict__ ws,
                  int* __restrict__ counters) {
   using C = Cfg<BN>;
   constexpr int STAGES = C::STAGES, HALVES = C::HALVES, CONSUMERS = C::CONSUMERS;
-  constexpr int ACC = BN / 2;      // accumulators of one 64-row half
-  constexpr int TR = MN ? 1 : 0;   // wgmma transpose bits, both operands
+  constexpr int ACC = BN / 2;                  // accumulators of one 64-row half
+  constexpr int TA = LAYOUT == TN ? 1 : 0;     // wgmma transpose bits: A MN-major
+  constexpr int TB = LAYOUT == NT ? 0 : 1;     // B MN-major
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + SWIZZLE_ATOM - 1) & ~(SWIZZLE_ATOM - 1);
@@ -295,15 +514,20 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
           mbar_expect_tx(full, C::STAGE_BYTES);
           const uint32_t a = base + stage * C::STAGE_BYTES, b = a + C::A_BYTES;
           const int k0 = (it.kt0 + i) * BK;
-          if (MN) {
-            // x [R, m]: two boxes of 64 m-columns x BK rows; dy [R, n]: BN / 64
+          if (TA) {
+            // x [R, m]: two boxes of 64 m-columns x BK rows
             tma_load(a, &ta, full, it.m0, k0);
             tma_load(a + BOX, &ta, full, it.m0 + 64, k0);
+          } else {
+            // a, dy [M, K]: 128 rows x 64 k
+            tma_load(a, &ta, full, k0, it.m0);
+          }
+          if (TB) {
+            // dy [R, n], w [K, N]: BN / 64 boxes of 64 n-columns x BK rows
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j) tma_load(b + j * BOX, &tb, full, it.n0 + 64 * j, k0);
           } else {
-            // dy [M, K]: 128 rows x 64 k; w [N, K]: BN rows x 64 k
-            tma_load(a, &ta, full, k0, it.m0);
+            // w [N, K]: BN rows x 64 k
             tma_load(b, &tb, full, k0, it.n0);
           }
           if (++stage == STAGES) {
@@ -329,6 +553,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
     for (int h = 0; h < HALVES; ++h)
 #pragma unroll
       for (int j = 0; j < ACC; ++j) acc[h][j] = 0.0f;
+    // NN: the thread's first row and column pair, its bias and keep bits
+    const int r0 = it.m0 + wg * HALVES * 64 + warp * 16 + (lane >> 2);
+    const int c0 = it.n0 + (lane & 3) * 2;
+    NNState<BN, SEEDED> nn;
+    if constexpr (LAYOUT == NN) nn.start(ep, r0, c0, N);
 
     int prev = 0;
     for (int i = 0; i < it.nk; ++i) {
@@ -342,13 +571,17 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
       for (int kk = 0; kk < BK / 16; ++kk) {
         // K-major: the next 16 k are 32 bytes on in each 128-byte row;
         // MN-major: 16 k-rows of 128 bytes on
-        const uint32_t step = MN ? kk * 16 * 128 : kk * 32;
-        const uint64_t db = desc(b + step, BOX, SWIZZLE_ATOM);
+        const uint32_t step_a = TA ? kk * 16 * 128 : kk * 32;
+        const uint32_t step_b = TB ? kk * 16 * 128 : kk * 32;
+        const uint64_t db = desc(b + step_b, BOX, SWIZZLE_ATOM);
 #pragma unroll
         for (int h = 0; h < HALVES; ++h)   // rows 64 h .. + 63: the next box
-          wgmma<TR, TR>(acc[h], desc(a + h * BOX + step, BOX, SWIZZLE_ATOM), db);
+          wgmma<TA, TB>(acc[h], desc(a + h * BOX + step_a, BOX, SWIZZLE_ATOM), db);
       }
       wgmma_commit();
+      if constexpr (SEEDED) {   // while the products run
+        if (nn.drawn < nn.DRAWS) nn.template draw<2>(ep, lane, r0, c0, M, N);
+      }
       wgmma_wait<1>();   // the previous stage's products are done with it
 #pragma unroll
       for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
@@ -364,7 +597,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
     for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
     if (it.nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
 
-    if (splits > 1) {
+    if (LAYOUT != NN && splits > 1) {
       // this split's partial, as float4 q of thread tid at [q][tid]
       // (coalesced); the last block of the tile reads every split's back
       constexpr int Q = HALVES * ACC / 4;   // float4s a thread
@@ -407,6 +640,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
       }
     }
 
+    if constexpr (LAYOUT == NN) {
+      nn_epilogue<BN, SEEDED>(acc, nn, lane, r0, c0, M, N, ep);
+      continue;
+    }
     // ---- the epilogue from registers: accumulator j of half h holds row
     // 64 (wg HALVES + h) + 16 warp + lane / 4 + 8 ((j / 2) % 2), column
     // 8 (j / 4) + 2 (lane % 4) + j % 2 of the tile. The gate and residual
@@ -504,10 +741,10 @@ bool make_map(CUtensorMap* map, const void* ptr, long long inner, long long oute
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool MN, int BN>
+template <int LAYOUT, int BN, bool SEEDED>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_tiles, int splits,
            int grid, const Epilogue& ep, float* ws, int* counters, cudaStream_t stream) {
-  auto kernel = gemm_sm90_kernel<MN, BN>;
+  auto kernel = gemm_sm90_kernel<LAYOUT, BN, SEEDED>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, Cfg<BN>::THREADS, Cfg<BN>::SMEM, stream>>>(ta, tb, M, N, k_tiles, splits, ep, ws,
@@ -515,55 +752,79 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_til
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LAYOUT, bool SEEDED>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_tiles, int splits,
+           int bn, int grid, const Epilogue& ep, float* ws, int* counters, cudaStream_t stream) {
+  return bn == 128 ? launch<LAYOUT, 128, SEEDED>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, counters, stream)
+                   : launch<LAYOUT, 64, SEEDED>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, counters, stream);
+}
+
 }  // namespace sm90
 
 // layout 1 = NT (A = dy [M, K], B = w stored [N, K]), 2 = TN (A = x stored
-// [K, M], B = dy [K, N]); leading dimensions in elements, multiples of 8,
-// both operands 16-byte aligned (the wrapper checks). bn (128 or 64) and
-// splits (1 .. the K-tiles of 64) are the plan of ops/kernels.py::gemm_plan;
-// splits > 1 needs `workspace` (splits x the tiles x 128 x bn f32) and
-// `counters` (an int per output tile, 0 before the launch and left 0).
-// The outputs are dense [M, N] (row stride N). Returns cudaGetLastError(),
-// the error of the shared-memory attribute, or cudaErrorInvalidValue for an
-// argument the kernel does not take or a tensor map that
-// cuTensorMapEncodeTiled refuses.
+// [K, M], B = dy [K, N]), 3 = NN (A = a [M, K], B = w [K, N]); leading
+// dimensions in elements, multiples of 8, both operands 16-byte aligned
+// (the wrapper checks). bn (128 or 64) and splits (1 .. the K-tiles of 64;
+// 1 unless TN) are the plan of ops/kernels.py::gemm_plan; splits > 1 needs
+// `workspace` (splits x the tiles x 128 x bn f32) and `counters` (an int per
+// output tile, 0 before the launch and left 0). The epilogue arguments of
+// one layout are null / 0 for the others: NT's gate (row stride ldg) and
+// residual (ldr); NN's bias, relu, the uint8 keep-mask [M, N] (row stride
+// ldm, even, 2-byte aligned) or, keep_on != 0, its Philox source (key
+// (seed, site), keep_rows rows per sample, keep iff word < thresh); both
+// scale kept values by inv_keep. NN writes one output. The outputs are
+// dense [M, N] (row stride N). Returns cudaGetLastError(), the error of the
+// shared-memory attribute, or cudaErrorInvalidValue for an argument the
+// kernel does not take or a tensor map that cuTensorMapEncodeTiled refuses.
 MCAN_API int mcan_gemm_sm90(int layout, const void* A, long long lda, const void* B, long long ldb,
                             int M, int N, int K, int bn, int splits, int grid, const void* gate,
-                            long long ldg,
-                            float inv_keep, const void* res, long long ldr, void* out_f32,
-                            void* out_bf16, void* workspace, void* counters, void* stream) {
+                            long long ldg, float inv_keep, const void* res, long long ldr,
+                            const void* bias, int relu, const void* mask, long long ldm,
+                            int keep_on, unsigned seed, unsigned site, unsigned thresh,
+                            int keep_rows, void* out_f32, void* out_bf16, void* workspace,
+                            void* counters, void* stream) {
   using namespace sm90;
   const int k_tiles = (K + BK - 1) / BK;
-  const bool mn = layout == 2;
-  if ((layout != 1 && layout != 2) || (bn != 128 && bn != 64) || M < 0 || N < 0 || K < 0 ||
-      splits < 1 || splits > (k_tiles > 0 ? k_tiles : 1) || grid < 1 ||
-      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
-      (out_f32 == nullptr && out_bf16 == nullptr))
+  const bool nn = layout == NN;
+  if ((layout != NT && layout != TN && !nn) || (bn != 128 && bn != 64) || M < 0 || N < 0 ||
+      K < 0 || splits < 1 || splits > (k_tiles > 0 ? k_tiles : 1) ||
+      (nn && keep_on && (mask != nullptr || keep_rows < 1)) ||
+      (!nn && (bias != nullptr || relu || mask != nullptr || keep_on)) ||
+      (nn && (gate != nullptr || res != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // an empty output (whose tensors may have no storage): nothing to launch
   if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  if (grid < 1 || (splits > 1 && (layout != TN || workspace == nullptr || counters == nullptr)) ||
+      (out_f32 == nullptr && out_bf16 == nullptr) ||
+      (nn && out_f32 != nullptr && out_bf16 != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;   // untouched when K = 0: no tile is loaded
   if (K > 0) {
-    const bool ok = mn ? make_map(&ta, A, M, K, lda, 64, 64) && make_map(&tb, B, N, K, ldb, 64, 64)
-                       : make_map(&ta, A, K, M, lda, 64, BM) && make_map(&tb, B, K, N, ldb, 64, bn);
+    // A: MN-major (TN) in two 64 x 64 boxes a stage, else K-major in one
+    // of 128 rows; B: MN-major (TN, NN) in bn / 64 boxes, else K-major
+    const bool ok = (layout == TN ? make_map(&ta, A, M, K, lda, 64, 64)
+                                  : make_map(&ta, A, K, M, lda, 64, BM)) &&
+                    (layout == NT ? make_map(&tb, B, K, N, ldb, 64, bn)
+                                  : make_map(&tb, B, N, K, ldb, 64, 64));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   } else {
     memset(&ta, 0, sizeof ta);
     memset(&tb, 0, sizeof tb);
   }
-  const Epilogue ep{static_cast<const bf16*>(gate), ldg,  inv_keep,
-                    static_cast<const float*>(res), ldr,  static_cast<float*>(out_f32),
-                    static_cast<bf16*>(out_bf16),   N};
+  const Epilogue ep{static_cast<const bf16*>(gate),  ldg, inv_keep, static_cast<const float*>(res), ldr,
+                    static_cast<float*>(out_f32),   static_cast<bf16*>(out_bf16), N,
+                    static_cast<const float*>(bias), relu, static_cast<const unsigned char*>(mask), ldm,
+                    Philox{keep_on, seed, site, thresh, keep_rows}};
   float* ws = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mn)
-    return bn == 128 ? launch<true, 128>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s)
-                     : launch<true, 64>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s);
-  return bn == 128 ? launch<false, 128>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s)
-                   : launch<false, 64>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, cnt, s);
+  if (layout == NT) return launch<NT, false>(ta, tb, M, N, k_tiles, splits, bn, grid, ep, ws, cnt, s);
+  if (layout == TN) return launch<TN, false>(ta, tb, M, N, k_tiles, splits, bn, grid, ep, ws, cnt, s);
+  return keep_on ? launch<NN, true>(ta, tb, M, N, k_tiles, splits, bn, grid, ep, ws, cnt, s)
+                 : launch<NN, false>(ta, tb, M, N, k_tiles, splits, bn, grid, ep, ws, cnt, s);
 }
 
-// the dynamic shared memory of the instance of tile width bn (128 or 64)
+// the dynamic shared memory of the instances of tile width bn (128 or 64)
 MCAN_API int mcan_gemm_sm90_smem(int bn) {
   return bn == 128 ? sm90::Cfg<128>::SMEM : bn == 64 ? sm90::Cfg<64>::SMEM : -1;
 }

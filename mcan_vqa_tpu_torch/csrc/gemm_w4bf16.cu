@@ -23,13 +23,13 @@
 // tolerance (accumulation order), not bit for bit.
 //
 // Bounds on an H100: the same bytes as gemm_s4 at B=1 (the packed weight);
-// at B=64 the bf16 tensor-core rate or the f32 output, as gemm.cu.
-// Design (simple first): gemm.cu's NN skeleton -- bf16 WMMA 16x16x16
-// fragments with f32 accumulation, 64x64 output tiles per 4-warp block, K
-// in steps of 32 through a two-stage cp.async pipeline -- with the B tile
-// copied as packed bytes (32 rows x 64 bytes, one 16-byte chunk a thread)
-// and dequantized by the thread that copied it into the bf16 tile that
-// WMMA reads. K-tiles of 32 rows never straddle the two nibble halves or a
+// at B=64 the bf16 tensor-core rate or the f32 output, as the bf16
+// forward products. Design (simple first): an NN skeleton -- bf16 WMMA
+// 16x16x16 fragments with f32 accumulation, 64x64 output tiles per 4-warp
+// block, K in steps of 32 through a two-stage cp.async pipeline -- with
+// the B tile copied as packed bytes (32 rows x 64 bytes, one 16-byte chunk
+// a thread) and dequantized by the thread that copied it into the bf16
+// tile that WMMA reads. K-tiles of 32 rows never straddle the two nibble halves or a
 // scale group (K a multiple of 128, so K/2 of 64). No dequantized copy of
 // the weight is stored.
 // Not yet: wgmma, TMA, split-K at B=1.

@@ -21,7 +21,7 @@
 //   the per-block engine issues ~10 kernels per block.
 //
 // Numerics, as in those kernels and as the per-block kernels of the port
-// (gemm.cu, masked_attention.cu, residual_layernorm.cu) round:
+// (gemm_sm90.cu, masked_attention.cu, residual_layernorm.cu) round:
 //   * GEMM: bf16 operands, f32 accumulation, + bias, ReLU, one rounding to
 //     the output type;
 //   * attention: scores in f32 from bf16 q and k, PAD keys at -1e9 per
@@ -35,7 +35,7 @@
 // at B = 64 the image-stream GEMMs (M = 3840) are bound by the bf16
 // tensor-core rate. Design (simple first): WMMA 16x16x16 on 64x64 output
 // tiles by 8 warps, K in steps of 32 through a two-stage cp.async
-// pipeline, as gemm.cu; attention in key chunks of 64 (two per lane), three
+// pipeline; attention in key chunks of 64 (two per lane), three
 // passes over the chunks (row max, row sum, then P.V), so the
 // probabilities are normalised before their bf16 rounding whatever the
 // key count; the LayerNorm one warp per row, re-reading the row from

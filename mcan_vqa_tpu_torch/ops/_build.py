@@ -38,10 +38,9 @@ _P, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _KEEP = [_I, _U, _U, _U]      # a seeded keep source: on, seed, site, thresh
 # argtypes of every exported C function (csrc/*.cu, MCAN_API)
 SIGNATURES = {
-    "mcan_gemm": [_P, _LL, _P, _LL, _I, _I, _I, _P, _I, _P, _LL, _F, *_KEEP,
-                  _I, _P, _LL, _P, _LL, _P],
     "mcan_gemm_sm90": [_I, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _LL,
-                       _F, _P, _LL, _P, _P, _P, _P, _P],
+                       _F, _P, _LL, _P, _I, _P, _LL, *_KEEP, _I, _P, _P, _P,
+                       _P, _P],
     "mcan_gemm_sm90_smem": [_I],
     "mcan_masked_attention": [_P, _I, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                               _I, _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I,

@@ -3,7 +3,7 @@ blocks (ops/sga_block.py, ops/quant.py) and the train blocks
 (ops/sga_train.py, ops/sa_train.py) are built from, each beside its plain
 PyTorch version.
 
-  gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm.cu
+  gemm_bias_act          C = A . W + bias (ReLU, dropout)      gemm_sm90.cu, NN
   gemm_dx                C = dY . W^T (gradient gate, + res)   gemm_sm90.cu, NT
   gemm_dw                C = X^T . dY (split-K, fixed order)   gemm_sm90.cu, TN
   gemm_ln                LN(res + A . W + bias)                gemm_ln.cu
@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import struct
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -80,7 +81,7 @@ MASK_DTYPES = (torch.uint8, torch.bool)
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 
-_NT, _TN = 1, 2          # mcan_gemm_sm90 layouts
+_NT, _TN, _NN = 1, 2, 3   # mcan_gemm_sm90 layouts
 
 
 def reset_launches() -> None:
@@ -320,8 +321,8 @@ def _check_rows(name: str, t: Optional[torch.Tensor], shape, dtypes) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the GEMMs: gemm_bias_act (gemm.cu), gemm_dx (NT) and gemm_dw (TN)
-# (gemm_sm90.cu)
+# the GEMMs on gemm_sm90.cu: gemm_bias_act (NN), gemm_dx (NT) and gemm_dw
+# (TN)
 # ---------------------------------------------------------------------------
 
 GEMM_SMS = 132         # an H100 SXM's SMs: a constant, so that a shape
@@ -368,19 +369,21 @@ class GemmPlan:
             self.splits * self.tiles * self.bm * self.bn * 4
 
 
+@functools.lru_cache(maxsize=4096)
 def gemm_plan(layout: int, M: int, N: int, K: int) -> GemmPlan:
     """The plan of an [M, N] output summed over K (for dW, K = R rows),
-    from the shape alone. Tiles of 128 x 128 (one block per SM) where they
-    fill the SMs, or for dX half of them; else 128 x 64 (two blocks per
-    SM), which the step's dW shapes and the encoder's narrow dX ran faster
-    at on the card. Then, for dW, as many splits of whole K-tiles as bring
-    the blocks to the SM count, at most one K-tile each (dX does not
-    split: its partials would be as large as its outputs, and the card
-    ran the encoder's dX slower split)."""
+    from the shape alone (cached: the small-batch forward is bound by the
+    host's time per launch). Tiles of 128 x 128 (one block per SM) where they
+    fill the SMs, or for dX and the forward (NN) half of them; else 128 x
+    64 (two blocks per SM), which the step's dW shapes and the encoder's
+    narrow dX ran faster at on the card. Then, for dW, as many splits of
+    whole K-tiles as bring the blocks to the SM count, at most one K-tile
+    each (dX and NN do not split: their partials would be as large as
+    their outputs, and the card ran the encoder's dX slower split)."""
     cdiv = lambda a, b: -(-a // b)      # noqa: E731
     tiles_m = cdiv(M, GEMM_BM)
     tiles128 = tiles_m * cdiv(N, 128)
-    bn = 128 if tiles128 >= GEMM_SMS or (layout == _NT
+    bn = 128 if tiles128 >= GEMM_SMS or (layout != _TN
                                          and 2 * tiles128 >= GEMM_SMS) else 64
     tiles = tiles_m * cdiv(N, bn)
     k_tiles = cdiv(K, GEMM_BK)
@@ -434,6 +437,9 @@ def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, N: int,
              f"{name}: out_dtypes {out_dtypes}")
     _check_vec(name, bias, N)
     _check_mask(name, mask, (M, N))
+    _require(mask is None or mask.data_ptr() % 2 == 0,
+             f"{name}: the dropout mask must start on an even address (its "
+             f"bytes are read in pairs)")
     _check_rows(name, gate, (M, N), (BF16,))
     _check_rows(name, res, (M, N), (F32,))
 
@@ -441,28 +447,25 @@ def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, N: int,
 def _gemm(name: str, a: torch.Tensor, b: torch.Tensor, M: int, N: int,
           K: int, *, bias=None, relu=False, mask=None, inv_keep=1.0,
           out_dtype: torch.dtype = F32) -> torch.Tensor:
-    """Launch csrc/gemm.cu: a [M, K] . b [K, N] and its epilogue."""
-    mask, keep = _keep_args(name, mask, M)
-    _check_gemm(name, a, b, N, K, (out_dtype,), bias=bias, mask=mask, M=M)
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    o32, o16 = (out, None) if out_dtype == F32 else (None, out)
-    rc = _lib().mcan_gemm(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), M, N, K,
-        _ptr(bias), int(relu), _ptr(mask), N, float(inv_keep), *keep,
-        _ptr(o32), N, _ptr(o16), N, _stream(a))
-    _check(rc, name)
-    return out
+    """Launch gemm_sm90.cu's NN layout: a [M, K] . b [K, N] and its
+    epilogue (bias, ReLU, the keep-mask or its Philox source)."""
+    return _gemm_sm90(name, _NN, a, b, M, N, K, bias=bias, relu=relu,
+                      mask=mask, inv_keep=inv_keep,
+                      out_dtypes=(out_dtype,))[0]
 
 
 def _gemm_sm90(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
                M: int, N: int, K: int, *, gate=None, inv_keep=1.0, res=None,
+               bias=None, relu=False, mask: Keep = None,
                out_dtypes: Sequence[torch.dtype] = (F32,)
                ) -> Tuple[torch.Tensor, ...]:
-    """Launch csrc/gemm_sm90.cu (layout _NT: a [M, K] . b [N, K]^T;
-    _TN: a [K, M]^T . b [K, N]) with the plan of ``gemm_plan``; a split
-    plan gets its workspace here and the device's tile counters."""
+    """Launch csrc/gemm_sm90.cu (layout _NN: a [M, K] . b [K, N]; _NT:
+    a [M, K] . b [N, K]^T; _TN: a [K, M]^T . b [K, N]) with the plan of
+    ``gemm_plan``; a split plan gets its workspace here and the device's
+    tile counters."""
+    mask, keep = _keep_args(name, mask, M)
     _check_gemm(name, a, b, N, M if layout == _TN else K, out_dtypes,
-                gate=gate, res=res, M=M)
+                gate=gate, res=res, bias=bias, mask=mask, M=M)
     plan = gemm_plan(layout, M, N, K)
     outs = {dt: torch.empty((M, N), dtype=dt, device=a.device)
             for dt in out_dtypes}
@@ -475,8 +478,10 @@ def _gemm_sm90(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
         layout, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         M, N, K, plan.bn, plan.splits, plan.grid, _ptr(gate),
         0 if gate is None else gate.stride(0), float(inv_keep), _ptr(res),
-        0 if res is None else res.stride(0), _ptr(outs.get(F32)),
-        _ptr(outs.get(BF16)), _ptr(ws), _ptr(counters), _stream(a))
+        0 if res is None else res.stride(0), _ptr(bias), int(relu),
+        _ptr(mask), N if mask is not None else 0, *keep,
+        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _ptr(ws), _ptr(counters),
+        _stream(a))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes)
 

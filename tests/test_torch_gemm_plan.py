@@ -1,6 +1,7 @@
-"""The plan of the Hopper backward GEMMs (``kernels.gemm_plan``), the
-launch arguments the wrapper derives from it, and the profiler's kernel
-groups: pure Python, milliseconds, no card and no JAX."""
+"""The plan of the Hopper GEMMs (``kernels.gemm_plan``: the forward NN
+product and the backward NT / TN ones), the launch arguments the wrappers
+derive from it, and the profiler's kernel groups: pure Python,
+milliseconds, no card and no JAX."""
 
 import pytest
 import torch
@@ -9,7 +10,7 @@ from mcan_vqa_tpu_torch.cli.profile_train import kernel_group
 from mcan_vqa_tpu_torch.ops import kernels as kern
 
 BF16 = torch.bfloat16
-NT, TN = 1, 2
+NT, TN, NN = 1, 2, 3
 
 # (layout, M, N, K): K the reduction (dW: R rows). Every dX / dW shape of
 # the MCAN-small step (decoder M 3840, encoder 896) and of the MCAN-large
@@ -25,7 +26,22 @@ MAIN_PATH = [
     (TN, 4096, 1024, 1920), (TN, 1024, 3072, 1920), (TN, 1024, 1024, 1920)]
 EDGES = [(TN, M, N, R) for R in (1, 7, 77, 896)
          for M, N in ((512, 512), (8, 8), (2048, 4096))]
-SHAPES = MAIN_PATH + EDGES
+# (NN, M, N, K): every forward product (gemm_bias_act) of the MCAN-small
+# B=64 forward and step (decoder M 3840, encoder 896: qkv, merge / q2,
+# ffn1, ffn2), of the MCAN-large micro-batch (M 1920), of B=1 (M 14, 60),
+# ragged M, hidden 480 (N 480 / 1440 / 1920), AttFlat's merge, K % 64 != 0
+# (480, 1000, 40), and an empty M
+FORWARD = [(NN, M, N, K) for M in (3840, 896, 14, 60)
+           for N, K in ((1536, 512), (512, 512), (2048, 512), (512, 2048))]
+FORWARD += [(NN, 1920, N, K) for N, K in ((3072, 1024), (1024, 1024),
+                                          (4096, 1024), (1024, 4096))]
+FORWARD += [(NN, M, N, K) for M in (1, 42, 61, 77, 130)
+            for N, K in ((1536, 512), (2048, 512), (512, 2048))]
+FORWARD += [(NN, M, N, K) for M in (3840, 61)
+            for N, K in ((1440, 480), (480, 480), (1920, 480), (480, 1920))]
+FORWARD += [(NN, 64, 1024, 512), (NN, 14, 8, 1000), (NN, 60, 1536, 40),
+            (NN, 0, 512, 512)]
+SHAPES = MAIN_PATH + EDGES + FORWARD
 
 
 @pytest.mark.parametrize("layout,M,N,K", SHAPES)
@@ -48,7 +64,8 @@ def test_splits_cover_the_reduction_once_in_order(layout, M, N, K):
 def test_tiles_cover_the_output_and_fill_the_card(layout, M, N, K):
     plan = kern.gemm_plan(layout, M, N, K)
     assert plan.bm == 128 and plan.bn in (64, 128) and plan.bk == 64
-    assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm
+    assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm \
+        or M == plan.tiles_m == 0
     assert (plan.tiles_n - 1) * plan.bn < N <= plan.tiles_n * plan.bn
     if layout == TN:
         # tiles x splits reach the SM count wherever R allows it
@@ -84,7 +101,12 @@ def test_plan_depends_on_the_shape_alone():
             (TN, 512, 2048, 3840): (64, 2), (TN, 2048, 512, 3840): (64, 2),
             (TN, 512, 1536, 3840): (64, 2), (TN, 512, 512, 3840): (64, 5),
             (TN, 1024, 4096, 1920): (128, 1), (TN, 512, 512, 77): (64, 2),
-            (TN, 512, 512, 1): (64, 1)}
+            (TN, 512, 512, 1): (64, 1),
+            # the forward as dX: 128 x 128 at the decoder's and MCAN-large's
+            # M, 128 x 64 at the encoder's narrow products and at B=1
+            (NN, 3840, 512, 512): (128, 1), (NN, 3840, 2048, 512): (128, 1),
+            (NN, 1920, 1024, 4096): (128, 1), (NN, 896, 512, 512): (64, 1),
+            (NN, 896, 2048, 512): (128, 1), (NN, 14, 1536, 512): (64, 1)}
     for shape, (bn, splits) in pins.items():
         plan = kern.gemm_plan(*shape)
         assert (plan.bn, plan.splits) == (bn, splits), shape
@@ -123,11 +145,12 @@ def test_wrapper_launches_the_plan_with_its_workspace(monkeypatch, R, M, N):
     assert kern.launch_counts()["gemm_dw"] == before + 1
     assert out.shape == (M, N) and out.dtype == torch.float32
     (layout, a, lda, b, ldb, m, n, k, bn, splits, grid, gate, _, _, res, _,
-     o32, o16, ws, counters, _) = lib.args
+     bias, relu, mask, ldm, *keep, o32, o16, ws, counters, _) = lib.args
     assert (layout, m, n, k, bn, splits, grid) == (
         TN, M, N, R, plan.bn, plan.splits, plan.grid)
     assert (a, lda, b, ldb) == (x.data_ptr(), M, dy.data_ptr(), N)
     assert gate is None and res is None and o16 is None
+    assert (bias, relu, mask, ldm, keep) == (None, 0, None, 0, [0] * 5)
     assert o32 == out.data_ptr()
     if plan.splits == 1:
         assert ws is None and counters is None
@@ -139,6 +162,66 @@ def test_wrapper_launches_the_plan_with_its_workspace(monkeypatch, R, M, N):
         assert not cnt.any()
 
 
+@pytest.mark.parametrize("M,K,N,out_dtype,with_bias,relu,keep", [
+    (3840, 512, 2048, BF16, True, True, "mask"),
+    (3840, 512, 2048, BF16, True, True, "philox"),
+    (896, 2048, 512, torch.float32, True, False, None),
+    (61, 512, 1536, BF16, False, False, None),
+    (14, 40, 8, torch.float32, True, True, "philox")])
+def test_forward_wrapper_launches_the_nn_plan(monkeypatch, M, K, N, out_dtype,
+                                             with_bias, relu, keep):
+    """gemm_bias_act's launch: layout NN, the plan's tile width and grid,
+    one split and no workspace, the epilogue's bias / ReLU / keep-mask (row
+    stride N) or its Philox words and rows, one output of the asked
+    dtype."""
+    lib, made = _Lib(), []
+    empty = torch.empty
+
+    def record_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(kern, "_lib", lambda: lib)
+    monkeypatch.setattr(kern, "_stream", lambda t: 0)
+    monkeypatch.setattr(kern, "_SPLIT_COUNTERS", {})
+    a, w = torch.zeros(M, K, dtype=BF16), torch.zeros(K, N, dtype=BF16)
+    b = torch.zeros(N) if with_bias else None
+    rows = 2 if M % 2 == 0 else 1
+    mask = torch.ones(M, N, dtype=torch.uint8) if keep == "mask" else \
+        kern.Philox(7, 0x303, 3865470566, rows) if keep == "philox" else None
+    monkeypatch.setattr(kern.torch, "empty", record_empty)
+    before = kern.launch_counts().get("gemm_bias_act", 0)
+    out = kern._gemm("gemm_bias_act", a, w, M, N, K, bias=b, relu=relu,
+                     mask=mask, inv_keep=1 / 0.9, out_dtype=out_dtype)
+    plan = kern.gemm_plan(NN, M, N, K)
+    assert kern.launch_counts()["gemm_bias_act"] == before + 1
+    assert out.shape == (M, N) and out.dtype == out_dtype
+    assert len(made) == 1 and made[0] is out   # no workspace
+    assert kern._SPLIT_COUNTERS == {}
+    (layout, pa, lda, pb, ldb, m, n, k, bn, splits, grid, gate, ldg, inv,
+     res, ldr, bias, rl, pm, ldm, keep_on, seed, site, thresh, keep_rows,
+     o32, o16, ws, counters, _) = lib.args
+    assert (layout, m, n, k, bn, splits, grid) == (
+        NN, M, N, K, plan.bn, 1, plan.grid)
+    assert plan.splits == 1
+    assert (pa, lda, pb, ldb) == (a.data_ptr(), K, w.data_ptr(), N)
+    assert (gate, ldg, res, ldr, ws, counters) == (None, 0, None, 0, None,
+                                                   None)
+    assert bias == (b.data_ptr() if with_bias else None) and rl == int(relu)
+    assert inv == pytest.approx(1 / 0.9)
+    if keep == "mask":
+        assert (pm, ldm) == (mask.data_ptr(), N)
+        assert (keep_on, seed, site, thresh, keep_rows) == (0, 0, 0, 0, 0)
+    else:
+        assert (pm, ldm) == (None, 0)
+        assert (keep_on, seed, site, thresh, keep_rows) == (
+            (1, 7, 0x303, 3865470566, rows) if keep == "philox"
+            else (0, 0, 0, 0, 0))
+    assert (o32, o16) == ((out.data_ptr(), None) if out_dtype == torch.float32
+                          else (None, out.data_ptr()))
+
+
 @pytest.mark.parametrize("name,group", [
     ("void (anonymous namespace)::gemm_kernel(__nv_bfloat16 const*, long "
      "long, __nv_bfloat16 const*, long long, int, int, int, "
@@ -148,6 +231,18 @@ def test_wrapper_launches_the_plan_with_its_workspace(monkeypatch, R, M, N):
     ("void sm90::gemm_sm90_kernel<false, 128>(CUtensorMap_st, "
      "CUtensorMap_st, int, int, int, sm90::Epilogue, float*, int*)",
      "gemm_sm90_kernel"),
+    ("void sm90::gemm_sm90_kernel<1, 128, false>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel"),
+    ("void sm90::gemm_sm90_kernel<2, 64, false>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel"),
+    ("void sm90::gemm_sm90_kernel<3, 128, false>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel NN"),
+    ("void sm90::gemm_sm90_kernel<3, 64, true>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel NN"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroup"
      "size1x1x1_execute_segment_k_off_kernel__5x_cublas", "torch gemm"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_s16816gemm_bf16_64x64_64x4>",

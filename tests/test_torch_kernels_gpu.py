@@ -31,21 +31,41 @@ def _close(out, ref, tol):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("M,Kd,N,relu,out_dtype", [
-    (1, 512, 1536, False, BF16), (61, 512, 512, False, torch.float32),
-    (130, 2048, 512, False, torch.float32), (77, 512, 2048, True, BF16),
-    # the masked last column tile: hidden 480 (N % 64 != 0), K % 32 != 0
-    (3840, 512, 480, True, BF16), (61, 480, 1440, False, torch.float32),
-    (14, 1000, 8, False, torch.float32)])
-def test_gemm_matches_plain(cuda, M, Kd, N, relu, out_dtype):
+@pytest.mark.parametrize("M,Kd,N,relu,out_dtype,bias,a_ld,w_ld", [
+    (1, 512, 1536, False, BF16, True, 0, 0),
+    (61, 512, 512, False, torch.float32, True, 0, 0),
+    (130, 2048, 512, False, torch.float32, True, 0, 0),
+    (77, 512, 2048, True, BF16, True, 0, 0),
+    # the masked last column tile: hidden 480 (N % 64 != 0), K % 64 != 0
+    (3840, 512, 480, True, BF16, True, 0, 0),
+    (61, 480, 1440, False, torch.float32, True, 0, 0),
+    (14, 1000, 8, False, torch.float32, True, 0, 0),
+    # no rows, one row, B=1's 14 and 60 rows; K 40 (one K-tile, zero-filled)
+    (0, 512, 512, True, BF16, True, 0, 0),
+    (1, 2048, 512, False, torch.float32, False, 0, 0),
+    (14, 512, 1536, False, BF16, True, 0, 0),
+    (60, 512, 2048, True, BF16, False, 0, 0),
+    (60, 40, 512, True, torch.float32, True, 0, 0),
+    # a a column slice of a wider buffer (row stride 3 x 512, as the
+    # blocks pass the fused qkv), w a view of a wider weight (row stride
+    # 1536 > N), bias None
+    (896, 512, 512, False, torch.float32, False, 1536, 0),
+    (3840, 512, 512, True, BF16, True, 0, 1536),
+    (61, 512, 1024, False, BF16, False, 1536, 2048)])
+def test_gemm_matches_plain(cuda, M, Kd, N, relu, out_dtype, bias, a_ld,
+                            w_ld):
     g = torch.Generator(device=cuda).manual_seed(M)
-    a = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
-    w = (torch.randn(Kd, N, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
-    b = torch.randn(N, generator=g, device=cuda)
-    out = K.gemm_bias_act(a, w, b, relu=relu, out_dtype=out_dtype)
+    a = torch.randn(M, max(a_ld, Kd), generator=g, device=cuda).to(BF16)
+    a = a[:, a_ld - Kd:] if a_ld else a
+    w = (torch.randn(Kd, max(w_ld, N), generator=g, device=cuda)
+         / Kd ** 0.5).to(BF16)[:, :N]
+    b = torch.randn(N, generator=g, device=cuda) if bias else None
     before = K.launch_counts().get("gemm_bias_act", 0)
+    out = K.gemm_bias_act(a, w, b, relu=relu, out_dtype=out_dtype)
+    assert K.launch_counts()["gemm_bias_act"] == before + 1
     ref = K.gemm_bias_act_plain(a, w, b, relu=relu, out_dtype=out_dtype)
-    assert K.launch_counts().get("gemm_bias_act", 0) == before
+    assert K.launch_counts()["gemm_bias_act"] == before + 1
+    assert out.shape == (M, N) and out.dtype == out_dtype
     # f32: the same exact bf16 products summed in another order; bf16:
     # one rounding may land a step (2^-8) apart
     _close(out, ref, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
@@ -1006,6 +1026,44 @@ def test_seeded_gemm_equals_the_mask_fed_the_dump(cuda):
     out = K.gemm_bias_act(a, w, b, mask=p, **kw)
     assert torch.equal(out, K.gemm_bias_act(a, w, b, mask=mask, **kw))
     _close(out, K.gemm_bias_act_plain(a, w, b, mask=p, **kw), 2 ** -7)
+
+
+@pytest.mark.parametrize("B,L,Kd,N", [
+    (64, 60, 512, 2048),      # the decoder's ffn1 at M 3840
+    (7, 11, 512, 1440),       # ragged: M 77, N % 128 != 0
+    (3, 14, 1000, 512)])      # K % 64 != 0
+def test_seeded_gemm_equals_the_mask_route_bitwise(cuda, B, L, Kd, N):
+    """The seeded NN epilogue (one Philox draw per column pair) against the
+    mask route fed _rows_keep's mask, bit for bit, and two launches of each
+    route give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(B * L + N)
+    a = torch.randn(B * L, Kd, generator=g, device=cuda).to(BF16)
+    w = (torch.randn(Kd, N, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
+    b = torch.randn(N, generator=g, device=cuda)
+    p, inv = _seeded(0x303, L)
+    mask = K._rows_keep(p, B * L, N, cuda)
+    assert torch.equal(mask.view(B, L * N).to(torch.uint8),
+                       _dumped(p, B, 1, L * N).view(B, L * N))
+    for out_dtype in (BF16, torch.float32):
+        kw = dict(relu=True, out_dtype=out_dtype, inv_keep=inv)
+        out = K.gemm_bias_act(a, w, b, mask=p, **kw)
+        fed = K.gemm_bias_act(a, w, b, mask=mask, **kw)
+        assert torch.equal(out, fed)
+        assert torch.equal(out, K.gemm_bias_act(a, w, b, mask=p, **kw))
+        assert torch.equal(fed, K.gemm_bias_act(a, w, b, mask=mask, **kw))
+        _close(out, K.gemm_bias_act_plain(a, w, b, mask=p, **kw),
+               1e-4 if out_dtype == torch.float32 else 2 ** -7)
+
+
+def test_gemm_repeats_bitwise(cuda):
+    """No split, one fixed summation order: two launches, one set of bits
+    (at the decoder's ffn2, the widest reduction of the step)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randn(3840, 2048, generator=g, device=cuda).to(BF16)
+    w = (torch.randn(2048, 512, generator=g, device=cuda) / 45).to(BF16)
+    b = torch.randn(512, generator=g, device=cuda)
+    first = K.gemm_bias_act(a, w, b)
+    assert torch.equal(first, K.gemm_bias_act(a, w, b))
 
 
 @pytest.mark.parametrize("D", [512, 256, 768])
