@@ -18,7 +18,9 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              gemm_bias_act, gemm_dx, gemm_dw) timed at both models with
              their plan per shape (tile, splits, grid) and each instance's
              registers, spills and shared memory, dW bit for bit over two
-             runs;
+             runs; the attention forward (masked_attention.cu, mma.sync)
+             with its plan per shape (instance, rows per block, grid,
+             shared memory) and each instance's registers and spills;
   [kernels]  (int8) quantize_rows and gemm_s8 at every int8 site of one
              B=64 forward (MCAN-small at levels 1 and 3, MCAN-large at level
              1), bit for bit against their plain versions, with the int8
@@ -147,6 +149,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -256,6 +259,7 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"[ptxas] {line.strip()}")
     sm90_report(_build, _build.load_library())
+    attention_report(_build)
 
     rows = Rows()
     t_phase = [time.perf_counter()]
@@ -490,6 +494,49 @@ def sm90_report(build, lib) -> None:
             f"{lib.mcan_gemm_sm90_smem(bn)} bytes")
 
 
+def attention_plan_note(K, label, q, k) -> None:
+    """masked_attention.cu's plan of one call (kernels.attention_plan)."""
+    B, H, Lq, Dh = q.shape
+    p = K.attention_plan(B, H, Lq, k.shape[2], Dh)
+    say(f"    [plan] masked_attention {label}: "
+        f"{('one-block', 'long')[p.instance]} <{p.dhp}, {p.kc} keys>, "
+        f"{p.rows} rows x {p.col_split} warp(s) a tile, {p.tiles} tile(s) a "
+        f"head, grid {p.grid} x {p.threads} threads, {p.smem} B shared")
+
+
+ATT_INSTANCE = re.compile(
+    r"masked_attention_(long_)?kernelILi(\d+)E(?:Li(\d+)E)?")
+
+
+def attention_report(build) -> None:
+    """Each masked_attention.cu forward instance's registers and spills
+    (ptxas) and the most dynamic shared memory a plan gives it: the
+    one-block kernel <Dh padded, 8-key tiles> (mangled ...kernelILi64ELi8E)
+    and the long kernel <Dh padded>."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    lines = build.build_log.splitlines()
+    if not lines:
+        say("[masked_attention] the library was built by an earlier "
+            "process: no ptxas log here")
+    for i, line in enumerate(lines):
+        m = ATT_INSTANCE.search(line)
+        if "Compiling entry function" not in line or m is None:
+            continue
+        dhp = int(m.group(2))
+        if m.group(1):
+            name, keys = f"long <{dhp}>", 1 << 12
+        else:
+            keys = 8 * int(m.group(3))
+            name = f"one-block <{dhp}, {keys} keys>"
+        # the largest plan: 8 warps a block, every key staged or two stages
+        smem = K.attention_plan(K.GEMM_SMS, 1, max(keys, 128), keys,
+                                dhp).smem
+        info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                        if "spill" in ln or "registers" in ln)
+        say(f"[masked_attention] {name}: {info}; dynamic shared memory up "
+            f"to {smem} bytes")
+
+
 def gemm_bytes(M, K, N, *, a=2, b=2, out=(4,), bias=False, mask=False,
                gate=False, res=False):
     return (a * M * K + b * K * N + 4 * N * bias + M * N * mask
@@ -590,6 +637,7 @@ def check_serving_kernels(torch, dev, rows) -> None:
                  ("ragged B=3 self 60, sample 0 all PAD", qkv_views(3, Lv),
                   pad_mask(torch, 3, Lv, [0, 33, 60], dev), 0)]
     for name, (q, k, v), mask, per_fwd in att_cases:
+        attention_plan_note(K, name, q, k)
         out = K.masked_attention(q, k, v, mask)
         ref = K.masked_attention_plain(q, k, v, mask)
         torch.cuda.synchronize()
@@ -841,6 +889,7 @@ def check_train_kernels(torch, dev, rows) -> None:
         Lk = k.shape[2]
         k16, v16 = k.to(bf16), v.to(bf16)
         keep_mask = ~mask
+        attention_plan_note(K, label, q, k)
         case("masked_attention", label,
              lambda: (K.masked_attention(q, k, v, mask, drop, inv),),
              lambda: (K.masked_attention_plain(q, k, v, mask, drop, inv),),
@@ -1013,6 +1062,7 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
                     kc.dev)
     drop = keep(BATCH, H, L, L)
     F_ = torch.nn.functional
+    attention_plan_note(K, "enc self 14x14", q, k)
     case("masked_attention", "enc self 14x14 + att dropout",
          lambda: (K.masked_attention(q, k, v, mask, drop, inv),),
          lambda: (K.masked_attention_plain(q, k, v, mask, drop, inv),),
@@ -1168,6 +1218,7 @@ def check_large_kernels(torch, dev, rows) -> None:
         Lk = k.shape[2]
         drop = keep(B, H, Lv, Lk)
         k16, v16 = k.to(bf16), v.to(bf16)
+        attention_plan_note(K, f"Dh 128 {label}", q, k)
         case("masked_attention_dh128", f"{label} + dropout",
              lambda: (K.masked_attention(q, k, v, mask, drop, inv),),
              lambda: (K.masked_attention_plain(q, k, v, mask, drop, inv),),
@@ -1384,6 +1435,7 @@ def check_int8_kernels(torch, dev, rows) -> None:
               heads(BATCH, 14), heads(BATCH, 14),
               pad_mask(torch, BATCH, 14, lens_q, dev))]
     for name, q, k, v, mask in cases:
+        attention_plan_note(K, f"f32 out {name}", q, k)
         out = K.masked_attention(q, k, v, mask, out_dtype=f32)
         ref = K.masked_attention_plain(q, k, v, mask, out_dtype=f32)
         same = K.masked_attention(q, k, v, mask)
@@ -3315,6 +3367,7 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
         mask = pad_mask(torch, B, Lk, [(i * 5) % (Lk + 1) for i in range(B)],
                         dev)
         q16, k16, v16 = q.to(bf16), k.to(bf16), v.to(bf16)
+        attention_plan_note(K, f"f32 q {label}", q, k)
         kc.case("masked_attention, f32 q", f"{label} B={B}",
                 lambda: (K.masked_attention(q, k, v, mask, out_dtype=f32),),
                 lambda: (K.masked_attention_plain(q, k, v, mask,
@@ -3380,6 +3433,7 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
             4 if odt == f32 else 2)
         nbytes = (qs * B * H * Lq * Dh + 2 * kvs * B * H * Lk * Dh + B * Lk
                   + osz * B * Lq * H * Dh)
+        attention_plan_note(K, label, q, k)
         kc.case("masked_attention, long", label,
                 lambda: (K.masked_attention(q, k, v, mask, out_dtype=odt),),
                 lambda: (K.masked_attention_plain(q, k, v, mask,

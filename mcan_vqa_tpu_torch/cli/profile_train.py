@@ -39,21 +39,33 @@ import torch
 # the port's kernels by name, checked before the library groups: the
 # Hopper GEMMs' "sm90::gemm_sm90_kernel<...>" would otherwise count as
 # cuBLAS ("sm90_"). Its forward instances (layout 3, NN: gemm_bias_act)
-# form a group of their own, apart from the backward ones (NT, TN);
-# "gemm_kernel" is the WMMA forward kernel of older checkouts.
+# form a group of their own, apart from the backward ones (NT, TN). Each
+# group gathers the kernels named beside it: the attention forward's
+# one-block and long instances as "masked_attention_kernel", the attention
+# backward's as "masked_attention_bwd_kernel", each LayerNorm's rolled
+# instance (the widths other than 256, 512, 1024) with its row kernel.
 GEMM_SM90_NN = "gemm_sm90_kernel<3,"
-PORT_KERNELS = ("gemm_sm90_kernel", "gemm_kernel",
-                "masked_attention_bwd_kernel",
-                "masked_attention_kernel", "residual_layernorm_bwd_kernel",
-                "residual_layernorm_kernel", "col_sum_kernel")
+PORT_KERNELS = (
+    ("gemm_sm90_kernel", ("gemm_sm90_kernel",)),
+    ("masked_attention_bwd_kernel", ("masked_attention_bwd_kernel",
+                                     "attention_bwd_rows_kernel",
+                                     "attention_bwd_keys_kernel")),
+    ("masked_attention_kernel", ("masked_attention_kernel",
+                                 "masked_attention_long_kernel")),
+    ("residual_layernorm_bwd_kernel",
+     ("residual_layernorm_bwd_kernel",
+      "residual_layernorm_bwd_rolled_kernel")),
+    ("residual_layernorm_kernel", ("residual_layernorm_kernel",
+                                   "residual_layernorm_rolled_kernel")),
+    ("col_sum_kernel", ("col_sum_kernel",)))
 
 
 def kernel_group(name: str) -> str:
     if GEMM_SM90_NN in name:
         return "gemm_sm90_kernel NN"
-    for k in PORT_KERNELS:
-        if k in name:
-            return k
+    for group, names in PORT_KERNELS:
+        if any(k in name for k in names):
+            return group
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "copy"

@@ -44,7 +44,8 @@ SIGNATURES = {
     "mcan_gemm_sm90_smem": [_I],
     "mcan_masked_attention": [_P, _I, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                               _I, _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I,
-                              _I, _I, _I, _I, _F, _P],
+                              _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     "mcan_masked_attention_bwd": [_P, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                                   _I, _P, _P, _F, *_KEEP, _P, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,

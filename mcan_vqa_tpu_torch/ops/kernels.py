@@ -71,7 +71,8 @@ F32 = torch.float32
 I8 = torch.int8
 LN_EPS = 1e-6
 MAX_HEAD_DIM = 256     # the attention kernels' Dh: any width up to this
-ONE_BLOCK_ATTENTION = 128  # Dh and Lq, Lk up to this: one block per head;
+ONE_BLOCK_ATTENTION = 128  # the forward's one-block kernel: Dh and Lk up
+#                            to this (any Lq); the backward's: Dh, Lq and Lk;
 #                            past it the long kernels (any Lq, Lk)
 GEMM_ALIGN = 8         # the GEMMs' N and K: whole 16-byte chunks of bf16
 LN_MAX_WIDTH = 2048    # the LayerNorm kernels' D: a multiple of 32 up to this
@@ -931,12 +932,30 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_pad: torch.Tensor, drop: Keep = None,
                            inv_keep: float = 1.0,
                            out_dtype: torch.dtype = BF16) -> torch.Tensor:
+    """The attention in plain ops: both products of bf16 operands with f32
+    sums, JAX's ``dot(bf16, bf16, preferred_element_type=f32)``. On the
+    card they are cuBLAS's bf16 tensor-core products with f32 out, the
+    arithmetic of the kernel's mma.sync; on the CPU f32 products of the
+    rounded operands (exact products, the same function up to the order
+    of the sums)."""
     drop = _attention_keep(drop, q, k)
-    if drop is None:
-        out = _attention_f32(q, k, v, key_pad)
-    else:
-        p = _drop(_probs(q, k, key_pad), drop, inv_keep)
-        out = p.to(BF16).float() @ v.to(BF16).float()
+    if not q.is_cuda:
+        if drop is None:
+            out = _attention_f32(q, k, v, key_pad)
+        else:
+            p = _drop(_probs(q, k, key_pad), drop, inv_keep)
+            out = p.to(BF16).float() @ v.to(BF16).float()
+        return _heads_out(out).to(out_dtype)
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    qh, kh, vh = (t.to(BF16).reshape(B * H, t.shape[2], Dh)
+                  for t in (q, k, v))
+    s = torch.bmm(qh, kh.transpose(1, 2), out_dtype=F32) \
+        * (1.0 / Dh ** 0.5)
+    p = torch.softmax(s.view(B, H, Lq, Lk).masked_fill(key_pad, NEG_INF),
+                      dim=-1)
+    p = _drop(p, drop, inv_keep).to(BF16).reshape(B * H, Lq, Lk)
+    out = torch.bmm(p, vh, out_dtype=F32).view(B, H, Lq, Dh)
     return _heads_out(out).to(out_dtype)
 
 
@@ -967,9 +986,65 @@ def _check_attention(name, q, k, v, key_pad, drop, q_dtypes=(BF16,)):
 
 
 def one_block_attention(Dh: int, Lq: int, Lk: int) -> bool:
-    """True where the attention kernels hold one head in one block (Dh,
-    Lq and Lk up to 128); every other shape runs the long kernels."""
+    """True where the attention backward holds one head in one block (Dh,
+    Lq and Lk up to 128); every other shape runs its long kernels, which
+    need a stats scratch."""
     return max(Dh, Lq, Lk) <= ONE_BLOCK_ATTENTION
+
+
+ATT_MAX_WARPS = 8      # masked_attention.cu's blocks: up to 256 threads
+ATT_LONG_KC = 64       # the long kernel's keys per chunk
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How masked_attention.cu covers one call: ``instance`` 0 (the
+    one-block kernel: every key of the head staged at once, kc 64 or 128
+    the keys a row holds) or 1 (the long kernel: keys streamed in chunks of
+    kc = 64); head columns padded to ``dhp``; ``rows`` query rows per block
+    (16 per warp, each row tile held by ``col_split`` warps, each owning
+    dhp / col_split output columns); block x is (sample, head) x // tiles,
+    row tile x % tiles; ``smem`` bytes of dynamic shared memory."""
+    instance: int
+    dhp: int
+    kc: int
+    rows: int
+    col_split: int
+    tiles: int
+    grid: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def attention_plan(B: int, H: int, Lq: int, Lk: int, Dh: int
+                   ) -> AttentionPlan:
+    """The plan of one masked_attention call, from the shape alone (cached:
+    the small-batch forward is bound by the host's time per launch). The
+    one-block kernel where Dh and Lk are at most 128 (any Lq), with Dh
+    rounded up to 32; else the long kernel, Dh rounded up to 64 and, past
+    128, two warps per row tile. Up to 8 warps a block, as many 16-row
+    tiles as the query rows need; then halved while the blocks would not
+    fill the SMs (B = 1: a block per 16 or 32 rows of a head)."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    if Dh <= ONE_BLOCK_ATTENTION and Lk <= ONE_BLOCK_ATTENTION:
+        instance, dhp, kc, cs = 0, 32 * cdiv(Dh, 32), \
+            64 if Lk <= 64 else 128, 1
+    else:
+        dhp = 64 * cdiv(Dh, 64)
+        instance, kc, cs = 1, ATT_LONG_KC, 2 if dhp > 128 else 1
+    # K and V staged whole (every key in one chunk) or in two stages of
+    # 64-key chunks
+    staged = 2 * 16 * cdiv(Lk, 16) if instance == 0 or Lk <= ATT_LONG_KC \
+        else 4 * ATT_LONG_KC
+    row_tiles = cdiv(Lq, 16)
+    per_block = min(row_tiles, ATT_MAX_WARPS // cs)
+    while per_block > 1 and B * H * cdiv(row_tiles, per_block) < GEMM_SMS:
+        per_block = cdiv(per_block, 2)
+    rows = 16 * per_block
+    tiles = cdiv(Lq, rows)
+    return AttentionPlan(instance, dhp, kc, rows, cs, tiles, B * H * tiles,
+                         32 * per_block * cs, (rows + staged) * (dhp + 8) * 2)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -982,7 +1057,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, 1, 1, Lk] (True = PAD), drop an optional keep-mask [B, H, Lq, Lk]
     on the probabilities or its Philox source -> [B, Lq, H*Dh] in
     out_dtype (bf16, or f32 for a merge that quantizes it to int8 and for
-    the stand-alone attention), the layout the merge projection takes."""
+    the stand-alone attention), the layout the merge projection takes.
+    On the card: csrc/masked_attention.cu with ``attention_plan``."""
     if not on_cuda(q):
         return masked_attention_plain(q, k, v, key_pad, drop, inv_keep,
                                       out_dtype)
@@ -993,12 +1069,15 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              (BF16, F32))
     _require(out_dtype in (BF16, F32), f"{name}: out_dtype {out_dtype}")
     out = torch.empty((B, Lq, H * Dh), dtype=out_dtype, device=q.device)
+    plan = attention_plan(B, H, Lq, Lk, Dh)
     rc = _lib().mcan_masked_attention(
         q.data_ptr(), int(q.dtype == F32), q.stride(0), q.stride(1),
         q.stride(2), k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
         k.stride(2), int(k.dtype == F32), pad.data_ptr(), _ptr(drop),
         float(inv_keep), *keep, out.data_ptr(), int(out_dtype == F32),
-        Lq * H * Dh, H * Dh, B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
+        Lq * H * Dh, H * Dh, B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5,
+        plan.instance, plan.dhp, plan.kc, plan.rows, plan.grid, plan.threads,
+        plan.smem, _stream(q))
     _check(rc, name if out_dtype == BF16 else name + "_f32")
     return out
 

@@ -223,9 +223,30 @@ def test_forward_wrapper_launches_the_nn_plan(monkeypatch, M, K, N, out_dtype,
 
 
 @pytest.mark.parametrize("name,group", [
+    # the attention forward's one-block and long instances, one group;
+    # the backward's one-block and long kernels, another
+    ("void (anonymous namespace)::masked_attention_kernel<64, 8>((anonymous "
+     "namespace)::Args)", "masked_attention_kernel"),
+    ("void (anonymous namespace)::masked_attention_kernel<128, 16>("
+     "(anonymous namespace)::Args)", "masked_attention_kernel"),
+    ("void (anonymous namespace)::masked_attention_long_kernel<192>("
+     "(anonymous namespace)::Args)", "masked_attention_kernel"),
+    ("void (anonymous namespace)::masked_attention_bwd_kernel<64, 64>("
+     "__nv_bfloat16 const*, long long, long long, long long, void const*)",
+     "masked_attention_bwd_kernel"),
+    ("void (anonymous namespace)::attention_bwd_rows_kernel<256>("
+     "(anonymous namespace)::Args)", "masked_attention_bwd_kernel"),
+    ("void (anonymous namespace)::attention_bwd_keys_kernel<128>("
+     "(anonymous namespace)::Args)", "masked_attention_bwd_kernel"),
+    ("void (anonymous namespace)::residual_layernorm_rolled_kernel<float>("
+     "float const*, float const*)", "residual_layernorm_kernel"),
+    ("void (anonymous namespace)::residual_layernorm_bwd_rolled_kernel<"
+     "float, float>(float const*, float const*)",
+     "residual_layernorm_bwd_kernel"),
+    # the WMMA forward GEMM of older checkouts is no longer the port's
     ("void (anonymous namespace)::gemm_kernel(__nv_bfloat16 const*, long "
      "long, __nv_bfloat16 const*, long long, int, int, int, "
-     "(anonymous namespace)::Epilogue)", "gemm_kernel"),
+     "(anonymous namespace)::Epilogue)", "torch gemm"),
     ("void sm90::gemm_sm90_kernel<true, 64>(CUtensorMap_st, CUtensorMap_st, "
      "int, int, int, sm90::Epilogue, float*, int*)", "gemm_sm90_kernel"),
     ("void sm90::gemm_sm90_kernel<false, 128>(CUtensorMap_st, "

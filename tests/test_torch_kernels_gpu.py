@@ -485,6 +485,207 @@ def test_int4_gemms_raise_on_unsupported_operands(cuda):
                   s4[:2], a=1.0)
 
 
+# the fragment edges of masked_attention.cu: Dh against the 16-column
+# steps and the padding to 32 / 64, Lq against the 16-row warp tiles, Lk
+# against the 8-key tiles, the 16-key steps, the one-block kernel's 64 / 128
+# keys and the long kernel's 64-key chunks; odd Lk puts some Philox pairs
+# across two counters
+ATT_EDGES = [(1, 1, 1), (24, 14, 15), (60, 15, 16), (64, 16, 17),
+             (64, 17, 14), (100, 60, 65), (128, 65, 64), (128, 127, 128),
+             (64, 128, 129), (24, 129, 127), (192, 14, 15), (256, 17, 65),
+             (192, 160, 129), (100, 64, 608), (60, 608, 60), (256, 1, 160),
+             (1, 160, 608), (128, 15, 1), (64, 60, 60), (128, 60, 14)]
+
+
+@pytest.mark.parametrize("Dh,Lq,Lk", ATT_EDGES)
+def test_attention_fragment_edges_match_plain(cuda, Dh, Lq, Lk):
+    """Each instance at its edges against the plain version, with and
+    without a keep-mask; the f32 output rounded to bf16 is the bf16 output,
+    f32 q / k / v give what their bf16 roundings give, a fully padded
+    sample attends uniformly over its own keys, and the seeded route equals
+    the mask route fed its dump, all bit for bit."""
+    B, H, f32 = 3, 2, torch.float32
+    q, k, v, mask = _attention_inputs(B, H, Lq, Lk, [Lk, 0, (Lk + 1) // 2],
+                                      cuda, Dh)
+    kb, vb = k.to(BF16), v.to(BF16)
+    drop = _keep((B, H, Lq, Lk), cuda, Dh + Lq + Lk, 0.25).to(torch.uint8)
+    for d, inv in ((None, 1.0), (drop, 1 / 0.75)):
+        out = K.masked_attention(q, kb, vb, mask, d, inv)
+        _close(out, K.masked_attention_plain(q, kb, vb, mask, d, inv), 2 ** -7)
+        o32 = K.masked_attention(q, kb, vb, mask, d, inv, out_dtype=f32)
+        _close(o32, K.masked_attention_plain(q, kb, vb, mask, d, inv,
+                                             out_dtype=f32), 2 ** -7)
+        assert torch.equal(o32.to(BF16), out)
+        assert torch.equal(K.masked_attention(q.float(), k, v, mask, d, inv),
+                           out)
+    # sample 1 is all PAD: every key's probability is bf16(1 / Lk)
+    p = torch.tensor(1.0 / Lk).to(BF16).float()
+    uniform = (p * vb[1].float().sum(1, keepdim=True)).expand(H, Lq, Dh)
+    _close(K.masked_attention(q, kb, vb, mask)[1],
+           uniform.transpose(0, 1).reshape(Lq, H * Dh), 2 ** -7)
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    t, inv = st.prng_keep_params(0.1)
+    seeded = K.Philox(11, 0x200, t)
+    dump = K.dump_prng_masks(11, t, B, [(0x200, H, Lq * Lk)], "cuda")[0]
+    assert torch.equal(K.masked_attention(q, kb, vb, mask, seeded, inv),
+                       K.masked_attention(q, kb, vb, mask,
+                                          dump.reshape(B, H, Lq, Lk), inv))
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh", [(60, 60, 64), (14, 14, 128),
+                                      (60, 14, 64), (160, 160, 192),
+                                      (17, 15, 24)])
+def test_attention_reads_views_offset_by_one_element(cuda, Lq, Lk, Dh):
+    """q, k, v as views that start one element into their buffers, rows of
+    an odd stride (not 16-byte aligned: converting loads in place of
+    cp.async), give what contiguous copies give, bit for bit."""
+    B, H = 3, 8
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk + Dh)
+
+    def views(L, n):
+        buf = torch.randn(B * L, n * H * Dh + 1, generator=g,
+                          device=cuda).to(BF16)
+        return [t.view(B, L, H, Dh).transpose(1, 2) for t in
+                buf[:, 1:].view(B, L, n * H * Dh).split(H * Dh, dim=-1)]
+
+    if Lq == Lk:
+        q, k, v = views(Lq, 3)
+    else:
+        q, = views(Lq, 1)
+        k, v = views(Lk, 2)
+    mask = torch.zeros(B, 1, 1, Lk, dtype=torch.bool, device=cuda)
+    mask[1] = True
+    mask[2, ..., Lk // 2:] = True
+    for odt in (BF16, torch.float32):
+        out = K.masked_attention(q, k, v, mask, out_dtype=odt)
+        ref = K.masked_attention(*[t.contiguous() for t in (q, k, v)], mask,
+                                 out_dtype=odt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("Dh,Lq,Lk,qmax", [
+    (64, 14, 1, 2), (64, 14, 14, 2), (64, 60, 17, 2), (64, 17, 32, 2),
+    (64, 60, 33, 2), (64, 60, 60, 2), (64, 16, 64, 2), (128, 60, 65, 2),
+    (128, 100, 100, 2), (128, 14, 127, 2), (128, 129, 128, 2),
+    (64, 60, 60, 16), (128, 100, 100, 16)])
+def test_attention_probabilities_equal_torch_softmax_bitwise(cuda, Dh, Lq,
+                                                             Lk, qmax):
+    """The one-block kernel's probabilities are torch.softmax's bit for bit
+    where the scores are: q and k of small integers make every score an
+    exact integer in any summation order, and v one-hot per key (v[j, j] =
+    1) makes the f32 output the dropped, bf16-rounded probabilities
+    themselves. So the row sums follow torch.softmax's order and each
+    probability is e / sum, with and without a keep-mask and over ragged
+    and fully padded samples; q up to 16 spreads the scores past 41.6, so
+    some terms fall under 2^-60 (normalise's division path) and under
+    f32's normal range."""
+    B, H = 3, 2
+    g = torch.Generator(device=cuda).manual_seed(Dh + Lq + Lk)
+
+    def ints(L, m):
+        return torch.randint(-m, m + 1, (B, H, L, Dh), generator=g,
+                             device=cuda).to(BF16)
+
+    q, k = ints(Lq, qmax), ints(Lk, 2)
+    v = torch.zeros(B, H, Lk, Dh, dtype=BF16, device=cuda)
+    v[..., torch.arange(Lk), torch.arange(Lk)] = 1.0
+    idx = torch.arange(Lk, device=cuda)
+    mask = (idx[None] >= torch.tensor([Lk, 0, (Lk + 1) // 2],
+                                      device=cuda)[:, None])[:, None, None]
+    assert K.attention_plan(B, H, Lq, Lk, Dh).instance == 0
+    drop = _keep((B, H, Lq, Lk), cuda, Dh * Lk, 0.25).to(torch.uint8)
+    for d, inv in ((None, 1.0), (drop, 1 / 0.75)):
+        out = K.masked_attention(q, k, v, mask, d, inv,
+                                 out_dtype=torch.float32)
+        ref = K.masked_attention_plain(q, k, v, mask, d, inv,
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantized_block_gap_with_the_attention_kernel(cuda, seed,
+                                                       monkeypatch):
+    """The level-5 SGA block at MCAN-large width (D 1024, F 4096, 8 heads
+    of 128; B = 64, 100 regions, 14 question keys, ragged pads with fully
+    padded samples, random weights, static scales from the calibration
+    replay) through the kernels against its plain version, with the
+    attention kernel inside and with the plain attention swapped in: both
+    within chip_smoke.py's [int4 blocks] tolerance, 6e-2. The attention's
+    f32 output feeds a static int8 quantization, so any code it flips
+    moves whole rows of the block's output. Prints both gaps."""
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import _cross_kv
+    B, Lv, Lq, D, F, H = 64, 100, 14, 1024, 4096, 8
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def mat(k, n):
+        return (torch.randn(k, n, generator=g, device=cuda)
+                / k ** 0.5).to(BF16)
+
+    def vec(n, base=0.0):
+        return base + 0.1 * torch.randn(n, generator=g, device=cuda)
+
+    wp = {"wqkv1": mat(D, 3 * D), "bqkv1": vec(3 * D), "w1": mat(D, F),
+          "b1": vec(F), "w2": mat(F, D), "b2": vec(D),
+          "wm1_full": mat(D, D), "bm1": vec(D), "wq2_full": mat(D, D),
+          "bq2_full": vec(D), "wm2_full": mat(D, D), "bm2": vec(D)}
+    for i in range(1, 4):
+        wp[f"ln{i}_s"], wp[f"ln{i}_b"] = vec(D, 1.0), vec(D)
+    dec = {"_mk": wp, "_qffn": quant.prepare_qffn_params(wp, True, True, 2),
+           "mhatt2": {"linear_kv": {"kernel": mat(D, 2 * D),
+                                    "bias": vec(2 * D)}}}
+    x = torch.randn(B, Lq, D, generator=g, device=cuda).to(BF16)
+    v = torch.randn(B, Lv, D, generator=g, device=cuda).to(BF16)
+
+    def pads(L):
+        lens = torch.tensor([(i * 17) % (L + 1) for i in range(B)],
+                            device=cuda)
+        return (torch.arange(L, device=cuda)[None]
+                >= lens[:, None])[:, None, None, :]
+
+    q_mask, v_mask = pads(Lq), pads(Lv)
+    kq, vq = _cross_kv(dec["mhatt2"], x, H)
+    scales = tuple(float(a) for a in quant._cal_sga_block(
+        dec, v, x, v_mask, q_mask, H, 1.1)[1])
+
+    def gap(block):
+        out = block(v, kq, vq, v_mask, q_mask, wp, dec["_qffn"],
+                    num_heads=H, act_scales=scales)
+        torch.cuda.synchronize()
+        return float((out.float() - ref.float()).abs().max())
+
+    ref = quant.fused_qffn_sga_block_plain(
+        v, kq, vq, v_mask, q_mask, wp, dec["_qffn"], num_heads=H,
+        act_scales=scales)
+    with_kernel = gap(quant.fused_qffn_sga_block)
+    monkeypatch.setattr(quant, "_CUDA", quant._CUDA._replace(
+        attention=K.masked_attention_plain))
+    with_plain = gap(quant.fused_qffn_sga_block)
+    print(f"seed {seed}: max|err| {with_kernel:.4e} with the attention "
+          f"kernel, {with_plain:.4e} with the plain attention")
+    assert with_kernel <= 6e-2 and with_plain <= 6e-2
+
+
+def test_attention_rows_do_not_depend_on_the_batch(cuda):
+    """B = 1 splits a head's rows over more blocks than B = 64 does: each
+    row comes out the same, bit for bit (a replay at another batch size
+    gives the same probabilities)."""
+    for Lq, Lk, Dh in ((60, 60, 64), (14, 14, 64), (60, 14, 128),
+                       (160, 160, 192)):
+        q, k, v, mask = _attention_inputs(64, 8, Lq, Lk,
+                                          [(i * 7) % (Lk + 1)
+                                           for i in range(64)], cuda, Dh)
+        assert K.attention_plan(1, 8, Lq, Lk, Dh).rows < \
+            K.attention_plan(64, 8, Lq, Lk, Dh).rows or Lq <= 16
+        out = K.masked_attention(q, k, v, mask)
+        for b in (0, 5, 63):
+            sl = slice(b, b + 1)
+            assert torch.equal(K.masked_attention(q[sl], k[sl], v[sl],
+                                                  mask[sl]), out[sl])
+
+
 @pytest.mark.parametrize("Lq,Lk,lengths,Dh", [
     (14, 14, [14, 0, 5], 64), (60, 14, [3, 14, 0], 64),
     (60, 60, [0, 60, 17], 128)])
