@@ -316,9 +316,9 @@ def main() -> None:
         phase_done("train large")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    record = rows.record()
     say(f"[card] {card}")
-
-    say(json.dumps({"kernels": rows.record()}))
+    say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -416,7 +416,8 @@ class Rows:
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, launches_by_path={}, max_abs_err=0.0, ms=0.0,
                 plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None,
-                per=per, flops=0, bytes=0, _op=0.0, _bytes=0.0)
+                per=per, flops=0, bytes=0, _op=0.0, _bytes=0.0, _timed=0,
+                _lib=0)
         return self.rows[name]
 
     def add(self, name, n, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
@@ -431,8 +432,15 @@ class Rows:
         r["bytes"] += n * int(nbytes)
         r["_op"] += n * op
         r["_bytes"] += n * by
+        r["_timed"] += n if ms else 0
         if library_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + n * library_ms
+            r["_lib"] += n
+
+    def unmeasured(self, name):
+        """A library call computes the row's function, but a case of it
+        went untimed: the row's library_ms is null."""
+        self.rows[name]["_unmeasured"] = True
 
     def err(self, name, e):
         self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"],
@@ -452,6 +460,12 @@ class Rows:
         out = []
         for name in self.order:
             r = dict(self.rows[name])
+            timed, lib = r.pop("_timed"), r.pop("_lib")
+            if 0 < lib != timed:
+                say(f"[rows] {name}: the library call was timed for {lib} "
+                    f"of the {timed} calls per unit: library_ms null")
+            if r.pop("_unmeasured", False) or 0 < lib != timed:
+                r["library_ms"] = None
             r["bound_by"] = "operations" if r.pop("_op") >= r.pop("_bytes") \
                 else "bytes"
             out.append(r)
@@ -504,15 +518,36 @@ def attention_plan_note(K, label, q, k) -> None:
         f"head, grid {p.grid} x {p.threads} threads, {p.smem} B shared")
 
 
+def attention_bwd_plan_note(K, label, q, k) -> None:
+    """masked_attention_bwd.cu's plan of one call (kernels.
+    attention_bwd_plan)."""
+    B, H, Lq, Dh = q.shape
+    p = K.attention_bwd_plan(B, H, Lq, k.shape[2], Dh)
+    if p.instance == 0:
+        say(f"    [plan] masked_attention_bwd {label}: one-block <{p.dhp}, "
+            f"{p.kc} keys>, {p.rows} query x {p.key_rows} key rows, grid "
+            f"{p.grid} x {p.threads} threads, {p.smem} B shared")
+        return
+    say(f"    [plan] masked_attention_bwd {label}: long <{p.dhp}>, rows "
+        f"kernel {p.rows} rows x {p.col_split} warp(s) a tile, grid "
+        f"{p.grid} x {p.threads}, {p.smem} B; keys kernel {p.key_rows} keys "
+        f"x {p.key_split} warps a tile, grid {p.key_grid} x "
+        f"{p.key_threads}, {p.key_smem} B; stats {4 * p.stats} B")
+
+
 ATT_INSTANCE = re.compile(
     r"masked_attention_(long_)?kernelILi(\d+)E(?:Li(\d+)E)?")
+ATT_BWD_INSTANCE = re.compile(
+    r"(masked_attention_bwd|attention_bwd_rows|attention_bwd_keys)_kernel"
+    r"ILi(\d+)E(?:Li(\d+)E)?")
 
 
 def attention_report(build) -> None:
     """Each masked_attention.cu forward instance's registers and spills
     (ptxas) and the most dynamic shared memory a plan gives it: the
     one-block kernel <Dh padded, 8-key tiles> (mangled ...kernelILi64ELi8E)
-    and the long kernel <Dh padded>."""
+    and the long kernel <Dh padded>; then masked_attention_bwd.cu's
+    one-block and long rows / keys instances."""
     from mcan_vqa_tpu_torch.ops import kernels as K
     lines = build.build_log.splitlines()
     if not lines:
@@ -535,6 +570,27 @@ def attention_report(build) -> None:
                         if "spill" in ln or "registers" in ln)
         say(f"[masked_attention] {name}: {info}; dynamic shared memory up "
             f"to {smem} bytes")
+    # the backward: the one-block kernel <Dh padded, 8-key tiles> and the
+    # long rows / keys kernels <Dh padded>; shared memory of the largest
+    # plan (128 query rows one-block; 8 warps a block, 4096 rows long)
+    for i, line in enumerate(lines):
+        m = ATT_BWD_INSTANCE.search(line)
+        if "Compiling entry function" not in line or m is None:
+            continue
+        dhp = int(m.group(2))
+        if m.group(3):
+            keys = 8 * int(m.group(3))
+            name = f"one-block <{dhp}, {keys} keys>"
+            smem = K.attention_bwd_plan(K.GEMM_SMS, 1, 128, keys, dhp).smem
+        else:
+            p = K.attention_bwd_plan(K.GEMM_SMS, 1, 4096, 4096, dhp)
+            rows = m.group(1) == "attention_bwd_rows"
+            name = f"long {('keys', 'rows')[rows]} <{dhp}>"
+            smem = p.smem if rows else p.key_smem
+        info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                        if "spill" in ln or "registers" in ln)
+        say(f"[masked_attention_bwd] {name}: {info}; dynamic shared memory "
+            f"up to {smem} bytes")
 
 
 def gemm_bytes(M, K, N, *, a=2, b=2, out=(4,), bias=False, mask=False,
@@ -771,6 +827,7 @@ class KernelCheck:
 
 
 def check_train_kernels(torch, dev, rows) -> None:
+    from mcan_vqa_tpu_torch.cli.bench_attention import sdpa_backward_ms
     from mcan_vqa_tpu_torch.ops import kernels as K
     kc = KernelCheck(torch, dev, rows, SEED + 3)
     randn, keep, case = kc.randn, kc.keep, kc.case
@@ -906,6 +963,7 @@ def check_train_kernels(torch, dev, rows) -> None:
             ("cross 60x14 f32 kv", (cq, ck, cv), qmask, att_cases[1][3],
              "q")):
         Lk = k.shape[2]
+        attention_bwd_plan_note(K, label, q, k)
 
         def grads(fn, q=q, k=k, v=v, mask=mask, drop=drop, copies=copies):
             dq = torch.empty(BATCH, H, Lv, 64, device=dev)
@@ -918,10 +976,6 @@ def check_train_kernels(torch, dev, rows) -> None:
                inv_keep=inv)
             return (dq, dk, dv)
 
-        ql, kl, vl = (t.detach().clone().to(bf16).requires_grad_()
-                      for t in (q, k, v))
-        sdpa_out = F_.scaled_dot_product_attention(ql, kl, vl,
-                                                   attn_mask=~mask)
         d4 = dout.view(BATCH, Lv, H, 64).transpose(1, 2)
         # dS rounded to bf16 may land a step apart: 2^-7 of each output's
         # max|ref|
@@ -935,14 +989,15 @@ def check_train_kernels(torch, dev, rows) -> None:
             rows.err("masked_attention_bwd", err)
         t_k = device_ms(torch, lambda: grads(K.masked_attention_bwd))
         t_p = device_ms(torch, lambda: grads(K.masked_attention_bwd_plain))
-        # SDPA's backward: one autograd call (eager: events around it)
-        t_l = cuda_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (ql, kl, vl), d4, retain_graph=True))
+        # SDPA's backward: one autograd call, graphed as the kernel
+        t_l = sdpa_backward_ms(torch, q, k, v, mask, d4)
+        if t_l is None:
+            rows.unmeasured("masked_attention_bwd")
         flops = 10 * BATCH * H * Lv * Lk * 64
         nbytes = attention_bwd_bytes(BATCH, H, Lv, Lk, k.element_size(),
                                      copies)
         say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa backward "
-            f"{t_l:.4f} ms (eager); bound "
+            f"{t_l} ms; bound "
             f"{max(bound_parts(flops, nbytes)):.4f} ms")
         rows.add("masked_attention_bwd", L, t_k, t_p, flops, nbytes, t_l)
 
@@ -1005,6 +1060,7 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
     (the fused encoder: M = 64 x 14 question rows, the h1 / att / y1 / y2
     masks at rate 0.1): the forward products and the backward's recomputed
     qkv / merge, dX, dW, attention, LayerNorms and column sums."""
+    from mcan_vqa_tpu_torch.cli.bench_attention import sdpa_backward_ms
     bf16, f32 = torch.bfloat16, torch.float32
     randn, keep, case = kc.randn, kc.keep, kc.case
     T32, T16 = 1e-4, 8e-3
@@ -1070,6 +1126,7 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
          attention_bytes(BATCH, H, L, L, 2, drop=True, Dh=D // H),
          lambda: F_.scaled_dot_product_attention(q, k, v, attn_mask=~mask))
     dout = randn(BATCH, L, D, dtype=bf16)
+    attention_bwd_plan_note(K, "enc self 14x14", q, k)
 
     def grads(fn):
         dqkv = torch.empty(M, 3 * D, device=kc.dev)
@@ -1085,6 +1142,15 @@ def check_encoder_kernels(torch, K, kc, D, F, H, L, n_blocks, inv) -> None:
         K.masked_attention_bwd), lambda: grads(K.masked_attention_bwd_plain),
          (2 ** -7,) * 3, n, 10 * BATCH * H * L * L * (D // H),
          attention_bwd_bytes(BATCH, H, L, L, 2, "qkv", Dh=D // H))
+    # SDPA's backward here too, so that the row's library time covers the
+    # calls its time does
+    t_l = sdpa_backward_ms(torch, q, k, v, mask, dout.view(
+        BATCH, L, H, D // H).transpose(1, 2))
+    say(f"    sdpa backward {t_l} ms")
+    if t_l is None:
+        kc.rows.unmeasured("masked_attention_bwd")
+    else:
+        kc.rows.add("masked_attention_bwd", n, library_ms=t_l)
     for label, save_r, odts, k in (("enc LN1 + y1 -> f32, bf16", False,
                                     (f32, bf16), n),
                                    ("enc LN2 + y2 -> f32, r2", True, (f32,),
@@ -1132,6 +1198,7 @@ def check_large_kernels(torch, dev, rows) -> None:
     timed, for one B=64 MCAN-large step (two micro-batches, 6 decoder
     blocks each); the other kernels' times stand for the MCAN-small
     units."""
+    from mcan_vqa_tpu_torch.cli.bench_attention import sdpa_backward_ms
     from mcan_vqa_tpu_torch.ops import kernels as K
     kc = KernelCheck(torch, dev, rows, SEED + 4)
     randn, keep, case = kc.randn, kc.keep, kc.case
@@ -1228,6 +1295,8 @@ def check_large_kernels(torch, dev, rows) -> None:
              lambda: F_.scaled_dot_product_attention(q, k16, v16,
                                                      attn_mask=~mask))
 
+        attention_bwd_plan_note(K, f"Dh 128 {label}", q, k)
+
         def grads(fn, q=q, k=k, v=v, mask=mask, drop=drop, copies=copies,
                   Lk=Lk):
             outs = [torch.empty(B, H, L_, Dh, device=dev)
@@ -1237,10 +1306,6 @@ def check_large_kernels(torch, dev, rows) -> None:
             fn(q, k, v, mask, dout, *outs, *c16, drop=drop, inv_keep=inv)
             return tuple(outs)
 
-        ql, kl, vl = (t.detach().clone().to(bf16).requires_grad_()
-                      for t in (q, k, v))
-        sdpa_out = F_.scaled_dot_product_attention(ql, kl, vl,
-                                                   attn_mask=~mask)
         d4 = dout.view(B, Lv, H, Dh).transpose(1, 2)
         outs = grads(K.masked_attention_bwd)
         refs = grads(K.masked_attention_bwd_plain)
@@ -1252,13 +1317,15 @@ def check_large_kernels(torch, dev, rows) -> None:
             rows.err("masked_attention_bwd_dh128", err)
         t_k = device_ms(torch, lambda: grads(K.masked_attention_bwd))
         t_p = device_ms(torch, lambda: grads(K.masked_attention_bwd_plain))
-        t_l = cuda_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (ql, kl, vl), d4, retain_graph=True))
+        # SDPA's backward: one autograd call, graphed as the kernel
+        t_l = sdpa_backward_ms(torch, q, k, v, mask, d4)
+        if t_l is None:
+            rows.unmeasured("masked_attention_bwd_dh128")
         flops = 10 * B * H * Lv * Lk * Dh
         nbytes = attention_bwd_bytes(B, H, Lv, Lk, k.element_size(), copies,
                                      Dh=Dh)
         say(f"    time {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa backward "
-            f"{t_l:.4f} ms (eager); bound "
+            f"{t_l} ms; bound "
             f"{max(bound_parts(flops, nbytes)):.4f} ms")
         rows.add("masked_attention_bwd_dh128", n, t_k, t_p, flops, nbytes,
                  t_l)
@@ -3264,6 +3331,7 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
     at Dh 192 / 256 and 160 / 608 rows (the long kernels), gemm_s4 /
     gemm_w4bf16 at K 384; each with its time, its plain version's, a
     library call's where one computes the function, and its bound."""
+    from mcan_vqa_tpu_torch.cli.bench_attention import sdpa_backward_ms
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.ops.quant import _quant_w4
     kc = KernelCheck(torch, dev, rows, SEED + 70)
@@ -3444,6 +3512,7 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
         # the backward at the same shape, with a dropout mask
         dout = kc.randn(B, Lq, H * Dh, dtype=bf16)
         drop = kc.keep(B, H, Lq, Lk).to(torch.uint8)
+        attention_bwd_plan_note(K, label, q16, k)
 
         def grads(fn, q=q16, k=k, v=v, mask=mask, dout=dout, drop=drop):
             dq = torch.empty(q.shape, device=dev)
@@ -3452,10 +3521,6 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
             fn(q, k, v, mask, dout, dq, dk, dv, drop=drop, inv_keep=1 / 0.9)
             return dq, dk, dv
 
-        ql, kl, vl = (t.detach().clone().requires_grad_()
-                      for t in (q16, k16, v16))
-        sdpa_out = F_.scaled_dot_product_attention(ql, kl, vl,
-                                                   attn_mask=~mask)
         d4 = dout.view(B, Lq, H, Dh).transpose(1, 2)
         nb = (2 * B * H * Lq * Dh + 2 * kvs * B * H * Lk * Dh + B * Lk
               + B * H * Lq * Lk + 2 * B * Lq * H * Dh + 4 * B * H * Lq * Dh
@@ -3469,11 +3534,13 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
         t_k = device_ms(torch, lambda: grads(K.masked_attention_bwd))
         t_p = device_ms(torch, lambda: grads(K.masked_attention_bwd_plain),
                         iters=5)
-        t_l = cuda_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (ql, kl, vl), d4, retain_graph=True))
+        # SDPA's backward: one autograd call, graphed as the kernel
+        t_l = sdpa_backward_ms(torch, q16, k16, v16, mask, d4)
+        if t_l is None:
+            rows.unmeasured("masked_attention_bwd, long")
         flops = 10 * B * H * Lq * Lk * Dh
         say(f"    backward {t_k:.4f} ms vs plain {t_p:.4f} ms, sdpa backward "
-            f"{t_l:.4f} ms (eager); bound "
+            f"{t_l} ms; bound "
             f"{max(bound_parts(flops, nb)):.4f} ms")
         rows.add("masked_attention_bwd, long", 1, t_k, t_p, flops, nb, t_l)
 

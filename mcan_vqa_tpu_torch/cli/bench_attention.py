@@ -1,4 +1,5 @@
-"""Device time of the attention forward at the main paths' shapes.
+"""Device time of the attention forward and backward at the main paths'
+shapes.
 
     python mcan_vqa_tpu_torch/cli/bench_attention.py [--root DIR] [--tag T]
 
@@ -35,12 +36,30 @@ without), at every shape of
     (Dh 192 self 160 x 160, Dh 256 cross 60 x 14, Dh 64 self 608 x 608,
     Dh 256 cross 608 x 14; B = 8), one call each.
 
+The backward (``kernels.masked_attention_bwd``, csrc/masked_attention_bwd.cu)
+at
+
+  * unit T: one B=64 MCAN-small train step's 18 calls (the decoder's
+    self-attention with dq / dk / dv and their bf16 copies, its
+    cross-attention against f32 k / v with dq's copy, the encoder's
+    self-attention), with the seeded dropout the Trainer runs on the card;
+    the same with keep-masks read from memory at 0 calls per unit;
+  * unit L: one B=64 MCAN-large step's 24 calls (two micro-batches of 32,
+    Dh 128; the decoder's self- and cross-attention), with keep-masks as
+    the MCAN-large rows of chip_smoke.py; seeded at 0 calls;
+  * unit long: the forward's long shapes with a keep-mask, one call each
+    (the backward's long kernels);
+
+beside the backward of ``scaled_dot_product_attention`` (one autograd call
+of the bf16 operands with the boolean key mask, no dropout; captured in a
+graph like the kernel, null where the capture is refused).
+
 Each device time: 50 calls captured in one CUDA graph, replayed 5 times,
 the median per call. Prints one JSON line per shape (with the plan where
-the package has ``attention_plan``), one per unit with its totals (calls x
-time, beside the library call's and the bound: 989 TFLOP/s bf16 and 3.35
-TB/s, each input read once and each output written once; unit B1 also
-its eager total), then the card.
+the package has ``attention_plan`` / ``attention_bwd_plan``), one per unit
+with its totals (calls x time, beside the library call's and the bound:
+989 TFLOP/s bf16 and 3.35 TB/s, each input read once and each output
+written once; unit B1 also its eager total), then the card.
 Needs a CUDA device.
 """
 
@@ -48,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -99,6 +119,30 @@ SHAPES += [("L", "dec self 60x60 + dropout", 32, 8, 60, 60, 128, "qkv",
            ("long", "Dh 256 cross 608x14", 8, 8, 608, 14, 256, "heads",
             "bf16", "f32", "f32", None, 1)]
 
+# the backward: (unit, label, B, H, Lq, Lk, Dh, operands, kv dtype,
+# dropout, the outputs with a bf16 copy, calls per unit); q and dout bf16
+BWD_SHAPES = []
+for keep, calls in (("seeded", 6), ("mask", 0)):
+    BWD_SHAPES += [("T", f"dec self 60x60 + att1 {keep}", 64, 8, 60, 60, 64,
+                    "qkv", "bf16", keep, "qkv", calls),
+                   ("T", f"dec cross 60x14 f32 kv + att2 {keep}", 64, 8, 60,
+                    14, 64, "cross", "f32", keep, "q", calls),
+                   ("T", f"enc self 14x14 + att {keep}", 64, 8, 14, 14, 64,
+                    "qkv", "bf16", keep, "qkv", calls)]
+for keep, calls in (("mask", 12), ("seeded", 0)):
+    BWD_SHAPES += [("L", f"dec self 60x60 + {keep}", 32, 8, 60, 60, 128,
+                    "qkv", "bf16", keep, "qkv", calls),
+                   ("L", f"dec cross 60x14 f32 kv + {keep}", 32, 8, 60, 14,
+                    128, "cross", "f32", keep, "q", calls)]
+BWD_SHAPES += [("long", "Dh 192 self 160x160 (hidden 1536)", 8, 8, 160, 160,
+                192, "heads", "f32", "mask", "", 1),
+               ("long", "Dh 256 cross 60x14 (hidden 2048)", 8, 8, 60, 14, 256,
+                "heads", "f32", "mask", "", 1),
+               ("long", "Dh 64 self 608x608 (grid features)", 8, 8, 608, 608,
+                64, "heads", "bf16", "mask", "", 1),
+               ("long", "Dh 256 cross 608x14", 8, 8, 608, 14, 256, "heads",
+                "f32", "mask", "", 1)]
+
 SIZE = {"bf16": 2, "f32": 4}
 
 
@@ -136,6 +180,114 @@ def operands(torch, g, dev, B, H, Lq, Lk, Dh, kind, qdt, kvdt):
     return q, k, v, mask[:, None, None, :]
 
 
+def keep_source(torch, K, g, dev, keep, shape):
+    """The dropout of a case: None, a keep-mask at rate 0.1 or its Philox
+    source -> (drop, inv_keep)."""
+    if keep == "mask":
+        return (torch.rand(shape, generator=g, device=dev)
+                >= 0.1).to(torch.uint8), 1 / 0.9
+    if keep == "seeded":
+        return K.Philox(7, 0x200, 3865470566), 2 ** 32 / 3865470566
+    return None, 1.0
+
+
+def sdpa_backward_ms(torch, q, k, v, mask, d4, calls: int = 50,
+                     rounds: int = 5):
+    """Device ms of one autograd backward of scaled_dot_product_attention
+    (bf16 copies of q, k, v, the boolean key mask) with d4 [B, H, Lq, Dh]
+    flowing back, timed as ``bench_layernorm.graph_ms`` times the kernels
+    (the median of `rounds` replays of a graph of `calls` calls); None
+    where the capture is refused. Autograd runs each backward op on the
+    stream its forward op ran on, and a capture refuses work on the legacy
+    default stream, so the forward, the warm-up and the capture share one
+    side stream (``graph_ms`` takes no stream, and under ``--root`` it
+    comes from the other checkout)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [t.detach().to(torch.bfloat16).clone().requires_grad_()
+                  for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=~mask)
+
+        def call():
+            return torch.autograd.grad(out, leaves, d4, retain_graph=True)
+
+        for _ in range(3):
+            call()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                call()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def time_backward(torch, K, g, dev, tag, graph_ms, totals) -> None:
+    """The backward's JSON lines per BWD_SHAPES case; totals per unit
+    ("bwd T", "bwd L", "bwd long") into ``totals``."""
+    plan_of = getattr(K, "attention_bwd_plan", None)
+    for (unit, label, B, H, Lq, Lk, Dh, kind, kvdt, keep, copies,
+         calls) in BWD_SHAPES:
+        q, k, v, mask = operands(torch, g, dev, B, H, Lq, Lk, Dh, kind,
+                                 "bf16", kvdt)
+        drop, inv = keep_source(torch, K, g, dev, keep, (B, H, Lq, Lk))
+        dout = torch.randn(B, Lq, H * Dh, generator=g,
+                           device=dev).to(torch.bfloat16)
+        outs = [torch.empty(B, H, L, Dh, device=dev) for L in (Lq, Lk, Lk)]
+        c16 = [torch.empty(t.shape, dtype=torch.bfloat16, device=dev)
+               if c in copies else None for t, c in zip(outs, "qkv")]
+
+        def call():
+            K.masked_attention_bwd(q, k, v, mask, dout, *outs, *c16,
+                                   drop=drop, inv_keep=inv)
+
+        nbytes = (2 * B * H * Lq * Dh + 2 * SIZE[kvdt] * B * H * Lk * Dh
+                  + 2 * B * Lq * H * Dh + B * Lk
+                  + B * H * Lq * Lk * (keep == "mask")
+                  + 4 * B * H * (Lq + 2 * Lk) * Dh
+                  + sum(2 * B * H * L * Dh for L, c in zip((Lq, Lk, Lk),
+                                                            "qkv")
+                        if c in copies))
+        b = bound_ms(10 * B * H * Lq * Lk * Dh, nbytes)
+        ms = graph_ms(torch, call)
+        lib_ms = sdpa_backward_ms(torch, q, k, v, mask, dout.view(
+            B, Lq, H, Dh).transpose(1, 2))
+        row = {"tag": tag, "unit": "bwd " + unit, "case": label,
+               "shape": [B, H, Lq, Lk, Dh], "kv": kvdt, "dropout": keep,
+               "copies": copies, "calls": calls, "ms": ms,
+               "sdpa_bwd_ms": lib_ms, "bound_ms": b}
+        if plan_of is not None:
+            p = plan_of(B, H, Lq, Lk, Dh)
+            row["plan"] = {"instance": ("one-block", "long")[p.instance],
+                           "dhp": p.dhp, "rows": p.rows, "grid": p.grid,
+                           "threads": p.threads, "smem": p.smem,
+                           "key_rows": p.key_rows, "key_grid": p.key_grid,
+                           "key_threads": p.key_threads,
+                           "key_smem": p.key_smem}
+        print(json.dumps(row), flush=True)
+        t = totals.setdefault("bwd " + unit, [0, 0.0, 0.0, 0.0, 0.0])
+        t[0] += calls
+        t[1] += calls * ms
+        # a unit with a refused capture has no library total
+        t[2] = None if None in (lib_ms, t[2]) else t[2] + calls * lib_ms
+        t[3] += calls * b
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
@@ -164,13 +316,7 @@ def main(argv=None) -> None:
         q, k, v, mask = operands(torch, g, dev, B, H, Lq, Lk, Dh, kind, qdt,
                                  kvdt)
         out_dtype = torch.float32 if odt == "f32" else torch.bfloat16
-        drop, inv = None, 1.0
-        if keep == "mask":
-            drop = (torch.rand(B, H, Lq, Lk, generator=g, device=dev)
-                    >= 0.1).to(torch.uint8)
-            inv = 1 / 0.9
-        elif keep == "seeded":
-            drop, inv = K.Philox(7, 0x200, 3865470566), 2 ** 32 / 3865470566
+        drop, inv = keep_source(torch, K, g, dev, keep, (B, H, Lq, Lk))
 
         def call():
             return K.masked_attention(q, k, v, mask, drop, inv,
@@ -204,9 +350,12 @@ def main(argv=None) -> None:
         t[2] += calls * lib_ms
         t[3] += calls * b
         t[4] += calls * row.get("eager_ms", 0.0)
+    time_backward(torch, K, g, dev, args.tag, graph_ms, totals)
     for unit, (calls, ms, lib_ms, b, eager) in totals.items():
+        lib = "sdpa_bwd_ms" if unit.startswith("bwd") else "sdpa_ms"
         line = {"tag": args.tag, "unit": unit, "calls": calls, "ms": ms,
-                "sdpa_ms": lib_ms, "x_sdpa": ms / lib_ms, "bound_ms": b}
+                lib: lib_ms, "x_sdpa": lib_ms and ms / lib_ms,
+                "bound_ms": b}
         if eager:
             line["eager_ms"] = eager
         print(json.dumps(line), flush=True)

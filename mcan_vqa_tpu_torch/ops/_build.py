@@ -51,7 +51,8 @@ SIGNATURES = {
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
                                   _P, _P, _LL, _LL, _LL,
-                                  _P, _I, _I, _I, _I, _I, _F, _P],
+                                  _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mcan_residual_layernorm": [_P, _I, _P, _P, _P, _F, *_KEEP, _I, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, *_KEEP,

@@ -985,13 +985,6 @@ def _check_attention(name, q, k, v, key_pad, drop, q_dtypes=(BF16,)):
     return B, H, Lq, Lk, Dh, pad
 
 
-def one_block_attention(Dh: int, Lq: int, Lk: int) -> bool:
-    """True where the attention backward holds one head in one block (Dh,
-    Lq and Lk up to 128); every other shape runs its long kernels, which
-    need a stats scratch."""
-    return max(Dh, Lq, Lk) <= ONE_BLOCK_ATTENTION
-
-
 ATT_MAX_WARPS = 8      # masked_attention.cu's blocks: up to 256 threads
 ATT_LONG_KC = 64       # the long kernel's keys per chunk
 
@@ -1045,6 +1038,88 @@ def attention_plan(B: int, H: int, Lq: int, Lk: int, Dh: int
     tiles = cdiv(Lq, rows)
     return AttentionPlan(instance, dhp, kc, rows, cs, tiles, B * H * tiles,
                          32 * per_block * cs, (rows + staged) * (dhp + 8) * 2)
+
+
+ATT_BWD_ITEM_COLS = 32  # the one-block backward's phase-2 items: columns
+
+
+@dataclass(frozen=True)
+class AttentionBwdPlan:
+    """How masked_attention_bwd.cu covers one call. ``instance`` 0 (the
+    one-block kernel: a block of ``threads`` per (sample, head), the head's
+    ``rows`` = Lq and ``key_rows`` = Lk rounded up to 16 staged at once,
+    kc 64 or 128 the keys a row holds; phase 1 a warp per 16 query rows,
+    phase 2 the items (16 keys, dK or dV, 32 columns) dealt round the
+    warps) or 1 (the long kernels, keys / query rows streamed in chunks of
+    kc = 64: the rows kernel, ``grid`` blocks of ``threads``, ``rows`` query
+    rows each, 16 per warp, ``col_split`` warps a row tile; then the keys
+    kernel, ``key_grid`` blocks of ``key_threads``, ``key_rows`` keys each,
+    16 per warp per output, ``key_split`` warps a key tile: dK and dV, each
+    in key_split / 2 column parts). Head columns padded to ``dhp``; block x
+    of either kernel is (sample, head) x // tiles, tile x % tiles;
+    ``smem`` / ``key_smem`` bytes of dynamic shared memory; ``stats`` the
+    f32 scratch the long kernels need, [B, H, Lq, 4] (0 elements for the
+    one-block kernel)."""
+    instance: int
+    dhp: int
+    kc: int
+    rows: int
+    col_split: int
+    tiles: int
+    grid: int
+    threads: int
+    smem: int
+    key_rows: int
+    key_split: int
+    key_tiles: int
+    key_grid: int
+    key_threads: int
+    key_smem: int
+    stats: int
+
+
+@functools.lru_cache(maxsize=4096)
+def attention_bwd_plan(B: int, H: int, Lq: int, Lk: int, Dh: int
+                       ) -> AttentionBwdPlan:
+    """The plan of one masked_attention_bwd call, from the shape alone
+    (cached, as ``attention_plan``). The one-block kernel where Dh, Lq and
+    Lk are at most 128, Dh rounded up to 32 and kc by Lk as the forward's
+    one-block kernel (so both recompute the same probabilities): a warp
+    per 16 query rows, at least four warps where phase 2 has the items.
+    Else the long kernels, Dh rounded up to 64: rows and keys blocks of up
+    to 8 warps, halved while the blocks would not fill the SMs."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    lqp, lkp = 16 * cdiv(Lq, 16), 16 * cdiv(Lk, 16)
+    if max(Dh, Lq, Lk) <= ONE_BLOCK_ATTENTION:
+        dhp = 32 * cdiv(Dh, 32)
+        items = lkp // 16 * 2 * (dhp // ATT_BWD_ITEM_COLS)
+        warps = max(lqp // 16, min(items, 4))
+        smem = (2 * (lqp + lkp) * (dhp + 8) + 2 * lqp * (lkp + 8)) * 2
+        return AttentionBwdPlan(0, dhp, 64 if Lk <= 64 else 128, lqp, 1, 1,
+                                B * H, 32 * warps, smem, lkp, 1, 1, 0, 0, 0,
+                                0)
+    dhp = 64 * cdiv(Dh, 64)
+    cs = 2 if dhp > 128 else 1
+
+    def blocks(L, split):
+        tiles16 = cdiv(L, 16)
+        per_block = min(tiles16, ATT_MAX_WARPS // split)
+        while per_block > 1 and B * H * cdiv(tiles16, per_block) < GEMM_SMS:
+            per_block = cdiv(per_block, 2)
+        return 16 * per_block, cdiv(L, 16 * per_block)
+
+    def streamed(L):      # staged whole (<= 64) or two stages of 64 rows
+        return 16 * cdiv(L, 16) if L <= ATT_LONG_KC else 2 * ATT_LONG_KC
+
+    rows, tiles = blocks(Lq, cs)
+    key_rows, key_tiles = blocks(Lk, 2 * cs)
+    return AttentionBwdPlan(
+        1, dhp, ATT_LONG_KC, rows, cs, tiles, B * H * tiles,
+        rows // 16 * cs * 32, (2 * rows + 2 * streamed(Lk)) * (dhp + 8) * 2,
+        key_rows, 2 * cs, key_tiles, B * H * key_tiles,
+        key_rows // 16 * 2 * cs * 32,
+        (2 * key_rows + 2 * streamed(Lq)) * (dhp + 8) * 2
+        + 16 * streamed(Lq), B * H * Lq * 4)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1116,7 +1191,8 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last dim is contiguous; dq16 / dk16 / dv16 optional bf16 copies with
     their f32 twin's strides. The probabilities are recomputed from q, k
     and the pad mask; dS = P * (drop(dP) - rowsum(P * drop(dP))). A
-    Philox drop regenerates the forward's mask."""
+    Philox drop regenerates the forward's mask. On the card:
+    csrc/masked_attention_bwd.cu with ``attention_bwd_plan``."""
     if not on_cuda(q):
         return masked_attention_bwd_plain(q, k, v, key_pad, dout, dq, dk, dv,
                                           dq16, dk16, dv16, drop, inv_keep)
@@ -1138,9 +1214,10 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  and t16.shape == t.shape
                                  and t16.stride() == t.stride()),
                  f"{name}: a bf16 copy must share its f32 twin's strides")
-    # the long kernels' per-row max, sum and rowsum(P * drop(dPd))
-    stats = None if one_block_attention(Dh, Lq, Lk) else torch.empty(
-        (B, H, Lq, 3), dtype=F32, device=q.device)
+    plan = attention_bwd_plan(B, H, Lq, Lk, Dh)
+    # the long kernels' per-row max, sum, rowsum(P * drop(dPd)), 1 / sum
+    stats = torch.empty((B, H, Lq, 4), dtype=F32, device=q.device) \
+        if plan.stats else None
     rc = _lib().mcan_masked_attention_bwd(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
@@ -1149,7 +1226,10 @@ def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq.data_ptr(), _ptr(dq16), dq.stride(0), dq.stride(1), dq.stride(2),
         dk.data_ptr(), _ptr(dk16), dk.stride(0), dk.stride(1), dk.stride(2),
         dv.data_ptr(), _ptr(dv16), dv.stride(0), dv.stride(1), dv.stride(2),
-        _ptr(stats), B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, _stream(q))
+        _ptr(stats), B, H, Lq, Lk, Dh, 1.0 / Dh ** 0.5, plan.instance,
+        plan.dhp, plan.kc, plan.rows, plan.grid, plan.threads, plan.smem,
+        plan.key_rows, plan.key_grid, plan.key_threads, plan.key_smem,
+        _stream(q))
     _check(rc, name)
 
 

@@ -231,9 +231,8 @@ def test_forward_wrapper_launches_the_nn_plan(monkeypatch, M, K, N, out_dtype,
      "(anonymous namespace)::Args)", "masked_attention_kernel"),
     ("void (anonymous namespace)::masked_attention_long_kernel<192>("
      "(anonymous namespace)::Args)", "masked_attention_kernel"),
-    ("void (anonymous namespace)::masked_attention_bwd_kernel<64, 64>("
-     "__nv_bfloat16 const*, long long, long long, long long, void const*)",
-     "masked_attention_bwd_kernel"),
+    ("void (anonymous namespace)::masked_attention_bwd_kernel<64, 8>("
+     "(anonymous namespace)::Args)", "masked_attention_bwd_kernel"),
     ("void (anonymous namespace)::attention_bwd_rows_kernel<256>("
      "(anonymous namespace)::Args)", "masked_attention_bwd_kernel"),
     ("void (anonymous namespace)::attention_bwd_keys_kernel<128>("

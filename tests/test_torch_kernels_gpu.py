@@ -973,6 +973,116 @@ def test_attention_dropout_and_backward_match_plain(cuda, Lq, Lk, lengths,
         _close(a, b.to(BF16).to(f32), 0)
 
 
+def _bwd(fn, q, k, v, mask, dout, drop=None, inv=1.0, copies=True):
+    """dq, dk, dv (f32) and their bf16 copies from one backward call."""
+    B, H, Lq, Dh = q.shape
+    dq = torch.empty(B, H, Lq, Dh, device=q.device)
+    dk, dv = (torch.empty(k.shape, device=q.device) for _ in range(2))
+    d16 = [torch.empty(t.shape, dtype=BF16, device=q.device) if copies
+           else None for t in (dq, dk, dv)]
+    fn(q, k, v, mask, dout, dq, dk, dv, *d16, drop=drop, inv_keep=inv)
+    return (dq, dk, dv), d16
+
+
+@pytest.mark.parametrize("Dh,Lq,Lk", ATT_EDGES)
+def test_attention_bwd_fragment_edges_match_plain(cuda, Dh, Lq, Lk):
+    """Each backward instance at the forward's fragment edges (and past
+    128 query rows, where the backward takes its long kernels) against the
+    plain version, with and without a keep-mask, over a full, a fully
+    padded and a ragged sample: within 2^-7 of each output's max|ref|; the
+    bf16 copies are the f32 outputs rounded; f32 k / v give what their bf16
+    roundings give; a second run gives the same bits; the seeded route
+    equals the mask route fed its dump."""
+    B, H = 3, 2
+    q, k, v, mask = _attention_inputs(B, H, Lq, Lk, [Lk, 0, (Lk + 1) // 2],
+                                      cuda, Dh)
+    kb, vb = k.to(BF16), v.to(BF16)
+    g = torch.Generator(device=cuda).manual_seed(Dh + Lq + Lk)
+    dout = torch.randn(B, Lq, H * Dh, generator=g, device=cuda).to(BF16)
+    drop = _keep((B, H, Lq, Lk), cuda, Dh + Lq + Lk, 0.25).to(torch.uint8)
+    for d, inv in ((None, 1.0), (drop, 1 / 0.75)):
+        o32, o16 = _bwd(K.masked_attention_bwd, q, kb, vb, mask, dout, d, inv)
+        r32, _ = _bwd(K.masked_attention_bwd_plain, q, kb, vb, mask, dout, d,
+                      inv)
+        for a, b in zip(o32, r32):
+            scale = float(b.abs().max()) + 1e-6
+            # dS rounded to bf16 may land a step apart: 2^-7 of the scale
+            _close(a / scale, b / scale, 2 ** -7)
+        for a, b in zip(o16, o32):
+            assert torch.equal(a, b.to(BF16))
+        for again in (_bwd(K.masked_attention_bwd, q, kb, vb, mask, dout, d,
+                           inv)[0],
+                      _bwd(K.masked_attention_bwd, q, k, v, mask, dout, d,
+                           inv)[0]):
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(again, o32))
+    p, inv = _seeded(0x200)
+    dump = _dumped(p, B, H, Lq * Lk).reshape(B, H, Lq, Lk)
+    seeded = _bwd(K.masked_attention_bwd, q, kb, vb, mask, dout, p, inv)[0]
+    fed = _bwd(K.masked_attention_bwd, q, kb, vb, mask, dout, dump, inv)[0]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(seeded, fed))
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh", [(60, 60, 64), (60, 14, 64),
+                                      (14, 14, 64), (128, 128, 128)])
+def test_attention_bwd_recomputes_the_forward_probabilities_bitwise(
+        cuda, Lq, Lk, Dh):
+    """Where both run one-block, the backward's recomputed dropped,
+    bf16-rounded probabilities are the forward's bit for bit: the forward
+    with V = I (Lk <= Dh) returns Pd as its f32 output, the backward with
+    dO = I (Lq <= Dh) returns Pd^T in dV; without dropout, with a
+    keep-mask and with the Philox route, over a full, a fully padded and a
+    ragged sample."""
+    B, H, f32 = 3, 2, torch.float32
+    q, k, _, mask = _attention_inputs(B, H, Lq, Lk, [Lk, 0, (Lk + 1) // 2],
+                                      cuda, Dh)
+    k = k.to(BF16)
+    assert K.attention_plan(B, H, Lq, Lk, Dh).instance == 0
+    assert K.attention_bwd_plan(B, H, Lq, Lk, Dh).instance == 0
+    eye_v = torch.eye(Lk, Dh, device=cuda).to(BF16).expand(
+        B, H, Lk, Dh).contiguous()
+    dout = torch.eye(Lq, Dh, device=cuda)[None, :, None, :].expand(
+        B, Lq, H, Dh).reshape(B, Lq, H * Dh).to(BF16)
+    drop = _keep((B, H, Lq, Lk), cuda, Dh * Lk, 0.25).to(torch.uint8)
+    p, pinv = _seeded(0x200)
+    for d, inv in ((None, 1.0), (drop, 1 / 0.75), (p, pinv)):
+        out = K.masked_attention(q, k, eye_v, mask, d, inv, out_dtype=f32)
+        pd_fwd = out.view(B, Lq, H, Dh).transpose(1, 2)[..., :Lk]
+        (_, _, dv), _ = _bwd(K.masked_attention_bwd, q, k, eye_v, mask,
+                             dout, d, inv, copies=False)
+        torch.cuda.synchronize()
+        assert torch.equal(dv[..., :Lq].transpose(-1, -2), pd_fwd)
+
+
+def test_attention_bwd_rows_do_not_depend_on_the_batch(cuda):
+    """A sample's gradients do not depend on the batch around it, nor on
+    the plan the batch size gives the long kernels (B = 1 splits a head's
+    query and key rows over more blocks than B = 64), bit for bit."""
+    B, H = 64, 8
+    for Lq, Lk, Dh in ((60, 60, 64), (60, 14, 128), (160, 160, 192),
+                       (130, 60, 64)):
+        q, k, v, mask = _attention_inputs(B, H, Lq, Lk,
+                                          [(i * 7) % (Lk + 1)
+                                           for i in range(B)], cuda, Dh)
+        k, v = k.to(BF16), v.to(BF16)
+        g = torch.Generator(device=cuda).manual_seed(Lq + Dh)
+        dout = torch.randn(B, Lq, H * Dh, generator=g, device=cuda).to(BF16)
+        drop = _keep((B, H, Lq, Lk), cuda, Lq + Lk, 0.25).to(torch.uint8)
+        one, full = K.attention_bwd_plan(1, H, Lq, Lk, Dh), \
+            K.attention_bwd_plan(B, H, Lq, Lk, Dh)
+        assert one.instance == 0 or (one.rows, one.key_rows) != (
+            full.rows, full.key_rows)
+        ref = _bwd(K.masked_attention_bwd, q, k, v, mask, dout, drop,
+                   1 / 0.75)[0]
+        for b in (0, 5, 63):
+            sl = slice(b, b + 1)
+            got = _bwd(K.masked_attention_bwd, q[sl], k[sl], v[sl],
+                       mask[sl], dout[sl], drop[sl], 1 / 0.75)[0]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, r[sl]) for a, r in zip(got, ref))
+
+
 @pytest.mark.parametrize("D,with_y", [(512, True), (1024, False),
                                       (256, True), (768, True)])
 def test_layernorm_dropout_save_r_and_backward_match_plain(cuda, D, with_y):
@@ -1297,7 +1407,7 @@ def test_seeded_layernorm_equals_the_mask_fed_the_dump(cuda, D):
 
 @pytest.mark.parametrize("Lq,Lk,Dh", [(60, 60, 64), (60, 14, 128),
                                       (86, 86, 32), (160, 160, 192),
-                                      (608, 60, 64)])
+                                      (608, 60, 64), (130, 60, 128)])
 def test_seeded_attention_equals_the_mask_fed_the_dump(cuda, Lq, Lk, Dh):
     B, H = 3, 8
     q, k, v, mask = _attention_inputs(B, H, Lq, Lk, [0, Lk, 5], cuda, Dh)
