@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              attention and LayerNorms (MCAN-small, B=64); the train step's
              dropout epilogues, backward products, attention and LayerNorm
              backwards and column sums at the decoder's and the fused SA
-             encoder's shapes (MCAN-small, B=64); and at MCAN-large's
+             encoder's shapes (MCAN-small, B=64; the column sums also at
+             ragged rows, twice alike, their counters left at 0); and at
+             MCAN-large's
              (micro-batch 32, D=1024, 128-wide heads, bf16 saves); with
              each one's device time, its plain version's, one PyTorch
              library call's where there is one, and its bound at the
@@ -21,11 +23,13 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              runs; the attention forward (masked_attention.cu, mma.sync)
              with its plan per shape (instance, rows per block, grid,
              shared memory) and each instance's registers and spills;
-  [kernels]  (int8) quantize_rows and gemm_s8 at every int8 site of one
-             B=64 forward (MCAN-small at levels 1 and 3, MCAN-large at level
-             1), bit for bit against their plain versions, with the int8
-             library call (torch._int_mm) and the int8 bound; the f32-output
-             attention of the level-3 merges;
+  [kernels]  (int8) quantize_rows and gemm_s8 (gemm_sm90.cu's S8
+             instance, K-major int8 weights) at every int8 site of one B=64
+             forward (MCAN-small at levels 1 and 3, MCAN-large at level 1),
+             at ragged M, one row, the answer head (N 3129) and the AttFlat
+             logit (N 1), bit for bit against their plain versions, with
+             the int8 library call (torch._int_mm) and the int8 bound; the
+             f32-output attention of the level-3 merges;
   [int4 kernels]  gemm_s4 bit for bit and gemm_w4bf16 against their plain
              versions at every level-5 site of MCAN-small and MCAN-large
              (M = 14, 60, 896, 3840), times at B = 1 and 64 beside gemm_s8;
@@ -480,14 +484,14 @@ def plan_note(K, layout, M, N, Kd) -> str:
             f"{p.workspace_bytes / 2 ** 20:.1f} MiB")
 
 
-SM90_LAYOUTS = {"ILi1E": "NT (dX)", "ILi2E": "TN (dW)",
-                "ILi3E": "NN (forward)"}
+SM90_LAYOUTS = {"ILi1E": ("NT (dX)", 1), "ILi2E": ("TN (dW)", 2),
+                "ILi3E": ("NN (forward)", 3), "ILi4E": ("S8 (gemm_s8)", 4)}
 
 
 def sm90_report(build, lib) -> None:
     """Each gemm_sm90.cu instance's registers, spills (ptxas) and dynamic
     shared memory: gemm_sm90_kernel<layout, bn, seeded>, layout 1 NT, 2
-    TN, 3 NN (mangled ...ILi3ELi128ELb1E...)."""
+    TN, 3 NN, 4 S8 (mangled ...ILi3ELi128ELb1E...)."""
     lines = build.build_log.splitlines()
     if not lines:
         say("[gemm_sm90] the library was built by an earlier process: no "
@@ -497,15 +501,15 @@ def sm90_report(build, lib) -> None:
                 "gemm_sm90_kernel" not in line:
             continue
         mangled = line.split("'")[1]
-        layout = next((v for k, v in SM90_LAYOUTS.items() if k in mangled),
-                      mangled)
+        layout, code = next((v for k, v in SM90_LAYOUTS.items()
+                             if k in mangled), (mangled, 3))
         if "Lb1E" in mangled:
             layout += ", seeded"
         bn = 128 if "Li128E" in mangled else 64
         info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
                         if "spill" in ln or "registers" in ln)
         say(f"[gemm_sm90] {layout} 128x{bn}: {info}; dynamic shared memory "
-            f"{lib.mcan_gemm_sm90_smem(bn)} bytes")
+            f"{lib.mcan_gemm_sm90_smem(code, bn)} bytes")
 
 
 def attention_plan_note(K, label, q, k) -> None:
@@ -1051,6 +1055,28 @@ def check_train_kernels(torch, dev, rows) -> None:
         if not all(torch.equal(a_, b_) for a_, b_ in
                    zip(K.col_sum(mats), K.col_sum(mats))):
             fail(f"col_sum {label}: two runs differ")
+    # ragged rows (one, seven, a count no slab divides) and matrices
+    # narrower than one 128-column chunk (widths that are no multiple of 4
+    # or 8: read element by element), twice alike, the counters left at 0
+    for label, n_rows, widths, dts in (
+            ("1 row", 1, (512, 7), (f32, bf16)),
+            ("7 rows", 7, (2048, 100), (f32, bf16)),
+            ("3841 rows", 3841, (512, 24, 1536, 5), (f32, f32, bf16, bf16)),
+            ("1000 rows, narrow", 1000, (96, 40, 8, 3),
+             (bf16, f32, bf16, f32))):
+        mats = [randn(n_rows, w_, dtype=dt) for w_, dt in zip(widths, dts)]
+        say(f"    [plan] col_sum {label}: "
+            f"{K.col_sum_plan(n_rows, widths)}")
+        case("col_sum", f"ragged {label}", lambda: K.col_sum(mats),
+             lambda: K.col_sum_plain(mats), (1e-5,) * len(mats), 0, 0, 0,
+             timed=False)
+        if not all(torch.equal(a_, b_) for a_, b_ in
+                   zip(K.col_sum(mats), K.col_sum(mats))):
+            fail(f"col_sum ragged {label}: two runs differ")
+    torch.cuda.synchronize()
+    counters = K._COL_SUM_COUNTERS.get(mats[0].device)
+    if counters is None or bool(counters.any()):
+        fail("col_sum: the chunk counters are not all 0 after the launches")
 
     check_encoder_kernels(torch, K, kc, D, F, H, Lq, L, inv)
 
@@ -1366,19 +1392,6 @@ def check_large_kernels(torch, dev, rows) -> None:
 # phase: the int8 serving kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def int_mm_call(torch, aq, wq):
-    """One torch._int_mm call on these operands (the library yardstick,
-    used nowhere in the port): W row-major, or in the column-major layout
-    cuBLASLt's int8 products take, whichever this build accepts."""
-    for w in (wq, wq.t().contiguous().t()):
-        try:
-            torch._int_mm(aq, w)
-        except RuntimeError:
-            continue
-        return lambda: torch._int_mm(aq, w)
-    return None
-
-
 def check_int8_kernels(torch, dev, rows) -> None:
     """quantize_rows and gemm_s8 at every int8 site of one B=64 forward of
     MCAN-small at level 1 (the FFN, dynamic scales) and level 3 (every
@@ -1387,13 +1400,15 @@ def check_int8_kernels(torch, dev, rows) -> None:
     inputs. Both int8 kernels must equal their plain versions bit for bit:
     the int32 sums are exact and every other step is one correctly rounded
     operation in the same order."""
+    from mcan_vqa_tpu_torch.cli.bench_gemm import int_mm_call
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.ops.quant import _quant_w
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     bf16, f32 = torch.bfloat16, torch.float32
     rows.row("quantize_rows", SRC + "quantize.cu", f"{TPU_QUANT}:245",
              SERVE_INT8)
-    rows.row("gemm_s8", SRC + "gemm_s8.cu", f"{TPU_QUANT}:253", SERVE_INT8)
+    rows.row("gemm_s8", SRC + "gemm_sm90.cu", f"{TPU_QUANT}:253",
+             SERVE_INT8)
     rows.row("masked_attention_f32", SRC + "masked_attention.cu",
              f"{TPU_QUANT}:1139", SERVE_INT8)
     say("[kernels] the int8 kernels vs their plain versions at every int8 "
@@ -1425,8 +1440,16 @@ def check_int8_kernels(torch, dev, rows) -> None:
                    f32, 0),
                   (f"large L1 {blk} w2", M, 4096, 1024, f32, False, False,
                    f32, 0)]
+    # the edges: ragged M, one row, and the q8aux / full-int8 sites whose
+    # N is no multiple of 8 (the answer head, N 3129, an f32 row not
+    # 16-byte aligned; the one-glimpse AttFlat logit, N 1), unpadded
     sites += [("ragged M=61", 61, 512, 2048, f32, False, True, f32, 0),
-              ("M=1 static", 1, 2048, 512, bf16, True, False, f32, 0)]
+              ("M=1 static", 1, 2048, 512, bf16, True, False, f32, 0),
+              ("head N=3129 static", BATCH, 1024, 3129, f32, True, False,
+               f32, 0),
+              ("head N=3129 dynamic -> bf16", 61, 1024, 3129, f32, False,
+               False, bf16, 0),
+              ("attflat logit N=1", Mv, 512, 1, f32, False, False, f32, 0)]
     for label, M, Kd, N, xdt, static, relu, odt, per in sites:
         x = torch.randn(M, Kd, generator=g, device=dev)
         if Kd in (2048, 4096):        # a w2 site reads the ReLU output h1
@@ -1436,7 +1459,7 @@ def check_int8_kernels(torch, dev, rows) -> None:
             x[0] = 0.0                # a zero row: scale 1, codes 0
         w = torch.randn(Kd, N, generator=g, device=dev) / Kd ** 0.5
         qw = _quant_w(w.to(bf16))
-        wq, sw = qw["w_q"], qw["w_scale"]
+        wq, sw = qw["w_q"], qw["w_scale"]       # stored K-major
         bias = torch.randn(N, generator=g, device=dev) * 0.1
         a = float(x.float().abs().max()) / 127.0 * 1.1 if static else None
         inv = None if a is None else 1.0 / a
@@ -1453,6 +1476,7 @@ def check_int8_kernels(torch, dev, rows) -> None:
              f"{'static' if static else 'dynamic'} (bit for bit)", e_q, 0.0)
         rows.err("quantize_rows", e_q)
         e_g = max_err(out, ref)
+        say(f"    [plan] gemm_s8 {label}: {plan_note(K, 4, M, N, Kd)}")
         gate(f"gemm_s8 {label} [{M}x{Kd}]x[{Kd}x{N}] -> {str(odt)[6:]} "
              f"(bit for bit)", e_g, 0.0)
         rows.err("gemm_s8", e_g)

@@ -5,12 +5,14 @@
 
 Times ``gemm_bias_act`` (the forward product a . w + bias with its ReLU /
 keep-mask / Philox epilogue), ``gemm_dx`` (dY . W^T with its gate /
-residual epilogue) and ``gemm_dw`` (X^T . dY, f32) of the
-``mcan_vqa_tpu_torch`` package under ``--root`` (default: the checkout this
-file lies in; another checkout, such as an older commit unpacked with
-``git archive``, compares two versions within one run on the card) beside
-one PyTorch call of the same operands (``torch.addmm`` with a bf16 bias for
-the forward, ``torch.mm`` for the backward), at every shape of
+residual epilogue), ``gemm_dw`` (X^T . dY, f32) and ``gemm_s8`` (the int8
+product with its dequantizing epilogue) of the ``mcan_vqa_tpu_torch``
+package under ``--root`` (default: the checkout this file lies in; another
+checkout, such as an older commit unpacked with ``git archive``, compares
+two versions within one run on the card) beside one PyTorch call of the
+same operands (``torch.addmm`` with a bf16 bias for the forward,
+``torch.mm`` for the backward, ``torch._int_mm`` for the int8 product,
+whose int32 output is its own), at every shape of
 
   * unit S: one B=64 bf16 serving forward of MCAN-small (the six SA
     encoder blocks at M = 896 rows, the six SGA decoder blocks at 3840);
@@ -24,17 +26,22 @@ the forward, ``torch.mm`` for the backward), at every shape of
     kernel (Philox), as the Trainer runs it on the card;
   * unit L, one B=64 MCAN-large train step: the six SGA decoder blocks of
     each of the two micro-batches of 32 (1920 rows, D 1024, F 4096, bf16
-    saves).
+    saves);
+  * unit Q, the default serving engine: one B=64 MCAN-small forward at int8
+    level 1 (the FFN, per-row scales) and one at level 3 (every
+    projection, static scales), each weight prepared as that checkout's
+    ``_quant_w`` prepares it.
 
 A forward shape's h1 keep-mask read from memory is timed once more with
 0 calls per unit. Each device time: 50 calls captured in one CUDA graph,
 replayed 5 times, the median per call. Prints one JSON line per shape, one
 per kernel and unit with the unit's totals (calls x time; the bound at 989
 TFLOP/s bf16 and 3.35 TB/s, each input read once and each output written
-once), then the card. ``--forward`` also times one MCAN-small
-``Predictor`` forward at B = 1 and 8 (seeded random weights; the default
-int8 level-1 engine and the bf16 one, ``qffn=0``; median of 5 rounds of 10
-eager calls). Needs a CUDA device.
+once; int8 operations at 1,979 TOP/s), then the card. ``--forward`` also
+times one MCAN-small ``Predictor`` forward at B = 1, 8 and 64 (seeded
+random weights; the default engine at int8 level 1, at level 3 calibrated
+on one batch, and the bf16 one, ``qffn=0``; median of 5 rounds of 10 eager
+calls). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PEAK_BF16, HBM = 989e12, 3.35e12
+PEAK_BF16, PEAK_INT8, HBM = 989e12, 1979e12, 3.35e12
 
 # (unit, label, M, K, N, relu, out size, keep-mask: None, "mask" or
 # "seeded", calls per unit)
@@ -116,8 +123,39 @@ DW = [("T", "dW1 = v2^T da1", 3840, 512, 2048, 6),
       ("L", "dWm1, dWq2, dWm2", 1920, 1024, 1024, 36)]
 
 
-def bound_ms(flops: float, nbytes: float) -> float:
-    return max(flops / PEAK_BF16, nbytes / HBM) * 1e3
+# (unit, label, M, K, N, static scale, relu, out size, calls per unit):
+# every int8 site of one level-1 and one level-3 B=64 forward (encoder M
+# 896, decoder 3840)
+S8 = [("Q", f"{blk} L1 w1", M, 512, 2048, False, True, 4, 6)
+      for blk, M in (("enc", 896), ("dec", 3840))]
+S8 += [("Q", f"{blk} L1 w2", M, 2048, 512, False, False, 4, 6)
+       for blk, M in (("enc", 896), ("dec", 3840))]
+S8 += [("Q", f"{blk} L3 {site}", M, Kd, N, True, relu, osz,
+        12 if (blk, site) == ("dec", "merge") else 6)
+       for blk, M in (("enc", 896), ("dec", 3840))
+       for site, Kd, N, relu, osz in (("qkv", 512, 1536, False, 2),
+                                      ("merge", 512, 512, False, 4),
+                                      ("w1", 512, 2048, True, 4),
+                                      ("w2", 2048, 512, False, 4))]
+S8.append(("Q", "dec L3 cross q", 3840, 512, 512, True, False, 2, 6))
+
+
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16) -> float:
+    return max(flops / peak, nbytes / HBM) * 1e3
+
+
+def int_mm_call(torch, aq, wq):
+    """One torch._int_mm call on these operands (the int8 library
+    yardstick, used nowhere in the port): the weight row-major, or in the
+    column-major layout cuBLASLt's int8 products take, whichever this build
+    accepts; None where it takes neither."""
+    for w in (wq.contiguous(), wq.t().contiguous().t()):
+        try:
+            torch._int_mm(aq, w)
+        except RuntimeError:
+            continue
+        return lambda: torch._int_mm(aq, w)
+    return None
 
 
 def eager_ms(torch, fn, calls: int = 50) -> float:
@@ -136,8 +174,9 @@ def eager_ms(torch, fn, calls: int = 50) -> float:
 
 
 def time_forward(torch, tag: str) -> None:
-    """One MCAN-small Predictor forward at B = 1 and 8: the default engine
-    at int8 level 1 (no calibration) and the bf16 engine (qffn=0)."""
+    """One MCAN-small Predictor forward at B = 1, 8 and 64: the default
+    engine at int8 level 1 (no calibration) and at level 3 (calibrated on
+    one batch), and the bf16 engine (qffn=0)."""
     import statistics
 
     import numpy as np
@@ -153,12 +192,17 @@ def time_forward(torch, tag: str) -> None:
     net = MCANet(cfg, len(vocab), 3129, pretrained_emb=emb,
                  generator=torch.Generator().manual_seed(0))
     state = net.state_dict()
+    rng = np.random.default_rng(0)
+    calib = ([questions[i % 2] for i in range(64)],
+             [np.abs(rng.normal(size=(40, cfg.img_feat_size)))
+              .astype(np.float32) for _ in range(64)])
     pred = Predictor(cfg, state, vocab, latency_buckets=(1, 8),
                      auto_calibrate=0)
+    pred3 = Predictor(cfg, state, vocab, latency_buckets=(1, 8),
+                      act_calibration=calib)
     fwd, prep = build_production_engine(state, cfg.layer, cfg.multi_head,
                                         qffn=0)
-    rng = np.random.default_rng(0)
-    for b in (1, 8):
+    for b in (1, 8, 64):
         feats = [np.abs(rng.normal(size=(40, cfg.img_feat_size)))
                  .astype(np.float32) for _ in range(b)]
         img, ques = pred.pad_batch([questions[i % 2] for i in range(b)],
@@ -170,6 +214,7 @@ def time_forward(torch, tag: str) -> None:
                 return fwd(prep, img_t, ques_t)
 
         engines = (("level 1", lambda: pred.forward_padded(img, ques)),
+                   ("level 3", lambda: pred3.forward_padded(img, ques)),
                    ("bf16", bf16))
         t = {name: [] for name, _ in engines}
         for _ in range(5):
@@ -213,7 +258,7 @@ def main(argv=None) -> None:
         t = totals.setdefault((kernel, unit), [0, 0.0, 0.0, 0.0])
         t[0] += calls
         t[1] += calls * ms
-        t[2] += calls * mm_ms
+        t[2] = None if mm_ms is None or t[2] is None else t[2] + calls * mm_ms
         t[3] += calls * b
         print(json.dumps({"tag": args.tag, "kernel": kernel, "unit": unit,
                           "case": label, "shape": shape, "calls": calls,
@@ -264,12 +309,31 @@ def main(argv=None) -> None:
              graph_ms(torch, lambda: K.gemm_dw(x, dy)),
              graph_ms(torch, lambda: torch.mm(x.t(), dy)),
              bound_ms(2 * R * M * N, 2 * R * (M + N) + 4 * M * N))
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w
+    for unit, label, M, Kd, N, static, relu, osz, calls in S8:
+        # the codes of a random activation, the weight as this checkout's
+        # engines prepare it; mm_ms: torch._int_mm of the same operands
+        aq = torch.randint(-127, 128, (M, Kd), generator=g, device=dev,
+                           dtype=torch.int8)
+        qw = _quant_w(randn(Kd, N, dtype=bf16, s=Kd ** -0.5))
+        wq, sw, b = qw["w_q"], qw["w_scale"], randn(N, s=0.1)
+        kw = dict(a=0.02) if static else dict(sx=randn(M).abs() * 0.01)
+        kw.update(relu=relu, out_dtypes=(torch.float32 if osz == 4
+                                         else bf16,))
+        lib = int_mm_call(torch, aq, wq)
+        nbytes = M * Kd + Kd * N + 8 * N + M * N * osz + (0 if static
+                                                          else 4 * M)
+        emit("gemm_s8", unit, label, [M, Kd, N], calls,
+             graph_ms(torch, lambda: K.gemm_s8(aq, wq, sw, b, **kw)),
+             graph_ms(torch, lib) if lib is not None else None,
+             bound_ms(2 * M * Kd * N, nbytes, PEAK_INT8))
     for (kernel, unit), (calls, ms, mm_ms, b) in totals.items():
         if calls == 0:
             continue
         print(json.dumps({"tag": args.tag, "kernel": kernel, "unit": unit,
                           "calls": calls, "ms": ms, "mm_ms": mm_ms,
-                          "x_mm": ms / mm_ms, "bound_ms": b}), flush=True)
+                          "x_mm": ms / mm_ms if mm_ms else None,
+                          "bound_ms": b}), flush=True)
     if args.forward:
         time_forward(torch, args.tag)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,4 +1,5 @@
-"""Device time per call of the LayerNorm kernels at the train shapes.
+"""Device time per call of the LayerNorm kernels and the column sums at
+the train shapes.
 
     python mcan_vqa_tpu_torch/cli/bench_layernorm.py [--root DIR] [--tag T]
 
@@ -20,6 +21,15 @@ refuses it):
   * ``bwd LN3``: from the saved r (no y), dy f32 and bf16;
   * ``... seeded``: the two dropout cases with the Philox keep source in
     place of the mask, where the package has one.
+
+Then ``col_sum`` (the bias and LayerNorm gradients: up to four column
+sums in one launch) at every call of unit T, one B=64 MCAN-small train
+step (the decoder's three sums a block at 3840 rows, the encoder's two at
+896; six blocks each), and of unit L, one B=64 MCAN-large step (the
+decoder's three at 1920 rows a micro-batch of 32, the cross sums with the
+bf16 gv2; six blocks, two micro-batches), beside ``sum(0)`` of each matrix
+and the bound (each input read once, each sum written once, at 3.35
+TB/s); one line per call shape, then one per unit with its totals.
 
 Each time: 50 calls captured in one CUDA graph, replayed 5 times, the
 median per call (the host's time per wrapper call stays out). Prints one
@@ -103,6 +113,48 @@ def cases(torch, K, D: int, rows: int, per_sample: int):
     return named
 
 
+HBM = 3.35e12
+# (unit, label, rows, widths, the last matrix bf16, calls per unit)
+COL_SUMS = [("T", "dec db1, db2, dln3", 3840, (2048, 512, 512, 512), False, 6),
+            ("T", "dec dbq2, dbm2, dln2", 3840, (512,) * 4, False, 6),
+            ("T", "dec dbqkv, dbm1, dln1", 3840, (1536, 512, 512, 512), False,
+             6),
+            ("T", "enc dbqkv, dbm, dln1", 896, (1536, 512, 512, 512), False,
+             6),
+            ("T", "enc db1, db2, dln2", 896, (2048, 512, 512, 512), False, 6),
+            ("L", "db1, db2, dln3", 1920, (4096, 1024, 1024, 1024), False, 12),
+            ("L", "dbq2, dbm2, dln2 (bf16 gv2)", 1920, (1024,) * 4, True, 12),
+            ("L", "dbqkv, dbm1, dln1", 1920, (3072, 1024, 1024, 1024), False,
+             12)]
+
+
+def time_col_sums(torch, K, tag: str) -> None:
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    totals = {}
+    for unit, label, rows, widths, bf16_last, calls in COL_SUMS:
+        mats = [torch.randn(rows, w, generator=g, device=dev) for w in widths]
+        if bf16_last:
+            mats[-1] = mats[-1].to(torch.bfloat16)
+        nbytes = sum(m.numel() * m.element_size() + 4 * m.shape[1]
+                     for m in mats)
+        ms = graph_ms(torch, lambda: K.col_sum(mats))
+        sum_ms = graph_ms(torch, lambda: [m.sum(0) for m in mats])
+        bound = nbytes / HBM * 1e3
+        t = totals.setdefault(unit, [0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((calls, calls * ms, calls * sum_ms,
+                               calls * bound)):
+            t[i] += v
+        print(json.dumps({"tag": tag, "kernel": "col_sum", "unit": unit,
+                          "case": label, "rows": rows, "widths": widths,
+                          "calls": calls, "ms": ms, "sum_ms": sum_ms,
+                          "bound_ms": bound}), flush=True)
+    for unit, (calls, ms, sum_ms, bound) in totals.items():
+        print(json.dumps({"tag": tag, "kernel": "col_sum", "unit": unit,
+                          "calls": calls, "ms": ms, "sum_ms": sum_ms,
+                          "bound_ms": bound}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
@@ -131,6 +183,7 @@ def main(argv=None) -> None:
             print(json.dumps({"tag": args.tag, "root": str(root),
                               "case": name, "D": D, "rows": rows,
                               "ms_per_call": ms}), flush=True)
+    time_col_sums(torch, K, args.tag)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -28,11 +28,12 @@
 // 1-4 MB for the int8 weight: halving them is what the level is for. At
 // B=64 (M = 3840) the w1 site is 8.1 GOP, 4.1 us at the int8 tensor-core
 // peak, and its f32 output (31 MB, 9.4 us at 3.35 TB/s) bounds it.
-// Design (simple first): gemm_s8.cu's skeleton -- WMMA signed-char
-// m16n16k16 fragments, 64x64 output tiles per 4-warp block, a two-stage
-// cp.async pipeline, 16-byte-wide slabs in shared memory -- with the K-tile
-// equal to one scale group (128 rows). Row k of a tile comes from packed
-// row k (low nibbles) for k < K/2, else from packed row k - K/2 (high
+// Design (simple first): the skeleton of the port's first int8 GEMM --
+// WMMA signed-char m16n16k16 fragments, 64x64 output tiles per 4-warp
+// block, a two-stage cp.async pipeline, 16-byte-wide slabs in shared
+// memory -- with the K-tile equal to one scale group (128 rows). Row k
+// of a tile comes from packed row k (low nibbles) for k < K/2, else from
+// packed row k - K/2 (high
 // nibbles), row by row: at K a multiple of 128 but not of 256 (hidden 384,
 // 640, 896) one group straddles the two halves. The int4 weight is read
 // from HBM as it is stored, and each thread unpacks the 16-byte chunks it
@@ -40,8 +41,9 @@
 // ever stored). The
 // int32 fragments are cleared per group; each group's epilogue goes
 // through shared memory into 32 f32 running sums per lane.
-// Not yet: wgmma, TMA, split-K for the B=1 sites (a w1 site fills 32 of the
-// 132 SMs at M <= 64).
+// Not yet: wgmma, TMA (gemm_sm90.cu's S8 instance, with a stage that
+// unpacks the nibbles in shared memory), split-K for the B=1 sites (a w1
+// site fills 32 of the 132 SMs at M <= 64).
 #include <mma.h>
 
 #include "common.cuh"

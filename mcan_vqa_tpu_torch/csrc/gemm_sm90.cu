@@ -1,8 +1,10 @@
-// gemm_sm90: the port's bf16 products on Hopper's asynchronous tensor
-// cores, f32 accumulation, one mainloop for three layouts:
+// gemm_sm90: the port's products on Hopper's asynchronous tensor cores,
+// one mainloop for three bf16 layouts (f32 accumulation) and one int8 one
+// (exact int32 accumulation):
 //   NN  C[M,N] = A[M,K] . B[K,N]       the forward   (gemm_bias_act)
 //   NT  C[M,N] = A[M,K] . B[N,K]^T     dX = dY . W^T (gemm_dx)
 //   TN  C[M,N] = A[K,M]^T . B[K,N]     dW = X^T . dY (gemm_dw)
+//   S8  C[M,N] = dequant(A[M,K] . B[N,K]^T), int8  (gemm_s8)
 //
 // Replaces: the forward dots of the TPU block kernels, each
 //   jnp.dot(bf16, bf16, preferred_element_type=f32) + bias:
@@ -19,7 +21,13 @@
 //   ::_mm_tn (:382, the dW partial of one grid step) summed over the
 //   sequential grid by ::_acc (:390), in _bwd_ffn_kernel_sav (:576),
 //   _bwd_att_kernel (:631) and _bwd_att_kernel_sav (:1183); and the same
-//   products of mcan_vqa_tpu/ops/sa_train.py::_bwd_body (:188).
+//   products of mcan_vqa_tpu/ops/sa_train.py::_bwd_body (:188). S8: the
+//   int8 dots of the TPU serving kernels, mcan_vqa_tpu/ops/quant.py::_qdot
+//   (:253) and ::_qdot_static (:263) -- dot_general(int8, int8,
+//   preferred_element_type=int32).astype(f32) * (s_x * s_w) + bias -- inside
+//   _sga_kernel_qffn / _sa_kernel_qffn (pallas_call :1326 / :1412), the
+//   full-int8 _qsga_kernel / _qsa_kernel (:539 / :599) and the static-int8
+//   aux sites.
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at the MCAN-small B=64
 // step (M = R = 3840 rows, 512 <= K, N <= 2048) each product carries 2-8
@@ -28,7 +36,10 @@
 // product a byte mask too): 2-21 MB, 1-6 us, near the ridge. The dX
 // products move 6-69 MB (f32 and bf16 outputs, the bf16 gate, the f32
 // residual), so they are bound by bytes (2-21 us); a dW product moves 6-24
-// MB (2-7 us) and sits near the ridge.
+// MB (2-7 us) and sits near the ridge. An S8 product is bound by its bytes
+// (the f32 output above all): the level-1 w1 site of the B=64 decoder (M
+// 3840, K 512, N 2048) is 8.1 GOP, 4.1 us at 1,979 TOP/s, against 33.6 MB,
+// 10.0 us at 3.35 TB/s.
 //
 // Design. One mainloop, templated on the layout (each operand K-major or
 // MN-major) and on the tile width BN (128 or 64; the tile height is 128).
@@ -49,6 +60,24 @@
 //   * the epilogue runs from the accumulator registers, stores masked at
 //     the M and N edges: every output element is written. Its loads go out
 //     in batches ahead of the stores they feed.
+// S8 reads both operands K-major (wgmma's transpose bits exist only for
+// 16-bit types): the int8 weight, [K, N] in the JAX shape, is stored with
+// K contiguous (strides (1, ld)), so its tensor map sees it as [N, K] rows,
+// as NT's B. A K-tile is 128 int8 values, 128 bytes a row, as the bf16
+// K-tile of 64: the same boxes, swizzle, descriptors and ring, the wgmma
+// m64nBNk32.s32.s8.s8 in four 32-byte steps a K-tile. The sums are exact,
+// so their order is free. Its epilogue, from the s32 accumulators (the f32
+// fragment's layout): f32(acc) * (sx[m] or a, times sw[n]) in that order,
+// + bias[n], ReLU, one rounding to each requested output -- each step one
+// correctly rounded operation (__fmul_rn, __fadd_rn), so the result equals
+// the plain version's bit for bit. sw[n] and bias[n] of the tile's columns
+// are loaded as the item starts and staged in shared memory after its
+// mainloop (two slots by item parity); sx[m] of the thread's rows in
+// registers. f32 rows go out as pairs where the address allows (an odd N,
+// 3129 or 1, leaves every other row's pairs unaligned: those go out one by
+// one), bf16 rows as 16-byte pieces after a quad transpose where N % 8 ==
+// 0, else as pairs or single values. Never split.
+//
 // BN 128: two consumer warpgroups of one 64-row half each, one block per
 // SM, 6 stages; BN 64: one warpgroup for both halves, two blocks per SM, 4
 // stages each (Cfg). The blocks are persistent: each walks work items
@@ -85,6 +114,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -116,8 +146,16 @@ struct Cfg {
   static constexpr int SMEM = SWIZZLE_ATOM + STAGES * STAGE_BYTES + 16 * STAGES + 16;
 };
 
-// the layouts (mcan_gemm_sm90's `layout`, the kernel's template argument)
-constexpr int NT = 1, TN = 2, NN = 3;
+// the layouts (mcan_gemm_sm90's `layout`, the kernel's template argument;
+// S8 is mcan_gemm_sm90_s8's)
+constexpr int NT = 1, TN = 2, NN = 3, S8 = 4;
+
+// the dynamic shared memory of an instance: the ring and, for S8, two
+// slots of the item's column scales and biases
+template <int LAYOUT, int BN>
+constexpr int smem_bytes() {
+  return Cfg<BN>::SMEM + (LAYOUT == S8 ? 2 * 2 * BN * 4 : 0);
+}
 
 struct Epilogue {
   const bf16* gate;   // NT: [M, N], keep (x inv_keep) where > 0, else 0
@@ -134,6 +172,25 @@ struct Epilogue {
   long long ldm;
   Philox keep;        // NN: or its seeded source (the seeded instance only)
 };
+
+// The S8 epilogue's arguments, a type of their own, so that the bf16
+// instances keep their parameter block: with three more fields in
+// Epilogue the compiler reloaded the NT / TN epilogue's pointers from the
+// constant bank element by element, and on an H100 dX and dW ran 5-39%
+// slower.
+struct S8Epilogue {
+  const float* sx;    // [M] per-row activation scales, or null and then
+  float a;            // the static scale a
+  const float* sw;    // [N] per-column weight scales
+  const float* bias;  // [N] or null
+  int relu;
+  float* out_f32;     // either output may be null; both dense [M, N]
+  bf16* out_bf16;
+  long long ldo;
+};
+
+template <int LAYOUT>
+using EpilogueOf = std::conditional_t<LAYOUT == S8, S8Epilogue, Epilogue>;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -197,6 +254,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // the consumer warpgroups only (the producer warp has left)
 template <int N>
@@ -258,6 +320,64 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) 
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n128k32, s8 x s8 -> s32: 64 accumulators a thread (both operands K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "wgmma has no transpose for 8-bit operands");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// m64n64k32, s8 x s8 -> s32: 32 accumulators a thread (both operands K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "wgmma has no transpose for 8-bit operands");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // One output tile (of tiles_n across) and one split of its K-tiles: a
@@ -464,27 +584,138 @@ __device__ __forceinline__ void nn_epilogue(float (&acc)[Cfg<BN>::HALVES][BN / 2
   }
 }
 
+// The s8 product's per-item state: thread t < BN loads the weight scale
+// and bias of the tile's column n0 + t as the item starts (0 past N), to
+// store them into the item's slot of shared memory once the mainloop is
+// done, so their latency hides behind it; every thread loads the
+// activation scales of its 2 HALVES rows (r0 + 64 h + 8 hi at 2 h + hi):
+// sx[m], or the static a.
+template <int BN>
+struct S8State {
+  static constexpr int HALVES = Cfg<BN>::HALVES;
+  float sw, bias, sx[2 * HALVES];
+
+  __device__ __forceinline__ void start(const S8Epilogue& ep, int tid, int r0, int n0, int M, int N) {
+    const bool in = tid < BN && n0 + tid < N;
+    sw = in ? __ldg(ep.sw + n0 + tid) : 0.0f;
+    bias = in && ep.bias != nullptr ? __ldg(ep.bias + n0 + tid) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2 * HALVES; ++i) {
+      const int row = r0 + 64 * (i / 2) + 8 * (i % 2);
+      sx[i] = ep.sx == nullptr ? ep.a : row < M ? __ldg(ep.sx + row) : 0.0f;
+    }
+  }
+};
+
+// one element of the s8 epilogue, in the TPU kernel's order and rounding
+__device__ __forceinline__ float dequant(int q, float sx, float sw, float bias,
+                                         const S8Epilogue& ep) {
+  float v = __fmul_rn(__int2float_rn(q), __fmul_rn(sx, sw));
+  if (ep.bias != nullptr) v = __fadd_rn(v, bias);
+  return ep.relu ? fmaxf(v, 0.0f) : v;
+}
+
+// The s8 epilogue from the accumulator registers (the layout of
+// nn_epilogue's): the slot holds the tile's sw[BN] then bias[BN]; the
+// thread's pairs of columns (col, col + 1) read them as float2. Every
+// output element is written: rows past M and columns past N are masked.
+template <int BN>
+__device__ __forceinline__ void s8_epilogue(const int (&acc)[Cfg<BN>::HALVES][BN / 2],
+                                            const float* slot, const S8State<BN>& st, int lane,
+                                            int r0, int c0, int n0, int M, int N,
+                                            const S8Epilogue& ep) {
+  constexpr int HALVES = Cfg<BN>::HALVES, ACC = BN / 2, PAIRS = ACC / 4;
+  const float* csw = slot + (c0 - n0);
+  const float* cb = slot + BN + (c0 - n0);
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 64 * h + 8 * hi;
+      const float sx = st.sx[2 * h + hi];
+#pragma unroll
+      for (int g = 0; g < PAIRS; g += 4) {   // pairs g .. g + 3: columns 8 g .. 8 g + 31
+        float v[8];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = 4 * (g + s) + 2 * hi;
+          const float2 w = *reinterpret_cast<const float2*>(csw + 8 * (g + s));
+          const float2 b = *reinterpret_cast<const float2*>(cb + 8 * (g + s));
+          v[2 * s] = dequant(acc[h][j], sx, w.x, b.x, ep);
+          v[2 * s + 1] = dequant(acc[h][j + 1], sx, w.y, b.y, ep);
+        }
+        if (ep.out_f32 != nullptr) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int col = c0 + 8 * (g + s);
+            const size_t o = static_cast<size_t>(row) * ep.ldo + col;
+            if (row >= M || col >= N) continue;
+            if (col + 1 < N && (o & 1) == 0) {
+              *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v[2 * s], v[2 * s + 1]);
+            } else {   // an odd N: the pair straddles 8 bytes, or ends the row
+              ep.out_f32[o] = v[2 * s];
+              if (col + 1 < N) ep.out_f32[o + 1] = v[2 * s + 1];
+            }
+          }
+        }
+        if (ep.out_bf16 != nullptr) {
+          if (N % 8 == 0) {   // the warp agrees: a quad's 8 columns as 16 bytes
+            unsigned a[4];
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const __nv_bfloat162 b2 = __halves2bfloat162(to_bf16(v[2 * s]), to_bf16(v[2 * s + 1]));
+              a[s] = *reinterpret_cast<const unsigned*>(&b2);
+            }
+            quad_transpose(a, lane);   // a: columns 8 (g + lane % 4) .. + 7 of the row
+            const int col = c0 - 2 * (lane & 3) + 8 * (g + (lane & 3));
+            if (row < M && col < N)
+              *reinterpret_cast<uint4*>(ep.out_bf16 + static_cast<size_t>(row) * ep.ldo + col) =
+                  make_uint4(a[0], a[1], a[2], a[3]);
+          } else {
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              const int col = c0 + 8 * (g + s);
+              const size_t o = static_cast<size_t>(row) * ep.ldo + col;
+              if (row >= M || col >= N) continue;
+              if (col + 1 < N && (o & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) =
+                    __halves2bfloat162(to_bf16(v[2 * s]), to_bf16(v[2 * s + 1]));
+              } else {
+                ep.out_bf16[o] = to_bf16(v[2 * s]);
+                if (col + 1 < N) ep.out_bf16[o + 1] = to_bf16(v[2 * s + 1]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // LAYOUT NT: both operands K-major (dX); TN: both MN-major (dW); NN: A
-// K-major, B MN-major (the forward). SEEDED (NN only): the keep-mask drawn
-// by Philox in the epilogue.
+// K-major, B MN-major (the forward); S8: both K-major, int8 (the int8
+// dots). SEEDED (NN only): the keep-mask drawn by Philox in the epilogue.
 // Persistent: block b takes work items b, b + grid, ... (item w = split
 // w / tiles of tile w % tiles), its producer loading the next item's
 // K-tiles while the consumers run this one's epilogue.
 template <int LAYOUT, int BN, bool SEEDED>
 __global__ void __launch_bounds__(Cfg<BN>::THREADS, Cfg<BN>::BLOCKS_PER_SM)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-                 int M, int N, int k_tiles, int splits, Epilogue ep, float* __restrict__ ws,
+                 int M, int N, int k_tiles, int splits, EpilogueOf<LAYOUT> ep, float* __restrict__ ws,
                  int* __restrict__ counters) {
   using C = Cfg<BN>;
+  using Acc = std::conditional_t<LAYOUT == S8, int, float>;   // s32 or f32 sums
   constexpr int STAGES = C::STAGES, HALVES = C::HALVES, CONSUMERS = C::CONSUMERS;
   constexpr int ACC = BN / 2;                  // accumulators of one 64-row half
+  constexpr int KE = LAYOUT == S8 ? 2 * BK : BK;   // elements a K-tile: 128 bytes a row
   constexpr int TA = LAYOUT == TN ? 1 : 0;     // wgmma transpose bits: A MN-major
-  constexpr int TB = LAYOUT == NT ? 0 : 1;     // B MN-major
+  constexpr int TB = LAYOUT == NT || LAYOUT == S8 ? 0 : 1;   // B MN-major
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + SWIZZLE_ATOM - 1) & ~(SWIZZLE_ATOM - 1);
   const uint32_t bars = base + STAGES * C::STAGE_BYTES;   // full[s], then empty[s]
   int* last_flag = reinterpret_cast<int*>(smem_raw + (bars - raw) + 16 * STAGES);
+  float* s8_cols = reinterpret_cast<float*>(smem_raw + (bars - raw) + 16 * STAGES + 16);   // S8
 
   const int tid = threadIdx.x;
   const int tiles_n = (N + BN - 1) / BN, tiles = (M + BM - 1) / BM * tiles_n;
@@ -513,13 +744,13 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
           const uint32_t full = bars + 8 * stage;
           mbar_expect_tx(full, C::STAGE_BYTES);
           const uint32_t a = base + stage * C::STAGE_BYTES, b = a + C::A_BYTES;
-          const int k0 = (it.kt0 + i) * BK;
+          const int k0 = (it.kt0 + i) * KE;
           if (TA) {
             // x [R, m]: two boxes of 64 m-columns x BK rows
             tma_load(a, &ta, full, it.m0, k0);
             tma_load(a + BOX, &ta, full, it.m0 + 64, k0);
           } else {
-            // a, dy [M, K]: 128 rows x 64 k
+            // a, dy [M, K], the int8 codes: 128 rows x 128 bytes
             tma_load(a, &ta, full, k0, it.m0);
           }
           if (TB) {
@@ -527,7 +758,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j) tma_load(b + j * BOX, &tb, full, it.n0 + 64 * j, k0);
           } else {
-            // w [N, K]: BN rows x 64 k
+            // w [N, K], the int8 weight's K-major rows: BN rows x 128 bytes
             tma_load(b, &tb, full, k0, it.n0);
           }
           if (++stage == STAGES) {
@@ -548,16 +779,19 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
   uint32_t phase = 0;
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const Item it(w, tiles, tiles_n, BN, k_tiles, splits);
-    float acc[HALVES][ACC];
+    Acc acc[HALVES][ACC];
 #pragma unroll
     for (int h = 0; h < HALVES; ++h)
 #pragma unroll
-      for (int j = 0; j < ACC; ++j) acc[h][j] = 0.0f;
-    // NN: the thread's first row and column pair, its bias and keep bits
+      for (int j = 0; j < ACC; ++j) acc[h][j] = 0;
+    // NN, S8: the thread's first row and column pair; NN's bias and keep
+    // bits, S8's scales and bias
     const int r0 = it.m0 + wg * HALVES * 64 + warp * 16 + (lane >> 2);
     const int c0 = it.n0 + (lane & 3) * 2;
     NNState<BN, SEEDED> nn;
     if constexpr (LAYOUT == NN) nn.start(ep, r0, c0, N);
+    S8State<BN> s8;
+    if constexpr (LAYOUT == S8) s8.start(ep, tid, r0, it.n0, M, N);
 
     int prev = 0;
     for (int i = 0; i < it.nk; ++i) {
@@ -569,8 +803,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        // K-major: the next 16 k are 32 bytes on in each 128-byte row;
-        // MN-major: 16 k-rows of 128 bytes on
+        // K-major: the next 16 k (S8: 32) are 32 bytes on in each 128-byte
+        // row; MN-major: 16 k-rows of 128 bytes on
         const uint32_t step_a = TA ? kk * 16 * 128 : kk * 32;
         const uint32_t step_b = TB ? kk * 16 * 128 : kk * 32;
         const uint64_t db = desc(b + step_b, BOX, SWIZZLE_ATOM);
@@ -597,7 +831,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
     for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
     if (it.nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
 
-    if (LAYOUT != NN && splits > 1) {
+    if constexpr (LAYOUT == NT || LAYOUT == TN) if (splits > 1) {
       // this split's partial, as float4 q of thread tid at [q][tid]
       // (coalesced); the last block of the tile reads every split's back
       constexpr int Q = HALVES * ACC / 4;   // float4s a thread
@@ -644,52 +878,66 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__
       nn_epilogue<BN, SEEDED>(acc, nn, lane, r0, c0, M, N, ep);
       continue;
     }
-    // ---- the epilogue from registers: accumulator j of half h holds row
-    // 64 (wg HALVES + h) + 16 warp + lane / 4 + 8 ((j / 2) % 2), column
-    // 8 (j / 4) + 2 (lane % 4) + j % 2 of the tile. The gate and residual
-    // of CH accumulators are loaded before any of their stores: the
-    // compiler may not move a load past a store that could alias it, so
-    // a load between stores would wait out a memory round trip each.
-    constexpr int CH = 16;
+    if constexpr (LAYOUT == S8) {
+      // sw[BN], then bias[BN], in the slot of the item's parity
+      float* slot = s8_cols + ((w - blockIdx.x) / gridDim.x & 1) * 2 * BN;
+      if (tid < BN) {
+        slot[tid] = s8.sw;
+        slot[BN + tid] = s8.bias;
+      }
+      consumer_sync<CONSUMERS>();
+      s8_epilogue<BN>(acc, slot, s8, lane, r0, c0, it.n0, M, N, ep);
+      continue;
+    }
+    if constexpr (LAYOUT == NT || LAYOUT == TN) {
+      // ---- the epilogue from registers: accumulator j of half h holds row
+      // 64 (wg HALVES + h) + 16 warp + lane / 4 + 8 ((j / 2) % 2), column
+      // 8 (j / 4) + 2 (lane % 4) + j % 2 of the tile. The gate and residual
+      // of CH accumulators are loaded before any of their stores: the
+      // compiler may not move a load past a store that could alias it, so
+      // a load between stores would wait out a memory round trip each.
+      constexpr int CH = 16;
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) {
-      const int row0 = it.m0 + (wg * HALVES + h) * 64 + warp * 16 + (lane >> 2);
+      for (int h = 0; h < HALVES; ++h) {
+        const int row0 = it.m0 + (wg * HALVES + h) * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
-      for (int j0 = 0; j0 < ACC; j0 += CH) {
-        float g[CH], r[CH];
+        for (int j0 = 0; j0 < ACC; j0 += CH) {
+          float g[CH], r[CH];
 #pragma unroll
-        for (int j = j0; j < j0 + CH; j += 2) {
-          const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
-          const bool in = row < M && col < N;   // N is even: col + 1 < N too
-          if (ep.gate != nullptr && in) {
-            const bf16* gp = ep.gate + static_cast<size_t>(row) * ep.ldg + col;
-            g[j - j0] = to_f32(gp[0]);
-            g[j - j0 + 1] = to_f32(gp[1]);
-          }
-          if (ep.res != nullptr && in) {
-            const float* rp = ep.res + static_cast<size_t>(row) * ep.ldr + col;
-            r[j - j0] = rp[0];
-            r[j - j0 + 1] = rp[1];
-          }
-        }
-#pragma unroll
-        for (int j = j0; j < j0 + CH; j += 2) {
-          const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
-          if (row < M && col < N) {
-            float v0 = acc[h][j], v1 = acc[h][j + 1];
-            if (ep.gate != nullptr) {
-              v0 = g[j - j0] > 0.0f ? v0 * ep.inv_keep : 0.0f;
-              v1 = g[j - j0 + 1] > 0.0f ? v1 * ep.inv_keep : 0.0f;
+          for (int j = j0; j < j0 + CH; j += 2) {
+            const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
+            const bool in = row < M && col < N;   // N is even: col + 1 < N too
+            if (ep.gate != nullptr && in) {
+              const bf16* gp = ep.gate + static_cast<size_t>(row) * ep.ldg + col;
+              g[j - j0] = to_f32(gp[0]);
+              g[j - j0 + 1] = to_f32(gp[1]);
             }
-            if (ep.res != nullptr) {
-              v0 = r[j - j0] + v0;
-              v1 = r[j - j0 + 1] + v1;
+            if (ep.res != nullptr && in) {
+              const float* rp = ep.res + static_cast<size_t>(row) * ep.ldr + col;
+              r[j - j0] = rp[0];
+              r[j - j0 + 1] = rp[1];
             }
-            const size_t o = static_cast<size_t>(row) * ep.ldo + col;
-            if (ep.out_f32 != nullptr) *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
-            if (ep.out_bf16 != nullptr)
-              *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) =
-                  __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+          }
+#pragma unroll
+          for (int j = j0; j < j0 + CH; j += 2) {
+            const int row = row0 + 8 * ((j >> 1) & 1), col = it.n0 + (j >> 2) * 8 + (lane & 3) * 2;
+            if (row < M && col < N) {
+              float v0 = acc[h][j], v1 = acc[h][j + 1];
+              if (ep.gate != nullptr) {
+                v0 = g[j - j0] > 0.0f ? v0 * ep.inv_keep : 0.0f;
+                v1 = g[j - j0 + 1] > 0.0f ? v1 * ep.inv_keep : 0.0f;
+              }
+              if (ep.res != nullptr) {
+                v0 = r[j - j0] + v0;
+                v1 = r[j - j0 + 1] + v1;
+              }
+              const size_t o = static_cast<size_t>(row) * ep.ldo + col;
+              if (ep.out_f32 != nullptr)
+                *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
+              if (ep.out_bf16 != nullptr)
+                *reinterpret_cast<__nv_bfloat162*>(ep.out_bf16 + o) =
+                    __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+            }
           }
         }
       }
@@ -724,37 +972,41 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 matrix of `outer` rows of `inner` elements, row stride `ld`
-// elements, read in boxes of box_outer rows x box_inner (= 64: 128 bytes,
-// the swizzle span) elements; out-of-bounds elements read as zeros
-bool make_map(CUtensorMap* map, const void* ptr, long long inner, long long outer, long long ld,
-              int box_inner, int box_outer) {
+// a matrix of `outer` rows of `inner` elements of `bytes` bytes (2: bf16,
+// 1: int8), row stride `ld` elements, read in boxes of box_outer rows x
+// box_inner elements (128 bytes, the swizzle span); out-of-bounds elements
+// read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int bytes, long long inner, long long outer,
+              long long ld, int box_inner, int box_outer) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
   // one row: its stride is never stepped over, and may be anything
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(outer > 1 ? ld * 2 : (inner * 2 + 15) / 16 * 16)};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(outer > 1 ? ld * bytes : (inner * bytes + 15) / 16 * 16)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int LAYOUT, int BN, bool SEEDED>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_tiles, int splits,
-           int grid, const Epilogue& ep, float* ws, int* counters, cudaStream_t stream) {
+           int grid, const EpilogueOf<LAYOUT>& ep, float* ws, int* counters, cudaStream_t stream) {
   auto kernel = gemm_sm90_kernel<LAYOUT, BN, SEEDED>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
+  constexpr int smem = smem_bytes<LAYOUT, BN>();
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, Cfg<BN>::THREADS, Cfg<BN>::SMEM, stream>>>(ta, tb, M, N, k_tiles, splits, ep, ws,
-                                                            counters);
+  kernel<<<grid, Cfg<BN>::THREADS, smem, stream>>>(ta, tb, M, N, k_tiles, splits, ep, ws, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int LAYOUT, bool SEEDED>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int k_tiles, int splits,
-           int bn, int grid, const Epilogue& ep, float* ws, int* counters, cudaStream_t stream) {
+           int bn, int grid, const EpilogueOf<LAYOUT>& ep, float* ws, int* counters,
+           cudaStream_t stream) {
   return bn == 128 ? launch<LAYOUT, 128, SEEDED>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, counters, stream)
                    : launch<LAYOUT, 64, SEEDED>(ta, tb, M, N, k_tiles, splits, grid, ep, ws, counters, stream);
 }
@@ -802,10 +1054,10 @@ MCAN_API int mcan_gemm_sm90(int layout, const void* A, long long lda, const void
   if (K > 0) {
     // A: MN-major (TN) in two 64 x 64 boxes a stage, else K-major in one
     // of 128 rows; B: MN-major (TN, NN) in bn / 64 boxes, else K-major
-    const bool ok = (layout == TN ? make_map(&ta, A, M, K, lda, 64, 64)
-                                  : make_map(&ta, A, K, M, lda, 64, BM)) &&
-                    (layout == NT ? make_map(&tb, B, K, N, ldb, 64, bn)
-                                  : make_map(&tb, B, N, K, ldb, 64, 64));
+    const bool ok = (layout == TN ? make_map(&ta, A, 2, M, K, lda, 64, 64)
+                                  : make_map(&ta, A, 2, K, M, lda, 64, BM)) &&
+                    (layout == NT ? make_map(&tb, B, 2, K, N, ldb, 64, bn)
+                                  : make_map(&tb, B, 2, N, K, ldb, 64, 64));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   } else {
     memset(&ta, 0, sizeof ta);
@@ -824,7 +1076,47 @@ MCAN_API int mcan_gemm_sm90(int layout, const void* A, long long lda, const void
                  : launch<NN, false>(ta, tb, M, N, k_tiles, splits, bn, grid, ep, ws, cnt, s);
 }
 
-// the dynamic shared memory of the instances of tile width bn (128 or 64)
-MCAN_API int mcan_gemm_sm90_smem(int bn) {
-  return bn == 128 ? sm90::Cfg<128>::SMEM : bn == 64 ? sm90::Cfg<64>::SMEM : -1;
+// The int8 product (layout S8): A = the int8 codes [M, K] (row stride lda
+// bytes), B = the int8 weight stored K-major, rows of K bytes for each of
+// its N columns (row stride ldb bytes: the [K, N] weight with strides (1,
+// ldb)); K, lda and ldb multiples of 16, both 16-byte aligned (the wrapper
+// checks). Then f32(acc) * (sx[m] * sw[n]) with sx f32 [M], or, sx null,
+// f32(acc) * (a * sw[n]); + bias[n] (f32 [N] or null); ReLU where relu;
+// written dense [M, N] to out_f32 and / or out_bf16 (at least one). bn
+// and grid are ops/kernels.py::gemm_plan's (never split). Returns
+// cudaGetLastError(), the error of the shared-memory attribute, or
+// cudaErrorInvalidValue for an argument the kernel does not take or a
+// tensor map that cuTensorMapEncodeTiled refuses.
+MCAN_API int mcan_gemm_sm90_s8(const void* A, long long lda, const void* B, long long ldb, int M,
+                               int N, int K, int bn, int grid, const void* sx, float a,
+                               const void* sw, const void* bias, int relu, void* out_f32,
+                               void* out_bf16, void* stream) {
+  using namespace sm90;
+  if ((bn != 128 && bn != 64) || M < 0 || N < 0 || K < 0 || K % 16 != 0 || sw == nullptr ||
+      (out_f32 == nullptr && out_bf16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;   // untouched when K = 0: no tile is loaded
+  if (K > 0) {
+    if (!make_map(&ta, A, 1, K, M, lda, 2 * BK, BM) || !make_map(&tb, B, 1, K, N, ldb, 2 * BK, bn))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    memset(&ta, 0, sizeof ta);
+    memset(&tb, 0, sizeof tb);
+  }
+  const S8Epilogue ep{static_cast<const float*>(sx),   a, static_cast<const float*>(sw),
+                      static_cast<const float*>(bias), relu, static_cast<float*>(out_f32),
+                      static_cast<bf16*>(out_bf16),    N};
+  return launch<S8, false>(ta, tb, M, N, (K + 2 * BK - 1) / (2 * BK), 1, bn, grid, ep, nullptr, nullptr,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// the dynamic shared memory of the bf16 instances (layout 1-3) or the int8
+// ones (4) of tile width bn (128 or 64)
+MCAN_API int mcan_gemm_sm90_smem(int layout, int bn) {
+  using namespace sm90;
+  if (bn != 128 && bn != 64) return -1;
+  if (layout == S8) return bn == 128 ? smem_bytes<S8, 128>() : smem_bytes<S8, 64>();
+  return bn == 128 ? smem_bytes<NN, 128>() : smem_bytes<NN, 64>();
 }

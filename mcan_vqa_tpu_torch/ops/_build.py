@@ -41,7 +41,9 @@ SIGNATURES = {
     "mcan_gemm_sm90": [_I, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _LL,
                        _F, _P, _LL, _P, _I, _P, _LL, *_KEEP, _I, _P, _P, _P,
                        _P, _P],
-    "mcan_gemm_sm90_smem": [_I],
+    "mcan_gemm_sm90_s8": [_P, _LL, _P, _LL, _I, _I, _I, _I, _I, _P, _F, _P,
+                          _P, _I, _P, _P, _P],
+    "mcan_gemm_sm90_smem": [_I, _I],
     "mcan_masked_attention": [_P, _I, _LL, _LL, _LL, _P, _P, _LL, _LL, _LL,
                               _I, _P, _P, _F, *_KEEP, _P, _I, _LL, _LL, _I,
                               _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
@@ -57,10 +59,8 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "mcan_residual_layernorm_bwd": [_P, _I, _P, _I, _P, _P, _P, _F, *_KEEP,
                                     _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _P],
+    "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "mcan_quantize_rows": [_P, _I, _LL, _I, _I, _I, _F, _P, _P, _P],
-    "mcan_gemm_s8": [_P, _LL, _P, _LL, _I, _I, _I, _P, _F, _P, _P, _I, _P, _P,
-                     _LL, _P],
     "mcan_gemm_s4": [_P, _LL, _P, _LL, _P, _I, _I, _I, _F, _P, _I, _P, _P,
                      _LL, _P],
     "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _P, _P,

@@ -7,7 +7,7 @@ PyTorch version.
   gemm_dx                C = dY . W^T (gradient gate, + res)   gemm_sm90.cu, NT
   gemm_dw                C = X^T . dY (split-K, fixed order)   gemm_sm90.cu, TN
   gemm_ln                LN(res + A . W + bias)                gemm_ln.cu
-  gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_s8.cu
+  gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_sm90.cu, S8
   gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_s4.cu
   gemm_w4bf16            A . bf16(int4 W x group scale) + bias  gemm_w4bf16.cu
   quantize_rows          int8 codes of rows, dynamic or static  quantize.cu
@@ -82,7 +82,7 @@ MASK_DTYPES = (torch.uint8, torch.bool)
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 
-_NT, _TN, _NN = 1, 2, 3   # mcan_gemm_sm90 layouts
+_NT, _TN, _NN, _S8 = 1, 2, 3, 4   # gemm_sm90.cu's layouts (S8: mcan_gemm_sm90_s8)
 
 
 def reset_launches() -> None:
@@ -322,20 +322,22 @@ def _check_rows(name: str, t: Optional[torch.Tensor], shape, dtypes) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the GEMMs on gemm_sm90.cu: gemm_bias_act (NN), gemm_dx (NT) and gemm_dw
-# (TN)
+# the GEMMs on gemm_sm90.cu: gemm_bias_act (NN), gemm_dx (NT), gemm_dw
+# (TN) and gemm_s8 (S8)
 # ---------------------------------------------------------------------------
 
 GEMM_SMS = 132         # an H100 SXM's SMs: a constant, so that a shape
 #                        always gets the same plan (and dW the same bits)
 GEMM_BM, GEMM_BK = 128, 64   # gemm_sm90.cu's tile height and K-tile
+GEMM_BK_S8 = 128       # the int8 K-tile: 128 bytes a row, as bf16's 64
 
 
 @dataclass(frozen=True)
 class GemmPlan:
     """How gemm_sm90.cu covers one product: output tiles of ``bm`` x
-    ``bn``, the reduction in ``k_tiles`` K-tiles of ``bk`` split over
-    ``splits`` blocks per tile; split s sums K-tiles ``split_range(s)``."""
+    ``bn``, the reduction in ``k_tiles`` K-tiles of ``bk`` elements (128
+    bytes a row in either type) split over ``splits`` blocks per tile;
+    split s sums K-tiles ``split_range(s)``."""
     bm: int
     bn: int
     bk: int
@@ -375,42 +377,52 @@ def gemm_plan(layout: int, M: int, N: int, K: int) -> GemmPlan:
     """The plan of an [M, N] output summed over K (for dW, K = R rows),
     from the shape alone (cached: the small-batch forward is bound by the
     host's time per launch). Tiles of 128 x 128 (one block per SM) where they
-    fill the SMs, or for dX and the forward (NN) half of them; else 128 x
-    64 (two blocks per SM), which the step's dW shapes and the encoder's
-    narrow dX ran faster at on the card. Then, for dW, as many splits of
-    whole K-tiles as bring the blocks to the SM count, at most one K-tile
-    each (dX and NN do not split: their partials would be as large as
-    their outputs, and the card ran the encoder's dX slower split)."""
+    fill the SMs, or for dX, the forward (NN) and the int8 product (S8)
+    half of them; else 128 x 64 (two blocks per SM), which the step's dW
+    shapes and the encoder's narrow dX ran faster at on the card. K-tiles
+    of 64 bf16 values, or 128 int8 ones (S8). Then, for dW, as many splits
+    of whole K-tiles as bring the blocks to the SM count, at most one
+    K-tile each (dX, NN and S8 do not split: their partials would be as
+    large as their outputs, and the card ran the encoder's dX slower
+    split)."""
     cdiv = lambda a, b: -(-a // b)      # noqa: E731
     tiles_m = cdiv(M, GEMM_BM)
     tiles128 = tiles_m * cdiv(N, 128)
     bn = 128 if tiles128 >= GEMM_SMS or (layout != _TN
                                          and 2 * tiles128 >= GEMM_SMS) else 64
     tiles = tiles_m * cdiv(N, bn)
-    k_tiles = cdiv(K, GEMM_BK)
+    bk = GEMM_BK_S8 if layout == _S8 else GEMM_BK
+    k_tiles = cdiv(K, bk)
     splits = 1
     if layout == _TN and 0 < tiles < GEMM_SMS:
         splits = max(1, min(cdiv(GEMM_SMS, tiles), k_tiles))
-    return GemmPlan(GEMM_BM, bn, GEMM_BK, tiles_m, cdiv(N, bn), k_tiles,
-                    splits)
+    return GemmPlan(GEMM_BM, bn, bk, tiles_m, cdiv(N, bn), k_tiles, splits)
 
 
 _SPLIT_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COL_SUM_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """One int32 counter per output tile of a split launch, zeroed once per
-    device and left at 0 by every launch (the last block of a tile resets
-    its counter)."""
-    c = _SPLIT_COUNTERS.get(device)
+def _zeroed_counters(table: Dict[torch.device, torch.Tensor],
+                     device: torch.device, n: int, what: str) -> torch.Tensor:
+    """At least n int32 counters of one kernel on one device, zeroed once
+    and left at 0 by every launch (the last block of a split resets its
+    counter); a capture cannot make them."""
+    c = table.get(device)
     if c is None or c.numel() < n:
         _require(device.type != "cuda"
                  or not torch.cuda.is_current_stream_capturing(),
-                 "gemm_sm90: the split-K counters are made at the first "
-                 "split launch on a device; make it outside a graph capture")
+                 f"{what} are made at the first split launch on a device; "
+                 f"make it outside a graph capture")
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _SPLIT_COUNTERS[device] = c
+        table[device] = c
     return c
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """One counter per output tile of a split gemm_sm90.cu launch."""
+    return _zeroed_counters(_SPLIT_COUNTERS, device, n,
+                            "gemm_sm90: the split-K counters")
 
 
 def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, N: int,
@@ -689,18 +701,37 @@ def gemm_s8_plain(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     return tuple(y.to(dt) for dt in out_dtypes)
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """w [K, N] -> the same values in the same shape, stored K-major
+    (strides (1, K)): the layout ``gemm_s8`` reads an int8 weight in, made
+    once where an engine is prepared (wgmma takes an 8-bit operand only
+    with K contiguous in shared memory)."""
+    return w.t().contiguous().t()
+
+
+def _is_k_major(w: torch.Tensor) -> bool:
+    """[K, N] stored K-major: unit stride along K, and a column stride the
+    tensor map steps over in whole 16-byte units, at least K (any stride
+    for one column)."""
+    K, N = w.shape
+    return w.stride(0) == 1 and (N == 1 or (w.stride(1) % 16 == 0
+                                            and w.stride(1) >= K))
+
+
 def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
             bias: Optional[torch.Tensor] = None, *,
             sx: Optional[torch.Tensor] = None, a: Optional[float] = None,
             relu: bool = False, out_dtypes: Sequence[torch.dtype] = (F32,)
             ) -> Tuple[torch.Tensor, ...]:
-    """aq [M, K] int8 . wq [K, N] int8 (the JAX [in, out] layout), summed
-    exactly in int32, then f32(acc) * (sx[m] * sw[n]) with the per-row
-    activation scales sx (dynamic, ``_qdot``, quant.py:253) or f32(acc) *
-    (a * sw[n]) with one static scale a (``_qdot_static``, :263), + bias
-    [N], then ReLU -> one [M, N] tensor per out_dtypes (f32 and/or bf16).
-    Pass exactly one of sx and a. K must be a multiple of 16, and so must
-    W's row stride, at least N rounded up to 16 (``pad_cols``)."""
+    """aq [M, K] int8 . wq [K, N] int8 (the JAX [in, out] shape, stored
+    K-major: ``k_major``), summed exactly in int32, then f32(acc) * (sx[m]
+    * sw[n]) with the per-row activation scales sx (dynamic, ``_qdot``,
+    quant.py:253) or f32(acc) * (a * sw[n]) with one static scale a
+    (``_qdot_static``, :263), + bias [N], then ReLU -> one [M, N] tensor
+    per out_dtypes (f32 and/or bf16), launched as gemm_sm90.cu's S8 layout
+    with the plan of ``gemm_plan``. Pass exactly one of sx and a. K must
+    be a multiple of 16; any M and N. A weight stored otherwise raises: it
+    is never transposed per call."""
     if not on_cuda(aq):
         return gemm_s8_plain(aq, wq, sw, bias, sx=sx, a=a, relu=relu,
                              out_dtypes=out_dtypes)
@@ -714,16 +745,14 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
              f"{tuple(aq.shape)} {aq.dtype} . {tuple(wq.shape)} {wq.dtype}")
     M, Kd = aq.shape
     N = wq.shape[1]
-    # W is read in 16-byte chunks along N: a width that is not a multiple
-    # of 16 (the answer head, an AttFlat logit) needs rows padded to one
-    _require(Kd % 16 == 0 and wq.stride(0) >= -(-N // 16) * 16,
-             f"{name}: K={Kd} and W's row stride ({wq.stride(0)}) must be "
-             f"multiples of 16, the stride at least N={N} rounded up")
-    _require(aq.stride(1) == 1 and wq.stride(1) == 1
-             and aq.stride(0) % 16 == 0 and wq.stride(0) % 16 == 0
+    _require(Kd % 16 == 0 and aq.stride(1) == 1 and aq.stride(0) % 16 == 0
              and aq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0,
-             f"{name}: operands need unit column stride, row strides that "
-             f"are multiples of 16 and 16-byte alignment")
+             f"{name}: K={Kd} and the codes' row stride must be multiples "
+             f"of 16, with unit column stride and 16-byte alignment")
+    _require(_is_k_major(wq),
+             f"{name}: the weight must be stored K-major (strides (1, ld), "
+             f"ld >= K a multiple of 16: kernels.k_major), got strides "
+             f"{wq.stride()}")
     _check_vec(name, sw, N)
     _check_vec(name, bias, N)
     _require(sx is None or (sx.dtype == F32 and sx.is_contiguous()
@@ -732,27 +761,16 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
              and len(set(out_dtypes)) == len(out_dtypes),
              f"{name}: out_dtypes {out_dtypes}")
+    plan = gemm_plan(_S8, M, N, Kd)
     outs = {dt: torch.empty((M, N), dtype=dt, device=aq.device)
             for dt in out_dtypes}
-    rc = _lib().mcan_gemm_s8(
-        aq.data_ptr(), aq.stride(0), wq.data_ptr(), wq.stride(0), M, N, Kd,
+    rc = _lib().mcan_gemm_sm90_s8(
+        aq.data_ptr(), aq.stride(0), wq.data_ptr(),
+        wq.stride(1) if N > 1 else Kd, M, N, Kd, plan.bn, plan.grid,
         _ptr(sx), 0.0 if a is None else _f32(a), sw.data_ptr(), _ptr(bias),
-        int(relu), _ptr(outs.get(F32)), _ptr(outs.get(BF16)), N, _stream(aq))
+        int(relu), _ptr(outs.get(F32)), _ptr(outs.get(BF16)), _stream(aq))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes)
-
-
-def pad_cols(w: torch.Tensor) -> torch.Tensor:
-    """w [K, N] int8 -> the same values as a [K, N] view of a zero-padded
-    [K, N rounded up to 16] buffer: the row stride ``gemm_s8`` reads whole
-    16-byte chunks along (w itself, contiguous, where N is a multiple of
-    16)."""
-    K, N = w.shape
-    if N % 16 == 0:
-        return w.contiguous()
-    buf = torch.zeros((K, -(-N // 16) * 16), dtype=w.dtype, device=w.device)
-    buf[:, :N] = w
-    return buf[:, :N]
 
 
 # ---------------------------------------------------------------------------
@@ -1403,10 +1421,61 @@ def col_sum_plain(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [m.float().sum(dim=0) for m in mats]
 
 
+COL_SUM_CHUNK = 128      # col_sum.cu's columns a chunk
+COL_SUM_ITEMS = 4 * GEMM_SMS   # the blocks the SMs hold at once (4 an SM)
+COL_SUM_MIN_ROWS = 64    # rows a slab takes at least (4 rows in flight for
+#                          each of up to 16 row groups)
+
+
+@dataclass(frozen=True)
+class ColSumPlan:
+    """How col_sum.cu covers one launch: each matrix's columns in chunks of
+    ``chunk``, the rows in ``slabs`` slabs (``slab_range``), one block per
+    (chunk, slab); with more than one slab the partials go through a
+    workspace and the last block of a chunk adds them in slab order."""
+    rows: int
+    chunk: int
+    chunks: Tuple[int, ...]    # per matrix
+    slabs: int
+
+    @property
+    def total_chunks(self) -> int:
+        return sum(self.chunks)
+
+    @property
+    def grid(self) -> int:
+        return self.total_chunks * self.slabs
+
+    def slab_range(self, s: int) -> Tuple[int, int]:
+        return (s * self.rows // self.slabs, (s + 1) * self.rows // self.slabs)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The f32 partials of every slab of every chunk (none in one
+        slab)."""
+        return 0 if self.slabs == 1 else \
+            self.total_chunks * self.slabs * self.chunk * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def col_sum_plan(rows: int, cols: Tuple[int, ...]) -> ColSumPlan:
+    """The plan of column sums of matrices of ``rows`` rows and widths
+    ``cols``, from the shapes alone (so that a shape always sums in the
+    same order): chunks of 128 columns, and as many row slabs as the SMs
+    hold blocks at once (four an SM: a block more would run alone after
+    the rest), each slab at least 64 rows."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    chunks = tuple(cdiv(c, COL_SUM_CHUNK) for c in cols)
+    slabs = max(1, min(COL_SUM_ITEMS // max(sum(chunks), 1),
+                       rows // COL_SUM_MIN_ROWS))
+    return ColSumPlan(rows, COL_SUM_CHUNK, chunks, slabs)
+
+
 def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Column sums of one to four f32 or bf16 [rows, cols_i] matrices with
-    the same number of rows -> f32 [cols_i] each, in one launch, summed in
-    f32 in a fixed order (the same bits on every run)."""
+    the same number of rows -> f32 [cols_i] each, in one launch over the
+    whole card (``col_sum_plan``), summed in f32 in an order the shapes
+    fix (the same bits on every run)."""
     if not on_cuda(mats[0]):
         return col_sum_plain(mats)
     name = "col_sum"
@@ -1419,8 +1488,15 @@ def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
                  and m.dtype in (F32, BF16) and m.stride(1) == 1,
                  f"{name}: f32 or bf16 [rows, cols] matrices with {rows} "
                  f"rows and unit column stride")
-    outs = [torch.empty(m.shape[1], dtype=F32, device=m.device)
-            for m in mats]
+    dev = mats[0].device
+    plan = col_sum_plan(rows, tuple(m.shape[1] for m in mats))
+    outs = [torch.empty(m.shape[1], dtype=F32, device=dev) for m in mats]
+    ws = counters = None
+    if plan.slabs > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=F32, device=dev)
+        counters = _zeroed_counters(_COL_SUM_COUNTERS, dev,
+                                    plan.total_chunks,
+                                    "col_sum: the chunk counters")
     arrays = ((ctypes.c_void_p * n)(*[m.data_ptr() for m in mats]),
               (ctypes.c_int * n)(*[int(m.dtype == BF16) for m in mats]),
               (ctypes.c_longlong * n)(*[m.stride(0) for m in mats]),
@@ -1428,7 +1504,7 @@ def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
               (ctypes.c_void_p * n)(*[t.data_ptr() for t in outs]))
     rc = _lib().mcan_col_sum(
         n, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), rows,
-        _stream(mats[0]))
+        plan.slabs, _ptr(ws), _ptr(counters), _stream(mats[0]))
     _check(rc, name)
     return outs
 

@@ -79,12 +79,15 @@ _unpack_w4 = kernels.unpack_w4
 # ---------------------------------------------------------------------------
 
 def _quant_w(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """[in, out] kernel -> int8 weight + f32 per-out-channel scale."""
+    """[in, out] kernel -> int8 weight + f32 per-out-channel scale. The
+    weight keeps JAX's [in, out] shape and values, stored K-major
+    (``kernels.k_major``: the layout ``gemm_s8`` reads), once, here, for
+    every engine that quantizes."""
     w32 = kernel.float()
     s = true_div(w32.abs().amax(dim=0), 127.0)
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     wq = torch.round(w32 / s).clamp_(-127.0, 127.0).to(I8)
-    return {"w_q": wq.contiguous(), "w_scale": s.contiguous()}
+    return {"w_q": kernels.k_major(wq), "w_scale": s.contiguous()}
 
 
 def _quant_w4(kernel: torch.Tensor, group: int = W4_GROUP
@@ -170,8 +173,7 @@ def prepare_qffn_params(wp: Mapping[str, torch.Tensor],
 def _aux_site(kernel: torch.Tensor, bias: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
     q = _quant_w(kernel)
-    return {"w_q": kernels.pad_cols(q["w_q"]), "w_s": q["w_scale"],
-            "b": bias.float()}
+    return {"w_q": q["w_q"], "w_s": q["w_scale"], "b": bias.float()}
 
 
 def prepare_q8aux_params(params: Mapping[str, Any], num_layers: int
@@ -181,8 +183,8 @@ def prepare_q8aux_params(params: Mapping[str, Any], num_layers: int
     the answer head, from a prepared serving tree (ops/serving.py
     ``prepare_params``; bf16 kernels). -> {"dec_i_kv" / "lang_merge" /
     "img_merge" / "proj": {w_q, w_s, b}}, per-out-channel int8
-    (``_quant_w``); w_q's rows padded to a multiple of 16 bytes for
-    ``gemm_s8`` (the head's 3129 answers)."""
+    (``_quant_w``, K-major for ``gemm_s8``, the head's 3129 answers
+    too)."""
     aux: Dict[str, Dict[str, torch.Tensor]] = {}
     for i in range(num_layers):
         kv = params["backbone"][f"dec_{i}"]["mhatt2"]["linear_kv"]

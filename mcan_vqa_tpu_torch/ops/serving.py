@@ -703,9 +703,9 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
 
 def _qd(kernel: torch.Tensor, bias: torch.Tensor) -> Dict[str, torch.Tensor]:
     """A Dense of the full-int8 engine: the f32 kernel [in, out] quantized
-    per output channel, its rows padded for ``gemm_s8``, the f32 bias."""
+    per output channel (K-major for ``gemm_s8``), the f32 bias."""
     q = _quant_w(kernel)
-    return {"w_q": kernels.pad_cols(q["w_q"]), "w_scale": q["w_scale"],
+    return {"w_q": q["w_q"], "w_scale": q["w_scale"],
             "bias": bias.detach().float()}
 
 

@@ -1,7 +1,7 @@
 """The plan of the Hopper GEMMs (``kernels.gemm_plan``: the forward NN
-product and the backward NT / TN ones), the launch arguments the wrappers
-derive from it, and the profiler's kernel groups: pure Python,
-milliseconds, no card and no JAX."""
+product, the backward NT / TN ones and the int8 S8 one), the launch
+arguments the wrappers derive from it, and the profiler's kernel groups:
+pure Python, milliseconds, no card and no JAX."""
 
 import pytest
 import torch
@@ -10,7 +10,7 @@ from mcan_vqa_tpu_torch.cli.profile_train import kernel_group
 from mcan_vqa_tpu_torch.ops import kernels as kern
 
 BF16 = torch.bfloat16
-NT, TN, NN = 1, 2, 3
+NT, TN, NN, S8 = 1, 2, 3, 4
 
 # (layout, M, N, K): K the reduction (dW: R rows). Every dX / dW shape of
 # the MCAN-small step (decoder M 3840, encoder 896) and of the MCAN-large
@@ -41,7 +41,18 @@ FORWARD += [(NN, M, N, K) for M in (3840, 61)
             for N, K in ((1440, 480), (480, 480), (1920, 480), (480, 1920))]
 FORWARD += [(NN, 64, 1024, 512), (NN, 14, 8, 1000), (NN, 60, 1536, 40),
             (NN, 0, 512, 512)]
-SHAPES = MAIN_PATH + EDGES + FORWARD
+# (S8, M, N, K): every int8 site of the default engine's B=64 forward
+# (MCAN-small, encoder M 896, decoder 3840: w1, w2, qkv, merge / cross q),
+# of MCAN-large's (D 1024, F 4096: qkv, w1, w2), at B=1 (M 14, 60), ragged
+# M (61, 1), the answer head (N 3129) and the AttFlat logit (N 1)
+INT8 = [(S8, M, N, K) for M in (896, 3840, 14, 60)
+        for N, K in ((2048, 512), (512, 2048), (1536, 512), (512, 512))]
+INT8 += [(S8, M, N, K) for M in (896, 3840)
+         for N, K in ((3072, 1024), (4096, 1024), (1024, 4096))]
+INT8 += [(S8, 61, 2048, 512), (S8, 1, 512, 2048), (S8, 64, 3129, 1024),
+         (S8, 61, 3129, 1024), (S8, 3840, 1, 512), (S8, 896, 1, 512),
+         (S8, 0, 512, 512)]
+SHAPES = MAIN_PATH + EDGES + FORWARD + INT8
 
 
 @pytest.mark.parametrize("layout,M,N,K", SHAPES)
@@ -63,7 +74,9 @@ def test_splits_cover_the_reduction_once_in_order(layout, M, N, K):
 @pytest.mark.parametrize("layout,M,N,K", SHAPES)
 def test_tiles_cover_the_output_and_fill_the_card(layout, M, N, K):
     plan = kern.gemm_plan(layout, M, N, K)
-    assert plan.bm == 128 and plan.bn in (64, 128) and plan.bk == 64
+    # a K-tile is 128 bytes a row: 64 bf16 values, or 128 int8 ones
+    assert plan.bm == 128 and plan.bn in (64, 128)
+    assert plan.bk == (128 if layout == S8 else 64)
     assert (plan.tiles_m - 1) * plan.bm < M <= plan.tiles_m * plan.bm \
         or M == plan.tiles_m == 0
     assert (plan.tiles_n - 1) * plan.bn < N <= plan.tiles_n * plan.bn
@@ -222,6 +235,84 @@ def test_forward_wrapper_launches_the_nn_plan(monkeypatch, M, K, N, out_dtype,
                           else (None, out.data_ptr()))
 
 
+@pytest.mark.parametrize("M,K,N,static,relu,out_dtypes", [
+    (3840, 512, 2048, False, True, (torch.float32,)),
+    (896, 2048, 512, True, False, (torch.float32,)),
+    (3840, 512, 1536, True, False, (BF16,)),
+    (61, 1024, 3129, False, False, (torch.float32, BF16)),
+    (64, 1024, 3129, True, False, (torch.float32,)),
+    (3840, 512, 1, False, False, (torch.float32,)),
+    (1, 2048, 512, True, False, (BF16,))])
+def test_int8_wrapper_launches_the_s8_plan(monkeypatch, M, K, N, static,
+                                           relu, out_dtypes):
+    """gemm_s8's launch: mcan_gemm_sm90_s8 with the S8 plan's tile width
+    and grid, the codes' row stride, the K-major weight's column stride
+    (K; any for one column), the scales, bias and ReLU, one output per
+    asked dtype and nothing else allocated."""
+    lib, made = _Lib(), []
+    empty = torch.empty
+
+    def record_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    def s8_launch(*args):
+        lib.args = args
+        return 0
+
+    lib.mcan_gemm_sm90_s8 = s8_launch
+    monkeypatch.setattr(kern, "_lib", lambda: lib)
+    monkeypatch.setattr(kern, "_stream", lambda t: 0)
+    monkeypatch.setattr(kern, "on_cuda", lambda t: True)
+    aq = torch.zeros(M, K, dtype=torch.int8)
+    wq = kern.k_major(torch.zeros(K, N, dtype=torch.int8))
+    sw, bias = torch.ones(N), torch.zeros(N)
+    sx = None if static else torch.ones(M)
+    monkeypatch.setattr(kern.torch, "empty", record_empty)
+    before = kern.launch_counts().get("gemm_s8", 0)
+    outs = kern.gemm_s8(aq, wq, sw, bias, sx=sx, a=0.25 if static else None,
+                        relu=relu, out_dtypes=out_dtypes)
+    plan = kern.gemm_plan(S8, M, N, K)
+    assert kern.launch_counts()["gemm_s8"] == before + 1
+    assert [o.dtype for o in outs] == list(out_dtypes)
+    assert all(o.shape == (M, N) for o in outs)
+    assert made == list(outs)                 # no workspace
+    (pa, lda, pb, ldb, m, n, k, bn, grid, psx, a, psw, pbias, rl, o32, o16,
+     stream) = lib.args
+    assert plan.splits == 1 and plan.bk == 128
+    assert (m, n, k, bn, grid) == (M, N, K, plan.bn, plan.grid)
+    assert (pa, lda, pb, ldb) == (aq.data_ptr(), K, wq.data_ptr(), K)
+    assert psx == (None if static else sx.data_ptr())
+    assert a == (0.25 if static else 0.0)
+    assert (psw, pbias, rl) == (sw.data_ptr(), bias.data_ptr(), int(relu))
+    by = dict(zip(out_dtypes, outs))
+    assert o32 == (by[torch.float32].data_ptr()
+                   if torch.float32 in by else None)
+    assert o16 == (by[BF16].data_ptr() if BF16 in by else None)
+
+
+@pytest.mark.parametrize("K,N", [(512, 2048), (1024, 3129), (512, 1)])
+def test_int8_wrapper_refuses_a_row_major_weight(monkeypatch, K, N):
+    """The weight is read K-major and never transposed per call: a [K, N]
+    weight stored row-major (N > 1), or a K-major one whose column stride
+    is no multiple of 16, raises before any launch."""
+    monkeypatch.setattr(kern, "_lib", lambda: pytest.fail("launched"))
+    monkeypatch.setattr(kern, "on_cuda", lambda t: True)
+    aq = torch.zeros(64, K, dtype=torch.int8)
+    sw = torch.ones(N)
+    wq = kern.k_major(torch.zeros(K, N, dtype=torch.int8))
+    assert wq.stride(0) == 1 and (N == 1 or wq.stride(1) == K)
+    if N > 1:
+        with pytest.raises(ValueError, match="K-major"):
+            kern.gemm_s8(aq, wq.contiguous(), sw, a=1.0)
+    wide = torch.zeros(N, K + 8, dtype=torch.int8)[:, :K].t()
+    assert wide.shape == (K, N) and wide.stride(0) == 1
+    if N > 1:
+        with pytest.raises(ValueError, match="K-major"):
+            kern.gemm_s8(aq, wide, sw, a=1.0)
+
+
 @pytest.mark.parametrize("name,group", [
     # the attention forward's one-block and long instances, one group;
     # the backward's one-block and long kernels, another
@@ -263,6 +354,12 @@ def test_forward_wrapper_launches_the_nn_plan(monkeypatch, M, K, N, out_dtype,
     ("void sm90::gemm_sm90_kernel<3, 64, true>(CUtensorMap_st, "
      "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
      "gemm_sm90_kernel NN"),
+    # the int8 product (layout 4) counts with the backward instances
+    ("void sm90::gemm_sm90_kernel<4, 128, false>(CUtensorMap_st, "
+     "CUtensorMap_st, int, int, int, int, sm90::Epilogue, float*, int*)",
+     "gemm_sm90_kernel"),
+    ("void (anonymous namespace)::col_sum_kernel((anonymous namespace)::"
+     "Sums, int, int, int, float*, int*)", "col_sum_kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroup"
      "size1x1x1_execute_segment_k_off_kernel__5x_cublas", "torch gemm"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_s16816gemm_bf16_64x64_64x4>",

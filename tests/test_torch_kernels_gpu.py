@@ -371,6 +371,7 @@ def test_gemm_s8_matches_plain_bitwise(cuda, M, Kd, N, static, relu):
                        dtype=torch.int8)
     aq[0] = 127                   # 127 x 127 x K > 2^24 in column 0
     wq[:, 0] = 127
+    wq = K.k_major(wq)            # the layout the engines prepare
     sw = torch.rand(N, generator=g, device=cuda) * 1e-3
     bias = torch.randn(N, generator=g, device=cuda)
     kw = dict(a=0.0173) if static else dict(
@@ -388,33 +389,52 @@ def test_gemm_s8_matches_plain_bitwise(cuda, M, Kd, N, static, relu):
 def test_gemm_s8_raises_on_unsupported_operands(cuda):
     aq = torch.zeros(8, 512, dtype=torch.int8, device=cuda)
     sw = torch.ones(64, device=cuda)
+
+    def w(k, n):
+        return K.k_major(torch.zeros(k, n, dtype=torch.int8, device=cuda))
     with pytest.raises(ValueError, match="multiples of 16"):
-        K.gemm_s8(aq[:, :500], torch.zeros(500, 64, dtype=torch.int8,
-                                           device=cuda), sw, a=1.0)
+        K.gemm_s8(aq[:, :500], w(500, 64), sw, a=1.0)
     with pytest.raises(ValueError, match="int8"):
-        K.gemm_s8(aq.float(), torch.zeros(512, 64, dtype=torch.int8,
-                                          device=cuda), sw, a=1.0)
+        K.gemm_s8(aq.float(), w(512, 64), sw, a=1.0)
     with pytest.raises(ValueError, match="sx or a static scale"):
+        K.gemm_s8(aq, w(512, 64), sw)
+    # a weight stored row-major (the JAX layout as it is) is never
+    # transposed per call: it raises
+    with pytest.raises(ValueError, match="K-major"):
         K.gemm_s8(aq, torch.zeros(512, 64, dtype=torch.int8, device=cuda),
-                  sw)
+                  sw, a=1.0)
 
 
 def test_gemm_s8_reads_rows_padded_to_16(cuda):
-    """The answer head (N = 3129) and an AttFlat logit (N = 1): W a view of
-    a buffer whose rows are padded to a multiple of 16."""
+    """Any N: the answer head (N = 3129, an f32 row that is not 16-byte
+    aligned, and a bf16 one not 8-byte aligned) and an AttFlat logit (N =
+    1), each weight stored K-major with no padding (the TMA box reads
+    zeros past N), with ragged M; both outputs equal the plain version's
+    bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(5)
     for N in (3129, 1):
-        aq = torch.randint(-127, 128, (37, 1024), generator=g, device=cuda,
-                           dtype=torch.int8)
-        wq = K.pad_cols(torch.randint(-127, 128, (1024, N), generator=g,
-                                      device=cuda, dtype=torch.int8))
-        sw = torch.rand(N, generator=g, device=cuda) * 1e-3
-        bias = torch.randn(N, generator=g, device=cuda)
-        out = K.gemm_s8(aq, wq, sw, bias, a=0.02)[0]
-        assert torch.equal(out, K.gemm_s8_plain(aq, wq, sw, bias, a=0.02)[0])
+        for M, static in ((37, True), (130, False)):
+            aq = torch.randint(-127, 128, (M, 1024), generator=g,
+                               device=cuda, dtype=torch.int8)
+            wq = K.k_major(torch.randint(-127, 128, (1024, N), generator=g,
+                                         device=cuda, dtype=torch.int8))
+            assert wq.stride(0) == 1
+            sw = torch.rand(N, generator=g, device=cuda) * 1e-3
+            bias = torch.randn(N, generator=g, device=cuda)
+            kw = dict(a=0.02) if static else dict(
+                sx=torch.rand(M, generator=g, device=cuda) * 0.05)
+            dts = (torch.float32, BF16)
+            outs = K.gemm_s8(aq, wq, sw, bias, relu=not static,
+                             out_dtypes=dts, **kw)
+            refs = K.gemm_s8_plain(aq, wq, sw, bias, relu=not static,
+                                   out_dtypes=dts, **kw)
+            torch.cuda.synchronize()
+            for out, ref in zip(outs, refs):
+                assert torch.equal(out, ref)
     with pytest.raises(ValueError, match="multiples of 16"):
-        K.gemm_s8(aq, torch.zeros(1024, 3129, dtype=torch.int8, device=cuda),
-                  torch.ones(3129, device=cuda), a=1.0)
+        K.gemm_s8(aq[:, :1000], K.k_major(torch.zeros(
+            1000, 3129, dtype=torch.int8, device=cuda)),
+            torch.ones(3129, device=cuda), a=1.0)
 
 
 def _packed_w4(g, Kd, N, cuda):
@@ -1151,6 +1171,32 @@ def test_col_sum_matches_plain_and_repeats_bitwise(cuda):
     assert all(torch.equal(a, b) for a, b in zip(outs, K.col_sum(mats)))
     with pytest.raises(ValueError, match="1 to 4"):
         K.col_sum(mats + mats[:1])
+
+
+@pytest.mark.parametrize("rows,widths,bf16_last", [
+    # MCAN-large per micro-batch of 32 (1920 rows): the FFN, the
+    # self-attention and the cross sums, the last with the bf16 gv2
+    (1920, (4096, 1024, 1024, 1024), False),
+    (1920, (3072, 1024, 1024, 1024), False),
+    (1920, (1024, 1024, 1024, 1024), True),
+    # ragged rows: one, seven, counts no slab divides; widths narrower
+    # than a chunk and no multiple of 4 or 8
+    (1, (512, 7), True), (7, (2048, 100), True),
+    (3841, (512, 24, 1536, 5), True), (1000, (96, 40, 8, 3), False)])
+def test_col_sum_at_large_and_ragged_shapes(cuda, rows, widths, bf16_last):
+    """Every shape against the plain sums (f32 sums in another order), two
+    runs bit for bit, and the chunk counters left at 0."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    mats = [torch.randn(rows, w, generator=g, device=cuda) for w in widths]
+    if bf16_last:
+        mats[-1] = mats[-1].to(BF16)
+    outs = K.col_sum(mats)
+    for a, b in zip(outs, K.col_sum_plain(mats)):
+        _close(a, b, 1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(outs, K.col_sum(mats)))
+    torch.cuda.synchronize()
+    counters = K._COL_SUM_COUNTERS.get(mats[0].device)
+    assert counters is None or not counters.any()
 
 
 def _train_block_inputs(cuda, B=64, Lv=60, Lq=14, D=512, F=2048, H=8):

@@ -179,8 +179,10 @@ def test_prepare_q8aux_params_bit_equal_to_jax(model):
         for key in ref[site]:
             _same_bits(out[site][key].contiguous(),
                        jax.device_get(ref[site][key]))
-    # the head (10 answers) sits in rows padded to 16 bytes for gemm_s8
-    assert out["proj"]["w_q"].stride(0) == 16
+    # the head (10 answers) is stored K-major for gemm_s8: [K, N] with K
+    # contiguous, one column after another, no padding
+    w = out["proj"]["w_q"]
+    assert w.stride() == (1, w.shape[0])
 
 
 # ---------------------------------------------------------------------------

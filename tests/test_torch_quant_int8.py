@@ -89,8 +89,12 @@ def test_quantize_params_bit_equal_to_jax(model):
         assert set(out) == set(ref) == {"w_q", "w_scale", "bias"}
         for key in ref:
             _same_bits(out[key], ref[key])
-    # the AttFlat logit (one glimpse) sits in rows padded to 16 bytes
-    assert ttree["attflat_img"]["mlp"]["Dense_0"]["w_q"].stride(0) == 16
+    # every int8 weight is stored K-major for gemm_s8, no padding: the
+    # AttFlat logit (one glimpse) with K contiguous, the head one column
+    # of K after another
+    assert ttree["attflat_img"]["mlp"]["Dense_0"]["w_q"].stride(0) == 1
+    head = ttree["proj"]["w_q"]
+    assert head.stride() == (1, head.shape[0])
 
 
 def _mask(lengths, L):
