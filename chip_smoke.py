@@ -264,6 +264,7 @@ def main() -> None:
             say(f"[ptxas] {line.strip()}")
     sm90_report(_build, _build.load_library())
     attention_report(_build)
+    stack_report(_build)
 
     rows = Rows()
     t_phase = [time.perf_counter()]
@@ -3822,6 +3823,64 @@ def alllayer_inputs(torch, dev, bb, B, Lv, Lq, D, H, L, seed):
             pad_mask(torch, B, Lq, lq, dev))
 
 
+STACK_PRODUCTS = {"decoder": ("qkv1", "m1", "q2", "kv2", "m2", "w1", "w2"),
+                  "encoder": ("qkv", "m", "w1", "w2")}
+
+
+def stack_plan_note(K, name, B, Lv, Lq, D, F, H) -> None:
+    """kernels.stack_plan of one stack call: each product's tile and K
+    splits, each attention stage's plan and items a block runs at once,
+    the grid's cap, the workspace."""
+    if name == "sa_encoder":
+        p, names = K.stack_plan(B, Lq, D, F, H), STACK_PRODUCTS["encoder"]
+    else:
+        p = K.stack_plan(B, Lv, D, F, H, Lq,
+                         "in" if name == "sga_decoder" else "ext")
+        names = STACK_PRODUCTS["decoder"]
+    gemms = ", ".join(f"{n} {g.bm}x{g.bn} x{g.splits}" for n, g in
+                      zip(names, p.gemms) if g is not None)
+    atts = ", ".join(f"{('one-block', 'long')[a.instance]} <{a.dhp}, "
+                     f"{a.kc}> {a.rows} rows x{n} a block"
+                     for a, n in zip(p.attention, p.att_groups))
+    say(f"    [plan] {name} B={B}: {gemms}; attention {atts}; items "
+        f"{p.items}, workspace {p.workspace_floats * 4 / 2 ** 20:.2f} MiB, "
+        f"{p.counters} counters")
+
+
+STACK_BODIES = re.compile(r"persistent\d+(gemm_item|att_one_block|att_long|"
+                          r"ln_regs|ln_rolled)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
+
+
+def stack_report(build) -> None:
+    """The stack kernels' registers, spills and stack frame (ptxas) and
+    their dynamic shared memory; then each stage body's own function
+    (gemm_item<accumulators>, the attention instances, the LayerNorm rows):
+    its stack frame and spills, per source."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    lines = build.build_log.splitlines()
+    if not lines:
+        say("[stacks] the library was built by an earlier process: no ptxas "
+            "log here")
+    kernel = None
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("sga_decoder", "sa_encoder")
+                           if f"{k}_kernel" in line), None)
+            if kernel is None:
+                continue
+            info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                            if "spill" in ln or "registers" in ln
+                            or "stack frame" in ln)
+            say(f"[stacks] {kernel}_kernel: {info}; dynamic shared memory "
+                f"{K.STACK_SMEM} bytes")
+            continue
+        m = STACK_BODIES.search(line)
+        if kernel and "Function properties" in line and m:
+            args = ", ".join(a for a in m.groups()[1:] if a)
+            say(f"[stacks]   {kernel}: {m.group(1)}<{args}>: "
+                f"{lines[i + 1].strip()}")
+
+
 def check_stacks(torch, dev, cfg, state_dict, batches, rows=None):
     """sga_decoder (both k/v sources), sa_encoder and the head-major block
     against their plain twins at each batch; at B = 64 (with rows) their
@@ -3876,6 +3935,7 @@ def check_stacks(torch, dev, cfg, state_dict, batches, rows=None):
                                    else "sga_decoder"]
                 say(f"    {name} B={B}: grid {grid[0]} blocks, {grid[1]} "
                     f"per SM on {grid[2]} SMs, {grid[3]} B shared memory")
+                stack_plan_note(K, name, B, Lv, Lq, D, F, H)
             if rows is None:
                 continue
             ms, pms = cuda_ms(torch, kernel), cuda_ms(torch, plain)

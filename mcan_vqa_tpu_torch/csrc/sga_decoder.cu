@@ -40,10 +40,17 @@
 // Bounds on an H100 (chip_smoke.py [all-layer] computes them per call):
 // MCAN-small at B = 1 by bytes, the 50.3 / 44.0 MB of weights (in-kernel /
 // external k/v) over 3.35 TB/s, ~15 us; at B = 64 by operations, ~2.8
-// GFLOP per sample at 989 TFLOP/s, ~0.18 ms. The 11 barriers a layer and
-// the WMMA tiles keep it far above either.
-#include <algorithm>
-
+// GFLOP per sample at 989 TFLOP/s, ~0.18 ms. What keeps it above them: at
+// B = 1 the 66 grid barriers (2.3 us each) and the few SMs a 60-row stream
+// gives each product (N 512 / 128 = 4 tiles for a merge); at B = 64 the
+// products' rate. The design (persistent_stages.cuh): the products on
+// gemm_sm90.cu's TMA + wgmma mainloop, tiles and K splits from
+// kernels.stack_plan (at B = 1 every product split in two, so twice the
+// SMs read each weight); the attention on masked_attention.cu's mma.sync
+// items, several a block; the LayerNorms from registers. The steps run
+// through one loop over the layer's 11 stages, so each stage's code is in
+// the kernel once. On an H100 80GB HBM3 at 700 W (PERF.md §6): 1.66 ms at B =
+// 64 against the WMMA design's 6.59, 0.73 at B = 1 against 1.27.
 #include "persistent_stages.cuh"
 
 namespace {
@@ -55,121 +62,79 @@ enum Weight {
   W_1, B_1, W_2, B_2, LN3_S, LN3_B, N_WEIGHTS
 };
 enum Scratch { X32, XB, QKV, ATT, Y, V1, V1B, QX, V2, V2B, HB, QB, KV, N_SCRATCH };
+// the tensor maps: the products' A operands, then the stacked weights
+enum Map { A_XB, A_ATT, A_V1B, A_QB, A_V2B, A_HB, M_QKV1, M_M1, M_KV2, M_Q2, M_M2, M_1, M_2, N_MAPS };
+// the products, in the order of the plan's fields
+enum Job { J_QKV1, J_M1, J_Q2, J_KV2, J_M2, J_1, J_2, N_JOBS };
+constexpr int STEPS = 11;   // the stages of a layer
 
 struct Params {
-  const void* v;   // [B, Lv, D] bf16 or f32
-  int v_f32;
-  const void* q;   // [B, Lq, D] bf16 or f32: in-kernel k/v; null: external
-  int q_f32;
-  const void* kq;  // external k/v: [b, l, h, j, d] at kq + b*kv_bs + l*kv_ls + h*kv_hs + j*kv_rs + d
-  const void* vq;
-  int kv_f32;
-  long long kv_bs, kv_ls, kv_hs, kv_rs;
-  const unsigned char* vpad;  // [B, Lv]
-  const unsigned char* qpad;  // [B, Lq]
-  const void* w[N_WEIGHTS];   // each stacked along a leading layer axis, contiguous
-  void* s[N_SCRATCH];
-  void* out;       // [B, Lv, D]
-  int out_f32;
-  int B, Lv, Lq, D, F, H, L;
-  float scale, eps;
+  CUtensorMap maps[N_MAPS];
+  GemmJob jobs[N_JOBS];
+  Args att[2];         // self- and cross-attention (external k/v: layer 0's)
+  AttPlan att_plan[2];
+  LnJob ln[3];         // LN1, LN2, LN3 (bias, gamma, beta of layer 0)
+  const void* v;       // [B, Lv, D] bf16 or f32
+  const void* q;       // [B, Lq, D] bf16 or f32: in-kernel k/v; null: external
+  long long kv_layer;  // external k/v: the bytes from one layer's keys to the next's
+  float* x32;
+  bf16* xb;
+  bf16* qb;
+  void* out;           // [B, Lv, D]
+  float* ws;
+  int* counters;
+  int v_f32, q_f32, out_f32, M, Mq, D, L;
 };
 
-template <typename T>
-__device__ __forceinline__ const T* layer(const Params& p, int w, int l, long long n) {
-  return static_cast<const T*>(p.w[w]) + (size_t)l * n;
+// the product of GEMM step s
+__device__ __forceinline__ int job_of(int s) {
+  return s == 0 ? J_QKV1 : s == 2 ? J_M1 : s == 4 ? J_Q2 : s == 6 ? J_M2 : s == 8 ? J_1 : J_2;
 }
 
-__global__ void __launch_bounds__(THREADS) sga_decoder_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = p.D, F = p.F, M = p.B * p.Lv, Mq = p.B * p.Lq, Dh = D / p.H;
-  const bool in_kernel_kv = p.q != nullptr;
-  float* x32 = static_cast<float*>(p.s[X32]);
-  bf16* xb = static_cast<bf16*>(p.s[XB]);
-  bf16* qkv = static_cast<bf16*>(p.s[QKV]);
-  bf16* att = static_cast<bf16*>(p.s[ATT]);
-  float* y = static_cast<float*>(p.s[Y]);
-  float* v1 = static_cast<float*>(p.s[V1]);
-  bf16* v1b = static_cast<bf16*>(p.s[V1B]);
-  bf16* qx = static_cast<bf16*>(p.s[QX]);
-  float* v2 = static_cast<float*>(p.s[V2]);
-  bf16* v2b = static_cast<bf16*>(p.s[V2B]);
-  bf16* hb = static_cast<bf16*>(p.s[HB]);
-  bf16* qb = static_cast<bf16*>(p.s[QB]);
-  bf16* kv = static_cast<bf16*>(p.s[KV]);
+__global__ void __launch_bounds__(THREADS, 1) sga_decoder_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* last_flag;
+  Ring ring = ring_init(smem, &last_flag);
+  unsigned char* staging = ring_bytes(smem, ring);
+  const int D = p.D;
 
-  convert_stage(p.v, p.v_f32, (long long)M * D, x32, xb);
-  if (in_kernel_kv) convert_stage(p.q, p.q_f32, (long long)Mq * D, nullptr, qb);
+  convert_stage(p.v, p.v_f32, (long long)p.M * D, p.x32, p.xb);
+  if (p.q != nullptr) convert_stage(p.q, p.q_f32, (long long)p.Mq * D, nullptr, p.qb);
   grid_barrier();
 
-  const long long DD = (long long)D * D;
   for (int l = 0; l < p.L; ++l) {
     const bool last = l == p.L - 1;
-    // 1. the fused self-attention projection
-    gemm_stage(GemmJob{xb, D, layer<bf16>(p, W_QKV1, l, 3 * DD), 3 * D, M, 3 * D, D,
-                       layer<float>(p, B_QKV1, l, 3 * D), 0, nullptr, qkv, 3 * D},
-               nullptr, smem);
-    grid_barrier();
-    // 2. self-attention: q, k, v are column blocks of qkv
-    att_stage(AttJob{qkv, (long long)p.Lv * 3 * D, 3 * D, qkv + D, qkv + 2 * D, 0,
-                     (long long)p.Lv * 3 * D, Dh, 3 * D, p.vpad, att, D, p.B, p.H, p.Lv, p.Lv,
-                     Dh, p.scale},
-              smem);
-    grid_barrier();
-    // 3. merge
-    gemm_stage(GemmJob{att, D, layer<bf16>(p, W_M1, l, DD), D, M, D, D, nullptr, 0, y, nullptr,
-                       D},
-               nullptr, smem);
-    grid_barrier();
-    // 4. LN1
-    ln_stage(LnJob{x32, y, layer<float>(p, B_M1, l, D), layer<float>(p, LN1_S, l, D),
-                   layer<float>(p, LN1_B, l, D), v1, v1b, M, D, p.eps});
-    grid_barrier();
-    // 5. the cross query (and, in-kernel, the cross keys / values)
-    const GemmJob kvjob{qb, D, layer<bf16>(p, W_KV2, l, 2 * DD), 2 * D, Mq, 2 * D, D,
-                        layer<float>(p, B_KV2, l, 2 * D), 0, nullptr, kv, 2 * D};
-    gemm_stage(GemmJob{v1b, D, layer<bf16>(p, W_Q2, l, DD), D, M, D, D,
-                       layer<float>(p, B_Q2, l, D), 0, nullptr, qx, D},
-               in_kernel_kv ? &kvjob : nullptr, smem);
-    grid_barrier();
-    // 6. cross-attention
-    if (in_kernel_kv)
-      att_stage(AttJob{qx, (long long)p.Lv * D, D, kv, kv + D, 0, (long long)p.Lq * 2 * D, Dh,
-                       2 * D, p.qpad, att, D, p.B, p.H, p.Lv, p.Lq, Dh, p.scale},
-                smem);
-    else {
-      const size_t lo = (size_t)l * p.kv_ls * (p.kv_f32 ? 4 : 2);
-      att_stage(AttJob{qx, (long long)p.Lv * D, D, static_cast<const char*>(p.kq) + lo,
-                       static_cast<const char*>(p.vq) + lo, p.kv_f32, p.kv_bs, p.kv_hs, p.kv_rs,
-                       p.qpad, att, D, p.B, p.H, p.Lv, p.Lq, Dh, p.scale},
-                smem);
+    for (int s = 0; s < STEPS; ++s) {
+      if (s == 1 || s == 5) {
+        // 2. self-attention over the regions, 6. cross-attention
+        const int c = s == 5;
+        Args a = p.att[c];
+        if (c && p.q == nullptr) {
+          a.k = static_cast<const char*>(a.k) + l * p.kv_layer;
+          a.v = static_cast<const char*>(a.v) + l * p.kv_layer;
+        }
+        att_stage(a, p.att_plan[c], staging);
+      } else if (s == 3 || s == 7 || s == 10) {
+        // 4. LN1, 8. LN2, 11. LN3: the f32 stream, or after the last layer
+        // the output
+        const int i = s == 3 ? 0 : s == 7 ? 1 : 2;
+        LnJob j = p.ln[i];
+        if (j.bias != nullptr) j.bias += (size_t)l * D;
+        j.gamma += (size_t)l * D;
+        j.beta += (size_t)l * D;
+        if (i == 2 && last) {
+          j.o32 = p.out_f32 ? static_cast<float*>(p.out) : nullptr;
+          j.o16 = p.out_f32 ? nullptr : static_cast<bf16*>(p.out);
+        }
+        ln_stage(j);
+      } else {
+        // 1. qkv, 3. merge, 5. the cross query (in-kernel: and the cross
+        // keys / values), 7. merge, 9. FFN up, 10. FFN down
+        gemm_stage(p.maps, p.jobs[job_of(s)], s == 4 && p.q != nullptr ? &p.jobs[J_KV2] : nullptr,
+                   l, ring, p.ws, p.counters, last_flag);
+      }
+      if (!(last && s == STEPS - 1)) grid_barrier();
     }
-    grid_barrier();
-    // 7. merge
-    gemm_stage(GemmJob{att, D, layer<bf16>(p, W_M2, l, DD), D, M, D, D, nullptr, 0, y, nullptr,
-                       D},
-               nullptr, smem);
-    grid_barrier();
-    // 8. LN2
-    ln_stage(LnJob{v1, y, layer<float>(p, B_M2, l, D), layer<float>(p, LN2_S, l, D),
-                   layer<float>(p, LN2_B, l, D), v2, v2b, M, D, p.eps});
-    grid_barrier();
-    // 9. FFN up, ReLU, bf16 h
-    gemm_stage(GemmJob{v2b, D, layer<bf16>(p, W_1, l, (long long)D * F), F, M, F, D,
-                       layer<float>(p, B_1, l, F), 1, nullptr, hb, F},
-               nullptr, smem);
-    grid_barrier();
-    // 10. FFN down
-    gemm_stage(GemmJob{hb, F, layer<bf16>(p, W_2, l, (long long)F * D), D, M, D, F,
-                       layer<float>(p, B_2, l, D), 0, y, nullptr, D},
-               nullptr, smem);
-    grid_barrier();
-    // 11. LN3: the f32 stream, or after the last layer the output
-    float* o32 = last ? (p.out_f32 ? static_cast<float*>(p.out) : nullptr) : x32;
-    bf16* o16 = last ? (p.out_f32 ? nullptr : static_cast<bf16*>(p.out)) : xb;
-    ln_stage(LnJob{v2, y, nullptr, layer<float>(p, LN3_S, l, D), layer<float>(p, LN3_B, l, D),
-                   o32, o16, M, D, p.eps});
-    if (!last) grid_barrier();
   }
 }
 
@@ -185,45 +150,96 @@ __global__ void __launch_bounds__(THREADS) sga_decoder_kernel(Params p) {
 // D], bm1, ln1_s, ln1_b [L, D], wkv2 [L, D, 2D], bkv2 [L, 2D] (both
 // unused, may be null, with external k/v), wq2 [L, D, D], bq2, wm2, bm2,
 // ln2_s, ln2_b, w1 [L, D, F], b1 [L, F], w2 [L, F, D], b2, ln3_s, ln3_b;
-// matrices bf16, vectors f32, all contiguous. scratch: host array of the 13
-// device buffers x32, xb, qkv, att, y, v1, v1b, qx, v2, v2b, h, qb, kv (f32
-// where named 32 or y / v1 / v2, else bf16; [M, D] but qkv [M, 3D], h [M,
-// F], qb [B*Lq, D], kv [B*Lq, 2D]; the last two only for the in-kernel
-// k/v), each 16-byte aligned. out: [B, Lv, D], f32 when out_f32, else bf16.
-// Requires D and F multiples of 8, D / H <= 256. info: see
-// launch_cooperative. Returns the CUDA error of the launch.
+// matrices bf16, vectors f32, all contiguous, the matrices 16-byte aligned.
+// scratch: host array of the 13 device buffers x32, xb, qkv, att, y, v1,
+// v1b, qx, v2, v2b, h, qb, kv (f32 where named 32 or y / v1 / v2, else
+// bf16; [M, D] but qkv [M, 3D], h [M, F], qb [B*Lq, D], kv [B*Lq, 2D]; the
+// last two only for the in-kernel k/v), each 16-byte aligned. out: [B, Lv,
+// D], f32 when out_f32, else bf16. plan: kernels.stack_plan's fields (per
+// product qkv1, m1, q2, kv2, m2, w1, w2: bm, bn, splits, workspace and
+// counter offsets; per attention, self then cross: instance, dhp, kc, rows;
+// then the largest stage's work items); workspace (f32) and counters
+// (int32, zero, left zero) where a product splits. Requires D and F
+// multiples of 8, D / H <= 256. info: see launch_cooperative. Returns the
+// CUDA error of the launch, or cudaErrorInvalidValue for a shape or plan it
+// does not take or a tensor map that cuTensorMapEncodeTiled refuses.
 MCAN_API int mcan_sga_decoder(const void* v, int v_f32, const void* q, int q_f32, const void* kq,
                               const void* vq, int kv_f32, long long kv_bs, long long kv_ls,
                               long long kv_hs, long long kv_rs, const void* vpad,
                               const void* qpad, const void* const* w, void* const* scratch,
                               void* out, int out_f32, int B, int Lv, int Lq, int D, int F, int H,
-                              int L, float scale, float eps, int max_blocks, int* info,
-                              void* stream) {
+                              int L, float scale, float eps, const int* plan, void* workspace,
+                              void* counters, int max_blocks, int* info, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || Lv < 1 || Lq < 1 || L < 1 || H < 1 || D % H != 0 || D / H > MAX_DH || D % 8 != 0 ||
-      F % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p{v, v_f32, q, q_f32, kq, vq, kv_f32, kv_bs, kv_ls, kv_hs, kv_rs,
-           static_cast<const unsigned char*>(vpad), static_cast<const unsigned char*>(qpad)};
-  for (int i = 0; i < N_WEIGHTS; ++i) p.w[i] = w[i];
-  for (int i = 0; i < N_SCRATCH; ++i) p.s[i] = scratch[i];
+      F % 8 != 0 || plan == nullptr)
+    return invalid;
+  const bool in_kv = q != nullptr;
+  const int M = B * Lv, Mq = B * Lq, Dh = D / H;
+  Params p;
+  memset(&p, 0, sizeof p);
+  auto S = [&](int i) { return scratch[i]; };
+  auto b16 = [&](int i) { return static_cast<bf16*>(scratch[i]); };
+  auto f32 = [&](int i) { return static_cast<float*>(scratch[i]); };
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  bool ok = act_map(&p.maps[A_XB], S(XB), M, D) && act_map(&p.maps[A_ATT], S(ATT), M, D) &&
+            act_map(&p.maps[A_V1B], S(V1B), M, D) && act_map(&p.maps[A_V2B], S(V2B), M, D) &&
+            act_map(&p.maps[A_HB], S(HB), M, F) &&
+            (!in_kv || act_map(&p.maps[A_QB], S(QB), Mq, D)) &&
+            weight_map(&p.maps[M_QKV1], w[W_QKV1], L, D, 3 * D) &&
+            weight_map(&p.maps[M_M1], w[W_M1], L, D, D) &&
+            (!in_kv || weight_map(&p.maps[M_KV2], w[W_KV2], L, D, 2 * D)) &&
+            weight_map(&p.maps[M_Q2], w[W_Q2], L, D, D) &&
+            weight_map(&p.maps[M_M2], w[W_M2], L, D, D) &&
+            weight_map(&p.maps[M_1], w[W_1], L, D, F) && weight_map(&p.maps[M_2], w[W_2], L, F, D);
+  p.jobs[J_QKV1] = GemmJob{A_XB, M_QKV1, M, 3 * D, D, 0, 0, 0, 0, 0, fw(B_QKV1), 0, nullptr, b16(QKV)};
+  p.jobs[J_M1] = GemmJob{A_ATT, M_M1, M, D, D, 0, 0, 0, 0, 0, nullptr, 0, f32(Y), nullptr};
+  p.jobs[J_Q2] = GemmJob{A_V1B, M_Q2, M, D, D, 0, 0, 0, 0, 0, fw(B_Q2), 0, nullptr, b16(QX)};
+  p.jobs[J_KV2] = GemmJob{A_QB, M_KV2, Mq, 2 * D, D, 0, 0, 0, 0, 0, fw(B_KV2), 0, nullptr, b16(KV)};
+  p.jobs[J_M2] = GemmJob{A_ATT, M_M2, M, D, D, 0, 0, 0, 0, 0, nullptr, 0, f32(Y), nullptr};
+  p.jobs[J_1] = GemmJob{A_V2B, M_1, M, F, D, 0, 0, 0, 0, 0, fw(B_1), 1, nullptr, b16(HB)};
+  p.jobs[J_2] = GemmJob{A_HB, M_2, M, D, F, 0, 0, 0, 0, 0, fw(B_2), 0, f32(Y), nullptr};
+  for (int j = 0; j < N_JOBS; ++j)
+    if (j != J_KV2 || in_kv) ok = ok && take_job(p.jobs[j], plan + JOB_FIELDS * j, workspace && counters);
+  const Philox none{0, 0u, 0u, 0u, 0};
+  const auto* vp = static_cast<const unsigned char*>(vpad);
+  const auto* qp = static_cast<const unsigned char*>(qpad);
+  bf16* qkv = b16(QKV);
+  p.att[0] = Args{qkv, 0, (long long)Lv * 3 * D, Dh, 3 * D, qkv + D, qkv + 2 * D,
+                  (long long)Lv * 3 * D, Dh, 3 * D, 0, vp, nullptr, none, 1.0f, S(ATT), 0,
+                  (long long)Lv * D, D, B, H, Lv, Lv, Dh, scale, 0};
+  if (in_kv)
+    p.att[1] = Args{b16(QX), 0, (long long)Lv * D, Dh, D, b16(KV), b16(KV) + D,
+                    (long long)Lq * 2 * D, Dh, 2 * D, 0, qp, nullptr, none, 1.0f, S(ATT), 0,
+                    (long long)Lv * D, D, B, H, Lv, Lq, Dh, scale, 0};
+  else
+    p.att[1] = Args{b16(QX), 0, (long long)Lv * D, Dh, D, kq, vq, kv_bs, kv_hs, kv_rs, kv_f32,
+                    qp, nullptr, none, 1.0f, S(ATT), 0, (long long)Lv * D, D, B, H, Lv, Lq, Dh,
+                    scale, 0};
+  const int* att_fields = plan + JOB_FIELDS * N_JOBS;
+  ok = ok && take_att(p.att[0], p.att_plan[0], att_fields) &&
+       take_att(p.att[1], p.att_plan[1], att_fields + ATT_FIELDS);
+  const int useful = att_fields[2 * ATT_FIELDS];
+  if (!ok || useful < 1) return invalid;
+  p.ln[0] = LnJob{f32(X32), f32(Y), fw(B_M1), fw(LN1_S), fw(LN1_B), f32(V1), b16(V1B), M, D, eps};
+  p.ln[1] = LnJob{f32(V1), f32(Y), fw(B_M2), fw(LN2_S), fw(LN2_B), f32(V2), b16(V2B), M, D, eps};
+  p.ln[2] = LnJob{f32(V2), f32(Y), nullptr, fw(LN3_S), fw(LN3_B), f32(X32), b16(XB), M, D, eps};
+  p.v = v;
+  p.q = q;
+  p.kv_layer = kv_ls * (kv_f32 ? 4 : 2);
+  p.x32 = f32(X32);
+  p.xb = b16(XB);
+  p.qb = b16(QB);
   p.out = out;
+  p.ws = static_cast<float*>(workspace);
+  p.counters = static_cast<int*>(counters);
+  p.v_f32 = v_f32;
+  p.q_f32 = q_f32;
   p.out_f32 = out_f32;
-  p.B = B;
-  p.Lv = Lv;
-  p.Lq = Lq;
+  p.M = M;
+  p.Mq = Mq;
   p.D = D;
-  p.F = F;
-  p.H = H;
   p.L = L;
-  p.scale = scale;
-  p.eps = eps;
-  const int M = B * Lv, Mq = B * Lq, rows = (M + BM - 1) / BM;
-  // the largest stage's work items: the FFN up, qkv or cross-q (+ k/v)
-  // tiles, the attention items, the LayerNorm rows (WARPS to a block)
-  const int useful = std::max(
-      {rows * ((F + BN - 1) / BN), rows * ((3 * D + BN - 1) / BN),
-       rows * ((D + BN - 1) / BN) + (q != nullptr ? ((Mq + BM - 1) / BM) * ((2 * D + BN - 1) / BN) : 0),
-       B * H * ((Lv + QR - 1) / QR), (M + WARPS - 1) / WARPS});
-  return persistent::launch_cooperative(sga_decoder_kernel, p, D / H, useful, max_blocks, info,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_cooperative(sga_decoder_kernel, p, useful, max_blocks, info,
+                            static_cast<cudaStream_t>(stream));
 }

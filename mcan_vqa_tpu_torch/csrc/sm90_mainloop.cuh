@@ -1,0 +1,628 @@
+// sm90_mainloop: the pieces of Hopper's asynchronous tensor-core GEMM that
+// gemm_sm90.cu's instances (the per-call products) and persistent_stages.cuh
+// (the GEMM stages of the all-layer stacks) share, so that the port has one
+// mainloop: TMA loads (cp.async.bulk.tensor, 128-byte swizzle, zero-filled
+// past the tensor's edge) into a ring of K-tile slots guarded by full /
+// empty mbarriers, produced by one thread and consumed by warpgroups that
+// issue wgmma.mma_async from shared-memory descriptors (an operand with K
+// contiguous read K-major, one with M or N contiguous MN-major through the
+// transpose bits), one wgmma group in flight while the next slot is awaited;
+// the forward's epilogue from the accumulator registers (bias, ReLU, keep
+// bits, one rounding); the split-K sum in a fixed order through a
+// workspace and one counter per tile; the host's tensor-map encoding.
+// gemm_sm90.cu's header note says what bounds its products and how the
+// persistent grid walks their items; persistent_stages.cuh how the stacks do.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the encode function's types; no -lcuda
+
+#include <cstdint>
+#include <cstring>
+
+#include "common.cuh"
+
+namespace sm90 {
+
+constexpr int BM = 128, BK = 64;
+constexpr int BOX = 64 * BK * 2;          // one 64 x 64 bf16 box: 8 KB
+constexpr uint32_t SWIZZLE_ATOM = 1024;   // 8 rows of 128 bytes
+
+struct Epilogue {
+  const bf16* gate;   // NT: [M, N], keep (x inv_keep) where > 0, else 0
+  long long ldg;
+  float inv_keep;     // NT's gate and NN's keep-mask
+  const float* res;   // NT: [M, N] f32 added after the gate, or null
+  long long ldr;
+  float* out_f32;     // either output may be null (NN: one is); both dense [M, N]
+  bf16* out_bf16;
+  long long ldo;
+  const float* bias;  // NN: [N] f32 or null
+  int relu;
+  const unsigned char* mask;   // NN: [M, N] keep-mask (row stride ldm) or null
+  long long ldm;
+  Philox keep;        // NN: or its seeded source (the seeded instance only)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// one box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one box of a 3-D tensor map at (c0 inner, c1, c2 outer) into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand in shared memory:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// = 128B swizzle. K-major: SBO = 1024 (8 rows of 128 B), LBO unused.
+// MN-major: SBO = 1024 (8 K-rows of 128 B), LBO = the next 64-wide MN box.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (issue, wait)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the consumer warpgroups only (the producer warp has left)
+template <int N>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+}
+
+// m64n128k16: 64 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n64k16: 32 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n128k32, s8 x s8 -> s32: 64 accumulators a thread (both operands K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "wgmma has no transpose for 8-bit operands");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// m64n64k32, s8 x s8 -> s32: 32 accumulators a thread (both operands K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "wgmma has no transpose for 8-bit operands");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The ring of K-tile slots at `base` (STAGES slots of STAGE_BYTES, 1024-byte
+// aligned), its mbarriers at `bars` (full[s] at bars + 8 s, then empty[s]):
+// the producer's side for one work item of nk K-tiles. For each, it waits
+// for the slot to be free, arms its full barrier with the bytes to come and
+// calls load(slot address, full barrier, i), which issues the TMA loads.
+// stage / phase carry the ring's position from item to item.
+template <int STAGES, int STAGE_BYTES, typename Load>
+__device__ __forceinline__ void produce(uint32_t base, uint32_t bars, int& stage, uint32_t& phase,
+                                        int nk, uint32_t bytes, Load&& load) {
+  for (int i = 0; i < nk; ++i) {
+    mbar_wait(bars + 8 * (STAGES + stage), phase ^ 1);   // the slot is free
+    const uint32_t full = bars + 8 * stage;
+    mbar_expect_tx(full, bytes);
+    load(base + stage * STAGE_BYTES, full, i);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// The consumers' side for one work item: acc[h] += A(half h) . B for each of
+// the nk K-tiles of BK, the A operand of half h at slot + a_off + h BOX
+// (64 rows), B at slot + b_off. Each K-tile is BK / 16 wgmma steps (32
+// bytes of a K-major row or 16 rows of an MN-major operand each); the
+// group is committed, between() runs while the tensor cores work, and the
+// previous K-tile's slot is released once its group is done.
+template <int TA, int TB, int STAGES, int STAGE_BYTES, int HALVES, typename Acc, int ACC,
+          typename Between>
+__device__ __forceinline__ void consume(Acc (&acc)[HALVES][ACC], uint32_t base, uint32_t bars,
+                                        int& stage, uint32_t& phase, int nk, uint32_t a_off,
+                                        uint32_t b_off, Between&& between) {
+  int prev = 0;
+  for (int i = 0; i < nk; ++i) {
+    mbar_wait(bars + 8 * stage, phase);
+    const uint32_t a = base + stage * STAGE_BYTES + a_off;
+    const uint32_t b = base + stage * STAGE_BYTES + b_off;
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // K-major: the next 16 k (S8: 32) are 32 bytes on in each 128-byte
+      // row; MN-major: 16 k-rows of 128 bytes on
+      const uint32_t step_a = TA ? kk * 16 * 128 : kk * 32;
+      const uint32_t step_b = TB ? kk * 16 * 128 : kk * 32;
+      const uint64_t db = desc(b + step_b, BOX, SWIZZLE_ATOM);
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h)   // rows 64 h .. + 63: the next box
+        wgmma<TA, TB>(acc[h], desc(a + h * BOX + step_a, BOX, SWIZZLE_ATOM), db);
+    }
+    wgmma_commit();
+    between();
+    wgmma_wait<1>();   // the previous stage's products are done with it
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+    if (i > 0) mbar_arrive(bars + 8 * (STAGES + prev));
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
+  if (nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
+}
+
+// Split-K: this split's f32 partial of one output tile, as float4 q of
+// consumer thread tid at [q][tid] (coalesced), into the tile's slots of the
+// workspace (splits x Q x CONSUMERS float4s a tile); then the tile's counter
+// (the only atomic). The last block to arrive puts the counter back to 0
+// for the next launch, reads every split's partial back (its own too, as
+// written) and sums them in split order 0 .. S-1 into acc, so the bits do
+// not depend on which block ran first. Returns true in that block, which
+// then runs the epilogue, eight loads of one split in flight at a time.
+// last_flag: an int in shared memory; CONSUMERS threads take part. A thread
+// whose accumulators all lie past the output's rows (live false) writes
+// and reads nothing: its rows are never stored.
+template <int HALVES, int ACC, int CONSUMERS>
+__device__ __forceinline__ bool split_sum(float (&acc)[HALVES][ACC], float* ws, int* counters,
+                                          int tile, int split, int splits, int tid,
+                                          int* last_flag, bool live = true) {
+  constexpr int Q = HALVES * ACC / 4;   // float4s a thread
+  float4* slots = reinterpret_cast<float4*>(ws) + static_cast<size_t>(tile) * splits * Q * CONSUMERS;
+  float4* mine = slots + static_cast<size_t>(split) * Q * CONSUMERS;
+  if (live) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int h = q / (ACC / 4), c = (q % (ACC / 4)) * 4;
+      mine[q * CONSUMERS + tid] = make_float4(acc[h][c], acc[h][c + 1], acc[h][c + 2], acc[h][c + 3]);
+    }
+  }
+  __threadfence();
+  consumer_sync<CONSUMERS>();
+  if (tid == 0) {
+    const int last = atomicAdd(&counters[tile], 1) == splits - 1;
+    if (last) counters[tile] = 0;   // ready for the next launch
+    *last_flag = last;
+  }
+  consumer_sync<CONSUMERS>();
+  if (!*last_flag) return false;
+  __threadfence();
+  if (!live) return true;
+  constexpr int QC = 8;
+#pragma unroll
+  for (int q0 = 0; q0 < Q; q0 += QC) {
+    for (int s = 0; s < splits; ++s) {
+      const float4* p = slots + (static_cast<size_t>(s) * Q + q0) * CONSUMERS + tid;
+      float4 v[QC];
+#pragma unroll
+      for (int q = 0; q < QC; ++q) v[q] = __ldcg(p + q * CONSUMERS);
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const int h = (q0 + q) / (ACC / 4), c = ((q0 + q) % (ACC / 4)) * 4;
+        acc[h][c] = s == 0 ? v[q].x : acc[h][c] + v[q].x;
+        acc[h][c + 1] = s == 0 ? v[q].y : acc[h][c + 1] + v[q].y;
+        acc[h][c + 2] = s == 0 ? v[q].z : acc[h][c + 2] + v[q].z;
+        acc[h][c + 3] = s == 0 ? v[q].w : acc[h][c + 3] + v[q].w;
+      }
+    }
+  }
+  return true;
+}
+
+// a[i] for a run-time i < N, by selects (an indexed register array would
+// go to local memory)
+template <int N>
+__device__ __forceinline__ unsigned pick(const unsigned (&a)[N], int i) {
+  unsigned v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = i == k ? a[k] : v;
+  return v;
+}
+
+// The forward's (NN) per-item state beside a thread's accumulators: HALVES
+// 64-row halves of ACC each (a warpgroup's m64nN, N = 2 ACC, per half).
+// Accumulator j of half h holds row r0 + 64 h + 8 ((j / 2) % 2), column
+// c0 + 8 (j / 4) + j % 2, where r0 = the half's first row + 16 warp + lane
+// / 4 and c0 = its first column + 2 (lane % 4): a thread's
+// columns are the same in every row it holds, so its ACC / 4 bias pairs are
+// loaded once, as the item starts (their latency hides behind the
+// mainloop). The keep bits of its HALVES x ACC accumulators go into one
+// 64-bit mask, bit h ACC + j.
+//
+// Seeded, a pair (col, col + 1) starts on an even column, so its elements
+// e, e + 1 share the Philox counter e >> 2 (words 0, 1 where e % 4 == 0,
+// else 2, 3), and the lanes 2i, 2i + 1 of a quad hold the same rows and
+// columns 4k .. 4k + 3 between them: one counter. So a lane pair draws each
+// of its counters once: in draw s the even lane takes the thread's pair
+// 2s, the odd lane pair 2s + 1, and each hands the other the keep bits of
+// the other's words by one shuffle -- philox_keep_rows's decision, element
+// by element, at a quarter of its draws. A row's sample and first element
+// are worked out as the item starts. The draws run in batches of B
+// independent draws (a lone draw waits out each round's latency), in a
+// rolled loop (Philox inlined into an unrolled row takes minutes to
+// build): a batch between the mainloop's wgmma issue and wait, while the
+// tensor cores run, the rest after the mainloop.
+template <int HALVES, int ACC, bool SEEDED>
+struct NNState {
+  static constexpr int PAIRS = ACC / 4;
+  static constexpr int DRAWS = HALVES * ACC / 4;   // per thread and item
+  float2 bias[PAIRS];
+  unsigned long long kept;
+  int drawn;
+  unsigned sample[2 * HALVES], first[2 * HALVES];   // of row r0 + 64 h + 8 hi at 2 h + hi
+
+  __device__ __forceinline__ void start(const Epilogue& ep, int r0, int c0, int N) {
+    if (ep.bias != nullptr) {
+#pragma unroll
+      for (int p = 0; p < PAIRS; ++p) {
+        const int col = c0 + 8 * p;
+        bias[p] = col < N ? make_float2(__ldg(ep.bias + col), __ldg(ep.bias + col + 1))
+                          : make_float2(0.0f, 0.0f);
+      }
+    }
+    kept = 0;
+    drawn = 0;
+    if (SEEDED) {
+#pragma unroll
+      for (int i = 0; i < 2 * HALVES; ++i) {
+        const int row = r0 + 64 * (i / 2) + 8 * (i % 2), b = row / ep.keep.rows;
+        sample[i] = static_cast<unsigned>(b);
+        first[i] = static_cast<unsigned>((row - static_cast<long long>(b) * ep.keep.rows) * N);
+      }
+    }
+  }
+
+  // draws drawn .. drawn + B - 1 (B divides what is left)
+  template <int B>
+  __device__ __forceinline__ void draw(const Epilogue& ep, int lane, int r0, int c0, int M, int N) {
+    const int odd = lane & 1;
+    uint4 w[B];
+    bool in[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int j = 2 * (drawn + i) + odd;   // pair q of half h
+      const int h = j / (ACC / 2), q = j % (ACC / 2), hi = q & 1;
+      const int row = r0 + 64 * h + 8 * hi, col = c0 + 8 * (q >> 1);
+      in[i] = row < M && col < N;
+      const unsigned e = pick(first, 2 * h + hi) + static_cast<unsigned>(col);
+      w[i] = philox4x32_10(make_uint4(e >> 2, pick(sample, 2 * h + hi), 0u, 0u),
+                           make_uint2(ep.keep.seed, ep.keep.site));
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const unsigned t = ep.keep.thresh;   // keep bits from words 0, 1 and 2, 3
+      const unsigned lo = in[i] ? (w[i].x < t ? 1u : 0u) | (w[i].y < t ? 2u : 0u) : 0u;
+      const unsigned hi = in[i] ? (w[i].z < t ? 1u : 0u) | (w[i].w < t ? 2u : 0u) : 0u;
+      const unsigned mine = odd ? hi : lo;
+      const unsigned got = __shfl_xor_sync(0xFFFFFFFFu, odd ? lo : hi, 1);   // the partner's pair
+      kept |= static_cast<unsigned long long>(odd ? got | mine << 2 : mine | got << 2)
+              << (4 * (drawn + i));
+    }
+    drawn += B;
+  }
+};
+
+// 4 x 4 transpose of 32-bit values across the lanes of a quad: lane t's
+// a[s] becomes lane s's a[t]. Two butterfly stages, each swapping one bit
+// of (lane, position) for the values whose bits differ.
+__device__ __forceinline__ void quad_transpose(unsigned (&a)[4], int lane) {
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    const bool up = lane & m;
+#pragma unroll
+    for (int s0 = 0; s0 < 4; ++s0) {
+      if (s0 & m) continue;
+      const unsigned got = __shfl_xor_sync(0xFFFFFFFFu, up ? a[s0] : a[s0 | m], m);
+      if (up)
+        a[s0] = got;
+      else
+        a[s0 | m] = got;
+    }
+  }
+}
+
+// The forward's epilogue from the accumulator registers, in gemm_bias_act's
+// order: + bias[col], ReLU, then the keep-mask or its Philox source (x
+// inv_keep, else 0), one rounding into the dense output. The mask of a pair
+// is two adjacent bytes; a half's pairs are all loaded before its first
+// store, then kept as bits like the seeded ones. f32 rows go out as the
+// pairs the lanes hold (a quad writes 32 bytes of a row at a time); bf16
+// pairs are 4 bytes, so a quad first transposes four of them, and each
+// lane writes 8 columns (16 bytes: a quad 64 contiguous bytes of a row).
+template <int HALVES, int ACC, bool SEEDED>
+__device__ __forceinline__ void nn_epilogue(float (&acc)[HALVES][ACC],
+                                            NNState<HALVES, ACC, SEEDED>& st, int lane, int r0,
+                                            int c0, int M, int N, const Epilogue& ep) {
+  constexpr int PAIRS = ACC / 4;
+  if (SEEDED) {
+#pragma unroll 1
+    while (st.drawn < NNState<HALVES, ACC, SEEDED>::DRAWS) st.template draw<2>(ep, lane, r0, c0, M, N);
+  }
+  const bool drop = SEEDED || ep.mask != nullptr;
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+    const int rh = r0 + 64 * h;
+    if (!SEEDED && ep.mask != nullptr) {
+      unsigned short mk[ACC / 2];
+#pragma unroll
+      for (int q = 0; q < ACC / 2; ++q) {
+        const int row = rh + 8 * (q & 1), col = c0 + 8 * (q >> 1);
+        mk[q] = row < M && col < N ? *reinterpret_cast<const unsigned short*>(
+                                         ep.mask + static_cast<size_t>(row) * ep.ldm + col)
+                                   : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < ACC / 2; ++q)   // little-endian: col's byte is the low one
+        st.kept |= static_cast<unsigned long long>(((mk[q] & 0xFFu) != 0u ? 1u : 0u) |
+                                                   ((mk[q] >> 8) != 0u ? 2u : 0u))
+                   << (h * ACC + 2 * q);
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = rh + 8 * hi;
+#pragma unroll
+      for (int g = 0; g < PAIRS; g += 4) {   // pairs g .. g + 3: columns 8 g .. 8 g + 31
+        float v[8];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = 4 * (g + s) + 2 * hi;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float x = acc[h][j + k];
+            if (ep.bias != nullptr) x += k ? st.bias[g + s].y : st.bias[g + s].x;
+            if (ep.relu) x = fmaxf(x, 0.0f);
+            if (drop) x = (st.kept >> (h * ACC + j + k)) & 1ull ? x * ep.inv_keep : 0.0f;
+            v[2 * s + k] = x;
+          }
+        }
+        if (ep.out_f32 != nullptr) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int col = c0 + 8 * (g + s);
+            if (row < M && col < N)   // N is even: col + 1 < N too
+              *reinterpret_cast<float2*>(ep.out_f32 + static_cast<size_t>(row) * ep.ldo + col) =
+                  make_float2(v[2 * s], v[2 * s + 1]);
+          }
+        } else {
+          unsigned a[4];
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const __nv_bfloat162 b2 = __halves2bfloat162(to_bf16(v[2 * s]), to_bf16(v[2 * s + 1]));
+            a[s] = *reinterpret_cast<const unsigned*>(&b2);
+          }
+          quad_transpose(a, lane);   // a: columns 8 (g + lane % 4) .. + 7 of the row
+          const int col = c0 - 2 * (lane & 3) + 8 * (g + (lane & 3));
+          if (row < M && col < N)   // N % 8 == 0: all 8 columns or none
+            *reinterpret_cast<uint4*>(ep.out_bf16 + static_cast<size_t>(row) * ep.ldo + col) =
+                make_uint4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
+// point query (no -lcuda at link time); null where it is missing
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// a matrix of `outer` rows of `inner` elements of `bytes` bytes (2: bf16,
+// 1: int8), row stride `ld` elements, read in boxes of box_outer rows x
+// box_inner elements (128 bytes, the swizzle span); out-of-bounds elements
+// read as zeros
+inline bool make_map(CUtensorMap* map, const void* ptr, int bytes, long long inner, long long outer,
+              long long ld, int box_inner, int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  // one row: its stride is never stepped over, and may be anything
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(outer > 1 ? ld * bytes : (inner * bytes + 15) / 16 * 16)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a stack of `depth` matrices of `outer` rows of `inner` bf16 elements, each
+// contiguous (row stride inner, matrix stride inner x outer), read in boxes
+// of one matrix's box_outer rows x box_inner elements (128 bytes, the
+// swizzle span); out-of-bounds elements read as zeros
+inline bool make_map3(CUtensorMap* map, const void* ptr, long long inner, long long outer,
+                      long long depth, int box_inner, int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner * 2),
+                                 static_cast<cuuint64_t>(inner * outer * 2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90

@@ -73,9 +73,9 @@ SIGNATURES = {
     "mcan_philox_words": [_U, _U, _I, _I, _P, _P],
     "mcan_sga_decoder": [_P, _I, _P, _I, _P, _P, _I, _LL, _LL, _LL, _LL, _P,
                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _F, _I, _P, _P],
+                         _F, _P, _P, _P, _I, _P, _P],
     "mcan_sa_encoder": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _I, _P, _P],
+                        _F, _F, _P, _P, _P, _I, _P, _P],
     "mcan_ffn_ln_blocked": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _F, _P],
     "mcan_ffn_ln_wstationary": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,

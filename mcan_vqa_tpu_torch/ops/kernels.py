@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import struct
 from dataclasses import dataclass
@@ -1575,6 +1576,200 @@ ENCODER_WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "ln1_s", "ln1_b", "w1", "b1",
 COOPERATIVE_LAUNCH_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
 # each wrapper's last launch: (grid, blocks per SM, SMs, shared memory bytes)
 LAST_GRID: Dict[str, Tuple[int, int, int, int]] = {}
+# persistent_stages.cuh: a block of two consumer warpgroups and a producer
+# warp; a ring of six K-tile slots of 32 KB (A: two 64-row boxes, W: two
+# 64-column boxes), which the attention items stage in too; LayerNorm rows
+# one to a warp
+STACK_TILES = ((128, 128), (128, 64), (64, 128))
+STACK_SLOT = 2 * 128 * GEMM_BK * 2
+STACK_RING = 6 * STACK_SLOT
+STACK_SMEM = 1024 + STACK_RING + 16 * 6 + 16
+STACK_WARPS = 9
+STACK_CONSUMERS = 256  # the two consumer warpgroups
+STACK_MAX_SPLITS = 2   # the last block of a split tile reads every split's
+#                        partial after a chain of round trips (partial
+#                        stores, fence, counter): on the card 2 splits beat
+#                        1, 4 and 8 at B = 1 and came within 3% of 1 at B = 8
+#                        (PERF.md §6)
+
+
+@dataclass(frozen=True)
+class StackGemm:
+    """One product of an all-layer stack's GEMM stage: output tiles of
+    ``bm`` x ``bn``, K in ``k_tiles`` tiles of 64 split over ``splits``
+    blocks per tile (split s sums ``split_range(s)``); a split product's f32
+    partials at float ``ws`` of the workspace and its tile counters at
+    ``cnt``."""
+    M: int
+    N: int
+    K: int
+    bm: int
+    bn: int
+    splits: int
+    ws: int = 0
+    cnt: int = 0
+
+    @property
+    def tiles_m(self) -> int:
+        return -(-self.M // self.bm)
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.N // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def k_tiles(self) -> int:
+        return -(-self.K // GEMM_BK)
+
+    @property
+    def items(self) -> int:
+        return self.tiles * self.splits
+
+    def split_range(self, s: int) -> Tuple[int, int]:
+        return (s * self.k_tiles // self.splits,
+                (s + 1) * self.k_tiles // self.splits)
+
+    @property
+    def ws_floats(self) -> int:
+        """The f32 partials of every split of every tile (none unsplit)."""
+        return 0 if self.splits == 1 else \
+            self.splits * self.tiles * self.bm * self.bn
+
+    @property
+    def counters(self) -> int:
+        return 0 if self.splits == 1 else self.tiles
+
+
+def _stack_gemm(M: int, N: int, K: int) -> StackGemm:
+    """A stage's product from its shape: 64 x 128 tiles where the rows fit
+    one 64-row tile; else 128 x 128 where its tiles reach half the SMs, then
+    128 x 64, else whichever of 128 x 64 and 64 x 128 gives more tiles (128
+    x 64 on a tie). Where the tiles still leave more than half the SMs idle
+    (a weight-bound product at B = 1 or 8), K splits over as many blocks as
+    bring the items to at most one wave, at most STACK_MAX_SPLITS and one
+    K-tile each."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    tiles = lambda t: cdiv(M, t[0]) * cdiv(N, t[1])     # noqa: E731
+    if M <= 64:
+        bm, bn = 64, 128
+    else:
+        bm, bn = next((t for t in STACK_TILES[:2]
+                       if tiles(t) >= GEMM_SMS // 2),
+                      max(STACK_TILES[1:], key=tiles))
+    t = cdiv(M, bm) * cdiv(N, bn)
+    splits = 1
+    if t < GEMM_SMS // 2:
+        splits = max(1, min(GEMM_SMS // t, cdiv(K, GEMM_BK),
+                            STACK_MAX_SPLITS))
+    return StackGemm(M, N, K, bm, bn, splits)
+
+
+def _stack_attention(B: int, H: int, Lq: int, Lk: int,
+                     Dh: int) -> AttentionPlan:
+    """An attention stage's plan: masked_attention.cu's (``attention_plan``:
+    instance, rows, tiles), its head width padded to one of the four
+    instances the stacks hold -- one-block <64, 64 keys> or <128, 128 keys>,
+    long <128> or <256> -- whose zero columns and keys change no sum, so
+    each row is the one that kernel computes."""
+    p = attention_plan(B, H, Lq, Lk, Dh)
+    if p.instance == 0:
+        dhp, kc = (64, 64) if p.dhp <= 64 and p.kc == 64 else (128, 128)
+        staged = 2 * 16 * (-(-Lk // 16))
+    else:
+        dhp, kc = (128 if p.dhp <= 128 else 256), p.kc
+        staged = 2 * 16 * (-(-Lk // 16)) if Lk <= ATT_LONG_KC \
+            else 4 * ATT_LONG_KC
+    return dataclasses.replace(p, dhp=dhp, kc=kc,
+                               smem=(p.rows + staged) * (dhp + 8) * 2)
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    """How an all-layer stack covers one call (``stack_plan``): its
+    products in the C function's order (decoder: qkv1, m1, q2, kv2, m2, w1,
+    w2 -- kv2 None with external k/v; encoder: qkv, m, w1, w2), each
+    stage's ``stages`` grouping of them, the attention stages' plans
+    (decoder: self, cross; encoder: self), ``items`` (the largest stage's
+    work items: the grid's cap), the workspace and counters the split
+    products share. ``att_groups``: the attention items a block runs at
+    once, each on a group of its consumer warps and a slice of the ring."""
+    gemms: Tuple[Optional[StackGemm], ...]
+    stages: Tuple[Tuple[int, ...], ...]
+    attention: Tuple[AttentionPlan, ...]
+    att_groups: Tuple[int, ...]
+    items: int
+    workspace_floats: int
+    counters: int
+    smem: int = STACK_SMEM
+
+    def fields(self) -> Tuple[int, ...]:
+        """The int array the C functions take: per product bm, bn, splits,
+        ws, cnt (zeros for an absent one); per attention instance, dhp,
+        kc, rows, groups; then items."""
+        out: List[int] = []
+        for g in self.gemms:
+            out += [0] * 5 if g is None else [g.bm, g.bn, g.splits, g.ws,
+                                              g.cnt]
+        for a, n in zip(self.attention, self.att_groups):
+            out += [a.instance, a.dhp, a.kc, a.rows, n]
+        return tuple(out + [self.items])
+
+
+@functools.lru_cache(maxsize=1024)
+def stack_plan(B: int, Lx: int, D: int, F: int, H: int, Lq: int = 0,
+               kv: str = "") -> StackPlan:
+    """The plan of one all-layer call from the shape alone (never from the
+    grid the launch gets, so any grid gives the same bits): kv "" is the
+    encoder over Lx tokens; "in" / "ext" the decoder over Lx regions with
+    Lq question keys, its cross k/v projected in the kernel or given. Each
+    product by ``_stack_gemm``; the attention by ``_stack_attention``; the
+    products of one stage (the decoder's cross query and in-kernel k/v)
+    take consecutive workspace and counters, and every stage starts both
+    at 0 (a grid barrier lies between stages)."""
+    _require(kv in ("", "in", "ext"), f"stack_plan: kv {kv!r}")
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    M, Dh = B * Lx, D // H
+    g = _stack_gemm
+    if kv:
+        gemms = [g(M, 3 * D, D), g(M, D, D), g(M, D, D),
+                 g(B * Lq, 2 * D, D) if kv == "in" else None, g(M, D, D),
+                 g(M, F, D), g(M, D, F)]
+        stages = ((0,), (1,), (2, 3) if kv == "in" else (2,), (4,), (5,),
+                  (6,))
+        att = (_stack_attention(B, H, Lx, Lx, Dh),
+               _stack_attention(B, H, Lx, Lq, Dh))
+    else:
+        gemms = [g(M, 3 * D, D), g(M, D, D), g(M, F, D), g(M, D, F)]
+        stages = ((0,), (1,), (2,), (3,))
+        att = (_stack_attention(B, H, Lx, Lx, Dh),)
+    ws = counters = 0
+    for stage in stages:
+        w = c = 0
+        for i in stage:
+            gemms[i] = dataclasses.replace(gemms[i], ws=w, cnt=c)
+            w += gemms[i].ws_floats
+            c += gemms[i].counters
+        ws, counters = max(ws, w), max(counters, c)
+    items = max([sum(gemms[i].items for i in st) for st in stages]
+                + [B * H * a.tiles for a in att] + [cdiv(M, STACK_WARPS)])
+    # as many items at once as the consumer warps and the ring hold
+    groups = tuple(next(n for n in (8, 4, 2, 1)
+                        if n * a.threads <= STACK_CONSUMERS
+                        and n * a.smem <= STACK_RING) for a in att)
+    return StackPlan(tuple(gemms), stages, att, groups, items, ws, counters)
+
+
+_STACK_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _stack_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The split products' tile counters of the all-layer stacks."""
+    return _zeroed_counters(_STACK_COUNTERS, device, n,
+                            "the all-layer stacks' split-K counters")
 
 
 def _layer(wp, l: int) -> Dict[str, torch.Tensor]:
@@ -1632,9 +1827,9 @@ def _check_stack(name: str, wp, names, shapes) -> List[Optional[int]]:
         t = wp[n]
         want = BF16 if len(shapes[n]) == 3 else F32
         _require(tuple(t.shape) == shapes[n] and t.dtype == want
-                 and t.is_contiguous(),
-                 f"{name}: {n} must be contiguous {want} {shapes[n]}, got "
-                 f"{tuple(t.shape)} {t.dtype}")
+                 and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{name}: {n} must be contiguous {want} {shapes[n]}, "
+                 f"16-byte aligned, got {tuple(t.shape)} {t.dtype}")
         ptrs.append(t.data_ptr())
     return ptrs
 
@@ -1656,6 +1851,18 @@ def _scratch(device, sizes: Sequence[int]):
     base = buf.data_ptr()
     return buf, (ctypes.c_void_p * len(sizes))(
         *[base + o if n else None for o, n in zip(offs, sizes)])
+
+
+def _stack_plan_args(device, plan: StackPlan, workspace):
+    """The C functions' plan, workspace and counters arguments: the plan's
+    int fields (a ctypes array, which the call passes by address and keeps
+    alive), the workspace piece of the scratch buffer and the device's
+    counters where a product splits (else null)."""
+    fields = plan.fields()
+    counters = _stack_counters(device, plan.counters) if plan.counters \
+        else None
+    return ((ctypes.c_int * len(fields))(*fields),
+            workspace if plan.counters else None, _ptr(counters))
 
 
 def _launch_stack(name: str, fn, args, info) -> None:
@@ -1735,13 +1942,15 @@ def sga_decoder(v: torch.Tensor, v_mask: torch.Tensor, q_mask: torch.Tensor,
         shapes.update(wkv2=(L, D, 2 * D), bkv2=(L, 2 * D))
     w = (ctypes.c_void_p * len(DECODER_WEIGHTS))(
         *_check_stack(name, wp, DECODER_WEIGHTS, shapes))
+    plan = stack_plan(B, Lv, D, F, H, Lq, "in" if q is not None else "ext")
     M, Mq = B * Lv, B * Lq
     MD = M * D
-    # x32, xb, qkv, att, y, v1, v1b, qx, v2, v2b, h, qb, kv (bytes)
+    # x32, xb, qkv, att, y, v1, v1b, qx, v2, v2b, h, qb, kv, the split
+    # products' workspace (bytes)
     sizes = [4 * MD, 2 * MD, 6 * MD, 2 * MD, 4 * MD, 4 * MD, 2 * MD, 2 * MD,
              4 * MD, 2 * MD, 2 * M * F]
     sizes += [2 * Mq * D, 4 * Mq * D] if q is not None else [0, 0]
-    buf, scratch = _scratch(v.device, sizes)
+    buf, scratch = _scratch(v.device, sizes + [4 * plan.workspace_floats])
     out = torch.empty_like(v)
     info = (ctypes.c_int * 4)()
     _launch_stack(name, _lib().mcan_sga_decoder, (
@@ -1749,7 +1958,8 @@ def sga_decoder(v: torch.Tensor, v_mask: torch.Tensor, q_mask: torch.Tensor,
         int(q is not None and q.dtype == F32), *kv_args,
         v_mask.data_ptr(), q_mask.data_ptr(), ctypes.addressof(w),
         ctypes.addressof(scratch), out.data_ptr(), int(out.dtype == F32), B,
-        Lv, Lq, D, F, H, L, 1.0 / Dh ** 0.5, LN_EPS, int(max_blocks),
+        Lv, Lq, D, F, H, L, 1.0 / Dh ** 0.5, LN_EPS,
+        *_stack_plan_args(v.device, plan, scratch[-1]), int(max_blocks),
         ctypes.addressof(info), _stream(v)), info)
     del buf    # the caching allocator reuses it only after the launch's work
     return out
@@ -1773,17 +1983,22 @@ def sa_encoder(x: torch.Tensor, x_mask: torch.Tensor, wp, *, num_heads: int,
                                        "ln2_b")})
     w = (ctypes.c_void_p * len(ENCODER_WEIGHTS))(
         *_check_stack(name, wp, ENCODER_WEIGHTS, shapes))
+    plan = stack_plan(B, Lq, D, F, H)
     MD = B * Lq * D
-    # x32, xb, qkv, att, y, x1, x1b, h (bytes)
+    # x32, xb, qkv, att, y, x1, x1b, h, the split products' workspace
+    # (bytes)
     buf, scratch = _scratch(x.device, [4 * MD, 2 * MD, 6 * MD, 2 * MD, 4 * MD,
-                                       4 * MD, 2 * MD, 2 * B * Lq * F])
+                                       4 * MD, 2 * MD, 2 * B * Lq * F,
+                                       4 * plan.workspace_floats])
     out = torch.empty_like(x)
     info = (ctypes.c_int * 4)()
     _launch_stack(name, _lib().mcan_sa_encoder, (
         x.data_ptr(), int(x.dtype == F32), x_mask.data_ptr(),
         ctypes.addressof(w), ctypes.addressof(scratch), out.data_ptr(),
         int(out.dtype == F32), B, Lq, D, F, H, L, 1.0 / (D // H) ** 0.5,
-        LN_EPS, int(max_blocks), ctypes.addressof(info), _stream(x)), info)
+        LN_EPS, *_stack_plan_args(x.device, plan, scratch[-1]),
+        int(max_blocks), ctypes.addressof(info), _stream(x)), info)
+    del buf
     return out
 
 

@@ -1599,13 +1599,22 @@ def _pads(cuda, B, L, seed):
 STACK_TOL = 2 ** -4
 
 
-@pytest.mark.parametrize("B,Lv,Lq,D,F,H,kv,dtype", [
-    (1, 60, 14, 512, 2048, 8, "in", BF16),
-    (5, 60, 14, 512, 2048, 8, "ext", BF16),
-    (7, 160, 14, 256, 1024, 2, "in", torch.float32),   # Dh 128, 3 key chunks
-    (3, 37, 130, 256, 512, 2, "ext", torch.float32)])  # 130 cross keys
-def test_sga_decoder_matches_plain(cuda, B, Lv, Lq, D, F, H, kv, dtype):
-    L = 2
+def _stack_counters_idle(cuda):
+    """Every split counter of the stacks is back at 0 after the calls."""
+    torch.cuda.synchronize()
+    c = K._STACK_COUNTERS.get(torch.device("cuda",
+                                           torch.cuda.current_device()))
+    assert c is None or int(c.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("B,Lv,Lq,D,F,H,kv,dtype,L", [
+    (1, 60, 14, 512, 2048, 8, "in", BF16, 2),
+    (5, 60, 14, 512, 2048, 8, "ext", BF16, 2),
+    (7, 160, 14, 256, 1024, 2, "in", torch.float32, 2),  # Dh 128, 3 chunks
+    (3, 37, 130, 256, 512, 2, "ext", torch.float32, 2),   # 130 cross keys
+    (64, 60, 14, 512, 2048, 8, "in", BF16, 6),    # MCAN-small, B = 64
+    (1, 60, 14, 512, 2048, 8, "ext", BF16, 6)])   # B = 1: every product split
+def test_sga_decoder_matches_plain(cuda, B, Lv, Lq, D, F, H, kv, dtype, L):
     g = torch.Generator(device=cuda).manual_seed(B)
     w = _decoder_weights(cuda, L, D, F, seed=B)
     v = torch.randn(B, Lv, D, generator=g, device=cuda).to(dtype)
@@ -1623,19 +1632,26 @@ def test_sga_decoder_matches_plain(cuda, B, Lv, Lq, D, F, H, kv, dtype):
     ref = K.sga_decoder_plain(v, vm, qm, w, num_heads=H, **kw)
     assert out.dtype == dtype and out.shape == (B, Lv, D)
     _close(out, ref, STACK_TOL)
-    # any grid that fits gives the same bits: each work item is one block's
+    # two runs, and any grid that fits (fewer blocks than the plan's items
+    # too), give the same bits: each work item is one block's, a split tile
+    # is summed in split order
+    plan = K.stack_plan(B, Lv, D, F, H, Lq, kv)
+    assert 3 < plan.items
+    again = K.sga_decoder(v, vm, qm, w, num_heads=H, **kw)
     small = K.sga_decoder(v, vm, qm, w, num_heads=H, max_blocks=3, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(small, out)
+    assert torch.equal(again, out) and torch.equal(small, out)
     grid, per_sm, sms, smem = K.LAST_GRID["sga_decoder"]
-    assert grid == 3 and per_sm >= 1 and sms >= 1 and smem > 0
+    assert grid == 3 and per_sm >= 1 and sms >= 1 and smem == K.STACK_SMEM
+    _stack_counters_idle(cuda)
 
 
-@pytest.mark.parametrize("B,Lq,D,F,H,dtype", [
-    (1, 14, 512, 2048, 8, BF16), (9, 14, 512, 2048, 8, BF16),
-    (4, 150, 256, 1024, 2, torch.float32)])
-def test_sa_encoder_matches_plain(cuda, B, Lq, D, F, H, dtype):
-    L = 2
+@pytest.mark.parametrize("B,Lq,D,F,H,dtype,L", [
+    (1, 14, 512, 2048, 8, BF16, 2), (9, 14, 512, 2048, 8, BF16, 2),
+    (4, 150, 256, 1024, 2, torch.float32, 2),
+    (64, 14, 512, 2048, 8, BF16, 6),     # MCAN-small, B = 64
+    (1, 14, 512, 2048, 8, torch.float32, 6)])   # B = 1: every product split
+def test_sa_encoder_matches_plain(cuda, B, Lq, D, F, H, dtype, L):
     g = torch.Generator(device=cuda).manual_seed(B)
     w = _encoder_weights(cuda, L, D, F, seed=B)
     x = torch.randn(B, Lq, D, generator=g, device=cuda).to(dtype)
@@ -1645,9 +1661,13 @@ def test_sa_encoder_matches_plain(cuda, B, Lq, D, F, H, dtype):
     assert K.launch_counts()["sa_encoder"] == before + 1
     ref = K.sa_encoder_plain(x, xm, w, num_heads=H)
     _close(out, ref, STACK_TOL)
+    again = K.sa_encoder(x, xm, w, num_heads=H)
     small = K.sa_encoder(x, xm, w, num_heads=H, max_blocks=2)
     torch.cuda.synchronize()
-    assert torch.equal(small, out)
+    assert torch.equal(again, out) and torch.equal(small, out)
+    assert K.LAST_GRID["sa_encoder"][0] == 2 < K.stack_plan(B, Lq, D, F,
+                                                             H).items
+    _stack_counters_idle(cuda)
 
 
 def test_stacks_raise_on_unsupported_shapes(cuda):
