@@ -31,8 +31,12 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              the int8 library call (torch._int_mm) and the int8 bound; the
              f32-output attention of the level-3 merges;
   [int4 kernels]  gemm_s4 bit for bit and gemm_w4bf16 against their plain
-             versions at every level-5 site of MCAN-small and MCAN-large
-             (M = 14, 60, 896, 3840), times at B = 1 and 64 beside gemm_s8;
+             versions (gemm_int4.cu's S4 / W4 instances, K-major packed
+             weights) at every level-5 site of MCAN-small and MCAN-large
+             (M = 14, 60, 896, 3840) with each site's plan (tile, splits,
+             grid) and each instance's registers, spills and shared
+             memory; times at B = 1 and 64 beside gemm_s8 on the int8
+             weight and gemm_bias_act on the dequantized weight;
   [blocks]   both bf16 serving blocks and both int8 serving blocks (levels 1
              and 3; MCAN-large level 1) against their plain versions;
   [int4 blocks] / [int8 blocks]  the qffn blocks at levels 4-7 and the
@@ -263,6 +267,7 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"[ptxas] {line.strip()}")
     sm90_report(_build, _build.load_library())
+    int4_report(_build, _build.load_library())
     attention_report(_build)
     stack_report(_build)
 
@@ -511,6 +516,39 @@ def sm90_report(build, lib) -> None:
                         if "spill" in ln or "registers" in ln)
         say(f"[gemm_sm90] {layout} 128x{bn}: {info}; dynamic shared memory "
             f"{lib.mcan_gemm_sm90_smem(code, bn)} bytes")
+
+
+INT4_LAYOUTS = {"ILi5E": ("S4 (gemm_s4)", 5), "ILi6E": ("W4 (gemm_w4bf16)", 6)}
+
+
+def int4_report(build, lib) -> None:
+    """Each gemm_int4.cu instance's registers, spills and stack frame
+    (ptxas) and dynamic shared memory: gemm_int4_kernel<layout, rows>,
+    layout 5 S4, 6 W4; the shared memory held against kernels.int4_smem_bytes,
+    which the plan tests check against the card's 227 KB."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    lines = build.build_log.splitlines()
+    if not lines:
+        say("[gemm_int4] the library was built by an earlier process: no "
+            "ptxas log here")
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "gemm_int4_kernel" not in line:
+            continue
+        mangled = line.split("'")[1]
+        label, code = next((v for k, v in INT4_LAYOUTS.items()
+                            if k in mangled), (mangled, 5))
+        bm = 128 if "Li128E" in mangled else 64
+        info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                        if "spill" in ln or "registers" in ln)
+        say(f"[gemm_int4] {label} 128 columns x {bm} rows: {info}; dynamic "
+            f"shared memory {lib.mcan_gemm_int4_smem(code, bm)} bytes")
+    for code, bm in K.INT4_INSTANCES:
+        got, want = lib.mcan_gemm_int4_smem(code, bm), K.int4_smem_bytes(
+            code, bm)
+        if got != want:
+            fail(f"gemm_int4 layout {code} at {bm} rows: the library's "
+                 f"shared memory {got} != kernels.int4_smem_bytes {want}")
 
 
 def attention_plan_note(K, label, q, k) -> None:
@@ -1845,15 +1883,17 @@ def check_int4_kernels(torch, dev, rows) -> None:
     (the qkv, w1 and w2 of MCAN-small and MCAN-large) at M = 14, 60, 896
     and 3840 (the SA and SGA blocks at B = 1 and 64), with and without
     ReLU / bias; gemm_w4bf16 at the same sites within gemm_bias_act's
-    tolerance. Times of the MCAN-small sites at B = 1 and B = 64 beside
-    gemm_s8 on the int8 weight of the same site; no single PyTorch call
-    computes a grouped int4 product (library none)."""
+    tolerance; each site's plan. Times of the MCAN-small sites at B = 1 and
+    B = 64 beside gemm_s8 on the int8 weight and gemm_bias_act on the
+    dequantized bf16 weight of the same site (the port's own kernels, no
+    library calls): no single PyTorch call computes a grouped int4 product
+    (library none)."""
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.ops.quant import _quant_w, _quant_w4
     g = torch.Generator(device=dev).manual_seed(SEED + 40)
     bf16, f32 = torch.bfloat16, torch.float32
-    rows.row("gemm_s4", SRC + "gemm_s4.cu", f"{TPU_QUANT}:282", SERVE_W4)
-    rows.row("gemm_w4bf16", SRC + "gemm_w4bf16.cu", f"{TPU_QUANT}:307",
+    rows.row("gemm_s4", SRC + "gemm_int4.cu", f"{TPU_QUANT}:282", SERVE_W4)
+    rows.row("gemm_w4bf16", SRC + "gemm_int4.cu", f"{TPU_QUANT}:307",
              SERVE_W7)
     say("[int4 kernels] gemm_s4 (bit for bit) and gemm_w4bf16 vs their "
         "plain versions at every level-5 site, M = 14 / 60 (B=1) and 896 / "
@@ -1886,6 +1926,9 @@ def check_int4_kernels(torch, dev, rows) -> None:
                 shape = (f"{model} {site} [{M}x{Kd}]x[{Kd}x{N}]"
                          f"{' relu' if relu else ''}"
                          f"{'' if b is not None else ' no bias'}")
+                say(f"    [plan] {shape}: gemm_s4 "
+                    f"{plan_note(K, K._S4, M, N, Kd)}; gemm_w4bf16 "
+                    f"{plan_note(K, K._W4, M, N, Kd)}")
                 e4 = max_err(out, ref)
                 gate(f"gemm_s4 {shape} (bit for bit)", e4, 0.0)
                 rows.err("gemm_s4", e4)
@@ -1912,6 +1955,9 @@ def check_int4_kernels(torch, dev, rows) -> None:
                 t8 = device_ms(torch, lambda: K.gemm_s8(
                     xq, q8["w_q"], q8["w_scale"], b, a=a, relu=relu,
                     out_dtypes=(odt,)))
+                wf = K.dequant_w4(wp, s4)
+                tnn = device_ms(torch, lambda: K.gemm_bias_act(
+                    xb, wf, b, relu=relu, out_dtype=odt))
                 by4 = w4_bytes(M, Kd, N, 1, osz, b is not None)
                 by7 = w4_bytes(M, Kd, N, 2, osz, b is not None)
                 w_only = (Kd * N // 2 + 4 * (Kd // 128) * N) / HBM * 1e3
@@ -1921,7 +1967,8 @@ def check_int4_kernels(torch, dev, rows) -> None:
                 say(f"    gemm_s4 {t4:.4f} ms vs plain {t4p:.4f} ms, bound "
                     f"{b4:.4f} ms (the packed weight alone {w_only:.4f}); "
                     f"gemm_w4bf16 {t7:.4f} ms vs plain {t7p:.4f} ms, bound "
-                    f"{b7:.4f} ms; gemm_s8 on the int8 weight {t8:.4f} ms")
+                    f"{b7:.4f} ms; gemm_s8 on the int8 weight {t8:.4f} ms, "
+                    f"gemm_bias_act on the dequantized weight {tnn:.4f} ms")
                 rows.add("gemm_s4", 6, t4, t4p, 0.0, by4, int8_ops=ops)
                 rows.add("gemm_w4bf16", 6, t7, t7p, ops, by7)
 
@@ -3375,9 +3422,9 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
              f"{TPU_ATT}:118", EACH_SHAPE)
     rows.row("masked_attention_bwd, long", SRC + "masked_attention_bwd.cu",
              f"{TPU_TRAIN}:1139", EACH_SHAPE)
-    rows.row("gemm_s4, K 384", SRC + "gemm_s4.cu", f"{TPU_QUANT}:282",
+    rows.row("gemm_s4, K 384", SRC + "gemm_int4.cu", f"{TPU_QUANT}:282",
              EACH_SHAPE)
-    rows.row("gemm_w4bf16, K 384", SRC + "gemm_w4bf16.cu",
+    rows.row("gemm_w4bf16, K 384", SRC + "gemm_int4.cu",
              f"{TPU_QUANT}:307", EACH_SHAPE)
     say("[per-sub-op] gemm_ln and attflat_pool vs their plain versions "
         "(times: the launches of one B=64 mode-0 forward), and the repaired "

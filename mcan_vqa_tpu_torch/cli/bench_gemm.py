@@ -5,8 +5,9 @@
 
 Times ``gemm_bias_act`` (the forward product a . w + bias with its ReLU /
 keep-mask / Philox epilogue), ``gemm_dx`` (dY . W^T with its gate /
-residual epilogue), ``gemm_dw`` (X^T . dY, f32) and ``gemm_s8`` (the int8
-product with its dequantizing epilogue) of the ``mcan_vqa_tpu_torch``
+residual epilogue), ``gemm_dw`` (X^T . dY, f32), ``gemm_s8`` (the int8
+product with its dequantizing epilogue) and the int4 products ``gemm_s4``
+/ ``gemm_w4bf16`` of the ``mcan_vqa_tpu_torch``
 package under ``--root`` (default: the checkout this file lies in; another
 checkout, such as an older commit unpacked with ``git archive``, compares
 two versions within one run on the card) beside one PyTorch call of the
@@ -30,7 +31,14 @@ whose int32 output is its own), at every shape of
   * unit Q, the default serving engine: one B=64 MCAN-small forward at int8
     level 1 (the FFN, per-row scales) and one at level 3 (every
     projection, static scales), each weight prepared as that checkout's
-    ``_quant_w`` prepares it.
+    ``_quant_w`` prepares it;
+  * units W5 / W7, the int4 engine: one B=1 and one B=64 MCAN-small forward
+    at level 5 (``gemm_s4`` at every qkv, w1 and w2) / level 7
+    (``gemm_w4bf16`` at the same sites), each weight prepared as that
+    checkout's ``_quant_w4`` prepares it; beside each site ``gemm_s8`` on
+    the site's int8 weight and ``gemm_bias_act`` on its dequantized bf16
+    weight (the port's own kernels; no single PyTorch call computes a
+    grouped int4 product, so mm_ms is null).
 
 A forward shape's h1 keep-mask read from memory is timed once more with
 0 calls per unit. Each device time: 50 calls captured in one CUDA graph,
@@ -40,7 +48,8 @@ TFLOP/s bf16 and 3.35 TB/s, each input read once and each output written
 once; int8 operations at 1,979 TOP/s), then the card. ``--forward`` also
 times one MCAN-small ``Predictor`` forward at B = 1, 8 and 64 (seeded
 random weights; the default engine at int8 level 1, at level 3 calibrated
-on one batch, and the bf16 one, ``qffn=0``; median of 5 rounds of 10 eager
+on one batch, the int4 engine at level 5 and level 7, calibrated on the
+same batch, and the bf16 one, ``qffn=0``; median of 5 rounds of 10 eager
 calls). Needs a CUDA device.
 """
 
@@ -138,6 +147,18 @@ S8 += [("Q", f"{blk} L3 {site}", M, Kd, N, True, relu, osz,
                                       ("w1", 512, 2048, True, 4),
                                       ("w2", 2048, 512, False, 4))]
 S8.append(("Q", "dec L3 cross q", 3840, 512, 512, True, False, 2, 6))
+# (unit, label, M, K, N, relu, out size, calls per unit): every int4 site of
+# one B=1 and one B=64 forward at level 5 (W5) and level 7 (W7): the SA
+# encoder blocks (M 14 / 896) and the SGA decoder blocks (60 / 3840), each
+# qkv (bf16 out), w1 (ReLU; f32 out at level 5, bf16 at level 7) and w2
+W4 = [(unit, f"{blk} {site}", M, Kd, N, relu,
+       2 if site == "qkv" or (site == "w1" and unit == "W7") else 4, 6)
+      for unit in ("W5", "W7")
+      for blk, M in (("B1 enc", 14), ("B1 dec", 60), ("enc", 896),
+                     ("dec", 3840))
+      for site, Kd, N, relu in (("qkv", 512, 1536, False),
+                                ("w1", 512, 2048, True),
+                                ("w2", 2048, 512, False))]
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16) -> float:
@@ -176,7 +197,8 @@ def eager_ms(torch, fn, calls: int = 50) -> float:
 def time_forward(torch, tag: str) -> None:
     """One MCAN-small Predictor forward at B = 1, 8 and 64: the default
     engine at int8 level 1 (no calibration) and at level 3 (calibrated on
-    one batch), and the bf16 engine (qffn=0)."""
+    one batch), the int4 engine at level 5 and at level 7 (the same
+    batch), and the bf16 engine (qffn=0)."""
     import statistics
 
     import numpy as np
@@ -200,8 +222,13 @@ def time_forward(torch, tag: str) -> None:
                      auto_calibrate=0)
     pred3 = Predictor(cfg, state, vocab, latency_buckets=(1, 8),
                       act_calibration=calib)
+    pred5 = Predictor(cfg, state, vocab, latency_buckets=(1, 8),
+                      engine="int4", act_calibration=calib)
     fwd, prep = build_production_engine(state, cfg.layer, cfg.multi_head,
                                         qffn=0)
+    fwd7, prep7 = build_production_engine(
+        state, cfg.layer, cfg.multi_head, qffn=7,
+        act_scale_inputs=pred.pad_batch(*calib))
     for b in (1, 8, 64):
         feats = [np.abs(rng.normal(size=(40, cfg.img_feat_size)))
                  .astype(np.float32) for _ in range(b)]
@@ -213,9 +240,14 @@ def time_forward(torch, tag: str) -> None:
             with torch.inference_mode():
                 return fwd(prep, img_t, ques_t)
 
+        def level7():
+            with torch.inference_mode():
+                return torch.sigmoid(fwd7(prep7, img_t, ques_t))
+
         engines = (("level 1", lambda: pred.forward_padded(img, ques)),
                    ("level 3", lambda: pred3.forward_padded(img, ques)),
-                   ("bf16", bf16))
+                   ("int4 level 5", lambda: pred5.forward_padded(img, ques)),
+                   ("int4 level 7", level7), ("bf16", bf16))
         t = {name: [] for name, _ in engines}
         for _ in range(5):
             for name, fn in engines:
@@ -327,6 +359,41 @@ def main(argv=None) -> None:
              graph_ms(torch, lambda: K.gemm_s8(aq, wq, sw, b, **kw)),
              graph_ms(torch, lib) if lib is not None else None,
              bound_ms(2 * M * Kd * N, nbytes, PEAK_INT8))
+    from mcan_vqa_tpu_torch.ops.quant import _quant_w4
+    for unit, label, M, Kd, N, relu, osz, calls in W4:
+        # the weight as this checkout's engines prepare it (int4, and int8
+        # for the gemm_s8 yardstick); the codes of a random activation (W5)
+        # or a bf16 activation (W7)
+        w = randn(Kd, N, dtype=bf16, s=Kd ** -0.5)
+        q4, q8 = _quant_w4(w), _quant_w(w)
+        wp, s4, b = q4["w_p"], q4["w_gscale"], randn(N, s=0.1)
+        odt = torch.float32 if osz == 4 else bf16
+        aq = torch.randint(-127, 128, (M, Kd), generator=g, device=dev,
+                           dtype=torch.int8)
+        x = randn(M, Kd, dtype=bf16)
+        wf = K.dequant_w4(wp, s4)
+        s8 = graph_ms(torch, lambda: K.gemm_s8(
+            aq, q8["w_q"], q8["w_scale"], b, a=0.02, relu=relu,
+            out_dtypes=(odt,)))
+        nn = graph_ms(torch, lambda: K.gemm_bias_act(x, wf, b, relu=relu,
+                                                     out_dtype=odt))
+        if unit == "W5":
+            kernel, a_size, peak = "gemm_s4", 1, PEAK_INT8
+            ms = graph_ms(torch, lambda: K.gemm_s4(
+                aq, wp, s4, b, a=0.02, relu=relu, out_dtypes=(odt,)))
+        else:
+            kernel, a_size, peak = "gemm_w4bf16", 2, PEAK_BF16
+            ms = graph_ms(torch, lambda: K.gemm_w4bf16(
+                x, wp, s4, b, relu=relu, out_dtype=odt))
+        nbytes = (a_size * M * Kd + Kd * N // 2 + 4 * (Kd // 128) * N + 4 * N
+                  + M * N * osz)
+        emit(kernel, unit, label, [M, Kd, N], calls, ms, None,
+             bound_ms(2 * M * Kd * N, nbytes, peak), s8_ms=s8, nn_ms=nn)
+        emit("gemm_s8, int8 weight", unit, label, [M, Kd, N], calls, s8,
+             None, bound_ms(2 * M * Kd * N, nbytes + Kd * N // 2, PEAK_INT8))
+        emit("gemm_bias_act, dequant weight", unit, label, [M, Kd, N], calls,
+             nn, None, bound_ms(2 * M * Kd * N, nbytes + M * Kd * (2 - a_size)
+                                + Kd * N * 3 // 2, PEAK_BF16))
     for (kernel, unit), (calls, ms, mm_ms, b) in totals.items():
         if calls == 0:
             continue

@@ -172,20 +172,6 @@ struct S8Epilogue {
 template <int LAYOUT>
 using EpilogueOf = std::conditional_t<LAYOUT == S8, S8Epilogue, Epilogue>;
 
-// One output tile (of tiles_n across) and one split of its K-tiles: a
-// work item. Split s of `splits` sums K-tiles [s T / S, (s + 1) T / S).
-struct Item {
-  int tile, split, m0, n0, kt0, nk;
-  __device__ Item(int w, int tiles, int tiles_n, int bn, int k_tiles, int splits) {
-    tile = w % tiles;
-    split = w / tiles;
-    m0 = tile / tiles_n * BM;
-    n0 = tile % tiles_n * bn;
-    kt0 = static_cast<int>(static_cast<long long>(split) * k_tiles / splits);
-    nk = static_cast<int>(static_cast<long long>(split + 1) * k_tiles / splits) - kt0;
-  }
-};
-
 // The s8 product's per-item state: thread t < BN loads the weight scale
 // and bias of the tile's column n0 + t as the item starts (0 past N), to
 // store them into the item's slot of shared memory once the mainloop is

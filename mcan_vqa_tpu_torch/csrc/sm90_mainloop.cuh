@@ -69,6 +69,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// more bytes for the barrier's current phase to wait for, without an
+// arrival (a second box of one K-tile, armed before any of its loads)
+__device__ __forceinline__ void mbar_expect_more(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
 // one box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                          int c1) {
@@ -241,6 +248,129 @@ __device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// One output tile (of tiles_n across, bm x bn) and one split of its
+// K-tiles: a work item of a persistent grid. Split s of `splits` sums
+// K-tiles [s T / S, (s + 1) T / S).
+struct Item {
+  int tile, split, m0, n0, kt0, nk;
+  __device__ Item(int w, int tiles, int tiles_n, int bn, int k_tiles, int splits, int bm = BM) {
+    tile = w % tiles;
+    split = w / tiles;
+    m0 = tile / tiles_n * bm;
+    n0 = tile % tiles_n * bn;
+    kt0 = static_cast<int>(static_cast<long long>(split) * k_tiles / splits);
+    nk = static_cast<int>(static_cast<long long>(split + 1) * k_tiles / splits) - kt0;
+  }
+};
+
+// m64n64k32, s8 x s8 -> s32 with A from registers: four .b32 of four
+// codes each, the warp's rows g, g + 8 (g = lane / 4) at k 4t .. 4t + 3 and
+// 16 + 4t .. (t = lane % 4), in the order (g, 0), (g + 8, 0), (g, 16),
+// (g + 8, 16); B K-major in shared memory; scale_d 0 overwrites the
+// accumulators
+__device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// m64n64k16, bf16 x bf16 -> f32 with A from registers: four .b32 of two
+// bf16 each, the warp's rows g, g + 8 at k 2t, 2t + 1 and 8 + 2t, 9 + 2t, in
+// the order (g, 0), (g + 8, 0), (g, 8), (g + 8, 8); B K-major in shared
+// memory; the accumulators are added to
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// m64n128k16, bf16 x bf16 -> f32 with A from registers: four .b32 of two
+// bf16 each, the warp's rows g, g + 8 at k 2t, 2t + 1 and 8 + 2t, 9 + 2t, in
+// the order (g, 0), (g + 8, 0), (g, 8), (g + 8, 8); B K-major in shared
+// memory; the accumulators are added to
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// four 8 x 16-byte matrices from shared memory (ldmatrix .b16): lane L gives
+// the address of row L % 8 of matrix L / 8; register i gets matrix i's row
+// lane / 4, bytes 4 (lane % 4) .. + 3
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// keeps the compiler from reusing the registers of A fragments that an
+// asynchronous wgmma may still read (issue .. wait)
+template <int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][j])::"memory");
+}
+
 // The ring of K-tile slots at `base` (STAGES slots of STAGE_BYTES, 1024-byte
 // aligned), its mbarriers at `bars` (full[s] at bars + 8 s, then empty[s]):
 // the producer's side for one work item of nk K-tiles. For each, it waits
@@ -308,6 +438,99 @@ __device__ __forceinline__ void consume(Acc (&acc)[HALVES][ACC], uint32_t base, 
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
   if (nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
+}
+
+// The side of one consumer warpgroup for one work item whose A operand it
+// forms in its own registers (the int4 products: the weight, unpacked or
+// dequantized from the slot's packed bytes; the activations are B): for
+// each K-tile, wait for its slot, load_a(slot, stage, i, frags) fills the
+// K-tile's four steps of A fragments, then its wgmma group reads them with
+// B at slot + b_off (K-major, 32 bytes on a step). Nothing is written to
+// shared memory, so no warp waits for another. One group stays in flight,
+// its fragments in the other of two register sets, while the next K-tile's
+// are formed; f32 accumulators summed over every K-tile.
+template <int STAGES, int STAGE_BYTES, int ACC, typename LoadA>
+__device__ __forceinline__ void consume_rs(float (&acc)[ACC], uint32_t base, uint32_t bars,
+                                           int& stage, uint32_t& phase, int nk, uint32_t b_off,
+                                           LoadA&& load_a) {
+  uint32_t frags[2][BK / 16][4];
+  int prev = 0;
+  auto step = [&](uint32_t(&cur)[BK / 16][4], uint32_t(&other)[BK / 16][4], int i) {
+    mbar_wait(bars + 8 * stage, phase);
+    const uint32_t slot = base + stage * STAGE_BYTES;
+    load_a(slot, stage, i, cur);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, cur[kk], desc(slot + b_off + kk * 32, BOX, SWIZZLE_ATOM));
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous K-tile's products are done with its slot
+    fence_acc(acc);
+    fence_regs(other);
+    if (i > 0) mbar_arrive(bars + 8 * (STAGES + prev));
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  for (int i = 0; i < nk; i += 2) {   // the sets alternate: indices known at compile time
+    step(frags[0], frags[1], i);
+    if (i + 1 < nk) step(frags[1], frags[0], i + 1);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_regs(frags[0]);
+  fence_regs(frags[1]);
+  if (nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
+}
+
+// consume_rs for a product whose every K-tile's exact int32 sums are
+// drained on their own (S4's groups): K-tile i goes to accumulator set i % 2
+// (its first step overwriting them, scale-d 0) and fragment set i % 2; K-tile
+// i + 1 is issued before K-tile i is drained, so drain(stage, i, sums) runs
+// while the tensor cores work on the next; then K-tile i's slot is released.
+template <int STAGES, int STAGE_BYTES, int ACC, typename LoadA, typename Drain>
+__device__ __forceinline__ void consume_rs_drain(int (&acc)[2][ACC], uint32_t base, uint32_t bars,
+                                                 int& stage, uint32_t& phase, int nk,
+                                                 uint32_t b_off, LoadA&& load_a, Drain&& drain) {
+  uint32_t frags[2][BK / 16][4];
+  int st[2];
+  auto issue = [&](int(&a)[ACC], uint32_t(&f)[BK / 16][4], int i, int& s) {
+    s = stage;
+    mbar_wait(bars + 8 * stage, phase);
+    const uint32_t slot = base + stage * STAGE_BYTES;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+    load_a(slot, s, i, f);
+    fence_acc(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(a, f[kk], desc(slot + b_off + kk * 32, BOX, SWIZZLE_ATOM), kk > 0 ? 1 : 0);
+    wgmma_commit();
+  };
+  auto finish = [&](int(&a)[ACC], uint32_t(&f)[BK / 16][4], int i, int s, bool more) {
+    if (more)
+      wgmma_wait<1>();   // K-tile i's group; K-tile i + 1's stays in flight
+    else
+      wgmma_wait<0>();
+    fence_acc(a);
+    fence_regs(f);
+    drain(s, i, a);
+    mbar_arrive(bars + 8 * (STAGES + s));
+  };
+  if (nk > 0) issue(acc[0], frags[0], 0, st[0]);
+  for (int i = 0; i < nk; i += 2) {   // the sets alternate: indices known at compile time
+    if (i + 1 < nk) issue(acc[1], frags[1], i + 1, st[1]);
+    finish(acc[0], frags[0], i, st[0], i + 1 < nk);
+    if (i + 1 == nk) break;
+    if (i + 2 < nk) issue(acc[0], frags[0], i + 2, st[0]);
+    finish(acc[1], frags[1], i + 1, st[1], i + 2 < nk);
+  }
 }
 
 // Split-K: this split's f32 partial of one output tile, as float4 q of
@@ -603,6 +826,27 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int bytes, long long inn
   return encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                 const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a matrix of `outer` rows of `inner` elements of `bytes` bytes (1: uint8,
+// 4: f32), row stride `ld` elements, read in boxes of box_outer rows x
+// box_inner elements (box_inner x bytes a multiple of 16, at most 256
+// elements), dense in shared memory, unswizzled or with `swizzle` (the
+// 64-byte one: box rows of 64 bytes); out-of-bounds elements read as zeros
+inline bool make_map_flat(CUtensorMap* map, const void* ptr, int bytes, long long inner,
+                          long long outer, long long ld, int box_inner, int box_outer,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(outer > 1 ? ld * bytes : (inner * bytes + 15) / 16 * 16)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

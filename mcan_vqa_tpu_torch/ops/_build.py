@@ -61,10 +61,11 @@ SIGNATURES = {
                                     _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "mcan_col_sum": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "mcan_quantize_rows": [_P, _I, _LL, _I, _I, _I, _F, _P, _P, _P],
-    "mcan_gemm_s4": [_P, _LL, _P, _LL, _P, _I, _I, _I, _F, _P, _I, _P, _P,
-                     _LL, _P],
-    "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _P, _I, _P, _P,
-                         _LL, _P],
+    "mcan_gemm_s4": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _P, _I, _P, _P, _P, _P, _P],
+    "mcan_gemm_w4bf16": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _I, _P, _P, _P, _P, _P],
+    "mcan_gemm_int4_smem": [_I, _I],
     "mcan_gemm_ln": [_P, _I, _LL, _P, _LL, _P, _P, _I, _LL, _P, _P, _P, _LL,
                      _I, _I, _I, _F, _P],
     "mcan_attflat_pool": [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,

@@ -8,8 +8,8 @@ PyTorch version.
   gemm_dw                C = X^T . dY (split-K, fixed order)   gemm_sm90.cu, TN
   gemm_ln                LN(res + A . W + bias)                gemm_ln.cu
   gemm_s8                dequant(int8 A . int8 W) + bias (ReLU) gemm_sm90.cu, S8
-  gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_s4.cu
-  gemm_w4bf16            A . bf16(int4 W x group scale) + bias  gemm_w4bf16.cu
+  gemm_s4                grouped dequant(int8 A . int4 W) + bias gemm_int4.cu, S4
+  gemm_w4bf16            A . bf16(int4 W x group scale) + bias  gemm_int4.cu, W4
   quantize_rows          int8 codes of rows, dynamic or static  quantize.cu
   masked_attention       softmax(q k^T / 8, PAD) (dropout) . v, bf16 or f32
   masked_attention_bwd   dq, dk, dv of the above
@@ -84,6 +84,11 @@ MASK_DTYPES = (torch.uint8, torch.bool)
 LAUNCHES: Dict[str, int] = collections.Counter()
 
 _NT, _TN, _NN, _S8 = 1, 2, 3, 4   # gemm_sm90.cu's layouts (S8: mcan_gemm_sm90_s8)
+_S4, _W4 = 5, 6   # gemm_int4.cu's: mcan_gemm_s4, mcan_gemm_w4bf16
+# gemm_int4.cu's instances: (layout, activation rows a tile) -> the slots
+# of its ring; 128 weight columns a tile
+INT4_STAGES = {(_S4, 64): 6, (_W4, 64): 8, (_W4, 128): 7}
+INT4_INSTANCES = tuple(INT4_STAGES)
 
 
 def reset_launches() -> None:
@@ -324,21 +329,28 @@ def _check_rows(name: str, t: Optional[torch.Tensor], shape, dtypes) -> None:
 
 # ---------------------------------------------------------------------------
 # the GEMMs on gemm_sm90.cu: gemm_bias_act (NN), gemm_dx (NT), gemm_dw
-# (TN) and gemm_s8 (S8)
+# (TN) and gemm_s8 (S8); the plan of gemm_int4.cu's too (S4, W4)
 # ---------------------------------------------------------------------------
 
 GEMM_SMS = 132         # an H100 SXM's SMs: a constant, so that a shape
 #                        always gets the same plan (and dW the same bits)
 GEMM_BM, GEMM_BK = 128, 64   # gemm_sm90.cu's tile height and K-tile
 GEMM_BK_S8 = 128       # the int8 K-tile: 128 bytes a row, as bf16's 64
+# the int4 products' K-tiles a split holds at the least (S4: groups), and
+# their splits at the most: the card ran B=1 S4 slower at 2 groups a split,
+# W4 faster at 2 K-tiles than at 4
+INT4_SPLIT_MIN_TILES = {_S4: 4, _W4: 2}
+INT4_MAX_SPLITS = 8
 
 
 @dataclass(frozen=True)
 class GemmPlan:
-    """How gemm_sm90.cu covers one product: output tiles of ``bm`` x
-    ``bn``, the reduction in ``k_tiles`` K-tiles of ``bk`` elements (128
-    bytes a row in either type) split over ``splits`` blocks per tile;
-    split s sums K-tiles ``split_range(s)``."""
+    """How gemm_sm90.cu (or gemm_int4.cu) covers one product: output
+    tiles of ``bm`` x ``bn``, the reduction in ``k_tiles`` K-tiles of
+    ``bk`` elements (128 bytes a row of A in every layout) split over
+    ``splits`` blocks per tile; split s sums K-tiles ``split_range(s)``.
+    ``term_slots`` (S4): the workspace holds split 0's partial and then
+    each later K-tile's term on its own, not one partial per split."""
     bm: int
     bn: int
     bk: int
@@ -346,6 +358,7 @@ class GemmPlan:
     tiles_n: int
     k_tiles: int
     splits: int
+    term_slots: bool = False
 
     @property
     def tiles(self) -> int:
@@ -367,10 +380,18 @@ class GemmPlan:
                 (s + 1) * self.k_tiles // self.splits)
 
     @property
+    def partials(self) -> int:
+        """The f32 tiles a split tile leaves in the workspace: one a split,
+        or with ``term_slots`` split 0's and one a later K-tile."""
+        if self.term_slots:
+            return 1 + self.k_tiles - self.split_range(0)[1]
+        return self.splits
+
+    @property
     def workspace_bytes(self) -> int:
-        """The f32 partials of every split of every tile (none unsplit)."""
+        """The f32 partials of every tile (none unsplit)."""
         return 0 if self.splits == 1 else \
-            self.splits * self.tiles * self.bm * self.bn * 4
+            self.partials * self.tiles * self.bm * self.bn * 4
 
 
 @functools.lru_cache(maxsize=4096)
@@ -378,26 +399,58 @@ def gemm_plan(layout: int, M: int, N: int, K: int) -> GemmPlan:
     """The plan of an [M, N] output summed over K (for dW, K = R rows),
     from the shape alone (cached: the small-batch forward is bound by the
     host's time per launch). Tiles of 128 x 128 (one block per SM) where they
-    fill the SMs, or for dX, the forward (NN) and the int8 product (S8)
-    half of them; else 128 x 64 (two blocks per SM), which the step's dW
-    shapes and the encoder's narrow dX ran faster at on the card. K-tiles
-    of 64 bf16 values, or 128 int8 ones (S8). Then, for dW, as many splits
-    of whole K-tiles as bring the blocks to the SM count, at most one
-    K-tile each (dX, NN and S8 do not split: their partials would be as
+    fill the SMs, or for every layout but dW half of them; else 128 x 64
+    (two blocks per SM), which the step's dW shapes and the encoder's narrow
+    dX ran faster at on the card. The int4 products take 128 weight
+    columns a tile and 64 activation rows (S4; W4 up to M 64) or 128 (W4).
+    K-tiles of 64 bf16 values (NT, TN, NN and the bf16-dequant int4
+    product W4), 128 int8 ones (S8) or one 128-row scale group of int4
+    codes (S4). Then, for dW, as many splits of whole K-tiles as bring the
+    blocks to the SM count, at most one K-tile each; for the int4 products
+    as many as the SMs hold whole, up to ``INT4_MAX_SPLITS``, each of at
+    least ``INT4_SPLIT_MIN_TILES`` K-tiles (the B=1 sites walk K in order
+    on a few SMs; S4 keeps its groups' order by the prefix rule,
+    ``term_slots``). dX, NN and S8 do not split: their partials would be as
     large as their outputs, and the card ran the encoder's dX slower
-    split)."""
+    split."""
     cdiv = lambda a, b: -(-a // b)      # noqa: E731
-    tiles_m = cdiv(M, GEMM_BM)
+    int4 = layout in (_S4, _W4)
+    bm = GEMM_BM if not int4 else 64 if layout == _S4 or M <= 64 else 128
+    tiles_m = cdiv(M, bm)
     tiles128 = tiles_m * cdiv(N, 128)
-    bn = 128 if tiles128 >= GEMM_SMS or (layout != _TN
-                                         and 2 * tiles128 >= GEMM_SMS) else 64
+    bn = 128 if tiles128 >= GEMM_SMS or int4 or (
+        layout != _TN and 2 * tiles128 >= GEMM_SMS) else 64
     tiles = tiles_m * cdiv(N, bn)
-    bk = GEMM_BK_S8 if layout == _S8 else GEMM_BK
+    bk = GEMM_BK_S8 if layout == _S8 else W4_GROUP if layout == _S4 \
+        else GEMM_BK
     k_tiles = cdiv(K, bk)
     splits = 1
     if layout == _TN and 0 < tiles < GEMM_SMS:
         splits = max(1, min(cdiv(GEMM_SMS, tiles), k_tiles))
-    return GemmPlan(GEMM_BM, bn, bk, tiles_m, cdiv(N, bn), k_tiles, splits)
+    elif int4 and 0 < tiles < GEMM_SMS:
+        splits = max(1, min(GEMM_SMS // tiles,
+                            k_tiles // INT4_SPLIT_MIN_TILES[layout],
+                            INT4_MAX_SPLITS))
+    return GemmPlan(bm, bn, bk, tiles_m, cdiv(N, bn), k_tiles, splits,
+                    layout == _S4)
+
+
+SMEM_PER_BLOCK = 232448   # an H100 block's dynamic shared memory at most
+
+
+def int4_smem_bytes(layout: int, bm: int) -> int:
+    """The dynamic shared memory of gemm_int4.cu's instance at bm
+    activation rows a tile (Int4Cfg::SMEM, which ``mcan_gemm_int4_smem``
+    returns on the card): a ring of ``INT4_STAGES`` slots (the activations,
+    bm rows x 128 bytes; the packed weight, 128 columns x 128 bytes for S4,
+    x 64 for W4; the slot's 128 group scales), S4's second box of a
+    straddling group (128 x 128), 1 KB of slack to align the ring, the
+    barriers, a flag and the eight warps' epilogue staging rows (64 x 20
+    f32 each)."""
+    stages = INT4_STAGES[layout, bm]
+    slot = bm * 128 + 128 * (128 if layout == _S4 else 64) + 128 * 4
+    return (1024 + stages * slot + (128 * 128 if layout == _S4 else 0)
+            + 16 * stages + 16 + 8 * 64 * 20 * 4)
 
 
 _SPLIT_COUNTERS: Dict[torch.device, torch.Tensor] = {}
@@ -421,9 +474,19 @@ def _zeroed_counters(table: Dict[torch.device, torch.Tensor],
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """One counter per output tile of a split gemm_sm90.cu launch."""
+    """One counter per output tile of a split gemm_sm90.cu or gemm_int4.cu
+    launch."""
     return _zeroed_counters(_SPLIT_COUNTERS, device, n,
                             "gemm_sm90: the split-K counters")
+
+
+def _split_args(plan: GemmPlan, device: torch.device):
+    """A split plan's workspace and the device's tile counters; (None,
+    None) unsplit."""
+    if plan.splits == 1:
+        return None, None
+    return (torch.empty(plan.workspace_bytes // 4, dtype=F32, device=device),
+            _split_counters(device, plan.tiles))
 
 
 def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, N: int,
@@ -483,11 +546,7 @@ def _gemm_sm90(name: str, layout: int, a: torch.Tensor, b: torch.Tensor,
     plan = gemm_plan(layout, M, N, K)
     outs = {dt: torch.empty((M, N), dtype=dt, device=a.device)
             for dt in out_dtypes}
-    ws = counters = None
-    if plan.splits > 1:
-        ws = torch.empty(plan.workspace_bytes // 4, dtype=F32,
-                         device=a.device)
-        counters = _split_counters(a.device, plan.tiles)
+    ws, counters = _split_args(plan, a.device)
     rc = _lib().mcan_gemm_sm90(
         layout, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         M, N, K, plan.bn, plan.splits, plan.grid, _ptr(gate),
@@ -778,7 +837,7 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
 # the int4 GEMMs (the int4 serving levels 4-7)
 # ---------------------------------------------------------------------------
 
-W4_GROUP = 128     # K-rows per int4 scale group, the int4 kernels' K-tile
+W4_GROUP = 128     # K-rows per int4 scale group: gemm_s4's K-tile
 
 
 def unpack_w4(packed: torch.Tensor) -> torch.Tensor:
@@ -799,21 +858,63 @@ def dequant_w4(packed: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
         .to(BF16)
 
 
+def w4_tile_boxes(K: int, t: int) -> Tuple[Optional[int], Optional[int]]:
+    """The packed boxes of gemm_s4's K-tile t (scale group t, codes k =
+    128 t .. 128 t + 127): (the byte at which its low-nibble box starts,
+    that of its high-nibble box), None where it has none. Each box is 128
+    bytes of every column's K-major packed row. Below K/2 a group is low
+    nibbles of bytes 128 t ..; past it high nibbles of bytes 128 t - K/2
+    ..; where K % 256 != 0 the group that straddles K/2 has both, the
+    second at byte 0 (``w4_code_source`` says which code each position
+    holds). gemm_int4.cu's producer loads these boxes."""
+    half, k0 = K // 2, W4_GROUP * t
+    lo = k0 if k0 < half else None
+    hi = max(k0 - half, 0) if k0 + W4_GROUP > half else None
+    return lo, hi
+
+
+def w4_code_source(K: int, t: int, p: int) -> Tuple[str, int, int]:
+    """Where code p of gemm_s4's K-tile t lies: ("lo" or "hi", its position
+    in that box of ``w4_tile_boxes``, 0 for the low nibble or 4 for the
+    high one). The low box's codes keep their positions; a straddling
+    group's codes 64 .. 127 sit 64 positions back in its high box (the
+    same 16-byte chunk XOR 4 under the 128-byte swizzle), so the kernel
+    unpacks every code from the same row of the slot."""
+    half, k = K // 2, W4_GROUP * t + p
+    lo, hi = w4_tile_boxes(K, t)
+    if k < half:
+        return "lo", k - lo, 0
+    return "hi", k - half - hi, 4
+
+
+def w4bf16_tile(K: int, t: int) -> Tuple[int, int, int]:
+    """gemm_w4bf16's K-tile t (rows 64 t .. 64 t + 63, one scale group and
+    one nibble half: K/2 is a multiple of 64) -> (the packed byte its
+    64-byte box starts at, 0 for the low nibbles or 4 for the high ones,
+    its scale group)."""
+    half, k0 = K // 2, GEMM_BK * t
+    return (k0, 0, k0 // W4_GROUP) if k0 < half else \
+        (k0 - half, 4, k0 // W4_GROUP)
+
+
 def _check_w4(name, wp, s4, Kd, N):
     _require(wp.dtype == I8 and wp.dim() == 2 and wp.shape[0] * 2 == Kd,
              f"{name}: packed weight must be int8 [{Kd // 2}, N], got "
              f"{tuple(wp.shape)} {wp.dtype}")
-    _require(Kd % W4_GROUP == 0 and N % 16 == 0,
+    _require(Kd % W4_GROUP == 0 and Kd > 0 and N % 16 == 0,
              f"{name}: K={Kd} must be a multiple of {W4_GROUP} (one "
              f"{W4_GROUP}-row scale group per K-tile) and N={N} of 16")
     _require(s4.dtype == F32 and s4.is_contiguous()
+             and s4.data_ptr() % 16 == 0
              and tuple(s4.shape) == (Kd // W4_GROUP, N),
              f"{name}: group scales must be f32 [{Kd // W4_GROUP}, {N}], "
-             f"got {tuple(s4.shape)} {s4.dtype}")
-    _require(wp.stride(1) == 1 and wp.stride(0) % 16 == 0
-             and wp.data_ptr() % 16 == 0,
-             f"{name}: the packed weight needs unit column stride, a row "
-             f"stride that is a multiple of 16 and 16-byte alignment")
+             f"contiguous and 16-byte aligned, got {tuple(s4.shape)} "
+             f"{s4.dtype}")
+    _require(_is_k_major(wp) and wp.data_ptr() % 16 == 0,
+             f"{name}: the packed weight must be stored K-major (strides "
+             f"(1, ld), ld >= K/2 a multiple of 16: kernels.k_major, as "
+             f"_quant_w4 stores it) and 16-byte aligned, got strides "
+             f"{wp.stride()}")
 
 
 def gemm_s4_plain(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
@@ -842,12 +943,16 @@ def gemm_s4(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
             relu: bool = False, out_dtypes: Sequence[torch.dtype] = (F32,)
             ) -> Tuple[torch.Tensor, ...]:
     """aq [M, K] int8 (static codes, ``quantize_rows(x, 1 / a)``) against
-    the nibble-packed int4 weight wp [K/2, N] with group scales s4
-    [K/128, N] (``_quant_w4``): per K-group gi, in order,
-    t = f32(exact int32 sum) * (a * s4[gi]); y = t0 + t1 + ..., + bias [N],
-    then ReLU -> one [M, N] tensor per out_dtypes (``_qdot_static4``,
-    mcan_vqa_tpu/ops/quant.py:282). The kernel reads the weight packed and
-    gives the plain version's bits."""
+    the nibble-packed int4 weight wp [K/2, N] (stored K-major, as
+    ``_quant_w4`` stores it) with group scales s4 [K/128, N]: per K-group
+    gi, in order, t = f32(exact int32 sum) * (a * s4[gi]); y = t0 + t1 +
+    ..., + bias [N], then ReLU -> one [M, N] tensor per out_dtypes
+    (``_qdot_static4``, mcan_vqa_tpu/ops/quant.py:282), launched as
+    gemm_int4.cu's S4 layout with the plan of ``gemm_plan`` (split K at
+    small M by the prefix rule: the groups' terms still added in order). The
+    kernel reads the weight packed and gives the plain version's bits. A
+    packed weight stored otherwise raises: it is never transposed per
+    call."""
     if not on_cuda(aq):
         return gemm_s4_plain(aq, wp, s4, bias, a=a, relu=relu,
                              out_dtypes=out_dtypes)
@@ -867,12 +972,15 @@ def gemm_s4(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
     _require(len(out_dtypes) > 0 and set(out_dtypes) <= {F32, BF16}
              and len(set(out_dtypes)) == len(out_dtypes),
              f"{name}: out_dtypes {out_dtypes}")
+    plan = gemm_plan(_S4, M, N, Kd)
     outs = {dt: torch.empty((M, N), dtype=dt, device=aq.device)
             for dt in out_dtypes}
+    ws, counters = _split_args(plan, aq.device)
     rc = _lib().mcan_gemm_s4(
-        aq.data_ptr(), aq.stride(0), wp.data_ptr(), wp.stride(0),
-        s4.data_ptr(), M, N, Kd, _f32(a), _ptr(bias), int(relu),
-        _ptr(outs.get(F32)), _ptr(outs.get(BF16)), N, _stream(aq))
+        aq.data_ptr(), aq.stride(0), wp.data_ptr(), wp.stride(1),
+        s4.data_ptr(), M, N, Kd, plan.bm, plan.bn, plan.splits, plan.grid,
+        _f32(a), _ptr(bias), int(relu), _ptr(outs.get(F32)),
+        _ptr(outs.get(BF16)), _ptr(ws), _ptr(counters), _stream(aq))
     _check(rc, name)
     return tuple(outs[dt] for dt in out_dtypes)
 
@@ -888,13 +996,16 @@ def gemm_w4bf16_plain(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
 def gemm_w4bf16(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *, relu: bool = False,
                 out_dtype: torch.dtype = F32) -> torch.Tensor:
-    """x [M, K] bf16 . the int4 weight wp [K/2, N] dequantized to bf16 with
-    its group scales s4 [K/128, N] (``dequant_w4``) + bias [N], then ReLU
-    -> [M, N] in out_dtype (f32 or bf16), accumulated in f32
-    (``_qdot_w4bf16``, mcan_vqa_tpu/ops/quant.py:307). The kernel
-    dequantizes each weight tile in shared memory, to the plain version's
-    bits; the sums run in another order, so the two agree within
-    ``gemm_bias_act``'s tolerance."""
+    """x [M, K] bf16 . the int4 weight wp [K/2, N] (stored K-major, as
+    ``_quant_w4`` stores it) dequantized to bf16 with its group scales s4
+    [K/128, N] (``dequant_w4``) + bias [N], then ReLU -> [M, N] in
+    out_dtype (f32 or bf16), accumulated in f32 (``_qdot_w4bf16``,
+    mcan_vqa_tpu/ops/quant.py:307), launched as gemm_int4.cu's W4 layout
+    with the plan of ``gemm_plan`` (split K at small M, summed in split
+    order). The kernel dequantizes each weight tile in shared memory, to the
+    plain version's bits; the sums run in another order, so the two agree
+    within ``gemm_bias_act``'s tolerance. A packed weight stored otherwise
+    raises."""
     if not on_cuda(x):
         return gemm_w4bf16_plain(x, wp, s4, bias, relu=relu,
                                  out_dtype=out_dtype)
@@ -911,12 +1022,16 @@ def gemm_w4bf16(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
              f"multiple of 8 and 16-byte alignment")
     _check_vec(name, bias, N)
     _require(out_dtype in (F32, BF16), f"{name}: out_dtype {out_dtype}")
+    plan = gemm_plan(_W4, M, N, Kd)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws, counters = _split_args(plan, x.device)
     rc = _lib().mcan_gemm_w4bf16(
-        x.data_ptr(), x.stride(0), wp.data_ptr(), wp.stride(0),
-        s4.data_ptr(), M, N, Kd, _ptr(bias), int(relu),
-        _ptr(out if out_dtype == F32 else None),
-        _ptr(out if out_dtype == BF16 else None), N, _stream(x))
+        x.data_ptr(), x.stride(0), wp.data_ptr(), wp.stride(1),
+        s4.data_ptr(), M, N, Kd, plan.bm, plan.bn, plan.splits, plan.grid,
+        _ptr(bias),
+        int(relu), _ptr(out if out_dtype == F32 else None),
+        _ptr(out if out_dtype == BF16 else None), _ptr(ws), _ptr(counters),
+        _stream(x))
     _check(rc, name)
     return out
 

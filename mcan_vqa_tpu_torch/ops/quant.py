@@ -96,7 +96,9 @@ def _quant_w4(kernel: torch.Tensor, group: int = W4_GROUP
     grouped scales [K/g, out] f32 (quant.py:56): q = round(w / s) in
     [-7, 7], s = max|w| over each g-row slab / 7 (0 -> 1); rows j and
     j + K/2 share a byte, (q_lo + 8) | (q_hi + 8) << 4, so JAX-packed
-    weights load unchanged."""
+    weights load unchanged. The packed weight keeps JAX's shape and values,
+    stored K-major (``kernels.k_major``: the layout ``gemm_s4`` and
+    ``gemm_w4bf16`` read), once, here, for every int4 engine."""
     w32 = kernel.float()
     K = w32.shape[0]
     g = min(group, K)
@@ -108,7 +110,8 @@ def _quant_w4(kernel: torch.Tensor, group: int = W4_GROUP
     q = torch.round(w32 / s.repeat_interleave(g, dim=0)).clamp_(-7.0, 7.0)
     n = (q + 8.0).to(torch.int32)
     packed = (n[:K // 2] | (n[K // 2:] << 4)).to(torch.uint8)
-    return {"w_p": packed.view(I8).contiguous(), "w_gscale": s.contiguous()}
+    return {"w_p": kernels.k_major(packed.view(I8)),
+            "w_gscale": s.contiguous()}
 
 
 def _qrow(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

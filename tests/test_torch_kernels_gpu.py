@@ -439,10 +439,11 @@ def test_gemm_s8_reads_rows_padded_to_16(cuda):
 
 def _packed_w4(g, Kd, N, cuda):
     """A random nibble-packed int4 weight (every code -7..7, the JAX packing)
-    and positive group scales."""
+    stored K-major, as the engines' ``_quant_w4`` stores it, and positive
+    group scales."""
     lo = torch.randint(1, 16, (Kd // 2, N), generator=g, device=cuda)
     hi = torch.randint(1, 16, (Kd // 2, N), generator=g, device=cuda)
-    wp = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    wp = K.k_major((lo | (hi << 4)).to(torch.uint8).view(torch.int8))
     s4 = torch.rand(Kd // 128, N, generator=g, device=cuda) * 0.02 + 1e-3
     return wp, s4
 
@@ -453,7 +454,14 @@ def _packed_w4(g, Kd, N, cuda):
     (3840, 4096, 1024, False, True), (1, 256, 64, False, True),
     # K % 256 != 0: a group straddles the nibble halves (hidden 384, 640)
     (14, 384, 1152, False, True), (3840, 384, 1536, True, True),
-    (60, 640, 2560, False, False)])
+    (60, 640, 2560, False, False),
+    # MCAN-large's w1 / w2 at B=1 and B=64
+    (14, 1024, 4096, True, True), (14, 4096, 1024, False, True),
+    (3840, 1024, 4096, True, False),
+    # K split by the prefix rule: MCAN-small's B=1 w2 (4 splits), a
+    # straddling group inside split 1 (9 groups, 2 splits)
+    (14, 2048, 512, False, True), (60, 2048, 512, True, False),
+    (14, 1152, 256, False, True)])
 def test_gemm_s4_matches_plain_bitwise(cuda, M, Kd, N, relu, with_bias):
     g = torch.Generator(device=cuda).manual_seed(M + Kd)
     aq = torch.randint(-127, 128, (M, Kd), generator=g, device=cuda,
@@ -469,15 +477,27 @@ def test_gemm_s4_matches_plain_bitwise(cuda, M, Kd, N, relu, with_bias):
                            out_dtypes=(torch.float32, BF16))
     torch.cuda.synchronize()
     # exact int32 sums per group, then the same correctly rounded steps in
-    # the same order
-    for out, ref in zip(outs, refs):
+    # the same order, split or not; a second run gives the same bits, and a
+    # split plan leaves its tile counters at 0
+    again = K.gemm_s4(aq, wp, s4, bias, a=0.0173, relu=relu,
+                      out_dtypes=(torch.float32, BF16))
+    for out, ref, out2 in zip(outs, refs, again):
         assert torch.equal(out, ref)
+        assert torch.equal(out, out2)
+    if K.gemm_plan(5, M, N, Kd).splits > 1:
+        assert not K._SPLIT_COUNTERS[aq.device].any()
 
 
 @pytest.mark.parametrize("M,Kd,N,relu,out_dtype", [
     (14, 512, 1536, False, BF16), (60, 512, 2048, True, torch.float32),
     (896, 2048, 512, False, torch.float32), (61, 1024, 3072, True, BF16),
-    (14, 384, 1152, False, BF16), (60, 1536, 384, True, torch.float32)])
+    (14, 384, 1152, False, BF16), (60, 1536, 384, True, torch.float32),
+    # MCAN-large's w1 / w2 at B=1 (w2 split 8 ways) and B=64; the B=1 and
+    # B=64 encoder's MCAN-small w2 (4 and 2 splits); K 640
+    (14, 1024, 4096, True, BF16), (14, 4096, 1024, False, torch.float32),
+    (3840, 1024, 4096, True, BF16), (3840, 4096, 1024, False, torch.float32),
+    (14, 2048, 512, False, torch.float32), (896, 2048, 512, False, BF16),
+    (60, 640, 2560, True, BF16)])
 def test_gemm_w4bf16_matches_plain(cuda, M, Kd, N, relu, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(M + N)
     x = torch.randn(M, Kd, generator=g, device=cuda).to(BF16)
@@ -489,6 +509,13 @@ def test_gemm_w4bf16_matches_plain(cuda, M, Kd, N, relu, out_dtype):
     # gemm_bias_act's tolerance: the same bf16 weight (formed to the plain
     # version's bits) and exact products, summed in another order
     _close(out, ref, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
+    # the splits are summed in a fixed order: a second run, the same bits;
+    # a split plan leaves its tile counters at 0
+    assert torch.equal(out, K.gemm_w4bf16(x, wp, s4, bias, relu=relu,
+                                          out_dtype=out_dtype))
+    if K.gemm_plan(6, M, N, Kd).splits > 1:
+        torch.cuda.synchronize()
+        assert not K._SPLIT_COUNTERS[x.device].any()
 
 
 def test_int4_gemms_raise_on_unsupported_operands(cuda):
@@ -503,6 +530,13 @@ def test_int4_gemms_raise_on_unsupported_operands(cuda):
     with pytest.raises(ValueError, match="group scales"):
         K.gemm_s4(torch.zeros(8, 512, dtype=torch.int8, device=cuda), wp,
                   s4[:2], a=1.0)
+    # a packed weight stored row-major (JAX's layout as it is) is never
+    # transposed per call: both products raise
+    x = torch.zeros(8, 512, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        K.gemm_s4(x, wp.contiguous(), s4, a=1.0)
+    with pytest.raises(ValueError, match="K-major"):
+        K.gemm_w4bf16(x.to(BF16), wp.contiguous(), s4)
 
 
 # the fragment edges of masked_attention.cu: Dh against the 16-column
