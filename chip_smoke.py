@@ -74,7 +74,12 @@ Builds the port's CUDA kernels from the checkout's sources, then:
   [per-sub-op]  main path 1e, the per-sub-op path (sga_mode=0): gemm_ln
              and attflat_pool against their plain versions at the
              MCAN-small B=64 shapes (both stream dtypes, D up to 2048,
-             B=1), and the repaired shapes of the older kernels
+             B=1), each shape's plan (gemm_ln: tile, cluster, grid, ring,
+             shared memory, the instance's registers and spills, which the
+             [gemm_ln] lines of the build list and hold against
+             kernels.gemm_ln_smem_bytes; attflat_pool: CTAs a sample) and
+             two runs' bits compared, and the repaired shapes of the older
+             kernels
              (gemm_bias_act at N 480, the long attention forward and
              backward at Dh 192 / 256 and 160 / 608 rows, gemm_s4 /
              gemm_w4bf16 at K 384); build_production_engine(qffn=0,
@@ -268,6 +273,7 @@ def main() -> None:
             say(f"[ptxas] {line.strip()}")
     sm90_report(_build, _build.load_library())
     int4_report(_build, _build.load_library())
+    gemm_ln_report(_build, _build.load_library())
     attention_report(_build)
     stack_report(_build)
 
@@ -549,6 +555,71 @@ def int4_report(build, lib) -> None:
         if got != want:
             fail(f"gemm_int4 layout {code} at {bm} rows: the library's "
                  f"shared memory {got} != kernels.int4_smem_bytes {want}")
+
+
+GEMM_LN_INSTANCE = re.compile(r"gemm_ln_kernelILi(\d)ELi(\d)ELi(\d+)EE")
+ATTFLAT_INSTANCE = re.compile(
+    r"attflat_pool_kernelI(f|13__nv_bfloat16)Li(\d)EE")
+# (f32 a, rows, columns) -> "N registers, S spill stores / loads" (ptxas)
+GEMM_LN_PTXAS = {}
+
+
+def gemm_ln_report(build, lib) -> None:
+    """gemm_ln.cu's instances, gemm_ln_kernel<f32 a, warpgroups, columns>:
+    registers and spills (ptxas) and dynamic shared memory, held against
+    kernels.gemm_ln_smem_bytes (the plan's); attflat_pool.cu's instances'
+    registers and spills."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    lines = build.build_log.splitlines()
+    if not lines:
+        say("[gemm_ln] the library was built by an earlier process: no "
+            "ptxas log here")
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        info = " ".join(ln.strip() for ln in lines[i + 1:i + 4]
+                        if "spill" in ln or "registers" in ln)
+        m = GEMM_LN_INSTANCE.search(line)
+        if m:
+            f32, wgs, bn = (int(g) for g in m.groups())
+            GEMM_LN_PTXAS[f32, 64 * wgs, bn] = info
+            say(f"[gemm_ln] {'f32' if f32 else 'bf16'} a, {64 * wgs} x {bn}: "
+                f"{info}; dynamic shared memory "
+                f"{lib.mcan_gemm_ln_smem(f32, 64 * wgs, bn)} bytes")
+        m = ATTFLAT_INSTANCE.search(line)
+        if m:
+            say(f"[attflat_pool] x {'f32' if m.group(1) == 'f' else 'bf16'}, "
+                f"{m.group(2)} values a unit: {info}")
+    for bm, bn in K.GEMM_LN_TILES:
+        for f32 in (0, 1):
+            got = lib.mcan_gemm_ln_smem(f32, bm, bn)
+            want = K.gemm_ln_smem_bytes(bool(f32), bm, bn)
+            if got != want:
+                fail(f"gemm_ln {bm} x {bn}, f32 a {f32}: the library's shared "
+                     f"memory {got} != kernels.gemm_ln_smem_bytes {want}")
+
+
+def gemm_ln_plan_note(K, lib, label, M, Kd, D, a_f32) -> None:
+    """gemm_ln.cu's plan of one call (kernels.gemm_ln_plan): the tile, the
+    cluster, the grid, the ring, the shared memory, how many such clusters
+    the card holds at once, and the instance's ptxas line."""
+    p = K.gemm_ln_plan(M, Kd, D, a_f32)
+    f32 = int(a_f32)
+    ptxas = GEMM_LN_PTXAS.get((f32, p.bm, p.bn), "ptxas: not in this process")
+    say(f"    [plan] gemm_ln {label}: {p.bm} x {p.bn} tiles, clusters of "
+        f"{p.cluster} CTAs, grid {p.grid}, {p.stages} stages of the ring, "
+        f"{p.smem} bytes of shared memory, "
+        f"{lib.mcan_gemm_ln_max_clusters(f32, p.bm, p.bn, p.cluster)} "
+        f"clusters at once; {ptxas}")
+
+
+def same_bits(name, a, b) -> None:
+    """Two runs of a kernel on the same inputs give the same bits."""
+    import torch
+    ok = all(torch.equal(x, y) for x, y in zip(a, b))
+    say(f"  {name}: two runs {'give equal bits' if ok else 'DIFFER'}")
+    if not ok:
+        fail(f"{name}: two runs of the same inputs differ")
 
 
 def attention_plan_note(K, label, q, k) -> None:
@@ -3398,14 +3469,17 @@ def gemm_ln_work(M, Kd, D, a_size, res_size):
 def check_sub_op_kernels(torch, dev, rows) -> None:
     """gemm_ln and attflat_pool against their plain versions at the
     MCAN-small B=64 shapes of the per-sub-op path (both stream dtypes; D
-    1024 / 1536 / 2048; B = 1) and the repaired shapes of the older
-    kernels: gemm_bias_act at N 480, the attention forward and backward
-    at Dh 192 / 256 and 160 / 608 rows (the long kernels), gemm_s4 /
+    1024 / 1536 / 2048; B = 1), each with its plan and two runs' bits
+    compared, and the repaired shapes of the older kernels: gemm_bias_act
+    at N 480, the attention forward and backward at Dh 192 / 256 and 160
+    / 608 rows (the long kernels), gemm_s4 /
     gemm_w4bf16 at K 384; each with its time, its plain version's, a
     library call's where one computes the function, and its bound."""
     from mcan_vqa_tpu_torch.cli.bench_attention import sdpa_backward_ms
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.ops.quant import _quant_w4
+    from mcan_vqa_tpu_torch.ops._build import load_library
+    lib = load_library()
     kc = KernelCheck(torch, dev, rows, SEED + 70)
     bf16, f32 = torch.bfloat16, torch.float32
     F_ = torch.nn.functional
@@ -3458,6 +3532,7 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
         gamma, beta = 1 + kc.randn(D, s=0.1), kc.randn(D, s=0.1)
         ops, nbytes = gemm_ln_work(M, Kd, D, a.element_size(),
                                    res.element_size())
+        gemm_ln_plan_note(K, lib, label, M, Kd, D, adt == f32)
         # f32 out: the same exact bf16 products summed in another order,
         # then an LN of O(1) values; bf16: one rounding a step apart
         kc.case("gemm_ln", f"{label} [{M}x{Kd}]x[{Kd}x{D}]",
@@ -3465,6 +3540,9 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
                 lambda: (K.gemm_ln_plain(a, w, b, res, gamma, beta),),
                 (1e-4 if sdt == f32 else 8e-3,), n, ops, nbytes,
                 timed=n > 0 or label.startswith("B=1"))
+        same_bits(f"gemm_ln {label}",
+                  (K.gemm_ln(a, w, b, res, gamma, beta),),
+                  (K.gemm_ln(a, w, b, res, gamma, beta),))
 
     # --- attflat_pool: (label, L, x dtype, launches per forward)
     for label, L, xdt, n in (("img", 60, bf16, 1), ("lang", 14, bf16, 1),
@@ -3487,6 +3565,12 @@ def check_sub_op_kernels(torch, dev, rows) -> None:
         out = K.attflat_pool(h, w2, b2, mask, x)[1][0]
         gate(f"attflat_pool {label}: the fully padded sample's softmax is "
              f"uniform", max_err(out, torch.full_like(out, 1.0 / L)), 1e-6)
+        p = K.attflat_plan(B, L, 1, D)
+        say(f"    [plan] attflat_pool {label}: {p.ranks} CTAs a sample "
+            f"(grid {p.grid}), {p.chunk} columns each, {p.smem} bytes of "
+            f"shared memory")
+        same_bits(f"attflat_pool {label}", K.attflat_pool(h, w2, b2, mask, x),
+                  K.attflat_pool(h, w2, b2, mask, x))
 
     # --- the mode-0 attention (masked_attention_pallas and its variants):
     # q, k, v f32 views of the plain projections, f32 out

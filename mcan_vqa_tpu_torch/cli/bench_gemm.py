@@ -40,6 +40,19 @@ whose int32 output is its own), at every shape of
     weight (the port's own kernels; no single PyTorch call computes a
     grouped int4 product, so mm_ms is null).
 
+  * units M0 / M0B1 / H1536 / H2048, the per-sub-op serving path
+    (sga_mode=0): ``gemm_ln`` at every site of one forward (per layer the
+    encoder's merge and FFN, the decoder's two merges and FFN; the merges
+    read the f32 attention output, the FFNs the bf16 hidden, a bf16
+    stream) -- MCAN-small at B=64 (M0: decoder 3840 rows, encoder 896) and
+    B=1 (M0B1: 60, 14), the default Predictor at hidden 1536 / 2048 and
+    B=8 (480, 112 rows; F = 4 D) -- and ``attflat_pool`` at both AttFlats
+    of M0 and M0B1 (the kernel AttFlat, use_pallas_attflat); beside each
+    gemm_ln site two yardsticks, the port's unfused pair on the same
+    operands (``gemm_bias_act`` for the product, then
+    ``residual_layernorm``; the f32 a cast to bf16 beforehand, outside the
+    time) and ``torch.addmm`` for the product alone.
+
 A forward shape's h1 keep-mask read from memory is timed once more with
 0 calls per unit. Each device time: 50 calls captured in one CUDA graph,
 replayed 5 times, the median per call. Prints one JSON line per shape, one
@@ -50,7 +63,12 @@ times one MCAN-small ``Predictor`` forward at B = 1, 8 and 64 (seeded
 random weights; the default engine at int8 level 1, at level 3 calibrated
 on one batch, the int4 engine at level 5 and level 7, calibrated on the
 same batch, and the bf16 one, ``qffn=0``; median of 5 rounds of 10 eager
-calls). Needs a CUDA device.
+calls), then the per-sub-op forward at B = 1, 8 and 64: MCAN-small's
+bf16 mode-0 engine (``build_production_engine(qffn=0, sga_mode=0)``) and
+the default Predictor at hidden 1536 (which serves mode 0), each eager
+and, where the capture takes it, as one CUDA graph of its engine (device
+time), with the host-bound share 1 - graph / eager beside it. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -161,6 +179,25 @@ W4 = [(unit, f"{blk} {site}", M, Kd, N, relu,
                                 ("w2", 2048, 512, False))]
 
 
+
+
+def _ln_sites(unit, B, D):
+    """gemm_ln's sites in one mode-0 forward (MCAN-small's 6 + 6 layers):
+    (unit, label, M, K, D, f32 a, calls per unit)."""
+    return [(unit, "dec merge", B * 60, D, D, True, 12),
+            (unit, "enc merge", B * 14, D, D, True, 6),
+            (unit, "dec ffn", B * 60, 4 * D, D, False, 6),
+            (unit, "enc ffn", B * 14, 4 * D, D, False, 6)]
+
+
+LN = (_ln_sites("M0", 64, 512) + _ln_sites("M0B1", 1, 512)
+      + _ln_sites("H1536", 8, 1536) + _ln_sites("H2048", 8, 2048))
+# (unit, label, B, L, D, calls per unit): attflat_pool at both AttFlats
+ATTFLAT = [(unit, name, B, L, 512, 1) for unit, B in (("M0", 64),
+                                                      ("M0B1", 1))
+           for name, L in (("img", 60), ("lang", 14))]
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16) -> float:
     return max(flops / peak, nbytes / HBM) * 1e3
 
@@ -256,6 +293,63 @@ def time_forward(torch, tag: str) -> None:
             print(json.dumps({"tag": tag, "forward": name, "B": b,
                               "ms": statistics.median(ms), "min_ms": min(ms),
                               "max_ms": max(ms)}), flush=True)
+    time_mode0(torch, tag, cfg, state, vocab, emb, questions, rng,
+               pred.pad_batch)
+
+
+def time_mode0(torch, tag, cfg, state, vocab, emb, questions, rng,
+               pad_batch) -> None:
+    """The per-sub-op forward at B = 1, 8 and 64: MCAN-small's bf16 mode-0
+    engine and the default Predictor at hidden 1536 (mode 0), eager (median
+    of 5 rounds of 10 calls) and its engine as one CUDA graph (device time;
+    null where the capture is refused), with the host-bound share."""
+    import statistics
+
+    import numpy as np
+
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.cli.bench_layernorm import graph_ms
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    wide = Config.for_model("small", hidden_size=1536)
+    wide_state = MCANet(wide, len(vocab), 3129, pretrained_emb=emb,
+                        generator=torch.Generator().manual_seed(1)
+                        ).state_dict()
+    cases = []
+    for label, c, sd in (("mode 0, MCAN-small", cfg, state),
+                         ("default Predictor, hidden 1536", wide,
+                          wide_state)):
+        fwd, prep = build_production_engine(sd, c.layer, c.multi_head,
+                                            qffn=0, sga_mode=0)
+        pred = Predictor(c, sd, vocab, latency_buckets=(1, 8),
+                         auto_calibrate=0) if c is wide else None
+        cases.append((label, c, fwd, prep, pred))
+    for b in (1, 8, 64):
+        for label, c, fwd, prep, pred in cases:
+            feats = [np.abs(rng.normal(size=(40, c.img_feat_size)))
+                     .astype(np.float32) for _ in range(b)]
+            img, ques = pad_batch([questions[i % 2] for i in range(b)],
+                                  feats)
+            img_t, ques_t = (torch.from_numpy(x).cuda() for x in (img, ques))
+
+            def engine():
+                with torch.inference_mode():
+                    return fwd(prep, img_t, ques_t)
+
+            call = (lambda: pred.forward_padded(img, ques)) if pred else \
+                engine
+            ms = [eager_ms(torch, call, calls=10) for _ in range(5)]
+            try:
+                dev_ms = graph_ms(torch, engine, calls=10, rounds=5)
+            except RuntimeError:
+                dev_ms = None
+            med = statistics.median(ms)
+            print(json.dumps({
+                "tag": tag, "forward": label, "B": b, "ms": med,
+                "min_ms": min(ms), "max_ms": max(ms), "graph_ms": dev_ms,
+                "host_share": None if dev_ms is None else 1 - dev_ms / med}),
+                flush=True)
 
 
 def main(argv=None) -> None:
@@ -394,6 +488,42 @@ def main(argv=None) -> None:
         emit("gemm_bias_act, dequant weight", unit, label, [M, Kd, N], calls,
              nn, None, bound_ms(2 * M * Kd * N, nbytes + M * Kd * (2 - a_size)
                                 + Kd * N * 3 // 2, PEAK_BF16))
+    for unit, label, M, Kd, D, a_f32, calls in LN:
+        # the f32 a of a merge, the ReLU hidden of an FFN; a bf16 stream
+        a = randn(M, Kd) if a_f32 else randn(M, Kd, dtype=bf16).relu()
+        a16 = a.to(bf16)
+        w = randn(Kd, D, dtype=bf16, s=Kd ** -0.5)
+        b, res = randn(D, s=0.1), randn(M, D, dtype=bf16)
+        gamma, beta = 1 + randn(D, s=0.1), randn(D, s=0.1)
+        b16 = b.to(bf16)
+        flops = 2 * M * Kd * D + 10 * M * D
+        nbytes = a.element_size() * M * Kd + 2 * Kd * D + 12 * D + 4 * M * D
+        ms = graph_ms(torch, lambda: K.gemm_ln(a, w, b, res, gamma, beta))
+        pair = graph_ms(torch, lambda: K.residual_layernorm(
+            res, K.gemm_bias_act(a16, w, b), None, gamma, beta, (bf16,)))
+        extra = {"pair_ms": pair}
+        if hasattr(K, "gemm_ln_plan"):
+            p = K.gemm_ln_plan(M, Kd, D, a_f32)
+            extra["plan"] = [p.bm, p.bn, p.cluster, p.grid, p.stages]
+        emit("gemm_ln", unit, label, [M, Kd, D], calls, ms,
+             graph_ms(torch, lambda: torch.addmm(b16, a16, w)),
+             bound_ms(flops, nbytes), **extra)
+        emit("gemm_ln, unfused pair", unit, label, [M, Kd, D], calls, pair,
+             None, bound_ms(flops, nbytes + 8 * M * D))
+    for unit, label, B, L, D, calls in ATTFLAT:
+        Fm = 512
+        x = randn(B, L, D, dtype=bf16)
+        h = randn(B * L, Fm).relu().to(bf16)
+        w2, b2 = randn(Fm, 1, dtype=bf16, s=Fm ** -0.5), randn(1, s=0.1)
+        lens = torch.tensor([(i * 7) % (L + 1) for i in range(B)], device=dev)
+        mask = (torch.arange(L, device=dev)[None] >= lens[:, None])[
+            :, None, None, :].contiguous()
+        ops = 2 * B * L * Fm + 2 * B * L * D + 10 * B * L
+        nbytes = (2 * B * L * Fm + 2 * Fm + 4 + B * L + 2 * B * L * D
+                  + 2 * B * D + 4 * B * L)
+        emit("attflat_pool", unit, label, [B, L, D], calls,
+             graph_ms(torch, lambda: K.attflat_pool(h, w2, b2, mask, x)),
+             None, bound_ms(ops, nbytes))
     for (kernel, unit), (calls, ms, mm_ms, b) in totals.items():
         if calls == 0:
             continue

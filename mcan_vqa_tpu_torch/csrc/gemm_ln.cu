@@ -1,7 +1,7 @@
 // gemm_ln: out[M, D] = StdLayerNorm(res + a . W + b) with the reference
 // LayerNorm, gamma * (r - mean) / (std + 1e-6) + beta, std Bessel-corrected
 // (divided by D - 1), eps added to the std. The pre-LN sum r never leaves
-// the SM.
+// the registers.
 //
 // Replaces: the Pallas kernels of the per-sub-op serving path
 //   mcan_vqa_tpu/ops/fused_ffn.py::_proj_ln_kernel (fused_proj_ln, call
@@ -10,214 +10,538 @@
 //   half of ::_ffn_ln_kernel (fused_ffn_ln, call :340): the ReLU hidden h
 //   [M, F] bf16 (from gemm_bias_act) . W2 [F, D] + b2 + the residual x,
 //   then the LN. The TPU kernels keep a row tile's product and its LN in
-//   VMEM; here one block owns BM whole rows, all D columns, and stages
-//   y = a . W in shared memory for the LN epilogue.
+//   VMEM; here a row block's D columns are spread over the CTAs of one
+//   thread-block cluster, which exchange the LN's row statistics through
+//   distributed shared memory.
 //
-// Numerics, as in those kernels: a rounded to bf16 (an f32 a on load, as
-//   _proj_ln_kernel's a.astype(bfloat16), fused_ffn.py:66), W bf16, the
-//   products summed in f32, y + b, then r = f32(res) + y, then the LN in f32
-//   (residual_layernorm.cuh's centre_row, the LayerNorm kernels' row
-//   statistics), divided by (std + eps) as model.apply does; the output
-//   rounded once to the residual's dtype (a bf16 or an f32 stream).
+// Numerics, as in those kernels: a rounded to bf16 (an f32 a as
+//   _proj_ln_kernel's a.astype(bfloat16), fused_ffn.py:69, round to nearest
+//   even), W bf16, the products summed in f32, then r = f32(res) + (y + b),
+//   the row's mean and Bessel variance in f32, divided by (std + eps) as
+//   model.apply does; the output rounded once to the residual's dtype (a
+//   bf16 or an f32 stream).
 //
-// Bounds on an H100: at MCAN-small B=64 the merge site (M 3840, K = D = 512)
-//   moves 16.2 MB (4.9 us at 3.35 TB/s) for 2.0 GFLOP (2.0 us at the bf16
-//   peak); the FFN site (K = 2048) 6.3 MB more of h and 8.1 GFLOP. At B=1
-//   (M 14 or 60) it is one or two blocks: latency.
-// Design (simple first): 8 warps; BM = 32 rows per block for D up to 1024,
-//   16 past it, so that y fits (BM x D f32 <= 128 KB); the D columns in
-//   chunks of 128, 16 per warp, each chunk a K loop of bf16 WMMA 16x16x16
-//   fragments with f32 accumulation over a two-stage pipeline (W by
-//   cp.async; a by cp.async when bf16, rounded on load when f32); each
-//   chunk's fragments stored into y; then one warp per row adds b and the
-//   residual, takes the row's statistics and writes the row. W is read
-//   once per block (M / BM times in all, from L2). Columns past D and rows
-//   past M are zero-filled on load and never stored, so any M and any D
-//   that is a multiple of 8 up to 2048 is exact.
-// Not yet: wgmma, TMA, a persistent schedule, split-K at B = 1.
-#include <mma.h>
+// Bounds on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at MCAN-small B=64 the
+//   decoder's merge (M 3840, K = D = 512, f32 a) moves 16.2 MB (4.8 us) for
+//   2.0 GFLOP (2.0 us); its FFN (K 2048, bf16 h) 25.5 MB (7.6 us) for 8.1
+//   GFLOP (8.1 us): both near the ridge, the merge bound by bytes. At B = 1
+//   (M 14 or 60) the weight's bytes (0.5 / 2 MB) bound it, and in practice
+//   the latency of the K-tiles a CTA walks in order.
+//
+// Design. The product runs on sm90_mainloop.cuh's TMA ring and wgmma, as
+// gemm_sm90.cu's NN instance does: a CTA is one or two consumer warpgroups
+// (64 rows of the output each, BN columns: wgmma m64nBNk16, BN 64, 128 or
+// 256) and a producer warp whose lane 0 keeps TMA loads of K-tiles of 64 in
+// flight into a ring of STAGES slots (128-byte swizzle, zero-filled past M,
+// K and D); W [K, D] is read MN-major through wgmma's transpose bit, never
+// transposed in memory.
+//   * bf16 a (the FFN): both operands from shared-memory descriptors.
+//   * f32 a (the merges): TMA cannot convert, so the slot holds the f32 box
+//     (two boxes of 32 values a K-tile, 128-byte rows, swizzled) and each
+//     thread builds its bf16 A fragments in registers (ld.shared of float2,
+//     one cvt.rn.bf16x2.f32 a pair: the bits of bf16(a)) for wgmma's
+//     register-A form (consume_rs, as gemm_int4.cu's W4 builds its
+//     dequantized weight). The other way, a converting stage that writes a
+//     swizzled bf16 slot back, costs a store, a proxy fence and a barrier
+//     of the warpgroup a K-tile, and doubles the slot's shared-memory
+//     traffic; the registers cost one f32 read a value and nothing else.
+// A row block's D columns belong to the C = ceil(D / BN) CTAs of one
+// cluster, rank c owning columns [c BN, (c + 1) BN), so every row's LN sees
+// all D columns while each tile stays in its warpgroup's registers (64 x
+// 2048 f32 is 512 KB: no CTA holds it). While the first K-tiles load, the
+// consumers stage bias, gamma and beta of the CTA's columns in shared memory
+// and fetch a bf16 residual (up to BN 128) into registers, else its rows
+// into L2. The epilogue, from the accumulator registers (a thread holds rows
+// g, g + 8 of its warp's 16, column pairs 8 j + 2 t):
+//   1. r = res + (acc + bias), 0 past D, in place of the accumulators (a
+//      bf16 residual arrives as 16-byte pieces, which a quad transpose turns
+//      into each lane's pairs);
+//   2. each row's sum over the CTA's columns (the thread's values, then the
+//      quad's four lanes by two xor shuffles: every lane the same bits), its
+//      mean over those columns, and the sum of squares about that mean
+//      (M2), into this CTA's shared memory;
+//   3. one cluster barrier; every CTA reads the C (sum, M2, mean) of its
+//      rows through distributed shared memory (one 16-byte load a rank, all
+//      in flight at once) and combines them in rank order 0 .. C-1 by Chan
+//      et al.'s pairwise update, M2 = sum_c M2_c + n_c (mean_c - mean)^2,
+//      the two-pass variance without a second exchange: every CTA, and
+//      every run, gets the same bits;
+//   4. each CTA normalises its own columns from the registers, gamma (r -
+//      mean) / (std + eps) + beta, the quotient from the correctly rounded
+//      reciprocal of std + eps and one Markstein correction by the exact
+//      residual (div_by: branch-free, so the quotients interleave; the
+//      compiler's division checks each one for its slow path, a branch that
+//      serialised them), and stores them: bf16 as 16-byte pieces after a
+//      quad transpose, f32 as pairs;
+//   5. its last remote read comes before a cluster arrive, and it waits on
+//      that barrier before it exits, so no CTA leaves while a peer reads
+//      its shared memory.
+// The producer warp takes part in the cluster barriers (it does not exit
+// early, as gemm_sm90.cu's does), converged first (__syncwarp): lanes that
+// waited at the cluster barrier while lane 0 still issued loads slowed its
+// issue. The plan -- the tile, C, the grid, the stages and the shared
+// memory -- is ops/kernels.py::gemm_ln_plan's, made in Python from the
+// shape alone; the C entry checks it against the instance and derives
+// none of it. C is at most 8, the portable cluster size: D up to 512 takes
+// BN 64 or 128, up to 1024 BN 128, up to 2048 BN 256 (m64n256k16, 128
+// accumulators a thread). 128 x 128 tiles (two warpgroups) halve the
+// weight's reloads from L2 where they still fill the card (the decoder's
+// 3840 rows); few row blocks take 64 x 64 (the most CTAs, a deep ring).
+// Each CTA loads its own A box, though the C CTAs of a cluster read the
+// same one. A multicast of it (8-row swizzle atoms dealt round the ranks,
+// each slot freed by an arrival from every CTA's consumers) was built and
+// timed on the card: every MCAN site ran slower with it (small atoms; the
+// slowest CTA of a cluster gates every slot), so it was taken out.
+// Not yet: split-K at small M (at B = 1 a row block is one cluster of C
+// CTAs walking all of K in order), a persistent schedule, a TMA store of
+// the output, clusters past 8 CTAs (more CTAs at D 1536 / 2048).
+#include <cstdint>
+#include <cstring>
 
 #include "residual_layernorm.cuh"
+#include "sm90_mainloop.cuh"
 
-using namespace nvcuda;
+namespace gemm_ln {
 
-namespace {
+using namespace sm90;
 
-constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int BN = 16 * WARPS;  // the columns of one chunk: a fragment column per warp
-constexpr int BK = 32, SKEW = 8, YSKEW = 4;
-constexpr int LDA = BK + SKEW, LDW = BN + SKEW;
-constexpr int Y_FLOATS = 32768;  // the y stage: BM x D f32 <= 128 KB
+constexpr int MAX_CLUSTER = 8;
 
-// bytes of dynamic shared memory: the a and W stages, then y [BM][dp + YSKEW]
-constexpr int smem_bytes(int bm, int dp) {
-  return 2 * bm * LDA * 2 + 2 * BK * LDW * 2 + bm * (dp + YSKEW) * 4;
+// An instance: f32 or bf16 a, WGS consumer warpgroups of 64 rows each (BM =
+// 64 WGS rows a CTA), BN columns. 64 x 128 lets two CTAs share an SM (the
+// ring in at most 96 KB, at most 204 registers a thread); the others run
+// one CTA an SM, 64 x 64 with a deep ring (the plan takes it where the CTAs
+// are few: B = 1, the encoder): at B = 1 the K-tiles of a merge all load
+// at once, and an FFN's in three rounds.
+template <int A_F32, int WGS, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int CONSUMERS = 128 * WGS, THREADS = CONSUMERS + 32;
+  static constexpr int A_BOXES = A_F32 ? 2 : 1;   // a K-tile's 128-byte boxes (f32: 32 values a row)
+  static constexpr int A_BYTES = WGS * A_BOXES * BOX;
+  static constexpr int B_BYTES = BN / 64 * BOX;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = WGS == 2 ? (A_F32 ? 4 : 6)
+                                : BN == 256 ? 4 : BN == 128 ? (A_F32 ? 3 : 4) : (A_F32 ? 8 : 12);
+  static constexpr int ACC = BN / 2;
+  static constexpr int BLOCKS_PER_SM = WGS == 1 && BN == 128 ? 2 : 1;
+  // the ring, 1 KB of slack to align it, the barriers, the rows' (sum, M2,
+  // mean) in 16 bytes each, then bias, gamma and beta of the CTA's columns
+  static constexpr int SMEM = SWIZZLE_ATOM + STAGES * STAGE_BYTES + 16 * STAGES + 4 * BM * 4 + 3 * BN * 4;
+};
+
+// the A fragments of one K-tile of f32 a for wgmma's register-A form: rows
+// 16 warp + g (+ 8), k 16 kk + 2 t (+ 8) of the warpgroup's 64 rows, in two
+// f32 boxes (32 values a row, 128-byte rows, 128-byte swizzle: the 16-byte
+// chunk c of row r at chunk c ^ (r % 8)) `xstride` bytes apart, each pair
+// rounded to bf16 as one word
+__device__ __forceinline__ void f32_frags(uint32_t a, uint32_t xstride, int warp, int lane,
+                                          uint32_t (&f)[BK / 16][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {   // (g, 0), (g + 8, 0), (g, 8), (g + 8, 8)
+      const int row = 16 * warp + g + 8 * (q & 1);
+      const int k = 16 * kk + 2 * t + 8 * (q >> 1);
+      const int kc = k & 31;
+      const uint32_t addr = a + (k >> 5) * xstride + row * 128 + (((kc >> 2) ^ (row & 7)) << 4) +
+                            (kc & 3) * 4;
+      float x, y;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(x), "=f"(y) : "r"(addr));
+      const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);   // x in the low half
+      f[kk][q] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
 }
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS)
-gemm_ln_kernel(const void* __restrict__ A, int a_f32, long long lda, const bf16* __restrict__ W,
-               long long ldw, const float* __restrict__ bias, const void* __restrict__ res,
-               int res_bf16, long long ldr, const float* __restrict__ gamma,
-               const float* __restrict__ beta, void* __restrict__ out, long long ldo, int M,
-               int D, int K, float eps) {
-  constexpr int FR = BM / 16;  // fragment rows per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);             // [2][BM][LDA]
-  bf16* Ws = As + 2 * BM * LDA;                             // [2][BK][LDW]
-  float* Ys = reinterpret_cast<float*>(Ws + 2 * BK * LDW);  // [BM][ldy]
-  const int ldy = (D + BN - 1) / BN * BN + YSKEW;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM;
-  const bf16 zero = to_bf16(0.0f);
+// A quad's 16-byte pieces of a bf16 row (lane t: columns 8 (g4 + t) .. + 7)
+// as the thread's pairs: v[2 s], v[2 s + 1] = columns c0 + 8 (g4 + s), + 1,
+// by a quad transpose
+__device__ __forceinline__ void unpack_res(float (&v)[8], uint4 x, int lane) {
+  unsigned a[4] = {x.x, x.y, x.z, x.w};
+  quad_transpose(a, lane);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&a[s]);
+    v[2 * s] = __low2float(p);
+    v[2 * s + 1] = __high2float(p);
+  }
+}
 
-  // a: BM rows of BK values, chunks of 8 along k; an f32 a is rounded to
-  // bf16 here (a uniform branch: one instance serves both dtypes)
-  auto load_a = [&](int st, int k0) {
-    bf16* as = As + st * BM * LDA;
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + cc;
-      const bool ok = gm < M && gk < K;
-      if (!a_f32) {
-        const bf16* a = static_cast<const bf16*>(A);
-        cp_async16(&as[r * LDA + cc], ok ? a + (size_t)gm * lda + gk : a, ok);
-      } else {
-        __align__(16) bf16 v[8];
-        if (ok) {
-          const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(A) +
-                                                              (size_t)gm * lda + gk);
-          const float4 x0 = src[0], x1 = src[1];
-          v[0] = to_bf16(x0.x); v[1] = to_bf16(x0.y); v[2] = to_bf16(x0.z); v[3] = to_bf16(x0.w);
-          v[4] = to_bf16(x1.x); v[5] = to_bf16(x1.y); v[6] = to_bf16(x1.z); v[7] = to_bf16(x1.w);
-        } else {
+// The residual of the thread's pairs g4 .. g4 + 3 of one row: v[2 s], v[2 s +
+// 1] = columns c0 + 8 (g4 + s), + 1 (0 past D or M). bf16: each lane reads
+// the 8 columns 8 (g4 + t) .. of the row (16 bytes) and a quad transpose
+// hands each lane its pairs; f32: the pairs themselves.
+__device__ __forceinline__ void load_res(float (&v)[8], const void* res, int res_bf16, long long ldr,
+                                         int row, int M, int c0, int g4, int lane, int D) {
+  const int t = lane & 3;
+  if (res_bf16) {
+    const int col = c0 - 2 * t + 8 * (g4 + t);
+    unpack_res(v, row < M && col < D   // D % 8 == 0: all 8 columns or none
+                      ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(res) +
+                                                        static_cast<size_t>(row) * ldr + col)
+                      : make_uint4(0u, 0u, 0u, 0u),
+               lane);
+  } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = zero;
-        }
-        *reinterpret_cast<uint4*>(&as[r * LDA + cc]) = *reinterpret_cast<const uint4*>(v);
-      }
+    for (int s = 0; s < 4; ++s) {
+      const int col = c0 + 8 * (g4 + s);
+      float2 x = make_float2(0.0f, 0.0f);
+      if (row < M && col < D)
+        x = *reinterpret_cast<const float2*>(static_cast<const float*>(res) +
+                                             static_cast<size_t>(row) * ldr + col);
+      v[2 * s] = x.x;
+      v[2 * s + 1] = x.y;
     }
-  };
-  // W: BK rows of the chunk's BN columns, chunks of 8 along n
-  auto load_w = [&](int st, int k0, int n0) {
-    bf16* ws = Ws + st * BK * LDW;
-    for (int c = tid; c < BK * BN / 8; c += THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + cc;
-      const bool ok = gk < K && gn < D;
-      cp_async16(&ws[r * LDW + cc], ok ? W + (size_t)gk * ldw + gn : W, ok);
-    }
-  };
+  }
+}
 
-  const int nk = (K + BK - 1) / BK;
-  for (int n0 = 0; n0 < D; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR];
-#pragma unroll
-    for (int i = 0; i < FR; ++i) wmma::fill_fragment(acc[i], 0.0f);
-    load_a(0, 0);
-    load_w(0, 0, n0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt & 1;
-      if (kt + 1 < nk) {
-        load_a(st ^ 1, (kt + 1) * BK);
-        load_w(st ^ 1, (kt + 1) * BK, n0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* as = As + st * BM * LDA;
-      const bf16* ws = Ws + st * BK * LDW;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, &ws[kk * LDW + warp * 16], LDW);
-#pragma unroll
-        for (int i = 0; i < FR; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, &as[i * 16 * LDA + kk], LDA);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-      __syncthreads();  // the next iteration's loads overwrite this stage
+// x reduced over the 4 lanes of a quad (every lane the same bits)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+}
+
+// x / y from r = y's correctly rounded reciprocal: q = x r, then
+// Markstein's correction by the residual x - q y, exact in an FMA. The
+// correction brings q to div.rn.f32's quotient but for rare last-place
+// cases; it is branch-free, so a row's quotients interleave (the compiler's
+// division checks each quotient for its slow path, a branch that serialised
+// the epilogue's divisions).
+__device__ __forceinline__ float div_by(float x, float y, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
+}
+
+template <int A_F32, int WGS, int BN>
+__global__ void __launch_bounds__(Cfg<A_F32, WGS, BN>::THREADS, Cfg<A_F32, WGS, BN>::BLOCKS_PER_SM)
+gemm_ln_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+               const float* __restrict__ bias, const void* __restrict__ res, int res_bf16,
+               long long ldr, const float* __restrict__ gamma, const float* __restrict__ beta,
+               void* __restrict__ out, long long ldo, int M, int D, int k_tiles, float eps) {
+  using C = Cfg<A_F32, WGS, BN>;
+  constexpr int STAGES = C::STAGES, ACC = C::ACC, BM = C::BM, CONSUMERS = C::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + SWIZZLE_ATOM - 1) & ~(SWIZZLE_ATOM - 1);
+  const uint32_t bars = base + STAGES * C::STAGE_BYTES;   // full[s], then empty[s]
+  float* stats = reinterpret_cast<float*>(smem_raw + (bars - raw) + 16 * STAGES);   // [BM] x (sum, M2, mean, -)
+  float* vecs = stats + 4 * BM;   // bias, gamma, beta [BN] each
+
+  const int tid = threadIdx.x;
+  const unsigned rank = cluster_rank(), ranks = cluster_size();
+  const int m0 = static_cast<int>(cluster_index()) * BM;
+  const int n0 = static_cast<int>(rank) * BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS);
     }
-#pragma unroll
-    for (int i = 0; i < FR; ++i)
-      wmma::store_matrix_sync(&Ys[i * 16 * ldy + n0 + warp * 16], acc[i], ldy,
-                              wmma::mem_row_major);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // the LN epilogue: one warp per row, each lane its columns lane + 32 t
-  for (int r = warp; r < BM; r += WARPS) {
-    const int gm = m0 + r;
-    if (gm >= M) break;
-    float* y = Ys + r * ldy;
-    const size_t rb = (size_t)gm * ldr, ob = (size_t)gm * ldo;
+  if (tid >= CONSUMERS) {
+    // ---- the producer warp: lane 0 keeps the ring full; the warp stays for
+    // the epilogue's cluster barrier
+    if (tid == CONSUMERS) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tw)) : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      produce<STAGES, C::STAGE_BYTES>(base, bars, stage, phase, k_tiles, C::STAGE_BYTES,
+                                      [&](uint32_t a, uint32_t full, int i) {
+        const int k0 = i * BK;
+        // A: box x of K-tile i (k0 + 32 x for f32) holds the BM rows, 128
+        // bytes each, at a + x WGS BOX
+#pragma unroll
+        for (int x = 0; x < C::A_BOXES; ++x) tma_load(a + x * WGS * BOX, &ta, full, k0 + 32 * x, m0);
+        // W [K, D]: BN / 64 boxes of 64 columns x 64 k-rows (MN-major)
+        const uint32_t b = a + C::A_BYTES;
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) tma_load(b + j * BOX, &tw, full, n0 + 64 * j, k0);
+      });
+    }
+    __syncwarp();       // lanes 1 .. 31 wait here, not at the cluster barrier
+    cluster_sync();     // the rows' statistics are written
+    cluster_arrive();   // (nothing of the peers' to read)
+    cluster_wait();
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup wg takes rows m0 + 64 wg .. + 63,
+  // columns n0 .. n0 + BN - 1
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
+  const int rl = 64 * wg + 16 * warp + (lane >> 2);   // the thread's rows rl, rl + 8 of the tile
+  const int r0 = m0 + rl;
+  const int c0 = n0 + 2 * t;
+  // 1 / the CTA's columns, 1 / D, 1 / (D - 1): the statistics' scales
+  const float inv_nc = 1.0f / (min(D, n0 + BN) - n0), inv_d = 1.0f / D, inv_d1 = 1.0f / (D - 1);
+  // bias, gamma and beta of the CTA's columns into shared memory while the
+  // first K-tiles load
+  for (int i = tid; i < 3 * BN; i += CONSUMERS) {
+    const int col = n0 + i % BN, which = i / BN;
+    const float* v = which == 0 ? bias : which == 1 ? gamma : beta;
+    vecs[i] = col < D && v != nullptr ? __ldg(v + col) : 0.0f;
+  }
+  // the residual: bf16 up to 128 columns, the thread's 16-byte pieces (row
+  // r0 + 8 hi, columns n0 + 8 (g4 + t) ..) fetched into registers now, so
+  // that their latency passes behind the mainloop; else its rows into L2
+  constexpr int RQ = BN <= 128 ? ACC / 8 : 1;
+  const bool held = BN <= 128 && res_bf16;
+  uint4 rq[RQ];
+  if (held) {
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int row = r0 + 8 * (i & 1), col = n0 + 8 * (4 * (i >> 1) + t);
+      rq[i] = row < M && col < D ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(res) +
+                                                                   static_cast<size_t>(row) * ldr + col)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    const int esize = res_bf16 ? 2 : 4;
+    const int bytes = (min(D, n0 + BN) - n0) * esize;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 8 * hi;
+      if (row >= M) continue;
+      const char* p = static_cast<const char*>(res) + (static_cast<size_t>(row) * ldr + n0) * esize;
+      for (int off = 128 * t; off < bytes; off += 512)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p + off));
+    }
+  }
+
+  float acc[1][ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[0][j] = 0.0f;
+  {
+    int stage = 0;
+    uint32_t phase = 0;
+    if constexpr (A_F32) {
+      auto load_a = [&](uint32_t slot, int, int, uint32_t(&f)[BK / 16][4]) {
+        f32_frags(slot + wg * BOX, WGS * BOX, warp, lane, f);
+      };
+      consume_rs<STAGES, C::STAGE_BYTES, ACC, 1>(acc[0], base, bars, stage, phase, k_tiles,
+                                                 C::A_BYTES, load_a);
+    } else {
+      consume<0, 1, STAGES, C::STAGE_BYTES>(acc, base, bars, stage, phase, k_tiles, wg * BOX,
+                                            C::A_BYTES, [] {});
+    }
+  }
+  consumer_sync<CONSUMERS>();   // the columns' vectors are in shared memory
+
+  // ---- the LayerNorm epilogue. Accumulator j holds row rl + 8 ((j / 2) %
+  // 2), column c0 + 8 (j / 4) + j % 2: pair p = j / 4 of row half hi = (j /
+  // 2) % 2.
+  const float* vb = vecs - n0;   // by column
+  const float* vg = vecs + BN - n0;
+  const float* vbe = vecs + 2 * BN - n0;
+  // 1. r = res + (acc + bias), 0 past D, and the rows' sums over the CTA's
+  // columns
+  float s[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int g4 = 0; g4 < ACC / 4; g4 += 4) {   // pairs g4 .. g4 + 3
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float v[8];
+      if (held)
+        unpack_res(v, rq[BN <= 128 ? 2 * (g4 >> 2) + hi : 0], lane);
+      else
+        load_res(v, res, res_bf16, ldr, r0 + 8 * hi, M, c0, g4, lane, D);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = c0 + 8 * (g4 + q), j = 4 * (g4 + q) + 2 * hi;
+        const bool in = col < D;   // D % 8 == 0: col + 1 < D too
+        acc[0][j] = in ? v[2 * q] + (acc[0][j] + vb[col]) : 0.0f;
+        acc[0][j + 1] = in ? v[2 * q + 1] + (acc[0][j + 1] + vb[col + 1]) : 0.0f;
+        s[hi] += acc[0][j];
+        s[hi] += acc[0][j + 1];
+      }
+    }
+  }
+  // 2. the CTA's mean of each row and the sum of squares about it (M2)
+  float lm[2], m2[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    s[hi] = quad_sum(s[hi]);
+    lm[hi] = s[hi] * inv_nc;
+  }
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) {
+    const int hi = (j >> 1) & 1;
+    const float d = acc[0][j] - lm[hi];
+    if (c0 + 8 * (j >> 2) < D) m2[hi] += d * d;
+  }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) m2[hi] = quad_sum(m2[hi]);
+  if (t == 0) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float* st = stats + 4 * (rl + 8 * hi);
+      st[0] = s[hi];
+      st[1] = m2[hi];
+      st[2] = lm[hi];
+    }
+  }
+  cluster_sync();
+  // 3. the row's mean and M2 from the C ranks' (sum, M2, mean) in rank
+  // order (Chan et al.'s pairwise update: M2 = sum_c M2_c + n_c (mean_c -
+  // mean)^2), the same bits in every CTA; every rank's 16 bytes are loaded
+  // before any is used
+  float mean[2], denom[2], inv[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const float* st = stats + 4 * (rl + 8 * hi);
+    float4 p[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      p[c] = c < static_cast<int>(ranks) ? peer_f32x4(st, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float sum = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      float u = y[c];
-      if (bias != nullptr) u += bias[c];
-      const float v = (res_bf16 ? to_f32(static_cast<const bf16*>(res)[rb + c])
-                                : static_cast<const float*>(res)[rb + c]) + u;
-      y[c] = v;
-      sum += v;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      if (c < static_cast<int>(ranks)) sum += p[c].x;
+    mean[hi] = sum * inv_d;
+    float ss = 0.0f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c < static_cast<int>(ranks)) {
+        const float dm = p[c].z - mean[hi];
+        ss += p[c].y + (min(D, (c + 1) * BN) - c * BN) * (dm * dm);
+      }
     }
-    const float denom = ln::centre_row(y, D, lane, sum, eps);
-    for (int c = lane; c < D; c += 32) {
-      const float o = gamma[c] * y[c] / denom + beta[c];
-      if (res_bf16) static_cast<bf16*>(out)[ob + c] = to_bf16(o);
-      else static_cast<float*>(out)[ob + c] = o;
+    denom[hi] = sqrtf(ss * inv_d1) + eps;
+    inv[hi] = __frcp_rn(denom[hi]);
+  }
+  cluster_arrive();   // this CTA's last read of a peer's shared memory is done
+
+  // 4. normalise the CTA's columns and store them
+#pragma unroll
+  for (int g4 = 0; g4 < ACC / 4; g4 += 4) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 8 * hi;
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = c0 + 8 * (g4 + q), j = 4 * (g4 + q) + 2 * hi;
+        v[2 * q] = div_by(vg[col] * (acc[0][j] - mean[hi]), denom[hi], inv[hi]) + vbe[col];
+        v[2 * q + 1] = div_by(vg[col + 1] * (acc[0][j + 1] - mean[hi]), denom[hi], inv[hi]) + vbe[col + 1];
+      }
+      if (res_bf16) {
+        unsigned a[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+          a[q] = *reinterpret_cast<const unsigned*>(&p);
+        }
+        quad_transpose(a, lane);   // a: columns 8 (g4 + t) .. + 7 of the row
+        const int col = c0 - 2 * t + 8 * (g4 + t);
+        if (row < M && col < D)
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + static_cast<size_t>(row) * ldo + col) =
+              make_uint4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = c0 + 8 * (g4 + q);
+          if (row < M && col < D)
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + static_cast<size_t>(row) * ldo + col) =
+                make_float2(v[2 * q], v[2 * q + 1]);
+        }
+      }
     }
   }
+  cluster_wait();   // no peer reads this CTA's shared memory any more
 }
 
-template <int BM>
-int launch(const void* A, int a_f32, long long lda, const void* W, long long ldw,
-           const void* bias, const void* res, int res_bf16, long long ldr, const void* gamma,
-           const void* beta, void* out, long long ldo, int M, int D, int K, float eps,
+// one launch of an instance (C its Cfg) in clusters of `cluster` CTAs
+template <typename C, typename Kernel>
+int launch(Kernel kernel, const CUtensorMap& ta, const CUtensorMap& tw, const float* bias,
+           const void* res, int res_bf16, long long ldr, const float* gamma, const float* beta,
+           void* out, long long ldo, int M, int D, int k_tiles, float eps, int cluster, int grid,
            cudaStream_t s) {
-  // opt in once per instantiation to the largest y this BM takes (a CUDA
-  // graph capture may later record the launch; the attribute call is no
-  // stream work)
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_ln_kernel<BM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem_bytes(BM, Y_FLOATS / BM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  const int dp = (D + BN - 1) / BN * BN;
-  gemm_ln_kernel<BM><<<(M + BM - 1) / BM, THREADS, smem_bytes(BM, dp), s>>>(
-      A, a_f32, lda, static_cast<const bf16*>(W), ldw, static_cast<const float*>(bias), res,
-      res_bf16, ldr, static_cast<const float*>(gamma), static_cast<const float*>(beta), out,
-      ldo, M, D, K, eps);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_cluster(kernel, grid, C::THREADS, C::SMEM, cluster, s, ta, tw, bias, res, res_bf16, ldr,
+                     gamma, beta, out, ldo, M, D, k_tiles, eps);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-}  // namespace
+// The instances: (f32 a, rows, columns) -> f(Cfg, kernel) for one of them, or
+// `none` for a tile without an instance
+template <int A_F32, typename F, typename R>
+R with_instance(int bm, int bn, F&& f, R none) {
+  if (bm == 64 && bn == 64) return f(Cfg<A_F32, 1, 64>{}, gemm_ln_kernel<A_F32, 1, 64>);
+  if (bm == 64 && bn == 128) return f(Cfg<A_F32, 1, 128>{}, gemm_ln_kernel<A_F32, 1, 128>);
+  if (bm == 64 && bn == 256) return f(Cfg<A_F32, 1, 256>{}, gemm_ln_kernel<A_F32, 1, 256>);
+  if (bm == 128 && bn == 128) return f(Cfg<A_F32, 2, 128>{}, gemm_ln_kernel<A_F32, 2, 128>);
+  return none;
+}
 
-// A: [M, K] bf16 (a_f32 == 0) or f32, row stride lda (a multiple of 8, A
-// 16-byte aligned); W: bf16 [K, D], row stride ldw (a multiple of 8, 16-byte
-// aligned); bias [D] f32 or null; res: [M, D] f32 (res_bf16 == 0) or bf16,
-// row stride ldr; gamma, beta [D] f32; out: [M, D] in res's dtype, row
-// stride ldo. K and D multiples of 8, D between 8 and 2048. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another shape.
+template <typename F, typename R>
+R with_instance(int a_f32, int bm, int bn, F&& f, R none) {
+  return a_f32 ? with_instance<1>(bm, bn, f, none) : with_instance<0>(bm, bn, f, none);
+}
+
+}  // namespace gemm_ln
+
+// A: [M, K] bf16 (a_f32 == 0) or f32, row stride lda (a multiple of 8),
+// 16-byte aligned; W: bf16 [K, D], row stride ldw (a multiple of 8), 16-byte
+// aligned; bias [D] f32 or null; res: [M, D] f32 (res_bf16 == 0; row stride
+// even, 8-byte aligned) or bf16 (row stride a multiple of 8, 16-byte
+// aligned); gamma, beta [D] f32; out: [M, D] in res's dtype, row stride ldo
+// (a multiple of 8), 16-byte aligned. K and D multiples of 8, D between 8
+// and 2048. The plan (ops/kernels.py::gemm_ln_plan): bm (64 or 128) rows and
+// bn (64, 128 or 256) columns a CTA, clusters of `cluster` = ceil(D / bn)
+// CTAs (at most 8), grid = cluster x ceil(M / bm), k_tiles = ceil(K / 64),
+// the instance's stages and dynamic shared memory. Returns cudaGetLastError() or the launch's error,
+// or cudaErrorInvalidValue for a plan or an argument the kernel does not
+// take or a tensor map that cuTensorMapEncodeTiled refuses.
 MCAN_API int mcan_gemm_ln(const void* A, int a_f32, long long lda, const void* W, long long ldw,
                           const void* bias, const void* res, int res_bf16, long long ldr,
                           const void* gamma, const void* beta, void* out, long long ldo, int M,
-                          int D, int K, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 8 || D > ln::MAX_D || D % 8 != 0 || K < 8 || K % 8 != 0)
+                          int D, int K, float eps, int bm, int bn, int cluster, int grid,
+                          int k_tiles, int stages, int smem, void* stream) {
+  using namespace gemm_ln;
+  const int inst_stages =
+      with_instance(a_f32, bm, bn, [](auto c, auto) { return decltype(c)::STAGES; }, -1);
+  const int inst_smem = with_instance(a_f32, bm, bn, [](auto c, auto) { return decltype(c)::SMEM; }, -1);
+  if (D < 8 || D > ln::MAX_D || D % 8 != 0 || K < 8 || K % 8 != 0 || M < 0 || inst_stages < 0 ||
+      cluster < 1 || cluster > MAX_CLUSTER || cluster * bn < D || (cluster - 1) * bn >= D ||
+      k_tiles != (K + BK - 1) / BK || stages != inst_stages || smem != inst_smem || ldo % 8 != 0 ||
+      (res_bf16 ? ldr % 8 != 0 : ldr % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 0) return static_cast<int>(cudaGetLastError());
-  const int dp = (D + BN - 1) / BN * BN;
-#define MCAN_GEMM_LN_ARGS A, a_f32, lda, W, ldw, bias, res, res_bf16, ldr, gamma, beta, out, ldo, \
-                          M, D, K, eps, s
-  if (dp <= Y_FLOATS / 32) return launch<32>(MCAN_GEMM_LN_ARGS);
-  return launch<16>(MCAN_GEMM_LN_ARGS);
-#undef MCAN_GEMM_LN_ARGS
+  if (M == 0) return static_cast<int>(cudaGetLastError());
+  if (grid != cluster * ((M + bm - 1) / bm)) return static_cast<int>(cudaErrorInvalidValue);
+  // A: one bm-row box a K-tile (f32: two of 32 values); W: 64 columns x 64
+  // k-rows a box
+  CUtensorMap ta, tw;
+  const bool ok = (a_f32 ? make_map_flat(&ta, A, 4, K, M, lda, 32, bm, CU_TENSOR_MAP_SWIZZLE_128B)
+                         : make_map(&ta, A, 2, K, M, lda, 64, bm)) &&
+                  make_map(&tw, W, 2, D, K, ldw, 64, 64);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  return with_instance(a_f32, bm, bn, [&](auto c, auto kernel) {
+    return launch<decltype(c)>(kernel, ta, tw, b, res, res_bf16, ldr, g, be, out, ldo, M, D, k_tiles,
+                               eps, cluster, grid, s);
+  }, static_cast<int>(cudaErrorInvalidValue));
+}
+
+// an instance's dynamic shared memory (-1: no instance of that tile), and
+// how many of its clusters of `cluster` CTAs the card holds at once (0:
+// none; -1: no instance, or the query failed)
+MCAN_API int mcan_gemm_ln_smem(int a_f32, int bm, int bn) {
+  return gemm_ln::with_instance(a_f32, bm, bn, [](auto c, auto) { return decltype(c)::SMEM; }, -1);
+}
+
+MCAN_API int mcan_gemm_ln_max_clusters(int a_f32, int bm, int bn, int cluster) {
+  if (cluster < 1 || cluster > gemm_ln::MAX_CLUSTER) return -1;
+  return gemm_ln::with_instance(a_f32, bm, bn, [&](auto c, auto kernel) {
+    using C = decltype(c);
+    return sm90::max_active_clusters(kernel, C::THREADS, C::SMEM, cluster);
+  }, -1);
 }

@@ -9,8 +9,9 @@
 // transpose bits), one wgmma group in flight while the next slot is awaited;
 // the forward's epilogue from the accumulator registers (bias, ReLU, keep
 // bits, one rounding); the split-K sum in a fixed order through a
-// workspace and one counter per tile; the host's tensor-map encoding.
-// gemm_sm90.cu's header note says what bounds its products and how the
+// workspace and one counter per tile; the host's tensor-map encoding; and
+// the thread-block cluster pieces (launch, ranks, barriers, distributed
+// shared memory) that gemm_ln.cu and attflat_pool.cu use. gemm_sm90.cu's header note says what bounds its products and how the
 // persistent grid walks their items; persistent_stages.cuh how the stacks do.
 #pragma once
 
@@ -18,6 +19,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <utility>
 
 #include "common.cuh"
 
@@ -190,6 +192,66 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) 
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// m64n256k16: 128 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "},"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // m64n128k32, s8 x s8 -> s32: 64 accumulators a thread (both operands K-major)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db) {
@@ -292,8 +354,10 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], u
 
 // m64n64k16, bf16 x bf16 -> f32 with A from registers: four .b32 of two
 // bf16 each, the warp's rows g, g + 8 at k 2t, 2t + 1 and 8 + 2t, 9 + 2t, in
-// the order (g, 0), (g + 8, 0), (g, 8), (g + 8, 8); B K-major in shared
-// memory; the accumulators are added to
+// the order (g, 0), (g + 8, 0), (g, 8), (g + 8, 8); B in shared memory,
+// K-major (TB 0) or MN-major (TB 1, wgmma's transpose bit); the
+// accumulators are added to
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -302,7 +366,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -312,13 +376,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
-// m64n128k16, bf16 x bf16 -> f32 with A from registers: four .b32 of two
-// bf16 each, the warp's rows g, g + 8 at k 2t, 2t + 1 and 8 + 2t, 9 + 2t, in
-// the order (g, 0), (g + 8, 0), (g, 8), (g + 8, 8); B K-major in shared
-// memory; the accumulators are added to
+// m64n128k16, bf16 x bf16 -> f32 with A from registers (the fragment layout
+// of the m64n64k16 form above); B K-major (TB 0) or MN-major (TB 1); the
+// accumulators are added to
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -331,7 +395,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -349,7 +413,68 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// m64n256k16, bf16 x bf16 -> f32 with A from registers (the fragment layout
+// of the m64n64k16 form above); B in shared memory, K-major (TB 0) or
+// MN-major (TB 1); the accumulators are added to
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 // four 8 x 16-byte matrices from shared memory (ldmatrix .b16): lane L gives
@@ -448,8 +573,11 @@ __device__ __forceinline__ void consume(Acc (&acc)[HALVES][ACC], uint32_t base, 
 // B at slot + b_off (K-major, 32 bytes on a step). Nothing is written to
 // shared memory, so no warp waits for another. One group stays in flight,
 // its fragments in the other of two register sets, while the next K-tile's
-// are formed; f32 accumulators summed over every K-tile.
-template <int STAGES, int STAGE_BYTES, int ACC, typename LoadA>
+// are formed; f32 accumulators summed over every K-tile. B is read K-major
+// (TB 0: 32 bytes on a step) or MN-major (TB 1: 16 k-rows of 128 bytes on a
+// step, the next 64-wide N box a BOX on; gemm_ln.cu's f32 activations
+// against the [K, D] weight).
+template <int STAGES, int STAGE_BYTES, int ACC, int TB = 0, typename LoadA>
 __device__ __forceinline__ void consume_rs(float (&acc)[ACC], uint32_t base, uint32_t bars,
                                            int& stage, uint32_t& phase, int nk, uint32_t b_off,
                                            LoadA&& load_a) {
@@ -463,7 +591,7 @@ __device__ __forceinline__ void consume_rs(float (&acc)[ACC], uint32_t base, uin
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs(acc, cur[kk], desc(slot + b_off + kk * 32, BOX, SWIZZLE_ATOM));
+      wgmma_rs<TB>(acc, cur[kk], desc(slot + b_off + (TB ? kk * 16 * 128 : kk * 32), BOX, SWIZZLE_ATOM));
     wgmma_commit();
     wgmma_wait<1>();   // the previous K-tile's products are done with its slot
     fence_acc(acc);
@@ -783,6 +911,80 @@ __device__ __forceinline__ void nn_epilogue(float (&acc)[HALVES][ACC],
 }
 
 // ---------------------------------------------------------------------------
+// thread-block clusters (gemm_ln.cu, attflat_pool.cu; the cluster work left
+// for gemm_s8, gemm_s4 and gemm_bias_act -- a weight or activation box
+// multicast to the CTAs that share it -- builds on the same pieces, adding
+// the multicast load and a remote arrival on a peer's empty barrier)
+//
+// A cluster is C CTAs of consecutive blockIdx.x, launched by launch_cluster
+// below (cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension {C, 1,
+// 1}) and scheduled together on one GPC. Each CTA may read the others'
+// shared memory (distributed shared memory): mapa turns an address of this
+// CTA's shared window into rank r's, ld.shared::cluster reads it.
+// barrier.cluster.arrive.release / wait.acquire orders those reads after the
+// writes that came before the barrier. Every thread of every CTA that has
+// not exited takes part in a cluster barrier, so a kernel keeps its
+// producer warp to the end and converges it (__syncwarp) before the
+// barrier: lanes left waiting at it while lane 0 still issued loads slowed
+// that lane's issue. A CTA must not exit while a peer may still read its
+// shared memory or arrive on its barriers: its last arrive comes after its
+// last remote access, and it waits before leaving.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// the cluster's index along x: the launch's clusters are its grid / C
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(c));
+  return c;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the f32 at p in rank r's shared memory (p: an address of this CTA's
+// shared window; every CTA of the kernel lays its shared memory out alike)
+__device__ __forceinline__ float peer_f32(const float* p, unsigned r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(r));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// the 16 bytes at p (16-byte aligned) in rank r's shared memory
+__device__ __forceinline__ float4 peer_f32x4(const float* p, unsigned r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(r));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -867,6 +1069,53 @@ inline bool make_map3(CUtensorMap* map, const void* ptr, long long inner, long l
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches kernel(args...) on `grid` CTAs of `threads` threads with `smem`
+// bytes of dynamic shared memory, in clusters of `cluster` consecutive CTAs
+// along x (grid a multiple of it; at most 8, the portable size). A launch
+// the card cannot place (too much shared memory for a cluster on one GPC)
+// returns its error, as any refused launch.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), int grid, int threads, int smem,
+                                  int cluster, cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// How many clusters of `cluster` CTAs of this kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: the shape cannot launch), or -1 when
+// the query fails.
+template <typename... Params>
+inline int max_active_clusters(void (*kernel)(Params...), int threads, int smem, int cluster) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg) == cudaSuccess
+             ? n
+             : -1;
 }
 
 }  // namespace sm90

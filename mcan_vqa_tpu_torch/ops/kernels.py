@@ -77,7 +77,7 @@ ONE_BLOCK_ATTENTION = 128  # the forward's one-block kernel: Dh and Lk up
 #                            past it the long kernels (any Lq, Lk)
 GEMM_ALIGN = 8         # the GEMMs' N and K: whole 16-byte chunks of bf16
 LN_MAX_WIDTH = 2048    # the LayerNorm kernels' D: a multiple of 32 up to this
-ATTFLAT_MAX_LOGITS = 12288  # attflat_pool's L x G: the logits in 48 KB
+ATTFLAT_MAX_LOGITS = 12288  # attflat_pool's L x G: logits and weights in 96 KB
 MAX_COL_SUMS = 4
 MASK_DTYPES = (torch.uint8, torch.bool)
 
@@ -643,6 +643,118 @@ def gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return _gemm_sm90("gemm_dw", _TN, x, dy, M, dy.shape[1], R)[0]
 
 
+# gemm_ln.cu: a row block's D columns over the CTAs of one thread-block
+# cluster, which exchange the LayerNorm's row statistics
+GEMM_LN_MAX_CLUSTER = 8    # CTAs a cluster: the portable size
+# the instances' tiles (rows, columns a CTA: one or two consumer warpgroups
+# of wgmma m64nBNk16) -> their ring slots (gemm_ln.cu's Cfg::STAGES), for a
+# bf16 and an f32 a; 64 x 128 runs two CTAs an SM, the others one
+GEMM_LN_STAGES = {(64, 64): (12, 8), (64, 128): (4, 3), (64, 256): (4, 4),
+                  (128, 128): (6, 4)}
+GEMM_LN_TILES = tuple(GEMM_LN_STAGES)
+GEMM_LN_FILL = 0.9         # 128 x 128 tiles where they fill this share of SMs
+_BOX = 64 * GEMM_BK * 2    # one 64 x 64 bf16 TMA box (a 64 x 32 f32 one)
+
+
+def gemm_ln_smem_bytes(a_f32: bool, bm: int, bn: int) -> int:
+    """The dynamic shared memory of gemm_ln.cu's instance (Cfg::SMEM, which
+    ``mcan_gemm_ln_smem`` returns on the card): 1 KB of slack to align the
+    ring, the ring (a slot: A, bm / 64 boxes of 64 rows of bf16, twice
+    that of f32; W, bn / 64 boxes), its barriers, the rows' (sum, M2,
+    mean) in 16 bytes each and the columns' bias, gamma and beta."""
+    stages = GEMM_LN_STAGES[bm, bn][bool(a_f32)]
+    slot = bm // 64 * (2 if a_f32 else 1) * _BOX + bn // 64 * _BOX
+    return 1024 + stages * slot + 16 * stages + 4 * bm * 4 + 3 * bn * 4
+
+
+@dataclass(frozen=True)
+class GemmLnPlan:
+    """How gemm_ln.cu covers one call (``gemm_ln_plan``): row blocks of
+    ``bm`` rows, each one cluster of ``cluster`` CTAs of ``bn`` columns
+    (rank c owns ``columns(c)``), the K-tiles of 64 walked in order by each
+    CTA (K is not split), the instance's ring ``stages`` and dynamic shared
+    memory ``smem``."""
+    M: int
+    K: int
+    D: int
+    a_f32: bool
+    bm: int
+    bn: int
+    cluster: int
+    stages: int
+    smem: int
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.M // self.bm)
+
+    @property
+    def k_tiles(self) -> int:
+        return -(-self.K // GEMM_BK)
+
+    @property
+    def grid(self) -> int:
+        return self.cluster * self.row_blocks
+
+    def rows(self, block: int) -> Tuple[int, int]:
+        return block * self.bm, min(self.M, (block + 1) * self.bm)
+
+    def columns(self, rank: int) -> Tuple[int, int]:
+        return rank * self.bn, min(self.D, (rank + 1) * self.bn)
+
+    def fields(self) -> Tuple[int, ...]:
+        """What mcan_gemm_ln takes of the plan: bm, bn, cluster, grid,
+        k_tiles, stages, smem."""
+        return (self.bm, self.bn, self.cluster, self.grid, self.k_tiles,
+                self.stages, self.smem)
+
+
+def _check_gemm_ln_shape(name: str, K: int, D: int) -> None:
+    _require(K % GEMM_ALIGN == 0 and K >= GEMM_ALIGN and D % GEMM_ALIGN == 0
+             and GEMM_ALIGN <= D <= LN_MAX_WIDTH,
+             f"{name}: K={K} and D={D} must be multiples of {GEMM_ALIGN}, "
+             f"D up to {LN_MAX_WIDTH}")
+
+
+def _gemm_ln_tile_plan(M: int, K: int, D: int, a_f32: bool, bm: int,
+                       bn: int) -> GemmLnPlan:
+    """The plan of one call at the tile bm x bn (an instance's)."""
+    _require((bm, bn) in GEMM_LN_STAGES, f"gemm_ln: no {bm} x {bn} instance")
+    cluster = -(-D // bn)
+    _require(cluster <= GEMM_LN_MAX_CLUSTER,
+             f"gemm_ln: D={D} needs {cluster} CTAs of {bn} columns")
+    a_f32 = bool(a_f32)
+    return GemmLnPlan(M, K, D, a_f32, bm, bn, cluster,
+                      GEMM_LN_STAGES[bm, bn][a_f32],
+                      gemm_ln_smem_bytes(a_f32, bm, bn))
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_ln_plan(M: int, K: int, D: int, a_f32: bool) -> GemmLnPlan:
+    """The plan of one gemm_ln call from the shape alone. A cluster's CTAs
+    split the D columns, at most ``GEMM_LN_MAX_CLUSTER`` of them. Tiles of
+    128 x 128 (two warpgroups: half the weight's reloads of a 64-row tile)
+    where their CTAs give at least ``GEMM_LN_FILL`` of the card's SMs one
+    each; else 64-row tiles: of the widths that need no more than the
+    cluster limit, the widest whose CTAs (row blocks x cluster) cover the
+    SMs, else the narrowest (the most CTAs). So MCAN-small's decoder (M
+    3840) runs 120 CTAs of 128 x 128 in clusters of 4, its encoder (M 896)
+    112 of 64 x 64 in clusters of 8, and D 1536 / 2048 clusters of 6 / 8
+    CTAs of 64 x 256. K is not split: at B = 1 one cluster walks all of it."""
+    _check_gemm_ln_shape("gemm_ln_plan", K, D)
+    _require(M >= 0, f"gemm_ln_plan: M={M}")
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    if cdiv(D, 128) <= GEMM_LN_MAX_CLUSTER and \
+            cdiv(M, 128) * cdiv(D, 128) >= GEMM_LN_FILL * GEMM_SMS:
+        return _gemm_ln_tile_plan(M, K, D, a_f32, 128, 128)
+    rows = cdiv(M, 64)
+    widths = [bn for bn in (64, 128, 256)
+              if cdiv(D, bn) <= GEMM_LN_MAX_CLUSTER]
+    filling = [bn for bn in widths if rows * cdiv(D, bn) >= GEMM_SMS]
+    bn = max(filling) if filling else min(widths)
+    return _gemm_ln_tile_plan(M, K, D, a_f32, 64, bn)
+
+
 def gemm_ln_plain(a: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor], res: torch.Tensor,
                   gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -659,7 +771,8 @@ def gemm_ln(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     be None), res [M, D] f32 or bf16, the reference LayerNorm (Bessel std,
     eps on the std, divided) in f32. K and D multiples of 8, D up to 2048,
     any M (``_proj_ln_kernel`` / the second half of ``_ffn_ln_kernel``,
-    mcan_vqa_tpu/ops/fused_ffn.py:59 / :46)."""
+    mcan_vqa_tpu/ops/fused_ffn.py:59 / :46). On the card, ``gemm_ln_plan``'s
+    clusters."""
     if not on_cuda(a):
         return gemm_ln_plain(a, w, bias, res, gamma, beta)
     name = "gemm_ln"
@@ -671,10 +784,7 @@ def gemm_ln(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     _require(a.dtype in (BF16, F32) and w.dtype == BF16,
              f"{name}: a must be bf16 or f32 and w bf16, got {a.dtype}, "
              f"{w.dtype}")
-    _require(Kd % GEMM_ALIGN == 0 and D % GEMM_ALIGN == 0
-             and 8 <= D <= LN_MAX_WIDTH,
-             f"{name}: K={Kd} and D={D} must be multiples of {GEMM_ALIGN}, "
-             f"D up to {LN_MAX_WIDTH}")
+    _check_gemm_ln_shape(name, Kd, D)
     _require(a.stride(1) == 1 and w.stride(1) == 1 and a.stride(0) % 8 == 0
              and w.stride(0) % 8 == 0 and a.data_ptr() % 16 == 0
              and w.data_ptr() % 16 == 0,
@@ -683,12 +793,16 @@ def gemm_ln(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     _check_rows(name, res, (M, D), (F32, BF16))
     for t in (bias, gamma, beta):
         _check_vec(name, t, D)
+    if res.stride(0) % 8 or res.data_ptr() % 16:
+        # the kernel reads the residual's rows 16 bytes at a time
+        res = res.clone(memory_format=torch.contiguous_format)
+    plan = gemm_ln_plan(M, Kd, D, a.dtype == F32)
     out = torch.empty((M, D), dtype=res.dtype, device=a.device)
     rc = _lib().mcan_gemm_ln(
         a.data_ptr(), int(a.dtype == F32), a.stride(0), w.data_ptr(),
         w.stride(0), _ptr(bias), res.data_ptr(), int(res.dtype == BF16),
         res.stride(0), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), D,
-        M, D, Kd, LN_EPS, _stream(a))
+        M, D, Kd, LN_EPS, *plan.fields(), _stream(a))
     _check(rc, name)
     return out
 
@@ -1629,6 +1743,70 @@ def col_sum(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 # attflat_pool
 # ---------------------------------------------------------------------------
 
+ATTFLAT_THREADS = 256      # attflat_pool.cu: 8 warps a CTA
+ATTFLAT_MAX_RANKS = 8      # CTAs a sample: one cluster, the portable size
+ATTFLAT_MIN_CHUNK = 64     # columns a rank pools at the least
+# logit rows a rank computes at the least: below it the cluster barrier and
+# the logits' gather outweigh the rows and columns a rank sheds (on the card
+# MCAN-small's 14-row language AttFlat at B = 64 ran slower at 4 ranks than
+# at 2, and than one block a sample)
+ATTFLAT_MIN_ROWS = 6
+
+
+def attflat_smem_bytes(L: int, G: int) -> int:
+    """attflat_pool.cu's dynamic shared memory (attflat::smem_bytes): the
+    logits and the weights [L, G] f32, then 8 floats a thread of pooling
+    partials."""
+    return (2 * L * G + ATTFLAT_THREADS * 8) * 4
+
+
+@dataclass(frozen=True)
+class AttflatPlan:
+    """How attflat_pool.cu covers one call (``attflat_plan``): a cluster of
+    ``ranks`` CTAs a sample; rank r computes the logits of rows r, r +
+    ranks, ... and pools ``columns(r)`` of every glimpse."""
+    B: int
+    L: int
+    G: int
+    D: int
+    ranks: int
+    chunk: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.B * self.ranks
+
+    def columns(self, rank: int) -> Tuple[int, int]:
+        return rank * self.chunk, min(self.D, (rank + 1) * self.chunk)
+
+    def logit_rows(self, rank: int) -> Tuple[int, ...]:
+        return tuple(range(rank, self.L, self.ranks))
+
+
+@functools.lru_cache(maxsize=1024)
+def attflat_plan(B: int, L: int, G: int, D: int) -> AttflatPlan:
+    """The plan of one attflat_pool call from the shape alone: the fewest
+    CTAs a sample, of 1, 2, 4 and 8, whose B x ranks CTAs cover the card's
+    SMs (8 where none does: B = 1 and 8), no more than leave each rank
+    ``ATTFLAT_MIN_CHUNK`` columns to pool and ``ATTFLAT_MIN_ROWS`` logit
+    rows to compute; the columns dealt in chunks of a multiple of 8 (whole
+    16-byte units of a bf16 row), the last rank what is left. MCAN-small
+    at B = 64: 4 CTAs a sample for the image (60 rows), 2 for the language
+    (14 rows)."""
+    _require(B >= 0 and L >= 1 and G >= 1 and D >= 1
+             and L * G <= ATTFLAT_MAX_LOGITS,
+             f"attflat_plan: L x G = {L * G} must be at most "
+             f"{ATTFLAT_MAX_LOGITS} (B={B}, D={D})")
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    ranks = next((r for r in (1, 2, 4) if B * r >= GEMM_SMS),
+                 ATTFLAT_MAX_RANKS)
+    ranks = max(1, min(ranks, D // ATTFLAT_MIN_CHUNK, L // ATTFLAT_MIN_ROWS))
+    chunk = cdiv(cdiv(D, ranks), 8) * 8
+    return AttflatPlan(B, L, G, D, cdiv(D, chunk), chunk,
+                       attflat_smem_bytes(L, G))
+
+
 def attflat_pool_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                        mask: torch.Tensor, x: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1648,7 +1826,8 @@ def attflat_pool(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     bf16, b2 [G] f32, mask bool [B, 1, 1, L] (True = PAD), x [B, L, D] f32
     or bf16 -> (pooled [B, G*D] bf16, att [B, L, G] f32): logits = h . w2 +
     b2 + PAD * -1e9 (summed in f32), att the softmax over L in f32, pooled
-    = bf16(att)^T . bf16(x) summed in f32 and rounded to bf16."""
+    = bf16(att)^T . bf16(x) summed in f32 and rounded to bf16. On the card,
+    ``attflat_plan``'s clusters of CTAs a sample."""
     if not on_cuda(x):
         return attflat_pool_plain(h, w2, b2, mask, x)
     name = "attflat_pool"
@@ -1668,12 +1847,14 @@ def attflat_pool(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
              f"{name}: mask must be contiguous bool [{B}, 1, 1, {L}]")
     _require(1 <= L * G <= ATTFLAT_MAX_LOGITS,
              f"{name}: L x G = {L * G} must be at most {ATTFLAT_MAX_LOGITS}")
+    plan = attflat_plan(B, L, G, D)
     pooled = torch.empty((B, G * D), dtype=BF16, device=x.device)
     att = torch.empty((B, L, G), dtype=F32, device=x.device)
     rc = _lib().mcan_attflat_pool(
         h.data_ptr(), h.stride(0), w2.data_ptr(), b2.data_ptr(),
         mask.data_ptr(), x.data_ptr(), int(x.dtype == F32),
-        pooled.data_ptr(), att.data_ptr(), B, L, Fm, G, D, _stream(x))
+        pooled.data_ptr(), att.data_ptr(), B, L, Fm, G, D, plan.ranks,
+        plan.chunk, plan.smem, _stream(x))
     _check(rc, name)
     return pooled, att
 

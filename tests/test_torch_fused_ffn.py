@@ -3,9 +3,11 @@
 ``gemm_ln`` and ``gemm_bias_act``, against the JAX package's
 ``fused_proj_ln`` / ``fused_ffn_ln`` in interpret mode, with an f32 and a
 bf16 stream: at M = 16 rows the Pallas kernels run (``_proj_ln_kernel``,
-``_ffn_ln_kernel``), at M = 14 no tile divides the rows and JAX takes its
-XLA branch (fused_ffn.py:83-90, :313-315); the port computes every row the
-same way at both.
+``_ffn_ln_kernel``), at M = 24 they run over three row tiles of 8 (rows
+that no power-of-two tile over 8 divides, as the card's 64-row blocks
+leave a ragged last block), at M = 14 no tile divides the rows and JAX
+takes its XLA branch (fused_ffn.py:83-90, :313-315); the port computes
+every row the same way at all three.
 """
 
 import jax.numpy as jnp
@@ -54,7 +56,7 @@ def _close(out, ref, stream):
     np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("rows", [16, 14])
+@pytest.mark.parametrize("rows", [16, 14, 24])
 @pytest.mark.parametrize("stream", ["float32", "bfloat16"])
 def test_fused_proj_ln_matches_jax(rows, stream):
     p = _weights(1)
@@ -73,7 +75,7 @@ def test_fused_proj_ln_matches_jax(rows, stream):
     _close(out, ref, stream)
 
 
-@pytest.mark.parametrize("rows", [16, 14])
+@pytest.mark.parametrize("rows", [16, 14, 24])
 @pytest.mark.parametrize("stream", ["float32", "bfloat16"])
 def test_fused_ffn_ln_matches_jax(rows, stream):
     p = _weights(2)

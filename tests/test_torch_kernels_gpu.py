@@ -230,12 +230,21 @@ def test_predictor_fused_matches_plain_on_the_card(cuda):
 # the per-sub-op path: gemm_ln, attflat_pool, f32 q, the mode-0 engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M,Kd,D,a_dtype,res_dtype", [
+GEMM_LN_SHAPES = [
     (3840, 512, 512, torch.float32, BF16), (896, 2048, 512, BF16, BF16),
     (61, 512, 480, torch.float32, torch.float32),
     (14, 1536, 1536, torch.float32, BF16), (130, 8192, 2048, BF16, BF16),
-    (1, 1024, 1024, BF16, torch.float32), (77, 40, 72, BF16, BF16)])
-def test_gemm_ln_matches_plain(cuda, M, Kd, D, a_dtype, res_dtype):
+    (1, 1024, 1024, BF16, torch.float32), (77, 40, 72, BF16, BF16),
+    # the plan's other tiles and edges: the decoder's FFN on an f32
+    # stream, the encoder's merge, B = 1, a ragged last 128-row block, D 8
+    # and the wide merge at B = 8
+    (3840, 2048, 512, BF16, torch.float32),
+    (896, 512, 512, torch.float32, BF16), (60, 2048, 512, BF16, BF16),
+    (3841, 512, 512, torch.float32, BF16), (14, 40, 8, BF16, torch.float32),
+    (480, 2048, 2048, torch.float32, torch.float32)]
+
+
+def _gemm_ln_inputs(cuda, M, Kd, D, a_dtype, res_dtype):
     g = torch.Generator(device=cuda).manual_seed(M + D)
     a = torch.randn(M, Kd, generator=g, device=cuda).to(a_dtype)
     w = (torch.randn(Kd, D, generator=g, device=cuda) / Kd ** 0.5).to(BF16)
@@ -243,6 +252,13 @@ def test_gemm_ln_matches_plain(cuda, M, Kd, D, a_dtype, res_dtype):
     res = torch.randn(M, D, generator=g, device=cuda).to(res_dtype)
     gamma = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
     beta = 0.1 * torch.randn(D, generator=g, device=cuda)
+    return a, w, b, res, gamma, beta
+
+
+@pytest.mark.parametrize("M,Kd,D,a_dtype,res_dtype", GEMM_LN_SHAPES)
+def test_gemm_ln_matches_plain(cuda, M, Kd, D, a_dtype, res_dtype):
+    a, w, b, res, gamma, beta = _gemm_ln_inputs(cuda, M, Kd, D, a_dtype,
+                                                res_dtype)
     before = K.launch_counts().get("gemm_ln", 0)
     out = K.gemm_ln(a, w, b, res, gamma, beta)
     assert K.launch_counts()["gemm_ln"] == before + 1
@@ -251,6 +267,26 @@ def test_gemm_ln_matches_plain(cuda, M, Kd, D, a_dtype, res_dtype):
     # f32: the same exact bf16 products summed in another order, then an
     # LN of O(1) values; bf16: plus one rounding a step (2^-8) apart
     _close(out, ref, 1e-4 if res_dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("M,Kd,D,a_dtype,res_dtype", GEMM_LN_SHAPES)
+def test_gemm_ln_is_bitwise_repeatable(cuda, M, Kd, D, a_dtype, res_dtype):
+    """Every CTA of a cluster sums the rows' statistics in rank order: two
+    runs give the same bits."""
+    args = _gemm_ln_inputs(cuda, M, Kd, D, a_dtype, res_dtype)
+    assert torch.equal(K.gemm_ln(*args), K.gemm_ln(*args))
+
+
+def test_gemm_ln_instances_match_the_plan(cuda):
+    """Each instance's shared memory is what kernels.gemm_ln_smem_bytes
+    says, and the card holds a cluster of every size the plans use."""
+    lib = K._lib()
+    for (bm, bn) in K.GEMM_LN_TILES:
+        for a_f32 in (0, 1):
+            assert lib.mcan_gemm_ln_smem(a_f32, bm, bn) == \
+                K.gemm_ln_smem_bytes(bool(a_f32), bm, bn)
+            for c in range(1, K.GEMM_LN_MAX_CLUSTER + 1):
+                assert lib.mcan_gemm_ln_max_clusters(a_f32, bm, bn, c) >= 1
 
 
 def test_gemm_ln_raises_on_unsupported_shapes(cuda):
@@ -266,10 +302,16 @@ def test_gemm_ln_raises_on_unsupported_shapes(cuda):
                   None, torch.zeros(8, 64, device=cuda), vec[:64], vec[:64])
 
 
-@pytest.mark.parametrize("B,L,D,Fm,G,x_dtype", [
+ATTFLAT_SHAPES = [
     (64, 60, 512, 512, 1, BF16), (64, 14, 512, 512, 1, torch.float32),
-    (3, 160, 1536, 512, 2, BF16), (2, 608, 64, 24, 1, torch.float32)])
-def test_attflat_pool_matches_plain(cuda, B, L, D, Fm, G, x_dtype):
+    (3, 160, 1536, 512, 2, BF16), (2, 608, 64, 24, 1, torch.float32),
+    # B = 1 and 8 (eight CTAs a sample), the wide widths, and widths and a
+    # hidden size that take no 16-byte loads
+    (1, 60, 512, 512, 1, BF16), (8, 60, 2048, 512, 1, BF16),
+    (5, 7, 20, 12, 3, torch.float32), (4, 9, 36, 40, 1, BF16)]
+
+
+def _attflat_inputs(cuda, B, L, D, Fm, G, x_dtype):
     g = torch.Generator(device=cuda).manual_seed(L)
     x = torch.randn(B, L, D, generator=g, device=cuda).to(x_dtype)
     h = torch.relu(torch.randn(B * L, Fm, generator=g, device=cuda)).to(BF16)
@@ -279,6 +321,12 @@ def test_attflat_pool_matches_plain(cuda, B, L, D, Fm, G, x_dtype):
     lens = torch.tensor([(i * 7) % (L + 1) for i in range(B - 1)] + [0],
                         device=cuda)          # the last sample fully padded
     mask = (idx[None] >= lens[:, None])[:, None, None, :].contiguous()
+    return h, w2, b2, mask, x
+
+
+@pytest.mark.parametrize("B,L,D,Fm,G,x_dtype", ATTFLAT_SHAPES)
+def test_attflat_pool_matches_plain(cuda, B, L, D, Fm, G, x_dtype):
+    h, w2, b2, mask, x = _attflat_inputs(cuda, B, L, D, Fm, G, x_dtype)
     pooled, att = K.attflat_pool(h, w2, b2, mask, x)
     ref_p, ref_a = K.attflat_pool_plain(h, w2, b2, mask, x)
     # att: f32 logits of exact bf16 products summed in another order, one
@@ -286,6 +334,16 @@ def test_attflat_pool_matches_plain(cuda, B, L, D, Fm, G, x_dtype):
     _close(att, ref_a, 1e-5)
     _close(pooled, ref_p, 2 ** -7)
     _close(att[-1], torch.full_like(att[-1], 1.0 / L), 1e-6)
+
+
+@pytest.mark.parametrize("B,L,D,Fm,G,x_dtype", ATTFLAT_SHAPES)
+def test_attflat_pool_is_bitwise_repeatable(cuda, B, L, D, Fm, G, x_dtype):
+    """The pooling's row groups are added in a fixed order and att is
+    written once: two runs give the same bits."""
+    args = _attflat_inputs(cuda, B, L, D, Fm, G, x_dtype)
+    pooled, att = K.attflat_pool(*args)
+    again = K.attflat_pool(*args)
+    assert torch.equal(pooled, again[0]) and torch.equal(att, again[1])
 
 
 @pytest.mark.parametrize("Lq,Lk,Dh", [(14, 14, 64), (60, 60, 128),
