@@ -114,9 +114,11 @@ Builds the port's CUDA kernels from the checkout's sources, then:
   [last sites]  main path 1g, the last three Pallas sites: ffn_ln_blocked
              and ffn_ln_wstationary (the streaming FFN + LayerNorm kernels)
              against their plain version at MCAN-large (M 3840, 60, a
-             ragged 61 with a bf16 x) and MCAN-small (M 3840), two runs and
-             a 7-block grid equal bit for bit, with times, the addmm
-             yardstick of the first product and the bound; the SGA train
+             ragged 61 with a bf16 x) and MCAN-small (M 3840), each with
+             its plan (``kernels.ffn_ln_plan``), two runs and the
+             weight-stationary kernel on 3 clusters equal bit for bit, with
+             times, the port's unfused pair (gemm_bias_act then gemm_ln),
+             the addmm yardstick of the first product and the bound; the SGA train
              block with save_acts=False (the recompute FFN backward) at
              MCAN-small B=64 and MCAN-large micro-batch 32 (bf16_saves both
              ways) against the plain block under autograd, the seeded block
@@ -147,9 +149,9 @@ Builds the port's CUDA kernels from the checkout's sources, then:
 
 Launch counts are set to 0 just before each main path and read just after
 it. Kernel and block times are device times (CUDA-graph replay), but for
-the all-layer stacks and the head-major block of [all-layer] and
-ffn_ln_wstationary: CUDA events around 20 eager calls queued back to back
-(a cooperative launch is not captured into a graph here); step and forward
+the all-layer stacks and the head-major block of [all-layer]: CUDA events
+around 20 eager calls queued back to back (a cooperative launch is not
+captured into a graph here); step and forward
 times are CUDA events
 around eager calls, the host's launch time included. A failed build, launch or tolerance exits non-zero. The
 next-to-last line is the kernels' JSON record, the last line
@@ -560,6 +562,8 @@ def int4_report(build, lib) -> None:
 GEMM_LN_INSTANCE = re.compile(r"gemm_ln_kernelILi(\d)ELi(\d)ELi(\d+)EE")
 ATTFLAT_INSTANCE = re.compile(
     r"attflat_pool_kernelI(f|13__nv_bfloat16)Li(\d)EE")
+FFN_INSTANCE = re.compile(
+    r"(ffn_ln_blocked|ffn_ln_wstationary)_kernelILi(\d)ELi(\d+)E(?:Li(\d+)E)?")
 # (f32 a, rows, columns) -> "N registers, S spill stores / loads" (ptxas)
 GEMM_LN_PTXAS = {}
 
@@ -567,8 +571,8 @@ GEMM_LN_PTXAS = {}
 def gemm_ln_report(build, lib) -> None:
     """gemm_ln.cu's instances, gemm_ln_kernel<f32 a, warpgroups, columns>:
     registers and spills (ptxas) and dynamic shared memory, held against
-    kernels.gemm_ln_smem_bytes (the plan's); attflat_pool.cu's instances'
-    registers and spills."""
+    kernels.gemm_ln_smem_bytes (the plan's); attflat_pool.cu's and the
+    streaming FFN kernels' instances' registers and spills."""
     from mcan_vqa_tpu_torch.ops import kernels as K
     lines = build.build_log.splitlines()
     if not lines:
@@ -590,6 +594,11 @@ def gemm_ln_report(build, lib) -> None:
         if m:
             say(f"[attflat_pool] x {'f32' if m.group(1) == 'f' else 'bf16'}, "
                 f"{m.group(2)} values a unit: {info}")
+        m = FFN_INSTANCE.search(line)
+        if m:
+            name, f32, bn, ts = m.groups()
+            say(f"[{name}] x {'f32' if f32 == '1' else 'bf16'}, {bn} columns"
+                + (f", {ts} hidden units" if ts else "") + f" a CTA: {info}")
     for bm, bn in K.GEMM_LN_TILES:
         for f32 in (0, 1):
             got = lib.mcan_gemm_ln_smem(f32, bm, bn)
@@ -4467,9 +4476,20 @@ def check_streaming_ffn(torch, dev, rows):
         t_p = device_ms(torch, lambda: K.ffn_ln_plain(*ops), iters=5)
         xb = x.to(bf16)
         t_y = device_ms(torch, lambda: torch.addmm(b1.to(bf16), xb, w1))
+        # the port's unfused pair: h through HBM in bf16 (x cast outside)
+        t_u = device_ms(torch, lambda: K.gemm_ln(K.gemm_bias_act(
+            xb, w1, b1, relu=True, out_dtype=bf16), w2, b2, x, gamma, beta))
         op, by = bound_parts(flops, nbytes)
         for name in ("ffn_ln_blocked", "ffn_ln_wstationary"):
             fn = getattr(K, name)
+            plan = K.ffn_ln_plan(name[len("ffn_ln_"):], M, D, F,
+                                 xdt == "float32")
+            say(f"    [plan] {name} {label}: {plan.cluster} CTAs of "
+                f"{plan.bn} columns a cluster, F in {plan.f_steps} steps of "
+                f"{plan.f_width}" + (f", {plan.splits} splits"
+                                     if plan.variant == "blocked" else
+                                     f" ({plan.ts} hidden units a CTA)")
+                + f", ring of {plan.stages}, {plan.smem} B shared memory")
             out = fn(*ops)
             torch.cuda.synchronize()
             if out.shape != (M, D) or out.dtype != torch.float32 or \
@@ -4485,21 +4505,20 @@ def check_streaming_ffn(torch, dev, rows):
             grid = ""
             if name == "ffn_ln_wstationary":
                 g = K.LAST_GRID[name]
-                grid = (f", grid {g[0]} blocks ({g[1]} per SM on {g[2]} "
-                        f"SMs, {g[3]} B shared memory)")
-                if not torch.equal(out, fn(*ops, max_blocks=7)):
-                    fail(f"{name} {label}: a 7-block grid changes the bits")
-            t_k = cuda_ms(torch, lambda: fn(*ops)) if \
-                name == "ffn_ln_wstationary" else device_ms(
-                    torch, lambda: fn(*ops))
+                grid = (f", grid {g[0]} CTAs in {g[1]} clusters (the card "
+                        f"holds {g[2]}), {g[3]} B shared memory")
+                if not torch.equal(out, fn(*ops, max_clusters=3)):
+                    fail(f"{name} {label}: 3 clusters change the bits")
+            t_k = device_ms(torch, lambda: fn(*ops))
             say(f"    {name} {label}: {t_k:.4f} ms vs plain {t_p:.4f} ms, "
+                f"the unfused pair gemm_bias_act + gemm_ln {t_u:.4f} ms, "
                 f"yardstick addmm of the first product {t_y:.4f} ms (no "
                 f"single PyTorch call computes FFN + LN); bound "
                 f"{max(op, by):.4f} ms by "
                 f"{'operations' if op >= by else 'bytes'} "
                 f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB){grid}; "
                 f"two runs equal bit for bit"
-                + ("; 7 blocks equal too" if grid else ""))
+                + ("; 3 clusters equal too" if grid else ""))
             if label == FFN_CASES[0][0]:
                 rows.add(name, 1, t_k, t_p, flops, nbytes)
     return first

@@ -1,7 +1,7 @@
 """Device time of the Hopper GEMMs at the main paths' shapes.
 
     python mcan_vqa_tpu_torch/cli/bench_gemm.py [--root DIR] [--tag T]
-        [--forward]
+        [--forward] [--units X,XB1,...]
 
 Times ``gemm_bias_act`` (the forward product a . w + bias with its ReLU /
 keep-mask / Philox epilogue), ``gemm_dx`` (dY . W^T with its gate /
@@ -52,6 +52,22 @@ whose int32 output is its own), at every shape of
     operands (``gemm_bias_act`` for the product, then
     ``residual_layernorm``; the f32 a cast to bf16 beforehand, outside the
     time) and ``torch.addmm`` for the product alone.
+
+  * units X / XB1 / XS, the streaming FFN + LayerNorm kernels
+    (``ffn_ln_blocked``, ``ffn_ln_wstationary``; no engine calls them): one
+    call at MCAN-large B=64 (M 3840, D 1024, F 4096), MCAN-large B=1 (M
+    60) and MCAN-small B=64 (M 3840, D 512, F 2048), f32 x; beside each
+    the plain version (``ffn_ln_plain``), the port's own unfused pair on
+    the same operands (``gemm_bias_act`` for h = relu(x . W1 + b1) in bf16,
+    then ``gemm_ln``: the same function with h through HBM; x cast to bf16
+    for the first product outside the time) and ``torch.addmm`` of each
+    product (a bf16 bias). Both kernels are timed in a CUDA graph like the
+    rest (a cluster launch is captured), and also eagerly (``eager_ms``:
+    CUDA events around 50 eager calls, host issue included); an older
+    checkout's cooperative weight-stationary launch only eagerly, and its
+    line says ``"timing": "eager"``.
+
+``--units`` limits the run to the units named (comma-separated).
 
 A forward shape's h1 keep-mask read from memory is timed once more with
 0 calls per unit. Each device time: 50 calls captured in one CUDA graph,
@@ -196,6 +212,10 @@ LN = (_ln_sites("M0", 64, 512) + _ln_sites("M0B1", 1, 512)
 ATTFLAT = [(unit, name, B, L, 512, 1) for unit, B in (("M0", 64),
                                                       ("M0B1", 1))
            for name, L in (("img", 60), ("lang", 14))]
+# (unit, label, M, D, F): the streaming FFN + LN kernels, one call each
+FFN = [("X", "MCAN-large B=64", 3840, 1024, 4096),
+       ("XB1", "MCAN-large B=1", 60, 1024, 4096),
+       ("XS", "MCAN-small B=64", 3840, 512, 2048)]
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16) -> float:
@@ -358,7 +378,9 @@ def main(argv=None) -> None:
                                           .parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--units", default="")
     args = ap.parse_args(argv)
+    units = set(filter(None, args.units.split(",")))
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -392,6 +414,8 @@ def main(argv=None) -> None:
               flush=True)
 
     for unit, label, M, Kd, N, relu, osz, keep, calls in NN:
+        if units and unit not in units:
+            continue
         # shape [M, K, N]; mm_ms: torch.addmm with a bf16 bias
         a = randn(M, Kd, dtype=bf16)
         w = randn(Kd, N, dtype=bf16, s=Kd ** -0.5)
@@ -416,6 +440,8 @@ def main(argv=None) -> None:
              graph_ms(torch, lambda: torch.addmm(b16, a, w)),
              bound_ms(2 * M * Kd * N, nbytes), **extra)
     for unit, label, M, Kd, N, has_gate, has_res, outs, calls in DX:
+        if units and unit not in units:
+            continue
         dy = randn(M, Kd, dtype=bf16)
         w = randn(N, Kd, dtype=bf16, s=Kd ** -0.5)
         kw = dict(gate=torch.relu(randn(M, N)).to(bf16) if has_gate else None,
@@ -429,6 +455,8 @@ def main(argv=None) -> None:
              graph_ms(torch, lambda: torch.mm(dy, w.t())),
              bound_ms(2 * M * Kd * N, nbytes))
     for unit, label, R, M, N, calls in DW:
+        if units and unit not in units:
+            continue
         x = randn(R, M, dtype=bf16)
         dy = randn(R, N, dtype=bf16, s=R ** -0.5)
         emit("gemm_dw", unit, label, [R, M, N], calls,
@@ -437,6 +465,8 @@ def main(argv=None) -> None:
              bound_ms(2 * R * M * N, 2 * R * (M + N) + 4 * M * N))
     from mcan_vqa_tpu_torch.ops.quant import _quant_w
     for unit, label, M, Kd, N, static, relu, osz, calls in S8:
+        if units and unit not in units:
+            continue
         # the codes of a random activation, the weight as this checkout's
         # engines prepare it; mm_ms: torch._int_mm of the same operands
         aq = torch.randint(-127, 128, (M, Kd), generator=g, device=dev,
@@ -455,6 +485,8 @@ def main(argv=None) -> None:
              bound_ms(2 * M * Kd * N, nbytes, PEAK_INT8))
     from mcan_vqa_tpu_torch.ops.quant import _quant_w4
     for unit, label, M, Kd, N, relu, osz, calls in W4:
+        if units and unit not in units:
+            continue
         # the weight as this checkout's engines prepare it (int4, and int8
         # for the gemm_s8 yardstick); the codes of a random activation (W5)
         # or a bf16 activation (W7)
@@ -489,6 +521,8 @@ def main(argv=None) -> None:
              nn, None, bound_ms(2 * M * Kd * N, nbytes + M * Kd * (2 - a_size)
                                 + Kd * N * 3 // 2, PEAK_BF16))
     for unit, label, M, Kd, D, a_f32, calls in LN:
+        if units and unit not in units:
+            continue
         # the f32 a of a merge, the ReLU hidden of an FFN; a bf16 stream
         a = randn(M, Kd) if a_f32 else randn(M, Kd, dtype=bf16).relu()
         a16 = a.to(bf16)
@@ -511,6 +545,8 @@ def main(argv=None) -> None:
         emit("gemm_ln, unfused pair", unit, label, [M, Kd, D], calls, pair,
              None, bound_ms(flops, nbytes + 8 * M * D))
     for unit, label, B, L, D, calls in ATTFLAT:
+        if units and unit not in units:
+            continue
         Fm = 512
         x = randn(B, L, D, dtype=bf16)
         h = randn(B * L, Fm).relu().to(bf16)
@@ -524,6 +560,48 @@ def main(argv=None) -> None:
         emit("attflat_pool", unit, label, [B, L, D], calls,
              graph_ms(torch, lambda: K.attflat_pool(h, w2, b2, mask, x)),
              None, bound_ms(ops, nbytes))
+    for unit, label, M, D, F in FFN:
+        if units and unit not in units:
+            continue
+        x = randn(M, D)
+        w1 = randn(D, F, dtype=bf16, s=D ** -0.5)
+        w2 = randn(F, D, dtype=bf16, s=F ** -0.5)
+        b1, b2, beta = randn(F, s=0.1), randn(D, s=0.1), randn(D, s=0.1)
+        gamma = 1 + randn(D, s=0.1)
+        ops = (x, w1, b1, w2, b2, gamma, beta)
+        xb, b1h, b2h = x.to(bf16), b1.to(bf16), b2.to(bf16)
+        h = torch.relu(torch.addmm(b1h, xb, w1))
+        flops = 4 * M * D * F + 10 * M * D
+        nbytes = 4 * M * D + 4 * D * F + 4 * F + 12 * D + 4 * M * D
+        extra = {
+            "plain_ms": graph_ms(torch, lambda: K.ffn_ln_plain(*ops)),
+            "pair_ms": graph_ms(torch, lambda: K.gemm_ln(K.gemm_bias_act(
+                xb, w1, b1, relu=True, out_dtype=bf16), w2, b2, x, gamma,
+                beta)),
+            "addmm1_ms": graph_ms(torch, lambda: torch.addmm(b1h, xb, w1)),
+            "addmm2_ms": graph_ms(torch, lambda: torch.addmm(b2h, h, w2))}
+        mm = extra["addmm1_ms"] + extra["addmm2_ms"]
+        for kernel in ("ffn_ln_blocked", "ffn_ln_wstationary"):
+            fn = getattr(K, kernel)
+            eager = eager_ms(torch, lambda: fn(*ops))
+            if kernel == "ffn_ln_wstationary" and not hasattr(K,
+                                                              "ffn_ln_plan"):
+                ms, how = eager, "eager"   # a cooperative launch
+            else:
+                ms, how = graph_ms(torch, lambda: fn(*ops)), "graph"
+            plan = {}
+            if hasattr(K, "ffn_ln_plan"):
+                variant = kernel[len("ffn_ln_"):]
+                p = K.ffn_ln_plan(variant, M, D, F, True)
+                plan["plan"] = [p.bn, p.cluster, p.f_width, p.f_steps,
+                                p.splits, p.ts, p.clusters, p.grid, p.stages,
+                                p.smem]
+                if kernel == "ffn_ln_wstationary":
+                    fn(*ops)
+                    plan["last_grid"] = list(K.LAST_GRID[kernel])
+            emit(kernel, unit, label, [M, D, F], 1, ms, mm,
+                 bound_ms(flops, nbytes), timing=how, eager_ms=eager, **extra,
+                 **plan)
     for (kernel, unit), (calls, ms, mm_ms, b) in totals.items():
         if calls == 0:
             continue

@@ -6,257 +6,294 @@
 //   (M / TM, F / TF), rows outer: per F tile it forms h = relu(x . W1[:, f]
 //   + b1[f]) for its row tile, adds h . W2[f, :] into an f32 accumulator in
 //   VMEM, and on the last F tile adds the residual and b2 and takes the LN.
-//   Here one block owns a row tile and walks the F tiles in a loop inside
-//   the block (the TPU's sequential F axis), so the accumulator and every h
-//   tile stay in shared memory.
+//   Here a 64-row block is one thread-block cluster of C CTAs that walks
+//   the F tiles in a loop (the TPU's sequential F axis); rank c owns the
+//   output columns [c BN, (c + 1) BN), whose f32 accumulator stays in its
+//   warpgroup's registers across the whole walk.
 //
-// Numerics, as the TPU kernel: x read as f32 (an f32 or a bf16 x), rounded
-//   to bf16 for the first product; W1, W2 bf16; each product summed in f32;
-//   h = relu(. + b1) rounded to bf16 (h.astype(bfloat16), fused_ffn.py:141);
-//   the second product summed over the F tiles in F order; r = (x + acc) +
-//   b2 in f32; the reference LayerNorm (Bessel std, eps on the std,
-//   divided), written f32. A row's sums run in one fixed order whatever the
-//   grid, and no float atomics are used: two runs give equal bits.
+// Numerics: ffn_ln.cuh's (those of the TPU kernel). The second product is
+//   summed over the F tiles in F order; at small M the F tiles are split
+//   into ranges, one cluster each, whose partial sums are added in range
+//   order (below): the order is the plan's, so two runs give equal bits.
 //
-// Shapes taken: D a multiple of 128 up to 2048 (256, 512, 1024, 2048 are
-//   the widths the port serves); the row tile TM = ffn::tile_m(D) (64 for
-//   D <= 512, 32 for D <= 1024, else 16), so the f32 accumulator TM x D
-//   stays within 128 KB; the F tile TF = ffn::tile_f(TM) = 4096 / TM (64,
-//   128, 256), and F a multiple of TF; any M (rows past M are zero-filled
-//   on load and never stored).
+// Shapes taken: D a multiple of 128 up to 2048, F a multiple of 8 (the
+//   wrapper keeps the parent's F steps, 64 / 128 / 256 by width; TMA's zero
+//   fill covers an F tile past F), any M (rows past M are zero-filled on
+//   load and never stored).
 //
-// Bounds on an H100: at MCAN-large (D 1024, F 4096, M 3840 at B=64) the
-//   two products are 64.4 GFLOP, 0.065 ms at the bf16 peak; the bytes the
-//   function must move (x, out, the 16.8 MB of weights) 0.005 ms at 3.35
-//   TB/s. What this design pays on top: each block re-reads all of W1 and
-//   W2 (16.8 MB at MCAN-large) from L2, once per row tile (the M-outer cost
-//   fused_ffn.py:199-209 names), 120 tiles at M 3840; and the accumulator
-//   makes one shared-memory round trip per F tile. At B=1 (M 60) two
-//   blocks do all the work: latency-bound.
-// Design (simple first): 8 warps; WMMA 16x16x16 bf16 fragments with f32
-//   accumulation. Per F tile, phase 1: the 16 fragments of h [TM, TF] (two
-//   per warp), K = D streamed in W1 tiles through a two-stage cp.async
-//   pipeline, x resident in shared memory as bf16; the fragments staged in
-//   f32, then + b1, ReLU and the bf16 rounding into h. Phase 2: acc [TM, D]
-//   += h . W2[f, :], 128 columns at a time (one 16-column fragment column
-//   per warp), W2 tiles through the same pipeline, the accumulator
-//   fragments loaded from and stored back to shared memory. Then one warp
-//   per row for the residual and the LN.
-// Not yet: wgmma, TMA, a split of F across blocks at small M.
-#include <mma.h>
+// Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at MCAN-large B=64 (M
+//   3840, D 1024, F 4096) the two products are 64.4 GFLOP, 0.065 ms; the
+//   bytes the function must move (x, out, the 16.8 MB of weights) 0.005 ms:
+//   bound by operations. What the M-outer order pays on top, from L2: each
+//   row block reads all of W1 and W2 once (one CTA of its cluster each
+//   byte: 16.8 MB x 60 row blocks), and each CTA its row block of x once
+//   per F tile (F / 64 x x's bytes in all: 1 GB of f32 x at MCAN-large);
+//   the ring's depth, which the h pieces bound, sets how fast a CTA takes
+//   them in (a probe on the card: a shallower ring, slower by much).
+//   At B=1 (M 60) one row block: latency-bound, hence the split of F.
+//
+// Design (ffn_ln.cuh's three steps per F tile, on sm90_mainloop.cuh's TMA
+// ring and wgmma). A CTA is one consumer warpgroup (64 rows) and a producer
+// warp whose lane 0 keeps TMA loads in flight into a ring of slots (as
+// many as the shared memory beside the h pieces holds, up to 8).
+// The cluster's F tile is TF = 64 C hidden units; rank c forms the 64 of
+// them at c 64 .. (its K-tiles: x's 64 x 64 box, or two f32 boxes, and
+// W1's 64 x 64 box, MN-major), so its piece is one 64 x 64 bf16 box, the
+// K-tile c of the second product's A operand; the second product streams
+// W2's rows of the F tile, BN / 64 boxes a K-tile (MN-major), through the
+// same ring. So each weight byte is read once per row block, by one CTA
+// of its cluster, not once per 32-row tile by every block (the parent).
+// The epilogue is cluster_ln.cuh's (gemm_ln.cu's), x as the residual.
+//
+// Small M: where the row blocks' clusters leave most of the card idle, the
+// plan splits the F tiles into `splits` ranges, one cluster each (grid =
+// C x row blocks x splits). Each CTA writes its partial sum of the range
+// to a workspace (coalesced, [row block][rank][split][float4][thread]); the
+// cluster's rank 0 counts its row block's arrivals (the only atomic, one
+// counter per row block, reset by the last for the next launch) and tells
+// its cluster through distributed shared memory; the last cluster to
+// arrive reads every range's partial back in range order (its own too, as
+// written) and runs the epilogue. So the bits do not depend on which
+// cluster ran last. h still never leaves shared memory.
+//
+// The plan -- BN, C, TF, the splits, the grid, the ring's depth and the
+// shared memory -- is ops/kernels.py::ffn_ln_plan's, made in Python from the
+// shape alone; the C entry checks it and derives none of it.
+#include <cstdint>
 
 #include "ffn_ln.cuh"
-#include "residual_layernorm.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int BK = 32, SKEW = 8, FSKEW = 4;
-constexpr int CHUNK = 16 * WARPS;            // phase 2's columns: one fragment column per warp
-constexpr int STAGE = BK * (CHUNK + SKEW);   // bf16 elements of one W tile stage
+using namespace sm90;
+using ffn::Args;
+using ffn::CONSUMERS;
+using ffn::THREADS;
 
-using ffn::tile_f;
-// W1 tile rows: BK1 x (TF + SKEW) fits one stage
-__host__ __device__ constexpr int bk1(int tm) { return tile_f(tm) <= 128 ? 32 : 16; }
-
-// dynamic shared memory: x (bf16), the accumulator (f32), h (bf16), two W
-// stages (the f32 staging of h's fragments aliases them)
-__host__ __device__ constexpr int smem_bytes(int tm, int D) {
-  return tm * (D + SKEW) * 2 + tm * (D + FSKEW) * 4 + tm * (tile_f(tm) + SKEW) * 2 +
-         2 * STAGE * 2;
-}
-
-template <int TM>
-__global__ void __launch_bounds__(THREADS)
-ffn_ln_blocked_kernel(const void* __restrict__ x, int x_f32, const bf16* __restrict__ W1,
-                      const float* __restrict__ b1, const bf16* __restrict__ W2,
-                      const float* __restrict__ b2, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ out, int M, int D,
-                      int F, float eps) {
-  constexpr int TF = tile_f(TM), BK1 = bk1(TM), FR = TM / 16;
-  constexpr int LDH = TF + SKEW, LDS = TF + FSKEW, LDW1 = TF + SKEW, LDW2 = CHUNK + SKEW;
-  constexpr int FCOLS = TF / 16;  // h's fragment columns; TM x TF = 16 fragments
-  static_assert((TM / 16) * FCOLS == 2 * WARPS, "two h fragments per warp");
-  static_assert(TM * LDS * 4 <= 2 * STAGE * 2, "h's f32 staging fits the W stages");
-  static_assert(BK1 * LDW1 <= STAGE, "a W1 tile fits one stage");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldx = D + SKEW, lda = D + FSKEW;
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);                    // [TM][ldx]
-  float* Acc = reinterpret_cast<float*>(Xs + TM * ldx);            // [TM][lda]
-  bf16* Hs = reinterpret_cast<bf16*>(Acc + TM * lda);              // [TM][LDH]
-  bf16* Ws = Hs + TM * LDH;                                        // [2][STAGE]
-  float* Sf = reinterpret_cast<float*>(Ws);                        // [TM][LDS], phase 1 out
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * TM;
-
-  // x rounded to bf16 (rows past M zero), the accumulator zeroed
-  for (int c = tid; c < TM * D / 8; c += THREADS) {
-    const int r = c / (D / 8), cc = (c % (D / 8)) * 8, gm = m0 + r;
-    *reinterpret_cast<uint4*>(&Xs[r * ldx + cc]) =
-        gm < M ? ffn::x8_bf16(x, x_f32, (size_t)gm * D + cc) : make_uint4(0, 0, 0, 0);
+// An instance: f32 or bf16 x, BN output columns a CTA. A slot holds the
+// larger of a first-product K-tile (x, W1's box) and a second-product one
+// (W2's BN / 64 boxes); the plan sets the ring's depth.
+template <int X_F32, int BN>
+struct Cfg {
+  static constexpr int X_BYTES = (X_F32 ? 2 : 1) * BOX;
+  static constexpr int P1_BYTES = X_BYTES + BOX;
+  static constexpr int P2_BYTES = BN / 64 * BOX;
+  static constexpr int SLOT = P1_BYTES > P2_BYTES ? P1_BYTES : P2_BYTES;
+  static constexpr int ACC = BN / 2;
+  // 1 KB of slack to align the ring; the ring; the cluster's h pieces (C
+  // boxes); the ring's barriers, hfull / hfree / sfull; the rows' (sum, M2,
+  // mean) in 16 bytes each; b2, gamma and beta of the CTA's columns; the
+  // last-cluster flag
+  static constexpr int smem(int C, int stages) {
+    return 1024 + stages * SLOT + C * BOX + 16 * stages + 32 + ffn::ROWS * 16 + 3 * BN * 4 + 16;
   }
-  for (int e = tid; e < TM * lda; e += THREADS) Acc[e] = 0.0f;
+};
 
-  // W1[k0 : k0 + BK1, f0 : f0 + TF] and W2[f0 + k0 : + BK, n0 : n0 + CHUNK]
-  auto load_w1 = [&](int st, int k0, int f0) {
-    bf16* ws = Ws + st * STAGE;
-    for (int c = tid; c < BK1 * TF / 8; c += THREADS) {
-      const int r = c / (TF / 8), cc = (c % (TF / 8)) * 8;
-      cp_async16(&ws[r * LDW1 + cc], W1 + (size_t)(k0 + r) * F + f0 + cc, true);
-    }
-  };
-  auto load_w2 = [&](int st, int k0, int n0) {
-    bf16* ws = Ws + st * STAGE;
-    for (int c = tid; c < BK * CHUNK / 8; c += THREADS) {
-      const int r = c / (CHUNK / 8), cc = (c % (CHUNK / 8)) * 8;
-      cp_async16(&ws[r * LDW2 + cc], W2 + (size_t)(k0 + r) * D + n0 + cc, true);
-    }
-  };
+template <int X_F32, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_ln_blocked_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw1,
+                      const __grid_constant__ CUtensorMap tw2, Args a, int splits, int f_tiles,
+                      int stages) {
+  using C = Cfg<X_F32, BN>;
+  constexpr int SLOT = C::SLOT, ACC = C::ACC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + SWIZZLE_ATOM - 1) & ~(SWIZZLE_ATOM - 1);
+  const int rank = static_cast<int>(cluster_rank()), ranks = static_cast<int>(cluster_size());
+  const uint32_t hbuf = base + stages * SLOT;              // [ranks] boxes
+  const uint32_t bars = hbuf + ranks * BOX;                // full[s], empty[s]
+  const uint32_t hfull = bars + 16 * stages, hfree = hfull + 8, sfull = hfree + 8;
+  float* stats = reinterpret_cast<float*>(smem_raw + (bars - raw) + 16 * stages + 32);
+  float* vecs = stats + 4 * ffn::ROWS;
+  float* flag = vecs + 3 * BN;
 
-  for (int f0 = 0; f0 < F; f0 += TF) {
-    // ---- phase 1: h = relu(x . W1[:, f0 : f0 + TF] + b1), fragments 2w, 2w + 1
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[2];
-    wmma::fill_fragment(hacc[0], 0.0f);
-    wmma::fill_fragment(hacc[1], 0.0f);
-    const int nk = D / BK1;
-    __syncthreads();  // the stages are free (the last phase 2 read them)
-    load_w1(0, 0, f0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt & 1;
-      if (kt + 1 < nk) {
-        load_w1(st ^ 1, (kt + 1) * BK1, f0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+  const int tid = threadIdx.x;
+  const int cid = static_cast<int>(cluster_index());
+  const int split = cid % splits, rb = cid / splits;
+  const int m0 = rb * ffn::ROWS, n0 = rank * BN;
+  const int TF = 64 * ranks;
+  const int ft0 = static_cast<int>(static_cast<long long>(split) * f_tiles / splits);
+  const int ft1 = static_cast<int>(static_cast<long long>(split + 1) * f_tiles / splits);
+  const int k_tiles = a.D / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (stages + s), 4);   // the consumer warps
+    }
+    mbar_init(hfull, 1);
+    mbar_init(hfree, ranks);
+    mbar_init(sfull, ranks);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();   // every CTA's barriers exist before a peer arrives on them
+
+  float acc[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[j] = 0.0f;
+
+  if (tid >= CONSUMERS) {
+    // ---- the producer warp: lane 0 keeps the ring full
+    if (tid == CONSUMERS) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tx)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tw1)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tw2)) : "memory");
+      ffn::Ring ring{base, bars, stages, 0, 0};
+      for (int ft = ft0; ft < ft1; ++ft) {
+        const int f0 = ft * TF;
+        ffn::produce<SLOT>(ring, k_tiles, C::P1_BYTES, [&](uint32_t slot, uint32_t full, int i) {
+          ffn::load_x<X_F32>(slot, &tx, full, i * BK, m0);
+          tma_load(slot + C::X_BYTES, &tw1, full, f0 + 64 * rank, i * BK);   // W1 [D, F]
+        });
+        ffn::produce<SLOT>(ring, ranks, C::P2_BYTES, [&](uint32_t slot, uint32_t full, int k) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) tma_load(slot + j * BOX, &tw2, full, n0 + 64 * j, f0 + 64 * k);
+        });
       }
-      __syncthreads();
-      const bf16* ws = Ws + st * STAGE;
+    }
+    __syncwarp();   // lanes 1 .. 31 wait here, not at the cluster barriers below
+  } else {
+    // ---- the consumer warpgroup
+    const int warp = tid >> 5, lane = tid & 31;
+    ffn::stage_vecs<BN>(vecs, a, n0, tid);
+    const ffn::XOp<X_F32> xop{warp, lane};
+    const uint32_t piece = hbuf + rank * BOX;
+    ffn::Ring ring{base, bars, stages, 0, 0};
+    for (int ft = ft0; ft < ft1; ++ft) {
+      const int lt = ft - ft0;
+      // phase 1: this rank's 64 hidden units of the F tile
+      float hacc[32];
 #pragma unroll
-      for (int kk = 0; kk < BK1; kk += 16) {
+      for (int j = 0; j < 32; ++j) hacc[j] = 0.0f;
+      ffn::ring_mma<SLOT, X_F32 != 0>(
+          hacc, ring, k_tiles, lane, xop,
+          [](uint32_t slot, int, int kk) { return desc(slot + C::X_BYTES + kk * 16 * 128, BOX, SWIZZLE_ATOM); });
+      // exchange: the piece, once every peer is done with the last F tile's h
+      if (lt > 0) mbar_wait_cluster(hfree, (lt - 1) & 1);
+      ffn::write_piece<64>(hacc, a.b1, ft * TF + 64 * rank, a.F, piece, warp, lane);
+      ffn::send_piece(piece, BOX, hfull, rank, ranks, tid);
+      mbar_wait_cluster(hfull, lt & 1);
+      // phase 2: acc += h [64, TF] . W2[F tile, the CTA's columns]; K-tile k
+      // of h is rank k's piece
+      ffn::ring_mma<SLOT, false>(
+          acc, ring, ranks, lane,
+          [hbuf](uint32_t, int k, int kk) { return desc(hbuf + k * BOX + kk * 32, BOX, SWIZZLE_ATOM); },
+          [](uint32_t slot, int, int kk) { return desc(slot + kk * 16 * 128, BOX, SWIZZLE_ATOM); });
+      ffn::arrive_all<false>(hfree, ranks, tid);
+    }
+  }
+
+  bool last = true;
+  if (splits > 1) {
+    // this range's partial into the workspace, then the row block's count
+    constexpr int Q = ACC / 4;
+    float4* slots = reinterpret_cast<float4*>(a.ws) +
+                    static_cast<size_t>(rb * ranks + rank) * splits * Q * CONSUMERS;
+    if (tid < CONSUMERS) {
+      float4* mine = slots + static_cast<size_t>(split) * Q * CONSUMERS;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int id = 2 * warp + i, fr = id / FCOLS, fc = id % FCOLS;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, &Xs[fr * 16 * ldx + kt * BK1 + kk], ldx);
-          wmma::load_matrix_sync(b, &ws[kk * LDW1 + fc * 16], LDW1);
-          wmma::mma_sync(hacc[i], a, b, hacc[i]);
+      for (int q = 0; q < Q; ++q)
+        __stcg(mine + q * CONSUMERS + tid, make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]));
+      __threadfence();
+    }
+    cluster_sync();   // every rank's partial is written
+    if (rank == 0 && tid == 0) {
+      const bool l = atomicAdd(&a.counters[rb], 1) == splits - 1;
+      if (l) a.counters[rb] = 0;   // ready for the next launch
+      *flag = l ? 1.0f : 0.0f;
+    }
+    cluster_sync();
+    last = peer_f32(flag, 0) != 0.0f;
+    cluster_sync();   // rank 0's flag is read
+    if (last && tid < CONSUMERS) {
+      __threadfence();
+      for (int s = 0; s < splits; ++s) {
+        const float4* p = slots + static_cast<size_t>(s) * Q * CONSUMERS + tid;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const float4 v = __ldcg(p + q * CONSUMERS);
+          acc[4 * q] = s == 0 ? v.x : acc[4 * q] + v.x;
+          acc[4 * q + 1] = s == 0 ? v.y : acc[4 * q + 1] + v.y;
+          acc[4 * q + 2] = s == 0 ? v.z : acc[4 * q + 2] + v.z;
+          acc[4 * q + 3] = s == 0 ? v.w : acc[4 * q + 3] + v.w;
         }
       }
-      __syncthreads();  // the next iteration's loads overwrite this stage
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = 2 * warp + i, fr = id / FCOLS, fc = id % FCOLS;
-      wmma::store_matrix_sync(&Sf[fr * 16 * LDS + fc * 16], hacc[i], LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = tid; e < TM * TF; e += THREADS) {
-      const int r = e / TF, c = e % TF;
-      Hs[r * LDH + c] = to_bf16(fmaxf(Sf[r * LDS + c] + b1[f0 + c], 0.0f));
-    }
-    __syncthreads();  // h is complete; the stages are free again
-
-    // ---- phase 2: acc[:, n0 : n0 + CHUNK] += h . W2[f0 : f0 + TF, n0 : ...]
-    constexpr int KT = TF / BK;
-    const int nt = (D / CHUNK) * KT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR];
-    load_w2(0, f0, 0);
-    cp_async_commit();
-    for (int t = 0; t < nt; ++t) {
-      const int nc = t / KT, kc = t % KT, st = t & 1;
-      if (t + 1 < nt) {
-        load_w2(st ^ 1, f0 + ((t + 1) % KT) * BK, ((t + 1) / KT) * CHUNK);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      float* ablk = &Acc[nc * CHUNK + warp * 16];
-      if (kc == 0) {
-#pragma unroll
-        for (int i = 0; i < FR; ++i)
-          wmma::load_matrix_sync(acc[i], ablk + i * 16 * lda, lda, wmma::mem_row_major);
-      }
-      const bf16* ws = Ws + st * STAGE;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, &ws[kk * LDW2 + warp * 16], LDW2);
-#pragma unroll
-        for (int i = 0; i < FR; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, &Hs[i * 16 * LDH + kc * BK + kk], LDH);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-      if (kc == KT - 1) {
-#pragma unroll
-        for (int i = 0; i < FR; ++i)
-          wmma::store_matrix_sync(ablk + i * 16 * lda, acc[i], lda, wmma::mem_row_major);
-      }
-      __syncthreads();  // the next iteration's loads overwrite this stage
     }
   }
-  __syncthreads();
-
-  // ---- the residual and the LN: one warp per row, lane's columns lane + 32 t
-  for (int r = warp; r < TM; r += WARPS) {
-    const int gm = m0 + r;
-    if (gm >= M) break;
-    float* a = Acc + r * lda;
-    const size_t rb = (size_t)gm * D;
-    float sum = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = (ffn::x_at(x, x_f32, rb + c) + a[c]) + b2[c];
-      a[c] = v;
-      sum += v;
-    }
-    const float denom = ln::centre_row(a, D, lane, sum, eps);
-    for (int c = lane; c < D; c += 32) out[rb + c] = gamma[c] * a[c] / denom + beta[c];
+  if (!last) return;   // the whole cluster: another cluster sums this row block
+  if (tid < CONSUMERS) {
+    consumer_sync<CONSUMERS>();   // the columns' vectors are in shared memory
+    ffn::residual_ln<BN, false>(acc, a, vecs - n0, vecs + BN - n0, vecs + 2 * BN - n0, stats, sfull, 0, 0,
+                                m0, n0, ranks, tid);
   }
+  cluster_sync();   // no peer reads this CTA's statistics or arrives on it any more
 }
 
-template <int TM>
-int launch(const void* x, int x_f32, const void* W1, const void* b1, const void* W2,
-           const void* b2, const void* gamma, const void* beta, void* out, int M, int D, int F,
-           float eps, cudaStream_t s) {
-  // the opt-in is per device: set it on every call
-  const int smem = smem_bytes(TM, D);
-  const cudaError_t err = cudaFuncSetAttribute(
-      ffn_ln_blocked_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_ln_blocked_kernel<TM><<<(M + TM - 1) / TM, THREADS, smem, s>>>(
-      x, x_f32, static_cast<const bf16*>(W1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(W2), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(out), M, D, F, eps);
-  return static_cast<int>(cudaGetLastError());
+// The instances: (f32 x, columns) -> f(Cfg, kernel), or `none`
+template <int X_F32, typename F, typename R>
+R with_instance(int bn, F&& f, R none) {
+  if (bn == 64) return f(Cfg<X_F32, 64>{}, ffn_ln_blocked_kernel<X_F32, 64>);
+  if (bn == 128) return f(Cfg<X_F32, 128>{}, ffn_ln_blocked_kernel<X_F32, 128>);
+  if (bn == 256) return f(Cfg<X_F32, 256>{}, ffn_ln_blocked_kernel<X_F32, 256>);
+  return none;
+}
+
+template <typename F, typename R>
+R with_instance(int x_f32, int bn, F&& f, R none) {
+  return x_f32 ? with_instance<1>(bn, f, none) : with_instance<0>(bn, f, none);
 }
 
 }  // namespace
 
 // x: [M, D] f32 (x_f32 == 1) or bf16, contiguous, 16-byte aligned; W1 [D, F]
 // and W2 [F, D] bf16, contiguous, 16-byte aligned; b1 [F], b2, gamma, beta
-// [D] f32; out [M, D] f32. D a multiple of 128 up to 2048, F a multiple of
-// ffn::tile_f(ffn::tile_m(D)), M > 0. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another shape.
+// [D] f32; out [M, D] f32. ws: splits x the row blocks' 64 x C BN f32
+// partials (null unsplit); counters: one int32 per row block, zeroed (null
+// unsplit). plan (ops/kernels.py::FfnLnPlan.fields, `n` ints): bn, cluster,
+// f_width (the F tile, 64 x cluster), f_steps (its tiles over F), splits,
+// row_blocks, grid, stages, smem. Returns cudaGetLastError() or the
+// launch's error, or cudaErrorInvalidValue for a shape or a plan the
+// kernel does not take, or a tensor map that cuTensorMapEncodeTiled refuses.
 MCAN_API int mcan_ffn_ln_blocked(const void* x, int x_f32, const void* W1, const void* b1,
                                  const void* W2, const void* b2, const void* gamma,
-                                 const void* beta, void* out, int M, int D, int F, float eps,
-                                 void* stream) {
+                                 const void* beta, void* out, void* ws, void* counters, int M, int D,
+                                 int F, float eps, const int* plan, int n, void* stream) {
+  const int inval = static_cast<int>(cudaErrorInvalidValue);
+  if (plan == nullptr || n != 9 || !ffn::shape_ok(M, D, F)) return inval;
+  const int bn = plan[0], cluster = plan[1], tf = plan[2], f_tiles = plan[3], splits = plan[4],
+            row_blocks = plan[5], grid = plan[6], stages = plan[7], smem = plan[8];
+  const int inst_smem =
+      with_instance(x_f32, bn, [&](auto c, auto) { return decltype(c)::smem(cluster, stages); }, -1);
+  if (inst_smem < 0 || bn != ffn::bn_of(D) || cluster != (D + bn - 1) / bn || cluster > ffn::MAX_CLUSTER ||
+      tf != 64 * cluster || f_tiles != (F + tf - 1) / tf || splits < 1 || splits > f_tiles ||
+      row_blocks != (M + ffn::ROWS - 1) / ffn::ROWS || grid != cluster * row_blocks * splits ||
+      stages < ffn::MIN_STAGES || stages > ffn::MAX_STAGES || smem != inst_smem || smem > ffn::SMEM_MAX ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return inval;
+  CUtensorMap tx, tw1, tw2;
+  if (!ffn::map_x(&tx, x, x_f32, M, D) || !make_map(&tw1, W1, 2, F, D, F, 64, 64) ||
+      !make_map(&tw2, W2, 2, D, F, D, 64, 64))
+    return inval;
+  const Args args{x,
+                  x_f32,
+                  static_cast<const float*>(b1),
+                  static_cast<const float*>(b2),
+                  static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta),
+                  static_cast<float*>(out),
+                  static_cast<float*>(ws),
+                  static_cast<int*>(counters),
+                  M,
+                  D,
+                  F,
+                  eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tm = ffn::tile_m(D);
-  if (tm == 0 || F <= 0 || F % tile_f(tm) != 0 || M <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-#define MCAN_FFN_LN_ARGS x, x_f32, W1, b1, W2, b2, gamma, beta, out, M, D, F, eps, s
-  if (tm == 64) return launch<64>(MCAN_FFN_LN_ARGS);
-  if (tm == 32) return launch<32>(MCAN_FFN_LN_ARGS);
-  return launch<16>(MCAN_FFN_LN_ARGS);
-#undef MCAN_FFN_LN_ARGS
+  return with_instance(x_f32, bn, [&](auto, auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = launch_cluster(kernel, grid, THREADS, smem, cluster, s, tx, tw1, tw2, args, splits, f_tiles,
+                         stages);
+    if (e != cudaSuccess) cudaGetLastError();   // clear it: the caller raises on the returned code
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }, inval);
 }

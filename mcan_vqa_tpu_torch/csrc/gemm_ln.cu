@@ -52,7 +52,8 @@
 // consumers stage bias, gamma and beta of the CTA's columns in shared memory
 // and fetch a bf16 residual (up to BN 128) into registers, else its rows
 // into L2. The epilogue, from the accumulator registers (a thread holds rows
-// g, g + 8 of its warp's 16, column pairs 8 j + 2 t):
+// g, g + 8 of its warp's 16, column pairs 8 j + 2 t; steps 2-4 are
+// cluster_ln.cuh's, which the streaming FFN kernels share):
 //   1. r = res + (acc + bias), 0 past D, in place of the accumulators (a
 //      bf16 residual arrives as 16-byte pieces, which a quad transpose turns
 //      into each lane's pairs);
@@ -98,14 +99,14 @@
 #include <cstdint>
 #include <cstring>
 
+#include "cluster_ln.cuh"
 #include "residual_layernorm.cuh"
 #include "sm90_mainloop.cuh"
 
 namespace gemm_ln {
 
 using namespace sm90;
-
-constexpr int MAX_CLUSTER = 8;
+using cln::MAX_CLUSTER;
 
 // An instance: f32 or bf16 a, WGS consumer warpgroups of 64 rows each (BM =
 // 64 WGS rows a CTA), BN columns. 64 x 128 lets two CTAs share an SM (the
@@ -129,90 +130,6 @@ struct Cfg {
   // mean) in 16 bytes each, then bias, gamma and beta of the CTA's columns
   static constexpr int SMEM = SWIZZLE_ATOM + STAGES * STAGE_BYTES + 16 * STAGES + 4 * BM * 4 + 3 * BN * 4;
 };
-
-// the A fragments of one K-tile of f32 a for wgmma's register-A form: rows
-// 16 warp + g (+ 8), k 16 kk + 2 t (+ 8) of the warpgroup's 64 rows, in two
-// f32 boxes (32 values a row, 128-byte rows, 128-byte swizzle: the 16-byte
-// chunk c of row r at chunk c ^ (r % 8)) `xstride` bytes apart, each pair
-// rounded to bf16 as one word
-__device__ __forceinline__ void f32_frags(uint32_t a, uint32_t xstride, int warp, int lane,
-                                          uint32_t (&f)[BK / 16][4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {   // (g, 0), (g + 8, 0), (g, 8), (g + 8, 8)
-      const int row = 16 * warp + g + 8 * (q & 1);
-      const int k = 16 * kk + 2 * t + 8 * (q >> 1);
-      const int kc = k & 31;
-      const uint32_t addr = a + (k >> 5) * xstride + row * 128 + (((kc >> 2) ^ (row & 7)) << 4) +
-                            (kc & 3) * 4;
-      float x, y;
-      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(x), "=f"(y) : "r"(addr));
-      const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);   // x in the low half
-      f[kk][q] = *reinterpret_cast<const uint32_t*>(&p);
-    }
-  }
-}
-
-// A quad's 16-byte pieces of a bf16 row (lane t: columns 8 (g4 + t) .. + 7)
-// as the thread's pairs: v[2 s], v[2 s + 1] = columns c0 + 8 (g4 + s), + 1,
-// by a quad transpose
-__device__ __forceinline__ void unpack_res(float (&v)[8], uint4 x, int lane) {
-  unsigned a[4] = {x.x, x.y, x.z, x.w};
-  quad_transpose(a, lane);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&a[s]);
-    v[2 * s] = __low2float(p);
-    v[2 * s + 1] = __high2float(p);
-  }
-}
-
-// The residual of the thread's pairs g4 .. g4 + 3 of one row: v[2 s], v[2 s +
-// 1] = columns c0 + 8 (g4 + s), + 1 (0 past D or M). bf16: each lane reads
-// the 8 columns 8 (g4 + t) .. of the row (16 bytes) and a quad transpose
-// hands each lane its pairs; f32: the pairs themselves.
-__device__ __forceinline__ void load_res(float (&v)[8], const void* res, int res_bf16, long long ldr,
-                                         int row, int M, int c0, int g4, int lane, int D) {
-  const int t = lane & 3;
-  if (res_bf16) {
-    const int col = c0 - 2 * t + 8 * (g4 + t);
-    unpack_res(v, row < M && col < D   // D % 8 == 0: all 8 columns or none
-                      ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(res) +
-                                                        static_cast<size_t>(row) * ldr + col)
-                      : make_uint4(0u, 0u, 0u, 0u),
-               lane);
-  } else {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int col = c0 + 8 * (g4 + s);
-      float2 x = make_float2(0.0f, 0.0f);
-      if (row < M && col < D)
-        x = *reinterpret_cast<const float2*>(static_cast<const float*>(res) +
-                                             static_cast<size_t>(row) * ldr + col);
-      v[2 * s] = x.x;
-      v[2 * s + 1] = x.y;
-    }
-  }
-}
-
-// x reduced over the 4 lanes of a quad (every lane the same bits)
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
-  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
-}
-
-// x / y from r = y's correctly rounded reciprocal: q = x r, then
-// Markstein's correction by the residual x - q y, exact in an FMA. The
-// correction brings q to div.rn.f32's quotient but for rare last-place
-// cases; it is branch-free, so a row's quotients interleave (the compiler's
-// division checks each quotient for its slow path, a branch that serialised
-// the epilogue's divisions).
-__device__ __forceinline__ float div_by(float x, float y, float r) {
-  const float q = __fmul_rn(x, r);
-  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
-}
 
 template <int A_F32, int WGS, int BN>
 __global__ void __launch_bounds__(Cfg<A_F32, WGS, BN>::THREADS, Cfg<A_F32, WGS, BN>::BLOCKS_PER_SM)
@@ -347,9 +264,9 @@ gemm_ln_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     for (int hi = 0; hi < 2; ++hi) {
       float v[8];
       if (held)
-        unpack_res(v, rq[BN <= 128 ? 2 * (g4 >> 2) + hi : 0], lane);
+        cln::unpack_res(v, rq[BN <= 128 ? 2 * (g4 >> 2) + hi : 0], lane);
       else
-        load_res(v, res, res_bf16, ldr, r0 + 8 * hi, M, c0, g4, lane, D);
+        cln::load_res(v, res, res_bf16, ldr, r0 + 8 * hi, M, c0, g4, lane, D);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = c0 + 8 * (g4 + q), j = 4 * (g4 + q) + 2 * hi;
@@ -362,96 +279,15 @@ gemm_ln_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     }
   }
   // 2. the CTA's mean of each row and the sum of squares about it (M2)
-  float lm[2], m2[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    s[hi] = quad_sum(s[hi]);
-    lm[hi] = s[hi] * inv_nc;
-  }
-#pragma unroll
-  for (int j = 0; j < ACC; ++j) {
-    const int hi = (j >> 1) & 1;
-    const float d = acc[0][j] - lm[hi];
-    if (c0 + 8 * (j >> 2) < D) m2[hi] += d * d;
-  }
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) m2[hi] = quad_sum(m2[hi]);
-  if (t == 0) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      float* st = stats + 4 * (rl + 8 * hi);
-      st[0] = s[hi];
-      st[1] = m2[hi];
-      st[2] = lm[hi];
-    }
-  }
+  cln::row_stats(acc[0], s, inv_nc, c0, D, t, stats, rl);
   cluster_sync();
-  // 3. the row's mean and M2 from the C ranks' (sum, M2, mean) in rank
-  // order (Chan et al.'s pairwise update: M2 = sum_c M2_c + n_c (mean_c -
-  // mean)^2), the same bits in every CTA; every rank's 16 bytes are loaded
-  // before any is used
+  // 3. the row's mean and M2 from the C ranks' (sum, M2, mean) in rank order
   float mean[2], denom[2], inv[2];
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const float* st = stats + 4 * (rl + 8 * hi);
-    float4 p[MAX_CLUSTER];
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c)
-      p[c] = c < static_cast<int>(ranks) ? peer_f32x4(st, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c)
-      if (c < static_cast<int>(ranks)) sum += p[c].x;
-    mean[hi] = sum * inv_d;
-    float ss = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c) {
-      if (c < static_cast<int>(ranks)) {
-        const float dm = p[c].z - mean[hi];
-        ss += p[c].y + (min(D, (c + 1) * BN) - c * BN) * (dm * dm);
-      }
-    }
-    denom[hi] = sqrtf(ss * inv_d1) + eps;
-    inv[hi] = __frcp_rn(denom[hi]);
-  }
+  cln::combine(stats, rl, static_cast<int>(ranks), D, BN, inv_d, inv_d1, eps, mean, denom, inv);
   cluster_arrive();   // this CTA's last read of a peer's shared memory is done
 
   // 4. normalise the CTA's columns and store them
-#pragma unroll
-  for (int g4 = 0; g4 < ACC / 4; g4 += 4) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = r0 + 8 * hi;
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = c0 + 8 * (g4 + q), j = 4 * (g4 + q) + 2 * hi;
-        v[2 * q] = div_by(vg[col] * (acc[0][j] - mean[hi]), denom[hi], inv[hi]) + vbe[col];
-        v[2 * q + 1] = div_by(vg[col + 1] * (acc[0][j + 1] - mean[hi]), denom[hi], inv[hi]) + vbe[col + 1];
-      }
-      if (res_bf16) {
-        unsigned a[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-          a[q] = *reinterpret_cast<const unsigned*>(&p);
-        }
-        quad_transpose(a, lane);   // a: columns 8 (g4 + t) .. + 7 of the row
-        const int col = c0 - 2 * t + 8 * (g4 + t);
-        if (row < M && col < D)
-          *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + static_cast<size_t>(row) * ldo + col) =
-              make_uint4(a[0], a[1], a[2], a[3]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = c0 + 8 * (g4 + q);
-          if (row < M && col < D)
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + static_cast<size_t>(row) * ldo + col) =
-                make_float2(v[2 * q], v[2 * q + 1]);
-        }
-      }
-    }
-  }
+  cln::normalise_store(acc[0], mean, denom, inv, vg, vbe, out, res_bf16, ldo, r0, c0, M, D, lane);
   cluster_wait();   // no peer reads this CTA's shared memory any more
 }
 

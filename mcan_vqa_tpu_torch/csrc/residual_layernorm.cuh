@@ -1,7 +1,7 @@
 // What residual_layernorm.cu (forward), residual_layernorm_bwd.cu
-// (backward), gemm_ln.cu and the streaming FFN kernels share: the block
-// shapes, the choice of kernel by width, the row statistics of a row staged
-// in shared memory or held in registers, and the dropout keep source.
+// (backward), gemm_ln.cu and the all-layer stacks share: the block shapes,
+// the choice of kernel by width, the row statistics of a row staged in
+// shared memory or held in registers, and the dropout keep source.
 #pragma once
 
 #include <math.h>

@@ -108,6 +108,22 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// the same for a swizzle of `row` bytes (128, 64 or 32: a row of the
+// operand's 8-row atom; layout 1, 2 or 3)
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo, int row) {
+  const uint64_t mode = row == 128 ? 1 : row == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// the byte offset `off` (from a 1024-byte aligned base) as the swizzle of
+// `row`-byte rows places it: its 16-byte chunk XOR the row's bits above
+// 128 bytes, as TMA writes and wgmma reads a swizzled operand
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, int row) {
+  return off ^ (((off >> 7) & ((row >> 4) - 1)) << 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -252,6 +268,36 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// m64n32k16: 16 f32 accumulators a thread (the streaming FFN's narrow
+// hidden slices; B's swizzle is its descriptor's)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n16k16: 8 f32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // m64n128k32, s8 x s8 -> s32: 64 accumulators a thread (both operands K-major)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db) {
@@ -350,6 +396,36 @@ __device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], u
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// m64n16k16 / m64n32k16, bf16 x bf16 -> f32 with A from registers (the
+// fragment layout of the m64n64k16 form below); B in shared memory,
+// K-major (TB 0) or MN-major (TB 1); the accumulators are added to
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 // m64n64k16, bf16 x bf16 -> f32 with A from registers: four .b32 of two
@@ -563,6 +639,31 @@ __device__ __forceinline__ void consume(Acc (&acc)[HALVES][ACC], uint32_t base, 
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) fence_acc(acc[h]);
   if (nk > 0) mbar_arrive(bars + 8 * (STAGES + prev));   // the item's last slot
+}
+
+// the A fragments of one K-tile of f32 a for wgmma's register-A form: rows
+// 16 warp + g (+ 8), k 16 kk + 2 t (+ 8) of the warpgroup's 64 rows, in two
+// f32 boxes (32 values a row, 128-byte rows, 128-byte swizzle: the 16-byte
+// chunk c of row r at chunk c ^ (r % 8)) `xstride` bytes apart, each pair
+// rounded to bf16 as one word
+__device__ __forceinline__ void f32_frags(uint32_t a, uint32_t xstride, int warp, int lane,
+                                          uint32_t (&f)[BK / 16][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {   // (g, 0), (g + 8, 0), (g, 8), (g + 8, 8)
+      const int row = 16 * warp + g + 8 * (q & 1);
+      const int k = 16 * kk + 2 * t + 8 * (q >> 1);
+      const int kc = k & 31;
+      const uint32_t addr = a + (k >> 5) * xstride + row * 128 + (((kc >> 2) ^ (row & 7)) << 4) +
+                            (kc & 3) * 4;
+      float x, y;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(x), "=f"(y) : "r"(addr));
+      const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);   // x in the low half
+      f[kk][q] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
 }
 
 // The side of one consumer warpgroup for one work item whose A operand it
@@ -984,6 +1085,57 @@ __device__ __forceinline__ float4 peer_f32x4(const float* p, unsigned r) {
   return v;
 }
 
+// p (an address of this CTA's shared window) in rank r's window
+__device__ __forceinline__ uint32_t peer_addr(uint32_t p, unsigned r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(p), "r"(r));
+  return a;
+}
+
+// one arrival on the mbarrier `bar` of rank r (this CTA's own too), with
+// release at cluster scope: what this thread saw before it is visible to a
+// thread of rank r that waits on that barrier with acquire (mbar_wait_cluster)
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar, unsigned r) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(peer_addr(bar, r))
+               : "memory");
+}
+
+// one arrival on the mbarrier `bar` of rank r with the default (CTA-scope)
+// semantics: enough to free a buffer that only the async proxy (TMA, bulk
+// copies, wgmma) reads and writes, as CUTLASS's cluster pipelines release
+// a multicast slot; far cheaper than mbar_arrive_peer
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, unsigned r) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(peer_addr(bar, r)) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope (the arrivals came from peers)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this CTA's shared memory at src into rank
+// r's at the same address, completing on rank r's mbarrier `bar` (a bulk
+// copy of the async proxy: what generic stores wrote to src must be fenced
+// for it first, fence_proxy_async)
+__device__ __forceinline__ void copy_to_peer(uint32_t src, uint32_t bytes, uint32_t bar, unsigned r) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          peer_addr(src, r)),
+      "r"(src), "r"(bytes), "r"(peer_addr(bar, r))
+      : "memory");
+}
+
+// this thread's generic-proxy writes to shared memory, ordered before the
+// async proxy's (wgmma, bulk copies) reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -1013,10 +1165,11 @@ inline EncodeTiled encode_tiled() {
 
 // a matrix of `outer` rows of `inner` elements of `bytes` bytes (2: bf16,
 // 1: int8), row stride `ld` elements, read in boxes of box_outer rows x
-// box_inner elements (128 bytes, the swizzle span); out-of-bounds elements
-// read as zeros
+// box_inner elements (128 bytes, the swizzle span; or 64 / 32 under that
+// swizzle); out-of-bounds elements read as zeros
 inline bool make_map(CUtensorMap* map, const void* ptr, int bytes, long long inner, long long outer,
-              long long ld, int box_inner, int box_outer) {
+              long long ld, int box_inner, int box_outer,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
@@ -1027,7 +1180,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int bytes, long long inn
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                 const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

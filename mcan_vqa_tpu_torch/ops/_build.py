@@ -79,10 +79,11 @@ SIGNATURES = {
                          _F, _P, _P, _P, _I, _P, _P],
     "mcan_sa_encoder": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _P, _P, _P, _I, _P, _P],
-    "mcan_ffn_ln_blocked": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _F, _P],
+    "mcan_ffn_ln_blocked": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _F, _P, _I, _P],
     "mcan_ffn_ln_wstationary": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _F, _I, _P, _P],
+                                _I, _I, _F, _P, _I, _P, _P],
+    "mcan_ffn_ln_wstationary_max_clusters": [_I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -28,11 +28,13 @@ guards: the kernels write every row at every M, and take MCAN-large's
 The streaming variants (``_ffn_ln_blocked_kernel`` :121, call :174;
 ``_ffn_ln_wstationary_kernel`` :201, call :263) keep each property of
 their TPU kernel: the blocked kernel never writes the hidden to device
-memory (a block per row tile walks the F tiles with h and the f32 row sums
-in shared memory); the weight-stationary kernel reads every weight byte
-from device memory once (a block holds an F slice of both weights and
-walks every row tile, the output carrying the running sum from slice to
-slice in F order). No engine calls them, in JAX or here: ``fused_ffn_ln``
+memory (a thread-block cluster per 64-row block walks the F tiles, each
+rank forming a slice of h that crosses the cluster through distributed
+shared memory, its output columns' sums in registers); the
+weight-stationary kernel reads every weight byte from device memory once
+(a cluster holds an F range of both weights in its CTAs' shared memory and
+walks every row tile, the output carrying the running sum from range to
+range in F order). No engine calls them, in JAX or here: ``fused_ffn_ln``
 is the serving path's FFN.
 
 On a CPU tensor each kernel wrapper runs its plain version
@@ -100,11 +102,12 @@ def fused_ffn_ln_blocked(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     x's shape (fused_ffn.py:150): one launch of csrc/ffn_ln_blocked.cu, the
     hidden never in device memory. w1 [D, F], w2 [F, D] bf16 or f32 (the
     products run in bf16). tile_m / tile_f are JAX's tiles, taken for its
-    signature: on the card the tiles follow D (64, 32 or 16 rows, so the
-    row sums fit shared memory; F tiles of 4096 / rows), and every row is
+    signature: on the card the tiles are ``kernels.ffn_ln_plan``'s (64
+    rows, F tiles of 64 hidden units a cluster rank), and every row is
     written at any M, where JAX falls back to XLA for untileable M or F
     (:163-170). Takes D a multiple of 128 up to 2048 and F a multiple of
-    the F tile; raises for another shape on the card."""
+    the F step (``kernels.ffn_f_step``); raises for another shape on the
+    card."""
     del tile_m, tile_f
     xm, w1b, w2b = _streaming_operands(x, w1, w2)
     out = kernels.ffn_ln_blocked(xm, w1b, b1, w2b, b2, ln_scale, ln_bias)
@@ -117,12 +120,13 @@ def fused_ffn_ln_weight_stationary(x: torch.Tensor, w1: torch.Tensor,
                                    ln_bias: torch.Tensor, tile_m: int = 256,
                                    tile_f: int = 1024) -> torch.Tensor:
     """The same function as ``fused_ffn_ln_blocked`` (fused_ffn.py:242), in
-    one cooperative launch of csrc/ffn_ln_wstationary.cu: each weight byte
-    is read from device memory once, the slices' parts are summed in F
-    order. tile_m / tile_f are taken for JAX's signature: on the card the
-    row tile follows D and the F slice is 32 hidden units (16 past D 1024).
-    Takes D a multiple of 128 up to 2048 and F a multiple of the slice;
-    raises for another shape on the card."""
+    one cluster launch of csrc/ffn_ln_wstationary.cu: each weight byte is
+    read from device memory once, the F ranges' sums are added in F order.
+    tile_m / tile_f are taken for JAX's signature: on the card the tiles
+    are ``kernels.ffn_ln_plan``'s (64 rows, 32 hidden units a cluster rank,
+    16 past D 1024). Takes D a multiple of 128 up to 2048 and F a multiple
+    of the F step (``kernels.ffn_f_step``); raises for another shape on
+    the card."""
     del tile_m, tile_f
     xm, w1b, w2b = _streaming_operands(x, w1, w2)
     out = kernels.ffn_ln_wstationary(xm, w1b, b1, w2b, b2, ln_scale, ln_bias)

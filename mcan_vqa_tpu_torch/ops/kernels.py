@@ -2304,18 +2304,216 @@ def sa_encoder(x: torch.Tensor, x_mask: torch.Tensor, wp, *, num_heads: int,
 # ---------------------------------------------------------------------------
 
 FFN_LN_MAX_WIDTH = 2048   # D: a multiple of 128 up to this
-FFN_LN_FLAG_CAP = 1 << 20  # bytes of row-tile flags ffn_ln_wstationary takes
+FFN_LN_ROWS = 64          # a row tile: one consumer warpgroup (wgmma m64)
+FFN_LN_MAX_CLUSTER = 8    # CTAs a cluster: the portable size
+FFN_LN_VARIANTS = ("blocked", "wstationary")
+# the F steps the kernels take by width (the parent kernels' F tile and
+# slice): F a multiple of 64 / 128 / 256 (blocked) or 32 / 32 / 16
+# (weight-stationary) for D up to 512 / 1024 / 2048
+FFN_LN_F_STEPS = {"blocked": (64, 128, 256), "wstationary": (32, 32, 16)}
+# both kernels' rings: as many slots as the shared memory beside their
+# other buffers holds, within these bounds
+FFN_MIN_STAGES, FFN_MAX_STAGES = 2, 8
+# ffn_ln_wstationary.cu: the hidden units a CTA holds by its output columns
+# (TS: W1's slice is D x TS, W2's rows of the range C TS x BN)
+FFN_WS_TS = {64: 32, 128: 32, 256: 16}
+FFN_SPLIT_FILL = 0.5      # blocked: split F where the clusters fill less
 
 
-def ffn_tiles(D: int) -> Tuple[int, int, int]:
-    """The streaming kernels' tiles at width D, as csrc/ffn_ln.cuh picks
-    them: (row tile, ffn_ln_blocked's F tile, ffn_ln_wstationary's F
-    slice). The row tile keeps the f32 row sums, TM x D, within 128 KB of
-    shared memory. Zeros for a width the kernels do not take."""
+def ffn_ln_bn(D: int) -> int:
+    """The output columns a CTA owns at width D: 64 up to 512, 128 up to
+    1024, 256 up to 2048, so a cluster is D / BN <= 8 CTAs."""
+    return 64 if D <= 512 else 128 if D <= 1024 else 256
+
+
+def ffn_f_step(variant: str, D: int) -> int:
+    """The F step a streaming kernel takes at width D; 0 for a width it does
+    not take (not a multiple of 128, or past 2048)."""
     if D < 128 or D > FFN_LN_MAX_WIDTH or D % 128:
-        return 0, 0, 0
-    tm = 64 if D <= 512 else 32 if D <= 1024 else 16
-    return tm, 4096 // tm, 16 if tm == 16 else 32
+        return 0
+    steps = FFN_LN_F_STEPS[variant]
+    return steps[0] if D <= 512 else steps[1] if D <= 1024 else steps[2]
+
+
+def ffn_ln_smem_bytes(variant: str, x_f32: bool, D: int, bn: int,
+                      cluster: int, ts: int, stages: int) -> int:
+    """The dynamic shared memory of one launch (the instance's Cfg::smem):
+    1 KB of slack to align the first buffer, then
+      blocked: the ring (a slot: the larger of x's K-tile -- one bf16 box,
+        or two f32 -- with W1's box, and W2's bn / 64 boxes), the cluster's
+        h pieces (one box a rank), the barriers, the rows' statistics (16
+        bytes a row), b2 / gamma / beta of the CTA's columns, a flag;
+      wstationary: W1's slice (D x 2 ts bytes), W2's rows of the range
+        (K-tiles of 64 x bn / 64 boxes), the cluster's h pieces (64 x 2 ts
+        bytes each), the ring of x's K-tiles, the barriers, the rows'
+        statistics."""
+    box, xs = 64 * GEMM_BK * 2, 2 if x_f32 else 1
+    if variant == "blocked":
+        slot = max(xs * box + box, bn // 64 * box)
+        return (1024 + stages * slot + cluster * box + 16 * stages + 32
+                + FFN_LN_ROWS * 16 + 3 * bn * 4 + 16)
+    row = 2 * ts
+    w2_tiles = -(-cluster * ts // GEMM_BK)
+    return (1024 + D * row + w2_tiles * (bn // 64) * box
+            + cluster * FFN_LN_ROWS * row + stages * xs * box + 16 * stages
+            + 64 + FFN_LN_ROWS * 16)
+
+
+def _ffn_stages(variant: str, x_f32: bool, D: int, bn: int, cluster: int,
+                ts: int) -> int:
+    """The deepest ring (at most FFN_MAX_STAGES slots) whose launch fits a
+    block's shared memory; raises where not even FFN_MIN_STAGES fit."""
+    fits = [n for n in range(FFN_MIN_STAGES, FFN_MAX_STAGES + 1)
+            if ffn_ln_smem_bytes(variant, x_f32, D, bn, cluster, ts, n)
+            <= SMEM_PER_BLOCK]
+    _require(bool(fits), f"ffn_ln_plan: no ring fits at D={D}")
+    return max(fits)
+
+
+@dataclass(frozen=True)
+class FfnLnPlan:
+    """How a streaming FFN + LN kernel covers one call (``ffn_ln_plan``):
+    64-row tiles; a cluster of ``cluster`` CTAs, rank c owning the output
+    columns ``columns(c)`` (``bn`` each) and ``f_width / cluster`` of each
+    F step's hidden units; F in ``f_steps`` steps of ``f_width``.
+
+    blocked: a cluster per row block and split; the F tiles (64 hidden
+      units a rank) walked in order, split at small M into ``splits``
+      ranges of F tiles (``f_range``), one cluster each, summed in range
+      order.
+    wstationary: the F ranges (``ts`` hidden units a rank, held in shared
+      memory) dealt to ``clusters`` clusters (range g to cluster g %
+      clusters), each walking every row tile; the ranges' sums chained in
+      range order.
+
+    ``stages`` and ``smem``: the ring's slots (as many as fit beside the
+    other buffers, 2 to 8) and the launch's dynamic shared memory.
+    Everything but ``clusters`` (wstationary: the card's or the caller's
+    cap) follows from the shape alone, and the bits do not depend on
+    ``clusters``."""
+    variant: str
+    M: int
+    D: int
+    F: int
+    x_f32: bool
+    bn: int
+    cluster: int
+    f_width: int
+    f_steps: int
+    splits: int
+    ts: int
+    clusters: int
+    stages: int
+    smem: int
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.M // FFN_LN_ROWS)
+
+    @property
+    def grid(self) -> int:
+        return self.cluster * self.clusters
+
+    def rows(self, block: int) -> Tuple[int, int]:
+        return block * FFN_LN_ROWS, min(self.M, (block + 1) * FFN_LN_ROWS)
+
+    def columns(self, rank: int) -> Tuple[int, int]:
+        return rank * self.bn, min(self.D, (rank + 1) * self.bn)
+
+    def f_range(self, i: int) -> Tuple[int, int]:
+        """The hidden units of blocked split i (its F tiles [i T / S, (i +
+        1) T / S)) or of weight-stationary range i, clipped to F."""
+        if self.variant == "blocked":
+            t0 = i * self.f_steps // self.splits
+            t1 = (i + 1) * self.f_steps // self.splits
+        else:
+            t0, t1 = i, i + 1
+        return (min(self.F, t0 * self.f_width), min(self.F, t1 * self.f_width))
+
+    def ranges_of(self, cluster: int) -> List[int]:
+        """wstationary: the F ranges cluster `cluster` walks, in order."""
+        return list(range(cluster, self.f_steps, self.clusters))
+
+    @property
+    def workspace_floats(self) -> int:
+        """blocked: the split partials (splits x the row blocks' 64 x C bn
+        f32); 0 unsplit."""
+        if self.variant != "blocked" or self.splits == 1:
+            return 0
+        return (self.splits * self.row_blocks * self.cluster * FFN_LN_ROWS
+                * self.bn)
+
+    @property
+    def flags(self) -> int:
+        """wstationary: the chain's flags, one a row tile and rank."""
+        return self.row_blocks * self.cluster \
+            if self.variant == "wstationary" else 0
+
+    def fields(self) -> Tuple[int, ...]:
+        """What the C entry takes: bn, cluster, f_width, f_steps, then
+        splits, row_blocks, grid (blocked) or ts, row_blocks, clusters, grid
+        (wstationary), then stages, smem."""
+        if self.variant == "blocked":
+            mid = (self.splits, self.row_blocks, self.grid)
+        else:
+            mid = (self.ts, self.row_blocks, self.clusters, self.grid)
+        return (self.bn, self.cluster, self.f_width, self.f_steps, *mid,
+                self.stages, self.smem)
+
+
+def _check_ffn_shape(name: str, variant: str, D: int, F: int) -> int:
+    f_step = ffn_f_step(variant, D)
+    _require(f_step > 0 and F > 0 and F % f_step == 0,
+             f"{name}: takes D a multiple of 128 up to {FFN_LN_MAX_WIDTH} "
+             f"and F a multiple of its F step ({f_step}); got D={D}, F={F}")
+    return f_step
+
+
+@functools.lru_cache(maxsize=1024)
+def ffn_ln_plan(variant: str, M: int, D: int, F: int, x_f32: bool,
+                max_clusters: int = 0) -> FfnLnPlan:
+    """The plan of one streaming FFN + LN call from the shape alone.
+
+    Both: 64-row tiles; BN = ``ffn_ln_bn(D)`` output columns a CTA, a
+    cluster of C = ceil(D / BN) CTAs (2 to 8).
+    blocked: F tiles of 64 C hidden units; where the row blocks' clusters
+      give fewer than ``FFN_SPLIT_FILL`` of the card's SMs a CTA, the F
+      tiles split into as many ranges as fill the SMs (at most one F tile a
+      range): B=1's 60 rows at MCAN-large run 8 clusters of 8.
+    wstationary: F ranges of C TS hidden units (TS = ``FFN_WS_TS[BN]``: W1's
+      slice and W2's rows in shared memory beside x's ring), one cluster
+      each as far as ``max_clusters`` (> 0: the card's or the caller's cap)
+      and the card's SMs allow; a cluster walks several ranges past that."""
+    _require(variant in FFN_LN_VARIANTS, f"ffn_ln_plan: variant {variant!r}")
+    _check_ffn_shape("ffn_ln_plan", variant, D, F)
+    _require(M >= 1, f"ffn_ln_plan: M={M}")
+    x_f32 = bool(x_f32)
+    bn = ffn_ln_bn(D)
+    cluster = -(-D // bn)
+    rows = -(-M // FFN_LN_ROWS)
+    if variant == "blocked":
+        f_width = FFN_LN_ROWS * cluster
+        f_steps = -(-F // f_width)
+        ctas = rows * cluster
+        splits = 1
+        if ctas < FFN_SPLIT_FILL * GEMM_SMS:
+            splits = max(1, min(f_steps, GEMM_SMS // ctas))
+        stages = _ffn_stages(variant, x_f32, D, bn, cluster, 0)
+        return FfnLnPlan(variant, M, D, F, x_f32, bn, cluster, f_width,
+                         f_steps, splits, 0, rows * splits, stages,
+                         ffn_ln_smem_bytes(variant, x_f32, D, bn, cluster, 0,
+                                           stages))
+    ts = FFN_WS_TS[bn]
+    f_width = cluster * ts
+    f_steps = -(-F // f_width)
+    cap = GEMM_SMS // cluster
+    if max_clusters > 0:
+        cap = min(cap, max_clusters)
+    stages = _ffn_stages(variant, x_f32, D, bn, cluster, ts)
+    return FfnLnPlan(variant, M, D, F, x_f32, bn, cluster, f_width, f_steps,
+                     1, ts, min(f_steps, cap), stages,
+                     ffn_ln_smem_bytes(variant, x_f32, D, bn, cluster, ts,
+                                       stages))
 
 
 def ffn_ln_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -2331,9 +2529,9 @@ def ffn_ln_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return std_layer_norm(r, gamma, beta, LN_EPS)
 
 
-def _check_ffn(name: str, x, w1, b1, w2, b2, gamma, beta, step: int):
+def _check_ffn(name: str, x, w1, b1, w2, b2, gamma, beta, variant: str):
     """The operands the streaming kernels take (F a multiple of their F
-    step, ``ffn_tiles(D)[step]``) -> (M, D, F); raises for any other."""
+    step, ``ffn_f_step``) -> (M, D, F); raises for any other."""
     _same_device(name, x, w1, b1, w2, b2, gamma, beta)
     _require(x.dim() == 2 and x.dtype in (F32, BF16) and x.is_contiguous()
              and x.data_ptr() % 16 == 0,
@@ -2344,10 +2542,8 @@ def _check_ffn(name: str, x, w1, b1, w2, b2, gamma, beta, step: int):
              and tuple(w2.shape) == (w1.shape[1], D),
              f"{name}: w1 [D, F] and w2 [F, D] with D={D}, got "
              f"{tuple(w1.shape)}, {tuple(w2.shape)}")
-    F, f_step = w1.shape[1], ffn_tiles(D)[step]
-    _require(f_step > 0 and F > 0 and F % f_step == 0,
-             f"{name}: takes D a multiple of 128 up to {FFN_LN_MAX_WIDTH} "
-             f"and F a multiple of its F step ({f_step}); got D={D}, F={F}")
+    F = w1.shape[1]
+    _check_ffn_shape(name, variant, D, F)
     for w in (w1, w2):
         _require(w.dtype == BF16 and w.is_contiguous()
                  and w.data_ptr() % 16 == 0,
@@ -2360,60 +2556,97 @@ def _check_ffn(name: str, x, w1, b1, w2, b2, gamma, beta, step: int):
     return M, D, F
 
 
+_FFN_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_FFN_FIT: Dict[Tuple, int] = {}
+
+
+def _ffn_plan_args(plan: FfnLnPlan):
+    """The plan's int fields as a ctypes array (passed by address, kept
+    alive by the call) and their count."""
+    fields = plan.fields()
+    return (ctypes.c_int * len(fields))(*fields), len(fields)
+
+
 def ffn_ln_blocked(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor) -> torch.Tensor:
     """StdLayerNorm(x + relu(x . w1 + b1) . w2 + b2) in one launch of
     csrc/ffn_ln_blocked.cu (``_ffn_ln_blocked_kernel``,
-    mcan_vqa_tpu/ops/fused_ffn.py:121): a block per row tile walks the F
-    tiles, the hidden never leaves shared memory. x [M, D] f32 or bf16, w1
-    [D, F] and w2 [F, D] bf16, vectors f32 -> f32 [M, D]. D a multiple of
-    128 up to 2048, F a multiple of the F tile (``ffn_tiles``), any M."""
+    mcan_vqa_tpu/ops/fused_ffn.py:121): a cluster per 64-row block walks
+    the F tiles, the hidden never leaves shared memory; at small M the F
+    tiles split over clusters, summed in range order (``ffn_ln_plan``). x
+    [M, D] f32 or bf16, w1 [D, F] and w2 [F, D] bf16, vectors f32 -> f32
+    [M, D]. D a multiple of 128 up to 2048, F a multiple of the F step
+    (``ffn_f_step``), any M."""
     if not on_cuda(x):
         return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
     name = "ffn_ln_blocked"
-    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, 1)
+    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, "blocked")
     out = torch.empty((M, D), dtype=F32, device=x.device)
     if M == 0:
         return out
+    plan = ffn_ln_plan("blocked", M, D, F, x.dtype == F32)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_floats, dtype=F32, device=x.device)
+        counters = _zeroed_counters(_FFN_COUNTERS, x.device, plan.row_blocks,
+                                    "ffn_ln_blocked: the row-block counters")
+    fields, n = _ffn_plan_args(plan)
     rc = _lib().mcan_ffn_ln_blocked(
         x.data_ptr(), int(x.dtype == F32), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), M, D, F, LN_EPS, _stream(x))
+        out.data_ptr(), _ptr(ws), _ptr(counters), M, D, F, LN_EPS, fields, n,
+        _stream(x))
     _check(rc, name)
     return out
+
+
+def _ffn_ws_fit(device: torch.device, plan: FfnLnPlan) -> int:
+    """The clusters of the plan's instance the card holds at once (the C
+    library's cudaOccupancyMaxActiveClusters), once per device and
+    instance."""
+    key = (device, plan.x_f32, plan.bn, plan.ts, plan.cluster, plan.smem)
+    if key not in _FFN_FIT:
+        fit = _lib().mcan_ffn_ln_wstationary_max_clusters(
+            int(plan.x_f32), plan.bn, plan.ts, plan.cluster, plan.smem)
+        _require(fit > 0, f"ffn_ln_wstationary: the card holds no cluster "
+                          f"of {plan.cluster} CTAs at {plan.smem} B ({fit})")
+        _FFN_FIT[key] = fit
+    return _FFN_FIT[key]
 
 
 def ffn_ln_wstationary(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                        w2: torch.Tensor, b2: torch.Tensor,
                        gamma: torch.Tensor, beta: torch.Tensor, *,
-                       max_blocks: int = 0) -> torch.Tensor:
-    """The same function in one cooperative launch of
+                       max_clusters: int = 0) -> torch.Tensor:
+    """The same function in one cluster launch of
     csrc/ffn_ln_wstationary.cu (``_ffn_ln_wstationary_kernel``,
-    fused_ffn.py:201): a block holds an F slice of W1 and W2 (32 hidden
-    units, 16 past D 1024) in shared memory and walks every row tile; the
-    output carries the running sum, passed from slice to slice in F order
-    through one int32 flag per row tile (the workspace, refused past
-    FFN_LN_FLAG_CAP bytes; 480 bytes at MCAN-large B=64). D a multiple of
-    128 up to 2048, F a multiple of the slice (``ffn_tiles``), any M. max_blocks > 0 caps the grid (the result does not
-    depend on it); ``LAST_GRID["ffn_ln_wstationary"]`` holds the last
-    launch's (grid, blocks per SM, SMs, shared memory bytes)."""
+    fused_ffn.py:201): a cluster holds an F range of W1 and W2 in its CTAs'
+    shared memory, loaded once, and walks every row tile; the ranges' sums
+    pass in range order through the output, one int32 flag per row tile
+    and rank (zeroed per call). D a multiple of 128 up to 2048, F a
+    multiple of the F step (``ffn_f_step``), any M. max_clusters > 0 caps
+    the clusters (the result does not depend on it); every cluster of the
+    grid is resident at once. ``LAST_GRID["ffn_ln_wstationary"]`` holds the
+    last launch's (grid CTAs, clusters, clusters the card holds at once,
+    shared memory bytes)."""
     if not on_cuda(x):
         return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
     name = "ffn_ln_wstationary"
-    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, 2)
+    M, D, F = _check_ffn(name, x, w1, b1, w2, b2, gamma, beta, "wstationary")
     out = torch.empty((M, D), dtype=F32, device=x.device)
     if M == 0:
         return out
-    flag_bytes = 4 * -(-M // ffn_tiles(D)[0])
-    _require(flag_bytes <= FFN_LN_FLAG_CAP,
-             f"{name}: {flag_bytes} bytes of row-tile flags for M={M} pass "
-             f"the cap of {FFN_LN_FLAG_CAP}")
-    flags = torch.zeros(flag_bytes // 4, dtype=torch.int32, device=x.device)
+    x_f32 = x.dtype == F32
+    fit = _ffn_ws_fit(x.device, ffn_ln_plan("wstationary", M, D, F, x_f32))
+    cap = min(fit, max_clusters) if max_clusters > 0 else fit
+    plan = ffn_ln_plan("wstationary", M, D, F, x_f32, cap)
+    flags = torch.zeros(plan.flags, dtype=torch.int32, device=x.device)
     info = (ctypes.c_int * 4)()
+    fields, n = _ffn_plan_args(plan)
     _launch_stack(name, _lib().mcan_ffn_ln_wstationary, (
-        x.data_ptr(), int(x.dtype == F32), w1.data_ptr(), b1.data_ptr(),
+        x.data_ptr(), int(x_f32), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), flags.data_ptr(), M, D, F, LN_EPS, int(max_blocks),
+        out.data_ptr(), flags.data_ptr(), M, D, F, LN_EPS, fields, n,
         ctypes.addressof(info), _stream(x)), info)
     return out

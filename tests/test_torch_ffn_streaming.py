@@ -90,13 +90,3 @@ def test_both_variants_compute_the_plain_function():
             got = tfn(*targs, tile_m=tm, tile_f=tf)
             assert torch.equal(got.reshape(-1, D), want)
 
-
-def test_row_tiles_by_width():
-    """The streaming kernels' row tile keeps the f32 row sums in 128 KB of
-    shared memory, the blocked F tile holds h at 4096 values and the
-    weight-stationary slice is 32 hidden units (16 past D 1024); widths off
-    the 128 grid or past 2048 are not taken."""
-    assert [kernels.ffn_tiles(d) for d in (256, 512, 1024, 2048)] == \
-        [(64, 64, 32), (64, 64, 32), (32, 128, 32), (16, 256, 16)]
-    assert [kernels.ffn_tiles(d)[0] for d in (64, 640, 1536)] == [0, 32, 16]
-    assert kernels.ffn_tiles(96) == kernels.ffn_tiles(4096) == (0, 0, 0)

@@ -1878,24 +1878,31 @@ def _ffn_operands(cuda, M, D, F, x_dtype=torch.float32, seed=0):
     return x, w1, b1, w2, b2, gamma, beta
 
 
-FFN_SHAPES = [(3840, 512, 2048, torch.float32),     # MCAN-small, B=64
-              (3840, 1024, 4096, torch.float32),    # MCAN-large, B=64
-              (61, 1024, 4096, torch.bfloat16),     # ragged, bf16 x
-              (130, 256, 1024, torch.float32),
-              (17, 2048, 8192, torch.float32)]
+FFN_SHAPES = [("both", 3840, 512, 2048, torch.float32),    # MCAN-small, B=64
+              ("both", 3840, 1024, 4096, torch.float32),   # MCAN-large, B=64
+              ("both", 60, 1024, 4096, torch.float32),     # B=1: F split
+              ("both", 61, 1024, 4096, torch.bfloat16),    # ragged, bf16 x
+              ("both", 130, 256, 1024, torch.float32),
+              ("both", 17, 2048, 8192, torch.float32),
+              # the parent's smallest F steps past a tile: 33 x 64, 513 x 16
+              ("both", 60, 512, 2112, torch.float32),
+              ("ffn_ln_wstationary", 17, 2048, 8208, torch.float32)]
+FFN_CASES = [(variant, M, D, F, xdt) for which, M, D, F, xdt in FFN_SHAPES
+             for variant in ("ffn_ln_blocked", "ffn_ln_wstationary")
+             if which in ("both", variant)]
 
 
-@pytest.mark.parametrize("variant", ["ffn_ln_blocked", "ffn_ln_wstationary"])
-@pytest.mark.parametrize("M,D,F,x_dtype", FFN_SHAPES)
+@pytest.mark.parametrize("variant,M,D,F,x_dtype", FFN_CASES)
 def test_streaming_ffn_ln_matches_plain_and_repeats_bitwise(cuda, variant, M,
                                                             D, F, x_dtype):
     """f32 out: the same exact bf16 products summed in another order (over
-    F tiles or slices), then an LN of O(1) values. Where the order moves a
-    pre-activation across a rounding boundary, h's bf16 rounding lands a
-    step apart (2^-6 at |h| ~ 4), which moves r by that step times |W2|
-    (~0.07): 1.1e-3 measured on an H100 at D 512 for one element of 2 M.
-    So 1e-3 of max|ref| (~4.5e-3). Two runs, and the weight-stationary
-    kernel on a reduced grid, give equal bits."""
+    F tiles, splits or ranges), then an LN of O(1) values. Where the order
+    moves a pre-activation across a rounding boundary, h's bf16 rounding
+    lands a step apart (2^-6 at |h| ~ 4), which moves r by that step times
+    |W2| (~0.07): 1.1e-3 measured on an H100 at D 512 for one element of 2
+    M. So 1e-3 of max|ref| (~4.5e-3). Two runs give equal bits; the grid is
+    the plan's (``kernels.ffn_ln_plan``), and the weight-stationary kernel
+    gives the same bits on any number of clusters."""
     ops = _ffn_operands(cuda, M, D, F, x_dtype)
     fn = getattr(K, variant)
     K.reset_launches()
@@ -1907,11 +1914,13 @@ def test_streaming_ffn_ln_matches_plain_and_repeats_bitwise(cuda, variant, M,
     assert out.dtype == torch.float32 and out.shape == (M, D)
     assert torch.equal(out, fn(*ops))
     if variant == "ffn_ln_wstationary":
-        grid = K.LAST_GRID[variant][0]
-        assert grid == min(F // K.ffn_tiles(D)[2],
-                           K.LAST_GRID[variant][1] * K.LAST_GRID[variant][2])
-        assert torch.equal(out, fn(*ops, max_blocks=3))
-        assert K.LAST_GRID[variant][0] == 3
+        grid, clusters, fit, smem = K.LAST_GRID[variant]
+        plan = K.ffn_ln_plan("wstationary", M, D, F, x_dtype == torch.float32,
+                             fit)
+        assert (grid, clusters, smem) == (plan.grid, plan.clusters, plan.smem)
+        for cap in (1, 3, 7):
+            assert torch.equal(out, fn(*ops, max_clusters=cap))
+            assert K.LAST_GRID[variant][1] == min(cap, plan.f_steps)
 
 
 def test_streaming_ffn_public_functions_on_the_card(cuda):
