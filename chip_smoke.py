@@ -52,8 +52,11 @@ Builds the port's CUDA kernels from the checkout's sources, then:
   [prng]     in-kernel dropout: the CUDA Philox4x32-10 against its plain
              version on 2 M words and the mask dump against its plain
              version, bit for bit (the SGA block at MCAN-small and
-             MCAN-large shapes, the SA block), the keep rate within 5
-             sigma, the dump's time beside torch.rand + the compare; the
+             MCAN-large shapes, the SA block, and the plan's edges: rows
+             with n % 4 != 0, one and six sites, B = 1 and 65,537), twice
+             with equal bits, the keep rate within 5 sigma, each dump's
+             and the words' time, plan and registers beside torch.rand +
+             the compare and the bound of their integer work; the
              seeded SGA and SA blocks against the external-mask blocks fed
              the dump, bit for bit in the output and every gradient, and
              against their plain twins;
@@ -189,6 +192,9 @@ TPU_QUANT = "mcan_vqa_tpu/ops/quant.py"
 PEAK_BF16 = 989e12              # FLOP/s, dense, tensor cores
 PEAK_F32 = 67e12                # FLOP/s, outside the tensor cores
 PEAK_INT8 = 1979e12             # OP/s, dense, tensor cores
+# OP/s, 32-bit integer: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
+# x 132 SMs x the 1.98 GHz boost clock behind PEAK_F32
+PEAK_INT32 = 132 * 64 * 1.98e9
 HBM = 3.35e12                   # bytes/s
 SERVE = "one B=64 serving forward"
 STEP = "one B=64 train step"
@@ -214,6 +220,10 @@ INT4_BOUND = 4e-2
 SERVE_W4 = "one B=1 + one B=64 level-5 serving forward"
 SERVE_W7 = "one B=1 + one B=64 level-7 serving forward"
 PRNG_SEED = 1234567             # the in-kernel dropout's seed in the checks
+# the integer operations of one Philox4x32-10 counter (ten rounds of two
+# 32 x 32 -> 64-bit products and two three-input XORs) and of the dump's
+# four compares; the key schedule (a row's) is not counted
+PHILOX_OPS, KEEP_OPS = 40, 4
 # the seeded (in-kernel dropout) pieces: row, the TPU kernel body, unit
 PRNG_ROWS = (
     ("sga_train_fwd_prng", TPU_TRAIN + ":507", STEP),
@@ -408,13 +418,15 @@ def pad_mask(torch, B: int, L: int, lengths, dev):
 
 
 def bound_parts(flops: float, nbytes: float, tensor: bool = True,
-                int8_ops: float = 0.0):
+                int8_ops: float = 0.0, int_ops: float = 0.0):
     """(ms at the peak operation rates, ms at the memory rate): the least
     time for `flops` operations of their type (bf16 on the tensor cores,
-    else f32) plus `int8_ops` int8 tensor-core operations, and `nbytes`
-    moved, each input read once and each output written once."""
+    else f32) plus `int8_ops` int8 tensor-core operations and `int_ops`
+    32-bit integer operations, and `nbytes` moved, each input read once
+    and each output written once."""
     return ((flops / (PEAK_BF16 if tensor else PEAK_F32)
-             + int8_ops / PEAK_INT8) * 1e3, nbytes / HBM * 1e3)
+             + int8_ops / PEAK_INT8 + int_ops / PEAK_INT32) * 1e3,
+            nbytes / HBM * 1e3)
 
 
 class Rows:
@@ -439,14 +451,14 @@ class Rows:
         return self.rows[name]
 
     def add(self, name, n, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
-            library_ms=None, tensor=True, int8_ops=0.0):
+            library_ms=None, tensor=True, int8_ops=0.0, int_ops=0.0):
         """n calls of one shape per unit: their times and bounds."""
         r = self.rows[name]
-        op, by = bound_parts(flops, nbytes, tensor, int8_ops)
+        op, by = bound_parts(flops, nbytes, tensor, int8_ops, int_ops)
         r["ms"] += n * ms
         r["plain_ms"] += n * plain_ms
         r["bound_ms"] += n * max(op, by)
-        r["flops"] += n * int(flops + int8_ops)
+        r["flops"] += n * int(flops + int8_ops + int_ops)
         r["bytes"] += n * int(nbytes)
         r["_op"] += n * op
         r["_bytes"] += n * by
@@ -2600,29 +2612,83 @@ def prng_rows(rows) -> None:
                  .split(":")[0], replaces, per)
 
 
+# (B, [(site code, heads, n)]): the dump's plan edges, as in the card tests
+# (tests/test_torch_kernels_gpu.py::PRNG_EDGES): rows with n % 4 != 0,
+# att2's n = 840, one site and six, B = 1, B = 65,537 with one small site;
+# and (B, n) of philox_words'
+PRNG_EDGES = (
+    (7, [(0x100, 3, 5), (0x200, 1, 3), (0x301, 2, 4099), (0x302, 1, 842)]),
+    (64, [(0x200, 8, 840)]),
+    (3, [(0x303, 1, 122880)]),
+    (3, [(0x100, 8, 3600), (0x200, 8, 840), (0x301, 1, 1), (0x302, 16, 5),
+         (0x303, 1, 4099), (0x304, 1, 30720)]),
+    (1, [(0x100, 8, 3600), (0x303, 1, 7)]),
+    (65537, [(0x303, 1, 5)]))
+WORD_EDGES = ((1, 1), (3, 5), (7, 4099), (5, 842), (2, 122880), (65537, 3))
+
+
+def prng_report(torch, K) -> None:
+    """prng_masks.cu's two instances: registers and local (spilled) bytes a
+    thread as compiled (cudaFuncGetAttributes, in any process)."""
+    import ctypes
+
+    from mcan_vqa_tpu_torch.ops import _build
+    info = (ctypes.c_int * 3)()
+    for words, kind in ((0, "dump_prng_masks"), (1, "philox_words")):
+        rc = _build.load_library().mcan_prng_kernel_attrs(words, info)
+        if rc != 0:
+            fail(f"prng_kernel ({kind}): cudaFuncGetAttributes error {rc}")
+        say(f"  [registers] prng_kernel ({kind}): {info[0]} registers, "
+            f"{info[1]} local bytes a thread, __launch_bounds__("
+            f"{K.PRNG_THREADS}, {K.PRNG_BLOCKS_PER_SM})")
+
+
+def prng_plan_line(plan, per_sm: int) -> str:
+    """kernels.prng_plan of one prng_masks.cu launch."""
+    return (f"[plan] grid {plan.grid} x {plan.threads} (one wave: at most "
+            f"{per_sm} CTAs an SM), {plan.chunks} chunks of 16 "
+            f"elements ({plan.per_sample} a sample, stride {plan.step}), "
+            f"store widths {plan.width} bytes")
+
+
 def check_prng(torch, dev, rows) -> None:
-    """Philox and the dump against their plain versions bit for bit, the
-    keep rate, and the seeded SGA and SA blocks against the external-mask
-    blocks fed the dump (MCAN-small B=64; MCAN-large micro-batch 32 with
-    att_saves and bf16_saves), bit for bit in the output and every
-    gradient."""
+    """Philox and the dump against their plain versions bit for bit, twice
+    with equal bits, at the block shapes and the plan's edges; the keep
+    rate; each dump unit's and the words' time, plan and registers beside
+    the plain version, torch.rand + the compare and the bound; the seeded
+    SGA and SA blocks against the external-mask blocks fed the dump
+    (MCAN-small B=64; MCAN-large micro-batch 32 with att_saves and
+    bf16_saves), bit for bit in the output and every gradient."""
+    from mcan_vqa_tpu_torch.cli.bench_prng import dump_specs
     from mcan_vqa_tpu_torch.ops import kernels as K
     from mcan_vqa_tpu_torch.ops import sa_train as sa
     from mcan_vqa_tpu_torch.ops import sga_train as st
     prng_rows(rows)
+    src, replaces = SRC + "prng_masks.cu", TPU_TRAIN + ":1530"
+    rows.row("dump_prng_masks", src, replaces, "one call at each of the "
+             "three dump units of [prng]: the MCAN-small SGA and SA blocks "
+             "at B=64, the MCAN-large SGA block at micro-batch 32")
+    rows.row("philox_words", src, replaces, "one call of 16 x 2^17 words")
+    before = {k: K.LAUNCHES[k] for k in ("dump_prng_masks", "philox_words")}
     rate, seed = 0.1, PRNG_SEED
     t, inv = st.prng_keep_params(rate)
     say(f"[prng] Philox4x32-10, key (seed, site), counter (e >> 2, b); keep "
         f"iff word < t = {t}, kept x 2^32 / t = {inv!r} (1 / (1 - rate) = "
         f"{1 / (1 - rate)!r})")
+    prng_report(torch, K)
     Bw, n = 16, 1 << 17
-    words = K.philox_words(seed, 0x303, Bw, n, dev)
-    ref = K.philox_words_plain(seed, 0x303, Bw, n, dev)
-    torch.cuda.synchronize()
-    say(f"  philox_words vs philox4x32_plain on {Bw * n} words: equal bit "
-        f"for bit {torch.equal(words, ref)}")
-    if not torch.equal(words, ref):
-        fail("the CUDA Philox differs from philox4x32_plain")
+    for B_, n_ in ((Bw, n),) + WORD_EDGES:
+        words = K.philox_words(seed, 0x303, B_, n_, dev)
+        again = K.philox_words(seed, 0x303, B_, n_, dev)
+        ref = K.philox_words_plain(seed, 0x303, B_, n_, dev)
+        torch.cuda.synchronize()
+        same = torch.equal(words, ref) and torch.equal(words, again)
+        say(f"  philox_words [{B_}, {n_}] vs philox4x32_plain: equal bit for "
+            f"bit, twice {same}")
+        if not same:
+            fail(f"the CUDA Philox differs from philox4x32_plain at "
+                 f"[{B_}, {n_}]")
+    rows.err("philox_words", 0.0)
 
     B, Lv, Lq, D, F, H = BATCH, 60, 14, 512, 2048, 8
     Bl, Dl, Fl = BATCH // 2, 1024, 4096
@@ -2634,34 +2700,78 @@ def check_prng(torch, dev, rows) -> None:
               st.dump_prng_masks_plain, (Bl, Lv, Lq, Dl, Fl, H)))
     for label, dump, plain, shape in dumps:
         got, g_inv = dump(seed, rate, *shape, device=dev)
+        again, _ = dump(seed, rate, *shape, device=dev)
         want, w_inv = plain(seed, rate, *shape, device=dev)
         torch.cuda.synchronize()
-        same = all(torch.equal(got[k], want[k]) for k in want)
+        same = all(torch.equal(got[k], want[k]) and torch.equal(got[k],
+                                                                again[k])
+                   for k in want)
         sizes = {k: tuple(v.shape) for k, v in got.items()}
         say(f"  dump_prng_masks, {label} {tuple(shape)}: {sizes} equal to "
-            f"the plain dump bit for bit {same}, inv_keep "
+            f"the plain dump bit for bit, twice {same}, inv_keep "
             f"{g_inv == w_inv == inv}")
         if not (same and g_inv == w_inv == inv):
             fail(f"dump_prng_masks ({label}) differs from its plain version")
         keep_rate_gate(label, list(got.values()), t)
+    for B_, sites in PRNG_EDGES:
+        got = K.dump_prng_masks(seed, t, B_, sites, dev)
+        again = K.dump_prng_masks(seed, t, B_, sites, dev)
+        want = K.dump_prng_masks_plain(seed, t, B_, sites, dev)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) and torch.equal(g, a)
+                   for g, a, w in zip(got, again, want))
+        say(f"  dump_prng_masks, edge B={B_} sites {sites}: equal to the "
+            f"plain dump bit for bit, twice {same}; grid "
+            f"{K.LAST_GRID['dump_prng_masks']}")
+        if not same:
+            fail(f"dump_prng_masks differs from its plain version at B={B_}, "
+                 f"{sites}")
+    rows.err("dump_prng_masks", 0.0)
 
-    # the dump's time (on no main path: it is what makes the seeded path
-    # testable), beside torch.rand + the compare over the same shapes
-    shapes = st.mask_shapes(B, Lv, Lq, D, F, H)
-    n_el = sum(int(np.prod(s)) for s in shapes.values())
-    small = dumps[0][3]
-    t_k = device_ms(torch, lambda: st.dump_prng_masks(seed, rate, *small,
-                                                      device=dev))
-    t_p = device_ms(torch, lambda: st.dump_prng_masks_plain(
-        seed, rate, *small, device=dev), iters=3)
-    # (the default generator: a graph capture takes no other)
-    t_l = device_ms(torch, lambda: [torch.rand(s, device=dev) >= rate
-                                    for s in shapes.values()])
-    say(f"  dump_prng_masks (one SGA block, B={B}: {n_el} keep bytes): "
-        f"{t_k:.4f} ms vs plain {t_p:.4f} ms, library (torch.rand + the "
-        f"compare, 6 masks) {t_l:.4f} ms; bound "
-        f"{max(bound_parts(0, n_el)):.4f} ms (bytes written; the Philox "
-        f"integer work not counted)")
+    # the times (on no main path: the dump is what makes the seeded path
+    # testable), beside torch.rand + the compare over the same shapes (the
+    # default generator: a graph capture takes no other) and the bound of
+    # the integer work
+    sms = K.GEMM_SMS
+    for unit, (B_, sites) in dump_specs(("sga", "sa", "large")).items():
+        plan = K.prng_plan(B_, tuple((h, n_) for _, h, n_ in sites), sms)
+        shapes = [(B_, h, n_) for _, h, n_ in sites]
+        t_k = device_ms(torch, lambda: K.dump_prng_masks(seed, t, B_, sites,
+                                                         dev))
+        t_p = device_ms(torch, lambda: K.dump_prng_masks_plain(
+            seed, t, B_, sites, dev), iters=3)
+        t_l = device_ms(torch, lambda: [torch.rand(s, device=dev) >= rate
+                                        for s in shapes])
+        ops = (PHILOX_OPS + KEEP_OPS) * plan.counters
+        op, by = bound_parts(0.0, plan.out_bytes, int_ops=ops)
+        say(f"  dump_prng_masks, unit {unit} (B={B_}: {plan.out_bytes} keep "
+            f"bytes, {plan.counters} counters): {t_k:.4f} ms vs plain "
+            f"{t_p:.4f} ms, library (torch.rand + the compare, "
+            f"{len(shapes)} masks) {t_l:.4f} ms; bound {max(op, by):.4f} ms "
+            f"({'operations' if op >= by else 'bytes'}: {ops} integer "
+            f"operations {op:.4f} ms, bytes written {by:.4f} ms)")
+        say(f"    {prng_plan_line(plan, K.PRNG_BLOCKS_PER_SM)}")
+        rows.add("dump_prng_masks", 1, t_k, t_p, 0.0, plan.out_bytes,
+                 library_ms=t_l, int_ops=ops)
+    plan = K.prng_plan(Bw, ((1, n),), sms, 4)
+    # the kernel alone: raw, the uint32 words without the wrapper's int64 copy
+    t_k = device_ms(torch, lambda: K.philox_words(seed, 0x303, Bw, n, dev,
+                                                  raw=True))
+    t_p = device_ms(torch, lambda: K.philox_words_plain(seed, 0x303, Bw, n,
+                                                        dev), iters=3)
+    t_l = device_ms(torch, lambda: torch.randint(
+        -2 ** 31, 2 ** 31, (Bw, n), dtype=torch.int32, device=dev))
+    ops = PHILOX_OPS * plan.counters
+    op, by = bound_parts(0.0, plan.out_bytes, int_ops=ops)
+    say(f"  philox_words [{Bw}, {n}] ({plan.out_bytes} bytes, raw): {t_k:.4f} ms "
+        f"vs plain {t_p:.4f} ms, library (torch.randint of as many int32) "
+        f"{t_l:.4f} ms; bound {max(op, by):.4f} ms ({ops} integer operations "
+        f"{op:.4f} ms, bytes written {by:.4f} ms)")
+    say(f"    {prng_plan_line(plan, K.PRNG_BLOCKS_PER_SM)}")
+    rows.add("philox_words", 1, t_k, t_p, 0.0, plan.out_bytes,
+             library_ms=t_l, int_ops=ops)
+    for k, v in before.items():
+        rows.rows[k]["calls_in_prng"] = K.LAUNCHES[k] - v
 
     say("[prng] the seeded blocks against the external-mask blocks fed the "
         "dump, and against their plain twins (autograd)")

@@ -72,8 +72,9 @@ SIGNATURES = {
     "mcan_gemm_ln_max_clusters": [_I, _I, _I, _I],
     "mcan_attflat_pool": [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _P],
-    "mcan_prng_masks": [_I, _P, _P, _P, _P, _I, _U, _U, _P],
-    "mcan_philox_words": [_U, _U, _I, _I, _P, _P],
+    "mcan_prng_masks": [_I, _P, _P, _P, _P, _I, _U, _U, _P, _I, _P],
+    "mcan_philox_words": [_U, _U, _I, _I, _P, _P, _I, _P],
+    "mcan_prng_kernel_attrs": [_I, _P],
     "mcan_sga_decoder": [_P, _I, _P, _I, _P, _P, _I, _LL, _LL, _LL, _LL, _P,
                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                          _F, _P, _P, _P, _I, _P, _P],

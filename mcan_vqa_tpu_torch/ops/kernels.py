@@ -217,19 +217,23 @@ def philox_words_plain(seed: int, site: int, B: int, n: int,
     return philox4x32_plain(ctr, (seed, site)).reshape(B, 4 * n4)[:, :n]
 
 
-def philox_words(seed: int, site: int, B: int, n: int,
-                 device="cuda") -> torch.Tensor:
+def philox_words(seed: int, site: int, B: int, n: int, device="cuda",
+                 raw: bool = False) -> torch.Tensor:
     """``philox_words_plain`` on the card: int64 [B, n] of the uint32
-    words the kernels draw (csrc/prng_masks.cu)."""
+    words the kernels draw, in one launch of csrc/prng_masks.cu
+    (``prng_plan`` of the one site, 4-byte elements, a counter a chunk);
+    any B and n. raw: the uint32 [B, n] as the kernel writes it (no int64
+    copy)."""
     if torch.device(device).type != "cuda":
-        return philox_words_plain(seed, site, B, n, device)
+        words = philox_words_plain(seed, site, B, n, device)
+        return words.to(torch.uint32) if raw else words
     name = "philox_words"
-    out = torch.empty((B, n), dtype=torch.int32, device=device)
-    rc = _lib().mcan_philox_words(seed, site, B, n, out.data_ptr(),
-                                  torch.cuda.current_stream(
-                                      out.device).cuda_stream)
-    _check(rc, name)
-    return out.to(torch.int64) & _U32
+    out = torch.empty((B, n), dtype=torch.uint32, device=device)
+    if B * n > 0:
+        plan = prng_plan(B, ((1, n),), GEMM_SMS, 4)
+        _prng_launch(name, _lib().mcan_philox_words, plan, out.device, seed,
+                     site, B, n, out.data_ptr())
+    return out if raw else out.to(torch.int64)
 
 
 def dump_prng_masks_plain(seed: int, thresh: int, B: int,
@@ -239,32 +243,190 @@ def dump_prng_masks_plain(seed: int, thresh: int, B: int,
     sample b keyed (seed, site + h), kept where its word < thresh."""
     return [torch.stack([philox_words_plain(seed, site + h, B, n, device)
                          < thresh for h in range(heads)], dim=1)
-            .to(torch.uint8) for site, heads, n in sites]
+            .to(torch.uint8).reshape(B, heads, n) for site, heads, n in sites]
 
 
 def dump_prng_masks(seed: int, thresh: int, B: int,
                     sites: Sequence[Tuple[int, int, int]],
                     device="cuda") -> List[torch.Tensor]:
     """The keep-masks the seeded kernels draw for up to six sites of one
-    block, in one launch: uint8 [B, heads, n] per (site, heads, n), as
-    ``dump_prng_masks_plain`` computes them (mcan_vqa_tpu/ops/
-    sga_train.py::dump_prng_masks, :1581)."""
+    block, in one launch of csrc/prng_masks.cu (``prng_plan``): uint8 [B,
+    heads, n] per (site, heads, n), as ``dump_prng_masks_plain`` computes
+    them (mcan_vqa_tpu/ops/sga_train.py::dump_prng_masks, :1581); any B,
+    heads and n. ``LAST_GRID["dump_prng_masks"]`` holds the last launch's
+    (grid, CTAs an SM, SMs, 0)."""
     if torch.device(device).type != "cuda":
         return dump_prng_masks_plain(seed, thresh, B, sites, device)
     name = "dump_prng_masks"
-    _require(1 <= len(sites) <= 6, f"{name}: 1 to 6 sites, got {len(sites)}")
+    k = len(sites)
+    _require(1 <= k <= PRNG_MAX_SITES,
+             f"{name}: 1 to {PRNG_MAX_SITES} sites, got {k}")
     outs = [torch.empty((B, heads, n), dtype=torch.uint8, device=device)
             for _, heads, n in sites]
-    k = len(sites)
+    if B * sum(h * n for _, h, n in sites) == 0:
+        return outs
+    dev = outs[0].device
+    plan = prng_plan(B, tuple((h, n) for _, h, n in sites), GEMM_SMS)
     arrays = ((ctypes.c_void_p * k)(*[t.data_ptr() for t in outs]),
               (ctypes.c_uint * k)(*[s for s, _, _ in sites]),
               (ctypes.c_int * k)(*[h for _, h, _ in sites]),
               (ctypes.c_int * k)(*[n for _, _, n in sites]))
-    rc = _lib().mcan_prng_masks(
-        k, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), B, seed,
-        thresh, torch.cuda.current_stream(outs[0].device).cuda_stream)
-    _check(rc, name)
+    _prng_launch(name, _lib().mcan_prng_masks, plan, dev, k,
+                 *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), B, seed,
+                 thresh)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the plan of prng_masks.cu (the mask dump and the raw words)
+# ---------------------------------------------------------------------------
+
+PRNG_THREADS = 256        # prng_masks.cu: threads a CTA
+PRNG_BLOCKS_PER_SM = 4    # its __launch_bounds__ minimum: the wave's CTAs
+#                           an SM
+PRNG_CHUNK_BYTES = 16     # what a thread draws at once: 4 counters' keep
+#                           bytes, or one counter's 4 words
+PRNG_MAX_SITES = 6
+
+
+def _magic(d: int) -> Tuple[int, int, int]:
+    """(m, s1, s2) for which ``_fast_div(q, m, s1, s2) == q // d`` at every
+    32-bit q, for 1 <= d < 2^32 (Granlund and Montgomery's round-up method,
+    as libdivide writes it branch-free; prng_masks.cu's fast_div); (0, 0,
+    0) for d = 0, which divides nothing."""
+    if d == 0:
+        return 0, 0, 0
+    ceil_log2 = (d - 1).bit_length()
+    return (((1 << 32) * ((1 << ceil_log2) - d)) // d + 1,
+            min(ceil_log2, 1), max(ceil_log2 - 1, 0))
+
+
+def _fast_div(q: int, m: int, s1: int, s2: int) -> int:
+    t = (q * m) >> 32
+    return (t + ((q - t) >> s1)) >> s2
+
+
+@dataclass(frozen=True)
+class PrngPlan:
+    """How prng_masks.cu covers one call (``prng_plan``): chunks of
+    ``chunk`` elements (16 bytes) of a row; a sample's chunks site
+    after site from ``first[s]`` (``per_row[s]`` a row: row h of site s
+    from ``first[s] + h per_row[s]``), the samples end to end; ``grid``
+    CTAs of ``threads`` threads stride over them, thread t from chunk t.
+    ``width[s]``: the bytes of one store into site s."""
+    B: int
+    sites: Tuple[Tuple[int, int], ...]    # (heads, n) a site
+    elem_bytes: int                       # 1: keep bytes; 4: words
+    first: Tuple[int, ...]
+    per_row: Tuple[int, ...]
+    width: Tuple[int, ...]
+    per_sample: int
+    grid: int
+    threads: int
+
+    @property
+    def chunk(self) -> int:
+        """Elements a chunk: 16 keep bytes (4 counters) or 4 words (1)."""
+        return PRNG_CHUNK_BYTES // self.elem_bytes
+
+    @property
+    def chunks(self) -> int:
+        return self.B * self.per_sample
+
+    @property
+    def step(self) -> Tuple[int, int]:
+        """The grid's stride as (samples, chunks)."""
+        return divmod(self.grid * self.threads, self.per_sample)
+
+    @property
+    def counters(self) -> int:
+        """The Philox counters the call needs: ceil(n / 4) a row."""
+        return self.B * sum(h * -(-n // 4) for h, n in self.sites)
+
+    @property
+    def out_bytes(self) -> int:
+        return self.B * sum(h * n for h, n in self.sites) * self.elem_bytes
+
+    def fields(self) -> Tuple[int, ...]:
+        """What the C entries take (unsigned 32-bit): n_sites, B,
+        per_sample, grid, threads, step_b, step_j, then per site first,
+        per_row, the magic number of the division by per_row (m, s1, s2)
+        and width."""
+        out = [len(self.sites), self.B, self.per_sample, self.grid,
+               self.threads, *self.step]
+        for first, per_row, width in zip(self.first, self.per_row,
+                                         self.width):
+            out += [first, per_row, *_magic(per_row), width]
+        return tuple(out)
+
+    def locate(self, j: int) -> Tuple[int, int, int]:
+        """Chunk j of a sample -> (site, head, chunk of the row), as the
+        kernel finds them: the count of the later sites' prefixes at or
+        below j, then the magic division."""
+        s = sum(j >= f for f in self.first[1:])
+        q = j - self.first[s]
+        h = _fast_div(q, *_magic(self.per_row[s]))
+        return s, h, q - h * self.per_row[s]
+
+    def walk(self, t: int):
+        """The chunks thread t draws, in order, as (sample, chunk of the
+        sample): the kernel's loop with its one division and its carries."""
+        b, j = divmod(t, self.per_sample)
+        step_b, step_j = self.step
+        wrap = self.per_sample - step_j
+        while b < self.B:
+            yield b, j
+            if j >= wrap:
+                j, b = j - wrap, b + step_b + 1
+            else:
+                j, b = j + step_j, b + step_b
+
+
+@functools.lru_cache(maxsize=1024)
+def prng_plan(B: int, sites: Tuple[Tuple[int, int], ...], sms: int,
+              elem_bytes: int = 1) -> PrngPlan:
+    """The plan of one prng_masks.cu launch from the shapes and the SM
+    count alone. ``sites``: 1 to 6 (heads, n) pairs, rows of n elements of
+    ``elem_bytes`` (1: the keep masks; 4: philox_words' one site), cut into
+    chunks of 16 bytes (the last of a row shorter). Each
+    site's store width is the widest of 16, 8, 4, 2 and 1 bytes that
+    divides its rows; the grid one wave of ``PRNG_BLOCKS_PER_SM`` CTAs an
+    SM, fewer where the chunks do not fill it (no CTA without a chunk).
+    The kernel keeps a sample's chunk index in 32 bits: a sample's chunks
+    must number under 2^32 (64 GiB of keep bytes a sample), and B under
+    2^31."""
+    cdiv = lambda a, b: -(-a // b)      # noqa: E731
+    _require(1 <= len(sites) <= PRNG_MAX_SITES,
+             f"prng_plan: 1 to {PRNG_MAX_SITES} sites, got {len(sites)}")
+    _require(1 <= B < 1 << 31 and sms >= 1 and elem_bytes in (1, 4)
+             and all(h >= 0 and 0 <= n < 1 << 31 for h, n in sites),
+             f"prng_plan: B={B}, sites {sites}, {sms} SMs, {elem_bytes}-byte "
+             f"elements")
+    per_row = tuple(cdiv(n, PRNG_CHUNK_BYTES // elem_bytes) for _, n in sites)
+    first, at = [], 0
+    for (heads, _), r in zip(sites, per_row):
+        first.append(at)
+        at += heads * r
+    _require(1 <= at < 1 << 32,
+             f"prng_plan: a sample's chunks must number 1 to 2^32 - 1, got "
+             f"{at} (sites {sites})")
+    width = tuple(next(w for w in (16, 8, 4, 2, 1) if n * elem_bytes % w == 0)
+                  for _, n in sites)
+    grid = min(cdiv(B * at, PRNG_THREADS), sms * PRNG_BLOCKS_PER_SM)
+    return PrngPlan(B, tuple(sites), elem_bytes, tuple(first), per_row,
+                    width, at, grid, PRNG_THREADS)
+
+
+def _prng_launch(name: str, fn, plan: PrngPlan, device: torch.device,
+                 *args) -> None:
+    """One launch of a prng_masks.cu entry: its arguments, then the plan's
+    fields, their count and the stream; ``LAST_GRID[name]`` = (grid, CTAs
+    an SM, SMs, 0)."""
+    fields = plan.fields()
+    rc = fn(*args, (ctypes.c_uint * len(fields))(*fields), len(fields),
+            torch.cuda.current_stream(device).cuda_stream)
+    LAST_GRID[name] = (plan.grid, PRNG_BLOCKS_PER_SM, GEMM_SMS, 0)
+    _check(rc, name)
 
 
 def _rows_keep(p: Philox, M: int, N: int, device) -> torch.Tensor:

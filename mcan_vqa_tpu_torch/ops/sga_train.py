@@ -65,7 +65,7 @@ Dropout, two routes through the same kernels:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -163,16 +163,24 @@ def prng_sites(seed: int, rate: float, rows: int,
             for name, code in codes.items()}, inv_keep
 
 
+def mask_sites(shapes: Mapping[str, Tuple[int, ...]],
+               codes: Mapping[str, int]) -> List[Tuple[int, int, int]]:
+    """The (site code, heads, n) of each mask of a ``mask_shapes`` layout,
+    as ``kernels.dump_prng_masks`` takes them: an attention map's heads
+    keyed apart, every other mask one row of a sample."""
+    sites = []
+    for name, shape in shapes.items():
+        heads = shape[1] if name.startswith("att") else 1
+        sites.append((codes[name], heads,
+                      int(torch.Size(shape[1:]).numel()) // heads))
+    return sites
+
+
 def _dump(dump, seed, rate, shapes, codes, device):
     """Every site's mask as ``dump`` draws it, in the ``shapes`` layout."""
     t, inv_keep = prng_keep_params(rate)
-    specs = []
-    for name, shape in shapes.items():
-        heads = shape[1] if name.startswith("att") else 1
-        specs.append((codes[name], heads,
-                      int(torch.Size(shape[1:]).numel()) // heads))
     B = next(iter(shapes.values()))[0]
-    outs = dump(int(seed), t, B, specs, device)
+    outs = dump(int(seed), t, B, mask_sites(shapes, codes), device)
     return {name: o.reshape(shape) for (name, shape), o in
             zip(shapes.items(), outs)}, inv_keep
 

@@ -1452,6 +1452,58 @@ def test_dump_matches_plain_bitwise_and_keeps_its_rate(cuda):
     assert abs(kept / n - p) <= 5 * (p * (1 - p) / n) ** 0.5
 
 
+# (B, [(site code, heads, n)]): the plan's edges (tests/test_torch_prng_plan.py)
+# on the card -- rows with n % 4 != 0 (a counter's last words past the
+# row: byte and 2-byte stores), att2's n = 840 (8-byte stores), one site
+# and six, B = 1, and B = 65,537 (past the parent's 65,535) with one small
+# site
+PRNG_EDGES = [
+    (7, [(0x100, 3, 5), (0x200, 1, 3), (0x301, 2, 4099), (0x302, 1, 842)]),
+    (64, [(0x200, 8, 840)]),
+    (3, [(0x303, 1, 122880)]),
+    (3, [(0x100, 8, 3600), (0x200, 8, 840), (0x301, 1, 1), (0x302, 16, 5),
+         (0x303, 1, 4099), (0x304, 1, 30720)]),
+    (1, [(0x100, 8, 3600), (0x303, 1, 7)]),
+    (65537, [(0x303, 1, 5)])]
+
+
+@pytest.mark.parametrize("B,sites", PRNG_EDGES)
+def test_dump_matches_plain_bitwise_at_the_plan_edges(cuda, B, sites):
+    from mcan_vqa_tpu_torch.ops import sga_train as st
+    t, _ = st.prng_keep_params(RATE)
+    got = K.dump_prng_masks(SEED, t, B, sites, cuda)
+    grid = K.LAST_GRID["dump_prng_masks"][0]
+    again = K.dump_prng_masks(SEED, t, B, sites, cuda)
+    ref = K.dump_prng_masks_plain(SEED, t, B, sites, cuda)
+    torch.cuda.synchronize()
+    plan = K.prng_plan(B, tuple((h, n) for _, h, n in sites), K.GEMM_SMS)
+    assert grid == plan.grid
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 5), (7, 4099), (5, 842),
+                                 (2, 122880), (65537, 3)])
+def test_philox_words_match_plain_bitwise_at_the_plan_edges(cuda, B, n):
+    got = K.philox_words(SEED, 0x304, B, n, cuda)
+    raw = K.philox_words(SEED, 0x304, B, n, cuda, raw=True)
+    ref = K.philox_words_plain(SEED, 0x304, B, n, cuda)
+    torch.cuda.synchronize()
+    assert raw.dtype == torch.uint32
+    assert torch.equal(got, ref) and torch.equal(raw.to(torch.int64), ref)
+
+
+def test_prng_kernels_do_not_spill(cuda):
+    import ctypes
+    from mcan_vqa_tpu_torch.ops._build import load_library
+    for words in (0, 1):
+        info = (ctypes.c_int * 3)()
+        assert load_library().mcan_prng_kernel_attrs(words, info) == 0
+        regs, local, threads = info
+        assert local == 0 and threads >= K.PRNG_THREADS
+        assert regs <= 65536 // (K.PRNG_THREADS * K.PRNG_BLOCKS_PER_SM)
+
+
 def _seeded(site, rows=0):
     from mcan_vqa_tpu_torch.ops import sga_train as st
     t, inv = st.prng_keep_params(RATE)
