@@ -145,10 +145,32 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              batch;
   [checkpoint]  the epoch checkpoint served by
              ``Predictor.from_checkpoint(engine="fused")`` (int8 level 1);
+  [eval]     main path 4: a miniature VQA-v2 dataset in its own file
+             formats at MCAN-small's full width (2048-d BUTD npz of 10-60
+             regions with a class signature, answers from the frozen
+             dictionary, 192 / 320 / 80 train / val / test questions), the
+             train split packed by ``cli/pack_features.py``; ``run_vqa
+             --run train --eval_ee true`` for 2 epochs (val evaluated after
+             each and at the end through the fused eval engine, int8 level
+             1), then ``--run val`` / ``test`` / ``parity`` from the epoch
+             pickle: exact launches of the train steps and eval batches,
+             the fused against the plain eval engine (top-1 outside
+             near-ties, the int8 bound), every val question scored, every
+             test question once in the EvalAI dumps, ``--run val``'s
+             probabilities equal bit for bit to ``Trainer.predict``'s, and
+             both engines' evaluation samples/s;
   [train large]  main path 3: ``Trainer`` at MCAN-large (hidden 1024, FF
              4096, batch 64 in two micro-batches of 32), 4 steps, the
              decoder through the SGA train blocks with att_saves and
-             bf16_saves, the encoder plain: the same checks as [train].
+             bf16_saves, the encoder plain: the same checks as [train];
+             then one ``Trainer.evaluate`` of the synthetic val set
+             through the fused eval engine (level 1 with the qkv int8 at
+             D 1024, eval batch 32), exact launches, against the plain one;
+  [canary]   ``cli/validate_serving_accuracy.py`` at its defaults in a
+             process of its own: MCAN-small trained 1200 steps on the card
+             through the fused train engine, then the fused, qstatic,
+             int8, int4, q8aux and bf16 engines scored against the plain
+             one with the official evaluator; its exit code is a gate.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Kernel and block times are device times (CUDA-graph replay), but for
@@ -339,11 +361,17 @@ def main() -> None:
         check_repeated_batch(torch, trainer)
         del trainer
         phase_done("train")
-        train_main_path(torch, dev, rows, work / "large", model="large",
-                        steps=LARGE_STEPS)
+        eval_main_path(torch, dev, rows, work / "eval", card)
+        phase_done("eval")
+        trainer, _ = train_main_path(torch, dev, rows, work / "large",
+                                     model="large", steps=LARGE_STEPS)
+        evaluate_large(torch, trainer, rows)
+        del trainer
         phase_done("train large")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    canary_path()
+    phase_done("canary")
     record = rows.record()
     say(f"[card] {card}")
     say(json.dumps({"kernels": record}))
@@ -2855,24 +2883,25 @@ INT8_SERVE_KERNELS = ("fused_qffn_sa_block", "fused_qffn_sga_block",
                       "residual_layernorm")
 
 
-def serve_launches(L: int, level: int, aux: bool = False):
+def serve_launches(L: int, level: int, aux: bool = False, D: int = 512):
     """Every kernel's launches in one forward of the engine at this level
-    (0: all bf16) at hidden 512: per SA block the qkv, the merge and the
+    (0: all bf16) at hidden D: per SA block the qkv, the merge and the
     FFN's two products, one attention, two LayerNorms; per SGA block also
     the cross q, its merge, the cross attention and a third LayerNorm.
-    Level 1 runs the FFN products int8 (dynamic), level 3 every product
-    (static) with the attention output f32; levels 4 / 6 the FFN int4
-    (gemm_s4 / gemm_w4bf16) and the other products int8, levels 5 / 7 the
-    qkv int4 too (the bf16-dequant sites quantize nothing). aux: the
-    static-int8 cross k/v of each decoder block, both AttFlat merges and
-    the head."""
+    Level 1 runs the FFN products int8 (dynamic), and at D >= 1024 the qkv
+    too (``decode_qffn_level``); level 3 every product (static) with the
+    attention output f32; levels 4 / 6 the FFN int4 (gemm_s4 /
+    gemm_w4bf16) and the other products int8, levels 5 / 7 the qkv int4
+    too (the bf16-dequant sites quantize nothing). aux: the static-int8
+    cross k/v of each decoder block, both AttFlat merges and the head."""
     blocks = ({"fused_sa_block": L, "fused_sga_block": L} if level == 0 else
               {"fused_qffn_sa_block": L, "fused_qffn_sga_block": L})
     if level >= 4:
         blocks.update({f"fused_qffn_sa_block_level{level}": L,
                        f"fused_qffn_sga_block_level{level}": L})
     int4 = {4: 4 * L, 5: 6 * L, 6: 4 * L, 7: 6 * L}.get(level, 0)
-    int8 = {0: 0, 1: 4 * L, 3: 10 * L}.get(level, 10 * L - int4)
+    int8 = {0: 0, 1: (6 if D >= 1024 else 4) * L, 3: 10 * L}.get(
+        level, 10 * L - int4)
     counts = dict(blocks, gemm_bias_act=10 * L - int8 - int4,
                   residual_layernorm=5 * L,
                   gemm_s8=int8, quantize_rows=int8 + int4 * (level < 6))
@@ -4859,6 +4888,273 @@ def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
             and worst <= INT8_BOUND
             and fused.calibration["samples"] == 6):
         fail("the checkpoint's Predictor gave bad answers")
+
+
+# ---------------------------------------------------------------------------
+# phase [eval]: VQA-v2-format files through run_vqa --run train / val /
+# test / parity, evaluated by the int8 serving engine
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES = {"train": 96, "val": 160, "test": 40}   # two questions each
+EVAL_EPOCHS = 2
+EVAL_LARGE_SIZE = 96          # [train large]'s synthetic val set
+
+
+def top1_gate(label, pf, pp, bound=INT8_BOUND) -> None:
+    """Top-1 of the fused engine's probabilities ``pf`` against the plain
+    engine's ``pp`` row by row, a flip allowed only inside a near-tie (the
+    plain engine's top two within 2 x bound), and max |dprob| <= bound."""
+    if pf.shape != pp.shape or not np.isfinite(pf).all():
+        fail(f"{label}: bad probabilities: shape {pf.shape} vs {pp.shape}")
+    worst = float(np.abs(pf - pp).max())
+    a, b = pf.argmax(1), pp.argmax(1)
+    rows_ = np.arange(len(a))
+    flips = a != b
+    near = flips & (pp[rows_, b] - pp[rows_, a] <= 2 * bound)
+    say(f"[agree] {label}: fused vs plain eval engine top-1 "
+        f"{int((~flips).sum())}/{len(a)} (+{int(near.sum())} near-ties, "
+        f"{int((flips & ~near).sum())} flips), max|dprob| {worst:.3e} <= "
+        f"bound {bound:.0e}")
+    if worst > bound or (flips & ~near).any():
+        fail(f"{label}: the fused and the plain eval engines disagree")
+
+
+def eval_main_path(torch, dev, rows, work: Path, card: str) -> None:
+    """Main path 4: a miniature VQA-v2 dataset in its own file formats
+    (``data/vqa_files.py``) at MCAN-small's full width, its train split
+    packed (``cli/pack_features.py``), val and test left as npz; then
+    ``run_vqa --run train --eval_ee true`` for EVAL_EPOCHS epochs (the
+    Trainer evaluating val after each epoch and once more at the end) and
+    ``--run val`` / ``test`` / ``parity`` from the epoch pickle, every
+    evaluation through the fused eval engine (int8 level 1). Gates: the
+    exact launches of the train steps and eval batches, the fused against
+    the plain eval engine, every val question scored and every test
+    question once in the EvalAI dumps, ``--run val`` equal bit for bit to
+    the in-process ``Trainer.predict``."""
+    from mcan_vqa_tpu_torch.cli import pack_features, run_vqa
+    from mcan_vqa_tpu_torch.data.vqa_dataset import VQADataset
+    from mcan_vqa_tpu_torch.data.vqa_files import write_vqa_files
+    from mcan_vqa_tpu_torch.evals import vqa_eval
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.checkpoint import load_params
+    from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_route
+
+    root = work / "vqa"
+    t0 = time.perf_counter()
+    paths = write_vqa_files(str(root), images=EVAL_IMAGES, seed=SEED)
+    if pack_features.main(["--split", "train", "--feature_path",
+                           paths["feature_path"], "--cache_path",
+                           str(root / "cache")]) != 0:
+        fail("pack_features failed")
+    flags = dict(paths, feature_cache_path=str(root / "cache") + "/",
+                 vocab_cache_path=str(root / "vocab.npz"),
+                 ckpts_dir=str(root / "ckpts"), log_path=str(root / "log"),
+                 result_path=str(root / "results") + "/",
+                 pred_path=str(root / "pred") + "/", version="eval",
+                 seed=str(SEED), batch_size=str(BATCH), split="train",
+                 verbose="false")
+    argv = [x for k, v in flags.items() for x in (f"--{k}", v)]
+    cfg = run_vqa.build_config(run_vqa.parse_args(
+        ["--run", "val", "--ckpt_epoch", str(EVAL_EPOCHS), *argv]))
+    train, val, test = (VQADataset(cfg, m) for m in ("train", "val", "test"))
+    if set(train._packed) != {"train"} or val._packed or test._packed \
+            or not val._npz_paths or not test._npz_paths:
+        fail("[eval] the train split is not read from the packed cache, or "
+             "val / test not from the npz files")
+    say(f"[eval] VQA-v2-format files (2048-d BUTD npz, 10-60 regions, the "
+        f"frozen 3129 answers): {len(train)} train / {len(val)} val / "
+        f"{len(test)} test questions, vocabulary {train.token_size}, train "
+        f"packed, val and test npz, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    n_eval = -(-len(val) // cfg.eval_batch_size)
+    n_steps = EVAL_EPOCHS * (len(train) // BATCH)
+    step = expected_step_launches(cfg, engine_route(cfg.hidden_size), True)
+    serve = serve_launches(cfg.layer, 1)
+    want = {k: n_steps * step.get(k, 0)
+            + (EVAL_EPOCHS + 1) * n_eval * serve.get(k, 0)
+            for k in set(step) | set(serve)}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if run_vqa.main(["--run", "train", "--eval_ee", "true", "--max_epoch",
+                     str(EVAL_EPOCHS), *argv]) != 0:
+        fail("run_vqa --run train failed")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    say(f"[eval] run_vqa --run train --eval_ee true: {n_steps} steps and "
+        f"{EVAL_EPOCHS + 1} x {n_eval} eval batches in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_launches("eval: run_vqa --run train", counts,
+                   {k: n for k, n in want.items() if n}, 1)
+    rows.launches("eval: run_vqa --run train", counts,
+                  [k for k in TRAIN_KERNELS if step.get(k)]
+                  + [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    log = (Path(cfg.log_path) / "log_run_eval.txt").read_text()
+    lines = [ln for ln in log.splitlines()
+             if "eval engine" in ln or " eval val" in ln]
+    for ln in lines:
+        say(f"  the Trainer logged: {ln}")
+    if not any("eval engine: fused" in ln for ln in lines) \
+            or sum(" eval val" in ln for ln in lines) != EVAL_EPOCHS:
+        fail("[eval] the Trainer did not log the fused eval engine and one "
+             "evaluation an epoch")
+
+    fused = Trainer(cfg, eval_datasets={"val": val}, device=dev)
+    plain = Trainer(cfg.with_overrides(eval_engine="plain"),
+                    eval_datasets={"val": val}, device=dev)
+    if not fused.fused_eval or plain.fused_eval:
+        fail("[eval] eval_engine 'auto' did not choose the fused engine on "
+             "the card")
+    weights = load_params(cfg)
+    fused.model.load_state_dict(weights)
+    plain.model.load_state_dict(weights)
+    times = {}
+    for name, t in (("fused", fused), ("plain", plain)) * 2:
+        K.reset_launches()
+        start = time.perf_counter()
+        out = t.predict(val)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - start
+        counts = K.launch_counts()
+        if name == "fused":
+            check_launches("eval: Trainer.predict (fused)", counts, serve,
+                           n_eval)
+            pf = out
+        elif counts:
+            fail(f"[eval] the plain eval engine launched {counts}")
+        else:
+            pp = out
+    top1_gate("eval, the epoch checkpoint on val", pf["probs"], pp["probs"])
+    if list(pf["qids"]) != [q["question_id"] for q in val.ques_list]:
+        fail("[eval] predict did not return every val question once, in "
+             "order")
+    say(f"[eval] Trainer.predict over {len(val)} val questions (eval batch "
+        f"{cfg.eval_batch_size}, loader and engine build included, warm): "
+        f"fused {len(val) / times['fused']:.1f} samples/s, plain "
+        f"{len(val) / times['plain']:.1f} samples/s ({card})")
+
+    res = fused.evaluate(val)
+    gts = {a["question_id"]: a for a in val.ans_list}
+    K.reset_launches()
+    if run_vqa.main(["--run", "val", "--ckpt_epoch", str(EVAL_EPOCHS),
+                     "--save_pred", "true", *argv]) != 0:
+        fail("run_vqa --run val failed")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_launches("eval: run_vqa --run val", counts, serve, n_eval)
+    rows.launches("eval: run_vqa --run val", counts,
+                  [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    saved = np.load(Path(cfg.pred_path) / "pred_run_eval.npz")
+    if not (np.array_equal(saved["probs"], pf["probs"])
+            and np.array_equal(saved["qids"], pf["qids"])):
+        fail("[eval] --run val's probabilities differ from the in-process "
+             "predict's")
+    dump = Path(cfg.result_path) / "result_run_eval.json"
+    loaded = vqa_eval.load_results(str(dump))
+    if sorted(loaded) != sorted(gts) or len(json.loads(dump.read_text())) \
+            != len(val):
+        fail("[eval] the val dump does not hold every val question once")
+    scored = vqa_eval.evaluate({q: {"answers": [x["answer"] for x in
+                                                a["answers"]]}
+                                for q, a in gts.items()}, loaded)["overall"]
+    if scored != res["accuracy"]:
+        fail(f"[eval] the val dump scores {scored}, evaluate said "
+             f"{res['accuracy']}")
+    say(f"[eval] run_vqa --run val from epoch{EVAL_EPOCHS}.pkl: probabilities "
+        f"equal bit for bit to Trainer.predict; all {len(val)} val questions "
+        f"scored: accuracy {res['accuracy']}, per answer type "
+        f"{res['perAnswerType']} (the dump rescored: {scored})")
+
+    for mode in ("test", "parity"):
+        if run_vqa.main(["--run", mode, "--ckpt_epoch", str(EVAL_EPOCHS),
+                         *argv]) != 0:
+            fail(f"run_vqa --run {mode} failed")
+    want_qids = [q["question_id"] for q in test.ques_list]
+    for name in ("result_run_eval.json", "result_run_eval_testdev.json"):
+        got = json.loads((Path(cfg.result_path) / name).read_text())
+        if sorted(r["question_id"] for r in got) != sorted(want_qids):
+            fail(f"[eval] {name} does not hold every test question once")
+    parity_val = Path(cfg.result_path) / "result_run_eval_val.json"
+    if vqa_eval.load_results(str(parity_val)) != loaded:
+        fail("[eval] --run parity's val dump differs from --run val's")
+    say(f"[eval] run_vqa --run test and --run parity: all {len(test)} test "
+        f"questions once in each EvalAI dump; parity's val dump equals "
+        f"--run val's")
+
+
+def evaluate_large(torch, trainer, rows) -> None:
+    """[train large]'s last step: one ``Trainer.evaluate`` of the CLI's
+    synthetic val set (seed 1, with targets) through the fused eval engine
+    at MCAN-large width: int8 level 1 with the qkv int8 (D 1024), eval batch
+    32 (64 in two micro-batches); exact launches, the plain eval engine's
+    top-1 and probabilities."""
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    cfg = trainer.cfg
+    ds = SyntheticVQADataset(cfg, size=EVAL_LARGE_SIZE, answer_size=3129,
+                             seed=1)
+    if not trainer.fused_eval or cfg.eval_batch_size != BATCH // 2:
+        fail(f"[train large] eval engine fused={trainer.fused_eval}, eval "
+             f"batch {cfg.eval_batch_size}")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(ds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    n = -(-len(ds) // cfg.eval_batch_size)
+    check_launches("train large: evaluate", counts,
+                   serve_launches(cfg.layer, 1, D=cfg.hidden_size), n)
+    dh128 = {"masked_attention_dh128": "masked_attention"}
+    rows.launches("train large: evaluate", counts,
+                  [k for k in INT8_SERVE_KERNELS
+                   if k not in ("masked_attention", "masked_attention_f32")])
+    rows.launches("train large: evaluate", counts, dh128, key=dh128)
+    fused_probs = trainer.predict(ds)["probs"]
+    trainer.fused_eval = False
+    plain_probs = trainer.predict(ds)["probs"]
+    trainer.fused_eval = True
+    top1_gate("train large: evaluate", fused_probs, plain_probs)
+    if not 0.0 <= res["roc_micro"] <= 1.0:
+        fail(f"[train large] ROC {res}")
+    say(f"[train large] Trainer.evaluate on the synthetic val set "
+        f"({len(ds)} samples, {n} batches of {cfg.eval_batch_size}, int8 "
+        f"level 1 + qkv at D {cfg.hidden_size}) in {secs:.2f} s: ROC micro "
+        f"{res['roc_micro']:.4f}, macro {res['roc_macro']:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase [canary]: the accuracy canary of every engine the Predictor ships
+# ---------------------------------------------------------------------------
+
+CANARY_TIMEOUT = 600
+
+
+def canary_path() -> None:
+    """``cli/validate_serving_accuracy.py`` at its defaults in a process
+    of its own (MCAN-small trained 1200 steps on the card, then the fused,
+    qstatic, int8, int4, q8aux and bf16 engines scored against the plain
+    one); its exit code is the gate."""
+    cmd = [sys.executable, "-m",
+           "mcan_vqa_tpu_torch.cli.validate_serving_accuracy"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=CANARY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"the canary ran past {CANARY_TIMEOUT} s")
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        if not ln.startswith("step ") or ln.split()[1].split("/")[0] in (
+                "50", "600", "1200"):
+            say(f"[canary] {ln}")
+    say(f"[canary] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if lines:
+        say(f"[canary] {lines[-1]}")
+    if proc.returncode != 0:
+        say(proc.stderr[-4000:])
+        fail(f"the accuracy canary exited {proc.returncode}")
 
 
 if __name__ == "__main__":

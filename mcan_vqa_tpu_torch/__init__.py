@@ -8,16 +8,20 @@ never JAX, and nothing of the JAX package: the host-side helpers it needs
 
 Subpackages
 -----------
-configs   MCAN-small dimensions and training settings as a dataclass
-data      vocabulary, answers, request padding, the synthetic training set,
-          the batch loader
+configs   MCAN-small dimensions, training, evaluation and path settings as
+          a dataclass
+data      vocabulary, answers, request padding, region features, the VQA-v2
+          and synthetic datasets, the batch loader
 models    nn.Modules with the reference Net2 state_dict keys (the "plain"
           engine)
 ops       hand-written CUDA kernels (csrc/) and their plain PyTorch
           versions: the serving blocks and the SGA train block
-train     the training forward, train step, AdamW schedule, Trainer and
-          checkpoints
-cli       ``run_vqa --run train`` and the train-step profiler
+train     the training forward, train and eval steps, AdamW schedule,
+          Trainer (training and evaluation) and checkpoints
+evals     the official VQA-v2 accuracy, ROC-AUC, the reference's VQA /
+          VQAEval API
+cli       ``run_vqa --run train|val|test|parity``, ``pack_features``, the
+          accuracy canary, the train-step profiler and the benches
 api       Predictor: questions + region features in, answers out
 """
 

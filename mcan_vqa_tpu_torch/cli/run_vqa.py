@@ -1,17 +1,39 @@
-"""VQA command line of the port (mcan_vqa_tpu/cli/run_vqa.py).
+"""VQA command line of the port (mcan_vqa_tpu/cli/run_vqa.py; reference
+run.py:18-148).
 
-    python -m mcan_vqa_tpu_torch.cli.run_vqa --run train --synthetic \
-        [--model large]
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run train [--model large] \
+        [--split train+val+vg] [--eval_ee true] [--synthetic]
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run val --ckpt_version V \
+        --ckpt_epoch 13                      # or --ckpt_path epoch13.pkl
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run test --ckpt_path ...
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run parity --ckpt_path ...
 
-trains MCAN-small (or MCAN-large) on generated data on the CUDA device;
-``--device cpu`` runs the kernels' plain versions on the CPU instead, for
-tiny architecture flags. Training on the VQA-v2 files and the val / test /
-visualize / parity modes are not ported: those raise.
+on the CUDA device (``--device cpu`` runs the kernels' plain versions on
+the CPU instead, for tiny architecture flags). The VQA-v2 files are read
+from ``--dataset_path`` / ``--feature_path`` (and a packed feature cache
+under ``--feature_cache_path``, ``cli/pack_features.py``); a missing file
+is listed and the command exits 1. ``--synthetic`` trains on generated data
+instead and evaluates on the JAX package's synthetic val set (seed 1, with
+targets, so ROC-AUC is printed).
+
+  train   trains (evaluating the val split after each epoch under
+          ``--eval_ee``), then evaluates val once more;
+  val     scores the checkpoint on val with the official evaluator and
+          writes the EvalAI file ``<result_path>/result_run_<version>.json``;
+  test    writes that file for test2015;
+  parity  scores val (``..._val.json``), then writes the test-dev file
+          (``..._testdev.json``), the reference's val-then-test sequence in
+          one command.
+
+Not ported, and raising: ``--resume`` for training (ROADMAP §1 item 5) and
+``--run visualize`` (ROADMAP §1 item 11).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import Optional, Sequence
 
 from mcan_vqa_tpu_torch.configs import Config
@@ -22,7 +44,14 @@ ARCH_KNOBS = ("hidden_size", "layer", "multi_head", "img_feat_size",
 TRAIN_KNOBS = {"batch_size": int, "max_epoch": int, "seed": int,
                "version": str, "lr_base": float, "ckpts_dir": str,
                "log_path": str}
-NOT_PORTED = ("resume", "ckpt_version", "ckpt_epoch", "ckpt_path")
+PATH_KNOBS = ("dataset_path", "feature_path", "feature_cache_path",
+              "vocab_cache_path", "result_path", "pred_path")
+CKPT_KNOBS = {"ckpt_version": str, "ckpt_epoch": int, "ckpt_path": str}
+# flag -> Config field, as the JAX CLI names them
+BOOL_KNOBS = {"eval_ee": "eval_every_epoch", "save_pred": "test_save_pred",
+              "preload": "preload", "verbose": "verbose"}
+OTHER_KNOBS = ("grad_accu_steps", "lr_decay_list", "train_engine",
+               "eval_engine", "dropout_bits", "train_split")
 
 
 def _bool(s: str) -> bool:
@@ -42,59 +71,121 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="cuda (default) or cpu (the kernels' plain "
                         "versions)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated data (no dataset files), "
-                        "3129 answers as VQA-v2's")
+                   help="generated data (no dataset files), 3129 answers "
+                        "as VQA-v2's")
     p.add_argument("--synthetic_size", type=int, default=512)
+    p.add_argument("--split", dest="train_split",
+                   choices=["train", "train+val", "train+val+vg"])
     p.add_argument("--grad_accu", dest="grad_accu_steps", type=int)
     p.add_argument("--lr_decay_list", type=lambda s: tuple(
         int(x) for x in s.split(",") if x.strip()))
-    p.add_argument("--verbose", type=_bool)
     p.add_argument("--train_engine", choices=["auto", "fused", "plain"],
                    help="auto (default): the fused kernels on the card at "
                         "hidden % 128 == 0 and <= 1024, else plain ops")
+    p.add_argument("--eval_engine", choices=["auto", "fused", "plain"],
+                   help="auto (default): the int8 serving engine on the "
+                        "card, else the plain model")
     p.add_argument("--dropout_bits", type=int, choices=[8, 16, 32])
+    p.add_argument("--resume", type=_bool,
+                   help="not ported (ROADMAP §1 item 5)")
+    for flag in BOOL_KNOBS:
+        p.add_argument(f"--{flag}", type=_bool)
     for knob in ARCH_KNOBS:
         p.add_argument(f"--{knob}", type=int)
-    for knob, typ in TRAIN_KNOBS.items():
+    for knob, typ in {**TRAIN_KNOBS, **CKPT_KNOBS}.items():
         p.add_argument(f"--{knob}", type=typ)
-    for knob in NOT_PORTED:
+    for knob in PATH_KNOBS:
         p.add_argument(f"--{knob}", type=str)
     return p.parse_args(argv)
 
 
 def build_config(args: argparse.Namespace) -> Config:
     overrides = {}
-    for knob in ARCH_KNOBS + tuple(TRAIN_KNOBS) + ("grad_accu_steps",
-                                                    "lr_decay_list",
-                                                    "verbose",
-                                                    "train_engine",
-                                                    "dropout_bits"):
+    for knob in (ARCH_KNOBS + tuple(TRAIN_KNOBS) + tuple(CKPT_KNOBS)
+                 + PATH_KNOBS + OTHER_KNOBS):
         value = getattr(args, knob)
         if value is not None:
             overrides[knob] = value
+    for flag, field in BOOL_KNOBS.items():
+        value = getattr(args, flag)
+        if value is not None:
+            overrides[field] = value
     return Config.for_model(args.model, **overrides)
+
+
+def load_datasets(cfg: Config, args: argparse.Namespace):
+    """{name: dataset} of the splits the run mode reads, or None when a
+    VQA-v2 path is missing (listed on stderr)."""
+    if args.synthetic:
+        from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+        n = args.synthetic_size
+        # the val set keeps run_mode "train": its examples carry targets,
+        # so ROC-AUC is computed (the JAX CLI's synthetic val set)
+        return {"train": SyntheticVQADataset(cfg, size=n, answer_size=3129,
+                                             seed=cfg.seed),
+                "val": SyntheticVQADataset(cfg, size=max(64, n // 4),
+                                           answer_size=3129, seed=1)}
+    missing = cfg.check_vqa_paths()
+    if missing:
+        print("missing dataset paths:\n  " + "\n  ".join(missing),
+              file=sys.stderr)
+        return None
+    from mcan_vqa_tpu_torch.data.vqa_dataset import VQADataset
+    mode = args.run_mode
+    datasets = {}
+    if mode == "train":
+        datasets["train"] = VQADataset(cfg, "train")
+    if mode in ("train", "val", "parity"):
+        datasets["val"] = VQADataset(cfg, "val")
+    if mode in ("test", "parity"):
+        datasets["test"] = VQADataset(cfg, "test")
+    return datasets
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if args.run_mode != "train":
+    if args.run_mode == "visualize":
         raise NotImplementedError(
-            f"--run {args.run_mode}: only training is ported so far")
-    if not args.synthetic:
+            "--run visualize is not ported yet (ROADMAP §1 item 11)")
+    if args.run_mode == "train" and args.resume:
         raise NotImplementedError(
-            "training on the VQA-v2 files is not ported yet; pass "
-            "--synthetic")
-    given = [k for k in NOT_PORTED if getattr(args, k) is not None]
-    if given:
-        raise NotImplementedError(f"{given}: resume is not ported yet")
+            "--resume (the AdamW moments and the schedule from a pickle) is "
+            "not ported yet (ROADMAP §1 item 5)")
     cfg = build_config(args)
+    datasets = load_datasets(cfg, args)
+    if datasets is None:
+        return 1
 
-    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
-    from mcan_vqa_tpu_torch.train.trainer import Trainer
-    train_ds = SyntheticVQADataset(cfg, size=args.synthetic_size,
-                                   answer_size=3129, seed=cfg.seed)
-    trainer = Trainer(cfg, train_ds, device=args.device)
-    trainer.train()
+    from mcan_vqa_tpu_torch.train.checkpoint import load_params
+    from mcan_vqa_tpu_torch.train.trainer import Trainer, eval_engine_line
+    mode = args.run_mode
+    if mode == "train":
+        trainer = Trainer(cfg, datasets["train"],
+                          eval_datasets={"val": datasets["val"]}
+                          if cfg.eval_every_epoch else {},
+                          device=args.device)
+        trainer.train()
+        print("final val:", trainer.evaluate(datasets["val"]))
+        return 0
+    ds = datasets.get(mode) or datasets["val"]
+    trainer = Trainer(cfg, eval_datasets={mode: ds}, device=args.device)
+    trainer.model.load_state_dict(load_params(cfg))
+    trainer.logger.write(f"{eval_engine_line(trainer.fused_eval)} (device "
+                         f"{trainer.device})")
+    base = os.path.join(cfg.result_path, f"result_run_{cfg.run_version}")
+    if mode in ("val", "test"):
+        res = trainer.evaluate(ds, dump_path=base + ".json")
+        print(f"{mode}:", res)
+        return 0
+    res = trainer.evaluate(datasets["val"], dump_path=base + "_val.json")
+    print(f"parity val: {res}")
+    if res.get("accuracy") is not None:
+        print(f"parity val accuracy (official evaluator): "
+              f"{res['accuracy']:.2f}  (reference MCAN-small val ~67, "
+              f"test-dev 70.70)")
+    test_ds = datasets.get("test") or datasets["val"]
+    trainer.evaluate(test_ds, dump_path=base + "_testdev.json")
+    print(f"parity test-dev EvalAI dump: {base}_testdev.json")
     return 0
 
 

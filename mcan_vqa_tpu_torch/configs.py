@@ -6,20 +6,24 @@ settings the port uses live here as a dataclass. Defaults are MCAN-small:
 ``mcan_vqa_tpu/configs/config.py``, with ``ff_size = 4 * hidden`` as
 ``config.py:194`` derives it (``with_overrides`` keeps that rule).
 ``Config.for_model("large")`` is MCAN-large, ``configs/large.yml`` over the
-same defaults (its ``ckpt_version`` / ``ckpt_epoch`` name a checkpoint to
-resume, which the port does not do yet). Field names follow the JAX
-``Config`` so a reader can map one onto the other.
+same defaults (the YAMLs' ``ckpt_version`` / ``ckpt_epoch`` are not taken
+over: they name a published checkpoint, and the port's defaults evaluate
+the run's own). Field names follow the JAX ``Config`` so a reader can map
+one onto the other, and so do the dataset paths and the VQA-v2 file
+tables (``img_feat_path``, ``question_path``, ``answer_path``;
+cfgs/path_cfgs.py:22-77).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 # the settings each model's YAML sets over the defaults (small.yml sets
 # only values the defaults already have)
-TRAIN_ENGINES = ("auto", "fused", "plain")
+TRAIN_ENGINES = EVAL_ENGINES = ("auto", "fused", "plain")
 DROPOUT_BITS = (8, 16, 32)
 MODELS: Dict[str, Dict[str, Any]] = {
     "small": {},
@@ -67,6 +71,31 @@ class Config:
     # always the plain engine (config.py:136, trainer.py:540-567)
     train_engine: str = "auto"
 
+    # ---- evaluation and data (config.py:35-39, :105, :119-121)
+    eval_every_epoch: bool = True
+    # "auto": the shipped int8 serving engine on a CUDA device, the plain
+    # model elsewhere; "fused" forces the serving engine (on the CPU its
+    # kernels' plain versions, test-only); "plain" always the plain model
+    eval_engine: str = "auto"
+    eval_strict: bool = False      # refuse predictions that miss a question
+    test_save_pred: bool = False   # dump the probabilities of each evaluation
+    train_split: str = "train+val+vg"
+    use_glove: bool = True
+    preload: bool = False          # npz features read into memory up front
+    # the checkpoint evaluated by run_vqa --run val / test / parity: a
+    # pickle by path, else <ckpts_dir>/ckpt_<ckpt_version>/epoch<ckpt_epoch>
+    ckpt_version: str = ""         # "" means run_version
+    ckpt_epoch: int = 0
+    ckpt_path: str = ""
+
+    # ---- paths (config.py:151-163)
+    dataset_path: str = "./datasets/vqa/"
+    feature_path: str = "./datasets/coco_extract/"
+    feature_cache_path: str = "./datasets/feature_cache/"
+    vocab_cache_path: str = "./results/cache/vocab.npz"
+    result_path: str = "./results/result_test/"
+    pred_path: str = "./results/pred/"
+
     def __post_init__(self):
         if self.hidden_size % self.multi_head:
             raise ValueError(
@@ -79,6 +108,9 @@ class Config:
         if self.train_engine not in TRAIN_ENGINES:
             raise ValueError(f"train_engine must be one of {TRAIN_ENGINES}, "
                              f"got {self.train_engine!r}")
+        if self.eval_engine not in EVAL_ENGINES:
+            raise ValueError(f"eval_engine must be one of {EVAL_ENGINES}, "
+                             f"got {self.eval_engine!r}")
         if self.dropout_bits not in DROPOUT_BITS:
             raise ValueError(f"dropout_bits must be one of {DROPOUT_BITS}, "
                              f"got {self.dropout_bits!r}")
@@ -95,6 +127,45 @@ class Config:
     @property
     def run_version(self) -> str:
         return self.version or str(self.seed)
+
+    @property
+    def eval_batch_size(self) -> int:
+        """The micro-batch (config.py:196-197)."""
+        return self.batch_size // self.grad_accu_steps
+
+    @property
+    def img_feat_path(self) -> Dict[str, str]:
+        return {
+            "train": os.path.join(self.feature_path, "train2014/"),
+            "val": os.path.join(self.feature_path, "val2014/"),
+            "test": os.path.join(self.feature_path, "test2015/"),
+        }
+
+    @property
+    def question_path(self) -> Dict[str, str]:
+        q = "v2_OpenEnded_mscoco_{}_questions.json"
+        return {
+            "train": os.path.join(self.dataset_path, q.format("train2014")),
+            "val": os.path.join(self.dataset_path, q.format("val2014")),
+            "test": os.path.join(self.dataset_path, q.format("test2015")),
+            "vg": os.path.join(self.dataset_path, "VG_questions.json"),
+        }
+
+    @property
+    def answer_path(self) -> Dict[str, str]:
+        a = "v2_mscoco_{}_annotations.json"
+        return {
+            "train": os.path.join(self.dataset_path, a.format("train2014")),
+            "val": os.path.join(self.dataset_path, a.format("val2014")),
+            "vg": os.path.join(self.dataset_path, "VG_annotations.json"),
+        }
+
+    def check_vqa_paths(self) -> List[str]:
+        """The VQA-v2 paths that are missing (reference
+        cfgs/path_cfgs.py:79-97)."""
+        return [p for table in (self.img_feat_path, self.question_path,
+                                self.answer_path)
+                for p in table.values() if not os.path.exists(p)]
 
     def with_overrides(self, **kw: Any) -> "Config":
         """A copy with ``kw`` set; a new hidden_size brings ff_size = 4 x

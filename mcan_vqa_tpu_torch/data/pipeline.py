@@ -1,17 +1,24 @@
 """Host -> device batches (mcan_vqa_tpu/data/pipeline.py::BatchLoader).
 
 A worker thread assembles the next batch from ``dataset.example(i)``
-while the current one trains; each array is copied into pinned host memory
-and on to the device with ``non_blocking=True``, so the copy overlaps the
-work already queued on the card. Training semantics of the reference
-loader (core/data/load_data.py:267-300): shuffle with a seed per epoch,
-drop the last partial batch.
+while the current one runs; each array bound for the card is copied into
+pinned host memory and on to the device with ``non_blocking=True``, so
+the copy overlaps the work already queued there.
+
+Two forms, as in the JAX loader. Training (the reference's loader,
+core/data/load_data.py:267-300): shuffled with a seed per epoch, the last
+partial batch dropped, batches of "img", "ques" and "target". Evaluation
+(``shuffle=False, drop_last=False``; the reference shuffled and dropped
+here too, a quirk not kept): every example once, in order; the batches
+also carry on the host "qid", the per-row "valid" mask and "n_valid", and
+with ``pad_final=True`` the last batch is repeat-padded to full size, its
+padding rows marked not valid.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
@@ -21,7 +28,8 @@ DEVICE_KEYS = ("img", "ques", "target")
 
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, device, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 444):
+                 drop_last: bool = True, seed: int = 444,
+                 pad_final: bool = False):
         """device: where the batches go (a torch.device or its name)."""
         self.dataset = dataset
         self.batch_size = batch_size
@@ -29,6 +37,7 @@ class BatchLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.pad_final = pad_final
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -46,32 +55,49 @@ class BatchLoader:
             np.random.default_rng(self.seed + epoch).shuffle(idx)
         return idx
 
-    def _assemble(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
-        examples = [self.dataset.example(int(i)) for i in indices]
-        return {k: np.stack([e[k] for e in examples]) for k in DEVICE_KEYS}
+    def _slice(self, order: np.ndarray, i: int):
+        """Batch i's indices and valid mask (pad_final: the last batch
+        repeats its last index up to batch_size)."""
+        sl = order[i * self.batch_size:(i + 1) * self.batch_size]
+        n = len(sl)
+        if self.pad_final and n < self.batch_size:
+            sl = np.concatenate([sl, np.repeat(sl[-1], self.batch_size - n)])
+        return sl, np.arange(len(sl)) < n
 
-    def _to_device(self, batch: Dict[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
+    def _assemble(self, indices: np.ndarray, valid: np.ndarray
+                  ) -> Dict[str, np.ndarray]:
+        examples = [self.dataset.example(int(i)) for i in indices]
+        if self.drop_last:
+            return {k: np.stack([e[k] for e in examples])
+                    for k in DEVICE_KEYS}
+        batch = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+        batch["valid"] = valid
+        batch["n_valid"] = np.int32(valid.sum())
+        return batch
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         pin = self.device.type == "cuda"
         out = {}
         for k, v in batch.items():
+            if k not in DEVICE_KEYS:
+                out[k] = v               # qid, valid, n_valid stay here
+                continue
             t = torch.from_numpy(v)
             if pin:
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
         return out
 
-    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
         epoch = self._epoch
         self._epoch = epoch + 1
         order = self._index_order(epoch)
-        bs = self.batch_size
-        slices = [order[i * bs:(i + 1) * bs] for i in range(len(self))]
+        slices = [self._slice(order, i) for i in range(len(self))]
         with ThreadPoolExecutor(1) as pool:
-            pending = pool.submit(self._assemble, slices[0]) if slices \
+            pending = pool.submit(self._assemble, *slices[0]) if slices \
                 else None
             for i in range(len(slices)):
                 batch = pending.result()
                 if i + 1 < len(slices):
-                    pending = pool.submit(self._assemble, slices[i + 1])
+                    pending = pool.submit(self._assemble, *slices[i + 1])
                 yield self._to_device(batch)

@@ -1,16 +1,22 @@
-"""Question text: cleaning, vocabulary, index encoding (the port's copy of
-mcan_vqa_tpu/data/text.py, the parts the port uses).
+"""Question text: cleaning, vocabulary, index encoding and the vocabulary
+cache (the port's copy of mcan_vqa_tpu/data/text.py).
 
 Pure Python and numpy. The cleaning regex and the PAD / UNK layout follow
 the reference (core/data/data_utils.py:53-82, 133-151), so vocabularies
 and question-index arrays equal the JAX package's bit for bit
-(tests/test_torch_data.py holds the two side by side).
+(tests/test_torch_data.py holds the two side by side). GloVe vectors come
+from spaCy's ``en_core_web_lg`` where it is installed
+(``spacy_glove_lookup``); without it every token gets a Gaussian seeded by
+its md5, with a warning. A built vocabulary is cached as an npz
+(``save_vocab`` / ``load_vocab``), so a run needs spaCy at most once.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import re
+import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -73,3 +79,56 @@ def encode_questions(texts: Iterable[str], token_to_ix: Dict[str, int],
     """-> int32 [N, max_token]."""
     return np.stack([encode_question(t, token_to_ix, max_token)
                      for t in texts])
+
+
+def vocab_cache_file(path: str) -> str:
+    """The file a vocabulary cache path names: np.savez appends ".npz" to
+    a path without it, so the save and the caller's exists-check both go
+    through this."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_vocab(path: str, token_to_ix: Dict[str, int], emb: np.ndarray,
+               meta: Optional[dict] = None) -> None:
+    """meta: an optional JSON-able record of what built the vocabulary
+    (the question files, whether GloVe backed it), read back by
+    ``load_vocab_meta`` to tell a stale cache."""
+    tokens = sorted(token_to_ix, key=token_to_ix.get)
+    np.savez_compressed(vocab_cache_file(path),
+                        tokens=np.array(tokens, dtype=object), emb=emb,
+                        meta=json.dumps(meta) if meta is not None else "")
+
+
+def load_vocab(path: str) -> Tuple[Dict[str, int], np.ndarray]:
+    """A cache ``save_vocab`` wrote (its token list is an object array, so
+    only this program's own caches may be loaded)."""
+    with np.load(vocab_cache_file(path), allow_pickle=True) as z:
+        tokens = list(z["tokens"])
+        return ({t: i for i, t in enumerate(tokens)},
+                z["emb"].astype(np.float32))
+
+
+def load_vocab_meta(path: str) -> Optional[dict]:
+    """The record ``save_vocab`` stored, or None (a cache saved without
+    one)."""
+    with np.load(vocab_cache_file(path), allow_pickle=True) as z:
+        raw = str(z["meta"]) if "meta" in z.files else ""
+    return json.loads(raw) if raw else None
+
+
+def spacy_glove_lookup():
+    """A token -> GloVe vector lookup through spaCy's en_core_web_lg, or
+    None with a warning where it is not installed: the caller then falls
+    back to the md5-seeded vectors, and the warning keeps such a run from
+    passing for a GloVe one."""
+    try:
+        import spacy
+
+        nlp = spacy.load("en_core_web_lg")
+        return lambda word: nlp(word).vector
+    except Exception as e:
+        warnings.warn(
+            f"spaCy GloVe lookup unavailable ({e!r}): use_glove falls "
+            f"back to deterministic random embeddings -- install spaCy + "
+            f"en_core_web_lg for reference-parity embeddings")
+        return None

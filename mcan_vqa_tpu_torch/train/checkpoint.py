@@ -9,6 +9,10 @@ training checkpoint out (the orbax format is not ported).
   * ``load_reference_checkpoint``: a reference ``{state_dict, ...}``
     pickle (core/exec.py:241-245) -> state_dict, "module." prefixes of
     DataParallel stripped.
+  * ``load_params``: the pickle a ``Config`` names (``ckpt_path``, else
+    ``ckpts_dir`` / ``ckpt_version`` / ``ckpt_epoch``) -> state_dict, the
+    weights ``run_vqa --run val / test / parity`` evaluates. Weights only:
+    resuming the AdamW moments and the schedule is not ported.
   * ``save_checkpoint``: a train state -> that pickle,
     ``{state_dict, optimizer, lr_base}`` with the AdamW state indexed in
     Net2's parameter order, at ``<ckpts_dir>/ckpt_<version>/epoch<N>.pkl``
@@ -127,6 +131,30 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def checkpoint_path(ckpts_dir: str, version: str, epoch: int) -> str:
     return os.path.join(ckpts_dir, f"ckpt_{version}", f"epoch{epoch}.pkl")
+
+
+def load_params(cfg) -> Dict[str, torch.Tensor]:
+    """The weights of the checkpoint ``cfg`` names: ``cfg.ckpt_path`` (a
+    reference pickle, .pkl / .pt / .pth), else the port's epoch pickle
+    ``<ckpts_dir>/ckpt_<ckpt_version or run_version>/epoch<ckpt_epoch>.pkl``
+    (the JAX Trainer's ``_resume``, trainer.py:122-170, minus the optimizer
+    state)."""
+    path = cfg.ckpt_path
+    if path:
+        if not path.endswith((".pkl", ".pt", ".pth")):
+            raise NotImplementedError(
+                f"{path}: only reference pickles load into the port (orbax "
+                f"checkpoints: convert with state_dict_from_params)")
+    else:
+        if cfg.ckpt_epoch <= 0:
+            raise ValueError("name the checkpoint to load: ckpt_path, or "
+                             "ckpt_epoch (with ckpt_version)")
+        path = checkpoint_path(cfg.ckpts_dir,
+                               cfg.ckpt_version or cfg.run_version,
+                               cfg.ckpt_epoch)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    return load_reference_checkpoint(path)
 
 
 def _to_cpu(obj):

@@ -1,5 +1,5 @@
 """The train step: loss, gradient accumulation, global-norm clip, AdamW
-update (mcan_vqa_tpu/train/step.py).
+update; and the eval step (mcan_vqa_tpu/train/step.py).
 
 Loss: BCE with logits, summed (reference core/model/net.py:373,
 core/exec.py:67). Gradient accumulation: the batch is cut into
@@ -106,3 +106,18 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
         return metrics
 
     return step
+
+
+def make_eval_step(model: torch.nn.Module
+                   ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """-> eval_step(img [B, R, F] f32, ques [B, T] int) -> the sigmoid of
+    the model's f32 logits [B, A], with no dropout and no autograd
+    (step.py:185-200: the boundary where the reference's in-graph sigmoid
+    sits, core/model/net.py:373). ``model`` is an ``MCANet``: its forward
+    is the plain engine and draws no dropout."""
+
+    def eval_step(img: torch.Tensor, ques: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.sigmoid(model(img, ques).float())
+
+    return eval_step

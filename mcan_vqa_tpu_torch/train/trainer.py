@@ -1,10 +1,16 @@
-"""Training orchestration for VQA (mcan_vqa_tpu/train/trainer.py; the
+"""Training and evaluation for VQA (mcan_vqa_tpu/train/trainer.py; the
 reference's Execution, core/exec.py:27-426).
 
-``Trainer(cfg, train_dataset).train()`` runs the epochs: a shuffled,
-drop-last loader onto the device, one train step per batch (the fused
-forward, the BCE loss, AdamW under the warmup / decay schedule), a
-reference pickle after every epoch and one log line per epoch.
+``Trainer(cfg, train_dataset, eval_datasets).train()`` runs the epochs: a
+shuffled, drop-last loader onto the device, one train step per batch (the
+fused forward, the BCE loss, AdamW under the warmup / decay schedule), a
+reference pickle after every epoch, then (``cfg.eval_every_epoch``) an
+evaluation of each eval dataset on its cadence, one log line each, and one
+log line per epoch. ``predict`` and ``evaluate`` score a dataset on the
+current weights: every example once, in order, in batches of
+``cfg.eval_batch_size`` with the last one repeat-padded; ``evaluate`` adds
+the official VQA accuracy where the dataset carries annotations, ROC-AUC
+where its examples carry targets, the EvalAI dump and the prediction dump.
 
 The train engine is chosen as the JAX Trainer chooses it
 (``_use_fused_train``, mcan_vqa_tpu/train/trainer.py:540-567, a CUDA
@@ -22,8 +28,18 @@ encoder plain and the decoder blocks saving their projections
 its blocks draw their dropout inside the kernels (``in_kernel_dropout``,
 JAX's ``on_tpu``, trainer.py:243, :280); on the CPU they read external
 masks.
-Evaluation, resume, the classifier and MIMIC tasks and preemption handling
-are not ported: asking for them raises.
+
+The eval engine is chosen as the JAX Trainer's ``_use_fused_eval``
+(trainer.py:569-585): ``cfg.eval_engine`` "plain" -> the plain model with
+dropout off (``make_eval_step``); "fused" -> the shipped serving engine,
+``build_production_engine`` at int8 level 1 with the bf16 stream (on the
+CPU its kernels' plain versions, the test-only route); "auto" -> the
+serving engine on a CUDA device, else plain. The serving engine is built
+again from the current weights at each ``predict``, as JAX prepares its
+parameters per call (trainer.py:602-668): mid-training evaluations see the
+weights of that epoch.
+Resume (AdamW moments and schedule), the classifier and MIMIC tasks and
+preemption handling are not ported: asking for them raises.
 """
 
 from __future__ import annotations
@@ -31,17 +47,21 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from mcan_vqa_tpu_torch.data.pipeline import BatchLoader
 from mcan_vqa_tpu_torch.device import resolve_device
+from mcan_vqa_tpu_torch.evals import vqa_eval
+from mcan_vqa_tpu_torch.evals.roc_auc import multilabel_roc_auc
 from mcan_vqa_tpu_torch.models.net import MCANet
+from mcan_vqa_tpu_torch.ops.serving import build_production_engine
 from mcan_vqa_tpu_torch.train.checkpoint import save_checkpoint
 from mcan_vqa_tpu_torch.train.fused_engine import make_fused_train_forward
 from mcan_vqa_tpu_torch.train.optim import make_lr_schedule, make_optimizer
-from mcan_vqa_tpu_torch.train.step import make_train_step
+from mcan_vqa_tpu_torch.train.step import make_eval_step, make_train_step
 from mcan_vqa_tpu_torch.train.train_state import TrainState
 from mcan_vqa_tpu_torch.utils.logging import RunLogger
 
@@ -66,6 +86,35 @@ def use_fused_train(cfg, device: torch.device) -> bool:
             and cfg.hidden_size <= 1024)
 
 
+def make_train_forward(cfg, fused: bool, in_kernel_dropout: bool):
+    """The train forward of the chosen engine: the fused blocks routed by
+    width (``engine_route``), their dropout drawn inside the kernels or read
+    from generator masks, or the plain engine."""
+    route = (engine_route(cfg.hidden_size) if fused
+             else dict(sga_block="plain", fused_encoder=False))
+    return make_fused_train_forward(
+        cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+        dropout_bits=cfg.dropout_bits,
+        in_kernel_dropout=fused and in_kernel_dropout, **route)
+
+
+def use_fused_eval(cfg, device: torch.device) -> bool:
+    """The JAX Trainer's ``_use_fused_eval`` (trainer.py:569-585) on this
+    device: "plain" never, "fused" always, "auto" on a CUDA device (JAX: a
+    TPU, one process)."""
+    if cfg.eval_engine == "plain":
+        return False
+    return cfg.eval_engine == "fused" or device.type == "cuda"
+
+
+def eval_engine_line(fused: bool) -> str:
+    """The log line that says which eval engine runs."""
+    if fused:
+        return ("eval engine: fused (build_production_engine, int8 level 1, "
+                "bf16 stream; rebuilt from the weights at each evaluation)")
+    return "eval engine: plain (the model's forward, f32, no dropout)"
+
+
 def engine_line(hidden_size: int, fused: bool = True,
                 in_kernel_dropout: bool = False,
                 dropout_bits: int = 32) -> str:
@@ -81,27 +130,42 @@ def engine_line(hidden_size: int, fused: bool = True,
 
 
 class Trainer:
-    def __init__(self, cfg, train_dataset, eval_datasets: Optional[Dict] = None,
+    def __init__(self, cfg, train_dataset=None,
+                 eval_datasets: Optional[Dict] = None,
+                 eval_cadence: Optional[Dict[str, int]] = None,
                  task: str = "vqa", device="cuda"):
-        """cfg: a ``Config``; train_dataset: a dataset with ``example(i)``,
-        ``token_size``, ``ans_size`` and ``pretrained_emb`` (for example
-        ``SyntheticVQADataset``). device: "cuda" by default; with no CUDA
-        device it raises unless the caller passes device="cpu"."""
+        """cfg: a ``Config``; train_dataset / the eval datasets: datasets
+        with ``example(i)``, ``token_size``, ``ans_size`` and
+        ``pretrained_emb`` (``VQADataset``, ``SyntheticVQADataset``); the
+        model is sized by the train dataset, else by the first eval
+        dataset. eval_datasets: {name: dataset} evaluated after each epoch
+        under ``cfg.eval_every_epoch``; eval_cadence: {name: N}, that
+        dataset only every N epochs (epochs 0, N, 2N, ...; the others every
+        epoch). device: "cuda" by default; with no CUDA device it raises
+        unless the caller passes device="cpu"."""
         if task != "vqa":
             raise NotImplementedError(
-                f"task={task!r}: only VQA training is ported so far")
-        if eval_datasets:
-            raise NotImplementedError("evaluation is not ported yet")
+                f"task={task!r}: only the VQA task is ported so far "
+                f"(ROADMAP §1 item 6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_dataset = train_dataset
+        self.eval_datasets = dict(eval_datasets or {})
+        self.eval_cadence = dict(eval_cadence or {})
+        ref = train_dataset if train_dataset is not None else next(
+            iter(self.eval_datasets.values()), None)
+        if ref is None:
+            raise ValueError("Trainer needs a train_dataset or eval_datasets")
+        self.ix_to_ans = getattr(ref, "ix_to_ans", None)
         self.model = MCANet(
-            cfg, train_dataset.token_size, train_dataset.ans_size,
-            pretrained_emb=getattr(train_dataset, "pretrained_emb", None),
+            cfg, ref.token_size, ref.ans_size,
+            pretrained_emb=getattr(ref, "pretrained_emb", None),
             generator=torch.Generator().manual_seed(cfg.seed)
         ).to(self.device)
+        data_size = len(train_dataset) if train_dataset is not None \
+            else cfg.batch_size
         self.lr_schedule = make_lr_schedule(
-            cfg.lr_base, len(train_dataset), cfg.batch_size,
+            cfg.lr_base, data_size, cfg.batch_size,
             decay_epochs=tuple(cfg.lr_decay_list),
             decay_rate=cfg.lr_decay_rate)
         self.state = TrainState.create(
@@ -109,6 +173,8 @@ class Trainer:
             seed=cfg.seed)
         self.fused = use_fused_train(cfg, self.device)
         self.build_step(self.fused and self.device.type == "cuda")
+        self.fused_eval = use_fused_eval(cfg, self.device)
+        self.eval_step = make_eval_step(self.model)
         self.logger = RunLogger(cfg.log_path, cfg.run_version, cfg.to_dict(),
                                 echo=cfg.verbose)
 
@@ -120,12 +186,8 @@ class Trainer:
         card)."""
         cfg = self.cfg
         self.in_kernel_dropout = self.fused and in_kernel_dropout
-        route = (engine_route(cfg.hidden_size) if self.fused
-                 else dict(sga_block="plain", fused_encoder=False))
-        self.forward_fn = make_fused_train_forward(
-            cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
-            dropout_bits=cfg.dropout_bits,
-            in_kernel_dropout=self.in_kernel_dropout, **route)
+        self.forward_fn = make_train_forward(cfg, self.fused,
+                                             in_kernel_dropout)
         self.step_fn = make_train_step(
             self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
             reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
@@ -141,6 +203,8 @@ class Trainer:
         earlier checkpoints and logs are cleared first (the reference's
         fresh run, core/exec.py:96-102)."""
         cfg = self.cfg
+        if self.train_dataset is None:
+            raise ValueError("train() needs a train_dataset")
         ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
         if os.path.isdir(ckpt_dir):
             shutil.rmtree(ckpt_dir)
@@ -149,6 +213,8 @@ class Trainer:
         line = engine_line(cfg.hidden_size, self.fused,
                            self.in_kernel_dropout, cfg.dropout_bits)
         self.logger.write(f"{line} (device {self.device})")
+        if cfg.eval_every_epoch and self.eval_datasets:
+            self.logger.write(eval_engine_line(self.fused_eval))
         loader = self.loader()
         state = self.state
         for epoch in range(cfg.max_epoch):
@@ -162,8 +228,107 @@ class Trainer:
                 n_steps += 1
             path = save_checkpoint(state, cfg.ckpts_dir, cfg.run_version,
                                    epoch + 1, cfg.lr_base)
-            self.logger.epoch(epoch, {
-                "loss": loss_sum / max(n_steps, 1), "lr": lr,
-                "steps": n_steps, "wall_s": time.perf_counter() - t0,
-                "checkpoint": path})
+            metrics = {"loss": loss_sum / max(n_steps, 1), "lr": lr,
+                       "steps": n_steps, "wall_s": time.perf_counter() - t0,
+                       "checkpoint": path}
+            if cfg.eval_every_epoch:
+                for name, ds in self.eval_datasets.items():
+                    if epoch % max(int(self.eval_cadence.get(name, 1)), 1):
+                        continue
+                    res = self.evaluate(ds)
+                    self.logger.write(f"epoch {epoch} eval {name}: {res}")
+                    metrics.update({f"{name}/{k}": v for k, v in res.items()
+                                    if isinstance(v, float)})
+            self.logger.epoch(epoch, metrics)
         return state
+
+    def predict(self, dataset) -> Dict[str, np.ndarray]:
+        """{"probs": [N, A] f32, "qids": [N]} and, where the examples carry
+        targets, "targets" [N, A]: every example once, in order, through
+        the eval engine on the current weights."""
+        cfg = self.cfg
+        if self.fused_eval:
+            serve, prepared = build_production_engine(
+                self.model.state_dict(), cfg.layer, cfg.multi_head,
+                device=self.device)
+
+            def probs_of(img, ques):
+                return torch.sigmoid(serve(prepared, img, ques).float())
+        else:
+            probs_of = self.eval_step
+        loader = BatchLoader(dataset, cfg.eval_batch_size, self.device,
+                             shuffle=False, drop_last=False, seed=cfg.seed,
+                             pad_final=True)
+        probs_all, qids_all, targets_all = [], [], []
+        with torch.no_grad():
+            for batch in loader:
+                valid = batch["valid"]
+                probs = probs_of(batch["img"], batch["ques"])
+                probs_all.append(probs.cpu().numpy()[valid])
+                qids_all.append(batch["qid"][valid])
+                if "target" in batch:
+                    targets_all.append(batch["target"].cpu().numpy()[valid])
+        out = {"probs": np.concatenate(probs_all),
+               "qids": np.concatenate(qids_all)}
+        if targets_all:
+            out["targets"] = np.concatenate(targets_all)
+        return out
+
+    def evaluate(self, dataset, dump_path: Optional[str] = None
+                 ) -> Dict[str, Any]:
+        """``predict``, then (trainer.py:715-775): the probabilities to
+        ``<pred_path>/pred_run_<version>.npz`` under ``cfg.test_save_pred``;
+        the top-1 answers to the EvalAI file ``dump_path``; ROC-AUC micro /
+        macro where the examples carry targets; the official accuracy and
+        its per-answer-type split over the dataset's annotations. An
+        annotated question without a prediction is a warning in the log,
+        or an error under ``cfg.eval_strict``."""
+        cfg = self.cfg
+        out = self.predict(dataset)
+        results: Dict[str, Any] = {}
+        if cfg.test_save_pred:
+            os.makedirs(cfg.pred_path, exist_ok=True)
+            pred_file = os.path.join(cfg.pred_path,
+                                     f"pred_run_{cfg.run_version}.npz")
+            np.savez_compressed(pred_file, probs=out["probs"],
+                                qids=out["qids"])
+            results["pred_path"] = pred_file
+
+        answers = None
+        if self.ix_to_ans:
+            # str keys (the frozen VQA dictionary) or int keys
+            def decode(i):
+                i = int(i)
+                return self.ix_to_ans.get(str(i),
+                                          self.ix_to_ans.get(i, str(i)))
+            answers = [decode(i) for i in out["probs"].argmax(axis=1)]
+        if dump_path and answers is not None:
+            vqa_eval.dump_results(out["qids"], answers, dump_path)
+            results["dump_path"] = dump_path
+
+        if "targets" in out:
+            roc = multilabel_roc_auc(out["targets"] > 0.5, out["probs"])
+            results["roc_micro"] = roc["micro"]
+            results["roc_macro"] = roc["macro"]
+
+        ans_list = getattr(dataset, "ans_list", None)
+        if ans_list and answers is not None:
+            gts = {a["question_id"]: {
+                "answers": [x["answer"] for x in a["answers"]],
+                "question_type": a.get("question_type", "unknown"),
+                "answer_type": a.get("answer_type", "unknown")}
+                for a in ans_list}
+            res_map = dict(zip((int(q) for q in out["qids"]), answers))
+            common = {q: g for q, g in gts.items() if q in res_map}
+            if len(common) != len(gts):
+                msg = (f"evaluate: predictions cover {len(common)}/{len(gts)}"
+                       f" annotated questions; accuracy is over the"
+                       f" intersection only")
+                if cfg.eval_strict:
+                    raise ValueError(msg)
+                self.logger.write(f"WARNING: {msg}")
+            if common:
+                acc = vqa_eval.evaluate(common, res_map)
+                results["accuracy"] = acc["overall"]
+                results["perAnswerType"] = acc["perAnswerType"]
+        return results

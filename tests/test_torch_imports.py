@@ -51,7 +51,15 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/ops/quant.py",
                      "mcan_vqa_tpu_torch/ops/sga_train.py",
                      "mcan_vqa_tpu_torch/train/trainer.py",
-                     "mcan_vqa_tpu_torch/cli/run_vqa.py", "chip_smoke.py"):
+                     "mcan_vqa_tpu_torch/cli/run_vqa.py",
+                     "mcan_vqa_tpu_torch/evals/vqa_eval.py",
+                     "mcan_vqa_tpu_torch/evals/roc_auc.py",
+                     "mcan_vqa_tpu_torch/evals/compat.py",
+                     "mcan_vqa_tpu_torch/data/vqa_dataset.py",
+                     "mcan_vqa_tpu_torch/data/vqa_files.py",
+                     "mcan_vqa_tpu_torch/cli/validate_serving_accuracy.py",
+                     "mcan_vqa_tpu_torch/cli/pack_features.py",
+                     "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
 
