@@ -144,7 +144,29 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              plain engine's on that route); a falling loss on one repeated
              batch;
   [checkpoint]  the epoch checkpoint served by
-             ``Predictor.from_checkpoint(engine="fused")`` (int8 level 1);
+             ``Predictor.from_checkpoint(engine="fused", act_scales=False)``
+             (int8 level 1, its stored scales declined);
+  [lifecycle]  the checkpoint lifecycle at MCAN-small's full width, batch
+             64, 256 synthetic samples, dropout 0.1 in the kernels:
+             ``run_vqa --run train`` for 2 epochs (run U), for 1 epoch
+             then resumed in a new process (``--resume true --ckpt_epoch
+             1``, run R) and again for 2 (the control C): R's epoch-2
+             weights, AdamW moments and step equal U's bit for bit (or,
+             where C already differs from U, by no more than C does), U's
+             launches exact; SIGTERM inside step 2 of epoch 0: epoch1.pkl,
+             ``preempted_at_step``, ``train()`` returning, the handlers
+             back, then a resume that trains on; ``opt_mu_dtype=
+             "bfloat16"``: the pickle's first moment f32 and bf16-exact, a
+             falling loss; 3 epochs with ``keep_last_ckpts=1`` saved at
+             once and by the async saver (only epoch3.pkl and its side file
+             remain; the saver's pickle equal byte for byte to
+             ``save_checkpoint`` of the same state; each epoch's wall time,
+             the pickle's size and write time); then
+             ``Predictor.from_checkpoint`` of that pickle at its default
+             engine, with q8aux=True and with engine="int4": the stored
+             scales, no online collection, exact level-3 (level-5)
+             launches, agreement with the plain engine, and the B=64
+             forward of level 3 against level 1;
   [eval]     main path 4: a miniature VQA-v2 dataset in its own file
              formats at MCAN-small's full width (2048-d BUTD npz of 10-60
              regions with a class signature, answers from the frozen
@@ -361,6 +383,8 @@ def main() -> None:
         check_repeated_batch(torch, trainer)
         del trainer
         phase_done("train")
+        lifecycle_path(torch, dev, rows, work / "lifecycle", card)
+        phase_done("lifecycle")
         eval_main_path(torch, dev, rows, work / "eval", card)
         phase_done("eval")
         trainer, _ = train_main_path(torch, dev, rows, work / "large",
@@ -3457,9 +3481,10 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
 
     def step(state, batch):
         """The Trainer's step, with the plain engine's loss on the same
-        weights and generator state first, micro-batch by micro-batch (no
-        launch counts, not timed), the step's launch counts and its time
-        by CUDA events."""
+        weights and generator state first (the step's own seed,
+        ``seed_step``), micro-batch by micro-batch (no launch counts, not
+        timed), the step's launch counts and its time by CUDA events."""
+        state.seed_step()
         plain_loss, g = engine_loss(torch, dev, cfg, plain_fwd, state.model,
                                     batch, state.generator.get_state())
         before = K.launch_counts()
@@ -4495,6 +4520,7 @@ def check_envelope(torch, dev, vocab, ix_to_ans, rows) -> None:
             real = trainer.step_fn
 
             def step(state, batch):
+                state.seed_step()
                 plains.append(engine_loss(
                     torch, dev, tcfg, plain_fwd, state.model, batch,
                     state.generator.get_state())[0])
@@ -4862,8 +4888,10 @@ def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
     vocab.update({f"t{i}": i for i in range(2, ds.token_size)})
     kw = dict(ix_to_ans=ds.ix_to_ans, max_batch=8, latency_buckets=(1,),
               device=dev)
+    # act_scales=False: the level-1 engine and its online calibration
+    # (the stored scales are [lifecycle]'s)
     fused = Predictor.from_checkpoint(str(ckpt), cfg, vocab, engine="fused",
-                                      **kw)
+                                      act_scales=False, **kw)
     plain = Predictor.from_checkpoint(str(ckpt), cfg, vocab, engine="plain",
                                       **kw)
     rng = np.random.default_rng(SEED + 5)
@@ -4877,7 +4905,8 @@ def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
     pp = plain.predict_probs(questions, feats)
     worst = float(np.abs(pf - pp).max())
     say(f"[checkpoint] {ckpt.name} ({ckpt.stat().st_size / 1e6:.1f} MB) -> "
-        f"Predictor.from_checkpoint(engine='fused'), int8 level 1, "
+        f"Predictor.from_checkpoint(engine='fused', act_scales=False), "
+        f"int8 level 1, "
         f"calibration {fused.calibration}: "
         + "; ".join(f"{q!r} -> {a} {p:.3f}" for q, (a, p) in
                     zip(questions, answers))
@@ -4888,6 +4917,378 @@ def check_checkpoint(torch, dev, trainer, ckpt: Path) -> None:
             and worst <= INT8_BOUND
             and fused.calibration["samples"] == 6):
         fail("the checkpoint's Predictor gave bad answers")
+
+
+# ---------------------------------------------------------------------------
+# phase [lifecycle]: resume, preemption, the async saver and pruning, the
+# calibrated checkpoint, the bf16 first moment
+# ---------------------------------------------------------------------------
+
+LIFE_SIZE = 256               # the synthetic train set: 4 steps an epoch
+LIFE_PREEMPT_AT = 2           # SIGTERM raised inside this step of epoch 0
+
+
+def life_config(work: Path, version: str, **kw):
+    """MCAN-small at full width, batch 64, no evaluation between epochs."""
+    from mcan_vqa_tpu_torch.configs import Config
+    return Config.for_model("small", batch_size=BATCH, seed=SEED + 11,
+                            version=version, ckpts_dir=str(work / "ckpts"),
+                            log_path=str(work / "log"), verbose=False,
+                            eval_every_epoch=False, **kw)
+
+
+def life_dataset(cfg):
+    """The CLI's synthetic train set (run_vqa --synthetic)."""
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    return SyntheticVQADataset(cfg, size=LIFE_SIZE, answer_size=3129,
+                               seed=cfg.seed)
+
+
+def life_records(cfg):
+    return [json.loads(x) for x in (Path(cfg.log_path) / (
+        f"log_run_{cfg.run_version}.jsonl")).read_text().splitlines()]
+
+
+def pickle_diff(torch, a: Path, b: Path):
+    """Two epoch pickles -> (max |difference| over the weights and both
+    AdamW moments, the names of the tensors that differ, the steps of each)."""
+    A = torch.load(a, map_location="cpu", weights_only=True)
+    B = torch.load(b, map_location="cpu", weights_only=True)
+    keys = list(A["state_dict"])
+    if keys != list(B["state_dict"]) or sorted(A["optimizer"]["state"]) != \
+            sorted(B["optimizer"]["state"]):
+        fail(f"{a} and {b} hold other parameters")
+    pairs = [(k, A["state_dict"][k], B["state_dict"][k]) for k in keys]
+    for i, sa in A["optimizer"]["state"].items():
+        sb = B["optimizer"]["state"][i]
+        pairs += [(f"{keys[i]} {m}", sa[m], sb[m])
+                  for m in ("exp_avg", "exp_avg_sq")]
+    worst, differ = 0.0, []
+    for name, x, y in pairs:
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            differ.append(name)
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    steps = [sorted({float(s["step"]) for s in blob["optimizer"]["state"]
+                     .values()}) for blob in (A, B)]
+    return worst, differ, len(pairs), steps
+
+
+def life_resume(torch, dev, rows, work: Path) -> None:
+    """Run U trains 2 epochs; run R trains 1, then a new process resumes it
+    (``run_vqa --run train --synthetic --resume true --ckpt_epoch 1
+    --max_epoch 2``); a control run C trains 2 epochs like U. Gate: R's
+    epoch-2 weights, AdamW moments and step equal U's bit for bit, or,
+    where C already differs from U, by no more than C does. U's launches
+    are exact: 8 train steps and the final val batch (int8 level 1)."""
+    from mcan_vqa_tpu_torch.cli import run_vqa
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.trainer import engine_route
+
+    def argv(version, epochs, *extra):
+        return ["--run", "train", "--synthetic", "--synthetic_size",
+                str(LIFE_SIZE), "--batch_size", str(BATCH), "--seed",
+                str(SEED + 11), "--ckpts_dir", str(work / "ckpts"),
+                "--log_path", str(work / "log"), "--eval_ee", "false",
+                "--verbose", "false", "--version", version, "--max_epoch",
+                str(epochs), *extra]
+
+    cfg = run_vqa.build_config(run_vqa.parse_args(argv("U", 2)))
+    n_steps = 2 * (LIFE_SIZE // BATCH)
+    step = expected_step_launches(cfg, engine_route(cfg.hidden_size), True)
+    serve = serve_launches(cfg.layer, 1)
+    want = {k: n_steps * step.get(k, 0) + serve.get(k, 0)
+            for k in set(step) | set(serve)}
+    times = {}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if run_vqa.main(argv("U", 2)) != 0:
+        fail("[lifecycle] run U failed")
+    torch.cuda.synchronize()
+    times["U"] = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_launches("lifecycle: run U (run_vqa --run train, 2 epochs)",
+                   counts, {k: n for k, n in want.items() if n}, 1)
+    rows.launches("lifecycle: run U", counts,
+                  [k for k in TRAIN_KERNELS if step.get(k)]
+                  + [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    t0 = time.perf_counter()
+    if run_vqa.main(argv("R", 1)) != 0:
+        fail("[lifecycle] run R's first epoch failed")
+    times["R epoch 1"] = time.perf_counter() - t0
+    cmd = [sys.executable, "-m", "mcan_vqa_tpu_torch.cli.run_vqa",
+           *argv("R", 2, "--resume", "true", "--ckpt_epoch", "1")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    times["R resumed (new process)"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        say(proc.stderr[-4000:])
+        fail(f"[lifecycle] the resumed run exited {proc.returncode}")
+    log = (work / "log" / "log_run_R.txt").read_text()
+    resumed = [ln for ln in log.splitlines() if ln.startswith("resume:")]
+    say(f"[lifecycle] {' '.join(cmd[1:4])} ... --resume true --ckpt_epoch 1 "
+        f"--max_epoch 2: exit 0, the run logged {resumed}")
+    if not resumed or f"@ step {LIFE_SIZE // BATCH}" not in resumed[0]:
+        fail("[lifecycle] the resumed run did not restore the moments at "
+             "step 4")
+    t0 = time.perf_counter()
+    if run_vqa.main(argv("C", 2)) != 0:
+        fail("[lifecycle] the control run failed")
+    times["C"] = time.perf_counter() - t0
+    pick = work / "ckpts"
+    r_err, r_diff, n, r_steps = pickle_diff(
+        torch, pick / "ckpt_U" / "epoch2.pkl", pick / "ckpt_R" / "epoch2.pkl")
+    c_err, c_diff, _, c_steps = pickle_diff(
+        torch, pick / "ckpt_U" / "epoch2.pkl", pick / "ckpt_C" / "epoch2.pkl")
+    say(f"[lifecycle] wall s: " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in times.items()))
+    say(f"[lifecycle] resume: R (epoch 1, then resumed in a new process) "
+        f"against U (2 epochs unbroken), {n} tensors (weights, exp_avg, "
+        f"exp_avg_sq): {len(r_diff)} differ, max |d| {r_err:.3e}, steps "
+        f"{r_steps}; control C against U: {len(c_diff)} differ, max |d| "
+        f"{c_err:.3e}, steps {c_steps}")
+    if r_steps != [[float(n_steps)]] * 2 or c_steps != r_steps:
+        fail(f"[lifecycle] steps {r_steps} / {c_steps}, expected {n_steps}")
+    if c_diff:
+        say(f"[lifecycle] two unbroken runs differ on the card: "
+            f"{c_diff[:6]}; R is gated at the control's {c_err:.3e}")
+        if r_err > c_err:
+            fail(f"[lifecycle] the resumed run is {r_err:.3e} from U, past "
+                 f"the control pair's {c_err:.3e}")
+    elif r_diff:
+        fail(f"[lifecycle] the resumed run differs from the unbroken one: "
+             f"{r_diff[:6]}")
+    else:
+        say("[lifecycle] resume: bit for bit (weights, both moments, step)")
+    for v in ("U", "R", "C"):
+        shutil.rmtree(pick / f"ckpt_{v}", ignore_errors=True)
+
+
+def life_preempt(torch, dev, work: Path) -> None:
+    """SIGTERM raised in the training process inside step LIFE_PREEMPT_AT
+    of epoch 0: epoch1.pkl written, preempted_at_step logged, train()
+    returns, the handlers back; a run resumed from that pickle trains
+    on."""
+    import signal
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+
+    cfg = life_config(work, "P", max_epoch=2)
+    ds = life_dataset(cfg)
+    trainer = Trainer(cfg, ds, device=dev)
+    real, seen = trainer.step_fn, []
+
+    def step(state, batch):
+        out = real(state, batch)
+        seen.append(state.step)
+        if len(seen) == LIFE_PREEMPT_AT:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    def marker(signum, frame):
+        fail("SIGTERM reached chip_smoke's own handler, not the Trainer's")
+
+    trainer.step_fn = step
+    old_term = signal.signal(signal.SIGTERM, marker)
+    old_int = signal.getsignal(signal.SIGINT)
+    try:
+        t0 = time.perf_counter()
+        trainer.train()
+        secs = time.perf_counter() - t0
+        back = (signal.getsignal(signal.SIGTERM) is marker
+                and signal.getsignal(signal.SIGINT) is old_int)
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+    ck = Path(cfg.ckpts_dir) / "ckpt_P"
+    records = life_records(cfg)
+    say(f"[lifecycle] preemption: SIGTERM in step {LIFE_PREEMPT_AT} of "
+        f"epoch 0 -> train() returned after {seen} in {secs:.2f} s, files "
+        f"{sorted(p.name for p in ck.iterdir())}, record "
+        f"preempted_at_step={records[-1].get('preempted_at_step')}, "
+        f"handlers restored {back}")
+    if seen != list(range(1, LIFE_PREEMPT_AT + 1)) or not back \
+            or not (ck / "epoch1.pkl").exists() \
+            or (ck / "epoch2.pkl").exists() or len(records) != 1 \
+            or records[0].get("preempted_at_step") != LIFE_PREEMPT_AT:
+        fail("[lifecycle] the preempted run did not save and return")
+    resumed = Trainer(cfg.with_overrides(resume=True, ckpt_epoch=1), ds,
+                      device=dev)
+    resumed.train()
+    records = life_records(cfg)
+    want = LIFE_PREEMPT_AT + LIFE_SIZE // BATCH
+    say(f"[lifecycle] resumed from epoch1.pkl: step {resumed.state.step} "
+        f"(want {want}), epoch 1 loss {records[-1]['loss']:.4f}")
+    if resumed.state.step != want or not (ck / "epoch2.pkl").exists() \
+            or not np.isfinite(records[-1]["loss"]):
+        fail("[lifecycle] the run resumed after the preemption did not "
+             "train on")
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def life_async(torch, dev, work: Path, card: str):
+    """Three epochs with keep_last_ckpts=1, the pickles written at once and
+    then by the async saver: only epoch3.pkl and its side file remain; the
+    saver's pickle equals ``save_checkpoint`` of the same state byte for
+    byte; each epoch's wall time on both, the pickle's size and its write
+    time. -> (the saver's epoch3.pkl, its config, the dataset)."""
+    from mcan_vqa_tpu_torch.train.checkpoint import save_checkpoint
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+
+    walls = {}
+    for name, on in (("sync", False), ("async", True)):
+        cfg = life_config(work, name, max_epoch=3, keep_last_ckpts=1,
+                          ckpt_async=on)
+        ds = life_dataset(cfg)
+        trainer = Trainer(cfg, ds, device=dev)
+        trainer.train()
+        walls[name] = [r["wall_s"] for r in life_records(cfg)]
+        ck = Path(cfg.ckpts_dir) / f"ckpt_{name}"
+        names = sorted(p.name for p in ck.iterdir())
+        if names != ["epoch3.act_scales.json", "epoch3.pkl"]:
+            fail(f"[lifecycle] {name}: {names} remain after pruning")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = save_checkpoint(trainer.state, str(work / "again"), "async", 3,
+                            cfg.lr_base)
+    write_s = time.perf_counter() - t0
+    mb = Path(again).stat().st_size / 1e6
+    same = Path(again).read_bytes() == (ck / "epoch3.pkl").read_bytes()
+    say(f"[lifecycle] keep_last_ckpts=1 over 3 epochs: only epoch3.pkl and "
+        f"epoch3.act_scales.json remain, with the saver and without; the "
+        f"saver's pickle equals save_checkpoint of the same state byte for "
+        f"byte: {same}")
+    say(f"[lifecycle] epoch wall s ({LIFE_SIZE // BATCH} steps + the "
+        f"pickle), saver off {[round(w, 3) for w in walls['sync']]}, saver "
+        f"on {[round(w, 3) for w in walls['async']]}; one pickle {mb:.1f} "
+        f"MB written at once in {write_s:.3f} s ({card})")
+    if not same:
+        fail("[lifecycle] the async saver's pickle differs from the sync one")
+    shutil.rmtree(work / "again", ignore_errors=True)
+    shutil.rmtree(Path(cfg.ckpts_dir) / "ckpt_sync", ignore_errors=True)
+    return ck / "epoch3.pkl", cfg, ds
+
+
+def life_serve(torch, dev, rows, ckpt: Path, cfg, ds, card: str) -> None:
+    """``Predictor.from_checkpoint`` of the calibrated pickle at its
+    default engine, with q8aux=True and with engine="int4": the stored
+    scales, no online collection, the exact launches of level 3 (q8aux:
+    with the aux sites; int4: level 5), agreement with the plain engine;
+    then the B=64 forward of the level-3 engine against level 1."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.checkpoint import load_act_scales
+
+    L = cfg.layer
+    stored = load_act_scales(str(ckpt))
+    if not stored or "aux" not in stored or len(stored) != 2 * L + 1:
+        fail(f"[lifecycle] the side file holds {sorted(stored or {})}")
+    vocab = {"PAD": 0, "UNK": 1}
+    vocab.update({f"t{i}": i for i in range(2, ds.token_size)})
+    kw = dict(ix_to_ans=ds.ix_to_ans, max_batch=BATCH,
+              latency_buckets=LATENCY_BUCKETS, device=dev)
+    plain = Predictor.from_checkpoint(str(ckpt), cfg, vocab, engine="plain",
+                                      **kw)
+    rng = np.random.default_rng(SEED + 13)
+
+    def batch(n):
+        qs = [" ".join(f"t{t}" for t in rng.integers(2, ds.token_size,
+                                                      rng.integers(3, 15)))
+              for _ in range(n)]
+        fs = [rng.normal(size=(int(r), cfg.img_feat_size)).astype(np.float32)
+              for r in rng.integers(10, cfg.img_feat_pad_size + 1, n)]
+        return qs, fs
+
+    requests = [batch(1), batch(1), batch(5), batch(BATCH),
+                ([""], batch(1)[1])]
+    n_ans = len(ds.ix_to_ans)
+    preds = {}
+    for label, extra, level, aux, bound, on in (
+            ("default engine", {}, 3, False, INT8_BOUND, "sigmoid"),
+            ("q8aux=True", dict(q8aux=True), 3, True, INT8_BOUND, "sigmoid"),
+            ('engine="int4"', dict(engine="int4"), 5, False, INT4_BOUND,
+             "softmax")):
+        pred = Predictor.from_checkpoint(str(ckpt), cfg, vocab, **extra,
+                                         **kw)
+        cal = pred.calibration
+        say(f"[lifecycle] from_checkpoint({ckpt.name}, {label}): engine "
+            f"{pred.engine!r}, calibration {cal}, scales equal the side "
+            f"file {pred.act_scales == stored}")
+        if pred.act_scales != stored or cal["state"] != "calibrated" \
+                or cal["samples"] != 0:
+            fail(f"[lifecycle] {label}: not served from the stored scales")
+        K.reset_launches()
+        probs = [pred.predict_probs(q, f) for q, f in requests]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_launches(f"lifecycle: from_checkpoint, {label}", counts,
+                       serve_launches(L, level, aux), len(requests))
+        names = INT4_SERVE_KERNELS if level >= 4 else INT8_SERVE_KERNELS
+        rows.launches(f"lifecycle: from_checkpoint, {label}", counts,
+                      [k for k in names if counts.get(k)])
+        agreement(f"lifecycle {label} (level {level}{' + aux' if aux else ''}"
+                  f", stored scales)", requests, probs, plain, n_ans,
+                  bound=bound, on=on)
+        preds[label] = pred
+    level1 = Predictor.from_checkpoint(str(ckpt), cfg, vocab, engine="fused",
+                                       act_scales=False, auto_calibrate=0,
+                                       **kw)
+    img, ques = level1.pad_batch(*batch(BATCH))
+    engines = (("level 3", preds["default engine"]), ("level 1", level1))
+    t = {name: [] for name, _ in engines}
+    for _ in range(ROUNDS):
+        for name, pred in engines:
+            t[name].append(cuda_ms(torch, lambda: pred.forward_padded(
+                img, ques), iters=10))
+    say(f"[lifecycle] B={BATCH} forward of the checkpoint's engines, median "
+        f"of {ROUNDS} rounds of 10 (CUDA events, eager): " + ", ".join(
+            f"{n} {float(np.median(ms)):.3f} ms ({min(ms):.3f}-"
+            f"{max(ms):.3f})" for n, ms in t.items()) + f" ({card})")
+
+
+def life_bf16_moment(torch, dev, work: Path) -> None:
+    """opt_mu_dtype="bfloat16": one epoch, the pickle's exp_avg f32 holding
+    bf16 values (the live moment bf16), then six steps on one batch whose
+    loss falls."""
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    cfg = life_config(work, "bf16", max_epoch=1, opt_mu_dtype="bfloat16",
+                      ckpt_calibrate=False)
+    trainer = Trainer(cfg, life_dataset(cfg), device=dev)
+    trainer.train()
+    blob = torch.load(Path(cfg.ckpts_dir) / "ckpt_bf16" / "epoch1.pkl",
+                      map_location="cpu", weights_only=True)
+    moments = [s["exp_avg"] for s in blob["optimizer"]["state"].values()]
+    live = {s["exp_avg"].dtype for s in trainer.state.optimizer.state
+            .values()}
+    exact = all(m.dtype == torch.float32 and torch.equal(
+        m.to(torch.bfloat16).float(), m) for m in moments)
+    batch = next(iter(trainer.loader()))
+    losses = [float(trainer.step_fn(trainer.state, batch)["loss"])
+              for _ in range(6)]
+    say(f"[lifecycle] opt_mu_dtype='bfloat16': live first moments "
+        f"{sorted(str(d) for d in live)}, the pickle's {len(moments)} f32 "
+        f"and bf16-exact {exact}; one batch, 6 steps: loss {losses[0]:.3f} "
+        f"-> {losses[-1]:.3f}")
+    if live != {torch.bfloat16} or not exact or not losses[-1] < losses[0]:
+        fail("[lifecycle] the bf16 first moment did not train or save")
+    shutil.rmtree(Path(cfg.ckpts_dir) / "ckpt_bf16", ignore_errors=True)
+
+
+def lifecycle_path(torch, dev, rows, work: Path, card: str) -> None:
+    """The phase's sub-steps in order, each timed."""
+    for name, fn in (
+            ("resume", lambda: life_resume(torch, dev, rows, work)),
+            ("preemption", lambda: life_preempt(torch, dev, work)),
+            ("bf16 first moment", lambda: life_bf16_moment(torch, dev,
+                                                           work))):
+        t0 = time.perf_counter()
+        fn()
+        say(f"[lifecycle] {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ckpt, cfg, ds = life_async(torch, dev, work, card)
+    say(f"[lifecycle] async saver and pruning: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    life_serve(torch, dev, rows, ckpt, cfg, ds, card)
+    say(f"[lifecycle] calibrated checkpoint: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

@@ -46,13 +46,12 @@ from mcan_vqa_tpu_torch.data import (load_answer_dict, pad_to_bucket,
                                      prep_request_inputs, topk_answers)
 from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.models.net import MCANet
-from mcan_vqa_tpu_torch.ops.quant import (calibrate_qffn_act_scales,
-                                          prepare_q8aux_params)
 from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
+                                            calibrate_serving_scales,
                                             make_quant_serving_fn,
-                                            prepare_production_params,
                                             quantize_params)
-from mcan_vqa_tpu_torch.train.checkpoint import load_reference_checkpoint
+from mcan_vqa_tpu_torch.train.checkpoint import (load_act_scales,
+                                                 load_reference_checkpoint)
 
 ENGINES = ("fused", "plain", "int8", "int4")
 
@@ -219,31 +218,20 @@ class Predictor:
         """The fused path's engine (api.py:420): explicit engines take one
         calibration replay inside ``build_production_engine``; "auto" with
         q8aux derives its scales first from the batch in two passes
-        (``_calibrate_scales``), as the JAX router does. Every bucket routes
-        to it."""
+        (``calibrate_serving_scales``: the block scales on the bf16 cross
+        k/v path of a level-3 tree, then the "aux" tuple), as the JAX
+        router's ``_calibrate_scales(need_aux=True)`` does (api.py:474).
+        At a width outside the megakernel envelope that gives None: the
+        build then warns and serves the per-sub-op path uncalibrated, as
+        in JAX. Every bucket routes to the engine."""
         if self._auto_routing and self._q8aux and act_inputs is not None:
-            shared = self._calibrate_scales(state_dict, act_inputs)
+            img, ques = act_inputs
+            shared = calibrate_serving_scales(
+                state_dict, img, ques, self.cfg.layer, self.cfg.multi_head,
+                self.device)
             if shared is not None:
                 act_scales, act_inputs = shared, None
         return self._build_fused(state_dict, act_inputs, act_scales)
-
-    def _calibrate_scales(self, state_dict, act_inputs):
-        """``_calibrate_scales(need_aux=True)`` (api.py:474): the block
-        scales on the bf16 cross k/v path of a level-3 tree, then the "aux"
-        tuple from a second replay with the aux sites attached. None at a
-        width outside the megakernel envelope: the build then warns and
-        serves the per-sub-op path uncalibrated, as in JAX."""
-        img, ques = act_inputs
-        L, H = self.cfg.layer, self.cfg.multi_head
-        prepared = prepare_production_params(state_dict, L, qffn=3,
-                                             device=self.device, num_heads=H)
-        if "_mk" not in prepared["backbone"]["enc_0"]:
-            return None
-        scales = calibrate_qffn_act_scales(prepared, img, ques, L, H)
-        prepared["_q8aux"] = prepare_q8aux_params(prepared, L)
-        scales["aux"] = calibrate_qffn_act_scales(prepared, img, ques, L,
-                                                  H)["aux"]
-        return scales
 
     def _install(self, built) -> None:
         """Swap an engine in: one atomic handle holds the engines and the
@@ -267,15 +255,29 @@ class Predictor:
     def from_checkpoint(cls, path: str, cfg: Config,
                         token_to_ix: Dict[str, int],
                         ix_to_ans: Optional[Dict[str, str]] = None,
-                        **kwargs) -> "Predictor":
-        """path: a reference pickle (.pkl / .pt / .pth). kwargs as for
-        ``Predictor``."""
+                        act_scales=None, **kwargs) -> "Predictor":
+        """path: a reference pickle (.pkl / .pt / .pth). act_scales: None
+        loads the static activation scales the Trainer calibrated at the
+        end of training, from the side file beside the pickle
+        (``epoch<N>.act_scales.json``, ``train/checkpoint.py::
+        save_act_scales``), when the engine takes them ("fused", "int4", or
+        "auto", which is "fused" in the port) and no act_calibration is
+        given, so the checkpoint serves its calibrated engine (level 3,
+        int4: level 5) from the first request, as the JAX
+        ``from_checkpoint`` does for its native checkpoint (api.py:742-786);
+        without a side file it serves as ``Predictor`` does (level 1, then
+        online calibration). False declines the side file; a dict is used
+        as it is. kwargs as for ``Predictor``."""
         if not path.endswith((".pkl", ".pt", ".pth")):
             raise NotImplementedError(
                 f"{path}: only reference pickles load into the port so far "
                 f"(orbax checkpoints: convert with state_dict_from_params)")
+        if act_scales is None and kwargs.get("act_calibration") is None \
+                and kwargs.get("engine", "auto") in ("fused", "int4",
+                                                     "auto"):
+            act_scales = load_act_scales(path)
         return cls(cfg, load_reference_checkpoint(path), token_to_ix,
-                   ix_to_ans, **kwargs)
+                   ix_to_ans, act_scales=act_scales, **kwargs)
 
     # ------------------------------------------------------------------
     # online calibration

@@ -2,7 +2,10 @@
 run.py:18-148).
 
     python -m mcan_vqa_tpu_torch.cli.run_vqa --run train [--model large] \
-        [--split train+val+vg] [--eval_ee true] [--synthetic]
+        [--split train+val+vg] [--eval_ee true] [--synthetic] \
+        [--ckpt_async true]
+    python -m mcan_vqa_tpu_torch.cli.run_vqa --run train --resume true \
+        --ckpt_epoch 1 [--ckpt_version V | --ckpt_path epoch1.pkl]
     python -m mcan_vqa_tpu_torch.cli.run_vqa --run val --ckpt_version V \
         --ckpt_epoch 13                      # or --ckpt_path epoch13.pkl
     python -m mcan_vqa_tpu_torch.cli.run_vqa --run test --ckpt_path ...
@@ -17,7 +20,9 @@ instead and evaluates on the JAX package's synthetic val set (seed 1, with
 targets, so ROC-AUC is printed).
 
   train   trains (evaluating the val split after each epoch under
-          ``--eval_ee``), then evaluates val once more;
+          ``--eval_ee``), then evaluates val once more; with ``--resume
+          true`` it goes on from the checkpoint ``--ckpt_*`` names (its
+          weights, AdamW moments and step count) at epoch ``--ckpt_epoch``;
   val     scores the checkpoint on val with the official evaluator and
           writes the EvalAI file ``<result_path>/result_run_<version>.json``;
   test    writes that file for test2015;
@@ -25,8 +30,7 @@ targets, so ROC-AUC is printed).
           (``..._testdev.json``), the reference's val-then-test sequence in
           one command.
 
-Not ported, and raising: ``--resume`` for training (ROADMAP §1 item 5) and
-``--run visualize`` (ROADMAP §1 item 11).
+Not ported, and raising: ``--run visualize`` (ROADMAP §1 item 11).
 """
 
 from __future__ import annotations
@@ -47,9 +51,12 @@ TRAIN_KNOBS = {"batch_size": int, "max_epoch": int, "seed": int,
 PATH_KNOBS = ("dataset_path", "feature_path", "feature_cache_path",
               "vocab_cache_path", "result_path", "pred_path")
 CKPT_KNOBS = {"ckpt_version": str, "ckpt_epoch": int, "ckpt_path": str}
-# flag -> Config field, as the JAX CLI names them
+# flag -> Config field, as the JAX CLI names them (--resume trains on from
+# the checkpoint --ckpt_* names; --ckpt_async writes the epoch pickles on a
+# background thread)
 BOOL_KNOBS = {"eval_ee": "eval_every_epoch", "save_pred": "test_save_pred",
-              "preload": "preload", "verbose": "verbose"}
+              "preload": "preload", "verbose": "verbose", "resume": "resume",
+              "ckpt_async": "ckpt_async"}
 OTHER_KNOBS = ("grad_accu_steps", "lr_decay_list", "train_engine",
                "eval_engine", "dropout_bits", "train_split")
 
@@ -86,8 +93,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="auto (default): the int8 serving engine on the "
                         "card, else the plain model")
     p.add_argument("--dropout_bits", type=int, choices=[8, 16, 32])
-    p.add_argument("--resume", type=_bool,
-                   help="not ported (ROADMAP §1 item 5)")
     for flag in BOOL_KNOBS:
         p.add_argument(f"--{flag}", type=_bool)
     for knob in ARCH_KNOBS:
@@ -147,10 +152,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.run_mode == "visualize":
         raise NotImplementedError(
             "--run visualize is not ported yet (ROADMAP §1 item 11)")
-    if args.run_mode == "train" and args.resume:
-        raise NotImplementedError(
-            "--resume (the AdamW moments and the schedule from a pickle) is "
-            "not ported yet (ROADMAP §1 item 5)")
     cfg = build_config(args)
     datasets = load_datasets(cfg, args)
     if datasets is None:

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Tuple
 # only values the defaults already have)
 TRAIN_ENGINES = EVAL_ENGINES = ("auto", "fused", "plain")
 DROPOUT_BITS = (8, 16, 32)
+MU_DTYPES = ("", "bfloat16")
 MODELS: Dict[str, Dict[str, Any]] = {
     "small": {},
     "large": dict(hidden_size=1024, ff_size=4096, flat_out_size=2048,
@@ -61,6 +62,18 @@ class Config:
     lr_decay_list: Tuple[int, ...] = (8, 12)
     max_epoch: int = 13
     grad_norm_clip: float = -1.0
+    # per-parameter gradient norms summed on the host and written to the
+    # JSONL log every K steps and at each epoch's end; 0 is off
+    # (config.py:67, core/exec.py:199-202)
+    grad_norm_log_every: int = 0
+    # AdamW (config.py:73-78): the reference declares (0.9, 0.98) / 1e-9
+    # but never passes them, so torch's defaults are the live ones;
+    # opt_mu_dtype "bfloat16" stores the first moment in bf16 (optax
+    # mu_dtype), "" keeps it f32
+    opt_betas: Tuple[float, float] = (0.9, 0.999)
+    opt_eps: float = 1e-8
+    weight_decay: float = 1e-4
+    opt_mu_dtype: str = ""
     reg_factor: float = 0.0
     verbose: bool = True
     ckpts_dir: str = "./ckpts/"
@@ -70,6 +83,17 @@ class Config:
     # engine (on the CPU its kernels' plain versions, test-only); "plain"
     # always the plain engine (config.py:136, trainer.py:540-567)
     train_engine: str = "auto"
+    # the checkpoint lifecycle (config.py:28, :99-100, :130, :149):
+    # resume from the checkpoint the ckpt_* fields name; keep only the
+    # newest keep_last_ckpts epochs (0 keeps all); write the epoch pickles
+    # on a background thread; calibrate static int8 activation scales on
+    # the last train batch and store them beside the last pickle; a
+    # torch.profiler trace of the epochs into profile_dir ("" is off)
+    resume: bool = False
+    keep_last_ckpts: int = 0
+    ckpt_async: bool = False
+    ckpt_calibrate: bool = True
+    profile_dir: str = ""
 
     # ---- evaluation and data (config.py:35-39, :105, :119-121)
     eval_every_epoch: bool = True
@@ -114,6 +138,21 @@ class Config:
         if self.dropout_bits not in DROPOUT_BITS:
             raise ValueError(f"dropout_bits must be one of {DROPOUT_BITS}, "
                              f"got {self.dropout_bits!r}")
+        if self.opt_mu_dtype not in MU_DTYPES:
+            raise ValueError(f"opt_mu_dtype must be one of {MU_DTYPES}, "
+                             f"got {self.opt_mu_dtype!r}")
+        if len(self.opt_betas) != 2 or not all(
+                0.0 <= b < 1.0 for b in self.opt_betas):
+            raise ValueError(f"opt_betas must be two values in [0, 1), got "
+                             f"{self.opt_betas!r}")
+        if self.opt_eps < 0.0 or self.weight_decay < 0.0:
+            raise ValueError(
+                f"opt_eps and weight_decay must be >= 0, got "
+                f"{self.opt_eps!r} and {self.weight_decay!r}")
+        for name in ("keep_last_ckpts", "grad_norm_log_every"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)!r}")
 
     @classmethod
     def for_model(cls, model: str = "small", **overrides: Any) -> "Config":

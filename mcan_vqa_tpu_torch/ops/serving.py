@@ -697,6 +697,29 @@ def build_production_engine(state_dict: Mapping[str, torch.Tensor],
                            **serving_kwargs), prepared
 
 
+def calibrate_serving_scales(state_dict: Mapping[str, torch.Tensor],
+                             img, ques, num_layers: int, num_heads: int,
+                             device="cuda"):
+    """Static activation scales of the shipped engine, with the aux sites'
+    tuple, from one batch in two replays (the JAX Predictor's
+    ``_calibrate_scales(need_aux=True)``, api.py:474, and the Trainer's
+    end-of-train calibration, trainer.py:495-528): the block scales on the
+    bf16 cross k/v path of a level-3 tree, which the default engine runs,
+    then only the "aux" tuple from a replay with the aux sites attached.
+    -> {"enc_i" / "dec_i" / "aux": tuple of floats}, or None at a width
+    outside ``megakernel_vmem_ok`` (no int8 site to calibrate)."""
+    prepared = prepare_production_params(state_dict, num_layers, qffn=3,
+                                         device=device, num_heads=num_heads)
+    if "_mk" not in prepared["backbone"]["enc_0"]:
+        return None
+    scales = calibrate_qffn_act_scales(prepared, img, ques, num_layers,
+                                       num_heads)
+    prepared["_q8aux"] = prepare_q8aux_params(prepared, num_layers)
+    scales["aux"] = calibrate_qffn_act_scales(prepared, img, ques,
+                                              num_layers, num_heads)["aux"]
+    return scales
+
+
 # ---------------------------------------------------------------------------
 # the full-int8 engine (quant.py:88-198, :1441-1513, megakernel=True)
 # ---------------------------------------------------------------------------

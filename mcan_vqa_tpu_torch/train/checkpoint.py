@@ -1,5 +1,6 @@
-"""Checkpoints of the port: weight carry-over in, and the per-epoch
-training checkpoint out (the orbax format is not ported).
+"""Checkpoints of the port: weight carry-over in, the per-epoch training
+checkpoint out, and its lifecycle (the orbax format is not ported: the
+port's own format is the reference pickle).
 
   * ``state_dict_from_params``: JAX params (a nested dict of arrays, as
     ``model.init(...)["params"]`` or an orbax restore gives them) -> the
@@ -11,19 +12,30 @@ training checkpoint out (the orbax format is not ported).
     DataParallel stripped.
   * ``load_params``: the pickle a ``Config`` names (``ckpt_path``, else
     ``ckpts_dir`` / ``ckpt_version`` / ``ckpt_epoch``) -> state_dict, the
-    weights ``run_vqa --run val / test / parity`` evaluates. Weights only:
-    resuming the AdamW moments and the schedule is not ported.
+    weights ``run_vqa --run val / test / parity`` evaluates.
   * ``save_checkpoint``: a train state -> that pickle,
     ``{state_dict, optimizer, lr_base}`` with the AdamW state indexed in
     Net2's parameter order, at ``<ckpts_dir>/ckpt_<version>/epoch<N>.pkl``
-    (core/exec.py:241-253). The JAX ``import_torch_checkpoint`` and
-    ``Predictor.from_checkpoint`` both read it.
+    (core/exec.py:241-253); a bf16 first moment (``opt_mu_dtype``) is
+    stored f32, which is exact. The JAX ``import_torch_checkpoint``,
+    ``import_torch_opt_state`` and ``Predictor.from_checkpoint`` read it.
+    ``AsyncCheckpointSaver`` writes the same pickle on a worker thread.
+  * ``resume_state``: the trajectory-faithful resume (the JAX Trainer's
+    ``_resume``, trainer.py:122-146): the weights through
+    ``merge_compatible``, the AdamW moments and the step count.
+  * ``latest_epoch`` / ``prune_checkpoints`` and the activation-scale side
+    file ``epoch<N>.act_scales.json`` beside a pickle
+    (checkpoint.py:149-231), which ``Predictor.from_checkpoint`` loads.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, List, Mapping, Tuple
+import queue
+import re
+import threading
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,12 +145,12 @@ def checkpoint_path(ckpts_dir: str, version: str, epoch: int) -> str:
     return os.path.join(ckpts_dir, f"ckpt_{version}", f"epoch{epoch}.pkl")
 
 
-def load_params(cfg) -> Dict[str, torch.Tensor]:
-    """The weights of the checkpoint ``cfg`` names: ``cfg.ckpt_path`` (a
-    reference pickle, .pkl / .pt / .pth), else the port's epoch pickle
+def named_checkpoint(cfg) -> str:
+    """The pickle ``cfg`` names: ``cfg.ckpt_path`` (a reference pickle,
+    .pkl / .pt / .pth), else the port's epoch pickle
     ``<ckpts_dir>/ckpt_<ckpt_version or run_version>/epoch<ckpt_epoch>.pkl``
-    (the JAX Trainer's ``_resume``, trainer.py:122-170, minus the optimizer
-    state)."""
+    (the JAX Trainer's ``_resume``, trainer.py:122-170). Raises when it is
+    absent."""
     path = cfg.ckpt_path
     if path:
         if not path.endswith((".pkl", ".pt", ".pth")):
@@ -154,17 +166,41 @@ def load_params(cfg) -> Dict[str, torch.Tensor]:
                                cfg.ckpt_epoch)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    return load_reference_checkpoint(path)
+    return path
 
 
-def _to_cpu(obj):
+def load_params(cfg) -> Dict[str, torch.Tensor]:
+    """The weights of the checkpoint ``cfg`` names (``named_checkpoint``)."""
+    return load_reference_checkpoint(named_checkpoint(cfg))
+
+
+def _map(obj, fn):
+    """``fn`` applied to every tensor of a nested container."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return fn(obj)
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: _map(v, fn) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_cpu(v) for v in obj)
+        return type(obj)(_map(v, fn) for v in obj)
     return obj
+
+
+def _to_cpu(obj, f32: bool = False):
+    """Tensors of a nested container moved to the CPU; ``f32`` also casts
+    bf16 tensors to f32 (exact)."""
+    def host(t):
+        t = t.detach().cpu()
+        return t.float() if f32 and t.dtype == torch.bfloat16 else t
+    return _map(obj, host)
+
+
+def _blob(model_sd, optimizer_sd, lr_base: float) -> Dict[str, Any]:
+    """The pickle's content on the CPU: {state_dict, optimizer, lr_base},
+    the optimizer's bf16 moments as f32 (the JAX ``import_torch_opt_state``
+    reads f32 only)."""
+    return {"state_dict": _to_cpu(model_sd),
+            "optimizer": _to_cpu(optimizer_sd, f32=True),
+            "lr_base": float(lr_base)}
 
 
 def save_checkpoint(state, ckpts_dir: str, version: str, epoch: int,
@@ -175,8 +211,260 @@ def save_checkpoint(state, ckpts_dir: str, version: str, epoch: int,
     CPU."""
     path = checkpoint_path(ckpts_dir, version, epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    blob = {"state_dict": _to_cpu(state.model.state_dict()),
-            "optimizer": _to_cpu(state.optimizer.state_dict()),
-            "lr_base": float(lr_base)}
-    torch.save(blob, path)
+    torch.save(_blob(state.model.state_dict(), state.optimizer.state_dict(),
+                     lr_base), path)
     return path
+
+
+# ---------------------------------------------------------------------------
+# housekeeping and the activation-scale side file
+# ---------------------------------------------------------------------------
+
+_EPOCH = re.compile(r"epoch(\d+)\.pkl")
+
+
+def _epochs(ckpts_dir: str, version: str) -> List[int]:
+    d = os.path.join(ckpts_dir, f"ckpt_{version}")
+    if not os.path.isdir(d):
+        return []
+    return sorted(int(m.group(1)) for n in os.listdir(d)
+                  if (m := _EPOCH.fullmatch(n)))
+
+
+def latest_epoch(ckpts_dir: str, version: str) -> Optional[int]:
+    """The newest epoch pickle of ``version``, or None."""
+    epochs = _epochs(ckpts_dir, version)
+    return epochs[-1] if epochs else None
+
+
+def prune_checkpoints(ckpts_dir: str, version: str, keep_last: int) -> int:
+    """Keep only the newest ``keep_last`` epoch pickles (and their side
+    files) -> the number removed; keep_last <= 0 keeps all
+    (checkpoint.py:211-231)."""
+    if keep_last <= 0:
+        return 0
+    removed = 0
+    for e in _epochs(ckpts_dir, version)[:-keep_last]:
+        path = checkpoint_path(ckpts_dir, version, e)
+        for p in (path, act_scales_path(path)):
+            if os.path.exists(p):
+                os.remove(p)
+        removed += 1
+    return removed
+
+
+def act_scales_path(ckpt_path: str) -> str:
+    """The side file of the static activation scales beside a checkpoint
+    pickle: ``.../epoch<N>.pkl`` -> ``.../epoch<N>.act_scales.json``."""
+    return os.path.splitext(os.path.abspath(ckpt_path))[0] + \
+        ".act_scales.json"
+
+
+def save_act_scales(ckpt_path: str, scales: Mapping[str, tuple]) -> str:
+    """Write ``scales`` ({"enc_i" / "dec_i" / "aux": tuple of floats}, as
+    ``calibrate_qffn_act_scales`` returns them) beside the pickle, in the
+    JAX side file's layout (checkpoint.py:149-165) -> its path."""
+    path = act_scales_path(ckpt_path)
+    with open(path, "w") as f:
+        json.dump({k: list(v) for k, v in scales.items()}, f, indent=1)
+    return path
+
+
+def load_act_scales(ckpt_path: str) -> Optional[Dict[str, tuple]]:
+    """The scales stored beside a checkpoint pickle, or None without a
+    side file."""
+    path = act_scales_path(ckpt_path)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        raw = json.load(f)
+    return {k: tuple(float(x) for x in v) for k, v in raw.items()}
+
+
+# ---------------------------------------------------------------------------
+# the background writer
+# ---------------------------------------------------------------------------
+
+def _tensors(obj) -> List[torch.Tensor]:
+    found: List[torch.Tensor] = []
+    _map(obj, found.append)
+    return found
+
+
+class AsyncCheckpointSaver:
+    """Writes the epoch pickles on a worker thread while the next epoch
+    trains (checkpoint.py:52-146).
+
+    ``save`` first copies the weights and the optimizer state on their
+    device: the optimizer updates the live tensors in place, so the worker
+    must never read them. The copies are queued on the train stream (the
+    current one) behind the step that produced the state, and an event
+    recorded after them is what the worker waits for, on a stream of its
+    own, before it moves the copy to the host; the copies are marked as
+    used on that stream, so their memory is not reused under it. The
+    worker then writes the pickle ``save_checkpoint`` writes and prunes
+    (``keep_last``), so the directory changes on one thread only.
+
+    The queue holds one pending snapshot (each is a full copy of the
+    weights and both moments on the device): a ``save`` waits until the
+    worker has picked up the one before. A failed write is raised again by
+    the next ``save``, ``wait`` or ``close``; ``close`` joins the worker
+    before it raises."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._error: Optional[BaseException] = None
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="mcan-async-ckpt")
+        self._worker.start()
+
+    def save(self, state, ckpts_dir: str, version: str, epoch: int,
+             lr_base: float, keep_last: int = 0) -> str:
+        self._reraise()
+        snapshot = _map((state.model.state_dict(),
+                         state.optimizer.state_dict()),
+                        lambda t: t.detach().clone())
+        event = device = None
+        cuda = [t for t in _tensors(snapshot) if t.is_cuda]
+        if cuda:
+            device = cuda[0].device
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+        path = checkpoint_path(ckpts_dir, version, epoch)
+        self._q.put((snapshot, event, device, float(lr_base), path,
+                     ckpts_dir, version, keep_last))
+        return path
+
+    def wait(self) -> None:
+        """Block until every queued checkpoint is on disk."""
+        self._q.join()
+        self._reraise()
+
+    def close(self) -> None:
+        """Flush, stop and join the worker; a stored write error is raised
+        after the worker has ended."""
+        try:
+            self.wait()
+        finally:
+            self._q.put(None)
+            self._worker.join()
+
+    def _reraise(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            (snapshot, event, device, lr_base, path, ckpts_dir, version,
+             keep_last) = item
+            try:
+                if event is not None:
+                    stream = torch.cuda.Stream(device=device)
+                    stream.wait_event(event)
+                    for t in _tensors(snapshot):
+                        if t.is_cuda:
+                            t.record_stream(stream)
+                    with torch.cuda.stream(stream):
+                        blob = _blob(*snapshot, lr_base)
+                else:
+                    blob = _blob(*snapshot, lr_base)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                torch.save(blob, path)
+                prune_checkpoints(ckpts_dir, version, keep_last)
+            except Exception as e:  # noqa: BLE001 (raised on the next call)
+                self._error = e
+            finally:
+                del snapshot
+                self._q.task_done()
+
+
+# ---------------------------------------------------------------------------
+# resume
+# ---------------------------------------------------------------------------
+
+def merge_compatible(template: Mapping[str, torch.Tensor],
+                     incoming: Mapping[str, torch.Tensor], logger=None
+                     ) -> Dict[str, torch.Tensor]:
+    """``incoming`` where its tensor has the template's shape, else the
+    template's, with a log line (the JAX Trainer's ``_merge_compatible``,
+    trainer.py:777-795: a changed vocabulary on a warm start)."""
+    merged = {}
+    for k, tv in template.items():
+        iv = incoming.get(k)
+        if iv is not None and tuple(iv.shape) == tuple(tv.shape):
+            merged[k] = iv
+        else:
+            if logger is not None:
+                logger.write(f"warm-start skip {k}: "
+                             f"{None if iv is None else tuple(iv.shape)} vs "
+                             f"{tuple(tv.shape)}")
+            merged[k] = tv
+    return merged
+
+
+def _import_moments(state, optimizer_sd: Mapping[str, Any],
+                    param_keys: List[str]) -> int:
+    """The pickle's AdamW state (indexed in ``param_keys``' order, the
+    pickle's state_dict order) into ``state.optimizer`` -> the step count.
+    A moment whose parameter is absent or shaped otherwise raises, as the
+    JAX ``import_torch_opt_state`` does (checkpoint.py:480-490)."""
+    params = dict(state.model.named_parameters())
+    index = {n: j for j, n in enumerate(params)}
+    saved = optimizer_sd.get("state", {})
+    moments, homeless, step = {}, [], 0
+    for i, key in enumerate(param_keys):
+        s = saved.get(i, saved.get(str(i)))
+        if s is None:
+            continue
+        p = params.get(key)
+        if p is None or any(tuple(s[m].shape) != tuple(p.shape)
+                            for m in ("exp_avg", "exp_avg_sq")):
+            homeless.append(key)
+            continue
+        moments[index[key]] = {
+            "step": torch.as_tensor(s["step"], dtype=torch.float32).clone(),
+            "exp_avg": s["exp_avg"], "exp_avg_sq": s["exp_avg_sq"]}
+        step = max(step, int(float(s["step"])))
+    if homeless:
+        raise ValueError(
+            f"{len(homeless)} optimizer moment(s) of the checkpoint have no "
+            f"home in the model (e.g. {', '.join(homeless[:4])}): a "
+            f"trajectory-faithful resume is impossible; match the model, or "
+            f"resume the weights only (drop the pickle's 'optimizer' entry)")
+    sd = state.optimizer.state_dict()
+    sd["state"] = moments
+    state.optimizer.load_state_dict(sd)
+    return step
+
+
+def resume_state(state, cfg, data_size: int, logger=None):
+    """Restore ``state`` (a TrainState over an MCANet) from the pickle
+    ``cfg`` names (``named_checkpoint``), as the JAX Trainer's ``_resume``
+    does from a pickle (trainer.py:122-146): the weights through
+    ``merge_compatible``; with an "optimizer" entry its AdamW moments and
+    its step count; without one the step replayed from the epoch,
+    int(data_size / batch_size x ckpt_epoch) (core/exec.py:90-94), and
+    fresh moments. -> state."""
+    path = named_checkpoint(cfg)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    has_sd = isinstance(blob, dict) and "state_dict" in blob
+    incoming = {k.removeprefix("module."): v for k, v in
+                (blob["state_dict"] if has_sd else blob).items()}
+    state.model.load_state_dict(
+        merge_compatible(state.model.state_dict(), incoming, logger))
+    optimizer_sd = blob.get("optimizer") if has_sd else None
+    if isinstance(optimizer_sd, dict):
+        state.step = _import_moments(state, optimizer_sd, list(incoming))
+        msg = f"resume: restored AdamW moments @ step {state.step}"
+    else:
+        state.step = int(data_size / cfg.batch_size * cfg.ckpt_epoch)
+        msg = (f"resume: weights only, step {state.step} from epoch "
+               f"{cfg.ckpt_epoch}")
+    if logger is not None:
+        logger.write(f"{msg} ({path})")
+    return state

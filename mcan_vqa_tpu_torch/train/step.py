@@ -53,7 +53,8 @@ def global_norm(grads) -> torch.Tensor:
 def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
                     reg_factor: float = 0.0,
                     lr_schedule: Optional[Callable[[int], float]] = None,
-                    reg_mode: str = "l1l2", grad_norm_clip: float = 0.0
+                    reg_mode: str = "l1l2", grad_norm_clip: float = 0.0,
+                    per_param_norms: bool = False
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """-> step(state, batch) -> metrics, updating ``state`` in place.
@@ -61,17 +62,26 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
     batch: {"img": [B, R, F] f32, "ques": [B, T] int, "target": [B, A] f32}
     on the model's device, B = grad_accu_steps x micro-batch.
     forward_fn(net, img, ques, generator) -> logits draws its dropout
-    masks from ``state.generator``. grad_norm_clip > 0 scales the gradients
-    to that global norm where it is exceeded (optax.clip_by_global_norm);
-    the reported grad_norm is the one before the clip. lr_schedule maps the
-    step count before the update to the learning rate."""
+    masks from ``state.generator``, which the step first re-seeds from the
+    run's seed and its step count (``TrainState.seed_step``: JAX's
+    ``fold_in(dropout_rng, step)``, step.py:118). grad_norm_clip > 0
+    scales the gradients to that global norm where it is exceeded
+    (optax.clip_by_global_norm); the reported grad_norm is the one before
+    the clip. lr_schedule maps the step count before the update to the
+    learning rate. per_param_norms: the metrics also hold
+    "param_grad_norms", {parameter name: the L2 norm of its gradient x the
+    clip's scale x grad_accu_steps} (JAX's bookkeeping, step.py:160-173,
+    the reference's, core/exec.py:199-202)."""
     penalty = PENALTIES[reg_mode]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        params = [p for p in state.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+        params = [p for _, p in named]
         for p in params:
             p.grad = None
+        state.seed_step()
         n = batch["img"].shape[0]
         if n % grad_accu_steps:
             raise ValueError(f"batch of {n} does not split into "
@@ -89,6 +99,16 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
             loss_sum += loss.detach()
         grads = [p.grad for p in params]
         gnorm = global_norm(grads)
+        metrics = {"loss": loss_sum, "grad_norm": gnorm}
+        if per_param_norms:
+            scale = float(grad_accu_steps)
+            if grad_norm_clip > 0:
+                scale = torch.clamp(grad_norm_clip / torch.clamp(
+                    gnorm, min=1e-12), max=1.0) * scale
+            norms = torch.stack([torch.linalg.vector_norm(g.float())
+                                 for g in grads]) * scale
+            metrics["param_grad_norms"] = dict(
+                zip((n for n, _ in named), norms.unbind()))
         if grad_norm_clip > 0:
             scale = torch.where(gnorm < grad_norm_clip, 1.0,
                                 grad_norm_clip / gnorm)
@@ -100,7 +120,6 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
                 group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        metrics = {"loss": loss_sum, "grad_norm": gnorm}
         if lr is not None:
             metrics["lr"] = torch.tensor(lr)
         return metrics

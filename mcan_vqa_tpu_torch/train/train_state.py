@@ -1,12 +1,27 @@
 """What a train step reads and updates: the model's parameters, the
 optimizer, the step count and the dropout generator
-(mcan_vqa_tpu/train/train_state.py)."""
+(mcan_vqa_tpu/train/train_state.py).
+
+Each step's dropout is a function of the seed and the step count alone,
+as JAX's ``fold_in(dropout_rng, step)`` (step.py:118): the step re-seeds
+the generator from both (``seed_step``) before it draws, so a run resumed
+from a checkpoint, which carries the step count and not the generator,
+draws the masks and in-kernel seeds an unbroken run draws.
+"""
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import torch
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of step ``step`` of a run seeded ``seed``: 64
+    bits of a hash of both."""
+    digest = hashlib.sha256(f"{int(seed)}:{int(step)}".encode()).digest()
+    return int.from_bytes(digest[:8], "little")
 
 
 @dataclass
@@ -15,6 +30,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int                   # optimizer steps taken (optax count)
     generator: torch.Generator  # draws every dropout mask, on the device
+    seed: int = 444
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -22,4 +38,9 @@ class TrainState:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         return cls(model=model, optimizer=optimizer, step=step,
-                   generator=generator)
+                   generator=generator, seed=seed)
+
+    def seed_step(self) -> None:
+        """Re-seed the generator for the step about to run (idempotent
+        until the step count moves)."""
+        self.generator.manual_seed(step_seed(self.seed, self.step))

@@ -38,16 +38,29 @@ serving engine on a CUDA device, else plain. The serving engine is built
 again from the current weights at each ``predict``, as JAX prepares its
 parameters per call (trainer.py:602-668): mid-training evaluations see the
 weights of that epoch.
-Resume (AdamW moments and schedule), the classifier and MIMIC tasks and
-preemption handling are not ported: asking for them raises.
+
+The checkpoint lifecycle is the JAX Trainer's (trainer.py:108-537): under
+``cfg.resume`` the state is restored from the pickle the ``ckpt_*``
+fields name (weights, AdamW moments, step count: ``train/checkpoint.py::
+resume_state``) and the epochs go on from ``ckpt_epoch``; each step's
+dropout depends only on the seed and the step count, so the resumed run
+trains as the unbroken one. SIGTERM / SIGINT ask for a checkpoint at the
+next step boundary and a clean return. ``ckpt_async`` writes the pickles
+on a worker thread, ``keep_last_ckpts`` prunes the older ones, and
+``ckpt_calibrate`` stores static int8 activation scales calibrated on the
+last train batch beside the last pickle, which ``Predictor.
+from_checkpoint`` serves at level 3. The classifier and MIMIC tasks are
+not ported: asking for them raises.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import signal
+import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,13 +70,18 @@ from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.evals import vqa_eval
 from mcan_vqa_tpu_torch.evals.roc_auc import multilabel_roc_auc
 from mcan_vqa_tpu_torch.models.net import MCANet
-from mcan_vqa_tpu_torch.ops.serving import build_production_engine
-from mcan_vqa_tpu_torch.train.checkpoint import save_checkpoint
+from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
+                                            calibrate_serving_scales)
+from mcan_vqa_tpu_torch.train.checkpoint import (
+    AsyncCheckpointSaver, checkpoint_path, load_reference_checkpoint,
+    merge_compatible, prune_checkpoints, resume_state, save_act_scales,
+    save_checkpoint)
 from mcan_vqa_tpu_torch.train.fused_engine import make_fused_train_forward
 from mcan_vqa_tpu_torch.train.optim import make_lr_schedule, make_optimizer
 from mcan_vqa_tpu_torch.train.step import make_eval_step, make_train_step
 from mcan_vqa_tpu_torch.train.train_state import TrainState
-from mcan_vqa_tpu_torch.utils.logging import RunLogger
+from mcan_vqa_tpu_torch.utils.logging import RunLogger, StepMeter
+from mcan_vqa_tpu_torch.utils.profiling import StepTimer, trace
 
 
 def engine_route(hidden_size: int) -> dict:
@@ -162,15 +180,16 @@ class Trainer:
             pretrained_emb=getattr(ref, "pretrained_emb", None),
             generator=torch.Generator().manual_seed(cfg.seed)
         ).to(self.device)
-        data_size = len(train_dataset) if train_dataset is not None \
+        self.data_size = len(train_dataset) if train_dataset is not None \
             else cfg.batch_size
         self.lr_schedule = make_lr_schedule(
-            cfg.lr_base, data_size, cfg.batch_size,
+            cfg.lr_base, self.data_size, cfg.batch_size,
             decay_epochs=tuple(cfg.lr_decay_list),
             decay_rate=cfg.lr_decay_rate)
         self.state = TrainState.create(
             self.model, make_optimizer(self.model.parameters(), cfg),
             seed=cfg.seed)
+        self._state_settled = False    # resumed or warm-started already
         self.fused = use_fused_train(cfg, self.device)
         self.build_step(self.fused and self.device.type == "cuda")
         self.fused_eval = use_fused_eval(cfg, self.device)
@@ -191,56 +210,203 @@ class Trainer:
         self.step_fn = make_train_step(
             self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
             reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
-            grad_norm_clip=cfg.grad_norm_clip)
+            grad_norm_clip=cfg.grad_norm_clip,
+            per_param_norms=cfg.grad_norm_log_every > 0)
 
     def loader(self) -> BatchLoader:
         return BatchLoader(self.train_dataset, self.cfg.batch_size,
                            self.device, shuffle=True, drop_last=True,
                            seed=self.cfg.seed)
 
-    def train(self) -> TrainState:
-        """Epochs 0 .. max_epoch - 1 from a fresh state: this version's
-        earlier checkpoints and logs are cleared first (the reference's
-        fresh run, core/exec.py:96-102)."""
+    def ensure_state(self, resume: Optional[bool] = None) -> TrainState:
+        """The train state, restored once from the checkpoint the config
+        names when ``resume`` (None: ``cfg.resume``) asks for it
+        (trainer.py:108-120)."""
+        do_resume = self.cfg.resume if resume is None else resume
+        if do_resume and not self._state_settled:
+            resume_state(self.state, self.cfg, self.data_size, self.logger)
+            self._state_settled = True
+        return self.state
+
+    def warm_start(self, path: str) -> None:
+        """Shape-compatible weights from a reference pickle, the rest kept
+        (``merge_compatible``), with a fresh optimizer and step 0
+        (trainer.py:167-179; the MIMIC warm start from the VQA zoo,
+        core/exec.py:468-475)."""
+        if not path.endswith((".pkl", ".pt", ".pth")):
+            raise NotImplementedError(
+                f"{path}: only reference pickles load into the port")
+        self.model.load_state_dict(merge_compatible(
+            self.model.state_dict(), load_reference_checkpoint(path),
+            self.logger))
+        self.state = TrainState.create(
+            self.model, make_optimizer(self.model.parameters(), self.cfg),
+            seed=self.cfg.seed)
+        self._state_settled = True
+
+    def _save_epoch(self, saver, state, epoch: int) -> str:
+        """The epoch pickle, through the async saver or at once, then the
+        pruning of older epochs."""
+        cfg = self.cfg
+        args = (cfg.ckpts_dir, cfg.run_version, epoch, cfg.lr_base)
+        if saver is not None:
+            return saver.save(state, *args, keep_last=cfg.keep_last_ckpts)
+        path = save_checkpoint(state, *args)
+        prune_checkpoints(cfg.ckpts_dir, cfg.run_version, cfg.keep_last_ckpts)
+        return path
+
+    def train(self, start_epoch: int = 0) -> TrainState:
+        """Epochs ``start_epoch`` .. max_epoch - 1 (trainer.py:182-484).
+        A fresh run (not ``cfg.resume``, start epoch 0) clears this
+        version's earlier checkpoints and logs first (core/exec.py:96-102);
+        under ``cfg.resume`` the state is restored (``ensure_state``) and
+        the loop starts at max(start_epoch, cfg.ckpt_epoch).
+
+        Preemption-safe: SIGTERM / SIGINT set a flag, and the next step
+        boundary saves the epoch's checkpoint, logs ``preempted_at_step``
+        and returns; the old handlers come back on the way out (a thread
+        other than the main one runs without handlers). ``ckpt_async``
+        writes the pickles on a worker thread, flushed on the way out: its
+        error is raised on a clean exit and logged while another exception
+        unwinds. ``keep_last_ckpts`` prunes; ``grad_norm_log_every`` writes
+        ``grad_norm_sums`` JSONL lines; the epochs run inside
+        ``trace(cfg.profile_dir)``. Last, under ``ckpt_calibrate``, the
+        serving scales from the last train batch go beside the last pickle
+        (``_save_serving_calibration``), best-effort: a failure is logged
+        and the run kept."""
         cfg = self.cfg
         if self.train_dataset is None:
             raise ValueError("train() needs a train_dataset")
-        ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
-        if os.path.isdir(ckpt_dir):
-            shutil.rmtree(ckpt_dir)
-        self.logger.clear()
-        self.logger.write(f"NOW TIME: {time.strftime('%Y-%m-%d %H:%M:%S')}")
+        if not cfg.resume and start_epoch == 0:
+            ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
+            if os.path.isdir(ckpt_dir):
+                shutil.rmtree(ckpt_dir)
+            self.logger.clear()
+            self.logger.header()
+        state = self.ensure_state()
         line = engine_line(cfg.hidden_size, self.fused,
                            self.in_kernel_dropout, cfg.dropout_bits)
         self.logger.write(f"{line} (device {self.device})")
         if cfg.eval_every_epoch and self.eval_datasets:
             self.logger.write(eval_engine_line(self.fused_eval))
+        if cfg.resume:
+            start_epoch = max(start_epoch, cfg.ckpt_epoch)
         loader = self.loader()
-        state = self.state
-        for epoch in range(cfg.max_epoch):
-            loader.set_epoch(epoch)
-            t0 = time.perf_counter()
-            loss_sum, n_steps, lr = 0.0, 0, 0.0
-            for batch in loader:
-                metrics = self.step_fn(state, batch)
-                loss_sum += float(metrics["loss"])
-                lr = float(metrics["lr"])
-                n_steps += 1
-            path = save_checkpoint(state, cfg.ckpts_dir, cfg.run_version,
-                                   epoch + 1, cfg.lr_base)
-            metrics = {"loss": loss_sum / max(n_steps, 1), "lr": lr,
-                       "steps": n_steps, "wall_s": time.perf_counter() - t0,
-                       "checkpoint": path}
-            if cfg.eval_every_epoch:
-                for name, ds in self.eval_datasets.items():
-                    if epoch % max(int(self.eval_cadence.get(name, 1)), 1):
-                        continue
-                    res = self.evaluate(ds)
-                    self.logger.write(f"epoch {epoch} eval {name}: {res}")
-                    metrics.update({f"{name}/{k}": v for k, v in res.items()
-                                    if isinstance(v, float)})
-            self.logger.epoch(epoch, metrics)
+        stop = {"flag": False}
+
+        def request_stop(signum, frame):
+            stop["flag"] = True
+            self.logger.write(f"signal {signum}: checkpoint-and-exit "
+                              f"requested")
+
+        old_handlers = {}
+        saver = None
+        last_inputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        last_saved = None
+        try:
+            try:
+                for sig in (signal.SIGTERM, signal.SIGINT):
+                    old_handlers[sig] = signal.signal(sig, request_stop)
+            except ValueError:
+                pass                  # not the main thread: no handlers
+            saver = AsyncCheckpointSaver() if cfg.ckpt_async else None
+            with trace(cfg.profile_dir):
+                for epoch in range(start_epoch, cfg.max_epoch):
+                    loader.set_epoch(epoch)
+                    t0 = time.perf_counter()
+                    meter = StepMeter(len(loader), enabled=cfg.verbose)
+                    timer = StepTimer()
+                    loss_sum, n_steps, lr = 0.0, 0, 0.0
+                    norm_sums: Dict[str, float] = {}
+                    for batch in loader:
+                        if stop["flag"]:
+                            break
+                        last_inputs = (batch["img"], batch["ques"])
+                        metrics = self.step_fn(state, batch)
+                        loss_sum += float(metrics["loss"])
+                        lr = float(metrics["lr"])
+                        n_steps += 1
+                        if "param_grad_norms" in metrics:
+                            norms = metrics["param_grad_norms"]
+                            values = torch.stack(list(norms.values()))
+                            for name, v in zip(norms, values.tolist()):
+                                norm_sums[name] = norm_sums.get(name, 0.0) + v
+                            if n_steps % cfg.grad_norm_log_every == 0:
+                                self.logger.jsonl({
+                                    "epoch": epoch, "step": n_steps,
+                                    "grad_norm_sums": norm_sums})
+                        timer.tick()
+                        meter.update({"loss": metrics["loss"], "lr": lr})
+                    if norm_sums:
+                        self.logger.jsonl({"epoch": epoch, "step": n_steps,
+                                           "grad_norm_sums": norm_sums,
+                                           "final": True})
+                    path = self._save_epoch(saver, state, epoch + 1)
+                    last_saved = epoch + 1
+                    metrics = {"loss": loss_sum / max(n_steps, 1), "lr": lr,
+                               "steps": n_steps,
+                               "wall_s": time.perf_counter() - t0,
+                               "step_ema_s": timer.ema or 0.0,
+                               "checkpoint": path}
+                    if stop["flag"]:
+                        self.logger.epoch(epoch, {
+                            **metrics, "preempted_at_step": n_steps})
+                        break
+                    if cfg.eval_every_epoch:
+                        for name, ds in self.eval_datasets.items():
+                            if epoch % max(int(self.eval_cadence.get(name,
+                                                                     1)), 1):
+                                continue
+                            res = self.evaluate(ds)
+                            self.logger.write(f"epoch {epoch} eval {name}: "
+                                              f"{res}")
+                            metrics.update({f"{name}/{k}": v
+                                            for k, v in res.items()
+                                            if isinstance(v, float)})
+                    self.logger.epoch(epoch, metrics)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+            if saver is not None:
+                unwinding = sys.exc_info()[0] is not None
+                try:
+                    saver.close()
+                except Exception:
+                    if not unwinding:
+                        raise
+                    self.logger.write(
+                        "async checkpoint flush failed during error unwind "
+                        "(original exception propagates)")
+        if cfg.ckpt_calibrate and last_inputs is not None \
+                and last_saved is not None:
+            try:
+                self._save_serving_calibration(last_inputs, last_saved)
+            except Exception as e:  # noqa: BLE001 (the run is kept)
+                self.logger.write(
+                    f"end-of-train serving calibration failed (the "
+                    f"training run itself is unaffected): {e!r}")
         return state
+
+    def _save_serving_calibration(self, inputs, epoch: int) -> None:
+        """Static int8 activation scales of the shipped serving engine from
+        the last real train batch, the "aux" tuple from a second replay
+        (``calibrate_serving_scales``), written beside epoch ``epoch``'s
+        pickle (``save_act_scales``) so that ``Predictor.from_checkpoint``
+        serves level 3 with no calibration step (trainer.py:463-537).
+        Skipped, with a log line, at a width with no int8 site."""
+        cfg = self.cfg
+        img, ques = inputs
+        scales = calibrate_serving_scales(self.model.state_dict(), img, ques,
+                                          cfg.layer, cfg.multi_head,
+                                          self.device)
+        if scales is None:
+            self.logger.write(
+                "serving calibration skipped: model dims are outside the "
+                "megakernel VMEM envelope (no int8 quant sites)")
+            return
+        path = save_act_scales(
+            checkpoint_path(cfg.ckpts_dir, cfg.run_version, epoch), scales)
+        self.logger.write(f"serving calibration scales -> {path}")
 
     def predict(self, dataset) -> Dict[str, np.ndarray]:
         """{"probs": [N, A] f32, "qids": [N]} and, where the examples carry

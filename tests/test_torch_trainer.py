@@ -113,15 +113,56 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, monkeypatch):
         Predictor(cfg, {}, {"PAD": 0})
 
 
-@pytest.mark.parametrize("argv", [
-    ["--run", "visualize", "--synthetic"], ["--run", "train", "--resume",
-                                            "true"],
-    ["--run", "train", "--synthetic", "--resume", "true"]])
+@pytest.mark.parametrize("argv", [["--run", "visualize", "--synthetic"]])
 def test_unported_cli_modes_raise(argv):
-    """--run visualize and --resume for training raise, naming their
-    ROADMAP item."""
+    """--run visualize raises, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_vqa.main(argv + ["--device", "cpu"])
+
+
+def _pickle(path):
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def _same_pickles(a, b):
+    """Weights, AdamW moments and step counts equal bit for bit."""
+    a, b = _pickle(a), _pickle(b)
+    assert list(a["state_dict"]) == list(b["state_dict"])
+    for k, v in a["state_dict"].items():
+        assert torch.equal(v, b["state_dict"][k]), k
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    assert sorted(sa) == sorted(sb) and sa
+    for i in sa:
+        for m in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[i][m], sb[i][m]), (i, m)
+
+
+@pytest.mark.parametrize("by", ["ckpt_epoch", "ckpt_path"])
+def test_cli_resume_trains_on_as_the_unbroken_run(cli_run, tmp_path, by):
+    """``run_vqa --run train --resume true``: one epoch, then a second run
+    that resumes from its pickle (named by ``--ckpt_epoch`` in the same
+    version, or by ``--ckpt_path`` into another) writes the unbroken
+    2-epoch run's epoch-2 pickle bit for bit."""
+    out, _ = cli_run
+    common = ["--run", "train", "--synthetic", "--device", "cpu",
+              "--ckpts_dir", str(tmp_path / "ckpts"),
+              "--log_path", str(tmp_path / "log"), *TINY]
+    assert run_vqa.main(common + ["--max_epoch", "1",
+                                  "--version", "tiny"]) == 0
+    first = tmp_path / "ckpts" / "ckpt_tiny" / "epoch1.pkl"
+    version = "tiny" if by == "ckpt_epoch" else "again"
+    source = ["--ckpt_epoch", "1"] if by == "ckpt_epoch" else \
+        ["--ckpt_path", str(first), "--ckpt_epoch", "1"]
+    assert run_vqa.main(common + ["--max_epoch", "2", "--version", version,
+                                  "--resume", "true", *source]) == 0
+    _same_pickles(tmp_path / "ckpts" / f"ckpt_{version}" / "epoch2.pkl",
+                  out / "ckpts" / "ckpt_tiny" / "epoch2.pkl")
+    log = (tmp_path / "log" / f"log_run_{version}.txt").read_text()
+    assert "resume: restored AdamW moments @ step 4" in log
+    records = [json.loads(line) for line in
+               (tmp_path / "log" / f"log_run_{version}.jsonl").read_text()
+               .splitlines()]
+    assert [r["epoch"] for r in records][-1] == 1
 
 
 def test_unported_trainer_options_raise(tmp_path):
