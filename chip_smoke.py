@@ -188,6 +188,24 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              then one ``Trainer.evaluate`` of the synthetic val set
              through the fused eval engine (level 1 with the qkv int8 at
              D 1024, eval batch 32), exact launches, against the plain one;
+  [classify] main path 5, the image-only classifier: ClassifierNet at
+             MCAN-small width (6 SA layers over 60 regions of 1024
+             features, 14 labels, seeded weights, images as
+             SyntheticMIMICDataset makes them with two of no region)
+             through ``build_production_classifier_engine`` at level 1,
+             level 3 calibrated, levels 5 and 7 and qffn=0, at B = 1 and
+             64: exact launches, each engine against the plain forward
+             (2e-2 int8, 1e-2 bf16; int4 against level 3, 0.04, on the
+             sigmoid) and the forward times; ``Trainer(task="classify")``
+             for 4 steps at MCAN-small and 2 at MCAN-large (hidden 1024,
+             two micro-batches), every SA block through the SA train
+             kernels with in-kernel dropout: each step's loss against the
+             plain blocks' (1e-3), exact launches, the in-epoch eval lines,
+             the seeded SA train block at [64, 60, D] against the block fed
+             its dump (bit for bit) and its plain twin; ``Trainer.evaluate``
+             (ROC-AUC, exact launches, fused vs plain eval engine), the
+             end-of-train scales side file against the engine calibrated on
+             the last batch (bit for bit), and a falling loss on one batch;
   [canary]   ``cli/validate_serving_accuracy.py`` at its defaults in a
              process of its own: MCAN-small trained 1200 steps on the card
              through the fused train engine, then the fused, qstatic,
@@ -392,6 +410,8 @@ def main() -> None:
         evaluate_large(torch, trainer, rows)
         del trainer
         phase_done("train large")
+        classify_path(torch, dev, rows, work / "classify", card)
+        phase_done("classify")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     canary_path()
@@ -3269,6 +3289,11 @@ SAV_PER_BLOCK = dict(PER_BLOCK, sga_train_bwd_att=0, sga_train_bwd_att_sav=1,
 # the blocks' own counters: the seeded route counts under name + "_prng"
 BLOCK_COUNTERS = ("sga_train_fwd", "sga_train_bwd_ffn", "sga_train_bwd_att",
                   "sga_train_bwd_att_sav", "sa_train_fwd", "sa_train_bwd")
+# the rows that stand for the MCAN-large instances of a train kernel
+LARGE_ROWS = {"masked_attention_dh128": "masked_attention",
+              "masked_attention_bwd_dh128": "masked_attention_bwd",
+              "gemm_dx, MCAN-large": "gemm_dx",
+              "gemm_dw, MCAN-large": "gemm_dw"}
 TRAIN_KERNELS = tuple(sorted(set(PER_BLOCK) | set(SA_PER_BLOCK)
                              | set(SAV_PER_BLOCK)
                              | {k + "_prng" for k in BLOCK_COUNTERS}))
@@ -3534,14 +3559,10 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
     want = expected_step_launches(cfg, route, seeded=True)
     plain_masks = plain_site_masks(cfg, route) * cfg.grad_accu_steps
     if route["att_saves"]:
-        dh128 = {"masked_attention_dh128": "masked_attention",
-                 "masked_attention_bwd_dh128": "masked_attention_bwd",
-                 "gemm_dx, MCAN-large": "gemm_dx",
-                 "gemm_dw, MCAN-large": "gemm_dw"}
         rows.launches(tag, counts, [k for k in TRAIN_KERNELS
-                                    if k not in dh128.values()
+                                    if k not in LARGE_ROWS.values()
                                     and want[k]])
-        rows.launches(tag, counts, dh128, key=dh128)
+        rows.launches(tag, counts, LARGE_ROWS, key=LARGE_ROWS)
     else:
         rows.launches(tag, counts, [k for k in TRAIN_KERNELS if want[k]])
     for i, r in enumerate(log):
@@ -5522,6 +5543,360 @@ def evaluate_large(torch, trainer, rows) -> None:
         f"({len(ds)} samples, {n} batches of {cfg.eval_batch_size}, int8 "
         f"level 1 + qkv at D {cfg.hidden_size}) in {secs:.2f} s: ROC micro "
         f"{res['roc_micro']:.4f}, macro {res['roc_macro']:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase [classify]: ClassifierNet and the classify task
+# ---------------------------------------------------------------------------
+
+CLASSIFY_LABELS = 14
+CLASSIFY_STEPS = 4            # MCAN-small: 4 steps, the in-epoch eval at 2, 4
+CLASSIFY_LARGE_STEPS = 2
+CLASSIFY_EVAL_SIZE = 96
+CLASSIFY_FIXED_STEPS = 4      # steps on one batch: its loss must fall
+CLASSIFY_LEVELS = (("level 1", None), ("level 3", 3), ("level 5", 5),
+                   ("level 7", 7), ("bf16", 0))
+
+
+def classifier_launches(L: int, level):
+    """Every kernel's launches in one MCAN-small classifier forward at this
+    level (0: all bf16; None: level 1): per SA block the qkv, the merge and
+    the FFN's two products, one attention, two LayerNorms, quantized as
+    ``serve_launches`` says; the image projection, AttFlat and the head
+    are plain products."""
+    level = 1 if level is None else level
+    blocks = ({"fused_sa_block": L} if level == 0
+              else {"fused_qffn_sa_block": L})
+    if level >= 4:
+        blocks[f"fused_qffn_sa_block_level{level}"] = L
+    int4 = {4: 2, 5: 3, 6: 2, 7: 3}.get(level, 0) * L
+    int8 = {0: 0, 1: 2 * L, 3: 4 * L}.get(level, 4 * L - int4)
+    counts = dict(blocks, gemm_bias_act=4 * L - int8 - int4,
+                  residual_layernorm=2 * L, gemm_s8=int8,
+                  quantize_rows=int8 + int4 * (level < 6))
+    counts["gemm_s4" if level < 6 else "gemm_w4bf16"] = int4
+    counts["masked_attention_f32" if level >= 3 else "masked_attention"] = L
+    return {k: n for k, n in counts.items() if n}
+
+
+def classify_config(work: Path, model: str, **kw):
+    from mcan_vqa_tpu_torch.configs import Config
+    return Config.for_model(model, img_feat_size=1024, max_epoch=1,
+                            batch_size=BATCH, seed=SEED + 11,
+                            ckpts_dir=str(work / "ckpts"),
+                            log_path=str(work / "log"), verbose=False, **kw)
+
+
+def classify_images(torch, dev, cfg, n: int, empty=(5, 40)):
+    """n images as ``SyntheticMIMICDataset`` makes them (L2-normalized
+    regions, 30% of them zeroed), the samples ``empty`` with no region."""
+    from mcan_vqa_tpu_torch.data.mimic import SyntheticMIMICDataset
+    ds = SyntheticMIMICDataset(cfg, size=n, answer_size=CLASSIFY_LABELS,
+                               run_mode="train", seed=SEED)
+    img = np.stack([ds.example(i)["img"] for i in range(n)])
+    img[[i for i in empty if i < n]] = 0.0
+    return torch.from_numpy(img).to(dev)
+
+
+def classify_serve(torch, dev, rows, card: str) -> None:
+    """ClassifierNet at MCAN-small width served by
+    ``build_production_classifier_engine`` at level 1, level 3 calibrated,
+    levels 5 and 7, and qffn=0, at B = 1 and 64: exact launches per
+    forward, each int8 / bf16 engine against the plain forward on the
+    sigmoid (INT8_BOUND / 1e-2), int4 against level 3 (0.04: JAX's
+    classifier gates, tests/test_quant.py:759, :790); then the forward
+    times, rounds of every engine in turn."""
+    from mcan_vqa_tpu_torch.models.net import ClassifierNet
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import \
+        build_production_classifier_engine
+    cfg = classify_config(ROOT / "ckpts", "small")
+    L, H = cfg.layer, cfg.multi_head
+    net = ClassifierNet(cfg, CLASSIFY_LABELS,
+                        generator=torch.Generator().manual_seed(SEED + 12))
+    net = net.to(dev).eval()
+    sd = net.state_dict()
+    x = classify_images(torch, dev, cfg, BATCH)
+    say(f"[classify] ClassifierNet (hidden {cfg.hidden_size}, {L} SA "
+        f"layers, {H} heads, ff {cfg.ff_size}, img_feat_size "
+        f"{cfg.img_feat_size}, {cfg.img_feat_pad_size} regions, "
+        f"{CLASSIFY_LABELS} labels, seeded weights) on SyntheticMIMICDataset "
+        f"features, samples 5 and 40 with no region")
+    with torch.no_grad():
+        plain = {B: torch.sigmoid(net(x[:B]).float()) for B in (1, BATCH)}
+    engines = {}
+    for name, level in CLASSIFY_LEVELS:
+        kw = dict(act_scale_inputs=x) if level and level >= 3 else {}
+        engines[name] = (level, *build_production_classifier_engine(
+            sd, L, H, qffn=level, device=dev, **kw))
+    probs = {}
+    with torch.no_grad():
+        for name, (level, fwd, prep) in engines.items():
+            if (fwd.act_scales is None) != (level in (None, 0)):
+                fail(f"[classify] {name}: static scales {fwd.act_scales}")
+            for B in (1, BATCH):
+                K.reset_launches()
+                out = fwd(prep, x[:B])
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                check_launches(f"classify {name} B={B}", counts,
+                               classifier_launches(L, level), 1)
+                rows.launches(f"classify {name} B={B}", counts,
+                              [k for k in counts if k in rows.rows])
+                probs[name, B] = torch.sigmoid(out.float())
+    for name, level in CLASSIFY_LEVELS:
+        for B in (1, BATCH):
+            p = probs[name, B]
+            if p.shape != (B, CLASSIFY_LABELS) or not bool(
+                    torch.isfinite(p).all()):
+                fail(f"[classify] {name} B={B}: bad probabilities")
+            if level in (5, 7):
+                gate(f"classify {name} vs level 3 B={B}, sigmoid",
+                     max_err(p, probs["level 3", B]), INT4_BOUND)
+            else:
+                gate(f"classify {name} vs plain B={B}, sigmoid",
+                     max_err(p, plain[B]),
+                     1e-2 if level == 0 else INT8_BOUND)
+    for B in (1, BATCH):
+        timed = [(n, lambda fwd=fwd, prep=prep, B=B: fwd(prep, x[:B]))
+                 for n, (_, fwd, prep) in engines.items()]
+        timed.append(("plain", lambda B=B: net(x[:B])))
+        ms = {n: [] for n, _ in timed}
+        with torch.no_grad():
+            for _ in range(ROUNDS):
+                for n, fn in timed:
+                    ms[n].append(cuda_ms(torch, fn, iters=10, warmup=2))
+        say(f"[classify] B={B} forward, median of {ROUNDS} rounds (CUDA "
+            f"events, eager, every engine in turn; {card}): " + ", ".join(
+                f"{n} {float(np.median(v)):.3f} ms" for n, v in ms.items()))
+
+
+def classify_train(torch, dev, rows, work: Path, model: str, steps: int,
+                   card: str):
+    """``Trainer(task="classify")`` for one epoch of ``steps`` B=64 steps
+    at the model's full width, dropout 0.1 inside the SA train kernels:
+    every step's loss against the plain blocks' from the same weights and
+    generator state (1e-3 relative), its exact launches, the generator
+    drawing only AttFlat's mask; the in-epoch eval lines; the seeded SA
+    train blocks at [64, 60, D] against the blocks fed their dump (bit for
+    bit) and their plain twins. -> the trainer, the last batch's images."""
+    from mcan_vqa_tpu_torch.data.mimic import SyntheticMIMICDataset
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    from mcan_vqa_tpu_torch.train.fused_engine import \
+        make_fused_classifier_forward
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    cfg = classify_config(work, model, eval_interval=2)
+    tag = f"classify train {model}"
+    L, H, D, F = cfg.layer, cfg.multi_head, cfg.hidden_size, cfg.ff_size
+    ds = SyntheticMIMICDataset(cfg, size=steps * BATCH,
+                               answer_size=CLASSIFY_LABELS, run_mode="train",
+                               seed=SEED)
+    val = SyntheticMIMICDataset(cfg, size=CLASSIFY_EVAL_SIZE,
+                                answer_size=CLASSIFY_LABELS, run_mode="val",
+                                seed=1)
+    trainer = Trainer(cfg, ds, eval_datasets={"val": val}, task="classify",
+                      device=dev)
+    if not (trainer.fused and trainer.in_kernel_dropout
+            and trainer.fused_eval):
+        fail(f"[{tag}] the Trainer chose fused={trainer.fused}, "
+             f"in_kernel_dropout={trainer.in_kernel_dropout}, fused eval "
+             f"{trainer.fused_eval}")
+    plain_fwd = make_fused_classifier_forward(
+        L, H, dropout_rate=cfg.dropout_rate, sa_block="plain",
+        dropout_bits=cfg.dropout_bits, in_kernel_dropout=True)
+    real_step = trainer.step_fn
+    log, last = [], {}
+    draws = MaskDraws()
+
+    def step(state, batch):
+        state.seed_step()
+        ref, g = engine_loss(
+            torch, dev, cfg, lambda m, img, _, g: plain_fwd(m, img, g),
+            state.model, batch, state.generator.get_state())
+        before = K.launch_counts()
+        draws.take()
+        draws.active = True
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = real_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        draws.active = False
+        after = K.launch_counts()
+        last["img"] = batch["img"]
+        log.append(dict(loss=float(metrics["loss"]), plain=ref,
+                        ms=start.elapsed_time(end), masks=draws.take()[0],
+                        same_draws=torch.equal(g.get_state(),
+                                               state.generator.get_state()),
+                        counts={k: after.get(k, 0) - before.get(k, 0)
+                                for k in TRAIN_KERNELS}))
+        return metrics
+
+    trainer.step_fn = step
+    say(f"[{tag}] Trainer(task='classify', hidden {D}, ff {F}, {L} layers, "
+        f"{H} heads, flat_out {cfg.flat_out_size}, batch {BATCH} in "
+        f"{cfg.grad_accu_steps} micro-batch(es), 1 epoch of {steps} steps, "
+        f"eval_interval 2) on SyntheticMIMICDataset({CLASSIFY_LABELS} "
+        f"labels)")
+    K.reset_launches()
+    try:
+        trainer.train()
+    finally:
+        draws.close()
+    torch.cuda.synchronize()
+    if len(log) != steps:
+        fail(f"[{tag}] {len(log)} steps, expected {steps}")
+    want = {k: 0 for k in TRAIN_KERNELS}
+    for k, c in SA_PER_BLOCK.items():
+        want[k + "_prng" if k in BLOCK_COUNTERS else k] += \
+            c * L * cfg.grad_accu_steps
+    for i, r in enumerate(log):
+        if r["counts"] != want:
+            fail(f"[{tag}] step {i}: launches {r['counts']}, expected "
+                 f"{want}")
+        if not r["same_draws"] or r["masks"] != ["img"] * \
+                cfg.grad_accu_steps:
+            fail(f"[{tag}] step {i}: generator masks {r['masks']}")
+        if not np.isfinite(r["loss"]):
+            fail(f"[{tag}] step {i}: loss {r['loss']}")
+        rel = loss_gate(f"{tag} step {i}", r["loss"], r["plain"])
+        say(f"  step {i}: loss {r['loss']:.6f} (the plain blocks "
+            f"{r['plain']:.6f}, rel {rel:.2e} <= 1e-3), {r['ms']:.3f} ms")
+    step_counts = {k: sum(r["counts"][k] for r in log) for k in want}
+    if model == "small":
+        rows.launches(tag, step_counts, [k for k in want if want[k]])
+    else:
+        rows.launches(tag, step_counts, [k for k in want if want[k]
+                                         and k not in LARGE_ROWS.values()])
+        rows.launches(tag, step_counts, LARGE_ROWS, key=LARGE_ROWS)
+    ms = [r["ms"] for r in log[1:]]
+    say(f"[{tag}] every step ran {L} SA blocks x {cfg.grad_accu_steps} "
+        f"micro-batch(es) through the SA train kernels with in-kernel "
+        f"dropout (one seed a block); step time (steps 2..{steps}, CUDA "
+        f"events): mean {sum(ms) / len(ms):.3f} ms, min {min(ms):.3f} ms "
+        f"({card})")
+    logged = (Path(cfg.log_path) / f"log_run_{cfg.run_version}.txt") \
+        .read_text().splitlines()
+    engine = [ln for ln in logged if "train engine" in ln]
+    evals = [ln for ln in logged if ln.startswith("  [step ")]
+    say(f"[{tag}] the Trainer logged: {engine}; {evals}")
+    if not engine or "fused SA blocks (classifier, in_kernel_dropout=True)" \
+            not in engine[0]:
+        fail(f"[{tag}] the Trainer did not log the fused classifier engine")
+    if [ln.split("]")[0] for ln in evals] != [
+            f"  [step {s}" for s in range(2, steps + 1, 2)] \
+            or not all(" val: {'roc_micro': " in ln for ln in evals):
+        fail(f"[{tag}] the in-epoch eval lines: {evals}")
+
+    # the seeded SA train block at [64, 60, D]
+    rate, seed = cfg.dropout_rate, PRNG_SEED + 3
+    Lv = cfg.img_feat_pad_size
+    x, mask, _, w, _, probe = sa_block_inputs(torch, dev, BATCH, L=Lv, D=D,
+                                              F=F, H=H)
+    mask = pad_mask(torch, BATCH, Lv, [(i * 17) % (Lv + 1)
+                                       for i in range(BATCH)], dev)
+    masks, inv = sa.dump_sa_prng_masks(seed, rate, BATCH, Lv, D, F, H,
+                                       device=dev)
+    seeded_vs_dump(
+        torch, f"{tag}: SA train block, B={BATCH} L={Lv} D={D} H={H}",
+        lambda ls, ws: sa.fused_sa_block_train(*ls, mask, seed, ws,
+                                               num_heads=H, rate=rate),
+        lambda ls, ws: sa.fused_sa_block_train(*ls, mask, masks, ws,
+                                               num_heads=H, inv_keep=inv),
+        lambda ls, ws: sa.fused_sa_block_train_plain(
+            *ls, mask, seed, ws, num_heads=H, rate=rate),
+        (x,), ("x",), w, sa.SA_WEIGHT_NAMES, probe, rows,
+        lambda n: "sa_train_fwd_prng" if n is None else "sa_train_bwd_prng")
+    return trainer, last["img"]
+
+
+def classify_eval(torch, dev, rows, trainer, last_img) -> None:
+    """``Trainer.evaluate``'s ROC-AUC through the fused eval engine (level
+    1, exact launches), against the plain eval engine (INT8_BOUND); the
+    end-of-train side file loaded into ``build_production_classifier_engine
+    (act_scales=...)`` against the engine calibrated on the last batch, bit
+    for bit; then the loss on one batch falls over CLASSIFY_FIXED_STEPS
+    steps on it."""
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops.serving import \
+        build_production_classifier_engine
+    from mcan_vqa_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                     load_act_scales)
+    from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
+    cfg = trainer.cfg
+    val = trainer.eval_datasets["val"]
+    n = -(-len(val) // cfg.eval_batch_size)
+    K.reset_launches()
+    res = trainer.evaluate(val)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_launches("classify: evaluate", counts,
+                   classifier_launches(cfg.layer, None), n)
+    if not (0.0 <= res["roc_micro"] <= 1.0 and 0.0 <= res["roc_macro"] <= 1.0):
+        fail(f"[classify] ROC-AUC {res}")
+    fused = trainer.predict(val)["probs"]
+    trainer.fused_eval = False
+    plain = trainer.predict(val)["probs"]
+    trainer.fused_eval = True
+    worst = float(np.abs(fused - plain).max())
+    say(f"[classify] Trainer.evaluate ({len(val)} samples, {n} batches of "
+        f"{cfg.eval_batch_size}): ROC micro {res['roc_micro']:.4f}, macro "
+        f"{res['roc_macro']:.4f}; fused vs plain eval engine max|dprob| "
+        f"{worst:.3e} <= {INT8_BOUND:.0e}")
+    if worst > INT8_BOUND:
+        fail("[classify] the fused and the plain eval engines disagree")
+
+    ckpt = checkpoint_path(cfg.ckpts_dir, cfg.run_version, 1)
+    stored = load_act_scales(ckpt)
+    if stored is None or set(stored) != {f"enc_{i}"
+                                         for i in range(cfg.layer)}:
+        fail(f"[classify] the end-of-train side file holds {stored}")
+    sd = trainer.model.state_dict()
+    x = classify_images(torch, dev, cfg, BATCH)
+    outs = []
+    with torch.no_grad():
+        for kw in (dict(act_scales=stored), dict(act_scale_inputs=last_img)):
+            fwd, prep = build_production_classifier_engine(
+                sd, cfg.layer, cfg.multi_head, device=dev, **kw)
+            outs.append(fwd(prep, x))
+    torch.cuda.synchronize()
+    if not torch.equal(*outs):
+        fail("[classify] the side file's engine differs from the engine "
+             "calibrated on the last batch")
+    say(f"[classify] epoch1.act_scales.json ({len(stored)} blocks) builds "
+        f"the level-3 engine equal bit for bit to the one calibrated on the "
+        f"last train batch")
+
+    batch = next(iter(trainer.loader()))
+    state = trainer.state
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(bce_with_logits_sum(trainer.model(batch["img"]),
+                                             batch["target"]))
+
+    losses = [fixed_loss()]
+    for _ in range(CLASSIFY_FIXED_STEPS):
+        trainer.step_fn(state, batch)
+        losses.append(fixed_loss())
+    say(f"[classify] one batch, {CLASSIFY_FIXED_STEPS} steps on it: loss "
+        f"(plain forward, no dropout) " + " -> ".join(f"{v:.4f}"
+                                                      for v in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("[classify] the loss on a fixed batch did not fall")
+
+
+def classify_path(torch, dev, rows, work: Path, card: str) -> None:
+    classify_serve(torch, dev, rows, card)
+    trainer, last_img = classify_train(torch, dev, rows, work / "small",
+                                       "small", CLASSIFY_STEPS, card)
+    classify_eval(torch, dev, rows, trainer, last_img)
+    del trainer
+    trainer, _ = classify_train(torch, dev, rows, work / "large", "large",
+                                CLASSIFY_LARGE_STEPS, card)
+    del trainer
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,9 @@ class Config:
     # model elsewhere; "fused" forces the serving engine (on the CPU its
     # kernels' plain versions, test-only); "plain" always the plain model
     eval_engine: str = "auto"
+    # the classifier's in-epoch evaluation every eval_interval steps; <= 0
+    # is off (config.py:82, core/exec.py:940-951)
+    eval_interval: int = 1000
     eval_strict: bool = False      # refuse predictions that miss a question
     test_save_pred: bool = False   # dump the probabilities of each evaluation
     train_split: str = "train+val+vg"

@@ -1,5 +1,6 @@
-"""MCA layers: FFN, SA, SGA and the encoder-decoder backbone
-(mcan_vqa_tpu/models/mca.py; reference core/model/mca.py:85-186).
+"""MCA layers: FFN, SA, SGA, the encoder-decoder backbone and the
+image-only SA encoder (mcan_vqa_tpu/models/mca.py; reference
+core/model/mca.py:85-207).
 
 Blocks are post-norm, ``norm(x + sublayer(x))``, and the decoder (SGA over
 image regions) attends to the FINAL encoder output. Dropout is an identity
@@ -83,3 +84,23 @@ class MCAEncoderDecoder(nn.Module):
         for dec in self.dec_list:
             y = dec(y, x, y_mask, x_mask)
         return x, y
+
+
+class MCAEncoder(nn.Module):
+    """L x SA over one stream, the image-only classifier's backbone
+    (mcan_vqa_tpu/models/mca.py:151-170; reference core/model/mca.py:
+    189-207). The blocks sit in ``enc_list``, so the keys read
+    ``backbone.enc_list.{i}.*``, the names the JAX export gives an
+    ``enc_i`` tree."""
+
+    def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
+                 ff_size: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.enc_list = nn.ModuleList(
+            SA(hidden_size, num_heads, ff_size, generator)
+            for _ in range(num_layers))
+
+    def forward(self, y, y_mask):
+        for enc in self.enc_list:
+            y = enc(y, y_mask)
+        return y

@@ -1,12 +1,13 @@
-"""AttFlat pooling and the MCAN VQA network (mcan_vqa_tpu/models/net.py;
-reference Net2, core/model/net.py:295-381).
+"""AttFlat pooling, the MCAN VQA network and the image-only classifier
+(mcan_vqa_tpu/models/net.py; reference Net2, core/model/net.py:295-381,
+and ClassifierNet, :140-196).
 
 The module tree produces the reference ``Net2`` state_dict keys in Net2's
 registration order, so a reference pickle and the JAX export
 (train/checkpoint.py) load with ``load_state_dict(strict=True)``.
-``MCANet.forward`` is the port's "plain" engine: op by op, an f32 residual
-stream, the numerics of the JAX ``model.apply``. It returns logits; the
-caller applies the sigmoid.
+``MCANet.forward`` and ``ClassifierNet.forward`` are the port's "plain"
+engines: op by op, an f32 residual stream, the numerics of the JAX
+``model.apply``. They return logits; the caller applies the sigmoid.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from mcan_vqa_tpu_torch.models.attention import NEG_INF
 from mcan_vqa_tpu_torch.models.layers import (BF16, MLP, Dense, StdLayerNorm,
                                               make_mask)
 from mcan_vqa_tpu_torch.models.lstm import LSTMEncoder
-from mcan_vqa_tpu_torch.models.mca import MCAEncoderDecoder
+from mcan_vqa_tpu_torch.models.mca import MCAEncoder, MCAEncoderDecoder
 
 
 def attflat_pool(att_logits: torch.Tensor, x: torch.Tensor,
@@ -91,3 +92,27 @@ class MCANet(nn.Module):
         fused = self.proj_norm(self.attflat_lang(q, q_mask)
                                + self.attflat_img(v, v_mask))
         return self.proj(fused)
+
+
+class ClassifierNet(nn.Module):
+    """The image-only multi-label classifier (mcan_vqa_tpu/models/net.py:
+    140-171; reference core/model/net.py:140-196): forward(img_feat
+    [B, R, img_feat_size] f32) -> logits [B, answer_size]. The modules
+    register in the JAX module's creation order: img_feat_linear,
+    backbone (an ``MCAEncoder``), attflat_img, proj_norm, proj."""
+
+    def __init__(self, cfg: Config, answer_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.img_feat_linear = Dense(cfg.img_feat_size, cfg.hidden_size, g)
+        self.backbone = MCAEncoder(cfg.layer, cfg.hidden_size,
+                                   cfg.multi_head, cfg.ff_size, g)
+        self.attflat_img = AttFlat(cfg, g)
+        self.proj_norm = StdLayerNorm(cfg.flat_out_size)
+        self.proj = Dense(cfg.flat_out_size, answer_size, g)
+
+    def forward(self, img_feat: torch.Tensor) -> torch.Tensor:
+        v_mask = make_mask(img_feat)
+        v = self.backbone(self.img_feat_linear(img_feat), v_mask)
+        return self.proj(self.proj_norm(self.attflat_img(v, v_mask)))

@@ -524,6 +524,29 @@ def calibrate_qffn_act_scales(params: Mapping[str, Any], img_feat, ques_ix,
                           for k, tup in scales.items()})
 
 
+def calibrate_classifier_act_scales(params: Mapping[str, Any], img_feat,
+                                    num_layers: int, num_heads: int,
+                                    margin: float = 1.1, w4dq: bool = False
+                                    ) -> Dict[str, tuple]:
+    """The classifier's twin of ``calibrate_qffn_act_scales`` (quant.py:
+    819-840): the image-only SA stack replayed on the calibration batch
+    img_feat [B, R, F]. params: a prepared classifier tree with ``_qffn``
+    on every block (ops/serving.py ``prepare_classifier_params``, pruned
+    or not). -> {"enc_i": (aqkv, a1, a2[, am])} as Python floats."""
+    ifl = params["img_feat_linear"]
+    img = torch.as_tensor(img_feat, dtype=F32).to(ifl["kernel"].device)
+    with torch.no_grad():
+        v_mask = make_mask(img)
+        v = _cal_bdot(img, ifl["kernel"], ifl["bias"]).to(BF16)
+        bb = params["backbone"]
+        scales: Dict[str, tuple] = {}
+        for i in range(num_layers):
+            v, scales[f"enc_{i}"] = _cal_sa_block(bb[f"enc_{i}"], v, v_mask,
+                                                  num_heads, margin, w4dq)
+    return _check_scales({k: tuple(float(x) for x in tup)
+                          for k, tup in scales.items()})
+
+
 # ---------------------------------------------------------------------------
 # the blocks, written once over a set of primitives
 # ---------------------------------------------------------------------------

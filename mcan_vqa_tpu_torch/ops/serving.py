@@ -52,6 +52,12 @@ projection, the cross k/v, the AttFlat MLPs and merges and the head as
 through ``fused_quant_sa_block`` / ``fused_quant_sga_block``, the
 ``megakernel=True`` engine of the JAX package.
 
+The classifier engine (serving.py:282-477) serves ``ClassifierNet``, the
+image-only SA stack: ``build_production_classifier_engine`` over
+``prepare_classifier_params``, each block through ``fused_qffn_sa_block``
+(levels 1-7) or ``fused_sa_block`` as the VQA encoder's, the mode-0
+encoder past ``megakernel_vmem_ok``, AttFlat and the head plain.
+
 Weights arrive as a reference-shaped state_dict (models/net.py
 ``MCANet.state_dict()``, train/checkpoint.py); ``prepare_params`` lays
 them out once: fused [D, 3D] self-attention qkv, fused [D, 2D] cross k/v,
@@ -84,6 +90,7 @@ from mcan_vqa_tpu_torch.ops.masked_attention import (
     masked_attention_pallas, masked_attention_pallas_batched,
     masked_attention_pallas_packed)
 from mcan_vqa_tpu_torch.ops.quant import (_check_scales, _quant_w,
+                                          calibrate_classifier_act_scales,
                                           calibrate_qffn_act_scales,
                                           fused_qffn_sa_block,
                                           fused_qffn_sga_block,
@@ -186,6 +193,35 @@ def _ffn_of(mk) -> Params:
                     "Dense_0": _dense_of(mk["w2"], mk["b2"])}}
 
 
+def _sa_block_entries(sd, i: int, dev) -> Params:
+    """Encoder block i of a state_dict -> the raw entries the per-sub-op
+    path reads (the fused ``linear_qkv``, the merge, the norms, the FFN)
+    and the mode-2 layout ``_mk``, sharing their tensors."""
+    enc = {k: v.to(dev) for k, v in prepare_sa_block_params(
+        _sub(sd, f"backbone.enc_list.{i}")).items()}
+    return {"mhatt": {"linear_qkv": _dense_of(enc["wqkv"], enc["bqkv"]),
+                      "linear_merge": _dense_of(enc["wm"], enc["bm"])},
+            "norm1": _ln_of(enc, 1), "norm2": _ln_of(enc, 2),
+            "ffn": _ffn_of(enc), "_mk": enc}
+
+
+def _attach_layouts(bb: Params, qffn) -> bool:
+    """Within ``megakernel_vmem_ok`` give every block of ``bb`` its
+    quantized weights ``_qffn`` at level ``qffn`` (none when falsy) ->
+    True; past it drop the ``_mk`` layouts -> False."""
+    mk = bb["enc_0"]["_mk"]
+    D, F = mk["wqkv"].shape[0], mk["w1"].shape[1]
+    if not megakernel_vmem_ok(D, F):
+        for blk in bb.values():
+            del blk["_mk"]
+        return False
+    if qffn:
+        qkv8, proj8, w4 = decode_qffn_level(qffn, D)
+        for blk in bb.values():
+            blk["_qffn"] = prepare_qffn_params(blk["_mk"], qkv8, proj8, w4)
+    return True
+
+
 def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
                    device="cuda", qffn=False, prune: bool = True,
                    num_heads: int = 8, alllayer: bool = True) -> Params:
@@ -205,15 +241,9 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
     layouts exist."""
     sd = state_dict
     dev = resolve_device(device)
-
-    def to_dev(tree):
-        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
-                for k, v in tree.items()}
-
     bb: Params = {}
     for i in range(num_layers):
-        enc = to_dev(prepare_sa_block_params(
-            _sub(sd, f"backbone.enc_list.{i}")))
+        bb[f"enc_{i}"] = _sa_block_entries(sd, i, dev)
         dec_sd = _sub(sd, f"backbone.dec_list.{i}")
         # on the device first: the head-major entries are views of the
         # fused ones
@@ -221,11 +251,6 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
             {k: v.detach().to(dev) for k, v in dec_sd.items()}, num_heads)
         kv = [_dense_params(dec_sd, f"mhatt2.{n}", dev)
               for n in ("linear_k", "linear_v")]
-        bb[f"enc_{i}"] = {
-            "mhatt": {"linear_qkv": _dense_of(enc["wqkv"], enc["bqkv"]),
-                      "linear_merge": _dense_of(enc["wm"], enc["bm"])},
-            "norm1": _ln_of(enc, 1), "norm2": _ln_of(enc, 2),
-            "ffn": _ffn_of(enc), "_mk": enc}
         bb[f"dec_{i}"] = {
             "mhatt1": {"linear_qkv": _dense_of(dec["wqkv1"], dec["bqkv1"]),
                        "linear_merge": _dense_of(dec["wm1_full"], dec["bm1"])},
@@ -239,14 +264,8 @@ def prepare_params(state_dict: Mapping[str, torch.Tensor], num_layers: int,
             "norm3": _ln_of(dec, 3), "ffn": _ffn_of(dec), "_mk": dec}
     D = bb["enc_0"]["_mk"]["wqkv"].shape[0]
     F = bb["enc_0"]["_mk"]["w1"].shape[1]
-    if not megakernel_vmem_ok(D, F):
-        for blk in bb.values():
-            del blk["_mk"]
+    if not _attach_layouts(bb, qffn):
         prune = False
-    elif qffn:
-        qkv8, proj8, w4 = decode_qffn_level(qffn, D)
-        for blk in bb.values():
-            blk["_qffn"] = prepare_qffn_params(blk["_mk"], qkv8, proj8, w4)
     # the stacks only where they stay (prune drops them, as JAX's does)
     if alllayer and not prune and "_mk" in bb["enc_0"] \
             and decoder_vmem_ok(D, F, num_layers):
@@ -393,6 +412,63 @@ def _cross_kv_q8(site: Mapping[str, torch.Tensor], q: torch.Tensor,
     return _split_kv(kv.view(B, Lq, 2 * D), num_heads)
 
 
+def _att_block(mh_p, norm_p, v_, k_, q_, mask_, num_heads: int, use_pallas,
+               use_pallas_ffn: bool, stream) -> torch.Tensor:
+    """A residual attention sub-block of mode 0: q_ is the residual."""
+    if use_pallas_ffn:
+        pre = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas,
+                     merge=False)
+        return fused_proj_ln(q_, pre, mh_p["linear_merge"]["kernel"],
+                             mh_p["linear_merge"]["bias"], norm_p["scale"],
+                             norm_p["bias"])
+    att = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas)
+    return _std_layer_norm(norm_p, q_ + att.to(stream), out_dtype=stream)
+
+
+def _ffn_block(norm_p, mlp_p, x, use_pallas_ffn: bool, stream
+               ) -> torch.Tensor:
+    """The FFN + residual + LN of mode 0."""
+    if use_pallas_ffn:
+        return fused_ffn_ln(
+            x, mlp_p["FCLayer_0"]["Dense_0"]["kernel"],
+            mlp_p["FCLayer_0"]["Dense_0"]["bias"],
+            mlp_p["Dense_0"]["kernel"], mlp_p["Dense_0"]["bias"],
+            norm_p["scale"], norm_p["bias"])
+    return _std_layer_norm(norm_p, x + _mlp(mlp_p, x).to(stream),
+                           out_dtype=stream)
+
+
+def _encoder0(bb, q, q_mask, num_layers: int, num_heads: int, use_pallas,
+              use_pallas_ffn: bool, stream) -> torch.Tensor:
+    """The SA stack of mode 0, sub-block by sub-block."""
+    for i in range(num_layers):
+        p = bb[f"enc_{i}"]
+        q = _att_block(p["mhatt"], p["norm1"], q, q, q, q_mask, num_heads,
+                       use_pallas, use_pallas_ffn, stream)
+        q = _ffn_block(p["norm2"], p["ffn"]["mlp"], q, use_pallas_ffn,
+                       stream)
+    return q
+
+
+def _encoder2(bb, q, q_mask, num_layers: int, num_heads: int, qffn: bool,
+              scales, w4dq: bool) -> torch.Tensor:
+    """The SA stack of mode 2, a whole-block kernel per layer: a block with
+    ``_qffn`` through ``fused_qffn_sa_block`` (static scales where
+    ``scales`` holds its entry; dynamic ones only while B <=
+    ``QFFN_MAX_BATCH``), else ``fused_sa_block``."""
+    for i in range(num_layers):
+        p = bb[f"enc_{i}"]
+        a = scales.get(f"enc_{i}")
+        if qffn and "_qffn" in p and (q.shape[0] <= QFFN_MAX_BATCH
+                                      or a is not None):
+            q = fused_qffn_sa_block(q, q_mask, p["_mk"], p["_qffn"],
+                                    num_heads=num_heads, act_scales=a,
+                                    w4dq=w4dq)
+        else:
+            q = fused_sa_block(q, q_mask, p["_mk"], num_heads=num_heads)
+    return q
+
+
 def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
                     bf16_stream: bool = False, use_pallas_ffn: bool = False,
                     use_sga_megakernel=False, sga_group=None,
@@ -449,47 +525,20 @@ def make_serving_fn(num_layers: int, num_heads: int, use_pallas=True,
         return qffn and "_qffn" in p and (batch <= QFFN_MAX_BATCH
                                           or name in scales)
 
-    def ln(p, x):
-        return _std_layer_norm(p, x, out_dtype=stream)
-
     def att_block(mh_p, norm_p, v_, k_, q_, mask_):
-        """A residual attention sub-block of mode 0: q_ is the residual."""
-        if use_pallas_ffn:
-            pre = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas,
-                         merge=False)
-            return fused_proj_ln(q_, pre, mh_p["linear_merge"]["kernel"],
-                                 mh_p["linear_merge"]["bias"],
-                                 norm_p["scale"], norm_p["bias"])
-        att = _mhatt(mh_p, v_, k_, q_, mask_, num_heads, use_pallas)
-        return ln(norm_p, q_ + att.to(stream))
+        return _att_block(mh_p, norm_p, v_, k_, q_, mask_, num_heads,
+                          use_pallas, use_pallas_ffn, stream)
 
     def ffn_block(norm_p, mlp_p, x):
-        if use_pallas_ffn:
-            return fused_ffn_ln(
-                x, mlp_p["FCLayer_0"]["Dense_0"]["kernel"],
-                mlp_p["FCLayer_0"]["Dense_0"]["bias"],
-                mlp_p["Dense_0"]["kernel"], mlp_p["Dense_0"]["bias"],
-                norm_p["scale"], norm_p["bias"])
-        return ln(norm_p, x + _mlp(mlp_p, x).to(stream))
+        return _ffn_block(norm_p, mlp_p, x, use_pallas_ffn, stream)
 
     def encoder0(bb, q, q_mask):
-        for i in range(num_layers):
-            p = bb[f"enc_{i}"]
-            q = att_block(p["mhatt"], p["norm1"], q, q, q, q_mask)
-            q = ffn_block(p["norm2"], p["ffn"]["mlp"], q)
-        return q
+        return _encoder0(bb, q, q_mask, num_layers, num_heads, use_pallas,
+                         use_pallas_ffn, stream)
 
     def encoder2(bb, q, q_mask):
-        for i in range(num_layers):
-            p = bb[f"enc_{i}"]
-            if int8_block(p, f"enc_{i}", q.shape[0]):
-                q = fused_qffn_sa_block(q, q_mask, p["_mk"], p["_qffn"],
-                                        num_heads=num_heads,
-                                        act_scales=scales.get(f"enc_{i}"),
-                                        w4dq=qffn_w4dq)
-            else:
-                q = fused_sa_block(q, q_mask, p["_mk"], num_heads=num_heads)
-        return q
+        return _encoder2(bb, q, q_mask, num_layers, num_heads, qffn, scales,
+                         qffn_w4dq)
 
     def decoder12(bb, q, v, q_mask, v_mask, aux_w, aux_s, mode):
         for i in range(num_layers):
@@ -718,6 +767,151 @@ def calibrate_serving_scales(state_dict: Mapping[str, torch.Tensor],
     scales["aux"] = calibrate_qffn_act_scales(prepared, img, ques,
                                               num_layers, num_heads)["aux"]
     return scales
+
+
+# ---------------------------------------------------------------------------
+# the classifier engine (serving.py:282-477)
+# ---------------------------------------------------------------------------
+
+def prepare_classifier_params(state_dict: Mapping[str, torch.Tensor],
+                              num_layers: int, device="cuda", qffn=True
+                              ) -> Params:
+    """``ClassifierNet.state_dict()`` -> the classifier engine's tree on
+    ``device`` (serving.py:282): per SA block the raw entries of the
+    per-sub-op path and, within ``megakernel_vmem_ok``, the mode-2 layout
+    ``_mk`` and with a truthy ``qffn`` level its quantized weights
+    ``_qffn``; the image projection, AttFlat over the image, ``proj_norm``
+    and ``proj`` as ``prepare_params`` lays them out."""
+    sd = state_dict
+    dev = resolve_device(device)
+    bb = {f"enc_{i}": _sa_block_entries(sd, i, dev)
+          for i in range(num_layers)}
+    _attach_layouts(bb, qffn)
+    return {
+        "img_feat_linear": _dense_params(sd, "img_feat_linear", dev),
+        "backbone": bb,
+        "attflat_img": {"mlp": _mlp_params(sd, "attflat_img.mlp", dev),
+                        "linear_merge": _dense_params(
+                            sd, "attflat_img.linear_merge", dev)},
+        "proj_norm": _ln_params(sd, "proj_norm", dev),
+        "proj": _dense_params(sd, "proj", dev),
+    }
+
+
+def prune_classifier_params(params: Params, num_layers: int) -> Params:
+    """The tree the classifier's mode-2 forward reads (serving.py:323): per
+    block only ``_mk`` / ``_qffn``. Raises where a block lacks its ``_mk``
+    layout (a width outside ``megakernel_vmem_ok``)."""
+    bb = params["backbone"]
+    if any("_mk" not in bb[f"enc_{i}"] for i in range(num_layers)):
+        raise ValueError(
+            "prune_classifier_params needs the _mk layouts on every block "
+            "(a width within megakernel_vmem_ok)")
+    out = {k: v for k, v in params.items() if k != "backbone"}
+    out["backbone"] = {
+        f"enc_{i}": {k: bb[f"enc_{i}"][k] for k in ("_mk", "_qffn")
+                     if k in bb[f"enc_{i}"]}
+        for i in range(num_layers)}
+    return out
+
+
+def prepare_production_classifier_params(
+        state_dict: Mapping[str, torch.Tensor], num_layers: int, *,
+        qffn=True, device="cuda") -> Params:
+    """The shipped classifier tree (serving.py:343): the layouts of level
+    ``qffn``, pruned to what the mode-2 forward reads where the width has
+    the ``_mk`` layouts; past ``megakernel_vmem_ok`` the raw entries of the
+    per-sub-op path."""
+    prepared = prepare_classifier_params(state_dict, num_layers, device,
+                                         qffn=qffn)
+    if "_mk" in prepared["backbone"]["enc_0"]:
+        prepared = prune_classifier_params(prepared, num_layers)
+    return prepared
+
+
+def build_production_classifier_engine(
+        state_dict: Mapping[str, torch.Tensor], num_layers: int,
+        num_heads: int, *, qffn=None, act_scale_inputs=None,
+        act_scales=None, device="cuda") -> Tuple[Callable, Params]:
+    """ONE construction path for the classifier engine (serving.py:355,
+    the classifier twin of ``build_production_engine``) -> (forward,
+    prepared). qffn: None -> level 1 without calibration, level 3 with a
+    calibration batch or stored scales; an int forces a level, 0 the
+    all-bf16 kernels; levels 4-7 need a calibration batch or stored
+    scales. act_scale_inputs: an img_feat batch to calibrate static scales
+    on (``calibrate_classifier_act_scales``); act_scales: precomputed
+    {"enc_i": tuple of floats} (the Trainer's side file); not both. With
+    qffn=0 both are ignored; past ``megakernel_vmem_ok`` too, with JAX's
+    warning."""
+    if act_scale_inputs is not None and act_scales is not None:
+        raise ValueError(
+            "pass a calibration batch OR precomputed scales, not both")
+    if qffn is None:
+        qffn = 3 if (act_scale_inputs is not None
+                     or act_scales is not None) else True
+    if int(qffn) >= 4 and act_scale_inputs is None and act_scales is None:
+        raise ValueError(
+            "qffn levels 4-7 (int4 weight streaming) require a calibration "
+            "batch (act_scale_inputs) or precomputed act_scales -- the int4 "
+            "kernels have no dynamic-quant path")
+    w4dq = int(qffn) >= 6
+    prepared = prepare_production_classifier_params(
+        state_dict, num_layers, qffn=qffn, device=device)
+    if (act_scale_inputs is not None or act_scales is not None) and qffn \
+            and "_mk" not in prepared["backbone"]["enc_0"]:
+        warnings.warn(
+            "activation-scale calibration ignored: classifier dims are "
+            "outside the megakernel VMEM envelope (no int8 quant sites)")
+        act_scale_inputs = act_scales = None
+    if act_scales is not None and qffn:
+        act_scales = _check_scales({k: tuple(float(x) for x in v)
+                                    for k, v in act_scales.items()})
+    elif act_scale_inputs is not None and qffn:
+        act_scales = calibrate_classifier_act_scales(
+            prepared, act_scale_inputs, num_layers, num_heads, w4dq=w4dq)
+    else:
+        act_scales = None
+    return make_classifier_serving_fn(
+        num_layers, num_heads, qffn=bool(qffn), qffn_act_scales=act_scales,
+        qffn_w4dq=w4dq), prepared
+
+
+def make_classifier_serving_fn(num_layers: int, num_heads: int,
+                               qffn: bool = True, qffn_act_scales=None,
+                               qffn_w4dq: bool = False) -> Callable:
+    """forward(params, img_feat [B, R, F] f32) -> logits [B, A] f32 for
+    ``ClassifierNet`` (serving.py:410): the image projection, every SA
+    block over the image stream as ``make_serving_fn``'s mode-2 encoder
+    runs the question's (``fused_qffn_sa_block`` where the block has
+    ``_qffn`` and, with dynamic scales, B <= ``QFFN_MAX_BATCH``, else
+    ``fused_sa_block``), AttFlat, ``proj_norm`` and ``proj`` plain, a bf16
+    stream between the blocks (JAX's ``bf16_stream=True``). Past
+    ``megakernel_vmem_ok`` the blocks run the mode-0 encoder (JAX: plain
+    per-sub-op ops, :463-471), its merges and FFNs on ``fused_proj_ln`` /
+    ``fused_ffn_ln`` as the VQA engine's. qffn_act_scales: {"enc_i": scale
+    tuple} (static) or None (dynamic). ``forward.act_scales`` holds the
+    scales baked in."""
+    scales = qffn_act_scales or {}
+
+    def forward(params: Params, img_feat: torch.Tensor) -> torch.Tensor:
+        v_mask = make_mask(img_feat)
+        v = _dense(params["img_feat_linear"], img_feat).to(BF16)
+        bb = params["backbone"]
+        enc0 = bb["enc_0"]
+        F_ff = (enc0["_mk"]["w1"] if "_mk" in enc0 else enc0["ffn"]["mlp"][
+            "FCLayer_0"]["Dense_0"]["kernel"]).shape[1]
+        if megakernel_vmem_ok(v.shape[-1], F_ff):
+            v = _encoder2(bb, v, v_mask, num_layers, num_heads, qffn,
+                          scales, qffn_w4dq)
+        else:
+            v = _encoder0(bb, v, v_mask, num_layers, num_heads, False, True,
+                          BF16)
+        img_flat = _attflat(params["attflat_img"], v, v_mask)
+        return _dense(params["proj"],
+                      _std_layer_norm(params["proj_norm"], img_flat))
+
+    forward.act_scales = qffn_act_scales if qffn else None
+    return forward
 
 
 # ---------------------------------------------------------------------------

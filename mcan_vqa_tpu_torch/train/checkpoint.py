@@ -4,7 +4,8 @@ port's own format is the reference pickle).
 
   * ``state_dict_from_params``: JAX params (a nested dict of arrays, as
     ``model.init(...)["params"]`` or an orbax restore gives them) -> the
-    reference-shaped state_dict that ``MCANet.load_state_dict`` takes. It
+    reference-shaped state_dict that ``MCANet.load_state_dict`` (or
+    ``ClassifierNet.load_state_dict``) takes. It
     is the mapping of ``mcan_vqa_tpu/train/checkpoint.py::
     export_torch_state_dict`` (checkpoint.py:608-657), without JAX.
   * ``load_reference_checkpoint``: a reference ``{state_dict, ...}``
@@ -45,29 +46,48 @@ _LSTM = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0",
          "b_ih": "bias_ih_l0", "b_hh": "bias_hh_l0"}
 
 
+def _linear(p):
+    return [f"{p}.weight", f"{p}.bias"]
+
+
+def _norm(p):
+    return [f"{p}.a_2", f"{p}.b_2"]
+
+
+def _mhatt(p):
+    return (_linear(f"{p}.linear_v") + _linear(f"{p}.linear_k")
+            + _linear(f"{p}.linear_q") + _linear(f"{p}.linear_merge"))
+
+
+def _mlp(p):
+    return _linear(f"{p}.fc.linear") + _linear(f"{p}.linear")
+
+
+def _encoder_keys(num_layers: int) -> List[str]:
+    keys = []
+    for i in range(num_layers):
+        p = f"backbone.enc_list.{i}"
+        keys += (_mhatt(f"{p}.mhatt") + _mlp(f"{p}.ffn.mlp")
+                 + _norm(f"{p}.norm1") + _norm(f"{p}.norm2"))
+    return keys
+
+
+def classifier_param_keys(num_layers: int) -> List[str]:
+    """ClassifierNet's state_dict keys in registration order (the order of
+    ``ClassifierNet.state_dict()``: img_feat_linear, the encoder blocks,
+    attflat_img, proj_norm, proj)."""
+    return (_linear("img_feat_linear") + _encoder_keys(num_layers)
+            + _mlp("attflat_img.mlp") + _linear("attflat_img.linear_merge")
+            + _norm("proj_norm") + _linear("proj"))
+
+
 def reference_param_keys(num_layers: int) -> List[str]:
     """Net2's state_dict keys in registration order (the order of
     ``MCANet.state_dict()``)."""
-    def linear(p):
-        return [f"{p}.weight", f"{p}.bias"]
-
-    def norm(p):
-        return [f"{p}.a_2", f"{p}.b_2"]
-
-    def mhatt(p):
-        return (linear(f"{p}.linear_v") + linear(f"{p}.linear_k")
-                + linear(f"{p}.linear_q") + linear(f"{p}.linear_merge"))
-
-    def mlp(p):
-        return linear(f"{p}.fc.linear") + linear(f"{p}.linear")
-
+    linear, norm, mhatt, mlp = _linear, _norm, _mhatt, _mlp
     keys = ["embedding.weight", "lstm.weight_ih_l0", "lstm.weight_hh_l0",
             "lstm.bias_ih_l0", "lstm.bias_hh_l0"]
-    keys += linear("img_feat_linear")
-    for i in range(num_layers):
-        p = f"backbone.enc_list.{i}"
-        keys += (mhatt(f"{p}.mhatt") + mlp(f"{p}.ffn.mlp")
-                 + norm(f"{p}.norm1") + norm(f"{p}.norm2"))
+    keys += linear("img_feat_linear") + _encoder_keys(num_layers)
     for i in range(num_layers):
         p = f"backbone.dec_list.{i}"
         keys += (mhatt(f"{p}.mhatt1") + mhatt(f"{p}.mhatt2")
@@ -115,8 +135,10 @@ def _torch_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
 
 def state_dict_from_params(params: Mapping[str, Any]
                            ) -> Dict[str, torch.Tensor]:
-    """JAX MCANet params -> reference state_dict of f32 CPU tensors, in
-    Net2's key order when the tree is a whole MCANet."""
+    """JAX MCANet or ClassifierNet params -> reference state_dict of f32
+    CPU tensors, in the model's registration order when the tree is a
+    whole MCANet (``reference_param_keys``) or a whole ClassifierNet
+    (``classifier_param_keys``)."""
     out = {}
     for path, arr in _flatten(params).items():
         key, transpose = _torch_key(path)
@@ -126,9 +148,10 @@ def state_dict_from_params(params: Mapping[str, Any]
     enc_ids = [int(k.split(".")[2]) for k in out
                if k.startswith("backbone.enc_list.")]
     if enc_ids:
-        expected = reference_param_keys(max(enc_ids) + 1)
-        if set(expected) == set(out):
-            out = {k: out[k] for k in expected}
+        for keys_of in (reference_param_keys, classifier_param_keys):
+            expected = keys_of(max(enc_ids) + 1)
+            if set(expected) == set(out):
+                return {k: out[k] for k in expected}
     return out
 
 
@@ -206,9 +229,10 @@ def _blob(model_sd, optimizer_sd, lr_base: float) -> Dict[str, Any]:
 def save_checkpoint(state, ckpts_dir: str, version: str, epoch: int,
                     lr_base: float) -> str:
     """Write the reference pickle of ``state`` (a TrainState over an
-    MCANet, whose parameters register in Net2's order, so the optimizer's
-    indices are the reference's) -> its path. Tensors are saved on the
-    CPU."""
+    MCANet or a ClassifierNet, whose parameters register in the order of
+    ``reference_param_keys`` / ``classifier_param_keys``, so the
+    optimizer's indices are that order's) -> its path. Tensors are saved
+    on the CPU."""
     path = checkpoint_path(ckpts_dir, version, epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(_blob(state.model.state_dict(), state.optimizer.state_dict(),
@@ -443,9 +467,10 @@ def _import_moments(state, optimizer_sd: Mapping[str, Any],
 
 
 def resume_state(state, cfg, data_size: int, logger=None):
-    """Restore ``state`` (a TrainState over an MCANet) from the pickle
-    ``cfg`` names (``named_checkpoint``), as the JAX Trainer's ``_resume``
-    does from a pickle (trainer.py:122-146): the weights through
+    """Restore ``state`` (a TrainState over an MCANet or a ClassifierNet)
+    from the pickle ``cfg`` names (``named_checkpoint``), as the JAX
+    Trainer's ``_resume`` does from a pickle (trainer.py:122-146): the
+    weights through
     ``merge_compatible``; with an "optimizer" entry its AdamW moments and
     its step count; without one the step replayed from the epoch,
     int(data_size / batch_size x ckpt_epoch) (core/exec.py:90-94), and

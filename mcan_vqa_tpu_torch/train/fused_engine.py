@@ -1,5 +1,5 @@
-"""The training forward of MCAN, built for autograd
-(mcan_vqa_tpu/train/fused_engine.py).
+"""The training forwards of MCAN and of the image-only classifier, built
+for autograd (mcan_vqa_tpu/train/fused_engine.py).
 
 ``make_fused_train_forward`` returns forward(net, img_feat, ques_ix,
 generator) -> logits over the parameters of an ``MCANet``:
@@ -39,6 +39,16 @@ the block's masks would be) and draws its keep bits inside the kernels
 the plain sites (AttFlat, an encoder in plain ops) keep generator masks.
 With ``sga_block="plain"`` the same seeds feed the plain blocks, which draw
 the same bits through ``kernels.philox4x32_plain``.
+
+``make_fused_classifier_forward`` (JAX :262-311) is the classifier's:
+forward(net, img_feat, generator) over a ``ClassifierNet``, every SA block
+over the image stream through ``sa_train.fused_sa_block_train`` at every
+width (JAX routes nothing by width here), then AttFlat over the image,
+``proj_norm`` and ``proj`` in plain PyTorch with dropout. Its masks are
+drawn in JAX's site order (``keys = split(rng, num_layers + 1)``): the
+blocks' four each (or one seed each), then AttFlat's. JAX's ``group``
+(``256 // Lv`` samples packed per score matrix) has no counterpart: the
+attention is per sample.
 """
 
 from __future__ import annotations
@@ -206,5 +216,68 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
         img = _attflat_train(net.attflat_img, v, v_mask, masks["flat"][1],
                              inv_keep)
         return net.proj(net.proj_norm(lang + img))
+
+    return forward
+
+
+def draw_classifier_masks(generator: Optional[torch.Generator], rate: float,
+                          *, B: int, Lv: int, D: int, F: int, H: int,
+                          num_layers: int, flat_mlp: int,
+                          bit_width: int = 32, seeded: bool = False
+                          ) -> Dict[str, List]:
+    """The classifier step's keep-masks in site order: each block's four
+    (``sa_train.SA_MASK_NAMES``; a seeded stack gets one host int seed per
+    block instead), then AttFlat's over the image. At rate 0 nothing is
+    drawn."""
+    def draw(shapes):
+        return keep_masks(generator, rate, shapes, bit_width)[0]
+
+    blocks = (draw_seeds(generator, num_layers) if seeded
+              else [draw(sa_train.mask_shapes(B, Lv, D, F, H))
+                    for _ in range(num_layers)])
+    return {"enc": blocks, "flat": draw({"img": (B, Lv, flat_mlp)})["img"]}
+
+
+def make_fused_classifier_forward(num_layers: int, num_heads: int,
+                                  dropout_rate: float = 0.1,
+                                  sa_block: str = "fused",
+                                  dropout_bits: int = 32,
+                                  in_kernel_dropout: bool = False
+                                  ) -> Callable:
+    """-> forward(net, img_feat [B, R, F] f32, generator) -> logits [B, A],
+    differentiable w.r.t. the parameters of a ``ClassifierNet``.
+    sa_block: "fused" (the SA train kernels) or "plain" (the same blocks in
+    plain ops, autograd). dropout_bits: random bits per keep decision of
+    every generator mask. in_kernel_dropout: the blocks draw their dropout
+    inside the kernels from one seed each per step; AttFlat keeps its
+    generator mask."""
+    if sa_block not in SA_BLOCKS:
+        raise ValueError(f"sa_block must be one of {tuple(SA_BLOCKS)}")
+    block = SA_BLOCKS[sa_block]
+    rate = dropout_rate
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
+    inv_keep = inv_keep_prob(rate, dropout_bits) if rate > 0.0 else 1.0
+    seeded = in_kernel_dropout and rate > 0.0
+
+    def forward(net, img_feat: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        v_mask = make_mask(img_feat)
+        v = net.img_feat_linear(img_feat)
+        B, Lv, D = v.shape
+        blocks = net.backbone.enc_list
+        masks = draw_classifier_masks(
+            generator, rate, B=B, Lv=Lv, D=D,
+            F=blocks[0].ffn.mlp.fc.linear.weight.shape[0], H=num_heads,
+            num_layers=num_layers,
+            flat_mlp=net.attflat_img.mlp.fc.linear.weight.shape[0],
+            bit_width=dropout_bits, seeded=seeded)
+        for enc, m in zip(blocks, masks["enc"]):
+            w = sa_train.prepare_sa_train_params(dict(enc.named_parameters()))
+            v = block(v.float(), v_mask, m, w, num_heads=num_heads,
+                      inv_keep=inv_keep, rate=rate if seeded else None)
+        img = _attflat_train(net.attflat_img, v, v_mask, masks["flat"],
+                             inv_keep)
+        return net.proj(net.proj_norm(img))
 
     return forward

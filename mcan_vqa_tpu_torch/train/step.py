@@ -54,7 +54,7 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
                     reg_factor: float = 0.0,
                     lr_schedule: Optional[Callable[[int], float]] = None,
                     reg_mode: str = "l1l2", grad_norm_clip: float = 0.0,
-                    per_param_norms: bool = False
+                    per_param_norms: bool = False, image_only: bool = False
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """-> step(state, batch) -> metrics, updating ``state`` in place.
@@ -71,7 +71,10 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
     learning rate. per_param_norms: the metrics also hold
     "param_grad_norms", {parameter name: the L2 norm of its gradient x the
     clip's scale x grad_accu_steps} (JAX's bookkeeping, step.py:160-173,
-    the reference's, core/exec.py:199-202)."""
+    the reference's, core/exec.py:199-202). image_only: the classifier's
+    step (JAX's ``image_only``, step.py:74-77): the forward is
+    forward_fn(net, img, generator) and "ques" is not read; the classifier
+    trains with ``reg_mode="smooth_l1"``."""
     penalty = PENALTIES[reg_mode]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -90,8 +93,9 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
         loss_sum = torch.zeros((), device=batch["img"].device)
         for i in range(grad_accu_steps):
             sl = slice(i * mb, (i + 1) * mb)
-            logits = forward_fn(state.model, batch["img"][sl],
-                                batch["ques"][sl], state.generator)
+            inputs = (batch["img"][sl],) if image_only else \
+                (batch["img"][sl], batch["ques"][sl])
+            logits = forward_fn(state.model, *inputs, state.generator)
             loss = bce_with_logits_sum(logits, batch["target"][sl])
             if reg_factor > 0.0:
                 loss = loss + reg_factor * penalty(params)
@@ -127,16 +131,17 @@ def make_train_step(forward_fn: Callable, grad_accu_steps: int = 1,
     return step
 
 
-def make_eval_step(model: torch.nn.Module
-                   ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+def make_eval_step(model: torch.nn.Module) -> Callable[..., torch.Tensor]:
     """-> eval_step(img [B, R, F] f32, ques [B, T] int) -> the sigmoid of
     the model's f32 logits [B, A], with no dropout and no autograd
     (step.py:185-200: the boundary where the reference's in-graph sigmoid
-    sits, core/model/net.py:373). ``model`` is an ``MCANet``: its forward
-    is the plain engine and draws no dropout."""
+    sits, core/model/net.py:373). ``model`` is an ``MCANet``, or a
+    ``ClassifierNet``, whose eval_step(img) takes the image alone (JAX's
+    ``image_only``): the forward is the plain engine and draws no
+    dropout."""
 
-    def eval_step(img: torch.Tensor, ques: torch.Tensor) -> torch.Tensor:
+    def eval_step(*inputs: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return torch.sigmoid(model(img, ques).float())
+            return torch.sigmoid(model(*inputs).float())
 
     return eval_step

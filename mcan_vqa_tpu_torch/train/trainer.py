@@ -1,5 +1,6 @@
-"""Training and evaluation for VQA (mcan_vqa_tpu/train/trainer.py; the
-reference's Execution, core/exec.py:27-426).
+"""Training and evaluation for VQA and for the image-only classifier
+(mcan_vqa_tpu/train/trainer.py; the reference's Execution,
+core/exec.py:27-426, and ExecClassify, :757-1066).
 
 ``Trainer(cfg, train_dataset, eval_datasets).train()`` runs the epochs: a
 shuffled, drop-last loader onto the device, one train step per batch (the
@@ -49,8 +50,20 @@ next step boundary and a clean return. ``ckpt_async`` writes the pickles
 on a worker thread, ``keep_last_ckpts`` prunes the older ones, and
 ``ckpt_calibrate`` stores static int8 activation scales calibrated on the
 last train batch beside the last pickle, which ``Predictor.
-from_checkpoint`` serves at level 3. The classifier and MIMIC tasks are
-not ported: asking for them raises.
+from_checkpoint`` serves at level 3.
+
+``task="classify"`` (trainer.py:38-77) trains ``ClassifierNet``, the
+image-only multi-label classifier, on batches whose "ques" it does not
+read: the fused engine is ``make_fused_classifier_forward`` (every SA
+block through the SA train kernels at every width the fused engine takes,
+the same ``use_fused_train`` rule), the penalty under ``reg_factor`` is
+SmoothL1 (trainer.py:309), and every ``cfg.eval_interval`` steps each eval
+dataset is scored in the epoch, one ``  [step N] <name>: {...}`` log line
+each (trainer.py:385-394). Its fused eval engine is
+``build_production_classifier_engine`` at level 1, and its end-of-train
+calibration stores the level-3 scales of that engine. The MIMIC task, on
+the HDF5 MIMIC-CXR files, is not ported (ROADMAP §1 item 7): asking for it
+raises.
 """
 
 from __future__ import annotations
@@ -69,14 +82,17 @@ from mcan_vqa_tpu_torch.data.pipeline import BatchLoader
 from mcan_vqa_tpu_torch.device import resolve_device
 from mcan_vqa_tpu_torch.evals import vqa_eval
 from mcan_vqa_tpu_torch.evals.roc_auc import multilabel_roc_auc
-from mcan_vqa_tpu_torch.models.net import MCANet
-from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
-                                            calibrate_serving_scales)
+from mcan_vqa_tpu_torch.models.net import ClassifierNet, MCANet
+from mcan_vqa_tpu_torch.ops.quant import calibrate_classifier_act_scales
+from mcan_vqa_tpu_torch.ops.serving import (
+    build_production_classifier_engine, build_production_engine,
+    calibrate_serving_scales, prepare_production_classifier_params)
 from mcan_vqa_tpu_torch.train.checkpoint import (
     AsyncCheckpointSaver, checkpoint_path, load_reference_checkpoint,
     merge_compatible, prune_checkpoints, resume_state, save_act_scales,
     save_checkpoint)
-from mcan_vqa_tpu_torch.train.fused_engine import make_fused_train_forward
+from mcan_vqa_tpu_torch.train.fused_engine import (
+    make_fused_classifier_forward, make_fused_train_forward)
 from mcan_vqa_tpu_torch.train.optim import make_lr_schedule, make_optimizer
 from mcan_vqa_tpu_torch.train.step import make_eval_step, make_train_step
 from mcan_vqa_tpu_torch.train.train_state import TrainState
@@ -104,10 +120,19 @@ def use_fused_train(cfg, device: torch.device) -> bool:
             and cfg.hidden_size <= 1024)
 
 
-def make_train_forward(cfg, fused: bool, in_kernel_dropout: bool):
+def make_train_forward(cfg, fused: bool, in_kernel_dropout: bool,
+                       image_only: bool = False):
     """The train forward of the chosen engine: the fused blocks routed by
     width (``engine_route``), their dropout drawn inside the kernels or read
-    from generator masks, or the plain engine."""
+    from generator masks, or the plain engine. image_only: the
+    classifier's (``make_fused_classifier_forward``: no routing by
+    width)."""
+    if image_only:
+        return make_fused_classifier_forward(
+            cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+            sa_block="fused" if fused else "plain",
+            dropout_bits=cfg.dropout_bits,
+            in_kernel_dropout=fused and in_kernel_dropout)
     route = (engine_route(cfg.hidden_size) if fused
              else dict(sga_block="plain", fused_encoder=False))
     return make_fused_train_forward(
@@ -125,21 +150,26 @@ def use_fused_eval(cfg, device: torch.device) -> bool:
     return cfg.eval_engine == "fused" or device.type == "cuda"
 
 
-def eval_engine_line(fused: bool) -> str:
+def eval_engine_line(fused: bool, image_only: bool = False) -> str:
     """The log line that says which eval engine runs."""
     if fused:
-        return ("eval engine: fused (build_production_engine, int8 level 1, "
-                "bf16 stream; rebuilt from the weights at each evaluation)")
+        build_fn = ("build_production_classifier_engine" if image_only
+                   else "build_production_engine")
+        return (f"eval engine: fused ({build_fn}, int8 level 1, bf16 stream; "
+                f"rebuilt from the weights at each evaluation)")
     return "eval engine: plain (the model's forward, f32, no dropout)"
 
 
 def engine_line(hidden_size: int, fused: bool = True,
                 in_kernel_dropout: bool = False,
-                dropout_bits: int = 32) -> str:
+                dropout_bits: int = 32, image_only: bool = False) -> str:
     """The log line that says which engine runs (trainer.py:246, :284)."""
     if not fused:
         return (f"train engine: plain (autograd over plain ops, "
                 f"dropout_bits={dropout_bits})")
+    if image_only:
+        return (f"train engine: fused SA blocks (classifier, "
+                f"in_kernel_dropout={in_kernel_dropout})")
     if engine_route(hidden_size)["fused_encoder"]:
         return (f"train engine: fused SGA train blocks + fused SA encoder "
                 f"(in_kernel_dropout={in_kernel_dropout})")
@@ -154,18 +184,26 @@ class Trainer:
                  task: str = "vqa", device="cuda"):
         """cfg: a ``Config``; train_dataset / the eval datasets: datasets
         with ``example(i)``, ``token_size``, ``ans_size`` and
-        ``pretrained_emb`` (``VQADataset``, ``SyntheticVQADataset``); the
-        model is sized by the train dataset, else by the first eval
-        dataset. eval_datasets: {name: dataset} evaluated after each epoch
-        under ``cfg.eval_every_epoch``; eval_cadence: {name: N}, that
-        dataset only every N epochs (epochs 0, N, 2N, ...; the others every
-        epoch). device: "cuda" by default; with no CUDA device it raises
-        unless the caller passes device="cpu"."""
-        if task != "vqa":
+        ``pretrained_emb`` (``VQADataset``, ``SyntheticVQADataset``,
+        ``SyntheticMIMICDataset``); the model is sized by the train
+        dataset, else by the first eval dataset. eval_datasets: {name:
+        dataset} evaluated after each epoch under ``cfg.eval_every_epoch``
+        (and with task "classify" every ``cfg.eval_interval`` steps);
+        eval_cadence: {name: N}, that dataset only every N epochs (epochs
+        0, N, 2N, ...; the others every epoch). task: "vqa" (``MCANet``) or
+        "classify" (``ClassifierNet``, image only). device: "cuda" by
+        default; with no CUDA device it raises unless the caller passes
+        device="cpu"."""
+        if task == "mimic":
             raise NotImplementedError(
-                f"task={task!r}: only the VQA task is ported so far "
-                f"(ROADMAP §1 item 6)")
+                "task='mimic' (the HDF5 MIMIC-CXR files) is not ported yet "
+                "(ROADMAP §1 item 7)")
+        if task not in ("vqa", "classify"):
+            raise ValueError(f"task must be 'vqa' or 'classify', got "
+                             f"{task!r}")
         self.cfg = cfg
+        self.task = task
+        self.image_only = task == "classify"
         self.device = resolve_device(device)
         self.train_dataset = train_dataset
         self.eval_datasets = dict(eval_datasets or {})
@@ -175,11 +213,15 @@ class Trainer:
         if ref is None:
             raise ValueError("Trainer needs a train_dataset or eval_datasets")
         self.ix_to_ans = getattr(ref, "ix_to_ans", None)
-        self.model = MCANet(
-            cfg, ref.token_size, ref.ans_size,
-            pretrained_emb=getattr(ref, "pretrained_emb", None),
-            generator=torch.Generator().manual_seed(cfg.seed)
-        ).to(self.device)
+        generator = torch.Generator().manual_seed(cfg.seed)
+        if self.image_only:
+            model = ClassifierNet(cfg, ref.ans_size, generator=generator)
+        else:
+            model = MCANet(
+                cfg, ref.token_size, ref.ans_size,
+                pretrained_emb=getattr(ref, "pretrained_emb", None),
+                generator=generator)
+        self.model = model.to(self.device)
         self.data_size = len(train_dataset) if train_dataset is not None \
             else cfg.batch_size
         self.lr_schedule = make_lr_schedule(
@@ -206,12 +248,15 @@ class Trainer:
         cfg = self.cfg
         self.in_kernel_dropout = self.fused and in_kernel_dropout
         self.forward_fn = make_train_forward(cfg, self.fused,
-                                             in_kernel_dropout)
+                                             in_kernel_dropout,
+                                             self.image_only)
         self.step_fn = make_train_step(
             self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
             reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
+            reg_mode="smooth_l1" if self.image_only else "l1l2",
             grad_norm_clip=cfg.grad_norm_clip,
-            per_param_norms=cfg.grad_norm_log_every > 0)
+            per_param_norms=cfg.grad_norm_log_every > 0,
+            image_only=self.image_only)
 
     def loader(self) -> BatchLoader:
         return BatchLoader(self.train_dataset, self.cfg.batch_size,
@@ -270,7 +315,10 @@ class Trainer:
         error is raised on a clean exit and logged while another exception
         unwinds. ``keep_last_ckpts`` prunes; ``grad_norm_log_every`` writes
         ``grad_norm_sums`` JSONL lines; the epochs run inside
-        ``trace(cfg.profile_dir)``. Last, under ``ckpt_calibrate``, the
+        ``trace(cfg.profile_dir)``. With task "classify" each eval dataset
+        is scored every ``cfg.eval_interval`` steps of an epoch, one
+        ``  [step N] <name>: {...}`` line each. Last, under
+        ``ckpt_calibrate``, the
         serving scales from the last train batch go beside the last pickle
         (``_save_serving_calibration``), best-effort: a failure is logged
         and the run kept."""
@@ -285,10 +333,14 @@ class Trainer:
             self.logger.header()
         state = self.ensure_state()
         line = engine_line(cfg.hidden_size, self.fused,
-                           self.in_kernel_dropout, cfg.dropout_bits)
+                           self.in_kernel_dropout, cfg.dropout_bits,
+                           self.image_only)
         self.logger.write(f"{line} (device {self.device})")
-        if cfg.eval_every_epoch and self.eval_datasets:
-            self.logger.write(eval_engine_line(self.fused_eval))
+        in_epoch_eval = (self.image_only and cfg.eval_interval > 0
+                         and self.eval_datasets)
+        if (cfg.eval_every_epoch or in_epoch_eval) and self.eval_datasets:
+            self.logger.write(eval_engine_line(self.fused_eval,
+                                               self.image_only))
         if cfg.resume:
             start_epoch = max(start_epoch, cfg.ckpt_epoch)
         loader = self.loader()
@@ -301,7 +353,7 @@ class Trainer:
 
         old_handlers = {}
         saver = None
-        last_inputs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        last_inputs: Optional[Tuple[torch.Tensor, ...]] = None
         last_saved = None
         try:
             try:
@@ -321,7 +373,7 @@ class Trainer:
                     for batch in loader:
                         if stop["flag"]:
                             break
-                        last_inputs = (batch["img"], batch["ques"])
+                        last_inputs = self._inputs(batch)
                         metrics = self.step_fn(state, batch)
                         loss_sum += float(metrics["loss"])
                         lr = float(metrics["lr"])
@@ -337,6 +389,14 @@ class Trainer:
                                     "grad_norm_sums": norm_sums})
                         timer.tick()
                         meter.update({"loss": metrics["loss"], "lr": lr})
+                        # the classifier's in-epoch evaluation
+                        # (core/exec.py:940-951)
+                        if in_epoch_eval and \
+                                n_steps % cfg.eval_interval == 0:
+                            for name, ds in self.eval_datasets.items():
+                                self.logger.write(
+                                    f"  [step {n_steps}] {name}: "
+                                    f"{self.evaluate(ds)}")
                     if norm_sums:
                         self.logger.jsonl({"epoch": epoch, "step": n_steps,
                                            "grad_norm_sums": norm_sums,
@@ -387,18 +447,34 @@ class Trainer:
                     f"training run itself is unaffected): {e!r}")
         return state
 
+    def _inputs(self, batch) -> Tuple[torch.Tensor, ...]:
+        """The model's inputs of a batch: the image alone for the
+        classifier, else the image and the question."""
+        return (batch["img"],) if self.image_only else \
+            (batch["img"], batch["ques"])
+
     def _save_serving_calibration(self, inputs, epoch: int) -> None:
         """Static int8 activation scales of the shipped serving engine from
         the last real train batch, the "aux" tuple from a second replay
         (``calibrate_serving_scales``), written beside epoch ``epoch``'s
         pickle (``save_act_scales``) so that ``Predictor.from_checkpoint``
-        serves level 3 with no calibration step (trainer.py:463-537).
+        serves level 3 with no calibration step (trainer.py:463-537). The
+        classifier's: the level-3 classifier engine's scales
+        (``calibrate_classifier_act_scales``, trainer.py:497-510), which
+        ``build_production_classifier_engine(act_scales=...)`` takes.
         Skipped, with a log line, at a width with no int8 site."""
         cfg = self.cfg
-        img, ques = inputs
-        scales = calibrate_serving_scales(self.model.state_dict(), img, ques,
-                                          cfg.layer, cfg.multi_head,
-                                          self.device)
+        sd = self.model.state_dict()
+        if self.image_only:
+            prepared = prepare_production_classifier_params(
+                sd, cfg.layer, qffn=3, device=self.device)
+            scales = None
+            if "_mk" in prepared["backbone"]["enc_0"]:
+                scales = calibrate_classifier_act_scales(
+                    prepared, inputs[0], cfg.layer, cfg.multi_head)
+        else:
+            scales = calibrate_serving_scales(sd, *inputs, cfg.layer,
+                                              cfg.multi_head, self.device)
         if scales is None:
             self.logger.write(
                 "serving calibration skipped: model dims are outside the "
@@ -411,15 +487,17 @@ class Trainer:
     def predict(self, dataset) -> Dict[str, np.ndarray]:
         """{"probs": [N, A] f32, "qids": [N]} and, where the examples carry
         targets, "targets" [N, A]: every example once, in order, through
-        the eval engine on the current weights."""
+        the eval engine on the current weights (the classifier's: its
+        level-1 engine, or the plain eval step on the image)."""
         cfg = self.cfg
         if self.fused_eval:
-            serve, prepared = build_production_engine(
-                self.model.state_dict(), cfg.layer, cfg.multi_head,
-                device=self.device)
+            build = (build_production_classifier_engine if self.image_only
+                     else build_production_engine)
+            serve, prepared = build(self.model.state_dict(), cfg.layer,
+                                    cfg.multi_head, device=self.device)
 
-            def probs_of(img, ques):
-                return torch.sigmoid(serve(prepared, img, ques).float())
+            def probs_of(*inputs):
+                return torch.sigmoid(serve(prepared, *inputs).float())
         else:
             probs_of = self.eval_step
         loader = BatchLoader(dataset, cfg.eval_batch_size, self.device,
@@ -429,7 +507,7 @@ class Trainer:
         with torch.no_grad():
             for batch in loader:
                 valid = batch["valid"]
-                probs = probs_of(batch["img"], batch["ques"])
+                probs = probs_of(*self._inputs(batch))
                 probs_all.append(probs.cpu().numpy()[valid])
                 qids_all.append(batch["qid"][valid])
                 if "target" in batch:

@@ -139,3 +139,48 @@ def test_quantized_engines_match_model_apply(full_size, engine):
         e = np.exp(z - z.max(-1, keepdims=True))
         return e / e.sum(-1, keepdims=True)
     assert np.abs(softmax(logits) - softmax(ref_logits)).max() < 0.04
+
+
+@pytest.fixture(scope="module")
+def classifier_full_size():
+    """ClassifierNet at MCAN-small width (hidden 512, 6 layers, 8 heads,
+    ff 2048, 60 regions of 1024 features, 14 labels, B=2), one image with
+    40 regions then padding."""
+    from mcan_vqa_tpu.models.net import ClassifierNet as JClassifierNet
+    from mcan_vqa_tpu_torch.models.net import ClassifierNet
+    cfg = Config(img_feat_size=1024)
+    net = ClassifierNet(cfg, 14,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(0)
+    img = rng.normal(size=(2, 60, 1024)).astype(np.float32)
+    img[1, 40:] = 0.0
+    model = JClassifierNet(answer_size=14, img_feat_size=1024)
+    params = import_torch_state_dict(net.state_dict())
+    logits = jax.jit(lambda p, i: model.apply({"params": p}, i)["logits"])(
+        params, img)
+    return cfg, net, img, 1 / (1 + np.exp(-np.asarray(logits, np.float64)))
+
+
+@pytest.mark.parametrize("engine", ["plain", "bf16", "level1"])
+def test_classifier_engines_match_apply(classifier_full_size, engine):
+    """The plain forward (5e-3, as the VQA plain engine above), the bf16
+    classifier engine (1e-2) and its level-1 int8 engine (2e-2, the JAX
+    package's classifier gate, tests/test_quant.py:759) against
+    ``ClassifierNet.apply`` on the sigmoid (measured on the CPU: 1.1e-3,
+    1.7e-3, 1.9e-3)."""
+    from mcan_vqa_tpu_torch.ops.serving import \
+        build_production_classifier_engine
+    cfg, net, img, ref = classifier_full_size
+    x = torch.from_numpy(img)
+    with torch.no_grad():
+        if engine == "plain":
+            logits = net(x)
+        else:
+            fwd, prep = build_production_classifier_engine(
+                net.state_dict(), cfg.layer, cfg.multi_head,
+                qffn=0 if engine == "bf16" else None, device="cpu")
+            logits = fwd(prep, x)
+    probs = _probs(logits)
+    assert probs.shape == (2, 14) and np.isfinite(probs).all()
+    tol = {"plain": 5e-3, "bf16": 1e-2, "level1": 2e-2}[engine]
+    assert np.abs(probs - ref).max() < tol

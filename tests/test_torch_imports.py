@@ -59,6 +59,8 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/data/vqa_files.py",
                      "mcan_vqa_tpu_torch/cli/validate_serving_accuracy.py",
                      "mcan_vqa_tpu_torch/cli/pack_features.py",
+                     "mcan_vqa_tpu_torch/cli/run_classify.py",
+                     "mcan_vqa_tpu_torch/data/mimic.py",
                      "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
@@ -105,6 +107,8 @@ def test_port_loads_no_jax_module():
             "import mcan_vqa_tpu_torch.train.checkpoint\n"
             "import mcan_vqa_tpu_torch.train.trainer\n"
             "import mcan_vqa_tpu_torch.cli.run_vqa\n"
+            "import mcan_vqa_tpu_torch.cli.run_classify\n"
+            "import mcan_vqa_tpu_torch.data.mimic\n"
             "new = set(sys.modules) - before\n"
             f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

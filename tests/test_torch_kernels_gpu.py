@@ -1421,6 +1421,92 @@ def test_sa_train_block_matches_plain_and_repeats_bitwise(cuda):
         _check_block(got, ref, again)
 
 
+def _image_sa_inputs(cuda, B, D, L=60, seed=41):
+    """The classifier's SA block over the image stream: weights of
+    LN-scale activations at width D, [B, 60, D], ragged regions with a
+    fully padded image."""
+    F = 4 * D
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = 0.05 * (512 / D) ** 0.5
+    w = {n: s * torch.randn(*shape, generator=g, device=cuda)
+         for n, shape in (("wqkv", (D, 3 * D)), ("bqkv", (3 * D,)),
+                          ("wm", (D, D)), ("bm", (D,)), ("ln1_b", (D,)),
+                          ("w1", (D, F)), ("b1", (F,)), ("w2", (F, D)),
+                          ("b2", (D,)), ("ln2_b", (D,)))}
+    for n in ("ln1_s", "ln2_s"):
+        w[n] = 1 + s * torch.randn(D, generator=g, device=cuda)
+    x = torch.randn(B, L, D, generator=g, device=cuda)
+    lens = torch.tensor([(i * 17) % (L + 1) for i in range(B)], device=cuda)
+    mask = (torch.arange(L, device=cuda)[None] >= lens[:, None])[:, None,
+                                                                 None]
+    probe = torch.randn(B, L, D, generator=g, device=cuda)
+    return x, mask, w, probe, g
+
+
+@pytest.mark.parametrize("D", [512, 1024])
+def test_image_sa_train_block_matches_plain(cuda, D):
+    """The classifier's SA train block at 60 regions (MCAN-small, and
+    hidden 1024 with 128-wide heads), fed masks and seeded: against its
+    plain twin, and the seeded block equal bit for bit to the block fed
+    its dump."""
+    from mcan_vqa_tpu_torch.ops import sa_train as sa
+    B, H = 16, 8
+    x, mask, w, probe, g = _image_sa_inputs(cuda, B, D)
+    masks, inv = sa.make_sa_dropout_masks(g, 0.1, B, 60, D, 4 * D, H)
+    got, ref, again, counts = _block_vs_plain(
+        sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (x,), w,
+        sa.SA_WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, mask, masks, wd, num_heads=H,
+                                inv_keep=inv))
+    assert counts["sa_train_fwd"] == counts["sa_train_bwd"] == 1
+    _check_block(got, ref, again)
+    dump, inv = sa.dump_sa_prng_masks(SEED, RATE, B, 60, D, 4 * D, H,
+                                      device=cuda)
+    seeded, _, _, counts = _block_vs_plain(
+        sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (x,), w,
+        sa.SA_WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, mask, SEED, wd, num_heads=H,
+                                rate=RATE))
+    assert counts["sa_train_fwd_prng"] == counts["sa_train_bwd_prng"] == 1
+    fed, _, _, _ = _block_vs_plain(
+        sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (x,), w,
+        sa.SA_WEIGHT_NAMES, probe,
+        lambda blk, ls, wd: blk(*ls, mask, dump, wd, num_heads=H,
+                                inv_keep=inv))
+    assert torch.equal(seeded[0], fed[0])
+    assert all(torch.equal(a, b) for a, b in zip(seeded[1], fed[1]))
+
+
+@pytest.mark.parametrize("D,level", [(512, 1), (512, 3), (1024, 1),
+                                     (1024, 3)])
+def test_image_qffn_sa_block_matches_plain(cuda, D, level):
+    """The classifier engine's quantized SA block over [B, 60, D] image
+    activations (qkv int8 at D 1024), dynamic (level 1) and with the
+    block's own static scales (level 3), fully padded images included."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.models.net import ClassifierNet
+    from mcan_vqa_tpu_torch.ops import quant
+    from mcan_vqa_tpu_torch.ops.serving import prepare_classifier_params
+    cfg = Config(hidden_size=D, ff_size=4 * D, layer=1, img_feat_size=64)
+    net = ClassifierNet(cfg, 14, generator=torch.Generator().manual_seed(0))
+    enc = prepare_classifier_params(net.state_dict(), 1, device=cuda,
+                                    qffn=level)["backbone"]["enc_0"]
+    B, H = 8, 8
+    x, mask, *_ = _image_sa_inputs(cuda, B, D)
+    x = x.to(BF16)
+    sc = quant._cal_sa_block(enc, x, mask, H, 1.1)[1] if level == 3 \
+        else None
+    before = K.launch_counts().get("fused_qffn_sa_block", 0)
+    out = quant.fused_qffn_sa_block(x, mask, enc["_mk"], enc["_qffn"],
+                                    num_heads=H, act_scales=sc)
+    assert K.launch_counts()["fused_qffn_sa_block"] == before + 1
+    ref = quant.fused_qffn_sa_block_plain(x, mask, enc["_mk"], enc["_qffn"],
+                                          num_heads=H, act_scales=sc)
+    assert ("wqkv_q" in enc["_qffn"]) == (D >= 1024 or level >= 2)
+    # test_qffn_blocks_match_plain_with_fully_padded_samples's tolerance
+    _close(out, ref, 2 ** -5)
+
+
 # ---------------------------------------------------------------------------
 # in-kernel dropout: Philox, the mask dump, the seeded kernels
 # ---------------------------------------------------------------------------

@@ -166,12 +166,14 @@ def test_cli_resume_trains_on_as_the_unbroken_run(cli_run, tmp_path, by):
 
 
 def test_unported_trainer_options_raise(tmp_path):
+    """The MIMIC task waits for ROADMAP §1 item 7; an unknown task is
+    refused (task "classify": tests/test_torch_classifier.py)."""
     cfg = Config(**TINY_CFG, ckpts_dir=str(tmp_path), log_path=str(tmp_path))
     ds = SyntheticVQADataset(cfg, size=8)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, ds, task="classify", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7"):
         Trainer(cfg, ds, task="mimic", device="cpu")
+    with pytest.raises(ValueError, match="task"):
+        Trainer(cfg, ds, task="other", device="cpu")
 
 
 @pytest.mark.parametrize("hidden,heads,route", [
