@@ -206,6 +206,27 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              (ROC-AUC, exact launches, fused vs plain eval engine), the
              end-of-train scales side file against the engine calibrated on
              the last batch (bit for bit), and a falling loss on one batch;
+  [mimic]    main path 6, MIMIC-CXR medical VQA on a miniature set in the
+             real formats (``data/mimic_files.py``: 640 images, .npy
+             region [60, 1024] and anatomy [26, 1024] banks, 15 labels
+             with a learnable signature, 512 / 128 / 128 train / val / test
+             questions; h5py is never imported): ``run_mimic --run train``
+             at MCAN-small width (img_feat_size 1024, 60 region rows), one
+             epoch of B=64 steps with in-kernel dropout, warm-started from
+             [train]'s VQA epoch pickle (img_feat_size 2048, 3129 answers),
+             the train split evaluated beside val and test; then ``--run
+             val`` from its checkpoint. Gates: each step's loss against the
+             plain blocks' (1e-3 relative), exact launches per step and per
+             eval batch, the warm start (every tensor of a shared shape the
+             pickle's bit for bit, the others fresh, one skip line each,
+             fresh AdamW state), ``--run val``'s line equal to the train
+             run's, the fused vs plain eval engine (INT8_BOUND, both
+             ROC-AUCs), the end-of-train side file equal to the last
+             batch's calibration and its level-3 engine bit for bit, a
+             falling loss on one batch; the "both" (86 rows) and "anatomy"
+             (26 rows) sources two steps each and an evaluation, and
+             ``run_classify --run train`` on the same files, with the same
+             step and eval gates;
   [canary]   ``cli/validate_serving_accuracy.py`` at its defaults in a
              process of its own: MCAN-small trained 1200 steps on the card
              through the fused train engine, then the fused, qstatic,
@@ -396,8 +417,8 @@ def main() -> None:
     phase_done("last sites")
     work = ROOT / "ckpts" / "chip_smoke"
     try:
-        trainer, ckpt = train_main_path(torch, dev, rows, work)
-        check_checkpoint(torch, dev, trainer, ckpt)
+        trainer, vqa_ckpt = train_main_path(torch, dev, rows, work)
+        check_checkpoint(torch, dev, trainer, vqa_ckpt)
         check_repeated_batch(torch, trainer)
         del trainer
         phase_done("train")
@@ -412,6 +433,8 @@ def main() -> None:
         phase_done("train large")
         classify_path(torch, dev, rows, work / "classify", card)
         phase_done("classify")
+        mimic_path(torch, dev, rows, work / "mimic", vqa_ckpt, card)
+        phase_done("mimic")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     canary_path()
@@ -5897,6 +5920,487 @@ def classify_path(torch, dev, rows, work: Path, card: str) -> None:
     trainer, _ = classify_train(torch, dev, rows, work / "large", "large",
                                 CLASSIFY_LARGE_STEPS, card)
     del trainer
+
+
+# ---------------------------------------------------------------------------
+# phase [mimic]: MIMIC-CXR medical VQA on files in the real formats
+# ---------------------------------------------------------------------------
+
+MIMIC_IMAGES = 640
+MIMIC_QUESTIONS = {"train": 512, "val": 128, "test": 128}
+MIMIC_LABELS = 15
+MIMIC_SHORT = 128             # the train questions of the two-step runs
+MIMIC_FIXED_STEPS = 6         # steps on one batch: its loss must fall
+MIMIC_ROWS = {"regions": 60, "anatomy": 26, "both": 86}
+
+
+def mimic_short_prefix(paths) -> str:
+    """The same files under a second prefix whose train split is the
+    first MIMIC_SHORT questions (two B=64 steps an epoch)."""
+    import pickle
+    src, dst = paths["cxr_data_path"], paths["cxr_data_path"] + "short_"
+    for name in ("ans2label", "label2ans", "dataset_val", "dataset_test",
+                 "dataset_train"):
+        blob = pickle.loads(Path(f"{src}{name}_full.pkl").read_bytes())
+        if name == "dataset_train":
+            blob = blob[:MIMIC_SHORT]
+        Path(f"{dst}{name}_full.pkl").write_bytes(pickle.dumps(blob))
+    return dst
+
+
+def mimic_probe(torch, dev, runs):
+    """Replace the trainer module's Trainer by a subclass that records, per
+    Trainer built: each step's loss from one state against the plain
+    blocks' from the same weights and generator state (the classifier's
+    plain SA blocks for task "classify"), its launches by kernel, its time
+    (CUDA events) and inputs; around ``warm_start`` the weights before and
+    after and the AdamW state. -> a function that puts the Trainer back.""" 
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train import trainer as tmod
+    from mcan_vqa_tpu_torch.train.fused_engine import (
+        make_fused_classifier_forward, make_fused_train_forward)
+    base = tmod.Trainer
+
+    class Probe(base):
+        def build_step(self, in_kernel_dropout):
+            super().build_step(in_kernel_dropout)
+            cfg = self.cfg
+            run = dict(trainer=self, steps=[], last={}, warm=None)
+            runs.append(run)
+            if self.image_only:
+                pf = make_fused_classifier_forward(
+                    cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+                    sa_block="plain", dropout_bits=cfg.dropout_bits,
+                    in_kernel_dropout=True)
+
+                def plain_fwd(m, img, _, g):
+                    return pf(m, img, g)
+            else:
+                plain_fwd = make_fused_train_forward(
+                    cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+                    sga_block="plain", fused_encoder=True,
+                    dropout_bits=cfg.dropout_bits, in_kernel_dropout=True)
+            real = self.real_step_fn = self.step_fn
+
+            def step(state, batch):
+                state.seed_step()
+                ref, g = engine_loss(torch, dev, cfg, plain_fwd, state.model,
+                                     batch, state.generator.get_state())
+                before = K.launch_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = real(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                after = K.launch_counts()
+                run["last"].update(img=batch["img"], ques=batch["ques"])
+                run["steps"].append(dict(
+                    loss=float(metrics["loss"]), plain=ref,
+                    ms=start.elapsed_time(end),
+                    same_draws=torch.equal(g.get_state(),
+                                           state.generator.get_state()),
+                    counts={k: after.get(k, 0) - before.get(k, 0)
+                            for k in TRAIN_KERNELS}))
+                return metrics
+
+            self.step_fn = step
+
+        def warm_start(self, path):
+            fresh = {k: v.detach().clone()
+                     for k, v in self.model.state_dict().items()}
+            super().warm_start(path)
+            runs[-1].update(
+                warm=(fresh, path), opt_after_warm=(
+                    self.state.step, len(self.state.optimizer.state)),
+                warmed={k: v.detach().clone()
+                        for k, v in self.model.state_dict().items()})
+
+    tmod.Trainer = Probe
+
+    def restore():
+        tmod.Trainer = base
+    return restore
+
+
+def mimic_steps(tag, run, want) -> None:
+    """Every recorded step: the exact launches ``want``, the generator
+    where the plain replay leaves it, a finite loss within 1e-3 relative
+    of the plain blocks'."""
+    if not run["steps"]:
+        fail(f"[{tag}] no train step ran")
+    for i, r in enumerate(run["steps"]):
+        if r["counts"] != want:
+            fail(f"[{tag}] step {i}: launches {r['counts']}, expected "
+                 f"{want}")
+        if not r["same_draws"] or not np.isfinite(r["loss"]):
+            fail(f"[{tag}] step {i}: loss {r['loss']}, the generator "
+                 f"moved {'alike' if r['same_draws'] else 'otherwise'}")
+        rel = loss_gate(f"{tag} step {i}", r["loss"], r["plain"])
+        say(f"  [{tag}] step {i}: loss {r['loss']:.6f} (the plain blocks "
+            f"{r['plain']:.6f}, rel {rel:.2e} <= 1e-3), {r['ms']:.3f} ms")
+    say(f"  [{tag}] each step launched " + ", ".join(
+        f"{k} {n}" for k, n in sorted(want.items()) if n))
+
+
+def mimic_warm_gate(torch, run, log: str) -> None:
+    """After ``warm_start``: every tensor whose shape the VQA pickle
+    shares equal to the pickle's bit for bit, every other one equal to
+    the fresh weights, one ``warm-start skip`` log line each, and the
+    AdamW state fresh at step 0."""
+    from mcan_vqa_tpu_torch.train.checkpoint import load_reference_checkpoint
+    if run["warm"] is None:
+        fail("[mimic] run_mimic did not warm-start")
+    fresh, path = run["warm"]
+    trainer = run["trainer"]
+    vqa = load_reference_checkpoint(path)
+    warmed = run["warmed"]
+    skipped = sorted(k for k in fresh
+                     if k not in vqa or vqa[k].shape != fresh[k].shape)
+    for k in fresh:
+        want = fresh[k] if k in skipped else vqa[k]
+        if not torch.equal(warmed[k].cpu(), want.cpu()):
+            fail(f"[mimic] warm start: {k} is neither the pickle's nor "
+                 f"the fresh tensor it should be")
+    lines = [ln for ln in log.splitlines()
+             if ln.startswith("warm-start skip ")]
+    named = sorted(ln.split()[2].rstrip(":") for ln in lines)
+    must = {"img_feat_linear.weight", "proj.weight", "proj.bias"}
+    if named != skipped or not must <= set(skipped):
+        fail(f"[mimic] warm start skipped {skipped}, logged {named}")
+    if run["opt_after_warm"] != (0, 0):
+        fail(f"[mimic] warm start left the AdamW state at "
+             f"{run['opt_after_warm']}")
+    say(f"[mimic] warm start from {Path(path).name} (VQA MCAN-small, "
+        f"img_feat_size 2048, 3129 answers): {len(fresh) - len(skipped)} "
+        f"tensors equal the pickle's bit for bit, {len(skipped)} kept "
+        f"fresh, one log line each: " + "; ".join(lines))
+
+
+def mimic_eval_gates(torch, rows, trainer, tag) -> None:
+    """The fused eval engine on val (exact launches per batch) against the
+    plain one (INT8_BOUND on the probabilities), both ROC-AUCs."""
+    from mcan_vqa_tpu_torch.evals.roc_auc import multilabel_roc_auc
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    cfg = trainer.cfg
+    val = trainer.eval_datasets["val"]
+    n = -(-len(val) // cfg.eval_batch_size)
+    serve = serve_launches(cfg.layer, 1)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(val)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check_launches(f"{tag}: Trainer.evaluate", counts, serve, n)
+    rows.launches(f"{tag}: Trainer.evaluate", counts,
+                  [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    fused = trainer.predict(val)
+    trainer.fused_eval = False
+    plain = trainer.predict(val)
+    trainer.fused_eval = True
+    worst = float(np.abs(fused["probs"] - plain["probs"]).max())
+    rp = multilabel_roc_auc(plain["targets"] > 0.5, plain["probs"])
+    if not (fused["probs"].shape == (len(val), MIMIC_LABELS)
+            and np.isfinite(fused["probs"]).all()
+            and res["roc_micro"] == multilabel_roc_auc(
+                fused["targets"] > 0.5, fused["probs"])["micro"]):
+        fail(f"[{tag}] evaluate {res} does not score the fused engine's "
+             f"probabilities")
+    say(f"[{tag}] Trainer.evaluate on val ({len(val)} questions, {n} "
+        f"batches of {cfg.eval_batch_size}, {secs:.2f} s): fused engine ROC "
+        f"micro {res['roc_micro']:.4f} macro {res['roc_macro']:.4f}; plain "
+        f"engine ROC micro {rp['micro']:.4f} macro {rp['macro']:.4f}; fused "
+        f"vs plain max|dprob| {worst:.3e} <= {INT8_BOUND:.0e}")
+    if worst > INT8_BOUND:
+        fail(f"[{tag}] the fused and the plain eval engines disagree")
+
+
+def mimic_side_file(torch, dev, trainer, run) -> None:
+    """The end-of-train side file's level-3 engine against the engine
+    calibrated on the last train batch (``calibrate_serving_scales``), bit
+    for bit."""
+    from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
+                                                calibrate_serving_scales)
+    from mcan_vqa_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                     load_act_scales)
+    cfg = trainer.cfg
+    L, H = cfg.layer, cfg.multi_head
+    stored = load_act_scales(checkpoint_path(cfg.ckpts_dir, cfg.run_version,
+                                             1))
+    sd = trainer.model.state_dict()
+    img, ques = run["last"]["img"], run["last"]["ques"]
+    scales = calibrate_serving_scales(sd, img, ques, L, H, dev)
+    if stored is None or stored != scales or len(stored) != 2 * L + 1:
+        fail(f"[mimic] the side file holds {sorted(stored or {})}, the "
+             f"last batch calibrates {sorted(scales or {})}")
+    outs = []
+    with torch.no_grad():
+        for source in (stored, scales):
+            fwd, prep = build_production_engine(sd, L, H, act_scales=source,
+                                                device=dev)
+            outs.append(fwd(prep, img, ques))
+    torch.cuda.synchronize()
+    if not torch.equal(*outs) or outs[0].shape != (BATCH, MIMIC_LABELS):
+        fail("[mimic] the side file's engine differs from the engine "
+             "calibrated on the last batch")
+    say(f"[mimic] epoch1.act_scales.json ({len(stored)} entries, the aux "
+        f"tuple included) equals the last train batch's calibration and "
+        f"builds the level-3 engine equal bit for bit at B={BATCH}, "
+        f"{MIMIC_LABELS} labels")
+
+
+def mimic_fixed_batch(torch, trainer) -> None:
+    """MIMIC_FIXED_STEPS steps on one batch: the loss (plain forward, no
+    dropout) falls."""
+    from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
+    batch = next(iter(trainer.loader()))
+
+    def loss():
+        with torch.no_grad():
+            return float(bce_with_logits_sum(
+                trainer.model(batch["img"], batch["ques"]), batch["target"]))
+
+    losses = [loss()]
+    for _ in range(MIMIC_FIXED_STEPS):
+        trainer.real_step_fn(trainer.state, batch)
+        losses.append(loss())
+    say(f"[mimic] one batch, {MIMIC_FIXED_STEPS} steps on it: loss (plain "
+        f"forward, no dropout) " + " -> ".join(f"{v:.4f}" for v in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("[mimic] the loss on a fixed batch did not fall")
+
+
+def mimic_run_train(torch, dev, rows, paths, work, vqa_ckpt, card):
+    """``run_mimic --run train`` in this process on "regions": one epoch of
+    B=64 steps through the fused train engine with in-kernel dropout,
+    warm-started from the [train] phase's VQA epoch pickle, the train split
+    evaluated on its cadence beside val and test; then ``--run val`` from
+    the checkpoint it wrote."""
+    import contextlib
+    import io
+    from mcan_vqa_tpu_torch.cli import run_mimic
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.trainer import engine_route
+    flags = dict(paths, ckpts_dir=str(work / "ckpts"),
+                 log_path=str(work / "log"), version="mimic",
+                 seed=str(SEED + 17), batch_size=str(BATCH), max_epoch="1",
+                 verbose="false")
+    argv = [x for k, v in flags.items() for x in (f"--{k}", v)]
+    runs = []
+    restore = mimic_probe(torch, dev, runs)
+    try:
+        out = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_mimic.main(["--run", "train", "--warm_start",
+                                 str(vqa_ckpt), "--train_eval_every", "1",
+                                 *argv])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        restore()
+    printed = out.getvalue().splitlines()
+    for ln in printed:
+        say(f"  run_mimic: {ln}")
+    if rc != 0 or len(runs) != 1:
+        fail(f"[mimic] run_mimic --run train exited {rc} ({len(runs)} "
+             f"Trainers)")
+    run = runs[0]
+    trainer = run["trainer"]
+    cfg = trainer.cfg
+    if not (trainer.fused and trainer.in_kernel_dropout and
+            trainer.fused_eval) or cfg.img_feat_size != 1024:
+        fail(f"[mimic] the Trainer chose fused={trainer.fused}, "
+             f"in_kernel_dropout={trainer.in_kernel_dropout}, fused eval "
+             f"{trainer.fused_eval}, img_feat_size {cfg.img_feat_size}")
+    log = (Path(cfg.log_path) / "log_run_mimic.txt").read_text()
+    mimic_warm_gate(torch, run, log)
+    step = expected_step_launches(cfg, engine_route(cfg.hidden_size), True)
+    mimic_steps("mimic regions", run, step)
+    n_steps = len(run["steps"])
+    sizes = {k: len(ds) for k, ds in trainer.eval_datasets.items()}
+    n_eval = sum(-(-n // cfg.eval_batch_size) for n in sizes.values()) + \
+        sum(-(-sizes[k] // cfg.eval_batch_size) for k in ("val", "test"))
+    serve = serve_launches(cfg.layer, 1)
+    want = {k: n_steps * step.get(k, 0) + n_eval * serve.get(k, 0)
+            for k in set(step) | set(serve)}
+    say(f"[mimic] run_mimic --run train (MCAN-small, hidden "
+        f"{cfg.hidden_size}, {cfg.layer} + {cfg.layer} layers, "
+        f"img_feat_size {cfg.img_feat_size}, {MIMIC_ROWS['regions']} region "
+        f"rows, {trainer.train_dataset.ans_size} labels, vocabulary "
+        f"{trainer.train_dataset.token_size}): {n_steps} steps and "
+        f"{n_eval} eval batches (train {sizes['train']}, val {sizes['val']}, "
+        f"test {sizes['test']} questions; val and test again at the end) in "
+        f"{secs:.1f} s")
+    check_launches("mimic: run_mimic --run train", counts,
+                   {k: n for k, n in want.items() if n}, 1)
+    rows.launches("mimic: run_mimic --run train", counts,
+                  [k for k in TRAIN_KERNELS if step.get(k)]
+                  + [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    ms = [r["ms"] for r in run["steps"][1:]]
+    say(f"[mimic] step time (steps 2..{n_steps}, CUDA events): mean "
+        f"{sum(ms) / len(ms):.3f} ms, min {min(ms):.3f} ms ({card})")
+    evals = [ln for ln in log.splitlines() if ln.startswith((
+        "train engine", "eval engine", "epoch 0 eval"))]
+    for ln in evals:
+        say(f"  the Trainer logged: {ln}")
+    if [ln.split(":")[0] for ln in evals if ln.startswith("epoch 0 eval")] \
+            != ["epoch 0 eval train", "epoch 0 eval val",
+                "epoch 0 eval test"]:
+        fail("[mimic] the epoch's evaluations of train, val and test")
+    val_line = [ln for ln in printed if ln.startswith("val: ")]
+    if len(val_line) != 1 or not [ln for ln in printed
+                                  if ln.startswith("test: {'roc_micro'")]:
+        fail(f"[mimic] run_mimic printed {printed}")
+
+    out = io.StringIO()
+    K.reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = run_mimic.main(["--run", "val", "--ckpt_epoch", "1", *argv])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    n_val = -(-sizes["val"] // cfg.eval_batch_size)
+    check_launches("mimic: run_mimic --run val", counts, serve, n_val)
+    rows.launches("mimic: run_mimic --run val", counts,
+                  [k for k in INT8_SERVE_KERNELS if serve.get(k)])
+    got = out.getvalue().strip()
+    say(f"[mimic] run_mimic --run val --ckpt_epoch 1: {got!r} equals the "
+        f"train run's line: {got == val_line[0]}")
+    if rc != 0 or got != val_line[0]:
+        fail("[mimic] --run val differs from the train run's val line")
+    return trainer, run
+
+
+def mimic_sources(torch, dev, rows, short_paths, work) -> None:
+    """``Trainer`` on "both" (86 rows) and "anatomy" (26 rows) for one
+    epoch of two B=64 steps, each step's loss against the plain blocks'
+    and its exact launches, then ``Trainer.evaluate`` on val."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.mimic import MIMICDataset
+    from mcan_vqa_tpu_torch.train import trainer as tmod
+    from mcan_vqa_tpu_torch.train.trainer import engine_route
+    for source in ("both", "anatomy"):
+        cfg = Config.for_model(
+            "small", img_feat_size=1024, img_feat_pad_size=MIMIC_ROWS[source],
+            mimic_feat_source=source, max_epoch=1, batch_size=BATCH,
+            seed=SEED + 19, eval_every_epoch=False, version=source,
+            ckpts_dir=str(work / "ckpts"), log_path=str(work / "log"),
+            verbose=False, **short_paths)
+        train = MIMICDataset(cfg, "train")
+        val = MIMICDataset(cfg, "val", vocab=(train.token_to_ix,
+                                               train.pretrained_emb))
+        if train.example(0)["img"].shape != (MIMIC_ROWS[source], 1024):
+            fail(f"[mimic {source}] example shape "
+                 f"{train.example(0)['img'].shape}")
+        runs = []
+        restore = mimic_probe(torch, dev, runs)
+        try:
+            trainer = tmod.Trainer(cfg, train, eval_datasets={"val": val},
+                                   device=dev)
+            t0 = time.perf_counter()
+            trainer.train()
+            secs = time.perf_counter() - t0
+        finally:
+            restore()
+        say(f"[mimic {source}] Trainer on {MIMIC_ROWS[source]} image rows "
+            f"a sample ({len(train)} train questions, 1 epoch, "
+            f"{secs:.1f} s with the end-of-train calibration):")
+        step = expected_step_launches(cfg, engine_route(cfg.hidden_size),
+                                      True)
+        mimic_steps(f"mimic {source}", runs[0], step)
+        rows.launches(f"mimic {source}: train steps", {
+            k: sum(r["counts"][k] for r in runs[0]["steps"])
+            for k in TRAIN_KERNELS}, [k for k in TRAIN_KERNELS
+                                      if step.get(k)])
+        mimic_eval_gates(torch, rows, trainer, f"mimic {source}")
+        del trainer
+
+
+def mimic_classify(torch, dev, rows, short_paths, work) -> None:
+    """``run_classify --run train`` on the same files (regions): one epoch
+    of two steps through the SA train kernels, each against the plain
+    blocks, then its evaluation of val (exact launches)."""
+    import contextlib
+    import io
+    from mcan_vqa_tpu_torch.cli import run_classify
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    flags = dict(short_paths, ckpts_dir=str(work / "ckpts"),
+                 log_path=str(work / "log"), version="classify",
+                 seed=str(SEED + 23), batch_size=str(BATCH), max_epoch="1",
+                 eval_interval="0", verbose="false")
+    argv = [x for k, v in flags.items() for x in (f"--{k}", v)]
+    runs = []
+    restore = mimic_probe(torch, dev, runs)
+    out = io.StringIO()
+    K.reset_launches()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_classify.main(["--run", "train", *argv])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    counts = K.launch_counts()
+    printed = out.getvalue().strip().splitlines()
+    if rc != 0 or len(runs) != 1 or not printed[-1].startswith(
+            "val: {'roc_micro'"):
+        fail(f"[mimic classify] run_classify exited {rc}: {printed}")
+    run = runs[0]
+    cfg = run["trainer"].cfg
+    L = cfg.layer
+    want = {k: 0 for k in TRAIN_KERNELS}
+    for k, c in SA_PER_BLOCK.items():
+        want[k + "_prng" if k in BLOCK_COUNTERS else k] += c * L
+    say(f"[mimic classify] run_classify --run train on the MIMIC files "
+        f"({MIMIC_SHORT} train questions, {MIMIC_LABELS} labels): "
+        f"{printed[-1]}")
+    mimic_steps("mimic classify", run, want)
+    n_val = -(-MIMIC_QUESTIONS["val"] // cfg.eval_batch_size)
+    serve = classifier_launches(L, None)
+    total = {k: len(run["steps"]) * want.get(k, 0)
+             + 2 * n_val * serve.get(k, 0) for k in set(want) | set(serve)}
+    check_launches("mimic classify: run_classify --run train", counts,
+                   {k: n for k, n in total.items() if n}, 1)
+    rows.launches("mimic classify: run_classify --run train", counts,
+                  [k for k in TRAIN_KERNELS if want.get(k)]
+                  + [k for k in serve if k in rows.rows])
+
+
+def mimic_path(torch, dev, rows, work: Path, vqa_ckpt: Path,
+               card: str) -> None:
+    """The phase's sub-steps in order, each timed."""
+    from mcan_vqa_tpu_torch.data.mimic_files import write_mimic_files
+    if "h5py" in sys.modules:
+        fail("[mimic] h5py was imported before the phase")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_mimic_files(str(work / "files"), images=MIMIC_IMAGES,
+                              questions=MIMIC_QUESTIONS, labels=MIMIC_LABELS,
+                              seed=SEED)
+    short = dict(paths, cxr_data_path=mimic_short_prefix(paths))
+    say(f"[mimic] MIMIC-CXR-format files: {MIMIC_IMAGES} images, region "
+        f"bank [{MIMIC_IMAGES}, 60, 1024] and anatomy bank [{MIMIC_IMAGES}, "
+        f"26, 1024] as .npy, {MIMIC_LABELS} labels, "
+        + " / ".join(f"{n} {k}" for k, n in MIMIC_QUESTIONS.items())
+        + f" questions, written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trainer, run = mimic_run_train(torch, dev, rows, paths, work / "regions",
+                                   vqa_ckpt, card)
+    mimic_eval_gates(torch, rows, trainer, "mimic regions")
+    mimic_side_file(torch, dev, trainer, run)
+    mimic_fixed_batch(torch, trainer)
+    del trainer, run
+    say(f"[mimic] run_mimic: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mimic_sources(torch, dev, rows, short, work / "sources")
+    say(f"[mimic] both and anatomy: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mimic_classify(torch, dev, rows, short, work / "classify")
+    say(f"[mimic] run_classify: {time.perf_counter() - t0:.1f} s")
+    if "h5py" in sys.modules:
+        fail("[mimic] the phase imported h5py")
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,17 @@ regularization under ``--reg_factor``, the in-epoch evaluation every
         --ckpt_version V --ckpt_epoch 13       # or --ckpt_path epoch13.pkl
 
 on the CUDA device (``--device cpu`` runs the kernels' plain versions on
-the CPU instead, for tiny architecture flags). ``--synthetic`` trains and
-evaluates on ``SyntheticMIMICDataset`` (14 labels; the val set seed 1).
-The MIMIC-CXR files themselves are not ported yet (ROADMAP §1 item 7):
-without ``--synthetic`` the command raises. ``img_feat_size`` defaults to
-1024, the MIMIC region features' width. The JAX CLI's ``--compile_cache``
-and ``--compute_dtype`` set XLA options and are not accepted here, as
-``run_vqa`` accepts neither.
+the CPU instead, for tiny architecture flags). Without ``--synthetic`` it
+trains and evaluates on the MIMIC-CXR files (``data/mimic.py::
+MIMICDataset``, the train and val splits, their labels; the paths as
+``run_mimic`` takes them, ``--cxr_data_path``, ``--cxr_img_feat_path``,
+``--ana_pool_finding_path``, and the image rows by
+``--mimic_feat_source``): a missing path is listed after ``missing MIMIC
+paths:`` on stderr and the command exits 1. ``--synthetic`` trains and
+evaluates on ``SyntheticMIMICDataset`` instead (14 labels; the val set
+seed 1). ``img_feat_size`` defaults to 1024, the MIMIC region features'
+width. The JAX CLI's ``--compile_cache`` and ``--compute_dtype`` set XLA
+options and are not accepted here, as ``run_vqa`` accepts neither.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import argparse
 from typing import Optional, Sequence
 
 from mcan_vqa_tpu_torch.cli.run_vqa import _bool
-from mcan_vqa_tpu_torch.configs import Config
+from mcan_vqa_tpu_torch.configs import MIMIC_FEAT_SOURCES, Config
 
 INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
              "eval_interval", "img_feat_size", "hidden_size", "multi_head",
@@ -33,7 +37,8 @@ INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
              "max_token")
 FLOAT_KNOBS = ("lr_base", "reg_factor")
 STR_KNOBS = ("version", "ckpt_version", "ckpt_path", "ckpts_dir", "log_path",
-             "result_path")
+             "result_path", "cxr_data_path", "cxr_img_feat_path",
+             "ana_pool_finding_path")
 BOOL_KNOBS = ("resume", "ckpt_async", "verbose")
 LABELS = 14                     # the classify task's CheXpert-style labels
 
@@ -51,6 +56,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="SyntheticMIMICDataset (14 labels) instead of the "
                         "MIMIC-CXR files")
     p.add_argument("--synthetic_size", type=int, default=256)
+    p.add_argument("--mimic_feat_source", choices=MIMIC_FEAT_SOURCES)
     p.add_argument("--train_engine", choices=["auto", "fused", "plain"])
     p.add_argument("--eval_engine", choices=["auto", "fused", "plain"])
     for knob in INT_KNOBS:
@@ -67,29 +73,39 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build_config(args: argparse.Namespace) -> Config:
     overrides = {k: getattr(args, k) for k in
                  INT_KNOBS + FLOAT_KNOBS + STR_KNOBS + BOOL_KNOBS
-                 + ("train_engine", "eval_engine")
+                 + ("train_engine", "eval_engine", "mimic_feat_source")
                  if getattr(args, k) is not None}
     overrides.setdefault("img_feat_size", 1024)
     return Config.for_model(args.model, **overrides)
 
 
+def load_datasets(cfg: Config, args: argparse.Namespace):
+    """(train or None, val), or None when a MIMIC path is missing (listed
+    on stderr, as run_mimic lists them). The val split shares the train
+    split's vocabulary (the classifier reads no question)."""
+    if args.synthetic:
+        from mcan_vqa_tpu_torch.data.mimic import SyntheticMIMICDataset
+        n = args.synthetic_size
+        train = SyntheticMIMICDataset(cfg, size=n, answer_size=LABELS,
+                                      run_mode="train") \
+            if args.run_mode == "train" else None
+        return train, SyntheticMIMICDataset(
+            cfg, size=max(48, n // 4), answer_size=LABELS, run_mode="val",
+            seed=1)
+    from mcan_vqa_tpu_torch.cli.run_mimic import load_datasets as mimic
+    return mimic(cfg, args, splits=("val",))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the MIMIC-CXR files (MIMICDataset, HDF5) are not ported yet "
-            "(ROADMAP §1 item 7): pass --synthetic")
     cfg = build_config(args)
-    from mcan_vqa_tpu_torch.data.mimic import SyntheticMIMICDataset
+    datasets = load_datasets(cfg, args)
+    if datasets is None:
+        return 1
+    train_ds, val_ds = datasets
     from mcan_vqa_tpu_torch.train.checkpoint import load_params
     from mcan_vqa_tpu_torch.train.trainer import Trainer
-    n = args.synthetic_size
-    val_ds = SyntheticMIMICDataset(cfg, size=max(48, n // 4),
-                                   answer_size=LABELS, run_mode="val",
-                                   seed=1)
     if args.run_mode == "train":
-        train_ds = SyntheticMIMICDataset(cfg, size=n, answer_size=LABELS,
-                                         run_mode="train")
         trainer = Trainer(cfg, train_ds,
                           eval_datasets={"val": val_ds}
                           if cfg.eval_every_epoch else {},

@@ -11,7 +11,8 @@ over: they name a published checkpoint, and the port's defaults evaluate
 the run's own). Field names follow the JAX ``Config`` so a reader can map
 one onto the other, and so do the dataset paths and the VQA-v2 file
 tables (``img_feat_path``, ``question_path``, ``answer_path``;
-cfgs/path_cfgs.py:22-77).
+cfgs/path_cfgs.py:22-77) and the MIMIC-CXR ones (``mimic_qa_path``,
+``mimic_ans_dict_path``, ``check_mimic_paths``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 TRAIN_ENGINES = EVAL_ENGINES = ("auto", "fused", "plain")
 DROPOUT_BITS = (8, 16, 32)
 MU_DTYPES = ("", "bfloat16")
+MIMIC_FEAT_SOURCES = ("regions", "anatomy", "both")
 MODELS: Dict[str, Dict[str, Any]] = {
     "small": {},
     "large": dict(hidden_size=1024, ff_size=4096, flat_out_size=2048,
@@ -75,6 +77,9 @@ class Config:
     weight_decay: float = 1e-4
     opt_mu_dtype: str = ""
     reg_factor: float = 0.0
+    # the reference's MUTAN fusion rank (run_mimic.py --mutan_gamma): taken
+    # and kept, read by no model, as in the JAX package (config.py:83)
+    mutan_gamma: int = 2
     verbose: bool = True
     ckpts_dir: str = "./ckpts/"
     log_path: str = "./results/log/"
@@ -122,6 +127,17 @@ class Config:
     vocab_cache_path: str = "./results/cache/vocab.npz"
     result_path: str = "./results/result_test/"
     pred_path: str = "./results/pred/"
+    # MIMIC-CXR (config.py:88-90, :156-157): the pickles' common prefix, the
+    # region feature bank ([N, 60, 1024] "image_features": HDF5, or the
+    # array itself as .npy) and the pooled anatomy bank ([N, 26, 1024]);
+    # mimic_feat_source picks the model's image rows: the 60 regions, the
+    # 26 anatomy rows, or both (regions then anatomy: img_feat_pad_size >=
+    # 86)
+    cxr_data_path: str = "./datasets/mimic/mimic_"
+    cxr_img_feat_path: str = "./datasets/mimic/cmb_bbox_features_full.hdf5"
+    ana_pool_finding_path: str = \
+        "./datasets/mimic/bbox_disease_features_by_coords.hdf5"
+    mimic_feat_source: str = "regions"
 
     def __post_init__(self):
         if self.hidden_size % self.multi_head:
@@ -152,6 +168,10 @@ class Config:
             raise ValueError(
                 f"opt_eps and weight_decay must be >= 0, got "
                 f"{self.opt_eps!r} and {self.weight_decay!r}")
+        if self.mimic_feat_source not in MIMIC_FEAT_SOURCES:
+            raise ValueError(f"mimic_feat_source must be one of "
+                             f"{MIMIC_FEAT_SOURCES}, got "
+                             f"{self.mimic_feat_source!r}")
         for name in ("keep_last_ckpts", "grad_norm_log_every"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0, got "
@@ -208,6 +228,29 @@ class Config:
         return [p for table in (self.img_feat_path, self.question_path,
                                 self.answer_path)
                 for p in table.values() if not os.path.exists(p)]
+
+    @property
+    def mimic_qa_path(self) -> Dict[str, str]:
+        return {split: f"{self.cxr_data_path}dataset_{split}_full.pkl"
+                for split in ("train", "val", "test")}
+
+    @property
+    def mimic_ans_dict_path(self) -> Dict[str, str]:
+        return {"ans2idx": self.cxr_data_path + "ans2label_full.pkl",
+                "idx2ans": self.cxr_data_path + "label2ans_full.pkl"}
+
+    def check_mimic_paths(self) -> List[str]:
+        """The MIMIC-CXR paths that are missing (config.py:290-306): the
+        region bank, the three QA pickles, and the anatomy bank wherever
+        the feature source reads it."""
+        missing = [p for p in (self.cxr_img_feat_path,
+                               *self.mimic_qa_path.values())
+                   if not os.path.exists(p)]
+        if self.mimic_feat_source != "regions":
+            ana = self.ana_pool_finding_path
+            if not (ana and os.path.exists(ana)):
+                missing.append(ana or "ana_pool_finding_path (unset)")
+        return missing
 
     def with_overrides(self, **kw: Any) -> "Config":
         """A copy with ``kw`` set; a new hidden_size brings ff_size = 4 x

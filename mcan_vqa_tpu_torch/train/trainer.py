@@ -61,9 +61,12 @@ SmoothL1 (trainer.py:309), and every ``cfg.eval_interval`` steps each eval
 dataset is scored in the epoch, one ``  [step N] <name>: {...}`` log line
 each (trainer.py:385-394). Its fused eval engine is
 ``build_production_classifier_engine`` at level 1, and its end-of-train
-calibration stores the level-3 scales of that engine. The MIMIC task, on
-the HDF5 MIMIC-CXR files, is not ported (ROADMAP §1 item 7): asking for it
-raises.
+calibration stores the level-3 scales of that engine.
+
+MIMIC-CXR medical VQA trains as the JAX package trains it: task "vqa" on a
+``MIMICDataset`` (a few labels, multi-hot targets, 1024-d image rows), the
+L1 + L2 penalty under ``reg_factor``, ROC-AUC in ``evaluate``, and
+``warm_start`` from a VQA checkpoint (``cli/run_mimic.py``).
 """
 
 from __future__ import annotations
@@ -185,8 +188,8 @@ class Trainer:
         """cfg: a ``Config``; train_dataset / the eval datasets: datasets
         with ``example(i)``, ``token_size``, ``ans_size`` and
         ``pretrained_emb`` (``VQADataset``, ``SyntheticVQADataset``,
-        ``SyntheticMIMICDataset``); the model is sized by the train
-        dataset, else by the first eval dataset. eval_datasets: {name:
+        ``MIMICDataset``, ``SyntheticMIMICDataset``); the model is sized
+        by the train dataset, else by the first eval dataset. eval_datasets: {name:
         dataset} evaluated after each epoch under ``cfg.eval_every_epoch``
         (and with task "classify" every ``cfg.eval_interval`` steps);
         eval_cadence: {name: N}, that dataset only every N epochs (epochs
@@ -194,10 +197,6 @@ class Trainer:
         "classify" (``ClassifierNet``, image only). device: "cuda" by
         default; with no CUDA device it raises unless the caller passes
         device="cpu"."""
-        if task == "mimic":
-            raise NotImplementedError(
-                "task='mimic' (the HDF5 MIMIC-CXR files) is not ported yet "
-                "(ROADMAP §1 item 7)")
         if task not in ("vqa", "classify"):
             raise ValueError(f"task must be 'vqa' or 'classify', got "
                              f"{task!r}")
@@ -302,8 +301,9 @@ class Trainer:
 
     def train(self, start_epoch: int = 0) -> TrainState:
         """Epochs ``start_epoch`` .. max_epoch - 1 (trainer.py:182-484).
-        A fresh run (not ``cfg.resume``, start epoch 0) clears this
-        version's earlier checkpoints and logs first (core/exec.py:96-102);
+        A fresh run (not ``cfg.resume``, start epoch 0, no state restored
+        or warm-started yet) clears this version's earlier checkpoints and
+        logs first (core/exec.py:96-102);
         under ``cfg.resume`` the state is restored (``ensure_state``) and
         the loop starts at max(start_epoch, cfg.ckpt_epoch).
 
@@ -325,7 +325,10 @@ class Trainer:
         cfg = self.cfg
         if self.train_dataset is None:
             raise ValueError("train() needs a train_dataset")
-        if not cfg.resume and start_epoch == 0:
+        # a state already restored or warm-started keeps the version's
+        # log (its warm-start skip lines) and checkpoints, as the JAX
+        # Trainer keeps them once its state exists (trainer.py:192)
+        if not cfg.resume and start_epoch == 0 and not self._state_settled:
             ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
             if os.path.isdir(ckpt_dir):
                 shutil.rmtree(ckpt_dir)

@@ -57,6 +57,19 @@ CFG = Config(**ARCH)
 REAL = [0, 1, 3, 4, 5]          # the samples with at least one region
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this file's tests run: the suite runs
+    files in parallel worker processes, and torch's default pool of a
+    thread per core oversubscribes the cores (six concurrent runs of
+    test_torch_trainer.py's large-shaped test took 378 s of wall time at
+    the default count, 25 s at one thread)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-np.asarray(x, np.float64)))
 
@@ -82,7 +95,8 @@ def setup():
 @pytest.fixture(scope="module")
 def apply_logits(setup):
     _, _, jmodel, params, img, _ = setup
-    return np.asarray(jmodel.apply({"params": params}, img)["logits"])
+    return np.asarray(jax.jit(lambda p: jmodel.apply(
+        {"params": p}, img)["logits"])(params))
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +153,8 @@ def jax_engine(setup):
         logits = fwd(p, img, jax.random.PRNGKey(1))
         return jbce(logits, target), logits
 
-    (loss, logits), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-        params)
+    (loss, logits), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
     return np.asarray(logits), float(loss), _flat_grads(grads)
 
 
@@ -151,8 +165,8 @@ def jax_apply_real(setup):
     apply's replaced scores differ in the score gradient
     (tests/test_torch_fused_engine.py, the all-PAD question)."""
     _, _, jmodel, params, img, target = setup
-    loss, grads = jax.value_and_grad(lambda p: jbce(jmodel.apply(
-        {"params": p}, img[REAL])["logits"], target[REAL]))(params)
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jbce(jmodel.apply(
+        {"params": p}, img[REAL])["logits"], target[REAL])))(params)
     return float(loss), _flat_grads(grads)
 
 
@@ -541,9 +555,19 @@ def test_run_classify_synthetic_trains_and_prints_val(tmp_path, capsys):
     assert "val: {'roc_micro': " in out
 
 
-def test_run_classify_without_synthetic_names_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_classify.main(["--run", "train", "--device", "cpu"])
+def test_run_classify_without_synthetic_names_item_7(tmp_path, capsys):
+    """Without --synthetic the command reads the MIMIC-CXR files: with
+    none there it lists the missing paths on stderr, as the JAX CLI does,
+    and exits 1 (training on the files: tests/test_torch_mimic.py)."""
+    prefix = str(tmp_path / "mimic_")
+    rc = run_classify.main(["--run", "train", "--device", "cpu",
+                            "--cxr_data_path", prefix])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert err.startswith("missing MIMIC paths:\n")
+    listed = [ln.strip() for ln in err.splitlines()[1:]]
+    assert listed == [Config().cxr_img_feat_path] + [
+        f"{prefix}dataset_{s}_full.pkl" for s in ("train", "val", "test")]
 
 
 def test_classify_without_a_card_raises(tmp_path):

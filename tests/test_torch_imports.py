@@ -61,6 +61,9 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/cli/pack_features.py",
                      "mcan_vqa_tpu_torch/cli/run_classify.py",
                      "mcan_vqa_tpu_torch/data/mimic.py",
+                     "mcan_vqa_tpu_torch/data/filter_train_data.py",
+                     "mcan_vqa_tpu_torch/cli/run_mimic.py",
+                     "mcan_vqa_tpu_torch/cli/sweep.py",
                      "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
@@ -109,6 +112,9 @@ def test_port_loads_no_jax_module():
             "import mcan_vqa_tpu_torch.cli.run_vqa\n"
             "import mcan_vqa_tpu_torch.cli.run_classify\n"
             "import mcan_vqa_tpu_torch.data.mimic\n"
+            "import mcan_vqa_tpu_torch.data.filter_train_data\n"
+            "import mcan_vqa_tpu_torch.cli.run_mimic\n"
+            "import mcan_vqa_tpu_torch.cli.sweep\n"
             "new = set(sys.modules) - before\n"
             f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

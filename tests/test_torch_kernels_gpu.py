@@ -2101,3 +2101,90 @@ def test_streaming_ffn_raises_on_unsupported_shapes(cuda):
                w2[:1528].contiguous(), b2, gamma, beta)
         with pytest.raises(ValueError, match="bf16"):
             fn(x, w1.float(), b1, w2.float(), b2, gamma, beta)
+
+
+# ---------------------------------------------------------------------------
+# MIMIC-CXR: the train step and the level-1 engine at the MIMIC shapes
+# ---------------------------------------------------------------------------
+
+def _mimic_config(tmp_path, source, rows, **kw):
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.mimic_files import write_mimic_files
+    paths = write_mimic_files(str(tmp_path / "files"), images=96,
+                              questions={"train": 64, "val": 16, "test": 16},
+                              seed=3)
+    return Config.for_model("small", layer=2, img_feat_size=1024,
+                            img_feat_pad_size=rows, mimic_feat_source=source,
+                            batch_size=64, ckpts_dir=str(tmp_path / "ck"),
+                            log_path=str(tmp_path / "log"), verbose=False,
+                            **paths, **kw)
+
+
+def test_mimic_npy_bank_feeds_a_fused_train_step_at_86_rows(cuda, tmp_path):
+    """``MIMICDataset`` over the .npy banks ("both": 60 region + 26 anatomy
+    rows of 1024 features) into one B=64 step of the fused engine with
+    in-kernel dropout at hidden 512 (2 layers): the loss within 1e-3 of
+    the plain blocks' from the same weights and generator state, the SGA
+    and SA train kernels each launched once a layer."""
+    from mcan_vqa_tpu_torch.data.mimic import MIMICDataset
+    from mcan_vqa_tpu_torch.train.fused_engine import \
+        make_fused_train_forward
+    from mcan_vqa_tpu_torch.train.step import bce_with_logits_sum
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    cfg = _mimic_config(tmp_path, "both", 86)
+    ds = MIMICDataset(cfg, "train")
+    assert isinstance(ds.image_features, np.memmap)
+    trainer = Trainer(cfg, ds, device=cuda)
+    assert trainer.fused and trainer.in_kernel_dropout
+    batch = next(iter(trainer.loader()))
+    assert batch["img"].shape == (64, 86, 1024)
+    state = trainer.state
+    state.seed_step()
+    plain = make_fused_train_forward(
+        cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
+        sga_block="plain", fused_encoder=True, dropout_bits=cfg.dropout_bits,
+        in_kernel_dropout=True)
+    g = torch.Generator(device=cuda)
+    g.set_state(state.generator.get_state())
+    with torch.no_grad():
+        ref = float(bce_with_logits_sum(plain(state.model, batch["img"],
+                                              batch["ques"], g),
+                                        batch["target"]))
+    K.reset_launches()
+    loss = float(trainer.step_fn(state, batch)["loss"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["sga_train_fwd_prng"] == counts["sa_train_fwd_prng"] == 2
+    assert counts["sga_train_bwd_att_prng"] == 2
+    assert np.isfinite(loss) and abs(loss - ref) <= 1e-3 * abs(ref)
+
+
+@pytest.mark.parametrize("source,rows", [("anatomy", 26), ("both", 86)])
+def test_mimic_level1_engine_matches_plain(cuda, tmp_path, source, rows):
+    """The int8 level-1 eval engine over 26 and 86 image rows of MIMIC
+    features and 15 labels (2 layers) against the plain model on the
+    sigmoid, within the int8 bound (2e-2), with a fully padded image."""
+    from mcan_vqa_tpu_torch.data.mimic import MIMICDataset
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    from mcan_vqa_tpu_torch.ops.serving import build_production_engine
+    cfg = _mimic_config(tmp_path, source, rows)
+    ds = MIMICDataset(cfg, "val")
+    net = MCANet(cfg, ds.token_size, ds.ans_size,
+                 pretrained_emb=ds.pretrained_emb,
+                 generator=torch.Generator().manual_seed(4)).to(cuda).eval()
+    ex = [ds.example(i) for i in range(len(ds))]
+    img = torch.from_numpy(np.stack([e["img"] for e in ex])).to(cuda)
+    ques = torch.from_numpy(np.stack([e["ques"] for e in ex])).to(cuda)
+    img[3] = 0.0
+    fwd, prep = build_production_engine(net.state_dict(), cfg.layer,
+                                        cfg.multi_head, device=cuda)
+    K.reset_launches()
+    with torch.no_grad():
+        out = torch.sigmoid(fwd(prep, img, ques).float())
+        ref = torch.sigmoid(net(img, ques).float())
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["fused_qffn_sa_block"] == counts["fused_qffn_sga_block"] \
+        == cfg.layer
+    assert out.shape == (len(ds), 15) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 2e-2

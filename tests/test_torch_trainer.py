@@ -35,6 +35,19 @@ TINY_CFG = dict(hidden_size=32, ff_size=128, layer=1, multi_head=4,
                 train_engine="fused")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this file's tests run: the suite runs
+    files in parallel worker processes, and torch's default pool of a
+    thread per core oversubscribes the cores (six concurrent runs of
+    test_torch_trainer.py's large-shaped test took 378 s of wall time at
+    the default count, 25 s at one thread)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("run")
@@ -166,14 +179,16 @@ def test_cli_resume_trains_on_as_the_unbroken_run(cli_run, tmp_path, by):
 
 
 def test_unported_trainer_options_raise(tmp_path):
-    """The MIMIC task waits for ROADMAP §1 item 7; an unknown task is
-    refused (task "classify": tests/test_torch_classifier.py)."""
+    """Only "vqa" and "classify" are tasks: MIMIC trains as task "vqa" on
+    a MIMICDataset (tests/test_torch_mimic.py), as in the JAX package, so
+    "mimic" is refused as any unknown task is (task "classify":
+    tests/test_torch_classifier.py)."""
     cfg = Config(**TINY_CFG, ckpts_dir=str(tmp_path), log_path=str(tmp_path))
     ds = SyntheticVQADataset(cfg, size=8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(cfg, ds, task="mimic", device="cpu")
-    with pytest.raises(ValueError, match="task"):
-        Trainer(cfg, ds, task="other", device="cpu")
+    for task in ("mimic", "other"):
+        with pytest.raises(ValueError, match="task must be 'vqa' or "
+                                             "'classify'"):
+            Trainer(cfg, ds, task=task, device="cpu")
 
 
 @pytest.mark.parametrize("hidden,heads,route", [
