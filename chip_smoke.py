@@ -227,6 +227,37 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              (26 rows) sources two steps each and an evaluation, and
              ``run_classify --run train`` on the same files, with the same
              step and eval gates;
+  [distributed]  main path 7, data and tensor parallelism on
+             torch.distributed (``parallel/``), each gate's value printed
+             beside its limit: (a) NCCL, world 1, in this process: the
+             MCAN-small B=64 fused step through ``make_train_step(
+             data_group=WORLD)`` equal to the step with no group bit for
+             bit (losses and every weight after 2 AdamW steps, dropout 0.1
+             in the kernels); (b) two ranks spawned on cuda:0 over gloo
+             (``chip_smoke.py --dist-rank R``), MCAN-small, mesh {data 2},
+             the fused engine, 32 rows a rank of a B=64 batch (60 regions,
+             3129 answers): at dropout 0 the loss (1e-5 relative) and
+             every gradient leaf against one B=64 fused step (1e-3 of
+             scale with the plain sites' operands f32; 2^-7 with bf16,
+             whose leaves are roundings of partial sums), the gloo
+             all-reduce of the gradient buffer timed; at dropout 0.1 in
+             the kernels, 3 AdamW steps twice: the ranks' weights equal
+             bit for bit and a repeat the same bits, the ranks' first
+             decoder masks different, each rank's launches 3 steps' worth
+             of the B=32 step; (c) the same ranks, MCAN-large, mesh
+             {model 2}, the plain engine (JAX's route at tp > 1), B=64:
+             loss (1e-4) and gradients (2e-4 of scale) against the tp = 1
+             plain step at dropout 0 and 0.1 (shared masks) with f32
+             operands, and with bf16 (2^-7), then one AdamW step each: the
+             gathered pickle against the tp = 1 one (keys, shapes, moments
+             within the gradient gate, weights within 2 lr); (d)
+             ``Predictor(mesh=make_mesh({"data": 2}, devices=["cuda:0"] *
+             2))`` at buckets 2, 8, 64 for the plain, level-1, level-3,
+             int4 level-5 and q8aux engines: within 1e-6 of the mesh-less
+             Predictor of the engine run on the bucket's two row slices,
+             within the engine's bound of it on the whole bucket (its
+             cuBLAS sites sum in other orders at other row counts) and of
+             the plain one, twice its launches;
   [canary]   ``cli/validate_serving_accuracy.py`` at its defaults in a
              process of its own: MCAN-small trained 1200 steps on the card
              through the fused train engine, then the fused, qstatic,
@@ -435,6 +466,9 @@ def main() -> None:
         phase_done("classify")
         mimic_path(torch, dev, rows, work / "mimic", vqa_ckpt, card)
         phase_done("mimic")
+        distributed_path(torch, dev, rows, work / "distributed",
+                         model_state, cfg, vocab, ix_to_ans, card)
+        phase_done("distributed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     canary_path()
@@ -6404,6 +6438,622 @@ def mimic_path(torch, dev, rows, work: Path, vqa_ckpt: Path,
 
 
 # ---------------------------------------------------------------------------
+# phase [distributed]: data and tensor parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_TIMEOUT = 600
+DIST_VOCAB = 200
+DIST_ANSWERS = 3129
+# the step of a data rank is a one-process step on its rows, and the sum of
+# two is exact: the dp2 gradient is the sum of those steps bit for bit
+DP_EXACT = 1e-6
+# against one B=64 step the gradients differ where the kernels and cuBLAS
+# sum in another order at another row count: in the one process alone,
+# the B=64 step and its two halves' steps summed differ at the AttFlat
+# ReLU's weights by 0.11 of the leaf (relu gates flip; relative L2 6.9e-4
+# over all leaves with f32 plain-site operands, 1.7e-3 with bf16), so the
+# leaf form of JAX's gate cannot hold here: the relative L2 is held
+DP_GATE = 1e-2
+# JAX's gate (tests/test_parallel.py:96-105), held to the relative L2 of
+# all leaves for the same reason; each leaf's gap is printed beside the tp
+# = 1 step's own against its halves summed
+TP_GATE = 2e-4
+# with bf16 operands at the plain sites every gradient leaf there is a bf16
+# rounding of a partial sum: another split of the sum moves it by up to one
+# bf16 step, 2^-8 of the leaf, and a second rounding on the way may add
+# another (printed beside the f32-operand gate, held to 2^-7)
+BF16_SPLIT_GATE = 2.0 ** -7
+# AdamW's first update is lr x sign(g) where |g| >> eps: a sign flipped by
+# rounding moves a weight 2 lr apart, plus the f32 rounding of the weight
+WEIGHT_FLIP = 1.005
+
+
+def dist_batch(torch, dev, rows=None):
+    """The global B=64 batch from a seed: 10-60 image rows of 2048
+    features, 4-14 question tokens, sparse targets over 3129 answers;
+    rows: a slice of it (a data rank's)."""
+    rng = np.random.default_rng(SEED + 24)
+    img = np.abs(rng.normal(size=(BATCH, 60, 2048))).astype(np.float32)
+    for i, n in enumerate(rng.integers(10, 61, BATCH)):
+        img[i, n:] = 0.0
+    ques = rng.integers(1, DIST_VOCAB, size=(BATCH, 14)).astype(np.int64)
+    for i, n in enumerate(rng.integers(4, 15, BATCH)):
+        ques[i, n:] = 0
+    target = (rng.random((BATCH, DIST_ANSWERS)) < 2e-3).astype(np.float32)
+    batch = {"img": img, "ques": ques, "target": target}
+    rows = slice(None) if rows is None else rows
+    return {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
+
+
+def dist_model(torch, cfg):
+    from mcan_vqa_tpu_torch.models.net import MCANet
+    return MCANet(cfg, DIST_VOCAB, DIST_ANSWERS,
+                  generator=torch.Generator().manual_seed(cfg.seed))
+
+
+# leaves whose gradient is 0 in exact arithmetic (a softmax does not move
+# when a constant is added to its logits: the AttFlat glimpse bias and the
+# key biases), so what they hold is reduction noise: JAX's floor of 1e-2
+# (test_parallel.py:99-104) covers it at the O(1) gradients of its test,
+# not under a BCE summed over 64 x 3129 terms (gradients up to ~500)
+ZERO_GRAD_LEAF = re.compile(r"(attflat_\w+\.mlp\.linear|linear_k)\.bias$")
+
+
+def grad_gap(a, b):
+    """Two gradient sets keyed by parameter name -> (the largest leaf gap,
+    the three largest as "leaf gap (leaf max)", the relative L2 gap of
+    all leaves together, the largest |a - b| of the ``ZERO_GRAD_LEAF``
+    leaves over the largest |a| of all): a leaf's gap is its max |a - b|
+    over max |a| floored at 1e-2 (test_parallel.py:96-105), the zero
+    leaves left out of it."""
+    gaps, num, den, noise, top_all = [], 0.0, 0.0, 0.0, 0.0
+    for k, x in a.items():
+        top = float(x.abs().max())
+        d = (x.float() - b[k].float())
+        top_all = max(top_all, top)
+        if ZERO_GRAD_LEAF.search(k):
+            noise = max(noise, float(d.abs().max()))
+        else:
+            gaps.append((float(d.abs().max()) / max(top, 1e-2), k, top))
+        num += float(d.square().sum())
+        den += float(x.float().square().sum())
+    gaps.sort(reverse=True)
+    return (gaps[0][0], [f"{k} {g:.2e} ({t:.2e})" for g, k, t in gaps[:3]],
+            (num / max(den, 1e-30)) ** 0.5, noise / max(top_all, 1e-30))
+
+
+def dist_gate(label, value, limit):
+    ok = value <= limit
+    say(f"[distributed] {label}: {value:.3e} <= {limit:.4g} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"[distributed] {label}: {value} over {limit}")
+
+
+def gap_gate(label, gap, limit, on_leaf=True) -> None:
+    """A ``grad_gap`` held to ``limit``: its largest leaf gap (and the
+    zero leaves' noise against the largest gradient), or, with bf16
+    operands, whose leaves are roundings of partial sums, the relative L2
+    gap of all leaves; the other figures printed beside it."""
+    say(f"[distributed] {label}: largest leaf gaps (leaf max) {gap[1]}, "
+        f"relative L2 {gap[2]:.3e}, zero leaves' noise {gap[3]:.3e} of "
+        f"the largest gradient")
+    if on_leaf:
+        dist_gate(f"{label}, largest leaf", gap[0], limit)
+        dist_gate(f"{label}, zero leaves' noise", gap[3], limit)
+    else:
+        dist_gate(f"{label}, relative L2", gap[2], limit)
+
+
+def dist_step(torch, dev, cfg, model, data, *, rate, group=None,
+              model_group=None, operand=None, steps=1, adamw=False,
+              fused=True):
+    """``steps`` train steps of ``model`` on ``data`` (the port's
+    ``make_train_step`` with the mesh's groups; the fused blocks with
+    their dropout in the kernels, or the plain engine) -> (state, losses,
+    ms per step). adamw False: SGD at lr 0, so ``p.grad`` holds the
+    step's (summed) gradient and the weights stay."""
+    from mcan_vqa_tpu_torch.models.layers import operand_dtype
+    from mcan_vqa_tpu_torch.train.fused_engine import \
+        make_fused_train_forward
+    from mcan_vqa_tpu_torch.train.optim import make_optimizer
+    from mcan_vqa_tpu_torch.train.step import make_train_step
+    from mcan_vqa_tpu_torch.train.train_state import TrainState
+    fwd = make_fused_train_forward(
+        cfg.layer, cfg.multi_head, dropout_rate=rate,
+        sga_block="fused" if fused else "plain", fused_encoder=fused,
+        in_kernel_dropout=fused, model_group=model_group)
+    opt = make_optimizer(model.parameters(), cfg) if adamw else \
+        torch.optim.SGD(model.parameters(), lr=0.0)
+    state = TrainState.create(model, opt, seed=cfg.seed)
+    step = make_train_step(fwd, grad_accu_steps=cfg.grad_accu_steps,
+                           data_group=group, model_group=model_group)
+    losses, ms = [], []
+    with operand_dtype(operand or torch.bfloat16):
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(step(state, data)["loss"]))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    return state, losses, ms
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def weights_digest(torch, model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dist_world1(torch, dev, work: Path) -> None:
+    """(a) NCCL, world 1, in this process: the MCAN-small B=64 fused step
+    through ``make_train_step(data_group=WORLD)`` (the flat all-reduce on
+    NCCL over one rank) against the step with no group, 2 AdamW steps at
+    dropout 0.1 in the kernels: equal losses and weights bit for bit."""
+    import torch.distributed as dist
+
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.parallel.mesh import init_distributed
+    work.mkdir(parents=True, exist_ok=True)
+    init_distributed(device="cuda:0", backend="nccl",
+                     init_method=f"file://{work / 'store_world1'}", rank=0,
+                     world_size=1)
+    try:
+        cfg = Config(seed=SEED + 24)
+        data = dist_batch(torch, dev)
+        runs = [dist_step(torch, dev, cfg, dist_model(torch, cfg).to(dev),
+                          data, rate=0.1, group=g, steps=2, adamw=True)
+                for g in (None, dist.group.WORLD)]
+        (s0, l0, ms0), (s1, l1, ms1) = runs
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(
+            s0.model.parameters(), s1.model.parameters()))
+        say(f"[distributed] (a) NCCL world 1: losses {l0} / {l1}, every "
+            f"weight after 2 steps equal bit for bit: {same}; ms per step "
+            f"{[round(x, 1) for x in ms0]} / {[round(x, 1) for x in ms1]}")
+        if not same:
+            fail("[distributed] (a) the world-1 NCCL step is not the "
+                 "undistributed step bit for bit")
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_dp(torch, dev, rank, mesh) -> dict:
+    """(b) on each rank: MCAN-small, mesh {data 2, model 1}, the fused
+    engine, 32 rows a rank of the global B=64 batch."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import sga_train
+    from mcan_vqa_tpu_torch.ops.dropout import draw_seeds
+    from mcan_vqa_tpu_torch.parallel.sharding import all_reduce_flat_
+    from mcan_vqa_tpu_torch.train.train_state import step_seed
+    cfg = Config(seed=SEED + 24)
+    per = BATCH // DIST_WORLD
+    local = dist_batch(torch, dev, slice(rank * per, (rank + 1) * per))
+    full = dist_batch(torch, dev) if rank == 0 else None
+    base = dist_model(torch, cfg)
+    out = {"ms": {}}
+    # dropout 0: the step per data rank against one B=64 step
+    for label, operand in (("f32", torch.float32), ("bf16", None)):
+        st, loss, ms = dist_step(torch, dev, cfg,
+                                 copy_model(base).to(dev), local, rate=0.0,
+                                 group=mesh.data_group, operand=operand)
+        out["ms"][f"dp2 {label}"] = ms[0]
+        if label == "f32":
+            grads = [p.grad for p in st.model.parameters()]
+            t = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_flat_(grads, mesh.data_group)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            out["allreduce_ms"] = sorted(t)[1]
+            out["grad_mb"] = sum(g.numel() for g in grads) * 4 / 2 ** 20
+            for g in grads:          # the sum again: back to one step's
+                g.div_(DIST_WORLD ** 3)
+        if rank == 0:
+            one, loss1, ms1 = dist_step(torch, dev, cfg,
+                                        copy_model(base).to(dev), full,
+                                        rate=0.0, operand=operand)
+            out["ms"][f"one {label}"] = ms1[0]
+            out[f"loss_rel {label}"] = abs(loss[0] - loss1[0]) / loss1[0]
+            out[f"gap {label}"] = grad_gap(grads_of(one.model),
+                                           grads_of(st.model))
+            del one
+            # what each rank computed: one-process steps on its rows
+            halves = None
+            for r in range(DIST_WORLD):
+                h, _, _ = dist_step(torch, dev, cfg, copy_model(base).to(dev),
+                                    dist_batch(torch, dev, slice(
+                                        r * per, (r + 1) * per)),
+                                    rate=0.0, operand=operand)
+                g = grads_of(h.model)
+                halves = g if halves is None else \
+                    {k: halves[k] + g[k] for k in g}
+                del h
+            out[f"gap halves {label}"] = grad_gap(halves, grads_of(st.model))
+        del st
+    # dropout 0.1 in the kernels: 3 AdamW steps, twice
+    digests = []
+    for rep in range(2):
+        K.reset_launches()
+        st, losses, ms = dist_step(torch, dev, cfg, copy_model(base).to(dev),
+                                   local, rate=0.1, group=mesh.data_group,
+                                   steps=3, adamw=True)
+        if rep == 0:
+            out["counts"] = K.launch_counts()
+            out["losses"] = losses
+            out["ms"]["dp2 dropout"] = ms
+        digests.append(weights_digest(torch, st.model))
+        del st
+    out["digests"] = digests
+    # the first decoder block's seed of step 0 on this rank, and its masks
+    g = torch.Generator(device=dev).manual_seed(
+        step_seed(cfg.seed, 0, rank))
+    draw_seeds(g, cfg.layer)                         # the encoder's
+    seed = draw_seeds(g, cfg.layer)[0]
+    masks, _ = sga_train.dump_prng_masks(seed, 0.1, per, 60, 14,
+                                         cfg.hidden_size, cfg.ff_size,
+                                         cfg.multi_head, dev)
+    import hashlib
+    h = hashlib.sha256()
+    for m in masks.values():
+        h.update(m.cpu().numpy().tobytes())
+    out["mask_digest"] = h.hexdigest()[:16]
+    out["seed"] = seed
+    return out
+
+
+def copy_model(model):
+    import copy
+    return copy.deepcopy(model)
+
+
+def dist_tp(torch, dev, rank, mesh, work: Path) -> dict:
+    """(c) on each rank: MCAN-large (hidden 1024), mesh {data 1, model 2},
+    the plain engine, B=64 in two micro-batches, against the tp = 1 plain
+    step on rank 0."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.parallel.sharding import (gather_shards,
+                                                      shard_dim,
+                                                      shard_module_)
+    from mcan_vqa_tpu_torch.train.checkpoint import save_checkpoint
+    cfg = Config.for_model("large", seed=SEED + 25)
+    data = dist_batch(torch, dev)
+    base = dist_model(torch, cfg)
+    out = {"ms": {}}
+
+    def sharded():
+        return shard_module_(copy_model(base), mesh.tp, mesh.model_index,
+                             mesh.model_group).to(dev)
+
+    def full_grads(model):
+        grads = grads_of(model)
+        grads.update(gather_shards(
+            {k: (g, shard_dim(k)) for k, g in grads.items()
+             if shard_dim(k) is not None}, mesh.model_group, mesh.tp))
+        return {k: g.to(dev) for k, g in grads.items()}
+
+    if rank == 0:
+        # the tp = 1 step against itself summed in another order: the
+        # sum of its two halves' steps, the noise floor of a leaf's gap
+        one, _, _ = dist_step(torch, dev, cfg, copy_model(base).to(dev),
+                              data, rate=0.0, operand=torch.float32,
+                              fused=False)
+        halves = None
+        for r in range(2):
+            h, _, _ = dist_step(torch, dev, cfg, copy_model(base).to(dev),
+                                dist_batch(torch, dev, slice(32 * r,
+                                                             32 * r + 32)),
+                                rate=0.0, operand=torch.float32, fused=False)
+            g = grads_of(h.model)
+            halves = g if halves is None else {k: halves[k] + g[k] for k in g}
+            del h
+        out["gap tp1 halves"] = grad_gap(grads_of(one.model), halves)
+        del one, halves
+    for label, rate, operand in (("f32, dropout 0", 0.0, torch.float32),
+                                 ("f32, dropout 0.1", 0.1, torch.float32),
+                                 ("bf16, dropout 0", 0.0, None)):
+        st, loss, ms = dist_step(torch, dev, cfg, sharded(), data, rate=rate,
+                                 model_group=mesh.model_group,
+                                 operand=operand, fused=False)
+        grads = full_grads(st.model)
+        out["ms"][f"tp2 {label}"] = ms[0]
+        del st
+        if rank == 0:
+            one, loss1, ms1 = dist_step(torch, dev, cfg,
+                                        copy_model(base).to(dev), data,
+                                        rate=rate, operand=operand,
+                                        fused=False)
+            out["ms"][f"one {label}"] = ms1[0]
+            out[f"loss_rel {label}"] = abs(loss[0] - loss1[0]) / loss1[0]
+            out[f"gap {label}"] = grad_gap(grads_of(one.model), grads)
+            del one
+        del grads
+    # one AdamW step each, the tp = 2 pickle gathered on rank 0
+    st, _, _ = dist_step(torch, dev, cfg, sharded(), data, rate=0.0,
+                         model_group=mesh.model_group,
+                         operand=torch.float32, adamw=True, fused=False)
+    save_checkpoint(st, str(work / "ckpts"), "tp2", 1, cfg.lr_base,
+                    mesh=mesh)
+    del st
+    if rank == 0:
+        one, _, _ = dist_step(torch, dev, cfg, copy_model(base).to(dev),
+                              data, rate=0.0, operand=torch.float32,
+                              adamw=True, fused=False)
+        save_checkpoint(one, str(work / "ckpts"), "tp1", 1, cfg.lr_base)
+        del one
+        out["lr"] = cfg.lr_base
+    return out
+
+
+def dist_rank(rank: int, work: Path) -> None:
+    """A spawned rank of (b) and (c): gloo on cuda:0 beside the other
+    rank; its numbers to work/rank<r>.json."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT))
+    from mcan_vqa_tpu_torch.ops import _build
+    _build.load_library()                  # the parent's build, loaded
+    from mcan_vqa_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    dev = init_distributed(device="cuda:0", backend="gloo",
+                           init_method=f"file://{work / 'store'}", rank=rank,
+                           world_size=DIST_WORLD)
+    t0 = time.perf_counter()
+    dp = dist_dp(torch, dev, rank, make_mesh({"data": 2, "model": 1}))
+    t1 = time.perf_counter()
+    tp = dist_tp(torch, dev, rank, make_mesh({"data": 1, "model": 2}),
+                 work)
+    t2 = time.perf_counter()
+    torch.distributed.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(
+        {"dp": dp, "tp": tp, "s": {"dp": t1 - t0, "tp": t2 - t1}}))
+
+
+def dist_spawn(work: Path) -> list:
+    """The two ranks, started together and waited for; every process
+    stopped on the way out."""
+    procs = []
+    for r in range(DIST_WORLD):
+        with open(work / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+                 str(r), "--dist-dir", str(work)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        rcs = [p.wait(timeout=max(1.0, DIST_TIMEOUT - (
+            time.perf_counter() - t0))) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * DIST_WORLD:
+        for r in range(DIST_WORLD):
+            say((work / f"rank{r}.log").read_text()[-3000:])
+        fail(f"[distributed] the ranks exited {rcs}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(DIST_WORLD)]
+
+
+def dist_pickles(torch, work: Path, lr: float) -> None:
+    """(c)'s pickles: the tp = 2 run's gathered one and the tp = 1 run's,
+    the same keys, shapes and step; AdamW's moments within the gradient
+    gate (exp_avg / 0.1 and sqrt(exp_avg_sq / 0.001) are the gradient and
+    its magnitude at step 1), the weights within 2 lr (the first update
+    is lr x sign(g) but where |g| is at rounding level, test_torch_train_
+    step.py's rule)."""
+    a = torch.load(work / "ckpts" / "ckpt_tp1" / "epoch1.pkl",
+                   weights_only=True)
+    b = torch.load(work / "ckpts" / "ckpt_tp2" / "epoch1.pkl",
+                   weights_only=True)
+    sa, sb = a["state_dict"], b["state_dict"]
+    same = list(sa) == list(sb) and all(
+        sa[k].shape == sb[k].shape for k in sa)
+    if not same:
+        fail("[distributed] the gathered pickle's keys or shapes differ "
+             "from the one-process pickle's")
+    dw = max(float((sa[k] - sb[k]).abs().max()) for k in sa)
+    flips = sum(int(((sa[k] - sb[k]).abs() > lr).sum()) for k in sa)
+    ma, mb = a["optimizer"]["state"], b["optimizer"]["state"]
+    keys = list(sa)
+    mu = grad_gap({keys[i]: s["exp_avg"] / 0.1 for i, s in ma.items()},
+                  {keys[i]: s["exp_avg"] / 0.1 for i, s in mb.items()})
+    nu = grad_gap(
+        {keys[i]: (s["exp_avg_sq"] / 1e-3).sqrt() for i, s in ma.items()},
+        {keys[i]: (s["exp_avg_sq"] / 1e-3).sqrt() for i, s in mb.items()})
+    steps = {float(s["step"]) for m in (ma, mb) for s in m.values()}
+    say(f"[distributed] (c) pickles: {len(sa)} tensors, keys and shapes "
+        f"equal, AdamW step {sorted(steps)}")
+    gap_gate("(c) pickle exp_avg / 0.1", mu, TP_GATE, on_leaf=False)
+    gap_gate("(c) pickle sqrt(exp_avg_sq / 0.001)", nu, TP_GATE,
+             on_leaf=False)
+    say(f"[distributed] (c) pickle weights: {flips} of "
+        f"{sum(v.numel() for v in sa.values())} moved apart by more than "
+        f"lr (a flipped sign of a gradient at rounding level)")
+    dist_gate("(c) pickle weights max |dw| / (2 lr)", dw / (2 * lr),
+              WEIGHT_FLIP)
+    if steps != {1.0}:
+        fail(f"[distributed] AdamW steps {steps}, expected 1")
+
+
+def dist_report(torch, rows, ranks, cfg_small) -> None:
+    """Gates of (b) and (c), each value beside its limit."""
+    from mcan_vqa_tpu_torch.train.trainer import engine_route
+    r0, r1 = ranks
+    dp, tp = r0["dp"], r0["tp"]
+    say(f"[distributed] ranks' seconds: {r0['s']} / {r1['s']}")
+    say(f"[distributed] (b) dp2 ms per step {dp['ms']}; rank 1 "
+        f"{r1['dp']['ms']}")
+    say(f"[distributed] (b) gloo all-reduce of the {dp['grad_mb']:.1f} MB "
+        f"gradient buffer (cuda:0 tensors, two ranks on one card): "
+        f"{dp['allreduce_ms']:.1f} / {r1['dp']['allreduce_ms']:.1f} ms")
+    for label in ("f32", "bf16"):
+        sites = f"{label} plain sites"
+        dist_gate(f"(b) dp2 loss rel to one B=64 step, {sites}",
+                  dp[f"loss_rel {label}"], 1e-5)
+        gap_gate(f"(b) dp2 grads against the two ranks' rows stepped in "
+                 f"one process and summed, {sites}",
+                 dp[f"gap halves {label}"], DP_EXACT)
+        gap_gate(f"(b) dp2 grads against one B=64 step, {sites}",
+                 dp[f"gap {label}"], DP_GATE, on_leaf=False)
+    say(f"[distributed] (b) dropout 0.1 in the kernels, 3 steps: losses "
+        f"{dp['losses']} / {r1['dp']['losses']}; weights "
+        f"{dp['digests']} / {r1['dp']['digests']}; first decoder seeds "
+        f"{dp['seed']} / {r1['dp']['seed']}, masks {dp['mask_digest']} / "
+        f"{r1['dp']['mask_digest']}")
+    if not (dp["digests"][0] == r1["dp"]["digests"][0]
+            == dp["digests"][1] == r1["dp"]["digests"][1]):
+        fail("[distributed] (b) the ranks' weights differ, or a repeat "
+             "gave other bits")
+    if dp["mask_digest"] == r1["dp"]["mask_digest"]:
+        fail("[distributed] (b) both data ranks drew the same masks")
+    route = engine_route(cfg_small.hidden_size)
+    want = {k: 3 * n for k, n in expected_step_launches(
+        cfg_small, route, seeded=True).items() if n}
+    for r, res in enumerate(ranks):
+        got = {k: n for k, n in res["dp"]["counts"].items()
+               if k in want or n}
+        say(f"[launches] distributed dp2 rank {r}, 3 steps of 32 rows: "
+            f"{got}")
+        if got != want:
+            fail(f"[distributed] rank {r}: launches {got}, expected {want}")
+    rows.launches("distributed dp2", {
+        k: sum(res["dp"]["counts"].get(k, 0) for res in ranks)
+        for k in want}, list(want))
+    say(f"[distributed] (c) tp2 ms per step {tp['ms']}; rank 1 "
+        f"{r1['tp']['ms']}")
+    say(f"[distributed] (c) the tp = 1 step against its two halves' steps "
+        f"summed (another order of the same sums, f32 operands): largest "
+        f"leaf gaps {tp['gap tp1 halves'][1]}, relative L2 "
+        f"{tp['gap tp1 halves'][2]:.3e}")
+    for label in ("f32, dropout 0", "f32, dropout 0.1"):
+        dist_gate(f"(c) tp2 loss rel, {label}", tp[f"loss_rel {label}"],
+                  1e-4)
+        gap_gate(f"(c) tp2 grad gap, {label}", tp[f"gap {label}"], TP_GATE,
+                 on_leaf=False)
+    dist_gate("(c) tp2 loss rel, bf16, dropout 0",
+              tp["loss_rel bf16, dropout 0"], 1e-4)
+    gap_gate("(c) tp2 grad gap, bf16, dropout 0", tp["gap bf16, dropout 0"],
+             BF16_SPLIT_GATE, on_leaf=False)
+
+
+def split_probs(predictor, requests, parts: int):
+    """Each request through ``predictor`` padded to its bucket, the bucket
+    run as ``parts`` equal row slices one after the other (what a mesh of
+    ``parts`` replicas runs) -> the probabilities of the real rows."""
+    out = []
+    for qs, fs in requests:
+        img, ques = predictor.pad_batch(qs, fs)
+        rows = img.shape[0] // parts
+        out.append(np.concatenate([
+            predictor.forward_padded(img[i * rows:(i + 1) * rows],
+                                     ques[i * rows:(i + 1) * rows])
+            .cpu().numpy() for i in range(parts)])[:len(qs)])
+    return out
+
+
+def dist_predictor(torch, dev, rows, state_dict, cfg, vocab,
+                   ix_to_ans) -> None:
+    """(d) ``Predictor(mesh=make_mesh({"data": 2}, devices=["cuda:0"] *
+    2))`` at buckets 2, 8, 64 for the plain, level-1, level-3, int4
+    level-5 and q8aux engines: each equal to the mesh-less Predictor of
+    the same engine run on the bucket's two row slices (1e-6: the mesh
+    runs just that), against it on the whole bucket within the engine's
+    bound (every engine's plain sites, the LSTM, cross k / v, AttFlat and
+    head, are cuBLAS products, which sum a 32-row and a 64-row product in
+    other orders, and a bf16 operand rounding moves: 2.4e-3 measured for
+    the plain and level-1 engines), against the plain engine (the
+    engine's bound), and twice its launches (one slice a replica)."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(SEED + 26)
+    requests = [ragged_batch(rng, cfg, n) for n in (2, 8, BATCH)]
+    cal = ragged_batch(rng, cfg, BATCH)
+    mesh = make_mesh({"data": 2}, devices=[f"{dev.type}:0"] * 2)
+    kw = dict(latency_buckets=(2, 8), max_batch=BATCH, auto_calibrate=0)
+    plain = Predictor(cfg, state_dict, vocab, ix_to_ans, engine="plain",
+                      device=dev, **kw)
+    for label, extra, bound, on in (
+            ("plain", dict(engine="plain"), 1e-2, "sigmoid"),
+            ("level 1", dict(engine="fused"), INT8_BOUND, "sigmoid"),
+            ("level 3", dict(engine="fused", act_calibration=cal),
+             INT8_BOUND, "sigmoid"),
+            ("int4 level 5", dict(engine="int4", act_calibration=cal),
+             INT4_BOUND, "softmax"),
+            ("q8aux", dict(engine="fused", q8aux=True, act_calibration=cal),
+             INT8_BOUND, "sigmoid")):
+        t0 = time.perf_counter()
+        alone = Predictor(cfg, state_dict, vocab, ix_to_ans, device=dev,
+                          **kw, **extra)
+        pm = Predictor(cfg, state_dict, vocab, ix_to_ans, mesh=mesh, **kw,
+                       **extra)
+        K.reset_launches()
+        want = [alone.predict_probs(*r) for r in requests]
+        torch.cuda.synchronize()
+        c1 = K.launch_counts()
+        K.reset_launches()
+        got = [pm.predict_probs(*r) for r in requests]
+        torch.cuda.synchronize()
+        c2 = K.launch_counts()
+        sliced = split_probs(alone, requests, 2)
+        dist_gate(f"(d) mesh {label} vs mesh-less on the two slices, "
+                  f"buckets 2 / 8 / 64",
+                  max(float(np.abs(a - b).max())
+                      for a, b in zip(got, sliced)), 1e-6)
+        dist_gate(f"(d) mesh {label} vs mesh-less on the whole bucket",
+                  max(float(np.abs(a - b).max()) for a, b in zip(got, want)),
+                  bound)
+        if c2 != {k: 2 * n for k, n in c1.items()}:
+            fail(f"[distributed] (d) {label}: mesh launches {c2}, expected "
+                 f"twice {c1}")
+        rows.launches(f"distributed mesh {label}", c2,
+                      [k for k in c2 if k in rows.rows])
+        if label != "plain":
+            agreement(f"[distributed] (d) mesh {label}", requests, got,
+                      plain, len(ix_to_ans), bound=bound, on=on)
+        say(f"[distributed] (d) {label}: launches {c2} (twice the "
+            f"mesh-less {sum(c1.values())}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        del alone, pm
+
+
+def distributed_path(torch, dev, rows, work: Path, state_dict, cfg, vocab,
+                     ix_to_ans, card: str) -> None:
+    """The phase's sub-phases in order, each timed."""
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist_world1(torch, dev, work)
+    say(f"[distributed] (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # three CUDA contexts share the card
+    ranks = dist_spawn(work)
+    dist_report(torch, rows, ranks, cfg)
+    dist_pickles(torch, work, ranks[0]["tp"]["lr"])
+    say(f"[distributed] (b) + (c), two ranks on one card over gloo: "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    t0 = time.perf_counter()
+    dist_predictor(torch, dev, rows, state_dict, cfg, vocab, ix_to_ans)
+    say(f"[distributed] (d): {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase [canary]: the accuracy canary of every engine the Predictor ships
 # ---------------------------------------------------------------------------
 
@@ -6438,4 +7088,8 @@ def canary_path() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--dist-rank" in sys.argv:
+        dist_rank(int(sys.argv[sys.argv.index("--dist-rank") + 1]),
+                  Path(sys.argv[sys.argv.index("--dist-dir") + 1]))
+    else:
+        main()

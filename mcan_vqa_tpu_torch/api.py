@@ -27,13 +27,21 @@ the online calibration's rebuild, are then ignored with JAX's warning.
 answer head) to the calibrated "fused" / "int4" engines. A request batch
 pads to the smallest bucket that fits (``latency_buckets`` plus
 ``max_batch``), as in the JAX Predictor, so the kernels always see the
-shapes they were measured at. Multi-device meshes are not ported yet:
-asking for one raises.
+shapes they were measured at.
+
+``mesh`` (``parallel/mesh.py::make_mesh(shape, devices=[...])``) serves
+pure data parallelism in one process, where the JAX Predictor is one
+controller over its chips (api.py:296-315, :516-541): every engine is
+built once per mesh device, its prepared params on that device; a padded
+bucket is split into equal row slices, each slice runs on its device, and
+the results are concatenated in order. The online calibration's rebuild
+swaps every replica at once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import warnings
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -104,10 +112,11 @@ class Predictor:
         the port measures its own table ``engine="auto"`` serves its one
         engine in every bucket.
 
-        mesh: not ported; it raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device meshes are not ported yet")
+        mesh: a pure data-parallel serving mesh (``make_mesh({"data": n},
+        devices=[...])``; a device may repeat): one replica of every
+        engine per device, each bucket split over them; every bucket must
+        divide by n (JAX's checks, api.py:303-313). ``device`` is then the
+        mesh's first device."""
         requested = engine
         if engine == "auto":
             engine = "fused"
@@ -145,9 +154,25 @@ class Predictor:
         if not all(0 < b <= max_batch for b in buckets):
             raise ValueError(
                 f"latency_buckets must be in (0, max_batch]: {buckets}")
+        if mesh is not None:
+            if mesh.tp != 1:
+                raise ValueError(
+                    f"serving mesh must be pure data-parallel: {mesh.shape}")
+            if not mesh.devices:
+                raise ValueError(
+                    "a serving mesh lists its devices: make_mesh(shape, "
+                    "devices=[...]) (one process, a replica per device)")
+            bad = [b for b in set(buckets) | {max_batch} if b % mesh.size]
+            if bad:
+                raise ValueError(
+                    f"every compiled bucket must divide over the "
+                    f"{mesh.size}-device mesh: {sorted(bad)}")
+            self.devices = mesh.devices
+        else:
+            self.devices = (resolve_device(device),)
         self.cfg = cfg
         self.engine = engine
-        self.device = resolve_device(device)
+        self.device = self.devices[0]
         self.token_to_ix = token_to_ix
         if ix_to_ans is None:
             _, ix_to_ans = load_answer_dict()
@@ -171,18 +196,22 @@ class Predictor:
                     "(act_calibration/act_scales absent, auto_calibrate "
                     "off): serving stays on the dynamic int8 engine, not "
                     "the calibrated level-3 engine")
-            self._install(self._build_engines(state_dict, act_inputs,
-                                              act_scales))
+            self._install([self._build_engines(state_dict, act_inputs,
+                                               act_scales, dev)
+                           for dev in self.devices])
         elif engine == "int8":
-            self._install((make_quant_serving_fn(cfg.layer, cfg.multi_head),
-                           quantize_params(state_dict, cfg.layer,
-                                           self.device)))
+            self._install([(make_quant_serving_fn(cfg.layer, cfg.multi_head),
+                            quantize_params(state_dict, cfg.layer, dev))
+                           for dev in self.devices])
         else:
             model = MCANet(cfg, token_size=len(token_to_ix),
                            answer_size=len(self.ix_to_ans))
             model.load_state_dict(state_dict, strict=True)
-            self._install((lambda m, img, ques: m(img, ques),
-                           model.to(self.device).eval()))
+            model.eval()
+            replicas = [model] + [copy.deepcopy(model)
+                                  for _ in self.devices[1:]]
+            self._install([(lambda m, img, ques: m(img, ques), m.to(dev))
+                           for m, dev in zip(replicas, self.devices)])
 
         # --- online calibration state (api.py:564-722) ------------------
         self._cal_error: Optional[BaseException] = None
@@ -203,18 +232,18 @@ class Predictor:
     # ------------------------------------------------------------------
     # engines
 
-    def _build_fused(self, state_dict, act_inputs, act_scales=None):
-        """-> (forward, prepared) of the shipped engine: level 1 without
-        calibration; with a calibration batch or scales level 3, or the
-        int4 engine's level 5, and the aux sites when asked for."""
+    def _build_fused(self, state_dict, act_inputs, act_scales, device):
+        """-> (forward, prepared) of the shipped engine on ``device``: level
+        1 without calibration; with a calibration batch or scales level 3,
+        or the int4 engine's level 5, and the aux sites when asked for."""
         calibrated = act_inputs is not None or act_scales is not None
         return build_production_engine(
             state_dict, self.cfg.layer, self.cfg.multi_head,
             qffn=self._qffn_level if calibrated else None,
             q8aux=self._q8aux and calibrated, act_scale_inputs=act_inputs,
-            act_scales=act_scales, device=self.device)
+            act_scales=act_scales, device=device)
 
-    def _build_engines(self, state_dict, act_inputs, act_scales):
+    def _build_engines(self, state_dict, act_inputs, act_scales, device):
         """The fused path's engine (api.py:420): explicit engines take one
         calibration replay inside ``build_production_engine``; "auto" with
         q8aux derives its scales first from the batch in two passes
@@ -223,22 +252,26 @@ class Predictor:
         router's ``_calibrate_scales(need_aux=True)`` does (api.py:474).
         At a width outside the megakernel envelope that gives None: the
         build then warns and serves the per-sub-op path uncalibrated, as
-        in JAX. Every bucket routes to the engine."""
+        in JAX. Every bucket routes to the engine. One replica, on
+        ``device``: a mesh calls this once per device, each replica
+        calibrating on the same batch."""
         if self._auto_routing and self._q8aux and act_inputs is not None:
             img, ques = act_inputs
             shared = calibrate_serving_scales(
                 state_dict, img, ques, self.cfg.layer, self.cfg.multi_head,
-                self.device)
+                device)
             if shared is not None:
                 act_scales, act_inputs = shared, None
-        return self._build_fused(state_dict, act_inputs, act_scales)
+        return self._build_fused(state_dict, act_inputs, act_scales, device)
 
-    def _install(self, built) -> None:
-        """Swap an engine in: one atomic handle holds the engines and the
-        routes together, so a concurrent request never pairs a new
-        route with an old engine."""
-        self.params = built[1]
-        self._live = ({"base": built}, {b: "base" for b in self.buckets})
+    def _install(self, replicas) -> None:
+        """Swap an engine in, one (forward, prepared) replica per device:
+        one atomic handle holds the replicas and the routes together, so
+        a concurrent request never pairs a new route with an old engine
+        (or one replica's engine with another's)."""
+        self.params = replicas[0][1]
+        self._live = ({"base": list(replicas)},
+                      {b: "base" for b in self.buckets})
 
     @property
     def routes(self) -> Dict[int, str]:
@@ -249,7 +282,7 @@ class Predictor:
     def act_scales(self) -> Optional[Dict[str, tuple]]:
         """The static activation scales the live engine bakes in, or None
         (dynamic scales, or the plain engine)."""
-        return getattr(self._live[0]["base"][0], "act_scales", None)
+        return getattr(self._live[0]["base"][0][0], "act_scales", None)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Config,
@@ -370,19 +403,21 @@ class Predictor:
         here as well."""
         try:
             with torch.inference_mode():
-                built = self._build_engines(self._raw_state,
-                                            (img_cal, ques_cal), None)
-                fwd, prepared = built
+                replicas = [self._build_engines(
+                    self._raw_state, (img_cal, ques_cal), None, dev)
+                    for dev in self.devices]
                 cfg = self.cfg
-                for b in self.buckets:
-                    fwd(prepared,
-                        torch.zeros((b, cfg.img_feat_pad_size,
-                                     cfg.img_feat_size), device=self.device),
-                        torch.zeros((b, cfg.max_token), dtype=torch.int32,
-                                    device=self.device))
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            self._install(built)
+                for (fwd, prepared), dev in zip(replicas, self.devices):
+                    for b in self.buckets:
+                        rows = b // len(self.devices)
+                        fwd(prepared,
+                            torch.zeros((rows, cfg.img_feat_pad_size,
+                                         cfg.img_feat_size), device=dev),
+                            torch.zeros((rows, cfg.max_token),
+                                        dtype=torch.int32, device=dev))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            self._install(replicas)
             self._cal_state = "calibrated"
             self._cal_error = None
             self._raw_state = None
@@ -432,14 +467,28 @@ class Predictor:
     def forward_padded(self, img: np.ndarray, ques: np.ndarray
                        ) -> torch.Tensor:
         """One forward on an already padded batch -> probabilities
-        [bucket, A] on the engine's device (not synchronised)."""
+        [bucket, A] on the engine's (the mesh's first) device, not
+        synchronised. On a mesh each replica takes its equal row slice on
+        its device, the slices launched one after the other and
+        concatenated in order."""
         live, routes = self._live
-        forward, params = live[routes[self.bucket_for(img.shape[0])]]
+        replicas = live[routes[self.bucket_for(img.shape[0])]]
+        if img.shape[0] % len(replicas):
+            raise ValueError(f"{img.shape[0]} rows do not split over the "
+                             f"{len(replicas)}-device mesh: pad to a bucket")
+        rows = img.shape[0] // len(replicas)
+        out = []
         with torch.inference_mode():
-            img_t = torch.from_numpy(img).to(self.device)
-            ques_t = torch.from_numpy(ques).to(self.device)
-            logits = forward(params, img_t, ques_t)
-            return torch.sigmoid(logits.float())
+            for i, ((forward, params), dev) in enumerate(
+                    zip(replicas, self.devices)):
+                sl = slice(i * rows, (i + 1) * rows)
+                img_t = torch.from_numpy(img[sl]).to(dev)
+                ques_t = torch.from_numpy(ques[sl]).to(dev)
+                out.append(torch.sigmoid(
+                    forward(params, img_t, ques_t).float()))
+            if len(out) == 1:
+                return out[0]
+            return torch.cat([o.to(self.device) for o in out])
 
     def predict_probs(self, questions: Sequence[str],
                       image_features) -> np.ndarray:

@@ -21,6 +21,8 @@ evaluates on ``SyntheticMIMICDataset`` instead (14 labels; the val set
 seed 1). ``img_feat_size`` defaults to 1024, the MIMIC region features'
 width. The JAX CLI's ``--compile_cache`` and ``--compute_dtype`` set XLA
 options and are not accepted here, as ``run_vqa`` accepts neither.
+Under ``torchrun`` the ranks train on ``--mesh_shape``'s mesh as
+``run_vqa``'s do.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from mcan_vqa_tpu_torch.cli.run_vqa import _bool
+from mcan_vqa_tpu_torch.cli.run_vqa import _bool, add_mesh_flags, \
+    mesh_launch
 from mcan_vqa_tpu_torch.configs import MIMIC_FEAT_SOURCES, Config
 
 INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
@@ -67,13 +70,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.add_argument(f"--{knob}", type=str)
     for knob in BOOL_KNOBS:
         p.add_argument(f"--{knob}", type=_bool)
+    add_mesh_flags(p)
     return p.parse_args(argv)
 
 
 def build_config(args: argparse.Namespace) -> Config:
     overrides = {k: getattr(args, k) for k in
                  INT_KNOBS + FLOAT_KNOBS + STR_KNOBS + BOOL_KNOBS
-                 + ("train_engine", "eval_engine", "mimic_feat_source")
+                 + ("train_engine", "eval_engine", "mimic_feat_source",
+                    "mesh_shape")
                  if getattr(args, k) is not None}
     overrides.setdefault("img_feat_size", 1024)
     return Config.for_model(args.model, **overrides)
@@ -105,19 +110,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     train_ds, val_ds = datasets
     from mcan_vqa_tpu_torch.train.checkpoint import load_params
     from mcan_vqa_tpu_torch.train.trainer import Trainer
-    if args.run_mode == "train":
-        trainer = Trainer(cfg, train_ds,
-                          eval_datasets={"val": val_ds}
-                          if cfg.eval_every_epoch else {},
-                          task="classify", device=args.device)
-        trainer.train()
-        print("val:", trainer.evaluate(val_ds))
+    with mesh_launch(args.device) as (device, say):
+        if args.run_mode == "train":
+            trainer = Trainer(cfg, train_ds,
+                              eval_datasets={"val": val_ds}
+                              if cfg.eval_every_epoch else {},
+                              task="classify", device=device)
+            trainer.train()
+            say("val:", trainer.evaluate(val_ds))
+            return 0
+        trainer = Trainer(cfg, eval_datasets={args.run_mode: val_ds},
+                          task="classify", device=device)
+        trainer.model.load_state_dict(
+            trainer.local_state_dict(load_params(cfg)))
+        say(f"{args.run_mode}:", trainer.evaluate(val_ds))
         return 0
-    trainer = Trainer(cfg, eval_datasets={args.run_mode: val_ds},
-                      task="classify", device=args.device)
-    trainer.model.load_state_dict(load_params(cfg))
-    print(f"{args.run_mode}:", trainer.evaluate(val_ds))
-    return 0
 
 
 if __name__ == "__main__":

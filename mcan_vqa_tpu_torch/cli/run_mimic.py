@@ -33,6 +33,8 @@ The flags are the JAX CLI's with its defaults (``img_feat_size`` 1024, the
 MIMIC features' width) plus ``--device``, the data paths and
 ``--mimic_feat_source``; its ``--compile_cache`` and ``--compute_dtype``
 set XLA options and are not accepted, as ``run_vqa`` accepts neither.
+Under ``torchrun`` the ranks train on ``--mesh_shape``'s mesh as
+``run_vqa``'s do.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-from mcan_vqa_tpu_torch.cli.run_vqa import _bool
+from mcan_vqa_tpu_torch.cli.run_vqa import _bool, add_mesh_flags, \
+    mesh_launch
 from mcan_vqa_tpu_torch.configs import MIMIC_FEAT_SOURCES, Config
 
 INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
@@ -85,6 +88,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.add_argument(f"--{knob}", type=str)
     for knob in BOOL_KNOBS:
         p.add_argument(f"--{knob}", type=_bool)
+    add_mesh_flags(p)
     return p.parse_args(argv)
 
 
@@ -92,7 +96,7 @@ def build_config(args: argparse.Namespace) -> Config:
     overrides = {k: getattr(args, k) for k in
                  INT_KNOBS + FLOAT_KNOBS + STR_KNOBS + BOOL_KNOBS
                  + ("grad_accu_steps", "mimic_feat_source", "train_engine",
-                    "eval_engine")
+                    "eval_engine", "mesh_shape")
                  if getattr(args, k) is not None}
     # MIMIC features are 1024-d (reference core/data/load_data.py:168)
     overrides.setdefault("img_feat_size", 1024)
@@ -132,6 +136,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 1
     train_ds, val_ds, test_ds = datasets
 
+    with mesh_launch(args.device) as (device, say):
+        return run(args, cfg, train_ds, val_ds, test_ds, device, say)
+
+
+def run(args, cfg: Config, train_ds, val_ds, test_ds, device, say) -> int:
+    """The run mode on ``device`` (this rank's under torchrun); ``say``
+    prints the results (rank 0's)."""
     from mcan_vqa_tpu_torch.train.trainer import Trainer
     if args.run_mode == "train":
         eval_datasets = {"val": val_ds, "test": test_ds}
@@ -144,18 +155,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         trainer = Trainer(cfg, train_ds,
                           eval_datasets=eval_datasets
                           if cfg.eval_every_epoch else {},
-                          eval_cadence=eval_cadence, device=args.device)
+                          eval_cadence=eval_cadence, device=device)
         if args.warm_start:
             trainer.warm_start(args.warm_start)
         trainer.train()
-        print("val:", trainer.evaluate(val_ds))
-        print("test:", trainer.evaluate(test_ds))
+        say("val:", trainer.evaluate(val_ds))
+        say("test:", trainer.evaluate(test_ds))
         return 0
     ds = val_ds if args.run_mode == "val" else test_ds
     trainer = Trainer(cfg, eval_datasets={args.run_mode: ds},
-                      device=args.device)
+                      device=device)
     trainer.ensure_state(resume=True)
-    print(f"{args.run_mode}:", trainer.evaluate(ds))
+    say(f"{args.run_mode}:", trainer.evaluate(ds))
     return 0
 
 

@@ -30,15 +30,28 @@ targets, so ROC-AUC is printed).
           (``..._testdev.json``), the reference's val-then-test sequence in
           one command.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) every rank
+joins the process group before the Trainer is built (each on
+``cuda:LOCAL_RANK``, or the CPU with ``--device cpu``) and trains on the
+mesh ``--mesh_shape`` names, JAX's ``mesh_shape`` (data x model ranks):
+
+    torchrun --nproc_per_node=2 -m mcan_vqa_tpu_torch.cli.run_vqa \
+        --run train --synthetic --mesh_shape data=2,model=1
+
+Rank 0 prints, logs and writes the checkpoints. Without torchrun nothing
+changes. ``--gpu`` is accepted and ignored, as in the JAX CLI: the ranks
+and the mesh choose the devices.
+
 Not ported, and raising: ``--run visualize`` (ROADMAP §1 item 11).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from mcan_vqa_tpu_torch.configs import Config
 
@@ -58,7 +71,7 @@ BOOL_KNOBS = {"eval_ee": "eval_every_epoch", "save_pred": "test_save_pred",
               "preload": "preload", "verbose": "verbose", "resume": "resume",
               "ckpt_async": "ckpt_async"}
 OTHER_KNOBS = ("grad_accu_steps", "lr_decay_list", "train_engine",
-               "eval_engine", "dropout_bits", "train_split")
+               "eval_engine", "dropout_bits", "train_split", "mesh_shape")
 
 
 def _bool(s: str) -> bool:
@@ -67,6 +80,47 @@ def _bool(s: str) -> bool:
     if s.lower() in ("false", "0", "no"):
         return False
     raise argparse.ArgumentTypeError(f"not a boolean: {s!r}")
+
+
+def parse_mesh_shape(text: str) -> Dict[str, int]:
+    """"data=2,model=2" -> {"data": 2, "model": 2}."""
+    shape = {}
+    for part in text.split(","):
+        axis, sep, size = part.partition("=")
+        if not sep:
+            raise argparse.ArgumentTypeError(
+                f"mesh_shape takes axis=size pairs, got {text!r}")
+        shape[axis.strip()] = int(size)
+    return shape
+
+
+def add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """--mesh_shape, and --gpu (ignored, as in the JAX CLI)."""
+    p.add_argument("--mesh_shape", type=parse_mesh_shape,
+                   help="data=D,model=M: the mesh of a torchrun launch "
+                        "(data x model ranks; default data=1,model=1)")
+    p.add_argument("--gpu", help="accepted for CLI compatibility; ignored "
+                                 "(torchrun's ranks and --mesh_shape choose "
+                                 "the devices)")
+
+
+@contextlib.contextmanager
+def mesh_launch(device: str):
+    """Under torchrun (WORLD_SIZE > 1) join the process group before any
+    Trainer exists and leave it at the end; yields (this rank's device,
+    print on rank 0 only). Without torchrun (device, print)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        yield device, print
+        return
+    import torch.distributed as dist
+
+    from mcan_vqa_tpu_torch.parallel.mesh import init_distributed
+    dev = init_distributed(device=None if device == "cuda" else device)
+    try:
+        yield dev, print if dist.get_rank() == 0 else \
+            (lambda *a, **k: None)
+    finally:
+        dist.destroy_process_group()
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -101,6 +155,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.add_argument(f"--{knob}", type=typ)
     for knob in PATH_KNOBS:
         p.add_argument(f"--{knob}", type=str)
+    add_mesh_flags(p)
     return p.parse_args(argv)
 
 
@@ -156,7 +211,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     datasets = load_datasets(cfg, args)
     if datasets is None:
         return 1
+    with mesh_launch(args.device) as (device, say):
+        return run(args, cfg, datasets, device, say)
 
+
+def run(args, cfg: Config, datasets, device, say) -> int:
+    """The run mode on ``device`` (this rank's under torchrun); ``say``
+    prints the results (rank 0's)."""
     from mcan_vqa_tpu_torch.train.checkpoint import load_params
     from mcan_vqa_tpu_torch.train.trainer import Trainer, eval_engine_line
     mode = args.run_mode
@@ -164,29 +225,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         trainer = Trainer(cfg, datasets["train"],
                           eval_datasets={"val": datasets["val"]}
                           if cfg.eval_every_epoch else {},
-                          device=args.device)
+                          device=device)
         trainer.train()
-        print("final val:", trainer.evaluate(datasets["val"]))
+        say("final val:", trainer.evaluate(datasets["val"]))
         return 0
     ds = datasets.get(mode) or datasets["val"]
-    trainer = Trainer(cfg, eval_datasets={mode: ds}, device=args.device)
-    trainer.model.load_state_dict(load_params(cfg))
+    trainer = Trainer(cfg, eval_datasets={mode: ds}, device=device)
+    trainer.model.load_state_dict(trainer.local_state_dict(load_params(cfg)))
     trainer.logger.write(f"{eval_engine_line(trainer.fused_eval)} (device "
                          f"{trainer.device})")
     base = os.path.join(cfg.result_path, f"result_run_{cfg.run_version}")
     if mode in ("val", "test"):
         res = trainer.evaluate(ds, dump_path=base + ".json")
-        print(f"{mode}:", res)
+        say(f"{mode}:", res)
         return 0
     res = trainer.evaluate(datasets["val"], dump_path=base + "_val.json")
-    print(f"parity val: {res}")
+    say(f"parity val: {res}")
     if res.get("accuracy") is not None:
-        print(f"parity val accuracy (official evaluator): "
-              f"{res['accuracy']:.2f}  (reference MCAN-small val ~67, "
-              f"test-dev 70.70)")
+        say(f"parity val accuracy (official evaluator): "
+            f"{res['accuracy']:.2f}  (reference MCAN-small val ~67, "
+            f"test-dev 70.70)")
     test_ds = datasets.get("test") or datasets["val"]
     trainer.evaluate(test_ds, dump_path=base + "_testdev.json")
-    print(f"parity test-dev EvalAI dump: {base}_testdev.json")
+    say(f"parity test-dev EvalAI dump: {base}_testdev.json")
     return 0
 
 

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
+
+from mcan_vqa_tpu_torch.parallel.mesh import validate_shape
 
 # the settings each model's YAML sets over the defaults (small.yml sets
 # only values the defaults already have)
@@ -99,6 +101,11 @@ class Config:
     ckpt_async: bool = False
     ckpt_calibrate: bool = True
     profile_dir: str = ""
+    # the device mesh of a run under torch.distributed (config.py:94):
+    # {"data": dp, "model": tp}, dp x tp ranks, tp on the minor axis; "data"
+    # -1 takes every rank not on the model axis (parallel/mesh.py)
+    mesh_shape: Dict[str, int] = field(
+        default_factory=lambda: {"data": 1, "model": 1})
 
     # ---- evaluation and data (config.py:35-39, :105, :119-121)
     eval_every_epoch: bool = True
@@ -172,6 +179,7 @@ class Config:
             raise ValueError(f"mimic_feat_source must be one of "
                              f"{MIMIC_FEAT_SOURCES}, got "
                              f"{self.mimic_feat_source!r}")
+        validate_shape(self.mesh_shape)
         for name in ("keep_last_ckpts", "grad_norm_log_every"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0, got "

@@ -13,6 +13,14 @@ here too, a quirk not kept): every example once, in order; the batches
 also carry on the host "qid", the per-row "valid" mask and "n_valid", and
 with ``pad_final=True`` the last batch is repeat-padded to full size, its
 padding rows marked not valid.
+
+On a mesh each data rank assembles only its slice of every global batch
+(JAX's ``process_index`` / ``process_count``, pipeline.py:32-37, :82-97,
+:178-183): rows [lo, lo + per) with per = batch_size / process_count and
+lo = process_index x per. The port's "process" is the data index (rank //
+tp): the model ranks of one data shard load the same rows. The eval form
+pads the global batch first, so every rank's slice has per rows, each
+marked valid or not.
 """
 
 from __future__ import annotations
@@ -29,8 +37,17 @@ DEVICE_KEYS = ("img", "ques", "target")
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, device, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 444,
-                 pad_final: bool = False):
-        """device: where the batches go (a torch.device or its name)."""
+                 pad_final: bool = False, process_index: int = 0,
+                 process_count: int = 1):
+        """device: where the batches go (a torch.device or its name).
+        process_index / process_count: this data rank's slice of every
+        global batch of ``batch_size`` rows."""
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{process_count} data ranks")
+        if process_count > 1 and not (drop_last or pad_final):
+            raise ValueError("a partial last batch cannot split evenly over "
+                             "data ranks: use drop_last or pad_final")
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -38,6 +55,8 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.pad_final = pad_final
+        self.process_index = process_index
+        self.process_count = process_count
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -56,13 +75,19 @@ class BatchLoader:
         return idx
 
     def _slice(self, order: np.ndarray, i: int):
-        """Batch i's indices and valid mask (pad_final: the last batch
-        repeats its last index up to batch_size)."""
+        """This rank's indices of batch i and their valid mask (pad_final:
+        the global batch repeats its last index up to batch_size before it
+        is split)."""
         sl = order[i * self.batch_size:(i + 1) * self.batch_size]
         n = len(sl)
         if self.pad_final and n < self.batch_size:
             sl = np.concatenate([sl, np.repeat(sl[-1], self.batch_size - n)])
-        return sl, np.arange(len(sl)) < n
+        valid = np.arange(len(sl)) < n
+        if self.process_count > 1:
+            per = self.batch_size // self.process_count
+            lo = self.process_index * per
+            sl, valid = sl[lo:lo + per], valid[lo:lo + per]
+        return sl, valid
 
     def _assemble(self, indices: np.ndarray, valid: np.ndarray
                   ) -> Dict[str, np.ndarray]:

@@ -9,16 +9,55 @@ package's numerics (mcan_vqa_tpu/models/layers.py).
     core/model/net_utils.py:48-60).
   * ``make_mask``: True marks a PAD row, i.e. one whose sum of absolute
     values is 0 (reference core/model/net.py:379-381).
+  * ``operand``: a matmul operand of the plain engine rounded to its
+    operand dtype, bf16 (JAX's ``compute_dtype`` default), or f32 inside
+    ``operand_dtype(torch.float32)`` (JAX's ``compute_dtype="float32"``,
+    config.py:93, the regime of the JAX sharding tests, which the port's
+    parity checks run in): the plain engine's products, attention and
+    AttFlat pooling then keep every f32 bit, and their gradients are f32
+    sums, not bf16 roundings of partial sums. The hand-written kernels
+    and their plain versions are not affected.
+  * ``copy_to_model`` / ``reduce_from_model``: Megatron's f and g for
+    tensor parallelism over a model group (``parallel/``): f is the
+    identity forward and an all-reduce of the input gradient backward, in
+    front of a column-parallel product; g is an all-reduce forward and the
+    identity backward, behind a row-parallel product (``row_parallel``,
+    whose bias is added after the reduce). With no group both are the
+    identity and nothing is called.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
 from torch import nn
 
+from mcan_vqa_tpu_torch.parallel.sharding import all_reduce_
+
 BF16 = torch.bfloat16
+_OPERAND = contextvars.ContextVar("plain_operand_dtype", default=BF16)
+
+
+@contextlib.contextmanager
+def operand_dtype(dtype: torch.dtype):
+    """The plain engine's operand dtype (bf16 or f32) inside the block,
+    in this thread."""
+    if dtype not in (BF16, torch.float32):
+        raise ValueError(f"operand dtype must be bf16 or f32, got {dtype}")
+    token = _OPERAND.set(dtype)
+    try:
+        yield
+    finally:
+        _OPERAND.reset(token)
+
+
+def operand(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the plain engine's operand dtype, as f32."""
+    dtype = _OPERAND.get()
+    return x.float() if dtype == torch.float32 else x.to(dtype).float()
 
 
 def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -27,7 +66,7 @@ def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     preferred_element_type=f32)``. Products of two bf16 values are exact
     in f32, so an f32 matmul of the rounded operands gives the same
     result up to summation order (TF32 must stay off on the card)."""
-    return x.to(BF16).float() @ w.to(BF16).float()
+    return operand(x) @ operand(w)
 
 
 def init_uniform_(t: torch.Tensor, bound: float,
@@ -50,6 +89,57 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return bf16_matmul(x, self.weight.t()) + self.bias
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; backward, the input gradient
+    summed over the model group (each rank holds the part of it that its
+    column shard produced)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the partial products of a row-parallel layer summed
+    over the model group forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def copy_inputs_to_model(group, *xs: torch.Tensor):
+    """f once per distinct input (self-attention passes one tensor as v, k
+    and q: its gradient is reduced once, not three times)."""
+    seen = {}
+    return tuple(seen.setdefault(id(x), copy_to_model(x, group))
+                 for x in xs)
+
+
+def row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 group) -> torch.Tensor:
+    """``x @ weight`` ([in, out] layout) reduced over the model group,
+    then the (replicated) bias; without a group the ``Dense`` product."""
+    return reduce_from_model(bf16_matmul(x, weight), group) + bias
 
 
 def std_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -15,17 +15,30 @@ import torch
 from torch import nn
 
 from mcan_vqa_tpu_torch.models.attention import MHAtt
-from mcan_vqa_tpu_torch.models.layers import MLP, StdLayerNorm
+from mcan_vqa_tpu_torch.models.layers import (MLP, StdLayerNorm,
+                                              copy_to_model, row_parallel)
 
 
 class FFN(nn.Module):
+    """MLP(D, F, D). Under tensor parallelism (``model_group`` set by
+    ``parallel/sharding.py::shard_module_``) the up projection is
+    column-parallel behind f and the down projection row-parallel, summed
+    by g before its bias."""
+
+    model_group = None
+
     def __init__(self, hidden_size: int, ff_size: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.mlp = MLP(hidden_size, ff_size, hidden_size, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp(x)
+        group = self.model_group
+        if group is None:
+            return self.mlp(x)
+        h = self.mlp.fc(copy_to_model(x, group))
+        return row_parallel(h, self.mlp.linear.weight.t(),
+                            self.mlp.linear.bias, group)
 
 
 class SA(nn.Module):

@@ -20,8 +20,8 @@ from torch import nn
 
 from mcan_vqa_tpu_torch.configs import Config
 from mcan_vqa_tpu_torch.models.attention import NEG_INF
-from mcan_vqa_tpu_torch.models.layers import (BF16, MLP, Dense, StdLayerNorm,
-                                              make_mask)
+from mcan_vqa_tpu_torch.models.layers import (MLP, Dense, StdLayerNorm,
+                                              make_mask, operand)
 from mcan_vqa_tpu_torch.models.lstm import LSTMEncoder
 from mcan_vqa_tpu_torch.models.mca import MCAEncoder, MCAEncoderDecoder
 
@@ -33,7 +33,7 @@ def attflat_pool(att_logits: torch.Tensor, x: torch.Tensor,
     f32. att_logits [B, L, G], x [B, L, D], mask [B, 1, 1, L] -> [B, G*D]."""
     att = att_logits.masked_fill(mask[:, 0, 0, :, None], NEG_INF)
     att = torch.softmax(att.float(), dim=1)
-    pooled = att.to(BF16).float().transpose(1, 2) @ x.to(BF16).float()
+    pooled = operand(att).transpose(1, 2) @ operand(x)
     return pooled.reshape(x.shape[0], -1)
 
 

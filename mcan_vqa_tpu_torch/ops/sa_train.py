@@ -53,7 +53,7 @@ import torch
 
 from mcan_vqa_tpu_torch.models.attention import split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
-    std_layer_norm
+    copy_to_model, row_parallel, std_layer_norm
 from mcan_vqa_tpu_torch.ops import kernels as K
 from mcan_vqa_tpu_torch.ops.dropout import keep_masks
 from mcan_vqa_tpu_torch.ops.sga_train import _attention_plain, \
@@ -311,30 +311,36 @@ def fused_sa_block_train_plain(x: torch.Tensor, x_mask: torch.Tensor,
                                masks_or_seed, w: Mapping[str, torch.Tensor],
                                *, num_heads: int, inv_keep: float = 1.0,
                                save_acts: bool = True,
-                               rate: Optional[float] = None) -> torch.Tensor:
+                               rate: Optional[float] = None,
+                               model_group=None) -> torch.Tensor:
     """``fused_sa_block_train`` in plain PyTorch ops, differentiated by
     autograd: the reference block (core/model/mca.py:105-127) with the
     four dropout sites and the TPU kernel's precision at every step; a
     seed (rate set) becomes its masks through ``kernels.philox4x32_plain``.
     save_acts changes only what the kernels' backward recomputes, so it
-    does not change this function."""
+    does not change this function. model_group: tensor parallelism, as
+    ``sga_train.fused_sga_block_train_plain`` takes it (the masks then the
+    model rank's att / h1 slices; no seed)."""
     del save_acts
     B, L, D = x.shape
     masks = masks_or_seed
     if rate is not None:
+        if model_group is not None:
+            raise ValueError("the seeded block takes no model group")
         masks, inv_keep = dump_sa_prng_masks_plain(
             masks_or_seed, rate, B, L, D, w["w1"].shape[1], num_heads,
             x.device)
-    H = num_heads
+    H, group = num_heads, model_group
     x = x.float()
-    qkv = bf16_matmul(x, w["wqkv"]) + w["bqkv"]
-    q, k, v = (split_heads(t, H) for t in qkv.split(D, dim=-1))
+    qkv = bf16_matmul(copy_to_model(x, group), w["wqkv"]) + w["bqkv"]
+    q, k, v = (split_heads(t, H)
+               for t in qkv.split(w["wqkv"].shape[1] // 3, dim=-1))
     att = _attention_plain(q, k, v, x_mask, masks["att"], inv_keep)
-    y1 = bf16_matmul(att, w["wm"]) + w["bm"]
+    y1 = row_parallel(att, w["wm"], w["bm"], group)
     x1 = std_layer_norm(x + _drop(y1, masks["y1"], inv_keep), w["ln1_s"],
                         w["ln1_b"], reciprocal=True)
-    h1d = _drop(torch.relu(bf16_matmul(x1, w["w1"]) + w["b1"]), masks["h1"],
-                inv_keep)
-    y2 = bf16_matmul(h1d, w["w2"]) + w["b2"]
+    h1d = _drop(torch.relu(bf16_matmul(copy_to_model(x1, group), w["w1"])
+                           + w["b1"]), masks["h1"], inv_keep)
+    y2 = row_parallel(h1d, w["w2"], w["b2"], group)
     return std_layer_norm(x1 + _drop(y2, masks["y2"], inv_keep), w["ln2_s"],
                           w["ln2_b"], reciprocal=True)

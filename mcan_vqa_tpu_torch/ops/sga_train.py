@@ -71,7 +71,7 @@ import torch
 
 from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
 from mcan_vqa_tpu_torch.models.layers import BF16, bf16_matmul, \
-    std_layer_norm
+    copy_to_model, operand, row_parallel, std_layer_norm
 from mcan_vqa_tpu_torch.ops import kernels as K
 from mcan_vqa_tpu_torch.ops.dropout import keep_masks
 
@@ -583,9 +583,9 @@ def _attention_plain(q, k, v, key_pad, drop, inv_keep):
     adds its mask, so the score gradient is the softmax's on every key),
     the dropped probabilities rounded to bf16 for P.V."""
     scale = 1.0 / q.shape[-1] ** 0.5
-    s = (q.to(BF16).float() @ k.to(BF16).float().transpose(-1, -2)) * scale
+    s = (operand(q) @ operand(k).transpose(-1, -2)) * scale
     p = torch.softmax(s + key_pad.float() * NEG_INF, dim=-1)
-    o = _drop(p, drop, inv_keep).to(BF16).float() @ v.to(BF16).float()
+    o = operand(_drop(p, drop, inv_keep)) @ operand(v)
     B, H, L, Dh = o.shape
     return o.transpose(1, 2).reshape(B, L, H * Dh)
 
@@ -595,31 +595,36 @@ def fused_sga_block_train_plain(x: torch.Tensor, kq: torch.Tensor,
                                 q_mask: torch.Tensor, masks: Masks,
                                 w: Mapping[str, torch.Tensor], *,
                                 num_heads: int,
-                                inv_keep: float = 1.0) -> torch.Tensor:
+                                inv_keep: float = 1.0,
+                                model_group=None) -> torch.Tensor:
     """``fused_sga_block_train`` in plain PyTorch ops, differentiated by
     autograd: the reference block (core/model/mca.py:134-164) with the six
     dropout sites and the TPU kernel's precision at every step. What the
     backward saves is autograd's choice, in f32: att_saves gives the
     kernels the same gradients; bf16_saves moves theirs by its roundings of
-    r1 / r2 / r3 / gv2 (2^-8 relative each)."""
-    B, Lv, D = x.shape
-    H = num_heads
+    r1 / r2 / r3 / gv2 (2^-8 relative each). model_group: tensor
+    parallelism, ``w`` this model rank's shards (num_heads its local
+    heads, the att / h1 masks its slices): the q / k / v, cross-q and FFN
+    up products column-parallel behind f, the merges and the FFN down
+    product row-parallel through g (``models/layers.py``)."""
+    H, group = num_heads, model_group
     x = x.float()
-    qkv = bf16_matmul(x, w["wqkv"]) + w["bqkv"]
-    q, k, v = (split_heads(t, H) for t in qkv.split(D, dim=-1))
+    qkv = bf16_matmul(copy_to_model(x, group), w["wqkv"]) + w["bqkv"]
+    q, k, v = (split_heads(t, H)
+               for t in qkv.split(w["wqkv"].shape[1] // 3, dim=-1))
     att1 = _attention_plain(q, k, v, v_mask, masks["att1"], inv_keep)
-    y1 = bf16_matmul(att1, w["wm1"]) + w["bm1"]
+    y1 = row_parallel(att1, w["wm1"], w["bm1"], group)
     v1 = std_layer_norm(x + _drop(y1, masks["y1"], inv_keep), w["ln1_s"],
                         w["ln1_b"], reciprocal=True)
-    qx = bf16_matmul(v1, w["wq2"]) + w["bq2"]
+    qx = bf16_matmul(copy_to_model(v1, group), w["wq2"]) + w["bq2"]
     att2 = _attention_plain(split_heads(qx, H), kq, vq, q_mask,
                             masks["att2"], inv_keep)
-    y2 = bf16_matmul(att2, w["wm2"]) + w["bm2"]
+    y2 = row_parallel(att2, w["wm2"], w["bm2"], group)
     v2 = std_layer_norm(v1 + _drop(y2, masks["y2"], inv_keep), w["ln2_s"],
                         w["ln2_b"], reciprocal=True)
-    h1d = _drop(torch.relu(bf16_matmul(v2, w["w1"]) + w["b1"]), masks["h1"],
-                inv_keep)
-    y3 = bf16_matmul(h1d, w["w2"]) + w["b2"]
+    h1d = _drop(torch.relu(bf16_matmul(copy_to_model(v2, group), w["w1"])
+                           + w["b1"]), masks["h1"], inv_keep)
+    y3 = row_parallel(h1d, w["w2"], w["b2"], group)
     return std_layer_norm(v2 + _drop(y3, masks["y3"], inv_keep), w["ln3_s"],
                           w["ln3_b"], reciprocal=True)
 

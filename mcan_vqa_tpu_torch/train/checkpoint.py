@@ -27,6 +27,14 @@ port's own format is the reference pickle).
   * ``latest_epoch`` / ``prune_checkpoints`` and the activation-scale side
     file ``epoch<N>.act_scales.json`` beside a pickle
     (checkpoint.py:149-231), which ``Predictor.from_checkpoint`` loads.
+
+On a mesh (``parallel/``) the pickle is the one a single card writes:
+``save_checkpoint(..., mesh=)`` gathers the weights and AdamW moments of
+a tensor-parallel model over the model group (``full_state_dicts``),
+global rank 0 alone writes, then every rank waits at a barrier; the
+async saver runs on rank 0 only. ``resume_state(..., mesh=)`` reads the
+whole pickle on every rank and keeps each rank's shard, so both packages
+and every mesh read every pickle.
 """
 
 from __future__ import annotations
@@ -40,6 +48,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from mcan_vqa_tpu_torch.parallel.sharding import (gather_shards,
+                                                  shard_dim,
+                                                  shard_state_dict,
+                                                  shard_tensor)
 
 _NORMS = ("norm1", "norm2", "norm3", "proj_norm")
 _LSTM = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0",
@@ -226,17 +239,54 @@ def _blob(model_sd, optimizer_sd, lr_base: float) -> Dict[str, Any]:
             "lr_base": float(lr_base)}
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def full_state_dicts(state, mesh=None):
+    """-> (weights, optimizer) state dicts of ``state`` as a single card
+    holds them, on the rank that writes the pickle (rank 0 of ``mesh``, or
+    the only one), None on the others. At tp > 1 the model ranks of data
+    index 0 gather their shards of the weights and of the AdamW moments
+    in one ``all_gather`` (a collective: each of them calls this)."""
+    rank0 = mesh is None or mesh.rank == 0
+    model_sd = state.model.state_dict()
+    optim_sd = state.optimizer.state_dict()
+    if mesh is None or mesh.tp == 1:
+        return (model_sd, optim_sd) if rank0 else None
+    if mesh.data_index != 0:
+        return None
+    names = list(dict(state.model.named_parameters()))
+    shards = {("w", k): (v, shard_dim(k)) for k, v in model_sd.items()
+              if shard_dim(k) is not None}
+    for i, st in optim_sd["state"].items():
+        dim = shard_dim(names[int(i)])
+        if dim is not None:
+            shards.update({(m, i): (st[m], dim) for m in _MOMENTS})
+    full = gather_shards(shards, mesh.model_group, mesh.tp)
+    if not rank0:
+        return None
+    model_sd = {k: full.get(("w", k), v) for k, v in model_sd.items()}
+    optim_sd = dict(optim_sd, state={
+        i: {m: full.get((m, i), v) for m, v in st.items()}
+        for i, st in optim_sd["state"].items()})
+    return model_sd, optim_sd
+
+
 def save_checkpoint(state, ckpts_dir: str, version: str, epoch: int,
-                    lr_base: float) -> str:
+                    lr_base: float, mesh=None) -> str:
     """Write the reference pickle of ``state`` (a TrainState over an
     MCANet or a ClassifierNet, whose parameters register in the order of
     ``reference_param_keys`` / ``classifier_param_keys``, so the
     optimizer's indices are that order's) -> its path. Tensors are saved
-    on the CPU."""
+    on the CPU. mesh: every rank of it calls this; the unsharded state
+    (``full_state_dicts``) is written by rank 0 alone, then a barrier."""
     path = checkpoint_path(ckpts_dir, version, epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(_blob(state.model.state_dict(), state.optimizer.state_dict(),
-                     lr_base), path)
+    dicts = full_state_dicts(state, mesh)
+    if dicts is not None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(_blob(*dicts, lr_base), path)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -344,9 +394,17 @@ class AsyncCheckpointSaver:
 
     def save(self, state, ckpts_dir: str, version: str, epoch: int,
              lr_base: float, keep_last: int = 0) -> str:
+        return self.save_dicts(state.model.state_dict(),
+                               state.optimizer.state_dict(), ckpts_dir,
+                               version, epoch, lr_base, keep_last)
+
+    def save_dicts(self, model_sd, optimizer_sd, ckpts_dir: str,
+                   version: str, epoch: int, lr_base: float,
+                   keep_last: int = 0) -> str:
+        """``save`` of the two state dicts (``full_state_dicts``' on a
+        mesh)."""
         self._reraise()
-        snapshot = _map((state.model.state_dict(),
-                         state.optimizer.state_dict()),
+        snapshot = _map((model_sd, optimizer_sd),
                         lambda t: t.detach().clone())
         event = device = None
         cuda = [t for t in _tensors(snapshot) if t.is_cuda]
@@ -432,11 +490,13 @@ def merge_compatible(template: Mapping[str, torch.Tensor],
 
 
 def _import_moments(state, optimizer_sd: Mapping[str, Any],
-                    param_keys: List[str]) -> int:
+                    param_keys: List[str], tp: int = 1,
+                    shard: int = 0) -> int:
     """The pickle's AdamW state (indexed in ``param_keys``' order, the
-    pickle's state_dict order) into ``state.optimizer`` -> the step count.
-    A moment whose parameter is absent or shaped otherwise raises, as the
-    JAX ``import_torch_opt_state`` does (checkpoint.py:480-490)."""
+    pickle's state_dict order) into ``state.optimizer`` -> the step count;
+    at tp > 1 model rank ``shard``'s shard of each moment. A moment whose
+    parameter is absent or shaped otherwise raises, as the JAX
+    ``import_torch_opt_state`` does (checkpoint.py:480-490)."""
     params = dict(state.model.named_parameters())
     index = {n: j for j, n in enumerate(params)}
     saved = optimizer_sd.get("state", {})
@@ -445,6 +505,8 @@ def _import_moments(state, optimizer_sd: Mapping[str, Any],
         s = saved.get(i, saved.get(str(i)))
         if s is None:
             continue
+        s = dict(s, **{m: shard_tensor(s[m], shard_dim(key), tp, shard)
+                       for m in _MOMENTS if m in s})
         p = params.get(key)
         if p is None or any(tuple(s[m].shape) != tuple(p.shape)
                             for m in ("exp_avg", "exp_avg_sq")):
@@ -466,7 +528,7 @@ def _import_moments(state, optimizer_sd: Mapping[str, Any],
     return step
 
 
-def resume_state(state, cfg, data_size: int, logger=None):
+def resume_state(state, cfg, data_size: int, logger=None, mesh=None):
     """Restore ``state`` (a TrainState over an MCANet or a ClassifierNet)
     from the pickle ``cfg`` names (``named_checkpoint``), as the JAX
     Trainer's ``_resume`` does from a pickle (trainer.py:122-146): the
@@ -474,17 +536,21 @@ def resume_state(state, cfg, data_size: int, logger=None):
     ``merge_compatible``; with an "optimizer" entry its AdamW moments and
     its step count; without one the step replayed from the epoch,
     int(data_size / batch_size x ckpt_epoch) (core/exec.py:90-94), and
-    fresh moments. -> state."""
+    fresh moments. mesh: at tp > 1 ``state`` is a model rank's shard, and
+    it takes its shard of the (unsharded) pickle. -> state."""
     path = named_checkpoint(cfg)
     blob = torch.load(path, map_location="cpu", weights_only=True)
     has_sd = isinstance(blob, dict) and "state_dict" in blob
     incoming = {k.removeprefix("module."): v for k, v in
                 (blob["state_dict"] if has_sd else blob).items()}
-    state.model.load_state_dict(
-        merge_compatible(state.model.state_dict(), incoming, logger))
+    tp, index = (mesh.tp, mesh.model_index) if mesh is not None else (1, 0)
+    state.model.load_state_dict(merge_compatible(
+        state.model.state_dict(), shard_state_dict(incoming, tp, index),
+        logger))
     optimizer_sd = blob.get("optimizer") if has_sd else None
     if isinstance(optimizer_sd, dict):
-        state.step = _import_moments(state, optimizer_sd, list(incoming))
+        state.step = _import_moments(state, optimizer_sd, list(incoming),
+                                     tp, index)
         msg = f"resume: restored AdamW moments @ step {state.step}"
     else:
         state.step = int(data_size / cfg.batch_size * cfg.ckpt_epoch)

@@ -49,6 +49,17 @@ drawn in JAX's site order (``keys = split(rng, num_layers + 1)``): the
 blocks' four each (or one seed each), then AttFlat's. JAX's ``group``
 (``256 // Lv`` samples packed per score matrix) has no counterpart: the
 attention is per sample.
+
+Tensor parallelism (``model_group``, the plain blocks only: JAX's route at
+a model axis > 1, trainer.py:550): the module is this model rank's shard
+(``parallel/sharding.py::shard_module_``); every projection runs
+column- or row-parallel through Megatron's f and g (``models/layers.py``).
+Every model rank draws the full-shape masks from the generator it shares
+with the other model ranks of its data shard and keeps its slice of the
+sliced sites (the per-head attention maps, the FFN hidden;
+``shard_masks``), so the masks on the replicated [B, L, D] stream are the
+same on every model rank and tp = 2 computes what tp = 1 does, dropout
+included, as GSPMD partitions one mask.
 """
 
 from __future__ import annotations
@@ -59,11 +70,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
-from mcan_vqa_tpu_torch.models.layers import BF16, make_mask
+from mcan_vqa_tpu_torch.models.layers import (copy_inputs_to_model,
+                                              copy_to_model, make_mask,
+                                              operand, row_parallel)
 from mcan_vqa_tpu_torch.models.net import attflat_pool
 from mcan_vqa_tpu_torch.ops import sa_train, sga_train
 from mcan_vqa_tpu_torch.ops.dropout import draw_seeds, inv_keep_prob, \
     keep_masks
+from mcan_vqa_tpu_torch.parallel.sharding import group_rank, group_size
 
 Mask = Optional[torch.Tensor]
 # sga_block -> (the block fed masks, the block fed a seed)
@@ -81,27 +95,61 @@ def _drop(x: torch.Tensor, mask: Mask, inv_keep: float) -> torch.Tensor:
 
 
 def _masked_attention_train(p, v, k, q, mask, num_heads: int, drop: Mask,
-                            inv_keep: float) -> torch.Tensor:
+                            inv_keep: float, group=None) -> torch.Tensor:
     """Multi-head attention with dropout on the attention map (the encoder
     path): bf16 operands, PAD keys replaced by -1e9, f32 softmax. p is an
-    ``MHAtt``."""
+    ``MHAtt``; with a model group its local heads (num_heads of them)."""
     H = num_heads
+    if group is not None:
+        v, k, q = copy_inputs_to_model(group, v, k, q)
     qh, kh, vh = (split_heads(lin(x), H) for lin, x in
                   ((p.linear_q, q), (p.linear_k, k), (p.linear_v, v)))
     scale = 1.0 / qh.shape[-1] ** 0.5
-    scores = (qh.to(BF16).float() @ kh.to(BF16).float().transpose(-1, -2)) \
+    scores = (operand(qh) @ operand(kh).transpose(-1, -2)) \
         * scale
     att = _drop(torch.softmax(scores.masked_fill(mask, NEG_INF), dim=-1),
                 drop, inv_keep)
-    out = att.to(BF16).float() @ vh.to(BF16).float()
+    out = operand(att) @ operand(vh)
     B, _, Lq, _ = out.shape
-    return p.linear_merge(out.transpose(1, 2).reshape(B, Lq, -1))
+    out = out.transpose(1, 2).reshape(B, Lq, -1)
+    if group is None:
+        return p.linear_merge(out)
+    m = p.linear_merge
+    return row_parallel(out, m.weight.t(), m.bias, group)
 
 
 def _mlp_train(p, x: torch.Tensor, drop: Mask,
                inv_keep: float) -> torch.Tensor:
     """MLP (FC with ReLU, dropout on its output, Linear); p is an ``MLP``."""
     return p.linear(_drop(p.fc(x), drop, inv_keep))
+
+
+def _ffn_train(p, x: torch.Tensor, drop: Mask, inv_keep: float,
+               group=None) -> torch.Tensor:
+    """The FFN's MLP with dropout on its hidden; with a model group the up
+    projection column-parallel behind f, the down one through g."""
+    if group is None:
+        return _mlp_train(p, x, drop, inv_keep)
+    h = _drop(p.fc(copy_to_model(x, group)), drop, inv_keep)
+    return row_parallel(h, p.linear.weight.t(), p.linear.bias, group)
+
+
+def shard_masks(masks: Dict[str, Mask], tp: int, index: int
+                ) -> Dict[str, Mask]:
+    """Model rank ``index``'s slices of one block's full-shape masks: the
+    attention maps [B, H, L, L'] by head, the FFN hidden [B, L, F] by
+    column; the [B, L, D] stream's masks whole. At tp 1 ``masks`` itself
+    (a seed too)."""
+    if tp == 1:
+        return masks
+    out = {}
+    for name, m in masks.items():
+        if m is not None and name.startswith("att"):
+            m = m.chunk(tp, dim=1)[index]
+        elif m is not None and name == "h1":
+            m = m.chunk(tp, dim=-1)[index]
+        out[name] = m
+    return out
 
 
 def _attflat_train(p, x: torch.Tensor, mask: torch.Tensor, drop: Mask,
@@ -140,7 +188,8 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
                              att_saves: bool = False,
                              bf16_saves: bool = False,
                              dropout_bits: int = 32,
-                             in_kernel_dropout: bool = False) -> Callable:
+                             in_kernel_dropout: bool = False,
+                             model_group=None) -> Callable:
     """-> forward(net, img_feat [B, R, F] f32, ques_ix [B, T] int,
     generator) -> logits [B, A], differentiable w.r.t. net's parameters.
     sga_block: "fused" (the kernels) or "plain" (the same blocks in plain
@@ -149,9 +198,16 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
     backward (``fused_sga_block_train``; the plain blocks leave that to
     autograd). dropout_bits: random bits per keep decision of every
     generator mask (8, 16 or 32). in_kernel_dropout: the train blocks draw
-    their dropout inside the kernels from one seed each per step."""
+    their dropout inside the kernels from one seed each per step.
+    model_group: tensor parallelism over ``net``'s shards (the plain
+    blocks, generator masks; see the module docstring); num_heads stays
+    the model's."""
     if sga_block not in SGA_BLOCKS:
         raise ValueError(f"sga_block must be one of {tuple(SGA_BLOCKS)}")
+    if model_group is not None and (sga_block != "plain" or fused_encoder
+                                    or in_kernel_dropout):
+        raise ValueError("tensor parallelism runs the plain blocks with "
+                         "generator masks")
     block, seeded_block = SGA_BLOCKS[sga_block]
     if sga_block == "fused":
         block, seeded_block = (functools.partial(
@@ -164,11 +220,14 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
     inv_keep = inv_keep_prob(rate, dropout_bits) if rate > 0.0 else 1.0
     seeded = in_kernel_dropout and rate > 0.0
 
+    group = model_group
+    tp, index = group_size(group), group_rank(group)
+
     def forward(net, img_feat: torch.Tensor, ques_ix: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         q_mask = make_mask(ques_ix.unsqueeze(-1))
         v_mask = make_mask(img_feat)
-        H = num_heads
+        H = num_heads // tp
         q = net.lstm(net.embedding(ques_ix))
         v = net.img_feat_linear(img_feat)
         B, Lq, D = q.shape
@@ -176,7 +235,8 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
         bb = net.backbone
         masks = draw_step_masks(
             generator, rate, B=B, Lq=Lq, Lv=Lv, D=D,
-            F=bb.dec_list[0].ffn.mlp.fc.linear.weight.shape[0], H=H,
+            F=bb.dec_list[0].ffn.mlp.fc.linear.weight.shape[0] * tp,
+            H=num_heads,
             num_layers=num_layers,
             flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0],
             bit_width=dropout_bits, seeded_enc=seeded and fused_encoder,
@@ -185,6 +245,7 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
         # ---- encoder SA stack over the question: the train block, or
         # plain ops
         for enc, m in zip(bb.enc_list, masks["enc"]):
+            m = shard_masks(m, tp, index)
             if sa_block is not None:
                 w = sa_train.prepare_sa_train_params(
                     dict(enc.named_parameters()))
@@ -193,23 +254,27 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
                              rate=rate if seeded else None)
                 continue
             att = _masked_attention_train(enc.mhatt, q, q, q, q_mask, H,
-                                          m["att"], inv_keep)
+                                          m["att"], inv_keep, group)
             q = enc.norm1(q + _drop(att, m["y1"], inv_keep))
-            ff = _mlp_train(enc.ffn.mlp, q, m["h1"], inv_keep)
+            ff = _ffn_train(enc.ffn.mlp, q, m["h1"], inv_keep, group)
             q = enc.norm2(q + _drop(ff, m["y2"], inv_keep))
 
-        # ---- decoder SGA stack over the regions (the train block)
+        # ---- decoder SGA stack over the regions (the train block); under
+        # tensor parallelism one f on q carries every layer's cross k / v
+        qk = copy_to_model(q, group)
+        tp_kw = {} if group is None else {"model_group": group}
         for dec, m in zip(bb.dec_list, masks["dec"]):
-            kq = split_heads(dec.mhatt2.linear_k(q), H)
-            vq = split_heads(dec.mhatt2.linear_v(q), H)
+            kq = split_heads(dec.mhatt2.linear_k(qk), H)
+            vq = split_heads(dec.mhatt2.linear_v(qk), H)
             w = sga_train.prepare_sga_train_params(
                 dict(dec.named_parameters()))
             if seeded:
                 v = seeded_block(v, kq, vq, v_mask, q_mask, m, w,
                                  num_heads=H, rate=rate)
             else:
-                v = block(v, kq, vq, v_mask, q_mask, m, w, num_heads=H,
-                          inv_keep=inv_keep)
+                v = block(v, kq, vq, v_mask, q_mask,
+                          shard_masks(m, tp, index), w, num_heads=H,
+                          inv_keep=inv_keep, **tp_kw)
 
         lang = _attflat_train(net.attflat_lang, q, q_mask, masks["flat"][0],
                               inv_keep)
@@ -242,23 +307,31 @@ def make_fused_classifier_forward(num_layers: int, num_heads: int,
                                   dropout_rate: float = 0.1,
                                   sa_block: str = "fused",
                                   dropout_bits: int = 32,
-                                  in_kernel_dropout: bool = False
-                                  ) -> Callable:
+                                  in_kernel_dropout: bool = False,
+                                  model_group=None) -> Callable:
     """-> forward(net, img_feat [B, R, F] f32, generator) -> logits [B, A],
     differentiable w.r.t. the parameters of a ``ClassifierNet``.
     sa_block: "fused" (the SA train kernels) or "plain" (the same blocks in
     plain ops, autograd). dropout_bits: random bits per keep decision of
     every generator mask. in_kernel_dropout: the blocks draw their dropout
     inside the kernels from one seed each per step; AttFlat keeps its
-    generator mask."""
+    generator mask. model_group: tensor parallelism over ``net``'s shards,
+    as ``make_fused_train_forward`` takes it."""
     if sa_block not in SA_BLOCKS:
         raise ValueError(f"sa_block must be one of {tuple(SA_BLOCKS)}")
+    if model_group is not None and (sa_block != "plain" or in_kernel_dropout):
+        raise ValueError("tensor parallelism runs the plain blocks with "
+                         "generator masks")
     block = SA_BLOCKS[sa_block]
     rate = dropout_rate
     if rate >= 1.0:
         raise ValueError(f"dropout rate {rate} >= 1 keeps nothing")
     inv_keep = inv_keep_prob(rate, dropout_bits) if rate > 0.0 else 1.0
     seeded = in_kernel_dropout and rate > 0.0
+
+    group = model_group
+    tp, index = group_size(group), group_rank(group)
+    tp_kw = {} if group is None else {"model_group": group}
 
     def forward(net, img_feat: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -268,14 +341,16 @@ def make_fused_classifier_forward(num_layers: int, num_heads: int,
         blocks = net.backbone.enc_list
         masks = draw_classifier_masks(
             generator, rate, B=B, Lv=Lv, D=D,
-            F=blocks[0].ffn.mlp.fc.linear.weight.shape[0], H=num_heads,
+            F=blocks[0].ffn.mlp.fc.linear.weight.shape[0] * tp, H=num_heads,
             num_layers=num_layers,
             flat_mlp=net.attflat_img.mlp.fc.linear.weight.shape[0],
             bit_width=dropout_bits, seeded=seeded)
         for enc, m in zip(blocks, masks["enc"]):
             w = sa_train.prepare_sa_train_params(dict(enc.named_parameters()))
-            v = block(v.float(), v_mask, m, w, num_heads=num_heads,
-                      inv_keep=inv_keep, rate=rate if seeded else None)
+            m = shard_masks(m, tp, index)
+            v = block(v.float(), v_mask, m, w, num_heads=num_heads // tp,
+                      inv_keep=inv_keep, rate=rate if seeded else None,
+                      **tp_kw)
         img = _attflat_train(net.attflat_img, v, v_mask, masks["flat"],
                              inv_keep)
         return net.proj(net.proj_norm(img))

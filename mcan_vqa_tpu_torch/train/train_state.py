@@ -7,20 +7,31 @@ as JAX's ``fold_in(dropout_rng, step)`` (step.py:118): the step re-seeds
 the generator from both (``seed_step``) before it draws, so a run resumed
 from a checkpoint, which carries the step count and not the generator,
 draws the masks and in-kernel seeds an unbroken run draws.
+
+On a mesh with a data axis > 1 the seed also folds in the rank's data
+index, as JAX folds ``axis_index("data")`` into the step's key
+(step.py:119-122): the data shards draw different masks, the model ranks
+of one data shard the same ones. At data size 1 the seed is the one a
+single card draws.
 """
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, data_index: Optional[int] = None) -> int:
     """The generator seed of step ``step`` of a run seeded ``seed``: 64
-    bits of a hash of both."""
-    digest = hashlib.sha256(f"{int(seed)}:{int(step)}".encode()).digest()
+    bits of a hash of both, and of the data index where one is given (a
+    data axis > 1)."""
+    key = f"{int(seed)}:{int(step)}"
+    if data_index is not None:
+        key += f":{int(data_index)}"
+    digest = hashlib.sha256(key.encode()).digest()
     return int.from_bytes(digest[:8], "little")
 
 
@@ -40,7 +51,9 @@ class TrainState:
         return cls(model=model, optimizer=optimizer, step=step,
                    generator=generator, seed=seed)
 
-    def seed_step(self) -> None:
+    def seed_step(self, data_index: Optional[int] = None) -> None:
         """Re-seed the generator for the step about to run (idempotent
-        until the step count moves)."""
-        self.generator.manual_seed(step_seed(self.seed, self.step))
+        until the step count moves); data_index: this rank's on a data
+        axis > 1."""
+        self.generator.manual_seed(step_seed(self.seed, self.step,
+                                             data_index))

@@ -67,6 +67,26 @@ MIMIC-CXR medical VQA trains as the JAX package trains it: task "vqa" on a
 ``MIMICDataset`` (a few labels, multi-hot targets, 1024-d image rows), the
 L1 + L2 penalty under ``reg_factor``, ROC-AUC in ``evaluate``, and
 ``warm_start`` from a VQA checkpoint (``cli/run_mimic.py``).
+
+``cfg.mesh_shape`` (JAX's field, trainer.py:81) builds the mesh over the
+process group the caller joined (``parallel/mesh.py``; a world of one
+without one). Each data rank loads its rows of every global batch (the
+data index and size into ``BatchLoader``) and runs the whole step on them:
+the fused engine per data rank, as JAX's ``shard_map`` runs it
+(trainer.py:286-322), its in-kernel seeds from the rank-folded generator;
+the loss and gradients summed over the data group (``train/step.py``). At
+a model axis > 1 the model is this rank's Megatron shard
+(``shard_module_``) and the engines are the plain ones: the fused engines
+refuse tensor parallelism and more than one node, where JAX refuses a
+model axis and more than one process (trainer.py:550-554, :578).
+``predict`` runs each rank's slice and gathers probabilities, qids,
+valid and targets in rank order on the CPU backend, so every rank returns
+the full result (JAX's ``process_allgather``, trainer.py:683-700). Rank 0
+alone writes the logs, the pickles (the unsharded one a single card
+writes, ``full_state_dicts``) and the end-of-train calibration (itself
+only at tp = 1 on one node, trainer.py:462-468). SIGTERM on any rank stops
+every rank at the same step boundary: one ``all_reduce(MAX)`` of the stop
+flag per step.
 """
 
 from __future__ import annotations
@@ -90,10 +110,14 @@ from mcan_vqa_tpu_torch.ops.quant import calibrate_classifier_act_scales
 from mcan_vqa_tpu_torch.ops.serving import (
     build_production_classifier_engine, build_production_engine,
     calibrate_serving_scales, prepare_production_classifier_params)
+from mcan_vqa_tpu_torch.parallel.mesh import make_mesh
+from mcan_vqa_tpu_torch.parallel.sharding import (all_gather_rows,
+                                                  shard_dim, shard_module_,
+                                                  shard_tensor)
 from mcan_vqa_tpu_torch.train.checkpoint import (
-    AsyncCheckpointSaver, checkpoint_path, load_reference_checkpoint,
-    merge_compatible, prune_checkpoints, resume_state, save_act_scales,
-    save_checkpoint)
+    AsyncCheckpointSaver, checkpoint_path, full_state_dicts,
+    load_reference_checkpoint, merge_compatible, prune_checkpoints,
+    resume_state, save_act_scales, save_checkpoint)
 from mcan_vqa_tpu_torch.train.fused_engine import (
     make_fused_classifier_forward, make_fused_train_forward)
 from mcan_vqa_tpu_torch.train.optim import make_lr_schedule, make_optimizer
@@ -111,11 +135,15 @@ def engine_route(hidden_size: int) -> dict:
     return dict(fused_encoder=not wide, att_saves=wide, bf16_saves=wide)
 
 
-def use_fused_train(cfg, device: torch.device) -> bool:
+def use_fused_train(cfg, device: torch.device, mesh=None) -> bool:
     """The JAX Trainer's ``_use_fused_train`` (trainer.py:540-567) on this
-    device: "plain" never, "fused" always, "auto" on a CUDA device (JAX: a
-    TPU) at hidden % 128 == 0 and hidden <= 1024."""
+    device: "plain" never; never on a mesh with a model axis > 1 or over
+    more than one node (JAX: more than one process); "fused" else always,
+    "auto" on a CUDA device (JAX: a TPU) at hidden % 128 == 0 and hidden
+    <= 1024."""
     if cfg.train_engine == "plain":
+        return False
+    if mesh is not None and (mesh.tp > 1 or mesh.nodes > 1):
         return False
     if cfg.train_engine == "fused":
         return True
@@ -124,33 +152,40 @@ def use_fused_train(cfg, device: torch.device) -> bool:
 
 
 def make_train_forward(cfg, fused: bool, in_kernel_dropout: bool,
-                       image_only: bool = False):
+                       image_only: bool = False, model_group=None):
     """The train forward of the chosen engine: the fused blocks routed by
     width (``engine_route``), their dropout drawn inside the kernels or read
-    from generator masks, or the plain engine. image_only: the
-    classifier's (``make_fused_classifier_forward``: no routing by
-    width)."""
+    from generator masks, or the plain engine (tensor-parallel over
+    ``model_group``). image_only: the classifier's
+    (``make_fused_classifier_forward``: no routing by width)."""
     if image_only:
         return make_fused_classifier_forward(
             cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
             sa_block="fused" if fused else "plain",
             dropout_bits=cfg.dropout_bits,
-            in_kernel_dropout=fused and in_kernel_dropout)
+            in_kernel_dropout=fused and in_kernel_dropout,
+            model_group=model_group)
     route = (engine_route(cfg.hidden_size) if fused
              else dict(sga_block="plain", fused_encoder=False))
     return make_fused_train_forward(
         cfg.layer, cfg.multi_head, dropout_rate=cfg.dropout_rate,
         dropout_bits=cfg.dropout_bits,
-        in_kernel_dropout=fused and in_kernel_dropout, **route)
+        in_kernel_dropout=fused and in_kernel_dropout,
+        model_group=model_group, **route)
 
 
-def use_fused_eval(cfg, device: torch.device) -> bool:
+def use_fused_eval(cfg, device: torch.device, mesh=None) -> bool:
     """The JAX Trainer's ``_use_fused_eval`` (trainer.py:569-585) on this
-    device: "plain" never, "fused" always, "auto" on a CUDA device (JAX: a
-    TPU, one process)."""
+    device: "plain" never; never on a mesh with a model axis > 1; "fused"
+    else always, "auto" on a CUDA device (JAX: a TPU) on one node (JAX:
+    one process)."""
     if cfg.eval_engine == "plain":
         return False
-    return cfg.eval_engine == "fused" or device.type == "cuda"
+    if mesh is not None and mesh.tp > 1:
+        return False
+    if cfg.eval_engine == "fused":
+        return True
+    return device.type == "cuda" and (mesh is None or mesh.nodes == 1)
 
 
 def eval_engine_line(fused: bool, image_only: bool = False) -> str:
@@ -196,7 +231,8 @@ class Trainer:
         0, N, 2N, ...; the others every epoch). task: "vqa" (``MCANet``) or
         "classify" (``ClassifierNet``, image only). device: "cuda" by
         default; with no CUDA device it raises unless the caller passes
-        device="cpu"."""
+        device="cpu"; on a mesh this rank's device (``init_distributed``
+        gives it)."""
         if task not in ("vqa", "classify"):
             raise ValueError(f"task must be 'vqa' or 'classify', got "
                              f"{task!r}")
@@ -204,6 +240,16 @@ class Trainer:
         self.task = task
         self.image_only = task == "classify"
         self.device = resolve_device(device)
+        self.mesh = mesh = make_mesh(dict(cfg.mesh_shape))
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside the "
+                             f"{mesh.dp}x{mesh.tp} mesh {cfg.mesh_shape}")
+        self.rank0 = mesh.rank == 0
+        if train_dataset is not None and \
+                (cfg.batch_size // mesh.dp) % cfg.grad_accu_steps:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} over {mesh.dp} data ranks "
+                f"does not split into {cfg.grad_accu_steps} micro-batches")
         self.train_dataset = train_dataset
         self.eval_datasets = dict(eval_datasets or {})
         self.eval_cadence = dict(eval_cadence or {})
@@ -220,7 +266,8 @@ class Trainer:
                 cfg, ref.token_size, ref.ans_size,
                 pretrained_emb=getattr(ref, "pretrained_emb", None),
                 generator=generator)
-        self.model = model.to(self.device)
+        self.model = shard_module_(model, mesh.tp, mesh.model_index,
+                                   mesh.model_group).to(self.device)
         self.data_size = len(train_dataset) if train_dataset is not None \
             else cfg.batch_size
         self.lr_schedule = make_lr_schedule(
@@ -231,12 +278,12 @@ class Trainer:
             self.model, make_optimizer(self.model.parameters(), cfg),
             seed=cfg.seed)
         self._state_settled = False    # resumed or warm-started already
-        self.fused = use_fused_train(cfg, self.device)
+        self.fused = use_fused_train(cfg, self.device, mesh)
         self.build_step(self.fused and self.device.type == "cuda")
-        self.fused_eval = use_fused_eval(cfg, self.device)
+        self.fused_eval = use_fused_eval(cfg, self.device, mesh)
         self.eval_step = make_eval_step(self.model)
         self.logger = RunLogger(cfg.log_path, cfg.run_version, cfg.to_dict(),
-                                echo=cfg.verbose)
+                                echo=cfg.verbose, enabled=self.rank0)
 
     def build_step(self, in_kernel_dropout: bool) -> None:
         """The train forward and step of the chosen engine, the fused
@@ -248,19 +295,36 @@ class Trainer:
         self.in_kernel_dropout = self.fused and in_kernel_dropout
         self.forward_fn = make_train_forward(cfg, self.fused,
                                              in_kernel_dropout,
-                                             self.image_only)
+                                             self.image_only,
+                                             self.mesh.model_group)
         self.step_fn = make_train_step(
             self.forward_fn, grad_accu_steps=cfg.grad_accu_steps,
             reg_factor=cfg.reg_factor, lr_schedule=self.lr_schedule,
             reg_mode="smooth_l1" if self.image_only else "l1l2",
             grad_norm_clip=cfg.grad_norm_clip,
             per_param_norms=cfg.grad_norm_log_every > 0,
-            image_only=self.image_only)
+            image_only=self.image_only, data_group=self.mesh.data_group,
+            model_group=self.mesh.model_group)
 
     def loader(self) -> BatchLoader:
+        """This data rank's rows of every shuffled global batch."""
         return BatchLoader(self.train_dataset, self.cfg.batch_size,
                            self.device, shuffle=True, drop_last=True,
-                           seed=self.cfg.seed)
+                           seed=self.cfg.seed,
+                           process_index=self.mesh.data_index,
+                           process_count=self.mesh.dp)
+
+    def local_state_dict(self, sd):
+        """An unsharded state_dict -> this model rank's shard of each
+        tensor that splits (a tensor of another shape is left whole, for
+        ``merge_compatible`` to skip)."""
+        tp, index = self.mesh.tp, self.mesh.model_index
+        out = {}
+        for k, v in sd.items():
+            dim = shard_dim(k)
+            out[k] = v if dim is None or v.dim() <= dim or v.shape[dim] % tp \
+                else shard_tensor(v, dim, tp, index)
+        return out
 
     def ensure_state(self, resume: Optional[bool] = None) -> TrainState:
         """The train state, restored once from the checkpoint the config
@@ -268,7 +332,8 @@ class Trainer:
         (trainer.py:108-120)."""
         do_resume = self.cfg.resume if resume is None else resume
         if do_resume and not self._state_settled:
-            resume_state(self.state, self.cfg, self.data_size, self.logger)
+            resume_state(self.state, self.cfg, self.data_size, self.logger,
+                         self.mesh)
             self._state_settled = True
         return self.state
 
@@ -281,7 +346,8 @@ class Trainer:
             raise NotImplementedError(
                 f"{path}: only reference pickles load into the port")
         self.model.load_state_dict(merge_compatible(
-            self.model.state_dict(), load_reference_checkpoint(path),
+            self.model.state_dict(),
+            self.local_state_dict(load_reference_checkpoint(path)),
             self.logger))
         self.state = TrainState.create(
             self.model, make_optimizer(self.model.parameters(), self.cfg),
@@ -290,13 +356,22 @@ class Trainer:
 
     def _save_epoch(self, saver, state, epoch: int) -> str:
         """The epoch pickle, through the async saver or at once, then the
-        pruning of older epochs."""
+        pruning of older epochs. On a mesh every rank calls this: the
+        unsharded state goes to rank 0's writer (its saver, the only one),
+        then a barrier."""
         cfg = self.cfg
         args = (cfg.ckpts_dir, cfg.run_version, epoch, cfg.lr_base)
+        mesh = self.mesh if self.mesh.distributed else None
         if saver is not None:
-            return saver.save(state, *args, keep_last=cfg.keep_last_ckpts)
-        path = save_checkpoint(state, *args)
-        prune_checkpoints(cfg.ckpts_dir, cfg.run_version, cfg.keep_last_ckpts)
+            path = saver.save_dicts(*full_state_dicts(state, mesh), *args,
+                                    keep_last=cfg.keep_last_ckpts)
+            if mesh is not None:
+                mesh.barrier()
+            return path
+        path = save_checkpoint(state, *args, mesh=mesh)
+        if self.rank0:
+            prune_checkpoints(cfg.ckpts_dir, cfg.run_version,
+                              cfg.keep_last_ckpts)
         return path
 
     def train(self, start_epoch: int = 0) -> TrainState:
@@ -330,15 +405,18 @@ class Trainer:
         # Trainer keeps them once its state exists (trainer.py:192)
         if not cfg.resume and start_epoch == 0 and not self._state_settled:
             ckpt_dir = os.path.join(cfg.ckpts_dir, f"ckpt_{cfg.run_version}")
-            if os.path.isdir(ckpt_dir):
+            if self.rank0 and os.path.isdir(ckpt_dir):
                 shutil.rmtree(ckpt_dir)
             self.logger.clear()
             self.logger.header()
+            self.mesh.barrier()
         state = self.ensure_state()
         line = engine_line(cfg.hidden_size, self.fused,
                            self.in_kernel_dropout, cfg.dropout_bits,
                            self.image_only)
-        self.logger.write(f"{line} (device {self.device})")
+        mesh_note = (f", mesh {self.mesh.dp}x{self.mesh.tp}"
+                     if self.mesh.size > 1 else "")
+        self.logger.write(f"{line} (device {self.device}{mesh_note})")
         in_epoch_eval = (self.image_only and cfg.eval_interval > 0
                          and self.eval_datasets)
         if (cfg.eval_every_epoch or in_epoch_eval) and self.eval_datasets:
@@ -364,7 +442,8 @@ class Trainer:
                     old_handlers[sig] = signal.signal(sig, request_stop)
             except ValueError:
                 pass                  # not the main thread: no handlers
-            saver = AsyncCheckpointSaver() if cfg.ckpt_async else None
+            saver = AsyncCheckpointSaver() \
+                if cfg.ckpt_async and self.rank0 else None
             with trace(cfg.profile_dir):
                 for epoch in range(start_epoch, cfg.max_epoch):
                     loader.set_epoch(epoch)
@@ -374,7 +453,9 @@ class Trainer:
                     loss_sum, n_steps, lr = 0.0, 0, 0.0
                     norm_sums: Dict[str, float] = {}
                     for batch in loader:
-                        if stop["flag"]:
+                        # every rank stops at the same step boundary
+                        if self.mesh.any_rank(stop["flag"]):
+                            stop["flag"] = True
                             break
                         last_inputs = self._inputs(batch)
                         metrics = self.step_fn(state, batch)
@@ -411,6 +492,7 @@ class Trainer:
                                "wall_s": time.perf_counter() - t0,
                                "step_ema_s": timer.ema or 0.0,
                                "checkpoint": path}
+                    stop["flag"] = self.mesh.any_rank(stop["flag"])
                     if stop["flag"]:
                         self.logger.epoch(epoch, {
                             **metrics, "preempted_at_step": n_steps})
@@ -440,8 +522,10 @@ class Trainer:
                     self.logger.write(
                         "async checkpoint flush failed during error unwind "
                         "(original exception propagates)")
+        # JAX's guard (trainer.py:462-468): no model axis, one node
         if cfg.ckpt_calibrate and last_inputs is not None \
-                and last_saved is not None:
+                and last_saved is not None and self.rank0 \
+                and self.mesh.tp == 1 and self.mesh.nodes == 1:
             try:
                 self._save_serving_calibration(last_inputs, last_saved)
             except Exception as e:  # noqa: BLE001 (the run is kept)
@@ -491,7 +575,9 @@ class Trainer:
         """{"probs": [N, A] f32, "qids": [N]} and, where the examples carry
         targets, "targets" [N, A]: every example once, in order, through
         the eval engine on the current weights (the classifier's: its
-        level-1 engine, or the plain eval step on the image)."""
+        level-1 engine, or the plain eval step on the image). On a mesh
+        each data rank runs its rows of every batch and every rank
+        returns the whole result."""
         cfg = self.cfg
         if self.fused_eval:
             build = (build_production_classifier_engine if self.image_only
@@ -503,18 +589,27 @@ class Trainer:
                 return torch.sigmoid(serve(prepared, *inputs).float())
         else:
             probs_of = self.eval_step
+        mesh = self.mesh
         loader = BatchLoader(dataset, cfg.eval_batch_size, self.device,
                              shuffle=False, drop_last=False, seed=cfg.seed,
-                             pad_final=True)
+                             pad_final=True, process_index=mesh.data_index,
+                             process_count=mesh.dp)
         probs_all, qids_all, targets_all = [], [], []
         with torch.no_grad():
             for batch in loader:
-                valid = batch["valid"]
-                probs = probs_of(*self._inputs(batch))
-                probs_all.append(probs.cpu().numpy()[valid])
-                qids_all.append(batch["qid"][valid])
+                rows = {"probs": probs_of(*self._inputs(batch)).cpu().numpy(),
+                        "valid": batch["valid"], "qid": batch["qid"]}
                 if "target" in batch:
-                    targets_all.append(batch["target"].cpu().numpy()[valid])
+                    rows["target"] = batch["target"].cpu().numpy()
+                # the data ranks' rows in rank order (JAX's
+                # process_allgather): every rank holds the whole batch
+                rows = {k: all_gather_rows(np.asarray(v), mesh.data_group)
+                        for k, v in rows.items()}
+                valid = rows["valid"]
+                probs_all.append(rows["probs"][valid])
+                qids_all.append(rows["qid"][valid])
+                if "target" in rows:
+                    targets_all.append(rows["target"][valid])
         out = {"probs": np.concatenate(probs_all),
                "qids": np.concatenate(qids_all)}
         if targets_all:
@@ -534,11 +629,12 @@ class Trainer:
         out = self.predict(dataset)
         results: Dict[str, Any] = {}
         if cfg.test_save_pred:
-            os.makedirs(cfg.pred_path, exist_ok=True)
             pred_file = os.path.join(cfg.pred_path,
                                      f"pred_run_{cfg.run_version}.npz")
-            np.savez_compressed(pred_file, probs=out["probs"],
-                                qids=out["qids"])
+            if self.rank0:
+                os.makedirs(cfg.pred_path, exist_ok=True)
+                np.savez_compressed(pred_file, probs=out["probs"],
+                                    qids=out["qids"])
             results["pred_path"] = pred_file
 
         answers = None
@@ -550,7 +646,8 @@ class Trainer:
                                           self.ix_to_ans.get(i, str(i)))
             answers = [decode(i) for i in out["probs"].argmax(axis=1)]
         if dump_path and answers is not None:
-            vqa_eval.dump_results(out["qids"], answers, dump_path)
+            if self.rank0:
+                vqa_eval.dump_results(out["qids"], answers, dump_path)
             results["dump_path"] = dump_path
 
         if "targets" in out:

@@ -19,16 +19,23 @@ from typing import Any, Dict, Optional
 
 class RunLogger:
     def __init__(self, log_dir: str, version: str,
-                 cfg_dict: Optional[Dict] = None, echo: bool = True):
-        os.makedirs(log_dir, exist_ok=True)
+                 cfg_dict: Optional[Dict] = None, echo: bool = True,
+                 enabled: bool = True):
+        """enabled False: a logger that writes and prints nothing (the
+        ranks other than 0 of a mesh)."""
         self.path = os.path.join(log_dir, f"log_run_{version}.txt")
         self.echo = echo
+        self.enabled = enabled
         self.cfg_dict = cfg_dict
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
         self.header()
 
     def header(self) -> None:
         """The time and the config dump (the reference's log head,
         core/exec.py:132-140)."""
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(f"NOW TIME: {time.strftime('%Y-%m-%d %H:%M:%S')}\n")
             if self.cfg_dict is not None:
@@ -41,17 +48,23 @@ class RunLogger:
     def clear(self) -> None:
         """Remove this version's log and its JSONL mirror (the reference's
         empty_log on a fresh training run)."""
+        if not self.enabled:
+            return
         for p in (self.path, self.jsonl_path):
             if os.path.exists(p):
                 os.remove(p)
 
     def write(self, line: str) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(line.rstrip("\n") + "\n")
         if self.echo:
             print(line, flush=True)
 
     def jsonl(self, obj: Dict[str, Any]) -> None:
+        if not self.enabled:
+            return
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(obj, default=str) + "\n")
 

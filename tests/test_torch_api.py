@@ -10,6 +10,7 @@ from mcan_vqa_tpu.data import text
 from mcan_vqa_tpu_torch.api import Predictor
 from mcan_vqa_tpu_torch.configs import Config
 from mcan_vqa_tpu_torch.models.net import MCANet
+from mcan_vqa_tpu_torch.parallel import make_mesh
 
 CFG = Config(hidden_size=64, layer=2, multi_head=4, ff_size=256,
              img_feat_size=32, img_feat_pad_size=12, max_token=7,
@@ -114,7 +115,8 @@ def test_from_checkpoint_reference_pickle(weights, tmp_path):
     (dict(engine="int8", q8aux=True), ValueError),
     (dict(engine="int4", auto_calibrate=0), ValueError),
     (dict(engine="bogus"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
+     ValueError),
     (dict(q8aux=True, auto_calibrate=0), ValueError),
     (dict(latency_buckets=(16,)), ValueError),
     (dict(engine="plain", q8aux=True), ValueError),
@@ -122,8 +124,8 @@ def test_from_checkpoint_reference_pickle(weights, tmp_path):
 def test_refused_arguments(weights, kwargs, err):
     """The JAX Predictor's construction errors (api.py:244-279): q8aux on
     an engine without calibrated sites, int4 or q8aux with every
-    calibration source off, scales for an engine that has none; meshes are
-    not ported."""
+    calibration source off, scales for an engine that has none; a serving
+    mesh with a model axis (api.py:308-309: pure data parallelism)."""
     with pytest.raises(err):
         _predictor(weights, **kwargs)
 

@@ -3,7 +3,9 @@ chip_smoke.py imports JAX, the JAX stack (flax / optax / orbax / yaml) or
 anything of the JAX package ``mcan_vqa_tpu`` -- not even its
 framework-neutral host modules: the port keeps its own copies
 (mcan_vqa_tpu_torch/data/). chip_smoke.py refuses to run without a CUDA
-device: it exits non-zero and prints no result."""
+device: it exits non-zero and prints no result. A world of one (no
+process group, the mesh {1, 1}) calls no collective of torch.distributed
+on the single-card paths."""
 
 import ast
 import os
@@ -64,6 +66,9 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/data/filter_train_data.py",
                      "mcan_vqa_tpu_torch/cli/run_mimic.py",
                      "mcan_vqa_tpu_torch/cli/sweep.py",
+                     "mcan_vqa_tpu_torch/parallel/__init__.py",
+                     "mcan_vqa_tpu_torch/parallel/mesh.py",
+                     "mcan_vqa_tpu_torch/parallel/sharding.py",
                      "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
@@ -115,6 +120,7 @@ def test_port_loads_no_jax_module():
             "import mcan_vqa_tpu_torch.data.filter_train_data\n"
             "import mcan_vqa_tpu_torch.cli.run_mimic\n"
             "import mcan_vqa_tpu_torch.cli.sweep\n"
+            "import mcan_vqa_tpu_torch.parallel\n"
             "new = set(sys.modules) - before\n"
             f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -142,3 +148,54 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
                           text=True, cwd=tmp_path, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_world_of_one_calls_no_collective(tmp_path, monkeypatch):
+    """With no process group the mesh is {1, 1} with no group, and a
+    Trainer trains (the fused engine, two micro-batches, the L1 + L2
+    penalty, the gradient-norm log), checkpoints, resumes and evaluates
+    without calling any collective: every torch.distributed entry point
+    raises here."""
+    import torch
+    import torch.distributed as dist
+
+    from mcan_vqa_tpu_torch.parallel import make_mesh
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a collective was called in a world of one")
+
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier",
+                 "new_group", "init_process_group", "reduce_scatter"):
+        monkeypatch.setattr(dist, name, refuse)
+    assert not dist.is_initialized()
+    mesh = make_mesh()
+    assert (mesh.shape, mesh.distributed, mesh.data_group,
+            mesh.model_group) == ({"data": 1, "model": 1}, False, None, None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _train_resume_predict(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _train_resume_predict(tmp_path):
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    base = dict(hidden_size=32, ff_size=128, layer=1, multi_head=4,
+                img_feat_size=16, img_feat_pad_size=8, max_token=6,
+                flat_out_size=32, flat_mlp_size=16, batch_size=8,
+                grad_accu_steps=2, reg_factor=1e-4, grad_norm_log_every=1,
+                train_engine="fused", eval_engine="fused", verbose=False,
+                eval_every_epoch=False, ckpts_dir=str(tmp_path / "ck"),
+                log_path=str(tmp_path / "log"))
+    ds = SyntheticVQADataset(Config(**base), size=16, token_size=20,
+                             answer_size=6)
+    trainer = Trainer(Config(**base, max_epoch=1), ds, device="cpu")
+    assert trainer.mesh.size == 1 and trainer.fused and trainer.fused_eval
+    assert trainer.train().step == 2
+    resumed = Trainer(Config(**base, max_epoch=2, resume=True,
+                             ckpt_epoch=1), ds, device="cpu")
+    assert resumed.train().step == 4
+    assert resumed.predict(ds)["probs"].shape == (16, 6)
