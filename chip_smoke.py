@@ -74,6 +74,26 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              static-int8 aux sites); Predictor(engine="int8"); launch counts
              and agreement with the plain engine for each;
   [forward]  forward times of every engine per bucket, in turns;
+  [artifact] serving artifacts: the default Predictor at level 1 and the
+             online-calibrated one of [serve] exported at buckets 1, 8, 64,
+             the int4, full-int8, plain and q8aux engines and the
+             hidden-1536 (mode-0) Predictor at bucket 8 and 2 layers
+             (Predictor.export_artifact: torch.export, the serving kernels
+             as torch.ops.mcan.* custom ops), then loaded in one fresh
+             process that imports no model code (``--artifact-load``):
+             every program against its live Predictor bit for bit on the
+             same padded inputs, with the live kernel launches a forward;
+             export and load seconds, forward ms beside the live engine's,
+             and the default engines' programs in turns with their op
+             nodes calling the ops' implementations directly;
+  [http]     cli/serve.py's make_server over the calibrated Predictor and
+             over its artifact: 16 concurrent clients, ~256 requests (b64
+             and lists, single and batched, top_k 1 and 5, malformed ones
+             with their status codes), each answer against a direct
+             Predictor.answer (a flip only inside a near-tie); a full queue
+             (503) and a body over the cap (413); predict_probs_async at
+             B=64 returning before its forward ends; one
+             cli/bench_serve_http.py line per wire format and side;
   [per-sub-op]  main path 1e, the per-sub-op path (sga_mode=0): gemm_ln
              and attflat_pool against their plain versions at the
              MCAN-small B=64 shapes (both stream dtypes, D up to 2048,
@@ -432,6 +452,15 @@ def main() -> None:
     time_forwards(torch, cfg, fused, timed + [("plain",
                                                plain.forward_padded)])
     phase_done("serve")
+    art_work = ROOT / "ckpts" / "chip_smoke_artifact"
+    try:
+        art_dir = artifact_path(torch, dev, rows, art_work, model_state, cfg,
+                                vocab, ix_to_ans, fused)
+        phase_done("artifact")
+        http_path(torch, dev, rows, cfg, fused, art_dir, card)
+        phase_done("http")
+    finally:
+        shutil.rmtree(art_work, ignore_errors=True)
     check_sub_op_kernels(torch, dev, rows)
     serve_per_sub_op(torch, dev, model_state, cfg, plain, requests,
                      len(ix_to_ans), rows)
@@ -3316,6 +3345,518 @@ def serve_quantized_paths(torch, dev, state_dict, cfg, vocab, ix_to_ans,
     rows.launches("serve int8", counts, QUANT_SERVE_KERNELS)
     timed.append(("int8 full", p8.forward_padded))
     return timed
+
+
+# ---------------------------------------------------------------------------
+# main path 1e -- serving artifacts: Predictor.export_artifact, the programs
+# loaded in a fresh process (ArtifactPredictor), and the HTTP stack
+# ---------------------------------------------------------------------------
+
+ART_ITERS = 10                  # forwards timed per bucket and side
+ART_TIMEOUT = 600               # the loading process's time limit
+HTTP_CLIENTS = 16
+HTTP_SINGLES = 96               # single POSTs per server
+HTTP_BATCHES = 4                # batched POSTs of 8 per server
+HTTP_BENCH_S = 5.0              # seconds per wire format of the bench
+ASYNC_SLEEP_CYCLES = 10 ** 8    # ~50 ms of the card's clock
+DISPATCH_TIMED = ("level 1", "level 3")   # engines timed with direct calls
+ARTIFACT_KERNELS = ("gemm_bias_act", "gemm_s8", "quantize_rows",
+                    "masked_attention", "masked_attention_f32",
+                    "residual_layernorm", "gemm_s4", "gemm_ln")
+
+
+def kernel_launches(counts):
+    """The kernel-level counts of a run: the block functions' own counters
+    (``fused_*``) are Python side effects that a program does not repeat."""
+    return {k: n for k, n in counts.items() if not k.startswith("fused_")}
+
+
+def artifact_engines(torch, dev, state_dict, cfg, vocab, ix_to_ans, fused):
+    """(name, live Predictor, its kernel launches per forward): the
+    default Predictor at level 1 and the online-calibrated one of
+    [serve] at level 3, MCAN-small at full depth over buckets 1, 8 and 64;
+    the int4 (level 5), full-int8, plain and q8aux engines at bucket 8 and
+    the hidden-1536 Predictor of [wide] (mode 0) at bucket 8, each cut to
+    WIDE_LAYERS layers (a program's export and load time grows with its
+    depth; the kernels' shapes do not depend on it)."""
+    from mcan_vqa_tpu_torch.api import Predictor
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.models.net import MCANet
+
+    def seeded(c):
+        return MCANet(c, len(vocab), len(ix_to_ans), generator=torch
+                      .Generator().manual_seed(SEED + 51)).state_dict()
+
+    cut = Config.for_model("small", layer=WIDE_LAYERS)
+    wide = Config.for_model("small", layer=WIDE_LAYERS, hidden_size=1536)
+    cut_sd, wide_sd = seeded(cut), seeded(wide)
+    cal = ragged_batch(np.random.default_rng(SEED + 61), cut, BATCH)
+    one = dict(ix_to_ans=ix_to_ans, max_batch=8, device=dev)
+    C = WIDE_LAYERS
+    return [
+        ("level 1", Predictor(cfg, state_dict, vocab, ix_to_ans=ix_to_ans,
+                              max_batch=BATCH, latency_buckets=LATENCY_BUCKETS,
+                              engine="fused", auto_calibrate=0, device=dev),
+         serve_launches(cfg.layer, 1)),
+        ("level 3", fused, serve_launches(cfg.layer, 3)),
+        ("int4", Predictor(cut, cut_sd, vocab, engine="int4",
+                           act_calibration=cal, **one),
+         serve_launches(C, 5)),
+        ("int8", Predictor(cut, cut_sd, vocab, engine="int8", **one),
+         int8_engine_launches(C)),
+        ("plain", Predictor(cut, cut_sd, vocab, engine="plain", **one), {}),
+        ("q8aux", Predictor(cut, cut_sd, vocab, q8aux=True,
+                            act_calibration=cal, **one),
+         serve_launches(C, 3, aux=True)),
+        ("hidden 1536", Predictor(wide, wide_sd, vocab, engine="fused",
+                                  auto_calibrate=0, **one),
+         mode0_launches(C, False, False))]
+
+
+def artifact_path(torch, dev, rows, work: Path, state_dict, cfg, vocab,
+                  ix_to_ans, fused) -> Path:
+    """[artifact]: each engine exported (``Predictor.export_artifact``), its
+    live forward per bucket run on seeded padded inputs (probabilities,
+    kernel launches of one forward, CUDA-event ms); then one fresh process
+    (``--artifact-load``: one torch import, nothing of the model code)
+    loads every artifact and runs the same inputs, and each artifact must
+    give the live probabilities bit for bit with the live launches. ->
+    the level-3 artifact's directory."""
+    from mcan_vqa_tpu_torch.device import to_host
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 62)
+    spec, live = [], {}
+    for name, p, want in artifact_engines(torch, dev, state_dict, cfg, vocab,
+                                          ix_to_ans, fused):
+        path = work / name.replace(" ", "_")
+        t0 = time.perf_counter()
+        p.export_artifact(str(path))
+        export_s = time.perf_counter() - t0
+        buckets = []
+        for b in p.buckets:
+            img, ques = p.pad_batch(*ragged_batch(rng, p.cfg, b))
+            inputs = path.parent / f"{path.name}_b{b}.npz"
+            probs = to_host(p.forward_padded(img, ques), b)
+            np.savez(inputs, img=img, ques=ques, probs=probs)
+            K.reset_launches()
+            p.forward_padded(img, ques)
+            torch.cuda.synchronize()
+            counts = kernel_launches(K.launch_counts())
+            if counts != kernel_launches(want):
+                fail(f"[artifact] {name} B={b}: the live forward launched "
+                     f"{counts}, expected {kernel_launches(want)}")
+            ms = [cuda_ms(torch, lambda: p.forward_padded(img, ques),
+                          iters=ART_ITERS) for _ in range(2)]
+            live[name, b] = (counts, ms)
+            buckets.append(dict(bucket=b, inputs=str(inputs)))
+        mib = sum(f.stat().st_size for f in path.iterdir()) / 2 ** 20
+        say(f"[artifact] {name}: engine {p.engine!r}, buckets {p.buckets}, "
+            f"exported in {export_s:.1f} s ({export_s / len(p.buckets):.1f} "
+            f"s a program), {mib:.1f} MiB on disk")
+        spec.append(dict(name=name, path=str(path), buckets=buckets))
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--artifact-load",
+         str(work)], cwd=ROOT, capture_output=True, text=True,
+        timeout=ART_TIMEOUT)
+    if proc.returncode != 0:
+        say(proc.stdout[-3000:] + proc.stderr[-3000:])
+        fail(f"[artifact] the loading process exited {proc.returncode}")
+    got = json.loads((work / "result.json").read_text())
+    say(f"[artifact] one fresh process loaded {len(spec)} artifacts in "
+        f"{time.perf_counter() - t0:.1f} s (torch import and the kernels' "
+        f"library included); model code imported there: "
+        f"{got['model_modules'] or 'none'}")
+    if got["model_modules"]:
+        fail("[artifact] the loader imported the model code")
+    total = {}
+    for art in got["artifacts"]:
+        for r in art["buckets"]:
+            name, b = art["name"], r["bucket"]
+            counts, ms = live[name, b]
+            again = (f"; every artifact loaded, in turns: the program "
+                     f"{fmt_ms(r['turns']['ops'])} ms, its {r['op_nodes']} "
+                     f"op nodes called directly "
+                     f"{fmt_ms(r['turns']['direct'])} ms"
+                     if "turns" in r else "")
+            say(f"[artifact] {name} B={b}: load {art['load_s']:.2f} s, "
+                f"bit for bit {r['equal']} (max |d| {r['max_abs']:.3e}), "
+                f"launches a forward {r['launches']}, forward "
+                f"{r['ms']:.3f} ms vs live {fmt_ms(ms)} ms (CUDA events, "
+                f"{ART_ITERS} eager forwards, input copies included, "
+                f"{r['programs_loaded']} programs loaded){again}")
+            if not r["equal"]:
+                fail(f"[artifact] {name} B={b}: the artifact's probabilities "
+                     f"differ from the live Predictor's")
+            if r["launches"] != counts:
+                fail(f"[artifact] {name} B={b}: launches {r['launches']}, "
+                     f"the live forward's {counts}")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    rows.launches("artifact", total,
+                  [k for k in ARTIFACT_KERNELS if k in rows.rows])
+    return work / "level_3"
+
+
+def retarget(gm, targets) -> int:
+    """Point a loaded program's call nodes from one set of targets to
+    another (``targets``: old -> new) and recompile it. -> nodes moved."""
+    n = 0
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and node.target in targets:
+            node.target = targets[node.target]
+            n += 1
+    gm.recompile()
+    return n
+
+
+def fmt_ms(ms) -> str:
+    return " / ".join(f"{m:.3f}" for m in ms)
+
+
+def artifact_load(work: Path) -> None:
+    """The fresh process of [artifact]: each artifact of work/spec.json
+    loaded in turn (timed; the ones before it stay loaded) and run on the
+    saved padded inputs: bit-for-bit equality with the live
+    probabilities, the kernel launches of one forward, CUDA-event ms; then
+    the default engines' programs timed again in turns with the same
+    programs calling the ops' implementations directly (``retarget``);
+    -> work/result.json."""
+    before = set(sys.modules)
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from mcan_vqa_tpu_torch.ops import _build
+    _build.load_library()                  # the parent's build, loaded
+    from mcan_vqa_tpu_torch.artifact import load_artifact
+    from mcan_vqa_tpu_torch.device import to_host
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.ops import library
+    out, loaded = [], []
+    for art in json.loads((work / "spec.json").read_text()):
+        t0 = time.perf_counter()
+        ap = load_artifact(art["path"])
+        load_s = time.perf_counter() - t0
+        loaded.append((ap, art))
+        buckets = []
+        for entry in art["buckets"]:
+            b = entry["bucket"]
+            with np.load(entry["inputs"]) as z:
+                img, ques, want = z["img"], z["ques"], z["probs"]
+            probs = to_host(ap.forward_padded(img, ques), b)
+            K.reset_launches()
+            ap.forward_padded(img, ques)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+
+            def forward():
+                return ap.forward_padded(img, ques)
+
+            buckets.append(dict(
+                bucket=b, equal=bool(np.array_equal(probs, want)),
+                max_abs=float(np.abs(probs - want).max()), launches=counts,
+                ms=cuda_ms(torch, forward, iters=ART_ITERS),
+                programs_loaded=sum(len(a.buckets) for a, _ in loaded)))
+        out.append(dict(name=art["name"], load_s=load_s, buckets=buckets))
+    # the default engines at B = 1 and 64 again, every artifact loaded, in
+    # turns: each program as loaded (its torch.ops.mcan.* nodes) and with
+    # those nodes pointed at the ops' implementations (library.IMPLS: the
+    # same graph and kernels, no custom-op dispatch); the host's clock
+    # wanders, so the two take turns
+    to_impl = {getattr(torch.ops.mcan, n).default: fn
+               for n, fn in library.IMPLS.items()}
+    to_op = {fn: op for op, fn in to_impl.items()}
+    for (ap, art), res in zip(loaded, out):
+        if art["name"] not in DISPATCH_TIMED:
+            continue
+        for entry, r in zip(art["buckets"], res["buckets"]):
+            b = r["bucket"]
+            if b not in (1, BATCH):
+                continue
+            with np.load(entry["inputs"]) as z:
+                img, ques = z["img"], z["ques"]
+
+            def forward():
+                return ap.forward_padded(img, ques)
+
+            turns = {"ops": [], "direct": []}
+            for order in (("ops", "direct"), ("direct", "ops")):
+                for side in order:
+                    r["op_nodes"] = retarget(
+                        ap._fns[b], to_impl if side == "direct" else to_op)
+                    turns[side].append(cuda_ms(torch, forward, iters=5,
+                                               warmup=2))
+            r["turns"] = turns
+    model = ("mcan_vqa_tpu_torch.api", "mcan_vqa_tpu_torch.models.net",
+             "mcan_vqa_tpu_torch.ops.serving", "mcan_vqa_tpu_torch.ops.quant",
+             "mcan_vqa_tpu_torch.ops.sga_block")
+    (work / "result.json").write_text(json.dumps(dict(
+        artifacts=out, model_modules=sorted(
+            m for m in set(sys.modules) - before if m in model))))
+
+
+class Gated:
+    """A predictor whose dispatch waits for ``gate``: the frontend's worker
+    holds one request while the next ones queue up behind it."""
+
+    def __init__(self, predictor):
+        self._p = predictor
+        self.entered = __import__("threading").Event()
+        self.gate = __import__("threading").Event()
+
+    def __getattr__(self, name):
+        return getattr(self._p, name)
+
+    def predict_probs_async(self, questions, feats):
+        self.entered.set()
+        self.gate.wait(60)
+        return self._p.predict_probs_async(questions, feats)
+
+
+def http_send(addr, method, path, body=b"", headers=None):
+    """One request -> (status, JSON reply)."""
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=120)
+    try:
+        conn.putrequest(method, path)
+        hdrs = {"Content-Type": "application/json",
+                "Content-Length": str(len(body))}
+        hdrs.update(headers or {})
+        for k, v in hdrs.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if body and "Content-Length" not in (headers or {}):
+            conn.send(body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def http_traffic(rng, cfg, F: int):
+    """The bodies a server gets: singles (b64 and lists, top_k 1 and 5),
+    batches of 8, and malformed requests, each with the status it must
+    get. -> ([(body, status, items)], the valid items)."""
+    import base64
+
+    def feat_json(f, b64):
+        return ({"b64": base64.b64encode(f.tobytes()).decode(),
+                 "shape": list(f.shape)} if b64 else f.tolist())
+
+    items, posts = [], []
+    for i in range(HTTP_SINGLES + 8 * HTTP_BATCHES):
+        qs, fs = ragged_batch(rng, cfg, 1)
+        items.append((qs[0], fs[0], 5 if i % 3 == 0 else 1, i % 2 == 0))
+    for i in range(HTTP_SINGLES):
+        q, f, k, b64 = items[i]
+        posts.append(({"question": q, "image_feature": feat_json(f, b64),
+                       "top_k": k}, 200, [i]))
+    for j in range(HTTP_BATCHES):
+        idx = list(range(HTTP_SINGLES + 8 * j, HTTP_SINGLES + 8 * (j + 1)))
+        posts.append(({"requests": [
+            {"question": items[i][0],
+             "image_feature": feat_json(items[i][1], items[i][3]),
+             "top_k": items[i][2]} for i in idx]}, 200, idx))
+    bad = np.ones((3, F), np.float32)
+    bad[1, 2] = np.nan
+    good = [[0.5] * F] * 3
+    posts += [(b"{not json", 400, []),
+              ({"question": "what", "image_feature": feat_json(bad, True)},
+               400, []),
+              ({"question": "what", "image_feature": {"b64": "!!!",
+                                                      "shape": [1, F]}},
+               400, []),
+              ({"requests": []}, 400, []),
+              ({"question": "what", "image_feature": good, "top_k": 33},
+               400, []),
+              ({"question": "", "image_feature": good}, 400, []),
+              # a wrong width fails in the frontend's validation: 500, as
+              # the JAX server answers it
+              ({"question": "what", "image_feature": [[0.5] * 7]}, 500, [])]
+    return posts, items
+
+
+def http_check(label, replies, posts, items, direct) -> float:
+    """Every reply has its status; every answer equals the direct
+    Predictor's top-1 on the same request, or is a near-tie within
+    INT8_BOUND of it. -> the largest probability gap seen."""
+    worst, flips = 0.0, 0
+    for (status, out), (body, want, idx) in zip(replies, posts):
+        if status != want:
+            fail(f"[http] {label}: {str(body)[:80]} got {status} {out}, "
+                 f"expected {want}")
+        if want != 200:
+            continue
+        results = out["results"] if "requests" in body else [out]
+        for i, res in zip(idx, results):
+            row = direct[i]
+            top = int(row.argmax())
+            ans, prob = res["answer"], res["prob"]
+            k = items[i][2]
+            if k > 1 and [a["prob"] for a in res["answers"]] != sorted(
+                    (a["prob"] for a in res["answers"]), reverse=True):
+                fail(f"[http] {label}: top-{k} not in order: {res}")
+            ix = DIRECT_IX[ans]
+            worst = max(worst, abs(prob - float(row[ix])))
+            if ix != top:
+                flips += 1
+                if row[top] - row[ix] > INT8_BOUND:
+                    fail(f"[http] {label}: answer {ans!r} ({row[ix]:.4f} "
+                         f"direct) against the direct top-1 "
+                         f"({row[top]:.4f})")
+    answered = sum(len(i) for _, _, i in posts)
+    say(f"[http] {label}: {len(posts)} POSTs ({answered} answered items), "
+        f"every status as expected; top-1 flips "
+        f"inside a near-tie {flips}, largest |dprob| against the direct "
+        f"Predictor {worst:.3e} <= {INT8_BOUND:.0e}")
+    if worst > INT8_BOUND:
+        fail(f"[http] {label}: probabilities off by {worst:.3e}")
+    return worst
+
+
+DIRECT_IX = {}
+
+
+def http_path(torch, dev, rows, cfg, fused, art_dir: Path, card: str):
+    """[http]: make_server over the calibrated Predictor of [serve] and
+    over its artifact, 16 concurrent clients posting ~256 requests each
+    way; the 503 of a full queue (a gated server, max_queue 1) and the 413
+    of a body over the cap; ``predict_probs_async`` at B = 64 returns
+    before its forward ends; then one bench_serve_http line per wire
+    format."""
+    import queue
+    import threading
+
+    from mcan_vqa_tpu_torch.artifact import load_artifact
+    from mcan_vqa_tpu_torch.cli import bench_serve_http as bench
+    from mcan_vqa_tpu_torch.cli import serve
+    from mcan_vqa_tpu_torch.device import to_host
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    F = cfg.img_feat_size
+    ap = load_artifact(str(art_dir))
+    DIRECT_IX.update({a: int(i) for i, a in fused.ix_to_ans.items()})
+    posts, items = http_traffic(np.random.default_rng(SEED + 63), cfg, F)
+    direct = [fused.predict_probs([q], [f])[0] for q, f, _, _ in items]
+    cap = 64 << 20              # make_server's default body cap
+    K.reset_launches()
+    for label, p in (("live", fused), ("artifact", ap)):
+        serve.warmup(p)
+        srv, frontend = serve.make_server(p, port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        addr = srv.server_address[:2]
+        todo = queue.Queue()
+        for i, (body, _, _) in enumerate(posts):
+            todo.put((i, body if isinstance(body, bytes)
+                      else json.dumps(body).encode()))
+        replies = [None] * len(posts)
+
+        def client():
+            while True:
+                try:
+                    i, body = todo.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    replies[i] = http_send(addr, "POST", "/v1/answer", body)
+                except OSError as e:     # reported by http_check
+                    replies[i] = (None, {"error": repr(e)})
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client)
+                   for _ in range(HTTP_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        extra = [http_send(addr, "GET", "/nope"),
+                 http_send(addr, "POST", "/v1/answer", b"",
+                           {"Content-Length": str(cap + 1)}),
+                 http_send(addr, "GET", "/stats")]
+        srv.shutdown()
+        srv.server_close()
+        frontend.close()
+        thread.join(timeout=10)
+        http_check(label, replies, posts, items, direct)
+        (s404, _), (s413, o413), (s200, stats) = extra
+        say(f"[http] {label}: {wall:.2f} s for the traffic from "
+            f"{HTTP_CLIENTS} clients; unknown route {s404}, body over the "
+            f"cap {s413}; /stats: {stats['batches_run']} batches, mean "
+            f"occupancy {stats['mean_occupancy']:.2f}, latency "
+            f"{stats['latency_ms']}, engine {stats['engine']}, "
+            f"calibration {stats['calibration']['state']}")
+        if (s404, s413, s200) != (404, 413, 200):
+            fail(f"[http] {label}: statuses {s404}, {s413} {o413}, {s200}")
+    counts = kernel_launches(K.launch_counts())
+    rows.launches("http", counts,
+                  [k for k in ARTIFACT_KERNELS if k in rows.rows])
+    say(f"[http] kernel launches of both servers' traffic: {counts}")
+
+    # a full queue: 503
+    gated = Gated(fused)
+    srv, frontend = serve.make_server(gated, port=0, max_queue=1,
+                                      max_wait_ms=0.0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address[:2]
+    one = json.dumps({"question": "what", "image_feature": [[0.5] * F]}
+                     ).encode()
+    held = [None, None]
+
+    def post(i):
+        held[i] = http_send(addr, "POST", "/v1/answer", one)
+
+    first = threading.Thread(target=post, args=(0,))
+    first.start()
+    gated.entered.wait(60)
+    second = threading.Thread(target=post, args=(1,))
+    second.start()
+    t0 = time.perf_counter()
+    while frontend._q.qsize() < 1 and time.perf_counter() - t0 < 30:
+        time.sleep(0.01)
+    s503, o503 = http_send(addr, "POST", "/v1/answer", one)
+    gated.gate.set()
+    first.join(60)
+    second.join(60)
+    srv.shutdown()
+    srv.server_close()
+    frontend.close()
+    thread.join(timeout=10)
+    say(f"[http] max_queue=1 with one request held: {s503} {o503}; the held "
+        f"ones {[h[0] for h in held]}")
+    if s503 != 503 or [h[0] for h in held] != [200, 200]:
+        fail("[http] the full queue did not shed with 503")
+
+    # the dispatch returns before the forward ends: the card is kept busy
+    # (~50 ms of torch.cuda._sleep) ahead of each call, so a call that
+    # waited for the card anywhere (a pageable input copy synchronises the
+    # stream) would return with its forward done
+    qs, fs = ragged_batch(np.random.default_rng(SEED + 64), cfg, BATCH)
+    for label, p in (("live", fused), ("artifact", ap)):
+        pending = 0
+        for _ in range(20):
+            torch.cuda._sleep(ASYNC_SLEEP_CYCLES)
+            probs, n = p.predict_probs_async(qs, fs)
+            done = torch.cuda.Event()
+            done.record()
+            pending += not done.query()
+            to_host(probs, n)
+        say(f"[http] {label} predict_probs_async at B={BATCH}: the forward "
+            f"still running at the return in {pending} of 20 calls")
+        if pending <= 10:
+            fail(f"[http] {label}: predict_probs_async waited for its "
+                 f"forward in {20 - pending} of 20 calls")
+
+    for label, p, formats in (("live level 3", fused, ["b64", "list"]),
+                              ("artifact level 3", ap, ["b64", "list"])):
+        for r in bench.bench(p, HTTP_BENCH_S, HTTP_CLIENTS, formats,
+                             cfg.img_feat_pad_size):
+            say("[bench_serve_http] " + json.dumps(dict(
+                r, engine=label, card=card)))
+            if r["errors"]:
+                fail(f"[bench_serve_http] {label}: {r['errors']} errors")
 
 
 # ---------------------------------------------------------------------------
@@ -7088,7 +7629,9 @@ def canary_path() -> None:
 
 
 if __name__ == "__main__":
-    if "--dist-rank" in sys.argv:
+    if "--artifact-load" in sys.argv:
+        artifact_load(Path(sys.argv[sys.argv.index("--artifact-load") + 1]))
+    elif "--dist-rank" in sys.argv:
         dist_rank(int(sys.argv[sys.argv.index("--dist-rank") + 1]),
                   Path(sys.argv[sys.argv.index("--dist-dir") + 1]))
     else:

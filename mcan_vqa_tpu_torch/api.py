@@ -36,6 +36,11 @@ built once per mesh device, its prepared params on that device; a padded
 bucket is split into equal row slices, each slice runs on its device, and
 the results are concatenated in order. The online calibration's rebuild
 swaps every replica at once.
+
+``predict_probs_async`` dispatches without waiting for the card (the
+inputs through pinned buffers, ``device.PinnedStager``), which the
+batching frontend (batching.py) pipelines on; ``export_artifact`` freezes
+the live engine into a serving artifact (artifact.py).
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ import torch
 from mcan_vqa_tpu_torch.configs import Config
 from mcan_vqa_tpu_torch.data import (load_answer_dict, pad_to_bucket,
                                      prep_request_inputs, topk_answers)
-from mcan_vqa_tpu_torch.device import resolve_device
+from mcan_vqa_tpu_torch.device import (PinnedStager, mark_ready,
+                                       resolve_device, to_host)
 from mcan_vqa_tpu_torch.models.net import MCANet
 from mcan_vqa_tpu_torch.ops.serving import (build_production_engine,
                                             calibrate_serving_scales,
@@ -170,6 +176,8 @@ class Predictor:
             self.devices = mesh.devices
         else:
             self.devices = (resolve_device(device),)
+        self.mesh = mesh
+        self._stager = PinnedStager()
         self.cfg = cfg
         self.engine = engine
         self.device = self.devices[0]
@@ -277,6 +285,11 @@ class Predictor:
     def routes(self) -> Dict[int, str]:
         """The live bucket -> engine table (every bucket "base")."""
         return dict(self._live[1])
+
+    @property
+    def img_feat_size(self) -> int:
+        """Per-region feature width F a request row must have."""
+        return int(self.cfg.img_feat_size)
 
     @property
     def act_scales(self) -> Optional[Dict[str, tuple]]:
@@ -468,9 +481,11 @@ class Predictor:
                        ) -> torch.Tensor:
         """One forward on an already padded batch -> probabilities
         [bucket, A] on the engine's (the mesh's first) device, not
-        synchronised. On a mesh each replica takes its equal row slice on
-        its device, the slices launched one after the other and
-        concatenated in order."""
+        synchronised: the inputs go to the card through pinned buffers
+        without blocking (``device.PinnedStager``). On a mesh each replica
+        takes its equal row slice on its device, the slices launched one
+        after the other and concatenated in order. inference_mode is per
+        thread, so it is entered here, on the dispatching thread."""
         live, routes = self._live
         replicas = live[routes[self.bucket_for(img.shape[0])]]
         if img.shape[0] % len(replicas):
@@ -482,8 +497,8 @@ class Predictor:
             for i, ((forward, params), dev) in enumerate(
                     zip(replicas, self.devices)):
                 sl = slice(i * rows, (i + 1) * rows)
-                img_t = torch.from_numpy(img[sl]).to(dev)
-                ques_t = torch.from_numpy(ques[sl]).to(dev)
+                img_t = self._stager.to_device(img[sl], dev)
+                ques_t = self._stager.to_device(ques[sl], dev)
                 out.append(torch.sigmoid(
                     forward(params, img_t, ques_t).float()))
             if len(out) == 1:
@@ -495,6 +510,18 @@ class Predictor:
         """questions: N strings; image_features: [N, R<=pad, F] or N
         per-image [R_i, F] arrays (zero rows are padding).
         Returns probabilities [N, answer_size]."""
+        return to_host(*self.predict_probs_async(questions, image_features))
+
+    def predict_probs_async(self, questions: Sequence[str], image_features
+                            ) -> Tuple[torch.Tensor, int]:
+        """Host prep and dispatch only (mcan_vqa_tpu/api.py:798) ->
+        (device_probs, n): the bucket's probabilities on the device, not
+        synchronised; the calibration rows are collected as by
+        ``predict_probs``. The caller
+        prepares and dispatches the next batch while the card computes
+        this one (the batching frontend pipelines on it);
+        ``device.to_host(device_probs, n)`` waits for this forward alone
+        and gives what ``predict_probs`` returns."""
         n = len(questions)
         if not 0 < n <= self.max_batch:
             raise ValueError(f"batch of {n} outside (0, {self.max_batch}]")
@@ -502,7 +529,18 @@ class Predictor:
         if self._cal_state == "collecting":
             self._collect_calibration(ques, img)
         img, ques = pad_to_bucket(img, ques, self.bucket_for(n))
-        return self.forward_padded(img, ques)[:n].cpu().numpy()
+        return mark_ready(self.forward_padded(img, ques)), n
+
+    def export_artifact(self, path: str) -> None:
+        """Freeze the engine live at the time of the call into a serving
+        artifact directory (artifact.py: one ``torch.export`` program per
+        bucket, the weights once, vocabulary and answers), which
+        ``artifact.load_artifact`` serves without the model code. Export
+        after the online calibration swap (``wait_calibrated()`` /
+        ``calibrate_now()``) to ship the calibrated engine. A mesh
+        Predictor is refused."""
+        from mcan_vqa_tpu_torch.artifact import save_artifact
+        save_artifact(self, path)
 
     def answer(self, questions: Sequence[str],
                image_features) -> List[Tuple[str, float]]:

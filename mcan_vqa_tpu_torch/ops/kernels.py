@@ -34,6 +34,12 @@ its plain version; on a CUDA tensor it launches its kernel, or raises if
 the kernel does not take the arguments. There is no fallback from one to
 the other.
 
+While ``torch.export`` traces (``exporting()``), the serving wrappers
+(gemm_bias_act, gemm_ln, quantize_rows, gemm_s8, gemm_s4, gemm_w4bf16,
+masked_attention, residual_layernorm, attflat_pool) call their
+``torch.ops.mcan.*`` op instead (ops/library.py), whose implementation is
+the wrapper itself; the live engines never do.
+
 Each launch adds one to ``LAUNCHES[<wrapper name>]`` (the f32-output
 attention to ``LAUNCHES["masked_attention_f32"]``), and nothing else does,
 so a run can show that its main path went through the kernels
@@ -97,6 +103,32 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def exporting() -> bool:
+    """True while ``torch.export`` traces a forward: the serving wrappers
+    then turn to their ``torch.ops.mcan.*`` ops (ops/library.py), whose
+    implementation is the wrapper again, and the blocks take their kernel
+    route on either device."""
+    return torch.compiler.is_exporting()
+
+
+def _ops():
+    from mcan_vqa_tpu_torch.ops import library
+    return library
+
+
+def kernel_route(t: torch.Tensor) -> bool:
+    """Whether a block function runs its kernels' wrappers (on a CUDA
+    tensor, and while exporting on either device) or its plain version."""
+    return exporting() or on_cuda(t)
+
+
+def count_block(name: str) -> None:
+    """One launch of a block function, counted where the block runs live:
+    a trace runs it once, whatever the exported program runs later."""
+    if not exporting():
+        LAUNCHES[name] += 1
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -744,6 +776,10 @@ def gemm_bias_act(a: torch.Tensor, w: torch.Tensor,
     """a [M, K] bf16 . w [K, N] bf16 + bias [N] f32, then ReLU, then the
     dropout keep-mask [M, N] or its Philox source (x inv_keep) -> [M, N]
     in out_dtype (f32 or bf16), accumulated in f32 and rounded once."""
+    if exporting():
+        return _ops().gemm_bias_act(a, w, bias, relu=relu,
+                                    out_dtype=out_dtype, mask=mask,
+                                    inv_keep=inv_keep)
     if not on_cuda(a):
         return gemm_bias_act_plain(a, w, bias, relu=relu,
                                    out_dtype=out_dtype, mask=mask,
@@ -935,6 +971,8 @@ def gemm_ln(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     any M (``_proj_ln_kernel`` / the second half of ``_ffn_ln_kernel``,
     mcan_vqa_tpu/ops/fused_ffn.py:59 / :46). On the card, ``gemm_ln_plan``'s
     clusters."""
+    if exporting():
+        return _ops().gemm_ln(a, w, bias, res, gamma, beta)
     if not on_cuda(a):
         return gemm_ln_plain(a, w, bias, res, gamma, beta)
     name = "gemm_ln"
@@ -997,6 +1035,8 @@ def quantize_rows(x: torch.Tensor, inv_a: Optional[float] = None
     clip(round(x * inv_a), -127, 127) with inv_a = 1 / a rounded to f32
     (``_qdot_static``, quant.py:275); no scales. Rounding is half to even.
     The kernel gives the plain version's codes and scales bit for bit."""
+    if exporting():
+        return _ops().quantize_rows(x, inv_a)
     if not on_cuda(x):
         return quantize_rows_plain(x, inv_a)
     name = "quantize_rows"
@@ -1068,6 +1108,9 @@ def gemm_s8(aq: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     with the plan of ``gemm_plan``. Pass exactly one of sx and a. K must
     be a multiple of 16; any M and N. A weight stored otherwise raises: it
     is never transposed per call."""
+    if exporting():
+        return _ops().gemm_s8(aq, wq, sw, bias, sx=sx, a=a, relu=relu,
+                              out_dtypes=out_dtypes)
     if not on_cuda(aq):
         return gemm_s8_plain(aq, wq, sw, bias, sx=sx, a=a, relu=relu,
                              out_dtypes=out_dtypes)
@@ -1229,6 +1272,9 @@ def gemm_s4(aq: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
     kernel reads the weight packed and gives the plain version's bits. A
     packed weight stored otherwise raises: it is never transposed per
     call."""
+    if exporting():
+        return _ops().gemm_s4(aq, wp, s4, bias, a=a, relu=relu,
+                              out_dtypes=out_dtypes)
     if not on_cuda(aq):
         return gemm_s4_plain(aq, wp, s4, bias, a=a, relu=relu,
                              out_dtypes=out_dtypes)
@@ -1282,6 +1328,9 @@ def gemm_w4bf16(x: torch.Tensor, wp: torch.Tensor, s4: torch.Tensor,
     plain version's bits; the sums run in another order, so the two agree
     within ``gemm_bias_act``'s tolerance. A packed weight stored otherwise
     raises."""
+    if exporting():
+        return _ops().gemm_w4bf16(x, wp, s4, bias, relu=relu,
+                                  out_dtype=out_dtype)
     if not on_cuda(x):
         return gemm_w4bf16_plain(x, wp, s4, bias, relu=relu,
                                  out_dtype=out_dtype)
@@ -1544,6 +1593,9 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out_dtype (bf16, or f32 for a merge that quantizes it to int8 and for
     the stand-alone attention), the layout the merge projection takes.
     On the card: csrc/masked_attention.cu with ``attention_plan``."""
+    if exporting():
+        return _ops().masked_attention(q, k, v, key_pad, drop, inv_keep,
+                                       out_dtype=out_dtype)
     if not on_cuda(q):
         return masked_attention_plain(q, k, v, key_pad, drop, inv_keep,
                                       out_dtype)
@@ -1700,6 +1752,11 @@ def residual_layernorm(res: torch.Tensor, y: torch.Tensor,
     tensor per entry of out_dtypes (each f32 or bf16), shaped like res,
     then r (in r_dtype, f32 or bf16) when save_r. reciprocal: the train
     kernels' rounding (``std_layer_norm``)."""
+    if exporting():
+        return _ops().residual_layernorm(
+            res, y, bias, gamma, beta, out_dtypes, mask=mask,
+            inv_keep=inv_keep, save_r=save_r, reciprocal=reciprocal,
+            r_dtype=r_dtype)
     if not on_cuda(res):
         return residual_layernorm_plain(res, y, bias, gamma, beta, out_dtypes,
                                         mask=mask, inv_keep=inv_keep,
@@ -1990,6 +2047,8 @@ def attflat_pool(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     b2 + PAD * -1e9 (summed in f32), att the softmax over L in f32, pooled
     = bf16(att)^T . bf16(x) summed in f32 and rounded to bf16. On the card,
     ``attflat_plan``'s clusters of CTAs a sample."""
+    if exporting():
+        return _ops().attflat_pool(h, w2, b2, mask, x)
     if not on_cuda(x):
         return attflat_pool_plain(h, w2, b2, mask, x)
     name = "attflat_pool"

@@ -32,7 +32,9 @@ levels 6/7, the bf16 ``gemm_bias_act`` at the others, ``masked_attention``
 and ``residual_layernorm``). Each CUDA block call adds one to
 ``kernels.LAUNCHES["fused_qffn_sa_block" / "fused_qffn_sga_block" /
 "fused_quant_sa_block" / "fused_quant_sga_block"]``, and a qffn block at an
-int4 level also to ``"<name>_level<4-7>"``.
+int4 level also to ``"<name>_level<4-7>"``. While ``torch.export`` traces
+a block (artifact.py) it runs the CUDA set on either device, whose wrappers
+then become ``torch.ops.mcan.*`` ops, and counts nothing.
 
 Precision path, that of the TPU kernels: the FFN input is quantized from
 the f32 LayerNorm output; h1 = relu(int8 dot) stays f32 and is quantized
@@ -723,10 +725,10 @@ def fused_qffn_sga_block_plain(v, kq, vq, v_mask, q_mask, wp, qf, *,
 
 
 def _count(name: str, qf, dq: bool) -> None:
-    kernels.LAUNCHES[name] += 1
+    kernels.count_block(name)
     level = _int4_level(qf, dq)
     if level:
-        kernels.LAUNCHES[f"{name}_level{level}"] += 1
+        kernels.count_block(f"{name}_level{level}")
 
 
 def fused_qffn_sa_block(x: torch.Tensor, x_mask: torch.Tensor,
@@ -739,7 +741,7 @@ def fused_qffn_sa_block(x: torch.Tensor, x_mask: torch.Tensor,
     (``prepare_qffn_params``). w4dq: the int4 sites run the bf16-dequant
     compute (levels 6/7). Returns [B, L, D] in x's dtype."""
     args = _qffn_args(qf, act_scales, "wm_q", 4, w4dq)
-    if not kernels.on_cuda(x):
+    if not kernels.kernel_route(x):
         return _sa_body(_PLAIN, x, x_mask, wp, qf, num_heads, *args)
     _check_stream("fused_qffn_sa_block", x)
     out = _sa_body(_CUDA, x, x_mask, wp, qf, num_heads, *args)
@@ -759,7 +761,7 @@ def fused_qffn_sga_block(v: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     ``prepare_sga_block_params``, qf from ``prepare_qffn_params``, w4dq as
     for the SA block. Returns [B, Lv, D] in v's dtype."""
     args = _qffn_args(qf, act_scales, "wm1_q", 6, w4dq)
-    if not kernels.on_cuda(v):
+    if not kernels.kernel_route(v):
         return _sga_body(_PLAIN, v, kq, vq, v_mask, q_mask, wp, qf,
                          num_heads, *args)
     _check_stream("fused_qffn_sga_block", v)
@@ -818,11 +820,11 @@ def fused_quant_sa_block(x: torch.Tensor, x_mask: torch.Tensor,
     q/k/v and the probabilities bf16, the attention output f32 into its
     merge (``_qsa_kernel``, quant.py:464). Returns [B, L, D] f32."""
     _check_f32_stream("fused_quant_sa_block", x)
-    if not kernels.on_cuda(x):
+    if not kernels.kernel_route(x):
         return fused_quant_sa_block_plain(x, x_mask, mk, num_heads=num_heads)
     blk = _relabel(mk, _QSA_KEYS)
     out = _sa_body(_CUDA, x, x_mask, blk, blk, num_heads, *_DYNAMIC)
-    kernels.LAUNCHES["fused_quant_sa_block"] += 1
+    kernels.count_block("fused_quant_sa_block")
     return out
 
 
@@ -837,11 +839,11 @@ def fused_quant_sga_block(v: torch.Tensor, kq: torch.Tensor,
     ``prepare_quant_sga_params``; every site dynamic int8 (``_qsga_kernel``,
     quant.py:391). Returns [B, Lv, D] f32."""
     _check_f32_stream("fused_quant_sga_block", v)
-    if not kernels.on_cuda(v):
+    if not kernels.kernel_route(v):
         return fused_quant_sga_block_plain(v, kq, vq, v_mask, q_mask, mk,
                                            num_heads=num_heads)
     blk = _relabel(mk, _QSGA_KEYS)
     out = _sga_body(_CUDA, v, kq, vq, v_mask, q_mask, blk, blk, num_heads,
                     *_DYNAMIC)
-    kernels.LAUNCHES["fused_quant_sga_block"] += 1
+    kernels.count_block("fused_quant_sga_block")
     return out

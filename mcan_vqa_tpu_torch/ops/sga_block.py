@@ -26,7 +26,9 @@ is).
 
 Each block function dispatches on the stream's device: CPU runs the plain
 PyTorch version, CUDA runs the kernels and adds one to the block's launch
-count (ops/kernels.py ``LAUNCHES``).
+count (ops/kernels.py ``LAUNCHES``). While ``torch.export`` traces it,
+it runs the kernels' wrappers on either device (they become
+``torch.ops.mcan.*`` ops) and counts nothing.
 
 ``fused_sga_block(fused_proj=False)`` is the JAX engine's mode 1
 (``_sga_kernel``, sga_block.py:153, called at :392): the same block over
@@ -319,11 +321,11 @@ def fused_sa_block(x: torch.Tensor, x_mask: torch.Tensor,
     """One whole SA encoder block. x [B, L, D] (bf16 or f32 stream),
     x_mask bool [B, 1, 1, L] (True = PAD), wp from prepare_sa_block_params.
     Returns [B, L, D] in x's dtype."""
-    if not kernels.on_cuda(x):
+    if not kernels.kernel_route(x):
         return fused_sa_block_plain(x, x_mask, wp, num_heads=num_heads)
     _check_stream("fused_sa_block", x)
     out = _sa_block(_CUDA, x, x_mask, wp, num_heads)
-    kernels.LAUNCHES["fused_sa_block"] += 1
+    kernels.count_block("fused_sa_block")
     return out
 
 
@@ -338,15 +340,15 @@ def fused_sga_block(v: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     the port's per-block engine) reads the fused entries, mode 2; False the
     head-major ones, mode 1 (JAX's default). group: the TPU kernels'
     packing group, accepted and without effect."""
-    if not kernels.on_cuda(v):
+    if not kernels.kernel_route(v):
         return fused_sga_block_plain(v, kq, vq, v_mask, q_mask, wp,
                                      num_heads=num_heads,
                                      fused_proj=fused_proj)
     _check_stream("fused_sga_block", v)
     out = _sga_block(_CUDA, v, kq, vq, v_mask, q_mask, wp, num_heads,
                      head_major=not fused_proj)
-    kernels.LAUNCHES["fused_sga_block" if fused_proj
-                     else "fused_sga_block_head_major"] += 1
+    kernels.count_block("fused_sga_block" if fused_proj
+                        else "fused_sga_block_head_major")
     return out
 
 

@@ -69,6 +69,11 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/parallel/__init__.py",
                      "mcan_vqa_tpu_torch/parallel/mesh.py",
                      "mcan_vqa_tpu_torch/parallel/sharding.py",
+                     "mcan_vqa_tpu_torch/artifact.py",
+                     "mcan_vqa_tpu_torch/batching.py",
+                     "mcan_vqa_tpu_torch/ops/library.py",
+                     "mcan_vqa_tpu_torch/cli/serve.py",
+                     "mcan_vqa_tpu_torch/cli/bench_serve_http.py",
                      "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
@@ -121,6 +126,10 @@ def test_port_loads_no_jax_module():
             "import mcan_vqa_tpu_torch.cli.run_mimic\n"
             "import mcan_vqa_tpu_torch.cli.sweep\n"
             "import mcan_vqa_tpu_torch.parallel\n"
+            "import mcan_vqa_tpu_torch.artifact, mcan_vqa_tpu_torch.batching\n"
+            "import mcan_vqa_tpu_torch.ops.library\n"
+            "import mcan_vqa_tpu_torch.cli.serve\n"
+            "import mcan_vqa_tpu_torch.cli.bench_serve_http\n"
             "new = set(sys.modules) - before\n"
             f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"
