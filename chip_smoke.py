@@ -48,8 +48,10 @@ Builds the port's CUDA kernels from the checkout's sources, then:
              bf16_saves, each against the same block in plain ops
              differentiated by autograd, at full width with fully padded
              samples; the times of each piece with external masks and
-             seeded (in-kernel dropout);
-  [prng]     in-kernel dropout: the CUDA Philox4x32-10 against its plain
+             seeded (in-kernel dropout): ``check_train_block`` of
+             ``cli/validate_inkernel_dw.py``, which also runs alone;
+  [prng]     (``check_prng`` of ``cli/validate_prng_dropout.py``, which
+             also runs alone) in-kernel dropout: the CUDA Philox4x32-10 against its plain
              version on 2 M words and the mask dump against its plain
              version, bit for bit (the SGA block at MCAN-small and
              MCAN-large shapes, the SA block, and the plan's edges: rows
@@ -166,6 +168,23 @@ Builds the port's CUDA kernels from the checkout's sources, then:
   [checkpoint]  the epoch checkpoint served by
              ``Predictor.from_checkpoint(engine="fused", act_scales=False)``
              (int8 level 1, its stored scales declined);
+  [visualize]  ``run_vqa --run visualize``'s forward: [train]'s epoch
+             pickle warm-started into a Trainer over a miniature VQA-v2
+             val set in its own formats (8 questions, its own vocabulary),
+             ``utils/visualize.visualization_outputs`` on the card against
+             the same weights' ``forward_outputs`` on the CPU: with f32
+             operands all eight keys within 1e-3 + 1e-3 |ref| elementwise
+             (masks exactly); with bf16 operands each key's error printed,
+             the probabilities within 1e-2; in both ``calc_mats_v2``'s
+             top-7 regions the same (or swapped within 1e-5 / 1e-3 of
+             v_w, a few times the v_w error read); whether matplotlib is
+             installed on its own line, and the sheets rendered where it
+             is;
+  [stacked]  ``stacked_params="on"``: two Trainers of MCAN-small from the
+             same weights and seed, standard and stacked layout, 3 seeded
+             B=64 steps each: every weight and AdamW moment bit for bit,
+             the same exact launches; the stacked run's pickle resumed by
+             a standard Trainer: weights and moments equal;
   [lifecycle]  the checkpoint lifecycle at MCAN-small's full width, batch
              64, 256 synthetic samples, dropout 0.1 in the kernels:
              ``run_vqa --run train`` for 2 epochs (run U), for 1 epoch
@@ -310,29 +329,30 @@ from pathlib import Path
 
 import numpy as np
 
-SEED = 0
+try:    # the port's package beside this file (main() checks where from)
+    from mcan_vqa_tpu_torch.cli.card_check import (
+        BATCH, HBM, LARGE_STEP, PRNG_SEED, SEED, SRC, STEP, TPU_TRAIN, Rows,
+        bound_parts, cuda_ms, device_ms, fail, gate, max_err, pad_mask,
+        plain_path, say)
+    from mcan_vqa_tpu_torch.cli.validate_inkernel_dw import (
+        block_vs_plain, check_train_block, sa_block_inputs,
+        train_block_inputs)
+    from mcan_vqa_tpu_torch.cli.validate_prng_dropout import (
+        check_prng, seeded_vs_dump)
+except ImportError as e:
+    print(f"FAIL: the port package is not beside chip_smoke.py ({e})",
+          file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
 ROOT = Path(__file__).resolve().parent
-BATCH = 64                      # the max_batch bucket and the train batch
 LATENCY_BUCKETS = (1, 8)
 TRAIN_STEPS = 10
 LARGE_STEPS = 4
 ROUNDS = 5                      # turns of every engine in [forward]
-SRC = "mcan_vqa_tpu_torch/csrc/"
 TPU = "mcan_vqa_tpu/ops/sga_block.py"
-TPU_TRAIN = "mcan_vqa_tpu/ops/sga_train.py"
-TPU_SA_TRAIN = "mcan_vqa_tpu/ops/sa_train.py"
 TPU_QUANT = "mcan_vqa_tpu/ops/quant.py"
-# published peaks of one H100 SXM (the bound_ms of every kernel row)
-PEAK_BF16 = 989e12              # FLOP/s, dense, tensor cores
-PEAK_F32 = 67e12                # FLOP/s, outside the tensor cores
-PEAK_INT8 = 1979e12             # OP/s, dense, tensor cores
-# OP/s, 32-bit integer: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
-# x 132 SMs x the 1.98 GHz boost clock behind PEAK_F32
-PEAK_INT32 = 132 * 64 * 1.98e9
-HBM = 3.35e12                   # bytes/s
 SERVE = "one B=64 serving forward"
-STEP = "one B=64 train step"
-LARGE_STEP = "one B=64 MCAN-large train step (2 micro-batches of 32)"
 BOTH = SERVE + " + " + STEP
 SERVE_INT8 = "one B=64 level-1 + one B=64 level-3 serving forward"
 # max |dprob| of the int8 engines against the plain engine (f32 stream):
@@ -353,28 +373,6 @@ INT8_BOUND = 2e-2
 INT4_BOUND = 4e-2
 SERVE_W4 = "one B=1 + one B=64 level-5 serving forward"
 SERVE_W7 = "one B=1 + one B=64 level-7 serving forward"
-PRNG_SEED = 1234567             # the in-kernel dropout's seed in the checks
-# the integer operations of one Philox4x32-10 counter (ten rounds of two
-# 32 x 32 -> 64-bit products and two three-input XORs) and of the dump's
-# four compares; the key schedule (a row's) is not counted
-PHILOX_OPS, KEEP_OPS = 40, 4
-# the seeded (in-kernel dropout) pieces: row, the TPU kernel body, unit
-PRNG_ROWS = (
-    ("sga_train_fwd_prng", TPU_TRAIN + ":507", STEP),
-    ("sga_train_bwd_ffn_prng", TPU_TRAIN + ":617", STEP),
-    ("sga_train_bwd_att_prng", TPU_TRAIN + ":812", STEP),
-    ("sa_train_fwd_prng", TPU_SA_TRAIN + ":179", STEP),
-    ("sa_train_bwd_prng", TPU_SA_TRAIN + ":314", STEP),
-    ("sga_train_bwd_att_sav_prng", TPU_TRAIN + ":1202", LARGE_STEP))
-
-
-def fail(msg: str) -> None:
-    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
-    sys.exit(1)
-
-
-def say(msg: str) -> None:
-    print(msg, flush=True)
 
 
 def main() -> None:
@@ -482,6 +480,10 @@ def main() -> None:
         check_repeated_batch(torch, trainer)
         del trainer
         phase_done("train")
+        visualize_path(torch, dev, work / "visualize", vqa_ckpt)
+        phase_done("visualize")
+        stacked_path(torch, dev, rows, work / "stacked")
+        phase_done("stacked")
         lifecycle_path(torch, dev, rows, work / "lifecycle", card)
         phase_done("lifecycle")
         eval_main_path(torch, dev, rows, work / "eval", card)
@@ -513,151 +515,6 @@ def main() -> None:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
-
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean time of fn() in ms, by CUDA events over `iters` eager calls:
-    what a caller waits for, host issue time included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms: `iters` calls captured in one CUDA
-    graph and replayed, so the host's time to issue each launch (tens of
-    microseconds of Python per wrapper call, more than a small kernel
-    runs) stays out of the number."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
-def gate(name: str, err: float, tol: float) -> None:
-    ok = err <= tol and err == err
-    say(f"  {name}: max|err| {err:.3e} <= tol {tol:.3e} "
-        f"{'ok' if ok else 'FAILED'}")
-    if not ok:
-        fail(f"{name}: max|err| {err} over tolerance {tol}")
-
-
-def pad_mask(torch, B: int, L: int, lengths, dev):
-    """bool [B, 1, 1, L], True past each sample's length (0 = all PAD)."""
-    idx = torch.arange(L, device=dev)
-    lens = torch.tensor(lengths, device=dev)
-    return (idx[None, :] >= lens[:, None])[:, None, None, :]
-
-
-def bound_parts(flops: float, nbytes: float, tensor: bool = True,
-                int8_ops: float = 0.0, int_ops: float = 0.0):
-    """(ms at the peak operation rates, ms at the memory rate): the least
-    time for `flops` operations of their type (bf16 on the tensor cores,
-    else f32) plus `int8_ops` int8 tensor-core operations and `int_ops`
-    32-bit integer operations, and `nbytes` moved, each input read once
-    and each output written once."""
-    return ((flops / (PEAK_BF16 if tensor else PEAK_F32)
-             + int8_ops / PEAK_INT8 + int_ops / PEAK_INT32) * 1e3,
-            nbytes / HBM * 1e3)
-
-
-class Rows:
-    """The kernels' JSON record: per kernel, its launches on the main paths
-    and, for the work of one unit of them (``per``), its device time, its
-    plain version's, one library call's, and its bound with the operations
-    and bytes it counts."""
-
-    def __init__(self):
-        self.rows = {}
-        self.order = []
-
-    def row(self, name, source, replaces, per):
-        if name not in self.rows:
-            self.order.append(name)
-            self.rows[name] = dict(
-                name=name, route="cuda", source=source, replaces=replaces,
-                launches=0, launches_by_path={}, max_abs_err=0.0, ms=0.0,
-                plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None,
-                per=per, flops=0, bytes=0, _op=0.0, _bytes=0.0, _timed=0,
-                _lib=0)
-        return self.rows[name]
-
-    def add(self, name, n, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
-            library_ms=None, tensor=True, int8_ops=0.0, int_ops=0.0):
-        """n calls of one shape per unit: their times and bounds."""
-        r = self.rows[name]
-        op, by = bound_parts(flops, nbytes, tensor, int8_ops, int_ops)
-        r["ms"] += n * ms
-        r["plain_ms"] += n * plain_ms
-        r["bound_ms"] += n * max(op, by)
-        r["flops"] += n * int(flops + int8_ops + int_ops)
-        r["bytes"] += n * int(nbytes)
-        r["_op"] += n * op
-        r["_bytes"] += n * by
-        r["_timed"] += n if ms else 0
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + n * library_ms
-            r["_lib"] += n
-
-    def unmeasured(self, name):
-        """A library call computes the row's function, but a case of it
-        went untimed: the row's library_ms is null."""
-        self.rows[name]["_unmeasured"] = True
-
-    def err(self, name, e):
-        self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"],
-                                             float(e))
-
-    def launches(self, path, counts, names, key=None):
-        """Each row's launches on one main path: counts[name], or
-        counts[key[name]] where the row stands for one instantiation of a
-        wrapper (the Dh = 128 attention on the MCAN-large path)."""
-        for name in names:
-            r = self.rows[name]
-            r["launches_by_path"][path] = counts.get(
-                name if key is None else key[name], 0)
-            r["launches"] = sum(r["launches_by_path"].values())
-
-    def record(self):
-        out = []
-        for name in self.order:
-            r = dict(self.rows[name])
-            timed, lib = r.pop("_timed"), r.pop("_lib")
-            if 0 < lib != timed:
-                say(f"[rows] {name}: the library call was timed for {lib} "
-                    f"of the {timed} calls per unit: library_ms null")
-            if r.pop("_unmeasured", False) or 0 < lib != timed:
-                r["library_ms"] = None
-            r["bound_by"] = "operations" if r.pop("_op") >= r.pop("_bytes") \
-                else "bytes"
-            out.append(r)
-        return out
 
 
 def plan_note(K, layout, M, N, Kd) -> str:
@@ -2390,601 +2247,6 @@ def check_int4_blocks(torch, dev, state_dict, cfg, rows) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase (b): the SGA train block against the same block in plain ops,
-# differentiated by autograd
-# ---------------------------------------------------------------------------
-
-def train_block_inputs(torch, dev, B, Lv=60, Lq=14, D=512, F=2048,
-                       H=8):
-    """Random weights of LN-scale activations (std 0.05 at D = 512, scaled
-    by sqrt(512 / D) so that every product's outputs keep that spread at
-    another width), ragged pads with fully padded image and question
-    samples, the six masks at rate 0.1."""
-    from mcan_vqa_tpu_torch.ops import sga_train as st
-    g = torch.Generator(device=dev).manual_seed(SEED + 21)
-    s0 = 0.05 * (512 / D) ** 0.5
-
-    def mat(*shape, s=s0):
-        return torch.randn(*shape, generator=g, device=dev) * s
-
-    w = {"wqkv": mat(D, 3 * D), "bqkv": mat(3 * D), "wm1": mat(D, D),
-         "bm1": mat(D), "ln1_s": 1 + mat(D), "ln1_b": mat(D),
-         "wq2": mat(D, D), "bq2": mat(D), "wm2": mat(D, D), "bm2": mat(D),
-         "ln2_s": 1 + mat(D), "ln2_b": mat(D), "w1": mat(D, F),
-         "b1": mat(F), "w2": mat(F, D), "b2": mat(D), "ln3_s": 1 + mat(D),
-         "ln3_b": mat(D)}
-    x = torch.randn(B, Lv, D, generator=g, device=dev)
-    kq = torch.randn(B, H, Lq, D // H, generator=g, device=dev)
-    vq = torch.randn(B, H, Lq, D // H, generator=g, device=dev)
-    v_mask = pad_mask(torch, B, Lv, [(i * 17) % (Lv + 1) for i in range(B)],
-                      dev)
-    q_mask = pad_mask(torch, B, Lq, [(i * 5) % (Lq + 1) for i in range(B)],
-                      dev)
-    masks, inv = st.make_dropout_masks(g, 0.1, B, Lv, Lq, D, F, H)
-    probe = torch.randn(B, Lv, D, generator=g, device=dev)
-    return x, kq, vq, v_mask, q_mask, masks, w, inv, probe
-
-
-def sa_block_inputs(torch, dev, B, L=14, D=512, F=2048, H=8):
-    """The SA block's weights drawn as ``train_block_inputs`` draws them,
-    the 14-token question stream with all-PAD questions among ragged
-    ones, the four masks at rate 0.1."""
-    from mcan_vqa_tpu_torch.ops import sa_train as sa
-    g = torch.Generator(device=dev).manual_seed(SEED + 22)
-
-    def mat(*shape, s=0.05):
-        return torch.randn(*shape, generator=g, device=dev) * s
-
-    w = {"wqkv": mat(D, 3 * D), "bqkv": mat(3 * D), "wm": mat(D, D),
-         "bm": mat(D), "ln1_s": 1 + mat(D), "ln1_b": mat(D),
-         "w1": mat(D, F), "b1": mat(F), "w2": mat(F, D), "b2": mat(D),
-         "ln2_s": 1 + mat(D), "ln2_b": mat(D)}
-    x = torch.randn(B, L, D, generator=g, device=dev)
-    mask = pad_mask(torch, B, L, [(i * 5) % (L + 1) for i in range(B)], dev)
-    masks, inv = sa.make_sa_dropout_masks(g, 0.1, B, L, D, F, H)
-    probe = torch.randn(B, L, D, generator=g, device=dev)
-    return x, mask, masks, w, inv, probe
-
-
-def block_vs_plain(torch, label, fused, plain, leaves, w, names, probe,
-                   call, rows, row_of, leaf_names):
-    """The kernel block and its plain twin under autograd from the same
-    leaves: gates the output and every gradient, then checks that two runs
-    of the kernel block give the same bits.
-
-    Tolerances: every kernel matches its plain version call by call
-    ([kernels]); composed over a block, sums in another order move bf16
-    roundings and ReLU gates, which the LayerNorm and softmax backwards
-    carry on: the output within the serving block tolerance (6e-2), every
-    gradient within 3e-2 in relative norm and within 1e-1 of its max|ref|
-    elementwise (the 3e-2 max|ref| gate of tests/test_sga_train.py holds
-    on the CPU, where both sides sum in one order)."""
-    def run(block):
-        ls = [t.clone().requires_grad_() for t in leaves]
-        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
-        out = call(block, ls, ws)
-        (out * probe).sum().backward()
-        return out.detach(), [t.grad for t in ls] + [ws[n].grad
-                                                     for n in names]
-
-    out, grads = run(fused)
-    ref, rgrads = run(plain)
-    torch.cuda.synchronize()
-    e_fwd = max_err(out, ref)
-    gate(f"{label} output", e_fwd, 6e-2)
-    rows.err(row_of(None), e_fwd)
-    for name, a, b in zip(leaf_names + tuple(names), grads, rgrads):
-        rel = float((a - b).norm() / b.norm())
-        scaled = max_err(a, b) / (float(b.abs().max()) + 1e-12)
-        rows.err(row_of(name), max_err(a, b))
-        ok = rel <= 3e-2 and scaled <= 1e-1
-        say(f"  d{name}: |err|/|ref| {rel:.3e} <= 3e-2, max|err|/max|ref| "
-            f"{scaled:.3e} <= 1e-1 {'ok' if ok else 'FAILED'}")
-        if not ok:
-            fail(f"{label}: gradient {name} disagrees")
-    out2, grads2 = run(fused)
-    if not (torch.equal(out, out2)
-            and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
-        fail(f"{label}: two runs of the kernels differ")
-    say(f"  two runs of the kernel block: the output and all {len(grads)} "
-        f"gradients equal bit for bit")
-
-
-def plain_path(K, fn):
-    """fn with every wrapper forced onto its plain version (the wrappers'
-    CPU path on the card's tensors)."""
-    def run_plain():
-        on_cuda = K.on_cuda
-        K.on_cuda = lambda t: False
-        try:
-            return fn()
-        finally:
-            K.on_cuda = on_cuda
-    return run_plain
-
-
-def check_train_block(torch, dev, rows) -> None:
-    from mcan_vqa_tpu_torch.ops import kernels as K
-    from mcan_vqa_tpu_torch.ops import sa_train as sa
-    from mcan_vqa_tpu_torch.ops import sga_train as st
-    B, Lv, Lq, D, F, H = BATCH, 60, 14, 512, 2048, 8
-    M = B * Lv
-    rows.row("sga_train_fwd", "mcan_vqa_tpu_torch/ops/sga_train.py",
-             TPU_TRAIN + ":977", STEP)
-    rows.row("sga_train_bwd_ffn", "mcan_vqa_tpu_torch/ops/sga_train.py",
-             TPU_TRAIN + ":1081", STEP)
-    rows.row("sga_train_bwd_att", "mcan_vqa_tpu_torch/ops/sga_train.py",
-             TPU_TRAIN + ":1139", STEP)
-    rows.row("sa_train_fwd", "mcan_vqa_tpu_torch/ops/sa_train.py",
-             TPU_SA_TRAIN + ":389", STEP)
-    rows.row("sa_train_bwd", "mcan_vqa_tpu_torch/ops/sa_train.py",
-             TPU_SA_TRAIN + ":487", STEP)
-    rows.row("sga_train_bwd_att_sav", "mcan_vqa_tpu_torch/ops/sga_train.py",
-             TPU_TRAIN + ":1272", LARGE_STEP)
-    prng_rows(rows)
-    ffn_grads = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
-
-    say("[train block] fused_sga_block_train (the kernels) vs "
-        "fused_sga_block_train_plain (plain ops, autograd): MCAN-small, "
-        f"B={B}, rate 0.1, samples with no regions and with an all-PAD "
-        "question")
-    x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(torch, dev,
-                                                                 B=B)
-    block_vs_plain(
-        torch, "SGA train block", st.fused_sga_block_train,
-        st.fused_sga_block_train_plain, (x, kq, vq), w, st.WEIGHT_NAMES,
-        probe, lambda blk, ls, ws: blk(*ls, vm, qm, masks, ws, num_heads=H,
-                                       inv_keep=inv), rows,
-        lambda n: "sga_train_fwd" if n is None else "sga_train_bwd_ffn"
-        if n in ffn_grads else "sga_train_bwd_att", ("x", "kq", "vq"))
-
-    # times of the three pieces, each the sequence of kernels against the
-    # same sequence of plain versions (the wrappers' CPU path, forced)
-    wk = st._kernel_weights([w[n] for n in st.WEIGHT_NAMES])
-    xs = x.contiguous()
-    v3, saves = st._forward(xs, kq, vq, vm, qm, masks, wk, inv, H)
-    gflat = probe.reshape(M, D).contiguous()
-    gv2 = st._bwd_ffn(gflat, saves, masks, wk, inv)[0]
-    pieces = {
-        "sga_train_fwd": lambda: st._forward(xs, kq, vq, vm, qm, masks, wk,
-                                             inv, H),
-        "sga_train_bwd_ffn": lambda: st._bwd_ffn(gflat, saves, masks, wk,
-                                                 inv),
-        "sga_train_bwd_att": lambda: st._bwd_att(gv2, xs, kq, vq, vm, qm,
-                                                 saves, masks, wk, inv, H)}
-    # bytes: inputs read once, outputs written once; operations: every
-    # product the TPU kernel runs (recomputes included)
-    Wmats = 2 * (3 * D * D + 3 * D * D + 2 * D * F)
-    mask_b = B * H * Lv * (Lv + Lq) + 3 * M * D + M * F
-    att_f = 4 * B * H * Lv * (Lv + Lq) * 64
-    fwd_f = 2 * M * D * (3 * D + 3 * D + 2 * F) + att_f
-    work = {
-        "sga_train_fwd": (
-            fwd_f, 4 * M * D + 8 * B * H * Lq * 64 + Wmats + mask_b
-            + B * (Lv + Lq) + 4 * M * D * 4 + 2 * M * F),
-        "sga_train_bwd_ffn": (
-            8 * M * D * F, 4 * M * D * 4 + 2 * M * F + 4 * D * F + M * D
-            + 4 * (2 * D * F + F + 3 * D)),
-        "sga_train_bwd_att": (
-            2 * M * D * 6 * D + att_f + 2 * M * D * 6 * D
-            + 10 * B * H * Lv * (Lv + Lq) * 64 + 2 * M * D * 6 * D,
-            4 * M * D * 4 + 8 * B * H * Lq * 64 * 2 + 2 * 6 * D * D
-            + mask_b - M * F - M * D + 4 * 6 * D * D + 4 * 12 * D)}
-    time_pieces(torch, K, rows, pieces, work, 6)
-    # the seeded pieces (in-kernel dropout): the same kernels drawing each
-    # site's bits from Philox, so the same work without the mask bytes
-    ps, pinv = st.prng_sites(PRNG_SEED, 0.1, Lv)
-    _, psaves = st._forward(xs, kq, vq, vm, qm, ps, wk, pinv, H)
-    pgv2 = st._bwd_ffn(gflat, psaves, ps, wk, pinv)[0]
-    no_mask = {"sga_train_fwd": mask_b, "sga_train_bwd_ffn": M * D,
-               "sga_train_bwd_att": mask_b - M * F - M * D}
-    time_pieces(torch, K, rows, {
-        "sga_train_fwd_prng": lambda: st._forward(xs, kq, vq, vm, qm, ps,
-                                                  wk, pinv, H),
-        "sga_train_bwd_ffn_prng": lambda: st._bwd_ffn(gflat, psaves, ps, wk,
-                                                      pinv),
-        "sga_train_bwd_att_prng": lambda: st._bwd_att(
-            pgv2, xs, kq, vq, vm, qm, psaves, ps, wk, pinv, H)},
-        {k + "_prng": (f, b - no_mask[k]) for k, (f, b) in work.items()}, 6)
-
-    say("[train block] fused_sa_block_train (the kernels) vs "
-        "fused_sa_block_train_plain (plain ops, autograd): the MCAN-small "
-        f"encoder block, B={B}, 14 tokens, rate 0.1, all-PAD questions "
-        "among ragged ones")
-    xq, qmask, sam, sw, inv, sprobe = sa_block_inputs(torch, dev, B)
-    for save_acts in (True, False):
-        say(f"  save_acts={save_acts}")
-        block_vs_plain(
-            torch, f"SA train block (save_acts={save_acts})",
-            sa.fused_sa_block_train, sa.fused_sa_block_train_plain, (xq,),
-            sw, sa.SA_WEIGHT_NAMES, sprobe,
-            lambda blk, ls, ws: blk(*ls, qmask, sam, ws, num_heads=H,
-                                    inv_keep=inv, save_acts=save_acts),
-            rows, lambda n: "sa_train_fwd" if n is None else "sa_train_bwd",
-            ("x",))
-    swk = st._kernel_weights([sw[n] for n in sa.SA_WEIGHT_NAMES],
-                             sa.SA_WEIGHT_NAMES, sa.SA_MATMUL_WEIGHTS)
-    xqs = xq.contiguous()
-    Mq = B * Lq
-    _, ssaves = sa._forward(xqs, qmask, sam, swk, inv, H)
-    gq = sprobe.reshape(Mq, D).contiguous()
-    pieces = {
-        "sa_train_fwd": lambda: sa._forward(xqs, qmask, sam, swk, inv, H),
-        "sa_train_bwd": lambda: sa._backward(gq, xqs, qmask, ssaves, sam,
-                                             swk, inv, H)}
-    sa_att_f = 4 * B * H * Lq * Lq * 64
-    sa_mats = 2 * (4 * D * D + 2 * D * F)
-    sa_masks = B * H * Lq * Lq + 2 * Mq * D + Mq * F
-    work = {
-        # in: x, the pads, masks, weights; out: x2, x1, r2 (f32), h1d
-        "sa_train_fwd": (
-            2 * Mq * D * (4 * D + 2 * F) + sa_att_f,
-            4 * Mq * D + B * Lq + sa_masks + sa_mats + 4 * 10 * D
-            + 3 * 4 * Mq * D + 2 * Mq * F),
-        # recompute of qkv, merge and attention; 4 dX and 4 dW products;
-        # the attention backward. in: x, x1, g, r2 (f32), h1d, masks but
-        # h1, weights; out: dx and the 12 weight gradients (f32)
-        "sa_train_bwd": (
-            2 * Mq * D * 4 * D + sa_att_f + 2 * 2 * Mq * D * (4 * D + 2 * F)
-            + 10 * B * H * Lq * Lq * 64,
-            4 * 4 * Mq * D + 2 * Mq * F + B * Lq + sa_masks - Mq * F
-            + sa_mats + 4 * 8 * D + 4 * Mq * D + 4 * (4 * D * D + 2 * D * F)
-            + 4 * (10 * D + F))}
-    time_pieces(torch, K, rows, pieces, work, 6)
-    sps, spinv = st.prng_sites(PRNG_SEED, 0.1, Lq, sa.SA_SITES)
-    _, pssaves = sa._forward(xqs, qmask, sps, swk, spinv, H)
-    no_mask = {"sa_train_fwd": sa_masks, "sa_train_bwd": sa_masks - Mq * F}
-    time_pieces(torch, K, rows, {
-        "sa_train_fwd_prng": lambda: sa._forward(xqs, qmask, sps, swk, spinv,
-                                                 H),
-        "sa_train_bwd_prng": lambda: sa._backward(gq, xqs, qmask, pssaves,
-                                                  sps, swk, spinv, H)},
-        {k + "_prng": (f, b - no_mask[k]) for k, (f, b) in work.items()}, 6)
-    # _bwd_kernel and its seeded body _bwd_kernel_prng (save_acts=False:
-    # the FFN recomputed from x1), on no Trainer path: timed beside
-    # _bwd_kernel_sav, not in the rows. Their work: _bwd_kernel_sav's plus
-    # the recomputed x1 . W1 and h1d . W2 products, x1 (f32) read in place
-    # of r2 (f32) and h1d, and no mask bytes when seeded
-    flops, nbytes = work["sa_train_bwd"]
-    for label, m, iv, no_mask in (("_bwd_kernel", sam, inv, 0),
-                                  ("_bwd_kernel_prng", sps, spinv,
-                                   sa_masks - Mq * F)):
-        _, rsaves = sa._forward(xqs, qmask, m, swk, iv, H, save_acts=False)
-        recompute = functools.partial(sa._backward, gq, xqs, qmask, rsaves,
-                                      m, swk, iv, H)
-        bound = max(bound_parts(flops + 4 * Mq * D * F,
-                                nbytes - 2 * Mq * F - no_mask))
-        say(f"  sa_train_bwd from save_acts=False ({label}): "
-            f"{device_ms(torch, recompute, iters=10):.4f} ms vs plain "
-            f"{device_ms(torch, plain_path(K, recompute), iters=5):.4f} ms "
-            f"per block; bound {bound:.4f} ms")
-
-    Bl, Dl, Fl = BATCH // 2, 1024, 4096
-    Ml = Bl * Lv
-    say("[train block] fused_sga_block_train(att_saves=True, bf16_saves="
-        "True) (the kernels) vs fused_sga_block_train_plain (plain ops, "
-        f"autograd, f32 saves): MCAN-large, one micro-batch B={Bl}, D={Dl}, "
-        f"F={Fl}, 8 heads of 128, rate 0.1 (bf16_saves moves the gradients "
-        "by its roundings of r1 / r2 / r3 / gv2, 2^-8 relative each)")
-    x, kq, vq, vm, qm, masks, w, inv, probe = train_block_inputs(
-        torch, dev, B=Bl, D=Dl, F=Fl)
-    sav = functools.partial(st.fused_sga_block_train, att_saves=True,
-                            bf16_saves=True)
-    block_vs_plain(
-        torch, "SGA train block, att_saves + bf16_saves", sav,
-        st.fused_sga_block_train_plain, (x, kq, vq), w, st.WEIGHT_NAMES,
-        probe, lambda blk, ls, ws: blk(*ls, vm, qm, masks, ws, num_heads=H,
-                                       inv_keep=inv), rows,
-        lambda n: "sga_train_bwd_att_sav", ("x", "kq", "vq"))
-    wk = st._kernel_weights([w[n] for n in st.WEIGHT_NAMES])
-    xs = x.contiguous()
-    _, lsaves = st._forward(xs, kq, vq, vm, qm, masks, wk, inv, H,
-                            att_saves=True, save_dtype=torch.bfloat16)
-    gflat = probe.reshape(Ml, Dl).contiguous()
-    gv2 = st._bwd_ffn(gflat, lsaves, masks, wk, inv, torch.bfloat16)[0]
-    pieces = {"sga_train_bwd_att_sav": lambda: st._bwd_att_sav(
-        gv2, xs, kq, vq, vm, qm, lsaves, masks, wk, inv, H)}
-    att_l = Bl * H * Lv * (Lv + Lq) * 128
-    # the attention recompute (P.V) and backward; 4 dX and 4 dW products
-    # over the 6 D^2 weights; in: x (f32), v1, qkv, qx, r1, r2, gv2 (bf16),
-    # kq / vq (f32), pads, masks att1 / att2 / y1 / y2, wqkv / wm1 / wq2 /
-    # wm2 (bf16), ln1_s / ln2_s; out: dx, dkq, dvq and the 12 weight
-    # gradients (f32)
-    work = {"sga_train_bwd_att_sav": (
-        4 * att_l + 10 * att_l + 2 * 2 * Ml * Dl * 6 * Dl,
-        4 * Ml * Dl + 2 * Ml * Dl * 8 + 2 * 4 * Bl * H * Lq * 128
-        + Bl * (Lv + Lq) + Bl * H * Lv * (Lv + Lq) + 2 * Ml * Dl
-        + 2 * 6 * Dl * Dl + 4 * 2 * Dl + 4 * Ml * Dl
-        + 2 * 4 * Bl * H * Lq * 128 + 4 * 6 * Dl * Dl + 4 * 10 * Dl)}
-    time_pieces(torch, K, rows, pieces, work, 12)
-    ps, pinv = st.prng_sites(PRNG_SEED, 0.1, Lv)
-    _, lpsaves = st._forward(xs, kq, vq, vm, qm, ps, wk, pinv, H,
-                             att_saves=True, save_dtype=torch.bfloat16)
-    pgv2 = st._bwd_ffn(gflat, lpsaves, ps, wk, pinv, torch.bfloat16)[0]
-    flops, nbytes = work["sga_train_bwd_att_sav"]
-    time_pieces(torch, K, rows, {
-        "sga_train_bwd_att_sav_prng": lambda: st._bwd_att_sav(
-            pgv2, xs, kq, vq, vm, qm, lpsaves, ps, wk, pinv, H)},
-        {"sga_train_bwd_att_sav_prng": (
-            flops, nbytes - Bl * H * Lv * (Lv + Lq) - 2 * Ml * Dl)}, 12)
-
-
-# ---------------------------------------------------------------------------
-# phase: in-kernel dropout -- Philox, the mask dump, the seeded blocks
-# ---------------------------------------------------------------------------
-
-def keep_rate_gate(label, masks, t) -> None:
-    """The keep fraction over every mask within 5 sigma of t / 2^32."""
-    n = sum(m.numel() for m in masks)
-    kept = sum(int(m.sum()) for m in masks)
-    p = t / 2 ** 32
-    sigma = (p * (1 - p) / n) ** 0.5
-    z = (kept / n - p) / sigma
-    ok = abs(z) <= 5
-    say(f"  {label}: keep fraction {kept / n:.6f} over {n} decisions, "
-        f"expected {p:.6f}: {z:+.2f} sigma (|z| <= 5) "
-        f"{'ok' if ok else 'FAILED'}")
-    if not ok:
-        fail(f"{label}: keep rate {kept / n} is {z:.1f} sigma from {p}")
-
-
-def seeded_vs_dump(torch, label, seeded, fed, plain, leaves, leaf_names, w,
-                   names, probe, rows, row_of) -> None:
-    """The seeded block, the external-mask block fed the seed's dump, and
-    the seeded block's plain twin, under autograd from the same leaves:
-    the first two equal bit for bit in the output and every gradient; the
-    plain twin within block_vs_plain's tolerances."""
-    def run(block):
-        ls = [t.clone().requires_grad_() for t in leaves]
-        ws = {k: t.clone().requires_grad_() for k, t in w.items()}
-        out = block(ls, ws)
-        (out * probe).sum().backward()
-        return [out.detach()] + [t.grad for t in ls] + [ws[n].grad
-                                                        for n in names]
-
-    got, want, ref = run(seeded), run(fed), run(plain)
-    torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in zip(got, want)]
-    say(f"  {label}: seeded block vs the external-mask block fed the dump: "
-        f"output and {len(got) - 1} gradients equal bit for bit: "
-        f"{all(same)} ({sum(same)}/{len(same)})")
-    if not all(same):
-        fail(f"{label}: the seeded block differs from the block fed its dump")
-    e_out = max_err(got[0], ref[0])
-    gate(f"{label} output vs plain", e_out, 6e-2)
-    rows.err(row_of(None), e_out)
-    worst = 0.0
-    for name, a, b in zip(leaf_names + names, got[1:], ref[1:]):
-        rel = float((a - b).norm() / b.norm())
-        worst = max(worst, rel)
-        if not rel <= 3e-2:
-            fail(f"{label}: gradient {name} vs plain, |err|/|ref| {rel}")
-        rows.err(row_of(name), max_err(a, b))
-    say(f"  {label}: every gradient within {worst:.3e} <= 3e-2 of the plain "
-        f"twin in relative norm")
-
-
-def prng_rows(rows) -> None:
-    for name, replaces, per in PRNG_ROWS:
-        rows.row(name, "mcan_vqa_tpu_torch/ops/" + replaces.split("/")[-1]
-                 .split(":")[0], replaces, per)
-
-
-# (B, [(site code, heads, n)]): the dump's plan edges, as in the card tests
-# (tests/test_torch_kernels_gpu.py::PRNG_EDGES): rows with n % 4 != 0,
-# att2's n = 840, one site and six, B = 1, B = 65,537 with one small site;
-# and (B, n) of philox_words'
-PRNG_EDGES = (
-    (7, [(0x100, 3, 5), (0x200, 1, 3), (0x301, 2, 4099), (0x302, 1, 842)]),
-    (64, [(0x200, 8, 840)]),
-    (3, [(0x303, 1, 122880)]),
-    (3, [(0x100, 8, 3600), (0x200, 8, 840), (0x301, 1, 1), (0x302, 16, 5),
-         (0x303, 1, 4099), (0x304, 1, 30720)]),
-    (1, [(0x100, 8, 3600), (0x303, 1, 7)]),
-    (65537, [(0x303, 1, 5)]))
-WORD_EDGES = ((1, 1), (3, 5), (7, 4099), (5, 842), (2, 122880), (65537, 3))
-
-
-def prng_report(torch, K) -> None:
-    """prng_masks.cu's two instances: registers and local (spilled) bytes a
-    thread as compiled (cudaFuncGetAttributes, in any process)."""
-    import ctypes
-
-    from mcan_vqa_tpu_torch.ops import _build
-    info = (ctypes.c_int * 3)()
-    for words, kind in ((0, "dump_prng_masks"), (1, "philox_words")):
-        rc = _build.load_library().mcan_prng_kernel_attrs(words, info)
-        if rc != 0:
-            fail(f"prng_kernel ({kind}): cudaFuncGetAttributes error {rc}")
-        say(f"  [registers] prng_kernel ({kind}): {info[0]} registers, "
-            f"{info[1]} local bytes a thread, __launch_bounds__("
-            f"{K.PRNG_THREADS}, {K.PRNG_BLOCKS_PER_SM})")
-
-
-def prng_plan_line(plan, per_sm: int) -> str:
-    """kernels.prng_plan of one prng_masks.cu launch."""
-    return (f"[plan] grid {plan.grid} x {plan.threads} (one wave: at most "
-            f"{per_sm} CTAs an SM), {plan.chunks} chunks of 16 "
-            f"elements ({plan.per_sample} a sample, stride {plan.step}), "
-            f"store widths {plan.width} bytes")
-
-
-def check_prng(torch, dev, rows) -> None:
-    """Philox and the dump against their plain versions bit for bit, twice
-    with equal bits, at the block shapes and the plan's edges; the keep
-    rate; each dump unit's and the words' time, plan and registers beside
-    the plain version, torch.rand + the compare and the bound; the seeded
-    SGA and SA blocks against the external-mask blocks fed the dump
-    (MCAN-small B=64; MCAN-large micro-batch 32 with att_saves and
-    bf16_saves), bit for bit in the output and every gradient."""
-    from mcan_vqa_tpu_torch.cli.bench_prng import dump_specs
-    from mcan_vqa_tpu_torch.ops import kernels as K
-    from mcan_vqa_tpu_torch.ops import sa_train as sa
-    from mcan_vqa_tpu_torch.ops import sga_train as st
-    prng_rows(rows)
-    src, replaces = SRC + "prng_masks.cu", TPU_TRAIN + ":1530"
-    rows.row("dump_prng_masks", src, replaces, "one call at each of the "
-             "three dump units of [prng]: the MCAN-small SGA and SA blocks "
-             "at B=64, the MCAN-large SGA block at micro-batch 32")
-    rows.row("philox_words", src, replaces, "one call of 16 x 2^17 words")
-    before = {k: K.LAUNCHES[k] for k in ("dump_prng_masks", "philox_words")}
-    rate, seed = 0.1, PRNG_SEED
-    t, inv = st.prng_keep_params(rate)
-    say(f"[prng] Philox4x32-10, key (seed, site), counter (e >> 2, b); keep "
-        f"iff word < t = {t}, kept x 2^32 / t = {inv!r} (1 / (1 - rate) = "
-        f"{1 / (1 - rate)!r})")
-    prng_report(torch, K)
-    Bw, n = 16, 1 << 17
-    for B_, n_ in ((Bw, n),) + WORD_EDGES:
-        words = K.philox_words(seed, 0x303, B_, n_, dev)
-        again = K.philox_words(seed, 0x303, B_, n_, dev)
-        ref = K.philox_words_plain(seed, 0x303, B_, n_, dev)
-        torch.cuda.synchronize()
-        same = torch.equal(words, ref) and torch.equal(words, again)
-        say(f"  philox_words [{B_}, {n_}] vs philox4x32_plain: equal bit for "
-            f"bit, twice {same}")
-        if not same:
-            fail(f"the CUDA Philox differs from philox4x32_plain at "
-                 f"[{B_}, {n_}]")
-    rows.err("philox_words", 0.0)
-
-    B, Lv, Lq, D, F, H = BATCH, 60, 14, 512, 2048, 8
-    Bl, Dl, Fl = BATCH // 2, 1024, 4096
-    dumps = (("SGA block, MCAN-small", st.dump_prng_masks,
-              st.dump_prng_masks_plain, (B, Lv, Lq, D, F, H)),
-             ("SA block, MCAN-small", sa.dump_sa_prng_masks,
-              sa.dump_sa_prng_masks_plain, (B, Lq, D, F, H)),
-             ("SGA block, MCAN-large", st.dump_prng_masks,
-              st.dump_prng_masks_plain, (Bl, Lv, Lq, Dl, Fl, H)))
-    for label, dump, plain, shape in dumps:
-        got, g_inv = dump(seed, rate, *shape, device=dev)
-        again, _ = dump(seed, rate, *shape, device=dev)
-        want, w_inv = plain(seed, rate, *shape, device=dev)
-        torch.cuda.synchronize()
-        same = all(torch.equal(got[k], want[k]) and torch.equal(got[k],
-                                                                again[k])
-                   for k in want)
-        sizes = {k: tuple(v.shape) for k, v in got.items()}
-        say(f"  dump_prng_masks, {label} {tuple(shape)}: {sizes} equal to "
-            f"the plain dump bit for bit, twice {same}, inv_keep "
-            f"{g_inv == w_inv == inv}")
-        if not (same and g_inv == w_inv == inv):
-            fail(f"dump_prng_masks ({label}) differs from its plain version")
-        keep_rate_gate(label, list(got.values()), t)
-    for B_, sites in PRNG_EDGES:
-        got = K.dump_prng_masks(seed, t, B_, sites, dev)
-        again = K.dump_prng_masks(seed, t, B_, sites, dev)
-        want = K.dump_prng_masks_plain(seed, t, B_, sites, dev)
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, w) and torch.equal(g, a)
-                   for g, a, w in zip(got, again, want))
-        say(f"  dump_prng_masks, edge B={B_} sites {sites}: equal to the "
-            f"plain dump bit for bit, twice {same}; grid "
-            f"{K.LAST_GRID['dump_prng_masks']}")
-        if not same:
-            fail(f"dump_prng_masks differs from its plain version at B={B_}, "
-                 f"{sites}")
-    rows.err("dump_prng_masks", 0.0)
-
-    # the times (on no main path: the dump is what makes the seeded path
-    # testable), beside torch.rand + the compare over the same shapes (the
-    # default generator: a graph capture takes no other) and the bound of
-    # the integer work
-    sms = K.GEMM_SMS
-    for unit, (B_, sites) in dump_specs(("sga", "sa", "large")).items():
-        plan = K.prng_plan(B_, tuple((h, n_) for _, h, n_ in sites), sms)
-        shapes = [(B_, h, n_) for _, h, n_ in sites]
-        t_k = device_ms(torch, lambda: K.dump_prng_masks(seed, t, B_, sites,
-                                                         dev))
-        t_p = device_ms(torch, lambda: K.dump_prng_masks_plain(
-            seed, t, B_, sites, dev), iters=3)
-        t_l = device_ms(torch, lambda: [torch.rand(s, device=dev) >= rate
-                                        for s in shapes])
-        ops = (PHILOX_OPS + KEEP_OPS) * plan.counters
-        op, by = bound_parts(0.0, plan.out_bytes, int_ops=ops)
-        say(f"  dump_prng_masks, unit {unit} (B={B_}: {plan.out_bytes} keep "
-            f"bytes, {plan.counters} counters): {t_k:.4f} ms vs plain "
-            f"{t_p:.4f} ms, library (torch.rand + the compare, "
-            f"{len(shapes)} masks) {t_l:.4f} ms; bound {max(op, by):.4f} ms "
-            f"({'operations' if op >= by else 'bytes'}: {ops} integer "
-            f"operations {op:.4f} ms, bytes written {by:.4f} ms)")
-        say(f"    {prng_plan_line(plan, K.PRNG_BLOCKS_PER_SM)}")
-        rows.add("dump_prng_masks", 1, t_k, t_p, 0.0, plan.out_bytes,
-                 library_ms=t_l, int_ops=ops)
-    plan = K.prng_plan(Bw, ((1, n),), sms, 4)
-    # the kernel alone: raw, the uint32 words without the wrapper's int64 copy
-    t_k = device_ms(torch, lambda: K.philox_words(seed, 0x303, Bw, n, dev,
-                                                  raw=True))
-    t_p = device_ms(torch, lambda: K.philox_words_plain(seed, 0x303, Bw, n,
-                                                        dev), iters=3)
-    t_l = device_ms(torch, lambda: torch.randint(
-        -2 ** 31, 2 ** 31, (Bw, n), dtype=torch.int32, device=dev))
-    ops = PHILOX_OPS * plan.counters
-    op, by = bound_parts(0.0, plan.out_bytes, int_ops=ops)
-    say(f"  philox_words [{Bw}, {n}] ({plan.out_bytes} bytes, raw): {t_k:.4f} ms "
-        f"vs plain {t_p:.4f} ms, library (torch.randint of as many int32) "
-        f"{t_l:.4f} ms; bound {max(op, by):.4f} ms ({ops} integer operations "
-        f"{op:.4f} ms, bytes written {by:.4f} ms)")
-    say(f"    {prng_plan_line(plan, K.PRNG_BLOCKS_PER_SM)}")
-    rows.add("philox_words", 1, t_k, t_p, 0.0, plan.out_bytes,
-             library_ms=t_l, int_ops=ops)
-    for k, v in before.items():
-        rows.rows[k]["calls_in_prng"] = K.LAUNCHES[k] - v
-
-    say("[prng] the seeded blocks against the external-mask blocks fed the "
-        "dump, and against their plain twins (autograd)")
-    ffn = {"w1", "b1", "w2", "b2", "ln3_s", "ln3_b"}
-    for label, Bx, Dx, Fx, saves in (("MCAN-small", B, D, F, False),
-                                     ("MCAN-large", Bl, Dl, Fl, True)):
-        x, kq, vq, vm, qm, _, w, _, probe = train_block_inputs(
-            torch, dev, B=Bx, D=Dx, F=Fx)
-        masks, inv_d = st.dump_prng_masks(seed, rate, Bx, Lv, Lq, Dx, Fx, H,
-                                          device=dev)
-        kw = dict(num_heads=H, att_saves=saves, bf16_saves=saves)
-        if saves:
-            row_of = (lambda n: "sga_train_bwd_att_sav_prng")  # noqa: E731
-        else:
-            row_of = (lambda n: "sga_train_fwd_prng" if n is None  # noqa: E731
-                      else "sga_train_bwd_ffn_prng" if n in ffn
-                      else "sga_train_bwd_att_prng")
-        seeded_vs_dump(
-            torch, f"SGA train block, {label}",
-            lambda ls, ws: st.fused_sga_block_train_prng(
-                *ls, vm, qm, seed, ws, rate=rate, **kw),
-            lambda ls, ws: st.fused_sga_block_train(
-                *ls, vm, qm, masks, ws, inv_keep=inv_d, **kw),
-            lambda ls, ws: st.fused_sga_block_train_prng_plain(
-                *ls, vm, qm, seed, ws, num_heads=H, rate=rate),
-            (x, kq, vq), ("x", "kq", "vq"), w, st.WEIGHT_NAMES, probe, rows,
-            row_of)
-    xq, qmask, _, sw, _, sprobe = sa_block_inputs(torch, dev, B)
-    masks, inv_d = sa.dump_sa_prng_masks(seed, rate, B, Lq, D, F, H,
-                                         device=dev)
-    seeded_vs_dump(
-        torch, "SA train block, MCAN-small",
-        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, seed, ws,
-                                               num_heads=H, rate=rate),
-        lambda ls, ws: sa.fused_sa_block_train(*ls, qmask, masks, ws,
-                                               num_heads=H, inv_keep=inv_d),
-        lambda ls, ws: sa.fused_sa_block_train_plain(
-            *ls, qmask, seed, ws, num_heads=H, rate=rate),
-        (xq,), ("x",), sw, sa.SA_WEIGHT_NAMES, sprobe, rows,
-        lambda n: "sa_train_fwd_prng" if n is None else "sa_train_bwd_prng")
-
-
-def time_pieces(torch, K, rows, pieces, work, n) -> None:
-    """Each piece's kernel sequence against the same sequence of plain
-    versions: device times, and n of them per unit into its row."""
-    for name, fn in pieces.items():
-        flops, nbytes = work[name]
-        t_k = device_ms(torch, fn, iters=10)
-        t_p = device_ms(torch, plain_path(K, fn), iters=5)
-        say(f"  {name}: {t_k:.4f} ms vs plain {t_p:.4f} ms per block; bound "
-            f"{max(bound_parts(flops, nbytes)):.4f} ms")
-        rows.add(name, n, t_k, t_p, flops, nbytes)
-
-
-# ---------------------------------------------------------------------------
 # main path 1 -- Predictor(engine="fused") answers requests
 # ---------------------------------------------------------------------------
 
@@ -4222,6 +3484,230 @@ def train_main_path(torch, dev, rows, work: Path, model: str = "small",
     if not ckpt.exists():
         fail(f"no epoch checkpoint at {ckpt}")
     return trainer, ckpt
+
+
+# ---------------------------------------------------------------------------
+# phases [visualize] and [stacked]: the visualization's forward and the
+# stacked parameter layout
+# ---------------------------------------------------------------------------
+
+VIS_EXAMPLES = 8
+# card against CPU, plain ops with f32 operands: the same function up to
+# summation order, |err| <= VIS_F32_TOL + VIS_F32_TOL |ref| elementwise
+VIS_F32_TOL = 1e-3
+# the bf16 engines' serving gate on the answer probabilities (PERF.md §2)
+BF16_PROB_TOL = 1e-2
+# calc_mats_v2's top-k regions may swap only where the card's glimpse
+# weights v_w are this close (a near tie): a few times the v_w error the
+# card read against the CPU, 2e-6 with f32 operands and 1.4e-4 with bf16
+# ones (PERF.md §6, PR 26)
+VIS_TIE = {"f32": 1e-5, "bf16": 1e-3}
+STACKED_STEPS = 3
+
+
+def top_k_agree(card_w, card_ix, cpu_ix, tol) -> bool:
+    """calc_mats_v2's top-k regions: the same indices in the same order, or
+    a swap between regions whose weights are within tol (a near tie)."""
+    if list(card_ix) == list(cpu_ix):
+        return True
+    return all(abs(float(card_w[a]) - float(card_w[b])) <= tol
+               for a, b in zip(card_ix, cpu_ix) if a != b)
+
+
+def visualize_path(torch, dev, work: Path, vqa_ckpt: Path) -> None:
+    """``run_vqa --run visualize``'s forward at MCAN-small's full width:
+    [train]'s epoch pickle warm-started into a Trainer over a miniature
+    VQA-v2 val set in its own file formats (``data/vqa_files.py``; the
+    embedding of its own vocabulary), ``utils/visualize.
+    visualization_outputs`` on the card for the first 8 examples against
+    the same weights' ``forward_outputs`` on the CPU, twice:
+
+      * with f32 matmul operands on both sides (``operand_dtype``): the
+        same function up to summation order, every key within VIS_F32_TOL
+        + VIS_F32_TOL |ref| elementwise, the masks exactly;
+      * as the sheets read it, bf16 operands: a rounding one step apart
+        compounds over 12 blocks (the stream ``v`` of random weights read
+        1.16e-2 against 4.04), so each key's error is printed, and the
+        gates are the bf16 engines' serving gate on the answer
+        probabilities (BF16_PROB_TOL) and the masks exactly.
+
+    In both passes ``calc_mats_v2``'s top-k regions are the same on the
+    card and the CPU, or swap only within a near tie of VIS_TIE.
+
+    The sheets render where matplotlib is installed."""
+    import copy
+    from importlib.util import find_spec
+
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.vqa_dataset import VQADataset
+    from mcan_vqa_tpu_torch.data.vqa_files import write_vqa_files
+    from mcan_vqa_tpu_torch.models.layers import operand_dtype
+    from mcan_vqa_tpu_torch.train.trainer import Trainer
+    from mcan_vqa_tpu_torch.utils import visualize as vis
+
+    render = find_spec("matplotlib") is not None
+    say(f"[visualize] matplotlib installed: {render}")
+    paths = write_vqa_files(str(work / "vqa"), images={"train": 1, "val": 4,
+                                                       "test": 1}, seed=SEED)
+    cfg = Config(**paths, vocab_cache_path=str(work / "vocab.npz"),
+                 ckpts_dir=str(work / "ckpts"), log_path=str(work / "log"),
+                 verbose=False)
+    ds = VQADataset(cfg, "val")
+    trainer = Trainer(cfg, eval_datasets={"val": ds}, device=dev)
+    trainer.warm_start(str(vqa_ckpt))
+    cpu = copy.deepcopy(trainer.model).cpu().eval()
+    n = min(VIS_EXAMPLES, len(ds))
+    img = torch.tensor(np.stack([ds.example(i)["img"] for i in range(n)]))
+    ques = torch.tensor(np.stack([ds.example(i)["ques"] for i in range(n)]))
+
+    def both():
+        out = vis.visualization_outputs(trainer, ds, VIS_EXAMPLES)
+        with torch.no_grad():
+            ref = {k: v.numpy() for k, v in
+                   cpu.forward_outputs(img, ques).items()}
+        if set(out) != set(ref) or len(out) != 8:
+            fail(f"[visualize] keys {sorted(out)} vs {sorted(ref)}")
+        for k in sorted(out):
+            if out[k].shape != ref[k].shape:
+                fail(f"[visualize] {k}: {out[k].shape} vs {ref[k].shape}")
+            if out[k].dtype == bool and not np.array_equal(out[k], ref[k]):
+                fail(f"[visualize] the {k} masks differ")
+            if out[k].dtype != bool and not np.isfinite(out[k]).all():
+                fail(f"[visualize] {k} is not finite")
+        return out, ref
+
+    def top_k(out, ref, operands):
+        tie = VIS_TIE[operands]
+        for i in range(n):
+            a, b = vis.calc_mats_v2(out, i), vis.calc_mats_v2(ref, i)
+            if not top_k_agree(out["v_w"][i, :, 0], a["va_indices"],
+                               b["va_indices"], tie):
+                fail(f"[visualize] {operands} operands, example {i}: top-k "
+                     f"regions {list(a['va_indices'])} vs "
+                     f"{list(b['va_indices'])}")
+        say(f"  {operands} operands: calc_mats_v2's top-"
+            f"{len(a['va_indices'])} regions agree for all {n} examples "
+            f"(a swap allowed only within {tie} of v_w)")
+
+    def used(a, b, tol):
+        return float((np.abs(a - b) / (tol + tol * np.abs(b))).max())
+
+    say(f"[visualize] forward_outputs of {n} val examples (vocabulary "
+        f"{ds.token_size}, [train]'s weights but the embedding) on the card "
+        f"against the same weights on the CPU; the masks equal")
+    with operand_dtype(torch.float32):
+        out, ref = both()
+    for k in sorted(k for k in out if out[k].dtype != bool):
+        u = used(out[k], ref[k], VIS_F32_TOL)
+        say(f"  f32 operands, {k}: max|err| "
+            f"{float(np.abs(out[k] - ref[k]).max()):.3e}; |err| <= "
+            f"{VIS_F32_TOL} + {VIS_F32_TOL} |ref| elementwise, at most "
+            f"{u:.3f} of it {'ok' if u <= 1.0 else 'FAILED'}")
+        if u > 1.0:
+            fail(f"[visualize] f32 operands: {k} past {VIS_F32_TOL} + "
+                 f"{VIS_F32_TOL} |ref|")
+    top_k(out, ref, "f32")
+    out, ref = both()
+    say("  bf16 operands (as the sheets read them): "
+        + ", ".join(f"{k} max|err| {float(np.abs(out[k] - ref[k]).max()):.3e}"
+                    f" of max|ref| {float(np.abs(ref[k]).max()):.3e}"
+                    for k in sorted(out) if out[k].dtype != bool))
+    dprob = float(np.abs(1 / (1 + np.exp(-out["logits"]))
+                         - 1 / (1 + np.exp(-ref["logits"]))).max())
+    gate("[visualize] bf16 operands, answer probabilities", dprob,
+         BF16_PROB_TOL)
+    top_k(out, ref, "bf16")
+    if render:
+        for i in range(n):
+            vis.visualize_example(out, i, str(work / f"example_{i}.png"))
+            vis.render_reference_panels(out, i,
+                                        str(work / f"example_{i}_mats.png"))
+        say(f"[visualize] rendered {2 * n} sheets")
+    else:
+        say("[visualize] rendered nothing: matplotlib is not installed")
+
+
+def stacked_path(torch, dev, rows, work: Path) -> None:
+    """``stacked_params="on"`` on the card: two Trainers of MCAN-small from
+    the same weights and seed, the standard layout and the stacked one,
+    train STACKED_STEPS steps of B=64 (one epoch) on the seeded route;
+    every weight and AdamW moment equal bit for bit, the same kernel
+    launches a step. Then the stacked run's epoch pickle (written through
+    the standard boundary) resumed by a standard Trainer: the weights and
+    moments equal."""
+    from mcan_vqa_tpu_torch.configs import Config
+    from mcan_vqa_tpu_torch.data.vqa_dataset import SyntheticVQADataset
+    from mcan_vqa_tpu_torch.ops import kernels as K
+    from mcan_vqa_tpu_torch.train.trainer import Trainer, engine_route
+
+    def config(tag, **kw):
+        return Config(max_epoch=1, batch_size=BATCH, seed=SEED + 9,
+                      version=tag, ckpts_dir=str(work / "ckpts"),
+                      log_path=str(work / "log"), verbose=False,
+                      ckpt_calibrate=False, **kw)
+
+    runs, counts, times = {}, {}, {}
+    for tag, on in (("standard", "off"), ("stacked", "on")):
+        cfg = config(tag, stacked_params=on)
+        ds = SyntheticVQADataset(cfg, size=STACKED_STEPS * BATCH,
+                                 answer_size=3129, seed=SEED)
+        trainer = Trainer(cfg, ds, device=dev)
+        if not (trainer.fused and trainer.in_kernel_dropout) or \
+                trainer.stacked != (on == "on"):
+            fail(f"[stacked] {tag}: fused {trainer.fused}, in-kernel "
+                 f"dropout {trainer.in_kernel_dropout}, stacked "
+                 f"{trainer.stacked}")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        counts[tag] = {k: v for k, v in K.launch_counts().items()
+                       if k in TRAIN_KERNELS}
+        runs[tag] = trainer
+    std, stk = runs["standard"], runs["stacked"]
+    route = engine_route(std.cfg.hidden_size)
+    want = {k: n * STACKED_STEPS for k, n in expected_step_launches(
+        std.cfg, route, seeded=True).items() if n}
+    n_leaves = len(list(stk.stacked_state().model.parameters()))
+    say(f"[stacked] MCAN-small, B={BATCH}, {STACKED_STEPS} steps each on "
+        f"the seeded route: standard ({len(list(std.model.parameters()))} "
+        f"leaves) {times['standard']:.1f} s, stacked ({n_leaves} leaves) "
+        f"{times['stacked']:.1f} s with the epoch pickle")
+    for tag, c in counts.items():
+        say(f"[launches] stacked phase, {tag}: {c}")
+        if c != want:
+            fail(f"[stacked] {tag}: launches {c}, expected {want}")
+    rows.launches("stacked", counts["stacked"], sorted(want))
+
+    def moments(trainer):
+        names = [n for n, _ in trainer.model.named_parameters()]
+        return {(names[int(i)], m): s[m] for i, s in
+                trainer.state.optimizer.state_dict()["state"].items()
+                for m in ("exp_avg", "exp_avg_sq")}
+
+    def same(a_sd, b_sd, what):
+        bad = [k for k in a_sd if not torch.equal(a_sd[k], b_sd[k])]
+        say(f"  {what}: {len(a_sd) - len(bad)} of {len(a_sd)} equal bit "
+            f"for bit")
+        if bad or set(a_sd) != set(b_sd):
+            fail(f"[stacked] {what} differ: {bad[:4]}")
+
+    if not std.state.step == stk.state.step == STACKED_STEPS:
+        fail(f"[stacked] steps {std.state.step} / {stk.state.step}")
+    same(std.model.state_dict(), stk.model.state_dict(),
+         "weights, standard vs stacked")
+    same(moments(std), moments(stk), "AdamW moments, standard vs stacked")
+    resumed = Trainer(config("stacked", stacked_params="off", resume=True,
+                             ckpt_epoch=1),
+                      SyntheticVQADataset(std.cfg, size=STACKED_STEPS * BATCH,
+                                          answer_size=3129, seed=SEED),
+                      device=dev)
+    resumed.ensure_state()
+    same(stk.model.state_dict(), resumed.model.state_dict(),
+         "weights, the stacked run vs its pickle resumed standard")
+    same(moments(stk), moments(resumed),
+         "AdamW moments, the stacked run vs its pickle resumed standard")
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,9 @@ MIMICDataset``, the train and val splits, their labels; the paths as
 paths:`` on stderr and the command exits 1. ``--synthetic`` trains and
 evaluates on ``SyntheticMIMICDataset`` instead (14 labels; the val set
 seed 1). ``img_feat_size`` defaults to 1024, the MIMIC region features'
-width. The JAX CLI's ``--compile_cache`` and ``--compute_dtype`` set XLA
-options and are not accepted here, as ``run_vqa`` accepts neither.
+width. The JAX CLI's ``--compute_dtype`` sets an XLA option and is not
+accepted here, as ``run_vqa`` does not accept it; ``--compile_cache`` is
+accepted and ignored, as in ``run_vqa`` (``utils/compile_cache.py``).
 Under ``torchrun`` the ranks train on ``--mesh_shape``'s mesh as
 ``run_vqa``'s do.
 """
@@ -33,6 +34,7 @@ from typing import Optional, Sequence
 from mcan_vqa_tpu_torch.cli.run_vqa import _bool, add_mesh_flags, \
     mesh_launch
 from mcan_vqa_tpu_torch.configs import MIMIC_FEAT_SOURCES, Config
+from mcan_vqa_tpu_torch.utils import compile_cache
 
 INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
              "eval_interval", "img_feat_size", "hidden_size", "multi_head",
@@ -103,6 +105,7 @@ def load_datasets(cfg: Config, args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    compile_cache.enable(args.compile_cache)
     cfg = build_config(args)
     datasets = load_datasets(cfg, args)
     if datasets is None:

@@ -31,8 +31,9 @@ exits 1. ``--synthetic`` trains on ``SyntheticMIMICDataset`` instead.
 Every split encodes its questions with one vocabulary, the train split's.
 The flags are the JAX CLI's with its defaults (``img_feat_size`` 1024, the
 MIMIC features' width) plus ``--device``, the data paths and
-``--mimic_feat_source``; its ``--compile_cache`` and ``--compute_dtype``
-set XLA options and are not accepted, as ``run_vqa`` accepts neither.
+``--mimic_feat_source``; its ``--compute_dtype`` sets an XLA option and
+is not accepted, as ``run_vqa`` does not accept it; ``--compile_cache`` is
+accepted and ignored, as in ``run_vqa`` (``utils/compile_cache.py``).
 Under ``torchrun`` the ranks train on ``--mesh_shape``'s mesh as
 ``run_vqa``'s do.
 """
@@ -46,6 +47,7 @@ from typing import Optional, Sequence
 from mcan_vqa_tpu_torch.cli.run_vqa import _bool, add_mesh_flags, \
     mesh_launch
 from mcan_vqa_tpu_torch.configs import MIMIC_FEAT_SOURCES, Config
+from mcan_vqa_tpu_torch.utils import compile_cache
 
 INT_KNOBS = ("batch_size", "max_epoch", "layer", "seed", "ckpt_epoch",
              "eval_interval", "mutan_gamma", "img_feat_size", "hidden_size",
@@ -130,6 +132,7 @@ def load_datasets(cfg: Config, args: argparse.Namespace,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    compile_cache.enable(args.compile_cache)
     cfg = build_config(args)
     datasets = load_datasets(cfg, args)
     if datasets is None:

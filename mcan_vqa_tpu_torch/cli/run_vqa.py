@@ -28,7 +28,13 @@ targets, so ROC-AUC is printed).
   test    writes that file for test2015;
   parity  scores val (``..._val.json``), then writes the test-dev file
           (``..._testdev.json``), the reference's val-then-test sequence in
-          one command.
+          one command;
+  visualize  restores the checkpoint ``--ckpt_*`` names and renders the
+          first 8 val examples (``utils/visualize.py``):
+          ``<result_path>/val_imgs/example_{i}.png`` (AttFlat panels) and
+          ``example_{i}_mats.png`` (the reference's six-figure sheet), over
+          the COCO photographs under ``--images_dir`` where they resolve;
+          rendering needs matplotlib.
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) every rank
 joins the process group before the Trainer is built (each on
@@ -40,9 +46,9 @@ mesh ``--mesh_shape`` names, JAX's ``mesh_shape`` (data x model ranks):
 
 Rank 0 prints, logs and writes the checkpoints. Without torchrun nothing
 changes. ``--gpu`` is accepted and ignored, as in the JAX CLI: the ranks
-and the mesh choose the devices.
-
-Not ported, and raising: ``--run visualize`` (ROADMAP §1 item 11).
+and the mesh choose the devices. So is ``--compile_cache``
+(``utils/compile_cache.py``: nothing here compiles through a cache it
+could point).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import sys
 from typing import Dict, Optional, Sequence
 
 from mcan_vqa_tpu_torch.configs import Config
+from mcan_vqa_tpu_torch.utils import compile_cache
 
 ARCH_KNOBS = ("hidden_size", "layer", "multi_head", "img_feat_size",
               "img_feat_pad_size", "flat_out_size", "flat_mlp_size",
@@ -102,6 +109,16 @@ def add_mesh_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gpu", help="accepted for CLI compatibility; ignored "
                                  "(torchrun's ranks and --mesh_shape choose "
                                  "the devices)")
+    add_compile_cache_flag(p)
+
+
+def add_compile_cache_flag(p: argparse.ArgumentParser) -> None:
+    """--compile_cache, accepted and resolved as the JAX CLIs take it, and
+    ignored (``utils/compile_cache.enable`` says why)."""
+    p.add_argument("--compile_cache", default=None,
+                   help="accepted for CLI compatibility; ignored (the "
+                        "kernels' build directory is keyed by their "
+                        "sources' hash)")
 
 
 @contextlib.contextmanager
@@ -155,6 +172,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         p.add_argument(f"--{knob}", type=typ)
     for knob in PATH_KNOBS:
         p.add_argument(f"--{knob}", type=str)
+    p.add_argument("--images_dir", default=None,
+                   help="visualize: the COCO photographs (flat or in "
+                        "train2014 / val2014 / test2015 subdirectories)")
     add_mesh_flags(p)
     return p.parse_args(argv)
 
@@ -195,7 +215,7 @@ def load_datasets(cfg: Config, args: argparse.Namespace):
     datasets = {}
     if mode == "train":
         datasets["train"] = VQADataset(cfg, "train")
-    if mode in ("train", "val", "parity"):
+    if mode in ("train", "val", "parity", "visualize"):
         datasets["val"] = VQADataset(cfg, "val")
     if mode in ("test", "parity"):
         datasets["test"] = VQADataset(cfg, "test")
@@ -204,9 +224,7 @@ def load_datasets(cfg: Config, args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if args.run_mode == "visualize":
-        raise NotImplementedError(
-            "--run visualize is not ported yet (ROADMAP §1 item 11)")
+    compile_cache.enable(args.compile_cache)
     cfg = build_config(args)
     datasets = load_datasets(cfg, args)
     if datasets is None:
@@ -231,6 +249,13 @@ def run(args, cfg: Config, datasets, device, say) -> int:
         return 0
     ds = datasets.get(mode) or datasets["val"]
     trainer = Trainer(cfg, eval_datasets={mode: ds}, device=device)
+    if mode == "visualize":
+        from mcan_vqa_tpu_torch.utils.visualize import run_visualization
+        out_dir = os.path.join(cfg.result_path, "val_imgs")
+        n = run_visualization(trainer, ds, out_dir, limit=8,
+                              images_dir=args.images_dir)
+        say(f"wrote {n} visualizations to {out_dir}")
+        return 0
     trainer.model.load_state_dict(trainer.local_state_dict(load_params(cfg)))
     trainer.logger.write(f"{eval_engine_line(trainer.fused_eval)} (device "
                          f"{trainer.device})")

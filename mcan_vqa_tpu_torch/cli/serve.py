@@ -56,11 +56,12 @@ calibrated. ``--calibrate`` and ``--q8aux`` are refused with
 ``--artifact`` (the exported engine is frozen), and ``--auto_calibrate``
 is ignored there.
 
-There is no ``--compile_cache``: the JAX server's persistent XLA cache has
-no counterpart here. The kernels are built by nvcc into the hash-keyed
-directory ``mcan_vqa_tpu_torch/_kernels_build/<key>/`` (ops/_build.py),
-which a restarted server on the same checkout reuses, and the engines run
-eagerly, so there is nothing else to compile.
+``--compile_cache`` is accepted and ignored (``utils/compile_cache.py``):
+the JAX server's persistent XLA cache has no counterpart here. The kernels
+are built by nvcc into the hash-keyed directory
+``mcan_vqa_tpu_torch/_kernels_build/<key>/`` (ops/_build.py), which a
+restarted server on the same checkout reuses, and the engines run eagerly,
+so there is nothing else to compile.
 
 Example::
 
@@ -87,6 +88,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from mcan_vqa_tpu_torch.batching import BatchingFrontend, FrontendOverloaded
+from mcan_vqa_tpu_torch.cli.run_vqa import add_compile_cache_flag
+from mcan_vqa_tpu_torch.utils import compile_cache
 
 ARCH_KNOBS = ("hidden_size", "layer", "multi_head", "img_feat_size",
               "img_feat_pad_size", "flat_out_size", "flat_mlp_size",
@@ -425,6 +428,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain "
                         "versions)")
+    add_compile_cache_flag(p)
     p.add_argument("--calibrate", metavar="NPZ",
                    help="traffic sample ('questions' strings + 'features' "
                         "[N, R, F] float32, or an object array of ragged "
@@ -489,6 +493,7 @@ def warmup(predictor) -> None:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    compile_cache.enable(args.compile_cache)
     predictor = build_predictor(args)
     if not args.no_warmup:
         warmup(predictor)

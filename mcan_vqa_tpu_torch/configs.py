@@ -28,6 +28,7 @@ from mcan_vqa_tpu_torch.parallel.mesh import validate_shape
 # only values the defaults already have)
 TRAIN_ENGINES = EVAL_ENGINES = ("auto", "fused", "plain")
 DROPOUT_BITS = (8, 16, 32)
+STACKED_PARAMS = ("auto", "on", "off", True, False)
 MU_DTYPES = ("", "bfloat16")
 MIMIC_FEAT_SOURCES = ("regions", "anatomy", "both")
 MODELS: Dict[str, Dict[str, Any]] = {
@@ -90,6 +91,13 @@ class Config:
     # engine (on the CPU its kernels' plain versions, test-only); "plain"
     # always the plain engine (config.py:136, trainer.py:540-567)
     train_engine: str = "auto"
+    # the stacked parameter layout of the fused VQA train engine
+    # (ops/stacked_params.py, config.py:137-148): "on" trains from one
+    # [L, ...] leaf per block weight role, already in the train kernels'
+    # layout; "off" from the standard leaves; "auto" resolves off, as in
+    # JAX (trainer.py:265-271). Bools are taken as "on" / "off". Ignored,
+    # with a log line, where the fused VQA engine does not run
+    stacked_params: Any = "auto"
     # the checkpoint lifecycle (config.py:28, :99-100, :130, :149):
     # resume from the checkpoint the ckpt_* fields name; keep only the
     # newest keep_last_ckpts epochs (0 keeps all); write the epoch pickles
@@ -158,6 +166,9 @@ class Config:
         if self.train_engine not in TRAIN_ENGINES:
             raise ValueError(f"train_engine must be one of {TRAIN_ENGINES}, "
                              f"got {self.train_engine!r}")
+        if self.stacked_params not in STACKED_PARAMS:
+            raise ValueError(f"stacked_params must be 'auto', 'on' or "
+                             f"'off', got {self.stacked_params!r}")
         if self.eval_engine not in EVAL_ENGINES:
             raise ValueError(f"eval_engine must be one of {EVAL_ENGINES}, "
                              f"got {self.eval_engine!r}")

@@ -116,6 +116,17 @@ def load_vocab_meta(path: str) -> Optional[dict]:
     return json.loads(raw) if raw else None
 
 
+GLOVE_MODEL = "en_core_web_lg"
+
+
+def glove_available() -> bool:
+    """Whether ``spacy_glove_lookup`` can load its vectors: spaCy and its
+    ``en_core_web_lg`` model both importable (probed, not loaded)."""
+    from importlib.util import find_spec
+    return find_spec("spacy") is not None and \
+        find_spec(GLOVE_MODEL) is not None
+
+
 def spacy_glove_lookup():
     """A token -> GloVe vector lookup through spaCy's en_core_web_lg, or
     None with a warning where it is not installed: the caller then falls
@@ -124,7 +135,7 @@ def spacy_glove_lookup():
     try:
         import spacy
 
-        nlp = spacy.load("en_core_web_lg")
+        nlp = spacy.load(GLOVE_MODEL)
         return lambda word: nlp(word).vector
     except Exception as e:
         warnings.warn(

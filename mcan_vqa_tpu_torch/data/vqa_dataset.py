@@ -17,7 +17,6 @@ the port and the JAX package see the same examples for the same arguments.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 from typing import Dict, List, Tuple
@@ -82,7 +81,9 @@ class VQADataset:
         """The cached vocabulary where the cache was built from the same
         question files with the same embedding source, else a new one over
         the question files present (written to the cache). A cache of
-        fallback vectors counts as fresh while spaCy is not installed."""
+        fallback vectors counts as fresh while spaCy or its
+        ``en_core_web_lg`` model is not installed: a rebuild would give
+        the same fallback vectors (``text.spacy_glove_lookup``)."""
         cfg = self.cfg
         cache = cfg.vocab_cache_path
         sources = [key for key in ("train", "val", "test", "vg")
@@ -95,7 +96,7 @@ class VQADataset:
             if fresh and meta is not None:
                 fresh = meta.get("sources") == sources
                 if fresh and want_glove and not meta.get("glove", False):
-                    fresh = importlib.util.find_spec("spacy") is None
+                    fresh = not text_mod.glove_available()
             if fresh:
                 return tok, emb
         stat_qs = []

@@ -40,6 +40,14 @@ the plain sites (AttFlat, an encoder in plain ops) keep generator masks.
 With ``sga_block="plain"`` the same seeds feed the plain blocks, which draw
 the same bits through ``kernels.philox4x32_plain``.
 
+The forward takes an ``MCANet`` or the same model in the stacked layout
+(``ops/stacked_params.py::StackedMCANet``, the Trainer's
+``stacked_params="on"``): there each block's train-layout weights are
+slices of [L, ...] leaves, so no concatenation or transpose of a block
+weight runs in the step, and the cross k / v run ``Dense``'s product on
+their stacked [out, in] leaves. The stacked layout takes the fused blocks
+only (``sga_block="fused"``, no model group).
+
 ``make_fused_classifier_forward`` (JAX :262-311) is the classifier's:
 forward(net, img_feat, generator) over a ``ClassifierNet``, every SA block
 over the image stream through ``sa_train.fused_sa_block_train`` at every
@@ -70,13 +78,16 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from mcan_vqa_tpu_torch.models.attention import NEG_INF, split_heads
-from mcan_vqa_tpu_torch.models.layers import (copy_inputs_to_model,
+from mcan_vqa_tpu_torch.models.layers import (bf16_matmul,
+                                              copy_inputs_to_model,
                                               copy_to_model, make_mask,
                                               operand, row_parallel)
 from mcan_vqa_tpu_torch.models.net import attflat_pool
 from mcan_vqa_tpu_torch.ops import sa_train, sga_train
 from mcan_vqa_tpu_torch.ops.dropout import draw_seeds, inv_keep_prob, \
     keep_masks
+from mcan_vqa_tpu_torch.ops.stacked_params import StackedBackbone, \
+    block_views
 from mcan_vqa_tpu_torch.parallel.sharding import group_rank, group_size
 
 Mask = Optional[torch.Tensor]
@@ -233,10 +244,23 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
         B, Lq, D = q.shape
         Lv = v.shape[1]
         bb = net.backbone
+        # the stacked layout (ops/stacked_params.py): each block's train
+        # layout is a slice of the stacks; else built from its leaves
+        stacked = isinstance(bb, StackedBackbone)
+        if stacked and (model_group is not None
+                        or sga_block != "fused"
+                        or hasattr(bb, "enc") != (sa_block is not None)):
+            raise ValueError("the stacked layout runs the fused blocks, "
+                             "its encoder stacked where the SA train "
+                             "blocks run it")
+        dec_w = (block_views(bb.dec) if stacked else
+                 [sga_train.prepare_sga_train_params(
+                     dict(dec.named_parameters())) for dec in bb.dec_list])
+        enc_w = (block_views(bb.enc) if stacked and hasattr(bb, "enc")
+                 else [None] * num_layers)
         masks = draw_step_masks(
             generator, rate, B=B, Lq=Lq, Lv=Lv, D=D,
-            F=bb.dec_list[0].ffn.mlp.fc.linear.weight.shape[0] * tp,
-            H=num_heads,
+            F=dec_w[0]["w1"].shape[1] * tp, H=num_heads,
             num_layers=num_layers,
             flat_mlp=net.attflat_lang.mlp.fc.linear.weight.shape[0],
             bit_width=dropout_bits, seeded_enc=seeded and fused_encoder,
@@ -244,11 +268,13 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
 
         # ---- encoder SA stack over the question: the train block, or
         # plain ops
-        for enc, m in zip(bb.enc_list, masks["enc"]):
+        enc_blocks = bb.enc_list if hasattr(bb, "enc_list") else enc_w
+        for enc, w, m in zip(enc_blocks, enc_w, masks["enc"]):
             m = shard_masks(m, tp, index)
             if sa_block is not None:
-                w = sa_train.prepare_sa_train_params(
-                    dict(enc.named_parameters()))
+                if w is None:
+                    w = sa_train.prepare_sa_train_params(
+                        dict(enc.named_parameters()))
                 q = sa_block(q.float(), q_mask, m, w, num_heads=H,
                              inv_keep=inv_keep,
                              rate=rate if seeded else None)
@@ -263,11 +289,17 @@ def make_fused_train_forward(num_layers: int, num_heads: int,
         # tensor parallelism one f on q carries every layer's cross k / v
         qk = copy_to_model(q, group)
         tp_kw = {} if group is None else {"model_group": group}
-        for dec, m in zip(bb.dec_list, masks["dec"]):
-            kq = split_heads(dec.mhatt2.linear_k(qk), H)
-            vq = split_heads(dec.mhatt2.linear_v(qk), H)
-            w = sga_train.prepare_sga_train_params(
-                dict(dec.named_parameters()))
+        for i, (w, m) in enumerate(zip(dec_w, masks["dec"])):
+            if stacked:
+                # Dense's product on the [out, in] leaf
+                kq = split_heads(bf16_matmul(qk, w["wk2"].t()) + w["bk2"],
+                                 H)
+                vq = split_heads(bf16_matmul(qk, w["wv2"].t()) + w["bv2"],
+                                 H)
+            else:
+                dec = bb.dec_list[i]
+                kq = split_heads(dec.mhatt2.linear_k(qk), H)
+                vq = split_heads(dec.mhatt2.linear_v(qk), H)
             if seeded:
                 v = seeded_block(v, kq, vq, v_mask, q_mask, m, w,
                                  num_heads=H, rate=rate)

@@ -30,6 +30,16 @@ its blocks draw their dropout inside the kernels (``in_kernel_dropout``,
 JAX's ``on_tpu``, trainer.py:243, :280); on the CPU they read external
 masks.
 
+``cfg.stacked_params="on"`` (JAX's trainer.py:265-304; "auto" resolves
+off) trains the fused VQA engine from the stacked layout
+(``ops/stacked_params.py``): ``train`` turns the standard state into the
+stacked one after restoring it (``stacked_state``), and back into the
+standard ``self.state`` at each boundary (``sync_state``): before every
+epoch pickle, and so before the evaluations and the calibration that
+follow it, and before it returns. The pickles keep the standard format.
+Elsewhere (the plain engine, the classifier, a model axis > 1) "on" is
+ignored with a log line, as in JAX.
+
 The eval engine is chosen as the JAX Trainer's ``_use_fused_eval``
 (trainer.py:569-585): ``cfg.eval_engine`` "plain" -> the plain model with
 dropout off (``make_eval_step``); "fused" -> the shipped serving engine,
@@ -107,6 +117,8 @@ from mcan_vqa_tpu_torch.evals import vqa_eval
 from mcan_vqa_tpu_torch.evals.roc_auc import multilabel_roc_auc
 from mcan_vqa_tpu_torch.models.net import ClassifierNet, MCANet
 from mcan_vqa_tpu_torch.ops.quant import calibrate_classifier_act_scales
+from mcan_vqa_tpu_torch.ops.stacked_params import (from_stacked_state,
+                                                   to_stacked_state)
 from mcan_vqa_tpu_torch.ops.serving import (
     build_production_classifier_engine, build_production_engine,
     calibrate_serving_scales, prepare_production_classifier_params)
@@ -279,6 +291,11 @@ class Trainer:
             seed=cfg.seed)
         self._state_settled = False    # resumed or warm-started already
         self.fused = use_fused_train(cfg, self.device, mesh)
+        # the stacked layout rides the fused VQA train engine only
+        # (trainer.py:265-301); "auto" resolves off
+        self.stacked_requested = cfg.stacked_params in ("on", True)
+        self.stacked = self.stacked_requested and self.fused \
+            and not self.image_only
         self.build_step(self.fused and self.device.type == "cuda")
         self.fused_eval = use_fused_eval(cfg, self.device, mesh)
         self.eval_step = make_eval_step(self.model)
@@ -305,6 +322,20 @@ class Trainer:
             per_param_norms=cfg.grad_norm_log_every > 0,
             image_only=self.image_only, data_group=self.mesh.data_group,
             model_group=self.mesh.model_group)
+
+    def stacked_state(self) -> TrainState:
+        """The train state in the stacked layout
+        (``ops/stacked_params.to_stacked_state``) of the current standard
+        one: its encoder stacked where the SA train blocks run it."""
+        return to_stacked_state(
+            self.ensure_state(),
+            encoder=engine_route(self.cfg.hidden_size)["fused_encoder"])
+
+    def sync_state(self, state: TrainState) -> TrainState:
+        """The standard state brought up to ``state`` (stacked, or the
+        standard one itself): the boundary before a checkpoint, an
+        evaluation, the calibration and the return of ``train``."""
+        return from_stacked_state(state, into=self.state)
 
     def loader(self) -> BatchLoader:
         """This data rank's rows of every shuffled global batch."""
@@ -417,6 +448,16 @@ class Trainer:
         mesh_note = (f", mesh {self.mesh.dp}x{self.mesh.tp}"
                      if self.mesh.size > 1 else "")
         self.logger.write(f"{line} (device {self.device}{mesh_note})")
+        if self.stacked:
+            state = self.stacked_state()
+            self.logger.write("stacked_params: on (the block weights train "
+                              "as [L, ...] leaves in the kernels' layout)")
+        elif self.stacked_requested:
+            # say so: the layout rides the fused VQA train engine only
+            self.logger.write(
+                "stacked_params='on' ignored: the stacked layout applies "
+                "only to the fused VQA train engine (not plain/classifier "
+                "paths)")
         in_epoch_eval = (self.image_only and cfg.eval_interval > 0
                          and self.eval_datasets)
         if (cfg.eval_every_epoch or in_epoch_eval) and self.eval_datasets:
@@ -485,7 +526,8 @@ class Trainer:
                         self.logger.jsonl({"epoch": epoch, "step": n_steps,
                                            "grad_norm_sums": norm_sums,
                                            "final": True})
-                    path = self._save_epoch(saver, state, epoch + 1)
+                    path = self._save_epoch(saver, self.sync_state(state),
+                                            epoch + 1)
                     last_saved = epoch + 1
                     metrics = {"loss": loss_sum / max(n_steps, 1), "lr": lr,
                                "steps": n_steps,
@@ -522,6 +564,7 @@ class Trainer:
                     self.logger.write(
                         "async checkpoint flush failed during error unwind "
                         "(original exception propagates)")
+        state = self.sync_state(state)
         # JAX's guard (trainer.py:462-468): no model axis, one node
         if cfg.ckpt_calibrate and last_inputs is not None \
                 and last_saved is not None and self.rank0 \

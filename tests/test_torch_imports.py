@@ -74,6 +74,20 @@ def test_port_sources_found():
                      "mcan_vqa_tpu_torch/ops/library.py",
                      "mcan_vqa_tpu_torch/cli/serve.py",
                      "mcan_vqa_tpu_torch/cli/bench_serve_http.py",
+                     "mcan_vqa_tpu_torch/utils/visualize.py",
+                     "mcan_vqa_tpu_torch/utils/compile_cache.py",
+                     "mcan_vqa_tpu_torch/ops/stacked_params.py",
+                     "mcan_vqa_tpu_torch/cli/build_answer_dict.py",
+                     "mcan_vqa_tpu_torch/cli/ab_timer.py",
+                     "mcan_vqa_tpu_torch/cli/bench_serving_ab.py",
+                     "mcan_vqa_tpu_torch/cli/bench_classifier_serve.py",
+                     "mcan_vqa_tpu_torch/cli/bench_train_ab.py",
+                     "mcan_vqa_tpu_torch/cli/bench_host_feed.py",
+                     "mcan_vqa_tpu_torch/cli/param_footprint.py",
+                     "mcan_vqa_tpu_torch/cli/train_roofline.py",
+                     "mcan_vqa_tpu_torch/cli/card_check.py",
+                     "mcan_vqa_tpu_torch/cli/validate_prng_dropout.py",
+                     "mcan_vqa_tpu_torch/cli/validate_inkernel_dw.py",
                      "chip_smoke.py"):
         assert expected in names
     assert not (PORT / "data.py").exists()
@@ -130,6 +144,18 @@ def test_port_loads_no_jax_module():
             "import mcan_vqa_tpu_torch.ops.library\n"
             "import mcan_vqa_tpu_torch.cli.serve\n"
             "import mcan_vqa_tpu_torch.cli.bench_serve_http\n"
+            "import mcan_vqa_tpu_torch.utils.visualize\n"
+            "import mcan_vqa_tpu_torch.utils.compile_cache\n"
+            "import mcan_vqa_tpu_torch.ops.stacked_params\n"
+            "import mcan_vqa_tpu_torch.cli.build_answer_dict\n"
+            "import mcan_vqa_tpu_torch.cli.bench_serving_ab\n"
+            "import mcan_vqa_tpu_torch.cli.bench_classifier_serve\n"
+            "import mcan_vqa_tpu_torch.cli.bench_train_ab\n"
+            "import mcan_vqa_tpu_torch.cli.bench_host_feed\n"
+            "import mcan_vqa_tpu_torch.cli.param_footprint\n"
+            "import mcan_vqa_tpu_torch.cli.train_roofline\n"
+            "import mcan_vqa_tpu_torch.cli.validate_prng_dropout\n"
+            "import mcan_vqa_tpu_torch.cli.validate_inkernel_dw\n"
             "new = set(sys.modules) - before\n"
             f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -484,13 +484,14 @@ def _jax_parser(monkeypatch):
 
 def test_run_mimic_takes_every_jax_flag_with_its_default(monkeypatch):
     """Each flag of the JAX CLI parses to the JAX value, and the defaults
-    agree; --compile_cache and --compute_dtype (XLA options) are refused;
-    img_feat_size defaults to 1024 in both."""
+    agree; --compute_dtype (an XLA option) is refused, --compile_cache
+    accepted and ignored (utils/compile_cache.py); img_feat_size defaults
+    to 1024 in both."""
     parser = _jax_parser(monkeypatch)
     base = ["--run", "train"]
     jdefaults, defaults = vars(jrun_mimic.parse_args(base)), vars(
         run_mimic.parse_args(base))
-    refused = {"compile_cache", "compute_dtype"}
+    refused = {"compute_dtype"}
     for act in parser._actions:
         if not act.option_strings or act.dest in ("help", "run_mode"):
             continue

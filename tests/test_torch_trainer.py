@@ -127,10 +127,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--run", "visualize", "--synthetic"]])
-def test_unported_cli_modes_raise(argv):
-    """--run visualize raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_vqa.main(argv + ["--device", "cpu"])
+def test_unported_cli_modes_raise(argv, tmp_path):
+    """--run visualize runs (tests/test_torch_visualize.py), and without a
+    checkpoint named it raises before it renders anything."""
+    with pytest.raises(ValueError, match="name the checkpoint to load"):
+        run_vqa.main(argv + ["--device", "cpu", *TINY,
+                             "--log_path", str(tmp_path / "log"),
+                             "--ckpts_dir", str(tmp_path / "ck"),
+                             "--result_path", str(tmp_path / "res") + "/"])
+    assert not (tmp_path / "res").exists()
 
 
 def _pickle(path):

@@ -7,6 +7,7 @@ fp16 cache (equal bytes on disk, ``cli/pack_features.py``), and the
 evaluation form of ``BatchLoader`` (batches, ``valid``, ``n_valid``). All
 exact: the copies are the same numpy code."""
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -198,6 +199,36 @@ def test_spacy_lookup_falls_back_with_a_warning():
                    for w in seen)
     else:
         assert np.asarray(got("cat")).shape == (300,)
+
+
+@pytest.mark.parametrize("model_found", [False, True],
+                         ids=["spacy-without-its-model", "spacy-and-model"])
+def test_fallback_vocab_cache_kept_without_the_spacy_model(
+        files, monkeypatch, model_found):
+    """A cache of fallback vectors under use_glove=True is kept where spaCy
+    imports but en_core_web_lg does not (a rebuild gives the same vectors),
+    and rebuilt only where both are importable."""
+    import importlib.util
+
+    root, paths = files
+    t, _ = _configs(root, paths, f"glove_{model_found}")
+    t = dataclasses.replace(t, use_glove=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        first = VQADataset(t, "val")
+    assert ttext.load_vocab_meta(t.vocab_cache_path)["glove"] is False
+    real = importlib.util.find_spec
+    present = {"spacy"} | ({ttext.GLOVE_MODEL} if model_found else set())
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+        object() if name in present else real(name, *a)))
+    saved = []
+    monkeypatch.setattr(ttext, "save_vocab",
+                        lambda *a, **k: saved.append(a[0]))
+    monkeypatch.setattr(ttext, "spacy_glove_lookup", lambda: None)
+    again = VQADataset(t, "val")
+    assert saved == ([t.vocab_cache_path] if model_found else [])
+    assert again.token_to_ix == first.token_to_ix
+    np.testing.assert_array_equal(again.pretrained_emb, first.pretrained_emb)
 
 
 def _loader_batches(loader, keys):
